@@ -1,0 +1,281 @@
+"""Config system (counterpart of ``src/repro/config/base.py``).
+
+``ModelConfig`` describes an architecture, ``KernelConfig`` the kernel
+dispatch policy, ``ServeConfig`` the serving engine, ``RunConfig`` the
+bundle a user builds an adapter from. Field names and defaults follow the
+JAX package; dtypes are torch dtypes. The port implements the dense-cache
+serving slice: the engine raises ``NotImplementedError`` for any field
+value outside it instead of ignoring it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+MIXERS = ("attn", "mamba", "mlstm", "slstm", "none")
+FFNS = ("dense", "moe", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | vlm | audio | ssm | hybrid
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 -> d_model // num_heads
+    block_pattern: tuple = (("attn", "dense"),)
+    mlp: str = "swiglu"            # swiglu | geglu | gelu
+    norm_kind: str = "rmsnorm"     # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    num_shared_experts: int = 0
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.0
+    # --- mamba ---
+    mamba_d_state: int = 16
+    mamba_expand: int = 2
+    mamba_dt_rank: int = 0
+    mamba_conv: int = 4
+    # --- enc-dec ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    # --- frontends ---
+    frontend: str = "none"
+    frontend_seq: int = 0
+    # --- dtypes ---
+    param_dtype: Any = torch.bfloat16
+    compute_dtype: Any = torch.bfloat16
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding rows padded to a multiple of 128 (as in the JAX
+        package, so converted weights keep their shape); padded ids are
+        never produced by a real token."""
+        return -(-self.vocab_size // 128) * 128
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.resolved_head_dim
+
+    @property
+    def pattern_len(self) -> int:
+        return len(self.block_pattern)
+
+    @property
+    def num_super_blocks(self) -> int:
+        if self.num_layers % self.pattern_len:
+            raise ValueError(
+                f"{self.name}: num_layers={self.num_layers} not divisible by "
+                f"pattern length {self.pattern_len}")
+        return self.num_layers // self.pattern_len
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def total_layers(self) -> int:
+        """Adapter L axis: encoder layers (if any) + decoder layers."""
+        return self.encoder_layers + self.num_layers
+
+    def validate(self) -> "ModelConfig":
+        for mixer, ffn in self.block_pattern:
+            if mixer not in MIXERS or ffn not in FFNS:
+                raise ValueError(f"bad block pattern entry {(mixer, ffn)}")
+        _ = self.num_super_blocks
+        if any(f == "moe" for _, f in self.block_pattern):
+            if not (self.num_experts and self.experts_per_token):
+                raise ValueError(f"{self.name}: moe blocks need num_experts")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Serving-side int8 quantization (not ported yet: any value other
+    than the defaults raises in the engine)."""
+    weights: str = "none"          # none | int8
+    kv: str = "none"               # none | int8
+    group_size: int = 0
+
+    @property
+    def any(self) -> bool:
+        return self.weights != "none" or self.kv != "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """Kernel-dispatch policy, resolved by ``kernels/dispatch.resolve``.
+
+    backend: "auto" — the CUDA kernels for CUDA tensors, the plain
+        versions for CPU tensors (a wrapper picks by its input's device);
+        "cuda" — the same, but a CPU tensor raises; "ref" — the plain
+        PyTorch versions everywhere (the comparison leg on the card).
+    fuse_linear: route adapted linears through the fused K1/K2 kernels
+        whenever the adapter folds to lora-form (A, B).
+    flash: route attention through the K3/K4 kernels.
+    interpret / bm / bn / bk / bq / bkv / quant: the JAX package's Pallas
+        knobs. The CUDA kernels have fixed tiles and no interpret mode, so
+        anything but the defaults raises ``NotImplementedError``.
+    """
+    backend: str = "auto"          # auto | cuda | ref
+    interpret: Optional[bool] = None
+    fuse_linear: bool = True
+    flash: bool = True
+    bm: int = 0
+    bn: int = 0
+    bk: int = 0
+    bq: int = 0
+    bkv: int = 0
+    quant: QuantConfig = QuantConfig()
+
+    def validate(self) -> "KernelConfig":
+        if self.backend not in ("auto", "cuda", "ref"):
+            raise ValueError(f"unknown kernel backend {self.backend!r}; "
+                             "want auto | cuda | ref")
+        if self.interpret:
+            raise NotImplementedError(
+                "interpret mode is a Pallas feature; the CUDA kernels have "
+                "none (CPU tensors run the plain versions)")
+        tiles = {n: getattr(self, n) for n in ("bm", "bn", "bk", "bq", "bkv")
+                 if getattr(self, n)}
+        if tiles:
+            raise NotImplementedError(
+                f"tile overrides {tiles}: the CUDA kernels use fixed tiles")
+        if self.quant.any:
+            raise NotImplementedError("int8 kernels are not ported yet")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Speculative decode (not ported yet: spec_k > 0 raises)."""
+    spec_k: int = 0
+    draft_rank: int = 0
+    draft_layer_stride: int = 1
+
+    @property
+    def enabled(self) -> bool:
+        return self.spec_k > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RegistryConfig:
+    """Paged adapter registry (not ported yet: max_resident_tasks > 0
+    raises)."""
+    max_resident_tasks: int = 0
+    eviction: str = "lru"
+
+    @property
+    def enabled(self) -> bool:
+        return self.max_resident_tasks > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Serving-engine knobs (``serving/engine.py``), the JAX package's
+    fields and defaults. The port serves ``cache_mode="dense"``: max_batch
+    slots of cache_len cells each, power-of-two (or ``prompt_buckets``)
+    prefill buckets. The paged-mode fields (page_size, num_blocks,
+    prefill_chunk, prefix_cache, router, disagg, preempt_after) configure
+    a mode the port does not run yet; ``Engine`` rejects paged mode,
+    spec, registry, quant, mesh_shape and row_parallel with
+    ``NotImplementedError``.
+    """
+    max_batch: int = 4
+    cache_len: int = 64
+    out_cap: int = 32
+    cache_mode: str = "paged"      # paged | dense
+    page_size: int = 16
+    num_blocks: int = 0
+    prefill_chunk: int = 8
+    prefix_cache: bool = True
+    prompt_buckets: tuple = ()
+    quant: QuantConfig = QuantConfig()
+    mesh_shape: tuple = ()
+    tp_axis: str = "model"
+    router: str = "least_loaded"
+    disagg: bool = False
+    row_parallel: bool = False
+    spec: SpecConfig = SpecConfig()
+    registry: RegistryConfig = RegistryConfig()
+    preempt_after: int = 0
+
+    def validate(self) -> "ServeConfig":
+        if self.cache_mode not in ("paged", "dense"):
+            raise ValueError(f"unknown cache_mode {self.cache_mode!r}; "
+                             "want paged | dense")
+        for name in ("max_batch", "cache_len", "out_cap", "page_size",
+                     "prefill_chunk"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"ServeConfig.{name} must be >= 1")
+        unported = {
+            "cache_mode='paged'": self.cache_mode == "paged",
+            "spec": self.spec.enabled,
+            "registry": self.registry.enabled,
+            "quant": self.quant.any,
+            "mesh_shape": bool(self.mesh_shape),
+            "row_parallel": self.row_parallel,
+            "disagg": self.disagg,
+            "preempt_after": bool(self.preempt_after),
+        }
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"ServeConfig {bad}: the port serves cache_mode='dense' "
+                "on one device without spec/registry/quant yet")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One cell of the input-shape grid (launcher metadata)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """The adapter a model carries (the JAX RunConfig's model, shape and
+    adapter fields; the optimizer/trainer knobs come with the training
+    slice)."""
+    model: ModelConfig
+    shape: Optional[ShapeConfig] = None
+    adapter_kind: str = "metatt"   # metatt | none
+    adapter_variant: str = "4d"    # metatt: 4d | 4+1d
+    adapter_rank: int = 8
+    adapter_alpha: float = 4.0
+    adapter_matrices: tuple = ()   # () -> arch default
+    num_tasks: int = 0
+    kernels: KernelConfig = KernelConfig()

@@ -1,0 +1,27 @@
+"""Architecture registry. ``get_config("<arch-id>")`` returns the full
+config, ``get_smoke_config`` the reduced same-family config the CPU tests
+use. The port carries the architectures of its slices so far."""
+from __future__ import annotations
+
+import importlib
+
+_MODULES = {
+    "stablelm-1.6b": "stablelm_1_6b",
+}
+
+ALL_IDS = tuple(_MODULES)
+
+
+def _mod(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port has "
+                       f"{sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str):
+    return _mod(name).CONFIG
+
+
+def get_smoke_config(name: str):
+    return _mod(name).smoke_config(name)

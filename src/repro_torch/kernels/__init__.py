@@ -1,0 +1,20 @@
+"""Hand-written Hopper kernels, their plain PyTorch versions and the
+dispatch seam the model routes through (``dispatch.py``)."""
+from __future__ import annotations
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import tt_linear as _tl
+
+KERNELS = ("tt_linear", "tt_linear_batched_a", "flash_attention",
+           "decode_attention")
+
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel since the last reset."""
+    return {**_tl.LAUNCHES, **_fa.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for d in (_tl.LAUNCHES, _fa.LAUNCHES):
+        for k in d:
+            d[k] = 0

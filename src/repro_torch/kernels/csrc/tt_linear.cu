@@ -1,0 +1,447 @@
+// Fused adapted linear for Hopper (sm_90a): y = x·W + alpha·(x·A)·B.
+//
+// Replaces the Pallas TPU kernels in src/repro/kernels/tt_linear.py:
+//   tt_linear            (_kernel + _epilogue_out)  -> tt_linear_bf16
+//   tt_linear_batched_a  (_batched_a_kernel)        -> tt_linear_batched_a_bf16
+//
+// What bounds it on an H100: at the serving shapes (M = 4..256 rows,
+// K = N = 2048) the work is 2·M·K·N flops against K·N·2 bytes of W, i.e.
+// M flops per byte — below the card's ~295 flops/byte balance point for
+// every M the engine sends, so both kernels are bound by reading W.
+// The design keeps W moving through shared memory exactly once per
+// output tile and hides the rank-r adapter inside the same pass:
+//   * one block per (BM x BN) output tile and a K loop fed by a 4-stage
+//     cp.async pipeline of x / W / A tiles in shared memory when rows are
+//     16-byte aligned (a plain zero-filling load otherwise), so several
+//     tiles of W are in flight per block while one is consumed;
+//   * the base product x·W on the tensor cores (WMMA bf16, f32 sums);
+//   * P = x·A (BM x r, f32) accumulated in shared memory next to the
+//     base tile — on the tensor cores for the shared-A kernel, as per-row
+//     GEMVs for the batched-A kernel (each slot row has its own A[m]);
+//   * an f32 epilogue acc + alpha·(P·B) — P is never rounded to bf16,
+//     as in the TPU kernel — and one rounding to bf16 on the store.
+// Ragged M/N/K and any rank 1 <= r <= 256 are masked in the kernel; the
+// rank is padded to a multiple of 16 in shared memory only.
+//
+// The C functions take device pointers and the CUDA stream as opaque
+// pointers and return cudaGetLastError() of the launch.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int PAD_H = 8;  // bf16 row pad: 16 bytes
+constexpr int PAD_F = 4;  // f32 row pad: 16 bytes
+
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// vec flags: which operands take the 16-byte cp.async path
+constexpr int VEC_XW = 1;  // K % 8 == 0, N % 8 == 0, x / w 16-byte aligned
+constexpr int VEC_A = 2;   // r % 8 == 0, a 16-byte aligned
+constexpr int PREG_R = 32; // largest rank of the register GEMV path
+
+// Shared-memory carve-up, identical on host (launch size) and device.
+struct Layout {
+  int xs, ws, as, ps, cs, total;  // byte offsets; total = bytes
+};
+
+// BATCHED && ASTAGE: the arows = min(BM, M) rows of A[m] staged per stage
+// as [m][k][ra] (ra = r rounded up to 8); BATCHED && !ASTAGE: A read from
+// device memory in the P loop (ranks too large to stage); !BATCHED: one
+// (BK, rpad) A tile.
+template <int BM, int BN, int BK, int STAGES, bool BATCHED, bool ASTAGE>
+__host__ __device__ Layout layout(int rpad, int ra, int arows) {
+  Layout L;
+  int off = 0;
+  L.xs = off;
+  off += round_up(STAGES * BM * (BK + PAD_H) * 2, 128);
+  L.ws = off;
+  off += round_up(STAGES * BK * (BN + PAD_H) * 2, 128);
+  L.as = off;
+  if (!BATCHED) off += round_up(STAGES * BK * (rpad + PAD_H) * 2, 128);
+  else if (ASTAGE) off += round_up(STAGES * arows * BK * ra * 2, 128);
+  L.ps = off;
+  off += round_up(BM * (rpad + PAD_F) * 4, 128);
+  L.cs = off;
+  off += round_up(BM * (BN + PAD_F) * 4, 128);
+  L.total = off;
+  return L;
+}
+
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool BATCHED,
+          bool ASTAGE>
+__global__ void __launch_bounds__(WM * WN * 32)
+tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                 const bf16* __restrict__ a, const bf16* __restrict__ b,
+                 bf16* __restrict__ y, int M, int N, int K, int r, int rpad,
+                 int ra, float alpha, int vec) {
+  constexpr int NT = WM * WN * 32;
+  constexpr int NW = WM * WN;
+  constexpr int TM = BM / WM, TN = BN / WN;
+  constexpr int FM = TM / 16, FN = TN / 16;
+  constexpr int XS = BK + PAD_H, WS = BN + PAD_H, CS = BN + PAD_F;
+  static_assert(TM % 16 == 0 && TN % 16 == 0 && BK % 16 == 0, "tiles");
+  static_assert(STAGES >= 2, "pipeline");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int arows = min(BM, M);  // batched-A blocks all start at row 0
+  const Layout L =
+      layout<BM, BN, BK, STAGES, BATCHED, ASTAGE>(rpad, ra, arows);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  bf16* as = reinterpret_cast<bf16*>(smem + L.as);
+  float* ps = reinterpret_cast<float*>(smem + L.ps);
+  float* cs = reinterpret_cast<float*>(smem + L.cs);
+  const int AS = rpad + PAD_H, PS = rpad + PAD_F;
+  const int ASTEP = BATCHED ? arows * BK * ra : BK * AS;  // per stage
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp / WN, wn = warp % WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int mrows = min(BM, M - m0);
+  const bf16 zero = __float2bfloat16(0.f);
+
+  for (int i = tid; i < BM * PS; i += NT) ps[i] = 0.f;
+  if (!BATCHED && (vec & VEC_A) && rpad > r) {
+    // cp.async fills columns < r only; the rank padding stays zero
+    for (int i = tid; i < STAGES * BK * (rpad - r); i += NT) {
+      const int row = i / (rpad - r), col = r + i % (rpad - r);
+      as[row * AS + col] = zero;
+    }
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  auto load_stage = [&](int s, int k0) {
+    bf16* xd = xs + s * BM * XS;
+    bf16* wd = ws + s * BK * WS;
+    if (vec & VEC_XW) {
+      for (int c = tid; c < BM * (BK / 8); c += NT) {
+        const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
+        const int gm = m0 + row, gk = k0 + col;
+        const bool ok = gm < M && gk < K;
+        cp_async16(xd + row * XS + col, ok ? x + (size_t)gm * K + gk : x,
+                   ok ? 16 : 0);
+      }
+      for (int c = tid; c < BK * (BN / 8); c += NT) {
+        const int row = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        const int gk = k0 + row, gn = n0 + col;
+        const bool ok = gk < K && gn < N;
+        cp_async16(wd + row * WS + col, ok ? w + (size_t)gk * N + gn : w,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int c = tid; c < BM * BK; c += NT) {
+        const int row = c / BK, col = c % BK;
+        const int gm = m0 + row, gk = k0 + col;
+        xd[row * XS + col] =
+            (gm < M && gk < K) ? x[(size_t)gm * K + gk] : zero;
+      }
+      for (int c = tid; c < BK * BN; c += NT) {
+        const int row = c / BN, col = c % BN;
+        const int gk = k0 + row, gn = n0 + col;
+        wd[row * WS + col] =
+            (gk < K && gn < N) ? w[(size_t)gk * N + gn] : zero;
+      }
+    }
+    bf16* ad = as + s * ASTEP;
+    if (!BATCHED) {  // A (K, r): one (BK, rpad) tile
+      if (vec & VEC_A) {
+        for (int c = tid; c < BK * (r / 8); c += NT) {
+          const int row = c / (r / 8), col = (c % (r / 8)) * 8;
+          const int gk = k0 + row;
+          const bool ok = gk < K;
+          cp_async16(ad + row * AS + col, ok ? a + (size_t)gk * r + col : a,
+                     ok ? 16 : 0);
+        }
+      } else {
+        for (int c = tid; c < BK * rpad; c += NT) {
+          const int row = c / rpad, col = c % rpad;
+          const int gk = k0 + row;
+          ad[row * AS + col] =
+              (gk < K && col < r) ? a[(size_t)gk * r + col] : zero;
+        }
+      }
+    } else if (ASTAGE) {  // A (M, K, r): this block's rows, [m][k][ra]
+      if (vec & VEC_A) {
+        for (int c = tid; c < mrows * BK * (r / 8); c += NT) {
+          const int m = c / (BK * (r / 8)), rest = c % (BK * (r / 8));
+          const int kk = rest / (r / 8), col = (rest % (r / 8)) * 8;
+          const int gk = k0 + kk;
+          const bool ok = gk < K;
+          cp_async16(ad + (m * BK + kk) * ra + col,
+                     ok ? a + ((size_t)(m0 + m) * K + gk) * r + col : a,
+                     ok ? 16 : 0);
+        }
+      } else {
+        for (int c = tid; c < mrows * BK * ra; c += NT) {
+          const int m = c / (BK * ra), rest = c % (BK * ra);
+          const int kk = rest / ra, col = rest % ra;
+          const int gk = k0 + kk;
+          ad[(m * BK + kk) * ra + col] =
+              (gk < K && col < r) ? a[((size_t)(m0 + m) * K + gk) * r + col]
+                                  : zero;
+        }
+      }
+    }
+  };
+
+  // Batched A at decode ranks (r a multiple of 8, r <= PREG_R): thread
+  // (m, kc) keeps r register partials of P[m] over k-slice kc of every
+  // tile, reading A[m] rows as 16-byte vectors (consecutive threads take
+  // consecutive k rows, so a quarter-warp hits distinct banks); the
+  // partials are summed in a fixed order after the K loop.
+  const bool preg_mode = BATCHED && ASTAGE && (vec & VEC_A) &&
+                         r <= PREG_R && mrows <= NT;
+  const int ksplit = NT / mrows;
+  const int my_m = tid / ksplit, my_kc = tid % ksplit;
+  float preg[PREG_R];
+#pragma unroll
+  for (int j = 0; j < PREG_R; ++j) preg[j] = 0.f;
+
+  // STAGES-deep cp.async pipeline: tiles kt+1 .. kt+STAGES-1 are in
+  // flight while tile kt is consumed
+  const int nk = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s * BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // tile kt has landed
+    __syncthreads();              // ... and tile kt-1 is consumed by all
+    const int pf = kt + STAGES - 1;
+    if (pf < nk) load_stage(pf % STAGES, pf * BK);
+    cp_async_commit();  // possibly empty group keeps the count uniform
+
+    const int s = kt % STAGES;
+    const bf16* xd = xs + s * BM * XS;
+    const bf16* wd = ws + s * BK * WS;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+          fa[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+          fb[FN];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+        wmma::load_matrix_sync(fa[i], xd + (wm * TM + i * 16) * XS + kk, XS);
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(fb[j], wd + kk * WS + wn * TN + j * 16, WS);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+
+    const bf16* ad = as + s * ASTEP;
+    if (!BATCHED) {
+      // P += x_tile · A_tile on the tensor cores; P lives in shared memory
+      // (f32) so any rank fits, one 16x16 fragment per warp at a time.
+      const int fr = rpad / 16, nfr = (BM / 16) * fr;
+      for (int f = warp; f < nfr; f += NW) {
+        const int fi = f / fr, fj = f % fr;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> pc;
+        wmma::load_matrix_sync(pc, ps + fi * 16 * PS + fj * 16, PS,
+                               wmma::mem_row_major);
+#pragma unroll
+        for (int kk = 0; kk < BK; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+              fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+              fb;
+          wmma::load_matrix_sync(fa, xd + fi * 16 * XS + kk, XS);
+          wmma::load_matrix_sync(fb, ad + kk * AS + fj * 16, AS);
+          wmma::mma_sync(pc, fa, fb, pc);
+        }
+        wmma::store_matrix_sync(ps + fi * 16 * PS + fj * 16, pc, PS,
+                                wmma::mem_row_major);
+      }
+    } else if (preg_mode) {
+      // P[m] += x[m, tile] · A[m, tile, :] over this thread's k-slice
+      if (my_m < mrows) {
+        const bf16* xp = xd + my_m * XS;
+        const bf16* ap = ad + my_m * BK * ra;
+        for (int kk = my_kc; kk < BK; kk += ksplit) {
+          const float xv = __bfloat162float(xp[kk]);
+#pragma unroll
+          for (int v = 0; v < PREG_R / 8; ++v) {
+            if (v * 8 < r) {
+              const uint4 u =
+                  *reinterpret_cast<const uint4*>(ap + kk * ra + v * 8);
+              const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+              for (int t = 0; t < 8; ++t)
+                preg[v * 8 + t] += xv * __bfloat162float(e[t]);
+            }
+          }
+        }
+      }
+    } else {
+      // P[m] += x[m, k0:k0+BK] · A[m, k0:k0+BK, :] — a GEMV per slot row
+      // against that row's own task-routed A; the (m, j) -> thread map is
+      // the same every K step, so each P cell has one owner. Tiles are
+      // zero past K, so the sum runs over the whole tile.
+      const int k0 = kt * BK;
+      for (int c = tid; c < mrows * r; c += NT) {
+        const int m = c / r, j = c % r;
+        float sum = 0.f;
+        if (ASTAGE) {
+          const bf16* ap = ad + m * BK * ra + j;
+#pragma unroll 8
+          for (int kk = 0; kk < BK; ++kk)
+            sum += __bfloat162float(xd[m * XS + kk]) *
+                   __bfloat162float(ap[kk * ra]);
+        } else {
+          const bf16* ap = a + ((size_t)(m0 + m) * K + k0) * r + j;
+          const int kend = min(BK, K - k0);
+          for (int kk = 0; kk < kend; ++kk)
+            sum += __bfloat162float(xd[m * XS + kk]) *
+                   __bfloat162float(ap[(size_t)kk * r]);
+        }
+        ps[m * PS + j] += sum;
+      }
+    }
+  }
+
+  if (preg_mode) {
+    __syncthreads();  // every warp is done with the x tiles: reuse them
+    float* part = reinterpret_cast<float*>(xs);  // [m][kc][r]
+    if (my_m < mrows) {
+#pragma unroll
+      for (int j = 0; j < PREG_R; ++j)
+        if (j < r) part[(my_m * ksplit + my_kc) * r + j] = preg[j];
+    }
+    __syncthreads();
+    for (int c = tid; c < mrows * r; c += NT) {
+      const int m = c / r, j = c % r;
+      float sum = 0.f;
+      for (int kc = 0; kc < ksplit; ++kc)
+        sum += part[(m * ksplit + kc) * r + j];
+      ps[m * PS + j] = sum;
+    }
+  }
+
+  // epilogue in f32: y = acc + alpha · (P · B), one bf16 rounding
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+      wmma::store_matrix_sync(cs + (wm * TM + i * 16) * CS + wn * TN + j * 16,
+                              acc[i][j], CS, wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = tid; idx < BM * BN; idx += NT) {
+    const int row = idx / BN, col = idx % BN;
+    const int gm = m0 + row, gn = n0 + col;
+    if (gm < M && gn < N) {
+      float t = 0.f;
+      const float* prow = ps + row * PS;
+      for (int j = 0; j < r; ++j)
+        t += prow[j] * __bfloat162float(b[(size_t)j * N + gn]);
+      y[(size_t)gm * N + gn] = __float2bfloat16(cs[row * CS + col] + alpha * t);
+    }
+  }
+}
+
+constexpr int SMEM_MAX = 227 * 1024;  // H100: per-block dynamic maximum
+
+template <int BM, int BN, int BK, int STAGES, bool BATCHED, bool ASTAGE>
+int smem_bytes(int r, int M) {
+  return layout<BM, BN, BK, STAGES, BATCHED, ASTAGE>(
+             round_up(r, 16), round_up(r, 8), M < BM ? M : BM)
+      .total;
+}
+
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool BATCHED,
+          bool ASTAGE>
+int launch(const void* x, const void* w, const void* a, const void* b,
+           void* y, int M, int N, int K, int r, float alpha, int vec,
+           void* stream) {
+  const int rpad = round_up(r, 16), ra = round_up(r, 8);
+  const int smem = smem_bytes<BM, BN, BK, STAGES, BATCHED, ASTAGE>(r, M);
+  auto kern = tt_linear_kernel<BM, BN, BK, WM, WN, STAGES, BATCHED, ASTAGE>;
+  static int smem_set = 48 * 1024;  // per instantiation, grows only
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kern<<<grid, WM * WN * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<bf16*>(y), M, N, K, r, rpad, ra, alpha, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (M, K), w (K, N), a (K, r), b (r, N), y (M, N); all bf16, row-major,
+// contiguous. vec: VEC_XW promises K % 8 == 0, N % 8 == 0 and 16-byte
+// aligned x / w; VEC_A promises r % 8 == 0 and a 16-byte aligned a.
+int tt_linear_bf16(const void* x, const void* w, const void* a,
+                   const void* b, void* y, int M, int N, int K, int r,
+                   float alpha, int vec, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 256)
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes<64, 64, 64, 4, false, true>(r, M) <= SMEM_MAX)
+    return launch<64, 64, 64, 2, 2, 4, false, true>(x, w, a, b, y, M, N, K,
+                                                    r, alpha, vec, stream);
+  return launch<64, 64, 32, 2, 2, 2, false, true>(x, w, a, b, y, M, N, K, r,
+                                                  alpha, vec, stream);
+}
+
+// Per-row A: x (M, K), a (M, K, r); one block per N tile covers all M
+// rows (M <= 64), so W is read once per launch. A[m] tiles are staged
+// with the x / W tiles when they fit in shared memory.
+int tt_linear_batched_a_bf16(const void* x, const void* w, const void* a,
+                             const void* b, void* y, int M, int N, int K,
+                             int r, float alpha, int vec, void* stream) {
+  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || r > 256)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 16) {
+    if (smem_bytes<16, 64, 128, 4, true, true>(r, M) <= SMEM_MAX)
+      return launch<16, 64, 128, 1, 4, 4, true, true>(
+          x, w, a, b, y, M, N, K, r, alpha, vec, stream);
+    return launch<16, 32, 64, 1, 2, 2, true, false>(x, w, a, b, y, M, N, K,
+                                                    r, alpha, vec, stream);
+  }
+  if (smem_bytes<64, 32, 32, 4, true, true>(r, M) <= SMEM_MAX)
+    return launch<64, 32, 32, 2, 2, 4, true, true>(x, w, a, b, y, M, N, K, r,
+                                                   alpha, vec, stream);
+  return launch<64, 32, 64, 2, 2, 2, true, false>(x, w, a, b, y, M, N, K, r,
+                                                  alpha, vec, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,76 @@
+"""Shape contract between model code and the kernels (counterpart of
+``src/repro/kernels/ops.py``).
+
+Leading dims flatten to rows; attention keeps q in (B, T, H, d) and k/v in
+(B, S, KV, d) at these functions. The CUDA kernels mask ragged edges and
+index KV head h // G themselves, so — unlike the TPU path — nothing pads
+to a tile multiple and no head-repeated copy of k/v is made.
+
+``backend``: "kernel" calls the kernel wrappers (a CUDA tensor launches
+the kernel, a CPU tensor runs the plain version); "ref" calls the plain
+versions directly, on any device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import tt_linear as _tl
+
+BACKENDS = ("kernel", "ref")
+
+
+def _check(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}; want one of {BACKENDS}")
+
+
+def tt_linear(x, w, a, b, *, alpha: float = 1.0, backend: str = "kernel"):
+    """y = x·W + α·(x·A)·B; x (..., K), w (K, N), a (K, r), b (r, N)."""
+    _check(backend)
+    lead, k = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, k)
+    fn = _ref.tt_linear_ref if backend == "ref" else _tl.tt_linear
+    return fn(xf, w, a, b, alpha).reshape(*lead, w.shape[1])
+
+
+def tt_linear_batched_a(x, w, a, b, *, alpha: float = 1.0,
+                        backend: str = "kernel"):
+    """y[s] = x[s]·W + α·(x[s]·A[s])·B; x (S, K) or (S, 1, K), a (S, K, r).
+    The S axis is the engine's slot axis: A[s] was gathered by slot s's
+    task id, so a mixed-task decode batch is one kernel call."""
+    _check(backend)
+    squeeze = x.ndim == 3
+    if squeeze:
+        if x.shape[1] != 1:
+            raise ValueError("batched-A fusion is decode-shaped (one token "
+                             f"per slot); got {tuple(x.shape)}")
+        x = x[:, 0]
+    fn = (_ref.tt_linear_batched_a_ref if backend == "ref"
+          else _tl.tt_linear_batched_a)
+    y = fn(x, w, a, b, alpha)
+    return y[:, None] if squeeze else y
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    backend: str = "kernel"):
+    """GQA attention. q (B, T, H, d); k, v (B, S, KV, d) -> (B, T, H, d)."""
+    _check(backend)
+    if backend == "ref":
+        return _fa.flash_attention_plain(q, k, v, causal)
+    return _fa.flash_attention(q, k, v, causal)
+
+
+def decode_attention(q, k, v, pos, *, backend: str = "kernel"):
+    """Cached single-token decode. q (B, 1, H, d); k, v (B, S, KV, d);
+    pos scalar or (B,) — row b attends cells [0, pos[b]] -> (B, 1, H, d)."""
+    _check(backend)
+    b, t = q.shape[:2]
+    if t != 1:
+        raise ValueError("decode attention expects a single query token")
+    pos = torch.as_tensor(pos, device=q.device).to(torch.int32)
+    pos = pos.expand(b) if pos.ndim == 0 else pos
+    fn = (_fa.decode_attention_plain if backend == "ref"
+          else _fa.decode_attention)
+    return fn(q[:, 0], k, v, pos)[:, None]

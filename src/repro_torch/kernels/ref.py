@@ -1,0 +1,64 @@
+"""Plain PyTorch versions of every kernel (the allclose targets).
+
+Each mirrors the dtype casts of its counterpart in the JAX package's
+``kernels/ref.py`` / ``kernels/ops.py``: products of bf16 operands are
+taken in f32 (exact), sums in f32, and the result is rounded once to the
+input dtype. The CPU path of every kernel wrapper runs these; on the card
+they are the comparison leg (``KernelConfig(backend="ref")``).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30
+
+
+def tt_linear_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    """y = x·W + α·(x·A)·B with f32 accumulators; P = x·A stays f32."""
+    xf = x.float()
+    y = xf @ w.float()
+    p = xf @ a.float()
+    y = y + alpha * (p @ b.float())
+    return y.to(x.dtype)
+
+
+def tt_linear_batched_a_ref(x: torch.Tensor, w: torch.Tensor,
+                            a: torch.Tensor, b: torch.Tensor,
+                            alpha: float = 1.0) -> torch.Tensor:
+    """Per-row A: y[s] = x[s]·W + α·(x[s]·A[s])·B. x (S, K); a (S, K, r)."""
+    xf = x.float()
+    p = torch.einsum("sk,skr->sr", xf, a.to(x.dtype).float())
+    y = xf @ w.float()
+    y = y + alpha * (p @ b.float())
+    return y.to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q, k, v: (B, H, T|S, d) -> (B, H, T, d); softmax in f32, masked
+    scores set to -1e30, probabilities rounded to v's dtype before P·V."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        t, s_len = q.shape[2], k.shape[2]
+        mask = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s_len, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """Single-token cached decode. q: (BH, d); k, v: (BH, S, d); pos: (BH,)
+    — row i attends cache cells [0, pos[i]]."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bd,bsd->bs", q.float(), k.float()) * scale
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            <= pos.to(q.device)[:, None])
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bs,bsd->bd", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)

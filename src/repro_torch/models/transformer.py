@@ -1,0 +1,232 @@
+"""Decoder-LM assembly (counterpart of ``src/repro/models/transformer.py``
+for attention decoders: init, forward, dense caches, decode step).
+
+Weights keep the JAX package's layout so converted weights drop in: one
+dict per pattern position in ``blocks``, each leaf stacked over the
+``nb`` super-blocks. ``run_blocks`` is a Python loop over super-blocks and
+pattern positions; layer ``l = sb * P + p`` reads adapter slice ``l``.
+Caches mirror the blocks: ``caches[p]["self"]["k"|"v"]`` is
+(nb, B, S, KV, hd); decode writes its new k/v into them in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (AdapterCtx, dense_ffn, embed_tokens,
+                                       lm_logits, norm)
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _linear_init(gen, d_in, d_out, nb, dtype, dev):
+    w = torch.randn((nb, d_in, d_out), generator=gen, device=dev,
+                    dtype=torch.float32)
+    return (w / (d_in ** 0.5)).to(dtype)
+
+
+def _norm_init(cfg: ModelConfig, nb, dev):
+    if cfg.norm_kind == "layernorm":
+        return {"w": torch.ones((nb, cfg.d_model), device=dev),
+                "b": torch.zeros((nb, cfg.d_model), device=dev)}
+    return {"w": torch.zeros((nb, cfg.d_model), device=dev)}
+
+
+def _attn_init(cfg: ModelConfig, gen, nb, dtype, dev):
+    return {
+        "wq": _linear_init(gen, cfg.d_model, cfg.q_dim, nb, dtype, dev),
+        "wk": _linear_init(gen, cfg.d_model, cfg.kv_dim, nb, dtype, dev),
+        "wv": _linear_init(gen, cfg.d_model, cfg.kv_dim, nb, dtype, dev),
+        "wo": _linear_init(gen, cfg.q_dim, cfg.d_model, nb, dtype, dev),
+    }
+
+
+def _ffn_init(cfg: ModelConfig, gen, nb, dtype, dev):
+    d, ff = cfg.d_model, cfg.d_ff
+    w = {}
+    if cfg.mlp in ("swiglu", "geglu"):
+        w["wg"] = _linear_init(gen, d, ff, nb, dtype, dev)
+    w["wu"] = _linear_init(gen, d, ff, nb, dtype, dev)
+    w["wd"] = _linear_init(gen, ff, d, nb, dtype, dev)
+    return w
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port's model slice: attention + dense-FFN decoders."""
+    for mixer, ffn in cfg.block_pattern:
+        if mixer != "attn" or ffn not in ("dense", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: block {(mixer, ffn)} is not ported yet "
+                "(attention + dense FFN decoders only)")
+    if cfg.is_encdec or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: enc-dec / frontend models are not ported yet")
+
+
+def init_base_params(cfg: ModelConfig, generator: Optional[torch.Generator]
+                     = None, *, device=None) -> dict:
+    """Random stand-in for the frozen pre-trained weights, with the JAX
+    package's distributions: embed N(0, 0.02²), linears N(0, 1/d_in),
+    norms zero (rmsnorm scales by 1 + w). Drawn from ``generator`` on the
+    target device (the JAX PRNG's numbers are not reproduced: tests carry
+    JAX weights across with ``convert.from_jax_numpy``)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = cfg.param_dtype
+    nb = cfg.num_super_blocks
+    embed = (torch.randn((cfg.padded_vocab, cfg.d_model), generator=generator,
+                         device=dev, dtype=torch.float32) * 0.02).to(dtype)
+    blocks = []
+    for mixer, ffn in cfg.block_pattern:
+        blk: dict = {"norm1": _norm_init(cfg, nb, dev),
+                     "mixer": _attn_init(cfg, generator, nb, dtype, dev)}
+        if ffn != "none":
+            blk["norm2"] = _norm_init(cfg, nb, dev)
+            blk["ffn"] = _ffn_init(cfg, generator, nb, dtype, dev)
+        blocks.append(blk)
+    return {"embed": {"tok": embed}, "blocks": blocks,
+            "final_norm": _norm_init(cfg, 1, dev)}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _at(tree, i):
+    """Leaf-wise ``[i]`` over a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        return {k: _at(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_at(v, i) for v in tree)
+    return tree[i]
+
+
+def _sublayer(h, blk, ffn, ctx: AdapterCtx, cfg: ModelConfig, *, positions,
+              cache, cache_pos):
+    hn = norm(h, blk["norm1"], cfg.norm_eps)
+    y, c = attn_lib.attention(hn, blk["mixer"], ctx, cfg, causal=True,
+                              positions=positions, cache=cache,
+                              cache_pos=cache_pos)
+    h = h + y
+    if ffn != "none":
+        hn = norm(h, blk["norm2"], cfg.norm_eps)
+        h = h + dense_ffn(hn, blk["ffn"], ctx, cfg.mlp)
+    return h, c
+
+
+def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
+               cfg: ModelConfig, *, positions=None, caches=None,
+               cache_pos=None, layer_offset: int = 0, task=None,
+               policy=None):
+    """Loop over super-blocks and pattern positions. Without ``caches``
+    (prefill) returns the new caches stacked like the blocks; with them
+    (decode) the caches are updated in place and returned."""
+    p_len = len(pattern)
+    nb = blocks[0]["norm1"]["w"].shape[0]
+    new = [[] for _ in range(p_len)]
+    for sb in range(nb):
+        for i, (_, ffn) in enumerate(pattern):
+            layer = layer_offset + sb * p_len + i
+            ly = None if per_layer is None else _at(per_layer, layer)
+            ctx = AdapterCtx(spec, broadcast, ly, task, policy)
+            cache = None if caches is None else _at(caches[i]["self"], sb)
+            h, c = _sublayer(h, _at(blocks[i], sb), ffn, ctx, cfg,
+                             positions=positions, cache=cache,
+                             cache_pos=cache_pos)
+            new[i].append(c)
+    if caches is not None:
+        return h, caches
+    stacked = [{"self": {"k": torch.stack([c["k"] for c in cs]),
+                         "v": torch.stack([c["v"] for c in cs])}}
+               for cs in new]
+    return h, stacked
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelOutputs:
+    logits: torch.Tensor
+    aux: dict
+    caches: Any = None
+
+
+def _tokens(tokens, base, device) -> torch.Tensor:
+    dev = resolve_device(device)
+    emb = base["embed"]["tok"]
+    if emb.device.type != dev.type:
+        raise RuntimeError(f"weights are on {emb.device}, the call asks for "
+                           f"{dev}")
+    return torch.as_tensor(tokens, device=emb.device).long()
+
+
+def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
+            task=None, policy=None, device=None) -> ModelOutputs:
+    """Prefill forward: tokens (B, T) -> ModelOutputs with (B, T, V) logits
+    and the per-layer k/v caches (nb, B, T, KV, hd). ``device`` is where
+    the call runs (None: the CUDA device, raising without one)."""
+    check_supported(cfg)
+    tokens = _tokens(tokens, base, device)
+    h = embed_tokens(tokens, base["embed"]["tok"], cfg.compute_dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, caches = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
+                           broadcast, per_layer, cfg, positions=positions,
+                           task=task, policy=policy)
+    h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
+    return ModelOutputs(logits=lm_logits(h, base["embed"]["tok"]), aux={},
+                        caches=caches)
+
+
+def init_caches(cfg: ModelConfig, batch: int, length: int, dtype, *,
+                device=None) -> list:
+    """Zero dense caches, one {"self": {"k", "v"}} per pattern position,
+    leaves (nb, batch, length, KV, hd)."""
+    check_supported(cfg)
+    nb = cfg.num_super_blocks
+    out = []
+    for _ in cfg.block_pattern:
+        c = attn_lib.init_cache(cfg, nb * batch, length, dtype,
+                                resolve_device(device))
+        out.append({"self": {k: v.view(nb, batch, *v.shape[1:])
+                             for k, v in c.items()}})
+    return out
+
+
+def insert_cache_slot(caches, req_caches, slot: int) -> list:
+    """Write a batch-1 cache (leaves (nb, 1, T, KV, hd), T <= the slot
+    width) into batch row ``slot`` of a decode cache, in place; cells past
+    T are zeroed, as the JAX engine's padded prefill cache is."""
+    for c, c1 in zip(caches, req_caches):
+        for name in ("k", "v"):
+            dst, src = c["self"][name], c1["self"][name]
+            t = src.shape[2]
+            dst[:, slot, :t] = src[:, 0].to(dst.dtype)
+            dst[:, slot, t:] = 0
+    return caches
+
+
+def decode_step(base, cfg: ModelConfig, spec, broadcast, per_layer, token,
+                caches, cache_pos, *, task=None, policy=None, device=None):
+    """One decode step: token (B, 1) -> (logits (B, V), caches). cache_pos
+    is a scalar or a (B,) vector of per-slot positions; token column 0
+    lands at cache_pos (the caches are updated in place)."""
+    check_supported(cfg)
+    token = _tokens(token, base, device)
+    if token.shape[1] != 1:
+        raise NotImplementedError("multi-token decode steps (speculative "
+                                  "verification) are not ported yet")
+    h = embed_tokens(token, base["embed"]["tok"], cfg.compute_dtype)
+    cp = torch.as_tensor(cache_pos, device=h.device).long()
+    positions = cp.reshape(-1, 1).expand(h.shape[0], 1)
+    h, caches = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
+                           broadcast, per_layer, cfg, positions=positions,
+                           caches=caches, cache_pos=cp, task=task,
+                           policy=policy)
+    h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
+    return lm_logits(h[:, 0], base["embed"]["tok"]), caches
