@@ -7,9 +7,10 @@ Phases, each printed on its own lines:
   1. the card's name and power limit (nvidia-smi), then an nvcc build of
      every kernel under src/repro_torch/kernels/csrc;
   2. each kernel against its plain PyTorch version on the card, in bf16 at
-     the serving path's full-width shapes, with the stated tolerance; the
-     kernel's, the plain version's and one library call's times (the
-     library call is a yardstick only: the port never calls it);
+     the serving path's and the training path's full-width shapes, with
+     the stated tolerance; the kernel's, the plain version's and one
+     library call's times (the library call is a yardstick only: the port
+     never calls it);
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -17,7 +18,13 @@ Phases, each printed on its own lines:
      logits are held against the plain leg's distance from an f32 plain
      leg, and under a mild adapter the prefill logits and one 4-slot
      mixed-task decode step are held against the plain leg;
-  4. one JSON line with every kernel's record.
+  4. training through the port's Trainer on full-width stablelm-1.6b
+     (MetaTT 4d on q/v from rank 10, AdamW, remat per block, 4 x 1024
+     tokens a step, 6 steps with one DMRG sweep to rank 8): finite losses,
+     moved cores, ranks 8 after the sweep, K1 / #5 / #6 / #7 launch counts
+     around ``train``; then a gradient check at B=1 against the plain bf16
+     leg with an f32 plain leg as witness;
+  5. one JSON line with every kernel's record (launches per path).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -49,6 +56,14 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:112"),
     "decode_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:393"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:149"),
+    "flash_attention_bwd_dq": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:295"),
+    "flash_attention_bwd_dkv": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:310"),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. Linears: one
 # bf16 ulp (2^-7 relative) from a different f32 summation order.
@@ -57,7 +72,8 @@ KERNELS = {
 # the P·V inputs differ by up to a bf16 ulp each (the JAX package's own
 # bf16 flash tolerance is 2e-2, tests/test_kernels.py).
 TOL = {"tt_linear": (1e-2, 1e-2), "tt_linear_batched_a": (1e-2, 1e-2),
-       "flash_attention": (2e-2, 2e-2), "decode_attention": (2e-2, 2e-2)}
+       "flash_attention": (2e-2, 2e-2), "decode_attention": (2e-2, 2e-2),
+       "flash_attention_fwd": (2e-2, 2e-2)}
 
 
 def sh(cmd):
@@ -260,22 +276,205 @@ def phase_kernels(dev):
     return rows
 
 
+def event_time_ms(fn, args, iters=5):
+    """Device ms per call for ms-scale work: ``iters`` eager calls between
+    two CUDA events after two warm-up calls (the launch overhead is small
+    beside the kernels at these shapes; autograd calls do not capture in
+    a CUDA graph)."""
+    import torch
+    for _ in range(2):
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_max(got, want):
+    """max |got - want| / max |want|, after a finiteness check."""
+    import torch
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError("non-finite kernel output")
+    return float((g - w).abs().max() / w.abs().max())
+
+
+TRAIN_ATTN_SHAPES = ((4, 1024, 32, 32, 64), (4, 1000, 32, 32, 64),
+                     (4, 1024, 32, 8, 64), (2, 1024, 16, 16, 128))
+TRAIN_LINEAR_SHAPE = (4096, 2048, 2048, 8)   # M = B x T, K, N, r
+
+
+def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
+                        linear_shape=TRAIN_LINEAR_SHAPE):
+    """#5, #6, #7 and K1-as-dx against their plain versions at the
+    training shapes (bf16; the first attention shape is the main path's): out within 2e-2 abs+rel, lse within 1e-3 abs,
+    each of dq, dk, dv within 2e-2 of the largest plain gradient (the JAX
+    package's bf16 gradient limit, tests/test_grads.py)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import tt_linear as tl
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                ).to(bf)
+
+    rows = []
+    for b_, t, h, kvh, d in attn_shapes:
+        main = (b_, t, h, kvh, d) == attn_shapes[0]
+        shape = f"B={b_} T=S={t} H={h} KV={kvh} d={d} causal"
+        q, k, v = rn(b_, t, h, d), rn(b_, t, kvh, d), rn(b_, t, kvh, d)
+        g = rn(b_, t, h, d)
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        po, plse = fa.flash_attention_fwd_plain(q, k, v, True)
+        err = compare("flash_attention_fwd", o, po)
+        lse_err = float((lse - plse).abs().max())
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"flash_attention_fwd lse: max abs err "
+                                 f"{lse_err:.3e} > 1e-3 at {shape}")
+        got = fa.flash_attention_bwd(q, k, v, o, lse, g, True)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, True)
+        errs = {}
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = rel_max(x, y)
+            if not errs[name] <= 2e-2:
+                raise AssertionError(f"flash_attention_bwd {name}: "
+                                     f"{errs[name]:.3e} of max |plain| > "
+                                     f"2e-2 at {shape}")
+        abs_err = {n: float((x.float() - y.float()).abs().max())
+                   for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+        pairs = b_ * h * t * (t + 1) // 2
+        bq, bkv = b_ * t * h * d * 2, b_ * t * kvh * d * 2   # bytes
+        lse_b = b_ * h * t * 4
+        g_ = h // kvh
+        lib = [x.detach().transpose(1, 2) for x in
+               (q, k.repeat_interleave(g_, 2), v.repeat_interleave(g_, 2))]
+        timed = {}
+        if main or t != attn_shapes[0][1]:
+            timed["fwd_ms"] = event_time_ms(
+                lambda: fa.flash_attention_fwd(q, k, v, True), ())
+            timed["fwd_plain_ms"] = event_time_ms(
+                lambda: fa.flash_attention_fwd_plain(q, k, v, True), ())
+            timed["fwd_lib_ms"] = event_time_ms(
+                lambda: F.scaled_dot_product_attention(*lib, is_causal=True),
+                ())
+            # the two passes apart, through the launchers the wrapper runs
+            timed["dq_ms"] = event_time_ms(
+                lambda: fa._launch_bwd_dq(q, k, v, o, lse, g, True), ())
+            _, delta = fa._launch_bwd_dq(q, k, v, o, lse, g, True)
+            timed["dkv_ms"] = event_time_ms(
+                lambda: fa._launch_bwd_dkv(q, k, v, g, lse, delta, True), ())
+            timed["bwd_plain_ms"] = event_time_ms(
+                lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, g,
+                                                     True), ())
+            leaves = [x.clone().requires_grad_(True) for x in lib]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            gl = g.transpose(1, 2)
+            timed["bwd_lib_ms"] = event_time_ms(
+                lambda: torch.autograd.grad(out, leaves, gl,
+                                            retain_graph=True), ())
+            del out, leaves
+        fwd_bound = bound_ms(2 * bq + 2 * bkv + lse_b, 4 * d * pairs)
+        dq_bound = bound_ms(4 * bq + 2 * bkv + 2 * lse_b, 3 * 2 * d * pairs)
+        dkv_bound = bound_ms(2 * bq + 4 * bkv + 2 * lse_b,
+                             4 * 2 * d * pairs)
+        for name, err_, bnd, ms, plain, lib_ms in (
+                ("flash_attention_fwd", err, fwd_bound, "fwd_ms",
+                 "fwd_plain_ms", "fwd_lib_ms"),
+                ("flash_attention_bwd_dq", abs_err["dq"], dq_bound, "dq_ms",
+                 "bwd_plain_ms", "bwd_lib_ms"),
+                ("flash_attention_bwd_dkv", max(abs_err["dk"], abs_err["dv"]),
+                 dkv_bound, "dkv_ms", "bwd_plain_ms", "bwd_lib_ms")):
+            rows.append(dict(
+                name=name, shape=shape, main=main, max_abs_err=err_,
+                ms=timed.get(ms), plain_ms=timed.get(plain),
+                library_ms=timed.get(lib_ms), bound_ms=bnd[0],
+                bound_by=bnd[1]))
+        print(f"[train-kernel] {shape}: out err {err:.3e}, lse err "
+              f"{lse_err:.3e}, dq/dk/dv rel err {errs['dq']:.3e} / "
+              f"{errs['dk']:.3e} / {errs['dv']:.3e} of max |plain|",
+              flush=True)
+        del q, k, v, g, o, lse, po, plse, got, want, lib
+        torch.cuda.empty_cache()
+
+    # K1 as the training backward's dx: dx = g·Wᵀ + α·(g·Bᵀ)·Aᵀ at the
+    # q/v projection of a B=4 x T=1024 step, then the whole Function's
+    # backward (dx, dA, dB) against plain autograd
+    from repro_torch.kernels import dispatch
+    m, kd, n, r = linear_shape
+    alpha = 4.0
+    x, w = rn(m, kd), rn(kd, n, scale=kd ** -0.5)
+    a, b = rn(kd, r, scale=kd ** -0.5), rn(r, n, scale=r ** -0.5)
+    g = rn(m, n)
+    err = compare("tt_linear", tl.tt_linear(g, w.T, b.T, a.T, alpha),
+                  tl.tt_linear_plain(g, w.T, b.T, a.T, alpha))
+    nbytes = 2 * (m * n + n * kd + n * r + r * kd + m * kd)
+    dx = dict(
+        name="tt_linear", shape=f"dx M={m} K={n} N={kd} r={r}", main=False,
+        role="dx", max_abs_err=err,
+        ms=event_time_ms(lambda: tl.tt_linear(g, w.T, b.T, a.T, alpha), (),
+                         iters=20),
+        plain_ms=event_time_ms(
+            lambda: tl.tt_linear_plain(g, w.T, b.T, a.T, alpha), (),
+            iters=20),
+        library_ms=event_time_ms(
+            lambda: torch.matmul(g, w.T) + alpha * torch.matmul(
+                torch.matmul(g, b.T), a.T), (), iters=20))
+    dx["bound_ms"], dx["bound_by"] = bound_ms(
+        nbytes, 2 * m * n * kd + 2 * m * n * r + 2 * m * r * kd)
+
+    def fn_backward(fn):
+        leaves = [x.clone().requires_grad_(True), w,
+                  a.clone().requires_grad_(True),
+                  b.clone().requires_grad_(True)]
+        y = fn(*leaves)
+        return y, [leaves[i] for i in (0, 2, 3)]
+    yk, lk = fn_backward(lambda *t: dispatch.tt_linear(*t, alpha=alpha))
+    yp, lp = fn_backward(lambda *t: tl.tt_linear_plain(*t, alpha))
+    gk = torch.autograd.grad(yk, lk, g, retain_graph=True)
+    gp = torch.autograd.grad(yp, lp, g, retain_graph=True)
+    grad_err = {nm: rel_max(u, v_) for nm, u, v_ in zip(("dx", "da", "db"),
+                                                        gk, gp)}
+    if max(grad_err.values()) > 2e-2:
+        raise AssertionError(f"_FusedTTLinear backward vs plain autograd: "
+                             f"{grad_err}")
+    dx["function_bwd_ms"] = event_time_ms(
+        lambda: torch.autograd.grad(yk, lk, g, retain_graph=True), ())
+    dx["plain_autograd_bwd_ms"] = event_time_ms(
+        lambda: torch.autograd.grad(yp, lp, g, retain_graph=True), ())
+    rows.append(dx)
+    print(f"[train-kernel] K1 as dx {dx['shape']}: err {err:.3e}; "
+          f"_FusedTTLinear backward vs plain autograd rel err "
+          + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in grad_err.items())
+          + f"; Function backward {dx['function_bwd_ms']:.4f} ms, plain "
+          f"autograd {dx['plain_autograd_bwd_ms']:.4f} ms", flush=True)
+    for r_ in rows:
+        if r_["ms"] is None:
+            continue
+        print(f"[kernel] {r_['name']:24s} {r_['shape']:40s} "
+              f"err={r_['max_abs_err']:.3e} ms={r_['ms']:.4f} "
+              f"plain_ms={r_['plain_ms']:.4f} "
+              f"library_ms={r_['library_ms']:.4f} "
+              f"bound_ms={r_['bound_ms']:.4f} ({r_['bound_by']})",
+              flush=True)
+    return rows
+
+
 def logits_rel_err(eng, eng_ref, req):
     """max |kernel - plain| / max |plain| over one request's last-position
     prefill logits."""
     lg = eng.prefill_logits(req.prompt, req.task).float()
     lg_ref = eng_ref.prefill_logits(req.prompt, req.task).float()
     return float((lg - lg_ref).abs().max() / lg_ref.abs().max())
-
-
-def tree_map(fn, tree):
-    """``fn`` over every tensor leaf of a nested dict/list."""
-    import torch
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def decode_step_rel_err(cfg, rt, reqs, cache_len, dev):
@@ -287,6 +486,7 @@ def decode_step_rel_err(cfg, rt, reqs, cache_len, dev):
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
     base, bc, pl = rt.base, rt.broadcast, rt.per_layer
     n = len(reqs)
     caches = T.init_caches(cfg, n, cache_len, cfg.compute_dtype, device=dev)
@@ -296,7 +496,7 @@ def decode_step_rel_err(cfg, rt, reqs, cache_len, dev):
         for slot, r in enumerate(reqs):
             out = T.forward(base, cfg, rt.spec, bc, pl,
                             torch.as_tensor(r.prompt, device=dev)[None],
-                            task=r.task, device=dev)
+                            task=r.task, return_caches=True, device=dev)
             T.insert_cache_slot(caches, out.caches, slot)
             tok[slot, 0] = out.logits[0, -1].argmax()
             pos[slot] = len(r.prompt)
@@ -323,9 +523,9 @@ def adapter_ratio(rt, spec, gen):
     return float((alpha * (x @ a) @ b).norm() / base.norm())
 
 
-def device_share(eng, reqs):
-    """Device busy share of a short generate under torch.profiler: the sum
-    of kernel time on the card over the host wall time (the profiler's own
+def device_share(label, run, top_n=8):
+    """Device busy share of ``run()`` under torch.profiler: the sum of
+    kernel time on the card over the host wall time (the profiler's own
     host cost inflates the wall time, so the share is a lower bound), and
     the kernels that take the most device time."""
     import torch
@@ -333,7 +533,7 @@ def device_share(eng, reqs):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(reqs)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -347,10 +547,10 @@ def device_share(eng, reqs):
               "measured")
         return
     busy = sum(us for us, _ in per_name.values()) / 1e6
-    print(f"[profile] generate of {len(reqs)} requests: wall {wall:.3f}s, "
-          f"device busy {busy:.3f}s = {100 * busy / wall:.1f}% (profiled)")
+    print(f"[profile] {label}: wall {wall:.3f}s, device busy {busy:.3f}s = "
+          f"{100 * busy / wall:.1f}% (profiled)")
     top = sorted(((us, n, k) for k, (us, n) in per_name.items()),
-                 reverse=True)[:8]
+                 reverse=True)[:top_n]
     for us, n, key in top:
         print(f"[profile]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
 
@@ -365,6 +565,7 @@ def phase_serving(dev):
     from repro_torch.core import tt as ttlib
     from repro_torch.models import model as M
     from repro_torch.serving import AdapterRuntime, Engine, Request
+    from repro_torch.tree import tree_map
 
     cfg = configs.get_config("stablelm-1.6b")
     run = RunConfig(model=cfg, adapter_kind="metatt",
@@ -404,7 +605,8 @@ def phase_serving(dev):
     for o in outs:
         if not (0 <= int(o.min()) and int(o.max()) < cfg.vocab_size):
             raise AssertionError(f"token id outside the vocab: {o}")
-    for name in K.KERNELS:
+    for name in ("tt_linear", "tt_linear_batched_a", "flash_attention",
+                 "decode_attention"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched during generate")
     print(f"[serve] launches during generate: {json.dumps(launches)}")
@@ -415,7 +617,7 @@ def phase_serving(dev):
           f"{st.decode_steps} steps; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
 
-    device_share(eng, reqs[:4])
+    device_share("generate of 4 requests", lambda: eng.generate(reqs[:4]))
 
     # the plain-version leg on the same card and weights
     eng_ref = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
@@ -487,6 +689,143 @@ def phase_serving(dev):
     return launches
 
 
+def rel_fro(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def cosine(a, b):
+    a, b = a.float().flatten(), b.float().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def grad_check(cfg, spec, base, gen, tokens, dev):
+    """Loss and core gradients at B=1, T=1024 under a mild random adapter
+    (as phase 3's), in three legs on the same weights: kernels (bf16), the
+    plain versions (bf16, ``KernelConfig(backend="ref")``) and the plain
+    versions in f32 as the witness. Asserts the loss within 1e-2 of the
+    plain bf16 leg and each core's gradient no farther from the f32 leg
+    than twice the plain bf16 leg's distance + 5e-2 (relative Frobenius)."""
+    import torch
+    from repro_torch.core import tt as ttlib
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    cores = ttlib.random_tt(gen, spec.cfg.mode_sizes, 8, scale=0.12,
+                            device=dev)
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    base32 = tree_map(lambda t: t.float(), base)
+    batch = {"tokens": tokens, "mask": torch.ones_like(tokens,
+                                                      dtype=torch.float32)}
+    legs = {}
+    for name, c, b, pol in (("kernel", cfg, base, dispatch.DEFAULT),
+                            ("plain", cfg, base, dispatch.REF),
+                            ("f32", cfg32, base32, dispatch.REF)):
+        leaves = [x.clone().requires_grad_(True) for x in cores]
+        loss, _ = M.loss_fn({"cores": leaves}, b, {}, batch, c, spec,
+                            policy=pol, device=dev)
+        legs[name] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+        del loss
+    del base32
+    torch.cuda.empty_cache()
+    (lk, gk), (lp, gp), (l32, g32) = (legs[n] for n in ("kernel", "plain",
+                                                        "f32"))
+    rel_loss = abs(lk - lp) / abs(lp)
+    print(f"[train] gradient check B=1 T={tokens.shape[1]}: loss kernel "
+          f"{lk:.6f} plain {lp:.6f} f32 {l32:.6f}; |kernel - plain| / plain "
+          f"{rel_loss:.3e} (limit 1e-2)")
+    if not rel_loss <= 1e-2:
+        raise AssertionError(f"training loss differs from the plain leg: "
+                             f"{rel_loss:.3e}")
+    for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
+        k32, p32 = rel_fro(a, c), rel_fro(b, c)
+        print(f"[train]   core {i} {tuple(a.shape)}: rel err vs f32 kernel "
+              f"{k32:.3e} plain {p32:.3e} (limit {2 * p32 + 5e-2:.3e}); "
+              f"cosine vs f32 kernel {cosine(a, c):.6f} plain "
+              f"{cosine(b, c):.6f}; kernel vs plain {cosine(a, b):.6f}")
+        if not (torch.isfinite(a).all() and k32 <= 2 * p32 + 5e-2):
+            raise AssertionError(f"core {i} gradient: kernel leg "
+                                 f"{k32:.3e} from f32, plain {p32:.3e}")
+
+
+def phase_training(dev):
+    """The port's Trainer on full-width stablelm-1.6b: MetaTT 4d on q/v
+    from rank 10, AdamW lr 1e-3, remat per block, LMStream batches of
+    4 x 1024 tokens, 6 steps of 3 per epoch with one DMRG sweep to rank 8
+    after epoch 1 (step 3). Kernel launches counted around ``train``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.config.base import OptimizerConfig, RunConfig, \
+        TrainConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.core.dmrg import RankSchedule
+    from repro_torch.data import LMStream
+    from repro_torch.train import Trainer
+
+    cfg = configs.get_config("stablelm-1.6b")
+    run = RunConfig(model=cfg, adapter_kind="metatt", adapter_variant="4d",
+                    adapter_rank=10, optimizer=OptimizerConfig(lr=1e-3),
+                    train=TrainConfig(remat="block", seed=SEED))
+    batch, seq, steps = 4, 1024, 6
+    data = LMStream(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch,
+                    seed=0, branching=2)
+    t0 = time.perf_counter()
+    tr = Trainer(run=run, data=data, total_steps=steps, steps_per_epoch=3,
+                 rank_schedule=RankSchedule.linear(10, 8, start_epoch=1,
+                                                   every=1, step=2),
+                 device=dev,
+                 on_metrics=lambda s, m: print(
+                     f"[train] step {s} loss {m['loss']:.6f} grad_norm "
+                     f"{m['grad_norm']:.4e} lr {m['lr']:.3e} "
+                     f"{1e3 * m['step_time_s']:.1f} ms", flush=True))
+    torch.cuda.synchronize()
+    print(f"[train] stablelm-1.6b MetaTT 4d q/v rank "
+          f"{ttlib.ranks(tr.state.adapter['cores'])}, remat per block, "
+          f"B={batch} T={seq}: init {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    before = [c.clone() for c in tr.state.adapter["cores"]]
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    tr.train()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    losses = tr.losses()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses}")
+    ranks = ttlib.ranks(tr.state.adapter["cores"])
+    if ranks != (8, 8, 8) or tr._dmrg_applied != [1]:
+        raise AssertionError(f"ranks after the sweep {ranks}, sweeps at "
+                             f"epochs {tr._dmrg_applied}")
+    # the first core starts at zero (ΔW = 0): the adapter's norm says
+    # whether training moved it
+    norms = [float(ttlib.tt_norm(c)) for c in (before,
+                                               tr.state.adapter["cores"])]
+    if not (norms[0] == 0.0 and norms[1] > 0.0):
+        raise AssertionError(f"the adapter did not move: ||ΔW|| {norms}")
+    need = ("tt_linear", "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+    for name in need:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched during train")
+    step_ms = [round(1e3 * m["step_time_s"], 1) for _, m in tr.history[1:]]
+    med = float(np.median(step_ms))
+    print(f"[train] launches during train ({steps} steps): "
+          f"{json.dumps(launches)}")
+    print(f"[train] losses {[round(float(x), 6) for x in losses]}; median "
+          f"step {med:.1f} ms after step 1 (steps {step_ms}); "
+          f"{batch * seq / (med / 1e3):.1f} tokens/s; "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; ranks "
+          f"{ranks}; ||ΔW|| {norms[0]:.3e} -> {norms[1]:.3e}", flush=True)
+    # one more step (past total_steps: lr 0) under the profiler
+    device_share("one training step", lambda: tr.train(steps + 1), top_n=12)
+    tokens = torch.as_tensor(next(data)["tokens"][:1], device=dev)
+    grad_check(cfg, tr.spec, tr.base, torch.Generator(
+        device=dev).manual_seed(SEED + 2), tokens, dev)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -516,20 +855,27 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
 
-    rows = phase_kernels(dev)
-    launches = phase_serving(dev)
+    rows = phase_kernels(dev) + phase_train_kernels(dev)
+    paths = {"serve": phase_serving(dev), "train": phase_training(dev)}
 
     records = []
     for name, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
         main_row = next(r for r in mine if r["main"])
-        records.append(dict(
+        by_path = {p: n[name] for p, n in paths.items() if n[name]}
+        rec = dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=max(
-                r["max_abs_err"] for r in mine),
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"], shape=main_row["shape"]))
+            library_ms=main_row["library_ms"], shape=main_row["shape"])
+        for r in mine:
+            if r.get("role") == "dx":   # K1 again, in the training backward
+                rec["dx"] = {k: r[k] for k in (
+                    "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "function_bwd_ms", "plain_autograd_bwd_ms")}
+        records.append(rec)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

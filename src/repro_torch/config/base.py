@@ -1,11 +1,13 @@
 """Config system (counterpart of ``src/repro/config/base.py``).
 
 ``ModelConfig`` describes an architecture, ``KernelConfig`` the kernel
-dispatch policy, ``ServeConfig`` the serving engine, ``RunConfig`` the
-bundle a user builds an adapter from. Field names and defaults follow the
-JAX package; dtypes are torch dtypes. The port implements the dense-cache
-serving slice: the engine raises ``NotImplementedError`` for any field
-value outside it instead of ignoring it.
+dispatch policy, ``ServeConfig`` the serving engine, ``OptimizerConfig``
+and ``TrainConfig`` the trainer, ``RunConfig`` the bundle a user builds
+and trains an adapter from. Field names and defaults follow the JAX
+package; dtypes are torch dtypes. The port implements the dense-cache
+serving slice and the adapter-training slice: the engine and the trainer
+raise ``NotImplementedError`` for any field value outside them instead of
+ignoring it.
 """
 from __future__ import annotations
 
@@ -266,10 +268,41 @@ SHAPES = {
 
 
 @dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 1e-3               # paper's MetaTT grid: {1e-3, 5e-4}
+    betas: tuple = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0      # paper App. D: weight_decay = 0.0
+    warmup_ratio: float = 0.06     # paper App. A.3
+    grad_clip: float = 3.0         # paper App. B: max grad norm 3.0
+    schedule: str = "linear"       # linear | cosine | constant
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer knobs. The port trains the adapter only (``train_base``
+    raises) without checkpoints or gradient compression yet (``ckpt_dir``
+    and ``grad_compression != "none"`` raise)."""
+    steps: int = 100
+    microbatch: int = 0            # 0 -> no gradient accumulation
+    remat: str = "block"           # none | block (checkpoint each super-block)
+    seed: int = 42                 # one of the paper's seeds (App. D)
+    log_every: int = 10
+    ckpt_every: int = 50
+    ckpt_dir: str = ""
+    ckpt_keep: int = 3
+    grad_compression: str = "none"  # none | int8 | topk
+    train_base: bool = False       # True -> full fine-tuning baseline (FT row)
+    # DMRG-in-training: transport AdamW moments through each sweep (warm
+    # carry, core/dmrg.py) instead of the paper's cold re-initialization
+    dmrg_warm_moments: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """The adapter a model carries (the JAX RunConfig's model, shape and
-    adapter fields; the optimizer/trainer knobs come with the training
-    slice)."""
+    """The adapter a model carries and how it is trained (the JAX
+    RunConfig's fields)."""
     model: ModelConfig
     shape: Optional[ShapeConfig] = None
     adapter_kind: str = "metatt"   # metatt | none
@@ -278,4 +311,6 @@ class RunConfig:
     adapter_alpha: float = 4.0
     adapter_matrices: tuple = ()   # () -> arch default
     num_tasks: int = 0
+    optimizer: OptimizerConfig = OptimizerConfig()
+    train: TrainConfig = TrainConfig()
     kernels: KernelConfig = KernelConfig()

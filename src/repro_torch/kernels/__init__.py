@@ -6,7 +6,8 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import tt_linear as _tl
 
 KERNELS = ("tt_linear", "tt_linear_batched_a", "flash_attention",
-           "decode_attention")
+           "decode_attention", "flash_attention_fwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
 def launch_counts() -> dict:

@@ -23,7 +23,7 @@ import threading
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tt_linear", "flash_attention")
+SOURCES = ("tt_linear", "flash_attention", "flash_attention_bwd")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -104,6 +104,17 @@ def check_device(t: torch.Tensor) -> None:
             f"{torch.cuda.get_device_name(t.device)} has compute "
             f"capability {cap}. Use KernelConfig(backend='ref') for the "
             "plain PyTorch versions")
+
+
+def check_no_grad(ts, what: str) -> None:
+    """Raise if autograd is recording and an input requires grad: a
+    kernel's output has no ``grad_fn``, so it would silently cut the
+    graph. ``dispatch.py``'s ``autograd.Function``s call the wrappers with
+    recording off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{what}: an input requires grad and the raw kernel wrapper "
+            "has no backward; differentiate through kernels/dispatch.py")
 
 
 def library(name: str) -> ctypes.CDLL:

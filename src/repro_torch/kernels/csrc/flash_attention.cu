@@ -1,8 +1,13 @@
-// Attention kernels for Hopper (sm_90a), forward only (serving path).
+// Attention forward kernels for Hopper (sm_90a); the backward pair is in
+// flash_attention_bwd.cu.
 //
-// flash_attention_bf16 replaces the Pallas TPU kernel
+// flash_attention_bf16 replaces the Pallas TPU kernels
 //   src/repro/kernels/flash_attention.py::flash_attention (_kernel,
-//   with_stats=False): online-softmax attention for train/prefill.
+//   with_stats=False): online-softmax attention for prefill, and
+//   src/repro/kernels/flash_attention.py::flash_attention_fwd (_kernel,
+//   with_stats=True): the same kernel also writing the per-row
+//   log-sum-exp lse = m + log(l) (B, H, T) f32 when given an lse pointer —
+//   the one residual the training backward rebuilds p from.
 // decode_attention_bf16 replaces
 //   src/repro/kernels/flash_attention.py::decode_attention
 //   (_decode_kernel): one query token per (slot, head) against the dense
@@ -23,7 +28,8 @@
 //     softmax states at the end.
 // Numerics follow the TPU kernels: scores in f32, masked entries set to
 // -1e30, p rounded to v's dtype (bf16) before P·V, l floored at 1e-30
-// (so an empty row yields 0, never NaN), output rounded once to bf16.
+// (so an empty row yields 0, never NaN), output rounded once to bf16; lse
+// is taken from the same floored l.
 //
 // The C functions return cudaGetLastError() of the launch.
 
@@ -66,8 +72,9 @@ struct FlashSmem {
 template <int D>
 __global__ void __launch_bounds__(FNW * 32)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int T,
-                 int S, int H, int KV, int kv_len, int causal, float scale,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int T, int S, int H, int KV,
+                 int kv_len, int causal, float scale,
                  long long qsb, long long qst, long long qsh, long long ksb,
                  long long kss, long long ksh, long long vsb, long long vss,
                  long long vsh, long long osb, long long ost,
@@ -194,13 +201,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* src = osw + myrow * OS + half * (D / 2);
 #pragma unroll
     for (int c = 0; c < D / 2; ++c) orow[c] = __float2bfloat16(src[c] / l);
+    if (lse != nullptr && half == 0)
+      lse[((size_t)bb * H + h) * T + qi] = m_i + logf(l);
   }
 }
 
 template <int D>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
-                 int T, int S, int H, int KV, int kv_len, int causal,
-                 const long long* st, void* stream) {
+int launch_flash(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int B, int T, int S, int H, int KV, int kv_len,
+                 int causal, const long long* st, void* stream) {
   constexpr int smem = FlashSmem<D>::TOTAL;
   auto kern = flash_fwd_kernel<D>;
   static bool attr_set = false;
@@ -214,9 +223,10 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
   const float scale = 1.0f / sqrtf((float)D);
   kern<<<grid, FNW * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), T, S, H, KV,
-      kv_len, causal, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11]);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), T, S, H, KV, kv_len, causal, scale, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11]);
   return (int)cudaGetLastError();
 }
 
@@ -384,18 +394,20 @@ extern "C" {
 // contiguous. strides: 12 element strides (q: b, t, h; k: b, s, kv;
 // v: b, s, kv; o: b, t, h), each a multiple of 8 with 16-byte aligned
 // bases. Keys at index >= kv_len are masked; causal masks ki > qi.
+// lse: nullptr (prefill), or (B, H, T) f32 contiguous, written with the
+// per-row log-sum-exp (the training forward).
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, int B, int T, int S, int H, int KV, int d,
-                         int kv_len, int causal, const long long* strides,
-                         void* stream) {
+                         void* o, void* lse, int B, int T, int S, int H,
+                         int KV, int d, int kv_len, int causal,
+                         const long long* strides, void* stream) {
   if (B < 1 || T < 1 || S < 1 || KV < 1 || H % KV != 0 || kv_len > S)
     return (int)cudaErrorInvalidValue;
   if (d == 64)
-    return launch_flash<64>(q, k, v, o, B, T, S, H, KV, kv_len, causal,
+    return launch_flash<64>(q, k, v, o, lse, B, T, S, H, KV, kv_len, causal,
                             strides, stream);
   if (d == 128)
-    return launch_flash<128>(q, k, v, o, B, T, S, H, KV, kv_len, causal,
-                             strides, stream);
+    return launch_flash<128>(q, k, v, o, lse, B, T, S, H, KV, kv_len,
+                             causal, strides, stream);
   return (int)cudaErrorInvalidValue;
 }
 

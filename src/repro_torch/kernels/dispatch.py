@@ -1,9 +1,26 @@
 """Kernel-dispatch layer: the one seam between model code and kernels
-(counterpart of ``src/repro/kernels/dispatch.py``, forward only — the
-backward kernels come with the training slice).
+(counterpart of ``src/repro/kernels/dispatch.py``), forward and backward.
 
   KernelConfig -> resolve() -> KernelPolicy -> AdapterCtx.policy ->
   layers / attention / engine call the entry points below.
+
+The entry points ``tt_linear``, ``tt_linear_batched_a`` (decode shape)
+and ``flash_attention`` always go through an ``autograd.Function`` — the
+counterparts of the JAX package's ``custom_vjp``s:
+
+  _FusedTTLinear    forward K1; backward dx = K1(g, Wᵀ, Bᵀ, Aᵀ) (the same
+                    kernel on transposed operands), dA, dB in f32, dW only
+                    when asked for (never under PEFT).
+  _FusedTTLinearBA  forward K2; backward f32 einsums (the JAX package has
+                    no backward kernel for K2 either).
+  _FusedFlash       forward #5 (K3 plus the per-row lse) when autograd
+                    records, else K3; it saves q, k, v, out and lse —
+                    nothing of size T×S — and its backward is #6 then #7.
+
+The raw wrappers under them raise on an input that requires grad, so no
+path can cut the graph silently. Each step of a Function runs the kernel
+for CUDA tensors and the plain version for CPU tensors (or everywhere
+under ``backend="ref"``), so the CPU tests exercise the same backward.
 
 Unlike the JAX package, ``policy=None`` means the default policy (the
 kernels), not a separate unfused path: every entry point runs the CUDA
@@ -57,11 +74,111 @@ def _pol(policy: Optional[KernelPolicy], t: torch.Tensor) -> KernelPolicy:
     return pol
 
 
+class _FusedTTLinear(torch.autograd.Function):
+    """y = x·W + α·(x·A)·B through K1, both directions (the JAX package's
+    ``_fused_tt_linear``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, alpha: float, backend: str):
+        ctx.alpha, ctx.backend = alpha, backend
+        ctx.save_for_backward(x, w, a, b)
+        return ops.tt_linear(x, w, a, b, alpha=alpha, backend=backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b = ctx.saved_tensors
+        alpha = ctx.alpha
+        need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
+        dx = dw = da = db = None
+        if need_x:
+            # dx = g·Wᵀ + α·(g·Bᵀ)·Aᵀ: the same base matmul + rank-r
+            # epilogue, so the backward's big GEMM stays on K1
+            dx = ops.tt_linear(g, w.T, b.T, a.T, alpha=alpha,
+                               backend=ctx.backend)
+        if need_w or need_a or need_b:
+            xf = x.reshape(-1, x.shape[-1]).float()
+            gf = g.reshape(-1, g.shape[-1]).float()
+            if need_w:          # the frozen base never asks (PEFT)
+                dw = (xf.T @ gf).to(w.dtype)
+            if need_a:
+                da = (alpha * (xf.T @ (gf @ b.float().T))).to(a.dtype)
+            if need_b:
+                db = (alpha * ((xf @ a.float()).T @ gf)).to(b.dtype)
+        return dx, dw, da, db, None, None
+
+
+class _FusedTTLinearBA(torch.autograd.Function):
+    """Per-row-A linear through K2; backward in f32 einsums (the JAX
+    package's ``_fused_tt_linear_ba``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, alpha: float, backend: str):
+        ctx.alpha = alpha
+        ctx.save_for_backward(x, w, a, b)
+        return ops.tt_linear_batched_a(x, w, a, b, alpha=alpha,
+                                       backend=backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b = ctx.saved_tensors
+        alpha = ctx.alpha
+        need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
+        squeeze = x.ndim == 3
+        xf = (x[:, 0] if squeeze else x).float()
+        gf = (g[:, 0] if squeeze else g).float()
+        af = a.float()
+        gb = gf @ b.float().T                                   # (S, r)
+        dx = dw = da = db = None
+        if need_x:
+            dx = gf @ w.float().T + alpha * torch.einsum("sr,skr->sk", gb,
+                                                         af)
+            dx = (dx[:, None] if squeeze else dx).to(x.dtype)
+        if need_w:
+            dw = (xf.T @ gf).to(w.dtype)
+        if need_a:
+            da = (alpha * torch.einsum("sk,sr->skr", xf, gb)).to(a.dtype)
+        if need_b:
+            p = torch.einsum("sk,skr->sr", xf, af)
+            db = (alpha * (p.T @ gf)).to(b.dtype)
+        return dx, dw, da, db, None, None
+
+
+class _FusedFlash(torch.autograd.Function):
+    """GQA attention: K3 when autograd does not record, else #5 forward and
+    #6 / #7 backward (the JAX package's ``_fused_flash``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, backend: str, train: bool):
+        ctx.causal, ctx.backend = causal, backend
+        if not train:
+            return ops.flash_attention(q, k, v, causal=causal,
+                                       backend=backend)
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                           backend=backend)
+        # one (B, H, T) f32 residual buys a backward that never builds
+        # the (T, S) scores
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse,
+                                             g.contiguous(),
+                                             causal=ctx.causal,
+                                             backend=ctx.backend)
+        return dq, dk, dv, None, None, None
+
+
+def _records(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def tt_linear(x, w, a, b, *, alpha: float = 1.0,
               policy: Optional[KernelPolicy] = None):
     """y = x·W + α·(x·A)·B. x (..., K); w (K, N); a (K, r); b (r, N)."""
-    return ops.tt_linear(x, w, a, b, alpha=float(alpha),
-                         backend=_pol(policy, x).backend)
+    return _FusedTTLinear.apply(x, w, a, b, float(alpha),
+                                _pol(policy, x).backend)
 
 
 def tt_linear_batched_a(x, w, a, b, *, alpha: float = 1.0,
@@ -72,8 +189,7 @@ def tt_linear_batched_a(x, w, a, b, *, alpha: float = 1.0,
     batched einsum, as the JAX package does (no kernel for that shape)."""
     pol = _pol(policy, x)
     if x.ndim == 2 or (x.ndim == 3 and x.shape[1] == 1):
-        return ops.tt_linear_batched_a(x, w, a, b, alpha=float(alpha),
-                                       backend=pol.backend)
+        return _FusedTTLinearBA.apply(x, w, a, b, float(alpha), pol.backend)
     xf = x.float()
     p = torch.einsum("b...k,bkr->b...r", xf, a.to(x.dtype).float())
     y = xf @ w.float() + float(alpha) * (p @ b.float())
@@ -83,13 +199,14 @@ def tt_linear_batched_a(x, w, a, b, *, alpha: float = 1.0,
 def flash_attention(q, k, v, *, causal: bool = True,
                     policy: Optional[KernelPolicy] = None):
     """GQA attention. q (B, T, H, d); k, v (B, S, KV, d) -> (B, T, H, d)."""
-    return ops.flash_attention(q, k, v, causal=causal,
-                               backend=_pol(policy, q).backend)
+    return _FusedFlash.apply(q, k, v, causal, _pol(policy, q).backend,
+                             _records(q, k, v))
 
 
 def decode_attention(q, k, v, pos, *,
                      policy: Optional[KernelPolicy] = None):
-    """Cached single-token decode. q (B, 1, H, d); k, v (B, S, KV, d);
-    pos scalar or (B,) -> (B, 1, H, d)."""
+    """Cached single-token decode (serving only: K4 has no backward, and
+    its wrapper raises on an input that requires grad). q (B, 1, H, d);
+    k, v (B, S, KV, d); pos scalar or (B,) -> (B, 1, H, d)."""
     return ops.decode_attention(q, k, v, pos,
                                 backend=_pol(policy, q).backend)

@@ -1,16 +1,26 @@
-"""Attention kernels K3 and K4 (``csrc/flash_attention.cu``), forward only.
+"""Attention kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``).
 
 K3 ``flash_attention``: online-softmax attention, q (B, T, H, d) against
 k/v (B, S, KV, d), read in place through strides with KV head h // G —
 replaces ``src/repro/kernels/flash_attention.py::flash_attention``.
+#5 ``flash_attention_fwd``: the same kernel also writing the per-row
+log-sum-exp (B, H, T) f32 — replaces ``flash_attention_fwd``.
+#6 / #7 ``flash_attention_bwd``: the dq pass, then the dk/dv pass, each
+rebuilding p = exp(s − lse) tile by tile; dk/dv come back in the KV-head
+layout, the GQA group summed in f32 inside the kernel — replaces the two
+``pallas_call``s of ``flash_attention_bwd``.
 K4 ``decode_attention``: one query per (slot, head) against the dense
 (B, S, KV, d) cache, cells 0..pos[b] — replaces
 ``src/repro/kernels/flash_attention.py::decode_attention``.
 
 A CPU tensor runs the plain version (``kernels/ref.py``, through the
 layout shims below). A CUDA tensor launches the kernel (bf16, head_dim
-64 or 128; decode group size G in {1, 2, 4, 8}) or raises. ``LAUNCHES``
-counts the launches, and nothing else adds to it.
+64 or 128; GQA group size G in {1, 2, 4, 8} for decode and the backward)
+or raises. ``LAUNCHES`` counts the launches, and nothing else adds to it.
+These wrappers make plain outputs with no ``grad_fn``: an input that
+requires grad while autograd records raises, so the only way to
+differentiate through them is ``dispatch.py``'s ``autograd.Function``s.
 """
 from __future__ import annotations
 
@@ -22,21 +32,53 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
+LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
 
 HEAD_DIMS = (64, 128)
-DECODE_GROUPS = (1, 2, 4, 8)
+GROUPS = (1, 2, 4, 8)
 
 
-def flash_attention_plain(q, k, v, causal: bool = True) -> torch.Tensor:
-    """(B, T, H, d) x (B, S, KV, d) layout shim over ``flash_attention_ref``
-    (repeat KV heads, move heads forward, as ``ops.py`` does in JAX)."""
+def _repeat_kv(q, k, v):
+    """(B, T, H, d) x (B, S, KV, d) -> the three in (B, H, ·, d) with KV
+    heads repeated to H (as ``ops.py`` does in JAX)."""
     g = q.shape[2] // k.shape[2]
     kk = k.repeat_interleave(g, dim=2) if g > 1 else k
     vv = v.repeat_interleave(g, dim=2) if g > 1 else v
-    out = _ref.flash_attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
-                                   vv.transpose(1, 2), causal=causal)
+    return q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+
+
+def flash_attention_plain(q, k, v, causal: bool = True) -> torch.Tensor:
+    """(B, T, H, d) x (B, S, KV, d) layout shim over
+    ``flash_attention_ref``."""
+    out = _ref.flash_attention_ref(*_repeat_kv(q, k, v), causal=causal)
     return out.transpose(1, 2)
+
+
+def flash_attention_fwd_plain(q, k, v, causal: bool = True):
+    """Layout shim over ``flash_attention_fwd_ref``: (out (B, T, H, d),
+    lse (B, H, T) f32)."""
+    out, lse = _ref.flash_attention_fwd_ref(*_repeat_kv(q, k, v),
+                                            causal=causal)
+    return out.transpose(1, 2), lse
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, g, causal: bool = True):
+    """Layout shim over ``flash_attention_bwd_ref``: (dq (B, T, H, d),
+    dk, dv (B, S, KV, d)); each GQA group of query heads summed in f32 onto
+    its KV head, then rounded once to the operand dtype."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    qh, kh, vh = _repeat_kv(q, k, v)
+    dq, dk, dv = _ref.flash_attention_bwd_ref(
+        qh, kh, vh, o.transpose(1, 2), lse, g.transpose(1, 2), causal)
+
+    def group_sum(x, dtype):
+        return x.reshape(b, kv, h // kv, s, d).sum(2).transpose(1, 2) \
+            .to(dtype)
+    return (dq.transpose(1, 2).to(q.dtype), group_sum(dk, k.dtype),
+            group_sum(dv, v.dtype))
 
 
 def decode_attention_plain(q, k, v, pos) -> torch.Tensor:
@@ -52,15 +94,25 @@ def decode_attention_plain(q, k, v, pos) -> torch.Tensor:
     return out.reshape(b, h, d)
 
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    # q k v o lse, B T S H KV d kv_len causal, strides, stream
+    "flash_attention_bf16": [_P] * 5 + [_I] * 8 + [_P, _P],
+    # q k v pos o, B S H KV d, strides, stream
+    "decode_attention_bf16": [_P] * 5 + [_I] * 5 + [_P, _P],
+    # q k v o g lse delta dq, B T S H KV d causal, strides, stream
+    "flash_attention_bwd_dq_bf16": [_P] * 8 + [_I] * 7 + [_P, _P],
+    # q k v g lse delta dk dv, B T S H KV d causal, strides, stream
+    "flash_attention_bwd_dkv_bf16": [_P] * 8 + [_I] * 7 + [_P, _P],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
-    f = getattr(_build.library("flash_attention"), name)
-    if name == "flash_attention_bf16":
-        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p, ctypes.c_void_p]
-    else:
-        f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p, ctypes.c_void_p]
+    lib = "flash_attention_bwd" if "bwd" in name else "flash_attention"
+    f = getattr(_build.library(lib), name)
+    f.argtypes = _ARGTYPES[name]
     f.restype = ctypes.c_int
     return f
 
@@ -89,44 +141,138 @@ def _strides(*ts) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """q (B, T, H, d); k, v (B, S, KV, d) -> (B, T, H, d)."""
+def _check_attn(q, k, v, what: str) -> tuple:
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     if k.shape != (b, s, kv, d) or v.shape != k.shape or h % kv:
-        raise ValueError(f"flash_attention shapes q{tuple(q.shape)} "
+        raise ValueError(f"{what} shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal)
-    _check_cuda((q, k, v), d, "flash_attention")
+    return b, t, s, h, kv, d
+
+
+def _dims(q, k) -> tuple:
+    return (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3])
+
+
+def _launch_fwd(q, k, v, causal: bool, lse) -> torch.Tensor:
+    """K3 (lse None) or #5 (lse a (B, H, T) f32 buffer): one kernel, on
+    checked CUDA operands."""
+    b, t, s, h, kv, d = _dims(q, k)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     st = _strides(q, k, v, o)
     rc = _fn("flash_attention_bf16")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, t, s, h,
-        kv, d, s, int(causal), ctypes.cast(st, ctypes.c_void_p),
-        _build.stream_ptr(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, t, s, h, kv, d, s,
+        int(causal), ctypes.cast(st, ctypes.c_void_p), _build.stream_ptr(q))
     _build.check(rc, "flash_attention")
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """K3. q (B, T, H, d); k, v (B, S, KV, d) -> (B, T, H, d)."""
+    _check_attn(q, k, v, "flash_attention")
+    _build.check_no_grad((q, k, v), "flash_attention")
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal)
+    _check_cuda((q, k, v), q.shape[-1], "flash_attention")
+    o = _launch_fwd(q, k, v, causal, None)
     LAUNCHES["flash_attention"] += 1
     return o
 
 
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True):
+    """#5. q (B, T, H, d); k, v (B, S, KV, d) -> (out (B, T, H, d),
+    lse (B, H, T) f32)."""
+    b, t, _, h, _, d = _check_attn(q, k, v, "flash_attention_fwd")
+    _build.check_no_grad((q, k, v), "flash_attention_fwd")
+    if not q.is_cuda:
+        return flash_attention_fwd_plain(q, k, v, causal)
+    _check_cuda((q, k, v), d, "flash_attention_fwd")
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    o = _launch_fwd(q, k, v, causal, lse)
+    LAUNCHES["flash_attention_fwd"] += 1
+    return o, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                        causal: bool = True):
+    """#6 then #7. q, o, g (B, T, H, d); k, v (B, S, KV, d); lse (B, H, T)
+    f32 from ``flash_attention_fwd`` -> (dq (B, T, H, d), dk, dv
+    (B, S, KV, d))."""
+    b, t, s, h, kv, d = _check_attn(q, k, v, "flash_attention_bwd")
+    if o.shape != q.shape or g.shape != q.shape or lse.shape != (b, h, t):
+        raise ValueError(f"flash_attention_bwd shapes o{tuple(o.shape)} "
+                         f"g{tuple(g.shape)} lse{tuple(lse.shape)}")
+    _build.check_no_grad((q, k, v, o, lse, g), "flash_attention_bwd")
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
+    _check_cuda((q, k, v, o, g), d, "flash_attention_bwd")
+    if h // kv not in GROUPS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: CUDA kernels built for GQA groups "
+            f"{GROUPS}; got {h // kv}")
+    if lse.dtype != torch.float32 or lse.device != q.device:
+        raise TypeError("flash_attention_bwd: lse must be f32 on "
+                        f"{q.device}; got {lse.dtype} on {lse.device}")
+    lse = lse.contiguous()
+    dq, delta = _launch_bwd_dq(q, k, v, o, lse, g, causal)
+    dk, dv = _launch_bwd_dkv(q, k, v, g, lse, delta, causal)
+    return dq, dk, dv
+
+
+def _launch_bwd_dq(q, k, v, o, lse, g, causal: bool):
+    """#6 on checked CUDA operands: (dq, delta = rowsum(g ⊙ o) (B, H, T)
+    f32, written by the kernel's prologue for #7)."""
+    b, t, s, h, kv, d = _dims(q, k)
+    delta = torch.empty_like(lse)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    st = _strides(q, k, v, o, g, dq)
+    rc = _fn("flash_attention_bwd_dq_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, s, h, kv, d,
+        int(causal), ctypes.cast(st, ctypes.c_void_p), _build.stream_ptr(q))
+    _build.check(rc, "flash_attention_bwd (dq)")
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq, delta
+
+
+def _launch_bwd_dkv(q, k, v, g, lse, delta, causal: bool):
+    """#7 on checked CUDA operands: (dk, dv) in the KV-head layout."""
+    b, t, s, h, kv, d = _dims(q, k)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    st = _strides(q, k, v, g, dk, dv)
+    rc = _fn("flash_attention_bwd_dkv_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
+        s, h, kv, d, int(causal), ctypes.cast(st, ctypes.c_void_p),
+        _build.stream_ptr(q))
+    _build.check(rc, "flash_attention_bwd (dk/dv)")
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor) -> torch.Tensor:
-    """q (B, H, d); k, v (B, S, KV, d) cache; pos (B,) -> (B, H, d)."""
+    """K4. q (B, H, d); k, v (B, S, KV, d) cache; pos (B,) -> (B, H, d)."""
     b, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     if k.shape != (b, s, kv, d) or v.shape != k.shape or h % kv \
             or pos.shape != (b,):
         raise ValueError(f"decode_attention shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} pos{tuple(pos.shape)}")
+    _build.check_no_grad((q, k, v), "decode_attention")
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, pos)
     _check_cuda((q, k, v), d, "decode_attention")
-    if h // kv not in DECODE_GROUPS:
+    if h // kv not in GROUPS:
         raise NotImplementedError(
             f"decode_attention: CUDA kernel built for GQA groups "
-            f"{DECODE_GROUPS}; got {h // kv}")
+            f"{GROUPS}; got {h // kv}")
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     st = _strides(q, k, v, o)

@@ -62,6 +62,29 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return _fa.flash_attention(q, k, v, causal)
 
 
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        backend: str = "kernel"):
+    """Stats-emitting GQA forward for training. q (B, T, H, d); k, v
+    (B, S, KV, d) -> (out (B, T, H, d), lse (B, H, T) f32)."""
+    _check(backend)
+    fn = (_fa.flash_attention_fwd_plain if backend == "ref"
+          else _fa.flash_attention_fwd)
+    return fn(q, k, v, causal)
+
+
+def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,
+                        backend: str = "kernel"):
+    """GQA flash backward from the forward's residuals. q, o, g
+    (B, T, H, d); k, v (B, S, KV, d); lse (B, H, T) f32 -> (dq, dk, dv),
+    dk/dv in the KV-head layout. The JAX package repeats KV heads and sums
+    each group after the kernels; here the kernels read KV head h // G in
+    place and sum the group in f32."""
+    _check(backend)
+    fn = (_fa.flash_attention_bwd_plain if backend == "ref"
+          else _fa.flash_attention_bwd)
+    return fn(q, k, v, o, lse, g, causal)
+
+
 def decode_attention(q, k, v, pos, *, backend: str = "kernel"):
     """Cached single-token decode. q (B, 1, H, d); k, v (B, S, KV, d);
     pos scalar or (B,) — row b attends cells [0, pos[b]] -> (B, 1, H, d)."""

@@ -50,6 +50,52 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(v.dtype)
 
 
+def _scores(q, k, causal: bool, masked: float) -> torch.Tensor:
+    """s = q·kᵀ·scale in f32, (B, H, T, S); causal masks ki > qi."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
+        q.shape[-1] ** -0.5)
+    if causal:
+        t, s_len = q.shape[2], k.shape[2]
+        mask = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s_len, device=q.device)[None, :])
+        s = s.masked_fill(~mask, masked)
+    return s
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True):
+    """Stats-emitting forward: q, k, v (B, H, T|S, d) -> (out (B, H, T, d),
+    lse (B, H, T) f32). p = exp(s − lse), rounded to v's dtype before P·V
+    (the JAX package's ``ops.flash_attention_fwd`` reference)."""
+    s = _scores(q, k, causal, NEG)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, g: torch.Tensor,
+                            causal: bool = True):
+    """Recompute-from-lse backward, the twin of the JAX package's
+    ``kernels/ref.py::flash_attention_bwd_ref``: q, o, g (B, H, T, d);
+    k, v (B, H, S, d) (heads already repeated); lse (B, H, T) f32.
+    p = exp(s − lse), D = rowsum(g ⊙ o), ds = p·(dp − D)·scale, with p and
+    ds rounded to the operand dtype before each product. Returns (dq, dk,
+    dv) in f32, per query head: the caller sums GQA groups in f32 and
+    rounds once, as the dk/dv kernel does."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(_scores(q, k, causal, -torch.inf) - lse.float()[..., None])
+    delta = (g.float() * o.float()).sum(-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype).float(), g.float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    return dq, dk, dv
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          pos: torch.Tensor) -> torch.Tensor:
     """Single-token cached decode. q: (BH, d); k, v: (BH, S, d); pos: (BH,)

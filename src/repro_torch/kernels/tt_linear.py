@@ -8,7 +8,10 @@ replaces ``src/repro/kernels/tt_linear.py::tt_linear_batched_a``.
 
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel (bf16 only) or raises; ``LAUNCHES`` counts the
-launches, and nothing else adds to it.
+launches, and nothing else adds to it. The training backward runs K1
+again on transposed operands (``dispatch._FusedTTLinear``). These
+wrappers make plain outputs with no ``grad_fn``: an input that requires
+grad while autograd records raises.
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"tt_linear shapes x{tuple(x.shape)} "
                          f"w{tuple(w.shape)} a{tuple(a.shape)} "
                          f"b{tuple(b.shape)}")
+    _build.check_no_grad((x, w, a, b), "tt_linear")
     if not x.is_cuda:
         return tt_linear_plain(x, w, a, b, alpha)
     _check_cuda(x, w, a, b, "tt_linear")
@@ -93,6 +97,7 @@ def tt_linear_batched_a(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"tt_linear_batched_a shapes x{tuple(x.shape)} "
                          f"w{tuple(w.shape)} a{tuple(a.shape)} "
                          f"b{tuple(b.shape)}")
+    _build.check_no_grad((x, w, a, b), "tt_linear_batched_a")
     if not x.is_cuda:
         return tt_linear_batched_a_plain(x, w, a, b, alpha)
     _check_cuda(x, w, a, b, "tt_linear_batched_a")

@@ -1,5 +1,6 @@
 """Model-level API (counterpart of ``src/repro/models/model.py``):
-adapter-spec construction and init."""
+adapter-spec construction, init, parameter counts and the PEFT training
+objective (next-token CE over the frozen base plus the adapter)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,6 +12,7 @@ from repro_torch.core.metatt import MetaTTConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.peft import api as peft_api
+from repro_torch.tree import leaves
 
 
 def matrix_dims(cfg: ModelConfig) -> dict:
@@ -69,10 +71,52 @@ def init_params(cfg: ModelConfig, spec: peft_api.AdapterSpec,
     return {"base": base, "adapter": adapter, "frozen": frozen}
 
 
-def tensors(tree) -> list:
-    """Every tensor leaf of a nested dict/list."""
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in tensors(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in tensors(v)]
-    return [tree] if isinstance(tree, torch.Tensor) else []
+tensors = leaves  # every tensor leaf of a nested dict/list
+
+
+def count_params(params: dict) -> dict:
+    def n(tree):
+        return int(sum(t.numel() for t in tensors(tree)))
+    return {"base": n(params["base"]), "adapter": n(params["adapter"]),
+            "frozen_adapter": n(params["frozen"])}
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    vocab_size: int = 0) -> torch.Tensor:
+    """Next-token CE. logits (B, T, V), tokens (B, T), mask (B, T) gating
+    the prediction OF token j. Roll-and-mask form, as in the JAX package:
+    position p's target is token p+1 by a roll and the last position is
+    masked out. f32 logsumexp; logit columns past ``vocab_size`` (the
+    padded embedding rows) are masked to -1e30. The f32 copy of the
+    logits is the only full-size temporary autograd keeps (for the
+    logsumexp backward); the bf16 → f32 cast is freed once masked."""
+    b, t = tokens.shape
+    targets = torch.roll(tokens, -1, dims=1)
+    valid = (torch.arange(t, device=tokens.device) < t - 1).float()
+    valid = valid[None].expand(b, t)
+    if mask is not None:
+        valid = valid * torch.roll(mask.float(), -1, dims=1)
+    lg = logits.float()
+    if vocab_size and logits.shape[-1] > vocab_size:
+        pad = torch.arange(logits.shape[-1], device=lg.device) >= vocab_size
+        lg = lg.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(lg, dim=-1)
+    true = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+    nll = (lse - true) * valid
+    return nll.sum() / valid.sum().clamp(min=1.0)
+
+
+def loss_fn(adapter, base, frozen, batch: dict, cfg: ModelConfig,
+            spec: peft_api.AdapterSpec, *, remat: bool = False,
+            policy=None, device=None) -> tuple:
+    """PEFT objective: (loss, {"ce": loss}). Differentiate it with respect
+    to the ``adapter`` tensors only; the base weights carry no grad.
+    ``batch``: tokens (B, T), optional mask (B, T) and task."""
+    bc, per_layer = peft_api.adapter_factors(spec, adapter, frozen)
+    out = transformer.forward(base, cfg, spec, bc, per_layer,
+                              batch["tokens"], task=batch.get("task"),
+                              remat=remat, policy=policy, device=device)
+    loss = next_token_loss(out.logits, batch["tokens"], batch.get("mask"),
+                           vocab_size=cfg.vocab_size)
+    return loss, {"ce": loss}

@@ -6,7 +6,9 @@ dict per pattern position in ``blocks``, each leaf stacked over the
 ``nb`` super-blocks. ``run_blocks`` is a Python loop over super-blocks and
 pattern positions; layer ``l = sb * P + p`` reads adapter slice ``l``.
 Caches mirror the blocks: ``caches[p]["self"]["k"|"v"]`` is
-(nb, B, S, KV, hd); decode writes its new k/v into them in place.
+(nb, B, S, KV, hd); decode writes its new k/v into them in place. The
+training forward builds no caches and may checkpoint each super-block
+(``remat``), recomputing it in the backward.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -125,14 +128,23 @@ def _sublayer(h, blk, ffn, ctx: AdapterCtx, cfg: ModelConfig, *, positions,
 def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
                cfg: ModelConfig, *, positions=None, caches=None,
                cache_pos=None, layer_offset: int = 0, task=None,
-               policy=None):
-    """Loop over super-blocks and pattern positions. Without ``caches``
-    (prefill) returns the new caches stacked like the blocks; with them
-    (decode) the caches are updated in place and returned."""
+               policy=None, remat: bool = False,
+               return_caches: bool = True):
+    """Loop over super-blocks and pattern positions. With ``caches``
+    (decode) they are updated in place and returned. Without them
+    (prefill / training) the new k/v are returned stacked like the blocks
+    when ``return_caches``, else None. ``remat`` checkpoints each
+    super-block (``torch.utils.checkpoint``, non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward, kernels included."""
+    if remat and (caches is not None or return_caches):
+        raise ValueError("remat is a training option: no caches in or out")
     p_len = len(pattern)
     nb = blocks[0]["norm1"]["w"].shape[0]
     new = [[] for _ in range(p_len)]
-    for sb in range(nb):
+
+    def super_block(h, sb):
+        out = []
         for i, (_, ffn) in enumerate(pattern):
             layer = layer_offset + sb * p_len + i
             ly = None if per_layer is None else _at(per_layer, layer)
@@ -141,9 +153,22 @@ def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
             h, c = _sublayer(h, _at(blocks[i], sb), ffn, ctx, cfg,
                              positions=positions, cache=cache,
                              cache_pos=cache_pos)
-            new[i].append(c)
+            out.append(c)
+        return h, out
+
+    for sb in range(nb):
+        if remat:
+            h = checkpoint(lambda h, sb=sb: super_block(h, sb)[0], h,
+                           use_reentrant=False)
+            continue
+        h, cs = super_block(h, sb)
+        if return_caches and caches is None:
+            for i, c in enumerate(cs):
+                new[i].append(c)
     if caches is not None:
         return h, caches
+    if not return_caches:
+        return h, None
     stacked = [{"self": {"k": torch.stack([c["k"] for c in cs]),
                          "v": torch.stack([c["v"] for c in cs])}}
                for cs in new]
@@ -167,17 +192,21 @@ def _tokens(tokens, base, device) -> torch.Tensor:
 
 
 def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
-            task=None, policy=None, device=None) -> ModelOutputs:
-    """Prefill forward: tokens (B, T) -> ModelOutputs with (B, T, V) logits
-    and the per-layer k/v caches (nb, B, T, KV, hd). ``device`` is where
-    the call runs (None: the CUDA device, raising without one)."""
+            task=None, remat: bool = False, return_caches: bool = False,
+            policy=None, device=None) -> ModelOutputs:
+    """Train / prefill forward: tokens (B, T) -> ModelOutputs with
+    (B, T, V) logits, and with ``return_caches`` the per-layer k/v caches
+    (nb, B, T, KV, hd) a prefill hands to decode. ``remat`` checkpoints
+    each super-block (training). ``device`` is where the call runs (None:
+    the CUDA device, raising without one)."""
     check_supported(cfg)
     tokens = _tokens(tokens, base, device)
     h = embed_tokens(tokens, base["embed"]["tok"], cfg.compute_dtype)
     positions = torch.arange(h.shape[1], device=h.device)
     h, caches = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
                            broadcast, per_layer, cfg, positions=positions,
-                           task=task, policy=policy)
+                           task=task, policy=policy, remat=remat,
+                           return_caches=return_caches)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
     return ModelOutputs(logits=lm_logits(h, base["embed"]["tok"]), aux={},
                         caches=caches)

@@ -5,6 +5,7 @@ MetaTT and ``none`` kinds:
   broadcast, per_layer = adapter_factors(spec, trainable, frozen)
   dy = adapter_delta(spec, broadcast, per_layer_l, x, m, task=...)
   a, b, alpha = lora_form_factors(spec, broadcast, per_layer_l, m, task=...)
+  n = count_trainable(spec, trainable)
 
 ``per_layer`` leaves have a leading L axis; callers pass the layer's slice.
 """
@@ -16,6 +17,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import metatt as _metatt
+from repro_torch.tree import leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,3 +91,8 @@ def lora_form_factors(spec: AdapterSpec, broadcast, layer_slice, m: str, *,
     g1 = broadcast["g1"][:d_in]
     a = torch.einsum("dr,...rs->...ds", g1, c_lm)
     return a, broadcast["g4"][:, :d_out], cfg.alpha
+
+
+def count_trainable(spec: AdapterSpec, trainable) -> int:
+    """Number of trainable adapter parameters (every tensor leaf)."""
+    return int(sum(x.numel() for x in leaves(trainable)))

@@ -196,7 +196,7 @@ class Engine:
         base, bc, pl = self._weights
         out = transformer.forward(base, self.cfg, self.rt.spec, bc, pl,
                                   padded, task=task, policy=self.policy,
-                                  device=self.device)
+                                  return_caches=True, device=self.device)
         return out.logits[0, plen - 1], out.caches
 
     @torch.inference_mode()

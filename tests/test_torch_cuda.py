@@ -1,21 +1,26 @@
 """The CUDA kernels against their plain versions, on the card.
 
-Odd shapes the serving path does not hit — ragged M/N/K, ranks that are
-not multiples of 8 or 16, large ranks, every decode GQA group size, both
-head dims, non-causal and S != T attention — so each kernel's masking and
-load paths are exercised. Marked ``cuda``: skipped without a CUDA device
-of compute capability >= 9.0. Run on the card with
+Odd shapes the main paths do not hit — ragged M/N/K, ranks that are
+not multiples of 8 or 16, large ranks, every GQA group size, both head
+dims, non-causal and S != T attention — so each kernel's masking and load
+paths are exercised, forward and backward. Marked ``cuda``: skipped
+without a CUDA device of compute capability >= 9.0. Run on the card with
 
-    python -m pytest -q tests/test_torch_cuda.py
+    python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerances: bf16 linears 1e-2 (one bf16 ulp from another f32 summation
-order); attention 2e-2 (p rounded to bf16 unnormalised by the kernel,
-normalised by the plain version).
+This file imports no JAX (``--noconftest`` skips the JAX fixture file),
+so it runs where only PyTorch is installed. Tolerances: bf16 linears 1e-2
+(one bf16 ulp from another f32 summation order); attention 2e-2 (p
+rounded to bf16 unnormalised by the kernel, normalised by the plain
+version); lse 1e-3 absolute (f32, another summation order); backward
+2e-2 of the largest plain gradient (the JAX package's bf16 gradient
+limit, tests/test_grads.py).
 """
 import pytest
 import torch
 
+from repro_torch import kernels
+from repro_torch.kernels import dispatch
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import tt_linear as ttl
 
@@ -81,8 +86,85 @@ def test_decode_attention(dev, g, d):
            tfa.decode_attention_plain(q, k, v, pos), 2e-2)
 
 
+ATTN_SHAPES = [(2, 70, 70, 8, 2, 64, True), (1, 33, 100, 4, 4, 128, False),
+               (3, 5, 5, 4, 1, 64, True), (1, 300, 300, 8, 1, 128, True),
+               (2, 130, 91, 4, 2, 64, False)]
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", ATTN_SHAPES)
+def test_flash_attention_fwd(dev, b, t, s, h, kv, d, causal):
+    q, k, v = _rn(dev, b, t, h, d), _rn(dev, b, s, kv, d), _rn(dev, b, s, kv, d)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    po, plse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    _close(o, po, 2e-2)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+    # the same kernel without stats is K3
+    _close(tfa.flash_attention(q, k, v, causal), o, 0)
+
+
+def _rel_max(got, want) -> float:
+    torch.cuda.synchronize()
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", ATTN_SHAPES)
+def test_flash_attention_bwd(dev, b, t, s, h, kv, d, causal):
+    q, k, v = _rn(dev, b, t, h, d), _rn(dev, b, s, kv, d), _rn(dev, b, s, kv, d)
+    g = _rn(dev, b, t, h, d, seed=1)
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, g, causal)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert torch.isfinite(x.float()).all(), name
+        assert _rel_max(x, y) <= 2e-2, (name, _rel_max(x, y))
+
+
+@pytest.mark.parametrize("m,k,n,r", [(37, 72, 48, 10), (130, 256, 96, 8),
+                                     (64, 2048, 2048, 10)])
+def test_fused_tt_linear_backward(dev, m, k, n, r):
+    """dx through K1 on transposed operands (a rank that is not a multiple
+    of 8 loses A's 16-byte loads and must stay right), dA and dB in f32,
+    against autograd through the plain version."""
+    x, w = _rn(dev, m, k), _rn(dev, k, n, scale=k ** -0.5)
+    a, b = _rn(dev, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    g = _rn(dev, m, n, seed=2)
+    outs = []
+    for fn in (lambda *t: dispatch.tt_linear(*t, alpha=4.0),
+               lambda *t: ttl.tt_linear_plain(*t, 4.0)):
+        leaves = [x.clone().requires_grad_(True), w,
+                  a.clone().requires_grad_(True),
+                  b.clone().requires_grad_(True)]
+        fn(*leaves).backward(g)
+        outs.append([leaves[i].grad for i in (0, 2, 3)])
+    for name, got, want in zip(("dx", "da", "db"), *outs):
+        assert _rel_max(got, want) <= 2e-2, (name, _rel_max(got, want))
+
+
+def test_dispatch_routes_training_and_inference(dev):
+    """With autograd recording, flash attention runs #5 forward and #6 /
+    #7 backward; without, K3; K1 runs in both directions."""
+    q, k, v = _rn(dev, 1, 64, 4, 64), _rn(dev, 1, 64, 2, 64), \
+        _rn(dev, 1, 64, 2, 64)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        dispatch.flash_attention(q, k, v)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    dispatch.flash_attention(*leaves).float().sum().backward()
+    x = _rn(dev, 8, 64).requires_grad_(True)
+    w, a, b = _rn(dev, 64, 32), _rn(dev, 64, 8), _rn(dev, 8, 32)
+    dispatch.tt_linear(x, w, a, b).float().sum().backward()
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()
+    assert n["flash_attention"] == 1 and n["flash_attention_fwd"] == 1
+    assert n["flash_attention_bwd_dq"] == n["flash_attention_bwd_dkv"] == 1
+    assert n["tt_linear"] == 2
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tfa.flash_attention(*leaves)
+
+
 def test_launch_counts_and_cpu_leg(dev):
-    from repro_torch import kernels
     kernels.reset_launch_counts()
     x, w = _rn(dev, 4, 64), _rn(dev, 64, 32)
     a, b = _rn(dev, 64, 8), _rn(dev, 8, 32)

@@ -86,7 +86,7 @@ def _python_loop(t, prompt, n_new, cache_len, task=None):
     with torch.inference_mode():
         out = TT.forward(p["base"], cfg, spec, bc, pl,
                          torch.as_tensor(prompt)[None], task=task,
-                         device="cpu")
+                         return_caches=True, device="cpu")
         caches = TT.init_caches(cfg, 1, cache_len, cfg.compute_dtype,
                                 device="cpu")
         TT.insert_cache_slot(caches, out.caches, 0)

@@ -157,7 +157,7 @@ def test_forward_logits_and_caches_match(policy, tpolicy, task):
     bc, pl = tpeft.adapter_factors(spec, tp["adapter"], {})
     got = TT.forward(tp["base"], cfg, spec, bc, pl, tokens, task=ttask,
                      policy=tdispatch.REF if tpolicy == "ref" else None,
-                     device="cpu")
+                     return_caches=True, device="cpu")
     assert got.logits.shape == want.logits.shape
     assert _rel(got.logits, want.logits) < TOL
     for gc, wc in zip(got.caches, want.caches):
