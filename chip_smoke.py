@@ -18,7 +18,15 @@ Phases, each printed on its own lines:
      logits are held against the plain leg's distance from an f32 plain
      leg, and under a mild adapter the prefill logits and one 4-slot
      mixed-task decode step are held against the plain leg;
-  4. training through the port's Trainer on full-width stablelm-1.6b
+  4. the paged serving engine (the default ServeConfig mode) on the same
+     full-width model: 16 requests of 40-300 prompt tokens over 3 tasks,
+     half of them sharing a 100-token prefix per task, served cold then
+     warm; every request finished, #8's launches 24 per engine step,
+     prefix hits and copy-on-write on the warm run, no leaked block; tok/s,
+     decode ms/step, TTFT/TPOT, peak memory and the device-busy share;
+     under a mild adapter one pure-decode and one mixed prefill/decode
+     paged step, kernel leg against the plain leg;
+  5. training through the port's Trainer on full-width stablelm-1.6b
      (MetaTT 4d on q/v from rank 10, AdamW, remat per block, 4 x 1024
      tokens a step, 6 steps with one DMRG sweep to rank 8): finite losses,
      moved cores, ranks 8 after the sweep, K1 / #5 / #6 / #7 launch counts
@@ -64,6 +72,9 @@ KERNELS = {
     "flash_attention_bwd_dkv": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:310"),
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:161"),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. Linears: one
 # bf16 ulp (2^-7 relative) from a different f32 summation order.
@@ -73,7 +84,12 @@ KERNELS = {
 # bf16 flash tolerance is 2e-2, tests/test_kernels.py).
 TOL = {"tt_linear": (1e-2, 1e-2), "tt_linear_batched_a": (1e-2, 1e-2),
        "flash_attention": (2e-2, 2e-2), "decode_attention": (2e-2, 2e-2),
-       "flash_attention_fwd": (2e-2, 2e-2)}
+       "flash_attention_fwd": (2e-2, 2e-2),
+       "paged_decode_attention": (2e-2, 2e-2)}
+# the paged engine's shape: 8 slots, a pool of 256 blocks of 16 cells,
+# 34-page tables (512 / 16 pages + 2 sentinel columns), 32-token chunks
+PAGED = dict(max_batch=8, cache_len=512, page_size=16, prefill_chunk=32,
+             out_cap=32)
 
 
 def sh(cmd):
@@ -266,6 +282,7 @@ def phase_kernels(dev):
                 lambda q, k, v: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask), lib_sets),
             bound_ms=bms, bound_by=by))
+    rows += paged_kernel_rows(dev, rn)
     for r_ in rows:
         print(f"[kernel] {r_['name']:20s} {r_['shape']:44s} "
               f"err={r_['max_abs_err']:.3e} ms={r_['ms']:.4f} "
@@ -273,6 +290,75 @@ def phase_kernels(dev):
               f"library_ms={r_['library_ms']:.4f} "
               f"bound_ms={r_['bound_ms']:.4f} ({r_['bound_by']})",
               flush=True)
+    return rows
+
+
+def paged_kernel_rows(dev, rn):
+    """#8 at the paged engine's shape, C = 1 (pure decode) and C = 32 (the
+    engine's step): 8 slots at ragged positions, H = KV = 32, d = 64, a
+    pool of 256 blocks of 16 cells, 34-page tables whose entries past each
+    slot's window are sentinels. Its bound counts q, o and the K/V cells
+    inside each slot's window; the library yardstick is SDPA on the
+    PRE-GATHERED dense K/V with the boolean position mask (the gather is
+    left out of its time; the port never calls SDPA)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    b_, h, d = PAGED["max_batch"], 32, 64
+    page, n_blk = PAGED["page_size"], 256
+    p_tab = PAGED["cache_len"] // page + 2
+    pos = torch.tensor([0, 37, 100, 161, 230, 299, 407, 479],
+                       dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    rows = []
+    for c in (1, 32):
+        last = [min((int(p) + c - 1) // page, p_tab - 1) for p in pos]
+        tables = torch.full((b_, p_tab), n_blk, dtype=torch.int32)
+        perm = torch.randperm(n_blk, generator=gen)
+        used = 0
+        for row, j in enumerate(last):
+            tables[row, :j + 1] = perm[used:used + j + 1].int()
+            used += j + 1
+        tables = tables.to(dev)
+        cells = sum(min(int(p) + c, p_tab * page) for p in pos)
+        nbytes = (2 * 2 * b_ * c * h * d + 2 * 2 * cells * h * d
+                  + 4 * b_ * (p_tab + 1))
+        flops = sum(4 * d * h * (int(p) + cc + 1) for p in pos
+                    for cc in range(c))
+
+        def make():
+            return (rn(b_, c, h, d), rn(n_blk, page, h, d),
+                    rn(n_blk, page, h, d), tables, pos)
+        sets = copies(make, nbytes)
+        err = compare("paged_decode_attention",
+                      pa.paged_decode_attention(*sets[0]),
+                      pa.paged_decode_attention_plain(*sets[0]))
+        s_len = p_tab * page
+        mask = (torch.arange(s_len, device=dev)[None, None, :]
+                <= (pos[:, None] + torch.arange(c, device=dev)[None])
+                [:, :, None])[:, None]                   # (B, 1, C, S)
+        tbl = tables.long().clamp(max=n_blk - 1)
+        lib_sets = [(q.transpose(1, 2),
+                     k[tbl].reshape(b_, s_len, h, d).transpose(1, 2),
+                     v[tbl].reshape(b_, s_len, h, d).transpose(1, 2))
+                    for q, k, v, _, _ in sets]
+        bms, by = bound_ms(nbytes, flops)
+        rows.append(dict(
+            name="paged_decode_attention",
+            shape=(f"B={b_} C={c} H=KV={h} d={d} page={page} "
+                   f"P={p_tab} N={n_blk}"),
+            main=c == PAGED["prefill_chunk"], max_abs_err=err,
+            ms=cuda_time_ms(lambda *t: pa.paged_decode_attention(*t),
+                            sets),
+            plain_ms=cuda_time_ms(
+                lambda *t: pa.paged_decode_attention_plain(*t), sets),
+            library_ms=cuda_time_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), lib_sets),
+            library="SDPA on pre-gathered K/V, boolean mask",
+            bound_ms=bms, bound_by=by))
+        del sets, lib_sets
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -555,17 +641,16 @@ def device_share(label, run, top_n=8):
         print(f"[profile]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
 
 
-def phase_serving(dev):
-    """Dense-cache engine on full-width stablelm-1.6b, 8 mixed-task
-    requests; kernel launches counted around ``generate`` only."""
+def serving_model(dev, tag):
+    """Full-width stablelm-1.6b, random bf16 base weights from the seeded
+    generator, and the served 4+1d MetaTT adapter on q/v (rank 8, 3 tasks,
+    ``random_tt(scale=0.5)``). Returns (cfg, spec, params, rt, gen)."""
     import torch
     from repro_torch import configs
-    from repro_torch import kernels as K
-    from repro_torch.config.base import KernelConfig, RunConfig, ServeConfig
+    from repro_torch.config.base import RunConfig
     from repro_torch.core import tt as ttlib
     from repro_torch.models import model as M
-    from repro_torch.serving import AdapterRuntime, Engine, Request
-    from repro_torch.tree import tree_map
+    from repro_torch.serving import AdapterRuntime
 
     cfg = configs.get_config("stablelm-1.6b")
     run = RunConfig(model=cfg, adapter_kind="metatt",
@@ -581,8 +666,22 @@ def phase_serving(dev):
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size()
                  for t in M.tensors(params["base"]))
-    print(f"[serve] stablelm-1.6b bf16: {nbytes / 1e9:.3f} GB of base "
+    print(f"[{tag}] stablelm-1.6b bf16: {nbytes / 1e9:.3f} GB of base "
           f"weights, init {time.perf_counter() - t0:.1f}s", flush=True)
+    return cfg, spec, params, rt, gen
+
+
+def phase_serving(dev):
+    """Dense-cache engine on full-width stablelm-1.6b, 8 mixed-task
+    requests; kernel launches counted around ``generate`` only."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.config.base import KernelConfig, ServeConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.serving import AdapterRuntime, Engine, Request
+    from repro_torch.tree import tree_map
+
+    cfg, spec, params, rt, gen = serving_model(dev, "serve")
     serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=256,
                         out_cap=32)
     eng = Engine(cfg, rt, serve=serve, device=dev)
@@ -686,6 +785,168 @@ def phase_serving(dev):
         print(f"[serve] {label} adapter: greedy tokens equal to the plain "
               f"leg {same}/{sum(len(o) for o in got)}, first tokens "
               f"{first}/{len(got)}")
+    return launches
+
+
+def paged_step_rel_err(cfg, rt, prompts, tasks, dev):
+    """One pure-decode and one mixed prefill/decode ``paged_step`` (the
+    engine's (B, 32) step) from the same pools through the kernel leg and
+    the plain leg. The pools are filled by chunked prefill of every
+    prompt (kernel leg). Decode: every slot one token at position plen.
+    Mixed: slots 0-1 decode, slots 2-3 prefill the 32 prompt tokens from
+    position 96 (the cells they overwrite hold the same tokens' KV).
+    Returns {step: (largest over slots of max |kernel - plain| / max
+    |plain| of the slot's logits row, slots whose argmax agree)}."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    base, bc, pl = rt.base, rt.broadcast, rt.per_layer
+    n, c, page = len(prompts), PAGED["prefill_chunk"], PAGED["page_size"]
+    pages = PAGED["cache_len"] // page
+    caches = T.init_paged_caches(cfg, n * pages, page, cfg.compute_dtype,
+                                 device=dev)
+    tables = torch.full((n, pages + 2), n * pages, dtype=torch.int32)
+    tables[:, :pages] = torch.arange(n * pages).reshape(n, pages)
+    task = torch.tensor(tasks, device=dev)
+    plen = [len(p) for p in prompts]
+
+    def toks_at(start, width):
+        t = torch.zeros((n, c), dtype=torch.long)
+        for i, p in enumerate(prompts):
+            seg = p[start[i]:start[i] + width[i]]
+            t[i, :len(seg)] = torch.as_tensor(seg)
+        return t
+    with torch.inference_mode():
+        done = [0] * n
+        while any(d < pl_ for d, pl_ in zip(done, plen)):
+            width = [min(c, pl_ - d) for d, pl_ in zip(done, plen)]
+            T.paged_step(base, cfg, rt.spec, bc, pl, toks_at(done, width),
+                         caches, tables, torch.tensor(done),
+                         torch.tensor([max(w - 1, 0) for w in width]),
+                         task=task, device=dev)
+            done = [d + w for d, w in zip(done, width)]
+        nxt = toks_at(plen, [1] * n)
+        nxt[:, 0] = torch.arange(n) + 11         # any next token
+        mixed = nxt.clone()
+        mixed[2:] = toks_at([96] * n, [c] * n)[2:]
+        steps = {"decode": (nxt, plen, [0] * n),
+                 "mixed": (mixed, plen[:2] + [96] * (n - 2),
+                           [0, 0] + [c - 1] * (n - 2))}
+        out = {}
+        for name, (toks, pos, sel) in steps.items():
+            kern, ref = (T.paged_step(
+                base, cfg, rt.spec, bc, pl, toks,
+                [{"self": {k_: v_.clone() for k_, v_ in cc["self"].items()}}
+                 for cc in caches], tables, torch.tensor(pos),
+                torch.tensor(sel), task=task, policy=policy,
+                device=dev)[0].float()
+                for policy in (dispatch.DEFAULT, dispatch.REF))
+            rel = ((kern - ref).abs().amax(-1) / ref.abs().amax(-1)).max()
+            out[name] = (float(rel),
+                         int((kern.argmax(-1) == ref.argmax(-1)).sum()))
+    return out
+
+
+def phase_paged(dev):
+    """The paged engine (the default ServeConfig mode: block pools, prefix
+    cache with copy-on-write, in-loop chunked prefill) on full-width
+    stablelm-1.6b: 16 requests over 3 tasks, 40-300 prompt tokens, 32 new
+    tokens each, half sharing a 100-token prefix per task (it ends
+    mid-page, so a warm match copies that page on write), served cold then
+    warm. Kernel launches counted around the two ``generate`` calls."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.config.base import ServeConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.serving import AdapterRuntime, Engine, Request
+
+    cfg, spec, params, rt, gen = serving_model(dev, "paged")
+    serve = ServeConfig(cache_mode="paged", **PAGED)
+    eng = Engine(cfg, rt, serve=serve, device=dev)
+    pool_gb = sum(t.numel() * t.element_size() for c in eng._paged_caches
+                  for t in c["self"].values()) / 1e9
+    print(f"[paged] {serve.resolved_num_blocks} blocks of "
+          f"{serve.page_size} cells, {pool_gb:.3f} GB of K/V pools; "
+          f"chunk {serve.prefill_chunk}, {serve.max_batch} slots", flush=True)
+    rng = np.random.RandomState(SEED + 3)
+    prefix = {t: rng.randint(0, cfg.vocab_size, size=100) for t in range(3)}
+    reqs = []
+    for i in range(16):
+        task = i % 3
+        if i % 2 == 0:
+            prompt = np.concatenate([prefix[task], rng.randint(
+                0, cfg.vocab_size, size=rng.randint(10, 201))])
+        else:
+            prompt = rng.randint(0, cfg.vocab_size, size=rng.randint(40, 301))
+        reqs.append(Request(prompt, 32, task=task))
+    print(f"[paged] prompt lengths {[len(r.prompt) for r in reqs]}, tasks "
+          f"{[r.task for r in reqs]}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    steps = 0
+    for label in ("cold", "warm"):
+        outs = eng.generate(reqs)
+        torch.cuda.synchronize()
+        st = eng.last_stats
+        steps += st.decode_steps
+        for res in eng.last_results:
+            if res.status != "FINISHED" or res.n_generated != 32:
+                raise AssertionError(f"{label}: request ended {res.status} "
+                                     f"with {res.n_generated} tokens")
+        for o in outs:
+            if not (0 <= int(o.min()) and int(o.max()) < cfg.vocab_size):
+                raise AssertionError(f"token id outside the vocab: {o}")
+        if eng.leaked_blocks():
+            raise AssertionError(f"{label}: {eng.leaked_blocks()} KV "
+                                 "blocks leaked")
+        print(f"[paged] {label}: {st.requests} requests, "
+              f"{st.tokens_generated} tokens in {st.wall_s:.3f}s = "
+              f"{st.tokens_per_s:.1f} tok/s; decode "
+              f"{1e3 * st.decode_s / max(st.decode_steps, 1):.2f} ms/step "
+              f"over {st.decode_steps} steps in {st.decode_calls} loop "
+              f"calls; ttft {1e3 * st.ttft_s:.1f} ms, tpot "
+              f"{1e3 * st.tpot_s:.2f} ms; prefix hit rate "
+              f"{st.prefix_hit_rate:.3f} ({st.prefix_hit_tokens} of "
+              f"{st.prefix_lookup_tokens} tokens), cow {st.cow_copies}, "
+              f"cache evictions {st.cache_evictions}, backpressure waits "
+              f"{st.backpressure_waits}, kv blocks peak "
+              f"{st.kv_blocks_peak}/{st.num_blocks}", flush=True)
+    launches = K.launch_counts()
+    print(f"[paged] launches during the two generates: "
+          f"{json.dumps(launches)}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    n_pa = launches["paged_decode_attention"]
+    if not (n_pa > 0 and n_pa == cfg.num_layers * steps):
+        raise AssertionError(f"paged_decode_attention launched {n_pa} "
+                             f"times in {steps} engine steps")
+    # at 4+1d the (B, 32) adapted q/v take the batched einsum: no K1 / K2
+    if launches["tt_linear"] or launches["tt_linear_batched_a"]:
+        raise AssertionError(f"K1/K2 launched on the paged path: "
+                             f"{launches}")
+    if not (st.prefix_hit_tokens > 0 and st.cow_copies >= 1):
+        raise AssertionError("warm run: no prefix hit or no COW copy")
+
+    device_share("paged generate of 16 requests (warm)",
+                 lambda: eng.generate(reqs))
+    del eng
+    torch.cuda.empty_cache()
+    # kernel leg vs plain leg at one paged step, under a mild adapter
+    mild = AdapterRuntime.build("live", params["base"], spec, {
+        "cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 8, scale=0.12,
+                                 device=dev)}, params["frozen"])
+    # slots 0-1 decode, slots 2-3 (the longest prompts) prefill a chunk
+    picked = reqs[1:3] + sorted(reqs[3:], key=lambda r: len(r.prompt))[-2:]
+    res = paged_step_rel_err(cfg, mild, [r.prompt for r in picked],
+                             [r.task for r in picked], dev)
+    for name, (rel, same) in res.items():
+        print(f"[paged] mild adapter, one {name} paged step of 4 slots "
+              f"(prompts {[len(r.prompt) for r in picked]}): selected-"
+              f"column logits vs plain leg max rel err per slot {rel:.3e} "
+              f"(limit 5e-2), argmax equal {same}/4")
+        if not rel <= 5e-2:
+            raise AssertionError(f"{name} paged step logits differ from "
+                                 f"the plain leg: {rel:.3e}")
     return launches
 
 
@@ -856,7 +1117,8 @@ def main() -> int:
                 print(f"[ptxas] {name}: {line.strip()}")
 
     rows = phase_kernels(dev) + phase_train_kernels(dev)
-    paths = {"serve": phase_serving(dev), "train": phase_training(dev)}
+    paths = {"serve": phase_serving(dev), "paged": phase_paged(dev),
+             "train": phase_training(dev)}
 
     records = []
     for name, (src, replaces) in KERNELS.items():
@@ -870,6 +1132,8 @@ def main() -> int:
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"])
+        if "library" in main_row:
+            rec["library"] = main_row["library"]
         for r in mine:
             if r.get("role") == "dx":   # K1 again, in the training backward
                 rec["dx"] = {k: r[k] for k in (

@@ -4,10 +4,10 @@
 dispatch policy, ``ServeConfig`` the serving engine, ``OptimizerConfig``
 and ``TrainConfig`` the trainer, ``RunConfig`` the bundle a user builds
 and trains an adapter from. Field names and defaults follow the JAX
-package; dtypes are torch dtypes. The port implements the dense-cache
-serving slice and the adapter-training slice: the engine and the trainer
-raise ``NotImplementedError`` for any field value outside them instead of
-ignoring it.
+package; dtypes are torch dtypes. The port implements the serving slices
+(paged and dense cache) and the adapter-training slice: the engine and
+the trainer raise ``NotImplementedError`` for any field value outside
+them instead of ignoring it.
 """
 from __future__ import annotations
 
@@ -193,13 +193,15 @@ class RegistryConfig:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Serving-engine knobs (``serving/engine.py``), the JAX package's
-    fields and defaults. The port serves ``cache_mode="dense"``: max_batch
-    slots of cache_len cells each, power-of-two (or ``prompt_buckets``)
-    prefill buckets. The paged-mode fields (page_size, num_blocks,
-    prefill_chunk, prefix_cache, router, disagg, preempt_after) configure
-    a mode the port does not run yet; ``Engine`` rejects paged mode,
-    spec, registry, quant, mesh_shape and row_parallel with
-    ``NotImplementedError``.
+    fields and defaults. The port serves both cache modes on one device:
+    ``cache_mode="paged"`` (the default: flat pools of ``num_blocks``
+    blocks of ``page_size`` cells, block tables, the prefix cache with
+    copy-on-write, and ``prefill_chunk`` prompt tokens per slot and step
+    in the decode loop) and ``cache_mode="dense"`` (max_batch slots of
+    cache_len cells each, power-of-two or ``prompt_buckets`` prefill
+    buckets). ``Engine`` rejects spec, registry, quant, mesh_shape (and
+    with it the router's replicas), disagg, row_parallel and
+    preempt_after with ``NotImplementedError``.
     """
     max_batch: int = 4
     cache_len: int = 64
@@ -220,6 +222,15 @@ class ServeConfig:
     registry: RegistryConfig = RegistryConfig()
     preempt_after: int = 0
 
+    @property
+    def pages_per_request(self) -> int:
+        """Block-table width: worst-case pages one request can touch."""
+        return -(-self.cache_len // self.page_size)
+
+    @property
+    def resolved_num_blocks(self) -> int:
+        return self.num_blocks or self.max_batch * self.pages_per_request
+
     def validate(self) -> "ServeConfig":
         if self.cache_mode not in ("paged", "dense"):
             raise ValueError(f"unknown cache_mode {self.cache_mode!r}; "
@@ -228,8 +239,21 @@ class ServeConfig:
                      "prefill_chunk"):
             if getattr(self, name) < 1:
                 raise ValueError(f"ServeConfig.{name} must be >= 1")
+        if self.cache_mode == "paged" and self.page_size % 8 != 0:
+            raise ValueError(
+                f"page_size={self.page_size} must be a multiple of 8 (the "
+                "paged-attention kernels tile (page, head_dim) blocks)")
+        if self.cache_mode == "paged" \
+                and self.resolved_num_blocks < self.pages_per_request:
+            raise ValueError(
+                f"num_blocks={self.resolved_num_blocks} cannot hold even "
+                f"one worst-case request ({self.pages_per_request} pages "
+                f"of {self.page_size} for cache_len={self.cache_len})")
+        if self.preempt_after < 0:
+            raise ValueError(
+                f"ServeConfig.preempt_after={self.preempt_after} must be "
+                ">= 0 (0 disables recompute preemption)")
         unported = {
-            "cache_mode='paged'": self.cache_mode == "paged",
             "spec": self.spec.enabled,
             "registry": self.registry.enabled,
             "quant": self.quant.any,
@@ -241,8 +265,9 @@ class ServeConfig:
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
-                f"ServeConfig {bad}: the port serves cache_mode='dense' "
-                "on one device without spec/registry/quant yet")
+                f"ServeConfig {bad}: the port serves the paged and dense "
+                "cache modes on one device without spec/registry/quant/"
+                "preemption yet")
         return self
 
 

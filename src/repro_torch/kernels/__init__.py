@@ -3,19 +3,22 @@ dispatch seam the model routes through (``dispatch.py``)."""
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import tt_linear as _tl
 
 KERNELS = ("tt_linear", "tt_linear_batched_a", "flash_attention",
            "decode_attention", "flash_attention_fwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "paged_decode_attention")
+_COUNTERS = (_tl.LAUNCHES, _fa.LAUNCHES, _pa.LAUNCHES)
 
 
 def launch_counts() -> dict:
     """Launches of each CUDA kernel since the last reset."""
-    return {**_tl.LAUNCHES, **_fa.LAUNCHES}
+    return {k: v for d in _COUNTERS for k, v in d.items()}
 
 
 def reset_launch_counts() -> None:
-    for d in (_tl.LAUNCHES, _fa.LAUNCHES):
+    for d in _COUNTERS:
         for k in d:
             d[k] = 0

@@ -23,7 +23,8 @@ import threading
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tt_linear", "flash_attention", "flash_attention_bwd")
+SOURCES = ("tt_linear", "flash_attention", "flash_attention_bwd",
+           "paged_attention")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

@@ -26,7 +26,8 @@ Unlike the JAX package, ``policy=None`` means the default policy (the
 kernels), not a separate unfused path: every entry point runs the CUDA
 kernels for CUDA tensors unless ``KernelConfig(backend="ref")`` asks for
 the plain versions. ``fuse_linear=False`` / ``flash=False`` select the
-unfused reference paths in ``models/`` (plain matmuls and softmax).
+unfused reference paths in ``models/`` (plain matmuls and softmax; for
+the paged cache, the plain version of #8).
 """
 from __future__ import annotations
 
@@ -210,3 +211,16 @@ def decode_attention(q, k, v, pos, *,
     k, v (B, S, KV, d); pos scalar or (B,) -> (B, 1, H, d)."""
     return ops.decode_attention(q, k, v, pos,
                                 backend=_pol(policy, q).backend)
+
+
+def paged_decode_attention(q, k_cache, v_cache, tables, pos, *,
+                           k_scale=None, v_scale=None,
+                           policy: Optional[KernelPolicy] = None):
+    """Paged-cache attention, decode and in-loop chunked prefill (serving
+    only: #8 has no backward, and its wrapper raises on an input that
+    requires grad). q (B, C, H, d); k_cache, v_cache (N, page, KV, d);
+    tables (B, P) int block table; pos (B,) base positions
+    -> (B, C, H, d)."""
+    return ops.paged_decode_attention(q, k_cache, v_cache, tables, pos,
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      backend=_pol(policy, q).backend)

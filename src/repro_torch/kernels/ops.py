@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tt_linear as _tl
 
@@ -97,3 +98,24 @@ def decode_attention(q, k, v, pos, *, backend: str = "kernel"):
     fn = (_fa.decode_attention_plain if backend == "ref"
           else _fa.decode_attention)
     return fn(q[:, 0], k, v, pos)[:, None]
+
+
+def paged_decode_attention(q, k_cache, v_cache, tables, pos, *,
+                           k_scale=None, v_scale=None,
+                           backend: str = "kernel"):
+    """Block-table attention over a paged KV cache (the engine's decode and
+    in-loop chunked prefill). q (B, C, H, d) — query c of slot b at
+    position pos[b] + c; k_cache, v_cache (N, page, KV, d) flat block
+    pools; tables (B, P) int (sentinel >= N marks unallocated pages); pos
+    scalar or (B,) -> (B, C, H, d): query c attends cells [0, pos[b] + c].
+    ``k_scale`` / ``v_scale`` are the int8 KV leg's scale pools, which is
+    not ported yet."""
+    _check(backend)
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "the int8 KV leg of paged attention is not ported yet")
+    pos = torch.as_tensor(pos, device=q.device).to(torch.int32)
+    pos = pos.expand(q.shape[0]) if pos.ndim == 0 else pos
+    fn = (_pa.paged_decode_attention_plain if backend == "ref"
+          else _pa.paged_decode_attention)
+    return fn(q, k_cache, v_cache, tables, pos)

@@ -108,3 +108,40 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bs,bsd->bd", p.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, tables: torch.Tensor,
+                               pos: torch.Tensor) -> torch.Tensor:
+    """Block-table attention over a paged KV cache (the twin of the JAX
+    package's ``paged_decode_attention_ref``).
+
+    q: (B, C, H, d) — C co-batched query tokens per slot, slot b's query c
+    at absolute position pos[b] + c; k_cache, v_cache: (N, page, KV, d)
+    flat block pools; tables: (B, P) int logical-page -> physical-block map
+    (entries may be an out-of-range sentinel: the gather clamps and the
+    position mask hides whatever it reads); pos: (B,) base positions.
+    Returns (B, C, H, d) in v's dtype: query c attends cache cells
+    [0, pos[b] + c]; softmax in f32, p rounded to v's dtype before P·V.
+    """
+    b, c, h, d = q.shape
+    n, _, kv, _ = k_cache.shape
+    g = h // kv
+    tbl = tables.long().clamp(0, n - 1)
+    # (B, P, page, KV, d) -> (B, S, KV, d), S = P * page cells in
+    # logical-position order — same valid set, same order as a dense cache
+    kg = k_cache[tbl].reshape(b, -1, kv, d)
+    vg = v_cache[tbl].reshape(b, -1, kv, d)
+    if g > 1:
+        kg = kg.repeat_interleave(g, dim=2)
+        vg = vg.repeat_interleave(g, dim=2)
+    s = torch.einsum("bchd,bshd->bhcs", q.float(), kg.float()) * d ** -0.5
+    ki = torch.arange(kg.shape[1], device=q.device)
+    qpos = (pos.to(q.device).long()[:, None]
+            + torch.arange(c, device=q.device)[None, :])       # (B, C)
+    mask = ki[None, None, :] <= qpos[:, :, None]                # (B, C, S)
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhcs,bshd->bchd", p.to(vg.dtype).float(),
+                       vg.float())
+    return out.to(vg.dtype)

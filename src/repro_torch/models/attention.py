@@ -1,10 +1,12 @@
-"""GQA attention with RoPE and a dense KV cache (counterpart of
-``src/repro/models/attention.py``: the train/prefill branch and the dense
-single-token decode branch; paged, cross-attention and TP wait).
+"""GQA attention with RoPE and a dense or paged KV cache (counterpart of
+``src/repro/models/attention.py``: the train/prefill branch, the dense
+single-token decode branch and the paged branch; cross-attention and TP
+wait).
 
-The flash route sends prefill to kernel K3 and decode to kernel K4
-through ``kernels/dispatch.py``; without it (``KernelConfig(flash=False)``)
-attention is the plain softmax over the full score matrix.
+The flash route sends prefill to kernel K3, dense decode to kernel K4 and
+paged steps to kernel #8 through ``kernels/dispatch.py``; without it
+(``KernelConfig(flash=False)``) attention is the plain softmax over the
+full score matrix (for the paged cache, #8's plain version).
 """
 from __future__ import annotations
 
@@ -44,14 +46,20 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
               *, causal: bool = True,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[dict] = None,
-              cache_pos: Optional[torch.Tensor] = None):
+              cache_pos: Optional[torch.Tensor] = None,
+              block_tables: Optional[torch.Tensor] = None,
+              paged_write=None):
     """Returns (y, new_cache).
 
     Prefill (``cache is None``): attends the T new tokens and returns their
     k/v as the new cache. Decode (``cache`` given, T == 1): writes the new
     k/v into ``cache`` IN PLACE at row b, cell cache_pos[b] (cells past the
     cache end are dropped, as the JAX scatter's mode="drop" does), attends
-    cells [0, cache_pos[b]] and returns the same cache dict.
+    cells [0, cache_pos[b]] and returns the same cache dict. Paged (
+    ``block_tables`` given): ``cache`` holds flat (N, page, KV, hd) block
+    pools and x is a (B, C) chunk of co-batched decode / prefill tokens at
+    (B, C) ``positions``, written in place (see ``_paged_attend``;
+    ``paged_write`` is the step's precomputed write plan).
     """
     hd = cfg.resolved_head_dim
     n_h, n_kv = cfg.num_heads, cfg.num_kv_heads
@@ -67,6 +75,15 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
+    if block_tables is not None:
+        if cache is None or positions.ndim != 2:
+            raise ValueError("paged attention needs a paged cache and "
+                             "(B, C) positions")
+        out = _paged_attend(q, k, v, ctx, cache, block_tables, positions,
+                            paged_write)
+        y = adapted_linear(out.reshape(b, t, n_h * hd), w["wo"], ctx,
+                           "attn_o")
+        return y, cache
     if cache is not None:
         if t != 1:
             raise NotImplementedError(
@@ -106,8 +123,61 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
     return y, new_cache
 
 
+def paged_write_plan(block_tables, positions, n_blocks: int, page: int):
+    """Where a (B, C) chunk's k/v land in the pools: (rows, blk, off) — the
+    flat (b, c) rows whose cells are written, and their physical block and
+    cell. Writes through a sentinel page (>= N) or past the table are
+    DROPPED, not clamped (the JAX scatter's mode="drop"): clamping would
+    overwrite block N-1, a live block of another request. The same plan
+    serves every layer of a step (one host sync for the row count)."""
+    tables = block_tables.to(device=positions.device, dtype=torch.long)
+    p_tab = tables.shape[1]
+    pidx = positions // page                                 # (B, C)
+    blk = torch.gather(tables, 1, pidx.clamp(0, p_tab - 1))
+    keep = (pidx < p_tab) & (blk >= 0) & (blk < n_blocks)
+    rows = keep.reshape(-1).nonzero().squeeze(1)
+    return (rows, blk.reshape(-1)[rows],
+            (positions % page).reshape(-1)[rows])
+
+
+def _paged_attend(q, k, v, ctx: AdapterCtx, cache: dict, block_tables,
+                  positions, write) -> torch.Tensor:
+    """Paged-cache step: scatter the chunk's k/v into the flat block pools
+    by block table, IN PLACE, then attend with per-slot per-query position
+    masks (#8).
+
+    q (B, C, H, hd), k/v (B, C, KV, hd): projected and RoPE'd heads of
+    the C co-batched tokens per slot, token c of slot b at absolute
+    position positions[b, c]; cache: {"k", "v"} (N, page, KV, hd) pools
+    shared by every slot; block_tables: (B, P) int, sentinel >= N for
+    unallocated pages; write: the step's ``paged_write_plan``.
+
+    Write-then-attend: a token's own k/v lands in its cell before the
+    masked attention reads it, so cells holding stale data (pad columns of
+    earlier steps) are always overwritten by the step that owns their
+    position before any query's mask reaches them.
+    """
+    ck, cv = cache["k"], cache["v"]
+    rows, blk, off = write
+    ck[blk, off] = k.reshape(-1, *k.shape[2:])[rows].to(ck.dtype)
+    cv[blk, off] = v.reshape(-1, *v.shape[2:])[rows].to(cv.dtype)
+    pol = ctx.policy if _flash_ok(ctx) else dispatch.REF
+    return dispatch.paged_decode_attention(q, ck, cv, block_tables,
+                                           positions[:, 0], policy=pol)
+
+
 def init_cache(cfg: ModelConfig, batch: int, length: int, dtype,
                device) -> dict:
     shape = (batch, length, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
+                     dtype, device) -> dict:
+    """Flat per-layer KV block pool: (num_blocks, page, KV, hd). Which
+    request owns which block lives on the host (serving/block_manager.py).
+    """
+    shape = (num_blocks, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

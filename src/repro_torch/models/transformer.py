@@ -1,14 +1,17 @@
 """Decoder-LM assembly (counterpart of ``src/repro/models/transformer.py``
-for attention decoders: init, forward, dense caches, decode step).
+for attention decoders: init, forward, dense caches and the decode step,
+paged block pools and the co-batched paged step).
 
 Weights keep the JAX package's layout so converted weights drop in: one
 dict per pattern position in ``blocks``, each leaf stacked over the
 ``nb`` super-blocks. ``run_blocks`` is a Python loop over super-blocks and
 pattern positions; layer ``l = sb * P + p`` reads adapter slice ``l``.
 Caches mirror the blocks: ``caches[p]["self"]["k"|"v"]`` is
-(nb, B, S, KV, hd); decode writes its new k/v into them in place. The
-training forward builds no caches and may checkpoint each super-block
-(``remat``), recomputing it in the backward.
+(nb, B, S, KV, hd); decode writes its new k/v into them in place. Paged
+pools are (nb, N, page, KV, hd), one block table shared by every layer;
+``paged_step`` writes into them in place too. The training forward builds
+no caches and may checkpoint each super-block (``remat``), recomputing it
+in the backward.
 """
 from __future__ import annotations
 
@@ -113,11 +116,12 @@ def _at(tree, i):
 
 
 def _sublayer(h, blk, ffn, ctx: AdapterCtx, cfg: ModelConfig, *, positions,
-              cache, cache_pos):
+              cache, cache_pos, block_tables=None, paged_write=None):
     hn = norm(h, blk["norm1"], cfg.norm_eps)
     y, c = attn_lib.attention(hn, blk["mixer"], ctx, cfg, causal=True,
                               positions=positions, cache=cache,
-                              cache_pos=cache_pos)
+                              cache_pos=cache_pos, block_tables=block_tables,
+                              paged_write=paged_write)
     h = h + y
     if ffn != "none":
         hn = norm(h, blk["norm2"], cfg.norm_eps)
@@ -129,9 +133,12 @@ def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
                cfg: ModelConfig, *, positions=None, caches=None,
                cache_pos=None, layer_offset: int = 0, task=None,
                policy=None, remat: bool = False,
-               return_caches: bool = True):
+               return_caches: bool = True, block_tables=None,
+               paged_write=None):
     """Loop over super-blocks and pattern positions. With ``caches``
-    (decode) they are updated in place and returned. Without them
+    (decode) they are updated in place and returned; ``block_tables``
+    (one (B, P) table shared by every layer) makes them paged pools, and
+    ``paged_write`` is the step's precomputed write plan. Without them
     (prefill / training) the new k/v are returned stacked like the blocks
     when ``return_caches``, else None. ``remat`` checkpoints each
     super-block (``torch.utils.checkpoint``, non-reentrant): its
@@ -152,7 +159,8 @@ def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
             cache = None if caches is None else _at(caches[i]["self"], sb)
             h, c = _sublayer(h, _at(blocks[i], sb), ffn, ctx, cfg,
                              positions=positions, cache=cache,
-                             cache_pos=cache_pos)
+                             cache_pos=cache_pos, block_tables=block_tables,
+                             paged_write=paged_write)
             out.append(c)
         return h, out
 
@@ -259,3 +267,64 @@ def decode_step(base, cfg: ModelConfig, spec, broadcast, per_layer, token,
                            policy=policy)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
     return lm_logits(h[:, 0], base["embed"]["tok"]), caches
+
+
+def init_paged_caches(cfg: ModelConfig, num_blocks: int, page_size: int,
+                      dtype, *, device=None) -> list:
+    """Zero paged pools, one {"self": {"k", "v"}} per pattern position,
+    leaves (nb, num_blocks, page, KV, hd). Which request owns which block
+    lives on the host (serving/block_manager.py)."""
+    check_supported(cfg)
+    nb = cfg.num_super_blocks
+    out = []
+    for _ in cfg.block_pattern:
+        c = attn_lib.init_paged_cache(cfg, nb * num_blocks, page_size, dtype,
+                                      resolve_device(device))
+        out.append({"self": {k: v.view(nb, num_blocks, *v.shape[1:])
+                             for k, v in c.items()}})
+    return out
+
+
+def copy_cache_block(caches, src: int, dst: int) -> list:
+    """Copy-on-write on the device: duplicate physical block ``src`` into
+    ``dst`` across every layer of a paged cache, in place. A ``dst`` >= N
+    drops the copy (the JAX scatter's mode="drop")."""
+    for c in caches:
+        for leaf in c["self"].values():
+            if 0 <= dst < leaf.shape[1]:
+                leaf[:, dst] = leaf[:, src]
+    return caches
+
+
+def paged_step(base, cfg: ModelConfig, spec, broadcast, per_layer, toks,
+               caches, block_tables, pos, sel, *, task=None, policy=None,
+               device=None):
+    """One co-batched decode / chunked-prefill step over a paged cache.
+
+    toks: (B, C) — slot b's tokens at absolute positions pos[b] ..
+    pos[b] + C - 1 (decode slots carry 1 real token, prefilling slots up
+    to C prompt tokens; trailing columns past a slot's real count are pad
+    whose cache writes are overwritten by the step that owns those
+    positions, or dropped past the slot's allocation); block_tables:
+    (B, P) int, sentinel >= N for unallocated pages; pos: (B,); sel: (B,)
+    column whose logits to return (the slot's last real token). Returns
+    (logits (B, V), caches), the pools updated in place."""
+    check_supported(cfg)
+    toks = _tokens(toks, base, device)
+    dev = toks.device
+    h = embed_tokens(toks, base["embed"]["tok"], cfg.compute_dtype)
+    pos = torch.as_tensor(pos, device=dev).long()
+    positions = pos[:, None] + torch.arange(toks.shape[1], device=dev)[None]
+    tables = torch.as_tensor(block_tables, device=dev).to(torch.int32)
+    pool = caches[0]["self"]["k"]
+    write = attn_lib.paged_write_plan(tables, positions, pool.shape[1],
+                                      pool.shape[2])
+    h, caches = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
+                           broadcast, per_layer, cfg, positions=positions,
+                           caches=caches, cache_pos=pos, task=task,
+                           policy=policy, block_tables=tables,
+                           paged_write=write)
+    h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
+    sel = torch.as_tensor(sel, device=dev).long()
+    h_sel = h[torch.arange(h.shape[0], device=dev), sel]           # (B, d)
+    return lm_logits(h_sel, base["embed"]["tok"]), caches

@@ -1,30 +1,55 @@
-"""Continuous-batching serving engine, dense-cache mode (counterpart of
-``src/repro/serving/engine.py`` with ``ServeConfig(cache_mode="dense")``).
+"""Continuous-batching serving engine (counterpart of
+``src/repro/serving/engine.py``), paged or dense KV cache, one device.
 
-  * ``max_batch`` decode SLOTS, each with a ``cache_len``-cell dense KV
-    cache row; per-slot state lives in one set of device tensors,
-    request metadata on the host.
-  * ADMISSION: a request's prompt is right-padded to a power-of-two (or
-    ``prompt_buckets``) bucket and prefilled (kernel K1 for the adapted
-    q/v projections, K3 for attention); its caches are copied into a free
-    slot and its first token is sampled from the last prompt position.
-  * DECODE: every slot steps together (K2 for q/v — each slot's A factor
-    gathered by its task id — and K4 for attention) until some slot's
-    active flag changes; the host then EVICTS finished slots and ADMITS
-    pending requests while the others keep their state. The JAX engine
-    runs this loop as one jitted ``while_loop``; eager PyTorch reads the
-    active flags back once per step (a CUDA graph of the step comes
-    later).
+  * ``max_batch`` decode SLOTS step together; per-slot state lives in one
+    set of device tensors, request metadata on the host.
+  * PAGED KV CACHE (``ServeConfig(cache_mode="paged")``, the default):
+    k/v live in flat pools of ``num_blocks × page_size`` cells per layer;
+    each slot owns a row of the block table mapping its logical pages to
+    physical blocks. A host ``BlockManager`` (free list, refcounts) owns
+    the pools, and the ``Scheduler`` admits requests by FREE BLOCKS — the
+    worst case of each request is reserved at admission, so the loop
+    never allocates.
+  * PREFIX SHARING: prompt pages are indexed in a hash-chained
+    ``PrefixCache`` when a request ends; a later request with the same
+    prompt prefix maps the cached blocks into its table instead of
+    recomputing them. Divergence inside a shared partial page copies that
+    block once at admission (copy-on-write, ``copy_cache_block``). Chains
+    are keyed per task id on a task-routed runtime: any adapted matrix
+    makes deep-layer KV task-dependent. The pools persist across
+    ``generate`` calls, because the prefix cache indexes them.
+  * IN-LOOP CHUNKED PREFILL: every step runs a fixed (B, prefill_chunk)
+    token block through ``transformer.paged_step`` — prefilling slots
+    consume up to ``prefill_chunk`` prompt tokens, decoding slots carry
+    one sampled token and pad — so there is no separate prefill and no
+    bucket ladder. Attention is kernel #8 (paged attention); with a
+    task-routed adapter the (B, C > 1) adapted q/v run the batched einsum
+    (the JAX package has no kernel for that shape either).
+  * DENSE KV CACHE (``cache_mode="dense"``, the parity baseline): each
+    slot owns a ``cache_len``-cell cache row; a request's prompt is
+    right-padded to a power-of-two (or ``prompt_buckets``) bucket and
+    prefilled (K1 for the adapted q/v projections, K3 for attention);
+    decode steps run K2 for q/v and K4 for attention.
+  * The loop runs until some slot's active flag changes; the host then
+    EVICTS finished slots (paged: registers their prompt pages, returns
+    the blocks) and ADMITS pending requests while the other slots keep
+    their state. The JAX engine runs this loop as one jitted
+    ``while_loop``; eager PyTorch reads the active flags back once per
+    step (a CUDA graph of the step comes later).
   * TASK ROUTING: with a 4+1d adapter the (B,) slot task vector gathers
     per-row C[l, t_b, m] slices from the one shared tensor train, so one
-    decode batch mixes tasks.
+    batch mixes tasks.
   * NaN GUARD: a step whose logits row is non-finite stops that slot,
-    keeps the tokens emitted before and ends the request FAILED.
+    keeps the tokens emitted before and ends the request FAILED (paged:
+    its KV is not indexed for reuse).
   * LIFECYCLE: ``cancel(request_id)`` and ``Request.deadline_s`` end a
-    request CANCELLED / TIMEOUT between steps, with what it emitted.
+    request CANCELLED / TIMEOUT between steps, with what it emitted
+    (paged: the prefix whose KV is computed is indexed, then the blocks
+    return to the pool).
 
-Paged mode, speculation, the adapter registry, quantization and meshes
-are not ported yet: ``Engine`` raises ``NotImplementedError`` for them.
+Speculation, the adapter registry, quantization, meshes (and with them
+replicas, the router and disaggregated prefill) and preemption are not
+ported yet: ``Engine`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -42,6 +67,8 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import transformer
 from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving.adapter_runtime import PORTED, AdapterRuntime
+from repro_torch.serving.block_manager import BlockManager, PrefixCache
+from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.stats import EngineStats
 
 
@@ -92,15 +119,36 @@ class DecodeState:
     caches: list             # dense KV caches, batch axis = slots
 
 
-class Engine:
-    """Dense-cache continuous-batching engine over an ``AdapterRuntime``.
+@dataclasses.dataclass
+class PagedState:
+    """Per-slot device state of the paged loop. A slot is PREFILLING
+    (done < plen: a step consumes up to prefill_chunk prompt tokens) or
+    DECODING (one sampled token a step), both in the same (B, C) step.
+    The block tables are not here: they change only at admit / evict
+    boundaries, so the host keeps them (``Engine._tables``) and uploads
+    them once per loop call."""
+    tok: torch.Tensor        # (B, 1) last sampled token
+    prompt: torch.Tensor     # (B, Lp) prompt tokens, right-padded
+    plen: torch.Tensor       # (B,)   prompt length
+    done: torch.Tensor       # (B,)   tokens whose KV is in the pools
+    remaining: torch.Tensor  # (B,)   tokens still to sample
+    active: torch.Tensor     # (B,)   slot is mid-request
+    widx: torch.Tensor       # (B,)   next column of the output buffer
+    out: torch.Tensor        # (B, out_cap + 1) generated tokens
+    task: torch.Tensor       # (B,)   per-slot task id
+    failed: torch.Tensor     # (B,)   NaN guard tripped
+    caches: list             # paged pools, leaves (nb, N, page, KV, hd)
 
-    ``serve`` must select ``cache_mode="dense"`` (the default ServeConfig
-    is paged, which is not ported yet and raises). ``kernels`` picks the
-    dispatch policy (default: the CUDA kernels); ``device`` is where the
-    engine runs (default: the CUDA device — raising without one;
-    ``device="cpu"`` runs the plain versions). The runtime's weights must
-    already be on that device.
+
+class Engine:
+    """Continuous-batching engine over an ``AdapterRuntime``.
+
+    ``serve`` picks the cache layout: "paged" (the default — block pools,
+    prefix sharing, in-loop chunked prefill) or "dense" (the parity
+    baseline). ``kernels`` picks the dispatch policy (default: the CUDA
+    kernels); ``device`` is where the engine runs (default: the CUDA
+    device — raising without one; ``device="cpu"`` runs the plain
+    versions). The runtime's weights must already be on that device.
     """
 
     def __init__(self, model_cfg: ModelConfig, runtime: AdapterRuntime, *,
@@ -127,8 +175,11 @@ class Engine:
             raise RuntimeError("KernelConfig(backend='cuda') needs a CUDA "
                                "device")
         self.max_batch = self.sv.max_batch
+        self.paged = self.sv.cache_mode == "paged"
+        chunk = min(self.sv.prefill_chunk, self.sv.cache_len)
         if (self.device.type == "cuda" and self.policy.backend == "kernel"
-                and runtime.tasked and self.max_batch > 64):
+                and runtime.tasked and self.max_batch > 64
+                and (not self.paged or chunk == 1)):
             raise ValueError(
                 f"max_batch={self.max_batch}: the batched-A kernel serves "
                 "at most 64 task-routed slots per launch")
@@ -140,8 +191,69 @@ class Engine:
         self.generator.manual_seed(seed)
         self._weights = (runtime.base, runtime.broadcast, runtime.per_layer)
         self._cancel_ids: set = set()
-        self.last_stats = EngineStats()
+        self.last_stats = EngineStats(cache_mode=self.sv.cache_mode)
         self.last_results: List[RequestResult] = []
+        if self.paged:
+            self._init_paged()
+
+    # ------------------------------------------------------------------
+    # paged mode: host pools and device pools
+    # ------------------------------------------------------------------
+
+    def _init_paged(self) -> None:
+        sv = self.sv
+        self._chunk = min(sv.prefill_chunk, sv.cache_len)
+        self._page = sv.page_size
+        self._num_blocks = sv.resolved_num_blocks
+        # table width: worst-case pages per request, plus sentinel columns
+        # so pad-column writes past a request's allocation land out of
+        # table instead of in a real page
+        self._p_tab = (sv.pages_per_request
+                       + max(1, -(-self._chunk // self._page)))
+        self._lp = sv.cache_len + self._chunk   # prompt buffer width
+        # any task-adapted matrix (q/v by default) perturbs the residual
+        # stream, so layer >= 1 prefix KV is task-dependent: tasked
+        # runtimes key prefix chains per task id
+        self._kv_tasked = self.rt.tasked
+        self._build_host_pools()
+        self._tables = np.full((self.max_batch, self._p_tab),
+                               self._num_blocks, np.int32)
+        self._block_bytes = self._kv_bytes(self._page)
+        # the pools persist ACROSS generate calls — the prefix cache
+        # indexes into them, so warm requests reuse KV of earlier calls
+        self._paged_caches = self._fresh_pools()
+
+    def _build_host_pools(self) -> None:
+        """(Re)build the host-side admission machinery: block manager,
+        prefix cache and scheduler."""
+        self.bm = BlockManager(self._num_blocks, self._page)
+        self.prefix = PrefixCache(self.bm) if self.sv.prefix_cache else None
+        self.sched = Scheduler(self.bm, self.prefix, self.last_stats)
+
+    def _fresh_pools(self) -> list:
+        return transformer.init_paged_caches(
+            self.cfg, self._num_blocks, self._page, self.cfg.compute_dtype,
+            device=self.device)
+
+    def _kv_bytes(self, tokens: int) -> int:
+        """Device bytes of k + v for ``tokens`` cells across every layer."""
+        itemsize = torch.empty((), dtype=self.cfg.compute_dtype
+                               ).element_size()
+        return (2 * self.cfg.num_layers * tokens * self.cfg.kv_dim
+                * itemsize)
+
+    def _reset_paged_pool(self) -> None:
+        """Drop every block (and the prefix index) — used when a failed
+        generate leaves slot refcounts or the pools inconsistent."""
+        self._build_host_pools()
+        self._tables[:] = self._num_blocks
+        self._paged_caches = self._fresh_pools()
+
+    def leaked_blocks(self) -> int:
+        """Paged mode, between ``generate`` calls: blocks neither free nor
+        held by the prefix cache (0 unless a request's refs leaked)."""
+        cached = self.prefix.cached_blocks if self.prefix is not None else 0
+        return self._num_blocks - self.bm.free_blocks - cached
 
     # ------------------------------------------------------------------
     # requests
@@ -169,6 +281,19 @@ class Engine:
             raise ValueError(
                 f"prompt ({plen}) + max_new_tokens ({req.max_new_tokens}) "
                 f"exceeds cache_len={self.cache_len}")
+        if self.paged:
+            # reject what can NEVER be admitted: a request whose
+            # worst-case page count exceeds the whole pool would
+            # backpressure forever at the FIFO head (strictly >: an exact
+            # fit drains the pool and admits)
+            total = -(-(plen + req.max_new_tokens) // self._page)
+            if total > self._num_blocks:
+                raise ValueError(
+                    f"request needs {total} KV pages "
+                    f"(ceil(({plen}+{req.max_new_tokens})/{self._page})) "
+                    f"but the pool holds only {self._num_blocks} blocks — "
+                    "it could never be admitted (raise num_blocks or "
+                    "split the request)")
         self.rt.check_task(req.task)
         return prompt, plen
 
@@ -311,17 +436,21 @@ class Engine:
         for req in requests:
             self._validate_request(req)     # fail fast, before any work
         gen = generator if generator is not None else self.generator
-        st = self.last_stats = EngineStats(requests=len(requests))
+        st = self.last_stats = EngineStats(cache_mode=self.sv.cache_mode,
+                                           requests=len(requests))
         self._rids = [req.request_id if req.request_id is not None
                       else idx for idx, req in enumerate(requests)]
         t0 = time.perf_counter()
         self._abs_deadline = [None if req.deadline_s is None
                               else t0 + req.deadline_s for req in requests]
         self._status = {}
+        nan_req = (list(nan_at) if nan_at is not None
+                   else [-1] * len(requests))
         try:
-            results = self._generate_dense(
-                requests, gen, list(nan_at) if nan_at is not None
-                else [-1] * len(requests))
+            if self.paged:
+                results = self._generate_paged(requests, gen, nan_req)
+            else:
+                results = self._generate_dense(requests, gen, nan_req)
         finally:
             self._cancel_ids.clear()
         st.wall_s = time.perf_counter() - t0
@@ -349,11 +478,9 @@ class Engine:
 
     def _generate_dense(self, requests, gen, nan_req) -> List[np.ndarray]:
         st = self.last_stats
-        itemsize = torch.empty((), dtype=self.cfg.compute_dtype).element_size()
         st.page_size = self.cache_len
         st.num_blocks = self.max_batch
-        st.block_bytes = (2 * self.cfg.num_layers * self.cache_len
-                          * self.cfg.kv_dim * itemsize)
+        st.block_bytes = self._kv_bytes(self.cache_len)
         st.kv_blocks_peak = self.max_batch  # dense reserves every slot
         s = self.init_state()
         pending = collections.deque(enumerate(requests))
@@ -425,3 +552,280 @@ class Engine:
                     nan_at[slot] = -1
                     st.evicted += 1
         return results  # type: ignore[return-value]
+
+    # ------------------------------------------------------------------
+    # paged mode: device pieces
+    # ------------------------------------------------------------------
+
+    def init_paged_state(self) -> PagedState:
+        """Fresh per-slot state over the engine's PERSISTENT pools."""
+        b = self.max_batch
+        z = dict(dtype=torch.long, device=self.device)
+        return PagedState(
+            tok=torch.zeros((b, 1), **z),
+            prompt=torch.zeros((b, self._lp), **z),
+            plen=torch.zeros((b,), **z), done=torch.zeros((b,), **z),
+            remaining=torch.zeros((b,), **z),
+            active=torch.zeros((b,), dtype=torch.bool, device=self.device),
+            widx=torch.zeros((b,), **z),
+            out=torch.zeros((b, self.out_cap + 1), **z),
+            task=torch.zeros((b,), **z),
+            failed=torch.zeros((b,), dtype=torch.bool, device=self.device),
+            caches=self._paged_caches)
+
+    def _paged_admit(self, s: PagedState, slot: int, prompt: np.ndarray,
+                     done0: int, n_new: int, task: int) -> None:
+        """Place a request into ``slot``. No prefill here: the loop's
+        chunked prefill consumes the prompt from ``done0`` on (tokens
+        [0, done0) came from the prefix cache; the scheduler keeps done0
+        <= plen - 1, so the last prompt token always runs through the
+        model for its logits)."""
+        plen = int(prompt.shape[0])
+        s.prompt[slot] = 0
+        s.prompt[slot, :plen] = torch.as_tensor(prompt, device=self.device)
+        s.plen[slot] = plen
+        s.done[slot] = done0
+        s.remaining[slot] = n_new
+        s.active[slot] = True
+        s.widx[slot] = 0
+        s.out[slot] = 0
+        s.tok[slot, 0] = 0
+        s.task[slot] = task
+        s.failed[slot] = False
+
+    def _paged_step(self, s: PagedState, tables: torch.Tensor,
+                    nan_at: torch.Tensor, gen: torch.Generator) -> None:
+        """One (B, C) step co-batching chunked prefill and decode, updating
+        ``s`` and the pools in place: prefilling slots consume up to C
+        prompt tokens, decoding slots one sampled token (pad columns'
+        cache writes are overwritten by the step that owns those
+        positions; sentinel table entries drop writes past a request's
+        allocation)."""
+        c = self._chunk
+        cols = torch.arange(c, device=self.device)
+        is_pf = s.done < s.plen
+        start = torch.where(is_pf, s.done, torch.zeros_like(s.done))
+        chunk = torch.gather(s.prompt, 1, start[:, None] + cols[None])
+        ntok = torch.where(is_pf, (s.plen - s.done).clamp(max=c),
+                           torch.ones_like(s.done))
+        dec = torch.where(cols[None] == 0, s.tok, torch.zeros_like(chunk))
+        toks = torch.where(is_pf[:, None], chunk, dec)
+        base, bc, pl = self._weights
+        task = s.task if self.rt.tasked else None
+        logits, _ = transformer.paged_step(
+            base, self.cfg, self.rt.spec, bc, pl, toks, s.caches, tables,
+            s.done, ntok - 1, task=task, policy=self.policy,
+            device=self.device)
+        # NaN guard: poison injected rows, then fail any row whose logits
+        # are non-finite instead of sampling from them
+        inject = s.active & (nan_at >= 0) & (s.widx >= nan_at)
+        logits = torch.where(inject[:, None],
+                             torch.full_like(logits, float("nan")), logits)
+        finite = torch.isfinite(logits).all(dim=-1)
+        bad = s.active & ~finite
+        logits = torch.where(finite[:, None], logits,
+                             torch.zeros_like(logits))
+        pm = (sampling_lib.history_mask(s.out[:, :self.out_cap], s.widx,
+                                        self.cfg.padded_vocab)
+              if self.sampling.repetition_penalty != 1.0 else None)
+        nxt = sampling_lib.sample(logits, gen, self.sampling,
+                                  penalty_mask=pm)
+        new_done = s.done + ntok
+        # a slot emits a token when its step reached the last prompt
+        # position (prefill -> first token) or is decoding
+        produced = s.active & (new_done >= s.plen) & ~bad
+        col = torch.where(produced, s.widx,
+                          torch.full_like(s.widx, self.out_cap))
+        s.out.scatter_(1, col[:, None], nxt[:, None])
+        adv = produced.long()
+        s.tok.copy_(torch.where(produced[:, None], nxt[:, None], s.tok))
+        s.active &= ((s.remaining > 1) | ~produced) & ~bad
+        s.remaining -= adv
+        s.widx += adv
+        s.done.copy_(new_done)
+        s.failed |= bad
+
+    def _paged_decode(self, s: PagedState, nan_at: torch.Tensor,
+                      gen: torch.Generator) -> int:
+        """Step every slot until some slot's active flag changes (the JAX
+        engine's while_loop); the block tables go up once, the flags come
+        back once per step."""
+        tables = torch.as_tensor(self._tables, device=self.device)
+        active0 = s.active.clone()
+        steps = 0
+        while True:
+            self._paged_step(s, tables, nan_at, gen)
+            steps += 1
+            if not bool((s.active.any()
+                         & (s.active == active0).all()).item()):
+                return steps
+
+    # ------------------------------------------------------------------
+    # paged mode: host loop
+    # ------------------------------------------------------------------
+
+    def _generate_paged(self, requests, gen, nan_req) -> List[np.ndarray]:
+        st = self.last_stats
+        st.page_size = self._page
+        st.num_blocks = self._num_blocks
+        st.block_bytes = self._block_bytes
+        self.sched.stats = st           # block / prefix counters land here
+        pending = collections.deque()
+        for idx, req in enumerate(requests):
+            prompt, plen = self._validate_request(req)
+            pending.append(dict(idx=idx, prompt=prompt, plen=plen,
+                                max_new=int(req.max_new_tokens),
+                                task=int(req.task)))
+        results: List[Optional[np.ndarray]] = [None] * len(requests)
+        s = self.init_paged_state()
+        self._tables[:] = self._num_blocks
+        try:
+            self._paged_loop(s, pending, results, nan_req, gen)
+        except BaseException:
+            self._reset_paged_pool()    # slot refs / pool contents are gone
+            raise
+        return results  # type: ignore[return-value]
+
+    def _paged_loop(self, s: PagedState, pending, results, nan_req,
+                    gen) -> None:
+        """Host half of paged serving, one replica: each iteration runs the
+        cancel / deadline sweep (harvest -> register the prefix whose KV
+        is computed -> deref blocks -> kill), FIFO admission on free
+        blocks (one COW copy before the slot is admitted), one loop call
+        until some slot's flag changes, and the harvest of finished
+        slots."""
+        st = self.last_stats
+        nblk = self._num_blocks
+        meta: List[Optional[dict]] = [None] * self.max_batch
+        nan_at = torch.full((self.max_batch,), -1, dtype=torch.long,
+                            device=self.device)
+        ttft, tpot = [], []
+
+        def finish(idx, toks, status=None):
+            results[idx] = np.asarray(toks, np.int32).reshape(-1)
+            if status is not None:
+                self._status[idx] = status
+
+        def free_slot(slot):
+            self._tables[slot] = nblk
+            nan_at[slot] = -1
+            meta[slot] = None
+
+        def abort_slot(slot, status):
+            """Harvest the slot's output, index the KV already computed
+            (prompt + generated tokens whose cells are written), deref
+            every block, then mark the slot dead and sentinel its table
+            row, so stale prefill writes of the row drop."""
+            m = meta[slot]
+            w, done = int(s.widx[slot]), int(s.done[slot])
+            toks = s.out[slot, :w].cpu().numpy().astype(np.int32)
+            full = np.concatenate([m["prompt"].astype(np.int32), toks])
+            self.sched.release(full[:min(done, len(full))], m["blocks"],
+                               namespace=m["ns"])
+            s.active[slot] = False
+            s.remaining[slot] = 0
+            s.failed[slot] = False
+            free_slot(slot)
+            finish(m["idx"], toks)
+            self._end(m["idx"], status)
+
+        def sweep() -> bool:
+            nonlocal pending
+            swept = False
+            keep = collections.deque()
+            for ent in pending:
+                stt = self._abort_status(ent["idx"])
+                if stt is None:
+                    keep.append(ent)
+                    continue
+                finish(ent["idx"], [])
+                self._end(ent["idx"], stt)
+                swept = True
+            pending = keep
+            for slot, m in enumerate(meta):
+                if m is None:
+                    continue
+                stt = self._abort_status(m["idx"])
+                if stt is not None:
+                    abort_slot(slot, stt)
+                    swept = True
+            return swept
+
+        while pending or any(m is not None for m in meta):
+            progressed = sweep()
+            # ---- admission: strict FIFO; a blocked head waits for
+            # evictions rather than being overtaken
+            t_adm = time.perf_counter()
+            for slot in range(self.max_batch):
+                if meta[slot] is not None or not pending:
+                    continue
+                ent = pending[0]
+                ns = ent["task"] if self._kv_tasked else None
+                plan = self.sched.plan(ent["prompt"].tolist(),
+                                       ent["max_new"], namespace=ns)
+                if plan is None:        # backpressure: out of KV blocks
+                    break
+                pending.popleft()
+                progressed = True
+                if plan.cow is not None:
+                    transformer.copy_cache_block(s.caches, *plan.cow)
+                self._tables[slot] = nblk
+                self._tables[slot, :len(plan.blocks)] = plan.blocks
+                self._paged_admit(s, slot, ent["prompt"], plan.n_cached,
+                                  ent["max_new"], ent["task"])
+                nan_at[slot] = int(nan_req[ent["idx"]])
+                meta[slot] = dict(ent, blocks=plan.blocks, ns=ns,
+                                  t_admit=time.perf_counter(), t_first=None)
+            st.prefill_s += time.perf_counter() - t_adm
+            st.kv_blocks_peak = max(st.kv_blocks_peak, self.bm.used_blocks)
+            # ---- step until some slot's active flag changes
+            stepped = bool(s.active.any())
+            if stepped:
+                t_dec = time.perf_counter()
+                st.decode_steps += self._paged_decode(s, nan_at, gen)
+                st.decode_calls += 1
+                st.decode_s += time.perf_counter() - t_dec
+            # ---- harvest finished slots
+            active = s.active.cpu().numpy()
+            widx = s.widx.cpu().numpy()
+            failed = s.failed.cpu().numpy()
+            out = s.out.cpu().numpy()
+            t = time.perf_counter()
+            for slot, m in enumerate(meta):
+                if m is None:
+                    continue
+                if m["t_first"] is None and widx[slot] > 0:
+                    m["t_first"] = t
+                    ttft.append(t - m["t_admit"])
+                if active[slot]:
+                    continue
+                progressed = True
+                ntok, bad = int(widx[slot]), bool(failed[slot])
+                # prompt pages are fully computed now: index them for
+                # prefix reuse (unless the NaN guard fired — suspect KV
+                # is never indexed), return the rest to the free list
+                self.sched.release(m["prompt"], m["blocks"],
+                                   namespace=m["ns"], register=not bad)
+                # the phase split is resolvable only when the first token
+                # was seen at an earlier loop exit than the completion
+                if m["t_first"] is not None and ntok > 1 \
+                        and m["t_first"] < t:
+                    tpot.append((t - m["t_first"]) / (ntok - 1))
+                if bad:
+                    st.failed_requests += 1
+                    st.numerics_faults += 1
+                    finish(m["idx"], out[slot, :ntok], FAILED)
+                else:
+                    finish(m["idx"], out[slot, :ntok])
+                free_slot(slot)
+            if not (progressed or stepped):
+                # nothing decoded, admitted or harvested: the head can
+                # never fit (a request needing more KV blocks than the
+                # pool can ever free)
+                raise RuntimeError(
+                    "paged admission deadlock: a request needs more KV "
+                    "blocks than the pool can ever free")
+        if ttft:
+            st.ttft_s = sum(ttft) / len(ttft)
+        if tpot:
+            st.tpot_s = sum(tpot) / len(tpot)

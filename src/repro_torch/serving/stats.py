@@ -1,6 +1,7 @@
 """Per-``generate`` engine observability (counterpart of
 ``src/repro/serving/stats.py``: the fields that mean something for the
-dense eager engine; no trace counters — nothing is traced)."""
+eager single-device engine, dense and paged; no trace counters — nothing
+is traced)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +10,7 @@ import dataclasses
 @dataclasses.dataclass
 class EngineStats:
     """Counters for one ``Engine.generate`` call (host-side numbers)."""
-    cache_mode: str = "dense"
+    cache_mode: str = "paged"
     requests: int = 0
     tokens_generated: int = 0
     wall_s: float = 0.0
@@ -17,14 +18,27 @@ class EngineStats:
     evicted: int = 0
     decode_calls: int = 0        # decode-loop invocations (host -> loop)
     decode_steps: int = 0        # model steps inside those loops
-    prefills: int = 0
+    prefills: int = 0            # dense: bucketed prefills (paged: 0, the
+    #                              prompt runs in-loop in chunks)
     prefill_s: float = 0.0       # host wall time of prefill + admission
     decode_s: float = 0.0        # host wall time inside decode loops
+    kv_dtype: str = "fp"         # KV cache cells (int8 is not ported)
     # --- KV memory ---
     page_size: int = 0           # dense: cache_len (one "block" per slot)
-    num_blocks: int = 0          # dense: max_batch
-    kv_blocks_peak: int = 0
-    block_bytes: int = 0
+    num_blocks: int = 0          # paged: pool budget; dense: max_batch
+    kv_blocks_peak: int = 0      # max blocks simultaneously in use
+    block_bytes: int = 0         # device bytes per block (all layers, k+v)
+    # --- latency phase split (paged; host clock at loop exits) ---
+    ttft_s: float = 0.0          # mean time-to-first-token over requests
+    tpot_s: float = 0.0          # mean per-token time after the first
+    # --- prefix cache (paged) ---
+    prefix_lookups: int = 0      # admissions that consulted the cache
+    prefix_hit_tokens: int = 0   # prompt tokens served from cached blocks
+    prefix_lookup_tokens: int = 0  # prompt tokens eligible for reuse
+    cow_copies: int = 0          # copy-on-write block copies
+    cache_evictions: int = 0     # prefix blocks reclaimed under pressure
+    # --- scheduler (paged) ---
+    backpressure_waits: int = 0  # admissions deferred for lack of blocks
     # --- resilience ---
     cancelled: int = 0
     timeouts: int = 0
@@ -36,16 +50,31 @@ class EngineStats:
         return self.tokens_generated / self.wall_s if self.wall_s else 0.0
 
     @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of reuse-eligible prompt tokens served from cached
+        blocks (0.0 when nothing was eligible)."""
+        if not self.prefix_lookup_tokens:
+            return 0.0
+        return self.prefix_hit_tokens / self.prefix_lookup_tokens
+
+    @property
     def kv_bytes_peak(self) -> int:
         return self.kv_blocks_peak * self.block_bytes
 
     def summary(self) -> str:
+        paged = self.cache_mode == "paged"
         return (f"mode={self.cache_mode} reqs={self.requests} "
                 f"toks={self.tokens_generated} "
                 f"tok/s={self.tokens_per_s:.1f} "
-                f"prefills={self.prefills} decode_steps={self.decode_steps} "
+                + (f"ttft={self.ttft_s * 1e3:.1f}ms "
+                   f"tpot={self.tpot_s * 1e3:.2f}ms " if self.ttft_s else "")
+                + f"prefills={self.prefills} decode_steps={self.decode_steps} "
+                f"kv_blocks_peak={self.kv_blocks_peak}/{self.num_blocks} "
                 f"kv_bytes_peak={self.kv_bytes_peak} "
-                f"admits={self.admitted} evicts={self.evicted}"
+                + (f"prefix_hit_rate={self.prefix_hit_rate:.2f} "
+                   f"cow={self.cow_copies} waits={self.backpressure_waits} "
+                   if paged else "")
+                + f"admits={self.admitted} evicts={self.evicted}"
                 + (f" cancelled={self.cancelled} timeouts={self.timeouts} "
                    f"failed={self.failed_requests} "
                    f"nan_faults={self.numerics_faults}"

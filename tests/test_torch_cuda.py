@@ -10,9 +10,9 @@ without a CUDA device of compute capability >= 9.0. Run on the card with
 
 This file imports no JAX (``--noconftest`` skips the JAX fixture file),
 so it runs where only PyTorch is installed. Tolerances: bf16 linears 1e-2
-(one bf16 ulp from another f32 summation order); attention 2e-2 (p
-rounded to bf16 unnormalised by the kernel, normalised by the plain
-version); lse 1e-3 absolute (f32, another summation order); backward
+(one bf16 ulp from another f32 summation order); attention, dense and
+paged, 2e-2 (p rounded to bf16 unnormalised by the kernel, normalised by
+the plain version); lse 1e-3 absolute (f32, another summation order); backward
 2e-2 of the largest plain gradient (the JAX package's bf16 gradient
 limit, tests/test_grads.py).
 """
@@ -22,6 +22,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import tt_linear as ttl
 
 pytestmark = pytest.mark.cuda
@@ -173,3 +174,76 @@ def test_launch_counts_and_cpu_leg(dev):
     assert kernels.launch_counts()["tt_linear"] == 1
     with pytest.raises(TypeError):
         ttl.tt_linear(x.float(), w.float(), a.float(), b.float())
+
+
+def _paged_case(dev, c, g, d, page, seed=0):
+    """4 slots over a 40-block pool, 6-page tables: slot 0 at position 0,
+    slot 1 with its last in-window page a sentinel (read clamped, masked
+    past its position), slot 2 with its first query on the last cell of
+    the table, slot 3 mid-table. Every entry past a slot's window is a
+    sentinel (N or larger)."""
+    b, kv, n, p_tab = 4, 2, 40, 6
+    h = kv * g
+    gen = torch.Generator().manual_seed(seed + c * 131 + g * 17 + page)
+    q = _rn(dev, b, c, h, d, seed=seed)
+    kc, vc = _rn(dev, n, page, kv, d, seed=1), _rn(dev, n, page, kv, d,
+                                                    seed=2)
+    pos = [0, 2 * page + 3, p_tab * page - 1, page + 1]
+    tables = torch.full((b, p_tab), n, dtype=torch.int32)
+    perm = torch.randperm(n, generator=gen)
+    used = 0
+    for row, p0 in enumerate(pos):
+        last = min((p0 + c - 1) // page, p_tab - 1)
+        tables[row, :last + 1] = perm[used:used + last + 1].int()
+        tables[row, last + 1:] = n + row          # sentinels of any size
+        used += last + 1
+    last1 = min((pos[1] + c - 1) // page, p_tab - 1)
+    if last1 > pos[1] // page:
+        tables[1, last1] = n
+    return (q, kc, vc, tables.to(dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("c", [1, 3, 8, 32])
+def test_paged_decode_attention(dev, c, g, d, page):
+    args = _paged_case(dev, c, g, d, page)
+    got = tpa.paged_decode_attention(*args)
+    assert got.shape == args[0].shape and got.dtype == torch.bfloat16
+    _close(got, tpa.paged_decode_attention_plain(*args), 2e-2)
+
+
+def test_paged_decode_attention_reads_q_through_strides(dev):
+    """q as a view into a wider projection output (no copy) and a pool
+    view of one layer of a stacked (nb, N, page, KV, d) pool."""
+    q, kc, vc, tables, pos = _paged_case(dev, 8, 4, 64, 16)
+    wide = _rn(dev, 4, 8, 16, 64, seed=5)
+    wide[:, :, 4:12] = q
+    qv = wide[:, :, 4:12]
+    pools = torch.stack([vc, kc, vc])
+    kernels.reset_launch_counts()
+    got = tpa.paged_decode_attention(qv, pools[1], pools[2], tables, pos)
+    want = tpa.paged_decode_attention_plain(q, kc, vc, tables, pos)
+    _close(got, want, 2e-2)
+    tpa.paged_decode_attention(q.cpu(), kc.cpu(), vc.cpu(), tables.cpu(),
+                               pos.cpu())                # plain: not counted
+    assert kernels.launch_counts()["paged_decode_attention"] == 1
+
+
+def test_paged_decode_attention_rejects_what_the_kernel_does_not_take(dev):
+    q, kc, vc, tables, pos = _paged_case(dev, 4, 2, 64, 8)
+    with pytest.raises(NotImplementedError):            # page 72
+        tpa.paged_decode_attention(q, kc.repeat(1, 9, 1, 1),
+                                   vc.repeat(1, 9, 1, 1), tables, pos)
+    with pytest.raises(NotImplementedError):            # head_dim 32
+        tpa.paged_decode_attention(q[..., :32].contiguous(),
+                                   kc[..., :32].contiguous(),
+                                   vc[..., :32].contiguous(), tables, pos)
+    with pytest.raises(TypeError):                      # f32
+        tpa.paged_decode_attention(q.float(), kc.float(), vc.float(),
+                                   tables, pos)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tpa.paged_decode_attention(q.clone().requires_grad_(True), kc, vc,
+                                   tables, pos)

@@ -220,7 +220,7 @@ def test_entry_points_need_a_device_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(),                                      # default cache_mode=paged
+    dict(preempt_after=2),                       # recompute preemption
     dict(cache_mode="dense", mesh_shape=(1, 2)),
 ])
 def test_unported_serving_modes_raise(bad):
