@@ -26,13 +26,22 @@ Phases, each printed on its own lines:
      decode ms/step, TTFT/TPOT, peak memory and the device-busy share;
      under a mild adapter one pure-decode and one mixed prefill/decode
      paged step, kernel leg against the plain leg;
-  5. training through the port's Trainer on full-width stablelm-1.6b
+  5. quantized serving on the same full-width model: the paged engine with
+     int8 base weights and int8 KV pools over phase 4's 16 requests, cold
+     then warm (#8q 24 launches per engine step, fp #8 none, warm prefix
+     hits and copy-on-write, no leaked block, peak KV bytes below phase
+     4's), then the dense engine with int8 weights over phase 3's 8
+     requests (#9 48 launches per prefill, #10 48 per decode step, K1 / K2
+     none; greedy agreement with phase 3's fp tokens printed); under a
+     mild adapter one int8 paged step and one w8 dense decode step, kernel
+     leg against the plain leg;
+  6. training through the port's Trainer on full-width stablelm-1.6b
      (MetaTT 4d on q/v from rank 10, AdamW, remat per block, 4 x 1024
      tokens a step, 6 steps with one DMRG sweep to rank 8): finite losses,
      moved cores, ranks 8 after the sweep, K1 / #5 / #6 / #7 launch counts
      around ``train``; then a gradient check at B=1 against the plain bf16
      leg with an f32 plain leg as witness;
-  5. one JSON line with every kernel's record (launches per path).
+  7. one JSON line with every kernel's record (launches per path).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -75,6 +84,13 @@ KERNELS = {
     "paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:161"),
+    "tt_linear_w8": ("src/repro_torch/kernels/csrc/tt_linear.cu",
+                     "src/repro/kernels/tt_linear.py:203"),
+    "tt_linear_batched_a_w8": ("src/repro_torch/kernels/csrc/tt_linear.cu",
+                               "src/repro/kernels/tt_linear.py:250"),
+    "paged_decode_attention_int8": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:161"),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. Linears: one
 # bf16 ulp (2^-7 relative) from a different f32 summation order.
@@ -85,7 +101,9 @@ KERNELS = {
 TOL = {"tt_linear": (1e-2, 1e-2), "tt_linear_batched_a": (1e-2, 1e-2),
        "flash_attention": (2e-2, 2e-2), "decode_attention": (2e-2, 2e-2),
        "flash_attention_fwd": (2e-2, 2e-2),
-       "paged_decode_attention": (2e-2, 2e-2)}
+       "paged_decode_attention": (2e-2, 2e-2),
+       "tt_linear_w8": (1e-2, 1e-2), "tt_linear_batched_a_w8": (1e-2, 1e-2),
+       "paged_decode_attention_int8": (2e-2, 2e-2)}
 # the paged engine's shape: 8 slots, a pool of 256 blocks of 16 cells,
 # 34-page tables (512 / 16 pages + 2 sentinel columns), 32-token chunks
 PAGED = dict(max_batch=8, cache_len=512, page_size=16, prefill_chunk=32,
@@ -283,6 +301,8 @@ def phase_kernels(dev):
                     q, k, v, attn_mask=mask), lib_sets),
             bound_ms=bms, bound_by=by))
     rows += paged_kernel_rows(dev, rn)
+    rows += w8_kernel_rows(dev, rn)
+    rows += paged_int8_kernel_rows(dev, rn)
     for r_ in rows:
         print(f"[kernel] {r_['name']:20s} {r_['shape']:44s} "
               f"err={r_['max_abs_err']:.3e} ms={r_['ms']:.4f} "
@@ -356,6 +376,132 @@ def paged_kernel_rows(dev, rn):
                 lambda q, k, v: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask), lib_sets),
             library="SDPA on pre-gathered K/V, boolean mask",
+            bound_ms=bms, bound_by=by))
+        del sets, lib_sets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def w8_kernel_rows(dev, rn):
+    """#9 at the w8 dense prefill's q/v shape (M = 64, K = N = 2048, r = 8)
+    and #10 at its decode shape (M = 4 slots), per output channel (the
+    engine's QuantConfig, the main rows) and with 128-row scale groups.
+    The bound counts W as int8 plus its f32 scales; the library yardstick
+    is torch.matmul on a PRE-DEQUANTIZED bf16 W plus the rank-r term (the
+    dequantization is left out of its time; the port never calls it)."""
+    import torch
+    from repro_torch.kernels import quant
+    from repro_torch.kernels import tt_linear as tl
+    alpha, k, n, r = 4.0, 2048, 2048, 8
+    rows = []
+    for name, m, batched in (("tt_linear_w8", 64, False),
+                             ("tt_linear_batched_a_w8", 4, True)):
+        fn = getattr(tl, name)
+        plain = getattr(tl, name + "_plain")
+        for group in (0, 128):
+            g = k // group if group else 1
+
+            def make():
+                wq, sc = quant.quantize_int8(rn(k, n, scale=k ** -0.5), group)
+                a = rn(*((m, k, r) if batched else (k, r)), scale=k ** -0.5)
+                return rn(m, k), wq, sc, a, rn(r, n, scale=r ** -0.5)
+            nbytes = (2 * m * k + k * n + 4 * g * n
+                      + 2 * (m if batched else 1) * k * r + 2 * r * n
+                      + 2 * m * n)
+            sets = copies(make, nbytes)
+            err = compare(name, fn(*sets[0], alpha), plain(*sets[0], alpha))
+            lib_sets = [(x, quant.dequantize(
+                {"q8": wq, "scale": sc}, torch.bfloat16), a, b)
+                for x, wq, sc, a, b in sets]
+            if batched:
+                def lib(x, w, a, b):
+                    return torch.matmul(x, w) + alpha * torch.matmul(
+                        torch.bmm(x[:, None], a)[:, 0], b)
+            else:
+                def lib(x, w, a, b):
+                    return torch.matmul(x, w) + alpha * torch.matmul(
+                        torch.matmul(x, a), b)
+            bms, by = bound_ms(nbytes, 2 * m * k * n + 2 * m * k * r
+                               + 2 * m * r * n)
+            scales = f"group={group}" if group else "per-channel"
+            rows.append(dict(
+                name=name, shape=f"M={m} K={k} N={n} r={r} {scales}",
+                main=group == 0, max_abs_err=err,
+                ms=cuda_time_ms(lambda *t: fn(*t, alpha), sets),
+                plain_ms=cuda_time_ms(lambda *t: plain(*t, alpha), sets),
+                library_ms=cuda_time_ms(lib, lib_sets),
+                library="torch.matmul on a pre-dequantized bf16 W + rank-r",
+                bound_ms=bms, bound_by=by))
+            del sets, lib_sets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def paged_int8_kernel_rows(dev, rn):
+    """#8q at the int8 paged engine's shape (as #8's rows): int8 pools of
+    256 blocks of 16 cells with f32 per-cell scales. The bound counts q
+    and o (bf16), and the int8 K/V cells plus their scales inside each
+    slot's window; the library yardstick is SDPA on PRE-GATHERED,
+    PRE-DEQUANTIZED bf16 K/V with the boolean position mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import quant
+    b_, h, d = PAGED["max_batch"], 32, 64
+    page, n_blk = PAGED["page_size"], 256
+    p_tab = PAGED["cache_len"] // page + 2
+    pos = torch.tensor([0, 37, 100, 161, 230, 299, 407, 479],
+                       dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rows = []
+    for c in (1, 32):
+        last = [min((int(p) + c - 1) // page, p_tab - 1) for p in pos]
+        tables = torch.full((b_, p_tab), n_blk, dtype=torch.int32)
+        perm = torch.randperm(n_blk, generator=gen)
+        used = 0
+        for row, j in enumerate(last):
+            tables[row, :j + 1] = perm[used:used + j + 1].int()
+            used += j + 1
+        tables = tables.to(dev)
+        cells = sum(min(int(p) + c, p_tab * page) for p in pos)
+        nbytes = (2 * 2 * b_ * c * h * d + 2 * cells * h * (d + 4)
+                  + 4 * b_ * (p_tab + 1))
+        flops = sum(4 * d * h * (int(p) + cc + 1) for p in pos
+                    for cc in range(c))
+
+        def make():
+            k8, ks = quant.quantize_kv(rn(n_blk, page, h, d))
+            v8, vs = quant.quantize_kv(rn(n_blk, page, h, d))
+            return rn(b_, c, h, d), k8, v8, ks, vs, tables, pos
+        sets = copies(make, nbytes)
+        err = compare("paged_decode_attention_int8",
+                      pa.paged_decode_attention_int8(*sets[0]),
+                      pa.paged_decode_attention_int8_plain(*sets[0]))
+        s_len = p_tab * page
+        mask = (torch.arange(s_len, device=dev)[None, None, :]
+                <= (pos[:, None] + torch.arange(c, device=dev)[None])
+                [:, :, None])[:, None]                   # (B, 1, C, S)
+        tbl = tables.long().clamp(max=n_blk - 1)
+
+        def deq(x8, xs):
+            return (x8[tbl].float() * xs[tbl][..., None]).to(
+                torch.bfloat16).reshape(b_, s_len, h, d).transpose(1, 2)
+        lib_sets = [(q.transpose(1, 2), deq(k8, ks), deq(v8, vs))
+                    for q, k8, v8, ks, vs, _, _ in sets]
+        bms, by = bound_ms(nbytes, flops)
+        rows.append(dict(
+            name="paged_decode_attention_int8",
+            shape=(f"B={b_} C={c} H=KV={h} d={d} page={page} "
+                   f"P={p_tab} N={n_blk} int8"),
+            main=c == PAGED["prefill_chunk"], max_abs_err=err,
+            ms=cuda_time_ms(lambda *t: pa.paged_decode_attention_int8(*t),
+                            sets),
+            plain_ms=cuda_time_ms(
+                lambda *t: pa.paged_decode_attention_int8_plain(*t), sets),
+            library_ms=cuda_time_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), lib_sets),
+            library="SDPA on pre-gathered, pre-dequantized K/V, boolean mask",
             bound_ms=bms, bound_by=by))
         del sets, lib_sets
     torch.cuda.empty_cache()
@@ -563,17 +709,18 @@ def logits_rel_err(eng, eng_ref, req):
     return float((lg - lg_ref).abs().max() / lg_ref.abs().max())
 
 
-def decode_step_rel_err(cfg, rt, reqs, cache_len, dev):
+def decode_step_rel_err(cfg, rt, reqs, cache_len, dev, base=None):
     """One decode step of ``len(reqs)`` slots, each at its own task and
     position, from the same prefilled caches through the kernel leg and
-    the plain leg. Returns the largest over slots of max |kernel - plain|
-    / max |plain| of the slot's logits row, and how many slots' argmax
-    agree."""
+    the plain leg (over ``base``, default the runtime's). Returns the
+    largest over slots of max |kernel - plain| / max |plain| of the slot's
+    logits row, and how many slots' argmax agree."""
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
-    base, bc, pl = rt.base, rt.broadcast, rt.per_layer
+    bc, pl = rt.broadcast, rt.per_layer
+    base = rt.base if base is None else base
     n = len(reqs)
     caches = T.init_caches(cfg, n, cache_len, cfg.compute_dtype, device=dev)
     tok = torch.zeros((n, 1), dtype=torch.long, device=dev)
@@ -697,6 +844,7 @@ def phase_serving(dev):
     torch.cuda.synchronize()
     launches = K.launch_counts()
     st = eng.last_stats
+    fp_tokens = [o.tolist() for o in outs]
     for res in eng.last_results:
         if res.status != "FINISHED" or res.n_generated != 32:
             raise AssertionError(f"request ended {res.status} with "
@@ -785,13 +933,15 @@ def phase_serving(dev):
         print(f"[serve] {label} adapter: greedy tokens equal to the plain "
               f"leg {same}/{sum(len(o) for o in got)}, first tokens "
               f"{first}/{len(got)}")
-    return launches
+    return launches, dict(reqs=reqs, tokens=fp_tokens)
 
 
-def paged_step_rel_err(cfg, rt, prompts, tasks, dev):
+def paged_step_rel_err(cfg, rt, prompts, tasks, dev, base=None,
+                       kv_quant=False):
     """One pure-decode and one mixed prefill/decode ``paged_step`` (the
     engine's (B, 32) step) from the same pools through the kernel leg and
-    the plain leg. The pools are filled by chunked prefill of every
+    the plain leg (over ``base``, default the runtime's; int8 pools with
+    ``kv_quant``). The pools are filled by chunked prefill of every
     prompt (kernel leg). Decode: every slot one token at position plen.
     Mixed: slots 0-1 decode, slots 2-3 prefill the 32 prompt tokens from
     position 96 (the cells they overwrite hold the same tokens' KV).
@@ -800,11 +950,12 @@ def paged_step_rel_err(cfg, rt, prompts, tasks, dev):
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.models import transformer as T
-    base, bc, pl = rt.base, rt.broadcast, rt.per_layer
+    bc, pl = rt.broadcast, rt.per_layer
+    base = rt.base if base is None else base
     n, c, page = len(prompts), PAGED["prefill_chunk"], PAGED["page_size"]
     pages = PAGED["cache_len"] // page
     caches = T.init_paged_caches(cfg, n * pages, page, cfg.compute_dtype,
-                                 device=dev)
+                                 kv_quant=kv_quant, device=dev)
     tables = torch.full((n, pages + 2), n * pages, dtype=torch.int32)
     tables[:, :pages] = torch.arange(n * pages).reshape(n, pages)
     task = torch.tensor(tasks, device=dev)
@@ -847,6 +998,41 @@ def paged_step_rel_err(cfg, rt, prompts, tasks, dev):
     return out
 
 
+def serve_checked(eng, reqs, label, tag):
+    """``generate`` with the serving checks: every request FINISHED with 32
+    tokens inside the vocab, no leaked block (paged); prints the stats."""
+    import torch
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    st = eng.last_stats
+    for res in eng.last_results:
+        if res.status != "FINISHED" or res.n_generated != 32:
+            raise AssertionError(f"{label}: request ended {res.status} "
+                                 f"with {res.n_generated} tokens")
+    for o in outs:
+        if not (0 <= int(o.min()) and int(o.max()) < eng.cfg.vocab_size):
+            raise AssertionError(f"token id outside the vocab: {o}")
+    if eng.paged and eng.leaked_blocks():
+        raise AssertionError(f"{label}: {eng.leaked_blocks()} KV blocks "
+                             "leaked")
+    steps = max(st.decode_steps, 1)
+    print(f"[{tag}] {label}: w={st.weights_dtype} kv={st.kv_dtype}, "
+          f"{st.requests} requests, {st.tokens_generated} tokens in "
+          f"{st.wall_s:.3f}s = {st.tokens_per_s:.1f} tok/s; "
+          + (f"prefill {1e3 * st.prefill_s / max(st.prefills, 1):.2f} "
+             f"ms/request over {st.prefills}; " if st.prefills else "")
+          + f"decode {1e3 * st.decode_s / steps:.2f} ms/step over "
+          f"{st.decode_steps} steps in {st.decode_calls} loop calls; ttft "
+          f"{1e3 * st.ttft_s:.1f} ms, tpot {1e3 * st.tpot_s:.2f} ms; prefix "
+          f"hit rate {st.prefix_hit_rate:.3f} ({st.prefix_hit_tokens} of "
+          f"{st.prefix_lookup_tokens} tokens), cow {st.cow_copies}, cache "
+          f"evictions {st.cache_evictions}, backpressure waits "
+          f"{st.backpressure_waits}, kv blocks peak "
+          f"{st.kv_blocks_peak}/{st.num_blocks}, kv_bytes_peak "
+          f"{st.kv_bytes_peak}", flush=True)
+    return outs, st
+
+
 def phase_paged(dev):
     """The paged engine (the default ServeConfig mode: block pools, prefix
     cache with copy-on-write, in-loop chunked prefill) on full-width
@@ -884,34 +1070,11 @@ def phase_paged(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     K.reset_launch_counts()
-    steps = 0
+    steps = kv_peak = 0
     for label in ("cold", "warm"):
-        outs = eng.generate(reqs)
-        torch.cuda.synchronize()
-        st = eng.last_stats
+        _, st = serve_checked(eng, reqs, label, "paged")
         steps += st.decode_steps
-        for res in eng.last_results:
-            if res.status != "FINISHED" or res.n_generated != 32:
-                raise AssertionError(f"{label}: request ended {res.status} "
-                                     f"with {res.n_generated} tokens")
-        for o in outs:
-            if not (0 <= int(o.min()) and int(o.max()) < cfg.vocab_size):
-                raise AssertionError(f"token id outside the vocab: {o}")
-        if eng.leaked_blocks():
-            raise AssertionError(f"{label}: {eng.leaked_blocks()} KV "
-                                 "blocks leaked")
-        print(f"[paged] {label}: {st.requests} requests, "
-              f"{st.tokens_generated} tokens in {st.wall_s:.3f}s = "
-              f"{st.tokens_per_s:.1f} tok/s; decode "
-              f"{1e3 * st.decode_s / max(st.decode_steps, 1):.2f} ms/step "
-              f"over {st.decode_steps} steps in {st.decode_calls} loop "
-              f"calls; ttft {1e3 * st.ttft_s:.1f} ms, tpot "
-              f"{1e3 * st.tpot_s:.2f} ms; prefix hit rate "
-              f"{st.prefix_hit_rate:.3f} ({st.prefix_hit_tokens} of "
-              f"{st.prefix_lookup_tokens} tokens), cow {st.cow_copies}, "
-              f"cache evictions {st.cache_evictions}, backpressure waits "
-              f"{st.backpressure_waits}, kv blocks peak "
-              f"{st.kv_blocks_peak}/{st.num_blocks}", flush=True)
+        kv_peak = max(kv_peak, st.kv_bytes_peak)
     launches = K.launch_counts()
     print(f"[paged] launches during the two generates: "
           f"{json.dumps(launches)}; max_memory_allocated "
@@ -947,7 +1110,161 @@ def phase_paged(dev):
         if not rel <= 5e-2:
             raise AssertionError(f"{name} paged step logits differ from "
                                  f"the plain leg: {rel:.3e}")
-    return launches
+    return launches, dict(reqs=reqs, kv_bytes_peak=kv_peak)
+
+
+def unadapted_projection_cost(cfg, qbase, dev):
+    """Device ms that the unadapted projections (wk, wo, wu, wg, wd) of
+    one engine step spend under int8 weights, which dequantize W to bf16
+    on every call before a plain matmul: each layer-0 matrix at the int8
+    paged step's M = 8 x 32 rows and the dense decode's M = 4, timed with
+    CUDA events as dequantize + matmul and as the matmul alone on a
+    pre-dequantized bf16 W, summed over the layers."""
+    import torch
+    from repro_torch.kernels import quant
+    blk = qbase["blocks"][0]
+    mats = [blk["mixer"]["wk"], blk["mixer"]["wo"], blk["ffn"]["wu"],
+            blk["ffn"]["wg"], blk["ffn"]["wd"]]
+    mats = [{k: v[0] for k, v in w.items()} for w in mats]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for m in (PAGED["max_batch"] * PAGED["prefill_chunk"], 4):
+        deq = mm = 0.0
+        for w in mats:
+            x = torch.randn((m, w["q8"].shape[0]), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            wb = quant.dequantize(w, torch.bfloat16)
+            deq += event_time_ms(
+                lambda: x @ quant.dequantize(w, torch.bfloat16), (),
+                iters=20)
+            mm += event_time_ms(lambda: x @ wb, (), iters=20)
+        print(f"[quant] unadapted projections (wk, wo, wu, wg, wd) at M={m}:"
+              f" dequantize + matmul {deq:.4f} ms a layer, "
+              f"{cfg.num_layers * deq:.3f} ms a step; matmul on a "
+              f"pre-dequantized bf16 W {mm:.4f} ms a layer, "
+              f"{cfg.num_layers * mm:.3f} ms a step", flush=True)
+
+
+def phase_quant(dev, dense_run, paged_run):
+    """Quantized serving on full-width stablelm-1.6b (the served 4+1d
+    adapter, random weights from the same seed as phases 3 and 4).
+    Part 1: the paged engine with QuantConfig(weights="int8", kv="int8")
+    over phase 4's 16 requests, cold then warm. Part 2: the dense engine
+    with int8 weights over phase 3's 8 requests. Part 3: under a mild
+    adapter, one int8 paged step and one w8 dense decode step, kernel leg
+    against the plain leg. Each engine's launches are counted around its
+    own ``generate`` calls (two paths)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.config.base import KernelConfig, QuantConfig, \
+        ServeConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.models import model as M
+    from repro_torch.serving import AdapterRuntime, Engine
+
+    cfg, spec, params, rt, gen = serving_model(dev, "quant")
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = Engine(cfg, rt, serve=ServeConfig(
+        cache_mode="paged", quant=QuantConfig(weights="int8", kv="int8"),
+        **PAGED), device=dev)
+    w8_gb = sum(t.numel() * t.element_size()
+                for t in M.tensors(eng.base_weights)) / 1e9
+    pool_gb = sum(t.numel() * t.element_size() for c in eng._paged_caches
+                  for t in c["self"].values()) / 1e9
+    print(f"[quant] base after quantize_base: {w8_gb:.3f} GB (int8 matmul "
+          f"leaves + f32 scales + bf16 embedding and norms); int8 K/V "
+          f"pools with f32 scales: {pool_gb:.3f} GB for "
+          f"{eng.sv.resolved_num_blocks} blocks", flush=True)
+    reqs = paged_run["reqs"]
+    K.reset_launch_counts()
+    steps = kv_peak = 0
+    for label in ("cold", "warm"):
+        _, st = serve_checked(eng, reqs, label, "quant")
+        steps += st.decode_steps
+        kv_peak = max(kv_peak, st.kv_bytes_peak)
+    paged = K.launch_counts()
+    print(f"[quant] paged launches during the two generates: "
+          f"{json.dumps(paged)}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+    n_q = paged["paged_decode_attention_int8"]
+    if not (n_q > 0 and n_q == cfg.num_layers * steps):
+        raise AssertionError(f"paged_decode_attention_int8 launched {n_q} "
+                             f"times in {steps} engine steps")
+    others = {k: v for k, v in paged.items()
+              if v and k != "paged_decode_attention_int8"}
+    if others:      # no fp #8; the (B, 32) q/v take the batched einsum
+        raise AssertionError(f"other kernels on the int8 paged path: "
+                             f"{others}")
+    if not (st.prefix_hit_tokens > 0 and st.cow_copies >= 1):
+        raise AssertionError("int8 warm run: no prefix hit or no COW copy")
+    # peak over the cold and warm runs, as phase 4's
+    if not kv_peak < paged_run["kv_bytes_peak"]:
+        raise AssertionError(f"int8 kv_bytes_peak {kv_peak} not below the "
+                             f"fp paged run's {paged_run['kv_bytes_peak']}")
+    print(f"[quant] kv_bytes_peak (cold and warm) int8 {kv_peak} vs fp "
+          f"{paged_run['kv_bytes_peak']} "
+          f"({kv_peak / paged_run['kv_bytes_peak']:.3f}x)")
+    device_share("int8 paged generate of 16 requests (warm)",
+                 lambda: eng.generate(reqs), top_n=12)
+    unadapted_projection_cost(cfg, eng.base_weights, dev)
+    del eng
+    torch.cuda.empty_cache()
+
+    # part 2: the dense engine over int8 weights (#9 at prefill, #10 at
+    # decode), weights quantized through KernelConfig.quant
+    dense = Engine(cfg, rt, serve=ServeConfig(
+        cache_mode="dense", max_batch=4, cache_len=256, out_cap=32),
+        kernels=KernelConfig(quant=QuantConfig(weights="int8")), device=dev)
+    reqs = dense_run["reqs"]
+    dense.generate(reqs[:2])                    # warm-up (allocator)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    outs, st = serve_checked(dense, reqs, "dense w8", "quant")
+    dense_launches = K.launch_counts()
+    print(f"[quant] dense w8 launches during generate: "
+          f"{json.dumps(dense_launches)}", flush=True)
+    want = {"tt_linear_w8": 2 * cfg.num_layers * st.prefills,
+            "tt_linear_batched_a_w8": 2 * cfg.num_layers * st.decode_steps}
+    for name, n in want.items():
+        if not (n > 0 and dense_launches[name] == n):
+            raise AssertionError(f"{name} launched {dense_launches[name]} "
+                                 f"times, want {n}")
+    if dense_launches["tt_linear"] or dense_launches["tt_linear_batched_a"]:
+        raise AssertionError(f"K1/K2 launched on the w8 path: "
+                             f"{dense_launches}")
+    same = sum(int(x == y) for o, r in zip(outs, dense_run["tokens"])
+               for x, y in zip(o.tolist(), r))
+    total = sum(len(r) for r in dense_run["tokens"])
+    print(f"[quant] dense w8 greedy tokens equal to phase 3's fp tokens at "
+          f"{same}/{total} positions = {same / total:.3f} (reported: random "
+          f"weights make any limit arbitrary)", flush=True)
+    device_share("dense w8 generate of 4 requests",
+                 lambda: dense.generate(reqs[:4]), top_n=12)
+    qbase = dense.base_weights
+    del dense
+    torch.cuda.empty_cache()
+
+    # part 3: kernel leg vs plain leg under a mild adapter, one int8 paged
+    # step and one w8 dense decode step, limit 5% of the largest logit
+    mild = AdapterRuntime.build("live", params["base"], spec, {
+        "cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 8, scale=0.12,
+                                 device=dev)}, params["frozen"])
+    preqs = paged_run["reqs"]
+    picked = preqs[1:3] + sorted(preqs[3:], key=lambda r: len(r.prompt))[-2:]
+    res = {f"int8 paged {k}": v for k, v in paged_step_rel_err(
+        cfg, mild, [r.prompt for r in picked], [r.task for r in picked],
+        dev, base=qbase, kv_quant=True).items()}
+    res["w8 dense decode"] = decode_step_rel_err(
+        cfg, mild, reqs[:4], 256, dev, base=qbase)
+    for name, (rel, n_same) in res.items():
+        print(f"[quant] mild adapter, one {name} step of 4 slots: logits vs "
+              f"plain leg max rel err per slot {rel:.3e} (limit 5e-2), "
+              f"argmax equal {n_same}/4")
+        if not rel <= 5e-2:
+            raise AssertionError(f"int8 {name} step logits differ from the "
+                                 f"plain leg: {rel:.3e}")
+    del qbase, mild, params, rt
+    torch.cuda.empty_cache()
+    return {"quant_paged": paged, "quant_dense": dense_launches}
 
 
 def rel_fro(a, b):
@@ -1117,8 +1434,11 @@ def main() -> int:
                 print(f"[ptxas] {name}: {line.strip()}")
 
     rows = phase_kernels(dev) + phase_train_kernels(dev)
-    paths = {"serve": phase_serving(dev), "paged": phase_paged(dev),
-             "train": phase_training(dev)}
+    paths = {}
+    paths["serve"], dense_run = phase_serving(dev)
+    paths["paged"], paged_run = phase_paged(dev)
+    paths.update(phase_quant(dev, dense_run, paged_run))
+    paths["train"] = phase_training(dev)
 
     records = []
     for name, (src, replaces) in KERNELS.items():

@@ -111,8 +111,20 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """Serving-side int8 quantization (not ported yet: any value other
-    than the defaults raises in the engine)."""
+    """Serving-side int8 of the frozen half of the model
+    (``kernels/quant.py``).
+
+    weights: "none" | "int8" — symmetric int8 of the base matrices
+        (attention q/k/v/o, dense-FFN up/gate/down), one f32 scale per
+        output channel, or per K group when ``group_size`` > 0; the rank-r
+        adapter term stays full precision.
+    kv: "none" | "int8" — int8 paged KV cells with one f32 scale per
+        (token, kv head), in the same block layout as the cells (paged
+        cache mode only).
+    group_size: K rows per weight-scale group, a multiple of 128; 0 = one
+        scale per output channel. A matrix whose K it does not divide is
+        quantized per output channel.
+    """
     weights: str = "none"          # none | int8
     kv: str = "none"               # none | int8
     group_size: int = 0
@@ -120,6 +132,18 @@ class QuantConfig:
     @property
     def any(self) -> bool:
         return self.weights != "none" or self.kv != "none"
+
+    def validate(self) -> "QuantConfig":
+        for name in ("weights", "kv"):
+            v = getattr(self, name)
+            if v not in ("none", "int8"):
+                raise ValueError(
+                    f"QuantConfig.{name}={v!r}; want none | int8")
+        if self.group_size and self.group_size % 128 != 0:
+            raise ValueError(
+                f"QuantConfig.group_size={self.group_size} must be a "
+                "multiple of 128 (a scale group spans whole kernel K tiles)")
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,9 +157,11 @@ class KernelConfig:
     fuse_linear: route adapted linears through the fused K1/K2 kernels
         whenever the adapter folds to lora-form (A, B).
     flash: route attention through the K3/K4 kernels.
-    interpret / bm / bn / bk / bq / bkv / quant: the JAX package's Pallas
-        knobs. The CUDA kernels have fixed tiles and no interpret mode, so
+    interpret / bm / bn / bk / bq / bkv: the JAX package's Pallas knobs.
+        The CUDA kernels have fixed tiles and no interpret mode, so
         anything but the defaults raises ``NotImplementedError``.
+    quant: frozen-base / KV quantization; the serving engine merges it
+        with ``ServeConfig.quant`` (int8 wins).
     """
     backend: str = "auto"          # auto | cuda | ref
     interpret: Optional[bool] = None
@@ -149,6 +175,7 @@ class KernelConfig:
     quant: QuantConfig = QuantConfig()
 
     def validate(self) -> "KernelConfig":
+        self.quant.validate()
         if self.backend not in ("auto", "cuda", "ref"):
             raise ValueError(f"unknown kernel backend {self.backend!r}; "
                              "want auto | cuda | ref")
@@ -161,8 +188,6 @@ class KernelConfig:
         if tiles:
             raise NotImplementedError(
                 f"tile overrides {tiles}: the CUDA kernels use fixed tiles")
-        if self.quant.any:
-            raise NotImplementedError("int8 kernels are not ported yet")
         return self
 
 
@@ -199,9 +224,10 @@ class ServeConfig:
     copy-on-write, and ``prefill_chunk`` prompt tokens per slot and step
     in the decode loop) and ``cache_mode="dense"`` (max_batch slots of
     cache_len cells each, power-of-two or ``prompt_buckets`` prefill
-    buckets). ``Engine`` rejects spec, registry, quant, mesh_shape (and
-    with it the router's replicas), disagg, row_parallel and
-    preempt_after with ``NotImplementedError``.
+    buckets). ``quant`` int8-quantizes the base weights (both modes) and
+    the KV cells (paged mode only). ``Engine`` rejects spec, registry,
+    mesh_shape (and with it the router's replicas), disagg, row_parallel
+    and preempt_after with ``NotImplementedError``.
     """
     max_batch: int = 4
     cache_len: int = 64
@@ -235,6 +261,11 @@ class ServeConfig:
         if self.cache_mode not in ("paged", "dense"):
             raise ValueError(f"unknown cache_mode {self.cache_mode!r}; "
                              "want paged | dense")
+        self.quant.validate()
+        if self.quant.kv == "int8" and self.cache_mode != "paged":
+            raise ValueError(
+                "kv=int8 quantization is implemented for the paged cache "
+                "layout only (per-cell scale pools); use cache_mode='paged'")
         for name in ("max_batch", "cache_len", "out_cap", "page_size",
                      "prefill_chunk"):
             if getattr(self, name) < 1:
@@ -256,7 +287,6 @@ class ServeConfig:
         unported = {
             "spec": self.spec.enabled,
             "registry": self.registry.enabled,
-            "quant": self.quant.any,
             "mesh_shape": bool(self.mesh_shape),
             "row_parallel": self.row_parallel,
             "disagg": self.disagg,
@@ -266,7 +296,7 @@ class ServeConfig:
         if bad:
             raise NotImplementedError(
                 f"ServeConfig {bad}: the port serves the paged and dense "
-                "cache modes on one device without spec/registry/quant/"
+                "cache modes on one device without spec/registry/"
                 "preemption yet")
         return self
 

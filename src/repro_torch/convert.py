@@ -6,7 +6,10 @@ numpy arrays — and returns the same structure as torch tensors, so both
 packages compute the same function. The layout is unchanged (base leaves
 stacked ``(nb, ...)`` per pattern position); nothing is re-initialized.
 bf16 arrays (ml_dtypes) cross through a uint16 view, because numpy has no
-bf16 that torch accepts. This module imports neither JAX nor anything of
+bf16 that torch accepts. A base packed by the JAX package's
+``quantize_base`` crosses as it is: its ``{"q8": int8, "scale": f32}``
+leaves keep their dtypes, so the port's ``kernels.quant`` output can be
+compared with it leaf for leaf. This module imports neither JAX nor anything of
 the JAX package.
 """
 from __future__ import annotations

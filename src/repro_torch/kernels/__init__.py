@@ -9,7 +9,8 @@ from repro_torch.kernels import tt_linear as _tl
 KERNELS = ("tt_linear", "tt_linear_batched_a", "flash_attention",
            "decode_attention", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "paged_decode_attention")
+           "paged_decode_attention", "tt_linear_w8", "tt_linear_batched_a_w8",
+           "paged_decode_attention_int8")
 _COUNTERS = (_tl.LAUNCHES, _fa.LAUNCHES, _pa.LAUNCHES)
 
 

@@ -3,7 +3,8 @@
 //
 // paged_attention_bf16 replaces the fp leg of the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py::paged_decode_attention
-//   (_kernel, quantized=False).
+//   (_kernel, quantized=False); paged_attention_int8 its int8 leg
+//   (quantized=True).
 // Slot b carries C query tokens; query c sits at absolute position
 // pos[b] + c and attends cache cells [0, pos[b] + c]. Cell i of slot b
 // lives in physical block tables[b, i / page], row i % page, of the
@@ -30,6 +31,16 @@
 // scores at -1e30, p rounded to bf16 before P·V, l floored at 1e-30,
 // output rounded once to bf16.
 //
+// int8 leg (Q8): the pools hold int8 cells and two (N, page, KV) f32
+// scale pools, one scale per (token, kv head), gathered through the same
+// clamped table entry as the cell. A lane reads its key row as int8 (64 B
+// at d = 64, half the bf16 row) with its scale and dequantizes it in
+// registers; each V row is dequantized by the scale of
+// its cell, passed across the warp with the row offset. q is taken in
+// f32, and p stays f32 through P·V (after dequantization v is f32 in the
+// TPU kernel, so its p.astype(v.dtype) keeps f32): unlike the fp leg,
+// nothing rounds to bf16 before the output.
+//
 // The C function returns cudaGetLastError() of the launch.
 
 #include <cuda_runtime.h>
@@ -55,17 +66,46 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int D, int R>
+// K/V cell types: bf16 for the fp leg, int8 with f32 scales for Q8
+template <bool Q8>
+struct Cell;
+template <>
+struct Cell<false> {
+  typedef bf16 T;
+};
+template <>
+struct Cell<true> {
+  typedef int8_t T;
+};
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
+
+// strides (elements): st[0..2] q (b, c, h); st[3..5] k (n, p, kv);
+// st[6..8] v; st[9..11] o (b, c, h); st[12] tables (b); Q8 only:
+// st[13..15] k_scale (n, p, kv); st[16..18] v_scale
+struct Strides {
+  long long v[19];
+};
+
+template <int D, int R, bool Q8>
 __global__ void __launch_bounds__(NW * 32)
-paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const int* __restrict__ tables,
-                  const int* __restrict__ pos, bf16* __restrict__ o, int C,
-                  int G, int N, int page, int P, float scale, long long tsb,
-                  long long qsb, long long qsc, long long qsh, long long ksn,
-                  long long ksp, long long ksh, long long vsn, long long vsp,
-                  long long vsh, long long osb, long long osc,
-                  long long osh) {
-  constexpr int DL = D / 32;  // output dims per lane
+paged_attn_kernel(const bf16* __restrict__ q,
+                  const typename Cell<Q8>::T* __restrict__ k,
+                  const typename Cell<Q8>::T* __restrict__ v,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
+                  const int* __restrict__ tables, const int* __restrict__ pos,
+                  bf16* __restrict__ o, int C, int G, int N, int page, int P,
+                  float scale, const Strides st) {
+  typedef typename Cell<Q8>::T CT;
+  constexpr int DL = D / 32;   // output dims per lane
+  constexpr int VEC = 16 / sizeof(CT);  // cell values per 16-byte load
+  const long long qsb = st.v[0], qsc = st.v[1], qsh = st.v[2];
+  const long long ksn = st.v[3], ksp = st.v[4], ksh = st.v[5];
+  const long long vsn = st.v[6], vsp = st.v[7], vsh = st.v[8];
+  const long long osb = st.v[9], osc = st.v[10], osh = st.v[11];
+  const long long tsb = st.v[12];
   __shared__ __align__(16) float qsm[R][D];
   __shared__ float red_m[NW][R], red_l[NW][R];
   __shared__ float red_acc[NW][R][D];
@@ -96,8 +136,10 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int c_last = (min(r0 + R, rows) - 1) / G;
   const int nkeys = min(p0 + c_last + 1, P * page);
 
-  const bf16* kb = k + kvh * ksh;
-  const bf16* vb = v + kvh * vsh;
+  const CT* kb = k + kvh * ksh;
+  const CT* vb = v + kvh * vsh;
+  const float* ksb = Q8 ? k_scale + kvh * st.v[15] : nullptr;
+  const float* vsb = Q8 ? v_scale + kvh * st.v[18] : nullptr;
   const int* trow = tables + bb * tsb;
 
   float m[R], l[R], acc[R][DL];
@@ -113,6 +155,7 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int ki = c0 + lane;
     const bool ok = ki < nkeys;
     long long voff = 0;
+    float vsc = 0.f;  // Q8: this lane's cell's V scale
     float s[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = 0.f;
@@ -122,20 +165,29 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       blk = blk < 0 ? 0 : (blk >= N ? N - 1 : blk);  // sentinel: clamp
       const int cell = ki - j * page;
       voff = (long long)blk * vsn + (long long)cell * vsp;
-      const bf16* kr = kb + (long long)blk * ksn + (long long)cell * ksp;
+      const CT* kr = kb + (long long)blk * ksn + (long long)cell * ksp;
+      float ksc = 1.f;
+      if (Q8) {
+        ksc = ksb[(long long)blk * st.v[13] + (long long)cell * st.v[14]];
+        vsc = vsb[(long long)blk * st.v[16] + (long long)cell * st.v[17]];
+      }
 #pragma unroll
-      for (int e = 0; e < D; e += 8) {  // this lane's key row, 16 B a load
+      for (int e = 0; e < D; e += VEC) {  // this lane's key row, 16 B a load
         const uint4 u = *reinterpret_cast<const uint4*>(kr + e);
-        const bf16* ev = reinterpret_cast<const bf16*>(&u);
-        float kf[8];
+        const CT* ev = reinterpret_cast<const CT*>(&u);
+        float kf[VEC];
 #pragma unroll
-        for (int t = 0; t < 8; ++t) kf[t] = __bfloat162float(ev[t]);
+        for (int t = 0; t < VEC; ++t)
+          kf[t] = Q8 ? to_f(ev[t]) * ksc : to_f(ev[t]);  // dequantize
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float4 qa = *reinterpret_cast<const float4*>(&qsm[r][e]);
-          const float4 qc = *reinterpret_cast<const float4*>(&qsm[r][e + 4]);
-          s[r] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                  qc.x * kf[4] + qc.y * kf[5] + qc.z * kf[6] + qc.w * kf[7];
+#pragma unroll
+          for (int t = 0; t < VEC; t += 4) {
+            const float4 qa =
+                *reinterpret_cast<const float4*>(&qsm[r][e + t]);
+            s[r] += qa.x * kf[t] + qa.y * kf[t + 1] + qa.z * kf[t + 2] +
+                    qa.w * kf[t + 3];
+          }
         }
       }
     }
@@ -154,19 +206,23 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < DL; ++d) acc[r][d] *= corr;
     }
-    // acc += p (rounded to bf16) · V over this chunk's cells; each lane
-    // owns DL output dims, so every V row is one coalesced warp read
+    // acc += p · V over this chunk's cells (fp leg: p rounded to bf16;
+    // Q8: p in f32, V dequantized by its cell's scale); each lane owns DL
+    // output dims, so every V row is one coalesced warp read
     const int nk = min(32, nkeys - c0);
     for (int kk = 0; kk < nk; ++kk) {
       const long long vo = __shfl_sync(FULL, voff, kk);
-      const bf16* vr = vb + vo + lane * DL;
+      const float vs = Q8 ? __shfl_sync(FULL, vsc, kk) : 1.f;
+      const CT* vr = vb + vo + lane * DL;
       float vv[DL];
 #pragma unroll
-      for (int d = 0; d < DL; ++d) vv[d] = __bfloat162float(vr[d]);
+      for (int d = 0; d < DL; ++d)
+        vv[d] = Q8 ? to_f(vr[d]) * vs : to_f(vr[d]);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float pk = __bfloat162float(
-            __float2bfloat16(__shfl_sync(FULL, p[r], kk)));
+        const float pr = __shfl_sync(FULL, p[r], kk);
+        const float pk =
+            Q8 ? pr : __bfloat162float(__float2bfloat16(pr));
 #pragma unroll
         for (int d = 0; d < DL; ++d) acc[r][d] += pk * vv[d];
       }
@@ -203,45 +259,63 @@ paged_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int R>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* pos, void* o, int B, int C, int G, int KV, int N,
-           int page, int P, const long long* st, void* stream) {
-  dim3 grid(KV, B, (C * G + R - 1) / R);
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *tables, *pos;
+  void* o;
+  int B, C, G, KV, N, page, P;
+};
+
+template <int D, int R, bool Q8>
+int launch(const Args& a, const Strides& st, void* stream) {
+  typedef typename Cell<Q8>::T CT;
+  dim3 grid(a.KV, a.B, (a.C * a.G + R - 1) / R);
   const float scale = 1.0f / sqrtf((float)D);
-  paged_attn_kernel<D, R><<<grid, NW * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(pos), static_cast<bf16*>(o), C, G, N, page, P,
-      scale, st[12], st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11]);
+  paged_attn_kernel<D, R, Q8><<<grid, NW * 32, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a.q), static_cast<const CT*>(a.k),
+      static_cast<const CT*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.pos), static_cast<bf16*>(a.o), a.C, a.G,
+      a.N, a.page, a.P, scale, st);
   return (int)cudaGetLastError();
 }
 
 // rows per block: the smallest power of two covering C·G, at most 16
 // (8 at d = 128, where each row holds 4 accumulator registers a lane)
-template <int D>
-int launch_for_d(int R, const void* q, const void* k, const void* v,
-                 const void* tables, const void* pos, void* o, int B, int C,
-                 int G, int KV, int N, int page, int P, const long long* st,
-                 void* stream) {
+template <int D, bool Q8>
+int launch_for_d(int R, const Args& a, const Strides& st, void* stream) {
   switch (R) {
-    case 1: return launch<D, 1>(q, k, v, tables, pos, o, B, C, G, KV, N,
-                                page, P, st, stream);
-    case 2: return launch<D, 2>(q, k, v, tables, pos, o, B, C, G, KV, N,
-                                page, P, st, stream);
-    case 4: return launch<D, 4>(q, k, v, tables, pos, o, B, C, G, KV, N,
-                                page, P, st, stream);
-    case 8: return launch<D, 8>(q, k, v, tables, pos, o, B, C, G, KV, N,
-                                page, P, st, stream);
+    case 1: return launch<D, 1, Q8>(a, st, stream);
+    case 2: return launch<D, 2, Q8>(a, st, stream);
+    case 4: return launch<D, 4, Q8>(a, st, stream);
+    case 8: return launch<D, 8, Q8>(a, st, stream);
     case 16:
-      if constexpr (D == 64)
-        return launch<D, 16>(q, k, v, tables, pos, o, B, C, G, KV, N, page,
-                             P, st, stream);
+      if constexpr (D == 64) return launch<D, 16, Q8>(a, st, stream);
       return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <bool Q8>
+int run(const void* q, const void* k, const void* v, const void* ks,
+        const void* vs, const void* tables, const void* pos, void* o, int B,
+        int C, int H, int KV, int d, int N, int page, int P,
+        const long long* strides, void* stream) {
+  if (B < 1 || C < 1 || KV < 1 || H % KV != 0 || N < 1 || P < 1 ||
+      page < 8 || page > 64 || page % 8 != 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KV;
+  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
+  const int rmax = d == 64 ? 16 : 8;
+  int R = 1;
+  while (R < C * G && R < rmax) R *= 2;
+  if ((C * G + R - 1) / R > 65535) return (int)cudaErrorInvalidValue;
+  Strides st{};
+  for (int i = 0; i < (Q8 ? 19 : 13); ++i) st.v[i] = strides[i];
+  const Args a{q, k, v, ks, vs, tables, pos, o, B, C, G, KV, N, page, P};
+  if (d == 64) return launch_for_d<64, Q8>(R, a, st, stream);
+  if (d == 128) return launch_for_d<128, Q8>(R, a, st, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -258,22 +332,21 @@ int paged_attention_bf16(const void* q, const void* k, const void* v,
                          const void* tables, const void* pos, void* o, int B,
                          int C, int H, int KV, int d, int N, int page, int P,
                          const long long* strides, void* stream) {
-  if (B < 1 || C < 1 || KV < 1 || H % KV != 0 || N < 1 || P < 1 ||
-      page < 8 || page > 64 || page % 8 != 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
-  const int rmax = d == 64 ? 16 : 8;
-  int R = 1;
-  while (R < C * G && R < rmax) R *= 2;
-  if ((C * G + R - 1) / R > 65535) return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return launch_for_d<64>(R, q, k, v, tables, pos, o, B, C, G, KV, N, page,
-                            P, strides, stream);
-  if (d == 128)
-    return launch_for_d<128>(R, q, k, v, tables, pos, o, B, C, G, KV, N,
-                             page, P, strides, stream);
-  return (int)cudaErrorInvalidValue;
+  return run<false>(q, k, v, nullptr, nullptr, tables, pos, o, B, C, H, KV,
+                    d, N, page, P, strides, stream);
+}
+
+// The int8 leg: k/v (N, page, KV, d) int8 pools, k_scale / v_scale
+// (N, page, KV) f32 per-cell scales. strides: the 13 above (k / v ones a
+// multiple of 16 with 16-byte aligned bases), then k_scale (n, p, kv) and
+// v_scale (n, p, kv) element strides.
+int paged_attention_int8(const void* q, const void* k, const void* v,
+                         const void* k_scale, const void* v_scale,
+                         const void* tables, const void* pos, void* o, int B,
+                         int C, int H, int KV, int d, int N, int page, int P,
+                         const long long* strides, void* stream) {
+  return run<true>(q, k, v, k_scale, v_scale, tables, pos, o, B, C, H, KV,
+                   d, N, page, P, strides, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 // Fused adapted linear for Hopper (sm_90a): y = x·W + alpha·(x·A)·B.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/tt_linear.py:
-//   tt_linear            (_kernel + _epilogue_out)  -> tt_linear_bf16
-//   tt_linear_batched_a  (_batched_a_kernel)        -> tt_linear_batched_a_bf16
+//   tt_linear               (_kernel + _epilogue_out) -> tt_linear_bf16
+//   tt_linear_batched_a     (_batched_a_kernel)       -> tt_linear_batched_a_bf16
+//   tt_linear_w8            (_kernel, int8 W)         -> tt_linear_w8_bf16
+//   tt_linear_batched_a_w8  (_batched_a_kernel, int8) -> tt_linear_batched_a_w8_bf16
 //
 // What bounds it on an H100: at the serving shapes (M = 4..256 rows,
 // K = N = 2048) the work is 2·M·K·N flops against K·N·2 bytes of W, i.e.
@@ -23,6 +25,19 @@
 // Ragged M/N/K and any rank 1 <= r <= 256 are masked in the kernel; the
 // rank is padded to a multiple of 16 in shared memory only.
 //
+// w8a16 (the WQ template argument): W arrives int8 with f32 scales
+// (G, N) — half the bytes of the bf16 W that bounds these kernels. Each
+// int8 W tile goes through the same cp.async ring (16 values a 16-byte
+// copy, so the vector path needs N % 16 == 0), then is widened to bf16 in
+// one shared-memory tile before the WMMA step (|q| <= 127 is exact in
+// bf16). Per output channel (G = 1, WQ_CHANNEL) the f32 base accumulator
+// is multiplied by scale[n] in the epilogue, before alpha·(P·B) is added,
+// as the TPU kernel does. Grouped (G > 1, WQ_GROUP; group = K / G a
+// multiple of the K tile): each group's x·q partial sum is kept apart in
+// the WMMA accumulators, then scaled by scale[g, n] and added into an f32
+// running sum in shared memory at the group's last K tile. The rank-r
+// adapter term is unquantized either way.
+//
 // The C functions take device pointers and the CUDA stream as opaque
 // pointers and return cudaGetLastError() of the launch.
 
@@ -36,8 +51,13 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int PAD_H = 8;  // bf16 row pad: 16 bytes
-constexpr int PAD_F = 4;  // f32 row pad: 16 bytes
+constexpr int PAD_H = 8;   // bf16 row pad: 16 bytes
+constexpr int PAD_F = 4;   // f32 row pad: 16 bytes
+constexpr int PAD_Q = 16;  // int8 row pad: 16 bytes
+
+// W modes: bf16 W; int8 W with per-output-channel scales; int8 W with
+// per-K-group scales
+constexpr int WQ_NONE = 0, WQ_CHANNEL = 1, WQ_GROUP = 2;
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
@@ -58,27 +78,35 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // vec flags: which operands take the 16-byte cp.async path
-constexpr int VEC_XW = 1;  // K % 8 == 0, N % 8 == 0, x / w 16-byte aligned
+constexpr int VEC_XW = 1;  // K % 8 == 0, N % 8 == 0 (int8 W: N % 16 == 0),
+                           // x / w 16-byte aligned
 constexpr int VEC_A = 2;   // r % 8 == 0, a 16-byte aligned
 constexpr int PREG_R = 32; // largest rank of the register GEMV path
 
 // Shared-memory carve-up, identical on host (launch size) and device.
 struct Layout {
-  int xs, ws, as, ps, cs, total;  // byte offsets; total = bytes
+  int xs, ws, wb, as, ps, cs, gs, total;  // byte offsets; total = bytes
 };
 
 // BATCHED && ASTAGE: the arows = min(BM, M) rows of A[m] staged per stage
 // as [m][k][ra] (ra = r rounded up to 8); BATCHED && !ASTAGE: A read from
 // device memory in the P loop (ranks too large to stage); !BATCHED: one
 // (BK, rpad) A tile.
-template <int BM, int BN, int BK, int STAGES, bool BATCHED, bool ASTAGE>
+// int8 W (WQ != WQ_NONE): the ring holds int8 tiles (ws) and one bf16
+// tile (wb) takes the widened tile the WMMA step reads; WQ_GROUP adds an
+// f32 tile (gs) for a group's partial sums.
+template <int BM, int BN, int BK, int STAGES, bool BATCHED, bool ASTAGE,
+          int WQ>
 __host__ __device__ Layout layout(int rpad, int ra, int arows) {
   Layout L;
   int off = 0;
   L.xs = off;
   off += round_up(STAGES * BM * (BK + PAD_H) * 2, 128);
   L.ws = off;
-  off += round_up(STAGES * BK * (BN + PAD_H) * 2, 128);
+  if (WQ == WQ_NONE) off += round_up(STAGES * BK * (BN + PAD_H) * 2, 128);
+  else off += round_up(STAGES * BK * (BN + PAD_Q), 128);
+  L.wb = off;
+  if (WQ != WQ_NONE) off += round_up(BK * (BN + PAD_H) * 2, 128);
   L.as = off;
   if (!BATCHED) off += round_up(STAGES * BK * (rpad + PAD_H) * 2, 128);
   else if (ASTAGE) off += round_up(STAGES * arows * BK * ra * 2, 128);
@@ -86,31 +114,42 @@ __host__ __device__ Layout layout(int rpad, int ra, int arows) {
   off += round_up(BM * (rpad + PAD_F) * 4, 128);
   L.cs = off;
   off += round_up(BM * (BN + PAD_F) * 4, 128);
+  L.gs = off;
+  if (WQ == WQ_GROUP) off += round_up(BM * (BN + PAD_F) * 4, 128);
   L.total = off;
   return L;
 }
 
+// w: bf16 (K, N) for WQ_NONE, int8 (K, N) otherwise; wscale: f32 (G, N)
+// with G = K / group (unused for WQ_NONE).
 template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool BATCHED,
-          bool ASTAGE>
+          bool ASTAGE, int WQ>
 __global__ void __launch_bounds__(WM * WN * 32)
-tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 const bf16* __restrict__ a, const bf16* __restrict__ b,
-                 bf16* __restrict__ y, int M, int N, int K, int r, int rpad,
-                 int ra, float alpha, int vec) {
+tt_linear_kernel(const bf16* __restrict__ x, const void* __restrict__ wv,
+                 const float* __restrict__ wscale, const bf16* __restrict__ a,
+                 const bf16* __restrict__ b, bf16* __restrict__ y, int M,
+                 int N, int K, int r, int rpad, int ra, int group,
+                 float alpha, int vec) {
   constexpr int NT = WM * WN * 32;
   constexpr int NW = WM * WN;
   constexpr int TM = BM / WM, TN = BN / WN;
   constexpr int FM = TM / 16, FN = TN / 16;
   constexpr int XS = BK + PAD_H, WS = BN + PAD_H, CS = BN + PAD_F;
+  constexpr int QS = BN + PAD_Q;  // int8 W ring row
   static_assert(TM % 16 == 0 && TN % 16 == 0 && BK % 16 == 0, "tiles");
   static_assert(STAGES >= 2, "pipeline");
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int arows = min(BM, M);  // batched-A blocks all start at row 0
   const Layout L =
-      layout<BM, BN, BK, STAGES, BATCHED, ASTAGE>(rpad, ra, arows);
+      layout<BM, BN, BK, STAGES, BATCHED, ASTAGE, WQ>(rpad, ra, arows);
+  const bf16* w = static_cast<const bf16*>(wv);
+  const int8_t* w8 = static_cast<const int8_t*>(wv);
   bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
   bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  int8_t* ws8 = reinterpret_cast<int8_t*>(smem + L.ws);
+  bf16* wb = reinterpret_cast<bf16*>(smem + L.wb);
+  float* gs = reinterpret_cast<float*>(smem + L.gs);
   bf16* as = reinterpret_cast<bf16*>(smem + L.as);
   float* ps = reinterpret_cast<float*>(smem + L.ps);
   float* cs = reinterpret_cast<float*>(smem + L.cs);
@@ -124,6 +163,8 @@ tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const bf16 zero = __float2bfloat16(0.f);
 
   for (int i = tid; i < BM * PS; i += NT) ps[i] = 0.f;
+  if (WQ == WQ_GROUP)  // the running sum over groups
+    for (int i = tid; i < BM * CS; i += NT) cs[i] = 0.f;
   if (!BATCHED && (vec & VEC_A) && rpad > r) {
     // cp.async fills columns < r only; the rank padding stays zero
     for (int i = tid; i < STAGES * BK * (rpad - r); i += NT) {
@@ -141,6 +182,7 @@ tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   auto load_stage = [&](int s, int k0) {
     bf16* xd = xs + s * BM * XS;
     bf16* wd = ws + s * BK * WS;
+    int8_t* wq = ws8 + s * BK * QS;
     if (vec & VEC_XW) {
       for (int c = tid; c < BM * (BK / 8); c += NT) {
         const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
@@ -149,7 +191,15 @@ tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         cp_async16(xd + row * XS + col, ok ? x + (size_t)gm * K + gk : x,
                    ok ? 16 : 0);
       }
-      for (int c = tid; c < BK * (BN / 8); c += NT) {
+      if (WQ != WQ_NONE) {  // 16 int8 values a copy
+        for (int c = tid; c < BK * (BN / 16); c += NT) {
+          const int row = c / (BN / 16), col = (c % (BN / 16)) * 16;
+          const int gk = k0 + row, gn = n0 + col;
+          const bool ok = gk < K && gn < N;
+          cp_async16(wq + row * QS + col,
+                     ok ? w8 + (size_t)gk * N + gn : w8, ok ? 16 : 0);
+        }
+      } else for (int c = tid; c < BK * (BN / 8); c += NT) {
         const int row = c / (BN / 8), col = (c % (BN / 8)) * 8;
         const int gk = k0 + row, gn = n0 + col;
         const bool ok = gk < K && gn < N;
@@ -166,8 +216,11 @@ tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int c = tid; c < BK * BN; c += NT) {
         const int row = c / BN, col = c % BN;
         const int gk = k0 + row, gn = n0 + col;
-        wd[row * WS + col] =
-            (gk < K && gn < N) ? w[(size_t)gk * N + gn] : zero;
+        const bool ok = gk < K && gn < N;
+        if (WQ != WQ_NONE)
+          wq[row * QS + col] = ok ? w8[(size_t)gk * N + gn] : (int8_t)0;
+        else
+          wd[row * WS + col] = ok ? w[(size_t)gk * N + gn] : zero;
       }
     }
     bf16* ad = as + s * ASTEP;
@@ -243,6 +296,22 @@ tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const int s = kt % STAGES;
     const bf16* xd = xs + s * BM * XS;
     const bf16* wd = ws + s * BK * WS;
+    if (WQ != WQ_NONE) {
+      // widen the int8 tile to bf16 (exact) for the WMMA step; the tile
+      // read last step is free, every warp having passed the barrier above
+      const int8_t* wq = ws8 + s * BK * QS;
+      for (int c = tid; c < BK * (BN / 4); c += NT) {
+        const int row = c / (BN / 4), col = (c % (BN / 4)) * 4;
+        const char4 q4 = *reinterpret_cast<const char4*>(wq + row * QS + col);
+        bf16* d = wb + row * WS + col;
+        d[0] = __int2bfloat16_rn(q4.x);
+        d[1] = __int2bfloat16_rn(q4.y);
+        d[2] = __int2bfloat16_rn(q4.z);
+        d[3] = __int2bfloat16_rn(q4.w);
+      }
+      __syncthreads();
+      wd = wb;
+    }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
@@ -260,6 +329,25 @@ tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < FN; ++j)
           wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+
+    if (WQ == WQ_GROUP && ((kt + 1) * BK) % group == 0) {
+      // the group's last K tile: running sum += partial · scale[g, n]
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) {
+          wmma::store_matrix_sync(
+              gs + (wm * TM + i * 16) * CS + wn * TN + j * 16, acc[i][j], CS,
+              wmma::mem_row_major);
+          wmma::fill_fragment(acc[i][j], 0.f);
+        }
+      __syncthreads();
+      const float* srow = wscale + (size_t)(((kt + 1) * BK - 1) / group) * N;
+      for (int idx = tid; idx < BM * BN; idx += NT) {
+        const int row = idx / BN, col = idx % BN, gn = n0 + col;
+        if (gn < N) cs[row * CS + col] += gs[row * CS + col] * srow[gn];
+      }
     }
 
     const bf16* ad = as + s * ASTEP;
@@ -350,13 +438,17 @@ tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
   }
 
-  // epilogue in f32: y = acc + alpha · (P · B), one bf16 rounding
+  // epilogue in f32: y = acc (· scale[n]) + alpha · (P · B), one bf16
+  // rounding; grouped scales already hold the scaled sum in cs
+  if (WQ != WQ_GROUP) {
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+    for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(cs + (wm * TM + i * 16) * CS + wn * TN + j * 16,
-                              acc[i][j], CS, wmma::mem_row_major);
+      for (int j = 0; j < FN; ++j)
+        wmma::store_matrix_sync(
+            cs + (wm * TM + i * 16) * CS + wn * TN + j * 16, acc[i][j], CS,
+            wmma::mem_row_major);
+  }
   __syncthreads();
   for (int idx = tid; idx < BM * BN; idx += NT) {
     const int row = idx / BN, col = idx % BN;
@@ -366,28 +458,35 @@ tt_linear_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const float* prow = ps + row * PS;
       for (int j = 0; j < r; ++j)
         t += prow[j] * __bfloat162float(b[(size_t)j * N + gn]);
-      y[(size_t)gm * N + gn] = __float2bfloat16(cs[row * CS + col] + alpha * t);
+      float base = cs[row * CS + col];
+      if (WQ == WQ_CHANNEL) base *= wscale[gn];
+      y[(size_t)gm * N + gn] = __float2bfloat16(base + alpha * t);
     }
   }
 }
 
 constexpr int SMEM_MAX = 227 * 1024;  // H100: per-block dynamic maximum
 
-template <int BM, int BN, int BK, int STAGES, bool BATCHED, bool ASTAGE>
+template <int BM, int BN, int BK, int STAGES, bool BATCHED, bool ASTAGE,
+          int WQ>
 int smem_bytes(int r, int M) {
-  return layout<BM, BN, BK, STAGES, BATCHED, ASTAGE>(
+  return layout<BM, BN, BK, STAGES, BATCHED, ASTAGE, WQ>(
              round_up(r, 16), round_up(r, 8), M < BM ? M : BM)
       .total;
 }
 
 template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool BATCHED,
-          bool ASTAGE>
-int launch(const void* x, const void* w, const void* a, const void* b,
-           void* y, int M, int N, int K, int r, float alpha, int vec,
-           void* stream) {
+          bool ASTAGE, int WQ>
+int launch(const void* x, const void* w, const float* wscale, const void* a,
+           const void* b, void* y, int M, int N, int K, int r, int group,
+           float alpha, int vec, void* stream) {
+  if (WQ == WQ_GROUP && (group < BK || group % BK != 0))
+    return (int)cudaErrorInvalidValue;  // a group spans whole K tiles
   const int rpad = round_up(r, 16), ra = round_up(r, 8);
-  const int smem = smem_bytes<BM, BN, BK, STAGES, BATCHED, ASTAGE>(r, M);
-  auto kern = tt_linear_kernel<BM, BN, BK, WM, WN, STAGES, BATCHED, ASTAGE>;
+  const int smem =
+      smem_bytes<BM, BN, BK, STAGES, BATCHED, ASTAGE, WQ>(r, M);
+  auto kern =
+      tt_linear_kernel<BM, BN, BK, WM, WN, STAGES, BATCHED, ASTAGE, WQ>;
   static int smem_set = 48 * 1024;  // per instantiation, grows only
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -397,10 +496,48 @@ int launch(const void* x, const void* w, const void* a, const void* b,
   }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kern<<<grid, WM * WN * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<bf16*>(y), M, N, K, r, rpad, ra, alpha, vec);
+      static_cast<const bf16*>(x), w, wscale, static_cast<const bf16*>(a),
+      static_cast<const bf16*>(b), static_cast<bf16*>(y), M, N, K, r, rpad,
+      ra, group, alpha, vec);
   return (int)cudaGetLastError();
+}
+
+// K1 (shared A): 64 x 64 output tiles, BK 64 in a 4-stage ring, or BK 32
+// in 2 stages when a large rank's A tiles do not fit
+template <int WQ>
+int run_shared_a(const void* x, const void* w, const float* wscale,
+                 const void* a, const void* b, void* y, int M, int N, int K,
+                 int r, int group, float alpha, int vec, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 256)
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes<64, 64, 64, 4, false, true, WQ>(r, M) <= SMEM_MAX)
+    return launch<64, 64, 64, 2, 2, 4, false, true, WQ>(
+        x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
+  return launch<64, 64, 32, 2, 2, 2, false, true, WQ>(
+      x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
+}
+
+// K2 (per-row A): one block per N tile covers all M rows (M <= 64), so W
+// is read once per launch. A[m] tiles are staged with the x / W tiles
+// when they fit in shared memory.
+template <int WQ>
+int run_batched_a(const void* x, const void* w, const float* wscale,
+                  const void* a, const void* b, void* y, int M, int N, int K,
+                  int r, int group, float alpha, int vec, void* stream) {
+  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || r > 256)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 16) {
+    if (smem_bytes<16, 64, 128, 4, true, true, WQ>(r, M) <= SMEM_MAX)
+      return launch<16, 64, 128, 1, 4, 4, true, true, WQ>(
+          x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
+    return launch<16, 32, 64, 1, 2, 2, true, false, WQ>(
+        x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
+  }
+  if (smem_bytes<64, 32, 32, 4, true, true, WQ>(r, M) <= SMEM_MAX)
+    return launch<64, 32, 32, 2, 2, 4, true, true, WQ>(
+        x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
+  return launch<64, 32, 64, 2, 2, 2, true, false, WQ>(
+      x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
 }
 
 }  // namespace
@@ -413,35 +550,47 @@ extern "C" {
 int tt_linear_bf16(const void* x, const void* w, const void* a,
                    const void* b, void* y, int M, int N, int K, int r,
                    float alpha, int vec, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 256)
-    return (int)cudaErrorInvalidValue;
-  if (smem_bytes<64, 64, 64, 4, false, true>(r, M) <= SMEM_MAX)
-    return launch<64, 64, 64, 2, 2, 4, false, true>(x, w, a, b, y, M, N, K,
-                                                    r, alpha, vec, stream);
-  return launch<64, 64, 32, 2, 2, 2, false, true>(x, w, a, b, y, M, N, K, r,
-                                                  alpha, vec, stream);
+  return run_shared_a<WQ_NONE>(x, w, nullptr, a, b, y, M, N, K, r, 0, alpha,
+                               vec, stream);
 }
 
-// Per-row A: x (M, K), a (M, K, r); one block per N tile covers all M
-// rows (M <= 64), so W is read once per launch. A[m] tiles are staged
-// with the x / W tiles when they fit in shared memory.
+// Per-row A: x (M, K), a (M, K, r); M <= 64.
 int tt_linear_batched_a_bf16(const void* x, const void* w, const void* a,
                              const void* b, void* y, int M, int N, int K,
                              int r, float alpha, int vec, void* stream) {
-  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || r > 256)
-    return (int)cudaErrorInvalidValue;
-  if (M <= 16) {
-    if (smem_bytes<16, 64, 128, 4, true, true>(r, M) <= SMEM_MAX)
-      return launch<16, 64, 128, 1, 4, 4, true, true>(
-          x, w, a, b, y, M, N, K, r, alpha, vec, stream);
-    return launch<16, 32, 64, 1, 2, 2, true, false>(x, w, a, b, y, M, N, K,
-                                                    r, alpha, vec, stream);
-  }
-  if (smem_bytes<64, 32, 32, 4, true, true>(r, M) <= SMEM_MAX)
-    return launch<64, 32, 32, 2, 2, 4, true, true>(x, w, a, b, y, M, N, K, r,
-                                                   alpha, vec, stream);
-  return launch<64, 32, 64, 2, 2, 2, true, false>(x, w, a, b, y, M, N, K, r,
-                                                  alpha, vec, stream);
+  return run_batched_a<WQ_NONE>(x, w, nullptr, a, b, y, M, N, K, r, 0,
+                                alpha, vec, stream);
+}
+
+// w8a16: w int8 (K, N), scale f32 (G, N) contiguous; G = 1 scales per
+// output channel, G > 1 per group of K / G rows (G must divide K, and the
+// group must be a multiple of the kernel's K tile: 128 always is). The
+// other operands as above; VEC_XW promises N % 16 == 0 for the int8 W.
+int tt_linear_w8_bf16(const void* x, const void* w, const void* scale,
+                      const void* a, const void* b, void* y, int M, int N,
+                      int K, int r, int G, float alpha, int vec,
+                      void* stream) {
+  const float* s = static_cast<const float*>(scale);
+  if (G < 1 || K % G != 0) return (int)cudaErrorInvalidValue;
+  if (G == 1)
+    return run_shared_a<WQ_CHANNEL>(x, w, s, a, b, y, M, N, K, r, K, alpha,
+                                    vec, stream);
+  return run_shared_a<WQ_GROUP>(x, w, s, a, b, y, M, N, K, r, K / G, alpha,
+                                vec, stream);
+}
+
+int tt_linear_batched_a_w8_bf16(const void* x, const void* w,
+                                const void* scale, const void* a,
+                                const void* b, void* y, int M, int N, int K,
+                                int r, int G, float alpha, int vec,
+                                void* stream) {
+  const float* s = static_cast<const float*>(scale);
+  if (G < 1 || K % G != 0) return (int)cudaErrorInvalidValue;
+  if (G == 1)
+    return run_batched_a<WQ_CHANNEL>(x, w, s, a, b, y, M, N, K, r, K, alpha,
+                                     vec, stream);
+  return run_batched_a<WQ_GROUP>(x, w, s, a, b, y, M, N, K, r, K / G, alpha,
+                                 vec, stream);
 }
 
 }  // extern "C"

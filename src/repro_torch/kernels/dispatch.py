@@ -17,10 +17,13 @@ counterparts of the JAX package's ``custom_vjp``s:
                     records, else K3; it saves q, k, v, out and lse —
                     nothing of size T×S — and its backward is #6 then #7.
 
-The raw wrappers under them raise on an input that requires grad, so no
-path can cut the graph silently. Each step of a Function runs the kernel
-for CUDA tensors and the plain version for CPU tensors (or everywhere
-under ``backend="ref"``), so the CPU tests exercise the same backward.
+The w8a16 linears (``tt_linear_q``, ``tt_linear_batched_a_q``) and the
+attention decode kernels are inference only, as in the JAX package: their
+raw wrappers raise on an input that requires grad. The raw wrappers under
+the Functions raise on it too, so no path can cut the graph silently.
+Each step of a Function runs the kernel for CUDA tensors and the plain
+version for CPU tensors (or everywhere under ``backend="ref"``), so the
+CPU tests exercise the same backward.
 
 Unlike the JAX package, ``policy=None`` means the default policy (the
 kernels), not a separate unfused path: every entry point runs the CUDA
@@ -38,6 +41,7 @@ import torch
 
 from repro_torch.config.base import KernelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels import quant as quant_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +201,30 @@ def tt_linear_batched_a(x, w, a, b, *, alpha: float = 1.0,
     return y.to(x.dtype)
 
 
+def tt_linear_q(x, wq, a, b, *, alpha: float = 1.0,
+                policy: Optional[KernelPolicy] = None):
+    """w8a16 adapted linear over a packed int8 base leaf (#9).
+    wq: ``{"q8": int8 (K, N), "scale": f32 (G, N)}`` (kernels/quant.py);
+    x, a, b as in ``tt_linear``. Inference only (no backward)."""
+    return ops.tt_linear_q(x, wq["q8"], wq["scale"], a, b,
+                           alpha=float(alpha),
+                           backend=_pol(policy, x).backend)
+
+
+def tt_linear_batched_a_q(x, wq, a, b, *, alpha: float = 1.0,
+                          policy: Optional[KernelPolicy] = None):
+    """w8a16 per-row-A adapted linear (slot-task routing over an int8
+    base). Decode shapes run #10; a (B, T>1, K) block dequantizes W to
+    x's dtype and runs the batched einsum, as the JAX package does."""
+    pol = _pol(policy, x)
+    if x.ndim == 2 or (x.ndim == 3 and x.shape[1] == 1):
+        return ops.tt_linear_batched_a_q(x, wq["q8"], wq["scale"], a, b,
+                                         alpha=float(alpha),
+                                         backend=pol.backend)
+    return tt_linear_batched_a(x, quant_lib.dequantize(wq, x.dtype), a, b,
+                               alpha=alpha, policy=pol)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     policy: Optional[KernelPolicy] = None):
     """GQA attention. q (B, T, H, d); k, v (B, S, KV, d) -> (B, T, H, d)."""
@@ -220,7 +248,8 @@ def paged_decode_attention(q, k_cache, v_cache, tables, pos, *,
     only: #8 has no backward, and its wrapper raises on an input that
     requires grad). q (B, C, H, d); k_cache, v_cache (N, page, KV, d);
     tables (B, P) int block table; pos (B,) base positions
-    -> (B, C, H, d)."""
+    -> (B, C, H, d). ``k_scale`` / ``v_scale``: (N, page, KV) per-cell
+    scale pools of an int8 cache (#8q)."""
     return ops.paged_decode_attention(q, k_cache, v_cache, tables, pos,
                                       k_scale=k_scale, v_scale=v_scale,
                                       backend=_pol(policy, q).backend)

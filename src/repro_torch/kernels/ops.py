@@ -54,6 +54,34 @@ def tt_linear_batched_a(x, w, a, b, *, alpha: float = 1.0,
     return y[:, None] if squeeze else y
 
 
+def tt_linear_q(x, wq, scale, a, b, *, alpha: float = 1.0,
+                backend: str = "kernel"):
+    """w8a16 adapted linear (#9): x (..., K), int8 wq (K, N), f32 scale
+    (G, N), a (K, r), b (r, N)."""
+    _check(backend)
+    lead, k = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, k)
+    fn = _ref.tt_linear_q_ref if backend == "ref" else _tl.tt_linear_w8
+    return fn(xf, wq, scale, a, b, alpha).reshape(*lead, wq.shape[1])
+
+
+def tt_linear_batched_a_q(x, wq, scale, a, b, *, alpha: float = 1.0,
+                          backend: str = "kernel"):
+    """w8a16 per-row-A adapted linear (#10): x (S, K) or (S, 1, K),
+    a (S, K, r)."""
+    _check(backend)
+    squeeze = x.ndim == 3
+    if squeeze:
+        if x.shape[1] != 1:
+            raise ValueError("batched-A fusion is decode-shaped (one token "
+                             f"per slot); got {tuple(x.shape)}")
+        x = x[:, 0]
+    fn = (_ref.tt_linear_batched_a_q_ref if backend == "ref"
+          else _tl.tt_linear_batched_a_w8)
+    y = fn(x, wq, scale, a, b, alpha)
+    return y[:, None] if squeeze else y
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     backend: str = "kernel"):
     """GQA attention. q (B, T, H, d); k, v (B, S, KV, d) -> (B, T, H, d)."""
@@ -108,14 +136,17 @@ def paged_decode_attention(q, k_cache, v_cache, tables, pos, *,
     position pos[b] + c; k_cache, v_cache (N, page, KV, d) flat block
     pools; tables (B, P) int (sentinel >= N marks unallocated pages); pos
     scalar or (B,) -> (B, C, H, d): query c attends cells [0, pos[b] + c].
-    ``k_scale`` / ``v_scale`` are the int8 KV leg's scale pools, which is
-    not ported yet."""
+    ``k_scale`` / ``v_scale``: (N, page, KV) f32 per-cell scale pools of
+    int8 pools (#8q; the output is in q's dtype)."""
     _check(backend)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the int8 KV leg of paged attention is not ported yet")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("the int8 leg takes both k_scale and v_scale")
     pos = torch.as_tensor(pos, device=q.device).to(torch.int32)
     pos = pos.expand(q.shape[0]) if pos.ndim == 0 else pos
+    if k_scale is not None:
+        fn = (_pa.paged_decode_attention_int8_plain if backend == "ref"
+              else _pa.paged_decode_attention_int8)
+        return fn(q, k_cache, v_cache, k_scale, v_scale, tables, pos)
     fn = (_pa.paged_decode_attention_plain if backend == "ref"
           else _pa.paged_decode_attention)
     return fn(q, k_cache, v_cache, tables, pos)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.quant import dequantize_int8
+
 NEG = -1e30
 
 
@@ -32,6 +34,23 @@ def tt_linear_batched_a_ref(x: torch.Tensor, w: torch.Tensor,
     y = xf @ w.float()
     y = y + alpha * (p @ b.float())
     return y.to(x.dtype)
+
+
+def tt_linear_q_ref(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                    a: torch.Tensor, b: torch.Tensor,
+                    alpha: float = 1.0) -> torch.Tensor:
+    """w8a16 adapted linear: dequantize the int8 base (per-channel or
+    grouped scales) to f32, then ``tt_linear_ref``."""
+    return tt_linear_ref(x, dequantize_int8(wq, scale), a, b, alpha)
+
+
+def tt_linear_batched_a_q_ref(x: torch.Tensor, wq: torch.Tensor,
+                              scale: torch.Tensor, a: torch.Tensor,
+                              b: torch.Tensor,
+                              alpha: float = 1.0) -> torch.Tensor:
+    """Per-row-A w8a16 adapted linear. x (S, K); a (S, K, r)."""
+    return tt_linear_batched_a_ref(x, dequantize_int8(wq, scale), a, b,
+                                   alpha)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,7 +131,8 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                                v_cache: torch.Tensor, tables: torch.Tensor,
-                               pos: torch.Tensor) -> torch.Tensor:
+                               pos: torch.Tensor, k_scale=None,
+                               v_scale=None) -> torch.Tensor:
     """Block-table attention over a paged KV cache (the twin of the JAX
     package's ``paged_decode_attention_ref``).
 
@@ -123,7 +143,17 @@ def paged_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     position mask hides whatever it reads); pos: (B,) base positions.
     Returns (B, C, H, d) in v's dtype: query c attends cache cells
     [0, pos[b] + c]; softmax in f32, p rounded to v's dtype before P·V.
+
+    int8 leg (``k_scale`` / ``v_scale``: (N, page, KV) f32 per-cell scale
+    pools): the pools are dequantized to f32 first, so p stays f32 through
+    P·V, and the output is rounded once to q's dtype (the JAX package's
+    ``ops.paged_decode_attention`` reference leg).
     """
+    if k_scale is not None:
+        k_cache = k_cache.float() * k_scale[..., None]
+        v_cache = v_cache.float() * v_scale[..., None]
+        return paged_decode_attention_ref(q, k_cache, v_cache, tables,
+                                          pos).to(q.dtype)
     b, c, h, d = q.shape
     n, _, kv, _ = k_cache.shape
     g = h // kv

@@ -1,10 +1,15 @@
-"""Fused adapted-linear kernels K1 and K2 (``csrc/tt_linear.cu``).
+"""Fused adapted-linear kernels K1, K2, #9 and #10 (``csrc/tt_linear.cu``).
 
 K1 ``tt_linear``: y = x·W + α·(x·A)·B, x (M, K), W (K, N), A (K, r),
 B (r, N) — replaces ``src/repro/kernels/tt_linear.py::tt_linear``.
 K2 ``tt_linear_batched_a``: the same with a per-row A[m] (M, K, r), the
 decode-slot form whose A rows were gathered by each slot's task id —
 replaces ``src/repro/kernels/tt_linear.py::tt_linear_batched_a``.
+#9 ``tt_linear_w8`` and #10 ``tt_linear_batched_a_w8``: K1 and K2 over an
+int8 W with f32 scales (G, N) — G = 1 per output channel, G > 1 per group
+of K / G rows (a multiple of 128) — replacing ``tt_linear_w8`` and
+``tt_linear_batched_a_w8`` of the same file. Inference only, as in the
+JAX package (no backward).
 
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel (bf16 only) or raises; ``LAUNCHES`` counts the
@@ -23,41 +28,94 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"tt_linear": 0, "tt_linear_batched_a": 0}
+LAUNCHES = {"tt_linear": 0, "tt_linear_batched_a": 0, "tt_linear_w8": 0,
+            "tt_linear_batched_a_w8": 0}
 
 tt_linear_plain = _ref.tt_linear_ref
 tt_linear_batched_a_plain = _ref.tt_linear_batched_a_ref
+tt_linear_w8_plain = _ref.tt_linear_q_ref
+tt_linear_batched_a_w8_plain = _ref.tt_linear_batched_a_q_ref
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# x w scale a b y, M N K r G, alpha, vec, stream
+_ARGTYPES_W8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     f = getattr(_build.library("tt_linear"), name)
-    f.argtypes = _ARGTYPES
+    f.argtypes = _ARGTYPES_W8 if "_w8_" in name else _ARGTYPES
     f.restype = ctypes.c_int
     return f
 
 
-def _check_cuda(x, w, a, b, what: str) -> None:
+def _check_cuda(x, w, a, b, what: str, w_dtype=torch.bfloat16) -> None:
     _build.check_device(x)
-    for t, n in ((x, "x"), (w, "w"), (a, "a"), (b, "b")):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the CUDA kernel takes bf16 operands; "
-                            f"{n} is {t.dtype}")
+    for t, n, dt in ((x, "x", torch.bfloat16), (w, "w", w_dtype),
+                     (a, "a", torch.bfloat16), (b, "b", torch.bfloat16)):
+        if t.dtype != dt:
+            raise TypeError(f"{what}: the CUDA kernel takes {dt} for {n}; "
+                            f"got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{what}: {n} is on {t.device}, x on {x.device}")
 
 
 def _vec_flags(x, w, a, k: int, n: int, r: int) -> int:
     """Which operands may take the kernel's 16-byte cp.async loads: x / W
-    need K, N multiples of 8 and aligned bases (bit 1), A needs r a
-    multiple of 8 and an aligned base (bit 2)."""
-    xw = (k % 8 == 0 and n % 8 == 0 and x.data_ptr() % 16 == 0
+    need K, N multiples of 8 (int8 W: N a multiple of 16) and aligned
+    bases (bit 1), A needs r a multiple of 8 and an aligned base (bit 2)."""
+    n_mult = 16 if w.dtype == torch.int8 else 8
+    xw = (k % 8 == 0 and n % n_mult == 0 and x.data_ptr() % 16 == 0
           and w.data_ptr() % 16 == 0)
     av = r % 8 == 0 and a.data_ptr() % 16 == 0
     return int(xw) | (2 * int(av))
+
+
+def _check_scale(wq, scale, what: str) -> int:
+    """(G, N) f32 scales of an int8 (K, N) W; returns G. On the card a
+    grouped scale (G > 1) needs a group K / G that is a multiple of 128."""
+    k, n = wq.shape
+    g = scale.shape[0] if scale.ndim == 2 else 0
+    if wq.dtype != torch.int8 or scale.shape != (g, n) or g < 1 or k % g:
+        raise ValueError(f"{what}: want int8 W (K, N) and f32 scales (G, N) "
+                         f"with G dividing K; got W {tuple(wq.shape)} "
+                         f"{wq.dtype}, scale {tuple(scale.shape)}")
+    return g
+
+
+def _launch_w8(name, x, wq, scale, a, b, alpha, r, batched: bool):
+    """#9 / #10 on checked shapes: CUDA operands, or the plain version."""
+    m, k = x.shape
+    n = wq.shape[1]
+    g = _check_scale(wq, scale, name)
+    _build.check_no_grad((x, scale, a, b), name)
+    if not x.is_cuda:
+        plain = (tt_linear_batched_a_w8_plain if batched
+                 else tt_linear_w8_plain)
+        return plain(x, wq, scale, a, b, alpha)
+    _check_cuda(x, wq, a, b, name, w_dtype=torch.int8)
+    if scale.dtype != torch.float32 or scale.device != x.device:
+        raise TypeError(f"{name}: scales must be f32 on {x.device}")
+    if g > 1 and (k // g) % 128:
+        raise NotImplementedError(
+            f"{name}: CUDA kernel built for scale groups of a multiple of "
+            f"128 rows; got {k // g}")
+    if not 1 <= r <= 256 or (batched and not 1 <= m <= 64):
+        raise ValueError(f"{name}: rank {r} outside 1..256 or M={m} "
+                         "outside 1..64 (batched A)")
+    x, wq, scale, a, b = (t.contiguous() for t in (x, wq, scale, a, b))
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    rc = _fn(name + "_bf16")(
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), a.data_ptr(),
+        b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
+        _vec_flags(x, wq, a, k, n, r), _build.stream_ptr(x))
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return y
 
 
 def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -113,3 +171,33 @@ def tt_linear_batched_a(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     _build.check(rc, "tt_linear_batched_a")
     LAUNCHES["tt_linear_batched_a"] += 1
     return y
+
+
+def tt_linear_w8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                 a: torch.Tensor, b: torch.Tensor,
+                 alpha: float = 1.0) -> torch.Tensor:
+    """#9. x (M, K), wq int8 (K, N), scale f32 (G, N), a (K, r), b (r, N)
+    -> y (M, N) = x·(q·s) + α·(x·A)·B."""
+    m, k = x.shape
+    n, r = wq.shape[1], a.shape[1]
+    if wq.shape[0] != k or a.shape[0] != k or b.shape != (r, n):
+        raise ValueError(f"tt_linear_w8 shapes x{tuple(x.shape)} "
+                         f"w{tuple(wq.shape)} a{tuple(a.shape)} "
+                         f"b{tuple(b.shape)}")
+    return _launch_w8("tt_linear_w8", x, wq, scale, a, b, alpha, r, False)
+
+
+def tt_linear_batched_a_w8(x: torch.Tensor, wq: torch.Tensor,
+                           scale: torch.Tensor, a: torch.Tensor,
+                           b: torch.Tensor, alpha: float = 1.0
+                           ) -> torch.Tensor:
+    """#10. x (M, K), wq int8 (K, N), scale f32 (G, N), a (M, K, r),
+    b (r, N) -> y (M, N); M <= 64."""
+    m, k = x.shape
+    n, r = wq.shape[1], a.shape[2]
+    if wq.shape[0] != k or a.shape[:2] != (m, k) or b.shape != (r, n):
+        raise ValueError(f"tt_linear_batched_a_w8 shapes x{tuple(x.shape)} "
+                         f"w{tuple(wq.shape)} a{tuple(a.shape)} "
+                         f"b{tuple(b.shape)}")
+    return _launch_w8("tt_linear_batched_a_w8", x, wq, scale, a, b, alpha,
+                      r, True)

@@ -4,7 +4,8 @@ single-token decode branch and the paged branch; cross-attention and TP
 wait).
 
 The flash route sends prefill to kernel K3, dense decode to kernel K4 and
-paged steps to kernel #8 through ``kernels/dispatch.py``; without it
+paged steps to kernel #8 (#8q over an int8 cache) through
+``kernels/dispatch.py``; without it
 (``KernelConfig(flash=False)``) attention is the plain softmax over the
 full score matrix (for the paged cache, #8's plain version).
 """
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import quant as quant_lib
 from repro_torch.models.layers import AdapterCtx, adapted_linear, apply_rope
 
 NEG_INF = -1e30
@@ -149,8 +151,12 @@ def _paged_attend(q, k, v, ctx: AdapterCtx, cache: dict, block_tables,
     q (B, C, H, hd), k/v (B, C, KV, hd): projected and RoPE'd heads of
     the C co-batched tokens per slot, token c of slot b at absolute
     position positions[b, c]; cache: {"k", "v"} (N, page, KV, hd) pools
-    shared by every slot; block_tables: (B, P) int, sentinel >= N for
-    unallocated pages; write: the step's ``paged_write_plan``.
+    shared by every slot, plus {"k_s", "v_s"} (N, page, KV) f32 scale
+    pools when the cells are int8 (k and v are then quantized per cell at
+    write time, and the scales go through the same write plan, so a
+    dropped write drops its scale too); block_tables: (B, P) int,
+    sentinel >= N for unallocated pages; write: the step's
+    ``paged_write_plan``.
 
     Write-then-attend: a token's own k/v lands in its cell before the
     masked attention reads it, so cells holding stale data (pad columns of
@@ -159,11 +165,21 @@ def _paged_attend(q, k, v, ctx: AdapterCtx, cache: dict, block_tables,
     """
     ck, cv = cache["k"], cache["v"]
     rows, blk, off = write
-    ck[blk, off] = k.reshape(-1, *k.shape[2:])[rows].to(ck.dtype)
-    cv[blk, off] = v.reshape(-1, *v.shape[2:])[rows].to(cv.dtype)
+    k = k.reshape(-1, *k.shape[2:])[rows]
+    v = v.reshape(-1, *v.shape[2:])[rows]
+    scales = {}
+    if "k_s" in cache:
+        k, k_s = quant_lib.quantize_kv(k)
+        v, v_s = quant_lib.quantize_kv(v)
+        cache["k_s"][blk, off] = k_s
+        cache["v_s"][blk, off] = v_s
+        scales = dict(k_scale=cache["k_s"], v_scale=cache["v_s"])
+    ck[blk, off] = k.to(ck.dtype)
+    cv[blk, off] = v.to(cv.dtype)
     pol = ctx.policy if _flash_ok(ctx) else dispatch.REF
     return dispatch.paged_decode_attention(q, ck, cv, block_tables,
-                                           positions[:, 0], policy=pol)
+                                           positions[:, 0], policy=pol,
+                                           **scales)
 
 
 def init_cache(cfg: ModelConfig, batch: int, length: int, dtype,
@@ -174,10 +190,18 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, dtype,
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
-                     dtype, device) -> dict:
+                     dtype, device, kv_quant: bool = False) -> dict:
     """Flat per-layer KV block pool: (num_blocks, page, KV, hd). Which
     request owns which block lives on the host (serving/block_manager.py).
+    ``kv_quant`` stores int8 cells plus f32 per-cell scale pools
+    (``k_s`` / ``v_s``, (num_blocks, page, KV)) in the same block layout.
     """
     shape = (num_blocks, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if kv_quant:
+        z8 = dict(dtype=torch.int8, device=device)
+        zs = dict(dtype=torch.float32, device=device)
+        return {"k": torch.zeros(shape, **z8), "v": torch.zeros(shape, **z8),
+                "k_s": torch.zeros(shape[:-1], **zs),
+                "v_s": torch.zeros(shape[:-1], **zs)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

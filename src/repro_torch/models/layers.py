@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import quant as quant_lib
 from repro_torch.peft import api as peft_api
 
 
@@ -32,7 +33,7 @@ class AdapterCtx:
 NO_ADAPTER = AdapterCtx(peft_api.NONE, {}, None)
 
 
-def adapted_linear(x: torch.Tensor, w: torch.Tensor, ctx: AdapterCtx, m: str,
+def adapted_linear(x: torch.Tensor, w, ctx: AdapterCtx, m: str,
                    b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x·W (+ bias) + the adapter's delta for matrix type ``m``.
 
@@ -41,8 +42,15 @@ def adapted_linear(x: torch.Tensor, w: torch.Tensor, ctx: AdapterCtx, m: str,
     (B,) task vector gives A a slot axis). Unfused branch (unadapted
     matrices, or ``fuse_linear=False``): a plain matmul plus
     ``adapter_delta``.
+
+    ``w`` may be a packed int8 leaf (``{"q8", "scale"}``,
+    ``kernels/quant.py``; the engine quantizes the frozen base once):
+    the fused branch then runs the w8a16 kernels (#9, or #10 for a slot
+    axis), and the unfused branch dequantizes W to x's dtype for the
+    plain matmul.
     """
     pol = ctx.policy or dispatch.DEFAULT
+    wq = quant_lib.is_quantized(w)
     if pol.fuse_linear and ctx.spec.adapts(m):
         form = peft_api.lora_form_factors(ctx.spec, ctx.broadcast, ctx.layer,
                                           m, task=ctx.task)
@@ -50,15 +58,21 @@ def adapted_linear(x: torch.Tensor, w: torch.Tensor, ctx: AdapterCtx, m: str,
             fa, fb, alpha = form
             fa, fb = fa.to(x.dtype), fb.to(x.dtype)
             if fa.ndim == 3:      # (B,) task vector: per-slot A operand
-                y = dispatch.tt_linear_batched_a(x, w.to(x.dtype), fa, fb,
-                                                 alpha=alpha, policy=pol)
+                y = (dispatch.tt_linear_batched_a_q(x, w, fa, fb,
+                                                    alpha=alpha, policy=pol)
+                     if wq else
+                     dispatch.tt_linear_batched_a(x, w.to(x.dtype), fa, fb,
+                                                  alpha=alpha, policy=pol))
             else:
-                y = dispatch.tt_linear(x, w.to(x.dtype), fa, fb, alpha=alpha,
-                                       policy=pol)
+                y = (dispatch.tt_linear_q(x, w, fa, fb, alpha=alpha,
+                                          policy=pol)
+                     if wq else
+                     dispatch.tt_linear(x, w.to(x.dtype), fa, fb,
+                                        alpha=alpha, policy=pol))
             if b is not None:
                 y = y + b.to(y.dtype)
             return y
-    y = x @ w.to(x.dtype)
+    y = x @ (quant_lib.dequantize(w, x.dtype) if wq else w.to(x.dtype))
     if b is not None:
         y = y + b.to(x.dtype)
     d = peft_api.adapter_delta(ctx.spec, ctx.broadcast, ctx.layer, x, m,

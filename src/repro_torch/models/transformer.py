@@ -270,16 +270,19 @@ def decode_step(base, cfg: ModelConfig, spec, broadcast, per_layer, token,
 
 
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, page_size: int,
-                      dtype, *, device=None) -> list:
+                      dtype, *, kv_quant: bool = False, device=None) -> list:
     """Zero paged pools, one {"self": {"k", "v"}} per pattern position,
-    leaves (nb, num_blocks, page, KV, hd). Which request owns which block
-    lives on the host (serving/block_manager.py)."""
+    leaves (nb, num_blocks, page, KV, hd); ``kv_quant`` makes them int8
+    and adds "k_s" / "v_s" f32 scale pools (nb, num_blocks, page, KV).
+    Which request owns which block lives on the host
+    (serving/block_manager.py)."""
     check_supported(cfg)
     nb = cfg.num_super_blocks
     out = []
     for _ in cfg.block_pattern:
         c = attn_lib.init_paged_cache(cfg, nb * num_blocks, page_size, dtype,
-                                      resolve_device(device))
+                                      resolve_device(device),
+                                      kv_quant=kv_quant)
         out.append({"self": {k: v.view(nb, num_blocks, *v.shape[1:])
                              for k, v in c.items()}})
     return out
@@ -287,8 +290,9 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, page_size: int,
 
 def copy_cache_block(caches, src: int, dst: int) -> list:
     """Copy-on-write on the device: duplicate physical block ``src`` into
-    ``dst`` across every layer of a paged cache, in place. A ``dst`` >= N
-    drops the copy (the JAX scatter's mode="drop")."""
+    ``dst`` across every layer of a paged cache (the int8 leg's scale
+    pools too), in place. A ``dst`` >= N drops the copy (the JAX scatter's
+    mode="drop")."""
     for c in caches:
         for leaf in c["self"].values():
             if 0 <= dst < leaf.shape[1]:

@@ -46,10 +46,18 @@
     request CANCELLED / TIMEOUT between steps, with what it emitted
     (paged: the prefix whose KV is computed is indexed, then the blocks
     return to the pool).
+  * QUANTIZATION: ``KernelConfig.quant`` and ``ServeConfig.quant`` merge
+    (int8 wins). weights=int8 packs the base's matmul leaves ONCE at
+    construction (``kernels/quant.py``): adapted projections run the
+    w8a16 kernels (#9 at dense prefill, #10 at dense decode; the paged
+    (B, C > 1) block dequantizes and runs the batched einsum), unadapted
+    ones dequantize W for a plain matmul. kv=int8 (paged mode only)
+    stores int8 cells with per-cell f32 scale pools that ride the same
+    block tables, prefix cache and copy-on-write; attention is #8q.
 
-Speculation, the adapter registry, quantization, meshes (and with them
-replicas, the router and disaggregated prefill) and preemption are not
-ported yet: ``Engine`` raises ``NotImplementedError`` for them.
+Speculation, the adapter registry, meshes (and with them replicas, the
+router and disaggregated prefill), preemption and base snapshots are not
+ported yet: ``Engine`` raises ``NotImplementedError`` for the first four.
 """
 from __future__ import annotations
 
@@ -61,9 +69,11 @@ from typing import Any, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.config.base import KernelConfig, ModelConfig, ServeConfig
+from repro_torch.config.base import (KernelConfig, ModelConfig, QuantConfig,
+                                     ServeConfig)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import quant as quant_lib
 from repro_torch.models import transformer
 from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving.adapter_runtime import PORTED, AdapterRuntime
@@ -174,6 +184,21 @@ class Engine:
         if self.policy.require_cuda and self.device.type != "cuda":
             raise RuntimeError("KernelConfig(backend='cuda') needs a CUDA "
                                "device")
+        # KernelConfig.quant and ServeConfig.quant merge (int8 wins); the
+        # base is packed once here, the KV side sizes the paged pools
+        kq = (kernels.quant if isinstance(kernels, KernelConfig)
+              else QuantConfig())
+        sq = self.sv.quant
+        self.quant = QuantConfig(
+            weights="int8" if "int8" in (kq.weights, sq.weights) else "none",
+            kv="int8" if "int8" in (kq.kv, sq.kv) else "none",
+            group_size=kq.group_size or sq.group_size).validate()
+        self._kv_quant = self.quant.kv == "int8"
+        if self._kv_quant and self.sv.cache_mode != "paged":
+            raise ValueError(
+                "kv=int8 quantization needs cache_mode='paged' (the int8 "
+                "cells and their scale pools live in the paged block "
+                "layout)")
         self.max_batch = self.sv.max_batch
         self.paged = self.sv.cache_mode == "paged"
         chunk = min(self.sv.prefill_chunk, self.sv.cache_len)
@@ -189,9 +214,13 @@ class Engine:
         self.sampling = sampling.validate()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self._weights = (runtime.base, runtime.broadcast, runtime.per_layer)
+        base = runtime.base
+        if self.quant.weights == "int8":
+            base = quant_lib.quantize_base(
+                base, group_size=self.quant.group_size)
+        self._weights = (base, runtime.broadcast, runtime.per_layer)
         self._cancel_ids: set = set()
-        self.last_stats = EngineStats(cache_mode=self.sv.cache_mode)
+        self.last_stats = self._new_stats()
         self.last_results: List[RequestResult] = []
         if self.paged:
             self._init_paged()
@@ -233,14 +262,29 @@ class Engine:
     def _fresh_pools(self) -> list:
         return transformer.init_paged_caches(
             self.cfg, self._num_blocks, self._page, self.cfg.compute_dtype,
-            device=self.device)
+            kv_quant=self._kv_quant, device=self.device)
+
+    @property
+    def base_weights(self):
+        """The base tree the steps read: with weights=int8, the packed
+        ``{"q8", "scale"}`` leaves."""
+        return self._weights[0]
+
+    def _new_stats(self, requests: int = 0) -> EngineStats:
+        return EngineStats(
+            cache_mode=self.sv.cache_mode, requests=requests,
+            weights_dtype="int8" if self.quant.weights == "int8" else "fp",
+            kv_dtype="int8" if self._kv_quant else "fp")
 
     def _kv_bytes(self, tokens: int) -> int:
-        """Device bytes of k + v for ``tokens`` cells across every layer."""
-        itemsize = torch.empty((), dtype=self.cfg.compute_dtype
-                               ).element_size()
-        return (2 * self.cfg.num_layers * tokens * self.cfg.kv_dim
-                * itemsize)
+        """Device bytes of k + v for ``tokens`` cells across every layer.
+        An int8 cell costs kv_dim bytes plus one f32 scale per kv head."""
+        if self._kv_quant:
+            per_cell = self.cfg.kv_dim + 4 * self.cfg.num_kv_heads
+        else:
+            per_cell = self.cfg.kv_dim * torch.empty(
+                (), dtype=self.cfg.compute_dtype).element_size()
+        return 2 * self.cfg.num_layers * tokens * per_cell
 
     def _reset_paged_pool(self) -> None:
         """Drop every block (and the prefix index) — used when a failed
@@ -436,8 +480,7 @@ class Engine:
         for req in requests:
             self._validate_request(req)     # fail fast, before any work
         gen = generator if generator is not None else self.generator
-        st = self.last_stats = EngineStats(cache_mode=self.sv.cache_mode,
-                                           requests=len(requests))
+        st = self.last_stats = self._new_stats(len(requests))
         self._rids = [req.request_id if req.request_id is not None
                       else idx for idx, req in enumerate(requests)]
         t0 = time.perf_counter()

@@ -22,7 +22,8 @@ class EngineStats:
     #                              prompt runs in-loop in chunks)
     prefill_s: float = 0.0       # host wall time of prefill + admission
     decode_s: float = 0.0        # host wall time inside decode loops
-    kv_dtype: str = "fp"         # KV cache cells (int8 is not ported)
+    weights_dtype: str = "fp"    # "fp" | "int8" — frozen base matmul leaves
+    kv_dtype: str = "fp"         # "fp" | "int8" — KV cache cells
     # --- KV memory ---
     page_size: int = 0           # dense: cache_len (one "block" per slot)
     num_blocks: int = 0          # paged: pool budget; dense: max_batch
@@ -63,7 +64,8 @@ class EngineStats:
 
     def summary(self) -> str:
         paged = self.cache_mode == "paged"
-        return (f"mode={self.cache_mode} reqs={self.requests} "
+        return (f"mode={self.cache_mode} w={self.weights_dtype} "
+                f"kv={self.kv_dtype} reqs={self.requests} "
                 f"toks={self.tokens_generated} "
                 f"tok/s={self.tokens_per_s:.1f} "
                 + (f"ttft={self.ttft_s * 1e3:.1f}ms "

@@ -9,9 +9,9 @@ without a CUDA device of compute capability >= 9.0. Run on the card with
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 This file imports no JAX (``--noconftest`` skips the JAX fixture file),
-so it runs where only PyTorch is installed. Tolerances: bf16 linears 1e-2
-(one bf16 ulp from another f32 summation order); attention, dense and
-paged, 2e-2 (p rounded to bf16 unnormalised by the kernel, normalised by
+so it runs where only PyTorch is installed. Tolerances: bf16 linears,
+fp and w8a16, 1e-2 (one bf16 ulp from another f32 summation order);
+attention, dense and paged (fp and int8), 2e-2 (p rounded to bf16 unnormalised by the kernel, normalised by
 the plain version); lse 1e-3 absolute (f32, another summation order); backward
 2e-2 of the largest plain gradient (the JAX package's bf16 gradient
 limit, tests/test_grads.py).
@@ -23,6 +23,7 @@ from repro_torch import kernels
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import quant as tquant
 from repro_torch.kernels import tt_linear as ttl
 
 pytestmark = pytest.mark.cuda
@@ -247,3 +248,97 @@ def test_paged_decode_attention_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(RuntimeError, match="requires grad"):
         tpa.paged_decode_attention(q.clone().requires_grad_(True), kc, vc,
                                    tables, pos)
+
+
+def _w8(dev, k, n, group, seed=0):
+    """An int8 W (K, N) with f32 scales (G, N), quantized on the card."""
+    return tquant.quantize_int8(_rn(dev, k, n, scale=k ** -0.5, seed=seed),
+                                group)
+
+
+@pytest.mark.parametrize("group", [0, 128])
+@pytest.mark.parametrize("m,k,n,r", [(1, 2048, 2048, 8), (3, 384, 130, 5),
+                                     (4, 256, 48, 8), (8, 512, 96, 13),
+                                     (64, 2048, 2048, 8),
+                                     (100, 256, 200, 100)])
+def test_tt_linear_w8(dev, m, k, n, r, group):
+    """#9, per output channel and grouped; ragged M / N, ranks that are
+    not multiples of 8, N not a multiple of 16 (no vector W loads)."""
+    x = _rn(dev, m, k)
+    wq, s = _w8(dev, k, n, group)
+    a, b = _rn(dev, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    got = ttl.tt_linear_w8(x, wq, s, a, b, 4.0)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _close(got, ttl.tt_linear_w8_plain(x, wq, s, a, b, 4.0), 1e-2)
+
+
+@pytest.mark.parametrize("group", [0, 128])
+@pytest.mark.parametrize("m,k,n,r", [(1, 2048, 2048, 8), (3, 384, 130, 5),
+                                     (4, 2048, 2048, 8), (8, 256, 96, 16),
+                                     (64, 512, 256, 8), (17, 256, 48, 100)])
+def test_tt_linear_batched_a_w8(dev, m, k, n, r, group):
+    """#10 at M in {1, 3, 4, 8, 17, 64} (M > 64 is refused, as K2's)."""
+    x = _rn(dev, m, k)
+    wq, s = _w8(dev, k, n, group)
+    a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    got = ttl.tt_linear_batched_a_w8(x, wq, s, a, b, 2.0)
+    _close(got, ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 2.0), 1e-2)
+
+
+def test_w8_linears_reject_what_the_kernels_do_not_take(dev):
+    x = _rn(dev, 4, 256)
+    wq, s = _w8(dev, 256, 64, 0)
+    a, b = _rn(dev, 256, 8), _rn(dev, 8, 64)
+    wg, sg = tquant.quantize_int8(_rn(dev, 256, 64), 64)   # group 64
+    with pytest.raises(NotImplementedError):
+        ttl.tt_linear_w8(x, wg, sg, a, b)
+    with pytest.raises(TypeError):                          # f32 x
+        ttl.tt_linear_w8(x.float(), wq, s, a, b)
+    with pytest.raises(ValueError):                         # M > 64
+        ttl.tt_linear_batched_a_w8(_rn(dev, 65, 256), wq, s,
+                                   _rn(dev, 65, 256, 8), b)
+    kernels.reset_launch_counts()
+    ttl.tt_linear_w8(x, wq, s, a, b)
+    ttl.tt_linear_w8(x.cpu(), wq.cpu(), s.cpu(), a.cpu(), b.cpu())
+    assert kernels.launch_counts()["tt_linear_w8"] == 1
+
+
+def _paged_case_int8(dev, c, g, d, page, seed=0):
+    q, kc, vc, tables, pos = _paged_case(dev, c, g, d, page, seed)
+    k8, ks = tquant.quantize_kv(kc.float() * 3)
+    v8, vs = tquant.quantize_kv(vc.float() * 3)
+    return q, k8, v8, ks, vs, tables, pos
+
+
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("c", [1, 3, 32])
+def test_paged_decode_attention_int8(dev, c, g, d, page):
+    args = _paged_case_int8(dev, c, g, d, page)
+    got = tpa.paged_decode_attention_int8(*args)
+    assert got.shape == args[0].shape and got.dtype == torch.bfloat16
+    _close(got, tpa.paged_decode_attention_int8_plain(*args), 2e-2)
+
+
+def test_paged_decode_attention_int8_reads_pool_views(dev):
+    """One layer of stacked (nb, N, page, KV, d) int8 pools and their
+    (nb, N, page, KV) scale pools, as the engine passes them; the plain
+    leg on the CPU is not counted."""
+    q, k8, v8, ks, vs, tables, pos = _paged_case_int8(dev, 8, 4, 64, 16)
+    pk, pv = torch.stack([v8, k8]), torch.stack([k8, v8])
+    sk, sv = torch.stack([vs, ks]), torch.stack([ks, vs])
+    kernels.reset_launch_counts()
+    got = tpa.paged_decode_attention_int8(q, pk[1], pv[1], sk[1], sv[1],
+                                          tables, pos)
+    want = tpa.paged_decode_attention_int8_plain(q, k8, v8, ks, vs, tables,
+                                                 pos)
+    _close(got, want, 2e-2)
+    tpa.paged_decode_attention_int8(*(t.cpu() for t in (
+        q, k8, v8, ks, vs, tables, pos)))
+    n = kernels.launch_counts()
+    assert n["paged_decode_attention_int8"] == 1
+    assert n["paged_decode_attention"] == 0
+    with pytest.raises(TypeError):                      # bf16 pools
+        tpa.paged_decode_attention_int8(q, k8.bfloat16(), v8.bfloat16(),
+                                        ks, vs, tables, pos)

@@ -69,3 +69,17 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
                              cwd=str(cwd), timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.kernels.quant", "repro_torch.kernels.tt_linear",
+    "repro_torch.kernels.paged_attention", "repro_torch.models.layers",
+    "repro_torch.serving.engine"])
+def test_quantized_slice_modules_are_scanned(module):
+    """The quantized slice's modules are among those imported with JAX
+    blocked and scanned above (a copy of ``src/repro/kernels/quant.py``
+    must not import it)."""
+    assert module in MODULES
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path in SOURCES
+    assert not [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

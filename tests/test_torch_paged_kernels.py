@@ -138,9 +138,18 @@ def test_raw_wrapper_and_unported_leg_raise():
         tpa.paged_decode_attention(q, *t[1:])
     with torch.no_grad():
         tpa.paged_decode_attention(q, *t[1:])     # serving: no recording
-    with pytest.raises(NotImplementedError):
-        tops.paged_decode_attention(*t, k_scale=torch.ones(12, 8, 4),
-                                    v_scale=torch.ones(12, 8, 4))
+    # the int8 leg is ported (tests/test_torch_quant.py): it takes both
+    # scale pools, and over int8 cells with unit scales it is the f32 leg
+    with pytest.raises(ValueError):
+        tops.paged_decode_attention(*t, k_scale=torch.ones(12, 8, 4))
+    k8, v8 = ((x * 40).round().clamp(-127, 127).to(torch.int8)
+              for x in t[1:3])
+    ones = torch.ones(12, 8, 4)
+    torch.testing.assert_close(
+        tops.paged_decode_attention(t[0], k8, v8, *t[3:], k_scale=ones,
+                                    v_scale=ones),
+        tops.paged_decode_attention(t[0], k8.float(), v8.float(), *t[3:]),
+        rtol=0, atol=0)
     with pytest.raises(ValueError):
         tops.paged_decode_attention(*t, backend="pallas")
     with pytest.raises(ValueError):          # a pool of the wrong width
