@@ -10,7 +10,8 @@ Phases, each printed on its own lines:
      the serving path's and the training path's full-width shapes, with
      the stated tolerance; the kernel's, the plain version's and one
      library call's times (the library call is a yardstick only: the port
-     never calls it);
+     never calls it); at the training shape two flash backward calls must
+     agree bit for bit, and #5-#7 print their TFLOP/s and share of bound;
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -39,8 +40,9 @@ Phases, each printed on its own lines:
      (MetaTT 4d on q/v from rank 10, AdamW, remat per block, 4 x 1024
      tokens a step, 6 steps with one DMRG sweep to rank 8): finite losses,
      moved cores, ranks 8 after the sweep, K1 / #5 / #6 / #7 launch counts
-     around ``train``; then a gradient check at B=1 against the plain bf16
-     leg with an f32 plain leg as witness;
+     around ``train`` (#6 and #7 once a layer a step); then a gradient
+     check at B=1 against the plain bf16 leg with an f32 plain leg as
+     witness;
   7. one JSON line with every kernel's record (launches per path).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
@@ -527,6 +529,28 @@ def event_time_ms(fn, args, iters=5):
     return start.elapsed_time(end) / iters
 
 
+def profiled_device_ms(fn, args, iters=10):
+    """Device ms per call from torch.profiler: the kernel time on the card
+    of ``iters`` calls (after two warm-up calls) over ``iters``. For a call
+    whose host work may outlast its kernels (an eager autograd backward),
+    where CUDA events around the calls would time the host too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / 1e3 / iters
+
+
 def rel_max(got, want):
     """max |got - want| / max |want|, after a finiteness check."""
     import torch
@@ -545,9 +569,13 @@ TRAIN_LINEAR_SHAPE = (4096, 2048, 2048, 8)   # M = B x T, K, N, r
 def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                         linear_shape=TRAIN_LINEAR_SHAPE):
     """#5, #6, #7 and K1-as-dx against their plain versions at the
-    training shapes (bf16; the first attention shape is the main path's): out within 2e-2 abs+rel, lse within 1e-3 abs,
-    each of dq, dk, dv within 2e-2 of the largest plain gradient (the JAX
-    package's bf16 gradient limit, tests/test_grads.py)."""
+    training shapes (bf16; the first attention shape is the main path's):
+    out within 2e-2 abs+rel, lse within 1e-3 abs, each of dq, dk, dv within
+    2e-2 of the largest plain gradient (the JAX package's bf16 gradient
+    limit, tests/test_grads.py); at the main shape two backward calls give
+    the same dq, dk and dv bit for bit (the passes use no atomics). Timed
+    shapes print each attention kernel's TFLOP/s and share of its bound,
+    and (#6 + #7) over SDPA's autograd backward."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -584,6 +612,14 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                                      f"2e-2 at {shape}")
         abs_err = {n: float((x.float() - y.float()).abs().max())
                    for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+        if main:
+            again = fa.flash_attention_bwd(q, k, v, o, lse, g, True)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("dq", "dk", "dv"), got, again):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"flash_attention_bwd {name}: two "
+                                         f"calls differ at {shape}")
+            del again
         pairs = b_ * h * t * (t + 1) // 2
         bq, bkv = b_ * t * h * d * 2, b_ * t * kvh * d * 2   # bytes
         lse_b = b_ * h * t * 4
@@ -611,14 +647,18 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
             leaves = [x.clone().requires_grad_(True) for x in lib]
             out = F.scaled_dot_product_attention(*leaves, is_causal=True)
             gl = g.transpose(1, 2)
-            timed["bwd_lib_ms"] = event_time_ms(
+            timed["bwd_lib_ms"] = profiled_device_ms(
+                lambda: torch.autograd.grad(out, leaves, gl,
+                                            retain_graph=True), ())
+            timed["bwd_lib_event_ms"] = event_time_ms(
                 lambda: torch.autograd.grad(out, leaves, gl,
                                             retain_graph=True), ())
             del out, leaves
-        fwd_bound = bound_ms(2 * bq + 2 * bkv + lse_b, 4 * d * pairs)
-        dq_bound = bound_ms(4 * bq + 2 * bkv + 2 * lse_b, 3 * 2 * d * pairs)
-        dkv_bound = bound_ms(2 * bq + 4 * bkv + 2 * lse_b,
-                             4 * 2 * d * pairs)
+        flops = {"fwd": 2 * 2 * d * pairs, "dq": 3 * 2 * d * pairs,
+                 "dkv": 4 * 2 * d * pairs}
+        fwd_bound = bound_ms(2 * bq + 2 * bkv + lse_b, flops["fwd"])
+        dq_bound = bound_ms(4 * bq + 2 * bkv + 2 * lse_b, flops["dq"])
+        dkv_bound = bound_ms(2 * bq + 4 * bkv + 2 * lse_b, flops["dkv"])
         for name, err_, bnd, ms, plain, lib_ms in (
                 ("flash_attention_fwd", err, fwd_bound, "fwd_ms",
                  "fwd_plain_ms", "fwd_lib_ms"),
@@ -633,8 +673,23 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                 bound_by=bnd[1]))
         print(f"[train-kernel] {shape}: out err {err:.3e}, lse err "
               f"{lse_err:.3e}, dq/dk/dv rel err {errs['dq']:.3e} / "
-              f"{errs['dk']:.3e} / {errs['dv']:.3e} of max |plain|",
+              f"{errs['dk']:.3e} / {errs['dv']:.3e} of max |plain|"
+              + ("; two backward calls bit-identical" if main else ""),
               flush=True)
+        if timed:
+            rate = ", ".join(
+                f"{label} {ms_:.4f} ms = {flops[key] / ms_ / 1e9:.1f} "
+                f"TFLOP/s, {bnd[0] / ms_:.1%} of its bound"
+                for label, key, ms_, bnd in (
+                    ("#5", "fwd", timed["fwd_ms"], fwd_bound),
+                    ("#6", "dq", timed["dq_ms"], dq_bound),
+                    ("#7", "dkv", timed["dkv_ms"], dkv_bound)))
+            pair = timed["dq_ms"] + timed["dkv_ms"]
+            print(f"[train-kernel] {shape}: {rate}; (#6 + #7) / SDPA "
+                  f"backward = {pair:.4f} / {timed['bwd_lib_ms']:.4f} ms = "
+                  f"{pair / timed['bwd_lib_ms']:.3f}x (SDPA's device time, "
+                  f"profiled; CUDA events around its eager calls: "
+                  f"{timed['bwd_lib_event_ms']:.4f} ms)", flush=True)
         del q, k, v, g, o, lse, po, plse, got, want, lib
         torch.cuda.empty_cache()
 
@@ -756,11 +811,12 @@ def adapter_ratio(rt, spec, gen):
     return float((alpha * (x @ a) @ b).norm() / base.norm())
 
 
-def device_share(label, run, top_n=8):
+def device_share(label, run, top_n=8, show=()):
     """Device busy share of ``run()`` under torch.profiler: the sum of
     kernel time on the card over the host wall time (the profiler's own
     host cost inflates the wall time, so the share is a lower bound), and
-    the kernels that take the most device time."""
+    the kernels that take the most device time, plus any kernel whose name
+    holds one of ``show``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -782,8 +838,10 @@ def device_share(label, run, top_n=8):
     busy = sum(us for us, _ in per_name.values()) / 1e6
     print(f"[profile] {label}: wall {wall:.3f}s, device busy {busy:.3f}s = "
           f"{100 * busy / wall:.1f}% (profiled)")
-    top = sorted(((us, n, k) for k, (us, n) in per_name.items()),
-                 reverse=True)[:top_n]
+    ranked = sorted(((us, n, k) for k, (us, n) in per_name.items()),
+                    reverse=True)
+    top = ranked[:top_n] + [r for r in ranked[top_n:]
+                            if any(s in r[2] for s in show)]
     for us, n, key in top:
         print(f"[profile]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
 
@@ -1386,6 +1444,10 @@ def phase_training(dev):
     for name in need:
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched during train")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if launches[name] != cfg.num_layers * steps:   # one backward a layer
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{steps} steps, not {cfg.num_layers} a step")
     step_ms = [round(1e3 * m["step_time_s"], 1) for _, m in tr.history[1:]]
     med = float(np.median(step_ms))
     print(f"[train] launches during train ({steps} steps): "
@@ -1397,7 +1459,8 @@ def phase_training(dev):
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; ranks "
           f"{ranks}; ||ΔW|| {norms[0]:.3e} -> {norms[1]:.3e}", flush=True)
     # one more step (past total_steps: lr 0) under the profiler
-    device_share("one training step", lambda: tr.train(steps + 1), top_n=12)
+    device_share("one training step", lambda: tr.train(steps + 1), top_n=12,
+                 show=("flash_bwd",))
     tokens = torch.as_tensor(next(data)["tokens"][:1], device=dev)
     grad_check(cfg, tr.spec, tr.base, torch.Generator(
         device=dev).manual_seed(SEED + 2), tokens, dev)

@@ -2,45 +2,76 @@
 //
 // flash_attention_bwd_dq_bf16 replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention.py::flash_attention_bwd, dq pass
-//   (_bwd_dq_kernel): one block per (query tile, head, batch) loops over
-//   the KV tiles at or below the causal diagonal and accumulates
-//   dq += ds·k in f32. Its prologue also computes D = rowsum(dO ⊙ O) for
-//   its rows (f32) and writes it out for the second pass.
-// flash_attention_bwd_dkv_bf16 replaces the dk/dv pass (_bwd_dkv_kernel):
-//   one block per (KV tile, kv head, batch) loops over the G query heads
-//   of its group and over the query tiles at or below the diagonal, and
-//   accumulates dv += pᵀ·dO and dk += dsᵀ·q in f32 — the GQA group sum
-//   happens in the accumulators, so no head-repeated k/v is ever made.
+//   (_bwd_dq_kernel, the pallas_call at :295): dq = Σ_j ds·k over the KV
+//   tiles at or below the causal diagonal. Its prologue also computes
+//   D = rowsum(dO ⊙ O) for its rows (f32) and writes it for the second pass.
+// flash_attention_bwd_dkv_bf16 replaces the dk/dv pass (_bwd_dkv_kernel,
+//   the pallas_call at :310): dv = Σ_i pᵀ·dO and dk = Σ_i dsᵀ·q over the
+//   G query heads of a KV head's group and the query tiles at or below the
+//   diagonal — the GQA group sum happens in the accumulators, so no
+//   head-repeated k/v is ever made.
 //
 // Both rebuild each probability tile from the forward's per-row lse:
 //   s = q·kᵀ·scale, p = exp(s − lse), dp = dO·vᵀ, ds = p·(dp − D)·scale,
 // so no (T, S) tensor exists in device memory. As in the TPU kernels, p
 // and ds are rounded to bf16 before the products that consume them;
-// keys ≥ S and query rows ≥ T are masked, causal masks ki > qi.
+// keys ≥ S and query rows ≥ T are masked, causal masks ki > qi. There are
+// no atomics: each output element has one owner, and the result is the
+// same bit for bit from call to call.
 //
-// What bounds them on an H100: at the training shape (T = S = 1024,
-// d = 64) the seven products take 14·d flops per (query, key) pair
-// against ~(4 T + 2 S)·d·2 bytes per head — hundreds of flops per byte,
-// so the kernels are bound by operations. This first version is the
-// simple one: WMMA bf16 16x16x16 tiles with f32 sums staged through
-// shared memory, four warps of 16 rows each; `wgmma`, TMA and register-
-// resident accumulators are the later, faster design.
+// What bounds them on an H100: the two passes do seven products of 2·d
+// flops per (query, key) pair — three in the dq pass (s, dp, dq), four in
+// the dk/dv pass (s, dp, dv, dk) — against one read of q, k, v, o, dO, lse
+// and D and one write of dq, dk, dv, D. At the training shape (B = 4,
+// T = S = 1024, H = KV = 32, d = 64, causal) that is 25.8 GFLOP against
+// 102 MB for the dq pass and 34.4 GFLOP against 102 MB for dk/dv: both
+// bounds lie near 0.03 ms (989 TFLOP/s bf16, 3.35 TB/s), and only the
+// tensor cores at a large share of their `wgmma` rate get near them.
+//
+// The design, for that: one warpgroup (128 threads) a block, owning 64
+// rows (the `wgmma` M: queries in the dq pass, keys in the dk/dv pass),
+// and several blocks an SM, so that one block's exp and masking overlap
+// another's products with no barrier between them; and
+//  - every product is `wgmma` m64nNk16 (bf16 in, f32 sums): s and dp with
+//    both operands in shared memory; dq, dk and dv with A from registers —
+//    p and ds are converted to bf16 in the accumulator layout, which is
+//    the A-operand layout, so they never touch shared memory — and B
+//    read transposed (the MN-major mode of bf16 `wgmma`) from the same
+//    tile that fed s or dp;
+//  - the f32 sums (dq; dk and dv) stay in registers for the whole loop,
+//    with one bf16 epilogue;
+//  - the streamed tiles (k and v in the dq pass; q, dO, lse and D in the
+//    dk/dv pass) come through a ring of cp.async copies, the next tile in
+//    flight while the tensor cores work on this one; rows past T or S are
+//    zero-filled by the copy (source size 0) and masked;
+//  - the tiles sit in shared memory in the 128-byte swizzled layout that
+//    the `wgmma` descriptors read (16-byte chunk c of row r at c ^ (r % 8)),
+//    which also keeps the row copies free of bank conflicts;
+//  - under causal masking the longest blocks are launched first (the
+//    last query tile of the dq pass, the first key tile of the dk/dv pass).
+// The dq pass streams 64-key tiles through a three-stage ring and waits
+// for each tile's dq product only at the next tile; at d = 64 three
+// blocks fit an SM. The dk/dv pass holds dk and dv (d/2 f32 registers
+// each a thread), two blocks an SM; it streams query tiles of 128 (32 at
+// d = 128, to fit the register file) through a two-stage ring and turns
+// Sᵀ and dPᵀ into P and dSᵀ in place.
 //
 // The C functions return cudaGetLastError() of the launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BKV = 64;  // keys per tile
-constexpr int NW = 4;    // warps per block, 16 rows each
+constexpr int WG = 128;       // threads in a warpgroup: one a block
+constexpr int BM = 64;        // rows a block owns (the `wgmma` M)
+constexpr int BK = 64;        // keys per streamed tile of the dq pass
+constexpr int DQ_STAGES = 3;  // depth of the dq pass's cp.async ring
+constexpr int DKV_STAGES = 2; // and of the dk/dv pass's
+constexpr float LOG2E = 1.4426950408889634f;
 
 // 18 element strides, passed to the kernel by value (batch, row, head of
 // each of six operands)
@@ -48,123 +79,312 @@ struct Strides {
   long long s[18];
 };
 
-// dq pass: q, dO, k, v tiles (bf16), per-warp S and dP (f32), dS (bf16)
-// and the dq accumulator (f32).
+// ------------------------------------------------- shared-memory layouts
+//
+// An R-row tile of D bf16 columns is D / 64 column blocks of R rows of
+// 128 bytes, each block 1024-byte aligned (the swizzle's repeat).
+
 template <int D>
 struct DqSmem {
-  static constexpr int DS = D + 8;     // bf16 stride of the tiles
-  static constexpr int SS = BKV + 4;   // f32 stride of S / dP
-  static constexpr int PS = BKV + 8;   // bf16 stride of dS
-  static constexpr int AS = D + 4;     // f32 stride of the accumulator
+  static constexpr int RES = BM * D * 2;   // resident q, dO
+  static constexpr int STR = BK * D * 2;   // streamed k, v
   static constexpr int Q = 0;
-  static constexpr int G = Q + BQ * DS * 2;
-  static constexpr int K = G + BQ * DS * 2;
-  static constexpr int V = K + BKV * DS * 2;
-  static constexpr int S = V + BKV * DS * 2;
-  static constexpr int DP = S + NW * 16 * SS * 4;
-  static constexpr int DSB = DP + NW * 16 * SS * 4;
-  static constexpr int ACC = DSB + NW * 16 * PS * 2;
-  static constexpr int TOTAL = ACC + NW * 16 * AS * 4;
-  static_assert(G % 128 == 0 && K % 128 == 0 && V % 128 == 0 &&
-                    S % 128 == 0 && DP % 128 == 0 && DSB % 128 == 0 &&
-                    ACC % 128 == 0,
-                "shared-memory regions must stay 128-byte aligned");
+  static constexpr int G = Q + RES;
+  static constexpr int K = G + RES;        // DQ_STAGES k tiles
+  static constexpr int V = K + DQ_STAGES * STR;
+  static constexpr int LSE = V + DQ_STAGES * STR;
+  static constexpr int DLT = LSE + BM * 4;
+  static constexpr int TOTAL = DLT + BM * 4;
+  static_assert(RES % 1024 == 0 && STR % 1024 == 0,
+                "tiles must keep the 1024-byte alignment of the swizzle");
 };
 
-// dk/dv pass: k, v (this block's keys), q, dO tiles, per-warp Sᵀ and dPᵀ
-// (f32), Pᵀ and dSᵀ (bf16), the dk and dv accumulators (f32), and the
-// query tile's lse and D.
-template <int D>
+template <int D, int BN>
 struct DkvSmem {
-  static constexpr int DS = D + 8;
-  static constexpr int SS = BQ + 4;
-  static constexpr int PS = BQ + 8;
-  static constexpr int AS = D + 4;
+  static constexpr int RES = BM * D * 2;   // resident k, v
+  static constexpr int STR = BN * D * 2;   // streamed q, dO
   static constexpr int K = 0;
-  static constexpr int V = K + BKV * DS * 2;
-  static constexpr int Q = V + BKV * DS * 2;
-  static constexpr int G = Q + BQ * DS * 2;
-  static constexpr int ST = G + BQ * DS * 2;
-  static constexpr int DPT = ST + NW * 16 * SS * 4;
-  static constexpr int PT = DPT + NW * 16 * SS * 4;
-  static constexpr int DST = PT + NW * 16 * PS * 2;
-  static constexpr int DK = DST + NW * 16 * PS * 2;
-  static constexpr int DV = DK + NW * 16 * AS * 4;
-  static constexpr int LSE = DV + NW * 16 * AS * 4;
-  static constexpr int DLT = LSE + BQ * 4;
-  static constexpr int TOTAL = DLT + BQ * 4;
-  static_assert(V % 128 == 0 && Q % 128 == 0 && G % 128 == 0 &&
-                    ST % 128 == 0 && DPT % 128 == 0 && PT % 128 == 0 &&
-                    DST % 128 == 0 && DK % 128 == 0 && DV % 128 == 0 &&
-                    LSE % 128 == 0 && DLT % 128 == 0,
-                "shared-memory regions must stay 128-byte aligned");
+  static constexpr int V = K + RES;
+  static constexpr int Q = V + RES;        // DKV_STAGES q tiles
+  static constexpr int G = Q + DKV_STAGES * STR;
+  static constexpr int LSE = G + DKV_STAGES * STR;   // DKV_STAGES x BN f32
+  static constexpr int DLT = LSE + DKV_STAGES * BN * 4;
+  static constexpr int TOTAL = DLT + DKV_STAGES * BN * 4;
+  static_assert(RES % 1024 == 0 && STR % 1024 == 0,
+                "tiles must keep the 1024-byte alignment of the swizzle");
 };
 
-// rows [r0, r0 + 64) of a (rows, D) bf16 operand into a padded tile,
-// zero past `n`, 16 bytes per thread and step
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+// ------------------------------------------------------ PTX wrappers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp.async writes through the generic proxy; `wgmma` reads through the
+// async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// keeps the compiler from moving register reads or writes across a
+// `wgmma` issue or wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// `wgmma` shared-memory descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// K-major operand (rows × d, d contiguous) of a ROWS-row tile: the 16
+// columns of slice kk, rows from r0 (a multiple of 8) on
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return make_desc(tile + (kk / 4) * ROWS * 128 + r0 * 128 + (kk % 4) * 32,
+                   16, 1024);
+}
+// MN-major B operand (the tile read transposed: its rows are the K of the
+// product, its d columns the N): rows 16·kk .. 16·kk + 15 of a ROWS-row
+// tile; LBO steps over the 64-column blocks
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 16 * 128, ROWS * 128, 1024);
+}
+
+// D (64 x N f32, in registers) = or += A (64 x 16) · B (16 x N), bf16.
+// WgSS: A and B from shared memory, both K-major (acc = 0 overwrites D).
+// WgRS: A from registers (the m16n8k16 A fragment of each warp's 16 rows),
+// B from shared memory read MN-major (transposed); always accumulates.
+// Accumulator layout: warp w of the warpgroup holds rows 16w + lane / 4
+// (+ 8); d[4j + e] is column 8j + 2 (lane % 4) + (e & 1), row + 8 for e ≥ 2.
+template <int N>
+struct WgSS;
+template <int N>
+struct WgRS;
+
+template <>
+struct WgSS<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgSS<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgSS<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgRS<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgRS<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the accumulator of a 64 x N product as the A operand of the next one:
+// slice kk takes columns 16 kk .. 16 kk + 15, and the two layouts agree
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
+                                     const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// rows [r0, r0 + R) of a (rows, D) bf16 operand into an R-row swizzled
+// tile at shared address `tile`, by cp.async of 16 bytes; rows ≥ n are
+// zero-filled (source size 0, the address clamped to a valid row)
+template <int R, int D>
+__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* src,
                                           long long row_stride, int r0,
                                           int n, int tid) {
-  constexpr int DS = D + 8;
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
-  for (int c = tid; c < 64 * (D / 8); c += NW * 32) {
-    const int row = c / (D / 8), col = (c % (D / 8)) * 8;
-    const int r = r0 + row;
-    *reinterpret_cast<uint4*>(dst + row * DS + col) =
-        r < n ? *reinterpret_cast<const uint4*>(src + r * row_stride + col)
-              : zero4;
-  }
-}
-
-// out (16 x 64, f32, stride OS) = A (16 x D rows at a, stride DS) ·
-// Bᵀ where B is 64 rows at b (stride DS): A·Bᵀ over d
-template <int D>
-__device__ __forceinline__ void abt_16x64(float* out, int os, const bf16* a,
-                                          const bf16* b) {
-  constexpr int DS = D + 8;
+  constexpr int CPR = D / 8;   // 16-byte chunks a row
+  static_assert(R * CPR % WG == 0, "whole rounds of 16-byte copies");
 #pragma unroll
-  for (int jn = 0; jn < 4; ++jn) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + kk, DS);
-      wmma::load_matrix_sync(fb, b + jn * 16 * DS + kk, DS);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + jn * 16, acc, os, wmma::mem_row_major);
-  }
-}
-
-// acc (16 x D, f32 in shared memory, stride AS) += P (16 x 64 bf16, stride
-// PS) · B (64 rows of D at b, stride DS)
-template <int D>
-__device__ __forceinline__ void acc_pb(float* acc, const bf16* p, int ps,
-                                       const bf16* b) {
-  constexpr int DS = D + 8, AS = D + 4;
-#pragma unroll
-  for (int jd = 0; jd < D / 16; ++jd) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::load_matrix_sync(c, acc + jd * 16, AS, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, p + kk, ps);
-      wmma::load_matrix_sync(fb, b + kk * DS + jd * 16, DS);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(acc + jd * 16, c, AS, wmma::mem_row_major);
+  for (int i = 0; i < R * CPR / WG; ++i) {
+    const int c = tid + i * WG;
+    const int row = c / CPR, ch = c % CPR, r = r0 + row;
+    const uint32_t dst = tile + (ch / 8) * R * 128 + row * 128 +
+                         (((ch % 8) ^ (row % 8)) << 4);
+    cp_async16(dst, src + static_cast<long long>(min(r, n - 1)) * row_stride +
+                        ch * 8,
+               r < n ? 16 : 0);
   }
 }
 
 // ------------------------------------------------------------- dq pass
+//
+// One warpgroup a block, per (query tile of 64, head, batch); q and dO of
+// the tile stay in shared memory. k and v tiles of 64 keys stream through
+// the ring, up to the causal diagonal. Three blocks fit an SM at d = 64.
 
 template <int D>
-__global__ void __launch_bounds__(NW * 32)
+__global__ void __launch_bounds__(WG, D == 64 ? 3 : 1)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
                     const bf16* __restrict__ g,
@@ -172,193 +392,297 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dq, int T, int S, int H, int KV,
                     int causal, float scale, const Strides sd) {
   using L = DqSmem<D>;
-  constexpr int DS = L::DS, SS = L::SS, PS = L::PS, AS = L::AS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* gs = reinterpret_cast<bf16*>(smem + L::G);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::V);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  float* lse_s = reinterpret_cast<float*>(smem + L::LSE);
+  float* dlt_s = reinterpret_cast<float*>(smem + L::DLT);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* ssw = reinterpret_cast<float*>(smem + L::S) + warp * 16 * SS;
-  float* dpw = reinterpret_cast<float*>(smem + L::DP) + warp * 16 * SS;
-  bf16* dsw = reinterpret_cast<bf16*>(smem + L::DSB) + warp * 16 * PS;
-  float* acw = reinterpret_cast<float*>(smem + L::ACC) + warp * 16 * AS;
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const int nqt = (T + BM - 1) / BM;   // longest tiles first under causal
+  const int q0 = (causal ? nqt - 1 - (int)blockIdx.z : (int)blockIdx.z) * BM;
+  const int kvh = h / (H / KV);
 
   // element strides: q, k, v, o, g, dq — (batch, row, head) each
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, bb = blockIdx.z;
-  const int kvh = h / (H / KV);
   const bf16* qb = q + bb * sd.s[0] + h * sd.s[2];
   const bf16* kb = k + bb * sd.s[3] + kvh * sd.s[5];
   const bf16* vb = v + bb * sd.s[6] + kvh * sd.s[8];
   const bf16* ob = o + bb * sd.s[9] + h * sd.s[11];
   const bf16* gb = g + bb * sd.s[12] + h * sd.s[14];
 
-  load_tile<D>(qs, qb, sd.s[1], q0, T, tid);
-  load_tile<D>(gs, gb, sd.s[13], q0, T, tid);
-  for (int i = lane; i < 16 * D; i += 32) acw[(i / D) * AS + i % D] = 0.f;
+  const int kv_end = causal ? min(S, q0 + BM) : S;
+  const int nkv = (kv_end + BK - 1) / BK;
+  load_tile<BM, D>(base + L::Q, qb, sd.s[1], q0, T, tid);
+  load_tile<BM, D>(base + L::G, gb, sd.s[13], q0, T, tid);
+  auto issue = [&](int j) {
+    const int st = j % DQ_STAGES;
+    load_tile<BK, D>(base + L::K + st * L::STR, kb, sd.s[4], j * BK, S, tid);
+    load_tile<BK, D>(base + L::V + st * L::STR, vb, sd.s[7], j * BK, S, tid);
+  };
+  issue(0);
+  cp_async_commit();
+
+  {  // D = rowsum(dO ⊙ O) in f32: two threads a row, half the columns each
+    const int row = tid >> 1, half = tid & 1, qi = q0 + row;
+    float acc = 0.f;
+    if (qi < T) {
+      const bf16* orow = ob + qi * sd.s[10] + half * (D / 2);
+      const bf16* grow = gb + qi * sd.s[13] + half * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8) {
+        const uint4 uo = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 ug = *reinterpret_cast<const uint4*>(grow + c);
+        const bf16* eo = reinterpret_cast<const bf16*>(&uo);
+        const bf16* eg = reinterpret_cast<const bf16*>(&ug);
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          acc += __bfloat162float(eg[t]) * __bfloat162float(eo[t]);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      dlt_s[row] = acc;
+      lse_s[row] = 0.f;
+      if (qi < T) {
+        const size_t rowid = (static_cast<size_t>(bb) * H + h) * T + qi;
+        lse_s[row] = lse[rowid];
+        delta[rowid] = acc;
+      }
+    }
+  }
   __syncthreads();
 
-  // lanes (2r, 2r+1) own query row r of this warp, half the columns each
-  const int myrow = lane >> 1, half = lane & 1;
-  const int qi = q0 + warp * 16 + myrow;
-  const size_t rowid = ((size_t)bb * H + h) * T + qi;
-  float dlt = 0.f, lse_i = 0.f;
-  if (qi < T) {  // D = rowsum(dO ⊙ O) in f32
-    const bf16* gr = gs + (warp * 16 + myrow) * DS + half * (D / 2);
-    const bf16* orow = ob + qi * sd.s[10] + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; c += 8) {
-      const uint4 u = *reinterpret_cast<const uint4*>(orow + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-        dlt += __bfloat162float(gr[c + t]) * __bfloat162float(e[t]);
-    }
-  }
-  dlt += __shfl_xor_sync(0xffffffffu, dlt, 1);
-  if (qi < T) {
-    lse_i = lse[rowid];
-    if (half == 0) delta[rowid] = dlt;
-  }
+  // this thread's accumulator rows ra and ra + 8 of the block's 64
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ra = warp * 16 + (lane >> 2), ca = 2 * (lane & 3);
+  const int qa = q0 + ra, qb8 = qa + 8;
+  const float lse2[2] = {lse_s[ra] * LOG2E, lse_s[ra + 8] * LOG2E};
+  const float dlt[2] = {dlt_s[ra], dlt_s[ra + 8]};
+  const float sl2 = scale * LOG2E;
 
-  int kv_end = S;
-  if (causal) kv_end = min(kv_end, q0 + BQ);  // tiles above the diagonal
-  const int nkv = (kv_end + BKV - 1) / BKV;
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
   for (int j = 0; j < nkv; ++j) {
-    const int k0 = j * BKV;
-    __syncthreads();  // the previous K/V tile is consumed
-    load_tile<D>(ks, kb, sd.s[4], k0, S, tid);
-    load_tile<D>(vs, vb, sd.s[7], k0, S, tid);
+    const int st = j % DQ_STAGES;
+    if (j + 1 < nkv) issue(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile j (and, at j = 0, q and dO) has landed
+    fence_proxy_async();
     __syncthreads();
 
-    abt_16x64<D>(ssw, SS, qs + warp * 16 * DS, ks);  // S = Q·Kᵀ
-    abt_16x64<D>(dpw, SS, gs + warp * 16 * DS, vs);  // dP = dO·Vᵀ
-    __syncwarp();
-
-    const float* srow = ssw + myrow * SS + half * 32;
-    const float* dprow = dpw + myrow * SS + half * 32;
-    bf16* drow = dsw + myrow * PS + half * 32;
+    const int k0 = j * BK;
+    const uint32_t kt = base + L::K + st * L::STR;
+    const uint32_t vt = base + L::V + st * L::STR;
+    float s[BK / 2], dp[BK / 2];
+    reg_fence(s);
+    reg_fence(dp);
+    wg_fence();
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int ki = k0 + half * 32 + c;
-      const bool ok = qi < T && ki < S && (!causal || qi >= ki);
-      const float p = ok ? expf(srow[c] * scale - lse_i) : 0.f;
-      drow[c] = __float2bfloat16(p * (dprow[c] - dlt) * scale);
+    for (int kk = 0; kk < D / 16; ++kk)   // S = Q·Kᵀ
+      WgSS<BK>::mma(s, desc_k<BM>(base + L::Q, 0, kk), desc_k<BK>(kt, 0, kk),
+                    kk);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)   // dP = dO·Vᵀ
+      WgSS<BK>::mma(dp, desc_k<BM>(base + L::G, 0, kk),
+                    desc_k<BK>(vt, 0, kk), kk);
+    wg_commit();
+
+    wg_wait<1>();   // S, and the previous tile's dQ product, are done
+    reg_fence(s);
+    const bool edge = k0 + BK > S || q0 + BM > T ||
+                      (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ki = k0 + 8 * c + ca + (e & 1), qi = e < 2 ? qa : qb8;
+        float p = ex2(s[4 * c + e] * sl2 - lse2[e >> 1]);
+        if (edge && !(qi < T && ki < S && (!causal || qi >= ki))) p = 0.f;
+        s[4 * c + e] = p;
+      }
+    wg_wait<0>();
+    reg_fence(dp);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      s[i] = s[i] * (dp[i] - dlt[(i >> 1) & 1]) * scale;   // dS
+    uint32_t da[BK / 16][4];
+    to_a<BK>(da, s);
+    reg_fence(da);
+    reg_fence(dqa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)   // dQ += dS·K
+      WgRS<D>::mma(dqa, da[kk], desc_mn<BK>(kt, kk));
+    wg_commit();   // waited for at the next tile: the ring's third stage
+    __syncthreads();   // keeps tile j until then; stage st - 1 is free
+  }
+  cp_async_wait<0>();
+  wg_wait<0>();
+  reg_fence(dqa);
+
+  bf16* out = dq + bb * sd.s[15] + h * sd.s[17];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = hh ? qb8 : qa;
+      if (qi < T)
+        *reinterpret_cast<__nv_bfloat162*>(out + qi * sd.s[16] + 8 * c + ca) =
+            __floats2bfloat162_rn(dqa[4 * c + 2 * hh],
+                                  dqa[4 * c + 2 * hh + 1]);
     }
-    __syncwarp();
-    acc_pb<D>(acw, dsw, PS, ks);  // dq += dS·K
-    __syncwarp();
-  }
-
-  __syncwarp();
-  if (qi < T) {
-    bf16* out =
-        dq + bb * sd.s[15] + qi * sd.s[16] + h * sd.s[17] + half * (D / 2);
-    const float* src = acw + myrow * AS + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) out[c] = __float2bfloat16(src[c]);
-  }
 }
 
 // ----------------------------------------------------------- dk/dv pass
+//
+// One warpgroup a block, per (key tile of 64, kv head, batch); k and v of
+// the tile stay in shared memory. For each of the G query heads of the
+// group, the q, dO, lse and D tiles of BN queries stream through the
+// ring, from the causal diagonal on.
 
-template <int D>
-__global__ void __launch_bounds__(NW * 32)
+template <int D, int BN>
+__global__ void __launch_bounds__(WG, 2)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int T, int S, int H, int KV,
                      int causal, float scale, const Strides sd) {
-  using L = DkvSmem<D>;
-  constexpr int DS = L::DS, SS = L::SS, PS = L::PS, AS = L::AS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::V);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* gs = reinterpret_cast<bf16*>(smem + L::G);
-  float* lse_s = reinterpret_cast<float*>(smem + L::LSE);
-  float* dlt_s = reinterpret_cast<float*>(smem + L::DLT);
+  using L = DkvSmem<D, BN>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* smem = smem_raw + (base - raw);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stw = reinterpret_cast<float*>(smem + L::ST) + warp * 16 * SS;
-  float* dptw = reinterpret_cast<float*>(smem + L::DPT) + warp * 16 * SS;
-  bf16* ptw = reinterpret_cast<bf16*>(smem + L::PT) + warp * 16 * PS;
-  bf16* dstw = reinterpret_cast<bf16*>(smem + L::DST) + warp * 16 * PS;
-  float* dkw = reinterpret_cast<float*>(smem + L::DK) + warp * 16 * AS;
-  float* dvw = reinterpret_cast<float*>(smem + L::DV) + warp * 16 * AS;
-
-  // element strides: q, k, v, g, dk, dv — (batch, row, head) each
-  const int k0 = blockIdx.x * BKV, kvh = blockIdx.y, bb = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int kvh = blockIdx.x, bb = blockIdx.y;
+  const int k0 = blockIdx.z * BM;   // key tile 0, the longest, first
   const int grp = H / KV;
 
-  load_tile<D>(ks, k + bb * sd.s[3] + kvh * sd.s[5], sd.s[4], k0, S, tid);
-  load_tile<D>(vs, v + bb * sd.s[6] + kvh * sd.s[8], sd.s[7], k0, S, tid);
-  for (int i = lane; i < 16 * D; i += 32) {
-    dkw[(i / D) * AS + i % D] = 0.f;
-    dvw[(i / D) * AS + i % D] = 0.f;
-  }
+  // work items (group head, query tile), query tiles from the first one
+  // that reaches this block's keys
+  const int nq = (T + BN - 1) / BN;
+  const int i0 = causal ? min(k0 / BN, nq) : 0;
+  const int per_head = nq - i0;
+  const int n_items = grp * per_head;
 
-  // lanes (2r, 2r+1) own key row r of this warp, half the query columns
-  const int myrow = lane >> 1, half = lane & 1;
-  const int ki = k0 + warp * 16 + myrow;
-  const int i0 = causal ? k0 / BQ : 0;  // query tiles above the diagonal
-  const int nq = (T + BQ - 1) / BQ;
-
-  for (int gi = 0; gi < grp; ++gi) {
-    const int h = kvh * grp + gi;
-    const bf16* qb = q + bb * sd.s[0] + h * sd.s[2];
-    const bf16* gb = g + bb * sd.s[9] + h * sd.s[11];
-    const size_t rows = ((size_t)bb * H + h) * T;
-    for (int i = i0; i < nq; ++i) {
-      const int q0 = i * BQ;
-      __syncthreads();  // the previous q / dO tile is consumed
-      load_tile<D>(qs, qb, sd.s[1], q0, T, tid);
-      load_tile<D>(gs, gb, sd.s[10], q0, T, tid);
-      if (tid < BQ) {
-        const int t = q0 + tid;
-        lse_s[tid] = t < T ? lse[rows + t] : 0.f;
-        dlt_s[tid] = t < T ? delta[rows + t] : 0.f;
-      }
-      __syncthreads();
-
-      abt_16x64<D>(stw, SS, ks + warp * 16 * DS, qs);   // Sᵀ = K·Qᵀ
-      abt_16x64<D>(dptw, SS, vs + warp * 16 * DS, gs);  // dPᵀ = V·dOᵀ
-      __syncwarp();
-
-      const float* srow = stw + myrow * SS + half * 32;
-      const float* dprow = dptw + myrow * SS + half * 32;
-      bf16* prow = ptw + myrow * PS + half * 32;
-      bf16* drow = dstw + myrow * PS + half * 32;
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int qq = half * 32 + c, qi = q0 + qq;
-        const bool ok = qi < T && ki < S && (!causal || qi >= ki);
-        const float p = ok ? expf(srow[c] * scale - lse_s[qq]) : 0.f;
-        prow[c] = __float2bfloat16(p);
-        drow[c] = __float2bfloat16(p * (dprow[c] - dlt_s[qq]) * scale);
-      }
-      __syncwarp();
-      acc_pb<D>(dvw, ptw, PS, gs);   // dv += Pᵀ·dO
-      acc_pb<D>(dkw, dstw, PS, qs);  // dk += dSᵀ·Q
-      __syncwarp();
+  // element strides: q, k, v, g, dk, dv — (batch, row, head) each
+  load_tile<BM, D>(base + L::K, k + bb * sd.s[3] + kvh * sd.s[5], sd.s[4],
+                   k0, S, tid);
+  load_tile<BM, D>(base + L::V, v + bb * sd.s[6] + kvh * sd.s[8], sd.s[7],
+                   k0, S, tid);
+  auto issue = [&](int it) {
+    const int st = it % DKV_STAGES;
+    const int h = kvh * grp + it / per_head;
+    const int q0 = (i0 + it % per_head) * BN;
+    load_tile<BN, D>(base + L::Q + st * L::STR,
+                     q + bb * sd.s[0] + h * sd.s[2], sd.s[1], q0, T, tid);
+    load_tile<BN, D>(base + L::G + st * L::STR,
+                     g + bb * sd.s[9] + h * sd.s[11], sd.s[10], q0, T, tid);
+    for (int x = tid; x < 2 * BN; x += WG) {   // lse and D, zero past T
+      const int c = x % BN, qi = q0 + c;
+      const size_t row = (static_cast<size_t>(bb) * H + h) * T + min(qi, T - 1);
+      cp_async4(base + (x < BN ? L::LSE : L::DLT) + (st * BN + c) * 4,
+                (x < BN ? lse : delta) + row, qi < T ? 4 : 0);
     }
-  }
+  };
+  if (n_items > 0) issue(0);
+  cp_async_commit();
 
-  __syncwarp();
-  if (ki < S) {
-    const int c0 = half * (D / 2);
-    bf16* odk = dk + bb * sd.s[12] + ki * sd.s[13] + kvh * sd.s[14] + c0;
-    bf16* odv = dv + bb * sd.s[15] + ki * sd.s[16] + kvh * sd.s[17] + c0;
-    const float* sk = dkw + myrow * AS + c0;
-    const float* sv = dvw + myrow * AS + c0;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ra = warp * 16 + (lane >> 2), ca = 2 * (lane & 3);
+  const int key[2] = {k0 + ra, k0 + ra + 8};
+  const float sl2 = scale * LOG2E;
+  const uint32_t kt = base + L::K, vt = base + L::V;
+
+  float dka[D / 2], dva[D / 2];
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) {
-      odk[c] = __float2bfloat16(sk[c]);
-      odv[c] = __float2bfloat16(sv[c]);
-    }
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    const int st = it % DKV_STAGES;
+    if (it + 1 < n_items) issue(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // item it (and, at it = 0, k and v) has landed
+    fence_proxy_async();
+    __syncthreads();
+
+    const int q0 = (i0 + it % per_head) * BN;
+    const uint32_t qt = base + L::Q + st * L::STR;
+    const uint32_t gt = base + L::G + st * L::STR;
+    const float* lse_t = reinterpret_cast<const float*>(smem + L::LSE) +
+                         st * BN;
+    const float* dlt_t = reinterpret_cast<const float*>(smem + L::DLT) +
+                         st * BN;
+    float s[BN / 2], dp[BN / 2];
+    reg_fence(s);
+    reg_fence(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)   // Sᵀ = K·Qᵀ
+      WgSS<BN>::mma(s, desc_k<BM>(kt, 0, kk), desc_k<BN>(qt, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)   // dPᵀ = V·dOᵀ
+      WgSS<BN>::mma(dp, desc_k<BM>(vt, 0, kk), desc_k<BN>(gt, 0, kk), kk);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    const bool edge = q0 + BN > T || k0 + BM > S ||
+                      (causal && q0 < k0 + BM - 1);
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c)   // P and dSᵀ in place of Sᵀ and dPᵀ
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * c + ca + (e & 1), qi = q0 + qc, ki = key[e >> 1];
+        const int i = 4 * c + e;
+        float p = ex2(s[i] * sl2 - lse_t[qc] * LOG2E);
+        if (edge && !(qi < T && ki < S && (!causal || qi >= ki))) p = 0.f;
+        s[i] = p;
+        dp[i] = p * (dp[i] - dlt_t[qc]) * scale;
+      }
+    uint32_t pa[BN / 16][4], da[BN / 16][4];
+    to_a<BN>(pa, s);
+    to_a<BN>(da, dp);
+    reg_fence(pa);
+    reg_fence(da);
+    reg_fence(dva);
+    reg_fence(dka);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)   // dV += Pᵀ·dO
+      WgRS<D>::mma(dva, pa[kk], desc_mn<BN>(gt, kk));
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)   // dK += dSᵀ·Q
+      WgRS<D>::mma(dka, da[kk], desc_mn<BN>(qt, kk));
+    wg_commit();
+    wg_wait<0>();
+    __syncthreads();   // stage st is free again
   }
+  cp_async_wait<0>();
+  reg_fence(dka);
+  reg_fence(dva);
+
+  bf16* odk = dk + bb * sd.s[12] + kvh * sd.s[14];
+  bf16* odv = dv + bb * sd.s[15] + kvh * sd.s[17];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ki = key[hh];
+      if (ki < S) {
+        const int col = 8 * c + ca, i = 4 * c + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(odk + ki * sd.s[13] + col) =
+            __floats2bfloat162_rn(dka[i], dka[i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(odv + ki * sd.s[16] + col) =
+            __floats2bfloat162_rn(dva[i], dva[i + 1]);
+      }
+    }
 }
 
 template <typename Kern>
@@ -375,13 +699,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* g, const void* lse, void* delta, void* dq, int B,
               int T, int S, int H, int KV, int causal, const Strides& st,
               void* stream) {
-  constexpr int smem = DqSmem<D>::TOTAL;
+  constexpr int smem = DqSmem<D>::TOTAL + 1024;   // + the alignment slack
   static bool done = false;
   cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, smem, &done);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + BQ - 1) / BQ, H, B);
+  dim3 grid(H, B, (T + BM - 1) / BM);
   flash_bwd_dq_kernel<D>
-      <<<grid, NW * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      <<<grid, WG, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(o),
           static_cast<const bf16*>(g), static_cast<const float*>(lse),
@@ -390,18 +714,26 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// query tile of the dk/dv pass: 128 at d = 64; 32 at d = 128, where dk
+// and dv take 64 f32 registers each a thread
+template <int D>
+constexpr int dkv_bn() {
+  return D == 64 ? 128 : 32;
+}
+
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int T, int S, int H, int KV, int causal, const Strides& st,
                void* stream) {
-  constexpr int smem = DkvSmem<D>::TOTAL;
+  constexpr int BN = dkv_bn<D>();
+  constexpr int smem = DkvSmem<D, BN>::TOTAL + 1024;
   static bool done = false;
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D>, smem, &done);
+  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D, BN>, smem, &done);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((S + BKV - 1) / BKV, KV, B);
-  flash_bwd_dkv_kernel<D>
-      <<<grid, NW * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid(KV, B, (S + BM - 1) / BM);
+  flash_bwd_dkv_kernel<D, BN>
+      <<<grid, WG, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(g),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -412,6 +744,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
 
 bool shape_ok(int B, int T, int S, int H, int KV) {
   if (B < 1 || T < 1 || S < 1 || KV < 1 || H % KV != 0) return false;
+  if (B > 65535 || (T + BM - 1) / BM > 65535 || (S + BM - 1) / BM > 65535)
+    return false;
   const int grp = H / KV;
   return grp == 1 || grp == 2 || grp == 4 || grp == 8;
 }

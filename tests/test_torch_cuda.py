@@ -110,17 +110,94 @@ def _rel_max(got, want) -> float:
                  / want.float().abs().max())
 
 
-@pytest.mark.parametrize("b,t,s,h,kv,d,causal", ATTN_SHAPES)
-def test_flash_attention_bwd(dev, b, t, s, h, kv, d, causal):
+def _bwd_inputs(dev, b, t, s, h, kv, d, causal):
     q, k, v = _rn(dev, b, t, h, d), _rn(dev, b, s, kv, d), _rn(dev, b, s, kv, d)
     g = _rn(dev, b, t, h, d, seed=1)
     o, lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
-    got = tfa.flash_attention_bwd(q, k, v, o, lse, g, causal)
-    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
+    return q, k, v, o, lse, g
+
+
+def _check_bwd(got, want):
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         assert x.shape == y.shape and x.dtype == y.dtype
         assert torch.isfinite(x.float()).all(), name
         assert _rel_max(x, y) <= 2e-2, (name, _rel_max(x, y))
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", ATTN_SHAPES)
+def test_flash_attention_bwd(dev, b, t, s, h, kv, d, causal):
+    args = _bwd_inputs(dev, b, t, s, h, kv, d, causal)
+    _check_bwd(tfa.flash_attention_bwd(*args, causal),
+               tfa.flash_attention_bwd_plain(*args, causal))
+
+
+# the backward's tile edges: a block owns 64 rows and streams tiles of 64
+# keys (dq pass) or 128 queries (dk/dv pass; 32 at d = 128) — causal T = S
+# one below, at and one past 128, two tiles and a row; fewer rows than a
+# block; S != T both ways, causal and not; GQA groups 4 and 8; d = 128
+BWD_SHAPES = [(1, 127, 127, 4, 4, 64, True), (2, 128, 128, 4, 2, 64, True),
+              (1, 129, 129, 8, 1, 64, True), (1, 257, 257, 2, 2, 64, True),
+              (2, 40, 40, 4, 4, 64, True), (1, 70, 200, 4, 1, 64, False),
+              (1, 200, 70, 4, 4, 64, False), (1, 200, 70, 8, 1, 64, True),
+              (1, 257, 257, 16, 2, 64, True), (2, 129, 129, 4, 4, 128, True),
+              (1, 257, 100, 8, 2, 128, False), (1, 40, 40, 2, 1, 128, True)]
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", BWD_SHAPES)
+def test_flash_attention_bwd_tile_edges(dev, b, t, s, h, kv, d, causal):
+    args = _bwd_inputs(dev, b, t, s, h, kv, d, causal)
+    _check_bwd(tfa.flash_attention_bwd(*args, causal),
+               tfa.flash_attention_bwd_plain(*args, causal))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bwd_reads_packed_qkv_views(dev, d):
+    """q, k and v as strided views of one packed (B, T, 3·H, d) tensor: the
+    kernels read them in place and give what they give on contiguous
+    copies, bit for bit."""
+    b, t, h = 2, 129, 4
+    qkv = _rn(dev, b, t, 3 * h, d)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+    g = _rn(dev, b, t, h, d, seed=1)
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, True)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, g, True)
+    _check_bwd(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, g, True))
+    dense = tfa.flash_attention_bwd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), o, lse, g, True)
+    for name, x, y in zip(("dq", "dk", "dv"), got, dense):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", [
+    (2, 300, 300, 8, 2, 64, True), (1, 200, 70, 8, 1, 128, False)])
+def test_flash_attention_bwd_is_repeatable(dev, b, t, s, h, kv, d, causal):
+    """No atomics: two calls give the same dq, dk and dv bit for bit."""
+    args = _bwd_inputs(dev, b, t, s, h, kv, d, causal)
+    one = tfa.flash_attention_bwd(*args, causal)
+    two = tfa.flash_attention_bwd(*args, causal)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), one, two):
+        assert torch.equal(x, y), name
+
+
+def test_flash_attention_bwd_rejects_what_the_kernels_do_not_take(dev):
+    q, k, v, o, lse, g = _bwd_inputs(dev, 1, 64, 64, 4, 2, 64, True)
+    with pytest.raises(NotImplementedError):   # head_dim 96
+        a = _bwd_inputs(dev, 1, 64, 64, 4, 2, 96, True)
+        tfa.flash_attention_bwd(*a, True)
+    with pytest.raises(NotImplementedError):   # GQA group 3
+        a = _bwd_inputs(dev, 1, 64, 64, 6, 2, 64, True)
+        tfa.flash_attention_bwd(*a, True)
+    with pytest.raises(TypeError):             # f32 operands
+        tfa.flash_attention_bwd(q.float(), k.float(), v.float(), o.float(),
+                                lse, g.float(), True)
+    with pytest.raises(TypeError):             # lse in bf16
+        tfa.flash_attention_bwd(q, k, v, o, lse.bfloat16(), g, True)
+    wide = _rn(dev, 1, 64, 4, 68)              # rows of 68: stride % 8 != 0
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd(wide[..., 4:], k, v, o, lse, g, True)
+    with pytest.raises(ValueError):            # k and v of different shapes
+        tfa.flash_attention_bwd(q, k, v[:, :32], o, lse, g, True)
 
 
 @pytest.mark.parametrize("m,k,n,r", [(37, 72, 48, 10), (130, 256, 96, 8),

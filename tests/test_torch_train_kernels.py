@@ -70,10 +70,16 @@ def _rel(got, want) -> float:
 Q_SHAPE, KV_SHAPE = (2, 70, 4, 32), (2, 91, 2, 32)
 
 
-def _qkvg(dt, seed=0):
+# a tile edge of the CUDA backward: 129 = one row past its 128-row blocks
+# and two past its 64-row tiles; 8 query heads on one KV head (group 8)
+EDGE_Q_SHAPE, EDGE_KV_SHAPE = (1, 129, 8, 64), (1, 129, 1, 64)
+
+
+def _qkvg(dt, seed=0, shapes=(Q_SHAPE, KV_SHAPE)):
     rng = np.random.default_rng(seed)
-    return (_pair(rng, Q_SHAPE, dt), _pair(rng, KV_SHAPE, dt),
-            _pair(rng, KV_SHAPE, dt), _pair(rng, Q_SHAPE, dt))
+    qs, kvs = shapes
+    return (_pair(rng, qs, dt), _pair(rng, kvs, dt), _pair(rng, kvs, dt),
+            _pair(rng, qs, dt))
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -94,11 +100,16 @@ def test_flash_fwd_plain_matches_jax(dt, causal):
     assert torch.equal(o2, out) and torch.equal(l2, lse)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_flash_bwd_plain_matches_jax(dt, causal):
-    """The same residuals (JAX's o and lse) into both backwards."""
-    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = _qkvg(dt, seed=1)
+@pytest.mark.parametrize("dt,causal,shapes", [
+    pytest.param(dt, causal, shapes, id=f"{dt}-{causal}{tag}")
+    for tag, shapes in (("", (Q_SHAPE, KV_SHAPE)),
+                        ("-tile_edge", (EDGE_Q_SHAPE, EDGE_KV_SHAPE)))
+    for dt in ("f32", "bf16") for causal in (True, False)])
+def test_flash_bwd_plain_matches_jax(dt, causal, shapes):
+    """The same residuals (JAX's o and lse) into both backwards. The plain
+    version is what the card holds the CUDA kernels to, so it is held to
+    the Pallas kernel here at a tile edge of those kernels too."""
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = _qkvg(dt, seed=1, shapes=shapes)
     jo, jl = jops.flash_attention_fwd(jq, jk, jv, causal=causal,
                                       backend="pallas", interpret=True)
     to, tl = _to_torch(jo), _to_torch(jl)
