@@ -10,8 +10,12 @@ Phases, each printed on its own lines:
      the serving path's and the training path's full-width shapes, with
      the stated tolerance; the kernel's, the plain version's and one
      library call's times (the library call is a yardstick only: the port
-     never calls it); at the training shape two flash backward calls must
-     agree bit for bit, and #5-#7 print their TFLOP/s and share of bound;
+     never calls it); where a launcher chooses among kernels (K1, the
+     flash forward), which one ran and every variant's time; K2 and #10
+     at 72 decode rows through ``ops`` (two launches each); at the
+     training shape two flash backward calls must agree bit for bit, and
+     #5-#7 and K1's forward and dx (on the views the backward passes)
+     print their TFLOP/s and share of bound;
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -40,7 +44,7 @@ Phases, each printed on its own lines:
      (MetaTT 4d on q/v from rank 10, AdamW, remat per block, 4 x 1024
      tokens a step, 6 steps with one DMRG sweep to rank 8): finite losses,
      moved cores, ranks 8 after the sweep, K1 / #5 / #6 / #7 launch counts
-     around ``train`` (#6 and #7 once a layer a step); then a gradient
+     around ``train``, exactly 142 / 48 / 24 / 24 a step; then a gradient
      check at B=1 against the plain bf16 leg with an f32 plain leg as
      witness;
   7. one JSON line with every kernel's record (launches per path).
@@ -188,14 +192,16 @@ def phase_kernels(dev):
 
     rows = []
     alpha = 4.0
-    # K1: prefill q/v projections (M = prompt bucket)
+    # K1: prefill q/v projections (M = prompt bucket), A in the layout the
+    # model builds (K-contiguous, peft/api.py); both K1 kernels timed on
+    # the same inputs, the launcher's choice printed
     for m in (16, 64, 256):
         k = n = 2048
         r = 8
 
         def make():
             return (rn(m, k), rn(k, n, scale=k ** -0.5),
-                    rn(k, r, scale=k ** -0.5), rn(r, n, scale=r ** -0.5))
+                    rn(r, k, scale=k ** -0.5).T, rn(r, n, scale=r ** -0.5))
         nbytes = 2 * (m * k + k * n + k * r + r * n + m * n)
         sets = copies(make, nbytes)
         x, w, a, b = sets[0]
@@ -213,7 +219,10 @@ def phase_kernels(dev):
             library_ms=cuda_time_ms(
                 lambda x, w, a, b: torch.matmul(x, w)
                 + alpha * torch.matmul(torch.matmul(x, a), b), sets),
-            bound_ms=bms, bound_by=by))
+            bound_ms=bms, bound_by=by, variant=tl.k1_variant(r),
+            variants={v: cuda_time_ms(
+                lambda *s: tl._launch_k1(*s, alpha, v), sets)
+                for v in tl.K1_VARIANTS}))
     # K2: decode q/v projections, 4 slots, task-routed A rows
     m, k, n, r = 4, 2048, 2048, 8
 
@@ -238,7 +247,8 @@ def phase_kernels(dev):
             lambda x, w, a, b: torch.matmul(x, w) + alpha * torch.matmul(
                 torch.bmm(x[:, None], a)[:, 0], b), sets),
         bound_ms=bms, bound_by=by))
-    # K3: prefill attention, causal, T == S (bucketed prompt)
+    # K3: prefill attention, causal, T == S (bucketed prompt); every
+    # variant of the forward kernel timed, the launcher's choice printed
     for t, kvh in ((16, 32), (64, 32), (256, 32), (256, 8)):
         b_, h, d = 1, 32, 64
 
@@ -267,7 +277,10 @@ def phase_kernels(dev):
             library_ms=cuda_time_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True), lib_sets),
-            bound_ms=bms, bound_by=by))
+            bound_ms=bms, bound_by=by, variant=fa.fwd_variant(t),
+            variants={v: cuda_time_ms(
+                lambda *s: fa._launch_fwd(*s, True, None, v), sets)
+                for v in fa.FWD_VARIANTS}))
     # K4: decode attention, 4 slots at mixed positions of a 256-cell cache
     pos = torch.tensor([0, 37, 130, 255], dtype=torch.int32, device=dev)
     for kvh in (32, 8):
@@ -305,13 +318,65 @@ def phase_kernels(dev):
     rows += paged_kernel_rows(dev, rn)
     rows += w8_kernel_rows(dev, rn)
     rows += paged_int8_kernel_rows(dev, rn)
+    rows += batched_a_split_rows(dev, rn)
     for r_ in rows:
-        print(f"[kernel] {r_['name']:20s} {r_['shape']:44s} "
-              f"err={r_['max_abs_err']:.3e} ms={r_['ms']:.4f} "
-              f"plain_ms={r_['plain_ms']:.4f} "
-              f"library_ms={r_['library_ms']:.4f} "
-              f"bound_ms={r_['bound_ms']:.4f} ({r_['bound_by']})",
-              flush=True)
+        print_row(r_)
+    return rows
+
+
+def print_row(r_, width=44):
+    """One [kernel] line; where a launcher chooses among kernels, which one
+    ran and every variant's time on the same inputs."""
+    line = (f"[kernel] {r_['name']:20s} {r_['shape']:{width}s} "
+            f"err={r_['max_abs_err']:.3e} ms={r_['ms']:.4f} "
+            f"plain_ms={r_['plain_ms']:.4f} "
+            f"library_ms={r_['library_ms']:.4f} "
+            f"bound_ms={r_['bound_ms']:.4f} ({r_['bound_by']})")
+    if "variant" in r_:
+        line += f" ran={r_['variant']} " + " ".join(
+            f"{v}_ms={ms:.4f}" for v, ms in r_["variants"].items())
+    print(line, flush=True)
+
+
+def batched_a_split_rows(dev, rn):
+    """K2 and #10 at M = 72 decode rows (a 4+1d engine with max_batch 72)
+    through ``ops``, which splits M into launches of at most 64 rows: held
+    against the plain versions, with ⌈72 / 64⌉ = 2 launches a call."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant
+    from repro_torch.kernels import tt_linear as tl
+    alpha, m, k, n, r = 4.0, 72, 2048, 2048, 8
+    rows = []
+    for name, w8 in (("tt_linear_batched_a", False),
+                     ("tt_linear_batched_a_w8", True)):
+        def make():
+            w = rn(k, n, scale=k ** -0.5)
+            wt = quant.quantize_int8(w, 0) if w8 else (w,)
+            return (rn(m, k), *wt, rn(m, k, r, scale=k ** -0.5),
+                    rn(r, n, scale=r ** -0.5))
+        fn = ops.tt_linear_batched_a_q if w8 else ops.tt_linear_batched_a
+        plain = getattr(tl, name + "_plain")
+        nbytes = (2 * m * k + (k * n + 4 * n if w8 else 2 * k * n)
+                  + 2 * m * k * r + 2 * r * n + 2 * m * n)
+        sets = copies(make, nbytes)
+        K.reset_launch_counts()
+        got = fn(*sets[0], alpha=alpha)
+        n_launch = K.launch_counts()[name]
+        if n_launch != (m + 63) // 64:
+            raise AssertionError(f"{name} at M={m}: {n_launch} launches, "
+                                 f"want {(m + 63) // 64}")
+        err = compare(name, got, plain(*sets[0], alpha))
+        bms, by = bound_ms(nbytes, 2 * m * k * n + 4 * m * k * r)
+        rows.append(dict(
+            name=name, shape=f"M={m} K={k} N={n} r={r} (ops, {n_launch} "
+            "launches)", main=False, max_abs_err=err,
+            ms=cuda_time_ms(lambda *t: fn(*t, alpha=alpha), sets),
+            plain_ms=cuda_time_ms(lambda *t: plain(*t, alpha), sets),
+            library_ms=float("nan"), bound_ms=bms, bound_by=by))
+        del sets
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -628,13 +693,19 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                (q, k.repeat_interleave(g_, 2), v.repeat_interleave(g_, 2))]
         timed = {}
         if main or t != attn_shapes[0][1]:
-            timed["fwd_ms"] = event_time_ms(
-                lambda: fa.flash_attention_fwd(q, k, v, True), ())
+            # the forward's device time in a CUDA-graph replay (its eager
+            # launches would time the host at this speed)
+            timed["fwd_ms"] = cuda_time_ms(
+                lambda: fa.flash_attention_fwd(q, k, v, True), [()])
+            timed["fwd_variants"] = {
+                var: cuda_time_ms(lambda: fa._launch_fwd(
+                    q, k, v, True, torch.empty_like(lse), var), [()])
+                for var in fa.FWD_VARIANTS}
             timed["fwd_plain_ms"] = event_time_ms(
                 lambda: fa.flash_attention_fwd_plain(q, k, v, True), ())
-            timed["fwd_lib_ms"] = event_time_ms(
+            timed["fwd_lib_ms"] = cuda_time_ms(
                 lambda: F.scaled_dot_product_attention(*lib, is_causal=True),
-                ())
+                [()])
             # the two passes apart, through the launchers the wrapper runs
             timed["dq_ms"] = event_time_ms(
                 lambda: fa._launch_bwd_dq(q, k, v, o, lse, g, True), ())
@@ -671,6 +742,9 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                 ms=timed.get(ms), plain_ms=timed.get(plain),
                 library_ms=timed.get(lib_ms), bound_ms=bnd[0],
                 bound_by=bnd[1]))
+            if name == "flash_attention_fwd" and timed:
+                rows[-1].update(variant=fa.fwd_variant(t),
+                                variants=timed["fwd_variants"])
         print(f"[train-kernel] {shape}: out err {err:.3e}, lse err "
               f"{lse_err:.3e}, dq/dk/dv rel err {errs['dq']:.3e} / "
               f"{errs['dk']:.3e} / {errs['dv']:.3e} of max |plain|"
@@ -689,35 +763,59 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                   f"backward = {pair:.4f} / {timed['bwd_lib_ms']:.4f} ms = "
                   f"{pair / timed['bwd_lib_ms']:.3f}x (SDPA's device time, "
                   f"profiled; CUDA events around its eager calls: "
-                  f"{timed['bwd_lib_event_ms']:.4f} ms)", flush=True)
+                  f"{timed['bwd_lib_event_ms']:.4f} ms); #5 / SDPA forward "
+                  f"= {timed['fwd_ms'] / timed['fwd_lib_ms']:.3f}x; #5 ran "
+                  f"{fa.fwd_variant(t)}: " + ", ".join(
+                      f"{v_} {ms_:.4f} ms" for v_, ms_ in
+                      timed["fwd_variants"].items()), flush=True)
         del q, k, v, g, o, lse, po, plse, got, want, lib
         torch.cuda.empty_cache()
 
-    # K1 as the training backward's dx: dx = g·Wᵀ + α·(g·Bᵀ)·Aᵀ at the
-    # q/v projection of a B=4 x T=1024 step, then the whole Function's
-    # backward (dx, dA, dB) against plain autograd
+    # K1 at the q/v projection of a B=4 x T=1024 step: the forward (and
+    # remat recompute) y = x·W + α·(x·A)·B with A in the layout the model
+    # builds (K-contiguous), and the backward's dx = g·Wᵀ + α·(g·Bᵀ)·Aᵀ on
+    # the transposed views the backward passes (no copy); then the whole
+    # Function's backward (dx, dA, dB) against plain autograd
     from repro_torch.kernels import dispatch
     m, kd, n, r = linear_shape
     alpha = 4.0
     x, w = rn(m, kd), rn(kd, n, scale=kd ** -0.5)
-    a, b = rn(kd, r, scale=kd ** -0.5), rn(r, n, scale=r ** -0.5)
+    a, b = rn(r, kd, scale=kd ** -0.5).T, rn(r, n, scale=r ** -0.5)
     g = rn(m, n)
-    err = compare("tt_linear", tl.tt_linear(g, w.T, b.T, a.T, alpha),
-                  tl.tt_linear_plain(g, w.T, b.T, a.T, alpha))
-    nbytes = 2 * (m * n + n * kd + n * r + r * kd + m * kd)
-    dx = dict(
-        name="tt_linear", shape=f"dx M={m} K={n} N={kd} r={r}", main=False,
-        role="dx", max_abs_err=err,
-        ms=event_time_ms(lambda: tl.tt_linear(g, w.T, b.T, a.T, alpha), (),
-                         iters=20),
-        plain_ms=event_time_ms(
-            lambda: tl.tt_linear_plain(g, w.T, b.T, a.T, alpha), (),
-            iters=20),
-        library_ms=event_time_ms(
-            lambda: torch.matmul(g, w.T) + alpha * torch.matmul(
-                torch.matmul(g, b.T), a.T), (), iters=20))
-    dx["bound_ms"], dx["bound_by"] = bound_ms(
-        nbytes, 2 * m * n * kd + 2 * m * n * r + 2 * m * r * kd)
+    for role, ops_ in (("forward", (x, w, a, b)),
+                       ("dx", (g, w.T, b.T, a.T))):
+        mm, kk = ops_[0].shape
+        nn = ops_[1].shape[1]
+        err = compare("tt_linear", tl.tt_linear(*ops_, alpha),
+                      tl.tt_linear_plain(*ops_, alpha))
+        flops = 2 * mm * kk * nn + 2 * mm * kk * r + 2 * mm * r * nn
+        row = dict(
+            name="tt_linear", shape=f"{role} M={mm} K={kk} N={nn} r={r}",
+            main=False, role=role, max_abs_err=err,
+            ms=cuda_time_ms(lambda *t: tl.tt_linear(*t, alpha), [ops_]),
+            plain_ms=event_time_ms(
+                lambda: tl.tt_linear_plain(*ops_, alpha), (), iters=20),
+            library_ms=cuda_time_ms(
+                lambda x_, w_, a_, b_: torch.matmul(x_, w_) + alpha
+                * torch.matmul(torch.matmul(x_, a_), b_), [ops_]),
+            variant=tl.k1_variant(r),
+            # the template kernel takes contiguous operands: on the dx
+            # views its time includes the copies the wrapper makes
+            variants={v: cuda_time_ms(
+                lambda *t: tl._launch_k1(*t, alpha, v), [ops_])
+                for v in tl.K1_VARIANTS})
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * (mm * kk + kk * nn + kk * r + r * nn + mm * nn), flops)
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows.append(row)
+        print(f"[train-kernel] K1 {row['shape']}: err {err:.3e}; "
+              f"{row['ms']:.4f} ms = {row['tflops']:.1f} TFLOP/s, "
+              f"{row['bound_ms'] / row['ms']:.1%} of its bound; "
+              f"/ torch.matmul {row['ms'] / row['library_ms']:.3f}x; ran "
+              f"{row['variant']}: " + ", ".join(
+                  f"{v_} {ms_:.4f} ms" for v_, ms_ in
+                  row["variants"].items()), flush=True)
+    dx = rows[-1]
 
     def fn_backward(fn):
         leaves = [x.clone().requires_grad_(True), w,
@@ -738,21 +836,14 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
         lambda: torch.autograd.grad(yk, lk, g, retain_graph=True), ())
     dx["plain_autograd_bwd_ms"] = event_time_ms(
         lambda: torch.autograd.grad(yp, lp, g, retain_graph=True), ())
-    rows.append(dx)
-    print(f"[train-kernel] K1 as dx {dx['shape']}: err {err:.3e}; "
+    print(f"[train-kernel] K1 {dx['shape']}: "
           f"_FusedTTLinear backward vs plain autograd rel err "
           + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in grad_err.items())
           + f"; Function backward {dx['function_bwd_ms']:.4f} ms, plain "
           f"autograd {dx['plain_autograd_bwd_ms']:.4f} ms", flush=True)
     for r_ in rows:
-        if r_["ms"] is None:
-            continue
-        print(f"[kernel] {r_['name']:24s} {r_['shape']:40s} "
-              f"err={r_['max_abs_err']:.3e} ms={r_['ms']:.4f} "
-              f"plain_ms={r_['plain_ms']:.4f} "
-              f"library_ms={r_['library_ms']:.4f} "
-              f"bound_ms={r_['bound_ms']:.4f} ({r_['bound_by']})",
-              flush=True)
+        if r_["ms"] is not None:
+            print_row(r_, width=40)
     return rows
 
 
@@ -1439,15 +1530,17 @@ def phase_training(dev):
                                                tr.state.adapter["cores"])]
     if not (norms[0] == 0.0 and norms[1] > 0.0):
         raise AssertionError(f"the adapter did not move: ||ΔW|| {norms}")
-    need = ("tt_linear", "flash_attention_fwd", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkv")
-    for name in need:
-        if launches[name] < 1:
-            raise AssertionError(f"{name} never launched during train")
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        if launches[name] != cfg.num_layers * steps:   # one backward a layer
+    # a step, per layer: K1 on q and v forward, again in the remat
+    # recompute and as dx in the backward (6), less the two dx of layer 0,
+    # whose input needs no gradient; #5 forward and recompute; #6, #7 once
+    per_step = {"tt_linear": 6 * cfg.num_layers - 2,
+                "flash_attention_fwd": 2 * cfg.num_layers,
+                "flash_attention_bwd_dq": cfg.num_layers,
+                "flash_attention_bwd_dkv": cfg.num_layers}
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
             raise AssertionError(f"{name}: {launches[name]} launches in "
-                                 f"{steps} steps, not {cfg.num_layers} a step")
+                                 f"{steps} steps, not {n} a step")
     step_ms = [round(1e3 * m["step_time_s"], 1) for _, m in tr.history[1:]]
     med = float(np.median(step_ms))
     print(f"[train] launches during train ({steps} steps): "
@@ -1460,7 +1553,7 @@ def phase_training(dev):
           f"{ranks}; ||ΔW|| {norms[0]:.3e} -> {norms[1]:.3e}", flush=True)
     # one more step (past total_steps: lr 0) under the profiler
     device_share("one training step", lambda: tr.train(steps + 1), top_n=12,
-                 show=("flash_bwd",))
+                 show=("flash_bwd", "flash_fwd", "tt_linear"))
     tokens = torch.as_tensor(next(data)["tokens"][:1], device=dev)
     grad_check(cfg, tr.spec, tr.base, torch.Generator(
         device=dev).manual_seed(SEED + 2), tokens, dev)
@@ -1517,11 +1610,14 @@ def main() -> int:
             library_ms=main_row["library_ms"], shape=main_row["shape"])
         if "library" in main_row:
             rec["library"] = main_row["library"]
-        for r in mine:
-            if r.get("role") == "dx":   # K1 again, in the training backward
-                rec["dx"] = {k: r[k] for k in (
+        for r in mine:   # K1 again, at the training shape
+            if r.get("role"):
+                rec[r["role"]] = {k: r[k] for k in (
                     "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "function_bwd_ms", "plain_autograd_bwd_ms")}
+                    "bound_by", "tflops", "variant", "variants",
+                    "function_bwd_ms", "plain_autograd_bwd_ms") if k in r}
+            elif r["main"] and "variant" in r:
+                rec.update(variant=r["variant"], variants=r["variants"])
         records.append(rec)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into ``build/lib<name>.so``
 at the repository root (``REPRO_TORCH_BUILD_DIR`` overrides the
 directory) and is loaded with ``ctypes``: a plain C interface, device
-pointers and the CUDA stream passed as ``c_void_p``. A library is rebuilt
-when its source is newer. ``build_all`` starts one ``nvcc`` per source at
-once; ``library`` builds on first use.
+pointers and the CUDA stream passed as ``c_void_p``. The sources share
+the Hopper helpers of ``csrc/*.cuh`` (``-I csrc``); a library is rebuilt
+when its source or any header is newer. ``build_all`` starts one ``nvcc``
+per source at once; ``library`` builds on first use.
 
 Nothing here runs at import time, so the CPU tests import every kernel
 module without a CUDA toolkit. There is no fallback: a missing ``nvcc``,
@@ -55,8 +56,10 @@ def _lib_path(name: str) -> pathlib.Path:
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
 def _start(name: str) -> tuple:
@@ -65,8 +68,8 @@ def _start(name: str) -> tuple:
     tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
     log = open(out / f"{name}.build.log", "w")
     cmd = [_nvcc(), *ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-lineinfo", "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+           "-fPIC", "-Xptxas", "-v", "-lineinfo", "-I", str(CSRC), "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     return proc, tmp, log
 

@@ -14,219 +14,251 @@
 //   (B, S, KV, d) cache, masked by the slot's position.
 //
 // What bounds them on an H100:
-//   * prefill (T = S <= 256, d = 64): 4·T·S·d flops per head against
-//     (T + 2S)·d·2 bytes — at most ~85 flops/byte, under the ~295 balance
-//     point, so the kernel wants to read q/k/v once and never write the
-//     (T, S) scores to device memory. One block per (q tile, head, batch)
-//     keeps S, P and the running output in shared memory; the causal
-//     tile skip drops the tiles above the diagonal; the KV head h / G is
-//     read through strides, so no repeated or transposed copy exists.
+//   * the forward: 4·d flops per (query, key) pair against one read of q,
+//     k, v and one write of o (and lse). At the training shape (B = 4,
+//     T = S = 1024, H = KV = 32, d = 64, causal) that is 17.2 GFLOP
+//     against 67 MB: 0.017 ms of tensor-core time against 0.020 ms of
+//     bytes, so only `wgmma` at a good share of its rate, with q/k/v read
+//     once and no (T, S) tensor in device memory, gets near the bound.
+//     Prefill (T = S ≤ ~300 a request) is far smaller and bound by
+//     latency; it shares the kernel.
 //   * decode: ~4 flops per cache byte — purely bound by reading the
 //     cache cells 0..pos[b]. One block per (kv head, slot) reads each K/V
 //     row once for all G query heads of its group; cells past pos[b] are
 //     never touched. Four warps split the cells and merge their partial
 //     softmax states at the end.
-// Numerics follow the TPU kernels: scores in f32, masked entries set to
-// -1e30, p rounded to v's dtype (bf16) before P·V, l floored at 1e-30
-// (so an empty row yields 0, never NaN), output rounded once to bf16; lse
-// is taken from the same floored l.
+//
+// The forward's design (the recipe of flash_attention_bwd.cu):
+//  - one warpgroup owns 64 query rows, its q tile resident in shared
+//    memory in the 128-byte swizzled layout; a block holds one warpgroup
+//    (several blocks an SM) or two (128 rows sharing each K/V tile), the
+//    launcher's choice;
+//  - S = Q·Kᵀ is a `wgmma` m64n64k16 product with both operands in shared
+//    memory, K read K-major from the tile that arrived;
+//  - the online softmax runs on the f32 accumulator registers: a row's
+//    values sit in the 4 lanes of a quad, so its max takes two shfl.xor
+//    and its sum is kept a lane and reduced once at the end;
+//  - p is rounded to bf16 in registers in the accumulator layout, which is
+//    the A-operand layout of O += P·V, a `wgmma` with V read MN-major
+//    (transposed) from the same tile;
+//  - O stays in f32 registers for the whole KV loop (d/2 a thread), where
+//    the correction factor is applied;
+//  - K/V tiles of 64 keys stream through a three-stage cp.async ring that
+//    zero-fills keys ≥ S; each thread fences (fence.proxy.async) before
+//    the barrier that precedes the products, and a tile's P·V is waited
+//    for only after the next tile's S product is issued;
+//  - under causal masking the tiles above the diagonal are skipped (per
+//    warpgroup), only the diagonal and the S edge are masked, and the
+//    longest query tiles launch first.
+// Numerics follow the TPU kernels: scores in f32 scaled by 1/sqrt(d)
+// (carried in log2 units, so exp is one ex2), masked entries at -1e30 and
+// their p at 0, l summed from the f32 p, p rounded to v's dtype (bf16)
+// before P·V, l floored at 1e-30 (an empty row yields 0, never NaN),
+// output rounded once to bf16; lse = m + log(l) from the same floored l.
 //
 // The C functions return cudaGetLastError() of the launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include <math.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr float NEG = -1e30f;
 
-// ---------------------------------------------------------------- prefill
+// ---------------------------------------------------------------- forward
 
-constexpr int FBQ = 64;   // query rows per block (16 per warp)
-constexpr int FBKV = 64;  // keys per tile
-constexpr int FNW = 4;    // warps per block
+constexpr int FWD_BN = 64;       // keys per streamed tile
+constexpr int FWD_STAGES = 3;    // depth of the K/V ring
 
-template <int D>
-struct FlashSmem {
-  static constexpr int DS = D + 8;      // bf16 stride of q/k/v tiles
-  static constexpr int SS = FBKV + 4;   // f32 stride of the score tile
-  static constexpr int PS = FBKV + 8;   // bf16 stride of the P tile
-  static constexpr int OS = D + 4;      // f32 stride of the output rows
-  static constexpr int Q = 0;
-  static constexpr int K = Q + FBQ * DS * 2;
-  static constexpr int V = K + FBKV * DS * 2;
-  static constexpr int S = V + FBKV * DS * 2;
-  static constexpr int P = S + FNW * 16 * SS * 4;
-  static constexpr int O = P + FNW * 16 * PS * 2;
-  static constexpr int TOTAL = O + FNW * 16 * OS * 4;
-  static_assert(K % 128 == 0 && V % 128 == 0 && S % 128 == 0 &&
-                    P % 128 == 0 && O % 128 == 0,
-                "shared-memory regions must stay 128-byte aligned");
+// 12 element strides: batch, row, head of q, k, v and o
+struct FwdStrides {
+  long long s[12];
 };
 
-template <int D>
-__global__ void __launch_bounds__(FNW * 32)
+template <int D, int NWG>
+struct FwdSmem {
+  static constexpr int BM = 64 * NWG;          // query rows a block
+  static constexpr int RES = BM * D * 2;       // resident q
+  static constexpr int STR = FWD_BN * D * 2;   // a streamed k or v tile
+  static constexpr int Q = 0;
+  static constexpr int K = Q + RES;            // FWD_STAGES k tiles
+  static constexpr int V = K + FWD_STAGES * STR;
+  static constexpr int TOTAL = V + FWD_STAGES * STR;
+  static_assert(RES % 1024 == 0 && STR % 1024 == 0,
+                "tiles must keep the 1024-byte alignment of the swizzle");
+};
+
+template <int D, int NWG>
+constexpr int fwd_min_blocks() {   // blocks an SM the registers allow
+  return NWG == 1 ? (D == 64 ? 3 : 2) : (D == 64 ? 2 : 1);
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128, (fwd_min_blocks<D, NWG>()))
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int T, int S, int H, int KV,
-                 int kv_len, int causal, float scale,
-                 long long qsb, long long qst, long long qsh, long long ksb,
-                 long long kss, long long ksh, long long vsb, long long vss,
-                 long long vsh, long long osb, long long ost,
-                 long long osh) {
-  using L = FlashSmem<D>;
-  constexpr int DS = L::DS, SS = L::SS, PS = L::PS, OS = L::OS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::V);
+                 int causal, float scale, const FwdStrides sd) {
+  using L = FwdSmem<D, NWG>;
+  constexpr int NT = NWG * 128, BM = L::BM, BN = FWD_BN;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* ssw = reinterpret_cast<float*>(smem + L::S) + warp * 16 * SS;
-  bf16* pw = reinterpret_cast<bf16*>(smem + L::P) + warp * 16 * PS;
-  float* osw = reinterpret_cast<float*>(smem + L::O) + warp * 16 * OS;
-
-  const int q0 = blockIdx.x * FBQ, h = blockIdx.y, bb = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const int nqt = (T + BM - 1) / BM;   // longest tiles first under causal
+  const int q0 = (causal ? nqt - 1 - (int)blockIdx.z : (int)blockIdx.z) * BM;
   const int kvh = h / (H / KV);
-  const bf16* qb = q + bb * qsb + h * qsh;
-  const bf16* kb = k + bb * ksb + kvh * ksh;
-  const bf16* vb = v + bb * vsb + kvh * vsh;
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
+  const bf16* qb = q + bb * sd.s[0] + h * sd.s[2];
+  const bf16* kb = k + bb * sd.s[3] + kvh * sd.s[5];
+  const bf16* vb = v + bb * sd.s[6] + kvh * sd.s[8];
 
-  for (int c = tid; c < FBQ * (D / 8); c += FNW * 32) {
-    const int row = c / (D / 8), col = (c % (D / 8)) * 8;
-    const int t = q0 + row;
-    *reinterpret_cast<uint4*>(qs + row * DS + col) =
-        t < T ? *reinterpret_cast<const uint4*>(qb + t * qst + col) : zero4;
-  }
-  for (int i = lane; i < 16 * D; i += 32) osw[(i / D) * OS + i % D] = 0.f;
+  // the block's key tiles, and this warpgroup's (64 rows from qw on)
+  const int qw = q0 + 64 * wg;
+  const int nkv = ((causal ? min(S, q0 + BM) : S) + BN - 1) / BN;
+  const int nkv_wg =
+      causal ? min(nkv, (min(S, qw + 64) + BN - 1) / BN) : nkv;
 
-  const int myrow = lane >> 1, half = lane & 1;  // two lanes per query row
-  const int qi = q0 + warp * 16 + myrow;
-  float m_i = NEG, l_i = 0.f;
+  load_tile<BM, D, NT>(base + L::Q, qb, sd.s[1], q0, T, tid);
+  auto issue = [&](int j) {
+    const int st = j % FWD_STAGES;
+    load_tile<BN, D, NT>(base + L::K + st * L::STR, kb, sd.s[4], j * BN, S,
+                         tid);
+    load_tile<BN, D, NT>(base + L::V + st * L::STR, vb, sd.s[7], j * BN, S,
+                         tid);
+  };
+  issue(0);
+  cp_async_commit();
 
-  int kv_end = kv_len;
-  if (causal) kv_end = min(kv_end, q0 + FBQ);  // tiles above the diagonal
-  const int nkv = (kv_end + FBKV - 1) / FBKV;
+  // this thread's accumulator rows qa and qa + 8
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int ra = warp * 16 + (lane >> 2), ca = 2 * (lane & 3);
+  const int qa = qw + ra;
+  const float sl2 = scale * LOG2E;   // scores in log2 units
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
 
   for (int j = 0; j < nkv; ++j) {
-    const int k0 = j * FBKV;
-    __syncthreads();  // previous K/V tile consumed (and Q stored at j == 0)
-    for (int c = tid; c < FBKV * (D / 8); c += FNW * 32) {
-      const int row = c / (D / 8), col = (c % (D / 8)) * 8;
-      const int s = k0 + row;
-      const bool ok = s < S;
-      *reinterpret_cast<uint4*>(ks + row * DS + col) =
-          ok ? *reinterpret_cast<const uint4*>(kb + s * kss + col) : zero4;
-      *reinterpret_cast<uint4*>(vs + row * DS + col) =
-          ok ? *reinterpret_cast<const uint4*>(vb + s * vss + col) : zero4;
+    const int st = j % FWD_STAGES;
+    cp_async_wait<0>();   // tile j (and, at j = 0, q) has landed
+    fence_proxy_async();
+    __syncthreads();      // ... for every thread; every warpgroup has
+                          // waited for its P·V of tile j - 2
+    if (j + 1 < nkv) issue(j + 1);   // into the stage of tile j - 2
+    cp_async_commit();
+    if (j >= nkv_wg) {    // above this warpgroup's diagonal
+      wg_wait<0>();
+      continue;
     }
-    __syncthreads();
+    const int k0 = j * BN;
+    const uint32_t kt = base + L::K + st * L::STR;
+    const uint32_t vt = base + L::V + st * L::STR;
+    float s[BN / 2];
+    reg_fence(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)   // S = Q·Kᵀ
+      WgSS<BN>::mma(s, desc_k<BM>(base + L::Q, 64 * wg, kk),
+                    desc_k<BN>(kt, 0, kk), kk);
+    wg_commit();
+    wg_wait<0>();   // S, and the previous tile's P·V, are done
+    reg_fence(s);
+    reg_fence(oacc);
 
-    // S = Q · K^T for this warp's 16 query rows
+    const bool edge = k0 + BN > S || (causal && k0 + BN - 1 > qw);
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int jn = 0; jn < FBKV / 16; ++jn) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-      wmma::fill_fragment(sc, 0.f);
+    for (int c = 0; c < BN / 8; ++c)
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, qs + warp * 16 * DS + kk, DS);
-        wmma::load_matrix_sync(fb, ks + jn * 16 * DS + kk, DS);
-        wmma::mma_sync(sc, fa, fb, sc);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * c + e] * sl2;
+        if (edge) {
+          const int ki = k0 + 8 * c + ca + (e & 1), qi = qa + 8 * (e >> 1);
+          if (!(ki < S && (!causal || qi >= ki))) x = NEG;
+        }
+        s[4 * c + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      wmma::store_matrix_sync(ssw + jn * 16, sc, SS, wmma::mem_row_major);
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {   // the row's max over its quad
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
     }
-    __syncwarp();
-
-    // online softmax: lanes (2r, 2r+1) own row r, 32 columns each
-    const float* srow = ssw + myrow * SS + half * 32;
-    float sv[32];
-    float mx = NEG;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int ki = k0 + half * 32 + c;
-      const bool ok = ki < kv_len && (!causal || qi >= ki);
-      sv[c] = ok ? srow[c] * scale : NEG;
-      mx = fmaxf(mx, sv[c]);
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = ex2(s[i] - m[r]);
+      if (edge && s[i] == NEG) p = 0.f;
+      s[i] = p;
+      rs[r] += p;
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    float sum = 0.f;
-    bf16* prow = pw + myrow * PS + half * 32;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int ki = k0 + half * 32 + c;
-      const bool ok = ki < kv_len && (!causal || qi >= ki);
-      const float p = ok ? expf(sv[c] - m_new) : 0.f;
-      sum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float corr = expf(m_i - m_new);
-    l_i = l_i * corr + sum;
-    m_i = m_new;
-    float* orow = osw + myrow * OS + half * (D / 2);
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
-    __syncwarp();
-
-    // O += P · V
+    for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
+    uint32_t pa[BN / 16][4];
+    to_a<BN>(pa, s);
+    reg_fence(pa);
+    reg_fence(oacc);
+    wg_fence();
 #pragma unroll
-    for (int jd = 0; jd < D / 16; ++jd) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oc;
-      wmma::load_matrix_sync(oc, osw + jd * 16, OS, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < FBKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, pw + kk, PS);
-        wmma::load_matrix_sync(fb, vs + kk * DS + jd * 16, DS);
-        wmma::mma_sync(oc, fa, fb, oc);
-      }
-      wmma::store_matrix_sync(osw + jd * 16, oc, OS, wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int kk = 0; kk < BN / 16; ++kk)   // O += P·V
+      WgRS<D>::mma(oacc, pa[kk], desc_mn<BN>(vt, kk));
+    wg_commit();   // waited for after the next tile's S product
   }
+  cp_async_wait<0>();
+  wg_wait<0>();
+  reg_fence(oacc);
 
-  if (qi < T) {
-    const float l = fmaxf(l_i, 1e-30f);
-    bf16* orow = o + bb * osb + qi * ost + h * osh + half * (D / 2);
-    const float* src = osw + myrow * OS + half * (D / 2);
+  bf16* ob = o + bb * sd.s[9] + h * sd.s[11];
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] = __float2bfloat16(src[c] / l);
-    if (lse != nullptr && half == 0)
-      lse[((size_t)bb * H + h) * T + qi] = m_i + logf(l);
+  for (int r = 0; r < 2; ++r) {   // l: each lane kept its columns' share
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    const int qi = qa + 8 * r;
+    if (qi < T) {
+      const float inv = 1.f / l[r];
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(ob + qi * sd.s[10] + 8 * c +
+                                           ca) =
+            __floats2bfloat162_rn(oacc[4 * c + 2 * r] * inv,
+                                  oacc[4 * c + 2 * r + 1] * inv);
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(static_cast<size_t>(bb) * H + h) * T + qi] =
+            m[r] / LOG2E + logf(l[r]);
+    }
   }
 }
 
-template <int D>
-int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 void* lse, int B, int T, int S, int H, int KV, int kv_len,
-                 int causal, const long long* st, void* stream) {
-  constexpr int smem = FlashSmem<D>::TOTAL;
-  auto kern = flash_fwd_kernel<D>;
-  static bool attr_set = false;
-  if (smem > 48 * 1024 && !attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  dim3 grid((T + FBQ - 1) / FBQ, H, B);
-  const float scale = 1.0f / sqrtf((float)D);
-  kern<<<grid, FNW * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), T, S, H, KV, kv_len, causal, scale, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11]);
+template <int D, int NWG>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int T, int S, int H, int KV, int causal,
+               const long long* st, void* stream) {
+  using L = FwdSmem<D, NWG>;
+  constexpr int smem = L::TOTAL + 1024;   // + the alignment slack
+  static bool done = false;
+  cudaError_t e = allow_smem(flash_fwd_kernel<D, NWG>, smem, &done);
+  if (e != cudaSuccess) return (int)e;
+  FwdStrides sd;
+  for (int i = 0; i < 12; ++i) sd.s[i] = st[i];
+  dim3 grid(H, B, (T + L::BM - 1) / L::BM);
+  flash_fwd_kernel<D, NWG>
+      <<<grid, NWG * 128, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(o),
+          static_cast<float*>(lse), T, S, H, KV, causal,
+          1.0f / sqrtf((float)D), sd);
   return (int)cudaGetLastError();
 }
 
@@ -393,22 +425,28 @@ extern "C" {
 // q (B, T, H, d), k/v (B, S, KV, d), o (B, T, H, d), bf16, last dim
 // contiguous. strides: 12 element strides (q: b, t, h; k: b, s, kv;
 // v: b, s, kv; o: b, t, h), each a multiple of 8 with 16-byte aligned
-// bases. Keys at index >= kv_len are masked; causal masks ki > qi.
-// lse: nullptr (prefill), or (B, H, T) f32 contiguous, written with the
-// per-row log-sum-exp (the training forward).
+// bases. Causal masks ki > qi. lse: nullptr (prefill), or (B, H, T) f32
+// contiguous, written with the per-row log-sum-exp (the training
+// forward). variant: 1 one warpgroup a block, 2 two warpgroups a block
+// (the wrapper chooses; kernels/flash_attention.py).
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, void* lse, int B, int T, int S, int H,
-                         int KV, int d, int kv_len, int causal,
+                         int KV, int d, int causal, int variant,
                          const long long* strides, void* stream) {
-  if (B < 1 || T < 1 || S < 1 || KV < 1 || H % KV != 0 || kv_len > S)
+  if (B < 1 || T < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 ||
+      (T + 63) / 64 > 65535 || (d != 64 && d != 128))
     return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return launch_flash<64>(q, k, v, o, lse, B, T, S, H, KV, kv_len, causal,
-                            strides, stream);
-  if (d == 128)
-    return launch_flash<128>(q, k, v, o, lse, B, T, S, H, KV, kv_len,
-                             causal, strides, stream);
-  return (int)cudaErrorInvalidValue;
+  switch (variant * 1000 + d) {
+    case 1064: return launch_fwd<64, 1>(q, k, v, o, lse, B, T, S, H, KV,
+                                        causal, strides, stream);
+    case 1128: return launch_fwd<128, 1>(q, k, v, o, lse, B, T, S, H, KV,
+                                         causal, strides, stream);
+    case 2064: return launch_fwd<64, 2>(q, k, v, o, lse, B, T, S, H, KV,
+                                        causal, strides, stream);
+    case 2128: return launch_fwd<128, 2>(q, k, v, o, lse, B, T, S, H, KV,
+                                         causal, strides, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // q (B, H, d), k/v (B, S, KV, d) dense cache, pos (B,) int32, o (B, H, d).

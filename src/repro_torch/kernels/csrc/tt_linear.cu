@@ -41,15 +41,15 @@
 // The C functions take device pointers and the CUDA stream as opaque
 // pointers and return cudaGetLastError() of the launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
+
+using namespace hopper;
 
 constexpr int PAD_H = 8;   // bf16 row pad: 16 bytes
 constexpr int PAD_F = 4;   // f32 row pad: 16 bytes
@@ -61,20 +61,6 @@ constexpr int WQ_NONE = 0, WQ_CHANNEL = 1, WQ_GROUP = 2;
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // vec flags: which operands take the 16-byte cp.async path
@@ -188,7 +174,7 @@ tt_linear_kernel(const bf16* __restrict__ x, const void* __restrict__ wv,
         const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
         const int gm = m0 + row, gk = k0 + col;
         const bool ok = gm < M && gk < K;
-        cp_async16(xd + row * XS + col, ok ? x + (size_t)gm * K + gk : x,
+        cp_async16(smem_u32(xd + row * XS + col), ok ? x + (size_t)gm * K + gk : x,
                    ok ? 16 : 0);
       }
       if (WQ != WQ_NONE) {  // 16 int8 values a copy
@@ -196,14 +182,14 @@ tt_linear_kernel(const bf16* __restrict__ x, const void* __restrict__ wv,
           const int row = c / (BN / 16), col = (c % (BN / 16)) * 16;
           const int gk = k0 + row, gn = n0 + col;
           const bool ok = gk < K && gn < N;
-          cp_async16(wq + row * QS + col,
+          cp_async16(smem_u32(wq + row * QS + col),
                      ok ? w8 + (size_t)gk * N + gn : w8, ok ? 16 : 0);
         }
       } else for (int c = tid; c < BK * (BN / 8); c += NT) {
         const int row = c / (BN / 8), col = (c % (BN / 8)) * 8;
         const int gk = k0 + row, gn = n0 + col;
         const bool ok = gk < K && gn < N;
-        cp_async16(wd + row * WS + col, ok ? w + (size_t)gk * N + gn : w,
+        cp_async16(smem_u32(wd + row * WS + col), ok ? w + (size_t)gk * N + gn : w,
                    ok ? 16 : 0);
       }
     } else {
@@ -230,7 +216,7 @@ tt_linear_kernel(const bf16* __restrict__ x, const void* __restrict__ wv,
           const int row = c / (r / 8), col = (c % (r / 8)) * 8;
           const int gk = k0 + row;
           const bool ok = gk < K;
-          cp_async16(ad + row * AS + col, ok ? a + (size_t)gk * r + col : a,
+          cp_async16(smem_u32(ad + row * AS + col), ok ? a + (size_t)gk * r + col : a,
                      ok ? 16 : 0);
         }
       } else {
@@ -248,7 +234,7 @@ tt_linear_kernel(const bf16* __restrict__ x, const void* __restrict__ wv,
           const int kk = rest / (r / 8), col = (rest % (r / 8)) * 8;
           const int gk = k0 + kk;
           const bool ok = gk < K;
-          cp_async16(ad + (m * BK + kk) * ra + col,
+          cp_async16(smem_u32(ad + (m * BK + kk) * ra + col),
                      ok ? a + ((size_t)(m0 + m) * K + gk) * r + col : a,
                      ok ? 16 : 0);
         }
@@ -502,8 +488,9 @@ int launch(const void* x, const void* w, const float* wscale, const void* a,
   return (int)cudaGetLastError();
 }
 
-// K1 (shared A): 64 x 64 output tiles, BK 64 in a 4-stage ring, or BK 32
-// in 2 stages when a large rank's A tiles do not fit
+// The template kernel with one shared A (#9; K1 at ranks above
+// RANK_WGMMA): 64 x 64 output tiles, BK 64 in a 4-stage ring, or BK 32 in
+// 2 stages when a large rank's A tiles do not fit
 template <int WQ>
 int run_shared_a(const void* x, const void* w, const float* wscale,
                  const void* a, const void* b, void* y, int M, int N, int K,
@@ -540,18 +527,341 @@ int run_batched_a(const void* x, const void* w, const float* wscale,
       x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
 }
 
+
+// ------------------------------------------------- K1 on `wgmma`
+//
+// y = x·W + alpha·(x·A)·B for ranks up to RANK_WGMMA, the training
+// forward and dx and the serving prefill. A block owns a 128 x 128 output
+// tile: two warpgroups of 64 rows, each a `wgmma` m64n128k16 from
+// 128-byte swizzled tiles of x (K-major) and W — MN-major when W is
+// (K, N) row-major (the forward), K-major when it is a transposed view
+// (dx reads W through its strides as Wᵀ: no copy exists). In the same K
+// loop a second `wgmma` m64nRPk16 sums P = x·A from the same x tile into
+// a small f32 register accumulator (r padded to RP = 16 or 64). x, W and
+// A tiles of 64 K columns come through a three-stage cp.async ring; a
+// tile's products are waited for before the barrier after which its
+// stage is refilled, so two tiles are in flight while one is consumed,
+// and two blocks share an SM at RP = 16. Operands that cannot take
+// 16-byte copies (ragged or odd strides, a row-major A) are read eight
+// elements at a time, in a separate instantiation: the all-vector one
+// carries no such code and fits 128 registers a thread. The model builds
+// A K-contiguous (peft/api.py), as Bᵀ in dx already is. Epilogue: P goes
+// through a small shared-memory tile,
+// B's (RP, 128) tile was loaded once a block, and each thread adds
+// alpha·P·B to its accumulators in f32 — P is never rounded to bf16 —
+// then rounds once to bf16 on the store. Ragged M / N / K are zero-filled
+// on load and masked on the store.
+
+constexpr int LBM = 128, LBN = 128, LBK = 64;   // output tile, K tile
+constexpr int LSTAGES = 3;                      // depth of the ring
+constexpr int LNT = 256;                        // two warpgroups
+constexpr int RANK_WGMMA = 64;   // larger ranks run the template kernel
+constexpr int LV_X = 1, LV_W = 2, LV_A = 4;     // 16-byte copy paths
+
+// element strides: W (k, n), A (k, j), B (j, n)
+struct LinStrides {
+  long long s[6];
+};
+
+template <int RP>
+struct LinSmem {
+  static constexpr int XS = LBM * LBK * 2;    // an x tile
+  static constexpr int WS = LBK * LBN * 2;    // a W tile
+  static constexpr int AS = RP * LBK * 2;     // an A tile (rows j, K-major)
+  static constexpr int X = 0;
+  static constexpr int W = X + LSTAGES * XS;
+  static constexpr int A = W + LSTAGES * WS;
+  static constexpr int B = A + LSTAGES * AS;  // B's tile, bf16, once
+  static constexpr int TOTAL = B + RP * LBN * 2;
+  static constexpr int PS = RP + 4;           // f32 row of the staged P
+  static constexpr int ACH = RP * LBK / 8;    // 16-byte chunks of A
+  static constexpr int APER = (ACH + LNT - 1) / LNT;   // a thread's
+  static_assert(AS % 1024 == 0,
+                "tiles must keep the 1024-byte alignment of the swizzle");
+  static_assert(LBM * PS * 4 <= LSTAGES * XS,
+                "P is staged where the x ring was");
+};
+
+__device__ __forceinline__ uint32_t elem2(const bf16* p, long long o0,
+                                          long long o1, bool ok0,
+                                          bool ok1) {
+  const uint32_t lo = ok0 ? __bfloat16_as_ushort(p[o0]) : 0u;
+  const uint32_t hi = ok1 ? __bfloat16_as_ushort(p[o1]) : 0u;
+  return lo | (hi << 16);
+}
+
+// an R-row swizzled tile of C bf16 columns from an operand read through
+// strides: element (row, col) at src[row·rs + col·cs]; rows ≥ nr and
+// columns ≥ nc are zero. vec: 16-byte cp.async (cs = 1, nc a multiple of
+// 8, aligned rows); else eight loads a chunk and one 16-byte store.
+template <int R, int C>
+__device__ __forceinline__ void load_strided(uint32_t tile, const bf16* src,
+                                             long long rs, long long cs,
+                                             int nr, int nc, bool vec,
+                                             int tid) {
+  constexpr int CPR = C / 8;
+  static_assert(R * CPR % LNT == 0, "whole rounds of 16-byte chunks");
+#pragma unroll
+  for (int i = 0; i < R * CPR / LNT; ++i) {
+    const int c = tid + i * LNT;
+    const int row = c / CPR, ch = c % CPR, col = ch * 8;
+    const uint32_t dst = tile + (ch / 8) * R * 128 + row * 128 +
+                         (((ch % 8) ^ (row % 8)) << 4);
+    if (vec) {
+      const bool ok = row < nr && col < nc;
+      cp_async16(dst, ok ? src + row * rs + col : src, ok ? 16 : 0);
+    } else {
+      uint32_t u[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c0 = col + 2 * e;
+        u[e] = elem2(src, row * rs + c0 * cs, row * rs + (c0 + 1) * cs,
+                     row < nr && c0 < nc, row < nr && c0 + 1 < nc);
+      }
+      st_shared16(dst, u);
+    }
+  }
+}
+
+template <int RP, bool WK, bool VEC>
+__global__ void __launch_bounds__(LNT, RP <= 16 ? 2 : 1)
+tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                       const bf16* __restrict__ a, const bf16* __restrict__ b,
+                       bf16* __restrict__ y, int M, int N, int K, int r,
+                       float alpha, const LinStrides ls, int vec) {
+  using L = LinSmem<RP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n0 = blockIdx.x * LBN, m0 = blockIdx.y * LBM;
+  // VEC: every operand takes 16-byte copies, and no other load path is
+  // compiled in (it would cost the registers of two blocks an SM)
+  const bool vx = VEC || (vec & LV_X), vw = VEC || (vec & LV_W),
+             va = VEC || (vec & LV_A);
+  const long long wsk = ls.s[0], wsn = ls.s[1], ask = ls.s[2],
+                  asj = ls.s[3];
+
+  // B's (RP, 128) tile for the epilogue, once a block; rows ≥ r and
+  // columns ≥ N zero
+  bf16* bs = reinterpret_cast<bf16*>(smem + L::B);
+  for (int i = tid; i < RP * LBN; i += LNT) {
+    const int j = i / LBN, c = i % LBN;
+    bs[i] = (j < r && n0 + c < N) ? b[j * ls.s[4] + (n0 + c) * ls.s[5]]
+                                  : __float2bfloat16(0.f);
+  }
+
+  // A's tile (rows j < RP, 64 K columns, K-major): 16-byte copies when
+  // A's K stride is 1 (the model's factors, and Bᵀ in dx), else eight
+  // loads a chunk
+  auto put_a = [&](int kt) {
+    const uint32_t tile = base + L::A + (kt % LSTAGES) * L::AS;
+#pragma unroll
+    for (int i = 0; i < L::APER; ++i) {
+      const int c = tid + i * LNT, j = c / 8, ch = c % 8;
+      if (c >= L::ACH) break;
+      const uint32_t dst = tile + j * 128 + ((ch ^ (j % 8)) << 4);
+      const int k = kt * LBK + ch * 8;
+      if (va) {
+        const bool ok = j < r && k < K;
+        cp_async16(dst, ok ? a + j * asj + k : a, ok ? 16 : 0);
+      } else {
+        uint32_t u[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          u[e] = elem2(a, (k + 2 * e) * ask + j * asj,
+                       (k + 2 * e + 1) * ask + j * asj,
+                       j < r && k + 2 * e < K, j < r && k + 2 * e + 1 < K);
+        st_shared16(dst, u);
+      }
+    }
+  };
+  auto issue_xw = [&](int kt) {
+    const int st = kt % LSTAGES, k0 = kt * LBK;
+    load_strided<LBM, LBK>(base + L::X + st * L::XS,
+                           x + static_cast<long long>(m0) * K + k0, K, 1,
+                           M - m0, K - k0, vx, tid);
+    if (WK)
+      load_strided<LBN, LBK>(base + L::W + st * L::WS,
+                             w + n0 * wsn + k0 * wsk, wsn, wsk, N - n0,
+                             K - k0, vw, tid);
+    else
+      load_strided<LBK, LBN>(base + L::W + st * L::WS,
+                             w + k0 * wsk + n0 * wsn, wsk, wsn, K - k0,
+                             N - n0, vw, tid);
+  };
+
+  const int nk = (K + LBK - 1) / LBK;
+#pragma unroll
+  for (int kt = 0; kt < LSTAGES - 1; ++kt) {
+    if (kt < nk) {
+      issue_xw(kt);
+      put_a(kt);
+    }
+    cp_async_commit();
+  }
+
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int ra = 64 * wg + warp * 16 + (lane >> 2), ca = 2 * (lane & 3);
+  const bool live = m0 + 64 * wg < M;   // this warpgroup has rows
+  float acc[LBN / 2], p[RP / 2];
+#pragma unroll
+  for (int i = 0; i < LBN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < RP / 2; ++i) p[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % LSTAGES;
+    cp_async_wait<LSTAGES - 2>();   // tile kt has landed
+    fence_proxy_async();
+    __syncthreads();   // ... for every thread; every warpgroup has waited
+                       // for its products of tile kt - 1, whose stage
+    if (kt + LSTAGES - 1 < nk) {   // now takes tile kt + 2
+      issue_xw(kt + LSTAGES - 1);
+      put_a(kt + LSTAGES - 1);
+    }
+    cp_async_commit();
+    if (!live) continue;
+    const uint32_t xt = base + L::X + st * L::XS;
+    const uint32_t wt = base + L::W + st * L::WS;
+    const uint32_t at = base + L::A + st * L::AS;
+    reg_fence(acc);
+    reg_fence(p);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < LBK / 16; ++kk) {
+      const uint64_t dx = desc_k<LBM>(xt, 64 * wg, kk);
+      WgSS<LBN, WK ? 0 : 1>::mma(
+          acc, dx, WK ? desc_k<LBN>(wt, 0, kk) : desc_mn<LBK>(wt, kk), 1);
+      WgSS<RP>::mma(p, dx, desc_k<RP>(at, 0, kk), 1);   // P += x·A
+    }
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(acc);
+    reg_fence(p);
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: stage P where x was
+
+  float* ps = reinterpret_cast<float*>(smem + L::X);
+#pragma unroll
+  for (int c = 0; c < RP / 8; ++c)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(ps + (ra + 8 * hh) * L::PS + 8 * c + ca) =
+          make_float2(p[4 * c + 2 * hh], p[4 * c + 2 * hh + 1]);
+  __syncthreads();
+  for (int j = 0; j < r; ++j) {   // acc += alpha·P·B, in f32
+    const float p0 = alpha * ps[ra * L::PS + j];
+    const float p1 = alpha * ps[(ra + 8) * L::PS + j];
+    const bf16* brow = bs + j * LBN + ca;
+#pragma unroll
+    for (int c = 0; c < LBN / 8; ++c) {
+      const float2 bv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(brow + 8 * c));
+      acc[4 * c] += p0 * bv.x;
+      acc[4 * c + 1] += p0 * bv.y;
+      acc[4 * c + 2] += p1 * bv.x;
+      acc[4 * c + 3] += p1 * bv.y;
+    }
+  }
+
+  const bool pairs = (N & 1) == 0;   // bf16x2 stores stay aligned
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int gm = m0 + ra + 8 * hh;
+    if (gm >= M) continue;
+    bf16* yr = y + static_cast<long long>(gm) * N;
+#pragma unroll
+    for (int c = 0; c < LBN / 8; ++c) {
+      const int gn = n0 + 8 * c + ca;
+      const float v0 = acc[4 * c + 2 * hh], v1 = acc[4 * c + 2 * hh + 1];
+      if (pairs && gn + 1 < N) {
+        *reinterpret_cast<__nv_bfloat162*>(yr + gn) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (gn < N) yr[gn] = __float2bfloat16(v0);
+        if (gn + 1 < N) yr[gn + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+template <int RP, bool WK, bool VEC>
+int launch_wgmma(const void* x, const void* w, const void* a, const void* b,
+                 void* y, int M, int N, int K, int r, float alpha,
+                 const LinStrides& ls, int vec, void* stream) {
+  constexpr int smem = LinSmem<RP>::TOTAL + 1024;   // + the alignment slack
+  static bool done = false;
+  cudaError_t e =
+      allow_smem(tt_linear_wgmma_kernel<RP, WK, VEC>, smem, &done);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + LBN - 1) / LBN, (M + LBM - 1) / LBM);
+  tt_linear_wgmma_kernel<RP, WK, VEC>
+      <<<grid, LNT, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+          static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+          static_cast<bf16*>(y), M, N, K, r, alpha, ls, vec);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// x (M, K), w (K, N), a (K, r), b (r, N), y (M, N); all bf16, row-major,
-// contiguous. vec: VEC_XW promises K % 8 == 0, N % 8 == 0 and 16-byte
-// aligned x / w; VEC_A promises r % 8 == 0 and a 16-byte aligned a.
+// x (M, K) row-major, contiguous; w (K, N), a (K, r), b (r, N) read
+// through their element strides (w: k, n; a: k, j; b: j, n — a transposed
+// view is a stride swap, no copy); y (M, N) row-major; all bf16.
+// variant 1: the `wgmma` kernel (r <= 64); 2: the template kernel, which
+// takes contiguous w, a, b only (the wrapper chooses;
+// kernels/tt_linear.py).
 int tt_linear_bf16(const void* x, const void* w, const void* a,
                    const void* b, void* y, int M, int N, int K, int r,
-                   float alpha, int vec, void* stream) {
-  return run_shared_a<WQ_NONE>(x, w, nullptr, a, b, y, M, N, K, r, 0, alpha,
-                               vec, stream);
+                   float alpha, const long long* strides, int variant,
+                   void* stream) {
+  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 256)
+    return (int)cudaErrorInvalidValue;
+  LinStrides ls;
+  for (int i = 0; i < 6; ++i) ls.s[i] = strides[i];
+  const long long wsk = ls.s[0], wsn = ls.s[1], ask = ls.s[2],
+                  asj = ls.s[3];
+  if (variant == 2) {
+    if (wsk != N || wsn != 1 || ask != r || asj != 1 || ls.s[4] != N ||
+        ls.s[5] != 1)
+      return (int)cudaErrorInvalidValue;
+    const int vec = (K % 8 == 0 && N % 8 == 0 && aligned16(x) &&
+                     aligned16(w) ? VEC_XW : 0) |
+                    (r % 8 == 0 && aligned16(a) ? VEC_A : 0);
+    return run_shared_a<WQ_NONE>(x, w, nullptr, a, b, y, M, N, K, r, 0,
+                                 alpha, vec, stream);
+  }
+  if (variant != 1 || r > RANK_WGMMA || (M + LBM - 1) / LBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool wk = wsk == 1 && wsn != 1;   // W read as Wᵀ: K-major tiles
+  const bool vw = wk ? K % 8 == 0 && wsn % 8 == 0
+                     : wsn == 1 && N % 8 == 0 && wsk % 8 == 0;
+  const int vec = (K % 8 == 0 && aligned16(x) ? LV_X : 0) |
+                  (vw && aligned16(w) ? LV_W : 0) |
+                  (ask == 1 && asj % 8 == 0 && K % 8 == 0 && aligned16(a)
+                       ? LV_A : 0);
+  const bool all = vec == (LV_X | LV_W | LV_A);
+#define K1_ARGS x, w, a, b, y, M, N, K, r, alpha, ls, vec, stream
+  if (r <= 16)
+    return wk ? (all ? launch_wgmma<16, true, true>(K1_ARGS)
+                     : launch_wgmma<16, true, false>(K1_ARGS))
+              : (all ? launch_wgmma<16, false, true>(K1_ARGS)
+                     : launch_wgmma<16, false, false>(K1_ARGS));
+  return wk ? (all ? launch_wgmma<64, true, true>(K1_ARGS)
+                   : launch_wgmma<64, true, false>(K1_ARGS))
+            : (all ? launch_wgmma<64, false, true>(K1_ARGS)
+                   : launch_wgmma<64, false, false>(K1_ARGS));
+#undef K1_ARGS
 }
 
 // Per-row A: x (M, K), a (M, K, r); M <= 64.

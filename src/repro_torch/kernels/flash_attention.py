@@ -97,7 +97,7 @@ def decode_attention_plain(q, k, v, pos) -> torch.Tensor:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    # q k v o lse, B T S H KV d kv_len causal, strides, stream
+    # q k v o lse, B T S H KV d causal variant, strides, stream
     "flash_attention_bf16": [_P] * 5 + [_I] * 8 + [_P, _P],
     # q k v pos o, B S H KV d, strides, stream
     "decode_attention_bf16": [_P] * 5 + [_I] * 5 + [_P, _P],
@@ -155,16 +155,32 @@ def _dims(q, k) -> tuple:
             q.shape[3])
 
 
-def _launch_fwd(q, k, v, causal: bool, lse) -> torch.Tensor:
+#: the forward kernel's variants (``csrc/flash_attention.cu``): one
+#: warpgroup of 64 query rows a block, or two (128 rows sharing each K/V
+#: tile)
+FWD_VARIANTS = {"wg1": 1, "wg2": 2}
+#: queries from which two warpgroups a block run faster (measured on an
+#: H100 at d = 64: one is faster at T = 16..256, two at T = 1000, 1024)
+WG2_FROM_T = 512
+
+
+def fwd_variant(t: int) -> str:
+    """Which variant K3 / #5 launch for T queries."""
+    return "wg2" if t >= WG2_FROM_T else "wg1"
+
+
+def _launch_fwd(q, k, v, causal: bool, lse, variant=None) -> torch.Tensor:
     """K3 (lse None) or #5 (lse a (B, H, T) f32 buffer): one kernel, on
-    checked CUDA operands."""
+    checked CUDA operands; ``variant`` defaults to ``fwd_variant``'s."""
     b, t, s, h, kv, d = _dims(q, k)
+    variant = variant or fwd_variant(t)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     st = _strides(q, k, v, o)
     rc = _fn("flash_attention_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, t, s, h, kv, d, s,
-        int(causal), ctypes.cast(st, ctypes.c_void_p), _build.stream_ptr(q))
+        None if lse is None else lse.data_ptr(), b, t, s, h, kv, d,
+        int(causal), FWD_VARIANTS[variant], ctypes.cast(st, ctypes.c_void_p),
+        _build.stream_ptr(q))
     _build.check(rc, "flash_attention")
     return o
 

@@ -36,11 +36,24 @@ def tt_linear(x, w, a, b, *, alpha: float = 1.0, backend: str = "kernel"):
     return fn(xf, w, a, b, alpha).reshape(*lead, w.shape[1])
 
 
+def _split_rows(call, x, a):
+    """``call(x_rows, a_rows)`` over row chunks of at most
+    ``BATCHED_A_ROWS`` (one K2 / #10 launch each), concatenated. Rows are
+    independent — no sum crosses them — so this equals one call over all
+    rows, as the JAX package's grid over M does."""
+    n = _tl.BATCHED_A_ROWS
+    if x.shape[0] <= n:
+        return call(x, a)
+    return torch.cat([call(x[i:i + n], a[i:i + n])
+                      for i in range(0, x.shape[0], n)])
+
+
 def tt_linear_batched_a(x, w, a, b, *, alpha: float = 1.0,
                         backend: str = "kernel"):
     """y[s] = x[s]·W + α·(x[s]·A[s])·B; x (S, K) or (S, 1, K), a (S, K, r).
     The S axis is the engine's slot axis: A[s] was gathered by slot s's
-    task id, so a mixed-task decode batch is one kernel call."""
+    task id, so a mixed-task decode batch of up to 64 slots is one kernel
+    call; on the kernel backend larger S is split into ⌈S / 64⌉ calls."""
     _check(backend)
     squeeze = x.ndim == 3
     if squeeze:
@@ -48,9 +61,12 @@ def tt_linear_batched_a(x, w, a, b, *, alpha: float = 1.0,
             raise ValueError("batched-A fusion is decode-shaped (one token "
                              f"per slot); got {tuple(x.shape)}")
         x = x[:, 0]
-    fn = (_ref.tt_linear_batched_a_ref if backend == "ref"
-          else _tl.tt_linear_batched_a)
-    y = fn(x, w, a, b, alpha)
+    if backend == "ref":
+        y = _ref.tt_linear_batched_a_ref(x, w, a, b, alpha)
+    else:
+        y = _split_rows(
+            lambda xs, as_: _tl.tt_linear_batched_a(xs, w, as_, b, alpha),
+            x, a)
     return y[:, None] if squeeze else y
 
 
@@ -68,7 +84,8 @@ def tt_linear_q(x, wq, scale, a, b, *, alpha: float = 1.0,
 def tt_linear_batched_a_q(x, wq, scale, a, b, *, alpha: float = 1.0,
                           backend: str = "kernel"):
     """w8a16 per-row-A adapted linear (#10): x (S, K) or (S, 1, K),
-    a (S, K, r)."""
+    a (S, K, r); on the kernel backend ⌈S / 64⌉ calls, as
+    ``tt_linear_batched_a``."""
     _check(backend)
     squeeze = x.ndim == 3
     if squeeze:
@@ -76,9 +93,12 @@ def tt_linear_batched_a_q(x, wq, scale, a, b, *, alpha: float = 1.0,
             raise ValueError("batched-A fusion is decode-shaped (one token "
                              f"per slot); got {tuple(x.shape)}")
         x = x[:, 0]
-    fn = (_ref.tt_linear_batched_a_q_ref if backend == "ref"
-          else _tl.tt_linear_batched_a_w8)
-    y = fn(x, wq, scale, a, b, alpha)
+    if backend == "ref":
+        y = _ref.tt_linear_batched_a_q_ref(x, wq, scale, a, b, alpha)
+    else:
+        y = _split_rows(
+            lambda xs, as_: _tl.tt_linear_batched_a_w8(xs, wq, scale, as_, b,
+                                                       alpha), x, a)
     return y[:, None] if squeeze else y
 
 

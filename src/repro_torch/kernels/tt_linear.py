@@ -14,9 +14,15 @@ JAX package (no backward).
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel (bf16 only) or raises; ``LAUNCHES`` counts the
 launches, and nothing else adds to it. The training backward runs K1
-again on transposed operands (``dispatch._FusedTTLinear``). These
+again on transposed operands (``dispatch._FusedTTLinear``): K1 reads W,
+A and B through their strides, so those views are never copied. These
 wrappers make plain outputs with no ``grad_fn``: an input that requires
 grad while autograd records raises.
+
+K1 has two CUDA kernels (``k1_variant``): the `wgmma` kernel for ranks up
+to ``RANK_WGMMA``, and above it the template kernel that #9, K2 and #10
+share, which takes contiguous W, A and B (the wrapper copies them there).
+K2 and #10 take at most 64 rows a launch; ``ops.py`` splits larger M.
 """
 from __future__ import annotations
 
@@ -36,19 +42,36 @@ tt_linear_batched_a_plain = _ref.tt_linear_batched_a_ref
 tt_linear_w8_plain = _ref.tt_linear_q_ref
 tt_linear_batched_a_w8_plain = _ref.tt_linear_batched_a_q_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# x w scale a b y, M N K r G, alpha, vec, stream
-_ARGTYPES_W8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # x w a b y, M N K r, alpha, strides (w, a, b), variant, stream
+    "tt_linear_bf16": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _P],
+    # x w a b y, M N K r, alpha, vec, stream
+    "tt_linear_batched_a_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # x w scale a b y, M N K r G, alpha, vec, stream
+    "tt_linear_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+    "tt_linear_batched_a_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+}
+#: K1's CUDA kernels (``csrc/tt_linear.cu``): the `wgmma` kernel, which
+#: takes ranks up to RANK_WGMMA, and the template kernel
+K1_VARIANTS = {"wgmma": 1, "template": 2}
+RANK_WGMMA = 64
+#: rows a K2 / #10 launch takes
+BATCHED_A_ROWS = 64
 
 
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     f = getattr(_build.library("tt_linear"), name)
-    f.argtypes = _ARGTYPES_W8 if "_w8_" in name else _ARGTYPES
+    f.argtypes = _ARGTYPES[name]
     f.restype = ctypes.c_int
     return f
+
+
+def k1_variant(r: int) -> str:
+    """Which CUDA kernel K1 launches at rank r: ``"wgmma"`` (ranks up to
+    ``RANK_WGMMA``, every M) or ``"template"`` (larger ranks)."""
+    return "wgmma" if r <= RANK_WGMMA else "template"
 
 
 def _check_cuda(x, w, a, b, what: str, w_dtype=torch.bfloat16) -> None:
@@ -102,9 +125,9 @@ def _launch_w8(name, x, wq, scale, a, b, alpha, r, batched: bool):
         raise NotImplementedError(
             f"{name}: CUDA kernel built for scale groups of a multiple of "
             f"128 rows; got {k // g}")
-    if not 1 <= r <= 256 or (batched and not 1 <= m <= 64):
+    if not 1 <= r <= 256 or (batched and not 1 <= m <= BATCHED_A_ROWS):
         raise ValueError(f"{name}: rank {r} outside 1..256 or M={m} "
-                         "outside 1..64 (batched A)")
+                         f"outside 1..{BATCHED_A_ROWS} (batched A)")
     x, wq, scale, a, b = (t.contiguous() for t in (x, wq, scale, a, b))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
@@ -118,10 +141,33 @@ def _launch_w8(name, x, wq, scale, a, b, alpha, r, batched: bool):
     return y
 
 
+def _launch_k1(x, w, a, b, alpha, variant: str) -> torch.Tensor:
+    """K1 on checked CUDA operands through the named kernel (see
+    ``k1_variant``)."""
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[1]
+    x = x.contiguous()
+    if variant == "template":
+        w, a, b = (t.contiguous() for t in (w, a, b))
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    st = (ctypes.c_longlong * 6)(*w.stride(), *a.stride(), *b.stride())
+    rc = _fn("tt_linear_bf16")(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+        y.data_ptr(), m, n, k, r, float(alpha),
+        ctypes.cast(st, ctypes.c_void_p), K1_VARIANTS[variant],
+        _build.stream_ptr(x))
+    _build.check(rc, "tt_linear")
+    LAUNCHES["tt_linear"] += 1
+    return y
+
+
 def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
-    """x (M, K), w (K, N), a (K, r), b (r, N) -> y (M, N)."""
-    m, k = x.shape
+    """x (M, K), w (K, N), a (K, r), b (r, N) -> y (M, N). W, A and B may
+    be transposed views: the kernel reads them through their strides."""
+    k = x.shape[1]
     n, r = w.shape[1], a.shape[1]
     if w.shape[0] != k or a.shape[0] != k or b.shape != (r, n):
         raise ValueError(f"tt_linear shapes x{tuple(x.shape)} "
@@ -133,22 +179,13 @@ def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     _check_cuda(x, w, a, b, "tt_linear")
     if not 1 <= r <= 256:
         raise ValueError(f"tt_linear: rank {r} outside 1..256")
-    x, w, a, b = (t.contiguous() for t in (x, w, a, b))
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m == 0:
-        return y
-    rc = _fn("tt_linear_bf16")(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-        y.data_ptr(), m, n, k, r, float(alpha), _vec_flags(x, w, a, k, n, r),
-        _build.stream_ptr(x))
-    _build.check(rc, "tt_linear")
-    LAUNCHES["tt_linear"] += 1
-    return y
+    return _launch_k1(x, w, a, b, alpha, k1_variant(r))
 
 
 def tt_linear_batched_a(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                         b: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
-    """x (M, K), w (K, N), a (M, K, r), b (r, N) -> y (M, N); M <= 64."""
+    """x (M, K), w (K, N), a (M, K, r), b (r, N) -> y (M, N); on the card
+    M <= 64 (one launch; ``ops.tt_linear_batched_a`` splits larger M)."""
     m, k = x.shape
     n, r = w.shape[1], a.shape[2]
     if w.shape[0] != k or a.shape[:2] != (m, k) or b.shape != (r, n):
@@ -159,9 +196,9 @@ def tt_linear_batched_a(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if not x.is_cuda:
         return tt_linear_batched_a_plain(x, w, a, b, alpha)
     _check_cuda(x, w, a, b, "tt_linear_batched_a")
-    if not 1 <= m <= 64 or not 1 <= r <= 256:
-        raise ValueError(f"tt_linear_batched_a: M={m} outside 1..64 or "
-                         f"rank {r} outside 1..256")
+    if not 1 <= m <= BATCHED_A_ROWS or not 1 <= r <= 256:
+        raise ValueError(f"tt_linear_batched_a: M={m} outside "
+                         f"1..{BATCHED_A_ROWS} or rank {r} outside 1..256")
     x, w, a, b = (t.contiguous() for t in (x, w, a, b))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = _fn("tt_linear_batched_a_bf16")(
@@ -192,7 +229,8 @@ def tt_linear_batched_a_w8(x: torch.Tensor, wq: torch.Tensor,
                            b: torch.Tensor, alpha: float = 1.0
                            ) -> torch.Tensor:
     """#10. x (M, K), wq int8 (K, N), scale f32 (G, N), a (M, K, r),
-    b (r, N) -> y (M, N); M <= 64."""
+    b (r, N) -> y (M, N); on the card M <= 64 (one launch;
+    ``ops.tt_linear_batched_a_q`` splits larger M)."""
     m, k = x.shape
     n, r = wq.shape[1], a.shape[2]
     if wq.shape[0] != k or a.shape[:2] != (m, k) or b.shape != (r, n):

@@ -89,7 +89,12 @@ def lora_form_factors(spec: AdapterSpec, broadcast, layer_slice, m: str, *,
     d_in, d_out = cfg.d_in[mi], cfg.d_out[mi]
     c_lm = _metatt._task_slice(layer_slice["c"], cfg, mi, task)
     g1 = broadcast["g1"][:d_in]
-    a = torch.einsum("dr,...rs->...ds", g1, c_lm)
+    if c_lm.ndim == 2:
+        # A (d_in, r) as the transposed view of Aᵀ = Cᵀ·G1ᵀ (r, d_in):
+        # K-contiguous, the layout K1 streams with 16-byte copies
+        a = (c_lm.T @ g1.T).T
+    else:
+        a = torch.einsum("dr,...rs->...ds", g1, c_lm)
     return a, broadcast["g4"][:, :d_out], cfg.alpha
 
 

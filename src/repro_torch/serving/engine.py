@@ -201,13 +201,6 @@ class Engine:
                 "layout)")
         self.max_batch = self.sv.max_batch
         self.paged = self.sv.cache_mode == "paged"
-        chunk = min(self.sv.prefill_chunk, self.sv.cache_len)
-        if (self.device.type == "cuda" and self.policy.backend == "kernel"
-                and runtime.tasked and self.max_batch > 64
-                and (not self.paged or chunk == 1)):
-            raise ValueError(
-                f"max_batch={self.max_batch}: the batched-A kernel serves "
-                "at most 64 task-routed slots per launch")
         self.cache_len = self.sv.cache_len
         self.out_cap = self.sv.out_cap
         self.prompt_buckets = tuple(sorted(self.sv.prompt_buckets))

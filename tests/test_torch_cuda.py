@@ -419,3 +419,201 @@ def test_paged_decode_attention_int8_reads_pool_views(dev):
     with pytest.raises(TypeError):                      # bf16 pools
         tpa.paged_decode_attention_int8(q, k8.bfloat16(), v8.bfloat16(),
                                         ks, vs, tables, pos)
+
+
+# --------------------------------------------------------------- K1 `wgmma`
+
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("r", [1, 8, 10, 100, 256])
+@pytest.mark.parametrize("k,n", [(69, 130), (130, 69), (256, 2048)])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 4096])
+def test_tt_linear_tile_edges_and_views(dev, m, k, n, r, view):
+    """K1 at row, column and K tile edges, every rank kind (the `wgmma`
+    kernel up to rank 64, the template kernel above), with W, A and B
+    contiguous or as transposed views (the backward's dx call: the
+    `wgmma` kernel reads them through their strides)."""
+    x = _rn(dev, m, k)
+    w, a, b = (_rn(dev, k, n, scale=k ** -0.5),
+               _rn(dev, k, r, scale=k ** -0.5),
+               _rn(dev, r, n, scale=r ** -0.5))
+    if view:
+        w, a, b = (t.T.contiguous().T for t in (w, a, b))
+        assert not w.is_contiguous()
+    got = ttl.tt_linear(x, w, a, b, 4.0)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _close(got, ttl.tt_linear_plain(x, w, a, b, 4.0), 1e-2)
+
+
+@pytest.mark.parametrize("variant", sorted(ttl.K1_VARIANTS))
+@pytest.mark.parametrize("m", [16, 64, 96, 4096])
+def test_tt_linear_every_kernel_variant(dev, m, variant):
+    """Every K1 kernel agrees with the plain version at the serving
+    prefill's row counts and the training's (the launcher picks one)."""
+    k = n = 2048
+    x, w = _rn(dev, m, k), _rn(dev, k, n, scale=k ** -0.5)
+    a, b = _rn(dev, k, 8, scale=k ** -0.5), _rn(dev, 8, n, scale=8 ** -0.5)
+    _close(ttl._launch_k1(x, w, a, b, 4.0, variant),
+           ttl.tt_linear_plain(x, w, a, b, 4.0), 1e-2)
+
+
+def test_tt_linear_dx_makes_no_copy_of_w(dev, monkeypatch):
+    """The backward's dx hands K1 Wᵀ as a view; the wrapper passes it on
+    without ``.contiguous()`` copying it."""
+    m, k, n, r = 256, 512, 384, 10
+    x, w = _rn(dev, m, k), _rn(dev, k, n, scale=k ** -0.5)
+    a, b = _rn(dev, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    copied = []
+    real = torch.Tensor.contiguous
+
+    def spy(t, *args, **kw):
+        if not t.is_contiguous():
+            copied.append(tuple(t.shape))
+        return real(t, *args, **kw)
+    g = _rn(dev, m, n, seed=3)
+    monkeypatch.setattr(torch.Tensor, "contiguous", spy)
+    got = ttl.tt_linear(g, w.T, b.T, a.T, 4.0)
+    monkeypatch.undo()
+    assert copied == []
+    _close(got, ttl.tt_linear_plain(g, w.T, b.T, a.T, 4.0), 1e-2)
+
+
+# ------------------------------------------------ #5 / K3 on `wgmma`
+
+FWD_EDGES = [(t, t) for t in (1, 63, 64, 65, 127, 128, 129, 1000)] + [
+    (1, 1000), (63, 129), (129, 63), (1000, 65), (65, 127)]
+
+
+def _packed_q(dev, b, t, h, d, seed=0):
+    """q as a strided view into a packed (B, T, H + 8, d) projection."""
+    return _rn(dev, b, t, h + 8, d, seed=seed)[:, :, 4:4 + h]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,s", FWD_EDGES)
+def test_flash_attention_fwd_tile_edges(dev, t, s, d, g, causal):
+    """#5 (and K3, the same kernel without lse) at query and key tile
+    edges, both head dims, every GQA group size, causal or not, q read
+    from a packed-projection view; out within 2e-2, lse within 1e-3."""
+    kv = 2
+    q = _packed_q(dev, 1, t, kv * g, d)
+    k, v = _rn(dev, 1, s, kv, d, seed=1), _rn(dev, 1, s, kv, d, seed=2)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    po, plse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    _close(o, po, 2e-2)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+    _close(tfa.flash_attention(q, k, v, causal), o, 0)
+
+
+@pytest.mark.parametrize("variant", sorted(tfa.FWD_VARIANTS))
+@pytest.mark.parametrize("t,s,d,g,causal", [
+    (1000, 1000, 64, 1, True), (129, 63, 128, 4, False),
+    (65, 127, 64, 8, True), (1, 1, 128, 2, True), (200, 200, 64, 2, True)])
+def test_flash_attention_fwd_variants(dev, variant, t, s, d, g, causal):
+    """Every variant of the forward kernel against the plain version."""
+    kv = 2
+    q = _packed_q(dev, 2, t, kv * g, d)
+    k, v = _rn(dev, 2, s, kv, d, seed=1), _rn(dev, 2, s, kv, d, seed=2)
+    lse = torch.empty((2, kv * g, t), dtype=torch.float32, device=dev)
+    o = tfa._launch_fwd(q, k, v, causal, lse, variant)
+    po, plse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    _close(o, po, 2e-2)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+
+
+# ------------------------------- K2 / #10 beyond 64 rows, through ops.py
+
+@pytest.mark.parametrize("m", [72, 130])
+def test_batched_a_linears_split_rows(dev, m):
+    """``ops`` splits M > 64 into ⌈M / 64⌉ launches of K2 and of #10; the
+    raw wrappers still refuse M > 64 (test_w8_linears_reject_...)."""
+    from repro_torch.kernels import ops as tops
+    k, n, r = 2048, 2048, 8
+    x, w = _rn(dev, m, k), _rn(dev, k, n, scale=k ** -0.5)
+    a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    wq, s = _w8(dev, k, n, 0)
+    kernels.reset_launch_counts()
+    got = tops.tt_linear_batched_a(x[:, None], w, a, b, alpha=2.0)
+    got8 = tops.tt_linear_batched_a_q(x, wq, s, a, b, alpha=2.0)
+    n_launch = kernels.launch_counts()
+    assert n_launch["tt_linear_batched_a"] == (m + 63) // 64
+    assert n_launch["tt_linear_batched_a_w8"] == (m + 63) // 64
+    assert got.shape == (m, 1, n)
+    _close(got[:, 0], ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0), 1e-2)
+    _close(got8, ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 2.0), 1e-2)
+    with pytest.raises(ValueError):
+        ttl.tt_linear_batched_a(x, w, a, b)
+
+
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+def test_dense_engine_serves_72_slots(dev, weights):
+    """A 4+1d dense engine with max_batch=72 (decode rows of 72 slots: two
+    K2 or #10 launches a linear) serves what the plain leg serves; a small
+    bf16 model with head_dim 64, so every kernel takes it.
+
+    Greedy bf16 decoding is chaotic at argmax near-ties, so each of the
+    kernel leg's tokens is held against the plain leg's teacher-forced
+    logits on the same token history: the chosen token's logit within 5%
+    of the largest |logit| of the plain leg's maximum (the smoke script's
+    logits limit). How many tokens equal the plain leg's own greedy run
+    is printed."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.config.base import (KernelConfig, QuantConfig,
+                                         RunConfig, ServeConfig)
+    from repro_torch.core import tt as ttlib
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import AdapterRuntime, Engine, Request
+    cfg = dataclasses.replace(configs.get_config("stablelm-1.6b"),
+                              num_layers=2, d_model=256, num_heads=4,
+                              num_kv_heads=4, d_ff=512,
+                              vocab_size=512).validate()
+    spec = M.build_adapter_spec(RunConfig(
+        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
+        num_tasks=3, adapter_rank=4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, spec, generator=gen, device=dev)
+    params["adapter"] = {"cores": ttlib.random_tt(
+        gen, spec.cfg.mode_sizes, 4, scale=0.3, device=dev)}
+    rt = AdapterRuntime.build("live", params["base"], spec,
+                              params["adapter"], params["frozen"])
+    quant = QuantConfig(weights="int8" if weights == "int8" else "none")
+    serve = ServeConfig(cache_mode="dense", max_batch=72, cache_len=64,
+                        out_cap=8)
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (int(n),),
+                                  generator=rng).numpy(), 8, task=i % 3)
+            for i, n in enumerate(torch.randint(4, 17, (72,),
+                                                generator=rng))]
+    name = ("tt_linear_batched_a_w8" if weights == "int8"
+            else "tt_linear_batched_a")
+    outs, engines = {}, {}
+    for leg in ("auto", "ref"):
+        eng = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
+            backend=leg, quant=quant), device=dev)
+        kernels.reset_launch_counts()
+        outs[leg] = [o.tolist() for o in eng.generate(reqs)]
+        n_launch = kernels.launch_counts()
+        assert (n_launch[name] > 0) == (leg == "auto"), n_launch
+        engines[leg] = eng
+    assert all(len(o) == 8 for o in outs["auto"])
+    base = engines["ref"].base_weights
+    worst = 0.0
+    with torch.inference_mode():
+        for req, toks in zip(reqs, outs["auto"]):
+            seq = torch.as_tensor([*req.prompt, *toks], device=dev)[None]
+            lg = T.forward(base, cfg, spec, rt.broadcast, rt.per_layer, seq,
+                           task=req.task, policy=dispatch.REF,
+                           device=dev).logits[0].float()
+            lg = lg[len(req.prompt) - 1:-1]          # the 8 predictions
+            top = lg.max(-1).values
+            chosen = lg.gather(-1, torch.as_tensor(toks, device=dev)[:, None])
+            gap = (top - chosen[:, 0]) / lg.abs().amax(-1)
+            worst = max(worst, float(gap.max()))
+    same = sum(x == y for o, r in zip(outs["auto"], outs["ref"])
+               for x, y in zip(o, r))
+    print(f"{weights}: {same}/{72 * 8} tokens equal the plain leg's greedy "
+          f"run; largest teacher-forced gap {worst:.3e}")
+    assert worst <= 5e-2
