@@ -5,15 +5,19 @@
 
 Phases, each printed on its own lines:
   1. the card's name and power limit (nvidia-smi), then an nvcc build of
-     every kernel under src/repro_torch/kernels/csrc;
+     every kernel under src/repro_torch/kernels/csrc, with each kernel's
+     registers and spills (ptxas -v);
   2. each kernel against its plain PyTorch version on the card, in bf16 at
      the serving path's and the training path's full-width shapes, with
      the stated tolerance; the kernel's, the plain version's and one
      library call's times (the library call is a yardstick only: the port
-     never calls it); where a launcher chooses among kernels (K1, the
-     flash forward), which one ran and every variant's time; K2 and #10
-     at 72 decode rows through ``ops`` (two launches each); at the
-     training shape two flash backward calls must agree bit for bit, and
+     never calls it); where a launcher chooses among kernels or splits
+     (K1, the flash forward, #9's slices of K, #8's product and window
+     chunks), which one ran and every variant's time; #9 at M = 16, 64,
+     128 and 256 and #8 at C = 1 and 32 must agree bit for bit across
+     two calls; K2 and #10 at 72 decode rows through ``ops`` (two
+     launches each); at the training shape two flash backward calls must
+     agree bit for bit, and
      #5-#7 and K1's forward and dx (on the views the backward passes)
      print their TFLOP/s and share of bound;
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
@@ -57,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -114,6 +119,24 @@ TOL = {"tt_linear": (1e-2, 1e-2), "tt_linear_batched_a": (1e-2, 1e-2),
 # 34-page tables (512 / 16 pages + 2 sentinel columns), 32-token chunks
 PAGED = dict(max_batch=8, cache_len=512, page_size=16, prefill_chunk=32,
              out_cap=32)
+
+
+def kernel_name(mangled):
+    """``paged_tc_kernel<64,1,0>`` from an Itanium-mangled kernel name in
+    an anonymous namespace (template arguments: integers and bools)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled[:60]
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled[:60]
+    n = int(m.group(1))
+    name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    if not rest.startswith("I"):
+        return name
+    args = re.findall(r"L[a-z](\d+)E", rest[:rest.find("EE") + 2])
+    return f"{name}<{','.join(args)}>"
 
 
 def sh(cmd):
@@ -174,6 +197,14 @@ def compare(name, got, want):
             f"{name}: {int(bad.sum())} elements outside atol={atol} "
             f"rtol={rtol}; max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def same(fn, args, name):
+    """Two calls of a kernel on the same inputs must agree bit for bit
+    (no float atomics: split reductions sum in a fixed order)."""
+    import torch
+    if not torch.equal(fn(*args), fn(*args)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
 
 
 def phase_kernels(dev):
@@ -387,13 +418,20 @@ def paged_kernel_rows(dev, rn):
     slot's window are sentinels. Its bound counts q, o and the K/V cells
     inside each slot's window; the library yardstick is SDPA on the
     PRE-GATHERED dense K/V with the boolean position mask (the gather is
-    left out of its time; the port never calls SDPA)."""
+    left out of its time; the port never calls SDPA). Two calls must agree
+    bit for bit; the launcher's path (``mma`` or ``wgmma``, and the tiles
+    a chunk of a split window) is printed beside each split's time."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     b_, h, d = PAGED["max_batch"], 32, 64
     page, n_blk = PAGED["page_size"], 256
     p_tab = PAGED["cache_len"] // page + 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     pos = torch.tensor([0, 37, 100, 161, 230, 299, 407, 479],
                        dtype=torch.int32, device=dev)
     gen = torch.Generator().manual_seed(SEED)
@@ -420,6 +458,18 @@ def paged_kernel_rows(dev, rn):
         err = compare("paged_decode_attention",
                       pa.paged_decode_attention(*sets[0]),
                       pa.paged_decode_attention_plain(*sets[0]))
+        same(pa.paged_decode_attention, sets[0], "paged_decode_attention")
+        mode, split = pa.paged_path(b_, c, h, h, p_tab, page, sms)
+
+        def tc(q, k, v, tables, pos, sp):
+            o = torch.empty_like(q)
+            st = fa._strides(q, k, v, o)
+            st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
+            _build.check(pa._launch_tc(q, k, v, tables, pos, o, n_blk, page,
+                                       st, sp), "paged_decode_attention")
+            return o
+        variants = {f"split{sp}": cuda_time_ms(
+            lambda *t: tc(*t, sp), sets) for sp in sorted({0, 2, 3, split})}
         s_len = p_tab * page
         mask = (torch.arange(s_len, device=dev)[None, None, :]
                 <= (pos[:, None] + torch.arange(c, device=dev)[None])
@@ -443,40 +493,63 @@ def paged_kernel_rows(dev, rn):
                 lambda q, k, v: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask), lib_sets),
             library="SDPA on pre-gathered K/V, boolean mask",
-            bound_ms=bms, bound_by=by))
+            bound_ms=bms, bound_by=by, variant=f"{mode} split={split}",
+            variants=variants))
         del sets, lib_sets
     torch.cuda.empty_cache()
     return rows
 
 
 def w8_kernel_rows(dev, rn):
-    """#9 at the w8 dense prefill's q/v shape (M = 64, K = N = 2048, r = 8)
+    """#9 at the w8 dense prefill's q/v shapes (M = 16, 64, 128, 256
+    prompt rows, K = N = 2048, r = 8, A in the model's K-contiguous layout)
     and #10 at its decode shape (M = 4 slots), per output channel (the
-    engine's QuantConfig, the main rows) and with 128-row scale groups.
-    The bound counts W as int8 plus its f32 scales; the library yardstick
-    is torch.matmul on a PRE-DEQUANTIZED bf16 W plus the rank-r term (the
-    dequantization is left out of its time; the port never calls it)."""
+    engine's QuantConfig; #9's main row is M = 64) and with 128-row scale
+    groups. Two #9 calls must agree bit for bit; the launcher's path
+    (kernel and slices of K) is printed beside the template kernel's and
+    each slice count's time. The bound counts W as int8 plus its f32
+    scales; the library yardstick is torch.matmul on a PRE-DEQUANTIZED
+    bf16 W plus the rank-r term (the dequantization is left out of its
+    time; the port never calls it)."""
     import torch
     from repro_torch.kernels import quant
     from repro_torch.kernels import tt_linear as tl
     alpha, k, n, r = 4.0, 2048, 2048, 8
     rows = []
-    for name, m, batched in (("tt_linear_w8", 64, False),
-                             ("tt_linear_batched_a_w8", 4, True)):
+    for name, ms, batched in (("tt_linear_w8", (16, 64, 128, 256), False),
+                              ("tt_linear_batched_a_w8", (4,), True)):
         fn = getattr(tl, name)
         plain = getattr(tl, name + "_plain")
-        for group in (0, 128):
+        for m, group in ((m, g) for m in ms for g in (0, 128)):
             g = k // group if group else 1
 
             def make():
                 wq, sc = quant.quantize_int8(rn(k, n, scale=k ** -0.5), group)
-                a = rn(*((m, k, r) if batched else (k, r)), scale=k ** -0.5)
+                a = (rn(m, k, r, scale=k ** -0.5) if batched
+                     else rn(r, k, scale=k ** -0.5).T)
                 return rn(m, k), wq, sc, a, rn(r, n, scale=r ** -0.5)
             nbytes = (2 * m * k + k * n + 4 * g * n
                       + 2 * (m if batched else 1) * k * r + 2 * r * n
                       + 2 * m * n)
             sets = copies(make, nbytes)
             err = compare(name, fn(*sets[0], alpha), plain(*sets[0], alpha))
+            extra = {}
+            if not batched:
+                same(lambda *t: fn(*t, alpha), sets[0], name)
+                path, splits = tl.w8_path(*sets[0][:3], r)
+
+                def run(x, wq, sc, a, b, v, sp):
+                    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+                    tl._build.check(tl._launch_w8_shared_a(
+                        x, wq, sc, a, b, y, g, alpha, v, sp), name)
+                    return y
+                variants = {"template": cuda_time_ms(
+                    lambda *t: run(*t, "template", 1), sets)}
+                for sp in (1, 2, 4, 8):
+                    variants[f"wgmma_s{sp}"] = cuda_time_ms(
+                        lambda *t: run(*t, "wgmma", sp), sets)
+                extra = dict(variant=f"{path} splits={splits}",
+                             variants=variants)
             lib_sets = [(x, quant.dequantize(
                 {"q8": wq, "scale": sc}, torch.bfloat16), a, b)
                 for x, wq, sc, a, b in sets]
@@ -493,12 +566,12 @@ def w8_kernel_rows(dev, rn):
             scales = f"group={group}" if group else "per-channel"
             rows.append(dict(
                 name=name, shape=f"M={m} K={k} N={n} r={r} {scales}",
-                main=group == 0, max_abs_err=err,
+                main=group == 0 and m in (4, 64), max_abs_err=err,
                 ms=cuda_time_ms(lambda *t: fn(*t, alpha), sets),
                 plain_ms=cuda_time_ms(lambda *t: plain(*t, alpha), sets),
                 library_ms=cuda_time_ms(lib, lib_sets),
                 library="torch.matmul on a pre-dequantized bf16 W + rank-r",
-                bound_ms=bms, bound_by=by))
+                bound_ms=bms, bound_by=by, **extra))
             del sets, lib_sets
     torch.cuda.empty_cache()
     return rows
@@ -1585,9 +1658,15 @@ def main() -> int:
     print(f"[build] nvcc sm_90a: {', '.join(sorted(logs))} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for name, path in sorted(logs.items()):
+        kern = spill = ""
         for line in open(path).read().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kern = kernel_name(line.split("'")[1])
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                print(f"[ptxas] {name}: {kern}: "
+                      f"{line.split(':', 1)[1].strip()}; {spill}")
 
     rows = phase_kernels(dev) + phase_train_kernels(dev)
     paths = {}

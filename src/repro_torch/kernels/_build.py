@@ -30,6 +30,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
 _libs: dict = {}
+_counters: dict = {}
 
 
 def build_dir() -> pathlib.Path:
@@ -132,6 +133,20 @@ def library(name: str) -> ctypes.CDLL:
                 _finish(name, *_start(name))
             _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return _libs[name]
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters on ``device``, for a
+    kernel whose blocks merge a split in a fixed order (#8's chunks of a
+    window): the last block of a group resets its counter to zero, so the
+    buffer is allocated and zeroed once and reused by every launch.
+    Launches that share it are ordered on one stream, as the engine's
+    are."""
+    t = _counters.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device] = t
+    return t
 
 
 def check(rc: int, what: str) -> None:

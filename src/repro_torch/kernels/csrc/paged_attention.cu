@@ -17,39 +17,65 @@
 // What bounds it on an H100: ~4 flops per cache byte at C = 1, at most
 // ~4·C·G at C columns — below the ~295 flops/byte balance point at the
 // engine's shapes, so the kernel is bound by reading each K/V cell of the
-// slot's window once. One block per (kv head, slot, tile of R query rows):
-// a row is one (column c, head g) pair of the GQA group, so the G heads
-// and the C columns share every K/V read of the tile; each of the four
-// warps takes 32 cells at a time (one lane per cell, the block-table
-// lookup done by the lane that reads the cell) and keeps an online softmax
-// per row; the warps merge their partial states at the end. Rows of a
-// tile that are past the last column are padding: computed as fully
-// masked, never written. A tile re-reads the window once per tile, so
-// C·G > R costs ceil(C·G / R) reads of the window (a wgmma/TMA version
-// with all rows of a slot in one block is the next step).
-// Numerics follow the TPU kernel: scores in f32 scaled by d^-0.5, masked
-// scores at -1e30, p rounded to bf16 before P·V, l floored at 1e-30,
-// output rounded once to bf16.
+// slot's window once.
 //
-// int8 leg (Q8): the pools hold int8 cells and two (N, page, KV) f32
-// scale pools, one scale per (token, kv head), gathered through the same
-// clamped table entry as the cell. A lane reads its key row as int8 (64 B
-// at d = 64, half the bf16 row) with its scale and dequantizes it in
-// registers; each V row is dequantized by the scale of
-// its cell, passed across the warp with the row offset. q is taken in
-// f32, and p stays f32 through P·V (after dequantization v is f32 in the
-// TPU kernel, so its p.astype(v.dtype) keeps f32): unlike the fp leg,
-// nothing rounds to bf16 before the output.
+// The fp leg (paged_tc_kernel) on the tensor cores:
+//  - one block owns all C·G query rows of a (slot, kv head) — a row is
+//    one (column c, head g) pair of the GQA group, row = c·G + g — so the
+//    window is read once for every row (at most 256 rows a block: four
+//    warpgroups; above that, slabs of 256 rows take a block each);
+//  - the block loads its block-table row into shared memory once (the
+//    sentinels clamped) and walks it itself: K and V tiles of 64 cells
+//    come through a three-stage cp.async ring, 16 bytes a copy, into
+//    128-byte-swizzled tiles (a page of one kv head is `page` rows of d
+//    bf16 at stride KV·d); cells past the window are zero-filled;
+//  - S = Q·Kᵀ and O += P·V on the tensor cores. Below 64 rows (C·G < 64:
+//    32 rows at MHA with C = 32, one at decode) each warp owns 16 rows
+//    and runs `mma.sync` m16n8k16, K through ldmatrix and V through
+//    ldmatrix.trans from the same tiles; from 64 rows each warpgroup owns
+//    64 and runs `wgmma` m64n64k16 (S, both operands in shared memory)
+//    and m64ndk16 (P·V, P from registers, V read MN-major). The kernel is
+//    bound by its bytes, so `mma.sync` is enough when the tile is small,
+//    and it wastes no 48-row padding at C·G ≤ 16;
+//  - the online softmax stays in the accumulator registers (a row's
+//    values sit in one quad of lanes), and p is rounded to bf16 as the A
+//    operand of P·V, which is the TPU kernel's rounding; O stays f32;
+//  - where B·KV blocks leave the card under-filled (fewer than two an
+//    SM), each window is split into chunks of a few tiles, one block a
+//    chunk (flash-decoding: at C = 1 the 8 slots x 32 heads of ragged
+//    windows of 1 to 480 cells fill the 132 SMs); a chunk past a short
+//    window exits at once. Each block writes its (m, l, O) to a
+//    workspace and takes a ticket from an integer counter of its (slot,
+//    kv head); the last block merges the chunks in chunk order — a fixed
+//    f32 order, so two calls are bit-identical, with no float atomics —
+//    resets the counter and writes the output. (#9's slices of K merge
+//    through a thread-block cluster instead; here a cluster measured
+//    slower: its empty chunks stay resident until their siblings finish.)
+// Numerics follow the TPU kernel: scores in f32 scaled by d^-0.5 (carried
+// in log2 units, so exp is one ex2), masked scores at -1e30 and their p
+// at 0, p rounded to bf16 before P·V, l floored at 1e-30, output rounded
+// once to bf16.
 //
-// The C function returns cudaGetLastError() of the launch.
+// int8 leg (Q8, the SIMT template paged_attn_kernel, kept for Q8 only):
+// one block of four warps per (kv head, slot, tile of R ≤ 16 rows); each
+// lane owns a cell and dots its key row with every row of the tile in f32
+// FMAs. The pools hold int8 cells and two (N, page, KV) f32 scale pools,
+// one scale per (token, kv head), gathered through the same clamped table
+// entry as the cell. A lane reads its key row as int8 (64 B at d = 64,
+// half the bf16 row) with its scale and dequantizes it in registers; each
+// V row is dequantized by the scale of its cell, passed across the warp
+// with the row offset. q is taken in f32, and p stays f32 through P·V
+// (after dequantization v is f32 in the TPU kernel, so its
+// p.astype(v.dtype) keeps f32): unlike the fp leg, nothing rounds to bf16
+// before the output.
+//
+// The C functions return cudaGetLastError() of the launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr float NEG = -1e30f;
 constexpr int NW = 4;  // warps per block
@@ -318,6 +344,385 @@ int run(const void* q, const void* k, const void* v, const void* ks,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ------------------------------------------- the fp leg, tensor cores
+
+constexpr int PT = 64;         // cells a streamed tile
+constexpr int PSTAGES = 3;     // depth of the K/V ring
+constexpr int SLAB = 256;      // most rows a block (four warpgroups)
+
+// D (16 x 8 f32) += A (16 x 16 bf16, the m16n8k16 A fragment) · B (16 x 8)
+__device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// 16-byte chunk ch (of 8 bf16) of row `row` in a ROWS-row swizzled tile
+template <int ROWS>
+__device__ __forceinline__ uint32_t chunk_at(uint32_t tile, int row,
+                                             int ch) {
+  return tile + (ch >> 3) * ROWS * 128 + row * 128 +
+         (((ch & 7) ^ (row & 7)) << 4);
+}
+
+template <int D, int NWG>
+struct PagedSmem {
+  static constexpr int QR = 64 * NWG;          // query rows, padded
+  static constexpr int TB = PT * D * 2;        // a K or a V tile
+  static constexpr int Q = 0;
+  static constexpr int K = Q + QR * D * 2;
+  static constexpr int V = K + PSTAGES * TB;
+  static constexpr int TBL = V + PSTAGES * TB; // the table row, int32
+  static_assert(K % 1024 == 0 && TB % 1024 == 0,
+                "tiles must keep the 1024-byte alignment of the swizzle");
+};
+
+// WG: `wgmma`, 64 rows a warpgroup; else `mma.sync` (NWG = 1), 16 rows a
+// warp. grid (KV, B, slabs · chunks); split: tiles a chunk, 0 for one
+// chunk a window
+template <int D, int NWG, bool WG>
+__global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 3 : (NWG == 2 ? 2 : 1))
+paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const int* __restrict__ tables,
+                const int* __restrict__ pos, bf16* __restrict__ o,
+                float* __restrict__ ws, int* __restrict__ cnt, int C, int G,
+                int N, int page, int P, int split, float sl2,
+                const Strides st) {
+  using L = PagedSmem<D, NWG>;
+  constexpr int NT = NWG * 128, QR = L::QR, CH = D / 8;
+  static_assert(WG || NWG == 1, "mma.sync blocks are one warpgroup");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  int* tbl = reinterpret_cast<int*>(smem + L::TBL);
+  __shared__ int last_flag;
+
+  const int kvh = blockIdx.x, bb = blockIdx.y;
+  const int nch = split ? (P * page + PT * split - 1) / (PT * split) : 1;
+  const int slab = blockIdx.z / nch, ch = blockIdx.z % nch;
+  const int tid = threadIdx.x, rows = C * G, r0 = slab * QR;
+  const int p0 = pos[bb];
+  // the block's window: cells up to its last row's position
+  const int c_last = (min(r0 + QR, rows) - 1) / G;
+  const int nkeys = min(p0 + c_last + 1, P * page);
+  const int ntiles = (nkeys + PT - 1) / PT;
+  const int t0 = split ? ch * split : 0;
+  const int t1 = split ? min(ntiles, t0 + split) : ntiles;
+  if (t0 >= t1) return;   // a chunk past this slot's window
+
+  const int npages = (nkeys + page - 1) / page;
+  for (int j = tid; j < npages; j += NT) {   // sentinels clamped
+    const int e = tables[bb * st.v[12] + j];
+    tbl[j] = e < 0 ? 0 : (e >= N ? N - 1 : e);
+  }
+  const bf16* kb = k + kvh * st.v[5];
+  const bf16* vb = v + kvh * st.v[8];
+  // this block's query rows r0 .. r0 + QR - 1 (rows past C·G are zero)
+  for (int i = tid; i < QR * CH; i += NT) {
+    const int row = i / CH, c = i % CH, rr = r0 + row;
+    const bool ok = rr < rows;
+    const int cc = rr / G, g = rr - cc * G;
+    cp_async16(chunk_at<QR>(base + L::Q, row, c),
+               ok ? q + bb * st.v[0] + cc * st.v[1] + (kvh * G + g) * st.v[2] +
+                        c * 8
+                  : q,
+               ok ? 16 : 0);
+  }
+  __syncthreads();   // the table row, for the copies below
+  auto issue = [&](int t) {   // tile t (cells 64 t ..) into its stage
+    const int stg = (t - t0) % PSTAGES;
+    const uint32_t kt = base + L::K + stg * L::TB;
+    const uint32_t vt = base + L::V + stg * L::TB;
+    for (int i = tid; i < 2 * PT * CH; i += NT) {
+      const int isv = i >= PT * CH, rem = isv ? i - PT * CH : i;
+      const int cell = rem / CH, c = rem % CH, ci = t * PT + cell;
+      const bool ok = ci < nkeys;
+      const int pg = ci / page;
+      const long long off =
+          ok ? static_cast<long long>(tbl[pg]) * (isv ? st.v[6] : st.v[3]) +
+                   static_cast<long long>(ci - pg * page) *
+                       (isv ? st.v[7] : st.v[4]) + c * 8
+             : 0;
+      cp_async16(chunk_at<PT>(isv ? vt : kt, cell, c),
+                 (isv ? vb : kb) + off, ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < PSTAGES - 1; ++i) {
+    if (t0 + i < t1) issue(t0 + i);
+    cp_async_commit();
+  }
+
+  const int lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
+  const int ra = 64 * wg + 16 * warp + (lane >> 2), ca = 2 * (lane & 3);
+  // the last cell each of this thread's two rows attends (-1: padding)
+  int lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r0 + ra + 8 * h;
+    lim[h] = rr < rows ? min(p0 + rr / G, nkeys - 1) : -1;
+  }
+  const bool active = WG || r0 + 16 * warp < rows;   // mma.sync: warp rows
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  uint32_t qa[WG ? 1 : D / 16][4];   // mma.sync: this warp's q fragments
+
+  for (int t = t0; t < t1; ++t) {
+    const int stg = (t - t0) % PSTAGES;
+    cp_async_wait<PSTAGES - 2>();   // tile t (and at t0, q) has landed
+    fence_proxy_async();
+    __syncthreads();   // ... for every thread; tile t - 1 is consumed
+    if (t + PSTAGES - 1 < t1) issue(t + PSTAGES - 1);   // tile t - 1's stage
+    cp_async_commit();
+    if (!active) continue;
+    const uint32_t kt = base + L::K + stg * L::TB;
+    const uint32_t vt = base + L::V + stg * L::TB;
+    float s[PT / 2];
+    if constexpr (WG) {
+      reg_fence(s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)   // S = Q·Kᵀ
+        WgSS<PT>::mma(s, desc_k<QR>(base + L::Q, 64 * wg, kk),
+                      desc_k<PT>(kt, 0, kk), kk);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(s);
+      reg_fence(oacc);
+    } else {
+      if (t == t0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldsm4(qa[kk], chunk_at<QR>(base + L::Q, 16 * warp + (lane & 15),
+                                     2 * kk + (lane >> 4)));
+      }
+#pragma unroll
+      for (int i = 0; i < PT / 2; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < PT / 8; ++c)   // S = Q·Kᵀ, 8 cells at a time
+#pragma unroll
+        for (int k2 = 0; k2 < D / 32; ++k2) {
+          uint32_t b[4];
+          ldsm4(b, chunk_at<PT>(kt, 8 * c + (lane & 7), 4 * k2 + (lane >> 3)));
+          mma16816(s + 4 * c, qa[2 * k2], b[0], b[1]);
+          mma16816(s + 4 * c, qa[2 * k2 + 1], b[2], b[3]);
+        }
+    }
+
+    // online softmax on the accumulator: a row's values sit in a quad
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int c = 0; c < PT / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = t * PT + 8 * c + ca + (e & 1);
+        const float x = ci <= lim[e >> 1] ? s[4 * c + e] * sl2 : NEG;
+        s[4 * c + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+      corr[h] = ex2(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int i = 0; i < PT / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      const float pr = s[i] == NEG ? 0.f : ex2(s[i] - m[h]);
+      s[i] = pr;
+      rs[h] += pr;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
+    uint32_t pa[PT / 16][4];   // p in bf16, the A operand of P·V
+    to_a<PT>(pa, s);
+    if constexpr (WG) {
+      reg_fence(pa);
+      reg_fence(oacc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < PT / 16; ++kk)   // O += P·V
+        WgRS<D>::mma(oacc, pa[kk], desc_mn<PT>(vt, kk));
+      wg_commit();
+      wg_wait<0>();   // before the barrier that frees this stage
+      reg_fence(oacc);
+    } else {
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2)   // O += P·V, 16 dims at a time
+#pragma unroll
+        for (int kk = 0; kk < PT / 16; ++kk) {
+          uint32_t b[4];
+          ldsm4t(b, chunk_at<PT>(vt, 16 * kk + (lane & 15),
+                                 2 * n2 + (lane >> 4)));
+          mma16816(oacc + 8 * n2, pa[kk], b[0], b[1]);
+          mma16816(oacc + 8 * n2 + 4, pa[kk], b[2], b[3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {   // l: each lane kept its columns' share
+    l[h] += __shfl_xor_sync(FULL, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL, l[h], 2);
+  }
+
+  if (split) {   // flash-decoding: partials out, the last chunk merges
+    const int live = (ntiles + split - 1) / split;   // this window's chunks
+    const int bk = (bb * gridDim.x + kvh) * (gridDim.z / nch) + slab;
+    float4* part = reinterpret_cast<float4*>(ws) +
+                   static_cast<long long>(bk) * nch * (D / 8 + 1) * NT;
+    float4* mine = part + static_cast<long long>(ch) * (D / 8 + 1) * NT;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      mine[i * NT + tid] = make_float4(oacc[4 * i], oacc[4 * i + 1],
+                                       oacc[4 * i + 2], oacc[4 * i + 3]);
+    mine[(D / 8) * NT + tid] = make_float4(m[0], m[1], l[0], l[1]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      last_flag = atomicAdd(cnt + bk, 1) == live - 1;
+      if (last_flag) cnt[bk] = 0;   // ready for the next launch
+    }
+    __syncthreads();
+    if (!last_flag) return;
+    __threadfence();
+    for (int c = 0; c < live; ++c) {   // chunk order: the same f32 sums
+      const float4* src = part + static_cast<long long>(c) * (D / 8 + 1) * NT;
+      const float4 ml = __ldcg(src + (D / 8) * NT + tid);
+      const float mc[2] = {ml.x, ml.y}, lc[2] = {ml.z, ml.w};
+      float fa[2], fb[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mn = c == 0 ? mc[h] : fmaxf(m[h], mc[h]);
+        fa[h] = c == 0 ? 0.f : ex2(m[h] - mn);
+        fb[h] = ex2(mc[h] - mn);
+        l[h] = (c == 0 ? 0.f : l[h] * fa[h]) + lc[h] * fb[h];
+        m[h] = mn;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const float4 t4 = __ldcg(src + i * NT + tid);
+        const float ov[4] = {t4.x, t4.y, t4.z, t4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          oacc[4 * i + e] =
+              (c == 0 ? 0.f : oacc[4 * i + e] * fa[h]) + ov[e] * fb[h];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {   // rows past C·G are padding: not written
+    const int rr = r0 + ra + 8 * h;
+    if (rr >= rows) continue;
+    const int cc = rr / G, g = rr - cc * G;
+    bf16* ob = o + bb * st.v[9] + cc * st.v[10] + (kvh * G + g) * st.v[11];
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * n + ca) =
+          __floats2bfloat162_rn(oacc[4 * n + 2 * h] * inv,
+                                oacc[4 * n + 2 * h + 1] * inv);
+  }
+}
+
+template <int D, int NWG, bool WG>
+int launch_tc(const void* q, const void* k, const void* v,
+              const void* tables, const void* pos, void* o, void* ws,
+              void* cnt, int B, int C, int G, int KV, int N, int page, int P,
+              int split, int nslab, int nch, const Strides& st,
+              void* stream) {
+  using L = PagedSmem<D, NWG>;
+  const int smem = L::TBL + ((P * 4 + 15) & ~15) + 1024;   // + alignment
+  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+  static int smem_set = 48 * 1024;   // per instantiation, grows only
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_tc_kernel<D, NWG, WG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  dim3 grid(KV, B, nslab * nch);
+  paged_tc_kernel<D, NWG, WG>
+      <<<grid, NWG * 128, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const int*>(tables),
+          static_cast<const int*>(pos), static_cast<bf16*>(o),
+          static_cast<float*>(ws), static_cast<int*>(cnt), C, G, N, page, P,
+          split, LOG2E / sqrtf((float)D), st);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tc_d(int rows, const void* q, const void* k, const void* v,
+                const void* tables, const void* pos, void* o, void* ws,
+                void* cnt, int B, int C, int G, int KV, int N, int page,
+                int P, int split, int nslab, int nch, const Strides& st,
+                void* stream) {
+#define TC_ARGS q, k, v, tables, pos, o, ws, cnt, B, C, G, KV, N, page, P, \
+                split, nslab, nch, st, stream
+  if (rows < 64) return launch_tc<D, 1, false>(TC_ARGS);   // mma.sync
+  if (rows <= 64) return launch_tc<D, 1, true>(TC_ARGS);   // wgmma
+  if (rows <= 128) return launch_tc<D, 2, true>(TC_ARGS);
+  return launch_tc<D, 4, true>(TC_ARGS);
+#undef TC_ARGS
+}
+
+int run_tc(const void* q, const void* k, const void* v, const void* tables,
+           const void* pos, void* o, int B, int C, int H, int KV, int d,
+           int N, int page, int P, const long long* strides, int split,
+           void* ws, void* cnt, void* stream) {
+  if (B < 1 || C < 1 || KV < 1 || H % KV != 0 || N < 1 || P < 1 ||
+      page < 8 || page > 64 || page % 8 != 0 || B > 65535 || split < 0 ||
+      (split > 0 && (ws == nullptr || cnt == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KV;
+  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
+  const int rows = C * G;
+  const int nslab = (rows + SLAB - 1) / SLAB;
+  const int nch = split ? (P * page + PT * split - 1) / (PT * split) : 1;
+  if (static_cast<long long>(nslab) * nch > 65535)
+    return (int)cudaErrorInvalidValue;
+  Strides st{};
+  for (int i = 0; i < 13; ++i) st.v[i] = strides[i];
+  // rows a block: all C·G (padded to the product's tile), or slabs of 256
+  const int brows = nslab > 1 ? SLAB : rows;
+  if (d == 64)
+    return launch_tc_d<64>(brows, q, k, v, tables, pos, o, ws, cnt, B, C, G,
+                           KV, N, page, P, split, nslab, nch, st, stream);
+  if (d == 128)
+    return launch_tc_d<128>(brows, q, k, v, tables, pos, o, ws, cnt, B, C, G,
+                            KV, N, page, P, split, nslab, nch, st, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -327,13 +732,19 @@ extern "C" {
 // o (B, C, H, d) bf16. strides: 13 element strides (q: b, c, h; k: n, p,
 // kv; v: n, p, kv; o: b, c, h; tables: b), q/k/v/o ones a multiple of 8
 // with 16-byte aligned bases. d in {64, 128}; H / KV in {1, 2, 4, 8};
-// page a multiple of 8 in [8, 64].
+// page a multiple of 8 in [8, 64]. split: tiles of 64 cells a chunk of
+// the window (0: one block a window); with split > 0, ws an f32
+// workspace of B · KV · slabs · chunks · threads · (d / 2 + 4) floats
+// (threads = 128 · warpgroups, slabs = ceil(C·G / 256), chunks =
+// ceil(P · page / (64 · split))) and cnt B · KV · slabs zeroed int
+// counters (left at zero).
 int paged_attention_bf16(const void* q, const void* k, const void* v,
                          const void* tables, const void* pos, void* o, int B,
                          int C, int H, int KV, int d, int N, int page, int P,
-                         const long long* strides, void* stream) {
-  return run<false>(q, k, v, nullptr, nullptr, tables, pos, o, B, C, H, KV,
-                    d, N, page, P, strides, stream);
+                         const long long* strides, int split, void* ws,
+                         void* cnt, void* stream) {
+  return run_tc(q, k, v, tables, pos, o, B, C, H, KV, d, N, page, P,
+                strides, split, ws, cnt, stream);
 }
 
 // The int8 leg: k/v (N, page, KV, d) int8 pools, k_scale / v_scale

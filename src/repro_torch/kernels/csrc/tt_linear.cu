@@ -25,26 +25,31 @@
 // Ragged M/N/K and any rank 1 <= r <= 256 are masked in the kernel; the
 // rank is padded to a multiple of 16 in shared memory only.
 //
-// w8a16 (the WQ template argument): W arrives int8 with f32 scales
-// (G, N) — half the bytes of the bf16 W that bounds these kernels. Each
-// int8 W tile goes through the same cp.async ring (16 values a 16-byte
-// copy, so the vector path needs N % 16 == 0), then is widened to bf16 in
-// one shared-memory tile before the WMMA step (|q| <= 127 is exact in
-// bf16). Per output channel (G = 1, WQ_CHANNEL) the f32 base accumulator
-// is multiplied by scale[n] in the epilogue, before alpha·(P·B) is added,
-// as the TPU kernel does. Grouped (G > 1, WQ_GROUP; group = K / G a
-// multiple of the K tile): each group's x·q partial sum is kept apart in
-// the WMMA accumulators, then scaled by scale[g, n] and added into an f32
-// running sum in shared memory at the group's last K tile. The rank-r
-// adapter term is unquantized either way.
+// w8a16 (#9, #10): W arrives int8 with f32 scales (G, N), half the bytes
+// of the bf16 W that bounds these kernels. #9 at ranks up to RANK_WGMMA
+// on operands that take 16-byte copies runs its own `wgmma` kernel (the
+// "#9 on `wgmma`" section below). The template kernel serves #10, and #9
+// at larger ranks or on operands that cannot take 16-byte copies: there
+// each int8 W tile goes through the same cp.async ring (16 values a
+// 16-byte copy, so the vector path needs N % 16 == 0), then is widened to
+// bf16 in one shared-memory tile before the WMMA step (|q| <= 127 is
+// exact in bf16). Per output channel (G = 1, WQ_CHANNEL) the f32 base
+// accumulator is multiplied by scale[n] in the epilogue, before
+// alpha·(P·B) is added, as the TPU kernel does. Grouped (G > 1,
+// WQ_GROUP; group = K / G a multiple of the K tile): each group's x·q
+// partial sum is kept apart in the WMMA accumulators, then scaled by
+// scale[g, n] and added into an f32 running sum in shared memory at the
+// group's last K tile. The rank-r adapter term is unquantized either way.
 //
 // The C functions take device pointers and the CUDA stream as opaque
 // pointers and return cudaGetLastError() of the launch.
 
+#include <cooperative_groups.h>
 #include <mma.h>
 
 #include "hopper.cuh"
 
+namespace cg = cooperative_groups;
 using namespace nvcuda;
 
 namespace {
@@ -811,6 +816,385 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// ------------------------------------------------- #9 on `wgmma`
+//
+// y = x·(q·s) + alpha·(x·A)·B over an int8 W (K, N) with f32 scales
+// (G, N), at ranks up to RANK_WGMMA, when x and W take 16-byte copies
+// (K % 8 == 0, N % 16 == 0, aligned bases). At the serving shapes
+// (M ≤ 256 prefill rows, K = N = 2048) the work is M flops a byte of W,
+// far below the card's balance point: the kernel is bound by reading the
+// 4 MB of int8 W once, and at M = 64 a 64 x 64 output tiling has only 32
+// tiles for 132 SMs. So:
+//  - a block (one warpgroup) owns 64 rows x 64 output channels over one
+//    of S slices of K (split-K, the launcher's choice, see w8_splits in
+//    kernels/tt_linear.py): 32 channel tiles x 8 slices put 256 blocks on
+//    the card at M = 64, each streaming a 64 x 256 strip of W;
+//  - x, int8 W and A tiles of 64 K columns come through a four-stage
+//    cp.async ring: three of a slice's four tiles are in flight at once;
+//  - int8 W into the product: option (a) of the two layouts. Each int8
+//    stage is widened in registers (16 values a thread-chunk: the bytes
+//    are put under the exponent of 2^23 and 2^23 + 128 is subtracted in
+//    f32, which is exact; the top half of each f32 is then its bf16, also
+//    exact for |q| ≤ 127) into one 128-byte-swizzled bf16 tile, which
+//    `wgmma` m64n64k16 reads MN-major as its B operand, x K-major as A —
+//    K1's forward layout. Option (b), Wᵀ as a register A operand with
+//    the tokens as N, would need each thread's fragment gathered from
+//    four K rows of the row-major int8 tile (W is stored (K, N), never
+//    transposed) and a permuted K order in the x tile; (a) keeps K1's
+//    proven descriptors and costs one shared-memory pass and one barrier
+//    a tile, small beside the bytes of W;
+//  - P = x·A is a second `wgmma` m64nRPk16 from the same x tile into a
+//    small f32 register accumulator (r padded to RP = 16 or 64);
+//  - scales in registers: per channel (G = 1), the f32 sum is multiplied
+//    by scale[n] in the epilogue before alpha·P·B is added, as the TPU
+//    kernel does. Grouped (G > 1, a group a multiple of 64 rows), a
+//    group's x·q partial lives in the `wgmma` accumulator, restarted at
+//    the group's first tile; at its last tile (or the slice's) each
+//    thread adds partial · scale[g, n] into a second f32 register sum —
+//    no shared-memory round trip, and q·s is never rounded to bf16;
+//  - split-K reduction without float atomics or a workspace: the S ≤ 8
+//    slices of a tile are one thread-block cluster. Each block writes its
+//    f32 partials (the sum and P) to its own shared memory in its register
+//    layout; after a cluster barrier every block sums P over the S blocks'
+//    shared memory (distributed shared memory reads, all in flight at
+//    once) and block c sums the sum's column groups c, c + S, ... in
+//    slice order 0 .. S - 1 — a fixed f32 order, so two calls are
+//    bit-identical — and runs their epilogue: P staged in shared memory,
+//    B's (RP, 64) tile (copied into the free int8 ring while the slices
+//    reduce) and acc += alpha·P·B in f32 (P is never rounded to bf16),
+//    one rounding to bf16 on the store. The scales are loaded into
+//    registers ahead of their use (per channel at the start, grouped at
+//    a group's first tile). Ragged M / N / K are zero-filled on load and
+//    masked on the store.
+
+constexpr int QBM = 64, QBN = 64, QBK = 64;   // output tile, K tile
+constexpr int QSTAGES = 4;                     // depth of the ring
+constexpr int QNT = 128;                       // one warpgroup
+
+template <int RP>
+struct W8Smem {
+  static constexpr int XS = QBM * QBK * 2;     // an x tile, swizzled
+  static constexpr int QS = QBK * QBN;         // an int8 W tile, (k, n)
+  static constexpr int AS = RP * QBK * 2;      // an A tile (rows j)
+  static constexpr int X = 0;
+  static constexpr int W8 = X + QSTAGES * XS;
+  static constexpr int A = W8 + QSTAGES * QS;
+  static constexpr int WB = A + QSTAGES * AS;  // the widened bf16 W tile
+  static constexpr int TOTAL = WB + QBK * QBN * 2;
+  static constexpr int PS = RP + 4;            // f32 row of the staged P
+  static constexpr int NV = QBN / 2 + RP / 2;  // partial floats a thread
+  static_assert(AS % 1024 == 0 && XS % 1024 == 0,
+                "tiles must keep the 1024-byte alignment of the swizzle");
+  static_assert(NV * QNT * 4 <= W8 && QBM * PS * 4 <= W8 &&
+                    RP * QBN * 2 <= QSTAGES * QS,
+                "the partials, then P, are staged where the x ring was, "
+                "B's tile in the int8 ring");
+};
+constexpr int QCLUSTER = 8;   // most slices of K: a portable cluster
+
+// four int8 values (one 32-bit word) as two bf16x2 words, exactly
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t v = w ^ 0x80808080u;   // q + 128, unsigned
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)   // 2^23 + (q + 128), less 2^23 + 128
+    f[i] = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 + i)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+template <int RP, bool GROUPED>
+__global__ void __launch_bounds__(QNT, RP <= 16 ? 3 : 2)
+tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
+                          const int8_t* __restrict__ w,
+                          const float* __restrict__ wscale,
+                          const bf16* __restrict__ a,
+                          const bf16* __restrict__ b, bf16* __restrict__ y,
+                          int M, int N, int K, int r, int group, int tps,
+                          float alpha, const LinStrides ls) {
+  using L = W8Smem<RP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * QBN, m0 = blockIdx.y * QBM;
+  const int S = gridDim.z, sp = blockIdx.z;
+  const int nk = (K + QBK - 1) / QBK;
+  const int kt0 = sp * tps, kt1 = min(nk, kt0 + tps);
+  const long long ask = ls.s[2], asj = ls.s[3];
+  const bool va = ask == 1 && asj % 8 == 0 && K % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(a) % 16 == 0;
+
+  auto issue = [&](int kt) {   // tile kt into its stage of the ring
+    const int st = (kt - kt0) % QSTAGES, k0 = kt * QBK;
+    const uint32_t xt = base + L::X + st * L::XS;
+#pragma unroll
+    for (int i = 0; i < QBM * 8 / QNT; ++i) {   // x: 64 rows x 8 chunks
+      const int c = tid + i * QNT, row = c >> 3, ch = c & 7;
+      const int gm = m0 + row, gk = k0 + ch * 8;
+      const bool ok = gm < M && gk < K;
+      cp_async16(xt + row * 128 + ((ch ^ (row & 7)) << 4),
+                 ok ? x + static_cast<long long>(gm) * K + gk : x,
+                 ok ? 16 : 0);
+    }
+    const uint32_t qt = base + L::W8 + st * L::QS;
+#pragma unroll
+    for (int i = 0; i < QBK * 4 / QNT; ++i) {   // W: 64 rows x 4 chunks
+      const int c = tid + i * QNT, row = c >> 2, ch = c & 3;
+      const int gk = k0 + row, gn = n0 + ch * 16;
+      const bool ok = gk < K && gn < N;
+      cp_async16(qt + row * QBN + ch * 16,
+                 ok ? w + static_cast<long long>(gk) * N + gn : w,
+                 ok ? 16 : 0);
+    }
+    const uint32_t at = base + L::A + st * L::AS;
+    for (int c = tid; c < RP * 8; c += QNT) {   // A: rows j, K-major
+      const int j = c >> 3, ch = c & 7, k = k0 + ch * 8;
+      const uint32_t dst = at + j * 128 + ((ch ^ (j & 7)) << 4);
+      if (va) {
+        const bool ok = j < r && k < K;
+        cp_async16(dst, ok ? a + j * asj + k : a, ok ? 16 : 0);
+      } else {
+        uint32_t u[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          u[e] = elem2(a, (k + 2 * e) * ask + j * asj,
+                       (k + 2 * e + 1) * ask + j * asj,
+                       j < r && k + 2 * e < K, j < r && k + 2 * e + 1 < K);
+        st_shared16(dst, u);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < QSTAGES - 1; ++i) {
+    if (kt0 + i < kt1) issue(kt0 + i);
+    cp_async_commit();
+  }
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ra = warp * 16 + (lane >> 2), ca = 2 * (lane & 3);
+  float acc[QBN / 2], tot[GROUPED ? QBN / 2 : 1], p[RP / 2];
+#pragma unroll
+  for (int i = 0; i < QBN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (GROUPED ? QBN / 2 : 1); ++i) tot[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < RP / 2; ++i) p[i] = 0.f;
+
+  // scales into registers ahead of their use: per channel once, grouped
+  // at a group's first tile (the load's latency hides behind the group)
+  float2 sc[QBN / 8];
+  auto load_scales = [&](int g) {
+    const float* srow = wscale + static_cast<long long>(g) * N;
+#pragma unroll
+    for (int c = 0; c < QBN / 8; ++c) {
+      const int gn = n0 + 8 * c + ca;
+      sc[c] = gn < N ? *reinterpret_cast<const float2*>(srow + gn)
+                     : make_float2(0.f, 0.f);
+    }
+  };
+  load_scales(GROUPED ? kt0 * QBK / group : 0);
+
+  const uint32_t wb = base + L::WB;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) % QSTAGES;
+    cp_async_wait<QSTAGES - 2>();   // tile kt has landed
+    __syncthreads();   // ... for every thread; the products of tile kt - 1
+                       // are done, so its stage and the widened tile are free
+    if (kt + QSTAGES - 1 < kt1) issue(kt + QSTAGES - 1);
+    cp_async_commit();
+    const unsigned char* qt = smem + L::W8 + st * L::QS;
+#pragma unroll
+    for (int i = 0; i < QBK * 4 / QNT; ++i) {   // widen: 16 values a chunk
+      const int c = tid + i * QNT, row = c >> 2, ch = c & 3;
+      const uint4 u = *reinterpret_cast<const uint4*>(qt + row * QBN +
+                                                      ch * 16);
+      uint32_t lo[4], hi[4];
+      widen4(u.x, lo[0], lo[1]);
+      widen4(u.y, lo[2], lo[3]);
+      widen4(u.z, hi[0], hi[1]);
+      widen4(u.w, hi[2], hi[3]);
+      st_shared16(wb + row * 128 + (((2 * ch) ^ (row & 7)) << 4), lo);
+      st_shared16(wb + row * 128 + (((2 * ch + 1) ^ (row & 7)) << 4), hi);
+    }
+    fence_proxy_async();   // cp.async and the widened stores, to `wgmma`
+    __syncthreads();
+    const uint32_t xt = base + L::X + st * L::XS;
+    const uint32_t at = base + L::A + st * L::AS;
+    reg_fence(acc);
+    reg_fence(p);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < QBK / 16; ++kk) {
+      const uint64_t dx = desc_k<QBM>(xt, 0, kk);
+      WgSS<QBN, 1>::mma(acc, dx, desc_mn<QBK>(wb, kk), 1);
+      WgSS<RP>::mma(p, dx, desc_k<RP>(at, 0, kk), 1);   // P += x·A
+    }
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(acc);
+    reg_fence(p);
+    if (GROUPED && (((kt + 1) * QBK) % group == 0 || kt + 1 == kt1)) {
+      // the group's (or the slice's) last tile: tot += partial · scale
+#pragma unroll
+      for (int c = 0; c < QBN / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          tot[4 * c + e] += acc[4 * c + e] * ((e & 1) ? sc[c].y : sc[c].x);
+          acc[4 * c + e] = 0.f;
+        }
+      if (kt + 1 < kt1) load_scales((kt + 1) * QBK / group);
+    }
+  }
+  cp_async_wait<0>();
+  float* sum = GROUPED ? tot : acc;
+  __syncthreads();   // the rings are free: the partials go where x was
+
+  // B's (RP, 64) tile for the epilogue, into the int8 ring while the
+  // slices reduce; rows ≥ r and columns ≥ N zero
+  const uint32_t bt = base + L::W8;
+  const bool vb = ls.s[5] == 1 && ls.s[4] % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  for (int c = tid; c < RP * 8; c += QNT) {
+    const int j = c >> 3, ch = c & 7, gn = n0 + ch * 8;
+    const uint32_t dst = bt + j * 128 + ch * 16;
+    if (vb) {
+      const bool ok = j < r && gn < N;
+      cp_async16(dst, ok ? b + j * ls.s[4] + gn : b, ok ? 16 : 0);
+    } else {
+      uint32_t u[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        u[e] = elem2(b, j * ls.s[4] + (gn + 2 * e) * ls.s[5],
+                     j * ls.s[4] + (gn + 2 * e + 1) * ls.s[5],
+                     j < r && gn + 2 * e < N, j < r && gn + 2 * e + 1 < N);
+      st_shared16(dst, u);
+    }
+  }
+  cp_async_commit();
+
+  // split-K across the cluster (S = 1: a cluster of one)
+  float4* part = reinterpret_cast<float4*>(smem);   // [v][tid]
+#pragma unroll
+  for (int v = 0; v < QBN / 8; ++v)
+    part[v * QNT + tid] = make_float4(sum[4 * v], sum[4 * v + 1],
+                                      sum[4 * v + 2], sum[4 * v + 3]);
+#pragma unroll
+  for (int v = 0; v < RP / 8; ++v)
+    part[(QBN / 8 + v) * QNT + tid] =
+        make_float4(p[4 * v], p[4 * v + 1], p[4 * v + 2], p[4 * v + 3]);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster.sync();   // every slice's partials are in its shared memory
+  // the S partials of entry v of this thread, summed in slice order
+  auto reduce = [&](int v, float* out) {
+    float4 t[QCLUSTER];
+#pragma unroll
+    for (int q = 0; q < QCLUSTER; ++q)
+      if (q < S) t[q] = *(cluster.map_shared_rank(part, q) + v * QNT + tid);
+    float4 u = t[0];
+#pragma unroll
+    for (int q = 1; q < QCLUSTER; ++q)
+      if (q < S) {
+        u.x += t[q].x;
+        u.y += t[q].y;
+        u.z += t[q].z;
+        u.w += t[q].w;
+      }
+    out[0] = u.x;
+    out[1] = u.y;
+    out[2] = u.z;
+    out[3] = u.w;
+  };
+#pragma unroll
+  for (int v = 0; v < RP / 8; ++v) reduce(QBN / 8 + v, p + 4 * v);
+#pragma unroll
+  for (int c = 0; c < QBN / 8; ++c)   // this block's column groups
+    if (c % S == rank) reduce(c, sum + 4 * c);
+  cluster.sync();   // no block reads another's shared memory past here
+
+  float* ps = reinterpret_cast<float*>(smem);   // P (64, RP), f32
+#pragma unroll
+  for (int c = 0; c < RP / 8; ++c)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(ps + (ra + 8 * hh) * L::PS + 8 * c + ca) =
+          make_float2(p[4 * c + 2 * hh], p[4 * c + 2 * hh + 1]);
+  cp_async_wait<0>();   // B's tile
+  __syncthreads();
+  const bf16* bs = reinterpret_cast<const bf16*>(smem + L::W8);
+#pragma unroll
+  for (int c = 0; c < QBN / 8; ++c) {
+    const int gn = n0 + 8 * c + ca;
+    if (c % S != rank || gn >= N) continue;
+    float* g = sum + 4 * c;
+    if (!GROUPED) {   // per output channel: the f32 sum · scale[n]
+      g[0] *= sc[c].x;
+      g[1] *= sc[c].y;
+      g[2] *= sc[c].x;
+      g[3] *= sc[c].y;
+    }
+    for (int j = 0; j < r; ++j) {   // + alpha·P·B, in f32
+      const float p0 = alpha * ps[ra * L::PS + j];
+      const float p1 = alpha * ps[(ra + 8) * L::PS + j];
+      const float2 bv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(bs + j * QBN + 8 * c + ca));
+      g[0] += p0 * bv.x;
+      g[1] += p0 * bv.y;
+      g[2] += p1 * bv.x;
+      g[3] += p1 * bv.y;
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {   // N is even: bf16x2 stores
+      const int gm = m0 + ra + 8 * hh;
+      if (gm < M)
+        *reinterpret_cast<__nv_bfloat162*>(
+            y + static_cast<long long>(gm) * N + gn) =
+            __floats2bfloat162_rn(g[2 * hh], g[2 * hh + 1]);
+    }
+  }
+}
+
+template <int RP, bool GROUPED>
+int launch_w8_wgmma(const void* x, const void* w, const float* s,
+                    const void* a, const void* b, void* y, int M, int N,
+                    int K, int r, int group, int splits, float alpha,
+                    const LinStrides& ls, void* stream) {
+  constexpr int smem = W8Smem<RP>::TOTAL + 1024;   // + the alignment slack
+  static bool done = false;
+  cudaError_t e =
+      allow_smem(tt_linear_w8_wgmma_kernel<RP, GROUPED>, smem, &done);
+  if (e != cudaSuccess) return (int)e;
+  const int nk = (K + QBK - 1) / QBK;
+  const int tps = (nk + splits - 1) / splits;
+  const int nsl = (nk + tps - 1) / tps;   // no empty slice
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + QBN - 1) / QBN, (M + QBM - 1) / QBM, nsl);
+  cfg.blockDim = dim3(QNT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;   // the slices of a tile
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = nsl;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, tt_linear_w8_wgmma_kernel<RP, GROUPED>,
+                         static_cast<const bf16*>(x),
+                         static_cast<const int8_t*>(w), s,
+                         static_cast<const bf16*>(a),
+                         static_cast<const bf16*>(b), static_cast<bf16*>(y),
+                         M, N, K, r, group, tps, alpha, ls);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -872,21 +1256,50 @@ int tt_linear_batched_a_bf16(const void* x, const void* w, const void* a,
                                 alpha, vec, stream);
 }
 
-// w8a16: w int8 (K, N), scale f32 (G, N) contiguous; G = 1 scales per
-// output channel, G > 1 per group of K / G rows (G must divide K, and the
-// group must be a multiple of the kernel's K tile: 128 always is). The
-// other operands as above; VEC_XW promises N % 16 == 0 for the int8 W.
+// w8a16 (#9): w int8 (K, N) and scale f32 (G, N) contiguous; G = 1
+// scales per output channel, G > 1 per group of K / G rows (G must divide
+// K, and the group must be a multiple of the kernels' K tiles: 128 always
+// is). a (K, r) and b (r, N) read through their element strides (a: k, j;
+// b: j, n). variant 1: the `wgmma` kernel (r <= 64, K % 8 == 0,
+// N % 16 == 0, x and w 16-byte aligned, scale 8-byte aligned) over
+// `splits` <= 8 slices of K, one cluster a tile; 2: the template kernel
+// (contiguous a and b).
 int tt_linear_w8_bf16(const void* x, const void* w, const void* scale,
                       const void* a, const void* b, void* y, int M, int N,
-                      int K, int r, int G, float alpha, int vec,
+                      int K, int r, int G, float alpha,
+                      const long long* strides, int variant, int splits,
                       void* stream) {
   const float* s = static_cast<const float*>(scale);
-  if (G < 1 || K % G != 0) return (int)cudaErrorInvalidValue;
-  if (G == 1)
-    return run_shared_a<WQ_CHANNEL>(x, w, s, a, b, y, M, N, K, r, K, alpha,
-                                    vec, stream);
-  return run_shared_a<WQ_GROUP>(x, w, s, a, b, y, M, N, K, r, K / G, alpha,
-                                vec, stream);
+  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 256 || G < 1 || K % G != 0)
+    return (int)cudaErrorInvalidValue;
+  LinStrides ls;
+  for (int i = 0; i < 6; ++i) ls.s[i] = strides[i];
+  if (variant == 2) {
+    if (ls.s[2] != r || ls.s[3] != 1 || ls.s[4] != N || ls.s[5] != 1)
+      return (int)cudaErrorInvalidValue;
+    const int vec = (K % 8 == 0 && N % 16 == 0 && aligned16(x) &&
+                     aligned16(w) ? VEC_XW : 0) |
+                    (r % 8 == 0 && aligned16(a) ? VEC_A : 0);
+    if (G == 1)
+      return run_shared_a<WQ_CHANNEL>(x, w, s, a, b, y, M, N, K, r, K,
+                                      alpha, vec, stream);
+    return run_shared_a<WQ_GROUP>(x, w, s, a, b, y, M, N, K, r, K / G,
+                                  alpha, vec, stream);
+  }
+  const int group = K / G;
+  if (variant != 1 || r > RANK_WGMMA || K % 8 != 0 || N % 16 != 0 ||
+      !aligned16(x) || !aligned16(w) ||
+      reinterpret_cast<uintptr_t>(scale) % 8 != 0 ||
+      (G > 1 && group % QBK != 0) || splits < 1 || splits > QCLUSTER ||
+      (M + QBM - 1) / QBM > 65535)
+    return (int)cudaErrorInvalidValue;
+#define W8_ARGS x, w, s, a, b, y, M, N, K, r, group, splits, alpha, ls, stream
+  if (r <= 16)
+    return G > 1 ? launch_w8_wgmma<16, true>(W8_ARGS)
+                 : launch_w8_wgmma<16, false>(W8_ARGS);
+  return G > 1 ? launch_w8_wgmma<64, true>(W8_ARGS)
+               : launch_w8_wgmma<64, false>(W8_ARGS);
+#undef W8_ARGS
 }
 
 int tt_linear_batched_a_w8_bf16(const void* x, const void* w,

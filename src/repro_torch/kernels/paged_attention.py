@@ -13,7 +13,11 @@ registers; p stays f32 through P·V, the output is bf16.
 
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel (bf16 q, bf16 or int8 pools, head_dim 64 or 128, GQA
-group in {1, 2, 4, 8}, page a multiple of 8 up to 64) or raises.
+group in {1, 2, 4, 8}, page a multiple of 8 up to 64) or raises. #8 runs
+on the tensor cores with all C·G rows of a (slot, kv head) in one block:
+``mma.sync`` below 64 rows, ``wgmma`` from 64; where the B·KV blocks
+leave the card under-filled each window is split into chunks merged in
+a fixed order (``paged_path``). #8q keeps the SIMT kernel.
 ``LAUNCHES`` counts the launches, and nothing else adds to it. The kernel is serving-only: an
 input that requires grad while autograd records raises.
 """
@@ -31,6 +35,8 @@ from repro_torch.kernels import ref as _ref
 LAUNCHES = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0}
 
 PAGES = tuple(range(8, 65, 8))
+#: cells a streamed tile of #8's kernel, and the most rows a block takes
+TILE_CELLS, SLAB_ROWS = 64, 256
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, tables, pos
@@ -51,13 +57,34 @@ def paged_decode_attention_int8_plain(q, k_cache, v_cache, k_scale, v_scale,
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     f = getattr(_build.library("paged_attention"), name)
-    # q k v [k_scale v_scale] tables pos o, B C H KV d N page P, strides,
-    # stream
-    n_ptr = 8 if name == "paged_attention_int8" else 6
-    f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p, ctypes.c_void_p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "paged_attention_int8":
+        # q k v k_scale v_scale tables pos o, B C H KV d N page P, strides,
+        # stream
+        f.argtypes = [p] * 8 + [i] * 8 + [p, p]
+    else:
+        # q k v tables pos o, B C H KV d N page P, strides, split, ws, cnt,
+        # stream
+        f.argtypes = [p] * 6 + [i] * 8 + [p, i, p, p, p]
     f.restype = ctypes.c_int
     return f
+
+
+def paged_path(b: int, c: int, h: int, kv: int, p_tab: int, page: int,
+               sms: int) -> tuple:
+    """How #8's kernel runs: ``("mma", split)`` below 64 rows a block
+    (C·G < 64), else ``("wgmma", split)``; ``split`` is the tiles of 64
+    cells a chunk of each window when the B·KV blocks would leave the
+    card under-filled (fewer than two on each of ``sms`` SMs), so that
+    about four blocks an SM run, and 0 (one block a window) otherwise."""
+    rows = c * (h // kv)
+    mode = "mma" if rows < 64 else "wgmma"
+    blocks = b * kv * -(-rows // SLAB_ROWS)
+    tiles = -(-p_tab * page // TILE_CELLS)
+    if blocks >= 2 * sms or tiles < 2:
+        return mode, 0
+    split = -(-tiles // -(-4 * sms // blocks))
+    return mode, (split if split < tiles else 0)
 
 
 def _check_shapes(q, k_cache, v_cache, tables, pos, what: str) -> tuple:
@@ -102,14 +129,37 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
     st = _fa._strides(q, k_cache, v_cache, o)
     st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
-    rc = _fn("paged_attention_bf16")(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        tables.data_ptr(), pos.data_ptr(), o.data_ptr(), b, c, h, kv, d, n,
-        page, tables.shape[1], ctypes.cast(st, ctypes.c_void_p),
-        _build.stream_ptr(q))
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    _, split = paged_path(b, c, h, kv, tables.shape[1], page, sms)
+    rc = _launch_tc(q, k_cache, v_cache, tables, pos, o, n, page, st, split)
     _build.check(rc, what)
     LAUNCHES[what] += 1
     return o
+
+
+def _launch_tc(q, k_cache, v_cache, tables, pos, o, n: int, page: int, st,
+               split: int) -> int:
+    """#8's kernel over checked CUDA operands with ``split`` tiles a chunk
+    (0: one block a window); returns the launch's cudaError. A split run
+    takes an f32 workspace for the chunks' partial states and the shared
+    zeroed counters (``_build.counters``)."""
+    b, c, h, d = q.shape
+    kv, p_tab = k_cache.shape[2], tables.shape[1]
+    ws = cnt = None
+    if split:
+        rows = c * (h // kv)
+        slabs = -(-rows // SLAB_ROWS)
+        threads = 128 * (1 if rows <= 64 else 2 if rows <= 128 else 4)
+        chunks = -(-p_tab * page // (TILE_CELLS * split))
+        ws = torch.empty(b * kv * slabs * chunks * threads * (d // 2 + 4),
+                         dtype=torch.float32, device=q.device)
+        cnt = _build.counters(q.device, b * kv * slabs)
+    return _fn("paged_attention_bf16")(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        tables.data_ptr(), pos.data_ptr(), o.data_ptr(), b, c, h, kv, d, n,
+        page, p_tab, ctypes.cast(st, ctypes.c_void_p), split,
+        None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), _build.stream_ptr(q))
 
 
 def paged_decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,

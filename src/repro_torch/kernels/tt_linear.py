@@ -20,9 +20,12 @@ wrappers make plain outputs with no ``grad_fn``: an input that requires
 grad while autograd records raises.
 
 K1 has two CUDA kernels (``k1_variant``): the `wgmma` kernel for ranks up
-to ``RANK_WGMMA``, and above it the template kernel that #9, K2 and #10
+to ``RANK_WGMMA``, and above it the template kernel that K2 and #10
 share, which takes contiguous W, A and B (the wrapper copies them there).
-K2 and #10 take at most 64 rows a launch; ``ops.py`` splits larger M.
+#9 has its own `wgmma` kernel for ranks up to ``RANK_WGMMA`` on x and W
+that take 16-byte copies, over ``w8_splits`` slices of K; else the
+template kernel (``w8_path``). K2 and #10 take at most 64 rows a launch;
+``ops.py`` splits larger M.
 """
 from __future__ import annotations
 
@@ -48,8 +51,10 @@ _ARGTYPES = {
     "tt_linear_bf16": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _P],
     # x w a b y, M N K r, alpha, vec, stream
     "tt_linear_batched_a_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # x w scale a b y, M N K r G, alpha, strides (a, b), variant, splits,
+    # stream
+    "tt_linear_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _I, _P],
     # x w scale a b y, M N K r G, alpha, vec, stream
-    "tt_linear_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
     "tt_linear_batched_a_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
 }
 #: K1's CUDA kernels (``csrc/tt_linear.cu``): the `wgmma` kernel, which
@@ -58,6 +63,11 @@ K1_VARIANTS = {"wgmma": 1, "template": 2}
 RANK_WGMMA = 64
 #: rows a K2 / #10 launch takes
 BATCHED_A_ROWS = 64
+#: #9's CUDA kernels: its `wgmma` kernel and the template kernel
+W8_VARIANTS = {"wgmma": 1, "template": 2}
+#: the `wgmma` #9 kernel's output tile, K tile, and most slices of K (the
+#: slices of a tile are one thread-block cluster of at most 8)
+W8_TILE, W8_BK, W8_MAX_SPLITS = 64, 64, 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,6 +82,34 @@ def k1_variant(r: int) -> str:
     """Which CUDA kernel K1 launches at rank r: ``"wgmma"`` (ranks up to
     ``RANK_WGMMA``, every M) or ``"template"`` (larger ranks)."""
     return "wgmma" if r <= RANK_WGMMA else "template"
+
+
+def w8_splits(m: int, n: int, k: int, sms: int) -> int:
+    """Slices of K for #9's `wgmma` kernel: the fewest (a power of two, at
+    most ``W8_MAX_SPLITS``) that put at least one block on each of
+    ``sms`` SMs, with every slice at least two K tiles long. M = 64,
+    N = K = 2048 on 132 SMs: 32 output tiles x 8 slices of 256 rows."""
+    tiles = -(-n // W8_TILE) * -(-m // W8_TILE)
+    nk = -(-k // W8_BK)
+    s = 1
+    while tiles * s < sms and 2 * s * 2 <= nk and s < W8_MAX_SPLITS:
+        s *= 2
+    return s
+
+
+def w8_path(x, wq, scale, r: int) -> tuple:
+    """Which CUDA kernel #9 launches, and over how many slices of K:
+    ``("wgmma", S)`` for ranks up to ``RANK_WGMMA`` when x and the int8 W
+    take 16-byte copies (K % 8 == 0, N % 16 == 0, aligned bases) and the
+    scales 8-byte ones; else ``("template", 1)``."""
+    m, k = x.shape
+    n = wq.shape[1]
+    if (r <= RANK_WGMMA and k % 8 == 0 and n % 16 == 0
+            and x.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+            and scale.data_ptr() % 8 == 0):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        return "wgmma", w8_splits(m, n, k, sms)
+    return "template", 1
 
 
 def _check_cuda(x, w, a, b, what: str, w_dtype=torch.bfloat16) -> None:
@@ -128,17 +166,39 @@ def _launch_w8(name, x, wq, scale, a, b, alpha, r, batched: bool):
     if not 1 <= r <= 256 or (batched and not 1 <= m <= BATCHED_A_ROWS):
         raise ValueError(f"{name}: rank {r} outside 1..256 or M={m} "
                          f"outside 1..{BATCHED_A_ROWS} (batched A)")
-    x, wq, scale, a, b = (t.contiguous() for t in (x, wq, scale, a, b))
+    x, wq, scale = (t.contiguous() for t in (x, wq, scale))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    rc = _fn(name + "_bf16")(
-        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), a.data_ptr(),
-        b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
-        _vec_flags(x, wq, a, k, n, r), _build.stream_ptr(x))
+    if batched:
+        a, b = a.contiguous(), b.contiguous()
+        rc = _fn(name + "_bf16")(
+            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), a.data_ptr(),
+            b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
+            _vec_flags(x, wq, a, k, n, r), _build.stream_ptr(x))
+    else:
+        rc = _launch_w8_shared_a(x, wq, scale, a, b, y, g, alpha,
+                                 *w8_path(x, wq, scale, r))
     _build.check(rc, name)
     LAUNCHES[name] += 1
     return y
+
+
+def _launch_w8_shared_a(x, wq, scale, a, b, y, g: int, alpha,
+                        variant: str, splits: int) -> int:
+    """#9 through the named kernel (see ``w8_path``); returns the
+    launch's cudaError. A and B are read through their strides by the
+    `wgmma` kernel and copied contiguous for the template one."""
+    m, k = x.shape
+    n, r = wq.shape[1], a.shape[1]
+    if variant == "template":
+        a, b = a.contiguous(), b.contiguous()
+    st = (ctypes.c_longlong * 6)(0, 0, *a.stride(), *b.stride())
+    return _fn("tt_linear_w8_bf16")(
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), a.data_ptr(),
+        b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
+        ctypes.cast(st, ctypes.c_void_p), W8_VARIANTS[variant], splits,
+        _build.stream_ptr(x))
 
 
 def _launch_k1(x, w, a, b, alpha, variant: str) -> torch.Tensor:

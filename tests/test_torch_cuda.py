@@ -16,6 +16,8 @@ the plain version); lse 1e-3 absolute (f32, another summation order); backward
 2e-2 of the largest plain gradient (the JAX package's bf16 gradient
 limit, tests/test_grads.py).
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -254,19 +256,22 @@ def test_launch_counts_and_cpu_leg(dev):
         ttl.tt_linear(x.float(), w.float(), a.float(), b.float())
 
 
-def _paged_case(dev, c, g, d, page, seed=0):
+def _paged_case(dev, c, g, d, page, seed=0, edge=False):
     """4 slots over a 40-block pool, 6-page tables: slot 0 at position 0,
     slot 1 with its last in-window page a sentinel (read clamped, masked
     past its position), slot 2 with its first query on the last cell of
     the table, slot 3 mid-table. Every entry past a slot's window is a
-    sentinel (N or larger)."""
-    b, kv, n, p_tab = 4, 2, 40, 6
+    sentinel (N or larger). ``edge``: a fifth slot whose window ends
+    exactly on a page edge (its last query on a page's last cell)."""
+    b, kv, n, p_tab = 4 + int(edge), 2, 40, 6
     h = kv * g
     gen = torch.Generator().manual_seed(seed + c * 131 + g * 17 + page)
     q = _rn(dev, b, c, h, d, seed=seed)
     kc, vc = _rn(dev, n, page, kv, d, seed=1), _rn(dev, n, page, kv, d,
                                                     seed=2)
     pos = [0, 2 * page + 3, p_tab * page - 1, page + 1]
+    if edge:
+        pos.append((-(-c // page) + 1) * page - c)
     tables = torch.full((b, p_tab), n, dtype=torch.int32)
     perm = torch.randperm(n, generator=gen)
     used = 0
@@ -284,13 +289,51 @@ def _paged_case(dev, c, g, d, page, seed=0):
 
 @pytest.mark.parametrize("page", [8, 16, 32])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
 @pytest.mark.parametrize("c", [1, 3, 8, 32])
 def test_paged_decode_attention(dev, c, g, d, page):
-    args = _paged_case(dev, c, g, d, page)
+    """C·G from 1 to 256 rows a block: ``mma.sync`` below 64, ``wgmma``
+    from 64 (C·G in {64, 256} at C = 32, G = 2 / 8 and C = 8, G = 8); a
+    window ending exactly on a page edge; sentinels inside and past the
+    window; split windows wherever the table spans two or more tiles."""
+    args = _paged_case(dev, c, g, d, page, edge=True)
     got = tpa.paged_decode_attention(*args)
     assert got.shape == args[0].shape and got.dtype == torch.bfloat16
     _close(got, tpa.paged_decode_attention_plain(*args), 2e-2)
+    assert torch.equal(tpa.paged_decode_attention(*args), got)
+
+
+@pytest.mark.parametrize("split", [0, 1, 3, 5])
+@pytest.mark.parametrize("c,g", [(1, 1), (32, 1), (32, 8)])
+def test_paged_decode_attention_split_windows(dev, c, g, split):
+    """#8 with its windows in chunks of ``split`` 64-cell tiles (0: one
+    block a window; 1, 3, 5: 9, 3 and 2 chunks of the 34-page table) at
+    the engine's page and table width: each within 2e-2 of the plain
+    version, and two calls bit-identical (the chunks merge in a fixed
+    order, no float atomics)."""
+    b, kv, d, page, n, p_tab = 8, 4, 64, 16, 256, 34
+    h = kv * g
+    pos = [0, 37, 100, 161, 230, 299, 407, 479]
+    gen = torch.Generator().manual_seed(c + g)
+    tables = torch.full((b, p_tab), n, dtype=torch.int32)
+    perm, used = torch.randperm(n, generator=gen), 0
+    for row, p0 in enumerate(pos):
+        last = min((p0 + c - 1) // page, p_tab - 1)
+        tables[row, :last + 1] = perm[used:used + last + 1].int()
+        used += last + 1
+    q, kc, vc = (_rn(dev, b, c, h, d, seed=3), _rn(dev, n, page, kv, d, seed=4),
+                 _rn(dev, n, page, kv, d, seed=5))
+    tables, pos = tables.to(dev), torch.tensor(pos, dtype=torch.int32,
+                                               device=dev)
+    o = [torch.empty_like(q) for _ in range(2)]
+    st = tfa._strides(q, kc, vc, o[0])
+    st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
+    for t in o:
+        tpa._build.check(tpa._launch_tc(q, kc, vc, tables, pos, t, n, page,
+                                        st, split), "split")
+    _close(o[0], tpa.paged_decode_attention_plain(q, kc, vc, tables, pos),
+           2e-2)
+    assert torch.equal(o[0], o[1])
 
 
 def test_paged_decode_attention_reads_q_through_strides(dev):
@@ -337,16 +380,53 @@ def _w8(dev, k, n, group, seed=0):
 @pytest.mark.parametrize("m,k,n,r", [(1, 2048, 2048, 8), (3, 384, 130, 5),
                                      (4, 256, 48, 8), (8, 512, 96, 13),
                                      (64, 2048, 2048, 8),
-                                     (100, 256, 200, 100)])
+                                     (100, 256, 200, 100),
+                                     (16, 2048, 2048, 1), (63, 512, 256, 64),
+                                     (65, 384, 192, 8), (256, 2048, 2048, 8),
+                                     (64, 256, 112, 65), (16, 384, 48, 256),
+                                     (64, 2048, 2048, 64)])
 def test_tt_linear_w8(dev, m, k, n, r, group):
-    """#9, per output channel and grouped; ragged M / N, ranks that are
-    not multiples of 8, N not a multiple of 16 (no vector W loads)."""
+    """#9, per output channel and grouped (K = 2048: 16 groups); ragged M
+    / N, ranks that are not multiples of 8, N not a multiple of 16 (no
+    vector W loads: the template kernel), ranks on both sides of
+    RANK_WGMMA (64: the `wgmma` kernel, 65 and up: the template one);
+    A both K-contiguous (the model's layout) and row-major. Two calls
+    are bit-identical."""
     x = _rn(dev, m, k)
     wq, s = _w8(dev, k, n, group)
-    a, b = _rn(dev, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
-    got = ttl.tt_linear_w8(x, wq, s, a, b, 4.0)
-    assert got.shape == (m, n) and got.dtype == torch.bfloat16
-    _close(got, ttl.tt_linear_w8_plain(x, wq, s, a, b, 4.0), 1e-2)
+    at, b = _rn(dev, r, k, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    want = None
+    for a in (at.T, at.T.contiguous()):
+        got = ttl.tt_linear_w8(x, wq, s, a, b, 4.0)
+        assert got.shape == (m, n) and got.dtype == torch.bfloat16
+        if want is None:
+            want = ttl.tt_linear_w8_plain(x, wq, s, a, b, 4.0)
+        _close(got, want, 1e-2)
+        assert torch.equal(ttl.tt_linear_w8(x, wq, s, a, b, 4.0), got)
+
+
+@pytest.mark.parametrize("group", [0, 128, 1024])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_tt_linear_w8_slices_of_k(dev, splits, group):
+    """#9's `wgmma` kernel at M = 64, K = N = 2048 over 1 to 8 slices of
+    K, one thread-block cluster a tile (3: slices of 11 and 10 tiles;
+    group 1024 spans several slices): within 1e-2 of the plain version,
+    two calls bit-identical (the slices are summed in a fixed order, no
+    float atomics)."""
+    m, k, n, r = 64, 2048, 2048, 8
+    x = _rn(dev, m, k)
+    wq, s = _w8(dev, k, n, group)
+    a = _rn(dev, r, k, scale=k ** -0.5).T
+    b = _rn(dev, r, n, scale=r ** -0.5)
+    g = s.shape[0]
+    ys = [torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+          for _ in range(2)]
+    for y in ys:
+        ttl._build.check(ttl._launch_w8_shared_a(x, wq, s, a, b, y, g, 4.0,
+                                                 "wgmma", splits), "w8")
+    _close(ys[0], ttl.tt_linear_w8_plain(x, wq, s, a, b, 4.0), 1e-2)
+    assert torch.equal(ys[0], ys[1])
+    assert ttl.w8_path(x, wq, s, r)[0] == "wgmma"
 
 
 @pytest.mark.parametrize("group", [0, 128])

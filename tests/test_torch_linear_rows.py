@@ -159,6 +159,21 @@ def test_k1_variant_names_the_kernel_by_rank():
     assert ttl.k1_variant(ttl.RANK_WGMMA + 1) == "template"
 
 
+@pytest.mark.parametrize("m,k,n,want", [
+    (16, 2048, 2048, 8), (64, 2048, 2048, 8),    # 32 output tiles
+    (128, 2048, 2048, 4), (256, 2048, 2048, 2),  # 64 and 128 tiles
+    (1024, 2048, 2048, 1),                       # 512 tiles: no split
+    (64, 256, 2048, 2),                          # 4 K tiles: 2 a slice
+    (64, 64, 48, 1),                             # one K tile
+    (1, 8192, 64, 8),                            # at most 8: one cluster
+])
+def test_w8_splits_fill_the_card_with_whole_slices(m, k, n, want):
+    """#9's slices of K on 132 SMs: the fewest (a power of two) that put
+    a block on every SM, each slice at least two 64-row K tiles, at most
+    eight (the slices of a tile are one thread-block cluster)."""
+    assert ttl.w8_splits(m, k=k, n=n, sms=132) == want
+
+
 def _rel(got, want) -> float:
     g, w = _np(got), _np(want)
     assert g.shape == w.shape, (g.shape, w.shape)

@@ -6,7 +6,8 @@ numpy from a seed, against the JAX Pallas kernel in interpret mode and
 the JAX reference, at the shapes of tests/test_paged_engine.py (C in
 {1, 4, 8}, GQA, sentinel table entries, ragged positions) and at a few
 more (a slot whose last query sits on the last cell of its table, pages
-of 16 and 32, C past one page).
+of 16 and 32, C past one page, C·G = 64 and 256 query rows a (slot, kv
+head): the row counts at which the card's kernel takes `wgmma`).
 
 Tolerances: f32 2e-5 (the same algorithm, f32 sums in another order);
 bf16 2e-2 (the Pallas kernel rounds unnormalised probabilities to bf16
@@ -86,6 +87,8 @@ def test_plain_matches_pallas_and_ref_at_engine_test_shapes(c, heads, dt):
     (3, 8, 1, 32, 16, 3, [47, 0, 20]),      # last query past the table
     (16, 4, 2, 64, 32, 2, [63, 10, 40]),    # C past half a page, pos at end
     (1, 2, 2, 16, 8, 5, [39, 0, 7]),        # pos at the table's last cell
+    (8, 16, 2, 16, 8, 6, [8, 0, 23]),       # C·G = 64, a window on a page edge
+    (32, 16, 2, 16, 16, 4, [0, 31, 12]),    # C·G = 256
 ])
 def test_plain_matches_pallas_at_odd_shapes(c, h, kv, d, page, p_tab, pos):
     n = 9
@@ -155,3 +158,20 @@ def test_raw_wrapper_and_unported_leg_raise():
     with pytest.raises(ValueError):          # a pool of the wrong width
         tpa.paged_decode_attention(t[0], t[1][..., :8], t[2][..., :8],
                                    *t[3:])
+
+
+@pytest.mark.parametrize("b,c,h,kv,p_tab,page,want", [
+    (8, 32, 32, 32, 34, 16, ("mma", 3)),    # the engine's step: 32 rows
+    (8, 1, 32, 32, 34, 16, ("mma", 3)),     # pure decode: one row
+    (8, 32, 32, 16, 34, 16, ("wgmma", 2)),  # G = 2: 64 rows, 128 blocks
+    (8, 32, 64, 8, 34, 16, ("wgmma", 1)),   # G = 8: 256 rows, 64 blocks
+    (64, 1, 32, 32, 34, 16, ("mma", 0)),    # 2048 blocks fill the card
+    (8, 1, 32, 32, 4, 16, ("mma", 0)),      # a one-tile table: no split
+])
+def test_paged_path_picks_the_product_and_the_split(b, c, h, kv, p_tab,
+                                                    page, want):
+    """#8 on 132 SMs: ``mma.sync`` below 64 rows a (slot, kv head) block,
+    ``wgmma`` from 64; windows split into chunks of ``split`` 64-cell
+    tiles (about four blocks an SM) only where B·KV blocks leave the card
+    with fewer than two an SM."""
+    assert tpa.paged_path(b, c, h, kv, p_tab, page, sms=132) == want

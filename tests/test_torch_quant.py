@@ -187,6 +187,8 @@ def _w8_operands(seed, m, k, n, r, group, batched=False):
     (12, 200, 391, 9, 0),       # odd everything
     (8, 256, 384, 16, 128),     # grouped: one scale row per 128 K rows
     (3, 384, 130, 5, 128),      # grouped, odd M / N / r
+    (16, 256, 128, 65, 0),      # rank 65: past the card's `wgmma` path
+    (64, 256, 128, 65, 128),    # ... grouped
 ])
 def test_w8_plain_matches_pallas_and_ref(m, k, n, r, group):
     j, t, jw = _w8_operands(m + k, m, k, n, r, group)
