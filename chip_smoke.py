@@ -12,12 +12,13 @@ Phases, each printed on its own lines:
      the stated tolerance; the kernel's, the plain version's and one
      library call's times (the library call is a yardstick only: the port
      never calls it); where a launcher chooses among kernels or splits
-     (K1, the flash forward, #9's slices of K, #8's product and window
-     chunks), which one ran and every variant's time; #9 at M = 16, 64,
-     128 and 256 and #8 at C = 1 and 32 must agree bit for bit across
-     two calls; K2 and #10 at 72 decode rows through ``ops`` (two
-     launches each); at the training shape two flash backward calls must
-     agree bit for bit, and
+     (K1, the flash forward, #9's and #10's slices of K, #8's product
+     and #8 / #8q's window chunks), which one ran and every variant's
+     time; #9 at M = 16, 64, 128 and 256, #10 at M = 4, 8, 16 and 64 and
+     #8 / #8q at C = 1 and 32 must agree bit for bit across two calls;
+     #8q's error beside that of p cut to bf16; K2 and #10 at 72 decode
+     rows through ``ops`` (two launches each); at the training shape two
+     flash backward calls must agree bit for bit, and
      #5-#7 and K1's forward and dx (on the views the backward passes)
      print their TFLOP/s and share of bound;
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
@@ -501,23 +502,26 @@ def paged_kernel_rows(dev, rn):
 
 
 def w8_kernel_rows(dev, rn):
-    """#9 at the w8 dense prefill's q/v shapes (M = 16, 64, 128, 256
-    prompt rows, K = N = 2048, r = 8, A in the model's K-contiguous layout)
-    and #10 at its decode shape (M = 4 slots), per output channel (the
-    engine's QuantConfig; #9's main row is M = 64) and with 128-row scale
-    groups. Two #9 calls must agree bit for bit; the launcher's path
-    (kernel and slices of K) is printed beside the template kernel's and
-    each slice count's time. The bound counts W as int8 plus its f32
-    scales; the library yardstick is torch.matmul on a PRE-DEQUANTIZED
-    bf16 W plus the rank-r term (the dequantization is left out of its
-    time; the port never calls it)."""
+    """#9 at the w8 dense prefill's q/v shapes (M = 16, 64, 128, 256 prompt
+    rows, K = N = 2048, r = 8, A in the model's K-contiguous layout) and
+    #10 at decode shapes (M = 4 slots, the engine's, and 8, 16, 64), per
+    output channel (the engine's QuantConfig; the main rows are #9 at M
+    = 64 and #10 at M = 4) and with 128-row scale groups. Two calls must
+    agree bit for bit; the launcher's path (kernel and slices of K;
+    #10's `wgmma` path includes the pre-pass that sums P[m] = x[m]·A[m])
+    is printed beside the template kernel's and each slice count's time.
+    The bound counts W as int8 plus its f32 scales; the library
+    yardstick is torch.matmul on a PRE-DEQUANTIZED bf16 W plus the
+    rank-r term (the dequantization is left out of its time; the port
+    never calls it)."""
     import torch
     from repro_torch.kernels import quant
     from repro_torch.kernels import tt_linear as tl
     alpha, k, n, r = 4.0, 2048, 2048, 8
     rows = []
     for name, ms, batched in (("tt_linear_w8", (16, 64, 128, 256), False),
-                              ("tt_linear_batched_a_w8", (4,), True)):
+                              ("tt_linear_batched_a_w8", (4, 8, 16, 64),
+                               True)):
         fn = getattr(tl, name)
         plain = getattr(tl, name + "_plain")
         for m, group in ((m, g) for m in ms for g in (0, 128)):
@@ -533,23 +537,22 @@ def w8_kernel_rows(dev, rn):
                       + 2 * m * n)
             sets = copies(make, nbytes)
             err = compare(name, fn(*sets[0], alpha), plain(*sets[0], alpha))
-            extra = {}
-            if not batched:
-                same(lambda *t: fn(*t, alpha), sets[0], name)
-                path, splits = tl.w8_path(*sets[0][:3], r)
+            same(lambda *t: fn(*t, alpha), sets[0], name)
+            launch = tl._launch_w8_batched_a if batched \
+                else tl._launch_w8_shared_a
 
-                def run(x, wq, sc, a, b, v, sp):
-                    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-                    tl._build.check(tl._launch_w8_shared_a(
-                        x, wq, sc, a, b, y, g, alpha, v, sp), name)
-                    return y
-                variants = {"template": cuda_time_ms(
-                    lambda *t: run(*t, "template", 1), sets)}
-                for sp in (1, 2, 4, 8):
-                    variants[f"wgmma_s{sp}"] = cuda_time_ms(
-                        lambda *t: run(*t, "wgmma", sp), sets)
-                extra = dict(variant=f"{path} splits={splits}",
-                             variants=variants)
+            def run(x, wq, sc, a, b, v, sp):
+                y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+                tl._build.check(launch(x, wq, sc, a, b, y, g, alpha, v, sp),
+                                name)
+                return y
+            path, splits = (tl.bw8_path(*sets[0][:4], r) if batched
+                            else tl.w8_path(*sets[0][:3], r))
+            variants = {"template": cuda_time_ms(
+                lambda *t: run(*t, "template", 1), sets)}
+            for sp in (1, 2, 4, 8):
+                variants[f"wgmma_s{sp}"] = cuda_time_ms(
+                    lambda *t: run(*t, "wgmma", sp), sets)
             lib_sets = [(x, quant.dequantize(
                 {"q8": wq, "scale": sc}, torch.bfloat16), a, b)
                 for x, wq, sc, a, b in sets]
@@ -566,12 +569,14 @@ def w8_kernel_rows(dev, rn):
             scales = f"group={group}" if group else "per-channel"
             rows.append(dict(
                 name=name, shape=f"M={m} K={k} N={n} r={r} {scales}",
-                main=group == 0 and m in (4, 64), max_abs_err=err,
+                main=group == 0 and m == (4 if batched else 64),
+                max_abs_err=err,
                 ms=cuda_time_ms(lambda *t: fn(*t, alpha), sets),
                 plain_ms=cuda_time_ms(lambda *t: plain(*t, alpha), sets),
                 library_ms=cuda_time_ms(lib, lib_sets),
                 library="torch.matmul on a pre-dequantized bf16 W + rank-r",
-                bound_ms=bms, bound_by=by, **extra))
+                bound_ms=bms, bound_by=by, variant=f"{path} splits={splits}",
+                variants=variants))
             del sets, lib_sets
     torch.cuda.empty_cache()
     return rows
@@ -582,14 +587,20 @@ def paged_int8_kernel_rows(dev, rn):
     256 blocks of 16 cells with f32 per-cell scales. The bound counts q
     and o (bf16), and the int8 K/V cells plus their scales inside each
     slot's window; the library yardstick is SDPA on PRE-GATHERED,
-    PRE-DEQUANTIZED bf16 K/V with the boolean position mask."""
+    PRE-DEQUANTIZED bf16 K/V with the boolean position mask. Two calls
+    must agree bit for bit; the chunk split the launcher takes
+    (``paged_path``) is printed beside the times with and without it, and
+    the kernel's error beside that of p cut to bf16
+    (``int8_p_precision``)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import quant
     b_, h, d = PAGED["max_batch"], 32, 64
     page, n_blk = PAGED["page_size"], 256
     p_tab = PAGED["cache_len"] // page + 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     pos = torch.tensor([0, 37, 100, 161, 230, 299, 407, 479],
                        dtype=torch.int32, device=dev)
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -614,9 +625,22 @@ def paged_int8_kernel_rows(dev, rn):
             v8, vs = quant.quantize_kv(rn(n_blk, page, h, d))
             return rn(b_, c, h, d), k8, v8, ks, vs, tables, pos
         sets = copies(make, nbytes)
-        err = compare("paged_decode_attention_int8",
-                      pa.paged_decode_attention_int8(*sets[0]),
+        name = "paged_decode_attention_int8"
+        err = compare(name, pa.paged_decode_attention_int8(*sets[0]),
                       pa.paged_decode_attention_int8_plain(*sets[0]))
+        same(pa.paged_decode_attention_int8, sets[0], name)
+        mode, split = pa.paged_path(b_, c, h, h, p_tab, page, sms,
+                                    quantized=True)
+
+        def tc(q, k8, v8, ks, vs, tables, pos, sp):
+            o = torch.empty_like(q)
+            st = pa.int8_strides(q, k8, v8, ks, vs, tables, o)
+            _build.check(pa._launch_tc(q, k8, v8, tables, pos, o, n_blk,
+                                       page, st, sp, (ks, vs)), name)
+            return o
+        variants = {f"split{sp}": cuda_time_ms(
+            lambda *t: tc(*t, sp), sets) for sp in sorted({0, split})}
+        prec = int8_p_precision(sets[0])
         s_len = p_tab * page
         mask = (torch.arange(s_len, device=dev)[None, None, :]
                 <= (pos[:, None] + torch.arange(c, device=dev)[None])
@@ -630,7 +654,7 @@ def paged_int8_kernel_rows(dev, rn):
                     for q, k8, v8, ks, vs, _, _ in sets]
         bms, by = bound_ms(nbytes, flops)
         rows.append(dict(
-            name="paged_decode_attention_int8",
+            name=name,
             shape=(f"B={b_} C={c} H=KV={h} d={d} page={page} "
                    f"P={p_tab} N={n_blk} int8"),
             main=c == PAGED["prefill_chunk"], max_abs_err=err,
@@ -642,10 +666,45 @@ def paged_int8_kernel_rows(dev, rn):
                 lambda q, k, v: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask), lib_sets),
             library="SDPA on pre-gathered, pre-dequantized K/V, boolean mask",
-            bound_ms=bms, bound_by=by))
+            bound_ms=bms, bound_by=by, variant=f"{mode} split={split}",
+            variants=variants))
+        print(f"[kernel] paged_decode_attention_int8 C={c} vs the plain "
+              f"version in f32: {prec}", flush=True)
         del sets, lib_sets
     torch.cuda.empty_cache()
     return rows
+
+
+def int8_p_precision(args):
+    """Max and mean |error| of #8q's kernel against the plain version with
+    an f32 output, beside those of the plain version with p cut to bf16
+    before P·V (which the kernel must not do), on the same inputs."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    q, k8, v8, ks, vs, tables, pos = args
+    b, c, h, d = q.shape
+    n, _, kv = k8.shape[:3]
+    want = pa.paged_decode_attention_int8_plain(q.float(), *args[1:])
+    tbl = tables.long().clamp(0, n - 1)
+    kf = (k8.float() * ks[..., None])[tbl].reshape(b, -1, kv, d)
+    vf = (v8.float() * vs[..., None])[tbl].reshape(b, -1, kv, d)
+    g = h // kv
+    sc = torch.einsum("bchd,bshd->bhcs", q.float(),
+                      kf.repeat_interleave(g, 2)) * d ** -0.5
+    cell = torch.arange(kf.shape[1], device=q.device)
+    lim = pos.long()[:, None] + torch.arange(c, device=q.device)[None]
+    sc = sc.masked_fill(cell[None, None, None] > lim[:, None, :, None],
+                        -1e30)
+    pb = torch.softmax(sc, -1).bfloat16().float()
+    got = {"kernel": pa.paged_decode_attention_int8(*args),
+           "plain with p in bf16": torch.einsum(
+               "bhcs,bshd->bchd", pb, vf.repeat_interleave(g, 2)
+           ).bfloat16()}
+    torch.cuda.synchronize()
+    return " ".join(
+        f"{k}: max {float((o.float() - want).abs().max()):.3e} mean "
+        f"{float((o.float() - want).abs().mean()):.3e};"
+        for k, o in got.items())
 
 
 def event_time_ms(fn, args, iters=5):

@@ -137,9 +137,9 @@ def library(name: str) -> ctypes.CDLL:
 
 def counters(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 arrival counters on ``device``, for a
-    kernel whose blocks merge a split in a fixed order (#8's chunks of a
-    window): the last block of a group resets its counter to zero, so the
-    buffer is allocated and zeroed once and reused by every launch.
+    kernel whose blocks merge a split in a fixed order (#8 / #8q's chunks
+    of a window): the last block of a group resets its counter to zero, so
+    the buffer is allocated and zeroed once and reused by every launch.
     Launches that share it are ordered on one stream, as the engine's
     are."""
     t = _counters.get(device)

@@ -2,8 +2,9 @@
 // cp.async copies, the proxy fence, `wgmma` issue / commit / wait, the
 // shared-memory matrix descriptors of the 128-byte swizzled layout, the
 // `wgmma` products themselves, and the accumulator-to-A-operand
-// conversion. flash_attention.cu, flash_attention_bwd.cu and tt_linear.cu
-// include it; kernels/_build.py rebuilds every library when it changes.
+// conversion, and the exact int8 -> bf16 widening of #8q's and #9 / #10's
+// int8 tiles. Every csrc/*.cu includes it; kernels/_build.py rebuilds
+// every library when it changes.
 //
 // Layout of an R-row tile of C bf16 columns in shared memory: C / 64
 // column blocks of R rows of 128 bytes, each block 1024-byte aligned (the
@@ -269,6 +270,31 @@ struct WgRS<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+
+// four int8 values (one 32-bit word) as two bf16x2 words, exactly: the
+// bytes are put under the exponent of 2^23 and 2^23 + 128 is subtracted
+// in f32 (exact); the top half of each f32 is then its bf16, also exact
+// for every int8 value. lo holds bytes 0 and 1, hi bytes 2 and 3.
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t v = w ^ 0x80808080u;   // q + 128, unsigned
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)   // 2^23 + (q + 128), less 2^23 + 128
+    f[i] = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 + i)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// 16 int8 values (one 16-byte chunk) as two 16-byte chunks of bf16
+__device__ __forceinline__ void widen16(const uint4& u, uint32_t (&lo)[4],
+                                        uint32_t (&hi)[4]) {
+  widen4(u.x, lo[0], lo[1]);
+  widen4(u.y, lo[2], lo[3]);
+  widen4(u.z, hi[0], hi[1]);
+  widen4(u.w, hi[2], hi[3]);
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

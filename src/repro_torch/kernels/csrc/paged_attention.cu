@@ -4,7 +4,7 @@
 // paged_attention_bf16 replaces the fp leg of the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py::paged_decode_attention
 //   (_kernel, quantized=False); paged_attention_int8 its int8 leg
-//   (quantized=True).
+//   (quantized=True). Both run paged_tc_kernel.
 // Slot b carries C query tokens; query c sits at absolute position
 // pos[b] + c and attends cache cells [0, pos[b] + c]. Cell i of slot b
 // lives in physical block tables[b, i / page], row i % page, of the
@@ -15,32 +15,33 @@
 // position (pos[b] + C - 1) are never touched.
 //
 // What bounds it on an H100: ~4 flops per cache byte at C = 1, at most
-// ~4·C·G at C columns — below the ~295 flops/byte balance point at the
-// engine's shapes, so the kernel is bound by reading each K/V cell of the
-// slot's window once.
+// ~4·C·G at C columns (twice that for int8 cells) — below the ~295
+// flops/byte balance point at the engine's shapes, so the kernel is bound
+// by reading each K/V cell of the slot's window once.
 //
-// The fp leg (paged_tc_kernel) on the tensor cores:
+// On the tensor cores:
 //  - one block owns all C·G query rows of a (slot, kv head) — a row is
 //    one (column c, head g) pair of the GQA group, row = c·G + g — so the
 //    window is read once for every row (at most 256 rows a block: four
-//    warpgroups; above that, slabs of 256 rows take a block each);
+//    warpgroups, 64 for the int8 leg; above that, slabs take a block
+//    each);
 //  - the block loads its block-table row into shared memory once (the
 //    sentinels clamped) and walks it itself: K and V tiles of 64 cells
-//    come through a three-stage cp.async ring, 16 bytes a copy, into
-//    128-byte-swizzled tiles (a page of one kv head is `page` rows of d
-//    bf16 at stride KV·d); cells past the window are zero-filled;
+//    come through a three-stage cp.async ring, 16 bytes a copy (a page of
+//    one kv head is `page` rows of d cells at stride KV·d); cells past
+//    the window are zero-filled;
 //  - S = Q·Kᵀ and O += P·V on the tensor cores. Below 64 rows (C·G < 64:
 //    32 rows at MHA with C = 32, one at decode) each warp owns 16 rows
 //    and runs `mma.sync` m16n8k16, K through ldmatrix and V through
-//    ldmatrix.trans from the same tiles; from 64 rows each warpgroup owns
-//    64 and runs `wgmma` m64n64k16 (S, both operands in shared memory)
-//    and m64ndk16 (P·V, P from registers, V read MN-major). The kernel is
-//    bound by its bytes, so `mma.sync` is enough when the tile is small,
-//    and it wastes no 48-row padding at C·G ≤ 16;
+//    ldmatrix.trans from 128-byte-swizzled bf16 tiles; from 64 rows
+//    (fp leg) each warpgroup owns 64 and runs `wgmma` m64n64k16 (S, both
+//    operands in shared memory) and m64ndk16 (P·V, P from registers, V
+//    read MN-major). The kernel is bound by its bytes, so `mma.sync` is
+//    enough when the tile is small, and it wastes no 48-row padding at
+//    C·G ≤ 16;
 //  - the online softmax stays in the accumulator registers (a row's
-//    values sit in one quad of lanes), and p is rounded to bf16 as the A
-//    operand of P·V, which is the TPU kernel's rounding; O stays f32;
-//  - where B·KV blocks leave the card under-filled (fewer than two an
+//    values sit in one quad of lanes); O stays f32;
+//  - where the blocks leave the card under-filled (fewer than two an
 //    SM), each window is split into chunks of a few tiles, one block a
 //    chunk (flash-decoding: at C = 1 the 8 slots x 32 heads of ragged
 //    windows of 1 to 480 cells fill the 132 SMs); a chunk past a short
@@ -53,21 +54,28 @@
 //    slower: its empty chunks stay resident until their siblings finish.)
 // Numerics follow the TPU kernel: scores in f32 scaled by d^-0.5 (carried
 // in log2 units, so exp is one ex2), masked scores at -1e30 and their p
-// at 0, p rounded to bf16 before P·V, l floored at 1e-30, output rounded
-// once to bf16.
+// at 0, l floored at 1e-30, output rounded once to bf16. The fp leg
+// rounds p to bf16 as the A operand of P·V, as the TPU kernel does.
 //
-// int8 leg (Q8, the SIMT template paged_attn_kernel, kept for Q8 only):
-// one block of four warps per (kv head, slot, tile of R ≤ 16 rows); each
-// lane owns a cell and dots its key row with every row of the tile in f32
-// FMAs. The pools hold int8 cells and two (N, page, KV) f32 scale pools,
-// one scale per (token, kv head), gathered through the same clamped table
-// entry as the cell. A lane reads its key row as int8 (64 B at d = 64,
-// half the bf16 row) with its scale and dequantizes it in registers; each
-// V row is dequantized by the scale of its cell, passed across the warp
-// with the row offset. q is taken in f32, and p stays f32 through P·V
-// (after dequantization v is f32 in the TPU kernel, so its
-// p.astype(v.dtype) keeps f32): unlike the fp leg, nothing rounds to bf16
-// before the output.
+// The int8 leg (Q8): the pools hold int8 cells (half the bf16 bytes) and
+// two (N, page, KV) f32 scale pools, one scale per (cell, kv head),
+// gathered through the same clamped table entry as the cell; each tile's
+// 64 scales of K and of V ride in the ring with 4-byte copies. The TPU
+// kernel dequantizes in f32: q·(k·s_k) in f32, p f32, and p·(v·s_v) in
+// f32 (its p.astype(v.dtype) keeps f32) — nothing is rounded to bf16
+// before the output. Here, on `mma.sync` (every row count: the engine's
+// blocks hold 32 rows or one):
+//  - each stage's int8 K and V tiles are widened exactly into the bf16
+//    swizzled tiles the fp leg reads (hopper.cuh's widen16: every int8
+//    value is exact in bf16), one pass and one barrier a tile;
+//  - S: bf16 q against the widened K is exact products with f32 sums;
+//    each column is then scaled by its cell's k scale and d^-0.5 in f32:
+//    Σ q·(k·s_k) up to the summation order;
+//  - P·V: the v scale is folded into p (p' = p·s_v in f32), and p' goes
+//    in as a bf16 hi + lo pair, two `mma.sync` against the same widened V
+//    tile, error ≈ 2^-16 of p' — p is never cut to bf16. (TF32 m16n8k8
+//    would keep ≈ 2^-11 and need V widened to f32 in another layout; the
+//    pair reuses the fp leg's V fragments.) l sums p itself.
 //
 // The C functions return cudaGetLastError() of the launch.
 
@@ -78,19 +86,7 @@ namespace {
 using namespace hopper;
 
 constexpr float NEG = -1e30f;
-constexpr int NW = 4;  // warps per block
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
 
 // K/V cell types: bf16 for the fp leg, int8 with f32 scales for Q8
 template <bool Q8>
@@ -104,9 +100,6 @@ struct Cell<true> {
   typedef int8_t T;
 };
 
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
-
 // strides (elements): st[0..2] q (b, c, h); st[3..5] k (n, p, kv);
 // st[6..8] v; st[9..11] o (b, c, h); st[12] tables (b); Q8 only:
 // st[13..15] k_scale (n, p, kv); st[16..18] v_scale
@@ -114,242 +107,12 @@ struct Strides {
   long long v[19];
 };
 
-template <int D, int R, bool Q8>
-__global__ void __launch_bounds__(NW * 32)
-paged_attn_kernel(const bf16* __restrict__ q,
-                  const typename Cell<Q8>::T* __restrict__ k,
-                  const typename Cell<Q8>::T* __restrict__ v,
-                  const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale,
-                  const int* __restrict__ tables, const int* __restrict__ pos,
-                  bf16* __restrict__ o, int C, int G, int N, int page, int P,
-                  float scale, const Strides st) {
-  typedef typename Cell<Q8>::T CT;
-  constexpr int DL = D / 32;   // output dims per lane
-  constexpr int VEC = 16 / sizeof(CT);  // cell values per 16-byte load
-  const long long qsb = st.v[0], qsc = st.v[1], qsh = st.v[2];
-  const long long ksn = st.v[3], ksp = st.v[4], ksh = st.v[5];
-  const long long vsn = st.v[6], vsp = st.v[7], vsh = st.v[8];
-  const long long osb = st.v[9], osc = st.v[10], osh = st.v[11];
-  const long long tsb = st.v[12];
-  __shared__ __align__(16) float qsm[R][D];
-  __shared__ float red_m[NW][R], red_l[NW][R];
-  __shared__ float red_acc[NW][R][D];
-
-  const int kvh = blockIdx.x, bb = blockIdx.y, r0 = blockIdx.z * R;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rows = C * G;
-  const int p0 = pos[bb];
-
-  // this tile's query rows in f32; row r0 + r is (column c, head g) with
-  // c = (r0 + r) / G, g = (r0 + r) % G
-  for (int i = tid; i < R * D; i += NW * 32) {
-    const int r = i / D, e = i % D, rr = r0 + r;
-    float val = 0.f;
-    if (rr < rows) {
-      const int c = rr / G, g = rr - (rr / G) * G;
-      val = __bfloat162float(q[bb * qsb + c * qsc + (kvh * G + g) * qsh + e]);
-    }
-    qsm[r][e] = val;
-  }
-  __syncthreads();
-
-  // last cell each row attends (-1: a padding row), and the window
-  int lim[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    lim[r] = r0 + r < rows ? p0 + (r0 + r) / G : -1;
-  const int c_last = (min(r0 + R, rows) - 1) / G;
-  const int nkeys = min(p0 + c_last + 1, P * page);
-
-  const CT* kb = k + kvh * ksh;
-  const CT* vb = v + kvh * vsh;
-  const float* ksb = Q8 ? k_scale + kvh * st.v[15] : nullptr;
-  const float* vsb = Q8 ? v_scale + kvh * st.v[18] : nullptr;
-  const int* trow = tables + bb * tsb;
-
-  float m[R], l[R], acc[R][DL];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DL; ++d) acc[r][d] = 0.f;
-  }
-
-  for (int c0 = warp * 32; c0 < nkeys; c0 += NW * 32) {
-    const int ki = c0 + lane;
-    const bool ok = ki < nkeys;
-    long long voff = 0;
-    float vsc = 0.f;  // Q8: this lane's cell's V scale
-    float s[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = 0.f;
-    if (ok) {
-      const int j = ki / page;
-      int blk = trow[j];
-      blk = blk < 0 ? 0 : (blk >= N ? N - 1 : blk);  // sentinel: clamp
-      const int cell = ki - j * page;
-      voff = (long long)blk * vsn + (long long)cell * vsp;
-      const CT* kr = kb + (long long)blk * ksn + (long long)cell * ksp;
-      float ksc = 1.f;
-      if (Q8) {
-        ksc = ksb[(long long)blk * st.v[13] + (long long)cell * st.v[14]];
-        vsc = vsb[(long long)blk * st.v[16] + (long long)cell * st.v[17]];
-      }
-#pragma unroll
-      for (int e = 0; e < D; e += VEC) {  // this lane's key row, 16 B a load
-        const uint4 u = *reinterpret_cast<const uint4*>(kr + e);
-        const CT* ev = reinterpret_cast<const CT*>(&u);
-        float kf[VEC];
-#pragma unroll
-        for (int t = 0; t < VEC; ++t)
-          kf[t] = Q8 ? to_f(ev[t]) * ksc : to_f(ev[t]);  // dequantize
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-#pragma unroll
-          for (int t = 0; t < VEC; t += 4) {
-            const float4 qa =
-                *reinterpret_cast<const float4*>(&qsm[r][e + t]);
-            s[r] += qa.x * kf[t] + qa.y * kf[t + 1] + qa.z * kf[t + 2] +
-                    qa.w * kf[t + 3];
-          }
-        }
-      }
-    }
-    float p[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      p[r] = 0.f;
-      if (c0 > lim[r]) continue;  // every cell of the chunk masked: no-op
-      const bool valid = ok && ki <= lim[r];
-      const float sr = valid ? s[r] * scale : NEG;
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      p[r] = valid ? expf(sr - m_new) : 0.f;
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p[r]);
-      m[r] = m_new;
-#pragma unroll
-      for (int d = 0; d < DL; ++d) acc[r][d] *= corr;
-    }
-    // acc += p · V over this chunk's cells (fp leg: p rounded to bf16;
-    // Q8: p in f32, V dequantized by its cell's scale); each lane owns DL
-    // output dims, so every V row is one coalesced warp read
-    const int nk = min(32, nkeys - c0);
-    for (int kk = 0; kk < nk; ++kk) {
-      const long long vo = __shfl_sync(FULL, voff, kk);
-      const float vs = Q8 ? __shfl_sync(FULL, vsc, kk) : 1.f;
-      const CT* vr = vb + vo + lane * DL;
-      float vv[DL];
-#pragma unroll
-      for (int d = 0; d < DL; ++d)
-        vv[d] = Q8 ? to_f(vr[d]) * vs : to_f(vr[d]);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float pr = __shfl_sync(FULL, p[r], kk);
-        const float pk =
-            Q8 ? pr : __bfloat162float(__float2bfloat16(pr));
-#pragma unroll
-        for (int d = 0; d < DL; ++d) acc[r][d] += pk * vv[d];
-      }
-    }
-  }
-
-  // merge the warps' partial softmax states
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (lane == 0) {
-      red_m[warp][r] = m[r];
-      red_l[warp][r] = l[r];
-    }
-#pragma unroll
-    for (int d = 0; d < DL; ++d) red_acc[warp][r][lane * DL + d] = acc[r][d];
-  }
-  __syncthreads();
-  for (int i = tid; i < R * D; i += NW * 32) {
-    const int r = i / D, e = i % D, rr = r0 + r;
-    if (rr >= rows) continue;
-    float mm = NEG;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, red_m[w][r]);
-    float ll = 0.f, aa = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float f = expf(red_m[w][r] - mm);
-      ll += red_l[w][r] * f;
-      aa += red_acc[w][r][e] * f;
-    }
-    const int c = rr / G, g = rr - (rr / G) * G;
-    o[bb * osb + c * osc + (kvh * G + g) * osh + e] =
-        __float2bfloat16(aa / fmaxf(ll, 1e-30f));
-  }
-}
-
-struct Args {
-  const void *q, *k, *v, *ks, *vs, *tables, *pos;
-  void* o;
-  int B, C, G, KV, N, page, P;
-};
-
-template <int D, int R, bool Q8>
-int launch(const Args& a, const Strides& st, void* stream) {
-  typedef typename Cell<Q8>::T CT;
-  dim3 grid(a.KV, a.B, (a.C * a.G + R - 1) / R);
-  const float scale = 1.0f / sqrtf((float)D);
-  paged_attn_kernel<D, R, Q8><<<grid, NW * 32, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a.q), static_cast<const CT*>(a.k),
-      static_cast<const CT*>(a.v), static_cast<const float*>(a.ks),
-      static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
-      static_cast<const int*>(a.pos), static_cast<bf16*>(a.o), a.C, a.G,
-      a.N, a.page, a.P, scale, st);
-  return (int)cudaGetLastError();
-}
-
-// rows per block: the smallest power of two covering C·G, at most 16
-// (8 at d = 128, where each row holds 4 accumulator registers a lane)
-template <int D, bool Q8>
-int launch_for_d(int R, const Args& a, const Strides& st, void* stream) {
-  switch (R) {
-    case 1: return launch<D, 1, Q8>(a, st, stream);
-    case 2: return launch<D, 2, Q8>(a, st, stream);
-    case 4: return launch<D, 4, Q8>(a, st, stream);
-    case 8: return launch<D, 8, Q8>(a, st, stream);
-    case 16:
-      if constexpr (D == 64) return launch<D, 16, Q8>(a, st, stream);
-      return (int)cudaErrorInvalidValue;
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <bool Q8>
-int run(const void* q, const void* k, const void* v, const void* ks,
-        const void* vs, const void* tables, const void* pos, void* o, int B,
-        int C, int H, int KV, int d, int N, int page, int P,
-        const long long* strides, void* stream) {
-  if (B < 1 || C < 1 || KV < 1 || H % KV != 0 || N < 1 || P < 1 ||
-      page < 8 || page > 64 || page % 8 != 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
-  const int rmax = d == 64 ? 16 : 8;
-  int R = 1;
-  while (R < C * G && R < rmax) R *= 2;
-  if ((C * G + R - 1) / R > 65535) return (int)cudaErrorInvalidValue;
-  Strides st{};
-  for (int i = 0; i < (Q8 ? 19 : 13); ++i) st.v[i] = strides[i];
-  const Args a{q, k, v, ks, vs, tables, pos, o, B, C, G, KV, N, page, P};
-  if (d == 64) return launch_for_d<64, Q8>(R, a, st, stream);
-  if (d == 128) return launch_for_d<128, Q8>(R, a, st, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-
 // ------------------------------------------- the fp leg, tensor cores
 
 constexpr int PT = 64;         // cells a streamed tile
 constexpr int PSTAGES = 3;     // depth of the K/V ring
 constexpr int SLAB = 256;      // most rows a block (four warpgroups)
+constexpr int SLAB_Q8 = 64;    // most rows a block of the int8 leg
 
 // D (16 x 8 f32) += A (16 x 16 bf16, the m16n8k16 A fragment) · B (16 x 8)
 __device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
@@ -381,32 +144,60 @@ __device__ __forceinline__ uint32_t chunk_at(uint32_t tile, int row,
          (((ch & 7) ^ (row & 7)) << 4);
 }
 
-template <int D, int NWG>
+template <int D, int NWG, bool Q8>
 struct PagedSmem {
   static constexpr int QR = 64 * NWG;          // query rows, padded
-  static constexpr int TB = PT * D * 2;        // a K or a V tile
+  static constexpr int TB = PT * D * 2;        // a bf16 K or V tile
+  static constexpr int TC = Q8 ? PT * D : TB;  // a ring tile (Q8: int8)
   static constexpr int Q = 0;
   static constexpr int K = Q + QR * D * 2;
-  static constexpr int V = K + PSTAGES * TB;
-  static constexpr int TBL = V + PSTAGES * TB; // the table row, int32
-  static_assert(K % 1024 == 0 && TB % 1024 == 0,
+  static constexpr int V = K + PSTAGES * TC;
+  // Q8: the stage being read, widened to bf16, and the f32 scales of each
+  // stage's cells ([stage][k | v][cell])
+  static constexpr int KW = V + PSTAGES * TC;
+  static constexpr int VW = KW + (Q8 ? TB : 0);
+  static constexpr int SC = VW + (Q8 ? TB : 0);
+  static constexpr int TBL = SC + (Q8 ? PSTAGES * 2 * PT * 4 : 0);
+  static_assert(K % 1024 == 0 && TC % 1024 == 0 && TB % 1024 == 0,
                 "tiles must keep the 1024-byte alignment of the swizzle");
 };
 
+// one m16n8k16 A fragment (16 columns: accumulator values d[0..7], as
+// to_a reads them) of f32 as bf16 hi and lo parts, hi + lo = x to within
+// 2^-16 |x| (p·s_v of the int8 leg: P·V runs twice, p is never cut to
+// bf16)
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const float* d) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float x0 = d[2 * r], x1 = d[2 * r + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    hi[r] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[r] = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+  }
+}
+
 // WG: `wgmma`, 64 rows a warpgroup; else `mma.sync` (NWG = 1), 16 rows a
-// warp. grid (KV, B, slabs · chunks); split: tiles a chunk, 0 for one
-// chunk a window
-template <int D, int NWG, bool WG>
-__global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 3 : (NWG == 2 ? 2 : 1))
-paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const int* __restrict__ tables,
-                const int* __restrict__ pos, bf16* __restrict__ o,
-                float* __restrict__ ws, int* __restrict__ cnt, int C, int G,
-                int N, int page, int P, int split, float sl2,
-                const Strides st) {
-  using L = PagedSmem<D, NWG>;
+// warp. Q8: the int8 leg (`mma.sync` only). grid (KV, B, slabs · chunks);
+// split: tiles a chunk, 0 for one chunk a window
+template <int D, int NWG, bool WG, bool Q8>
+__global__ void __launch_bounds__(NWG * 128,
+                                  NWG == 1 ? (Q8 && D == 128 ? 2 : 3)
+                                           : (NWG == 2 ? 2 : 1))
+paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
+                const void* __restrict__ kv_v,
+                const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale,
+                const int* __restrict__ tables, const int* __restrict__ pos,
+                bf16* __restrict__ o, float* __restrict__ ws,
+                int* __restrict__ cnt, int C, int G, int N, int page, int P,
+                int split, float sl2, const Strides st) {
+  using L = PagedSmem<D, NWG, Q8>;
+  typedef typename Cell<Q8>::T CT;
   constexpr int NT = NWG * 128, QR = L::QR, CH = D / 8;
+  constexpr int CC = D * sizeof(CT) / 16;   // 16-byte copies a cell
   static_assert(WG || NWG == 1, "mma.sync blocks are one warpgroup");
+  static_assert(!(WG && Q8), "the int8 leg runs mma.sync");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -432,8 +223,8 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int e = tables[bb * st.v[12] + j];
     tbl[j] = e < 0 ? 0 : (e >= N ? N - 1 : e);
   }
-  const bf16* kb = k + kvh * st.v[5];
-  const bf16* vb = v + kvh * st.v[8];
+  const CT* kb = static_cast<const CT*>(kv_k) + kvh * st.v[5];
+  const CT* vb = static_cast<const CT*>(kv_v) + kvh * st.v[8];
   // this block's query rows r0 .. r0 + QR - 1 (rows past C·G are zero)
   for (int i = tid; i < QR * CH; i += NT) {
     const int row = i / CH, c = i % CH, rr = r0 + row;
@@ -448,20 +239,38 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();   // the table row, for the copies below
   auto issue = [&](int t) {   // tile t (cells 64 t ..) into its stage
     const int stg = (t - t0) % PSTAGES;
-    const uint32_t kt = base + L::K + stg * L::TB;
-    const uint32_t vt = base + L::V + stg * L::TB;
-    for (int i = tid; i < 2 * PT * CH; i += NT) {
-      const int isv = i >= PT * CH, rem = isv ? i - PT * CH : i;
-      const int cell = rem / CH, c = rem % CH, ci = t * PT + cell;
+    const uint32_t kt = base + L::K + stg * L::TC;
+    const uint32_t vt = base + L::V + stg * L::TC;
+    for (int i = tid; i < 2 * PT * CC; i += NT) {
+      const int isv = i >= PT * CC, rem = isv ? i - PT * CC : i;
+      const int cell = rem / CC, c = rem % CC, ci = t * PT + cell;
       const bool ok = ci < nkeys;
       const int pg = ci / page;
       const long long off =
           ok ? static_cast<long long>(tbl[pg]) * (isv ? st.v[6] : st.v[3]) +
                    static_cast<long long>(ci - pg * page) *
-                       (isv ? st.v[7] : st.v[4]) + c * 8
+                       (isv ? st.v[7] : st.v[4]) + c * (16 / sizeof(CT))
              : 0;
-      cp_async16(chunk_at<PT>(isv ? vt : kt, cell, c),
-                 (isv ? vb : kb) + off, ok ? 16 : 0);
+      // Q8: an int8 tile is plain rows of D bytes, widened before use
+      const uint32_t dst = Q8 ? (isv ? vt : kt) + cell * D + c * 16
+                              : chunk_at<PT>(isv ? vt : kt, cell, c);
+      cp_async16(dst, (isv ? vb : kb) + off, ok ? 16 : 0);
+    }
+    if constexpr (Q8) {   // the cells' scales, gathered the same way
+      for (int i = tid; i < 2 * PT; i += NT) {
+        const int isv = i >= PT, cell = i % PT, ci = t * PT + cell;
+        const bool ok = ci < nkeys;
+        const int pg = ci / page;
+        const long long off =
+            ok ? static_cast<long long>(tbl[pg]) * st.v[isv ? 16 : 13] +
+                     static_cast<long long>(ci - pg * page) *
+                         st.v[isv ? 17 : 14]
+               : 0;
+        cp_async4(base + L::SC + (stg * 2 + isv) * PT * 4 + cell * 4,
+                  (isv ? v_scale + kvh * st.v[18] : k_scale + kvh * st.v[15]) +
+                      off,
+                  ok ? 4 : 0);
+      }
     }
   };
 #pragma unroll
@@ -493,9 +302,32 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();   // ... for every thread; tile t - 1 is consumed
     if (t + PSTAGES - 1 < t1) issue(t + PSTAGES - 1);   // tile t - 1's stage
     cp_async_commit();
+    uint32_t kt = base + L::K + stg * L::TC;
+    uint32_t vt = base + L::V + stg * L::TC;
+    const float* ksc = reinterpret_cast<const float*>(
+        smem + L::SC + stg * 2 * PT * 4);
+    const float* vsc = ksc + PT;
+    if constexpr (Q8) {
+      // widen the stage's int8 K and V tiles exactly into the bf16
+      // swizzled tiles the fp leg reads (16 cell values a chunk); the
+      // widened tiles of tile t - 1 are free past the barrier above
+      for (int i = tid; i < 2 * PT * CC; i += NT) {
+        const int isv = i >= PT * CC, rem = isv ? i - PT * CC : i;
+        const int cell = rem / CC, c = rem % CC;
+        uint32_t lo[4], hi[4];
+        widen16(*reinterpret_cast<const uint4*>(
+                    smem + (isv ? L::V : L::K) + stg * L::TC + cell * D +
+                    c * 16),
+                lo, hi);
+        const uint32_t wt = base + (isv ? L::VW : L::KW);
+        st_shared16(chunk_at<PT>(wt, cell, 2 * c), lo);
+        st_shared16(chunk_at<PT>(wt, cell, 2 * c + 1), hi);
+      }
+      __syncthreads();
+      kt = base + L::KW;
+      vt = base + L::VW;
+    }
     if (!active) continue;
-    const uint32_t kt = base + L::K + stg * L::TB;
-    const uint32_t vt = base + L::V + stg * L::TB;
     float s[PT / 2];
     if constexpr (WG) {
       reg_fence(s);
@@ -528,17 +360,28 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
     }
 
-    // online softmax on the accumulator: a row's values sit in a quad
+    // online softmax on the accumulator: a row's values sit in a quad.
+    // Q8: q·k is exact products of bf16 q and the int8 cells, summed in
+    // f32; each column is then scaled by its cell's k scale
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int c = 0; c < PT / 8; ++c)
+    for (int c = 0; c < PT / 8; ++c) {
+      float2 kscale = make_float2(sl2, sl2);
+      if constexpr (Q8) {
+        kscale = *reinterpret_cast<const float2*>(ksc + 8 * c + ca);
+        kscale.x *= sl2;
+        kscale.y *= sl2;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ci = t * PT + 8 * c + ca + (e & 1);
-        const float x = ci <= lim[e >> 1] ? s[4 * c + e] * sl2 : NEG;
+        const float x = ci <= lim[e >> 1]
+                            ? s[4 * c + e] * ((e & 1) ? kscale.y : kscale.x)
+                            : NEG;
         s[4 * c + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    }
     float corr[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -558,6 +401,34 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
+    if constexpr (Q8) {
+      // O += (p·s_v)·V with p·s_v in f32 as a bf16 hi + lo pair against
+      // the exactly widened V: two products a fragment, error ~2^-16
+#pragma unroll
+      for (int c = 0; c < PT / 8; ++c) {
+        const float2 vs = *reinterpret_cast<const float2*>(vsc + 8 * c + ca);
+        s[4 * c] *= vs.x;
+        s[4 * c + 1] *= vs.y;
+        s[4 * c + 2] *= vs.x;
+        s[4 * c + 3] *= vs.y;
+      }
+#pragma unroll
+      for (int kk = 0; kk < PT / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        split_a(hi, lo, s + 8 * kk);
+#pragma unroll
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          uint32_t b[4];
+          ldsm4t(b, chunk_at<PT>(vt, 16 * kk + (lane & 15),
+                                 2 * n2 + (lane >> 4)));
+          mma16816(oacc + 8 * n2, hi, b[0], b[1]);
+          mma16816(oacc + 8 * n2 + 4, hi, b[2], b[3]);
+          mma16816(oacc + 8 * n2, lo, b[0], b[1]);
+          mma16816(oacc + 8 * n2 + 4, lo, b[2], b[3]);
+        }
+      }
+      continue;
+    }
     uint32_t pa[PT / 16][4];   // p in bf16, the A operand of P·V
     to_a<PT>(pa, s);
     if constexpr (WG) {
@@ -652,74 +523,72 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int NWG, bool WG>
-int launch_tc(const void* q, const void* k, const void* v,
-              const void* tables, const void* pos, void* o, void* ws,
-              void* cnt, int B, int C, int G, int KV, int N, int page, int P,
-              int split, int nslab, int nch, const Strides& st,
-              void* stream) {
-  using L = PagedSmem<D, NWG>;
-  const int smem = L::TBL + ((P * 4 + 15) & ~15) + 1024;   // + alignment
+struct TcArgs {
+  const void *q, *k, *v, *ks, *vs, *tables, *pos;
+  void *o, *ws, *cnt;
+  int B, C, G, KV, N, page, P, split, nslab, nch;
+};
+
+template <int D, int NWG, bool WG, bool Q8>
+int launch_tc(const TcArgs& a, const Strides& st, void* stream) {
+  using L = PagedSmem<D, NWG, Q8>;
+  const int smem = L::TBL + ((a.P * 4 + 15) & ~15) + 1024;   // + alignment
   if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
   static int smem_set = 48 * 1024;   // per instantiation, grows only
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_tc_kernel<D, NWG, WG>,
+        paged_tc_kernel<D, NWG, WG, Q8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
-  dim3 grid(KV, B, nslab * nch);
-  paged_tc_kernel<D, NWG, WG>
+  dim3 grid(a.KV, a.B, a.nslab * a.nch);
+  paged_tc_kernel<D, NWG, WG, Q8>
       <<<grid, NWG * 128, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const int*>(tables),
-          static_cast<const int*>(pos), static_cast<bf16*>(o),
-          static_cast<float*>(ws), static_cast<int*>(cnt), C, G, N, page, P,
-          split, LOG2E / sqrtf((float)D), st);
+          static_cast<const bf16*>(a.q), a.k, a.v,
+          static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+          static_cast<const int*>(a.tables), static_cast<const int*>(a.pos),
+          static_cast<bf16*>(a.o), static_cast<float*>(a.ws),
+          static_cast<int*>(a.cnt), a.C, a.G, a.N, a.page, a.P, a.split,
+          LOG2E / sqrtf((float)D), st);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_tc_d(int rows, const void* q, const void* k, const void* v,
-                const void* tables, const void* pos, void* o, void* ws,
-                void* cnt, int B, int C, int G, int KV, int N, int page,
-                int P, int split, int nslab, int nch, const Strides& st,
-                void* stream) {
-#define TC_ARGS q, k, v, tables, pos, o, ws, cnt, B, C, G, KV, N, page, P, \
-                split, nslab, nch, st, stream
-  if (rows < 64) return launch_tc<D, 1, false>(TC_ARGS);   // mma.sync
-  if (rows <= 64) return launch_tc<D, 1, true>(TC_ARGS);   // wgmma
-  if (rows <= 128) return launch_tc<D, 2, true>(TC_ARGS);
-  return launch_tc<D, 4, true>(TC_ARGS);
-#undef TC_ARGS
+template <int D, bool Q8>
+int launch_tc_d(int rows, const TcArgs& a, const Strides& st, void* stream) {
+  if constexpr (Q8) return launch_tc<D, 1, false, true>(a, st, stream);
+  if (rows < 64) return launch_tc<D, 1, false, false>(a, st, stream);
+  if (rows <= 64) return launch_tc<D, 1, true, false>(a, st, stream);
+  if (rows <= 128) return launch_tc<D, 2, true, false>(a, st, stream);
+  return launch_tc<D, 4, true, false>(a, st, stream);
 }
 
-int run_tc(const void* q, const void* k, const void* v, const void* tables,
-           const void* pos, void* o, int B, int C, int H, int KV, int d,
-           int N, int page, int P, const long long* strides, int split,
-           void* ws, void* cnt, void* stream) {
+// Q8: the int8 leg, whose blocks take at most SLAB_Q8 rows (`mma.sync`)
+template <bool Q8>
+int run_tc(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* tables, const void* pos, void* o,
+           int B, int C, int H, int KV, int d, int N, int page, int P,
+           const long long* strides, int split, void* ws, void* cnt,
+           void* stream) {
   if (B < 1 || C < 1 || KV < 1 || H % KV != 0 || N < 1 || P < 1 ||
       page < 8 || page > 64 || page % 8 != 0 || B > 65535 || split < 0 ||
       (split > 0 && (ws == nullptr || cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
-  const int rows = C * G;
-  const int nslab = (rows + SLAB - 1) / SLAB;
+  const int rows = C * G, cap = Q8 ? SLAB_Q8 : SLAB;
+  const int nslab = (rows + cap - 1) / cap;
   const int nch = split ? (P * page + PT * split - 1) / (PT * split) : 1;
   if (static_cast<long long>(nslab) * nch > 65535)
     return (int)cudaErrorInvalidValue;
   Strides st{};
-  for (int i = 0; i < 13; ++i) st.v[i] = strides[i];
-  // rows a block: all C·G (padded to the product's tile), or slabs of 256
-  const int brows = nslab > 1 ? SLAB : rows;
-  if (d == 64)
-    return launch_tc_d<64>(brows, q, k, v, tables, pos, o, ws, cnt, B, C, G,
-                           KV, N, page, P, split, nslab, nch, st, stream);
-  if (d == 128)
-    return launch_tc_d<128>(brows, q, k, v, tables, pos, o, ws, cnt, B, C, G,
-                            KV, N, page, P, split, nslab, nch, st, stream);
+  for (int i = 0; i < (Q8 ? 19 : 13); ++i) st.v[i] = strides[i];
+  const TcArgs a{q, k, v, ks, vs, tables, pos, o, ws, cnt, B, C, G, KV, N,
+                 page, P, split, nslab, nch};
+  // rows a block: all C·G (padded to the product's tile), or slabs
+  const int brows = nslab > 1 ? cap : rows;
+  if (d == 64) return launch_tc_d<64, Q8>(brows, a, st, stream);
+  if (d == 128) return launch_tc_d<128, Q8>(brows, a, st, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -743,21 +612,23 @@ int paged_attention_bf16(const void* q, const void* k, const void* v,
                          int C, int H, int KV, int d, int N, int page, int P,
                          const long long* strides, int split, void* ws,
                          void* cnt, void* stream) {
-  return run_tc(q, k, v, tables, pos, o, B, C, H, KV, d, N, page, P,
-                strides, split, ws, cnt, stream);
+  return run_tc<false>(q, k, v, nullptr, nullptr, tables, pos, o, B, C, H,
+                       KV, d, N, page, P, strides, split, ws, cnt, stream);
 }
 
 // The int8 leg: k/v (N, page, KV, d) int8 pools, k_scale / v_scale
 // (N, page, KV) f32 per-cell scales. strides: the 13 above (k / v ones a
 // multiple of 16 with 16-byte aligned bases), then k_scale (n, p, kv) and
-// v_scale (n, p, kv) element strides.
+// v_scale (n, p, kv) element strides. split, ws and cnt as above, with
+// 128 threads a block and slabs = ceil(C·G / 64).
 int paged_attention_int8(const void* q, const void* k, const void* v,
                          const void* k_scale, const void* v_scale,
                          const void* tables, const void* pos, void* o, int B,
                          int C, int H, int KV, int d, int N, int page, int P,
-                         const long long* strides, void* stream) {
-  return run<true>(q, k, v, k_scale, v_scale, tables, pos, o, B, C, H, KV,
-                   d, N, page, P, strides, stream);
+                         const long long* strides, int split, void* ws,
+                         void* cnt, void* stream) {
+  return run_tc<true>(q, k, v, k_scale, v_scale, tables, pos, o, B, C, H,
+                      KV, d, N, page, P, strides, split, ws, cnt, stream);
 }
 
 }  // extern "C"

@@ -26,10 +26,11 @@
 // rank is padded to a multiple of 16 in shared memory only.
 //
 // w8a16 (#9, #10): W arrives int8 with f32 scales (G, N), half the bytes
-// of the bf16 W that bounds these kernels. #9 at ranks up to RANK_WGMMA
-// on operands that take 16-byte copies runs its own `wgmma` kernel (the
-// "#9 on `wgmma`" section below). The template kernel serves #10, and #9
-// at larger ranks or on operands that cannot take 16-byte copies: there
+// of the bf16 W that bounds these kernels. #9 and #10 at ranks up to
+// RANK_WGMMA on operands that take 16-byte copies run their own `wgmma`
+// kernel (the "#9 and #10 on `wgmma`" section below). The template kernel
+// serves K2, and #9 / #10 at larger ranks or on operands that cannot take
+// 16-byte copies: there
 // each int8 W tile goes through the same cp.async ring (16 values a
 // 16-byte copy, so the vector path needs N % 16 == 0), then is widened to
 // bf16 in one shared-memory tile before the WMMA step (|q| <= 127 is
@@ -816,7 +817,7 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// ------------------------------------------------- #9 on `wgmma`
+// ------------------------------------------- #9 and #10 on `wgmma`
 //
 // y = x·(q·s) + alpha·(x·A)·B over an int8 W (K, N) with f32 scales
 // (G, N), at ranks up to RANK_WGMMA, when x and W take 16-byte copies
@@ -829,22 +830,31 @@ bool aligned16(const void* p) {
 //    of S slices of K (split-K, the launcher's choice, see w8_splits in
 //    kernels/tt_linear.py): 32 channel tiles x 8 slices put 256 blocks on
 //    the card at M = 64, each streaming a 64 x 256 strip of W;
-//  - x, int8 W and A tiles of 64 K columns come through a four-stage
+//  - x, int8 W and (#9) A tiles of 64 K columns come through a four-stage
 //    cp.async ring: three of a slice's four tiles are in flight at once;
 //  - int8 W into the product: option (a) of the two layouts. Each int8
-//    stage is widened in registers (16 values a thread-chunk: the bytes
-//    are put under the exponent of 2^23 and 2^23 + 128 is subtracted in
-//    f32, which is exact; the top half of each f32 is then its bf16, also
-//    exact for |q| ≤ 127) into one 128-byte-swizzled bf16 tile, which
-//    `wgmma` m64n64k16 reads MN-major as its B operand, x K-major as A —
-//    K1's forward layout. Option (b), Wᵀ as a register A operand with
-//    the tokens as N, would need each thread's fragment gathered from
-//    four K rows of the row-major int8 tile (W is stored (K, N), never
-//    transposed) and a permuted K order in the x tile; (a) keeps K1's
-//    proven descriptors and costs one shared-memory pass and one barrier
-//    a tile, small beside the bytes of W;
-//  - P = x·A is a second `wgmma` m64nRPk16 from the same x tile into a
-//    small f32 register accumulator (r padded to RP = 16 or 64);
+//    stage is widened in registers (hopper.cuh's widen16, exact) into one
+//    128-byte-swizzled bf16 tile, which `wgmma` m64n64k16 reads MN-major
+//    as its B operand, x K-major as A — K1's forward layout. Option (b),
+//    Wᵀ as a register A operand with the tokens as N, would need each
+//    thread's fragment gathered from four K rows of the row-major int8
+//    tile (W is stored (K, N), never transposed) and a permuted K order
+//    in the x tile; (a) keeps K1's proven descriptors and costs one
+//    shared-memory pass and one barrier a tile, small beside the bytes
+//    of W;
+//  - #9 (one A): P = x·A is a second `wgmma` m64nRPk16 from the same x
+//    tile into a small f32 register accumulator (r padded to RP = 16 or
+//    64). #10 (BATCHED: a per-row A[m], M ≤ 64): P[m] = x[m]·A[m] is no
+//    one product, and every channel tile needs all of it, so a pre-pass
+//    kernel (tt_linear_batched_p_kernel) reads A once (M·K·r·2 bytes) and
+//    writes f32 partial sums of P[m] over 256 K rows each, which the
+//    epilogue adds in K order. The main kernel is launched as the
+//    pre-pass's programmatic dependent: its K loop runs while the pre-pass
+//    does, and it waits for P (griddepcontrol.wait) only before the
+//    epilogue. (Summing P in the K loop instead, from A[m]'s (64, r)
+//    blocks staged in the ring, reads A once for each of the N / 64
+//    channel tiles and takes M·64·r·2 bytes of shared memory a stage: it
+//    measured slower at every M from 4 to 64, PERF.md §6.)
 //  - scales in registers: per channel (G = 1), the f32 sum is multiplied
 //    by scale[n] in the epilogue before alpha·P·B is added, as the TPU
 //    kernel does. Grouped (G > 1, a group a multiple of 64 rows), a
@@ -870,19 +880,23 @@ bool aligned16(const void* p) {
 constexpr int QBM = 64, QBN = 64, QBK = 64;   // output tile, K tile
 constexpr int QSTAGES = 4;                     // depth of the ring
 constexpr int QNT = 128;                       // one warpgroup
+constexpr int QCLUSTER = 8;   // most slices of K: a portable cluster
+constexpr int PKC = 256;      // K rows a partial P sum of the pre-pass covers
 
-template <int RP>
+// BATCHED (#10): no A in the ring; P comes from the pre-pass
+template <int RP, bool BATCHED>
 struct W8Smem {
   static constexpr int XS = QBM * QBK * 2;     // an x tile, swizzled
   static constexpr int QS = QBK * QBN;         // an int8 W tile, (k, n)
-  static constexpr int AS = RP * QBK * 2;      // an A tile (rows j)
+  static constexpr int AS = BATCHED ? 0 : RP * QBK * 2;   // an A tile
   static constexpr int X = 0;
   static constexpr int W8 = X + QSTAGES * XS;
   static constexpr int A = W8 + QSTAGES * QS;
   static constexpr int WB = A + QSTAGES * AS;  // the widened bf16 W tile
   static constexpr int TOTAL = WB + QBK * QBN * 2;
   static constexpr int PS = RP + 4;            // f32 row of the staged P
-  static constexpr int NV = QBN / 2 + RP / 2;  // partial floats a thread
+  // f32 partials a thread stages for the cluster's sum
+  static constexpr int NV = QBN / 2 + (BATCHED ? 0 : RP / 2);
   static_assert(AS % 1024 == 0 && XS % 1024 == 0,
                 "tiles must keep the 1024-byte alignment of the swizzle");
   static_assert(NV * QNT * 4 <= W8 && QBM * PS * 4 <= W8 &&
@@ -890,31 +904,18 @@ struct W8Smem {
                 "the partials, then P, are staged where the x ring was, "
                 "B's tile in the int8 ring");
 };
-constexpr int QCLUSTER = 8;   // most slices of K: a portable cluster
 
-// four int8 values (one 32-bit word) as two bf16x2 words, exactly
-__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
-                                       uint32_t& hi) {
-  const uint32_t v = w ^ 0x80808080u;   // q + 128, unsigned
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)   // 2^23 + (q + 128), less 2^23 + 128
-    f[i] = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 + i)) -
-           8388736.f;
-  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-}
-
-template <int RP, bool GROUPED>
-__global__ void __launch_bounds__(QNT, RP <= 16 ? 3 : 2)
+template <int RP, bool GROUPED, bool BATCHED>
+__global__ void __launch_bounds__(QNT, RP <= 16 || BATCHED ? 3 : 2)
 tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
                           const int8_t* __restrict__ w,
                           const float* __restrict__ wscale,
                           const bf16* __restrict__ a,
                           const bf16* __restrict__ b, bf16* __restrict__ y,
-                          int M, int N, int K, int r, int group, int tps,
-                          float alpha, const LinStrides ls) {
-  using L = W8Smem<RP>;
+                          const float* __restrict__ pp, int M, int N, int K,
+                          int r, int group, int tps, int nkc, float alpha,
+                          const LinStrides ls) {
+  using L = W8Smem<RP, BATCHED>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -951,21 +952,23 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
                  ok ? w + static_cast<long long>(gk) * N + gn : w,
                  ok ? 16 : 0);
     }
-    const uint32_t at = base + L::A + st * L::AS;
-    for (int c = tid; c < RP * 8; c += QNT) {   // A: rows j, K-major
-      const int j = c >> 3, ch = c & 7, k = k0 + ch * 8;
-      const uint32_t dst = at + j * 128 + ((ch ^ (j & 7)) << 4);
-      if (va) {
-        const bool ok = j < r && k < K;
-        cp_async16(dst, ok ? a + j * asj + k : a, ok ? 16 : 0);
-      } else {
-        uint32_t u[4];
+    if constexpr (!BATCHED) {
+      const uint32_t at = base + L::A + st * L::AS;
+      for (int c = tid; c < RP * 8; c += QNT) {   // A: rows j, K-major
+        const int j = c >> 3, ch = c & 7, k = k0 + ch * 8;
+        const uint32_t dst = at + j * 128 + ((ch ^ (j & 7)) << 4);
+        if (va) {
+          const bool ok = j < r && k < K;
+          cp_async16(dst, ok ? a + j * asj + k : a, ok ? 16 : 0);
+        } else {
+          uint32_t u[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          u[e] = elem2(a, (k + 2 * e) * ask + j * asj,
-                       (k + 2 * e + 1) * ask + j * asj,
-                       j < r && k + 2 * e < K, j < r && k + 2 * e + 1 < K);
-        st_shared16(dst, u);
+          for (int e = 0; e < 4; ++e)
+            u[e] = elem2(a, (k + 2 * e) * ask + j * asj,
+                         (k + 2 * e + 1) * ask + j * asj,
+                         j < r && k + 2 * e < K, j < r && k + 2 * e + 1 < K);
+          st_shared16(dst, u);
+        }
       }
     }
   };
@@ -978,13 +981,14 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
 
   const int lane = tid & 31, warp = tid >> 5;
   const int ra = warp * 16 + (lane >> 2), ca = 2 * (lane & 3);
-  float acc[QBN / 2], tot[GROUPED ? QBN / 2 : 1], p[RP / 2];
+  float acc[QBN / 2], tot[GROUPED ? QBN / 2 : 1];
+  float p[BATCHED ? 1 : RP / 2];
 #pragma unroll
   for (int i = 0; i < QBN / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < (GROUPED ? QBN / 2 : 1); ++i) tot[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < RP / 2; ++i) p[i] = 0.f;
+  for (int i = 0; i < (BATCHED ? 1 : RP / 2); ++i) p[i] = 0.f;
 
   // scales into registers ahead of their use: per channel once, grouped
   // at a group's first tile (the load's latency hides behind the group)
@@ -1012,13 +1016,9 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < QBK * 4 / QNT; ++i) {   // widen: 16 values a chunk
       const int c = tid + i * QNT, row = c >> 2, ch = c & 3;
-      const uint4 u = *reinterpret_cast<const uint4*>(qt + row * QBN +
-                                                      ch * 16);
       uint32_t lo[4], hi[4];
-      widen4(u.x, lo[0], lo[1]);
-      widen4(u.y, lo[2], lo[3]);
-      widen4(u.z, hi[0], hi[1]);
-      widen4(u.w, hi[2], hi[3]);
+      widen16(*reinterpret_cast<const uint4*>(qt + row * QBN + ch * 16), lo,
+              hi);
       st_shared16(wb + row * 128 + (((2 * ch) ^ (row & 7)) << 4), lo);
       st_shared16(wb + row * 128 + (((2 * ch + 1) ^ (row & 7)) << 4), hi);
     }
@@ -1033,7 +1033,8 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
     for (int kk = 0; kk < QBK / 16; ++kk) {
       const uint64_t dx = desc_k<QBM>(xt, 0, kk);
       WgSS<QBN, 1>::mma(acc, dx, desc_mn<QBK>(wb, kk), 1);
-      WgSS<RP>::mma(p, dx, desc_k<RP>(at, 0, kk), 1);   // P += x·A
+      if constexpr (!BATCHED)
+        WgSS<RP>::mma(p, dx, desc_k<RP>(at, 0, kk), 1);   // P += x·A
     }
     wg_commit();
     wg_wait<0>();
@@ -1084,10 +1085,12 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
   for (int v = 0; v < QBN / 8; ++v)
     part[v * QNT + tid] = make_float4(sum[4 * v], sum[4 * v + 1],
                                       sum[4 * v + 2], sum[4 * v + 3]);
+  if constexpr (!BATCHED) {
 #pragma unroll
-  for (int v = 0; v < RP / 8; ++v)
-    part[(QBN / 8 + v) * QNT + tid] =
-        make_float4(p[4 * v], p[4 * v + 1], p[4 * v + 2], p[4 * v + 3]);
+    for (int v = 0; v < RP / 8; ++v)
+      part[(QBN / 8 + v) * QNT + tid] =
+          make_float4(p[4 * v], p[4 * v + 1], p[4 * v + 2], p[4 * v + 3]);
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   cluster.sync();   // every slice's partials are in its shared memory
@@ -1111,20 +1114,35 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
     out[2] = u.z;
     out[3] = u.w;
   };
+  if constexpr (!BATCHED) {
 #pragma unroll
-  for (int v = 0; v < RP / 8; ++v) reduce(QBN / 8 + v, p + 4 * v);
+    for (int v = 0; v < RP / 8; ++v) reduce(QBN / 8 + v, p + 4 * v);
+  }
 #pragma unroll
   for (int c = 0; c < QBN / 8; ++c)   // this block's column groups
     if (c % S == rank) reduce(c, sum + 4 * c);
   cluster.sync();   // no block reads another's shared memory past here
 
   float* ps = reinterpret_cast<float*>(smem);   // P (64, RP), f32
+  if constexpr (!BATCHED) {
 #pragma unroll
-  for (int c = 0; c < RP / 8; ++c)
+    for (int c = 0; c < RP / 8; ++c)
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      *reinterpret_cast<float2*>(ps + (ra + 8 * hh) * L::PS + 8 * c + ca) =
-          make_float2(p[4 * c + 2 * hh], p[4 * c + 2 * hh + 1]);
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(ps + (ra + 8 * hh) * L::PS + 8 * c + ca) =
+            make_float2(p[4 * c + 2 * hh], p[4 * c + 2 * hh + 1]);
+  } else {   // #10: the pre-pass's partial sums, in K order
+    // launched as its dependent, this grid may start before the pre-pass
+    // ends: wait here for it to finish and its writes to show
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    for (int idx = tid; idx < M * r; idx += QNT) {
+      const int m = idx / r, j = idx - m * r;
+      const float* src = pp + static_cast<long long>(m) * nkc * r + j;
+      float t = 0.f;
+      for (int c = 0; c < nkc; ++c) t += __ldcg(src + c * r);
+      ps[m * L::PS + j] = t;
+    }
+  }
   cp_async_wait<0>();   // B's tile
   __syncthreads();
   const bf16* bs = reinterpret_cast<const bf16*>(smem + L::W8);
@@ -1160,15 +1178,70 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
   }
 }
 
-template <int RP, bool GROUPED>
+// #10's pre-pass: part[m, c, j] = Σ x[m, k]·A[m, k, j] over the
+// K rows k of chunk c (PKC of them), in f32: one block a (chunk, row), a
+// thread's rows summed in registers, the block's lanes in a fixed tree
+// and its four warps in order. vec: A's rows take 16-byte loads.
+template <int RPP>
+__global__ void __launch_bounds__(QNT)
+tt_linear_batched_p_kernel(const bf16* __restrict__ x,
+                           const bf16* __restrict__ a,
+                           float* __restrict__ part, int K, int r, int vec) {
+  __shared__ float red[QNT / 32][RPP];
+  // let the main kernel start now: its K loop does not read P
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  const int c = blockIdx.x, m = blockIdx.y, nkc = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k1 = min(K, (c + 1) * PKC);
+  float pr[RPP];
+#pragma unroll
+  for (int j = 0; j < RPP; ++j) pr[j] = 0.f;
+  for (int k = c * PKC + tid; k < k1; k += QNT) {
+    const float xv = __bfloat162float(x[static_cast<long long>(m) * K + k]);
+    const bf16* ak = a + (static_cast<long long>(m) * K + k) * r;
+    if (vec) {
+#pragma unroll
+      for (int jc = 0; jc < RPP / 8; ++jc) {
+        if (jc * 8 >= r) break;
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(ak + jc * 8));
+        const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float2 f = __bfloat1622float2(e[t]);
+          pr[jc * 8 + 2 * t] += xv * f.x;
+          pr[jc * 8 + 2 * t + 1] += xv * f.y;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < RPP; ++j)
+        if (j < r) pr[j] += xv * __bfloat162float(ak[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RPP; ++j) {
+    if (j >= r) break;
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1)
+      pr[j] += __shfl_xor_sync(0xffffffffu, pr[j], o);
+    if (lane == 0) red[warp][j] = pr[j];
+  }
+  __syncthreads();
+  if (tid < r)
+    part[(static_cast<long long>(m) * nkc + c) * r + tid] =
+        ((red[0][tid] + red[1][tid]) + red[2][tid]) + red[3][tid];
+}
+
+template <int RP, bool GROUPED, bool BATCHED>
 int launch_w8_wgmma(const void* x, const void* w, const float* s,
-                    const void* a, const void* b, void* y, int M, int N,
-                    int K, int r, int group, int splits, float alpha,
-                    const LinStrides& ls, void* stream) {
-  constexpr int smem = W8Smem<RP>::TOTAL + 1024;   // + the alignment slack
+                    const void* a, const void* b, void* y, const float* pp,
+                    int M, int N, int K, int r, int group, int splits,
+                    int nkc, float alpha, const LinStrides& ls,
+                    void* stream) {
+  constexpr int smem = W8Smem<RP, BATCHED>::TOTAL + 1024;   // + slack
   static bool done = false;
-  cudaError_t e =
-      allow_smem(tt_linear_w8_wgmma_kernel<RP, GROUPED>, smem, &done);
+  cudaError_t e = allow_smem(
+      tt_linear_w8_wgmma_kernel<RP, GROUPED, BATCHED>, smem, &done);
   if (e != cudaSuccess) return (int)e;
   const int nk = (K + QBK - 1) / QBK;
   const int tps = (nk + splits - 1) / splits;
@@ -1178,21 +1251,52 @@ int launch_w8_wgmma(const void* x, const void* w, const float* s,
   cfg.blockDim = dim3(QNT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;   // the slices of a tile
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = nsl;
+  // #10: a programmatic dependent of the pre-pass (griddepcontrol)
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, tt_linear_w8_wgmma_kernel<RP, GROUPED>,
-                         static_cast<const bf16*>(x),
-                         static_cast<const int8_t*>(w), s,
-                         static_cast<const bf16*>(a),
-                         static_cast<const bf16*>(b), static_cast<bf16*>(y),
-                         M, N, K, r, group, tps, alpha, ls);
+  cfg.numAttrs = BATCHED ? 2 : 1;
+  e = cudaLaunchKernelEx(
+      &cfg, tt_linear_w8_wgmma_kernel<RP, GROUPED, BATCHED>,
+      static_cast<const bf16*>(x), static_cast<const int8_t*>(w), s,
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<bf16*>(y), pp, M, N, K, r, group, tps, nkc, alpha, ls);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// #10 on the `wgmma` kernel: the pre-pass into ws, then the kernel
+int run_batched_w8(const void* x, const void* w, const float* s,
+                   const void* a, const void* b, void* y, float* ws, int M,
+                   int N, int K, int r, int G, float alpha, int splits,
+                   void* stream) {
+  LinStrides ls = {{0, 0, 0, 0, N, 1}};   // b contiguous
+  const int group = K / G;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int nkc = (K + PKC - 1) / PKC;
+  const int vec = r % 8 == 0 && aligned16(a);
+  const dim3 pgrid(nkc, M);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (r <= 16)
+    tt_linear_batched_p_kernel<16><<<pgrid, QNT, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(a), ws, K, r,
+        vec);
+  else
+    tt_linear_batched_p_kernel<64><<<pgrid, QNT, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(a), ws, K, r,
+        vec);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+#define BW8_ARGS x, w, s, a, b, y, ws, M, N, K, r, group, splits, nkc, \
+                 alpha, ls, stream
+  return G > 1 ? launch_w8_wgmma<64, true, true>(BW8_ARGS)
+               : launch_w8_wgmma<64, false, true>(BW8_ARGS);
+#undef BW8_ARGS
 }
 
 }  // namespace
@@ -1293,27 +1397,46 @@ int tt_linear_w8_bf16(const void* x, const void* w, const void* scale,
       (G > 1 && group % QBK != 0) || splits < 1 || splits > QCLUSTER ||
       (M + QBM - 1) / QBM > 65535)
     return (int)cudaErrorInvalidValue;
-#define W8_ARGS x, w, s, a, b, y, M, N, K, r, group, splits, alpha, ls, stream
+#define W8_ARGS x, w, s, a, b, y, nullptr, M, N, K, r, group, splits, 0, \
+                alpha, ls, stream
   if (r <= 16)
-    return G > 1 ? launch_w8_wgmma<16, true>(W8_ARGS)
-                 : launch_w8_wgmma<16, false>(W8_ARGS);
-  return G > 1 ? launch_w8_wgmma<64, true>(W8_ARGS)
-               : launch_w8_wgmma<64, false>(W8_ARGS);
+    return G > 1 ? launch_w8_wgmma<16, true, false>(W8_ARGS)
+                 : launch_w8_wgmma<16, false, false>(W8_ARGS);
+  return G > 1 ? launch_w8_wgmma<64, true, false>(W8_ARGS)
+               : launch_w8_wgmma<64, false, false>(W8_ARGS);
 #undef W8_ARGS
 }
 
+// w8a16 with a per-row A (#10): x (M, K), a (M, K, r), b (r, N)
+// contiguous, M <= 64; w and scale as #9's. variant 1: the pre-pass, then
+// the `wgmma` kernel over `splits` <= 8 slices of K, one cluster a tile
+// (r <= 64, K % 8 == 0, N % 16 == 0, 16-byte aligned x, w and a; ws an
+// f32 workspace of M · ceil(K / 256) · r floats); 2: the template kernel
+// (vec: its 16-byte copy flags).
 int tt_linear_batched_a_w8_bf16(const void* x, const void* w,
                                 const void* scale, const void* a,
                                 const void* b, void* y, int M, int N, int K,
                                 int r, int G, float alpha, int vec,
+                                int variant, int splits, void* ws,
                                 void* stream) {
   const float* s = static_cast<const float*>(scale);
-  if (G < 1 || K % G != 0) return (int)cudaErrorInvalidValue;
-  if (G == 1)
-    return run_batched_a<WQ_CHANNEL>(x, w, s, a, b, y, M, N, K, r, K, alpha,
-                                     vec, stream);
-  return run_batched_a<WQ_GROUP>(x, w, s, a, b, y, M, N, K, r, K / G, alpha,
-                                 vec, stream);
+  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || r > 256 || G < 1 ||
+      K % G != 0)
+    return (int)cudaErrorInvalidValue;
+  if (variant == 2) {
+    if (G == 1)
+      return run_batched_a<WQ_CHANNEL>(x, w, s, a, b, y, M, N, K, r, K,
+                                       alpha, vec, stream);
+    return run_batched_a<WQ_GROUP>(x, w, s, a, b, y, M, N, K, r, K / G,
+                                   alpha, vec, stream);
+  }
+  if (variant != 1 || r > RANK_WGMMA || K % 8 != 0 || N % 16 != 0 ||
+      !aligned16(x) || !aligned16(w) || !aligned16(a) ||
+      reinterpret_cast<uintptr_t>(scale) % 8 != 0 ||
+      (G > 1 && (K / G) % QBK != 0) || splits < 1 || splits > QCLUSTER)
+    return (int)cudaErrorInvalidValue;
+  return run_batched_w8(x, w, s, a, b, y, static_cast<float*>(ws), M, N, K,
+                        r, G, alpha, splits, stream);
 }
 
 }  // extern "C"

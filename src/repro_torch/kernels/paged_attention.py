@@ -8,16 +8,19 @@ wherever it reaches them; pages past pos[b] + C - 1 are never read.
 Replaces the fp leg of
 ``src/repro/kernels/paged_attention.py::paged_decode_attention``.
 #8q ``paged_decode_attention_int8``: its int8 leg — int8 (N, page, KV, d)
-pools with (N, page, KV) f32 per-cell scale pools, dequantized in
-registers; p stays f32 through P·V, the output is bf16.
+pools with (N, page, KV) f32 per-cell scale pools; the scales are applied
+in f32 and p is kept above bf16 precision through P·V (the TPU kernel's
+f32), the output is bf16.
 
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel (bf16 q, bf16 or int8 pools, head_dim 64 or 128, GQA
-group in {1, 2, 4, 8}, page a multiple of 8 up to 64) or raises. #8 runs
-on the tensor cores with all C·G rows of a (slot, kv head) in one block:
-``mma.sync`` below 64 rows, ``wgmma`` from 64; where the B·KV blocks
-leave the card under-filled each window is split into chunks merged in
-a fixed order (``paged_path``). #8q keeps the SIMT kernel.
+group in {1, 2, 4, 8}, page a multiple of 8 up to 64) or raises. Both
+legs run one tensor-core kernel with all C·G rows of a (slot, kv head) in
+one block: #8 ``mma.sync`` below 64 rows, ``wgmma`` from 64; #8q
+``mma.sync`` in slabs of at most 64 rows, its int8 tiles widened exactly
+to bf16 in shared memory and p·s_v fed as a bf16 hi + lo pair; where the
+blocks leave the card under-filled each window is split into chunks
+merged in a fixed order (``paged_path``).
 ``LAUNCHES`` counts the launches, and nothing else adds to it. The kernel is serving-only: an
 input that requires grad while autograd records raises.
 """
@@ -36,7 +39,8 @@ LAUNCHES = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0}
 
 PAGES = tuple(range(8, 65, 8))
 #: cells a streamed tile of #8's kernel, and the most rows a block takes
-TILE_CELLS, SLAB_ROWS = 64, 256
+#: (#8q: one ``mma.sync`` warpgroup's)
+TILE_CELLS, SLAB_ROWS, SLAB_ROWS_Q8 = 64, 256, 64
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, tables, pos
@@ -60,8 +64,8 @@ def _fn(name: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "paged_attention_int8":
         # q k v k_scale v_scale tables pos o, B C H KV d N page P, strides,
-        # stream
-        f.argtypes = [p] * 8 + [i] * 8 + [p, p]
+        # split, ws, cnt, stream
+        f.argtypes = [p] * 8 + [i] * 8 + [p, i, p, p, p]
     else:
         # q k v tables pos o, B C H KV d N page P, strides, split, ws, cnt,
         # stream
@@ -70,16 +74,25 @@ def _fn(name: str):
     return f
 
 
+def slab_rows(c: int, g: int, quantized: bool = False) -> int:
+    """Rows (column, head pairs) a block of #8 / #8q takes: all C·G of a
+    (slot, kv head) up to ``SLAB_ROWS`` (#8q: ``SLAB_ROWS_Q8``, one
+    ``mma.sync`` warpgroup); above that, slabs of that many rows."""
+    return min(c * g, SLAB_ROWS_Q8 if quantized else SLAB_ROWS)
+
+
 def paged_path(b: int, c: int, h: int, kv: int, p_tab: int, page: int,
-               sms: int) -> tuple:
+               sms: int, quantized: bool = False) -> tuple:
     """How #8's kernel runs: ``("mma", split)`` below 64 rows a block
-    (C·G < 64), else ``("wgmma", split)``; ``split`` is the tiles of 64
-    cells a chunk of each window when the B·KV blocks would leave the
-    card under-filled (fewer than two on each of ``sms`` SMs), so that
-    about four blocks an SM run, and 0 (one block a window) otherwise."""
+    (C·G < 64), else ``("wgmma", split)``; #8q (``quantized``) always
+    ``"mma"``, in slabs of at most 64 rows. ``split`` is the tiles of 64
+    cells a chunk of each window when the blocks (B·KV·slabs) would leave
+    the card under-filled (fewer than two on each of ``sms`` SMs), so
+    that about four blocks an SM run, and 0 (one block a window)
+    otherwise."""
     rows = c * (h // kv)
-    mode = "mma" if rows < 64 else "wgmma"
-    blocks = b * kv * -(-rows // SLAB_ROWS)
+    mode = "mma" if quantized or rows < 64 else "wgmma"
+    blocks = b * kv * -(-rows // slab_rows(c, h // kv, quantized))
     tiles = -(-p_tab * page // TILE_CELLS)
     if blocks >= 2 * sms or tiles < 2:
         return mode, 0
@@ -138,28 +151,41 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _launch_tc(q, k_cache, v_cache, tables, pos, o, n: int, page: int, st,
-               split: int) -> int:
-    """#8's kernel over checked CUDA operands with ``split`` tiles a chunk
-    (0: one block a window); returns the launch's cudaError. A split run
-    takes an f32 workspace for the chunks' partial states and the shared
-    zeroed counters (``_build.counters``)."""
+               split: int, scales=None) -> int:
+    """#8's kernel (#8q's with ``scales`` = (k_scale, v_scale)) over
+    checked CUDA operands with ``split`` tiles a chunk (0: one block a
+    window); returns the launch's cudaError. A split run takes an f32
+    workspace for the chunks' partial states and the shared zeroed
+    counters (``_build.counters``)."""
     b, c, h, d = q.shape
     kv, p_tab = k_cache.shape[2], tables.shape[1]
     ws = cnt = None
     if split:
         rows = c * (h // kv)
-        slabs = -(-rows // SLAB_ROWS)
-        threads = 128 * (1 if rows <= 64 else 2 if rows <= 128 else 4)
+        brows = slab_rows(c, h // kv, scales is not None)
+        slabs = -(-rows // brows)
+        threads = 128 * (1 if brows <= 64 else 2 if brows <= 128 else 4)
         chunks = -(-p_tab * page // (TILE_CELLS * split))
         ws = torch.empty(b * kv * slabs * chunks * threads * (d // 2 + 4),
                          dtype=torch.float32, device=q.device)
         cnt = _build.counters(q.device, b * kv * slabs)
-    return _fn("paged_attention_bf16")(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        tables.data_ptr(), pos.data_ptr(), o.data_ptr(), b, c, h, kv, d, n,
-        page, p_tab, ctypes.cast(st, ctypes.c_void_p), split,
+    head = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()]
+    if scales is not None:
+        head += [t.data_ptr() for t in scales]
+    return _fn("paged_attention_bf16" if scales is None
+               else "paged_attention_int8")(
+        *head, tables.data_ptr(), pos.data_ptr(), o.data_ptr(), b, c, h, kv,
+        d, n, page, p_tab, ctypes.cast(st, ctypes.c_void_p), split,
         None if ws is None else ws.data_ptr(),
         None if cnt is None else cnt.data_ptr(), _build.stream_ptr(q))
+
+
+def int8_strides(q, k_cache, v_cache, k_scale, v_scale, tables, o):
+    """The 19 element strides #8q's kernel reads: q, k, v, o, the table
+    row, then the two scale pools."""
+    return (ctypes.c_longlong * 19)(
+        *_fa._strides(q, k_cache, v_cache, o), tables.stride(0),
+        *k_scale.stride(), *v_scale.stride())
 
 
 def paged_decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
@@ -195,15 +221,12 @@ def paged_decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
     tables = tables.to(device=q.device, dtype=torch.int32).contiguous()
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
-    st = (ctypes.c_longlong * 19)(
-        *_fa._strides(q, k_cache, v_cache, o), tables.stride(0),
-        *k_scale.stride(), *v_scale.stride())
-    rc = _fn("paged_attention_int8")(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-        pos.data_ptr(), o.data_ptr(), b, c, h, kv, d, n, page,
-        tables.shape[1], ctypes.cast(st, ctypes.c_void_p),
-        _build.stream_ptr(q))
+    st = int8_strides(q, k_cache, v_cache, k_scale, v_scale, tables, o)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    _, split = paged_path(b, c, h, kv, tables.shape[1], page, sms,
+                          quantized=True)
+    rc = _launch_tc(q, k_cache, v_cache, tables, pos, o, n, page, st, split,
+                    (k_scale, v_scale))
     _build.check(rc, what)
     LAUNCHES[what] += 1
     return o

@@ -19,13 +19,14 @@ A and B through their strides, so those views are never copied. These
 wrappers make plain outputs with no ``grad_fn``: an input that requires
 grad while autograd records raises.
 
-K1 has two CUDA kernels (``k1_variant``): the `wgmma` kernel for ranks up
-to ``RANK_WGMMA``, and above it the template kernel that K2 and #10
-share, which takes contiguous W, A and B (the wrapper copies them there).
-#9 has its own `wgmma` kernel for ranks up to ``RANK_WGMMA`` on x and W
-that take 16-byte copies, over ``w8_splits`` slices of K; else the
-template kernel (``w8_path``). K2 and #10 take at most 64 rows a launch;
-``ops.py`` splits larger M.
+K1 has two CUDA kernels (``k1_variant``): the `wgmma` kernel for ranks
+up to ``RANK_WGMMA``, and above it the template kernel that K2 runs,
+which takes contiguous W, A and B (the wrapper copies them there). #9
+and #10 share their own `wgmma` kernel for ranks up to ``RANK_WGMMA`` on
+operands that take 16-byte copies, over ``w8_splits`` slices of K (#9:
+``w8_path``; #10, whose per-row adapter term P[m] = x[m]·A[m] a pre-pass
+kernel sums first: ``bw8_path``); else the template kernel. K2 and #10
+take at most 64 rows a launch; ``ops.py`` splits larger M.
 """
 from __future__ import annotations
 
@@ -54,8 +55,9 @@ _ARGTYPES = {
     # x w scale a b y, M N K r G, alpha, strides (a, b), variant, splits,
     # stream
     "tt_linear_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _I, _P],
-    # x w scale a b y, M N K r G, alpha, vec, stream
-    "tt_linear_batched_a_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+    # x w scale a b y, M N K r G, alpha, vec, variant, splits, ws, stream
+    "tt_linear_batched_a_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _I,
+                                                          _P, _P],
 }
 #: K1's CUDA kernels (``csrc/tt_linear.cu``): the `wgmma` kernel, which
 #: takes ranks up to RANK_WGMMA, and the template kernel
@@ -63,11 +65,13 @@ K1_VARIANTS = {"wgmma": 1, "template": 2}
 RANK_WGMMA = 64
 #: rows a K2 / #10 launch takes
 BATCHED_A_ROWS = 64
-#: #9's CUDA kernels: its `wgmma` kernel and the template kernel
+#: #9's and #10's CUDA kernels: the `wgmma` kernel and the template kernel
 W8_VARIANTS = {"wgmma": 1, "template": 2}
 #: the `wgmma` #9 kernel's output tile, K tile, and most slices of K (the
 #: slices of a tile are one thread-block cluster of at most 8)
 W8_TILE, W8_BK, W8_MAX_SPLITS = 64, 64, 8
+#: K rows a partial sum of #10's pre-pass (P[m] = x[m]·A[m]) covers
+PRE_K = 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,6 +114,28 @@ def w8_path(x, wq, scale, r: int) -> tuple:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         return "wgmma", w8_splits(m, n, k, sms)
     return "template", 1
+
+
+def bw8_plan(m: int, n: int, k: int, r: int, vec: bool, sms: int) -> tuple:
+    """#10's CUDA kernel and slices of K for operands of these sizes:
+    ``("wgmma", w8_splits(...))`` (#9's kernel after a pre-pass that sums
+    P[m] = x[m]·A[m]) for ranks up to ``RANK_WGMMA`` on operands that take
+    16-byte copies (``vec``), else ``("template", 1)``."""
+    if not vec or r > RANK_WGMMA:
+        return "template", 1
+    return "wgmma", w8_splits(m, n, k, sms)
+
+
+def bw8_path(x, wq, scale, a, r: int) -> tuple:
+    """``bw8_plan`` on these operands: the `wgmma` kernel needs K % 8 == 0,
+    N % 16 == 0, 16-byte aligned x, W and A and 8-byte aligned scales."""
+    m, k = x.shape
+    n = wq.shape[1]
+    vec = (k % 8 == 0 and n % 16 == 0 and x.data_ptr() % 16 == 0
+           and wq.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0
+           and scale.data_ptr() % 8 == 0)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return bw8_plan(m, n, k, r, vec, sms)
 
 
 def _check_cuda(x, w, a, b, what: str, w_dtype=torch.bfloat16) -> None:
@@ -172,10 +198,8 @@ def _launch_w8(name, x, wq, scale, a, b, alpha, r, batched: bool):
         return y
     if batched:
         a, b = a.contiguous(), b.contiguous()
-        rc = _fn(name + "_bf16")(
-            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), a.data_ptr(),
-            b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
-            _vec_flags(x, wq, a, k, n, r), _build.stream_ptr(x))
+        rc = _launch_w8_batched_a(x, wq, scale, a, b, y, g, alpha,
+                                  *bw8_path(x, wq, scale, a, r))
     else:
         rc = _launch_w8_shared_a(x, wq, scale, a, b, y, g, alpha,
                                  *w8_path(x, wq, scale, r))
@@ -199,6 +223,24 @@ def _launch_w8_shared_a(x, wq, scale, a, b, y, g: int, alpha,
         b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
         ctypes.cast(st, ctypes.c_void_p), W8_VARIANTS[variant], splits,
         _build.stream_ptr(x))
+
+
+def _launch_w8_batched_a(x, wq, scale, a, b, y, g: int, alpha,
+                         variant: str, splits: int) -> int:
+    """#10 on contiguous CUDA operands through the named kernel (see
+    ``bw8_plan``); returns the launch's cudaError. The `wgmma` kernel's
+    pre-pass writes its partial P sums to an f32 workspace."""
+    m, k = x.shape
+    n, r = wq.shape[1], a.shape[2]
+    ws = None
+    if variant == "wgmma":
+        ws = torch.empty(m * -(-k // PRE_K) * r, dtype=torch.float32,
+                         device=x.device)
+    return _fn("tt_linear_batched_a_w8_bf16")(
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), a.data_ptr(),
+        b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
+        _vec_flags(x, wq, a, k, n, r), W8_VARIANTS[variant], splits,
+        None if ws is None else ws.data_ptr(), _build.stream_ptr(x))
 
 
 def _launch_k1(x, w, a, b, alpha, variant: str) -> torch.Tensor:

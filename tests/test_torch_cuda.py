@@ -9,12 +9,13 @@ without a CUDA device of compute capability >= 9.0. Run on the card with
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 This file imports no JAX (``--noconftest`` skips the JAX fixture file),
-so it runs where only PyTorch is installed. Tolerances: bf16 linears,
-fp and w8a16, 1e-2 (one bf16 ulp from another f32 summation order);
-attention, dense and paged (fp and int8), 2e-2 (p rounded to bf16 unnormalised by the kernel, normalised by
-the plain version); lse 1e-3 absolute (f32, another summation order); backward
-2e-2 of the largest plain gradient (the JAX package's bf16 gradient
-limit, tests/test_grads.py).
+so it runs where only PyTorch is installed. Tolerances: bf16 linears, fp
+and w8a16, 1e-2 (one bf16 ulp from another f32 summation order);
+attention, dense and paged (fp and int8), 2e-2 (fp: p rounded to bf16
+unnormalised by the kernel, normalised by the plain version; int8: the
+bf16 output's ulp, p kept above bf16 precision); lse 1e-3 absolute (f32,
+another summation order); backward 2e-2 of the largest plain gradient
+(the JAX package's bf16 gradient limit, tests/test_grads.py).
 """
 import ctypes
 
@@ -430,16 +431,63 @@ def test_tt_linear_w8_slices_of_k(dev, splits, group):
 
 
 @pytest.mark.parametrize("group", [0, 128])
+@pytest.mark.parametrize("r", [1, 8, 16, 64, 65])
+@pytest.mark.parametrize("m", [1, 3, 4, 16, 17, 64])
+def test_tt_linear_batched_a_w8(dev, m, r, group):
+    """#10 at M in {1, 3, 4, 16, 17, 64} (M > 64 is refused, as K2's) and
+    ranks up to RANK_WGMMA (the `wgmma` kernel) and past it (65: the
+    template kernel), per output channel and grouped; two calls
+    bit-identical."""
+    k, n = 512, 192
+    x = _rn(dev, m, k)
+    wq, s = _w8(dev, k, n, group)
+    a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    got = ttl.tt_linear_batched_a_w8(x, wq, s, a, b, 2.0)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _close(got, ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 2.0), 1e-2)
+    assert torch.equal(ttl.tt_linear_batched_a_w8(x, wq, s, a, b, 2.0), got)
+    want = "template" if r > ttl.RANK_WGMMA else "wgmma"
+    assert ttl.bw8_path(x, wq, s, a, r)[0] == want
+
+
+@pytest.mark.parametrize("group", [0, 128])
 @pytest.mark.parametrize("m,k,n,r", [(1, 2048, 2048, 8), (3, 384, 130, 5),
-                                     (4, 2048, 2048, 8), (8, 256, 96, 16),
-                                     (64, 512, 256, 8), (17, 256, 48, 100)])
-def test_tt_linear_batched_a_w8(dev, m, k, n, r, group):
-    """#10 at M in {1, 3, 4, 8, 17, 64} (M > 64 is refused, as K2's)."""
+                                     (4, 256, 48, 8), (17, 256, 40, 100),
+                                     (64, 512, 200, 16)])
+def test_tt_linear_batched_a_w8_template_shapes(dev, m, k, n, r, group):
+    """#10 where the `wgmma` kernel cannot take the operands (N % 16 != 0
+    or rank > 64: the template kernel) and on the engine's shape."""
     x = _rn(dev, m, k)
     wq, s = _w8(dev, k, n, group)
     a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
     got = ttl.tt_linear_batched_a_w8(x, wq, s, a, b, 2.0)
     _close(got, ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 2.0), 1e-2)
+    path = ttl.bw8_path(x, wq, s, a, r)[0]
+    assert (path == "template") == (n % 16 != 0 or r > ttl.RANK_WGMMA)
+
+
+@pytest.mark.parametrize("group", [0, 128, 1024])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("m,r", [(4, 8), (16, 16), (64, 8), (33, 3),
+                                 (64, 64), (17, 13)])
+def test_tt_linear_batched_a_w8_slices_of_k(dev, m, r, splits, group):
+    """#10's `wgmma` kernel (the pre-pass summing P[m] = x[m]·A[m], then
+    #9's kernel as its programmatic dependent) over 1 to 8 slices of K at
+    K = N = 2048: within 1e-2 of the plain version, two calls
+    bit-identical (fixed-order sums, no float atomics)."""
+    k = n = 2048
+    x = _rn(dev, m, k)
+    wq, s = _w8(dev, k, n, group)
+    a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    g = s.shape[0]
+    ys = [torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+          for _ in range(2)]
+    for y in ys:
+        ttl._build.check(ttl._launch_w8_batched_a(x, wq, s, a, b, y, g, 2.0,
+                                                  "wgmma", splits), "w8")
+    _close(ys[0], ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 2.0), 1e-2)
+    assert torch.equal(ys[0], ys[1])
+    assert ttl.bw8_path(x, wq, s, a, r)[0] == "wgmma"
 
 
 def test_w8_linears_reject_what_the_kernels_do_not_take(dev):
@@ -461,21 +509,56 @@ def test_w8_linears_reject_what_the_kernels_do_not_take(dev):
 
 
 def _paged_case_int8(dev, c, g, d, page, seed=0):
-    q, kc, vc, tables, pos = _paged_case(dev, c, g, d, page, seed)
+    q, kc, vc, tables, pos = _paged_case(dev, c, g, d, page, seed, edge=True)
     k8, ks = tquant.quantize_kv(kc.float() * 3)
     v8, vs = tquant.quantize_kv(vc.float() * 3)
     return q, k8, v8, ks, vs, tables, pos
 
 
-@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("page", [8, 16, 64])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("g", [1, 4, 8])
-@pytest.mark.parametrize("c", [1, 3, 32])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", [1, 4, 32])
 def test_paged_decode_attention_int8(dev, c, g, d, page):
+    """#8q from 1 to 256 rows a (slot, kv head) (slabs of 64 above 64), a
+    window ending on a page edge, sentinels inside and past the window;
+    two calls bit-identical."""
     args = _paged_case_int8(dev, c, g, d, page)
     got = tpa.paged_decode_attention_int8(*args)
     assert got.shape == args[0].shape and got.dtype == torch.bfloat16
     _close(got, tpa.paged_decode_attention_int8_plain(*args), 2e-2)
+    assert torch.equal(tpa.paged_decode_attention_int8(*args), got)
+
+
+@pytest.mark.parametrize("split", [0, 1, 3, 5])
+@pytest.mark.parametrize("c,g", [(1, 1), (4, 2), (32, 1), (32, 8)])
+def test_paged_decode_attention_int8_split_windows(dev, c, g, split):
+    """#8q with its windows in chunks of ``split`` 64-cell tiles at the
+    engine's page and table width (C = 32, G = 8: four slabs of 64 rows):
+    within 2e-2 of the plain version, two calls bit-identical."""
+    b, kv, d, page, n, p_tab = 8, 4, 64, 16, 256, 34
+    h = kv * g
+    pos = [0, 37, 100, 161, 230, 299, 407, 479]
+    gen = torch.Generator().manual_seed(c + g)
+    tables = torch.full((b, p_tab), n, dtype=torch.int32)
+    perm, used = torch.randperm(n, generator=gen), 0
+    for row, p0 in enumerate(pos):
+        last = min((p0 + c - 1) // page, p_tab - 1)
+        tables[row, :last + 1] = perm[used:used + last + 1].int()
+        used += last + 1
+    q = _rn(dev, b, c, h, d, seed=3)
+    k8, ks = tquant.quantize_kv(_rn(dev, n, page, kv, d, seed=4).float())
+    v8, vs = tquant.quantize_kv(_rn(dev, n, page, kv, d, seed=5).float())
+    tables, pos = tables.to(dev), torch.tensor(pos, dtype=torch.int32,
+                                               device=dev)
+    o = [torch.empty_like(q) for _ in range(2)]
+    st = tpa.int8_strides(q, k8, v8, ks, vs, tables, o[0])
+    for t in o:
+        tpa._build.check(tpa._launch_tc(q, k8, v8, tables, pos, t, n, page,
+                                        st, split, (ks, vs)), "split")
+    _close(o[0], tpa.paged_decode_attention_int8_plain(q, k8, v8, ks, vs,
+                                                       tables, pos), 2e-2)
+    assert torch.equal(o[0], o[1])
 
 
 def test_paged_decode_attention_int8_reads_pool_views(dev):
