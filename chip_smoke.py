@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only tt_linear_batched_a,decode_attention
+
+The second form builds the kernels and runs only the named kernels' rows
+of phase 2 (names as in ``KERNELS``), then stops without a result line.
 
 Phases, each printed on its own lines:
   1. the card's name and power limit (nvidia-smi), then an nvcc build of
@@ -12,10 +16,11 @@ Phases, each printed on its own lines:
      the stated tolerance; the kernel's, the plain version's and one
      library call's times (the library call is a yardstick only: the port
      never calls it); where a launcher chooses among kernels or splits
-     (K1, the flash forward, #9's and #10's slices of K, #8's product
-     and #8 / #8q's window chunks), which one ran and every variant's
-     time; #9 at M = 16, 64, 128 and 256, #10 at M = 4, 8, 16 and 64 and
-     #8 / #8q at C = 1 and 32 must agree bit for bit across two calls;
+     (K1, the flash forward, K2's, #9's and #10's slices of K, #8's
+     product and K4's, #8's and #8q's window chunks), which one ran and
+     every variant's time; K2 and #10 at M = 4, 8, 16 and 64, K4 at 256
+     and 4096 cells, #9 at M = 16, 64, 128 and 256 and #8 / #8q at C = 1
+     and 32 must agree bit for bit across two calls;
      #8q's error beside that of p cut to bf16; K2 and #10 at 72 decode
      rows through ``ops`` (two launches each); at the training shape two
      flash backward calls must agree bit for bit, and
@@ -24,7 +29,8 @@ Phases, each printed on its own lines:
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
-     ``generate``; under the served adapter the kernel leg's prefill
+     ``generate`` (K2 48 and K4 24 a decode step); under the served
+     adapter the kernel leg's prefill
      logits are held against the plain leg's distance from an f32 plain
      leg, and under a mild adapter the prefill logits and one 4-slot
      mixed-task decode step are held against the plain leg;
@@ -83,7 +89,7 @@ KERNELS = {
                             "src/repro/kernels/tt_linear.py:156"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:112"),
-    "decode_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "decode_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                          "src/repro/kernels/flash_attention.py:393"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:149"),
@@ -208,25 +214,14 @@ def same(fn, args, name):
         raise AssertionError(f"{name}: two calls on the same inputs differ")
 
 
-def phase_kernels(dev):
-    """Every kernel vs its plain version at the serving shapes (bf16)."""
+def k1_rows(dev, rn):
+    """K1 at the prefill q/v projections (M = prompt bucket), A in the
+    layout the model builds (K-contiguous, peft/api.py); both K1 kernels
+    timed on the same inputs, the launcher's choice printed."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import tt_linear as tl
-
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    bf = torch.bfloat16
-
-    def rn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * scale
-                ).to(bf)
-
     rows = []
     alpha = 4.0
-    # K1: prefill q/v projections (M = prompt bucket), A in the layout the
-    # model builds (K-contiguous, peft/api.py); both K1 kernels timed on
-    # the same inputs, the launcher's choice printed
     for m in (16, 64, 256):
         k = n = 2048
         r = 8
@@ -255,32 +250,15 @@ def phase_kernels(dev):
             variants={v: cuda_time_ms(
                 lambda *s: tl._launch_k1(*s, alpha, v), sets)
                 for v in tl.K1_VARIANTS}))
-    # K2: decode q/v projections, 4 slots, task-routed A rows
-    m, k, n, r = 4, 2048, 2048, 8
+    return rows
 
-    def make2():
-        return (rn(m, k), rn(k, n, scale=k ** -0.5),
-                rn(m, k, r, scale=k ** -0.5), rn(r, n, scale=r ** -0.5))
-    nbytes = 2 * (m * k + k * n + m * k * r + r * n + m * n)
-    sets = copies(make2, nbytes)
-    x, w, a, b = sets[0]
-    err = compare("tt_linear_batched_a",
-                  tl.tt_linear_batched_a(x, w, a, b, alpha),
-                  tl.tt_linear_batched_a_plain(x, w, a, b, alpha))
-    bms, by = bound_ms(nbytes, 2 * m * k * n + 2 * m * k * r + 2 * m * r * n)
-    rows.append(dict(
-        name="tt_linear_batched_a", shape=f"M={m} K={k} N={n} r={r}",
-        main=True,
-        max_abs_err=err,
-        ms=cuda_time_ms(lambda *s: tl.tt_linear_batched_a(*s, alpha), sets),
-        plain_ms=cuda_time_ms(
-            lambda *s: tl.tt_linear_batched_a_plain(*s, alpha), sets),
-        library_ms=cuda_time_ms(
-            lambda x, w, a, b: torch.matmul(x, w) + alpha * torch.matmul(
-                torch.bmm(x[:, None], a)[:, 0], b), sets),
-        bound_ms=bms, bound_by=by))
-    # K3: prefill attention, causal, T == S (bucketed prompt); every
-    # variant of the forward kernel timed, the launcher's choice printed
+
+def k3_rows(dev, rn):
+    """K3 at prefill attention, causal, T == S (bucketed prompt); every
+    variant of the forward kernel timed, the launcher's choice printed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = []
     for t, kvh in ((16, 32), (64, 32), (256, 32), (256, 8)):
         b_, h, d = 1, 32, 64
 
@@ -313,44 +291,147 @@ def phase_kernels(dev):
             variants={v: cuda_time_ms(
                 lambda *s: fa._launch_fwd(*s, True, None, v), sets)
                 for v in fa.FWD_VARIANTS}))
-    # K4: decode attention, 4 slots at mixed positions of a 256-cell cache
-    pos = torch.tensor([0, 37, 130, 255], dtype=torch.int32, device=dev)
-    for kvh in (32, 8):
-        b_, s_len, h, d = 4, 256, 32, 64
+    return rows
 
-        def make4():
+
+def k2_rows(dev, rn):
+    """K2 at the dense decode's q/v projections: M = 4 slots (the
+    engine's, the main row), 8, 16 and 64 (a full launch of ``ops``'
+    split), K = N = 2048, r = 8, task-routed A rows. Two calls must agree
+    bit for bit; the launcher's path (kernel and slices of K; the `wgmma`
+    path includes the pre-pass that sums P[m] = x[m]·A[m]) is printed
+    beside the template kernel's and each slice count's time."""
+    import torch
+    from repro_torch.kernels import tt_linear as tl
+    alpha, k, n, r = 4.0, 2048, 2048, 8
+    rows = []
+    for m in (4, 8, 16, 64):
+        def make():
+            return (rn(m, k), rn(k, n, scale=k ** -0.5),
+                    rn(m, k, r, scale=k ** -0.5), rn(r, n, scale=r ** -0.5))
+        nbytes = 2 * (m * k + k * n + m * k * r + r * n + m * n)
+        sets = copies(make, nbytes)
+        fn = tl.tt_linear_batched_a
+        err = compare("tt_linear_batched_a", fn(*sets[0], alpha),
+                      tl.tt_linear_batched_a_plain(*sets[0], alpha))
+        same(lambda *t: fn(*t, alpha), sets[0], "tt_linear_batched_a")
+
+        def run(x, w, a, b, v, sp):
+            y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+            tl._build.check(tl._launch_batched_a(x, w, a, b, y, alpha, v, sp),
+                            "tt_linear_batched_a")
+            return y
+        path, splits = tl.ba_path(*sets[0][:3], r)
+        variants = {"template": cuda_time_ms(
+            lambda *t: run(*t, "template", 1), sets)}
+        for sp in (1, 2, 4, 8):
+            variants[f"wgmma_s{sp}"] = cuda_time_ms(
+                lambda *t: run(*t, "wgmma", sp), sets)
+        bms, by = bound_ms(nbytes, 2 * m * k * n + 2 * m * k * r
+                           + 2 * m * r * n)
+        rows.append(dict(
+            name="tt_linear_batched_a", shape=f"M={m} K={k} N={n} r={r}",
+            main=m == 4, max_abs_err=err,
+            ms=cuda_time_ms(lambda *t: fn(*t, alpha), sets),
+            plain_ms=cuda_time_ms(
+                lambda *t: tl.tt_linear_batched_a_plain(*t, alpha), sets),
+            library_ms=cuda_time_ms(
+                lambda x, w, a, b: torch.matmul(x, w) + alpha * torch.matmul(
+                    torch.bmm(x[:, None], a)[:, 0], b), sets),
+            bound_ms=bms, bound_by=by, variant=f"{path} splits={splits}",
+            variants=variants))
+        del sets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k4_rows(dev, rn):
+    """K4 over the dense decode cache: 4 slots at positions 0, 37, 130,
+    255 of a 256-cell cache, H = 32, d = 64, with KV = 32 (the engine's,
+    the main row) and KV = 8 (G = 4); and a long cache of 4096 cells at
+    positions 511, 1500, 3000, 4095. The bound counts q, o and the K/V
+    cells inside each slot's window; the library yardstick is SDPA with
+    the boolean position mask (on head-repeated K/V where G > 1). Two
+    calls must agree bit for bit; the chunk split the launcher takes
+    (``decode_path``) is printed beside the times with and without it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for kvh, s_len, pos in ((32, 256, (0, 37, 130, 255)),
+                            (8, 256, (0, 37, 130, 255)),
+                            (32, 4096, (511, 1500, 3000, 4095))):
+        b_, h, d = 4, 32, 64
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+
+        def make():
             return (rn(b_, h, d), rn(b_, s_len, kvh, d),
-                    rn(b_, s_len, kvh, d), pos)
-        cells = int((pos.clamp(max=s_len - 1) + 1).sum())
+                    rn(b_, s_len, kvh, d), pos_t)
+        cells = sum(min(p, s_len - 1) + 1 for p in pos)
         nbytes = 2 * (2 * b_ * h * d + 2 * cells * kvh * d) + 4 * b_
-        sets = copies(make4, nbytes)
-        q, kk, vv, _ = sets[0]
-        err = compare("decode_attention",
-                      fa.decode_attention(q, kk, vv, pos),
-                      fa.decode_attention_plain(q, kk, vv, pos))
+        sets = copies(make, nbytes)
+        err = compare("decode_attention", fa.decode_attention(*sets[0]),
+                      fa.decode_attention_plain(*sets[0]))
+        same(fa.decode_attention, sets[0], "decode_attention")
+        mode, split = pa.decode_path(b_, h, kvh, s_len, sms)
+
+        def tc(q, k, v, pos, sp):
+            o = torch.empty_like(q)
+            _build.check(pa.launch_dense(q, k, v, pos, o, sp),
+                         "decode_attention")
+            return o
+        variants = {f"split{sp}": cuda_time_ms(lambda *t: tc(*t, sp), sets)
+                    for sp in sorted({0, 2, split})}
         bms, by = bound_ms(nbytes, 4 * h * d * cells)
         g = h // kvh
         mask = (torch.arange(s_len, device=dev)[None, :]
-                <= pos[:, None])[:, None, None, :]
+                <= pos_t[:, None])[:, None, None, :]
         lib_sets = [(q[:, :, None], kk.repeat_interleave(g, 2).transpose(1, 2),
                      vv.repeat_interleave(g, 2).transpose(1, 2))
                     for q, kk, vv, _ in sets]
         rows.append(dict(
             name="decode_attention",
-            shape=f"B={b_} S={s_len} H={h} KV={kvh} d={d} pos=0,37,130,255",
-            main=kvh == h,
-            max_abs_err=err,
-            ms=cuda_time_ms(lambda *s: fa.decode_attention(*s), sets),
-            plain_ms=cuda_time_ms(
-                lambda *s: fa.decode_attention_plain(*s), sets),
+            shape=(f"B={b_} S={s_len} H={h} KV={kvh} d={d} "
+                   f"pos={','.join(map(str, pos))}"),
+            main=kvh == h and s_len == 256, max_abs_err=err,
+            ms=cuda_time_ms(fa.decode_attention, sets),
+            plain_ms=cuda_time_ms(fa.decode_attention_plain, sets),
             library_ms=cuda_time_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask), lib_sets),
-            bound_ms=bms, bound_by=by))
-    rows += paged_kernel_rows(dev, rn)
-    rows += w8_kernel_rows(dev, rn)
-    rows += paged_int8_kernel_rows(dev, rn)
-    rows += batched_a_split_rows(dev, rn)
+            bound_ms=bms, bound_by=by, variant=f"{mode} split={split}",
+            variants=variants))
+        del sets, lib_sets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels(dev, only=None):
+    """Every kernel vs its plain version at the serving shapes (bf16);
+    ``only``: the names of the kernels whose rows run (default all)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                ).to(bf)
+
+    groups = ((("tt_linear",), k1_rows), (("tt_linear_batched_a",), k2_rows),
+              (("flash_attention",), k3_rows), (("decode_attention",), k4_rows),
+              (("paged_decode_attention",), paged_kernel_rows),
+              (("tt_linear_w8", "tt_linear_batched_a_w8"), w8_kernel_rows),
+              (("paged_decode_attention_int8",), paged_int8_kernel_rows),
+              (("tt_linear_batched_a", "tt_linear_batched_a_w8"),
+               batched_a_split_rows))
+    rows = []
+    for names, fn in groups:
+        if only is None or set(names) & set(only):
+            rows += fn(dev, rn)
     for r_ in rows:
         print_row(r_)
     return rows
@@ -1137,6 +1218,13 @@ def phase_serving(dev):
                  "decode_attention"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched during generate")
+    want = {"tt_linear_batched_a": 2 * cfg.num_layers * st.decode_steps,
+            "decode_attention": cfg.num_layers * st.decode_steps}
+    for name, n in want.items():   # 48 K2 and 24 K4 a decode step
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"over {st.decode_steps} decode steps, "
+                                 f"want {n}")
     print(f"[serve] launches during generate: {json.dumps(launches)}")
     print(f"[serve] {st.requests} requests, {st.tokens_generated} tokens in "
           f"{st.wall_s:.3f}s = {st.tokens_per_s:.1f} tok/s; prefill "
@@ -1692,7 +1780,18 @@ def phase_training(dev):
     return launches
 
 
-def main() -> int:
+def main(argv) -> int:
+    only = None
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = argv[1].split(",")
+        unknown = set(only) - set(KERNELS)
+        if unknown:
+            print(f"--only: unknown kernels {sorted(unknown)}", file=sys.stderr)
+            return 2
+    elif argv:
+        print("usage: chip_smoke.py [--only KERNEL[,KERNEL...]]",
+              file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1727,6 +1826,9 @@ def main() -> int:
                 print(f"[ptxas] {name}: {kern}: "
                       f"{line.split(':', 1)[1].strip()}; {spill}")
 
+    if only:   # the named kernels' rows alone, then stop: no result
+        phase_kernels(dev, only)
+        return 0
     rows = phase_kernels(dev) + phase_train_kernels(dev)
     paths = {}
     paths["serve"], dense_run = phase_serving(dev)
@@ -1765,4 +1867,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

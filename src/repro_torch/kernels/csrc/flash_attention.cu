@@ -1,5 +1,6 @@
-// Attention forward kernels for Hopper (sm_90a); the backward pair is in
-// flash_attention_bwd.cu.
+// Attention forward kernel for Hopper (sm_90a); the backward pair is in
+// flash_attention_bwd.cu, and the dense-cache decode kernel (K4) is the
+// paged kernel's dense instantiation in paged_attention.cu.
 //
 // flash_attention_bf16 replaces the Pallas TPU kernels
 //   src/repro/kernels/flash_attention.py::flash_attention (_kernel,
@@ -8,25 +9,15 @@
 //   with_stats=True): the same kernel also writing the per-row
 //   log-sum-exp lse = m + log(l) (B, H, T) f32 when given an lse pointer —
 //   the one residual the training backward rebuilds p from.
-// decode_attention_bf16 replaces
-//   src/repro/kernels/flash_attention.py::decode_attention
-//   (_decode_kernel): one query token per (slot, head) against the dense
-//   (B, S, KV, d) cache, masked by the slot's position.
 //
-// What bounds them on an H100:
-//   * the forward: 4·d flops per (query, key) pair against one read of q,
-//     k, v and one write of o (and lse). At the training shape (B = 4,
-//     T = S = 1024, H = KV = 32, d = 64, causal) that is 17.2 GFLOP
-//     against 67 MB: 0.017 ms of tensor-core time against 0.020 ms of
-//     bytes, so only `wgmma` at a good share of its rate, with q/k/v read
-//     once and no (T, S) tensor in device memory, gets near the bound.
-//     Prefill (T = S ≤ ~300 a request) is far smaller and bound by
-//     latency; it shares the kernel.
-//   * decode: ~4 flops per cache byte — purely bound by reading the
-//     cache cells 0..pos[b]. One block per (kv head, slot) reads each K/V
-//     row once for all G query heads of its group; cells past pos[b] are
-//     never touched. Four warps split the cells and merge their partial
-//     softmax states at the end.
+// What bounds it on an H100: 4·d flops per (query, key) pair against one
+// read of q, k, v and one write of o (and lse). At the training shape
+// (B = 4, T = S = 1024, H = KV = 32, d = 64, causal) that is 17.2 GFLOP
+// against 67 MB: 0.017 ms of tensor-core time against 0.020 ms of bytes,
+// so only `wgmma` at a good share of its rate, with q/k/v read once and
+// no (T, S) tensor in device memory, gets near the bound. Prefill
+// (T = S ≤ ~300 a request) is far smaller and bound by latency; it shares
+// the kernel.
 //
 // The forward's design (the recipe of flash_attention_bwd.cu):
 //  - one warpgroup owns 64 query rows, its q tile resident in shared
@@ -262,162 +253,6 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- decode
-
-constexpr int DNW = 4;  // warps per block
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int D, int G>
-__global__ void __launch_bounds__(DNW * 32)
-decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const int* __restrict__ pos,
-                   bf16* __restrict__ o, int S, float scale, long long qsb,
-                   long long qsh, long long ksb, long long kss,
-                   long long ksh, long long vsb, long long vss,
-                   long long vsh, long long osb, long long osh) {
-  constexpr int DL = D / 32;  // output dims per lane
-  __shared__ float qsm[G][D];
-  __shared__ float red_m[DNW][G], red_l[DNW][G];
-  __shared__ float red_acc[DNW][G][D];
-
-  const int kvh = blockIdx.x, bb = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int i = tid; i < G * D; i += DNW * 32) {
-    const int g = i / D, c = i % D;
-    qsm[g][c] = __bfloat162float(q[bb * qsb + (kvh * G + g) * qsh + c]);
-  }
-  __syncthreads();
-
-  const int nkeys = min(pos[bb], S - 1) + 1;  // cells 0..pos[b]
-  const bf16* kb = k + bb * ksb + kvh * ksh;
-  const bf16* vb = v + bb * vsb + kvh * vsh;
-
-  float m[G], l[G], acc[G][DL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG;
-    l[g] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DL; ++d) acc[g][d] = 0.f;
-  }
-
-  for (int c0 = warp * 32; c0 < nkeys; c0 += DNW * 32) {
-    const int ki = c0 + lane;
-    const bool ok = ki < nkeys;
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] = 0.f;
-    if (ok) {  // this lane's key row, 16 bytes at a time
-      const bf16* kr = kb + ki * kss;
-#pragma unroll
-      for (int c = 0; c < D; c += 8) {
-        const uint4 u = *reinterpret_cast<const uint4*>(kr + c);
-        const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const float kv = __bfloat162float(e[t]);
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[g] += qsm[g][c + t] * kv;
-        }
-      }
-    }
-    float p[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float sg = ok ? s[g] * scale : NEG;
-      const float m_new = fmaxf(m[g], warp_max(sg));
-      p[g] = ok ? expf(sg - m_new) : 0.f;
-      const float corr = expf(m[g] - m_new);
-      l[g] = l[g] * corr + warp_sum(p[g]);
-      m[g] = m_new;
-#pragma unroll
-      for (int d = 0; d < DL; ++d) acc[g][d] *= corr;
-    }
-    // acc += p (rounded to bf16) · V over this chunk's keys; each lane
-    // owns DL output dims, so every V row is one coalesced warp read
-    const int nk = min(32, nkeys - c0);
-    for (int kk = 0; kk < nk; ++kk) {
-      const bf16* vr = vb + (c0 + kk) * vss + lane * DL;
-      float vv[DL];
-#pragma unroll
-      for (int d = 0; d < DL; ++d) vv[d] = __bfloat162float(vr[d]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float pk = __bfloat162float(
-            __float2bfloat16(__shfl_sync(0xffffffffu, p[g], kk)));
-#pragma unroll
-        for (int d = 0; d < DL; ++d) acc[g][d] += pk * vv[d];
-      }
-    }
-  }
-
-  // merge the four warps' partial softmax states
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      red_m[warp][g] = m[g];
-      red_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int d = 0; d < DL; ++d) red_acc[warp][g][lane * DL + d] = acc[g][d];
-  }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += DNW * 32) {
-    const int g = i / D, c = i % D;
-    float mm = NEG;
-#pragma unroll
-    for (int w = 0; w < DNW; ++w) mm = fmaxf(mm, red_m[w][g]);
-    float ll = 0.f, aa = 0.f;
-#pragma unroll
-    for (int w = 0; w < DNW; ++w) {
-      const float f = expf(red_m[w][g] - mm);
-      ll += red_l[w][g] * f;
-      aa += red_acc[w][g][c] * f;
-    }
-    o[bb * osb + (kvh * G + g) * osh + c] =
-        __float2bfloat16(aa / fmaxf(ll, 1e-30f));
-  }
-}
-
-template <int D, int G>
-int launch_decode(const void* q, const void* k, const void* v,
-                  const void* pos, void* o, int B, int S, int KV,
-                  const long long* st, void* stream) {
-  dim3 grid(KV, B);
-  const float scale = 1.0f / sqrtf((float)D);
-  decode_attn_kernel<D, G>
-      <<<grid, DNW * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const int*>(pos),
-          static_cast<bf16*>(o), S, scale, st[0], st[1], st[2], st[3], st[4],
-          st[5], st[6], st[7], st[8], st[9]);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int decode_for_d(int G, const void* q, const void* k, const void* v,
-                 const void* pos, void* o, int B, int S, int KV,
-                 const long long* st, void* stream) {
-  switch (G) {
-    case 1: return launch_decode<D, 1>(q, k, v, pos, o, B, S, KV, st, stream);
-    case 2: return launch_decode<D, 2>(q, k, v, pos, o, B, S, KV, st, stream);
-    case 4: return launch_decode<D, 4>(q, k, v, pos, o, B, S, KV, st, stream);
-    case 8: return launch_decode<D, 8>(q, k, v, pos, o, B, S, KV, st, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -447,22 +282,6 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                                          causal, strides, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// q (B, H, d), k/v (B, S, KV, d) dense cache, pos (B,) int32, o (B, H, d).
-// strides: 10 element strides (q: b, h; k: b, s, kv; v: b, s, kv; o: b, h).
-int decode_attention_bf16(const void* q, const void* k, const void* v,
-                          const void* pos, void* o, int B, int S, int H,
-                          int KV, int d, const long long* strides,
-                          void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0)
-    return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  if (d == 64)
-    return decode_for_d<64>(G, q, k, v, pos, o, B, S, KV, strides, stream);
-  if (d == 128)
-    return decode_for_d<128>(G, q, k, v, pos, o, B, S, KV, strides, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -4,7 +4,10 @@
 // paged_attention_bf16 replaces the fp leg of the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py::paged_decode_attention
 //   (_kernel, quantized=False); paged_attention_int8 its int8 leg
-//   (quantized=True). Both run paged_tc_kernel.
+//   (quantized=True). Both run paged_tc_kernel. dense_decode_attention_bf16
+//   replaces src/repro/kernels/flash_attention.py::decode_attention
+//   (_decode_kernel): the fp leg at C = 1 over the dense (B, S, KV, d)
+//   cache (K4, the DENSE instantiation, below).
 // Slot b carries C query tokens; query c sits at absolute position
 // pos[b] + c and attends cache cells [0, pos[b] + c]. Cell i of slot b
 // lives in physical block tables[b, i / page], row i % page, of the
@@ -39,6 +42,12 @@
 //    read MN-major). The kernel is bound by its bytes, so `mma.sync` is
 //    enough when the tile is small, and it wastes no 48-row padding at
 //    C·G ≤ 16;
+//  - DENSE (K4): cell i of slot b's kv head is read at
+//    k + b·ksb + i·kss + kvh·ksh, with no table, no sentinel and no page;
+//    the window is min(pos[b], S − 1) + 1 cells (the launcher passes
+//    page = 1 and P = S, so P·page is the cache length). At G = 1 each
+//    `mma.sync` carries 15 padded rows: the kernel is bound by bytes, so
+//    the padding costs no time, and padded rows are never written;
 //  - the online softmax stays in the accumulator registers (a row's
 //    values sit in one quad of lanes); O stays f32;
 //  - where the blocks leave the card under-filled (fewer than two an
@@ -102,7 +111,8 @@ struct Cell<true> {
 
 // strides (elements): st[0..2] q (b, c, h); st[3..5] k (n, p, kv);
 // st[6..8] v; st[9..11] o (b, c, h); st[12] tables (b); Q8 only:
-// st[13..15] k_scale (n, p, kv); st[16..18] v_scale
+// st[13..15] k_scale (n, p, kv); st[16..18] v_scale. DENSE: k and v
+// (b, s, kv) of the dense cache.
 struct Strides {
   long long v[19];
 };
@@ -178,11 +188,14 @@ __device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
 }
 
 // WG: `wgmma`, 64 rows a warpgroup; else `mma.sync` (NWG = 1), 16 rows a
-// warp. Q8: the int8 leg (`mma.sync` only). grid (KV, B, slabs · chunks);
-// split: tiles a chunk, 0 for one chunk a window
-template <int D, int NWG, bool WG, bool Q8>
+// warp. Q8: the int8 leg (`mma.sync` only). DENSE: the dense cache, no
+// table (K4; the fp leg on `mma.sync`). grid (KV, B, slabs · chunks);
+// split: tiles a chunk, 0 for one chunk a window. At d = 128 a block's
+// shared memory leaves room for two blocks an SM, so the registers are
+// bounded for two
+template <int D, int NWG, bool WG, bool Q8, bool DENSE = false>
 __global__ void __launch_bounds__(NWG * 128,
-                                  NWG == 1 ? (Q8 && D == 128 ? 2 : 3)
+                                  NWG == 1 ? (D == 128 ? 2 : 3)
                                            : (NWG == 2 ? 2 : 1))
 paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
                 const void* __restrict__ kv_v,
@@ -198,6 +211,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
   constexpr int CC = D * sizeof(CT) / 16;   // 16-byte copies a cell
   static_assert(WG || NWG == 1, "mma.sync blocks are one warpgroup");
   static_assert(!(WG && Q8), "the int8 leg runs mma.sync");
+  static_assert(!DENSE || (!WG && !Q8), "the dense leg runs mma.sync, fp");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -218,10 +232,12 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
   const int t1 = split ? min(ntiles, t0 + split) : ntiles;
   if (t0 >= t1) return;   // a chunk past this slot's window
 
-  const int npages = (nkeys + page - 1) / page;
-  for (int j = tid; j < npages; j += NT) {   // sentinels clamped
-    const int e = tables[bb * st.v[12] + j];
-    tbl[j] = e < 0 ? 0 : (e >= N ? N - 1 : e);
+  if constexpr (!DENSE) {
+    const int npages = (nkeys + page - 1) / page;
+    for (int j = tid; j < npages; j += NT) {   // sentinels clamped
+      const int e = tables[bb * st.v[12] + j];
+      tbl[j] = e < 0 ? 0 : (e >= N ? N - 1 : e);
+    }
   }
   const CT* kb = static_cast<const CT*>(kv_k) + kvh * st.v[5];
   const CT* vb = static_cast<const CT*>(kv_v) + kvh * st.v[8];
@@ -245,12 +261,16 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
       const int isv = i >= PT * CC, rem = isv ? i - PT * CC : i;
       const int cell = rem / CC, c = rem % CC, ci = t * PT + cell;
       const bool ok = ci < nkeys;
-      const int pg = ci / page;
-      const long long off =
-          ok ? static_cast<long long>(tbl[pg]) * (isv ? st.v[6] : st.v[3]) +
-                   static_cast<long long>(ci - pg * page) *
-                       (isv ? st.v[7] : st.v[4]) + c * (16 / sizeof(CT))
-             : 0;
+      long long off = 0;
+      if (ok && DENSE) {   // slot bb's cell ci
+        off = bb * (isv ? st.v[6] : st.v[3]) +
+              static_cast<long long>(ci) * (isv ? st.v[7] : st.v[4]) + c * 8;
+      } else if (ok) {     // row ci % page of the cell's table entry
+        const int pg = ci / page;
+        off = static_cast<long long>(tbl[pg]) * (isv ? st.v[6] : st.v[3]) +
+              static_cast<long long>(ci - pg * page) *
+                  (isv ? st.v[7] : st.v[4]) + c * (16 / sizeof(CT));
+      }
       // Q8: an int8 tile is plain rows of D bytes, widened before use
       const uint32_t dst = Q8 ? (isv ? vt : kt) + cell * D + c * 16
                               : chunk_at<PT>(isv ? vt : kt, cell, c);
@@ -529,21 +549,22 @@ struct TcArgs {
   int B, C, G, KV, N, page, P, split, nslab, nch;
 };
 
-template <int D, int NWG, bool WG, bool Q8>
+template <int D, int NWG, bool WG, bool Q8, bool DENSE = false>
 int launch_tc(const TcArgs& a, const Strides& st, void* stream) {
   using L = PagedSmem<D, NWG, Q8>;
-  const int smem = L::TBL + ((a.P * 4 + 15) & ~15) + 1024;   // + alignment
+  // + the table row (none when DENSE) and the alignment slack
+  const int smem = L::TBL + (DENSE ? 0 : (a.P * 4 + 15) & ~15) + 1024;
   if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
   static int smem_set = 48 * 1024;   // per instantiation, grows only
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_tc_kernel<D, NWG, WG, Q8>,
+        paged_tc_kernel<D, NWG, WG, Q8, DENSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
   dim3 grid(a.KV, a.B, a.nslab * a.nch);
-  paged_tc_kernel<D, NWG, WG, Q8>
+  paged_tc_kernel<D, NWG, WG, Q8, DENSE>
       <<<grid, NWG * 128, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(a.q), a.k, a.v,
           static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
@@ -592,6 +613,29 @@ int run_tc(const void* q, const void* k, const void* v, const void* ks,
   return (int)cudaErrorInvalidValue;
 }
 
+// K4: one query a slot (C = 1) over the dense cache, G rows a block
+int run_dense(const void* q, const void* k, const void* v, const void* pos,
+              void* o, int B, int S, int H, int KV, int d,
+              const long long* strides, int split, void* ws, void* cnt,
+              void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || split < 0 ||
+      (split > 0 && (ws == nullptr || cnt == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KV;
+  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
+  const int nch = split ? (S + PT * split - 1) / (PT * split) : 1;
+  if (nch > 65535) return (int)cudaErrorInvalidValue;
+  // q (b, h) and o (b, h) as (b, c = 0, h); k, v (b, s, kv)
+  const long long* s = strides;
+  const Strides st{{s[0], 0, s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
+                    0, s[9], 0}};
+  const TcArgs a{q, k, v, nullptr, nullptr, nullptr, pos, o, ws, cnt, B, 1,
+                 G, KV, 0, 1, S, split, 1, nch};
+  if (d == 64) return launch_tc<64, 1, false, false, true>(a, st, stream);
+  if (d == 128) return launch_tc<128, 1, false, false, true>(a, st, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -629,6 +673,22 @@ int paged_attention_int8(const void* q, const void* k, const void* v,
                          void* cnt, void* stream) {
   return run_tc<true>(q, k, v, k_scale, v_scale, tables, pos, o, B, C, H,
                       KV, d, N, page, P, strides, split, ws, cnt, stream);
+}
+
+// K4: q (B, H, d) bf16; k/v (B, S, KV, d) bf16 dense cache; pos (B,)
+// int32; o (B, H, d) bf16. strides: 10 element strides (q: b, h; k: b, s,
+// kv; v: b, s, kv; o: b, h), each a multiple of 8 with 16-byte aligned
+// bases and a contiguous last dim. Slot b attends cells
+// 0 .. min(pos[b], S - 1). d in {64, 128}; H / KV in {1, 2, 4, 8}. split,
+// ws and cnt as paged_attention_bf16's, with 128 threads a block, one
+// slab and chunks = ceil(S / (64 · split)).
+int dense_decode_attention_bf16(const void* q, const void* k, const void* v,
+                                const void* pos, void* o, int B, int S,
+                                int H, int KV, int d,
+                                const long long* strides, int split,
+                                void* ws, void* cnt, void* stream) {
+  return run_dense(q, k, v, pos, o, B, S, H, KV, d, strides, split, ws, cnt,
+                   stream);
 }
 
 }  // extern "C"

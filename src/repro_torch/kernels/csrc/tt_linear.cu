@@ -23,14 +23,15 @@
 //   * an f32 epilogue acc + alpha·(P·B) — P is never rounded to bf16,
 //     as in the TPU kernel — and one rounding to bf16 on the store.
 // Ragged M/N/K and any rank 1 <= r <= 256 are masked in the kernel; the
-// rank is padded to a multiple of 16 in shared memory only.
+// rank is padded to a multiple of 16 in shared memory only. That template
+// kernel is the general path: K1 runs its own `wgmma` kernel up to rank
+// RANK_WGMMA (the "K1 on `wgmma`" section), and K2, #9 and #10 run the
+// split-K `wgmma` kernel there (the "#9, #10 and K2 on the split-K
+// `wgmma` kernel" section) when their operands take 16-byte copies; the
+// template kernel takes larger ranks and the other operands.
 //
 // w8a16 (#9, #10): W arrives int8 with f32 scales (G, N), half the bytes
-// of the bf16 W that bounds these kernels. #9 and #10 at ranks up to
-// RANK_WGMMA on operands that take 16-byte copies run their own `wgmma`
-// kernel (the "#9 and #10 on `wgmma`" section below). The template kernel
-// serves K2, and #9 / #10 at larger ranks or on operands that cannot take
-// 16-byte copies: there
+// of the bf16 W that bounds these kernels. In the template kernel
 // each int8 W tile goes through the same cp.async ring (16 values a
 // 16-byte copy, so the vector path needs N % 16 == 0), then is widened to
 // bf16 in one shared-memory tile before the WMMA step (|q| <= 127 is
@@ -510,9 +511,11 @@ int run_shared_a(const void* x, const void* w, const float* wscale,
       x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
 }
 
-// K2 (per-row A): one block per N tile covers all M rows (M <= 64), so W
-// is read once per launch. A[m] tiles are staged with the x / W tiles
-// when they fit in shared memory.
+// The template kernel with a per-row A (K2 and #10 at ranks above
+// RANK_WGMMA or on operands that cannot take 16-byte copies): one block
+// per N tile covers all M rows (M <= 64), so W is read once per launch.
+// A[m] tiles are staged with the x / W tiles when they fit in shared
+// memory.
 template <int WQ>
 int run_batched_a(const void* x, const void* w, const float* wscale,
                   const void* a, const void* b, void* y, int M, int N, int K,
@@ -817,21 +820,29 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// ------------------------------------------- #9 and #10 on `wgmma`
+// ------------------- #9, #10 and K2 on the split-K `wgmma` kernel
 //
 // y = x·(q·s) + alpha·(x·A)·B over an int8 W (K, N) with f32 scales
-// (G, N), at ranks up to RANK_WGMMA, when x and W take 16-byte copies
-// (K % 8 == 0, N % 16 == 0, aligned bases). At the serving shapes
-// (M ≤ 256 prefill rows, K = N = 2048) the work is M flops a byte of W,
+// (G, N) — #9, and #10 with a per-row A — and over a bf16 W with a
+// per-row A — K2 — at ranks up to RANK_WGMMA, when x and W take
+// 16-byte copies (K % 8 == 0, N % 16 == 0 for int8 W and N % 8 == 0 for
+// bf16 W, aligned bases). At the serving shapes (M ≤ 256 prefill rows,
+// M ≤ 64 decode slots, K = N = 2048) the work is M flops a byte of W,
 // far below the card's balance point: the kernel is bound by reading the
-// 4 MB of int8 W once, and at M = 64 a 64 x 64 output tiling has only 32
-// tiles for 132 SMs. So:
+// 4 MB of int8 W (8 MB of bf16 W) once, and at M = 64 a 64 x 64 output
+// tiling has only 32 tiles for 132 SMs. So:
 //  - a block (one warpgroup) owns 64 rows x 64 output channels over one
 //    of S slices of K (split-K, the launcher's choice, see w8_splits in
 //    kernels/tt_linear.py): 32 channel tiles x 8 slices put 256 blocks on
 //    the card at M = 64, each streaming a 64 x 256 strip of W;
-//  - x, int8 W and (#9) A tiles of 64 K columns come through a four-stage
+//  - x, W and (#9) A tiles of 64 K columns come through a four-stage
 //    cp.async ring: three of a slice's four tiles are in flight at once;
+//  - bf16 W (K2): a row of 64 channels is eight 16-byte chunks, one
+//    swizzle row, so each copy lands straight in the 128-byte-swizzled
+//    tile that `wgmma` m64n64k16 reads MN-major as its B operand (x
+//    K-major as A, K1's forward layout); the product reads the stage in
+//    place: no widening pass and no second barrier. The ring is 4 x (8 KB
+//    of x + 8 KB of W) = 64 KB, three blocks an SM;
 //  - int8 W into the product: option (a) of the two layouts. Each int8
 //    stage is widened in registers (hopper.cuh's widen16, exact) into one
 //    128-byte-swizzled bf16 tile, which `wgmma` m64n64k16 reads MN-major
@@ -844,20 +855,20 @@ bool aligned16(const void* p) {
 //    of W;
 //  - #9 (one A): P = x·A is a second `wgmma` m64nRPk16 from the same x
 //    tile into a small f32 register accumulator (r padded to RP = 16 or
-//    64). #10 (BATCHED: a per-row A[m], M ≤ 64): P[m] = x[m]·A[m] is no
-//    one product, and every channel tile needs all of it, so a pre-pass
-//    kernel (tt_linear_batched_p_kernel) reads A once (M·K·r·2 bytes) and
-//    writes f32 partial sums of P[m] over 256 K rows each, which the
-//    epilogue adds in K order. The main kernel is launched as the
+//    64). #10 and K2 (BATCHED: a per-row A[m], M ≤ 64): P[m] = x[m]·A[m]
+//    is no one product, and every channel tile needs all of it, so a
+//    pre-pass kernel (tt_linear_batched_p_kernel) reads A once (M·K·r·2
+//    bytes) and writes f32 partial sums of P[m] over 256 K rows each,
+//    which the epilogue adds in K order. The main kernel is launched as the
 //    pre-pass's programmatic dependent: its K loop runs while the pre-pass
 //    does, and it waits for P (griddepcontrol.wait) only before the
 //    epilogue. (Summing P in the K loop instead, from A[m]'s (64, r)
 //    blocks staged in the ring, reads A once for each of the N / 64
 //    channel tiles and takes M·64·r·2 bytes of shared memory a stage: it
 //    measured slower at every M from 4 to 64, PERF.md §6.)
-//  - scales in registers: per channel (G = 1), the f32 sum is multiplied
-//    by scale[n] in the epilogue before alpha·P·B is added, as the TPU
-//    kernel does. Grouped (G > 1, a group a multiple of 64 rows), a
+//  - scales in registers (int8 W; none for K2): per channel (G = 1), the
+//    f32 sum is multiplied by scale[n] in the epilogue before alpha·P·B
+//    is added, as the TPU kernel does. Grouped (G > 1, a group a multiple of 64 rows), a
 //    group's x·q partial lives in the `wgmma` accumulator, restarted at
 //    the group's first tile; at its last tile (or the slice's) each
 //    thread adds partial · scale[g, n] into a second f32 register sum —
@@ -870,7 +881,7 @@ bool aligned16(const void* p) {
 //    once) and block c sums the sum's column groups c, c + S, ... in
 //    slice order 0 .. S - 1 — a fixed f32 order, so two calls are
 //    bit-identical — and runs their epilogue: P staged in shared memory,
-//    B's (RP, 64) tile (copied into the free int8 ring while the slices
+//    B's (RP, 64) tile (copied into the free W ring while the slices
 //    reduce) and acc += alpha·P·B in f32 (P is never rounded to bf16),
 //    one rounding to bf16 on the store. The scales are loaded into
 //    registers ahead of their use (per channel at the start, grouped at
@@ -883,39 +894,45 @@ constexpr int QNT = 128;                       // one warpgroup
 constexpr int QCLUSTER = 8;   // most slices of K: a portable cluster
 constexpr int PKC = 256;      // K rows a partial P sum of the pre-pass covers
 
-// BATCHED (#10): no A in the ring; P comes from the pre-pass
-template <int RP, bool BATCHED>
-struct W8Smem {
+// BATCHED (#10, K2): no A in the ring; P comes from the pre-pass.
+// W8: int8 W tiles in the ring, widened into WB before use; else (K2)
+// bf16 W tiles, each already in the swizzled layout `wgmma` reads
+template <int RP, bool BATCHED, bool W8>
+struct SplitSmem {
   static constexpr int XS = QBM * QBK * 2;     // an x tile, swizzled
-  static constexpr int QS = QBK * QBN;         // an int8 W tile, (k, n)
+  static constexpr int WS = QBK * QBN * (W8 ? 1 : 2);   // a W tile, (k, n)
   static constexpr int AS = BATCHED ? 0 : RP * QBK * 2;   // an A tile
   static constexpr int X = 0;
-  static constexpr int W8 = X + QSTAGES * XS;
-  static constexpr int A = W8 + QSTAGES * QS;
+  static constexpr int W = X + QSTAGES * XS;
+  static constexpr int A = W + QSTAGES * WS;
   static constexpr int WB = A + QSTAGES * AS;  // the widened bf16 W tile
-  static constexpr int TOTAL = WB + QBK * QBN * 2;
+  static constexpr int TOTAL = WB + (W8 ? QBK * QBN * 2 : 0);
   static constexpr int PS = RP + 4;            // f32 row of the staged P
   // f32 partials a thread stages for the cluster's sum
   static constexpr int NV = QBN / 2 + (BATCHED ? 0 : RP / 2);
-  static_assert(AS % 1024 == 0 && XS % 1024 == 0,
+  static_assert(AS % 1024 == 0 && XS % 1024 == 0 && WS % 1024 == 0,
                 "tiles must keep the 1024-byte alignment of the swizzle");
-  static_assert(NV * QNT * 4 <= W8 && QBM * PS * 4 <= W8 &&
-                    RP * QBN * 2 <= QSTAGES * QS,
+  static_assert(NV * QNT * 4 <= W && QBM * PS * 4 <= W &&
+                    RP * QBN * 2 <= QSTAGES * WS,
                 "the partials, then P, are staged where the x ring was, "
-                "B's tile in the int8 ring");
+                "B's tile in the W ring");
 };
 
-template <int RP, bool GROUPED, bool BATCHED>
+template <int RP, bool GROUPED, bool BATCHED, bool W8>
 __global__ void __launch_bounds__(QNT, RP <= 16 || BATCHED ? 3 : 2)
-tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
-                          const int8_t* __restrict__ w,
-                          const float* __restrict__ wscale,
-                          const bf16* __restrict__ a,
-                          const bf16* __restrict__ b, bf16* __restrict__ y,
-                          const float* __restrict__ pp, int M, int N, int K,
-                          int r, int group, int tps, int nkc, float alpha,
-                          const LinStrides ls) {
-  using L = W8Smem<RP, BATCHED>;
+tt_linear_splitk_kernel(const bf16* __restrict__ x,
+                        const void* __restrict__ wv,
+                        const float* __restrict__ wscale,
+                        const bf16* __restrict__ a,
+                        const bf16* __restrict__ b, bf16* __restrict__ y,
+                        const float* __restrict__ pp, int M, int N, int K,
+                        int r, int group, int tps, int nkc, float alpha,
+                        const LinStrides ls) {
+  static_assert(W8 || (BATCHED && !GROUPED),
+                "a bf16 W is K2's: per-row A, no scales");
+  using L = SplitSmem<RP, BATCHED, W8>;
+  const int8_t* w = static_cast<const int8_t*>(wv);
+  const bf16* wh = static_cast<const bf16*>(wv);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -942,15 +959,27 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
                  ok ? x + static_cast<long long>(gm) * K + gk : x,
                  ok ? 16 : 0);
     }
-    const uint32_t qt = base + L::W8 + st * L::QS;
+    const uint32_t wt = base + L::W + st * L::WS;
+    if constexpr (W8) {
 #pragma unroll
-    for (int i = 0; i < QBK * 4 / QNT; ++i) {   // W: 64 rows x 4 chunks
-      const int c = tid + i * QNT, row = c >> 2, ch = c & 3;
-      const int gk = k0 + row, gn = n0 + ch * 16;
-      const bool ok = gk < K && gn < N;
-      cp_async16(qt + row * QBN + ch * 16,
-                 ok ? w + static_cast<long long>(gk) * N + gn : w,
-                 ok ? 16 : 0);
+      for (int i = 0; i < QBK * 4 / QNT; ++i) {   // W: 64 rows x 4 chunks
+        const int c = tid + i * QNT, row = c >> 2, ch = c & 3;
+        const int gk = k0 + row, gn = n0 + ch * 16;
+        const bool ok = gk < K && gn < N;
+        cp_async16(wt + row * QBN + ch * 16,
+                   ok ? w + static_cast<long long>(gk) * N + gn : w,
+                   ok ? 16 : 0);
+      }
+    } else {   // bf16 W: 64 rows x 8 chunks, straight into the swizzle
+#pragma unroll
+      for (int i = 0; i < QBK * 8 / QNT; ++i) {
+        const int c = tid + i * QNT, row = c >> 3, ch = c & 7;
+        const int gk = k0 + row, gn = n0 + ch * 8;
+        const bool ok = gk < K && gn < N;
+        cp_async16(wt + row * 128 + ((ch ^ (row & 7)) << 4),
+                   ok ? wh + static_cast<long long>(gk) * N + gn : wh,
+                   ok ? 16 : 0);
+      }
     }
     if constexpr (!BATCHED) {
       const uint32_t at = base + L::A + st * L::AS;
@@ -1002,28 +1031,34 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
                      : make_float2(0.f, 0.f);
     }
   };
-  load_scales(GROUPED ? kt0 * QBK / group : 0);
+  if constexpr (W8) load_scales(GROUPED ? kt0 * QBK / group : 0);
 
-  const uint32_t wb = base + L::WB;
   for (int kt = kt0; kt < kt1; ++kt) {
     const int st = (kt - kt0) % QSTAGES;
     cp_async_wait<QSTAGES - 2>();   // tile kt has landed
+    if constexpr (!W8) fence_proxy_async();   // cp.async, to `wgmma`
     __syncthreads();   // ... for every thread; the products of tile kt - 1
                        // are done, so its stage and the widened tile are free
     if (kt + QSTAGES - 1 < kt1) issue(kt + QSTAGES - 1);
     cp_async_commit();
-    const unsigned char* qt = smem + L::W8 + st * L::QS;
+    // the bf16 tile `wgmma` reads: the stage itself (bf16 W), or int8 W
+    // widened into WB
+    uint32_t wb = base + L::W + st * L::WS;
+    if constexpr (W8) {
+      const unsigned char* qt = smem + L::W + st * L::WS;
+      wb = base + L::WB;
 #pragma unroll
-    for (int i = 0; i < QBK * 4 / QNT; ++i) {   // widen: 16 values a chunk
-      const int c = tid + i * QNT, row = c >> 2, ch = c & 3;
-      uint32_t lo[4], hi[4];
-      widen16(*reinterpret_cast<const uint4*>(qt + row * QBN + ch * 16), lo,
-              hi);
-      st_shared16(wb + row * 128 + (((2 * ch) ^ (row & 7)) << 4), lo);
-      st_shared16(wb + row * 128 + (((2 * ch + 1) ^ (row & 7)) << 4), hi);
+      for (int i = 0; i < QBK * 4 / QNT; ++i) {   // widen: 16 values a chunk
+        const int c = tid + i * QNT, row = c >> 2, ch = c & 3;
+        uint32_t lo[4], hi[4];
+        widen16(*reinterpret_cast<const uint4*>(qt + row * QBN + ch * 16), lo,
+                hi);
+        st_shared16(wb + row * 128 + (((2 * ch) ^ (row & 7)) << 4), lo);
+        st_shared16(wb + row * 128 + (((2 * ch + 1) ^ (row & 7)) << 4), hi);
+      }
+      fence_proxy_async();   // cp.async and the widened stores, to `wgmma`
+      __syncthreads();
     }
-    fence_proxy_async();   // cp.async and the widened stores, to `wgmma`
-    __syncthreads();
     const uint32_t xt = base + L::X + st * L::XS;
     const uint32_t at = base + L::A + st * L::AS;
     reg_fence(acc);
@@ -1056,9 +1091,9 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
   float* sum = GROUPED ? tot : acc;
   __syncthreads();   // the rings are free: the partials go where x was
 
-  // B's (RP, 64) tile for the epilogue, into the int8 ring while the
-  // slices reduce; rows ≥ r and columns ≥ N zero
-  const uint32_t bt = base + L::W8;
+  // B's (RP, 64) tile for the epilogue, into the W ring while the slices
+  // reduce; rows ≥ r and columns ≥ N zero
+  const uint32_t bt = base + L::W;
   const bool vb = ls.s[5] == 1 && ls.s[4] % 8 == 0 &&
                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
   for (int c = tid; c < RP * 8; c += QNT) {
@@ -1145,13 +1180,13 @@ tt_linear_w8_wgmma_kernel(const bf16* __restrict__ x,
   }
   cp_async_wait<0>();   // B's tile
   __syncthreads();
-  const bf16* bs = reinterpret_cast<const bf16*>(smem + L::W8);
+  const bf16* bs = reinterpret_cast<const bf16*>(smem + L::W);
 #pragma unroll
   for (int c = 0; c < QBN / 8; ++c) {
     const int gn = n0 + 8 * c + ca;
     if (c % S != rank || gn >= N) continue;
     float* g = sum + 4 * c;
-    if (!GROUPED) {   // per output channel: the f32 sum · scale[n]
+    if (W8 && !GROUPED) {   // per output channel: the f32 sum · scale[n]
       g[0] *= sc[c].x;
       g[1] *= sc[c].y;
       g[2] *= sc[c].x;
@@ -1232,16 +1267,15 @@ tt_linear_batched_p_kernel(const bf16* __restrict__ x,
         ((red[0][tid] + red[1][tid]) + red[2][tid]) + red[3][tid];
 }
 
-template <int RP, bool GROUPED, bool BATCHED>
-int launch_w8_wgmma(const void* x, const void* w, const float* s,
-                    const void* a, const void* b, void* y, const float* pp,
-                    int M, int N, int K, int r, int group, int splits,
-                    int nkc, float alpha, const LinStrides& ls,
-                    void* stream) {
-  constexpr int smem = W8Smem<RP, BATCHED>::TOTAL + 1024;   // + slack
+template <int RP, bool GROUPED, bool BATCHED, bool W8>
+int launch_splitk(const void* x, const void* w, const float* s,
+                  const void* a, const void* b, void* y, const float* pp,
+                  int M, int N, int K, int r, int group, int splits, int nkc,
+                  float alpha, const LinStrides& ls, void* stream) {
+  constexpr int smem = SplitSmem<RP, BATCHED, W8>::TOTAL + 1024;   // + slack
   static bool done = false;
   cudaError_t e = allow_smem(
-      tt_linear_w8_wgmma_kernel<RP, GROUPED, BATCHED>, smem, &done);
+      tt_linear_splitk_kernel<RP, GROUPED, BATCHED, W8>, smem, &done);
   if (e != cudaSuccess) return (int)e;
   const int nk = (K + QBK - 1) / QBK;
   const int tps = (nk + splits - 1) / splits;
@@ -1256,25 +1290,27 @@ int launch_w8_wgmma(const void* x, const void* w, const float* s,
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = nsl;
-  // #10: a programmatic dependent of the pre-pass (griddepcontrol)
+  // #10, K2: a programmatic dependent of the pre-pass (griddepcontrol)
   attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = BATCHED ? 2 : 1;
   e = cudaLaunchKernelEx(
-      &cfg, tt_linear_w8_wgmma_kernel<RP, GROUPED, BATCHED>,
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(w), s,
+      &cfg, tt_linear_splitk_kernel<RP, GROUPED, BATCHED, W8>,
+      static_cast<const bf16*>(x), w, s,
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
       static_cast<bf16*>(y), pp, M, N, K, r, group, tps, nkc, alpha, ls);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// #10 on the `wgmma` kernel: the pre-pass into ws, then the kernel
-int run_batched_w8(const void* x, const void* w, const float* s,
-                   const void* a, const void* b, void* y, float* ws, int M,
-                   int N, int K, int r, int G, float alpha, int splits,
-                   void* stream) {
+// #10 (W8) and K2 on the split-K `wgmma` kernel: the pre-pass into ws,
+// then the kernel
+template <bool W8>
+int run_batched_splitk(const void* x, const void* w, const float* s,
+                       const void* a, const void* b, void* y, float* ws,
+                       int M, int N, int K, int r, int G, float alpha,
+                       int splits, void* stream) {
   LinStrides ls = {{0, 0, 0, 0, N, 1}};   // b contiguous
   const int group = K / G;
   if (ws == nullptr) return (int)cudaErrorInvalidValue;
@@ -1292,11 +1328,12 @@ int run_batched_w8(const void* x, const void* w, const float* s,
         vec);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-#define BW8_ARGS x, w, s, a, b, y, ws, M, N, K, r, group, splits, nkc, \
-                 alpha, ls, stream
-  return G > 1 ? launch_w8_wgmma<64, true, true>(BW8_ARGS)
-               : launch_w8_wgmma<64, false, true>(BW8_ARGS);
-#undef BW8_ARGS
+#define BA_ARGS x, w, s, a, b, y, ws, M, N, K, r, group, splits, nkc, \
+                alpha, ls, stream
+  if constexpr (!W8) return launch_splitk<64, false, true, false>(BA_ARGS);
+  return G > 1 ? launch_splitk<64, true, true, true>(BA_ARGS)
+               : launch_splitk<64, false, true, true>(BA_ARGS);
+#undef BA_ARGS
 }
 
 }  // namespace
@@ -1352,12 +1389,28 @@ int tt_linear_bf16(const void* x, const void* w, const void* a,
 #undef K1_ARGS
 }
 
-// Per-row A: x (M, K), a (M, K, r); M <= 64.
+// K2, per-row A: x (M, K), w (K, N), a (M, K, r), b (r, N) contiguous,
+// M <= 64. variant 1: the pre-pass, then the split-K `wgmma` kernel over
+// `splits` <= 8 slices of K, one cluster a tile (r <= 64, K % 8 == 0,
+// N % 8 == 0, 16-byte aligned x, w and a; ws an f32 workspace of
+// M · ceil(K / 256) · r floats); 2: the template kernel (vec: its
+// 16-byte copy flags).
 int tt_linear_batched_a_bf16(const void* x, const void* w, const void* a,
                              const void* b, void* y, int M, int N, int K,
-                             int r, float alpha, int vec, void* stream) {
-  return run_batched_a<WQ_NONE>(x, w, nullptr, a, b, y, M, N, K, r, 0,
-                                alpha, vec, stream);
+                             int r, float alpha, int vec, int variant,
+                             int splits, void* ws, void* stream) {
+  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || r > 256)
+    return (int)cudaErrorInvalidValue;
+  if (variant == 2)
+    return run_batched_a<WQ_NONE>(x, w, nullptr, a, b, y, M, N, K, r, 0,
+                                  alpha, vec, stream);
+  if (variant != 1 || r > RANK_WGMMA || K % 8 != 0 || N % 8 != 0 ||
+      !aligned16(x) || !aligned16(w) || !aligned16(a) || splits < 1 ||
+      splits > QCLUSTER)
+    return (int)cudaErrorInvalidValue;
+  return run_batched_splitk<false>(x, w, nullptr, a, b, y,
+                                   static_cast<float*>(ws), M, N, K, r, 1,
+                                   alpha, splits, stream);
 }
 
 // w8a16 (#9): w int8 (K, N) and scale f32 (G, N) contiguous; G = 1
@@ -1400,10 +1453,10 @@ int tt_linear_w8_bf16(const void* x, const void* w, const void* scale,
 #define W8_ARGS x, w, s, a, b, y, nullptr, M, N, K, r, group, splits, 0, \
                 alpha, ls, stream
   if (r <= 16)
-    return G > 1 ? launch_w8_wgmma<16, true, false>(W8_ARGS)
-                 : launch_w8_wgmma<16, false, false>(W8_ARGS);
-  return G > 1 ? launch_w8_wgmma<64, true, false>(W8_ARGS)
-               : launch_w8_wgmma<64, false, false>(W8_ARGS);
+    return G > 1 ? launch_splitk<16, true, false, true>(W8_ARGS)
+                 : launch_splitk<16, false, false, true>(W8_ARGS);
+  return G > 1 ? launch_splitk<64, true, false, true>(W8_ARGS)
+               : launch_splitk<64, false, false, true>(W8_ARGS);
 #undef W8_ARGS
 }
 
@@ -1435,8 +1488,8 @@ int tt_linear_batched_a_w8_bf16(const void* x, const void* w,
       reinterpret_cast<uintptr_t>(scale) % 8 != 0 ||
       (G > 1 && (K / G) % QBK != 0) || splits < 1 || splits > QCLUSTER)
     return (int)cudaErrorInvalidValue;
-  return run_batched_w8(x, w, s, a, b, y, static_cast<float*>(ws), M, N, K,
-                        r, G, alpha, splits, stream);
+  return run_batched_splitk<true>(x, w, s, a, b, y, static_cast<float*>(ws),
+                                 M, N, K, r, G, alpha, splits, stream);
 }
 
 }  // extern "C"

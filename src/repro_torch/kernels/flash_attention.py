@@ -11,8 +11,10 @@ rebuilding p = exp(s − lse) tile by tile; dk/dv come back in the KV-head
 layout, the GQA group summed in f32 inside the kernel — replaces the two
 ``pallas_call``s of ``flash_attention_bwd``.
 K4 ``decode_attention``: one query per (slot, head) against the dense
-(B, S, KV, d) cache, cells 0..pos[b] — replaces
-``src/repro/kernels/flash_attention.py::decode_attention``.
+(B, S, KV, d) cache, cells 0..min(pos[b], S - 1) — replaces
+``src/repro/kernels/flash_attention.py::decode_attention``. It runs #8's
+tensor-core kernel over the dense cache (``csrc/paged_attention.cu``,
+``paged_attention.decode_path`` / ``launch_dense``).
 
 A CPU tensor runs the plain version (``kernels/ref.py``, through the
 layout shims below). A CUDA tensor launches the kernel (bf16, head_dim
@@ -99,8 +101,6 @@ _I = ctypes.c_int
 _ARGTYPES = {
     # q k v o lse, B T S H KV d causal variant, strides, stream
     "flash_attention_bf16": [_P] * 5 + [_I] * 8 + [_P, _P],
-    # q k v pos o, B S H KV d, strides, stream
-    "decode_attention_bf16": [_P] * 5 + [_I] * 5 + [_P, _P],
     # q k v o g lse delta dq, B T S H KV d causal, strides, stream
     "flash_attention_bwd_dq_bf16": [_P] * 8 + [_I] * 7 + [_P, _P],
     # q k v g lse delta dk dv, B T S H KV d causal, strides, stream
@@ -289,13 +289,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             f"decode_attention: CUDA kernel built for GQA groups "
             f"{GROUPS}; got {h // kv}")
+    # paged_attention imports this module: import it at call time
+    from repro_torch.kernels import paged_attention as _pa
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    st = _strides(q, k, v, o)
-    rc = _fn("decode_attention_bf16")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), b, s, h, kv, d, ctypes.cast(st, ctypes.c_void_p),
-        _build.stream_ptr(q))
-    _build.check(rc, "decode_attention")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    _, split = _pa.decode_path(b, h, kv, s, sms)
+    _build.check(_pa.launch_dense(q, k, v, pos, o, split), "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return o

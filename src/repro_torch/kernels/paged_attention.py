@@ -1,4 +1,5 @@
-"""Paged attention kernel (``csrc/paged_attention.cu``).
+"""Paged attention kernel (``csrc/paged_attention.cu``), which also runs
+K4, the dense-cache decode attention of ``flash_attention.py``.
 
 #8 ``paged_decode_attention``: C query tokens per slot against flat
 (N, page, KV, d) K/V block pools through a (B, P) block table; query c of
@@ -20,7 +21,10 @@ one block: #8 ``mma.sync`` below 64 rows, ``wgmma`` from 64; #8q
 ``mma.sync`` in slabs of at most 64 rows, its int8 tiles widened exactly
 to bf16 in shared memory and p·s_v fed as a bf16 hi + lo pair; where the
 blocks leave the card under-filled each window is split into chunks
-merged in a fixed order (``paged_path``).
+merged in a fixed order (``paged_path``). K4
+(``flash_attention.decode_attention``) runs the fp leg at C = 1 over the
+dense (B, S, KV, d) cache, with no table (``decode_path``,
+``launch_dense``).
 ``LAUNCHES`` counts the launches, and nothing else adds to it. The kernel is serving-only: an
 input that requires grad while autograd records raises.
 """
@@ -66,6 +70,9 @@ def _fn(name: str):
         # q k v k_scale v_scale tables pos o, B C H KV d N page P, strides,
         # split, ws, cnt, stream
         f.argtypes = [p] * 8 + [i] * 8 + [p, i, p, p, p]
+    elif name == "dense_decode_attention_bf16":
+        # q k v pos o, B S H KV d, strides, split, ws, cnt, stream
+        f.argtypes = [p] * 5 + [i] * 5 + [p, i, p, p, p]
     else:
         # q k v tables pos o, B C H KV d N page P, strides, split, ws, cnt,
         # stream
@@ -93,11 +100,25 @@ def paged_path(b: int, c: int, h: int, kv: int, p_tab: int, page: int,
     rows = c * (h // kv)
     mode = "mma" if quantized or rows < 64 else "wgmma"
     blocks = b * kv * -(-rows // slab_rows(c, h // kv, quantized))
-    tiles = -(-p_tab * page // TILE_CELLS)
+    return mode, _chunk_tiles(blocks, -(-p_tab * page // TILE_CELLS), sms)
+
+
+def decode_path(b: int, h: int, kv: int, s: int, sms: int) -> tuple:
+    """How K4 runs on #8's kernel: ``("mma", split)`` — one block a (slot,
+    kv head) holds the G = H / KV query rows on ``mma.sync``, and windows
+    of the S-cell dense cache split into chunks of ``split`` 64-cell tiles
+    by ``paged_path``'s rule (0: one block a window)."""
+    return "mma", _chunk_tiles(b * kv, -(-s // TILE_CELLS), sms)
+
+
+def _chunk_tiles(blocks: int, tiles: int, sms: int) -> int:
+    """Tiles of 64 cells a chunk when ``blocks`` blocks of windows of up
+    to ``tiles`` tiles would leave the card under-filled (fewer than two
+    on each of ``sms`` SMs): about four blocks an SM; else 0."""
     if blocks >= 2 * sms or tiles < 2:
-        return mode, 0
+        return 0
     split = -(-tiles // -(-4 * sms // blocks))
-    return mode, (split if split < tiles else 0)
+    return split if split < tiles else 0
 
 
 def _check_shapes(q, k_cache, v_cache, tables, pos, what: str) -> tuple:
@@ -176,6 +197,27 @@ def _launch_tc(q, k_cache, v_cache, tables, pos, o, n: int, page: int, st,
                else "paged_attention_int8")(
         *head, tables.data_ptr(), pos.data_ptr(), o.data_ptr(), b, c, h, kv,
         d, n, page, p_tab, ctypes.cast(st, ctypes.c_void_p), split,
+        None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), _build.stream_ptr(q))
+
+
+def launch_dense(q, k, v, pos, o, split: int) -> int:
+    """K4 on checked CUDA operands (q, o (B, H, d); k, v (B, S, KV, d)
+    read through their strides; pos (B,) int32) with ``split`` tiles a
+    chunk (0: one block a window); returns the launch's cudaError. A split
+    run takes the workspace and counters as ``_launch_tc``'s."""
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    ws = cnt = None
+    if split:
+        chunks = -(-s // (TILE_CELLS * split))
+        ws = torch.empty(b * kv * chunks * 128 * (d // 2 + 4),
+                         dtype=torch.float32, device=q.device)
+        cnt = _build.counters(q.device, b * kv)
+    st = _fa._strides(q, k, v, o)
+    return _fn("dense_decode_attention_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        o.data_ptr(), b, s, h, kv, d, ctypes.cast(st, ctypes.c_void_p), split,
         None if ws is None else ws.data_ptr(),
         None if cnt is None else cnt.data_ptr(), _build.stream_ptr(q))
 

@@ -20,13 +20,14 @@ wrappers make plain outputs with no ``grad_fn``: an input that requires
 grad while autograd records raises.
 
 K1 has two CUDA kernels (``k1_variant``): the `wgmma` kernel for ranks
-up to ``RANK_WGMMA``, and above it the template kernel that K2 runs,
-which takes contiguous W, A and B (the wrapper copies them there). #9
-and #10 share their own `wgmma` kernel for ranks up to ``RANK_WGMMA`` on
+up to ``RANK_WGMMA``, and above it the template kernel, which takes
+contiguous W, A and B (the wrapper copies them there). K2, #9 and #10
+share a split-K `wgmma` kernel for ranks up to ``RANK_WGMMA`` on
 operands that take 16-byte copies, over ``w8_splits`` slices of K (#9:
-``w8_path``; #10, whose per-row adapter term P[m] = x[m]·A[m] a pre-pass
-kernel sums first: ``bw8_path``); else the template kernel. K2 and #10
-take at most 64 rows a launch; ``ops.py`` splits larger M.
+``w8_path``; K2 and #10, whose per-row adapter term P[m] = x[m]·A[m] a
+pre-pass kernel sums first: ``ba_path`` and ``bw8_path``); else the
+template kernel. K2 and #10 take at most 64 rows a launch; ``ops.py``
+splits larger M.
 """
 from __future__ import annotations
 
@@ -50,8 +51,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # x w a b y, M N K r, alpha, strides (w, a, b), variant, stream
     "tt_linear_bf16": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _P],
-    # x w a b y, M N K r, alpha, vec, stream
-    "tt_linear_batched_a_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # x w a b y, M N K r, alpha, vec, variant, splits, ws, stream
+    "tt_linear_batched_a_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P,
+                                                       _P],
     # x w scale a b y, M N K r G, alpha, strides (a, b), variant, splits,
     # stream
     "tt_linear_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _I, _P],
@@ -65,12 +67,14 @@ K1_VARIANTS = {"wgmma": 1, "template": 2}
 RANK_WGMMA = 64
 #: rows a K2 / #10 launch takes
 BATCHED_A_ROWS = 64
-#: #9's and #10's CUDA kernels: the `wgmma` kernel and the template kernel
+#: K2's, #9's and #10's CUDA kernels: the split-K `wgmma` kernel and the
+#: template kernel
 W8_VARIANTS = {"wgmma": 1, "template": 2}
-#: the `wgmma` #9 kernel's output tile, K tile, and most slices of K (the
+#: the split-K kernel's output tile, K tile, and most slices of K (the
 #: slices of a tile are one thread-block cluster of at most 8)
 W8_TILE, W8_BK, W8_MAX_SPLITS = 64, 64, 8
-#: K rows a partial sum of #10's pre-pass (P[m] = x[m]·A[m]) covers
+#: K rows a partial sum of K2's and #10's pre-pass (P[m] = x[m]·A[m])
+#: covers
 PRE_K = 256
 
 
@@ -116,18 +120,30 @@ def w8_path(x, wq, scale, r: int) -> tuple:
     return "template", 1
 
 
-def bw8_plan(m: int, n: int, k: int, r: int, vec: bool, sms: int) -> tuple:
-    """#10's CUDA kernel and slices of K for operands of these sizes:
-    ``("wgmma", w8_splits(...))`` (#9's kernel after a pre-pass that sums
-    P[m] = x[m]·A[m]) for ranks up to ``RANK_WGMMA`` on operands that take
-    16-byte copies (``vec``), else ``("template", 1)``."""
+def ba_plan(m: int, n: int, k: int, r: int, vec: bool, sms: int) -> tuple:
+    """K2's (and #10's) CUDA kernel and slices of K for operands of these
+    sizes: ``("wgmma", w8_splits(...))`` (the split-K kernel after a
+    pre-pass that sums P[m] = x[m]·A[m]) for ranks up to ``RANK_WGMMA`` on
+    operands that take 16-byte copies (``vec``), else ``("template",
+    1)``."""
     if not vec or r > RANK_WGMMA:
         return "template", 1
     return "wgmma", w8_splits(m, n, k, sms)
 
 
+def ba_path(x, w, a, r: int) -> tuple:
+    """``ba_plan`` on K2's operands: the `wgmma` kernel needs K % 8 == 0,
+    N % 8 == 0 and 16-byte aligned x, W and A."""
+    m, k = x.shape
+    n = w.shape[1]
+    vec = (k % 8 == 0 and n % 8 == 0 and x.data_ptr() % 16 == 0
+           and w.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return ba_plan(m, n, k, r, vec, sms)
+
+
 def bw8_path(x, wq, scale, a, r: int) -> tuple:
-    """``bw8_plan`` on these operands: the `wgmma` kernel needs K % 8 == 0,
+    """``ba_plan`` on #10's operands: the `wgmma` kernel needs K % 8 == 0,
     N % 16 == 0, 16-byte aligned x, W and A and 8-byte aligned scales."""
     m, k = x.shape
     n = wq.shape[1]
@@ -135,7 +151,7 @@ def bw8_path(x, wq, scale, a, r: int) -> tuple:
            and wq.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0
            and scale.data_ptr() % 8 == 0)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return bw8_plan(m, n, k, r, vec, sms)
+    return ba_plan(m, n, k, r, vec, sms)
 
 
 def _check_cuda(x, w, a, b, what: str, w_dtype=torch.bfloat16) -> None:
@@ -225,22 +241,42 @@ def _launch_w8_shared_a(x, wq, scale, a, b, y, g: int, alpha,
         _build.stream_ptr(x))
 
 
+def _pre_pass_ws(x, r: int, variant: str):
+    """The f32 workspace of the pre-pass's partial P sums (`wgmma` path
+    of K2 and #10), or None."""
+    if variant != "wgmma":
+        return None
+    m, k = x.shape
+    return torch.empty(m * -(-k // PRE_K) * r, dtype=torch.float32,
+                       device=x.device)
+
+
 def _launch_w8_batched_a(x, wq, scale, a, b, y, g: int, alpha,
                          variant: str, splits: int) -> int:
     """#10 on contiguous CUDA operands through the named kernel (see
-    ``bw8_plan``); returns the launch's cudaError. The `wgmma` kernel's
-    pre-pass writes its partial P sums to an f32 workspace."""
+    ``bw8_path``); returns the launch's cudaError."""
     m, k = x.shape
     n, r = wq.shape[1], a.shape[2]
-    ws = None
-    if variant == "wgmma":
-        ws = torch.empty(m * -(-k // PRE_K) * r, dtype=torch.float32,
-                         device=x.device)
+    ws = _pre_pass_ws(x, r, variant)
     return _fn("tt_linear_batched_a_w8_bf16")(
         x.data_ptr(), wq.data_ptr(), scale.data_ptr(), a.data_ptr(),
         b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
         _vec_flags(x, wq, a, k, n, r), W8_VARIANTS[variant], splits,
         None if ws is None else ws.data_ptr(), _build.stream_ptr(x))
+
+
+def _launch_batched_a(x, w, a, b, y, alpha, variant: str,
+                      splits: int) -> int:
+    """K2 on contiguous CUDA operands through the named kernel (see
+    ``ba_plan``); returns the launch's cudaError."""
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[2]
+    ws = _pre_pass_ws(x, r, variant)
+    return _fn("tt_linear_batched_a_bf16")(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+        y.data_ptr(), m, n, k, r, float(alpha), _vec_flags(x, w, a, k, n, r),
+        W8_VARIANTS[variant], splits, None if ws is None else ws.data_ptr(),
+        _build.stream_ptr(x))
 
 
 def _launch_k1(x, w, a, b, alpha, variant: str) -> torch.Tensor:
@@ -303,10 +339,7 @@ def tt_linear_batched_a(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                          f"1..{BATCHED_A_ROWS} or rank {r} outside 1..256")
     x, w, a, b = (t.contiguous() for t in (x, w, a, b))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    rc = _fn("tt_linear_batched_a_bf16")(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-        y.data_ptr(), m, n, k, r, float(alpha), _vec_flags(x, w, a, k, n, r),
-        _build.stream_ptr(x))
+    rc = _launch_batched_a(x, w, a, b, y, alpha, *ba_path(x, w, a, r))
     _build.check(rc, "tt_linear_batched_a")
     LAUNCHES["tt_linear_batched_a"] += 1
     return y

@@ -72,6 +72,62 @@ def test_tt_linear_batched_a(dev, m, k, n, r):
            ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0), 1e-2)
 
 
+def _ba_case(dev, m, k, n, r):
+    x, w = _rn(dev, m, k), _rn(dev, k, n, scale=k ** -0.5)
+    a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    return x, w, a, b
+
+
+def _ba_launch(x, w, a, b, variant, splits):
+    y = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype, device=x.device)
+    ttl._build.check(ttl._launch_batched_a(x, w, a, b, y, 2.0, variant,
+                                           splits), "tt_linear_batched_a")
+    return y
+
+
+@pytest.mark.parametrize("r", [1, 8, 16, 64])
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 33, 64])
+def test_tt_linear_batched_a_wgmma(dev, m, r):
+    """K2 on the split-K `wgmma` kernel (the pre-pass summing P[m] =
+    x[m]·A[m], then the kernel with a bf16 W) at every M a launch takes
+    and ranks up to ``RANK_WGMMA``: within 1e-2 of the plain version, two
+    calls bit-identical."""
+    x, w, a, b = _ba_case(dev, m, 512, 192, r)
+    assert ttl.ba_path(x, w, a, r)[0] == "wgmma"
+    got = ttl.tt_linear_batched_a(x, w, a, b, 2.0)
+    assert got.shape == (m, 192) and got.dtype == torch.bfloat16
+    _close(got, ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0), 1e-2)
+    assert torch.equal(ttl.tt_linear_batched_a(x, w, a, b, 2.0), got)
+
+
+@pytest.mark.parametrize("m,k,n,r", [(4, 200, 136, 8), (5, 72, 40, 3),
+                                     (33, 1000, 520, 16), (64, 136, 72, 64),
+                                     (2, 8, 8, 1)])
+def test_tt_linear_batched_a_every_variant(dev, m, k, n, r):
+    """K and N ragged against the 64-wide tiles (multiples of 8, so the
+    `wgmma` path still takes them): both kernels on the same inputs,
+    each within 1e-2 of the plain version."""
+    x, w, a, b = _ba_case(dev, m, k, n, r)
+    assert ttl.ba_path(x, w, a, r)[0] == "wgmma"
+    want = ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = ttl.w8_splits(m, n, k, sms)
+    for variant, sp in (("wgmma", splits), ("template", 1)):
+        _close(_ba_launch(x, w, a, b, variant, sp), want, 1e-2)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,r", [(4, 8), (16, 16), (64, 8), (33, 3)])
+def test_tt_linear_batched_a_slices_of_k(dev, m, r, splits):
+    """K2's `wgmma` kernel over 1 to 8 slices of K at K = N = 2048:
+    within 1e-2 of the plain version, two calls bit-identical
+    (fixed-order sums over the cluster, no float atomics)."""
+    x, w, a, b = _ba_case(dev, m, 2048, 2048, r)
+    ys = [_ba_launch(x, w, a, b, "wgmma", splits) for _ in range(2)]
+    _close(ys[0], ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0), 1e-2)
+    assert torch.equal(ys[0], ys[1])
+
+
 @pytest.mark.parametrize("b,t,s,h,kv,d,causal", [
     (2, 70, 70, 8, 2, 64, True), (1, 33, 100, 4, 4, 128, False),
     (3, 5, 5, 4, 1, 64, True), (1, 300, 300, 2, 2, 64, True)])
@@ -89,6 +145,73 @@ def test_decode_attention(dev, g, d):
     pos = torch.tensor([0, 1, 150, 298, 299], dtype=torch.int32, device=dev)
     _close(tfa.decode_attention(q, k, v, pos),
            tfa.decode_attention_plain(q, k, v, pos), 2e-2)
+
+
+def _dense_launch(q, k, v, pos, split):
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    tpa._build.check(tpa.launch_dense(q, k, v, pos, o, split),
+                     "decode_attention")
+    return o
+
+
+@pytest.mark.parametrize("split", [0, 1, 2, 3])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_attention_edges_and_splits(dev, d, g, split):
+    """K4 on #8's kernel over a 300-cell cache (not a multiple of 64):
+    windows of one cell (pos 0, exactly v[0]), of the whole cache (S - 1)
+    and past it (pos >= S: clamped to S - 1), split into chunks of
+    ``split`` tiles or not; within 2e-2 of the plain version, two calls
+    bit-identical."""
+    b, s, kv = 5, 300, 2
+    q, k, v = (_rn(dev, b, kv * g, d), _rn(dev, b, s, kv, d, seed=1),
+               _rn(dev, b, s, kv, d, seed=2))
+    pos = torch.tensor([0, 63, s - 1, s, 5 * s], dtype=torch.int32,
+                       device=dev)
+    got = _dense_launch(q, k, v, pos, split)
+    _close(got, tfa.decode_attention_plain(q, k, v, pos), 2e-2)
+    assert torch.equal(got[0], v[0, 0].repeat_interleave(g, 0))
+    assert torch.equal(_dense_launch(q, k, v, pos, split), got)
+
+
+@pytest.mark.parametrize("kv", [32, 8])
+def test_decode_attention_long_cache(dev, kv):
+    """K4 over a 4096-cell cache at the launcher's split (``decode_path``)
+    and unsplit: both within 2e-2 of the plain version and bit-identical
+    from call to call."""
+    b, s, h, d = 4, 4096, 32, 64
+    q, k, v = (_rn(dev, b, h, d), _rn(dev, b, s, kv, d, seed=1),
+               _rn(dev, b, s, kv, d, seed=2))
+    pos = torch.tensor([511, 1500, 3000, 4095], dtype=torch.int32,
+                       device=dev)
+    want = tfa.decode_attention_plain(q, k, v, pos)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, split = tpa.decode_path(b, h, kv, s, sms)
+    assert split > 0
+    for sp in (0, split):
+        got = _dense_launch(q, k, v, pos, sp)
+        _close(got, want, 2e-2)
+        assert torch.equal(_dense_launch(q, k, v, pos, sp), got)
+    kernels.reset_launch_counts()
+    _close(tfa.decode_attention(q, k, v, pos), want, 2e-2)
+    assert kernels.launch_counts()["decode_attention"] == 1
+
+
+def test_decode_attention_reads_views(dev):
+    """q as a view into a wider projection output and k / v as views of a
+    longer stacked cache (the engine passes cache views): read through
+    their strides, no copy; the same result as on contiguous copies."""
+    b, s, kv, g, d = 4, 200, 4, 2, 64
+    wide = _rn(dev, b, kv * g + 6, d, seed=3)
+    q = wide[:, 3:3 + kv * g]
+    stack = _rn(dev, 2, b, s + 40, kv, d, seed=4)
+    k, v = stack[0, :, :s], stack[1, :, :s]
+    pos = torch.tensor([0, 37, 130, 199], dtype=torch.int32, device=dev)
+    got = tfa.decode_attention(q, k, v, pos)
+    want = tfa.decode_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), pos)
+    assert torch.equal(got, want)
+    _close(got, tfa.decode_attention_plain(q, k, v, pos), 2e-2)
 
 
 ATTN_SHAPES = [(2, 70, 70, 8, 2, 64, True), (1, 33, 100, 4, 4, 128, False),

@@ -1,9 +1,13 @@
-"""Host-side choices of the int8 kernels' launchers, on the CPU.
+"""Host-side choices of the kernels' launchers, on the CPU.
 
-- ``tt_linear.bw8_plan``: #10's kernel (the `wgmma` kernel after a
-  pre-pass that sums its adapter term P[m] = x[m]·A[m], or the template
-  kernel where the operands cannot take 16-byte copies or the rank passes
-  ``RANK_WGMMA``) and over how many slices of K.
+- ``tt_linear.ba_plan``: K2's and #10's kernel (the split-K `wgmma`
+  kernel after a pre-pass that sums the adapter term P[m] = x[m]·A[m],
+  or the template kernel where the operands cannot take 16-byte copies or
+  the rank passes ``RANK_WGMMA``) and over how many slices of K;
+  ``ba_path`` on K2's operands themselves.
+- ``paged_attention.decode_path``: K4 on #8's kernel over the dense
+  cache, with windows split into chunks where the blocks leave the card
+  under-filled.
 - ``paged_attention.paged_path`` with ``quantized=True``: #8q runs
   ``mma.sync`` in slabs of at most 64 rows, and splits windows into
   chunks where the blocks leave the card under-filled.
@@ -11,9 +15,49 @@
 The kernels themselves run on the card (``tests/test_torch_cuda.py``).
 """
 import pytest
+import torch
 
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import tt_linear as ttl
+
+
+@pytest.mark.parametrize("m,k,n,r,offset,want", [
+    (4, 2048, 2048, 8, 0, "wgmma"),
+    (4, 2048, 2048, 64, 0, "wgmma"),
+    (4, 2048, 2048, 65, 0, "template"),    # rank above RANK_WGMMA
+    (4, 2048, 136, 8, 0, "wgmma"),         # N % 8 == 0 (bf16 W)
+    (4, 2048, 130, 8, 0, "template"),      # N % 8 != 0
+    (4, 2044, 2048, 8, 0, "template"),     # K % 8 != 0
+    (4, 2048, 2048, 8, 1, "template"),     # x not 16-byte aligned
+])
+def test_ba_path_reads_the_operands(monkeypatch, m, k, n, r, offset, want):
+    """``ba_path`` on real tensors: K % 8, N % 8 and 16-byte aligned x, W
+    and A decide the vector path (the card's SM count is stubbed)."""
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda dev: type("Props", (), {"multi_processor_count": 132}))
+    x = torch.zeros(m * k + offset, dtype=torch.bfloat16)[offset:]
+    w = torch.zeros(k, n, dtype=torch.bfloat16)
+    a = torch.zeros(m, k, r, dtype=torch.bfloat16)
+    assert ttl.ba_path(x.view(m, k), w, a, r)[0] == want
+
+
+@pytest.mark.parametrize("b,h,kv,s,want", [
+    (4, 32, 32, 256, ("mma", 1)),      # the dense engine: 4 one-tile chunks
+    (4, 32, 32, 4096, ("mma", 13)),    # a long cache: 5 chunks a window
+    (4, 32, 8, 256, ("mma", 1)),       # G = 4: 32 blocks
+    (1, 8, 1, 4096, ("mma", 1)),       # one block, 64 tiles: 1 a chunk
+    (72, 32, 32, 256, ("mma", 0)),     # 2304 blocks fill the card
+    (4, 32, 32, 64, ("mma", 0)),       # a one-tile cache
+    (4, 32, 32, 40, ("mma", 0)),       # shorter than a tile
+])
+def test_decode_path_splits_where_the_card_is_under_filled(b, h, kv, s,
+                                                           want):
+    """K4 on 132 SMs: ``mma.sync`` with the G query rows of a (slot, kv
+    head) a block; windows split into chunks of ``split`` 64-cell tiles
+    (about four blocks an SM) only where B·KV blocks leave the card with
+    fewer than two an SM, and never on a one-tile cache."""
+    assert tpa.decode_path(b, h, kv, s, sms=132) == want
 
 
 @pytest.mark.parametrize("m,n,k,r,vec,want", [
@@ -32,19 +76,20 @@ from repro_torch.kernels import tt_linear as ttl
     (64, 4096, 2048, 8, True, ("wgmma", 4)),      # 64 channel tiles
 ])
 def test_bw8_plan_picks_the_kernel_and_the_slices(m, n, k, r, vec, want):
-    """#10 on 132 SMs: the template kernel only where the `wgmma` kernel
-    cannot take the operands (rank above ``RANK_WGMMA``, N % 16 != 0 or
-    an operand that cannot take 16-byte copies); the slices of K are
-    #9's (``w8_splits``: a block on every SM, each slice at least two K
-    tiles, at most eight)."""
-    assert ttl.bw8_plan(m, n, k, r, vec, sms=132) == want
+    """#10 and K2 on 132 SMs (``ba_plan``): the template kernel only
+    where the `wgmma` kernel cannot take the operands (rank above
+    ``RANK_WGMMA``, N % 16 != 0 for an int8 W, an operand that cannot take
+    16-byte copies); the slices of K are #9's (``w8_splits``: a block on
+    every SM, each slice at least two K tiles, at most eight)."""
+    assert ttl.ba_plan(m, n, k, r, vec, sms=132) == want
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (64, 2048, 2048),
-                                   (3, 384, 130)])
+                                   (3, 384, 130), (17, 512, 200)])
 def test_bw8_plan_slices_equal_w8_splits(m, k, n):
-    """#10's `wgmma` path slices K as #9's does at the same shape."""
-    assert ttl.bw8_plan(m, n, k, 8, True, sms=132)[1] == ttl.w8_splits(
+    """K2's and #10's `wgmma` path slices K as #9's does at the same
+    shape."""
+    assert ttl.ba_plan(m, n, k, 8, True, sms=132)[1] == ttl.w8_splits(
         m, n, k, sms=132)
 
 
