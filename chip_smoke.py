@@ -18,7 +18,9 @@ Phases, each printed on its own lines:
      never calls it); where a launcher chooses among kernels or splits
      (K1, the flash forward, K2's, #9's and #10's slices of K, #8's
      product and K4's, #8's and #8q's window chunks), which one ran and
-     every variant's time; K2 and #10 at M = 4, 8, 16 and 64, K4 at 256
+     every variant's time; K1 at ranks 256, 512 and 1024 at M = 64 and
+     at the training shape as forward and dx; K2 and #10 at M = 4, 8, 16
+     and 64, K4 at 256
      and 4096 cells, #9 at M = 16, 64, 128 and 256 and #8 / #8q at C = 1
      and 32 must agree bit for bit across two calls;
      #8q's error beside that of p cut to bf16; K2 and #10 at 72 decode
@@ -58,7 +60,20 @@ Phases, each printed on its own lines:
      around ``train``, exactly 142 / 48 / 24 / 24 a step; then a gradient
      check at B=1 against the plain bf16 leg with an f32 plain leg as
      witness;
-  7. one JSON line with every kernel's record (launches per path).
+  7. adapters and checkpoints on the same full-width model: (a) LoRA r=8,
+     VeRA r=1024 (K1's pre-pass variant), LoTR r=64 and MetaTT-5d r=8,
+     3 Trainer steps each on one shared base (finite losses, ΔW moved off
+     0, K1 142 / #5 48 / #6 24 / #7 24 launches a step), and gradient
+     checks for VeRA and LoRA; (b) phase 6's run checkpointed every 3
+     steps, failed at step 5 and resumed by a new Trainer (step 3, ranks
+     8, the sweep not replayed), its cores within 1e-3 of phase 6's;
+     (c) the dense engine under the live, lora and merged (task 1)
+     runtimes (launch counts per prefill and decode step; lora / merged
+     prefill logits vs live under a mild adapter within 5%; the merged
+     engine rejects task 0; tok/s and decode ms a step), and the paged
+     engine under the lora runtime; (d) phase 5's int8 dense engine saves
+     its base, a second engine loads it and gives the same tokens;
+  8. one JSON line with every kernel's record (launches per path).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -253,6 +268,61 @@ def k1_rows(dev, rn):
     return rows
 
 
+K1_RANKS = (256, 512, 1024)
+
+
+def k1_rank_rows(dev, rn):
+    """K1 above rank 64 (the pre-pass variant), at ranks 256, 512 and
+    1024 (VeRA's in the paper's Table 1): at M = 64 and at the training
+    shape M = 4096, K = N = 2048, as the forward (A K-contiguous, as the
+    model folds MetaTT and LoTR) and as the backward's dx on the
+    transposed views the backward passes. Each against its plain version
+    at the linears' tolerance, with its bound and one library call
+    (x·W + α·(x·A)·B in three ``torch.matmul``)."""
+    import torch
+    from repro_torch.kernels import tt_linear as tl
+    rows = []
+    alpha = 4.0
+    k = n = 2048
+    for r in K1_RANKS:
+        for m, role in ((64, "forward"), (4096, "forward"), (4096, "dx")):
+            def make():
+                x = rn(m, k)
+                w, a = rn(k, n, scale=k ** -0.5), rn(r, k, scale=k ** -0.5).T
+                b = rn(r, n, scale=r ** -0.5)
+                if role == "dx":   # g·Wᵀ + α·(g·Bᵀ)·Aᵀ, as _FusedTTLinear
+                    return x, w.T, b.T, a.T
+                return x, w, a, b
+            nbytes = 2 * (m * k + k * n + k * r + r * n + m * n)
+            sets = copies(make, nbytes) if m == 64 else [make()]
+            ops_ = sets[0]
+            err = compare("tt_linear", tl.tt_linear(*ops_, alpha),
+                          tl.tt_linear_plain(*ops_, alpha))
+            flops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
+            bms, by = bound_ms(nbytes, flops)
+            ms = cuda_time_ms(lambda *t: tl.tt_linear(*t, alpha), sets)
+            row = dict(
+                name="tt_linear", rank_row=True, main=False,
+                shape=f"{role} M={m} K={k} N={n} r={r}", max_abs_err=err,
+                ms=ms, plain_ms=event_time_ms(
+                    lambda: tl.tt_linear_plain(*ops_, alpha), (), iters=10),
+                library_ms=cuda_time_ms(
+                    lambda x_, w_, a_, b_: torch.matmul(x_, w_) + alpha
+                    * torch.matmul(torch.matmul(x_, a_), b_), sets),
+                bound_ms=bms, bound_by=by, variant=tl.k1_variant(r),
+                variants={tl.k1_variant(r): ms})
+            row["tflops"] = flops / row["ms"] / 1e9
+            print(f"[kernel] K1 r={r} {role} M={m}: err {err:.3e}; "
+                  f"{row['ms']:.4f} ms = {row['tflops']:.1f} TFLOP/s, "
+                  f"{bms / row['ms']:.1%} of its bound ({by}); / "
+                  f"torch.matmul {row['ms'] / row['library_ms']:.3f}x; "
+                  f"plain {row['plain_ms']:.4f} ms", flush=True)
+            rows.append(row)
+            del sets, ops_
+        torch.cuda.empty_cache()
+    return rows
+
+
 def k3_rows(dev, rn):
     """K3 at prefill attention, causal, T == S (bucketed prompt); every
     variant of the forward kernel timed, the launcher's choice printed."""
@@ -421,7 +491,8 @@ def phase_kernels(dev, only=None):
         return (torch.randn(*shape, generator=gen, device=dev) * scale
                 ).to(bf)
 
-    groups = ((("tt_linear",), k1_rows), (("tt_linear_batched_a",), k2_rows),
+    groups = ((("tt_linear",), k1_rows), (("tt_linear",), k1_rank_rows),
+              (("tt_linear_batched_a",), k2_rows),
               (("flash_attention",), k3_rows), (("decode_attention",), k4_rows),
               (("paged_decode_attention",), paged_kernel_rows),
               (("tt_linear_w8", "tt_linear_batched_a_w8"), w8_kernel_rows),
@@ -1645,20 +1716,27 @@ def cosine(a, b):
     return float(a @ b / (a.norm() * b.norm()))
 
 
-def grad_check(cfg, spec, base, gen, tokens, dev):
-    """Loss and core gradients at B=1, T=1024 under a mild random adapter
-    (as phase 3's), in three legs on the same weights: kernels (bf16), the
-    plain versions (bf16, ``KernelConfig(backend="ref")``) and the plain
-    versions in f32 as the witness. Asserts the loss within 1e-2 of the
-    plain bf16 leg and each core's gradient no farther from the f32 leg
-    than twice the plain bf16 leg's distance + 5e-2 (relative Frobenius)."""
+def grad_check(cfg, spec, base, gen, tokens, dev, adapter=None,
+               frozen=None, tag="train"):
+    """Loss and adapter gradients at B=1, T=1024 under a mild adapter (by
+    default random MetaTT cores, as phase 3's mild adapter), in three legs
+    on the same weights: kernels (bf16), the plain versions (bf16,
+    ``KernelConfig(backend="ref")``) and the plain versions in f32 as the
+    witness. Asserts the loss within 1e-2 of the plain bf16 leg and each
+    leaf's gradient no farther from the f32 leg than twice the plain bf16
+    leg's distance + 5e-2 (relative Frobenius)."""
     import torch
     from repro_torch.core import tt as ttlib
     from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
     from repro_torch.tree import tree_map
-    cores = ttlib.random_tt(gen, spec.cfg.mode_sizes, 8, scale=0.12,
-                            device=dev)
+    if adapter is None:
+        adapter = {"cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 8,
+                                            scale=0.12, device=dev)}
+    frozen = frozen or {}
+    names = [f"{k}/{i}" if isinstance(v, list) else k
+             for k, v in adapter.items()
+             for i in (range(len(v)) if isinstance(v, list) else [0])]
     cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
                                 compute_dtype=torch.float32)
     base32 = tree_map(lambda t: t.float(), base)
@@ -1668,30 +1746,31 @@ def grad_check(cfg, spec, base, gen, tokens, dev):
     for name, c, b, pol in (("kernel", cfg, base, dispatch.DEFAULT),
                             ("plain", cfg, base, dispatch.REF),
                             ("f32", cfg32, base32, dispatch.REF)):
-        leaves = [x.clone().requires_grad_(True) for x in cores]
-        loss, _ = M.loss_fn({"cores": leaves}, b, {}, batch, c, spec,
-                            policy=pol, device=dev)
-        legs[name] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+        params = tree_map(lambda t: t.clone().requires_grad_(True), adapter)
+        loss, _ = M.loss_fn(params, b, frozen, batch, c, spec, policy=pol,
+                            device=dev)
+        legs[name] = (float(loss.detach()),
+                      torch.autograd.grad(loss, M.tensors(params)))
         del loss
     del base32
     torch.cuda.empty_cache()
     (lk, gk), (lp, gp), (l32, g32) = (legs[n] for n in ("kernel", "plain",
                                                         "f32"))
     rel_loss = abs(lk - lp) / abs(lp)
-    print(f"[train] gradient check B=1 T={tokens.shape[1]}: loss kernel "
+    print(f"[{tag}] gradient check B=1 T={tokens.shape[1]}: loss kernel "
           f"{lk:.6f} plain {lp:.6f} f32 {l32:.6f}; |kernel - plain| / plain "
           f"{rel_loss:.3e} (limit 1e-2)")
     if not rel_loss <= 1e-2:
         raise AssertionError(f"training loss differs from the plain leg: "
                              f"{rel_loss:.3e}")
-    for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
+    for name, a, b, c in zip(names, gk, gp, g32):
         k32, p32 = rel_fro(a, c), rel_fro(b, c)
-        print(f"[train]   core {i} {tuple(a.shape)}: rel err vs f32 kernel "
+        print(f"[{tag}]   {name} {tuple(a.shape)}: rel err vs f32 kernel "
               f"{k32:.3e} plain {p32:.3e} (limit {2 * p32 + 5e-2:.3e}); "
               f"cosine vs f32 kernel {cosine(a, c):.6f} plain "
               f"{cosine(b, c):.6f}; kernel vs plain {cosine(a, b):.6f}")
         if not (torch.isfinite(a).all() and k32 <= 2 * p32 + 5e-2):
-            raise AssertionError(f"core {i} gradient: kernel leg "
+            raise AssertionError(f"{name} gradient: kernel leg "
                                  f"{k32:.3e} from f32, plain {p32:.3e}")
 
 
@@ -1763,6 +1842,8 @@ def phase_training(dev):
                                  f"{steps} steps, not {n} a step")
     step_ms = [round(1e3 * m["step_time_s"], 1) for _, m in tr.history[1:]]
     med = float(np.median(step_ms))
+    # phase 7 resumes this run from a checkpoint and compares its cores
+    final_cores = [c.clone() for c in tr.state.adapter["cores"]]
     print(f"[train] launches during train ({steps} steps): "
           f"{json.dumps(launches)}")
     print(f"[train] losses {[round(float(x), 6) for x in losses]}; median "
@@ -1777,7 +1858,408 @@ def phase_training(dev):
     tokens = torch.as_tensor(next(data)["tokens"][:1], device=dev)
     grad_check(cfg, tr.spec, tr.base, torch.Generator(
         device=dev).manual_seed(SEED + 2), tokens, dev)
+    return launches, final_cores
+
+
+ADAPTER_KINDS = (("lora", "4d", 8), ("vera", "4d", 1024),
+                 ("lotr", "4d", 64), ("metatt", "5d", 8))
+
+
+def delta_norm(spec, adapter, frozen):
+    """||α·A·B|| of layer 0's adapted q projection, folded to lora form:
+    0 at every kind's init."""
+    from repro_torch.peft import api as peft_api
+    bc, pl = peft_api.adapter_factors(spec, adapter, frozen)
+    a, b, alpha = peft_api.lora_form_factors(
+        spec, bc, {k: v[0] for k, v in pl.items()}, "attn_q")
+    return float((alpha * (a.float() @ b.float())).norm())
+
+
+def train_adapters(dev, count):
+    """Phase 7 (a): each adapter kind trained 3 steps through the Trainer
+    on full-width stablelm-1.6b, one base shared by all (q/v, AdamW lr
+    1e-3, remat per block, 4 x 1024 tokens a step). ``count(fn)`` runs
+    ``fn`` between a reset and a read of the launch counters and adds them
+    to the path's."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import OptimizerConfig, RunConfig, \
+        TrainConfig
+    from repro_torch.data import LMStream
+    from repro_torch.kernels import tt_linear as tl
+    from repro_torch.peft import api as peft_api
+    from repro_torch.train import Trainer
+
+    cfg = configs.get_config("stablelm-1.6b")
+    batch, seq, steps = 4, 1024, 3
+    per_step = {"tt_linear": 6 * cfg.num_layers - 2,
+                "flash_attention_fwd": 2 * cfg.num_layers,
+                "flash_attention_bwd_dq": cfg.num_layers,
+                "flash_attention_bwd_dkv": cfg.num_layers}
+    base = None
+    trained = {}
+    for kind, variant, rank in ADAPTER_KINDS:
+        label = f"{kind}-{variant}" if kind == "metatt" else kind
+        run = RunConfig(model=cfg, adapter_kind=kind, adapter_variant=variant,
+                        adapter_rank=rank, optimizer=OptimizerConfig(lr=1e-3),
+                        train=TrainConfig(remat="block", seed=SEED))
+        t0 = time.perf_counter()
+        tr = Trainer(run=run, data=LMStream(
+            vocab_size=cfg.vocab_size, seq_len=seq, batch=batch, seed=0,
+            branching=2), total_steps=steps, device=dev)
+        if base is None:
+            base = tr.base
+        tr.base = base
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        d0 = delta_norm(tr.spec, tr.state.adapter, tr.frozen)
+        bc, pl = peft_api.adapter_factors(tr.spec, tr.state.adapter,
+                                          tr.frozen)
+        fa, fb, _ = peft_api.lora_form_factors(
+            tr.spec, bc, {k: v[0] for k, v in pl.items()}, "attn_q")
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches = count(tr.train)
+        losses = tr.losses()
+        d1 = delta_norm(tr.spec, tr.state.adapter, tr.frozen)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        if not (d0 == 0.0 and d1 > 0.0):
+            raise AssertionError(f"{label}: the adapter did not move from "
+                                 f"ΔW = 0: ||ΔW|| {d0} -> {d1}")
+        for name, n in per_step.items():
+            if launches[name] != n * steps:
+                raise AssertionError(f"{label}: {name} {launches[name]} "
+                                     f"launches in {steps} steps, not {n} "
+                                     "a step")
+        step_ms = [1e3 * m["step_time_s"] for _, m in tr.history]
+        print(f"[adapters] {label} r={rank}: {peft_api.count_trainable(tr.spec, tr.state.adapter)} "
+              f"trainable; init {init_s:.1f}s; K1 ran {tl.k1_variant(rank)} "
+              f"on the folded A {tuple(fa.shape)} strides {fa.stride()} and "
+              f"B strides {fb.stride()}; losses "
+              f"{[round(float(x), 6) for x in losses]}; ||ΔW|| layer 0 q "
+              f"{d0:.3e} -> {d1:.3e}; median step "
+              f"{float(np.median(step_ms)):.1f} ms (steps "
+              f"{[round(x, 1) for x in step_ms]}); max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; "
+              f"launches {json.dumps({k: launches[k] for k in per_step})}",
+              flush=True)
+        trained[kind] = tr
+    # gradient checks at B = 1: VeRA at Table 1's rank 1024 and LoRA, each
+    # under a mild adapter off its zero init
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    tokens = torch.as_tensor(next(LMStream(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch=1, seed=3,
+        branching=2))["tokens"], device=dev)
+    for kind in ("vera", "lora"):
+        tr = trained[kind]
+        ad = {k: v.clone() for k, v in tr.state.adapter.items()}
+        if kind == "vera":
+            ad["d"] += 0.05 * torch.randn(ad["d"].shape, generator=gen,
+                                          device=dev)
+            ad["g"] = 0.1 * torch.randn(ad["g"].shape, generator=gen,
+                                        device=dev)
+        else:
+            ad["b"] = 0.01 * torch.randn(ad["b"].shape, generator=gen,
+                                         device=dev)
+        grad_check(cfg, tr.spec, base, gen, tokens, dev, adapter=ad,
+                   frozen=tr.frozen, tag=f"adapters {kind}")
+    del trained
+    return base
+
+
+def resume_on_the_card(dev, base, uninterrupted, count):
+    """Phase 7 (b): phase 6's MetaTT 4d setting (rank 10 -> 8 at epoch 1,
+    3 steps an epoch, 6 steps) with checkpoints every 3 steps and a
+    failure at step 5, then a new Trainer on the same directory resumes
+    and finishes; its cores are held against phase 6's uninterrupted run
+    within 1e-3 relative Frobenius."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import OptimizerConfig, RunConfig, \
+        TrainConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.core.dmrg import RankSchedule
+    from repro_torch.data import LMStream
+    from repro_torch.distributed import FailureInjector, SimulatedFailure
+    from repro_torch.train import Trainer
+
+    cfg = configs.get_config("stablelm-1.6b")
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    run = RunConfig(model=cfg, adapter_kind="metatt", adapter_variant="4d",
+                    adapter_rank=10, optimizer=OptimizerConfig(lr=1e-3),
+                    train=TrainConfig(remat="block", seed=SEED, ckpt_dir=d,
+                                      ckpt_every=3))
+    saves = []
+
+    def trainer(**kw):
+        tr = Trainer(run=run, data=LMStream(
+            vocab_size=cfg.vocab_size, seq_len=1024, batch=4, seed=0,
+            branching=2), total_steps=6, steps_per_epoch=3,
+            rank_schedule=RankSchedule.linear(10, 8, start_epoch=1, every=1,
+                                              step=2), device=dev, **kw)
+        tr.base = base   # phase 6's base: the same seed drew it
+        save = tr.ckpt.save
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            save(*a, **k)
+            saves.append(time.perf_counter() - t0)
+        tr.ckpt.save = timed
+        return tr
+    try:
+        a = trainer(failure_injector=FailureInjector(fail_at_step=5))
+        failed = []
+
+        def run_a():
+            try:
+                a.train()
+            except SimulatedFailure as e:
+                failed.append(str(e))
+        launches = count(run_a)
+        if not failed:
+            raise AssertionError("the injected failure at step 5 did not "
+                                 "happen")
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d) if f.startswith("ckpt_00000003"))
+        b = trainer()
+        ranks = ttlib.ranks(b.state.adapter["cores"])
+        if not (b.state.step == 3 and ranks == (8, 8, 8)
+                and b._dmrg_applied == [1]):
+            raise AssertionError(f"resumed at step {b.state.step}, ranks "
+                                 f"{ranks}, sweeps {b._dmrg_applied}")
+        more = count(b.train)
+        for k, v in more.items():
+            launches[k] += v
+        if b.state.step != 6:
+            raise AssertionError(f"the resumed run ended at {b.state.step}")
+        rels = [rel_fro(x, y) for x, y in zip(b.state.adapter["cores"],
+                                              uninterrupted)]
+        exact = all(torch.equal(x, y) for x, y in zip(
+            b.state.adapter["cores"], uninterrupted))
+        print(f"[adapters] resume: failed at step 5 ({failed[0]}); resumed "
+              f"at step 3 with ranks {ranks}, sweeps {b._dmrg_applied}; "
+              f"finished at step {b.state.step}; cores vs the uninterrupted "
+              f"run (phase 6) rel Frobenius "
+              f"{[f'{x:.3e}' for x in rels]} (limit 1e-3), bit-identical "
+              f"{exact}; checkpoint at step 3 {nbytes} bytes; save seconds "
+              f"{[round(x, 3) for x in saves]}; resumed losses "
+              f"{[round(float(x), 6) for x in b.losses()]}", flush=True)
+        if not max(rels) <= 1e-3:
+            raise AssertionError(f"resumed cores differ from the "
+                                 f"uninterrupted run: {rels}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     return launches
+
+
+def serve_runtimes(dev, dense_run, paged_run, count):
+    """Phase 7 (c): phase 3's served 4+1d adapter through the live, lora
+    and merged (task 1) runtimes of the dense engine on the same weights,
+    then the paged engine under the lora runtime over phase 4's requests.
+    Returns the base and the live runtime for (d)."""
+    import torch
+    from repro_torch.config.base import ServeConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.serving import AdapterRuntime, Engine, Request
+
+    cfg, spec, params, live, gen = serving_model(dev, "adapters")
+    t0 = time.perf_counter()
+    rts = {"live": live,
+           "lora": AdapterRuntime.build("lora", params["base"], spec,
+                                        params["adapter"], params["frozen"]),
+           "merged": AdapterRuntime.build(
+               "merged", params["base"], spec, params["adapter"],
+               params["frozen"], model_cfg=cfg, task=1)}
+    torch.cuda.synchronize()
+    print(f"[adapters] lora and merged runtimes built in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=256,
+                        out_cap=32)
+    reqs = dense_run["reqs"]
+    reqs1 = [Request(r.prompt, 32, task=1) for r in reqs]
+    L = cfg.num_layers
+    outs = {}
+    # phase 3's mixed-task requests, and the same prompts all on task 1
+    # (the merged engine serves only the task folded into its weights)
+    runs = {"live": (("live", reqs), ("live task 1", reqs1)),
+            "lora": (("lora", reqs),), "merged": (("merged task 1", reqs1),)}
+    for mode, jobs in runs.items():
+        eng = Engine(cfg, rts[mode], serve=serve, device=dev)
+        eng.generate(jobs[0][1][:2])                  # warm-up
+        torch.cuda.synchronize()
+        for label, rq in jobs:
+            n = count(lambda: outs.update(
+                {label: [o.tolist() for o in eng.generate(rq)]}))
+            st = eng.last_stats
+            want = {"flash_attention": L * st.prefills,
+                    "decode_attention": L * st.decode_steps,
+                    "tt_linear": 0 if mode == "merged" else 2 * L * st.prefills,
+                    "tt_linear_batched_a": (0 if mode == "merged"
+                                            else 2 * L * st.decode_steps)}
+            for name, w in want.items():
+                if n[name] != w:
+                    raise AssertionError(f"{label}: {name} launched "
+                                         f"{n[name]} times, want {w}")
+            for res in eng.last_results:
+                if res.status != "FINISHED" or res.n_generated != 32:
+                    raise AssertionError(f"{label}: a request ended "
+                                         f"{res.status}")
+            print(f"[adapters] dense {label}: {st.tokens_generated} tokens "
+                  f"in {st.wall_s:.3f}s = {st.tokens_per_s:.1f} tok/s; "
+                  f"prefill {1e3 * st.prefill_s / max(st.prefills, 1):.2f} "
+                  f"ms/request; decode "
+                  f"{1e3 * st.decode_s / max(st.decode_steps, 1):.2f} "
+                  f"ms/step over {st.decode_steps} steps; launches "
+                  f"{json.dumps({k: n[k] for k in want})}", flush=True)
+        if mode == "merged":
+            try:
+                eng.generate([Request(reqs[0].prompt, 4, task=0)])
+            except ValueError as e:
+                print(f"[adapters] merged engine rejects a task-0 request: "
+                      f"{e}")
+            else:
+                raise AssertionError("the merged (task 1) engine served a "
+                                     "task-0 request")
+        del eng
+        torch.cuda.empty_cache()
+    for label, ref in (("lora", "live"), ("merged task 1", "live task 1")):
+        same = sum(int(x == y) for o, r in zip(outs[label], outs[ref])
+                   for x, y in zip(o, r))
+        total = sum(len(o) for o in outs[ref])
+        print(f"[adapters] served adapter: {label} greedy tokens equal to "
+              f"live's at {same}/{total} (reported: bf16 argmax near-ties "
+              "flip)", flush=True)
+    # logits under a mild adapter: lora and merged against live
+    mild = {"cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 8, scale=0.12,
+                                     device=dev)}
+    mrt = {m: AdapterRuntime.build(m, params["base"], spec, mild,
+                                   params["frozen"], model_cfg=cfg, task=1)
+           for m in ("live", "lora", "merged")}
+    meng = {m: Engine(cfg, rt, serve=serve, device=dev)
+            for m, rt in mrt.items()}
+    for m, req in (("lora", reqs[0]), ("merged", reqs1[0])):
+        rel = logits_rel_err(meng[m], meng["live"], req)
+        print(f"[adapters] mild adapter: {m} prefill logits (task "
+              f"{req.task}) vs live max rel err {rel:.3e} (limit 5e-2)")
+        if not rel <= 5e-2:
+            raise AssertionError(f"{m} runtime logits differ from live: "
+                                 f"{rel:.3e}")
+    del meng, mrt
+    torch.cuda.empty_cache()
+    # the paged engine under the lora runtime, phase 4's requests (cold)
+    peng = Engine(cfg, rts["lora"], serve=ServeConfig(cache_mode="paged",
+                                                      **PAGED), device=dev)
+    res = {}
+
+    def paged_gen():
+        res["st"] = serve_checked(peng, paged_run["reqs"], "paged lora "
+                                  "runtime, cold", "adapters")[1]
+    n = count(paged_gen)
+    steps = res["st"].decode_steps
+    if not n["paged_decode_attention"] == L * steps > 0:
+        raise AssertionError(f"paged lora: #8 launched "
+                             f"{n['paged_decode_attention']} times in "
+                             f"{steps} steps")
+    del peng, rts
+    torch.cuda.empty_cache()
+    return cfg, params["base"], live
+
+
+def snapshot_roundtrip(dev, cfg, live, reqs, count):
+    """Phase 7 (d): phase 5's dense engine with int8 weights saves its
+    base; a second engine, its base zeroed, loads the snapshot and must
+    give the first engine's greedy tokens on phase 3's 8 requests."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.config.base import KernelConfig, QuantConfig, \
+        ServeConfig
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine
+
+    def engine():
+        return Engine(cfg, live, serve=ServeConfig(
+            cache_mode="dense", max_batch=4, cache_len=256, out_cap=32),
+            kernels=KernelConfig(quant=QuantConfig(weights="int8")),
+            device=dev)
+    d = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    try:
+        e1 = engine()
+        got = {}
+        n = count(lambda: got.update(one=[o.tolist() for o in
+                                          e1.generate(reqs)]))
+        t0 = time.perf_counter()
+        path = e1.save_base_snapshot(os.path.join(d, "w8_base"))
+        save_s = time.perf_counter() - t0
+        del e1
+        torch.cuda.empty_cache()
+        e2 = engine()
+        for t in M.tensors(e2.base_weights):
+            t.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e2.load_base_snapshot(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        int8 = sum(t.numel() for t in M.tensors(e2.base_weights)
+                   if t.dtype == torch.int8)
+        more = count(lambda: got.update(two=[o.tolist() for o in
+                                             e2.generate(reqs)]))
+        for k, v in more.items():
+            n[k] += v
+        print(f"[adapters] int8 base snapshot: {os.path.getsize(path)} "
+              f"bytes ({int8} int8 values), save {save_s:.2f}s, load "
+              f"{load_s:.2f}s; greedy tokens of the loaded engine equal to "
+              f"the saving engine's: {got['two'] == got['one']}; launches "
+              f"{json.dumps({k: v for k, v in n.items() if v})}", flush=True)
+        if got["two"] != got["one"]:
+            raise AssertionError("the snapshot engine's tokens differ")
+        if not (n["tt_linear_w8"] > 0 and n["tt_linear_batched_a_w8"] > 0):
+            raise AssertionError(f"#9 / #10 did not run: {n}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return n
+
+
+def phase_adapters(dev, dense_run, paged_run, train_cores):
+    """Phase 7, adapters and checkpoints, on full-width stablelm-1.6b:
+    (a) LoRA, VeRA (r = 1024), LoTR and MetaTT-5d trained through the
+    Trainer, with gradient checks for VeRA and LoRA; (b) checkpoint and
+    resume against phase 6's uninterrupted run; (c) the live, lora and
+    merged serving runtimes, dense and (lora) paged; (d) an int8 base
+    snapshot. Launches are counted around each driven run and summed."""
+    import torch
+    from repro_torch import kernels as K
+    total = {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        return n
+    t0 = time.perf_counter()
+    base = train_adapters(dev, count)
+    t1 = time.perf_counter()
+    resume_on_the_card(dev, base, train_cores, count)
+    del base
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    cfg, _, live = serve_runtimes(dev, dense_run, paged_run, count)
+    t3 = time.perf_counter()
+    snapshot_roundtrip(dev, cfg, live, dense_run["reqs"], count)
+    del live
+    torch.cuda.empty_cache()
+    print(f"[adapters] phase seconds: training {t1 - t0:.1f}, resume "
+          f"{t2 - t1:.1f}, runtimes {t3 - t2:.1f}, snapshot "
+          f"{time.perf_counter() - t3:.1f}; launches on the path "
+          f"{json.dumps({k: v for k, v in total.items() if v})}", flush=True)
+    return total
 
 
 def main(argv) -> int:
@@ -1834,7 +2316,9 @@ def main(argv) -> int:
     paths["serve"], dense_run = phase_serving(dev)
     paths["paged"], paged_run = phase_paged(dev)
     paths.update(phase_quant(dev, dense_run, paged_run))
-    paths["train"] = phase_training(dev)
+    paths["train"], train_cores = phase_training(dev)
+    paths["adapters"] = phase_adapters(dev, dense_run, paged_run,
+                                       train_cores)
 
     records = []
     for name, (src, replaces) in KERNELS.items():
@@ -1850,6 +2334,12 @@ def main(argv) -> int:
             library_ms=main_row["library_ms"], shape=main_row["shape"])
         if "library" in main_row:
             rec["library"] = main_row["library"]
+        ranks = [{k: r[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "tflops", "variant")}
+            for r in mine if r.get("rank_row")]
+        if ranks:        # K1 above rank 64, phase 2
+            rec["ranks"] = ranks
         for r in mine:   # K1 again, at the training shape
             if r.get("role"):
                 rec[r["role"]] = {k: r[k] for k in (

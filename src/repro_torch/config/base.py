@@ -5,9 +5,10 @@ dispatch policy, ``ServeConfig`` the serving engine, ``OptimizerConfig``
 and ``TrainConfig`` the trainer, ``RunConfig`` the bundle a user builds
 and trains an adapter from. Field names and defaults follow the JAX
 package; dtypes are torch dtypes. The port implements the serving slices
-(paged and dense cache) and the adapter-training slice: the engine and
-the trainer raise ``NotImplementedError`` for any field value outside
-them instead of ignoring it.
+(paged and dense cache, fp and int8, the live / lora / merged runtimes)
+and adapter training with checkpoints (MetaTT 4d / 5d / 4+1d, LoRA, VeRA,
+LoTR): the engine and the trainer raise ``NotImplementedError`` for any
+field value outside them instead of ignoring it.
 """
 from __future__ import annotations
 
@@ -337,8 +338,8 @@ class OptimizerConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Trainer knobs. The port trains the adapter only (``train_base``
-    raises) without checkpoints or gradient compression yet (``ckpt_dir``
-    and ``grad_compression != "none"`` raise)."""
+    raises) without gradient compression yet (``grad_compression !=
+    "none"`` raises); ``ckpt_dir`` turns on checkpoints and auto-resume."""
     steps: int = 100
     microbatch: int = 0            # 0 -> no gradient accumulation
     remat: str = "block"           # none | block (checkpoint each super-block)
@@ -360,8 +361,8 @@ class RunConfig:
     RunConfig's fields)."""
     model: ModelConfig
     shape: Optional[ShapeConfig] = None
-    adapter_kind: str = "metatt"   # metatt | none
-    adapter_variant: str = "4d"    # metatt: 4d | 4+1d
+    adapter_kind: str = "metatt"   # metatt | lora | vera | lotr | none
+    adapter_variant: str = "4d"    # metatt: 4d | 5d | 4+1d
     adapter_rank: int = 8
     adapter_alpha: float = 4.0
     adapter_matrices: tuple = ()   # () -> arch default

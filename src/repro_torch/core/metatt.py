@@ -4,11 +4,14 @@ One global tensor train parameterizes the low-rank update of every
 adapted linear map:
 
   MetaTT-4D     ΔW[D_in, L, M, D_out]
+  MetaTT-5D     ΔW[D_in, L, M, H, D_out/H]  (head axis)
   MetaTT-(4+1)D ΔW[D_in, L, T, M, D_out]   (task axis)
 
 The hot-path contraction merges the activation-independent middle cores
-once (``step_factors``): C[l, (t,) m] = G2[l]·(G3[t]·)G3/4[m], then per
-matrix Δy = α·((x·G1)·C[l, (t,) m])·G4.
+once (``step_factors``): C[l, (t,) m] = G2[l]·(G3[t]·)G3/4[m] (5D also
+folds the head core into the right boundary), then per matrix
+Δy = α·((x·G1)·C[l, (t,) m])·G4. MetaTT-(4+E)D, whose expert axis only
+the MoE layers apply, comes with the MoE model family.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ Params = dict  # {"cores": [c0, c1, ...]}
 
 @dataclasses.dataclass(frozen=True)
 class MetaTTConfig:
-    """Static configuration of a MetaTT adapter (variants 4d and 4+1d)."""
+    """Static configuration of a MetaTT adapter (variants 4d, 5d and
+    4+1d). 5d: ``num_heads`` is the query head count and ``head_dim`` its
+    width; matrix types with fewer output columns read the leading ones."""
     num_layers: int
     matrix_types: tuple
     d_in: tuple
@@ -49,6 +54,8 @@ class MetaTTConfig:
 
     @property
     def d_out_max(self) -> int:
+        if self.variant == "5d":
+            return self.num_heads * self.head_dim
         return max(self.d_out)
 
     @property
@@ -56,10 +63,16 @@ class MetaTTConfig:
         L, M = self.num_layers, self.num_matrices
         if self.variant == "4d":
             return (self.d_in_max, L, M, self.d_out_max)
+        if self.variant == "5d":
+            return (self.d_in_max, L, M, self.num_heads, self.head_dim)
         if self.variant == "4+1d":
             return (self.d_in_max, L, self.num_tasks, M, self.d_out_max)
-        raise NotImplementedError(
-            f"MetaTT variant {self.variant!r} is not ported yet (4d, 4+1d)")
+        if self.variant == "4+ed":
+            raise NotImplementedError(
+                "MetaTT variant '4+ed' applies its expert axis inside the "
+                "MoE layers (models/moe.py) and comes with the MoE model "
+                "family (ROADMAP Queue 1 item 5)")
+        raise ValueError(f"unknown MetaTT variant {self.variant!r}")
 
     @property
     def default_init(self) -> str:
@@ -71,6 +84,30 @@ class MetaTTConfig:
 
     def m_index(self, name: str) -> int:
         return self.matrix_types.index(name)
+
+    def num_params(self) -> int:
+        shapes = self.mode_sizes
+        d = len(shapes)
+        bonds = [1] + [self.rank] * (d - 1) + [1]
+        return int(sum(bonds[k] * shapes[k] * bonds[k + 1]
+                       for k in range(d)))
+
+
+# the paper's closed-form parameter counts (§2.4)
+
+def paper_count_4d(D: int, L: int, M: int, r: int) -> int:
+    """MetaTT-4D: 2Dr + (L+M)r²."""
+    return 2 * D * r + (L + M) * r * r
+
+
+def paper_count_5d(D: int, H: int, L: int, M: int, r: int) -> int:
+    """MetaTT-5D: (D + D/H)r + (L+M+H)r²."""
+    return (D + D // H) * r + (L + M + H) * r * r
+
+
+def paper_count_lora(D: int, L: int, M: int, r: int) -> int:
+    """LoRA: 2LMDr."""
+    return 2 * L * M * D * r
 
 
 def _init_core(generator, tok: str, shape, dtype, device):
@@ -127,6 +164,11 @@ def step_factors(params: Params, cfg: MetaTTConfig) -> StepFactors:
     if cfg.variant == "4d":
         c = torch.einsum("alb,bmc->lmac", cores[1], cores[2])
         g4 = cores[3][..., 0]
+    elif cfg.variant == "5d":
+        c = torch.einsum("alb,bmc->lmac", cores[1], cores[2])
+        # the head core folds into the right boundary: (r, H, hd) -> (r, H·hd)
+        bh = torch.einsum("chr,rd->chd", cores[3], cores[4][..., 0])
+        g4 = bh.reshape(bh.shape[0], -1)
     elif cfg.variant == "4+1d":
         c = torch.einsum("alb,btc,cmd->ltmad", cores[1], cores[2], cores[3])
         g4 = cores[4][..., 0]
@@ -179,3 +221,10 @@ def materialize_delta(params: Params, cfg: MetaTTConfig, layer: int, m: str,
     f = step_factors(params, cfg)
     c_lm = _task_slice(f.c[layer], cfg, mi, task)
     return cfg.alpha * (f.g1[: cfg.d_in[mi]] @ c_lm @ f.g4[:, : cfg.d_out[mi]])
+
+
+def zero_at_init(params: Params, cfg: MetaTTConfig) -> bool:
+    """The paper's init invariant: every ΔW slice is exactly zero."""
+    f = step_factors(params, cfg)
+    return bool(torch.all(f.g1 == 0) or torch.all(f.g4 == 0)
+                or torch.all(f.c == 0))

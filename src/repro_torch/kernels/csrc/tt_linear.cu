@@ -24,11 +24,12 @@
 //     as in the TPU kernel — and one rounding to bf16 on the store.
 // Ragged M/N/K and any rank 1 <= r <= 256 are masked in the kernel; the
 // rank is padded to a multiple of 16 in shared memory only. That template
-// kernel is the general path: K1 runs its own `wgmma` kernel up to rank
-// RANK_WGMMA (the "K1 on `wgmma`" section), and K2, #9 and #10 run the
-// split-K `wgmma` kernel there (the "#9, #10 and K2 on the split-K
+// kernel is the general path of K2, #9 and #10: they run the split-K
+// `wgmma` kernel up to rank RANK_WGMMA (the "#9, #10 and K2 on the split-K
 // `wgmma` kernel" section) when their operands take 16-byte copies; the
-// template kernel takes larger ranks and the other operands.
+// template kernel takes larger ranks and the other operands. K1 runs its
+// own `wgmma` kernel at every rank up to 1024 (the "K1 on `wgmma`"
+// section): P in registers up to RANK_WGMMA, a pre-pass above it.
 //
 // w8a16 (#9, #10): W arrives int8 with f32 scales (G, N), half the bytes
 // of the bf16 W that bounds these kernels. In the template kernel
@@ -495,8 +496,8 @@ int launch(const void* x, const void* w, const float* wscale, const void* a,
   return (int)cudaGetLastError();
 }
 
-// The template kernel with one shared A (#9; K1 at ranks above
-// RANK_WGMMA): 64 x 64 output tiles, BK 64 in a 4-stage ring, or BK 32 in
+// The template kernel with one shared A (#9 at ranks above RANK_WGMMA or
+// on operands that cannot take 16-byte copies): 64 x 64 output tiles, BK 64 in a 4-stage ring, or BK 32 in
 // 2 stages when a large rank's A tiles do not fit
 template <int WQ>
 int run_shared_a(const void* x, const void* w, const float* wscale,
@@ -561,11 +562,32 @@ int run_batched_a(const void* x, const void* w, const float* wscale,
 // then rounds once to bf16 on the store. Ragged M / N / K are zero-filled
 // on load and masked on the store.
 
+// Ranks above RANK_WGMMA (up to 1024: VeRA's rank in the paper's Table 1)
+// cannot keep P in registers or shared memory: a (128, 1024) f32 P is
+// 512 KB. The TPU kernel keeps it whole in a (bm, r) f32 scratch. Here a
+// pre-pass (MODE K1_PRE: the same kernel with A in W's place, N = r)
+// writes alpha·P = alpha·x·A as a bf16 pair hi + lo, hi = bf16(alpha·P),
+// lo = bf16(alpha·P - hi), into PL (M, 2·rp) (rp = r rounded up to 64,
+// columns r .. rp zero), so P keeps about 16 bits and is never cut to
+// one bf16. The main kernel (MODE K1_EXT) runs the base K loop, then
+// extends it over 2·rp / 64 more tiles: x tiles from PL's hi and lo
+// halves, W tiles from B's rows (each B row twice), so alpha·P·B is summed
+// on the tensor cores into the same f32 accumulator as x·W — the rank
+// term costs 2·M·2r·N flops at `wgmma` rate and no shared-memory P. B's
+// tiles are MN-major whatever W's layout. The main kernel is the
+// pre-pass's programmatic dependent: its base loop runs while the
+// pre-pass does, and it waits for PL (griddepcontrol.wait) before its
+// first extension tile. The base product is launched once.
+
 constexpr int LBM = 128, LBN = 128, LBK = 64;   // output tile, K tile
 constexpr int LSTAGES = 3;                      // depth of the ring
 constexpr int LNT = 256;                        // two warpgroups
-constexpr int RANK_WGMMA = 64;   // larger ranks run the template kernel
-constexpr int LV_X = 1, LV_W = 2, LV_A = 4;     // 16-byte copy paths
+constexpr int RANK_WGMMA = 64;   // P in registers; larger ranks: pre-pass
+constexpr int LV_X = 1, LV_W = 2, LV_A = 4, LV_B = 8;   // 16-byte copies
+// the modes of the `wgmma` kernel: x·W + alpha·(x·A)·B with P in
+// registers (RP = 16 or 64); the pre-pass (PL = alpha·x·W as hi + lo);
+// x·W summed on over the extension tiles [hi | lo] · [B; B]
+constexpr int K1_PLAIN = 0, K1_PRE = 1, K1_EXT = 2;
 
 // element strides: W (k, n), A (k, j), B (j, n)
 struct LinStrides {
@@ -632,12 +654,17 @@ __device__ __forceinline__ void load_strided(uint32_t tile, const bf16* src,
   }
 }
 
-template <int RP, bool WK, bool VEC>
+template <int RP, bool WK, bool VEC, int MODE>
 __global__ void __launch_bounds__(LNT, RP <= 16 ? 2 : 1)
 tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                        const bf16* __restrict__ a, const bf16* __restrict__ b,
                        bf16* __restrict__ y, int M, int N, int K, int r,
-                       float alpha, const LinStrides ls, int vec) {
+                       float alpha, const LinStrides ls, int vec,
+                       const bf16* __restrict__ pl, int rp) {
+  // K1_PRE and K1_EXT carry no P in the K loop (RP = 0)
+  static_assert(MODE == K1_PLAIN ? RP > 0 : RP == 0, "P only in K1_PLAIN");
+  if constexpr (MODE == K1_PRE)   // the main kernel may start: its base
+    asm volatile("griddepcontrol.launch_dependents;\n" ::);   // loop
   using L = LinSmem<RP>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -649,14 +676,14 @@ tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   // VEC: every operand takes 16-byte copies, and no other load path is
   // compiled in (it would cost the registers of two blocks an SM)
   const bool vx = VEC || (vec & LV_X), vw = VEC || (vec & LV_W),
-             va = VEC || (vec & LV_A);
+             va = VEC || (vec & LV_A), vb = VEC || (vec & LV_B);
   const long long wsk = ls.s[0], wsn = ls.s[1], ask = ls.s[2],
                   asj = ls.s[3];
 
   // B's (RP, 128) tile for the epilogue, once a block; rows ≥ r and
   // columns ≥ N zero
   bf16* bs = reinterpret_cast<bf16*>(smem + L::B);
-  for (int i = tid; i < RP * LBN; i += LNT) {
+  for (int i = tid; i < RP * LBN; i += LNT) {   // RP = 0: no B tile
     const int j = i / LBN, c = i % LBN;
     bs[i] = (j < r && n0 + c < N) ? b[j * ls.s[4] + (n0 + c) * ls.s[5]]
                                   : __float2bfloat16(0.f);
@@ -687,8 +714,24 @@ tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       }
     }
   };
+  const int nk = (K + LBK - 1) / LBK;
+  // K1_EXT: tiles nk .. nt - 1 are the extension, PL's hi then lo half
+  // against B's rows j0 .. j0 + 63
+  const int nt = MODE == K1_EXT ? nk + 2 * (rp / LBK) : nk;
   auto issue_xw = [&](int kt) {
     const int st = kt % LSTAGES, k0 = kt * LBK;
+    if (MODE == K1_EXT && kt >= nk) {
+      if (kt == nk)   // PL is the pre-pass's: wait for it to be complete
+        asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      const int e = (kt - nk) * LBK, j0 = e % rp;
+      load_strided<LBM, LBK>(base + L::X + st * L::XS,
+                             pl + static_cast<long long>(m0) * 2 * rp + e,
+                             2 * rp, 1, M - m0, LBK, true, tid);
+      load_strided<LBK, LBN>(base + L::W + st * L::WS,
+                             b + j0 * ls.s[4] + n0 * ls.s[5], ls.s[4],
+                             ls.s[5], max(r - j0, 0), N - n0, vb, tid);
+      return;
+    }
     load_strided<LBM, LBK>(base + L::X + st * L::XS,
                            x + static_cast<long long>(m0) * K + k0, K, 1,
                            M - m0, K - k0, vx, tid);
@@ -702,12 +745,11 @@ tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                              N - n0, vw, tid);
   };
 
-  const int nk = (K + LBK - 1) / LBK;
 #pragma unroll
   for (int kt = 0; kt < LSTAGES - 1; ++kt) {
-    if (kt < nk) {
+    if (kt < nt) {
       issue_xw(kt);
-      put_a(kt);
+      if (MODE == K1_PLAIN) put_a(kt);
     }
     cp_async_commit();
   }
@@ -715,21 +757,21 @@ tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int lane = tid & 31, warp = (tid >> 5) & 3;
   const int ra = 64 * wg + warp * 16 + (lane >> 2), ca = 2 * (lane & 3);
   const bool live = m0 + 64 * wg < M;   // this warpgroup has rows
-  float acc[LBN / 2], p[RP / 2];
+  float acc[LBN / 2], p[RP > 0 ? RP / 2 : 1];
 #pragma unroll
   for (int i = 0; i < LBN / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < RP / 2; ++i) p[i] = 0.f;
+  for (int i = 0; i < (RP > 0 ? RP / 2 : 1); ++i) p[i] = 0.f;
 
-  for (int kt = 0; kt < nk; ++kt) {
+  for (int kt = 0; kt < nt; ++kt) {
     const int st = kt % LSTAGES;
     cp_async_wait<LSTAGES - 2>();   // tile kt has landed
     fence_proxy_async();
     __syncthreads();   // ... for every thread; every warpgroup has waited
                        // for its products of tile kt - 1, whose stage
-    if (kt + LSTAGES - 1 < nk) {   // now takes tile kt + 2
+    if (kt + LSTAGES - 1 < nt) {   // now takes tile kt + 2
       issue_xw(kt + LSTAGES - 1);
-      put_a(kt + LSTAGES - 1);
+      if (MODE == K1_PLAIN) put_a(kt + LSTAGES - 1);
     }
     cp_async_commit();
     if (!live) continue;
@@ -739,12 +781,20 @@ tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     reg_fence(acc);
     reg_fence(p);
     wg_fence();
+    if (WK && MODE == K1_EXT && kt >= nk) {
+#pragma unroll   // an extension tile: B's rows are MN-major
+      for (int kk = 0; kk < LBK / 16; ++kk)
+        WgSS<LBN, 1>::mma(acc, desc_k<LBM>(xt, 64 * wg, kk),
+                          desc_mn<LBK>(wt, kk), 1);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < LBK / 16; ++kk) {
-      const uint64_t dx = desc_k<LBM>(xt, 64 * wg, kk);
-      WgSS<LBN, WK ? 0 : 1>::mma(
-          acc, dx, WK ? desc_k<LBN>(wt, 0, kk) : desc_mn<LBK>(wt, kk), 1);
-      WgSS<RP>::mma(p, dx, desc_k<RP>(at, 0, kk), 1);   // P += x·A
+      for (int kk = 0; kk < LBK / 16; ++kk) {
+        const uint64_t dx = desc_k<LBM>(xt, 64 * wg, kk);
+        WgSS<LBN, WK ? 0 : 1>::mma(
+            acc, dx, WK ? desc_k<LBN>(wt, 0, kk) : desc_mn<LBK>(wt, kk), 1);
+        if constexpr (MODE == K1_PLAIN)
+          WgSS<RP>::mma(p, dx, desc_k<RP>(at, 0, kk), 1);   // P += x·A
+      }
     }
     wg_commit();
     wg_wait<0>();
@@ -752,6 +802,31 @@ tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     reg_fence(p);
   }
   cp_async_wait<0>();
+  if constexpr (MODE == K1_PRE) {
+    // PL row gm: hi = bf16(alpha·P) in columns < rp, lo = bf16(alpha·P -
+    // hi) in rp + columns; acc is 0 in the columns r .. rp (A's zero
+    // fill), which zero PL's padding
+    if (!live) return;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gm = m0 + ra + 8 * hh;
+      if (gm >= M) continue;
+      bf16* hr = y + static_cast<long long>(gm) * 2 * rp;
+#pragma unroll
+      for (int c = 0; c < LBN / 8; ++c) {
+        const int gn = n0 + 8 * c + ca;
+        if (gn >= rp) continue;
+        const float v0 = alpha * acc[4 * c + 2 * hh],
+                    v1 = alpha * acc[4 * c + 2 * hh + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+        const float2 hf = __bfloat1622float2(hi);
+        *reinterpret_cast<__nv_bfloat162*>(hr + gn) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(hr + rp + gn) =
+            __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+      }
+    }
+    return;
+  }
   __syncthreads();   // the ring is free: stage P where x was
 
   float* ps = reinterpret_cast<float*>(smem + L::X);
@@ -762,7 +837,8 @@ tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       *reinterpret_cast<float2*>(ps + (ra + 8 * hh) * L::PS + 8 * c + ca) =
           make_float2(p[4 * c + 2 * hh], p[4 * c + 2 * hh + 1]);
   __syncthreads();
-  for (int j = 0; j < r; ++j) {   // acc += alpha·P·B, in f32
+  for (int j = 0; j < (MODE == K1_PLAIN ? r : 0); ++j) {
+    // acc += alpha·P·B, in f32 (K1_EXT summed it in the K loop)
     const float p0 = alpha * ps[ra * L::PS + j];
     const float p1 = alpha * ps[(ra + 8) * L::PS + j];
     const bf16* brow = bs + j * LBN + ca;
@@ -798,21 +874,33 @@ tt_linear_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-template <int RP, bool WK, bool VEC>
+template <int RP, bool WK, bool VEC, int MODE>
 int launch_wgmma(const void* x, const void* w, const void* a, const void* b,
                  void* y, int M, int N, int K, int r, float alpha,
-                 const LinStrides& ls, int vec, void* stream) {
+                 const LinStrides& ls, int vec, const void* pl, int rp,
+                 void* stream) {
   constexpr int smem = LinSmem<RP>::TOTAL + 1024;   // + the alignment slack
   static bool done = false;
-  cudaError_t e =
-      allow_smem(tt_linear_wgmma_kernel<RP, WK, VEC>, smem, &done);
+  auto kern = tt_linear_wgmma_kernel<RP, WK, VEC, MODE>;
+  cudaError_t e = allow_smem(kern, smem, &done);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + LBN - 1) / LBN, (M + LBM - 1) / LBM);
-  tt_linear_wgmma_kernel<RP, WK, VEC>
-      <<<grid, LNT, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-          static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-          static_cast<bf16*>(y), M, N, K, r, alpha, ls, vec);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + LBN - 1) / LBN, (M + LBM - 1) / LBM);
+  cfg.blockDim = dim3(LNT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  // K1_EXT: a programmatic dependent of the pre-pass (griddepcontrol)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = MODE == K1_EXT ? 1 : 0;
+  e = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<bf16*>(y), M, N, K, r, alpha, ls, vec,
+      static_cast<const bf16*>(pl), rp);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1343,49 +1431,68 @@ extern "C" {
 // x (M, K) row-major, contiguous; w (K, N), a (K, r), b (r, N) read
 // through their element strides (w: k, n; a: k, j; b: j, n — a transposed
 // view is a stride swap, no copy); y (M, N) row-major; all bf16.
-// variant 1: the `wgmma` kernel (r <= 64); 2: the template kernel, which
-// takes contiguous w, a, b only (the wrapper chooses;
-// kernels/tt_linear.py).
+// variant 1: the `wgmma` kernel with P in registers (r <= 64); 2: the
+// pre-pass into ws, a bf16 workspace of M · 2·rp elements (rp = r rounded
+// up to 64), then the `wgmma` kernel over K + 2·rp (r <= 1024; the
+// wrapper chooses, kernels/tt_linear.py).
 int tt_linear_bf16(const void* x, const void* w, const void* a,
                    const void* b, void* y, int M, int N, int K, int r,
                    float alpha, const long long* strides, int variant,
-                   void* stream) {
-  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 256)
+                   void* ws, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 1024 ||
+      (M + LBM - 1) / LBM > 65535)
     return (int)cudaErrorInvalidValue;
   LinStrides ls;
   for (int i = 0; i < 6; ++i) ls.s[i] = strides[i];
   const long long wsk = ls.s[0], wsn = ls.s[1], ask = ls.s[2],
-                  asj = ls.s[3];
-  if (variant == 2) {
-    if (wsk != N || wsn != 1 || ask != r || asj != 1 || ls.s[4] != N ||
-        ls.s[5] != 1)
-      return (int)cudaErrorInvalidValue;
-    const int vec = (K % 8 == 0 && N % 8 == 0 && aligned16(x) &&
-                     aligned16(w) ? VEC_XW : 0) |
-                    (r % 8 == 0 && aligned16(a) ? VEC_A : 0);
-    return run_shared_a<WQ_NONE>(x, w, nullptr, a, b, y, M, N, K, r, 0,
-                                 alpha, vec, stream);
-  }
-  if (variant != 1 || r > RANK_WGMMA || (M + LBM - 1) / LBM > 65535)
-    return (int)cudaErrorInvalidValue;
+                  asj = ls.s[3], bsj = ls.s[4], bsn = ls.s[5];
   const bool wk = wsk == 1 && wsn != 1;   // W read as Wᵀ: K-major tiles
   const bool vw = wk ? K % 8 == 0 && wsn % 8 == 0
                      : wsn == 1 && N % 8 == 0 && wsk % 8 == 0;
-  const int vec = (K % 8 == 0 && aligned16(x) ? LV_X : 0) |
-                  (vw && aligned16(w) ? LV_W : 0) |
+  const int vx = K % 8 == 0 && aligned16(x) ? LV_X : 0;
+  if (variant == 2) {
+    if (ws == nullptr) return (int)cudaErrorInvalidValue;
+    const int rp = (r + LBK - 1) / LBK * LBK;
+    // the pre-pass: PL = alpha·x·A with A in W's place (N = r)
+    LinStrides la = {{ask, asj, 0, 0, 0, 0}};
+    const bool ak = ask == 1 && asj != 1;
+    const bool va = ak ? K % 8 == 0 && asj % 8 == 0
+                       : asj == 1 && r % 8 == 0 && ask % 8 == 0;
+    const int pv = vx | (va && aligned16(a) ? LV_W : 0);
+#define PRE_ARGS x, a, nullptr, nullptr, ws, M, r, K, r, alpha, la, pv, \
+                 nullptr, rp, stream
+    int e = pv == (LV_X | LV_W)
+                ? (ak ? launch_wgmma<0, true, true, K1_PRE>(PRE_ARGS)
+                      : launch_wgmma<0, false, true, K1_PRE>(PRE_ARGS))
+                : (ak ? launch_wgmma<0, true, false, K1_PRE>(PRE_ARGS)
+                      : launch_wgmma<0, false, false, K1_PRE>(PRE_ARGS));
+#undef PRE_ARGS
+    if (e != cudaSuccess) return e;
+    const bool vb = bsn == 1 && N % 8 == 0 && bsj % 8 == 0 && aligned16(b);
+    const int ev = vx | (vw && aligned16(w) ? LV_W : 0) | (vb ? LV_B : 0);
+#define EXT_ARGS x, w, nullptr, b, y, M, N, K, r, 1.f, ls, ev, ws, rp, stream
+    if (ev == (LV_X | LV_W | LV_B))
+      return wk ? launch_wgmma<0, true, true, K1_EXT>(EXT_ARGS)
+                : launch_wgmma<0, false, true, K1_EXT>(EXT_ARGS);
+    return wk ? launch_wgmma<0, true, false, K1_EXT>(EXT_ARGS)
+              : launch_wgmma<0, false, false, K1_EXT>(EXT_ARGS);
+#undef EXT_ARGS
+  }
+  if (variant != 1 || r > RANK_WGMMA) return (int)cudaErrorInvalidValue;
+  const int vec = vx | (vw && aligned16(w) ? LV_W : 0) |
                   (ask == 1 && asj % 8 == 0 && K % 8 == 0 && aligned16(a)
                        ? LV_A : 0);
   const bool all = vec == (LV_X | LV_W | LV_A);
-#define K1_ARGS x, w, a, b, y, M, N, K, r, alpha, ls, vec, stream
+#define K1_ARGS x, w, a, b, y, M, N, K, r, alpha, ls, vec, nullptr, 0, stream
   if (r <= 16)
-    return wk ? (all ? launch_wgmma<16, true, true>(K1_ARGS)
-                     : launch_wgmma<16, true, false>(K1_ARGS))
-              : (all ? launch_wgmma<16, false, true>(K1_ARGS)
-                     : launch_wgmma<16, false, false>(K1_ARGS));
-  return wk ? (all ? launch_wgmma<64, true, true>(K1_ARGS)
-                   : launch_wgmma<64, true, false>(K1_ARGS))
-            : (all ? launch_wgmma<64, false, true>(K1_ARGS)
-                   : launch_wgmma<64, false, false>(K1_ARGS));
+    return wk ? (all ? launch_wgmma<16, true, true, K1_PLAIN>(K1_ARGS)
+                     : launch_wgmma<16, true, false, K1_PLAIN>(K1_ARGS))
+              : (all ? launch_wgmma<16, false, true, K1_PLAIN>(K1_ARGS)
+                     : launch_wgmma<16, false, false, K1_PLAIN>(K1_ARGS));
+  return wk ? (all ? launch_wgmma<64, true, true, K1_PLAIN>(K1_ARGS)
+                   : launch_wgmma<64, true, false, K1_PLAIN>(K1_ARGS))
+            : (all ? launch_wgmma<64, false, true, K1_PLAIN>(K1_ARGS)
+                   : launch_wgmma<64, false, false, K1_PLAIN>(K1_ARGS));
 #undef K1_ARGS
 }
 

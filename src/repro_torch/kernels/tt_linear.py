@@ -19,9 +19,13 @@ A and B through their strides, so those views are never copied. These
 wrappers make plain outputs with no ``grad_fn``: an input that requires
 grad while autograd records raises.
 
-K1 has two CUDA kernels (``k1_variant``): the `wgmma` kernel for ranks
-up to ``RANK_WGMMA``, and above it the template kernel, which takes
-contiguous W, A and B (the wrapper copies them there). K2, #9 and #10
+K1 runs one `wgmma` kernel in two variants (``k1_variant``): ranks up to
+``RANK_WGMMA`` keep P = x·A in registers; above it, up to ``K1_MAX_RANK``
+(VeRA's rank 1024 in the paper's Table 1), a pre-pass writes α·P as a
+bf16 hi + lo pair into a (M, 2·rp) workspace and the main kernel sums
+[hi | lo]·[B; B] on the tensor cores after its base K loop. Both read W,
+A and B through their strides; only the pre-pass variant copies a B
+whose columns are strided (r·N elements) into rows. K2, #9 and #10
 share a split-K `wgmma` kernel for ranks up to ``RANK_WGMMA`` on
 operands that take 16-byte copies, over ``w8_splits`` slices of K (#9:
 ``w8_path``; K2 and #10, whose per-row adapter term P[m] = x[m]·A[m] a
@@ -49,8 +53,8 @@ tt_linear_batched_a_w8_plain = _ref.tt_linear_batched_a_q_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # x w a b y, M N K r, alpha, strides (w, a, b), variant, stream
-    "tt_linear_bf16": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _P],
+    # x w a b y, M N K r, alpha, strides (w, a, b), variant, ws, stream
+    "tt_linear_bf16": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _P, _P],
     # x w a b y, M N K r, alpha, vec, variant, splits, ws, stream
     "tt_linear_batched_a_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P,
                                                        _P],
@@ -61,10 +65,20 @@ _ARGTYPES = {
     "tt_linear_batched_a_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _I,
                                                           _P, _P],
 }
-#: K1's CUDA kernels (``csrc/tt_linear.cu``): the `wgmma` kernel, which
-#: takes ranks up to RANK_WGMMA, and the template kernel
-K1_VARIANTS = {"wgmma": 1, "template": 2}
+#: K1's variants (``csrc/tt_linear.cu``): the `wgmma` kernel with P in
+#: registers, which takes ranks up to RANK_WGMMA, and the pre-pass for P
+#: followed by the `wgmma` kernel over K + 2·rp, which takes every rank up
+#: to K1_MAX_RANK
+K1_VARIANTS = {"wgmma": 1, "pre_pass": 2}
 RANK_WGMMA = 64
+#: the largest rank K1 takes on the card (the JAX kernel keeps any r
+#: whole in a (bm, r) f32 scratch; the paper's largest is VeRA's 1024)
+K1_MAX_RANK = 1024
+#: K2's, #9's and #10's rank limit on the card: their template kernel
+#: keeps a (BM, r) f32 P in shared memory. K2 / #10's per-row A comes from
+#: a MetaTT 4+1d adapter, whose ranks stay far below it; #9 serves any
+#: kind over an int8 base (VeRA at 1024 raises: ROADMAP Queue 3)
+SHARED_P_MAX_RANK = 256
 #: rows a K2 / #10 launch takes
 BATCHED_A_ROWS = 64
 #: K2's, #9's and #10's CUDA kernels: the split-K `wgmma` kernel and the
@@ -87,9 +101,15 @@ def _fn(name: str):
 
 
 def k1_variant(r: int) -> str:
-    """Which CUDA kernel K1 launches at rank r: ``"wgmma"`` (ranks up to
-    ``RANK_WGMMA``, every M) or ``"template"`` (larger ranks)."""
-    return "wgmma" if r <= RANK_WGMMA else "template"
+    """Which variant K1 launches at rank r: ``"wgmma"`` (ranks up to
+    ``RANK_WGMMA``, every M) or ``"pre_pass"`` (larger ranks)."""
+    return "wgmma" if r <= RANK_WGMMA else "pre_pass"
+
+
+def k1_workspace_elems(m: int, r: int) -> int:
+    """bf16 elements of the pre-pass variant's P workspace: (M, 2·rp),
+    rp = r rounded up to 64."""
+    return m * 2 * (-(-r // 64) * 64)
 
 
 def w8_splits(m: int, n: int, k: int, sms: int) -> int:
@@ -205,9 +225,10 @@ def _launch_w8(name, x, wq, scale, a, b, alpha, r, batched: bool):
         raise NotImplementedError(
             f"{name}: CUDA kernel built for scale groups of a multiple of "
             f"128 rows; got {k // g}")
-    if not 1 <= r <= 256 or (batched and not 1 <= m <= BATCHED_A_ROWS):
-        raise ValueError(f"{name}: rank {r} outside 1..256 or M={m} "
-                         f"outside 1..{BATCHED_A_ROWS} (batched A)")
+    if (not 1 <= r <= SHARED_P_MAX_RANK
+            or (batched and not 1 <= m <= BATCHED_A_ROWS)):
+        raise ValueError(f"{name}: rank {r} outside 1..{SHARED_P_MAX_RANK} "
+                         f"or M={m} outside 1..{BATCHED_A_ROWS} (batched A)")
     x, wq, scale = (t.contiguous() for t in (x, wq, scale))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
@@ -280,22 +301,30 @@ def _launch_batched_a(x, w, a, b, y, alpha, variant: str,
 
 
 def _launch_k1(x, w, a, b, alpha, variant: str) -> torch.Tensor:
-    """K1 on checked CUDA operands through the named kernel (see
-    ``k1_variant``)."""
+    """K1 on checked CUDA operands through the named variant (see
+    ``k1_variant``); W, A and B are read through their strides."""
     m, k = x.shape
     n, r = w.shape[1], a.shape[1]
     x = x.contiguous()
-    if variant == "template":
-        w, a, b = (t.contiguous() for t in (w, a, b))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
+    ws = None
+    if variant == "pre_pass":
+        ws = torch.empty(k1_workspace_elems(m, r), dtype=x.dtype,
+                         device=x.device)
+        if b.stride(1) != 1:
+            # the extension streams B's rows as the W tiles of its K loop:
+            # a B with strided columns (dx's Aᵀ of a row-major A) is copied
+            # to rows, r·N elements, against the element loads it would
+            # take otherwise
+            b = b.contiguous()
     st = (ctypes.c_longlong * 6)(*w.stride(), *a.stride(), *b.stride())
     rc = _fn("tt_linear_bf16")(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         y.data_ptr(), m, n, k, r, float(alpha),
         ctypes.cast(st, ctypes.c_void_p), K1_VARIANTS[variant],
-        _build.stream_ptr(x))
+        None if ws is None else ws.data_ptr(), _build.stream_ptr(x))
     _build.check(rc, "tt_linear")
     LAUNCHES["tt_linear"] += 1
     return y
@@ -315,8 +344,12 @@ def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if not x.is_cuda:
         return tt_linear_plain(x, w, a, b, alpha)
     _check_cuda(x, w, a, b, "tt_linear")
-    if not 1 <= r <= 256:
-        raise ValueError(f"tt_linear: rank {r} outside 1..256")
+    if not 1 <= r <= K1_MAX_RANK:
+        raise ValueError(
+            f"tt_linear: rank {r} outside 1..{K1_MAX_RANK}; the JAX kernel "
+            "keeps r whole in a (bm, r) f32 scratch, and the card's K1 "
+            f"takes every rank of the paper's adapters (VeRA's "
+            f"{K1_MAX_RANK} the largest)")
     return _launch_k1(x, w, a, b, alpha, k1_variant(r))
 
 
@@ -334,9 +367,10 @@ def tt_linear_batched_a(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if not x.is_cuda:
         return tt_linear_batched_a_plain(x, w, a, b, alpha)
     _check_cuda(x, w, a, b, "tt_linear_batched_a")
-    if not 1 <= m <= BATCHED_A_ROWS or not 1 <= r <= 256:
+    if not 1 <= m <= BATCHED_A_ROWS or not 1 <= r <= SHARED_P_MAX_RANK:
         raise ValueError(f"tt_linear_batched_a: M={m} outside "
-                         f"1..{BATCHED_A_ROWS} or rank {r} outside 1..256")
+                         f"1..{BATCHED_A_ROWS} or rank {r} outside "
+                         f"1..{SHARED_P_MAX_RANK}")
     x, w, a, b = (t.contiguous() for t in (x, w, a, b))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = _launch_batched_a(x, w, a, b, y, alpha, *ba_path(x, w, a, r))

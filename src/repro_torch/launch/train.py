@@ -3,12 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         --full-config --dmrg-start-rank 10 --rank 8 --steps-per-epoch 5
 
-Trains a MetaTT adapter on the synthetic LM stream through the port's
-``Trainer``: on the CUDA device by default (``--device cpu`` for the
-plain versions on the CPU), on the reduced smoke config unless
+Trains an adapter (``--adapter`` metatt, lora, vera or lotr; MetaTT's
+``--variant`` 4d, 5d or 4+1d) on the synthetic LM stream through the
+port's ``Trainer``: on the CUDA device by default (``--device cpu`` for
+the plain versions on the CPU), on the reduced smoke config unless
 ``--full-config``. ``--dmrg-start-rank`` above ``--rank`` adds a DMRG
-schedule that lowers the ranks by 2 after each epoch. Checkpoints
-(``--ckpt-dir``) and gradient compression are not ported yet and raise.
+schedule that lowers the ranks by 2 after each epoch. ``--ckpt-dir``
+saves every ``--ckpt-every`` steps and resumes from the newest checkpoint
+there. Gradient compression is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list(registry.ALL_IDS))
     ap.add_argument("--shape", default="train_4k", choices=list(SHAPES))
-    ap.add_argument("--adapter", default="metatt", choices=("metatt", "none"))
-    ap.add_argument("--variant", default="4d", choices=("4d", "4+1d"))
+    ap.add_argument("--adapter", default="metatt", choices=("metatt", "lora", "vera", "lotr", "none"))
+    ap.add_argument("--variant", default="4d", choices=("4d", "5d", "4+1d"))
     ap.add_argument("--rank", type=int, default=8)
     ap.add_argument("--alpha", type=float, default=4.0)
     ap.add_argument("--lr", type=float, default=1e-3)

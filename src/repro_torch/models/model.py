@@ -12,6 +12,9 @@ from repro_torch.core.metatt import MetaTTConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.peft import api as peft_api
+from repro_torch.peft.lora import LoRAConfig
+from repro_torch.peft.lotr import LoTRConfig
+from repro_torch.peft.vera import VeRAConfig
 from repro_torch.tree import leaves
 
 
@@ -35,29 +38,51 @@ def default_matrices(cfg: ModelConfig, variant: str = "4d") -> tuple:
 
 
 def build_adapter_spec(run: RunConfig) -> peft_api.AdapterSpec:
+    """The adapter a RunConfig names: MetaTT (4d, 5d, 4+1d), LoRA, VeRA or
+    LoTR over the adapted matrix types, with their per-type dims."""
     cfg = run.model
     if run.adapter_kind == "none":
         return peft_api.NONE
-    if run.adapter_kind != "metatt":
+    if run.adapter_kind == "metatt" and run.adapter_variant == "4+ed":
         raise NotImplementedError(
-            f"adapter kind {run.adapter_kind!r} is not ported yet")
-    if run.adapter_variant not in ("4d", "4+1d"):
-        raise NotImplementedError(
-            f"MetaTT variant {run.adapter_variant!r} is not ported yet")
+            "MetaTT variant '4+ed' applies its expert axis inside the MoE "
+            "layers and comes with the MoE model family (ROADMAP Queue 1 "
+            "item 5)")
     types = run.adapter_matrices or default_matrices(cfg,
                                                      run.adapter_variant)
     dims = matrix_dims(cfg)
     unknown = [t for t in types if t not in dims]
     if unknown:
         raise ValueError(f"{cfg.name}: matrix types {unknown} not present")
-    extra = ({"num_tasks": max(run.num_tasks, 1)}
-             if run.adapter_variant == "4+1d" else {})
-    acfg = MetaTTConfig(
-        num_layers=cfg.total_layers, matrix_types=tuple(types),
-        d_in=tuple(dims[t][0] for t in types),
-        d_out=tuple(dims[t][1] for t in types), rank=run.adapter_rank,
-        variant=run.adapter_variant, alpha=run.adapter_alpha, **extra)
-    return peft_api.AdapterSpec(kind="metatt", cfg=acfg)
+    d_in = tuple(dims[t][0] for t in types)
+    d_out = tuple(dims[t][1] for t in types)
+    common = dict(num_layers=cfg.total_layers, matrix_types=tuple(types),
+                  d_in=d_in, d_out=d_out, rank=run.adapter_rank)
+    if run.adapter_kind == "metatt":
+        extra = {}
+        if run.adapter_variant == "5d":
+            if max(d_out) > cfg.q_dim:
+                raise ValueError(
+                    "5d head-factorized output requires all adapted out dims "
+                    f"<= H*head_dim={cfg.q_dim}")
+            extra = dict(num_heads=cfg.num_heads,
+                         head_dim=cfg.resolved_head_dim)
+        elif run.adapter_variant == "4+1d":
+            extra = dict(num_tasks=max(run.num_tasks, 1))
+        elif run.adapter_variant != "4d":
+            raise ValueError(
+                f"unknown MetaTT variant {run.adapter_variant!r}")
+        acfg = MetaTTConfig(**common, variant=run.adapter_variant,
+                            alpha=run.adapter_alpha, **extra)
+    elif run.adapter_kind == "lora":
+        acfg = LoRAConfig(**common, alpha=run.adapter_alpha * run.adapter_rank)
+    elif run.adapter_kind == "vera":
+        acfg = VeRAConfig(**common)
+    elif run.adapter_kind == "lotr":
+        acfg = LoTRConfig(**common, alpha=run.adapter_alpha)
+    else:
+        raise ValueError(f"unknown adapter kind {run.adapter_kind!r}")
+    return peft_api.AdapterSpec(kind=run.adapter_kind, cfg=acfg)
 
 
 def init_params(cfg: ModelConfig, spec: peft_api.AdapterSpec,

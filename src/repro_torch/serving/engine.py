@@ -55,9 +55,17 @@
     stores int8 cells with per-cell f32 scale pools that ride the same
     block tables, prefix cache and copy-on-write; attention is #8q.
 
+  * RUNTIMES: ``live`` (the TT contraction per step), ``lora`` (the
+    middle cores pre-folded into A once; K1 / K2 on the same shapes as
+    live), ``merged`` (ΔW folded into the base weights: no adapter
+    kernel at all) and ``none``.
+  * BASE SNAPSHOTS: ``save_base_snapshot`` / ``load_base_snapshot`` write
+    and read the base the steps read (an int8 engine's packed leaves stay
+    int8), so a restart skips re-quantizing.
+
 Speculation, the adapter registry, meshes (and with them replicas, the
-router and disaggregated prefill), preemption and base snapshots are not
-ported yet: ``Engine`` raises ``NotImplementedError`` for the first four.
+router and disaggregated prefill) and preemption are not ported yet:
+``Engine`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -69,6 +77,7 @@ from typing import Any, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.config.base import (KernelConfig, ModelConfig, QuantConfig,
                                      ServeConfig)
 from repro_torch.device import resolve_device
@@ -76,7 +85,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels import quant as quant_lib
 from repro_torch.models import transformer
 from repro_torch.serving import sampling as sampling_lib
-from repro_torch.serving.adapter_runtime import PORTED, AdapterRuntime
+from repro_torch.serving.adapter_runtime import AdapterRuntime
 from repro_torch.serving.block_manager import BlockManager, PrefixCache
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.stats import EngineStats
@@ -169,9 +178,6 @@ class Engine:
                  serve: Optional[ServeConfig] = None,
                  device=None):
         transformer.check_supported(model_cfg)
-        if runtime.mode not in PORTED:
-            raise NotImplementedError(
-                f"runtime mode {runtime.mode!r} is not ported yet")
         self.sv = (serve if serve is not None else ServeConfig()).validate()
         self.cfg = model_cfg
         self.rt = runtime
@@ -262,6 +268,19 @@ class Engine:
         """The base tree the steps read: with weights=int8, the packed
         ``{"q8", "scale"}`` leaves."""
         return self._weights[0]
+
+    def save_base_snapshot(self, path: str) -> str:
+        """Snapshot the (possibly int8-quantized) serving base to one
+        ``.npz``, so a restart loads packed weights instead of
+        re-quantizing the fp base (``checkpoint/ckpt.py``)."""
+        return ckpt_lib.save_base_snapshot(path, self._weights[0])
+
+    def load_base_snapshot(self, path: str) -> None:
+        """Replace the serving base with a snapshot saved by an engine of
+        the same model / quant configuration (the current base is the
+        structure, dtype and device template)."""
+        base = ckpt_lib.load_base_snapshot(path, self._weights[0])
+        self._weights = (base,) + self._weights[1:]
 
     def _new_stats(self, requests: int = 0) -> EngineStats:
         return EngineStats(

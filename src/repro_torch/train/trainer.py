@@ -1,12 +1,18 @@
-"""Training loop: DMRG rank-adaptive sweeps, straggler watchdog,
-multi-task cycling (counterpart of ``src/repro/train/trainer.py``).
+"""Training loop: checkpoint / restart, DMRG rank-adaptive sweeps,
+straggler watchdog, multi-task cycling (counterpart of
+``src/repro/train/trainer.py``).
 
 The loop is host-driven: a DMRG sweep changes the adapter's shapes
 mid-run. At an epoch end with a scheduled target rank the trainer sweeps
 the cores (with the AdamW moments transported through each two-site
 resplit when ``train.dmrg_warm_moments``, else the paper's cold re-init)
-and carries on at the new ranks. Checkpoint / resume waits for the
-checkpoint slice: ``train.ckpt_dir`` raises.
+and carries on at the new ranks. With ``train.ckpt_dir`` it saves the
+train state every ``train.ckpt_every`` steps and at the end (keeping
+``train.ckpt_keep``), and a new Trainer on the same directory resumes
+from the newest checkpoint: adapter, optimizer state, step counter,
+data-iterator state and the DMRG schedule position. Sweeps run BEFORE the
+boundary save, so a resume lands on the post-sweep triple and never
+replays a sweep.
 
 Parameters come from ``torch.Generator(device).manual_seed(train.seed)``.
 To train from other weights, assign ``tr.base``, ``tr.frozen`` and
@@ -21,8 +27,10 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config.base import RunConfig
 from repro_torch.core import dmrg as dmrg_lib
+from repro_torch.core import tt
 from repro_torch.device import resolve_device
 from repro_torch.distributed import FailureInjector, Watchdog
 from repro_torch.models import model as model_lib
@@ -33,7 +41,7 @@ from repro_torch.train import train_step as ts
 @dataclasses.dataclass
 class Trainer:
     run: RunConfig
-    data: Any                                  # LMStream-like iterator
+    data: Any                                  # iterator with state()/restore()
     total_steps: int
     steps_per_epoch: int = 0                   # 0 -> no epoch semantics
     rank_schedule: Optional[dmrg_lib.RankSchedule] = None
@@ -44,9 +52,6 @@ class Trainer:
 
     def __post_init__(self):
         run = self.run
-        if run.train.ckpt_dir:
-            raise NotImplementedError(
-                "checkpoint / resume (train.ckpt_dir) is not ported yet")
         self.device = resolve_device(self.device)
         self.cfg = run.model
         self.spec = model_lib.build_adapter_spec(run)
@@ -58,12 +63,51 @@ class Trainer:
         self.step_fn = ts.make_train_step(
             self.cfg, self.spec, run.optimizer, run.train, self.total_steps,
             kernels=run.kernels, device=self.device)
+        self.ckpt = (CheckpointManager(run.train.ckpt_dir,
+                                       keep=run.train.ckpt_keep)
+                     if run.train.ckpt_dir else None)
         self.watchdog = Watchdog()
         self.straggler_events: list = []
         self.watchdog.on_straggler = lambda s, dt, ew: \
             self.straggler_events.append((s, dt, ew))
         self.history: list = []
         self._dmrg_applied: list = []      # epochs whose sweep already ran
+        self._resume()
+
+    # ------------------------------------------------------------------
+    def _resume(self) -> None:
+        """Load the newest checkpoint, if any, over the fresh state (its
+        shapes win: the ranks may have changed at a sweep)."""
+        if self.ckpt is None:
+            return
+        got = self.ckpt.restore_latest(self.state)
+        if got is None:
+            return
+        step, state, meta = got
+        self.state = state
+        if "data_state" in meta and hasattr(self.data, "restore"):
+            self.data.restore(meta["data_state"])
+        dm = meta.get("dmrg") or {}
+        self._dmrg_applied = list(dm.get("applied_epochs", []))
+        extra = (f" (dmrg epochs {self._dmrg_applied}, "
+                 f"ranks {tuple(dm.get('ranks', ()))})" if dm else "")
+        print(f"[trainer] resumed from checkpoint step {step}{extra}")
+
+    def _save(self, step: int) -> None:
+        if self.ckpt is None:
+            return
+        meta = {}
+        if hasattr(self.data, "state"):
+            meta["data_state"] = self.data.state()
+        adapter = self.state.adapter
+        if isinstance(adapter, dict) and "cores" in adapter:
+            # the schedule position rides with the reshaped params and
+            # optimizer state, so a resume cannot lose a rank change
+            meta["dmrg"] = {
+                "applied_epochs": list(self._dmrg_applied),
+                "ranks": [int(r) for r in tt.ranks(adapter["cores"])],
+            }
+        self.ckpt.save(step, self.state, meta)
 
     # ------------------------------------------------------------------
     def _maybe_dmrg(self, step: int) -> None:
@@ -122,7 +166,15 @@ class Trainer:
             self.history.append((step, metrics))
             if self.on_metrics is not None:
                 self.on_metrics(step, metrics)
+            # sweep BEFORE the boundary checkpoint: a save at an epoch edge
+            # must hold the post-sweep triple
             self._maybe_dmrg(step + 1)
+            if (self.run.train.ckpt_every
+                    and (step + 1) % self.run.train.ckpt_every == 0):
+                self._save(step + 1)
+        if self.ckpt is not None:
+            self._save(steps)
+            self.ckpt.wait()
         return self.history
 
     # ------------------------------------------------------------------

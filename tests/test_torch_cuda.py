@@ -714,8 +714,8 @@ def test_paged_decode_attention_int8_reads_pool_views(dev):
 @pytest.mark.parametrize("k,n", [(69, 130), (130, 69), (256, 2048)])
 @pytest.mark.parametrize("m", [1, 63, 64, 65, 4096])
 def test_tt_linear_tile_edges_and_views(dev, m, k, n, r, view):
-    """K1 at row, column and K tile edges, every rank kind (the `wgmma`
-    kernel up to rank 64, the template kernel above), with W, A and B
+    """K1 at row, column and K tile edges, every rank kind (P in
+    registers up to rank 64, the pre-pass variant above), with W, A and B
     contiguous or as transposed views (the backward's dx call: the
     `wgmma` kernel reads them through their strides)."""
     x = _rn(dev, m, k)
@@ -903,3 +903,100 @@ def test_dense_engine_serves_72_slots(dev, weights):
     print(f"{weights}: {same}/{72 * 8} tokens equal the plain leg's greedy "
           f"run; largest teacher-forced gap {worst:.3e}")
     assert worst <= 5e-2
+
+
+# ------------------------------------------- K1 above rank 256 (pre-pass)
+
+@pytest.mark.parametrize("r", [384, 1024])
+@pytest.mark.parametrize("m", [4, 64, 4096])
+def test_tt_linear_high_rank_forward_and_dx(dev, m, r):
+    """K1 at ranks the TPU kernel keeps whole in its f32 scratch (VeRA's
+    1024, the paper's largest): the forward, and through ``_FusedTTLinear``
+    the backward's dx on the (g, Wᵀ, Bᵀ, Aᵀ) views with dA and dB, each
+    against the plain leg on the same inputs."""
+    k = n = 2048
+    x, w = _rn(dev, m, k), _rn(dev, k, n, scale=k ** -0.5)
+    a = _rn(dev, k, r, scale=k ** -0.5)
+    b = _rn(dev, r, n, scale=r ** -0.5)
+    assert ttl.k1_variant(r) == "pre_pass"
+    _close(ttl.tt_linear(x, w, a, b, 4.0),
+           ttl.tt_linear_plain(x, w, a, b, 4.0), 1e-2)
+    g = _rn(dev, m, n, seed=5)
+    got, want = [], []
+    for pol, out in ((dispatch.DEFAULT, got), (dispatch.REF, want)):
+        xx, aa, bb = (t.clone().requires_grad_(True) for t in (x, a, b))
+        y = dispatch.tt_linear(xx, w, aa, bb, alpha=4.0, policy=pol)
+        out.extend(torch.autograd.grad(y, (xx, aa, bb), g))
+    for gt, wt in zip(got, want):
+        torch.cuda.synchronize()
+        err = (gt.float() - wt.float()).abs().max()
+        assert err <= 2e-2 * wt.float().abs().max(), err
+
+
+def test_vera_1024_training_step_full_width(dev):
+    """One VeRA r = 1024 step on a 2-layer full-width stablelm-1.6b: K1
+    takes the pre-pass variant forward and as dx, the loss is finite and
+    g moves off its zero init (d's gradient is 0 while g is, so d keeps
+    d_init for this first step)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.config.base import RunConfig, TrainConfig
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(configs.get_config("stablelm-1.6b"),
+                              num_layers=2).validate()
+    run = RunConfig(model=cfg, adapter_kind="vera", adapter_rank=1024,
+                    train=TrainConfig(remat="block"))
+
+    class Batch:
+        def __next__(self):
+            rng = np.random.default_rng(0)
+            return {"tokens": rng.integers(0, cfg.vocab_size, (2, 256)),
+                    "mask": np.ones((2, 256), np.float32)}
+    tr = Trainer(run=run, data=Batch(), total_steps=1, device=dev)
+    d0 = tr.state.adapter["d"].clone()
+    kernels.reset_launch_counts()
+    tr.train()
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()
+    assert n["tt_linear"] == 6 * cfg.num_layers - 2
+    assert np.isfinite(tr.losses()).all()
+    assert torch.equal(tr.state.adapter["d"], d0)
+    assert float(tr.state.adapter["g"].abs().max()) > 0
+
+
+def test_w8_engine_snapshot_roundtrip_same_tokens(dev, tmp_path):
+    """A dense int8-weight engine's base snapshot, loaded by a second
+    engine over other weights, gives the same greedy tokens."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.config.base import (QuantConfig, RunConfig,
+                                         ServeConfig)
+    from repro_torch.models import model as M
+    from repro_torch.serving import AdapterRuntime, Engine, Request
+    cfg = dataclasses.replace(configs.get_config("stablelm-1.6b"),
+                              num_layers=2, d_model=256, num_heads=4,
+                              num_kv_heads=4, d_ff=512,
+                              vocab_size=512).validate()
+    spec = M.build_adapter_spec(RunConfig(model=cfg, adapter_rank=4))
+    serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=64,
+                        out_cap=8, quant=QuantConfig(weights="int8"))
+
+    def engine(seed):
+        p = M.init_params(cfg, spec, torch.Generator(device=dev)
+                          .manual_seed(seed), device=dev)
+        rt = AdapterRuntime.build("live", p["base"], spec, p["adapter"],
+                                  p["frozen"])
+        return Engine(cfg, rt, serve=serve, device=dev)
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (5 + i,),
+                                  generator=rng).numpy(), 8)
+            for i in range(4)]
+    e1 = engine(0)
+    out1 = [o.tolist() for o in e1.generate(reqs)]
+    path = e1.save_base_snapshot(str(tmp_path / "w8"))
+    e2 = engine(1)
+    e2.load_base_snapshot(path)
+    assert all(t.is_cuda for t in M.tensors(e2.base_weights))
+    assert any(t.dtype == torch.int8 for t in M.tensors(e2.base_weights))
+    assert [o.tolist() for o in e2.generate(reqs)] == out1

@@ -230,9 +230,6 @@ def test_unported_serving_modes_raise(bad):
                               p["frozen"])
     with pytest.raises(NotImplementedError):
         Engine(cfg, rt, serve=ServeConfig(**bad), device="cpu")
-    with pytest.raises(NotImplementedError):
-        AdapterRuntime.build("merged", p["base"], spec, p["adapter"],
-                             p["frozen"], model_cfg=cfg)
 
 
 def test_sampling_methods_stay_in_vocab_and_follow_the_generator():

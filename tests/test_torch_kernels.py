@@ -55,7 +55,8 @@ LIN_TOL = {"f32": 1e-5, "bf16": 8e-3}
 ATT_TOL = {"f32": 1e-5, "bf16": 2e-2}
 
 
-@pytest.mark.parametrize("m,k,n,r", [(33, 70, 45, 4), (5, 129, 200, 8)])
+@pytest.mark.parametrize("m,k,n,r", [(33, 70, 45, 4), (5, 129, 200, 8),
+                                     (9, 72, 40, 1024)])   # VeRA's rank
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_tt_linear_plain_matches_pallas_and_ref(m, k, n, r, dt):
     rng = np.random.default_rng(m * 1000 + k)

@@ -156,7 +156,8 @@ def test_tt_linear_reads_transposed_views(r, dt):
 def test_k1_variant_names_the_kernel_by_rank():
     assert ttl.k1_variant(8) == "wgmma"
     assert ttl.k1_variant(ttl.RANK_WGMMA) == "wgmma"
-    assert ttl.k1_variant(ttl.RANK_WGMMA + 1) == "template"
+    assert ttl.k1_variant(ttl.RANK_WGMMA + 1) == "pre_pass"
+    assert ttl.k1_variant(ttl.K1_MAX_RANK) == "pre_pass"
 
 
 @pytest.mark.parametrize("m,k,n,want", [

@@ -17,9 +17,9 @@ versions.
   which may differ by one quantum (the test counts them).
 * A step whose every write is a sentinel leaves every pool bit-identical.
 * Greedy tokens of the port's int8 paged engine (four QuantConfigs) and
-  w8 dense engine IDENTICAL to the JAX engines' (the ``live`` runtime;
-  the JAX test's ``lora`` runtime is not ported), with equal dtype and
-  KV-memory stats; warm == cold with prefix hits and copy-on-write.
+  w8 dense engine IDENTICAL to the JAX engines' (the ``live`` runtime,
+  and the ``lora`` runtime tests/test_quant.py serves), with equal dtype
+  and KV-memory stats; warm == cold with prefix hits and copy-on-write.
 """
 import functools
 
@@ -276,11 +276,11 @@ def _workload():
             for i in range(5)]
 
 
-def _engines(qc: dict, **kw):
+def _engines(qc: dict, mode="live", **kw):
     jcfg, jspec, jp, cfg, spec, tp = _setup()
-    jrt = JRuntime.build("live", jp["base"], jspec, jp["adapter"],
+    jrt = JRuntime.build(mode, jp["base"], jspec, jp["adapter"],
                          jp["frozen"])
-    trt = AdapterRuntime.build("live", tp["base"], spec, tp["adapter"],
+    trt = AdapterRuntime.build(mode, tp["base"], spec, tp["adapter"],
                                tp["frozen"])
     jk = kw.pop("jkernels", None)
     sv = dict(SERVE, **kw)
@@ -325,6 +325,22 @@ def test_int8_paged_engine_token_identical_to_jax(qc):
     if qc.get("weights") == "int8":
         assert tquant.is_quantized(teng.base_weights["blocks"][0]["mixer"]
                                    ["wq"])
+
+
+@pytest.mark.parametrize("cache", ["paged", "dense"])
+def test_int8_engines_lora_runtime_token_identical_to_jax(cache):
+    """tests/test_quant.py's runtime: the pre-folded lora factors
+    (A = α·G1·C) over the int8 base — paged with int8 KV, and dense with
+    int8 weights (#9 / #10's plain versions)."""
+    if cache == "paged":
+        jeng, teng = _engines(dict(weights="int8", kv="int8"), mode="lora")
+    else:
+        jeng, teng = _engines(dict(weights="int8"), mode="lora",
+                              cache_mode="dense")
+    assert teng.rt.mode == "lora" and set(teng.rt.per_layer) == {"a"}
+    _serve(jeng, teng, _workload())
+    if cache == "paged":
+        assert teng.leaked_blocks() == 0
 
 
 def test_int8_paged_engine_matches_jax_pallas_interpret_leg():

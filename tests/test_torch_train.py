@@ -305,8 +305,7 @@ def test_remat_on_and_off_train_alike():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("train", [{"ckpt_dir": "ckpts"},
-                                   {"grad_compression": "int8"},
+@pytest.mark.parametrize("train", [{"grad_compression": "int8"},
                                    {"train_base": True}])
 def test_unported_train_options_raise(train):
     _, trun = _runs(**train)
