@@ -18,8 +18,9 @@ Phases, each printed on its own lines:
      never calls it); where a launcher chooses among kernels or splits
      (K1, the flash forward, K2's, #9's and #10's slices of K, #8's
      product and K4's, #8's and #8q's window chunks), which one ran and
-     every variant's time; K1 at ranks 256, 512 and 1024 at M = 64 and
-     at the training shape as forward and dx; K2 and #10 at M = 4, 8, 16
+     every variant's time; K1 at ranks 256, 512, 1024 and 2048 at M = 64
+     and at the training shape as forward and dx; #9, K2 and #10 at ranks
+     384 and 1024 (M = 4 and 64); K2 and #10 at M = 4, 8, 16
      and 64, K4 at 256
      and 4096 cells, #9 at M = 16, 64, 128 and 256 and #8 / #8q at C = 1
      and 32 must agree bit for bit across two calls;
@@ -73,7 +74,21 @@ Phases, each printed on its own lines:
      engine rejects task 0; tok/s and decode ms a step), and the paged
      engine under the lora runtime; (d) phase 5's int8 dense engine saves
      its base, a second engine loads it and gives the same tokens;
-  8. one JSON line with every kernel's record (launches per path).
+  8. the rest of training and speculative decode on the same full-width
+     model: (a) the dense 4-slot cell over an int8 base with VeRA r=1024
+     (#9 above rank 64) and a 4+1d MetaTT r=384 (#10 above rank 64),
+     every token within 5% of the largest logit of the plain leg's
+     teacher-forced maximum; (b) two full fine-tuning steps (peak memory,
+     step time, the base moved, #5 / #6 / #7 launched, loss and gradient
+     norm against the plain step); (c) a two-site DMRG sweep of phase 6's
+     adapter (ranks, loss before and after, gradient calls); (d) Trainer
+     steps with int8 and top-k gradient compression; (e) speculative
+     decode (spec_k 3, draft rank 4, layer stride 2) on the dense cell and
+     the paged cell (fp, then int8 KV) against the same engine without it
+     (acceptance, tokens per step, tok/s; teacher-forced tokens; K4 once
+     a verified column; #8 / #8q on the verifier; no leaked block); the
+     phase's seconds and the script's;
+  9. one JSON line with every kernel's record (launches per path).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -268,12 +283,12 @@ def k1_rows(dev, rn):
     return rows
 
 
-K1_RANKS = (256, 512, 1024)
+K1_RANKS = (256, 512, 1024, 2048)
 
 
 def k1_rank_rows(dev, rn):
-    """K1 above rank 64 (the pre-pass variant), at ranks 256, 512 and
-    1024 (VeRA's in the paper's Table 1): at M = 64 and at the training
+    """K1 above rank 64 (the pre-pass variant), at ranks 256, 512, 1024
+    (VeRA's in the paper's Table 1) and 2048: at M = 64 and at the training
     shape M = 4096, K = N = 2048, as the forward (A K-contiguous, as the
     model folds MetaTT and LoTR) and as the backward's dx on the
     transposed views the backward passes. Each against its plain version
@@ -368,9 +383,9 @@ def k2_rows(dev, rn):
     """K2 at the dense decode's q/v projections: M = 4 slots (the
     engine's, the main row), 8, 16 and 64 (a full launch of ``ops``'
     split), K = N = 2048, r = 8, task-routed A rows. Two calls must agree
-    bit for bit; the launcher's path (kernel and slices of K; the `wgmma`
-    path includes the pre-pass that sums P[m] = x[m]·A[m]) is printed
-    beside the template kernel's and each slice count's time."""
+    bit for bit; the launcher's path (the rank term's form and slices of
+    K; the kernel includes the pre-pass that sums P[m] = x[m]·A[m]) is
+    printed beside each slice count's time."""
     import torch
     from repro_torch.kernels import tt_linear as tl
     alpha, k, n, r = 4.0, 2048, 2048, 8
@@ -386,17 +401,11 @@ def k2_rows(dev, rn):
                       tl.tt_linear_batched_a_plain(*sets[0], alpha))
         same(lambda *t: fn(*t, alpha), sets[0], "tt_linear_batched_a")
 
-        def run(x, w, a, b, v, sp):
-            y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-            tl._build.check(tl._launch_batched_a(x, w, a, b, y, alpha, v, sp),
-                            "tt_linear_batched_a")
-            return y
-        path, splits = tl.ba_path(*sets[0][:3], r)
-        variants = {"template": cuda_time_ms(
-            lambda *t: run(*t, "template", 1), sets)}
-        for sp in (1, 2, 4, 8):
-            variants[f"wgmma_s{sp}"] = cuda_time_ms(
-                lambda *t: run(*t, "wgmma", sp), sets)
+        path, splits = tl.splitk_path(*sets[0][:2], r)
+        variants = {f"s{sp}": cuda_time_ms(
+            lambda *t: tl._launch_splitk("tt_linear_batched_a", t[0], t[1],
+                                         None, t[2], t[3], alpha, sp), sets)
+            for sp in (1, 2, 4, 8)}
         bms, by = bound_ms(nbytes, 2 * m * k * n + 2 * m * k * r
                            + 2 * m * r * n)
         rows.append(dict(
@@ -496,6 +505,8 @@ def phase_kernels(dev, only=None):
               (("flash_attention",), k3_rows), (("decode_attention",), k4_rows),
               (("paged_decode_attention",), paged_kernel_rows),
               (("tt_linear_w8", "tt_linear_batched_a_w8"), w8_kernel_rows),
+              (("tt_linear_w8", "tt_linear_batched_a",
+                "tt_linear_batched_a_w8"), splitk_rank_rows),
               (("paged_decode_attention_int8",), paged_int8_kernel_rows),
               (("tt_linear_batched_a", "tt_linear_batched_a_w8"),
                batched_a_split_rows))
@@ -660,8 +671,8 @@ def w8_kernel_rows(dev, rn):
     output channel (the engine's QuantConfig; the main rows are #9 at M
     = 64 and #10 at M = 4) and with 128-row scale groups. Two calls must
     agree bit for bit; the launcher's path (kernel and slices of K;
-    #10's `wgmma` path includes the pre-pass that sums P[m] = x[m]·A[m])
-    is printed beside the template kernel's and each slice count's time.
+    #10's includes the pre-pass that sums P[m] = x[m]·A[m]) is printed
+    beside each slice count's time.
     The bound counts W as int8 plus its f32 scales; the library
     yardstick is torch.matmul on a PRE-DEQUANTIZED bf16 W plus the
     rank-r term (the dequantization is left out of its time; the port
@@ -690,21 +701,10 @@ def w8_kernel_rows(dev, rn):
             sets = copies(make, nbytes)
             err = compare(name, fn(*sets[0], alpha), plain(*sets[0], alpha))
             same(lambda *t: fn(*t, alpha), sets[0], name)
-            launch = tl._launch_w8_batched_a if batched \
-                else tl._launch_w8_shared_a
-
-            def run(x, wq, sc, a, b, v, sp):
-                y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-                tl._build.check(launch(x, wq, sc, a, b, y, g, alpha, v, sp),
-                                name)
-                return y
-            path, splits = (tl.bw8_path(*sets[0][:4], r) if batched
-                            else tl.w8_path(*sets[0][:3], r))
-            variants = {"template": cuda_time_ms(
-                lambda *t: run(*t, "template", 1), sets)}
-            for sp in (1, 2, 4, 8):
-                variants[f"wgmma_s{sp}"] = cuda_time_ms(
-                    lambda *t: run(*t, "wgmma", sp), sets)
+            path, splits = tl.splitk_path(*sets[0][:2], r)
+            variants = {f"s{sp}": cuda_time_ms(
+                lambda *t: tl._launch_splitk(name, *t, alpha, sp), sets)
+                for sp in (1, 2, 4, 8)}
             lib_sets = [(x, quant.dequantize(
                 {"q8": wq, "scale": sc}, torch.bfloat16), a, b)
                 for x, wq, sc, a, b in sets]
@@ -731,6 +731,74 @@ def w8_kernel_rows(dev, rn):
                 variants=variants))
             del sets, lib_sets
     torch.cuda.empty_cache()
+    return rows
+
+
+SPLITK_RANKS = (384, 1024)
+
+
+def splitk_rank_rows(dev, rn):
+    """#9, K2 and #10 above rank 64 (the hi + lo pre-pass, then the
+    split-K kernel over K + 2·rp rows) at ranks 384 and 1024 (VeRA's),
+    M = 4 and 64, K = N = 2048, per output channel: each against its plain
+    version at the linears' tolerance, two calls bit-identical, with its
+    bound and one library call (``torch.matmul`` on a pre-dequantized W
+    plus the rank-r term; per-row A: a batched product)."""
+    import torch
+    from repro_torch.kernels import quant
+    from repro_torch.kernels import tt_linear as tl
+    alpha, k, n = 4.0, 2048, 2048
+    rows = []
+    for name in ("tt_linear_w8", "tt_linear_batched_a",
+                 "tt_linear_batched_a_w8"):
+        batched, w8 = name != "tt_linear_w8", name.endswith("w8")
+        fn, plain = getattr(tl, name), getattr(tl, name + "_plain")
+        for r in SPLITK_RANKS:
+            for m in (4, 64):
+                def make():
+                    w = rn(k, n, scale=k ** -0.5)
+                    wt = quant.quantize_int8(w, 0) if w8 else (w,)
+                    a = (rn(m, k, r, scale=k ** -0.5) if batched
+                         else rn(r, k, scale=k ** -0.5).T)
+                    return (rn(m, k), *wt, a, rn(r, n, scale=r ** -0.5))
+                nbytes = (2 * m * k + (k * n + 4 * n if w8 else 2 * k * n)
+                          + 2 * (m if batched else 1) * k * r + 2 * r * n
+                          + 2 * m * n)
+                sets = copies(make, nbytes)
+                err = compare(name, fn(*sets[0], alpha),
+                              plain(*sets[0], alpha))
+                same(lambda *t: fn(*t, alpha), sets[0], name)
+                lib_sets = [(t[0], quant.dequantize(
+                    {"q8": t[1], "scale": t[2]}, torch.bfloat16)
+                    if w8 else t[1], t[-2], t[-1]) for t in sets]
+                if batched:
+                    def lib(x, w, a, b):
+                        return torch.matmul(x, w) + alpha * torch.matmul(
+                            torch.bmm(x[:, None], a)[:, 0], b)
+                else:
+                    def lib(x, w, a, b):
+                        return torch.matmul(x, w) + alpha * torch.matmul(
+                            torch.matmul(x, a), b)
+                path = tl.splitk_path(*sets[0][:2], r)
+                bms, by = bound_ms(nbytes, 2 * m * k * n + 2 * m * k * r
+                                   + 2 * m * r * n)
+                ms = cuda_time_ms(lambda *t: fn(*t, alpha), sets)
+                rows.append(dict(
+                    name=name, rank_row=True, main=False,
+                    shape=f"M={m} K={k} N={n} r={r}", max_abs_err=err,
+                    ms=ms, plain_ms=cuda_time_ms(
+                        lambda *t: plain(*t, alpha), sets),
+                    library_ms=cuda_time_ms(lib, lib_sets),
+                    bound_ms=bms, bound_by=by,
+                    variant=f"{path[0]} splits={path[1]}",
+                    variants={path[0]: ms}))
+                rows[-1]["tflops"] = (2 * m * k * n + 4 * m * k * r) / ms / 1e9
+                print(f"[kernel] {name} r={r} M={m}: err {err:.3e}; "
+                      f"{ms:.4f} ms, {bms / ms:.1%} of its bound ({by}); "
+                      f"/ library {ms / rows[-1]['library_ms']:.3f}x; plain "
+                      f"{rows[-1]['plain_ms']:.4f} ms", flush=True)
+                del sets, lib_sets
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1083,8 +1151,6 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                 lambda x_, w_, a_, b_: torch.matmul(x_, w_) + alpha
                 * torch.matmul(torch.matmul(x_, a_), b_), [ops_]),
             variant=tl.k1_variant(r),
-            # the template kernel takes contiguous operands: on the dx
-            # views its time includes the copies the wrapper makes
             variants={v: cuda_time_ms(
                 lambda *t: tl._launch_k1(*t, alpha, v), [ops_])
                 for v in tl.K1_VARIANTS})
@@ -2262,6 +2328,467 @@ def phase_adapters(dev, dense_run, paged_run, train_cores):
     return total
 
 
+def teacher_forced_gap(cfg, spec, rt, base, reqs, outs, dev):
+    """The largest gap, over every generated token, between the plain
+    leg's best logit and the chosen token's, over the largest |logit|: the
+    plain versions' forward (over ``base``: an int8 engine's packed one)
+    on [prompt, tokens], teacher-forced."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    worst = 0.0
+    with torch.inference_mode():
+        for req, toks in zip(reqs, outs):
+            toks = [int(t) for t in toks]
+            seq = torch.as_tensor([*req.prompt, *toks], device=dev)[None]
+            lg = T.forward(base, cfg, spec, rt.broadcast, rt.per_layer, seq,
+                           task=req.task if rt.tasked else None,
+                           policy=dispatch.REF, device=dev).logits[0].float()
+            lg = lg[len(req.prompt) - 1:-1]
+            chosen = lg.gather(-1, torch.as_tensor(toks, device=dev)[:, None])
+            gap = (lg.max(-1).values - chosen[:, 0]) / lg.abs().amax(-1)
+            worst = max(worst, float(gap.max()))
+    return worst
+
+
+def q_ratio(cfg, rt, gen):
+    """||α·(x·A)·B|| / ||x·W|| of layer 0's q projection (task 0) on a
+    unit-normal x, for any adapter kind: how strong it is against the
+    frozen base."""
+    import torch
+    from repro_torch.peft import api as peft_api
+    x = torch.randn((16, cfg.d_model), generator=gen, device=gen.device)
+    a, b, alpha = peft_api.lora_form_factors(
+        rt.spec, rt.broadcast, {k: v[0] for k, v in rt.per_layer.items()},
+        "attn_q", task=0 if rt.tasked else None)
+    w = x @ rt.base["blocks"][0]["mixer"]["wq"][0].float()
+    return float((alpha * (x @ a.float()) @ b.float()).norm() / w.norm())
+
+
+def w8_high_rank_serving(dev, reqs, count):
+    """Phase 8 (a): the dense 4-slot x 256-cell cell over an int8 base
+    (``QuantConfig(weights="int8")``) with VeRA at Table 1's rank 1024
+    (#9 above rank 64 at prefill and decode) and a 4+1d MetaTT adapter at
+    rank 384 (#10 above rank 64 at decode), each scaled to a mild adapter
+    (ratio 0.1 to the base projection). Every token within 5% of the
+    largest logit of the plain leg's teacher-forced maximum."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import QuantConfig, RunConfig, ServeConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.peft import api as peft_api
+    from repro_torch.serving import AdapterRuntime, Engine
+
+    cfg = configs.get_config("stablelm-1.6b")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    base = T.init_base_params(cfg, gen, device=dev)
+    serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=256,
+                        out_cap=32, quant=QuantConfig(weights="int8"))
+    for kind, variant, rank, want in (
+            ("vera", "4d", 1024, ("tt_linear_w8",)),
+            ("metatt", "4+1d", 384, ("tt_linear_w8",
+                                     "tt_linear_batched_a_w8"))):
+        spec = M.build_adapter_spec(RunConfig(
+            model=cfg, adapter_kind=kind, adapter_variant=variant,
+            num_tasks=3 if variant == "4+1d" else 0, adapter_rank=rank))
+        adapter, frozen = peft_api.init_adapter(spec, gen, device=dev)
+        if kind == "vera":
+            adapter["g"] = torch.randn(adapter["g"].shape, generator=gen,
+                                       device=dev)
+        else:
+            adapter = {"cores": ttlib.random_tt(
+                gen, spec.cfg.mode_sizes, rank, scale=0.05, device=dev)}
+        rt = AdapterRuntime.build("live", base, spec, adapter, frozen)
+        ratio = q_ratio(cfg, rt, gen)
+        # ΔW is linear in g (VeRA) and in G4 (MetaTT): scale it to 0.1
+        if kind == "vera":
+            adapter["g"] *= 0.1 / ratio
+        else:
+            adapter["cores"][-1] *= 0.1 / ratio
+        rt = AdapterRuntime.build("live", base, spec, adapter, frozen)
+        eng = Engine(cfg, rt, serve=serve, device=dev)
+        my_reqs = [r if rt.tasked else dataclasses.replace(r, task=0)
+                   for r in reqs]
+        eng.generate(my_reqs[:1])
+        outs = []
+        n = count(lambda: outs.extend(eng.generate(my_reqs)))
+        st = eng.last_stats
+        for res in eng.last_results:
+            if res.status != "FINISHED" or res.n_generated != 32:
+                raise AssertionError(f"{kind} r={rank} w8: request ended "
+                                     f"{res.status}")
+        for name in want:
+            if not n[name] > 0:
+                raise AssertionError(f"{kind} r={rank} w8: {name} never "
+                                     f"launched: {n}")
+        gap = teacher_forced_gap(cfg, spec, rt, eng.base_weights, my_reqs,
+                                 outs, dev)
+        print(f"[phase8] (a) w8 dense {kind} r={rank}: q ratio "
+              f"{q_ratio(cfg, rt, gen):.3e}; {st.tokens_generated} tokens, "
+              f"{st.tokens_per_s:.1f} tok/s, decode "
+              f"{1e3 * st.decode_s / max(st.decode_steps, 1):.2f} ms/step; "
+              f"launches {json.dumps({k: v for k, v in n.items() if v})}; "
+              f"largest teacher-forced gap {gap:.3e} (limit 5e-2)",
+              flush=True)
+        if not gap <= 5e-2:
+            raise AssertionError(f"{kind} r={rank} w8: a token {gap:.3e} "
+                                 "below the plain leg's best logit")
+        del eng, rt
+
+
+def full_ft_on_the_card(dev, count):
+    """Phase 8 (b): two full fine-tuning steps (``make_full_ft_step``) of
+    full-width stablelm-1.6b on 4 x 1024 tokens, remat per block: finite
+    losses, the base moved, #5 / #6 / #7 launched; the first step's loss
+    and gradient norm against the plain versions' step
+    (``KernelConfig(backend="ref")``) on the same weights and batch."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import KernelConfig, OptimizerConfig, \
+        TrainConfig
+    from repro_torch.data import LMStream
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_full_ft_step
+    from repro_torch.tree import tree_map
+
+    cfg = configs.get_config("stablelm-1.6b")
+    data = LMStream(vocab_size=cfg.vocab_size, seq_len=1024, batch=4,
+                    seed=1, branching=2)
+    batches = [{"tokens": torch.as_tensor(next(data)["tokens"], device=dev)}
+               for _ in range(2)]
+    base = T.init_base_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 12), device=dev)
+    # lr 1e-3: Adam's first step moves a weight by about lr, above the
+    # bf16 spacing of the base's weights (≈ 1.2e-4 at their 0.022 scale)
+    opt_cfg = OptimizerConfig(lr=1e-3, schedule="constant")
+    tcfg = TrainConfig(remat="block")
+    # the plain versions' first step on a copy of the same weights
+    ref_step = make_full_ft_step(cfg, opt_cfg, tcfg, 2,
+                                 kernels=KernelConfig(backend="ref"),
+                                 device=dev)
+    copy = tree_map(torch.clone, base)
+    _, _, mref = ref_step(copy, adamw.init_state(copy), batches[0])
+    ref = {k: float(mref[k]) for k in ("loss", "grad_norm")}
+    del copy, mref
+    torch.cuda.empty_cache()
+    step = make_full_ft_step(cfg, opt_cfg, tcfg, 2, device=dev)
+    before = base["blocks"][0]["mixer"]["wq"].clone()
+    opt = adamw.init_state(base)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics, times = [], []
+
+    def run():
+        nonlocal base, opt
+        for b in batches:
+            t0 = time.perf_counter()
+            base, opt, m = step(base, opt, b)
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+            times.append(time.perf_counter() - t0)
+    n = count(run)
+    moved = float((base["blocks"][0]["mixer"]["wq"].float()
+                   - before.float()).abs().max())
+    rel_loss = abs(metrics[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    rel_gn = abs(metrics[0]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    print(f"[phase8] (b) full fine-tuning, 2 steps of 4 x 1024 tokens: "
+          f"losses {[round(m['loss'], 6) for m in metrics]}, grad norms "
+          f"{[round(m['grad_norm'], 4) for m in metrics]}; step times "
+          f"{[round(1e3 * t, 1) for t in times]} ms; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; base moved "
+          f"{moved:.3e}; vs the plain step: loss {rel_loss:.3e} (limit "
+          f"1e-2), grad norm {rel_gn:.3e} (limit 5e-2); launches "
+          f"{json.dumps({k: v for k, v in n.items() if v})}", flush=True)
+    if not all(np.isfinite([m["loss"] for m in metrics])):
+        raise AssertionError(f"full FT: non-finite loss {metrics}")
+    if not moved > 0:
+        raise AssertionError("full FT: the base did not move")
+    if not (rel_loss <= 1e-2 and rel_gn <= 5e-2):
+        raise AssertionError(f"full FT vs the plain step: loss {rel_loss:.3e}"
+                             f", grad norm {rel_gn:.3e}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if not n[name] > 0:
+            raise AssertionError(f"full FT: {name} never launched: {n}")
+    if n["tt_linear"]:
+        raise AssertionError(f"full FT ran K1 with no adapter: {n}")
+    del base, opt
+    torch.cuda.empty_cache()
+
+
+def two_site_on_the_card(dev, train_cores, count):
+    """Phase 8 (c): one two-site DMRG sweep (local loss optimization) of
+    phase 6's trained 4d adapter to rank 6, its loss_fn the model loss on
+    1 x 1024 tokens: 2·(d−1)·inner gradient calls through the training
+    kernels."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import RunConfig
+    from repro_torch.core import dmrg
+    from repro_torch.core import tt as ttlib
+    from repro_torch.data import LMStream
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config("stablelm-1.6b")
+    spec = M.build_adapter_spec(RunConfig(model=cfg, adapter_kind="metatt",
+                                          adapter_variant="4d",
+                                          adapter_rank=8))
+    base = T.init_base_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    tokens = torch.as_tensor(next(LMStream(
+        vocab_size=cfg.vocab_size, seq_len=1024, batch=1, seed=5,
+        branching=2))["tokens"], device=dev)
+    batch = {"tokens": tokens,
+             "mask": torch.ones_like(tokens, dtype=torch.float32)}
+    calls = {"n": 0}
+
+    def loss_fn(params):
+        calls["n"] += 1
+        return M.loss_fn(params, base, {}, batch, cfg, spec, remat=True,
+                         device=dev)[0]
+
+    def loss(cores):
+        with torch.no_grad():
+            return float(M.loss_fn({"cores": cores}, base, {}, batch, cfg,
+                                   spec, device=dev)[0])
+    cores = [c.detach().clone() for c in train_cores]
+    inner, out = 2, {}
+    t0 = time.perf_counter()
+    n = count(lambda: out.update(res=dmrg.two_site_sweep(
+        {"cores": cores}, loss_fn, target_rank=6, inner_steps=inner)))
+    sweep_s = time.perf_counter() - t0
+    res = out["res"]
+    before, after = loss(cores), loss(res.params["cores"])
+    print(f"[phase8] (c) two-site sweep of the 4d adapter: ranks "
+          f"{ttlib.ranks(cores)} -> {res.ranks}; loss on 1 x 1024 tokens "
+          f"{before:.6f} -> {after:.6f}; {calls['n']} gradient calls in "
+          f"{sweep_s:.1f} s; launches "
+          f"{json.dumps({k: v for k, v in n.items() if v})}", flush=True)
+    if calls["n"] != 2 * (len(cores) - 1) * inner or res.ranks != (6, 6, 6):
+        raise AssertionError(f"two-site sweep: {calls['n']} gradient "
+                             f"calls, ranks {res.ranks}")
+    if not (np.isfinite(after) and all(
+            bool(torch.isfinite(c).all()) for c in res.params["cores"])):
+        raise AssertionError(f"two-site sweep: non-finite result {after}")
+    if not (n["tt_linear"] > 0 and n["flash_attention_bwd_dq"] > 0):
+        raise AssertionError(f"two-site sweep missed the kernels: {n}")
+    del base
+    torch.cuda.empty_cache()
+
+
+def compressed_training(dev, count):
+    """Phase 8 (d): three Trainer steps of the 4d MetaTT adapter on
+    full-width stablelm-1.6b (4 x 1024 tokens, remat per block) with int8
+    and with top-k gradient compression: finite losses, the adapter
+    moved, the top-k residual carried."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import OptimizerConfig, RunConfig, \
+        TrainConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.data import LMStream
+    from repro_torch.train import Trainer
+
+    cfg = configs.get_config("stablelm-1.6b")
+    base = None
+    for kind in ("int8", "topk"):
+        run = RunConfig(model=cfg, adapter_kind="metatt", adapter_variant="4d",
+                        adapter_rank=8, optimizer=OptimizerConfig(lr=1e-3),
+                        train=TrainConfig(remat="block", seed=SEED,
+                                          grad_compression=kind))
+        tr = Trainer(run=run, data=LMStream(
+            vocab_size=cfg.vocab_size, seq_len=1024, batch=4, seed=0,
+            branching=2), total_steps=3, device=dev)
+        base = tr.base if base is None else base
+        tr.base = base
+        n = count(tr.train)
+        losses = tr.losses()
+        norm = float(ttlib.tt_norm(tr.state.adapter["cores"]))
+        res = tr.state.residual
+        rnorm = (0.0 if res is None else
+                 float(sum(r.float().norm() ** 2 for r in res["cores"])) ** 0.5)
+        step_ms = [round(1e3 * m["step_time_s"], 1) for _, m in tr.history]
+        print(f"[phase8] (d) {kind} gradient compression, 3 Trainer steps: "
+              f"losses {[round(float(x), 6) for x in losses]}; step times "
+              f"{step_ms} ms; ||ΔW|| {norm:.3e}; residual norm {rnorm:.3e}; "
+              f"launches {json.dumps({k: v for k, v in n.items() if v})}",
+              flush=True)
+        if not (np.isfinite(losses).all() and norm > 0):
+            raise AssertionError(f"{kind} compression: losses {losses}, "
+                                 f"||ΔW|| {norm}")
+        if (kind == "topk") != (res is not None and rnorm > 0):
+            raise AssertionError(f"{kind} compression: residual {rnorm}")
+        del tr
+    del base
+    torch.cuda.empty_cache()
+
+
+SPEC = dict(spec_k=3, draft_rank=4, draft_layer_stride=2)
+
+
+def decaying_tt(gen, mode_sizes, rank, scale, decay, dev):
+    """Random TT whose bond strength decays geometrically (bond column j
+    scaled by decay**j): the spectrum DMRG leaves on a trained adapter,
+    where a rank-truncated drafter tracks the target."""
+    import torch
+    from repro_torch.core import tt as ttlib
+    cores = ttlib.random_tt(gen, mode_sizes, rank, scale=scale, device=dev)
+    w = decay ** torch.arange(rank, device=dev, dtype=torch.float32)
+    out = [cores[0] * w[None, None, :]]
+    for c in cores[1:]:
+        out.append(c * w[:c.shape[0], None, None])
+    return out
+
+
+def spec_serving(dev, dense_run, paged_run, count):
+    """Phase 8 (e): speculative decode, ``SpecConfig(spec_k=3,
+    draft_rank=4, draft_layer_stride=2)``, on full-width stablelm-1.6b
+    with a decaying-bond-spectrum 4+1d adapter (rank 8, decay 0.35,
+    scaled to a mild 0.1 of the base q projection: at the served
+    strength bf16 decoding is chaotic, the plain leg as far from f32 as
+    the kernel leg) and the blocks' wo / wd damped by 0.05 (each block a
+    small residual update, as in a trained network, so the layer-strided
+    drafter tracks the target): the dense cell (phase 3's 8 requests) and
+    the paged cell (phase 4's 16 requests, fp cold, then int8 KV once),
+    each against the same engine without speculation in the same call.
+    Every token within 5% of the largest logit of the plain leg's
+    teacher-forced maximum (the non-spec engine's gap printed beside);
+    paged: no leaked block; K4 once per verified column (dense), #8 /
+    #8q on the verifier."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import QuantConfig, RunConfig, \
+        ServeConfig, SpecConfig
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import AdapterRuntime, Engine
+
+    cfg = configs.get_config("stablelm-1.6b")
+    spec = M.build_adapter_spec(RunConfig(
+        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
+        num_tasks=3, adapter_rank=8))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    base = T.init_base_params(cfg, gen, device=dev)
+    for blk in base["blocks"]:
+        blk["mixer"]["wo"].mul_(0.05)
+        blk["ffn"]["wd"].mul_(0.05)
+    cores = decaying_tt(gen, spec.cfg.mode_sizes, 8, 0.5, 0.35, dev)
+    rt = AdapterRuntime.build("live", base, spec, {"cores": cores}, {})
+    cores[-1] *= 0.1 / q_ratio(cfg, rt, gen)      # ΔW is linear in G4
+    rt = AdapterRuntime.build("live", base, spec, {"cores": cores}, {})
+    nb_draft = -(-cfg.num_super_blocks // SPEC["draft_layer_stride"])
+    k = SPEC["spec_k"]
+    cells = (("dense", dict(cache_mode="dense", max_batch=4, cache_len=256,
+                            out_cap=32), dense_run["reqs"], QuantConfig()),
+             ("paged fp", dict(cache_mode="paged", **PAGED),
+              paged_run["reqs"], QuantConfig()),
+             ("paged int8 KV", dict(cache_mode="paged", **PAGED),
+              paged_run["reqs"], QuantConfig(kv="int8")))
+    for label, sv, reqs, quant in cells:
+        res = {}
+        for leg in ("base", "spec"):
+            serve = ServeConfig(quant=quant, spec=SpecConfig(**SPEC)
+                                if leg == "spec" else SpecConfig(), **sv)
+            eng = Engine(cfg, rt, serve=serve, device=dev)
+            outs = []
+            n = count(lambda: outs.extend(eng.generate(reqs)))
+            st = eng.last_stats
+            for r_ in eng.last_results:
+                if r_.status != "FINISHED" or r_.n_generated != 32:
+                    raise AssertionError(f"spec {label} {leg}: request "
+                                         f"ended {r_.status}")
+            if eng.paged and eng.leaked_blocks():
+                raise AssertionError(f"spec {label} {leg}: "
+                                     f"{eng.leaked_blocks()} blocks leaked")
+            res[leg] = (outs, st, n)
+            del eng
+        (b_out, b_st, _), (s_out, s_st, n) = res["base"], res["spec"]
+        gap, b_gap = (teacher_forced_gap(cfg, spec, rt, base, reqs, o, dev)
+                      for o in (s_out, b_out))
+        same = sum(int(x == y) for o, r in zip(s_out, b_out)
+                   for x, y in zip(o.tolist(), r.tolist()))
+        print(f"[phase8] (e) spec {label}: acceptance "
+              f"{s_st.acceptance_rate:.3f} ({s_st.accepted_tokens}/"
+              f"{s_st.draft_tokens}), tokens/step "
+              f"{s_st.tokens_per_step:.3f} over {s_st.spec_steps} steps; "
+              f"{s_st.tokens_per_s:.1f} tok/s against "
+              f"{b_st.tokens_per_s:.1f} without spec "
+              f"({s_st.tokens_per_s / b_st.tokens_per_s:.3f}x); decode "
+              f"{1e3 * s_st.decode_s / max(s_st.decode_steps, 1):.2f} "
+              f"ms/step against {1e3 * b_st.decode_s / max(b_st.decode_steps, 1):.2f}; "
+              f"kv_bytes_peak {s_st.kv_bytes_peak} against "
+              f"{b_st.kv_bytes_peak}; tokens equal to the non-spec run "
+              f"{same}/{sum(len(o) for o in s_out)}; largest teacher-forced "
+              f"gap {gap:.3e} (limit 5e-2; the non-spec engine's "
+              f"{b_gap:.3e}); launches "
+              f"{json.dumps({k_: v for k_, v in n.items() if v})}",
+              flush=True)
+        if not gap <= 5e-2:
+            raise AssertionError(f"spec {label}: a token {gap:.3e} below "
+                                 "the plain leg's best logit")
+        if label == "dense":
+            # K4 once a column: the drafter's k + 1 steps over its layers,
+            # the verifier's k + 1 columns over every layer
+            want = (k + 1) * (nb_draft + cfg.num_super_blocks) \
+                * len(cfg.block_pattern) * s_st.decode_steps
+            if n["decode_attention"] != want:
+                raise AssertionError(f"spec dense: K4 launched "
+                                     f"{n['decode_attention']}, want {want}")
+        else:
+            name = ("paged_decode_attention_int8" if quant.kv == "int8"
+                    else "paged_decode_attention")
+            if not n[name] >= cfg.num_layers * s_st.decode_steps:
+                raise AssertionError(f"spec {label}: {name} launched "
+                                     f"{n[name]} in {s_st.decode_steps} "
+                                     "steps")
+        if not s_st.draft_tokens > 0:
+            raise AssertionError(f"spec {label}: no draft was proposed")
+    del base, rt
+    torch.cuda.empty_cache()
+
+
+def phase_rest(dev, dense_run, paged_run, train_cores):
+    """Phase 8 on full-width stablelm-1.6b: (a) the w8 dense cell with
+    VeRA r = 1024 and a 4+1d MetaTT r = 384; (b) two full fine-tuning
+    steps; (c) a two-site DMRG sweep; (d) Trainer steps with int8 and
+    top-k gradient compression; (e) speculative decode, dense and paged.
+    Launches are counted around each driven run and summed."""
+    import torch
+    from repro_torch import kernels as K
+    total = {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+    secs = {}
+    for part, fn in (
+            ("a", lambda: w8_high_rank_serving(dev, dense_run["reqs"],
+                                               count)),
+            ("b", lambda: full_ft_on_the_card(dev, count)),
+            ("c", lambda: two_site_on_the_card(dev, train_cores, count)),
+            ("d", lambda: compressed_training(dev, count)),
+            ("e", lambda: spec_serving(dev, dense_run, paged_run, count))):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        secs[part] = round(time.perf_counter() - t, 1)
+    print(f"[phase8] seconds per part {json.dumps(secs)}, phase "
+          f"{sum(secs.values()):.1f} s; launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}",
+          flush=True)
+    return total
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -2293,7 +2820,7 @@ def main(argv) -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     logs = _build.build_all(force=True)
     print(f"[build] nvcc sm_90a: {', '.join(sorted(logs))} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
@@ -2319,6 +2846,10 @@ def main(argv) -> int:
     paths["train"], train_cores = phase_training(dev)
     paths["adapters"] = phase_adapters(dev, dense_run, paged_run,
                                        train_cores)
+    t8 = time.perf_counter()
+    paths["phase8"] = phase_rest(dev, dense_run, paged_run, train_cores)
+    print(f"[time] phase 8 {time.perf_counter() - t8:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []
     for name, (src, replaces) in KERNELS.items():

@@ -194,7 +194,24 @@ class KernelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:
-    """Speculative decode (not ported yet: spec_k > 0 raises)."""
+    """Speculative multi-token decode (``serving/speculative.py``). The
+    drafter is a rank-truncated slice of the shared TT cores — the leading
+    ``draft_rank`` bond columns of G1 / C / G4 (or of the lora-form A) —
+    over every ``draft_layer_stride``-th super-block of the frozen base.
+    Each engine step the drafter proposes ``spec_k`` tokens from its own
+    KV region, the target scores all spec_k + 1 columns in one pass, and
+    the accept rule commits the longest valid prefix: exact argmax match
+    under greedy sampling (tokens identical to the non-speculative
+    engine), rejection sampling otherwise (the output distribution
+    unchanged).
+
+    spec_k: drafts per engine step; 0 disables speculation.
+    draft_rank: the drafter's bond rank; 0 keeps the full rank. Applies
+        to metatt (live and lora-form) and plain lora runtimes; other
+        kinds keep their full-rank factors.
+    draft_layer_stride: the drafter keeps every stride-th super-block (1:
+        all); its KV region shrinks by the same factor.
+    """
     spec_k: int = 0
     draft_rank: int = 0
     draft_layer_stride: int = 1
@@ -202,6 +219,19 @@ class SpecConfig:
     @property
     def enabled(self) -> bool:
         return self.spec_k > 0
+
+    def validate(self) -> "SpecConfig":
+        if self.spec_k < 0:
+            raise ValueError(f"SpecConfig.spec_k={self.spec_k} must be >= 0")
+        if self.draft_rank < 0:
+            raise ValueError(
+                f"SpecConfig.draft_rank={self.draft_rank} must be >= 0 "
+                "(0 = full rank)")
+        if self.draft_layer_stride < 1:
+            raise ValueError(
+                f"SpecConfig.draft_layer_stride={self.draft_layer_stride} "
+                "must be >= 1")
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,9 +256,10 @@ class ServeConfig:
     in the decode loop) and ``cache_mode="dense"`` (max_batch slots of
     cache_len cells each, power-of-two or ``prompt_buckets`` prefill
     buckets). ``quant`` int8-quantizes the base weights (both modes) and
-    the KV cells (paged mode only). ``Engine`` rejects spec, registry,
-    mesh_shape (and with it the router's replicas), disagg, row_parallel
-    and preempt_after with ``NotImplementedError``.
+    the KV cells (paged mode only); ``spec`` turns on speculative decode
+    in both modes. ``Engine`` rejects registry, mesh_shape (and with it
+    the router's replicas), disagg, row_parallel and preempt_after with
+    ``NotImplementedError``.
     """
     max_batch: int = 4
     cache_len: int = 64
@@ -263,6 +294,12 @@ class ServeConfig:
             raise ValueError(f"unknown cache_mode {self.cache_mode!r}; "
                              "want paged | dense")
         self.quant.validate()
+        self.spec.validate()
+        if self.spec.enabled and self.spec.spec_k + 1 > self.cache_len:
+            raise ValueError(
+                f"SpecConfig.spec_k={self.spec.spec_k}: the verifier "
+                f"scores spec_k+1 positions per step, which must fit in "
+                f"cache_len={self.cache_len}")
         if self.quant.kv == "int8" and self.cache_mode != "paged":
             raise ValueError(
                 "kv=int8 quantization is implemented for the paged cache "
@@ -286,7 +323,6 @@ class ServeConfig:
                 f"ServeConfig.preempt_after={self.preempt_after} must be "
                 ">= 0 (0 disables recompute preemption)")
         unported = {
-            "spec": self.spec.enabled,
             "registry": self.registry.enabled,
             "mesh_shape": bool(self.mesh_shape),
             "row_parallel": self.row_parallel,
@@ -297,7 +333,7 @@ class ServeConfig:
         if bad:
             raise NotImplementedError(
                 f"ServeConfig {bad}: the port serves the paged and dense "
-                "cache modes on one device without spec/registry/"
+                "cache modes on one device without the registry or "
                 "preemption yet")
         return self
 
@@ -337,9 +373,12 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Trainer knobs. The port trains the adapter only (``train_base``
-    raises) without gradient compression yet (``grad_compression !=
-    "none"`` raises); ``ckpt_dir`` turns on checkpoints and auto-resume."""
+    """Trainer knobs (the JAX TrainConfig's fields). ``grad_compression``
+    int8 / topk round-trips the adapter gradients before AdamW;
+    ``train_base`` marks the full fine-tuning baseline, which
+    ``train_step.make_full_ft_step`` runs (the adapter Trainer ignores it,
+    as the JAX one does); ``ckpt_dir`` turns on checkpoints and
+    auto-resume."""
     steps: int = 100
     microbatch: int = 0            # 0 -> no gradient accumulation
     remat: str = "block"           # none | block (checkpoint each super-block)

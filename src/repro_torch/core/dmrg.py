@@ -15,7 +15,8 @@ them linearly, second moments through their elementwise squares (which
 keeps them non-negative). See ``optim/adamw.py::carry_state`` and
 ``train/trainer.py``. Also: adaptive truncation by relative singular-value
 tolerance (``rtol``), a left-canonicalization pre-pass, and per-bond rank
-schedules. The sweep runs on the cores' device in their dtype; SVD signs
+schedules; ``two_site_sweep`` also descends a loss at each bond. The
+sweep runs on the cores' device in their dtype; SVD signs
 are the backend's own, so factors differ from the JAX package's by a sign
 per bond while the tensors they represent agree.
 """
@@ -162,6 +163,65 @@ class RankSchedule:
     @property
     def final_rank(self) -> int:
         return self.milestones[-1][1]
+
+
+def _exact_pair(merged: torch.Tensor) -> tuple:
+    """Cores (a, b) with merge_pair(a, b) == merged exactly, at the bond
+    min(r_prev·n_a, n_b·r_next) that ``tt.split_merged``'s full-rank split
+    has: merged itself on the larger side, an identity on the smaller.
+    Linear in ``merged``, so a loss differentiated through it gives
+    ∂loss/∂merged with no SVD in the way."""
+    r0, na, nb, r1 = merged.shape
+    eye = dict(dtype=merged.dtype, device=merged.device)
+    if r0 * na <= nb * r1:
+        return (torch.eye(r0 * na, **eye).reshape(r0, na, r0 * na),
+                merged.reshape(r0 * na, nb, r1))
+    return (merged.reshape(r0, na, nb * r1),
+            torch.eye(nb * r1, **eye).reshape(nb * r1, nb, r1))
+
+
+def two_site_sweep(params: Params, loss_fn, target_rank: int, *,
+                   inner_steps: int = 3, lr: float = 1e-2) -> SweepResult:
+    """Two-site DMRG with local loss optimization (paper App. C's second
+    extension): at each bond, merge the neighbouring cores, take
+    ``inner_steps`` plain gradient steps on the MERGED tensor against
+    ``loss_fn(params)`` with every other core frozen, then tSVD-split back
+    to ``target_rank``. Left to right, then right to left: exactly
+    2·(d−1)·inner_steps gradient calls. Host-driven (shapes change).
+
+    The JAX package differentiates the local loss through an exact SVD
+    resplit of the merged tensor. The loss depends on the pair only
+    through their product, so that gradient is ∂loss/∂merged, which this
+    port takes through ``_exact_pair`` instead: the same numbers wherever
+    the SVD's derivative is finite, and finite where it is not — a merged
+    pair of zeros (a zero-initialised core) has all singular values equal,
+    and ``torch.linalg.svd``'s backward divides by their gaps.
+
+    loss_fn: {"cores": [...]} -> scalar tensor."""
+    cores = [c.detach() for c in params["cores"]]
+    d = len(cores)
+
+    def local_grad(merged, i):
+        m = merged.detach().requires_grad_(True)
+        cs = list(cores)
+        cs[i], cs[i + 1] = _exact_pair(m)
+        (g,) = torch.autograd.grad(loss_fn({"cores": cs}), m)
+        return g
+
+    spectra = [None] * (d - 1)
+    for left, bonds in ((True, range(d - 1)), (False, range(d - 2, -1, -1))):
+        for i in bonds:
+            merged = tt.merge_pair(cores[i], cores[i + 1])
+            for _ in range(inner_steps):
+                merged = merged - lr * local_grad(merged, i)
+            a, b, sv = tt.split_merged(merged, target_rank,
+                                       left_orthogonal=left)
+            cores[i], cores[i + 1] = a, b
+            spectra[i] = sv
+    out = dict(params)
+    out["cores"] = cores
+    return SweepResult(params=out, ranks=tt.ranks(cores),
+                       spectra=tuple(spectra))
 
 
 def reconstruction_error(params: Params, swept: Params) -> float:

@@ -214,6 +214,17 @@ def delta_out(f: StepFactors, cfg: MetaTTConfig, p: torch.Tensor,
     return cfg.alpha * (q @ g4.to(p.dtype))
 
 
+def apply(params: Params, cfg: MetaTTConfig, x: torch.Tensor, layer: int,
+          m: str, *, task: Union[torch.Tensor, int, None] = None
+          ) -> torch.Tensor:
+    """The reference single-call path, α · x·G1·G2[l](·G3[t])·G3[m]·G4
+    (Eq. (5)), through ``step_factors`` / ``project_in`` /
+    ``delta_out``."""
+    f = step_factors(params, cfg)
+    return delta_out(f, cfg, project_in(f, cfg, x, m), f.c[layer], m,
+                     task=task)
+
+
 def materialize_delta(params: Params, cfg: MetaTTConfig, layer: int, m: str,
                       *, task: Optional[int] = None) -> torch.Tensor:
     """Dense ΔW_{l,m} (d_in(m), d_out(m)) — tests/small dims only."""

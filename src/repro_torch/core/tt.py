@@ -58,6 +58,21 @@ def materialize(cores: Sequence[torch.Tensor]) -> torch.Tensor:
     return out.reshape(out.shape[1:-1])
 
 
+def slice_matrix(cores: Sequence[torch.Tensor],
+                 idx: Sequence[int]) -> torch.Tensor:
+    """Dense matrix ``G[:, idx..., :]`` of a TT whose first and last modes
+    are the matrix dimensions and whose middle modes ``idx`` indexes:
+    for MetaTT-4d cores (D_in, L, M, D_out) and idx (l, m), ΔW_{l,m}
+    (D_in, D_out)."""
+    if len(idx) != len(cores) - 2:
+        raise ValueError(f"need {len(cores) - 2} middle indices, "
+                         f"got {len(idx)}")
+    out = cores[0][0]                       # (n1, r1)
+    for core, i in zip(cores[1:-1], idx):
+        out = out @ core[:, i, :]
+    return out @ cores[-1][..., 0]
+
+
 def merge_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """MERGE of Algorithm 1: neighbouring cores -> one 4-tensor
     ``(r_prev, n_a, n_b, r_next)``."""

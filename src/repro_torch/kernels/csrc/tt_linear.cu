@@ -9,534 +9,39 @@
 // What bounds it on an H100: at the serving shapes (M = 4..256 rows,
 // K = N = 2048) the work is 2·M·K·N flops against K·N·2 bytes of W, i.e.
 // M flops per byte — below the card's ~295 flops/byte balance point for
-// every M the engine sends, so both kernels are bound by reading W.
-// The design keeps W moving through shared memory exactly once per
-// output tile and hides the rank-r adapter inside the same pass:
-//   * one block per (BM x BN) output tile and a K loop fed by a 4-stage
-//     cp.async pipeline of x / W / A tiles in shared memory when rows are
-//     16-byte aligned (a plain zero-filling load otherwise), so several
-//     tiles of W are in flight per block while one is consumed;
-//   * the base product x·W on the tensor cores (WMMA bf16, f32 sums);
-//   * P = x·A (BM x r, f32) accumulated in shared memory next to the
-//     base tile — on the tensor cores for the shared-A kernel, as per-row
-//     GEMVs for the batched-A kernel (each slot row has its own A[m]);
-//   * an f32 epilogue acc + alpha·(P·B) — P is never rounded to bf16,
-//     as in the TPU kernel — and one rounding to bf16 on the store.
-// Ragged M/N/K and any rank 1 <= r <= 256 are masked in the kernel; the
-// rank is padded to a multiple of 16 in shared memory only. That template
-// kernel is the general path of K2, #9 and #10: they run the split-K
-// `wgmma` kernel up to rank RANK_WGMMA (the "#9, #10 and K2 on the split-K
-// `wgmma` kernel" section) when their operands take 16-byte copies; the
-// template kernel takes larger ranks and the other operands. K1 runs its
-// own `wgmma` kernel at every rank up to 1024 (the "K1 on `wgmma`"
-// section): P in registers up to RANK_WGMMA, a pre-pass above it.
-//
-// w8a16 (#9, #10): W arrives int8 with f32 scales (G, N), half the bytes
-// of the bf16 W that bounds these kernels. In the template kernel
-// each int8 W tile goes through the same cp.async ring (16 values a
-// 16-byte copy, so the vector path needs N % 16 == 0), then is widened to
-// bf16 in one shared-memory tile before the WMMA step (|q| <= 127 is
-// exact in bf16). Per output channel (G = 1, WQ_CHANNEL) the f32 base
-// accumulator is multiplied by scale[n] in the epilogue, before
-// alpha·(P·B) is added, as the TPU kernel does. Grouped (G > 1,
-// WQ_GROUP; group = K / G a multiple of the K tile): each group's x·q
-// partial sum is kept apart in the WMMA accumulators, then scaled by
-// scale[g, n] and added into an f32 running sum in shared memory at the
-// group's last K tile. The rank-r adapter term is unquantized either way.
+// every M the engine sends, so the serving calls are bound by reading W;
+// the training calls (M = 4096) are bound by the tensor cores. Two
+// `wgmma` kernels cover every call:
+//   * K1 (one A, any M): tt_linear_wgmma_kernel, 128 x 128 output tiles
+//     (the "K1 on `wgmma`" section);
+//   * K2, #9 and #10 (M ≤ 256 prefill rows, M ≤ 64 decode slots):
+//     tt_linear_splitk_kernel, 64 x 64 output tiles over up to eight
+//     slices of K, one thread-block cluster a tile (the "#9, #10 and K2
+//     on the split-K `wgmma` kernel" section).
+// The TPU kernels keep P = x·A whole in a (bm, r) f32 scratch, at any
+// rank. Here ranks up to RANK_WGMMA keep P in registers; every larger
+// rank runs a pre-pass that writes alpha·P as a bf16 pair hi + lo into an
+// (M, 2·rp) workspace in device memory, and the main kernel extends its
+// K loop over [hi | lo]·[B; B] on the tensor cores — so no rank is
+// bounded by shared memory or registers, only by the workspace. Both
+// kernels take operands that allow 16-byte copies (K % 8 == 0, N % 8 ==
+// 0, int8 W: N % 16 == 0, aligned bases); the wrappers
+// (kernels/tt_linear.py) copy ragged or unaligned operands into
+// zero-padded aligned buffers first, and K1 also reads strided W, A and
+// B eight elements at a time.
 //
 // The C functions take device pointers and the CUDA stream as opaque
 // pointers and return cudaGetLastError() of the launch.
 
 #include <cooperative_groups.h>
-#include <mma.h>
 
 #include "hopper.cuh"
 
 namespace cg = cooperative_groups;
-using namespace nvcuda;
 
 namespace {
 
 using namespace hopper;
-
-constexpr int PAD_H = 8;   // bf16 row pad: 16 bytes
-constexpr int PAD_F = 4;   // f32 row pad: 16 bytes
-constexpr int PAD_Q = 16;  // int8 row pad: 16 bytes
-
-// W modes: bf16 W; int8 W with per-output-channel scales; int8 W with
-// per-K-group scales
-constexpr int WQ_NONE = 0, WQ_CHANNEL = 1, WQ_GROUP = 2;
-
-__host__ __device__ constexpr int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
-// vec flags: which operands take the 16-byte cp.async path
-constexpr int VEC_XW = 1;  // K % 8 == 0, N % 8 == 0 (int8 W: N % 16 == 0),
-                           // x / w 16-byte aligned
-constexpr int VEC_A = 2;   // r % 8 == 0, a 16-byte aligned
-constexpr int PREG_R = 32; // largest rank of the register GEMV path
-
-// Shared-memory carve-up, identical on host (launch size) and device.
-struct Layout {
-  int xs, ws, wb, as, ps, cs, gs, total;  // byte offsets; total = bytes
-};
-
-// BATCHED && ASTAGE: the arows = min(BM, M) rows of A[m] staged per stage
-// as [m][k][ra] (ra = r rounded up to 8); BATCHED && !ASTAGE: A read from
-// device memory in the P loop (ranks too large to stage); !BATCHED: one
-// (BK, rpad) A tile.
-// int8 W (WQ != WQ_NONE): the ring holds int8 tiles (ws) and one bf16
-// tile (wb) takes the widened tile the WMMA step reads; WQ_GROUP adds an
-// f32 tile (gs) for a group's partial sums.
-template <int BM, int BN, int BK, int STAGES, bool BATCHED, bool ASTAGE,
-          int WQ>
-__host__ __device__ Layout layout(int rpad, int ra, int arows) {
-  Layout L;
-  int off = 0;
-  L.xs = off;
-  off += round_up(STAGES * BM * (BK + PAD_H) * 2, 128);
-  L.ws = off;
-  if (WQ == WQ_NONE) off += round_up(STAGES * BK * (BN + PAD_H) * 2, 128);
-  else off += round_up(STAGES * BK * (BN + PAD_Q), 128);
-  L.wb = off;
-  if (WQ != WQ_NONE) off += round_up(BK * (BN + PAD_H) * 2, 128);
-  L.as = off;
-  if (!BATCHED) off += round_up(STAGES * BK * (rpad + PAD_H) * 2, 128);
-  else if (ASTAGE) off += round_up(STAGES * arows * BK * ra * 2, 128);
-  L.ps = off;
-  off += round_up(BM * (rpad + PAD_F) * 4, 128);
-  L.cs = off;
-  off += round_up(BM * (BN + PAD_F) * 4, 128);
-  L.gs = off;
-  if (WQ == WQ_GROUP) off += round_up(BM * (BN + PAD_F) * 4, 128);
-  L.total = off;
-  return L;
-}
-
-// w: bf16 (K, N) for WQ_NONE, int8 (K, N) otherwise; wscale: f32 (G, N)
-// with G = K / group (unused for WQ_NONE).
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool BATCHED,
-          bool ASTAGE, int WQ>
-__global__ void __launch_bounds__(WM * WN * 32)
-tt_linear_kernel(const bf16* __restrict__ x, const void* __restrict__ wv,
-                 const float* __restrict__ wscale, const bf16* __restrict__ a,
-                 const bf16* __restrict__ b, bf16* __restrict__ y, int M,
-                 int N, int K, int r, int rpad, int ra, int group,
-                 float alpha, int vec) {
-  constexpr int NT = WM * WN * 32;
-  constexpr int NW = WM * WN;
-  constexpr int TM = BM / WM, TN = BN / WN;
-  constexpr int FM = TM / 16, FN = TN / 16;
-  constexpr int XS = BK + PAD_H, WS = BN + PAD_H, CS = BN + PAD_F;
-  constexpr int QS = BN + PAD_Q;  // int8 W ring row
-  static_assert(TM % 16 == 0 && TN % 16 == 0 && BK % 16 == 0, "tiles");
-  static_assert(STAGES >= 2, "pipeline");
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int arows = min(BM, M);  // batched-A blocks all start at row 0
-  const Layout L =
-      layout<BM, BN, BK, STAGES, BATCHED, ASTAGE, WQ>(rpad, ra, arows);
-  const bf16* w = static_cast<const bf16*>(wv);
-  const int8_t* w8 = static_cast<const int8_t*>(wv);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
-  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
-  int8_t* ws8 = reinterpret_cast<int8_t*>(smem + L.ws);
-  bf16* wb = reinterpret_cast<bf16*>(smem + L.wb);
-  float* gs = reinterpret_cast<float*>(smem + L.gs);
-  bf16* as = reinterpret_cast<bf16*>(smem + L.as);
-  float* ps = reinterpret_cast<float*>(smem + L.ps);
-  float* cs = reinterpret_cast<float*>(smem + L.cs);
-  const int AS = rpad + PAD_H, PS = rpad + PAD_F;
-  const int ASTEP = BATCHED ? arows * BK * ra : BK * AS;  // per stage
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / WN, wn = warp % WN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int mrows = min(BM, M - m0);
-  const bf16 zero = __float2bfloat16(0.f);
-
-  for (int i = tid; i < BM * PS; i += NT) ps[i] = 0.f;
-  if (WQ == WQ_GROUP)  // the running sum over groups
-    for (int i = tid; i < BM * CS; i += NT) cs[i] = 0.f;
-  if (!BATCHED && (vec & VEC_A) && rpad > r) {
-    // cp.async fills columns < r only; the rank padding stays zero
-    for (int i = tid; i < STAGES * BK * (rpad - r); i += NT) {
-      const int row = i / (rpad - r), col = r + i % (rpad - r);
-      as[row * AS + col] = zero;
-    }
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  auto load_stage = [&](int s, int k0) {
-    bf16* xd = xs + s * BM * XS;
-    bf16* wd = ws + s * BK * WS;
-    int8_t* wq = ws8 + s * BK * QS;
-    if (vec & VEC_XW) {
-      for (int c = tid; c < BM * (BK / 8); c += NT) {
-        const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
-        const int gm = m0 + row, gk = k0 + col;
-        const bool ok = gm < M && gk < K;
-        cp_async16(smem_u32(xd + row * XS + col), ok ? x + (size_t)gm * K + gk : x,
-                   ok ? 16 : 0);
-      }
-      if (WQ != WQ_NONE) {  // 16 int8 values a copy
-        for (int c = tid; c < BK * (BN / 16); c += NT) {
-          const int row = c / (BN / 16), col = (c % (BN / 16)) * 16;
-          const int gk = k0 + row, gn = n0 + col;
-          const bool ok = gk < K && gn < N;
-          cp_async16(smem_u32(wq + row * QS + col),
-                     ok ? w8 + (size_t)gk * N + gn : w8, ok ? 16 : 0);
-        }
-      } else for (int c = tid; c < BK * (BN / 8); c += NT) {
-        const int row = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        const int gk = k0 + row, gn = n0 + col;
-        const bool ok = gk < K && gn < N;
-        cp_async16(smem_u32(wd + row * WS + col), ok ? w + (size_t)gk * N + gn : w,
-                   ok ? 16 : 0);
-      }
-    } else {
-      for (int c = tid; c < BM * BK; c += NT) {
-        const int row = c / BK, col = c % BK;
-        const int gm = m0 + row, gk = k0 + col;
-        xd[row * XS + col] =
-            (gm < M && gk < K) ? x[(size_t)gm * K + gk] : zero;
-      }
-      for (int c = tid; c < BK * BN; c += NT) {
-        const int row = c / BN, col = c % BN;
-        const int gk = k0 + row, gn = n0 + col;
-        const bool ok = gk < K && gn < N;
-        if (WQ != WQ_NONE)
-          wq[row * QS + col] = ok ? w8[(size_t)gk * N + gn] : (int8_t)0;
-        else
-          wd[row * WS + col] = ok ? w[(size_t)gk * N + gn] : zero;
-      }
-    }
-    bf16* ad = as + s * ASTEP;
-    if (!BATCHED) {  // A (K, r): one (BK, rpad) tile
-      if (vec & VEC_A) {
-        for (int c = tid; c < BK * (r / 8); c += NT) {
-          const int row = c / (r / 8), col = (c % (r / 8)) * 8;
-          const int gk = k0 + row;
-          const bool ok = gk < K;
-          cp_async16(smem_u32(ad + row * AS + col), ok ? a + (size_t)gk * r + col : a,
-                     ok ? 16 : 0);
-        }
-      } else {
-        for (int c = tid; c < BK * rpad; c += NT) {
-          const int row = c / rpad, col = c % rpad;
-          const int gk = k0 + row;
-          ad[row * AS + col] =
-              (gk < K && col < r) ? a[(size_t)gk * r + col] : zero;
-        }
-      }
-    } else if (ASTAGE) {  // A (M, K, r): this block's rows, [m][k][ra]
-      if (vec & VEC_A) {
-        for (int c = tid; c < mrows * BK * (r / 8); c += NT) {
-          const int m = c / (BK * (r / 8)), rest = c % (BK * (r / 8));
-          const int kk = rest / (r / 8), col = (rest % (r / 8)) * 8;
-          const int gk = k0 + kk;
-          const bool ok = gk < K;
-          cp_async16(smem_u32(ad + (m * BK + kk) * ra + col),
-                     ok ? a + ((size_t)(m0 + m) * K + gk) * r + col : a,
-                     ok ? 16 : 0);
-        }
-      } else {
-        for (int c = tid; c < mrows * BK * ra; c += NT) {
-          const int m = c / (BK * ra), rest = c % (BK * ra);
-          const int kk = rest / ra, col = rest % ra;
-          const int gk = k0 + kk;
-          ad[(m * BK + kk) * ra + col] =
-              (gk < K && col < r) ? a[((size_t)(m0 + m) * K + gk) * r + col]
-                                  : zero;
-        }
-      }
-    }
-  };
-
-  // Batched A at decode ranks (r a multiple of 8, r <= PREG_R): thread
-  // (m, kc) keeps r register partials of P[m] over k-slice kc of every
-  // tile, reading A[m] rows as 16-byte vectors (consecutive threads take
-  // consecutive k rows, so a quarter-warp hits distinct banks); the
-  // partials are summed in a fixed order after the K loop.
-  const bool preg_mode = BATCHED && ASTAGE && (vec & VEC_A) &&
-                         r <= PREG_R && mrows <= NT;
-  const int ksplit = NT / mrows;
-  const int my_m = tid / ksplit, my_kc = tid % ksplit;
-  float preg[PREG_R];
-#pragma unroll
-  for (int j = 0; j < PREG_R; ++j) preg[j] = 0.f;
-
-  // STAGES-deep cp.async pipeline: tiles kt+1 .. kt+STAGES-1 are in
-  // flight while tile kt is consumed
-  const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s * BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed
-    __syncthreads();              // ... and tile kt-1 is consumed by all
-    const int pf = kt + STAGES - 1;
-    if (pf < nk) load_stage(pf % STAGES, pf * BK);
-    cp_async_commit();  // possibly empty group keeps the count uniform
-
-    const int s = kt % STAGES;
-    const bf16* xd = xs + s * BM * XS;
-    const bf16* wd = ws + s * BK * WS;
-    if (WQ != WQ_NONE) {
-      // widen the int8 tile to bf16 (exact) for the WMMA step; the tile
-      // read last step is free, every warp having passed the barrier above
-      const int8_t* wq = ws8 + s * BK * QS;
-      for (int c = tid; c < BK * (BN / 4); c += NT) {
-        const int row = c / (BN / 4), col = (c % (BN / 4)) * 4;
-        const char4 q4 = *reinterpret_cast<const char4*>(wq + row * QS + col);
-        bf16* d = wb + row * WS + col;
-        d[0] = __int2bfloat16_rn(q4.x);
-        d[1] = __int2bfloat16_rn(q4.y);
-        d[2] = __int2bfloat16_rn(q4.z);
-        d[3] = __int2bfloat16_rn(q4.w);
-      }
-      __syncthreads();
-      wd = wb;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], xd + (wm * TM + i * 16) * XS + kk, XS);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], wd + kk * WS + wn * TN + j * 16, WS);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-
-    if (WQ == WQ_GROUP && ((kt + 1) * BK) % group == 0) {
-      // the group's last K tile: running sum += partial · scale[g, n]
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::store_matrix_sync(
-              gs + (wm * TM + i * 16) * CS + wn * TN + j * 16, acc[i][j], CS,
-              wmma::mem_row_major);
-          wmma::fill_fragment(acc[i][j], 0.f);
-        }
-      __syncthreads();
-      const float* srow = wscale + (size_t)(((kt + 1) * BK - 1) / group) * N;
-      for (int idx = tid; idx < BM * BN; idx += NT) {
-        const int row = idx / BN, col = idx % BN, gn = n0 + col;
-        if (gn < N) cs[row * CS + col] += gs[row * CS + col] * srow[gn];
-      }
-    }
-
-    const bf16* ad = as + s * ASTEP;
-    if (!BATCHED) {
-      // P += x_tile · A_tile on the tensor cores; P lives in shared memory
-      // (f32) so any rank fits, one 16x16 fragment per warp at a time.
-      const int fr = rpad / 16, nfr = (BM / 16) * fr;
-      for (int f = warp; f < nfr; f += NW) {
-        const int fi = f / fr, fj = f % fr;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> pc;
-        wmma::load_matrix_sync(pc, ps + fi * 16 * PS + fj * 16, PS,
-                               wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-              fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fa, xd + fi * 16 * XS + kk, XS);
-          wmma::load_matrix_sync(fb, ad + kk * AS + fj * 16, AS);
-          wmma::mma_sync(pc, fa, fb, pc);
-        }
-        wmma::store_matrix_sync(ps + fi * 16 * PS + fj * 16, pc, PS,
-                                wmma::mem_row_major);
-      }
-    } else if (preg_mode) {
-      // P[m] += x[m, tile] · A[m, tile, :] over this thread's k-slice
-      if (my_m < mrows) {
-        const bf16* xp = xd + my_m * XS;
-        const bf16* ap = ad + my_m * BK * ra;
-        for (int kk = my_kc; kk < BK; kk += ksplit) {
-          const float xv = __bfloat162float(xp[kk]);
-#pragma unroll
-          for (int v = 0; v < PREG_R / 8; ++v) {
-            if (v * 8 < r) {
-              const uint4 u =
-                  *reinterpret_cast<const uint4*>(ap + kk * ra + v * 8);
-              const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-              for (int t = 0; t < 8; ++t)
-                preg[v * 8 + t] += xv * __bfloat162float(e[t]);
-            }
-          }
-        }
-      }
-    } else {
-      // P[m] += x[m, k0:k0+BK] · A[m, k0:k0+BK, :] — a GEMV per slot row
-      // against that row's own task-routed A; the (m, j) -> thread map is
-      // the same every K step, so each P cell has one owner. Tiles are
-      // zero past K, so the sum runs over the whole tile.
-      const int k0 = kt * BK;
-      for (int c = tid; c < mrows * r; c += NT) {
-        const int m = c / r, j = c % r;
-        float sum = 0.f;
-        if (ASTAGE) {
-          const bf16* ap = ad + m * BK * ra + j;
-#pragma unroll 8
-          for (int kk = 0; kk < BK; ++kk)
-            sum += __bfloat162float(xd[m * XS + kk]) *
-                   __bfloat162float(ap[kk * ra]);
-        } else {
-          const bf16* ap = a + ((size_t)(m0 + m) * K + k0) * r + j;
-          const int kend = min(BK, K - k0);
-          for (int kk = 0; kk < kend; ++kk)
-            sum += __bfloat162float(xd[m * XS + kk]) *
-                   __bfloat162float(ap[(size_t)kk * r]);
-        }
-        ps[m * PS + j] += sum;
-      }
-    }
-  }
-
-  if (preg_mode) {
-    __syncthreads();  // every warp is done with the x tiles: reuse them
-    float* part = reinterpret_cast<float*>(xs);  // [m][kc][r]
-    if (my_m < mrows) {
-#pragma unroll
-      for (int j = 0; j < PREG_R; ++j)
-        if (j < r) part[(my_m * ksplit + my_kc) * r + j] = preg[j];
-    }
-    __syncthreads();
-    for (int c = tid; c < mrows * r; c += NT) {
-      const int m = c / r, j = c % r;
-      float sum = 0.f;
-      for (int kc = 0; kc < ksplit; ++kc)
-        sum += part[(m * ksplit + kc) * r + j];
-      ps[m * PS + j] = sum;
-    }
-  }
-
-  // epilogue in f32: y = acc (· scale[n]) + alpha · (P · B), one bf16
-  // rounding; grouped scales already hold the scaled sum in cs
-  if (WQ != WQ_GROUP) {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(
-            cs + (wm * TM + i * 16) * CS + wn * TN + j * 16, acc[i][j], CS,
-            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += NT) {
-    const int row = idx / BN, col = idx % BN;
-    const int gm = m0 + row, gn = n0 + col;
-    if (gm < M && gn < N) {
-      float t = 0.f;
-      const float* prow = ps + row * PS;
-      for (int j = 0; j < r; ++j)
-        t += prow[j] * __bfloat162float(b[(size_t)j * N + gn]);
-      float base = cs[row * CS + col];
-      if (WQ == WQ_CHANNEL) base *= wscale[gn];
-      y[(size_t)gm * N + gn] = __float2bfloat16(base + alpha * t);
-    }
-  }
-}
-
-constexpr int SMEM_MAX = 227 * 1024;  // H100: per-block dynamic maximum
-
-template <int BM, int BN, int BK, int STAGES, bool BATCHED, bool ASTAGE,
-          int WQ>
-int smem_bytes(int r, int M) {
-  return layout<BM, BN, BK, STAGES, BATCHED, ASTAGE, WQ>(
-             round_up(r, 16), round_up(r, 8), M < BM ? M : BM)
-      .total;
-}
-
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool BATCHED,
-          bool ASTAGE, int WQ>
-int launch(const void* x, const void* w, const float* wscale, const void* a,
-           const void* b, void* y, int M, int N, int K, int r, int group,
-           float alpha, int vec, void* stream) {
-  if (WQ == WQ_GROUP && (group < BK || group % BK != 0))
-    return (int)cudaErrorInvalidValue;  // a group spans whole K tiles
-  const int rpad = round_up(r, 16), ra = round_up(r, 8);
-  const int smem =
-      smem_bytes<BM, BN, BK, STAGES, BATCHED, ASTAGE, WQ>(r, M);
-  auto kern =
-      tt_linear_kernel<BM, BN, BK, WM, WN, STAGES, BATCHED, ASTAGE, WQ>;
-  static int smem_set = 48 * 1024;  // per instantiation, grows only
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kern<<<grid, WM * WN * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), w, wscale, static_cast<const bf16*>(a),
-      static_cast<const bf16*>(b), static_cast<bf16*>(y), M, N, K, r, rpad,
-      ra, group, alpha, vec);
-  return (int)cudaGetLastError();
-}
-
-// The template kernel with one shared A (#9 at ranks above RANK_WGMMA or
-// on operands that cannot take 16-byte copies): 64 x 64 output tiles, BK 64 in a 4-stage ring, or BK 32 in
-// 2 stages when a large rank's A tiles do not fit
-template <int WQ>
-int run_shared_a(const void* x, const void* w, const float* wscale,
-                 const void* a, const void* b, void* y, int M, int N, int K,
-                 int r, int group, float alpha, int vec, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 256)
-    return (int)cudaErrorInvalidValue;
-  if (smem_bytes<64, 64, 64, 4, false, true, WQ>(r, M) <= SMEM_MAX)
-    return launch<64, 64, 64, 2, 2, 4, false, true, WQ>(
-        x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
-  return launch<64, 64, 32, 2, 2, 2, false, true, WQ>(
-      x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
-}
-
-// The template kernel with a per-row A (K2 and #10 at ranks above
-// RANK_WGMMA or on operands that cannot take 16-byte copies): one block
-// per N tile covers all M rows (M <= 64), so W is read once per launch.
-// A[m] tiles are staged with the x / W tiles when they fit in shared
-// memory.
-template <int WQ>
-int run_batched_a(const void* x, const void* w, const float* wscale,
-                  const void* a, const void* b, void* y, int M, int N, int K,
-                  int r, int group, float alpha, int vec, void* stream) {
-  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || r > 256)
-    return (int)cudaErrorInvalidValue;
-  if (M <= 16) {
-    if (smem_bytes<16, 64, 128, 4, true, true, WQ>(r, M) <= SMEM_MAX)
-      return launch<16, 64, 128, 1, 4, 4, true, true, WQ>(
-          x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
-    return launch<16, 32, 64, 1, 2, 2, true, false, WQ>(
-        x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
-  }
-  if (smem_bytes<64, 32, 32, 4, true, true, WQ>(r, M) <= SMEM_MAX)
-    return launch<64, 32, 32, 2, 2, 4, true, true, WQ>(
-        x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
-  return launch<64, 32, 64, 2, 2, 2, true, false, WQ>(
-      x, w, wscale, a, b, y, M, N, K, r, group, alpha, vec, stream);
-}
-
 
 // ------------------------------------------------- K1 on `wgmma`
 //
@@ -562,8 +67,8 @@ int run_batched_a(const void* x, const void* w, const float* wscale,
 // then rounds once to bf16 on the store. Ragged M / N / K are zero-filled
 // on load and masked on the store.
 
-// Ranks above RANK_WGMMA (up to 1024: VeRA's rank in the paper's Table 1)
-// cannot keep P in registers or shared memory: a (128, 1024) f32 P is
+// Ranks above RANK_WGMMA (VeRA's 1024 in the paper's Table 1, and any
+// larger) cannot keep P in registers or shared memory: a (128, 1024) f32 P is
 // 512 KB. The TPU kernel keeps it whole in a (bm, r) f32 scratch. Here a
 // pre-pass (MODE K1_PRE: the same kernel with A in W's place, N = r)
 // writes alpha·P = alpha·x·A as a bf16 pair hi + lo, hi = bf16(alpha·P),
@@ -912,13 +417,13 @@ bool aligned16(const void* p) {
 //
 // y = x·(q·s) + alpha·(x·A)·B over an int8 W (K, N) with f32 scales
 // (G, N) — #9, and #10 with a per-row A — and over a bf16 W with a
-// per-row A — K2 — at ranks up to RANK_WGMMA, when x and W take
-// 16-byte copies (K % 8 == 0, N % 16 == 0 for int8 W and N % 8 == 0 for
-// bf16 W, aligned bases). At the serving shapes (M ≤ 256 prefill rows,
-// M ≤ 64 decode slots, K = N = 2048) the work is M flops a byte of W,
-// far below the card's balance point: the kernel is bound by reading the
-// 4 MB of int8 W (8 MB of bf16 W) once, and at M = 64 a 64 x 64 output
-// tiling has only 32 tiles for 132 SMs. So:
+// per-row A — K2 — at every rank, on operands that take 16-byte copies
+// (K % 8 == 0, N % 16 == 0 for int8 W and N % 8 == 0 for bf16 W, aligned
+// bases; the wrappers pad and copy the others). At the serving shapes
+// (M ≤ 256 prefill rows, M ≤ 64 decode slots, K = N = 2048) the work is
+// M flops a byte of W, far below the card's balance point: the kernel is
+// bound by reading the 4 MB of int8 W (8 MB of bf16 W) once, and at
+// M = 64 a 64 x 64 output tiling has only 32 tiles for 132 SMs. So:
 //  - a block (one warpgroup) owns 64 rows x 64 output channels over one
 //    of S slices of K (split-K, the launcher's choice, see w8_splits in
 //    kernels/tt_linear.py): 32 channel tiles x 8 slices put 256 blocks on
@@ -931,36 +436,45 @@ bool aligned16(const void* p) {
 //    K-major as A, K1's forward layout); the product reads the stage in
 //    place: no widening pass and no second barrier. The ring is 4 x (8 KB
 //    of x + 8 KB of W) = 64 KB, three blocks an SM;
-//  - int8 W into the product: option (a) of the two layouts. Each int8
-//    stage is widened in registers (hopper.cuh's widen16, exact) into one
-//    128-byte-swizzled bf16 tile, which `wgmma` m64n64k16 reads MN-major
-//    as its B operand, x K-major as A — K1's forward layout. Option (b),
-//    Wᵀ as a register A operand with the tokens as N, would need each
-//    thread's fragment gathered from four K rows of the row-major int8
-//    tile (W is stored (K, N), never transposed) and a permuted K order
-//    in the x tile; (a) keeps K1's proven descriptors and costs one
-//    shared-memory pass and one barrier a tile, small beside the bytes
-//    of W;
-//  - #9 (one A): P = x·A is a second `wgmma` m64nRPk16 from the same x
-//    tile into a small f32 register accumulator (r padded to RP = 16 or
-//    64). #10 and K2 (BATCHED: a per-row A[m], M ≤ 64): P[m] = x[m]·A[m]
-//    is no one product, and every channel tile needs all of it, so a
-//    pre-pass kernel (tt_linear_batched_p_kernel) reads A once (M·K·r·2
-//    bytes) and writes f32 partial sums of P[m] over 256 K rows each,
-//    which the epilogue adds in K order. The main kernel is launched as the
-//    pre-pass's programmatic dependent: its K loop runs while the pre-pass
-//    does, and it waits for P (griddepcontrol.wait) only before the
-//    epilogue. (Summing P in the K loop instead, from A[m]'s (64, r)
-//    blocks staged in the ring, reads A once for each of the N / 64
-//    channel tiles and takes M·64·r·2 bytes of shared memory a stage: it
-//    measured slower at every M from 4 to 64, PERF.md §6.)
+//  - int8 W into the product: each int8 stage is widened in registers
+//    (hopper.cuh's widen16, exact) into one 128-byte-swizzled bf16 tile,
+//    which `wgmma` m64n64k16 reads MN-major as its B operand, x K-major
+//    as A — K1's forward layout, at the cost of one shared-memory pass and
+//    one barrier a tile, small beside the bytes of W;
+//  - the rank term at ranks up to RANK_WGMMA. #9 (one A): P = x·A is a
+//    second `wgmma` m64nRPk16 from the same x tile into a small f32
+//    register accumulator (r padded to RP = 16 or 64). #10 and K2
+//    (BATCHED: a per-row A[m], M ≤ 64): P[m] = x[m]·A[m] is no one
+//    product, and every channel tile needs all of it, so a pre-pass kernel
+//    (tt_linear_batched_p_kernel) reads A once (M·K·r·2 bytes) and writes
+//    f32 partial sums of P[m] over 256 K rows each, which the epilogue
+//    adds in K order. The main kernel is launched as the pre-pass's
+//    programmatic dependent: its K loop runs while the pre-pass does, and
+//    it waits for P (griddepcontrol.wait) only before the epilogue.
+//    (Summing P in the K loop instead, from A[m]'s (64, r) blocks staged
+//    in the ring, measured slower at every M from 4 to 64, PERF.md §6.)
+//  - the rank term above RANK_WGMMA (EXT): K1's design. A pre-pass writes
+//    alpha·P as a bf16 pair hi + lo into PL (M, 2·rp), rp = r rounded up
+//    to 64 (#9: K1's own pre-pass, the `wgmma` kernel with A in W's place;
+//    #10 and K2: tt_linear_batched_p_kernel, one block a (64 rank columns,
+//    row) summing all of K). The K loop runs over nk + 2·rp / 64 tiles:
+//    the base tiles, then the extension tiles — x tiles from PL's hi and
+//    lo halves, bf16 W tiles from B's rows (each row twice), a second
+//    tile loader straight into the swizzle as K2's W — and the slices of
+//    K split that whole range, so the rank term spreads over the cluster
+//    like the base rows. An int8 stage is sized for a bf16 tile, and only
+//    base tiles are widened. The base sum is scaled (per channel, or per
+//    group as below) where a slice's base tiles end, before the unscaled
+//    extension is added. The main kernel is the pre-pass's programmatic
+//    dependent and waits for PL before its first extension tile.
 //  - scales in registers (int8 W; none for K2): per channel (G = 1), the
 //    f32 sum is multiplied by scale[n] in the epilogue before alpha·P·B
-//    is added, as the TPU kernel does. Grouped (G > 1, a group a multiple of 64 rows), a
-//    group's x·q partial lives in the `wgmma` accumulator, restarted at
-//    the group's first tile; at its last tile (or the slice's) each
-//    thread adds partial · scale[g, n] into a second f32 register sum —
-//    no shared-memory round trip, and q·s is never rounded to bf16;
+//    is added, as the TPU kernel does. Grouped (G > 1, a group a multiple
+//    of 64 rows), a group's x·q partial lives in the `wgmma` accumulator,
+//    restarted at the group's first tile; at its last tile (or the
+//    slice's) each thread adds partial · scale[g, n] into a second f32
+//    register sum — no shared-memory round trip, and q·s is never rounded
+//    to bf16;
 //  - split-K reduction without float atomics or a workspace: the S ≤ 8
 //    slices of a tile are one thread-block cluster. Each block writes its
 //    f32 partials (the sum and P) to its own shared memory in its register
@@ -982,13 +496,18 @@ constexpr int QNT = 128;                       // one warpgroup
 constexpr int QCLUSTER = 8;   // most slices of K: a portable cluster
 constexpr int PKC = 256;      // K rows a partial P sum of the pre-pass covers
 
-// BATCHED (#10, K2): no A in the ring; P comes from the pre-pass.
-// W8: int8 W tiles in the ring, widened into WB before use; else (K2)
-// bf16 W tiles, each already in the swizzled layout `wgmma` reads
-template <int RP, bool BATCHED, bool W8>
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// BATCHED (#10, K2, and every EXT): no A in the ring; P comes from a
+// pre-pass. W8: int8 W tiles in the ring, widened into WB before use;
+// else (K2) bf16 W tiles, each already in the swizzled layout `wgmma`
+// reads. EXT: a stage also takes a bf16 tile of B's rows
+template <int RP, bool BATCHED, bool W8, bool EXT>
 struct SplitSmem {
   static constexpr int XS = QBM * QBK * 2;     // an x tile, swizzled
-  static constexpr int WS = QBK * QBN * (W8 ? 1 : 2);   // a W tile, (k, n)
+  static constexpr int WS = QBK * QBN * (W8 && !EXT ? 1 : 2);   // (k, n)
   static constexpr int AS = BATCHED ? 0 : RP * QBK * 2;   // an A tile
   static constexpr int X = 0;
   static constexpr int W = X + QSTAGES * XS;
@@ -1006,19 +525,25 @@ struct SplitSmem {
                 "B's tile in the W ring");
 };
 
-template <int RP, bool GROUPED, bool BATCHED, bool W8>
+template <int RP, bool GROUPED, bool BATCHED, bool W8, bool EXT>
 __global__ void __launch_bounds__(QNT, RP <= 16 || BATCHED ? 3 : 2)
 tt_linear_splitk_kernel(const bf16* __restrict__ x,
                         const void* __restrict__ wv,
                         const float* __restrict__ wscale,
                         const bf16* __restrict__ a,
                         const bf16* __restrict__ b, bf16* __restrict__ y,
-                        const float* __restrict__ pp, int M, int N, int K,
-                        int r, int group, int tps, int nkc, float alpha,
-                        const LinStrides ls) {
+                        const float* __restrict__ pp,
+                        const bf16* __restrict__ pl, int M, int N, int K,
+                        int r, int rp, int group, int tps, int nkc,
+                        float alpha, const LinStrides ls) {
   static_assert(W8 || (BATCHED && !GROUPED),
                 "a bf16 W is K2's: per-row A, no scales");
-  using L = SplitSmem<RP, BATCHED, W8>;
+  static_assert(!EXT || (RP == 0 && BATCHED),
+                "EXT carries no P: the pre-pass wrote it to PL");
+  // EXT over int8 W: the base sum is scaled where the slice's base tiles
+  // end, into tot, before the extension adds to it
+  constexpr bool TOT = GROUPED || (EXT && W8);
+  using L = SplitSmem<RP, BATCHED, W8, EXT>;
   const int8_t* w = static_cast<const int8_t*>(wv);
   const bf16* wh = static_cast<const bf16*>(wv);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -1029,25 +554,43 @@ tt_linear_splitk_kernel(const bf16* __restrict__ x,
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * QBN, m0 = blockIdx.y * QBM;
   const int S = gridDim.z, sp = blockIdx.z;
-  const int nk = (K + QBK - 1) / QBK;
-  const int kt0 = sp * tps, kt1 = min(nk, kt0 + tps);
+  const int nk = (K + QBK - 1) / QBK;   // base tiles; EXT adds 2·rp / 64
+  const int nt = EXT ? nk + 2 * rp / QBK : nk;
+  const int kt0 = sp * tps, kt1 = min(nt, kt0 + tps);
   const long long ask = ls.s[2], asj = ls.s[3];
   const bool va = ask == 1 && asj % 8 == 0 && K % 8 == 0 &&
                   reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  bool waited = false;   // EXT: PL is complete and visible
 
+  // a bf16 (64, 64) tile of rows src[row·rs + col], rows ≥ nr and columns
+  // ≥ nc zero, straight into the 128-byte swizzle
+  auto put_bf16 = [&](uint32_t tile, const bf16* src, long long rs, int nr,
+                      int nc) {
+#pragma unroll
+    for (int i = 0; i < 64 * 8 / QNT; ++i) {
+      const int c = tid + i * QNT, row = c >> 3, ch = c & 7;
+      const bool ok = row < nr && ch * 8 < nc;
+      cp_async16(tile + row * 128 + ((ch ^ (row & 7)) << 4),
+                 ok ? src + row * rs + ch * 8 : src, ok ? 16 : 0);
+    }
+  };
   auto issue = [&](int kt) {   // tile kt into its stage of the ring
     const int st = (kt - kt0) % QSTAGES, k0 = kt * QBK;
     const uint32_t xt = base + L::X + st * L::XS;
-#pragma unroll
-    for (int i = 0; i < QBM * 8 / QNT; ++i) {   // x: 64 rows x 8 chunks
-      const int c = tid + i * QNT, row = c >> 3, ch = c & 7;
-      const int gm = m0 + row, gk = k0 + ch * 8;
-      const bool ok = gm < M && gk < K;
-      cp_async16(xt + row * 128 + ((ch ^ (row & 7)) << 4),
-                 ok ? x + static_cast<long long>(gm) * K + gk : x,
-                 ok ? 16 : 0);
-    }
     const uint32_t wt = base + L::W + st * L::WS;
+    if (EXT && kt >= nk) {   // an extension tile: PL's columns e .. e + 63
+      if (!waited) {   // PL is the pre-pass's: wait for it to be complete
+        asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        waited = true;
+      }
+      const int e = (kt - nk) * QBK, j0 = e % rp;
+      put_bf16(xt, pl + static_cast<long long>(m0) * 2 * rp + e, 2 * rp,
+               M - m0, QBK);
+      put_bf16(wt, b + j0 * ls.s[4] + n0, ls.s[4], r - j0, N - n0);
+      return;
+    }
+    put_bf16(xt, x + static_cast<long long>(m0) * K + k0, K, M - m0,
+             K - k0);
     if constexpr (W8) {
 #pragma unroll
       for (int i = 0; i < QBK * 4 / QNT; ++i) {   // W: 64 rows x 4 chunks
@@ -1059,15 +602,8 @@ tt_linear_splitk_kernel(const bf16* __restrict__ x,
                    ok ? 16 : 0);
       }
     } else {   // bf16 W: 64 rows x 8 chunks, straight into the swizzle
-#pragma unroll
-      for (int i = 0; i < QBK * 8 / QNT; ++i) {
-        const int c = tid + i * QNT, row = c >> 3, ch = c & 7;
-        const int gk = k0 + row, gn = n0 + ch * 8;
-        const bool ok = gk < K && gn < N;
-        cp_async16(wt + row * 128 + ((ch ^ (row & 7)) << 4),
-                   ok ? wh + static_cast<long long>(gk) * N + gn : wh,
-                   ok ? 16 : 0);
-      }
+      put_bf16(wt, wh + static_cast<long long>(k0) * N + n0, N, K - k0,
+               N - n0);
     }
     if constexpr (!BATCHED) {
       const uint32_t at = base + L::A + st * L::AS;
@@ -1098,12 +634,12 @@ tt_linear_splitk_kernel(const bf16* __restrict__ x,
 
   const int lane = tid & 31, warp = tid >> 5;
   const int ra = warp * 16 + (lane >> 2), ca = 2 * (lane & 3);
-  float acc[QBN / 2], tot[GROUPED ? QBN / 2 : 1];
+  float acc[QBN / 2], tot[TOT ? QBN / 2 : 1];
   float p[BATCHED ? 1 : RP / 2];
 #pragma unroll
   for (int i = 0; i < QBN / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (GROUPED ? QBN / 2 : 1); ++i) tot[i] = 0.f;
+  for (int i = 0; i < (TOT ? QBN / 2 : 1); ++i) tot[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < (BATCHED ? 1 : RP / 2); ++i) p[i] = 0.f;
 
@@ -1119,30 +655,35 @@ tt_linear_splitk_kernel(const bf16* __restrict__ x,
                      : make_float2(0.f, 0.f);
     }
   };
-  if constexpr (W8) load_scales(GROUPED ? kt0 * QBK / group : 0);
+  if constexpr (W8)   // an EXT slice past the base tiles needs none
+    if (kt0 < nk) load_scales(GROUPED ? kt0 * QBK / group : 0);
 
   for (int kt = kt0; kt < kt1; ++kt) {
     const int st = (kt - kt0) % QSTAGES;
+    const bool base_tile = kt < nk;
     cp_async_wait<QSTAGES - 2>();   // tile kt has landed
     if constexpr (!W8) fence_proxy_async();   // cp.async, to `wgmma`
     __syncthreads();   // ... for every thread; the products of tile kt - 1
                        // are done, so its stage and the widened tile are free
     if (kt + QSTAGES - 1 < kt1) issue(kt + QSTAGES - 1);
     cp_async_commit();
-    // the bf16 tile `wgmma` reads: the stage itself (bf16 W), or int8 W
-    // widened into WB
+    // the bf16 tile `wgmma` reads: the stage itself (bf16 W, B's rows), or
+    // int8 W widened into WB
     uint32_t wb = base + L::W + st * L::WS;
     if constexpr (W8) {
-      const unsigned char* qt = smem + L::W + st * L::WS;
-      wb = base + L::WB;
+      if (base_tile) {
+        const unsigned char* qt = smem + L::W + st * L::WS;
+        wb = base + L::WB;
 #pragma unroll
-      for (int i = 0; i < QBK * 4 / QNT; ++i) {   // widen: 16 values a chunk
-        const int c = tid + i * QNT, row = c >> 2, ch = c & 3;
-        uint32_t lo[4], hi[4];
-        widen16(*reinterpret_cast<const uint4*>(qt + row * QBN + ch * 16), lo,
-                hi);
-        st_shared16(wb + row * 128 + (((2 * ch) ^ (row & 7)) << 4), lo);
-        st_shared16(wb + row * 128 + (((2 * ch + 1) ^ (row & 7)) << 4), hi);
+        for (int i = 0; i < QBK * 4 / QNT; ++i) {   // 16 values a chunk
+          const int c = tid + i * QNT, row = c >> 2, ch = c & 3;
+          uint32_t lo[4], hi[4];
+          widen16(*reinterpret_cast<const uint4*>(qt + row * QBN + ch * 16),
+                  lo, hi);
+          st_shared16(wb + row * 128 + (((2 * ch) ^ (row & 7)) << 4), lo);
+          st_shared16(wb + row * 128 + (((2 * ch + 1) ^ (row & 7)) << 4),
+                      hi);
+        }
       }
       fence_proxy_async();   // cp.async and the widened stores, to `wgmma`
       __syncthreads();
@@ -1163,8 +704,11 @@ tt_linear_splitk_kernel(const bf16* __restrict__ x,
     wg_wait<0>();
     reg_fence(acc);
     reg_fence(p);
-    if (GROUPED && (((kt + 1) * QBK) % group == 0 || kt + 1 == kt1)) {
-      // the group's (or the slice's) last tile: tot += partial · scale
+    // the group's, the slice's or (EXT) the base's last tile: tot +=
+    // partial · scale
+    if (TOT && W8 && base_tile &&
+        ((GROUPED && ((kt + 1) * QBK) % group == 0) || kt + 1 == kt1 ||
+         (EXT && kt + 1 == nk))) {
 #pragma unroll
       for (int c = 0; c < QBN / 8; ++c)
 #pragma unroll
@@ -1172,11 +716,16 @@ tt_linear_splitk_kernel(const bf16* __restrict__ x,
           tot[4 * c + e] += acc[4 * c + e] * ((e & 1) ? sc[c].y : sc[c].x);
           acc[4 * c + e] = 0.f;
         }
-      if (kt + 1 < kt1) load_scales((kt + 1) * QBK / group);
+      if (GROUPED && kt + 1 < min(kt1, nk))
+        load_scales((kt + 1) * QBK / group);
     }
   }
   cp_async_wait<0>();
-  float* sum = GROUPED ? tot : acc;
+  if constexpr (EXT && W8) {   // + the extension, which is not scaled
+#pragma unroll
+    for (int i = 0; i < QBN / 2; ++i) tot[i] += acc[i];
+  }
+  float* sum = TOT ? tot : acc;
   __syncthreads();   // the rings are free: the partials go where x was
 
   // B's (RP, 64) tile for the epilogue, into the W ring while the slices
@@ -1254,7 +803,7 @@ tt_linear_splitk_kernel(const bf16* __restrict__ x,
       for (int hh = 0; hh < 2; ++hh)
         *reinterpret_cast<float2*>(ps + (ra + 8 * hh) * L::PS + 8 * c + ca) =
             make_float2(p[4 * c + 2 * hh], p[4 * c + 2 * hh + 1]);
-  } else {   // #10: the pre-pass's partial sums, in K order
+  } else if constexpr (!EXT) {   // #10: the pre-pass's partials, K order
     // launched as its dependent, this grid may start before the pre-pass
     // ends: wait here for it to finish and its writes to show
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -1274,13 +823,13 @@ tt_linear_splitk_kernel(const bf16* __restrict__ x,
     const int gn = n0 + 8 * c + ca;
     if (c % S != rank || gn >= N) continue;
     float* g = sum + 4 * c;
-    if (W8 && !GROUPED) {   // per output channel: the f32 sum · scale[n]
+    if (W8 && !TOT) {   // per output channel: the f32 sum · scale[n]
       g[0] *= sc[c].x;
       g[1] *= sc[c].y;
       g[2] *= sc[c].x;
       g[3] *= sc[c].y;
     }
-    for (int j = 0; j < r; ++j) {   // + alpha·P·B, in f32
+    for (int j = 0; j < (EXT ? 0 : r); ++j) {   // + alpha·P·B, in f32
       const float p0 = alpha * ps[ra * L::PS + j];
       const float p1 = alpha * ps[(ra + 8) * L::PS + j];
       const float2 bv = __bfloat1622float2(
@@ -1301,31 +850,40 @@ tt_linear_splitk_kernel(const bf16* __restrict__ x,
   }
 }
 
-// #10's pre-pass: part[m, c, j] = Σ x[m, k]·A[m, k, j] over the
-// K rows k of chunk c (PKC of them), in f32: one block a (chunk, row), a
-// thread's rows summed in registers, the block's lanes in a fixed tree
-// and its four warps in order. vec: A's rows take 16-byte loads.
-template <int RPP>
+// #10's and K2's pre-pass, over the per-row A (M, K, r). Ranks up to
+// RANK_WGMMA (HL false): part[m, c, j] = Σ x[m, k]·A[m, k, j] over the K
+// rows k of chunk c (PKC of them), in f32, one block a (chunk, row).
+// Larger ranks (HL): one block a (64 rank columns j0.., row) sums all of
+// K and writes alpha·P as hi = bf16(alpha·P), lo = bf16(alpha·P - hi) into
+// PL row m, columns j0.. and rp + j0.. (zero past r). Either way a
+// thread's rows are summed in registers, the block's lanes in a fixed
+// tree and its four warps in order. vec: A's rows take 16-byte loads.
+template <int RPP, bool HL>
 __global__ void __launch_bounds__(QNT)
 tt_linear_batched_p_kernel(const bf16* __restrict__ x,
                            const bf16* __restrict__ a,
-                           float* __restrict__ part, int K, int r, int vec) {
+                           float* __restrict__ part, bf16* __restrict__ pl,
+                           int K, int r, int vec, float alpha, int rp) {
   __shared__ float red[QNT / 32][RPP];
-  // let the main kernel start now: its K loop does not read P
+  // let the main kernel start now: its base K loop does not read P
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
-  const int c = blockIdx.x, m = blockIdx.y, nkc = gridDim.x;
+  const int m = blockIdx.y;
+  const int c = HL ? 0 : blockIdx.x, nkc = HL ? 1 : gridDim.x;
+  const int j0 = HL ? blockIdx.x * RPP : 0;
+  const int nr = min(RPP, r - j0);   // HL: ≤ 0 for rank padding only
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int k1 = min(K, (c + 1) * PKC);
+  const int k1 = HL ? K : min(K, (c + 1) * PKC);
   float pr[RPP];
 #pragma unroll
   for (int j = 0; j < RPP; ++j) pr[j] = 0.f;
-  for (int k = c * PKC + tid; k < k1; k += QNT) {
+#pragma unroll 2
+  for (int k = (HL ? 0 : c * PKC) + tid; k < k1; k += QNT) {
     const float xv = __bfloat162float(x[static_cast<long long>(m) * K + k]);
-    const bf16* ak = a + (static_cast<long long>(m) * K + k) * r;
+    const bf16* ak = a + (static_cast<long long>(m) * K + k) * r + j0;
     if (vec) {
 #pragma unroll
       for (int jc = 0; jc < RPP / 8; ++jc) {
-        if (jc * 8 >= r) break;
+        if (jc * 8 >= nr) break;
         const uint4 u = __ldg(reinterpret_cast<const uint4*>(ak + jc * 8));
         const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -1338,36 +896,51 @@ tt_linear_batched_p_kernel(const bf16* __restrict__ x,
     } else {
 #pragma unroll
       for (int j = 0; j < RPP; ++j)
-        if (j < r) pr[j] += xv * __bfloat162float(ak[j]);
+        if (j < nr) pr[j] += xv * __bfloat162float(ak[j]);
     }
   }
 #pragma unroll
   for (int j = 0; j < RPP; ++j) {
-    if (j >= r) break;
+    if (j >= nr) break;
 #pragma unroll
     for (int o = 16; o >= 1; o >>= 1)
       pr[j] += __shfl_xor_sync(0xffffffffu, pr[j], o);
     if (lane == 0) red[warp][j] = pr[j];
   }
   __syncthreads();
-  if (tid < r)
+  if constexpr (HL) {
+    if (tid < RPP) {
+      const float v =
+          tid < nr ? alpha * (((red[0][tid] + red[1][tid]) + red[2][tid]) +
+                              red[3][tid])
+                   : 0.f;
+      const bf16 hi = __float2bfloat16(v);
+      bf16* row = pl + static_cast<long long>(m) * 2 * rp + j0 + tid;
+      row[0] = hi;
+      row[rp] = __float2bfloat16(v - __bfloat162float(hi));
+    }
+  } else if (tid < r) {
     part[(static_cast<long long>(m) * nkc + c) * r + tid] =
         ((red[0][tid] + red[1][tid]) + red[2][tid]) + red[3][tid];
+  }
 }
 
-template <int RP, bool GROUPED, bool BATCHED, bool W8>
+// the slices of K over nt = nk (+ 2·rp / 64 for EXT) tiles: tps tiles a
+// slice, no slice empty
+template <int RP, bool GROUPED, bool BATCHED, bool W8, bool EXT>
 int launch_splitk(const void* x, const void* w, const float* s,
                   const void* a, const void* b, void* y, const float* pp,
-                  int M, int N, int K, int r, int group, int splits, int nkc,
-                  float alpha, const LinStrides& ls, void* stream) {
-  constexpr int smem = SplitSmem<RP, BATCHED, W8>::TOTAL + 1024;   // + slack
+                  const void* pl, int M, int N, int K, int r, int rp,
+                  int group, int splits, int nkc, float alpha,
+                  const LinStrides& ls, void* stream) {
+  constexpr int smem = SplitSmem<RP, BATCHED, W8, EXT>::TOTAL + 1024;
   static bool done = false;
-  cudaError_t e = allow_smem(
-      tt_linear_splitk_kernel<RP, GROUPED, BATCHED, W8>, smem, &done);
+  auto kern = tt_linear_splitk_kernel<RP, GROUPED, BATCHED, W8, EXT>;
+  cudaError_t e = allow_smem(kern, smem, &done);
   if (e != cudaSuccess) return (int)e;
-  const int nk = (K + QBK - 1) / QBK;
-  const int tps = (nk + splits - 1) / splits;
-  const int nsl = (nk + tps - 1) / tps;   // no empty slice
+  const int nt = (K + QBK - 1) / QBK + (EXT ? 2 * rp / QBK : 0);
+  const int tps = (nt + splits - 1) / splits;
+  const int nsl = (nt + tps - 1) / tps;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + QBN - 1) / QBN, (M + QBM - 1) / QBM, nsl);
   cfg.blockDim = dim3(QNT);
@@ -1378,50 +951,97 @@ int launch_splitk(const void* x, const void* w, const float* s,
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = nsl;
-  // #10, K2: a programmatic dependent of the pre-pass (griddepcontrol)
+  // after a pre-pass (#10, K2, EXT): its programmatic dependent
   attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = BATCHED ? 2 : 1;
-  e = cudaLaunchKernelEx(
-      &cfg, tt_linear_splitk_kernel<RP, GROUPED, BATCHED, W8>,
-      static_cast<const bf16*>(x), w, s,
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<bf16*>(y), pp, M, N, K, r, group, tps, nkc, alpha, ls);
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const bf16*>(x), w, s,
+                         static_cast<const bf16*>(a),
+                         static_cast<const bf16*>(b), static_cast<bf16*>(y),
+                         pp, static_cast<const bf16*>(pl), M, N, K, r, rp,
+                         group, tps, nkc, alpha, ls);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// the main kernel over PL after a pre-pass (EXT): int8 W per channel or
+// grouped, or bf16 W
+template <bool W8>
+int launch_ext(const void* x, const void* w, const float* s, const void* b,
+               void* y, const void* pl, int M, int N, int K, int r, int rp,
+               int G, int splits, const LinStrides& ls, void* stream) {
+#define EXT_ARGS x, w, s, nullptr, b, y, nullptr, pl, M, N, K, r, rp, K / G, \
+                 splits, 0, 1.f, ls, stream
+  if constexpr (!W8) return launch_splitk<0, false, true, false, true>(EXT_ARGS);
+  return G > 1 ? launch_splitk<0, true, true, true, true>(EXT_ARGS)
+               : launch_splitk<0, false, true, true, true>(EXT_ARGS);
+#undef EXT_ARGS
+}
+
 // #10 (W8) and K2 on the split-K `wgmma` kernel: the pre-pass into ws,
-// then the kernel
+// then the kernel. r ≤ RANK_WGMMA: ws holds f32 partial P sums
+// (M · ceil(K / 256) · r); above: PL, bf16 (M, 2·rp)
 template <bool W8>
 int run_batched_splitk(const void* x, const void* w, const float* s,
-                       const void* a, const void* b, void* y, float* ws,
+                       const void* a, const void* b, void* y, void* ws,
                        int M, int N, int K, int r, int G, float alpha,
                        int splits, void* stream) {
   LinStrides ls = {{0, 0, 0, 0, N, 1}};   // b contiguous
   const int group = K / G;
   if (ws == nullptr) return (int)cudaErrorInvalidValue;
-  const int nkc = (K + PKC - 1) / PKC;
   const int vec = r % 8 == 0 && aligned16(a);
-  const dim3 pgrid(nkc, M);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* ab = static_cast<const bf16*>(a);
+  if (r > RANK_WGMMA) {
+    const int rp = round_up(r, QBK);
+    tt_linear_batched_p_kernel<64, true><<<dim3(rp / 64, M), QNT, 0, st>>>(
+        xb, ab, nullptr, static_cast<bf16*>(ws), K, r, vec, alpha, rp);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    return launch_ext<W8>(x, w, s, b, y, ws, M, N, K, r, rp, G, splits, ls,
+                          stream);
+  }
+  float* pp = static_cast<float*>(ws);
+  const int nkc = (K + PKC - 1) / PKC;
+  const dim3 pgrid(nkc, M);
   if (r <= 16)
-    tt_linear_batched_p_kernel<16><<<pgrid, QNT, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(a), ws, K, r,
-        vec);
+    tt_linear_batched_p_kernel<16, false><<<pgrid, QNT, 0, st>>>(
+        xb, ab, pp, nullptr, K, r, vec, 1.f, 0);
   else
-    tt_linear_batched_p_kernel<64><<<pgrid, QNT, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(a), ws, K, r,
-        vec);
+    tt_linear_batched_p_kernel<64, false><<<pgrid, QNT, 0, st>>>(
+        xb, ab, pp, nullptr, K, r, vec, 1.f, 0);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-#define BA_ARGS x, w, s, a, b, y, ws, M, N, K, r, group, splits, nkc, \
-                alpha, ls, stream
-  if constexpr (!W8) return launch_splitk<64, false, true, false>(BA_ARGS);
-  return G > 1 ? launch_splitk<64, true, true, true>(BA_ARGS)
-               : launch_splitk<64, false, true, true>(BA_ARGS);
+#define BA_ARGS x, w, s, a, b, y, pp, nullptr, M, N, K, r, 0, group, splits, \
+                nkc, alpha, ls, stream
+  if constexpr (!W8)
+    return launch_splitk<64, false, true, false, false>(BA_ARGS);
+  return G > 1 ? launch_splitk<64, true, true, true, false>(BA_ARGS)
+               : launch_splitk<64, false, true, true, false>(BA_ARGS);
 #undef BA_ARGS
+}
+
+// K1's pre-pass: PL = alpha·x·A as hi + lo (M, 2·rp) with A (K, r), read
+// through its strides, in W's place (N = r); x contiguous
+int k1_pre_pass(const void* x, const void* a, void* pl, int M, int K, int r,
+                float alpha, long long ask, long long asj, void* stream) {
+  const int rp = round_up(r, LBK);
+  LinStrides la = {{ask, asj, 0, 0, 0, 0}};
+  const bool ak = ask == 1 && asj != 1;
+  const bool va = ak ? K % 8 == 0 && asj % 8 == 0
+                     : asj == 1 && r % 8 == 0 && ask % 8 == 0;
+  const int pv = (K % 8 == 0 && aligned16(x) ? LV_X : 0) |
+                 (va && aligned16(a) ? LV_W : 0);
+#define PRE_ARGS x, a, nullptr, nullptr, pl, M, r, K, r, alpha, la, pv, \
+                 nullptr, rp, stream
+  return pv == (LV_X | LV_W)
+             ? (ak ? launch_wgmma<0, true, true, K1_PRE>(PRE_ARGS)
+                   : launch_wgmma<0, false, true, K1_PRE>(PRE_ARGS))
+             : (ak ? launch_wgmma<0, true, false, K1_PRE>(PRE_ARGS)
+                   : launch_wgmma<0, false, false, K1_PRE>(PRE_ARGS));
+#undef PRE_ARGS
 }
 
 }  // namespace
@@ -1433,14 +1053,13 @@ extern "C" {
 // view is a stride swap, no copy); y (M, N) row-major; all bf16.
 // variant 1: the `wgmma` kernel with P in registers (r <= 64); 2: the
 // pre-pass into ws, a bf16 workspace of M · 2·rp elements (rp = r rounded
-// up to 64), then the `wgmma` kernel over K + 2·rp (r <= 1024; the
-// wrapper chooses, kernels/tt_linear.py).
+// up to 64), then the `wgmma` kernel over K + 2·rp (any r; the wrapper
+// chooses, kernels/tt_linear.py).
 int tt_linear_bf16(const void* x, const void* w, const void* a,
                    const void* b, void* y, int M, int N, int K, int r,
                    float alpha, const long long* strides, int variant,
                    void* ws, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 1024 ||
-      (M + LBM - 1) / LBM > 65535)
+  if (M < 1 || N < 1 || K < 1 || r < 1 || (M + LBM - 1) / LBM > 65535)
     return (int)cudaErrorInvalidValue;
   LinStrides ls;
   for (int i = 0; i < 6; ++i) ls.s[i] = strides[i];
@@ -1452,21 +1071,8 @@ int tt_linear_bf16(const void* x, const void* w, const void* a,
   const int vx = K % 8 == 0 && aligned16(x) ? LV_X : 0;
   if (variant == 2) {
     if (ws == nullptr) return (int)cudaErrorInvalidValue;
-    const int rp = (r + LBK - 1) / LBK * LBK;
-    // the pre-pass: PL = alpha·x·A with A in W's place (N = r)
-    LinStrides la = {{ask, asj, 0, 0, 0, 0}};
-    const bool ak = ask == 1 && asj != 1;
-    const bool va = ak ? K % 8 == 0 && asj % 8 == 0
-                       : asj == 1 && r % 8 == 0 && ask % 8 == 0;
-    const int pv = vx | (va && aligned16(a) ? LV_W : 0);
-#define PRE_ARGS x, a, nullptr, nullptr, ws, M, r, K, r, alpha, la, pv, \
-                 nullptr, rp, stream
-    int e = pv == (LV_X | LV_W)
-                ? (ak ? launch_wgmma<0, true, true, K1_PRE>(PRE_ARGS)
-                      : launch_wgmma<0, false, true, K1_PRE>(PRE_ARGS))
-                : (ak ? launch_wgmma<0, true, false, K1_PRE>(PRE_ARGS)
-                      : launch_wgmma<0, false, false, K1_PRE>(PRE_ARGS));
-#undef PRE_ARGS
+    const int rp = round_up(r, LBK);
+    const int e = k1_pre_pass(x, a, ws, M, K, r, alpha, ask, asj, stream);
     if (e != cudaSuccess) return e;
     const bool vb = bsn == 1 && N % 8 == 0 && bsj % 8 == 0 && aligned16(b);
     const int ev = vx | (vw && aligned16(w) ? LV_W : 0) | (vb ? LV_B : 0);
@@ -1497,106 +1103,81 @@ int tt_linear_bf16(const void* x, const void* w, const void* a,
 }
 
 // K2, per-row A: x (M, K), w (K, N), a (M, K, r), b (r, N) contiguous,
-// M <= 64. variant 1: the pre-pass, then the split-K `wgmma` kernel over
-// `splits` <= 8 slices of K, one cluster a tile (r <= 64, K % 8 == 0,
-// N % 8 == 0, 16-byte aligned x, w and a; ws an f32 workspace of
-// M · ceil(K / 256) · r floats); 2: the template kernel (vec: its
-// 16-byte copy flags).
+// M <= 64, K % 8 == 0, N % 8 == 0, 16-byte aligned x, w and b; any r.
+// The pre-pass, then the split-K `wgmma` kernel over `splits` <= 8
+// slices of K (and, r > 64, of the 2·rp extension rows), one cluster a
+// tile. ws: f32 M · ceil(K / 256) · r (r <= 64), else bf16 M · 2·rp.
 int tt_linear_batched_a_bf16(const void* x, const void* w, const void* a,
                              const void* b, void* y, int M, int N, int K,
-                             int r, float alpha, int vec, int variant,
-                             int splits, void* ws, void* stream) {
-  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || r > 256)
+                             int r, float alpha, int splits, void* ws,
+                             void* stream) {
+  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || K % 8 != 0 ||
+      N % 8 != 0 || !aligned16(x) || !aligned16(w) || !aligned16(b) ||
+      splits < 1 || splits > QCLUSTER)
     return (int)cudaErrorInvalidValue;
-  if (variant == 2)
-    return run_batched_a<WQ_NONE>(x, w, nullptr, a, b, y, M, N, K, r, 0,
-                                  alpha, vec, stream);
-  if (variant != 1 || r > RANK_WGMMA || K % 8 != 0 || N % 8 != 0 ||
-      !aligned16(x) || !aligned16(w) || !aligned16(a) || splits < 1 ||
-      splits > QCLUSTER)
-    return (int)cudaErrorInvalidValue;
-  return run_batched_splitk<false>(x, w, nullptr, a, b, y,
-                                   static_cast<float*>(ws), M, N, K, r, 1,
+  return run_batched_splitk<false>(x, w, nullptr, a, b, y, ws, M, N, K, r, 1,
                                    alpha, splits, stream);
 }
 
 // w8a16 (#9): w int8 (K, N) and scale f32 (G, N) contiguous; G = 1
-// scales per output channel, G > 1 per group of K / G rows (G must divide
-// K, and the group must be a multiple of the kernels' K tiles: 128 always
-// is). a (K, r) and b (r, N) read through their element strides (a: k, j;
-// b: j, n). variant 1: the `wgmma` kernel (r <= 64, K % 8 == 0,
-// N % 16 == 0, x and w 16-byte aligned, scale 8-byte aligned) over
-// `splits` <= 8 slices of K, one cluster a tile; 2: the template kernel
-// (contiguous a and b).
+// scales per output channel, G > 1 per group of K / G rows (a multiple of
+// 64). K % 8 == 0, N % 16 == 0, x and w 16-byte aligned, scale 8-byte
+// aligned; any r. a (K, r) and b (r, N) read through their element
+// strides (a: k, j; b: j, n); above r = 64, b must be row-contiguous
+// (b: N, 1) and 16-byte aligned, and ws is a bf16 workspace of M · 2·rp
+// for K1's pre-pass. The split-K `wgmma` kernel over `splits` <= 8
+// slices of K, one cluster a tile.
 int tt_linear_w8_bf16(const void* x, const void* w, const void* scale,
                       const void* a, const void* b, void* y, int M, int N,
                       int K, int r, int G, float alpha,
-                      const long long* strides, int variant, int splits,
+                      const long long* strides, int splits, void* ws,
                       void* stream) {
   const float* s = static_cast<const float*>(scale);
-  if (M < 1 || N < 1 || K < 1 || r < 1 || r > 256 || G < 1 || K % G != 0)
-    return (int)cudaErrorInvalidValue;
-  LinStrides ls;
-  for (int i = 0; i < 6; ++i) ls.s[i] = strides[i];
-  if (variant == 2) {
-    if (ls.s[2] != r || ls.s[3] != 1 || ls.s[4] != N || ls.s[5] != 1)
-      return (int)cudaErrorInvalidValue;
-    const int vec = (K % 8 == 0 && N % 16 == 0 && aligned16(x) &&
-                     aligned16(w) ? VEC_XW : 0) |
-                    (r % 8 == 0 && aligned16(a) ? VEC_A : 0);
-    if (G == 1)
-      return run_shared_a<WQ_CHANNEL>(x, w, s, a, b, y, M, N, K, r, K,
-                                      alpha, vec, stream);
-    return run_shared_a<WQ_GROUP>(x, w, s, a, b, y, M, N, K, r, K / G,
-                                  alpha, vec, stream);
-  }
-  const int group = K / G;
-  if (variant != 1 || r > RANK_WGMMA || K % 8 != 0 || N % 16 != 0 ||
-      !aligned16(x) || !aligned16(w) ||
+  const int group = G > 0 ? K / G : 0;
+  if (M < 1 || N < 1 || K < 1 || r < 1 || G < 1 || K % G != 0 ||
+      K % 8 != 0 || N % 16 != 0 || !aligned16(x) || !aligned16(w) ||
       reinterpret_cast<uintptr_t>(scale) % 8 != 0 ||
       (G > 1 && group % QBK != 0) || splits < 1 || splits > QCLUSTER ||
       (M + QBM - 1) / QBM > 65535)
     return (int)cudaErrorInvalidValue;
-#define W8_ARGS x, w, s, a, b, y, nullptr, M, N, K, r, group, splits, 0, \
-                alpha, ls, stream
+  LinStrides ls;
+  for (int i = 0; i < 6; ++i) ls.s[i] = strides[i];
+  if (r > RANK_WGMMA) {
+    if (ws == nullptr || ls.s[5] != 1 || ls.s[4] % 8 != 0 || !aligned16(b))
+      return (int)cudaErrorInvalidValue;
+    const int e = k1_pre_pass(x, a, ws, M, K, r, alpha, ls.s[2], ls.s[3],
+                              stream);
+    if (e != cudaSuccess) return e;
+    return launch_ext<true>(x, w, s, b, y, ws, M, N, K, r, round_up(r, QBK),
+                            G, splits, ls, stream);
+  }
+#define W8_ARGS x, w, s, a, b, y, nullptr, nullptr, M, N, K, r, 0, group, \
+                splits, 0, alpha, ls, stream
   if (r <= 16)
-    return G > 1 ? launch_splitk<16, true, false, true>(W8_ARGS)
-                 : launch_splitk<16, false, false, true>(W8_ARGS);
-  return G > 1 ? launch_splitk<64, true, false, true>(W8_ARGS)
-               : launch_splitk<64, false, false, true>(W8_ARGS);
+    return G > 1 ? launch_splitk<16, true, false, true, false>(W8_ARGS)
+                 : launch_splitk<16, false, false, true, false>(W8_ARGS);
+  return G > 1 ? launch_splitk<64, true, false, true, false>(W8_ARGS)
+               : launch_splitk<64, false, false, true, false>(W8_ARGS);
 #undef W8_ARGS
 }
 
 // w8a16 with a per-row A (#10): x (M, K), a (M, K, r), b (r, N)
-// contiguous, M <= 64; w and scale as #9's. variant 1: the pre-pass, then
-// the `wgmma` kernel over `splits` <= 8 slices of K, one cluster a tile
-// (r <= 64, K % 8 == 0, N % 16 == 0, 16-byte aligned x, w and a; ws an
-// f32 workspace of M · ceil(K / 256) · r floats); 2: the template kernel
-// (vec: its 16-byte copy flags).
+// contiguous, M <= 64; w and scale as #9's, b 16-byte aligned; any r.
+// K2's pre-pass and workspace, then the split-K `wgmma` kernel over
+// `splits` <= 8 slices of K, one cluster a tile.
 int tt_linear_batched_a_w8_bf16(const void* x, const void* w,
                                 const void* scale, const void* a,
                                 const void* b, void* y, int M, int N, int K,
-                                int r, int G, float alpha, int vec,
-                                int variant, int splits, void* ws,
-                                void* stream) {
+                                int r, int G, float alpha, int splits,
+                                void* ws, void* stream) {
   const float* s = static_cast<const float*>(scale);
-  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || r > 256 || G < 1 ||
-      K % G != 0)
-    return (int)cudaErrorInvalidValue;
-  if (variant == 2) {
-    if (G == 1)
-      return run_batched_a<WQ_CHANNEL>(x, w, s, a, b, y, M, N, K, r, K,
-                                       alpha, vec, stream);
-    return run_batched_a<WQ_GROUP>(x, w, s, a, b, y, M, N, K, r, K / G,
-                                   alpha, vec, stream);
-  }
-  if (variant != 1 || r > RANK_WGMMA || K % 8 != 0 || N % 16 != 0 ||
-      !aligned16(x) || !aligned16(w) || !aligned16(a) ||
-      reinterpret_cast<uintptr_t>(scale) % 8 != 0 ||
+  if (M < 1 || M > 64 || N < 1 || K < 1 || r < 1 || G < 1 || K % G != 0 ||
+      K % 8 != 0 || N % 16 != 0 || !aligned16(x) || !aligned16(w) ||
+      !aligned16(b) || reinterpret_cast<uintptr_t>(scale) % 8 != 0 ||
       (G > 1 && (K / G) % QBK != 0) || splits < 1 || splits > QCLUSTER)
     return (int)cudaErrorInvalidValue;
-  return run_batched_splitk<true>(x, w, s, a, b, y, static_cast<float*>(ws),
-                                 M, N, K, r, G, alpha, splits, stream);
+  return run_batched_splitk<true>(x, w, s, a, b, y, ws, M, N, K, r, G, alpha,
+                                  splits, stream);
 }
 
 }  // extern "C"

@@ -20,18 +20,21 @@ wrappers make plain outputs with no ``grad_fn``: an input that requires
 grad while autograd records raises.
 
 K1 runs one `wgmma` kernel in two variants (``k1_variant``): ranks up to
-``RANK_WGMMA`` keep P = x·A in registers; above it, up to ``K1_MAX_RANK``
-(VeRA's rank 1024 in the paper's Table 1), a pre-pass writes α·P as a
-bf16 hi + lo pair into a (M, 2·rp) workspace and the main kernel sums
-[hi | lo]·[B; B] on the tensor cores after its base K loop. Both read W,
-A and B through their strides; only the pre-pass variant copies a B
-whose columns are strided (r·N elements) into rows. K2, #9 and #10
-share a split-K `wgmma` kernel for ranks up to ``RANK_WGMMA`` on
-operands that take 16-byte copies, over ``w8_splits`` slices of K (#9:
-``w8_path``; K2 and #10, whose per-row adapter term P[m] = x[m]·A[m] a
-pre-pass kernel sums first: ``ba_path`` and ``bw8_path``); else the
-template kernel. K2 and #10 take at most 64 rows a launch; ``ops.py``
-splits larger M.
+``RANK_WGMMA`` keep P = x·A in registers; every larger rank runs a
+pre-pass that writes α·P as a bf16 hi + lo pair into a (M, 2·rp)
+workspace, and the main kernel sums [hi | lo]·[B; B] on the tensor cores
+after its base K loop. Both read W, A and B through their strides; only
+the pre-pass variant copies a B whose columns are strided (r·N elements)
+into rows. K2, #9 and #10 share a split-K `wgmma` kernel over
+``w8_splits`` slices of K (``splitk_path``), with
+the same two forms of the rank term by ``k1_variant`` (#9's pre-pass is
+K1's; K2's and #10's sums the per-row P[m] = x[m]·A[m]); above
+``RANK_WGMMA`` the slices also split the 2·rp extension rows. No rank is
+refused: the workspace, not a constant, bounds it. The split-K kernel
+takes only operands that allow 16-byte copies: ``vec_operands`` pads
+ragged K / N with zeros and copies unaligned operands first (the model's
+shapes need no copy). K2 and #10 take at most 64 rows a launch;
+``ops.py`` splits larger M.
 """
 from __future__ import annotations
 
@@ -55,40 +58,26 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # x w a b y, M N K r, alpha, strides (w, a, b), variant, ws, stream
     "tt_linear_bf16": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _P, _P],
-    # x w a b y, M N K r, alpha, vec, variant, splits, ws, stream
-    "tt_linear_batched_a_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P,
-                                                       _P],
-    # x w scale a b y, M N K r G, alpha, strides (a, b), variant, splits,
-    # stream
-    "tt_linear_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _I, _P],
-    # x w scale a b y, M N K r G, alpha, vec, variant, splits, ws, stream
-    "tt_linear_batched_a_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _I,
-                                                          _P, _P],
+    # x w a b y, M N K r, alpha, splits, ws, stream
+    "tt_linear_batched_a_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _P, _P],
+    # x w scale a b y, M N K r G, alpha, strides (a, b), splits, ws, stream
+    "tt_linear_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _P, _P],
+    # x w scale a b y, M N K r G, alpha, splits, ws, stream
+    "tt_linear_batched_a_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _P, _P],
 }
 #: K1's variants (``csrc/tt_linear.cu``): the `wgmma` kernel with P in
 #: registers, which takes ranks up to RANK_WGMMA, and the pre-pass for P
-#: followed by the `wgmma` kernel over K + 2·rp, which takes every rank up
-#: to K1_MAX_RANK
+#: followed by the `wgmma` kernel over K + 2·rp, which takes every rank.
+#: The split-K kernel of K2, #9 and #10 forms its rank term the same way
 K1_VARIANTS = {"wgmma": 1, "pre_pass": 2}
 RANK_WGMMA = 64
-#: the largest rank K1 takes on the card (the JAX kernel keeps any r
-#: whole in a (bm, r) f32 scratch; the paper's largest is VeRA's 1024)
-K1_MAX_RANK = 1024
-#: K2's, #9's and #10's rank limit on the card: their template kernel
-#: keeps a (BM, r) f32 P in shared memory. K2 / #10's per-row A comes from
-#: a MetaTT 4+1d adapter, whose ranks stay far below it; #9 serves any
-#: kind over an int8 base (VeRA at 1024 raises: ROADMAP Queue 3)
-SHARED_P_MAX_RANK = 256
 #: rows a K2 / #10 launch takes
 BATCHED_A_ROWS = 64
-#: K2's, #9's and #10's CUDA kernels: the split-K `wgmma` kernel and the
-#: template kernel
-W8_VARIANTS = {"wgmma": 1, "template": 2}
 #: the split-K kernel's output tile, K tile, and most slices of K (the
 #: slices of a tile are one thread-block cluster of at most 8)
 W8_TILE, W8_BK, W8_MAX_SPLITS = 64, 64, 8
 #: K rows a partial sum of K2's and #10's pre-pass (P[m] = x[m]·A[m])
-#: covers
+#: covers, at ranks up to RANK_WGMMA
 PRE_K = 256
 
 
@@ -101,20 +90,31 @@ def _fn(name: str):
 
 
 def k1_variant(r: int) -> str:
-    """Which variant K1 launches at rank r: ``"wgmma"`` (ranks up to
-    ``RANK_WGMMA``, every M) or ``"pre_pass"`` (larger ranks)."""
+    """How a kernel forms the rank term at rank r: ``"wgmma"`` (P in
+    registers, ranks up to ``RANK_WGMMA``) or ``"pre_pass"`` (α·P as a
+    bf16 hi + lo pair in a workspace, every larger rank)."""
     return "wgmma" if r <= RANK_WGMMA else "pre_pass"
+
+
+def _rank_pad(r: int) -> int:
+    return -(-r // 64) * 64
 
 
 def k1_workspace_elems(m: int, r: int) -> int:
     """bf16 elements of the pre-pass variant's P workspace: (M, 2·rp),
     rp = r rounded up to 64."""
-    return m * 2 * (-(-r // 64) * 64)
+    return m * 2 * _rank_pad(r)
+
+
+def splitk_rows(k: int, r: int) -> int:
+    """K rows the split-K kernel's loop covers: K, and above
+    ``RANK_WGMMA`` the 2·rp extension rows of [hi | lo]·[B; B]."""
+    return k if r <= RANK_WGMMA else k + 2 * _rank_pad(r)
 
 
 def w8_splits(m: int, n: int, k: int, sms: int) -> int:
-    """Slices of K for #9's `wgmma` kernel: the fewest (a power of two, at
-    most ``W8_MAX_SPLITS``) that put at least one block on each of
+    """Slices of K for the split-K `wgmma` kernel: the fewest (a power of
+    two, at most ``W8_MAX_SPLITS``) that put at least one block on each of
     ``sms`` SMs, with every slice at least two K tiles long. M = 64,
     N = K = 2048 on 132 SMs: 32 output tiles x 8 slices of 256 rows."""
     tiles = -(-n // W8_TILE) * -(-m // W8_TILE)
@@ -125,53 +125,72 @@ def w8_splits(m: int, n: int, k: int, sms: int) -> int:
     return s
 
 
-def w8_path(x, wq, scale, r: int) -> tuple:
-    """Which CUDA kernel #9 launches, and over how many slices of K:
-    ``("wgmma", S)`` for ranks up to ``RANK_WGMMA`` when x and the int8 W
-    take 16-byte copies (K % 8 == 0, N % 16 == 0, aligned bases) and the
-    scales 8-byte ones; else ``("template", 1)``."""
-    m, k = x.shape
-    n = wq.shape[1]
-    if (r <= RANK_WGMMA and k % 8 == 0 and n % 16 == 0
-            and x.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
-            and scale.data_ptr() % 8 == 0):
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        return "wgmma", w8_splits(m, n, k, sms)
-    return "template", 1
+def _padded(k: int, n: int, w_dtype) -> tuple:
+    """(K, N) as the split-K kernel takes them: K a multiple of 8, N of 8
+    (bf16 W) or 16 (int8 W)."""
+    nm = 16 if w_dtype == torch.int8 else 8
+    return -(-k // 8) * 8, -(-n // nm) * nm
 
 
-def ba_plan(m: int, n: int, k: int, r: int, vec: bool, sms: int) -> tuple:
-    """K2's (and #10's) CUDA kernel and slices of K for operands of these
-    sizes: ``("wgmma", w8_splits(...))`` (the split-K kernel after a
-    pre-pass that sums P[m] = x[m]·A[m]) for ranks up to ``RANK_WGMMA`` on
-    operands that take 16-byte copies (``vec``), else ``("template",
-    1)``."""
-    if not vec or r > RANK_WGMMA:
-        return "template", 1
-    return "wgmma", w8_splits(m, n, k, sms)
+def ba_plan(m: int, n: int, k: int, r: int, sms: int) -> tuple:
+    """K2's (and #10's, and #9's) kernel form and slices of K for
+    operands of these (padded) sizes: ``(k1_variant(r), w8_splits(...))``
+    over ``splitk_rows(k, r)``. Every rank takes the split-K `wgmma`
+    kernel; above ``RANK_WGMMA`` after the hi + lo pre-pass."""
+    return k1_variant(r), w8_splits(m, n, splitk_rows(k, r), sms)
 
 
-def ba_path(x, w, a, r: int) -> tuple:
-    """``ba_plan`` on K2's operands: the `wgmma` kernel needs K % 8 == 0,
-    N % 8 == 0 and 16-byte aligned x, W and A."""
+def _sms(t) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def splitk_path(x, w, r: int) -> tuple:
+    """``ba_plan`` on the operands of K2 (bf16 W), #9 or #10 (int8 W):
+    x (M, K), W (K, N), at the padded sizes ``vec_operands`` gives."""
+    kp, np_ = _padded(x.shape[1], w.shape[1], w.dtype)
+    return ba_plan(x.shape[0], np_, kp, r, _sms(x))
+
+
+def _fit(t, shape: tuple, align: int = 16):
+    """t if it already has this shape, is contiguous and sits on an
+    ``align``-byte boundary; else a zero-padded aligned copy."""
+    if (tuple(t.shape) == shape and t.is_contiguous()
+            and t.data_ptr() % align == 0):
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, d) for d in t.shape)] = t
+    return out
+
+
+def vec_operands(x, w, scale, a, b, batched: bool) -> tuple:
+    """The split-K kernel's operands: K and N padded (``_padded``) with
+    zero rows / columns, x, W, B (and the per-row A) contiguous on 16-byte
+    boundaries, scales on 8-byte ones. Returns (x, w, scale, a, b,
+    copied); operands that already qualify pass through uncopied. #9's
+    shared A is read through its strides and is copied only to pad K."""
     m, k = x.shape
     n = w.shape[1]
-    vec = (k % 8 == 0 and n % 8 == 0 and x.data_ptr() % 16 == 0
-           and w.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return ba_plan(m, n, k, r, vec, sms)
+    kp, np_ = _padded(k, n, w.dtype)
+    r = a.shape[-1]
+    new = (_fit(x, (m, kp)), _fit(w, (kp, np_)),
+           None if scale is None else _fit(scale, (scale.shape[0], np_), 8),
+           _fit(a, (m, kp, r)) if batched
+           else (a if kp == k else _fit(a, (kp, r))),
+           _fit(b, (r, np_)))
+    copied = any(p is not q for p, q in zip(new, (x, w, scale, a, b)))
+    return (*new, copied)
 
 
-def bw8_path(x, wq, scale, a, r: int) -> tuple:
-    """``ba_plan`` on #10's operands: the `wgmma` kernel needs K % 8 == 0,
-    N % 16 == 0, 16-byte aligned x, W and A and 8-byte aligned scales."""
+def _workspace(x, r: int):
+    """The pre-pass's workspace: f32 partial P sums (K2 / #10 up to
+    ``RANK_WGMMA``), the bf16 hi + lo pair (every larger rank), or None
+    (#9 up to ``RANK_WGMMA``: P in registers)."""
     m, k = x.shape
-    n = wq.shape[1]
-    vec = (k % 8 == 0 and n % 16 == 0 and x.data_ptr() % 16 == 0
-           and wq.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0
-           and scale.data_ptr() % 8 == 0)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return ba_plan(m, n, k, r, vec, sms)
+    if r > RANK_WGMMA:
+        return torch.empty(k1_workspace_elems(m, r), dtype=torch.bfloat16,
+                           device=x.device)
+    return torch.empty(m * -(-k // PRE_K) * r, dtype=torch.float32,
+                       device=x.device)
 
 
 def _check_cuda(x, w, a, b, what: str, w_dtype=torch.bfloat16) -> None:
@@ -183,17 +202,6 @@ def _check_cuda(x, w, a, b, what: str, w_dtype=torch.bfloat16) -> None:
                             f"got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{what}: {n} is on {t.device}, x on {x.device}")
-
-
-def _vec_flags(x, w, a, k: int, n: int, r: int) -> int:
-    """Which operands may take the kernel's 16-byte cp.async loads: x / W
-    need K, N multiples of 8 (int8 W: N a multiple of 16) and aligned
-    bases (bit 1), A needs r a multiple of 8 and an aligned base (bit 2)."""
-    n_mult = 16 if w.dtype == torch.int8 else 8
-    xw = (k % 8 == 0 and n % n_mult == 0 and x.data_ptr() % 16 == 0
-          and w.data_ptr() % 16 == 0)
-    av = r % 8 == 0 and a.data_ptr() % 16 == 0
-    return int(xw) | (2 * int(av))
 
 
 def _check_scale(wq, scale, what: str) -> int:
@@ -208,10 +216,47 @@ def _check_scale(wq, scale, what: str) -> int:
     return g
 
 
-def _launch_w8(name, x, wq, scale, a, b, alpha, r, batched: bool):
+def _launch_splitk(name: str, x, w, scale, a, b, alpha,
+                   splits: int = 0) -> torch.Tensor:
+    """K2 (``scale`` None), #9 or #10 on checked CUDA operands: padded
+    and aligned by ``vec_operands``, then the pre-pass (where the rank
+    term needs one) and the split-K kernel over ``splits`` slices of K
+    (0: ``ba_plan``'s); N's padding is cut off y."""
+    batched = name != "tt_linear_w8"
+    m, n, r = x.shape[0], w.shape[1], a.shape[-1]
+    x, w, scale, a, b, _ = vec_operands(x, w, scale, a, b, batched)
+    kp, np_ = x.shape[1], w.shape[1]
+    y = torch.empty((m, np_), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y[:, :n]
+    splits = splits or ba_plan(m, np_, kp, r, _sms(x))[1]
+    ws = _workspace(x, r) if batched or r > RANK_WGMMA else None
+    common = (m, np_, kp, r)
+    tail = (splits, None if ws is None else ws.data_ptr(),
+            _build.stream_ptr(x))
+    if name == "tt_linear_batched_a":
+        rc = _fn("tt_linear_batched_a_bf16")(
+            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            y.data_ptr(), *common, float(alpha), *tail)
+    elif name == "tt_linear_w8":
+        st = (ctypes.c_longlong * 6)(0, 0, *a.stride(), *b.stride())
+        rc = _fn("tt_linear_w8_bf16")(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), a.data_ptr(),
+            b.data_ptr(), y.data_ptr(), *common, scale.shape[0],
+            float(alpha), ctypes.cast(st, ctypes.c_void_p), *tail)
+    else:
+        rc = _fn("tt_linear_batched_a_w8_bf16")(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), a.data_ptr(),
+            b.data_ptr(), y.data_ptr(), *common, scale.shape[0],
+            float(alpha), *tail)
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return y if np_ == n else y[:, :n].contiguous()
+
+
+def _launch_w8(name, x, wq, scale, a, b, alpha, batched: bool):
     """#9 / #10 on checked shapes: CUDA operands, or the plain version."""
     m, k = x.shape
-    n = wq.shape[1]
     g = _check_scale(wq, scale, name)
     _build.check_no_grad((x, scale, a, b), name)
     if not x.is_cuda:
@@ -225,79 +270,10 @@ def _launch_w8(name, x, wq, scale, a, b, alpha, r, batched: bool):
         raise NotImplementedError(
             f"{name}: CUDA kernel built for scale groups of a multiple of "
             f"128 rows; got {k // g}")
-    if (not 1 <= r <= SHARED_P_MAX_RANK
-            or (batched and not 1 <= m <= BATCHED_A_ROWS)):
-        raise ValueError(f"{name}: rank {r} outside 1..{SHARED_P_MAX_RANK} "
-                         f"or M={m} outside 1..{BATCHED_A_ROWS} (batched A)")
-    x, wq, scale = (t.contiguous() for t in (x, wq, scale))
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m == 0:
-        return y
-    if batched:
-        a, b = a.contiguous(), b.contiguous()
-        rc = _launch_w8_batched_a(x, wq, scale, a, b, y, g, alpha,
-                                  *bw8_path(x, wq, scale, a, r))
-    else:
-        rc = _launch_w8_shared_a(x, wq, scale, a, b, y, g, alpha,
-                                 *w8_path(x, wq, scale, r))
-    _build.check(rc, name)
-    LAUNCHES[name] += 1
-    return y
-
-
-def _launch_w8_shared_a(x, wq, scale, a, b, y, g: int, alpha,
-                        variant: str, splits: int) -> int:
-    """#9 through the named kernel (see ``w8_path``); returns the
-    launch's cudaError. A and B are read through their strides by the
-    `wgmma` kernel and copied contiguous for the template one."""
-    m, k = x.shape
-    n, r = wq.shape[1], a.shape[1]
-    if variant == "template":
-        a, b = a.contiguous(), b.contiguous()
-    st = (ctypes.c_longlong * 6)(0, 0, *a.stride(), *b.stride())
-    return _fn("tt_linear_w8_bf16")(
-        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), a.data_ptr(),
-        b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
-        ctypes.cast(st, ctypes.c_void_p), W8_VARIANTS[variant], splits,
-        _build.stream_ptr(x))
-
-
-def _pre_pass_ws(x, r: int, variant: str):
-    """The f32 workspace of the pre-pass's partial P sums (`wgmma` path
-    of K2 and #10), or None."""
-    if variant != "wgmma":
-        return None
-    m, k = x.shape
-    return torch.empty(m * -(-k // PRE_K) * r, dtype=torch.float32,
-                       device=x.device)
-
-
-def _launch_w8_batched_a(x, wq, scale, a, b, y, g: int, alpha,
-                         variant: str, splits: int) -> int:
-    """#10 on contiguous CUDA operands through the named kernel (see
-    ``bw8_path``); returns the launch's cudaError."""
-    m, k = x.shape
-    n, r = wq.shape[1], a.shape[2]
-    ws = _pre_pass_ws(x, r, variant)
-    return _fn("tt_linear_batched_a_w8_bf16")(
-        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), a.data_ptr(),
-        b.data_ptr(), y.data_ptr(), m, n, k, r, g, float(alpha),
-        _vec_flags(x, wq, a, k, n, r), W8_VARIANTS[variant], splits,
-        None if ws is None else ws.data_ptr(), _build.stream_ptr(x))
-
-
-def _launch_batched_a(x, w, a, b, y, alpha, variant: str,
-                      splits: int) -> int:
-    """K2 on contiguous CUDA operands through the named kernel (see
-    ``ba_plan``); returns the launch's cudaError."""
-    m, k = x.shape
-    n, r = w.shape[1], a.shape[2]
-    ws = _pre_pass_ws(x, r, variant)
-    return _fn("tt_linear_batched_a_bf16")(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-        y.data_ptr(), m, n, k, r, float(alpha), _vec_flags(x, w, a, k, n, r),
-        W8_VARIANTS[variant], splits, None if ws is None else ws.data_ptr(),
-        _build.stream_ptr(x))
+    if batched and not 1 <= m <= BATCHED_A_ROWS:
+        raise ValueError(f"{name}: M={m} outside 1..{BATCHED_A_ROWS} "
+                         "(batched A)")
+    return _launch_splitk(name, x, wq, scale, a, b, alpha)
 
 
 def _launch_k1(x, w, a, b, alpha, variant: str) -> torch.Tensor:
@@ -344,12 +320,6 @@ def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if not x.is_cuda:
         return tt_linear_plain(x, w, a, b, alpha)
     _check_cuda(x, w, a, b, "tt_linear")
-    if not 1 <= r <= K1_MAX_RANK:
-        raise ValueError(
-            f"tt_linear: rank {r} outside 1..{K1_MAX_RANK}; the JAX kernel "
-            "keeps r whole in a (bm, r) f32 scratch, and the card's K1 "
-            f"takes every rank of the paper's adapters (VeRA's "
-            f"{K1_MAX_RANK} the largest)")
     return _launch_k1(x, w, a, b, alpha, k1_variant(r))
 
 
@@ -367,16 +337,10 @@ def tt_linear_batched_a(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if not x.is_cuda:
         return tt_linear_batched_a_plain(x, w, a, b, alpha)
     _check_cuda(x, w, a, b, "tt_linear_batched_a")
-    if not 1 <= m <= BATCHED_A_ROWS or not 1 <= r <= SHARED_P_MAX_RANK:
+    if not 1 <= m <= BATCHED_A_ROWS:
         raise ValueError(f"tt_linear_batched_a: M={m} outside "
-                         f"1..{BATCHED_A_ROWS} or rank {r} outside "
-                         f"1..{SHARED_P_MAX_RANK}")
-    x, w, a, b = (t.contiguous() for t in (x, w, a, b))
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    rc = _launch_batched_a(x, w, a, b, y, alpha, *ba_path(x, w, a, r))
-    _build.check(rc, "tt_linear_batched_a")
-    LAUNCHES["tt_linear_batched_a"] += 1
-    return y
+                         f"1..{BATCHED_A_ROWS}")
+    return _launch_splitk("tt_linear_batched_a", x, w, None, a, b, alpha)
 
 
 def tt_linear_w8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -390,7 +354,7 @@ def tt_linear_w8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"tt_linear_w8 shapes x{tuple(x.shape)} "
                          f"w{tuple(wq.shape)} a{tuple(a.shape)} "
                          f"b{tuple(b.shape)}")
-    return _launch_w8("tt_linear_w8", x, wq, scale, a, b, alpha, r, False)
+    return _launch_w8("tt_linear_w8", x, wq, scale, a, b, alpha, False)
 
 
 def tt_linear_batched_a_w8(x: torch.Tensor, wq: torch.Tensor,
@@ -407,4 +371,4 @@ def tt_linear_batched_a_w8(x: torch.Tensor, wq: torch.Tensor,
                          f"w{tuple(wq.shape)} a{tuple(a.shape)} "
                          f"b{tuple(b.shape)}")
     return _launch_w8("tt_linear_batched_a_w8", x, wq, scale, a, b, alpha,
-                      r, True)
+                      True)

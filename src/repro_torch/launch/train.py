@@ -10,7 +10,8 @@ the plain versions on the CPU), on the reduced smoke config unless
 ``--full-config``. ``--dmrg-start-rank`` above ``--rank`` adds a DMRG
 schedule that lowers the ranks by 2 after each epoch. ``--ckpt-dir``
 saves every ``--ckpt-every`` steps and resumes from the newest checkpoint
-there. Gradient compression is not ported yet and raises.
+there. ``--grad-compression`` int8 or topk round-trips the adapter
+gradients before AdamW (top-k with an error-feedback residual).
 """
 from __future__ import annotations
 

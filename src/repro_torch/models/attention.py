@@ -54,10 +54,11 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
     """Returns (y, new_cache).
 
     Prefill (``cache is None``): attends the T new tokens and returns their
-    k/v as the new cache. Decode (``cache`` given, T == 1): writes the new
-    k/v into ``cache`` IN PLACE at row b, cell cache_pos[b] (cells past the
-    cache end are dropped, as the JAX scatter's mode="drop" does), attends
-    cells [0, cache_pos[b]] and returns the same cache dict. Paged (
+    k/v as the new cache. Decode (``cache`` given): writes the T new k/v
+    into ``cache`` IN PLACE at row b, cells cache_pos[b] + j (cells past
+    the cache end are dropped, as the JAX scatter's mode="drop" does);
+    query column j attends cells [0, cache_pos[b] + j]; returns the same
+    cache dict. Paged (
     ``block_tables`` given): ``cache`` holds flat (N, page, KV, hd) block
     pools and x is a (B, C) chunk of co-batched decode / prefill tokens at
     (B, C) ``positions``, written in place (see ``_paged_attend``;
@@ -87,29 +88,35 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
                            "attn_o")
         return y, cache
     if cache is not None:
-        if t != 1:
-            raise NotImplementedError(
-                "multi-token cached decode (the speculative verifier) is "
-                "not ported yet")
+        # t > 1 is the speculative verifier's pass: column j of row b
+        # lands at cache_pos[b] + j, and each column attends [0,
+        # cache_pos[b] + j] through exactly the t == 1 code (one K4 launch
+        # a column), after every column's k/v is written
         ck, cv = cache["k"], cache["v"]
         s_len = ck.shape[1]
         cp = torch.as_tensor(cache_pos, device=x.device).long()
         cp = cp.expand(b) if cp.ndim == 0 else cp
-        keep = (cp < s_len)[:, None, None]
         rows = torch.arange(b, device=x.device)
-        cell = cp.clamp(max=s_len - 1)
-        # in-place cache write; a row whose position is past the end keeps
-        # its old cell (the JAX scatter drops such writes)
-        ck[rows, cell] = torch.where(keep, k[:, 0].to(ck.dtype), ck[rows, cell])
-        cv[rows, cell] = torch.where(keep, v[:, 0].to(cv.dtype), cv[rows, cell])
-        if _flash_ok(ctx):
-            out = dispatch.decode_attention(q, ck, cv, cp, policy=ctx.policy)
-        else:
-            qh = q.reshape(b, 1, n_kv, g, hd)
-            mask = (torch.arange(s_len, device=x.device)[None, :]
-                    <= cp[:, None])[:, None, None, None, :]
-            out = _softmax_attend(qh, ck, cv, mask, scale)
-        out = out.reshape(b, t, n_h * hd)
+        for j in range(t):
+            # in-place cache write; a row whose position is past the end
+            # keeps its old cell (the JAX scatter drops such writes)
+            keep = (cp + j < s_len)[:, None, None]
+            cell = (cp + j).clamp(max=s_len - 1)
+            ck[rows, cell] = torch.where(keep, k[:, j].to(ck.dtype),
+                                         ck[rows, cell])
+            cv[rows, cell] = torch.where(keep, v[:, j].to(cv.dtype),
+                                         cv[rows, cell])
+        cols = []
+        for j in range(t):
+            if _flash_ok(ctx):
+                cols.append(dispatch.decode_attention(
+                    q[:, j:j + 1], ck, cv, cp + j, policy=ctx.policy))
+            else:
+                qh = q[:, j:j + 1].reshape(b, 1, n_kv, g, hd)
+                mask = (torch.arange(s_len, device=x.device)[None, :]
+                        <= (cp + j)[:, None])[:, None, None, None, :]
+                cols.append(_softmax_attend(qh, ck, cv, mask, scale))
+        out = torch.cat([c.reshape(b, 1, n_h * hd) for c in cols], dim=1)
         new_cache = cache
     else:
         if _flash_ok(ctx) and (not causal or t == k.shape[1]):

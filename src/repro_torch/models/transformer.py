@@ -221,11 +221,12 @@ def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
 
 
 def init_caches(cfg: ModelConfig, batch: int, length: int, dtype, *,
-                device=None) -> list:
+                device=None, num_super_blocks: Optional[int] = None) -> list:
     """Zero dense caches, one {"self": {"k", "v"}} per pattern position,
-    leaves (nb, batch, length, KV, hd)."""
+    leaves (nb, batch, length, KV, hd); ``num_super_blocks`` overrides nb
+    (the speculative drafter's layer-strided region)."""
     check_supported(cfg)
-    nb = cfg.num_super_blocks
+    nb = num_super_blocks or cfg.num_super_blocks
     out = []
     for _ in cfg.block_pattern:
         c = attn_lib.init_cache(cfg, nb * batch, length, dtype,
@@ -249,35 +250,42 @@ def insert_cache_slot(caches, req_caches, slot: int) -> list:
 
 
 def decode_step(base, cfg: ModelConfig, spec, broadcast, per_layer, token,
-                caches, cache_pos, *, task=None, policy=None, device=None):
-    """One decode step: token (B, 1) -> (logits (B, V), caches). cache_pos
-    is a scalar or a (B,) vector of per-slot positions; token column 0
-    lands at cache_pos (the caches are updated in place)."""
+                caches, cache_pos, *, task=None, policy=None, device=None,
+                all_logits: bool = False):
+    """One decode step: token (B, T) -> (logits (B, V), caches). cache_pos
+    is a scalar or a (B,) vector of per-slot positions; token column j
+    lands at cache_pos + j (the caches are updated in place; T > 1 only
+    in the speculative verifier's pass, each column attending as a T == 1
+    step would). The logits are column 0's, or with ``all_logits`` every
+    column's (B, T, V)."""
     check_supported(cfg)
     token = _tokens(token, base, device)
-    if token.shape[1] != 1:
-        raise NotImplementedError("multi-token decode steps (speculative "
-                                  "verification) are not ported yet")
     h = embed_tokens(token, base["embed"]["tok"], cfg.compute_dtype)
+    b, t = token.shape
     cp = torch.as_tensor(cache_pos, device=h.device).long()
-    positions = cp.reshape(-1, 1).expand(h.shape[0], 1)
+    positions = (cp.reshape(-1, 1)
+                 + torch.arange(t, device=h.device)[None]).expand(b, t)
     h, caches = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
                            broadcast, per_layer, cfg, positions=positions,
                            caches=caches, cache_pos=cp, task=task,
                            policy=policy)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
+    if all_logits:
+        return lm_logits(h, base["embed"]["tok"]), caches
     return lm_logits(h[:, 0], base["embed"]["tok"]), caches
 
 
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, page_size: int,
-                      dtype, *, kv_quant: bool = False, device=None) -> list:
+                      dtype, *, kv_quant: bool = False, device=None,
+                      num_super_blocks: Optional[int] = None) -> list:
     """Zero paged pools, one {"self": {"k", "v"}} per pattern position,
     leaves (nb, num_blocks, page, KV, hd); ``kv_quant`` makes them int8
-    and adds "k_s" / "v_s" f32 scale pools (nb, num_blocks, page, KV).
+    and adds "k_s" / "v_s" f32 scale pools (nb, num_blocks, page, KV);
+    ``num_super_blocks`` overrides nb (the speculative drafter's region).
     Which request owns which block lives on the host
     (serving/block_manager.py)."""
     check_supported(cfg)
-    nb = cfg.num_super_blocks
+    nb = num_super_blocks or cfg.num_super_blocks
     out = []
     for _ in cfg.block_pattern:
         c = attn_lib.init_paged_cache(cfg, nb * num_blocks, page_size, dtype,
@@ -302,7 +310,7 @@ def copy_cache_block(caches, src: int, dst: int) -> list:
 
 def paged_step(base, cfg: ModelConfig, spec, broadcast, per_layer, toks,
                caches, block_tables, pos, sel, *, task=None, policy=None,
-               device=None):
+               device=None, all_logits: bool = False):
     """One co-batched decode / chunked-prefill step over a paged cache.
 
     toks: (B, C) — slot b's tokens at absolute positions pos[b] ..
@@ -312,7 +320,9 @@ def paged_step(base, cfg: ModelConfig, spec, broadcast, per_layer, toks,
     positions, or dropped past the slot's allocation); block_tables:
     (B, P) int, sentinel >= N for unallocated pages; pos: (B,); sel: (B,)
     column whose logits to return (the slot's last real token). Returns
-    (logits (B, V), caches), the pools updated in place."""
+    (logits (B, V), caches), the pools updated in place; ``all_logits``
+    returns every column's (B, C, V) instead (the speculative verifier;
+    ``sel`` is ignored)."""
     check_supported(cfg)
     toks = _tokens(toks, base, device)
     dev = toks.device
@@ -329,6 +339,8 @@ def paged_step(base, cfg: ModelConfig, spec, broadcast, per_layer, toks,
                            policy=policy, block_tables=tables,
                            paged_write=write)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
+    if all_logits:
+        return lm_logits(h, base["embed"]["tok"]), caches
     sel = torch.as_tensor(sel, device=dev).long()
     h_sel = h[torch.arange(h.shape[0], device=dev), sel]           # (B, d)
     return lm_logits(h_sel, base["embed"]["tok"]), caches

@@ -62,10 +62,22 @@
   * BASE SNAPSHOTS: ``save_base_snapshot`` / ``load_base_snapshot`` write
     and read the base the steps read (an int8 engine's packed leaves stay
     int8), so a restart skips re-quantizing.
+  * SPECULATIVE DECODE (``ServeConfig.spec``, ``serving/speculative.py``):
+    a drafter made of the leading ``draft_rank`` bond columns of the same
+    adapter (live, lora and plain-lora runtimes; the other kinds keep
+    their full-rank factors) over every ``draft_layer_stride``-th
+    super-block proposes ``spec_k`` tokens a step against its own KV
+    region (dense: its own slot caches, prefilled at admission; paged:
+    parallel pools read through the SAME block tables, so prefix hits
+    and copy-on-write cover it). Then one write-only drafter step, one
+    verifier pass over [committed token, drafts] (dense: a (B, k+1)
+    decode step, one K4 launch a column; paged: the (B, C) step, C >=
+    k+1, through #8 / #8q), and the accept rule. Greedy tokens are the
+    non-speculative engine's.
 
-Speculation, the adapter registry, meshes (and with them replicas, the
-router and disaggregated prefill) and preemption are not ported yet:
-``Engine`` raises ``NotImplementedError`` for them.
+The adapter registry, meshes (and with them replicas, the router and
+disaggregated prefill) and preemption are not ported yet: ``Engine``
+raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -85,6 +97,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels import quant as quant_lib
 from repro_torch.models import transformer
 from repro_torch.serving import sampling as sampling_lib
+from repro_torch.serving import speculative as spec_lib
 from repro_torch.serving.adapter_runtime import AdapterRuntime
 from repro_torch.serving.block_manager import BlockManager, PrefixCache
 from repro_torch.serving.scheduler import Scheduler
@@ -136,6 +149,7 @@ class DecodeState:
     task: torch.Tensor       # (B,)   per-slot task id
     failed: torch.Tensor     # (B,)   NaN guard tripped
     caches: list             # dense KV caches, batch axis = slots
+    dcaches: Any = None      # the speculative drafter's caches
 
 
 @dataclasses.dataclass
@@ -157,6 +171,7 @@ class PagedState:
     task: torch.Tensor       # (B,)   per-slot task id
     failed: torch.Tensor     # (B,)   NaN guard tripped
     caches: list             # paged pools, leaves (nb, N, page, KV, hd)
+    dcaches: Any = None      # the speculative drafter's parallel pools
 
 
 class Engine:
@@ -218,11 +233,25 @@ class Engine:
             base = quant_lib.quantize_base(
                 base, group_size=self.quant.group_size)
         self._weights = (base, runtime.broadcast, runtime.per_layer)
+        self.spec = self.sv.spec
+        self._spec_on = self.spec.enabled
+        self._build_drafter()
         self._cancel_ids: set = set()
         self.last_stats = self._new_stats()
         self.last_results: List[RequestResult] = []
         if self.paged:
             self._init_paged()
+
+    def _build_drafter(self) -> None:
+        """The drafter's weights (``spec_lib.build_drafter``: views of the
+        engine's weights) and super-block count."""
+        self._draft_weights = None
+        self._nb_draft = self.cfg.num_super_blocks
+        if self._spec_on:
+            dbase, dbc, dpl, self._nb_draft = spec_lib.build_drafter(
+                self.spec, self.rt.spec.kind, *self._weights,
+                len(self.cfg.block_pattern))
+            self._draft_weights = (dbase, dbc, dpl)
 
     # ------------------------------------------------------------------
     # paged mode: host pools and device pools
@@ -231,6 +260,10 @@ class Engine:
     def _init_paged(self) -> None:
         sv = self.sv
         self._chunk = min(sv.prefill_chunk, sv.cache_len)
+        if self._spec_on:
+            # the verifier scores [committed token, k drafts] in one (B, C)
+            # pass (ServeConfig.validate keeps spec_k + 1 <= cache_len)
+            self._chunk = max(self._chunk, self.spec.spec_k + 1)
         self._page = sv.page_size
         self._num_blocks = sv.resolved_num_blocks
         # table width: worst-case pages per request, plus sentinel columns
@@ -247,9 +280,17 @@ class Engine:
         self._tables = np.full((self.max_batch, self._p_tab),
                                self._num_blocks, np.int32)
         self._block_bytes = self._kv_bytes(self._page)
+        if self._spec_on:
+            # the drafter's parallel region: same blocks, 1/stride layers
+            self._block_bytes += self._kv_bytes(
+                self._page, num_super_blocks=self._nb_draft)
         # the pools persist ACROSS generate calls — the prefix cache
         # indexes into them, so warm requests reuse KV of earlier calls
+        # (the drafter's too: prompt cells carry the drafter KV its sync
+        # pass wrote)
         self._paged_caches = self._fresh_pools()
+        self._draft_pools = (self._fresh_pools(self._nb_draft)
+                             if self._spec_on else None)
 
     def _build_host_pools(self) -> None:
         """(Re)build the host-side admission machinery: block manager,
@@ -258,10 +299,12 @@ class Engine:
         self.prefix = PrefixCache(self.bm) if self.sv.prefix_cache else None
         self.sched = Scheduler(self.bm, self.prefix, self.last_stats)
 
-    def _fresh_pools(self) -> list:
+    def _fresh_pools(self, num_super_blocks: Optional[int] = None) -> list:
+        """Zero pools; ``num_super_blocks`` sizes the drafter's region."""
         return transformer.init_paged_caches(
             self.cfg, self._num_blocks, self._page, self.cfg.compute_dtype,
-            kv_quant=self._kv_quant, device=self.device)
+            kv_quant=self._kv_quant, device=self.device,
+            num_super_blocks=num_super_blocks)
 
     @property
     def base_weights(self):
@@ -281,6 +324,7 @@ class Engine:
         structure, dtype and device template)."""
         base = ckpt_lib.load_base_snapshot(path, self._weights[0])
         self._weights = (base,) + self._weights[1:]
+        self._build_drafter()
 
     def _new_stats(self, requests: int = 0) -> EngineStats:
         return EngineStats(
@@ -288,15 +332,18 @@ class Engine:
             weights_dtype="int8" if self.quant.weights == "int8" else "fp",
             kv_dtype="int8" if self._kv_quant else "fp")
 
-    def _kv_bytes(self, tokens: int) -> int:
-        """Device bytes of k + v for ``tokens`` cells across every layer.
-        An int8 cell costs kv_dim bytes plus one f32 scale per kv head."""
+    def _kv_bytes(self, tokens: int,
+                  num_super_blocks: Optional[int] = None) -> int:
+        """Device bytes of k + v for ``tokens`` cells across every layer
+        (of ``num_super_blocks`` super-blocks: the drafter's region). An
+        int8 cell costs kv_dim bytes plus one f32 scale per kv head."""
+        nb = num_super_blocks or self.cfg.num_super_blocks
         if self._kv_quant:
             per_cell = self.cfg.kv_dim + 4 * self.cfg.num_kv_heads
         else:
             per_cell = self.cfg.kv_dim * torch.empty(
                 (), dtype=self.cfg.compute_dtype).element_size()
-        return 2 * self.cfg.num_layers * tokens * per_cell
+        return 2 * nb * len(self.cfg.block_pattern) * tokens * per_cell
 
     def _reset_paged_pool(self) -> None:
         """Drop every block (and the prefix index) — used when a failed
@@ -304,6 +351,8 @@ class Engine:
         self._build_host_pools()
         self._tables[:] = self._num_blocks
         self._paged_caches = self._fresh_pools()
+        if self._spec_on:
+            self._draft_pools = self._fresh_pools(self._nb_draft)
 
     def leaked_blocks(self) -> int:
         """Paged mode, between ``generate`` calls: blocks neither free nor
@@ -367,14 +416,15 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _prefill(self, prompt: np.ndarray, task):
+    def _prefill(self, prompt: np.ndarray, task, weights=None):
         """prompt (P,) -> (last-position logits (V,), caches of the
-        bucket-padded prompt, leaves (nb, 1, Pb, KV, hd))."""
+        bucket-padded prompt, leaves (nb, 1, Pb, KV, hd)); ``weights``:
+        (base, broadcast, per_layer), the target's by default."""
         plen = prompt.shape[0]
         padded = torch.zeros((1, self._bucket(plen)), dtype=torch.long,
                              device=self.device)
         padded[0, :plen] = torch.as_tensor(prompt, device=self.device)
-        base, bc, pl = self._weights
+        base, bc, pl = weights or self._weights
         out = transformer.forward(base, self.cfg, self.rt.spec, bc, pl,
                                   padded, task=task, policy=self.policy,
                                   return_caches=True, device=self.device)
@@ -401,7 +451,11 @@ class Engine:
             failed=torch.zeros((b,), dtype=torch.bool, device=self.device),
             caches=transformer.init_caches(
                 self.cfg, b, self.cache_len, self.cfg.compute_dtype,
-                device=self.device))
+                device=self.device),
+            dcaches=transformer.init_caches(
+                self.cfg, b, self.cache_len, self.cfg.compute_dtype,
+                device=self.device, num_super_blocks=self._nb_draft)
+            if self._spec_on else None)
 
     def _admit(self, s: DecodeState, slot: int, req: Request,
                gen: torch.Generator) -> None:
@@ -412,6 +466,9 @@ class Engine:
         last, caches1 = self._prefill(prompt, task)
         t0 = sampling_lib.sample(last[None], gen, self.sampling)[0]
         transformer.insert_cache_slot(s.caches, caches1, slot)
+        if self._spec_on:   # the drafter prefills the same prompt
+            _, dcaches1 = self._prefill(prompt, task, self._draft_weights)
+            transformer.insert_cache_slot(s.dcaches, dcaches1, slot)
         n_new = int(req.max_new_tokens)
         s.tok[slot, 0] = t0
         s.pos[slot] = plen
@@ -460,14 +517,124 @@ class Engine:
         s.widx += adv
         s.failed |= bad
 
+    # ------------------------------------------------------------------
+    # speculative decode: pieces shared by both cache modes
+    # ------------------------------------------------------------------
+
+    def _propose(self, lg: torch.Tensor, mask, gen: torch.Generator):
+        """One drafter proposal from logits (B, V): the token and, under a
+        sampling method, the exact distribution q it was drawn from (the
+        rejection rule needs it; greedy proposes the argmax)."""
+        if self.sampling.method == "greedy":
+            return torch.argmax(sampling_lib.process_logits(
+                lg, self.sampling, penalty_mask=mask), dim=-1), None
+        q = sampling_lib.token_probs(lg, self.sampling, penalty_mask=mask)
+        return torch.multinomial(q, 1, generator=gen)[:, 0], q
+
+    def _spec_accept(self, L: torch.Tensor, draft: torch.Tensor, q, base_mask,
+                     gen: torch.Generator):
+        """Accept / reject ``draft`` (B, k) against the verifier's logits
+        L (B, k+1, V): greedy keeps the longest argmax-matching prefix plus
+        the verifier's own next token; sampling runs rejection sampling
+        against the exact per-column target distributions. The per-column
+        repetition-penalty masks add the in-chunk draft prefix to the
+        history, as sequential decode would."""
+        col_masks = spec_lib.column_penalty_masks(base_mask, draft,
+                                                  L.shape[-1])
+        if self.sampling.method == "greedy":
+            g = torch.argmax(sampling_lib.process_logits(
+                L, self.sampling, penalty_mask=col_masks), dim=-1)
+            return spec_lib.greedy_verify(draft, g)
+        p = sampling_lib.token_probs(L, self.sampling,
+                                     penalty_mask=col_masks)
+        return spec_lib.rejection_verify(gen, draft, q, p)
+
+    def _draft(self, s, gen: torch.Generator, base_mask, run_step):
+        """k drafter proposals and one write-only step that lands the last
+        draft's KV in the drafter's region (the next round's first
+        drafter step attends it when every draft is accepted).
+        ``run_step(tok (B, 1), j)`` runs drafter step j and returns its
+        logits. Returns (drafts (B, k), q (B, k, V) or None)."""
+        v = self.cfg.padded_vocab
+        tok_j, mask_j = s.tok, base_mask
+        drafts, qs = [], []
+        for j in range(self.spec.spec_k + 1):
+            lg = run_step(tok_j, j)
+            if j == self.spec.spec_k:
+                break
+            d_j, q_j = self._propose(lg, mask_j, gen)
+            drafts.append(d_j)
+            if q_j is not None:
+                qs.append(q_j)
+            if base_mask is not None:
+                mask_j = mask_j | torch.nn.functional.one_hot(
+                    d_j, v).bool()
+            tok_j = d_j[:, None]
+        return (torch.stack(drafts, dim=1),
+                torch.stack(qs, dim=1) if qs else None)
+
+    def _commit(self, s, em: torch.Tensor, m: torch.Tensor) -> None:
+        """Write the first m[b] tokens of em (B, k+1) into row b's output
+        and make the last of them the row's next input token."""
+        cols = torch.arange(em.shape[1], device=self.device)[None, :]
+        outcol = torch.where(cols < m[:, None], s.widx[:, None] + cols,
+                             torch.full_like(cols, self.out_cap))
+        s.out.scatter_(1, outcol, em)
+        last = torch.gather(em, 1, (m - 1).clamp(min=0)[:, None])
+        s.tok.copy_(torch.where((m > 0)[:, None], last, s.tok))
+
+    def _spec_step(self, s: DecodeState, nan_at: torch.Tensor,
+                   gen: torch.Generator) -> None:
+        """One speculative step of every dense slot: k drafter decode
+        steps (+ one write-only), one (B, k+1) verifier decode step over
+        [committed token, drafts] (one K4 launch a column), then the
+        accept rule; a slot commits up to k + 1 tokens."""
+        k = self.spec.spec_k
+        base, bc, pl = self._weights
+        dbase, dbc, dpl = self._draft_weights
+        task = s.task if self.rt.tasked else None
+        base_mask = (sampling_lib.history_mask(
+            s.out[:, :self.out_cap], s.widx, self.cfg.padded_vocab)
+            if self.sampling.repetition_penalty != 1.0 else None)
+
+        def drafter(tok_j, j):
+            return transformer.decode_step(
+                dbase, self.cfg, self.rt.spec, dbc, dpl, tok_j, s.dcaches,
+                s.pos + j, task=task, policy=self.policy,
+                device=self.device)[0]
+        d, q = self._draft(s, gen, base_mask, drafter)
+        L, _ = transformer.decode_step(
+            base, self.cfg, self.rt.spec, bc, pl,
+            torch.cat([s.tok, d], dim=1), s.caches, s.pos, task=task,
+            policy=self.policy, device=self.device, all_logits=True)
+        # NaN guard over the verifier's logits: a bad row commits nothing
+        inject = s.active & (nan_at >= 0) & (s.widx >= nan_at)
+        L = torch.where(inject[:, None, None],
+                        torch.full_like(L, float("nan")), L)
+        finite = torch.isfinite(L).all(dim=-1).all(dim=-1)
+        bad = s.active & ~finite
+        L = torch.where(finite[:, None, None], L, torch.zeros_like(L))
+        emitted, n = self._spec_accept(L, d, q, base_mask, gen)
+        m = torch.where(s.active & ~bad, torch.minimum(n + 1, s.remaining),
+                        torch.zeros_like(n))
+        self._commit(s, emitted, m)
+        self._spec_counts += torch.stack([
+            k * s.active.sum(), torch.where(s.active, n, 0).sum()])
+        s.active &= (s.remaining > m) & ~bad
+        s.pos += m
+        s.remaining -= m
+        s.widx += m
+        s.failed |= bad
+
     def _decode(self, s: DecodeState, nan_at: torch.Tensor,
                 gen: torch.Generator) -> int:
         """Step every slot until some slot's active flag changes (the JAX
         engine's while_loop); one host read of the flags per step."""
         active0 = s.active.clone()
+        step = self._spec_step if self._spec_on else self._step
         steps = 0
         while True:
-            self._step(s, nan_at, gen)
+            step(s, nan_at, gen)
             steps += 1
             if not bool((s.active.any()
                          & (s.active == active0).all()).item()):
@@ -501,6 +668,9 @@ class Engine:
         self._status = {}
         nan_req = (list(nan_at) if nan_at is not None
                    else [-1] * len(requests))
+        # drafted, accepted: device counters, read once at the end
+        self._spec_counts = torch.zeros(2, dtype=torch.long,
+                                        device=self.device)
         try:
             if self.paged:
                 results = self._generate_paged(requests, gen, nan_req)
@@ -510,6 +680,11 @@ class Engine:
             self._cancel_ids.clear()
         st.wall_s = time.perf_counter() - t0
         st.tokens_generated = sum(len(r) for r in results)
+        if self._spec_on:
+            st.spec_k = self.spec.spec_k
+            st.spec_steps = st.decode_steps
+            st.draft_tokens, st.accepted_tokens = (
+                int(v) for v in self._spec_counts.tolist())
         self.last_results = [
             RequestResult(tokens=r, status=self._status.get(i, FINISHED),
                           n_generated=len(r))
@@ -536,6 +711,9 @@ class Engine:
         st.page_size = self.cache_len
         st.num_blocks = self.max_batch
         st.block_bytes = self._kv_bytes(self.cache_len)
+        if self._spec_on:
+            st.block_bytes += self._kv_bytes(
+                self.cache_len, num_super_blocks=self._nb_draft)
         st.kv_blocks_peak = self.max_batch  # dense reserves every slot
         s = self.init_state()
         pending = collections.deque(enumerate(requests))
@@ -626,7 +804,7 @@ class Engine:
             out=torch.zeros((b, self.out_cap + 1), **z),
             task=torch.zeros((b,), **z),
             failed=torch.zeros((b,), dtype=torch.bool, device=self.device),
-            caches=self._paged_caches)
+            caches=self._paged_caches, dcaches=self._draft_pools)
 
     def _paged_admit(self, s: PagedState, slot: int, prompt: np.ndarray,
                      done0: int, n_new: int, task: int) -> None:
@@ -700,6 +878,86 @@ class Engine:
         s.done.copy_(new_done)
         s.failed |= bad
 
+    def _paged_spec_step(self, s: PagedState, tables: torch.Tensor,
+                         nan_at: torch.Tensor, gen: torch.Generator) -> None:
+        """One speculative (B, C) step: decoding rows commit up to k + 1
+        tokens, prefilling rows consume a prompt chunk as in
+        ``_paged_step``. The drafter runs k + 1 single-token steps over
+        its parallel pools (prefilling rows write out of table: dropped),
+        then, when a row is prefilling, a sync pass feeds the prompt chunk
+        through the drafter (decoding rows write out of table); the
+        verifier is the (B, C) step over the prompt chunk or [committed
+        token, drafts], through #8 / #8q."""
+        c, k = self._chunk, self.spec.spec_k
+        cols = torch.arange(c, device=self.device)
+        is_pf = s.done < s.plen
+        start = torch.where(is_pf, s.done, torch.zeros_like(s.done))
+        chunk = torch.gather(s.prompt, 1, start[:, None] + cols[None])
+        ntok_pf = (s.plen - s.done).clamp(max=c)
+        base, bc, pl = self._weights
+        dbase, dbc, dpl = self._draft_weights
+        task = s.task if self.rt.tasked else None
+        zero = torch.zeros_like(s.done)
+        # a position past the table routes a row's writes to the sentinel
+        oob = torch.full_like(s.done, self._p_tab * self._page)
+        base_mask = (sampling_lib.history_mask(
+            s.out[:, :self.out_cap], s.widx, self.cfg.padded_vocab)
+            if self.sampling.repetition_penalty != 1.0 else None)
+
+        def drafter(tok_j, j):
+            return transformer.paged_step(
+                dbase, self.cfg, self.rt.spec, dbc, dpl, tok_j, s.dcaches,
+                tables, torch.where(is_pf, oob, s.done + j), zero,
+                task=task, policy=self.policy, device=self.device)[0]
+        d, q = self._draft(s, gen, base_mask, drafter)
+        dec_pad = torch.where(cols[None] == 0, s.tok, torch.zeros_like(chunk))
+        if bool(is_pf.any()):
+            transformer.paged_step(
+                dbase, self.cfg, self.rt.spec, dbc, dpl,
+                torch.where(is_pf[:, None], chunk, dec_pad), s.dcaches,
+                tables, torch.where(is_pf, s.done, oob), zero, task=task,
+                policy=self.policy, device=self.device)
+        dv = torch.nn.functional.pad(torch.cat([s.tok, d], dim=1),
+                                     (0, c - (k + 1)))
+        L, _ = transformer.paged_step(
+            base, self.cfg, self.rt.spec, bc, pl,
+            torch.where(is_pf[:, None], chunk, dv), s.caches, tables,
+            s.done, zero, task=task, policy=self.policy, device=self.device,
+            all_logits=True)
+        # NaN guard: the verifier's columns for decoding rows, the last
+        # prompt column for prefilling rows
+        inject = s.active & (nan_at >= 0) & (s.widx >= nan_at)
+        L = torch.where(inject[:, None, None],
+                        torch.full_like(L, float("nan")), L)
+        rows = torch.arange(self.max_batch, device=self.device)
+        l_sel = L[rows, torch.where(is_pf, ntok_pf - 1, zero).clamp(0, c - 1)]
+        fin_pf = torch.isfinite(l_sel).all(dim=-1)
+        fin_dec = torch.isfinite(L[:, :k + 1]).all(dim=-1).all(dim=-1)
+        bad = s.active & ~torch.where(is_pf, fin_pf, fin_dec)
+        l_sel = torch.where(fin_pf[:, None], l_sel, torch.zeros_like(l_sel))
+        lv = L[:, :k + 1]
+        lv = torch.where(fin_dec[:, None, None], lv, torch.zeros_like(lv))
+        nxt_pf = sampling_lib.sample(l_sel, gen, self.sampling,
+                                     penalty_mask=base_mask)
+        emitted, n = self._spec_accept(lv, d, q, base_mask, gen)
+        new_done_pf = s.done + ntok_pf
+        produced_pf = s.active & (new_done_pf >= s.plen)
+        m = torch.where(is_pf, produced_pf.long(),
+                        torch.where(s.active,
+                                    torch.minimum(n + 1, s.remaining), zero))
+        m = torch.where(bad, zero, m)     # a failing row commits nothing
+        em = torch.where(is_pf[:, None], nxt_pf[:, None].expand_as(emitted),
+                         emitted)
+        self._commit(s, em, m)
+        dec_act = s.active & ~is_pf
+        self._spec_counts += torch.stack([
+            k * dec_act.sum(), torch.where(dec_act, n, 0).sum()])
+        s.active &= ((s.remaining > m) | (m == 0)) & ~bad
+        s.remaining -= m
+        s.widx += m
+        s.done.copy_(torch.where(is_pf, new_done_pf, s.done + m))
+        s.failed |= bad
+
     def _paged_decode(self, s: PagedState, nan_at: torch.Tensor,
                       gen: torch.Generator) -> int:
         """Step every slot until some slot's active flag changes (the JAX
@@ -707,9 +965,10 @@ class Engine:
         back once per step."""
         tables = torch.as_tensor(self._tables, device=self.device)
         active0 = s.active.clone()
+        step = self._paged_spec_step if self._spec_on else self._paged_step
         steps = 0
         while True:
-            self._paged_step(s, tables, nan_at, gen)
+            step(s, tables, nan_at, gen)
             steps += 1
             if not bool((s.active.any()
                          & (s.active == active0).all()).item()):
@@ -824,6 +1083,8 @@ class Engine:
                 progressed = True
                 if plan.cow is not None:
                     transformer.copy_cache_block(s.caches, *plan.cow)
+                    if self._spec_on:   # the same tables address both
+                        transformer.copy_cache_block(s.dcaches, *plan.cow)
                 self._tables[slot] = nblk
                 self._tables[slot, :len(plan.blocks)] = plan.blocks
                 self._paged_admit(s, slot, ent["prompt"], plan.n_cached,

@@ -40,6 +40,11 @@ class EngineStats:
     cache_evictions: int = 0     # prefix blocks reclaimed under pressure
     # --- scheduler (paged) ---
     backpressure_waits: int = 0  # admissions deferred for lack of blocks
+    # --- speculative decode ---
+    spec_k: int = 0              # drafts per engine step (0: spec off)
+    spec_steps: int = 0          # engine steps (decode-loop iterations)
+    draft_tokens: int = 0        # drafter proposals (active decode rows)
+    accepted_tokens: int = 0     # proposals the verifier accepted
     # --- resilience ---
     cancelled: int = 0
     timeouts: int = 0
@@ -62,6 +67,22 @@ class EngineStats:
     def kv_bytes_peak(self) -> int:
         return self.kv_blocks_peak * self.block_bytes
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafter proposals the verifier accepted (0.0 when
+        speculation is off or no decode step ran)."""
+        if not self.draft_tokens:
+            return 0.0
+        return self.accepted_tokens / self.draft_tokens
+
+    @property
+    def tokens_per_step(self) -> float:
+        """Committed tokens per engine step (chunked-prefill steps count
+        too)."""
+        if not self.spec_steps:
+            return 0.0
+        return self.tokens_generated / self.spec_steps
+
     def summary(self) -> str:
         paged = self.cache_mode == "paged"
         return (f"mode={self.cache_mode} w={self.weights_dtype} "
@@ -77,6 +98,10 @@ class EngineStats:
                    f"cow={self.cow_copies} waits={self.backpressure_waits} "
                    if paged else "")
                 + f"admits={self.admitted} evicts={self.evicted}"
+                + (f" spec_k={self.spec_k} "
+                   f"accept={self.acceptance_rate:.2f} "
+                   f"tok/step={self.tokens_per_step:.2f}"
+                   if self.spec_k else "")
                 + (f" cancelled={self.cancelled} timeouts={self.timeouts} "
                    f"failed={self.failed_requests} "
                    f"nan_faults={self.numerics_faults}"

@@ -2,6 +2,7 @@
 from repro_torch.train.train_step import (  # noqa: F401
     TrainState,
     init_train_state,
+    make_full_ft_step,
     make_train_step,
     reinit_after_dmrg,
 )

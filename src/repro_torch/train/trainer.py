@@ -10,13 +10,15 @@ and carries on at the new ranks. With ``train.ckpt_dir`` it saves the
 train state every ``train.ckpt_every`` steps and at the end (keeping
 ``train.ckpt_keep``), and a new Trainer on the same directory resumes
 from the newest checkpoint: adapter, optimizer state, step counter,
-data-iterator state and the DMRG schedule position. Sweeps run BEFORE the
-boundary save, so a resume lands on the post-sweep triple and never
-replays a sweep.
+data-iterator state, the DMRG schedule position and, with top-k gradient
+compression (``train.grad_compression``), the error-feedback residual.
+Sweeps run BEFORE the boundary save, so a resume lands on the post-sweep
+triple and never replays a sweep.
 
 Parameters come from ``torch.Generator(device).manual_seed(train.seed)``.
 To train from other weights, assign ``tr.base``, ``tr.frozen`` and
-``tr.state`` (``train_step.init_train_state(adapter)``) before ``train``.
+``tr.state`` (``train_step.init_train_state(adapter, tr.compressor)``)
+before ``train``.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.core import dmrg as dmrg_lib
 from repro_torch.core import tt
 from repro_torch.device import resolve_device
 from repro_torch.distributed import FailureInjector, Watchdog
+from repro_torch.distributed.compression import GradCompressor
 from repro_torch.models import model as model_lib
 from repro_torch.peft import api as peft_api
 from repro_torch.train import train_step as ts
@@ -59,7 +62,8 @@ class Trainer:
         params = model_lib.init_params(self.cfg, self.spec, gen,
                                        device=self.device)
         self.base, self.frozen = params["base"], params["frozen"]
-        self.state = ts.init_train_state(params["adapter"])
+        self.compressor = GradCompressor(run.train.grad_compression)
+        self.state = ts.init_train_state(params["adapter"], self.compressor)
         self.step_fn = ts.make_train_step(
             self.cfg, self.spec, run.optimizer, run.train, self.total_steps,
             kernels=run.kernels, device=self.device)
@@ -128,6 +132,7 @@ class Trainer:
         n_before = peft_api.count_trainable(self.spec, self.state.adapter)
         n_after = peft_api.count_trainable(self.spec, res.params)
         self.state = ts.reinit_after_dmrg(self.state, res.params,
+                                          self.compressor,
                                           moments=res.moments)
         self._dmrg_applied.append(epoch)
         print(f"[trainer] DMRG sweep @step {step}: ranks -> {res.ranks} "

@@ -78,11 +78,9 @@ def _ba_case(dev, m, k, n, r):
     return x, w, a, b
 
 
-def _ba_launch(x, w, a, b, variant, splits):
-    y = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype, device=x.device)
-    ttl._build.check(ttl._launch_batched_a(x, w, a, b, y, 2.0, variant,
-                                           splits), "tt_linear_batched_a")
-    return y
+def _ba_launch(x, w, a, b, splits):
+    return ttl._launch_splitk("tt_linear_batched_a", x, w, None, a, b, 2.0,
+                              splits)
 
 
 @pytest.mark.parametrize("r", [1, 8, 16, 64])
@@ -93,7 +91,7 @@ def test_tt_linear_batched_a_wgmma(dev, m, r):
     and ranks up to ``RANK_WGMMA``: within 1e-2 of the plain version, two
     calls bit-identical."""
     x, w, a, b = _ba_case(dev, m, 512, 192, r)
-    assert ttl.ba_path(x, w, a, r)[0] == "wgmma"
+    assert ttl.splitk_path(x, w, r)[0] == "wgmma"
     got = ttl.tt_linear_batched_a(x, w, a, b, 2.0)
     assert got.shape == (m, 192) and got.dtype == torch.bfloat16
     _close(got, ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0), 1e-2)
@@ -105,15 +103,16 @@ def test_tt_linear_batched_a_wgmma(dev, m, r):
                                      (2, 8, 8, 1)])
 def test_tt_linear_batched_a_every_variant(dev, m, k, n, r):
     """K and N ragged against the 64-wide tiles (multiples of 8, so the
-    `wgmma` path still takes them): both kernels on the same inputs,
-    each within 1e-2 of the plain version."""
+    split-K kernel takes them uncopied): the launcher's slices of K and
+    one slice on the same inputs, each within 1e-2 of the plain
+    version."""
     x, w, a, b = _ba_case(dev, m, k, n, r)
-    assert ttl.ba_path(x, w, a, r)[0] == "wgmma"
+    assert ttl.splitk_path(x, w, r)[0] == "wgmma"
+    assert not ttl.vec_operands(x, w, None, a, b, True)[-1]
     want = ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = ttl.w8_splits(m, n, k, sms)
-    for variant, sp in (("wgmma", splits), ("template", 1)):
-        _close(_ba_launch(x, w, a, b, variant, sp), want, 1e-2)
+    for sp in (ttl.w8_splits(m, n, k, sms), 1):
+        _close(_ba_launch(x, w, a, b, sp), want, 1e-2)
 
 
 @pytest.mark.parametrize("splits", [1, 2, 4, 8])
@@ -123,7 +122,7 @@ def test_tt_linear_batched_a_slices_of_k(dev, m, r, splits):
     within 1e-2 of the plain version, two calls bit-identical
     (fixed-order sums over the cluster, no float atomics)."""
     x, w, a, b = _ba_case(dev, m, 2048, 2048, r)
-    ys = [_ba_launch(x, w, a, b, "wgmma", splits) for _ in range(2)]
+    ys = [_ba_launch(x, w, a, b, splits) for _ in range(2)]
     _close(ys[0], ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0), 1e-2)
     assert torch.equal(ys[0], ys[1])
 
@@ -511,11 +510,11 @@ def _w8(dev, k, n, group, seed=0):
                                      (64, 2048, 2048, 64)])
 def test_tt_linear_w8(dev, m, k, n, r, group):
     """#9, per output channel and grouped (K = 2048: 16 groups); ragged M
-    / N, ranks that are not multiples of 8, N not a multiple of 16 (no
-    vector W loads: the template kernel), ranks on both sides of
-    RANK_WGMMA (64: the `wgmma` kernel, 65 and up: the template one);
-    A both K-contiguous (the model's layout) and row-major. Two calls
-    are bit-identical."""
+    / N, ranks that are not multiples of 8, N not a multiple of 16 (W,
+    B and the scales copied into zero-padded aligned buffers), ranks on
+    both sides of RANK_WGMMA (64: P in registers, 65 and up: K1's
+    pre-pass and the extension tiles); A both K-contiguous (the model's
+    layout) and row-major. Two calls are bit-identical."""
     x = _rn(dev, m, k)
     wq, s = _w8(dev, k, n, group)
     at, b = _rn(dev, r, k, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
@@ -542,15 +541,11 @@ def test_tt_linear_w8_slices_of_k(dev, splits, group):
     wq, s = _w8(dev, k, n, group)
     a = _rn(dev, r, k, scale=k ** -0.5).T
     b = _rn(dev, r, n, scale=r ** -0.5)
-    g = s.shape[0]
-    ys = [torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    ys = [ttl._launch_splitk("tt_linear_w8", x, wq, s, a, b, 4.0, splits)
           for _ in range(2)]
-    for y in ys:
-        ttl._build.check(ttl._launch_w8_shared_a(x, wq, s, a, b, y, g, 4.0,
-                                                 "wgmma", splits), "w8")
     _close(ys[0], ttl.tt_linear_w8_plain(x, wq, s, a, b, 4.0), 1e-2)
     assert torch.equal(ys[0], ys[1])
-    assert ttl.w8_path(x, wq, s, r)[0] == "wgmma"
+    assert ttl.splitk_path(x, wq, r)[0] == "wgmma"
 
 
 @pytest.mark.parametrize("group", [0, 128])
@@ -558,9 +553,9 @@ def test_tt_linear_w8_slices_of_k(dev, splits, group):
 @pytest.mark.parametrize("m", [1, 3, 4, 16, 17, 64])
 def test_tt_linear_batched_a_w8(dev, m, r, group):
     """#10 at M in {1, 3, 4, 16, 17, 64} (M > 64 is refused, as K2's) and
-    ranks up to RANK_WGMMA (the `wgmma` kernel) and past it (65: the
-    template kernel), per output channel and grouped; two calls
-    bit-identical."""
+    ranks up to RANK_WGMMA (P summed by the pre-pass in f32) and past it
+    (65: α·P as hi + lo and the extension tiles), per output channel and
+    grouped; two calls bit-identical."""
     k, n = 512, 192
     x = _rn(dev, m, k)
     wq, s = _w8(dev, k, n, group)
@@ -569,8 +564,8 @@ def test_tt_linear_batched_a_w8(dev, m, r, group):
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     _close(got, ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 2.0), 1e-2)
     assert torch.equal(ttl.tt_linear_batched_a_w8(x, wq, s, a, b, 2.0), got)
-    want = "template" if r > ttl.RANK_WGMMA else "wgmma"
-    assert ttl.bw8_path(x, wq, s, a, r)[0] == want
+    want = "pre_pass" if r > ttl.RANK_WGMMA else "wgmma"
+    assert ttl.splitk_path(x, wq, r)[0] == want
 
 
 @pytest.mark.parametrize("group", [0, 128])
@@ -578,15 +573,17 @@ def test_tt_linear_batched_a_w8(dev, m, r, group):
                                      (4, 256, 48, 8), (17, 256, 40, 100),
                                      (64, 512, 200, 16)])
 def test_tt_linear_batched_a_w8_template_shapes(dev, m, k, n, r, group):
-    """#10 where the `wgmma` kernel cannot take the operands (N % 16 != 0
-    or rank > 64: the template kernel) and on the engine's shape."""
+    """#10 on operands the split-K kernel takes only after a padded copy
+    (N % 16 != 0), at ranks above 64 (the pre-pass), and on the engine's
+    shape."""
     x = _rn(dev, m, k)
     wq, s = _w8(dev, k, n, group)
     a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
     got = ttl.tt_linear_batched_a_w8(x, wq, s, a, b, 2.0)
     _close(got, ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 2.0), 1e-2)
-    path = ttl.bw8_path(x, wq, s, a, r)[0]
-    assert (path == "template") == (n % 16 != 0 or r > ttl.RANK_WGMMA)
+    path = ttl.splitk_path(x, wq, r)[0]
+    assert (path == "pre_pass") == (r > ttl.RANK_WGMMA)
+    assert ttl.vec_operands(x, wq, s, a, b, True)[-1] == (n % 16 != 0)
 
 
 @pytest.mark.parametrize("group", [0, 128, 1024])
@@ -602,15 +599,11 @@ def test_tt_linear_batched_a_w8_slices_of_k(dev, m, r, splits, group):
     x = _rn(dev, m, k)
     wq, s = _w8(dev, k, n, group)
     a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
-    g = s.shape[0]
-    ys = [torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-          for _ in range(2)]
-    for y in ys:
-        ttl._build.check(ttl._launch_w8_batched_a(x, wq, s, a, b, y, g, 2.0,
-                                                  "wgmma", splits), "w8")
+    ys = [ttl._launch_splitk("tt_linear_batched_a_w8", x, wq, s, a, b, 2.0,
+                             splits) for _ in range(2)]
     _close(ys[0], ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 2.0), 1e-2)
     assert torch.equal(ys[0], ys[1])
-    assert ttl.bw8_path(x, wq, s, a, r)[0] == "wgmma"
+    assert ttl.splitk_path(x, wq, r)[0] == "wgmma"
 
 
 def test_w8_linears_reject_what_the_kernels_do_not_take(dev):
@@ -933,6 +926,60 @@ def test_tt_linear_high_rank_forward_and_dx(dev, m, r):
         assert err <= 2e-2 * wt.float().abs().max(), err
 
 
+@pytest.mark.parametrize("m", [64, 4096])
+def test_tt_linear_rank_2048(dev, m):
+    """K1 above VeRA's 1024: the workspace, not a constant, bounds the
+    rank (r = 2048 at K = N = 2048)."""
+    k = n = 2048
+    x, w = _rn(dev, m, k), _rn(dev, k, n, scale=k ** -0.5)
+    a, b = _rn(dev, k, 2048, scale=k ** -0.5), _rn(dev, 2048, n,
+                                                   scale=2048 ** -0.5)
+    _close(ttl.tt_linear(x, w, a, b, 4.0),
+           ttl.tt_linear_plain(x, w, a, b, 4.0), 1e-2)
+
+
+@pytest.mark.parametrize("group", [0, 128])
+@pytest.mark.parametrize("r", [384, 1024])
+@pytest.mark.parametrize("m", [4, 64, 256])
+def test_tt_linear_w8_high_rank(dev, m, r, group):
+    """#9 above rank 64 (VeRA's 1024 over an int8 base): K1's pre-pass
+    writes α·P as hi + lo, the split-K kernel sums the extension tiles
+    after the scaled base; within 1e-2 of the plain version, two calls
+    bit-identical."""
+    k = n = 2048
+    x = _rn(dev, m, k)
+    wq, s = _w8(dev, k, n, group)
+    a = _rn(dev, r, k, scale=k ** -0.5).T
+    b = _rn(dev, r, n, scale=r ** -0.5)
+    assert ttl.splitk_path(x, wq, r)[0] == "pre_pass"
+    got = ttl.tt_linear_w8(x, wq, s, a, b, 4.0)
+    _close(got, ttl.tt_linear_w8_plain(x, wq, s, a, b, 4.0), 1e-2)
+    assert torch.equal(ttl.tt_linear_w8(x, wq, s, a, b, 4.0), got)
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("r", [100, 384])
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_batched_a_high_rank(dev, m, r, w8):
+    """K2 and #10 above rank 64: the per-row pre-pass writes α·P[m] as
+    hi + lo, the split-K kernel extends its K loop over them; within 1e-2
+    of the plain version, two calls bit-identical."""
+    k = n = 2048
+    x = _rn(dev, m, k)
+    a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    if w8:
+        wq, s = _w8(dev, k, n, 0)
+        fn = lambda: ttl.tt_linear_batched_a_w8(x, wq, s, a, b, 2.0)
+        want = ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 2.0)
+    else:
+        w = _rn(dev, k, n, scale=k ** -0.5)
+        fn = lambda: ttl.tt_linear_batched_a(x, w, a, b, 2.0)
+        want = ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0)
+    got = fn()
+    _close(got, want, 1e-2)
+    assert torch.equal(fn(), got)
+
+
 def test_vera_1024_training_step_full_width(dev):
     """One VeRA r = 1024 step on a 2-layer full-width stablelm-1.6b: K1
     takes the pre-pass variant forward and as dx, the loss is finite and
@@ -1000,3 +1047,110 @@ def test_w8_engine_snapshot_roundtrip_same_tokens(dev, tmp_path):
     assert all(t.is_cuda for t in M.tensors(e2.base_weights))
     assert any(t.dtype == torch.int8 for t in M.tensors(e2.base_weights))
     assert [o.tolist() for o in e2.generate(reqs)] == out1
+
+
+# ------------------------------- VeRA r = 1024 over int8; speculation
+
+
+def _small_cfg():
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config("stablelm-1.6b"),
+                               num_layers=2, d_model=256, num_heads=4,
+                               num_kv_heads=4, d_ff=512,
+                               vocab_size=512).validate()
+
+
+def test_vera_1024_w8_dense_engine(dev):
+    """A dense engine over an int8 base serving VeRA at rank 1024: #9
+    runs above rank 64 (prefill and decode), and every token is the
+    plain leg's choice within 5% of its largest teacher-forced logit."""
+    from repro_torch.config.base import QuantConfig, RunConfig, ServeConfig
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import AdapterRuntime, Engine, Request
+    cfg = _small_cfg()
+    spec = M.build_adapter_spec(RunConfig(model=cfg, adapter_kind="vera",
+                                          adapter_rank=1024))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = M.init_params(cfg, spec, generator=gen, device=dev)
+    p["adapter"]["g"] = 0.02 * torch.randn(p["adapter"]["g"].shape,
+                                           generator=gen, device=dev)
+    rt = AdapterRuntime.build("live", p["base"], spec, p["adapter"],
+                              p["frozen"])
+    serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=64,
+                        out_cap=8, quant=QuantConfig(weights="int8"))
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (int(n),),
+                                  generator=rng).numpy(), 8)
+            for n in torch.randint(4, 17, (6,), generator=rng)]
+    eng = Engine(cfg, rt, serve=serve, device=dev)
+    kernels.reset_launch_counts()
+    outs = [o.tolist() for o in eng.generate(reqs)]
+    n = kernels.launch_counts()
+    assert n["tt_linear_w8"] > 0 and n["tt_linear"] == 0, n
+    worst = 0.0
+    with torch.inference_mode():
+        for req, toks in zip(reqs, outs):
+            seq = torch.as_tensor([*req.prompt, *toks], device=dev)[None]
+            lg = T.forward(eng.base_weights, cfg, spec, rt.broadcast,
+                           rt.per_layer, seq, policy=dispatch.REF,
+                           device=dev).logits[0].float()
+            lg = lg[len(req.prompt) - 1:-1]
+            chosen = lg.gather(-1, torch.as_tensor(toks, device=dev)[:, None])
+            gap = (lg.max(-1).values - chosen[:, 0]) / lg.abs().amax(-1)
+            worst = max(worst, float(gap.max()))
+    assert worst <= 5e-2
+
+
+def test_spec_dense_engine_token_identical_under_the_kernels(dev):
+    """A speculative dense engine on the card (spec_k 3, draft rank 2,
+    stride 2, a 4+1d adapter): K4 launches once per verified column and
+    drafter step, every request finishes, and its tokens are the plain
+    leg's teacher-forced choices within 5% of the largest logit."""
+    from repro_torch.config.base import RunConfig, ServeConfig, SpecConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import AdapterRuntime, Engine, Request
+    cfg = _small_cfg()
+    spec = M.build_adapter_spec(RunConfig(
+        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
+        num_tasks=3, adapter_rank=4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = M.init_params(cfg, spec, generator=gen, device=dev)
+    p["adapter"] = {"cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 4,
+                                             scale=0.3, device=dev)}
+    rt = AdapterRuntime.build("live", p["base"], spec, p["adapter"],
+                              p["frozen"])
+    k = 3
+    serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=64,
+                        out_cap=8, spec=SpecConfig(spec_k=k, draft_rank=2,
+                                                   draft_layer_stride=2))
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (int(n),),
+                                  generator=rng).numpy(), 8, task=i % 3)
+            for i, n in enumerate(torch.randint(4, 17, (6,), generator=rng))]
+    eng = Engine(cfg, rt, serve=serve, device=dev)
+    kernels.reset_launch_counts()
+    outs = [o.tolist() for o in eng.generate(reqs)]
+    n = kernels.launch_counts()
+    st = eng.last_stats
+    assert all(r.status == "FINISHED" for r in eng.last_results)
+    assert st.draft_tokens > 0 and 0 <= st.acceptance_rate <= 1
+    nb = cfg.num_super_blocks
+    assert n["decode_attention"] == (k + 1) * (nb + -(-nb // 2)) \
+        * len(cfg.block_pattern) * st.decode_steps, n
+    worst = 0.0
+    with torch.inference_mode():
+        for req, toks in zip(reqs, outs):
+            seq = torch.as_tensor([*req.prompt, *toks], device=dev)[None]
+            lg = T.forward(p["base"], cfg, spec, rt.broadcast, rt.per_layer,
+                           seq, task=req.task, policy=dispatch.REF,
+                           device=dev).logits[0].float()
+            lg = lg[len(req.prompt) - 1:-1]
+            chosen = lg.gather(-1, torch.as_tensor(toks, device=dev)[:, None])
+            gap = (lg.max(-1).values - chosen[:, 0]) / lg.abs().amax(-1)
+            worst = max(worst, float(gap.max()))
+    assert worst <= 5e-2
+

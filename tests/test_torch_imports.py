@@ -72,6 +72,20 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("module", [
+    "repro_torch.distributed.compression", "repro_torch.serving.speculative",
+    "repro_torch.core.dmrg", "repro_torch.train.train_step"])
+def test_training_and_speculative_modules_are_scanned(module):
+    """The modules of the rest of training and of speculative decode are
+    among those imported with JAX blocked and scanned above (copies of
+    ``src/repro/distributed/compression.py`` and
+    ``src/repro/serving/speculative.py`` must not import them)."""
+    assert module in MODULES
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path in SOURCES
+    assert not [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+
+
+@pytest.mark.parametrize("module", [
     "repro_torch.kernels.quant", "repro_torch.kernels.tt_linear",
     "repro_torch.kernels.paged_attention", "repro_torch.models.layers",
     "repro_torch.serving.engine"])

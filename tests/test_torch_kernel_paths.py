@@ -1,10 +1,12 @@
 """Host-side choices of the kernels' launchers, on the CPU.
 
-- ``tt_linear.ba_plan``: K2's and #10's kernel (the split-K `wgmma`
-  kernel after a pre-pass that sums the adapter term P[m] = x[m]·A[m],
-  or the template kernel where the operands cannot take 16-byte copies or
-  the rank passes ``RANK_WGMMA``) and over how many slices of K;
-  ``ba_path`` on K2's operands themselves.
+- ``tt_linear.ba_plan``: how K2's, #9's and #10's split-K `wgmma` kernel
+  forms the rank term (``"wgmma"``: P in registers or summed by the
+  per-row pre-pass in f32, up to ``RANK_WGMMA``; ``"pre_pass"``: α·P as
+  a bf16 hi + lo pair and extension tiles, every larger rank) and over
+  how many slices of K; ``splitk_path`` on the operands themselves, and
+  ``vec_operands``, which pads and copies the operands the kernel cannot
+  take with 16-byte copies.
 - ``paged_attention.decode_path``: K4 on #8's kernel over the dense
   cache, with windows split into chunks where the blocks leave the card
   under-filled.
@@ -22,24 +24,38 @@ from repro_torch.kernels import tt_linear as ttl
 
 
 @pytest.mark.parametrize("m,k,n,r,offset,want", [
-    (4, 2048, 2048, 8, 0, "wgmma"),
-    (4, 2048, 2048, 64, 0, "wgmma"),
-    (4, 2048, 2048, 65, 0, "template"),    # rank above RANK_WGMMA
-    (4, 2048, 136, 8, 0, "wgmma"),         # N % 8 == 0 (bf16 W)
-    (4, 2048, 130, 8, 0, "template"),      # N % 8 != 0
-    (4, 2044, 2048, 8, 0, "template"),     # K % 8 != 0
-    (4, 2048, 2048, 8, 1, "template"),     # x not 16-byte aligned
+    (4, 2048, 2048, 8, 0, ("wgmma", False)),
+    (4, 2048, 2048, 64, 0, ("wgmma", False)),
+    (4, 2048, 2048, 65, 0, ("pre_pass", False)),    # above RANK_WGMMA
+    (4, 2048, 136, 8, 0, ("wgmma", False)),         # N % 8 == 0 (bf16 W)
+    (4, 2048, 130, 8, 0, ("wgmma", True)),          # N % 8 != 0: padded
+    (4, 2044, 2048, 8, 0, ("wgmma", True)),         # K % 8 != 0: padded
+    (4, 2048, 2048, 8, 1, ("wgmma", True)),         # x not 16-byte aligned
 ])
 def test_ba_path_reads_the_operands(monkeypatch, m, k, n, r, offset, want):
-    """``ba_path`` on real tensors: K % 8, N % 8 and 16-byte aligned x, W
-    and A decide the vector path (the card's SM count is stubbed)."""
+    """``splitk_path`` on real tensors names the rank term's form; K % 8,
+    N % 8 and 16-byte aligned x, W and A decide whether
+    ``vec_operands`` copies them (the card's SM count is stubbed). The
+    copies hold the operands zero-padded, so the plain version on them
+    gives the same y."""
     monkeypatch.setattr(
         torch.cuda, "get_device_properties",
         lambda dev: type("Props", (), {"multi_processor_count": 132}))
-    x = torch.zeros(m * k + offset, dtype=torch.bfloat16)[offset:]
-    w = torch.zeros(k, n, dtype=torch.bfloat16)
-    a = torch.zeros(m, k, r, dtype=torch.bfloat16)
-    assert ttl.ba_path(x.view(m, k), w, a, r)[0] == want
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(m * k + offset, generator=g).bfloat16()[offset:]
+    x = x.view(m, k)
+    w = torch.randn(k, n, generator=g).bfloat16()
+    a = torch.randn(m, k, r, generator=g).bfloat16()
+    b = torch.randn(r, n, generator=g).bfloat16()
+    ops_ = ttl.vec_operands(x, w, None, a, b, True)
+    assert (ttl.splitk_path(x, w, r)[0], ops_[-1]) == want
+    xp, wp, _, ap, bp, _ = ops_
+    assert xp.shape[1] % 8 == 0 and wp.shape[1] % 8 == 0
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (xp, wp, ap, bp))
+    y = ttl.tt_linear_batched_a_plain(xp, wp, ap, bp, 2.0)[:, :n]
+    torch.testing.assert_close(
+        y, ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("b,h,kv,s,want", [
@@ -60,28 +76,54 @@ def test_decode_path_splits_where_the_card_is_under_filled(b, h, kv, s,
     assert tpa.decode_path(b, h, kv, s, sms=132) == want
 
 
-@pytest.mark.parametrize("m,n,k,r,vec,want", [
-    (4, 2048, 2048, 8, True, ("wgmma", 8)),       # the w8 dense decode
-    (1, 2048, 2048, 1, True, ("wgmma", 8)),
-    (16, 2048, 2048, 16, True, ("wgmma", 8)),
-    (64, 2048, 2048, 8, True, ("wgmma", 8)),      # a full launch of ops'
-    (8, 2048, 2048, 64, True, ("wgmma", 8)),      # RANK_WGMMA
-    (8, 2048, 2048, 65, True, ("template", 1)),   # above it
-    (4, 130, 2048, 8, False, ("template", 1)),    # N % 16 != 0
-    (4, 2048, 2048, 8, False, ("template", 1)),   # an unaligned operand
-    (4, 2048, 256, 8, True, ("wgmma", 2)),        # 4 K tiles: 2 a slice
-    (4, 64, 64, 8, True, ("wgmma", 1)),           # one K tile
-    (64, 8192, 2048, 8, True, ("wgmma", 2)),      # 128 channel tiles
-    (64, 16384, 2048, 8, True, ("wgmma", 1)),     # 256: no split
-    (64, 4096, 2048, 8, True, ("wgmma", 4)),      # 64 channel tiles
+@pytest.mark.parametrize("m,n,k,r,want", [
+    (4, 2048, 2048, 8, ("wgmma", 8)),       # the w8 dense decode
+    (1, 2048, 2048, 1, ("wgmma", 8)),
+    (16, 2048, 2048, 16, ("wgmma", 8)),
+    (64, 2048, 2048, 8, ("wgmma", 8)),      # a full launch of ops'
+    (8, 2048, 2048, 64, ("wgmma", 8)),      # RANK_WGMMA
+    (8, 2048, 2048, 65, ("pre_pass", 8)),   # above it: K + 2·128 rows
+    (4, 144, 2048, 8, ("wgmma", 8)),        # N padded to 16
+    (4, 2048, 2048, 384, ("pre_pass", 8)),  # K + 2·384 rows
+    (4, 2048, 2048, 1024, ("pre_pass", 8)),  # VeRA's rank
+    (64, 2048, 2048, 1024, ("pre_pass", 8)),
+    (4, 2048, 256, 8, ("wgmma", 2)),        # 4 K tiles: 2 a slice
+    (4, 2048, 256, 1024, ("pre_pass", 8)),  # 4 + 32 tiles
+    (4, 64, 64, 8, ("wgmma", 1)),           # one K tile
+    (4, 64, 64, 100, ("pre_pass", 2)),      # 1 + 4 tiles: 3 + 2
+    (64, 8192, 2048, 8, ("wgmma", 2)),      # 128 channel tiles
+    (64, 16384, 2048, 8, ("wgmma", 1)),     # 256: no split
+    (64, 4096, 2048, 8, ("wgmma", 4)),      # 64 channel tiles
 ])
-def test_bw8_plan_picks_the_kernel_and_the_slices(m, n, k, r, vec, want):
-    """#10 and K2 on 132 SMs (``ba_plan``): the template kernel only
-    where the `wgmma` kernel cannot take the operands (rank above
-    ``RANK_WGMMA``, N % 16 != 0 for an int8 W, an operand that cannot take
-    16-byte copies); the slices of K are #9's (``w8_splits``: a block on
-    every SM, each slice at least two K tiles, at most eight)."""
-    assert ttl.ba_plan(m, n, k, r, vec, sms=132) == want
+def test_bw8_plan_picks_the_kernel_and_the_slices(m, n, k, r, want):
+    """#10, K2 and #9 on 132 SMs (``ba_plan``): every rank takes the
+    split-K `wgmma` kernel — P in registers (or the per-row pre-pass's f32
+    sums) up to ``RANK_WGMMA``, the hi + lo pre-pass above it; the slices
+    of K are ``w8_splits`` over the K loop's rows, extension included (a
+    block on every SM, each slice at least two K tiles, at most eight)."""
+    assert ttl.ba_plan(m, n, k, r, sms=132) == want
+
+
+@pytest.mark.parametrize("r", [65, 384, 1024, 2048, 5000])
+def test_split_k_linears_take_every_rank(monkeypatch, r):
+    """No rank is refused: ``splitk_path`` names the pre-pass form above
+    ``RANK_WGMMA`` on K2's bf16 and #9 / #10's int8 operands at any rank,
+    and the extension rows join the K loop the slices split."""
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda dev: type("Props", (), {"multi_processor_count": 132}))
+    m, k, n = 4, 2048, 2048
+    x = torch.zeros(m, k, dtype=torch.bfloat16)
+    w = torch.zeros(k, n, dtype=torch.bfloat16)
+    wq = torch.zeros(k, n, dtype=torch.int8)
+    want = ("pre_pass", ttl.w8_splits(m, n, k + 2 * (-(-r // 64) * 64),
+                                      132))
+    assert ttl.splitk_path(x, wq, r) == want
+    assert ttl.splitk_path(x, w, r) == want
+    assert ttl.splitk_rows(k, r) == k + 2 * (-(-r // 64) * 64)
+    assert ttl.k1_workspace_elems(m, r) == m * 2 * (-(-r // 64) * 64)
+    assert not hasattr(ttl, "SHARED_P_MAX_RANK")
+    assert not hasattr(ttl, "K1_MAX_RANK")
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (64, 2048, 2048),
@@ -89,7 +131,7 @@ def test_bw8_plan_picks_the_kernel_and_the_slices(m, n, k, r, vec, want):
 def test_bw8_plan_slices_equal_w8_splits(m, k, n):
     """K2's and #10's `wgmma` path slices K as #9's does at the same
     shape."""
-    assert ttl.ba_plan(m, n, k, 8, True, sms=132)[1] == ttl.w8_splits(
+    assert ttl.ba_plan(m, n, k, 8, sms=132)[1] == ttl.w8_splits(
         m, n, k, sms=132)
 
 

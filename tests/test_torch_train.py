@@ -308,9 +308,17 @@ def test_remat_on_and_off_train_alike():
 @pytest.mark.parametrize("train", [{"grad_compression": "int8"},
                                    {"train_base": True}])
 def test_unported_train_options_raise(train):
+    """Both options are ported now (``distributed/compression.py``;
+    ``train_base`` is read by ``make_full_ft_step``, and the adapter
+    Trainer ignores it as the JAX one does): the Trainer takes them and
+    trains a finite step. What still raises is an unknown compression."""
     _, trun = _runs(**train)
-    with pytest.raises(NotImplementedError):
-        Trainer(run=trun, data=_lm(LMStream), total_steps=1, device="cpu")
+    tr = Trainer(run=trun, data=_lm(LMStream), total_steps=1, device="cpu")
+    tr.train()
+    assert np.isfinite(tr.losses()).all()
+    _, bad = _runs(grad_compression="fp4")
+    with pytest.raises(ValueError):
+        Trainer(run=bad, data=_lm(LMStream), total_steps=1, device="cpu")
 
 
 def test_trainer_defaults_to_cuda_and_base_stays_frozen():
