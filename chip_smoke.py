@@ -86,9 +86,27 @@ Phases, each printed on its own lines:
      decode (spec_k 3, draft rank 4, layer stride 2) on the dense cell and
      the paged cell (fp, then int8 KV) against the same engine without it
      (acceptance, tokens per step, tok/s; teacher-forced tokens; K4 once
-     a verified column; #8 / #8q on the verifier; no leaked block); the
-     phase's seconds and the script's;
-  9. one JSON line with every kernel's record (launches per path).
+     a verified column; #8 / #8q on the verifier; no leaked block);
+  9. the paged adapter registry, chaos and preemption on the same
+     full-width model with a 4+1d adapter over 64 tasks at 0.1 of the
+     base q projection, every run under a ChaosInjector whose audit runs
+     after every host-loop iteration (no pin, no leaked block after it):
+     (a) the paged fp cell with 4 pool slots, 48 requests over 24 tasks
+     cold then warm (faults + hits = admissions, evictions, waits and
+     hits > 0, warm prefix hits after eviction, #8 launched), every
+     token within 5% of the plain leg's teacher-forced maximum, the count
+     equal to the all-resident engine's printed; (b) the dense cell under
+     the lora runtime, fp and w8, with 3 pool slots (K2 / #10 48 a decode
+     step on A gathered from the pool); (c) a seeded chaos run (forced
+     allocation failures, two failed fault-ins, a cancel, a NaN row):
+     one CANCELLED, one FAILED with 5 tokens, the survivors checked
+     against the plain leg; (d) recompute preemption in a 10-block pool
+     (the running request preempted, re-queued and finished); (e)
+     speculative decode with the registry (dense), tokens equal to the
+     same spec engine's without it; tok/s, ms a step and device busy
+     share a run, the ms of one fault-in; the phases' seconds and the
+     script's;
+  10. one JSON line with every kernel's record (launches per path).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -1253,38 +1271,44 @@ def adapter_ratio(rt, spec, gen):
 
 
 def device_share(label, run, top_n=8, show=()):
-    """Device busy share of ``run()`` under torch.profiler: the sum of
-    kernel time on the card over the host wall time (the profiler's own
-    host cost inflates the wall time, so the share is a lower bound), and
-    the kernels that take the most device time, plus any kernel whose name
-    holds one of ``show``."""
+    """Device busy share of ``run()`` under torch.profiler: the card's
+    activity time (kernels, copies) over the host wall time, and the
+    kernels that take the most device time, plus any kernel whose name
+    holds one of ``show``. The profiler records the card's activity only
+    and its raw events are summed: turning the thousands of events an
+    eager step makes into profiler records takes tens of seconds a
+    window. Returns (the result of ``run()``, the share or None)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
     per_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:   # kernels / copies on the card
-            us, n = per_name.get(e.name, (0.0, 0))
-            per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:   # kernels / copies
+            ns = (e.duration_ns() if hasattr(e, "duration_ns")
+                  else 1000 * e.duration_us())
+            t, n = per_name.get(e.name(), (0, 0))
+            per_name[e.name()] = (t + ns, n + 1)
+    read = time.perf_counter() - t0 - wall
     if not per_name:
-        print("[profile] no device time in the trace: busy share not "
-              "measured")
-        return
-    busy = sum(us for us, _ in per_name.values()) / 1e6
+        print(f"[profile] {label}: no device time in the trace: busy share "
+              "not measured")
+        return out, None
+    busy = sum(t for t, _ in per_name.values()) / 1e9
     print(f"[profile] {label}: wall {wall:.3f}s, device busy {busy:.3f}s = "
-          f"{100 * busy / wall:.1f}% (profiled)")
-    ranked = sorted(((us, n, k) for k, (us, n) in per_name.items()),
+          f"{100 * busy / wall:.1f}% (profiled; the trace took {read:.1f}s "
+          "to stop and read)")
+    ranked = sorted(((t, n, k) for k, (t, n) in per_name.items()),
                     reverse=True)
     top = ranked[:top_n] + [r for r in ranked[top_n:]
                             if any(s in r[2] for s in show)]
-    for us, n, key in top:
-        print(f"[profile]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
+    for t, n, key in top:
+        print(f"[profile]   {t / 1e6:9.2f} ms  {n:6d}x  {key[:90]}")
+    return out, busy / wall
 
 
 def serving_model(dev, tag):
@@ -2789,6 +2813,395 @@ def phase_rest(dev, dense_run, paged_run, train_cores):
     return total
 
 
+# phase 9: the paged adapter registry, chaos with per-step audits, and
+# recompute preemption, through Engine.generate
+REG_TASKS = 64          # the adapter's task axis (64 columns on the host)
+REG_NEW = 16            # tokens a request
+
+
+def registry_model(dev):
+    """Phase 9's model: serving_model's full-width stablelm-1.6b base with
+    a 4+1d MetaTT q/v adapter (rank 8) over REG_TASKS tasks, scaled to 0.1
+    of the base q projection (phase 8's mild strength, where bf16 decoding
+    is not chaotic). Returns (cfg, spec, base, adapter, live runtime,
+    gen)."""
+    import torch
+    from repro_torch.config.base import RunConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.models import model as M
+    from repro_torch.serving import AdapterRuntime
+    cfg, _, params, _, gen = serving_model(dev, "phase9")
+    spec = M.build_adapter_spec(RunConfig(
+        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
+        num_tasks=REG_TASKS, adapter_rank=8))
+    adapter = {"cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 8,
+                                        scale=0.5, device=dev)}
+    rt = AdapterRuntime.build("live", params["base"], spec, adapter, {})
+    adapter["cores"][-1] *= 0.1 / q_ratio(cfg, rt, gen)   # ΔW linear in G4
+    rt = AdapterRuntime.build("live", params["base"], spec, adapter, {})
+    torch.cuda.synchronize()
+    return cfg, spec, params["base"], adapter, rt, gen
+
+
+def registry_requests(cfg, n_distinct=24, repeat=8, seed=SEED + 19,
+                      prefix_len=100):
+    """2 * n_distinct requests over n_distinct tasks: task t, then a
+    repeat of task t % repeat (the first ``repeat`` tasks come back, and
+    a repeat can be admitted while its twin still pins the slot); prompts
+    of 40-300 tokens, the even ones a task's ``prefix_len``-token prefix
+    plus a tail."""
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(seed)
+    prefix = {t: rng.randint(0, cfg.vocab_size, size=prefix_len)
+              for t in range(n_distinct)}
+    tasks = [t for i in range(n_distinct) for t in (i, i % repeat)]
+    reqs = []
+    for i, task in enumerate(tasks):
+        if i % 2 == 0:
+            prompt = np.concatenate([prefix[task], rng.randint(
+                0, cfg.vocab_size, size=rng.randint(10, 201))])
+        else:
+            prompt = rng.randint(0, cfg.vocab_size, size=rng.randint(40, 301))
+        reqs.append(Request(prompt, REG_NEW, task=task,
+                            request_id=f"q{i}"))
+    return reqs
+
+
+def registry_run(eng, reqs, label, chaos=None, finished=True,
+                 profiled=False):
+    """One ``generate`` under a ChaosInjector (a fault-free one by
+    default: the audit after every host-loop iteration), with the checks:
+    every audit held and ran once an iteration (bar the injected stalls),
+    no pin left, no leaked block (paged); with ``finished`` every request
+    FINISHED with all its tokens. Prints tok/s, ms a step, the counters
+    and, ``profiled``, the device busy share of this run (its tok/s is
+    then taken under the profiler; ``device_share``'s lines); returns
+    (tokens, stats, injector)."""
+    import torch
+    from repro_torch.serving import ChaosInjector
+    chaos = chaos if chaos is not None else ChaosInjector()
+
+    def run():
+        return [o.tolist() for o in eng.generate(reqs, chaos=chaos)]
+    outs = (device_share(f"phase9 {label}", run, top_n=3)[0] if profiled
+            else run())
+    torch.cuda.synchronize()
+    st = eng.last_stats
+    if finished:
+        for req, res in zip(reqs, eng.last_results):
+            if res.status != "FINISHED" \
+                    or res.n_generated != req.max_new_tokens:
+                raise AssertionError(f"{label}: request ended {res.status} "
+                                     f"with {res.n_generated} tokens")
+    for o in outs:
+        if o and not (0 <= min(o) and max(o) < eng.cfg.vocab_size):
+            raise AssertionError(f"{label}: token id outside the vocab")
+    if not (chaos.audits > 0 and chaos.audits + chaos.stalls == chaos.steps):
+        raise AssertionError(f"{label}: {chaos.audits} audits over "
+                             f"{chaos.steps} host-loop iterations "
+                             f"({chaos.stalls} injected stalls)")
+    if eng.registry is not None and eng.registry.pinned_slots:
+        raise AssertionError(f"{label}: {eng.registry.pinned_slots} "
+                             "adapter slots still pinned")
+    if eng.paged and eng.leaked_blocks():
+        raise AssertionError(f"{label}: {eng.leaked_blocks()} KV blocks "
+                             "leaked")
+    steps = max(st.decode_steps, 1)
+    print(f"[phase9] {label}: {st.requests} requests, "
+          f"{st.tokens_generated} tokens in {st.wall_s:.3f}s = "
+          f"{st.tokens_per_s:.1f} tok/s, {1e3 * st.decode_s / steps:.2f} "
+          f"ms a step over {st.decode_steps} steps; admitted {st.admitted}, "
+          f"adapter faults {st.adapter_faults} hits {st.adapter_hits} "
+          f"(hit rate {st.adapter_hit_rate:.3f}) evictions "
+          f"{st.adapter_evictions} waits {st.adapter_waits}; prefix hit "
+          f"rate {st.prefix_hit_rate:.3f}; backpressure waits "
+          f"{st.backpressure_waits}; preemptions {st.preemptions}; audits "
+          f"{chaos.audits} of {chaos.steps} iterations ({chaos.stalls} "
+          "injected stalls)" + (" (profiled run)" if profiled else ""),
+          flush=True)
+    return outs, st, chaos
+
+
+def check_registry_counters(sts, label):
+    """Every admission either hit or faulted; over ``sts`` the pool
+    evicted, made a head wait, and hit."""
+    for st in sts:
+        if st.adapter_faults + st.adapter_hits != st.admitted:
+            raise AssertionError(f"{label}: faults {st.adapter_faults} + "
+                                 f"hits {st.adapter_hits} != admissions "
+                                 f"{st.admitted}")
+    for name in ("adapter_evictions", "adapter_waits", "adapter_hits"):
+        if not sum(getattr(st, name) for st in sts) > 0:
+            raise AssertionError(f"{label}: {name} is 0")
+
+
+def tokens_checked(cfg, spec, rt, base, reqs, outs, ref_outs, label, dev):
+    """Each token within 5% of the largest logit of the plain leg's
+    teacher-forced maximum (the 72-slot test's limit); how many equal
+    ``ref_outs`` is printed."""
+    t0 = time.perf_counter()
+    gap = teacher_forced_gap(cfg, spec, rt, base, reqs, outs, dev)
+    same = sum(int(x == y) for o, r in zip(outs, ref_outs)
+               for x, y in zip(o, r))
+    print(f"[phase9] {label}: tokens equal to the reference run "
+          f"{same}/{sum(len(o) for o in outs)}; largest teacher-forced gap "
+          f"{gap:.3e} (limit 5e-2; {time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    if not gap <= 5e-2:
+        raise AssertionError(f"{label}: a token {gap:.3e} below the plain "
+                             "leg's best logit")
+
+
+def fault_in_ms(eng, label, iters=20):
+    """Mean device-synchronised ms of one fault-in (every layer's q / v
+    column of the live C or the lora-form A, from pinned host memory)
+    into a mapped slot."""
+    import torch
+    reg = eng.registry
+    task = reg.resident_tasks[0]
+    slot = reg.slot_of(task)
+    nbytes = sum(t[:, task].numel() * t.element_size()
+                 for t in eng._host_per_layer.values())
+    eng._adapter_fault_in(slot, task)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        eng._adapter_fault_in(slot, task)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    print(f"[phase9] fault-in, {label}: {ms:.4f} ms a fault ({nbytes} bytes "
+          f"host -> card: {eng.cfg.num_layers} layers x q/v; "
+          f"{nbytes / ms / 1e6:.3f} GB/s)", flush=True)
+    return ms
+
+
+def phase_registry(dev, count):
+    """Phase 9 on full-width stablelm-1.6b with a 64-task 4+1d adapter:
+    (a) the registry on the paged fp cell (4 pool slots, 48 requests over
+    24 tasks, cold then warm) against the all-resident engine; (b) the
+    dense cell under the lora runtime, fp and w8, with 3 pool slots (K2 /
+    #10 on A gathered from the pool); (c) a seeded chaos run with the
+    registry on; (d) recompute preemption in a pool where a long running
+    request and the blocked head cannot both fit; (e) speculative decode
+    with the registry (dense) against the same spec engine without it.
+    The audit runs after every host-loop iteration of every run."""
+    import torch
+    from repro_torch.config.base import (QuantConfig, RegistryConfig,
+                                         ServeConfig, SpecConfig)
+    from repro_torch.serving import (AdapterRuntime, ChaosInjector, Engine,
+                                     Request)
+
+    cfg, spec, base, adapter, rt, gen = registry_model(dev)
+    print(f"[phase9] 4+1d adapter over {REG_TASKS} tasks, q ratio "
+          f"{q_ratio(cfg, rt, gen):.3e}", flush=True)
+    secs = {}
+    t = time.perf_counter()
+
+    # (a) the registry on the paged fp cell, 4 pool slots
+    reqs = registry_requests(cfg)
+    print(f"[phase9] (a) prompt lengths {[len(r.prompt) for r in reqs]}, "
+          f"tasks {[r.task for r in reqs]}", flush=True)
+    ref = Engine(cfg, rt, serve=ServeConfig(**PAGED), device=dev)
+    ref_outs = registry_run(ref, reqs, "(a) paged fp, all 64 tasks "
+                            "resident (reference)")[0]
+    del ref
+    eng = Engine(cfg, rt, serve=ServeConfig(
+        registry=RegistryConfig(max_resident_tasks=4), **PAGED), device=dev)
+    runs = {}
+    # warm: in reverse order, so the prompts cached last (256 blocks hold
+    # about a third of the 48) are looked up first
+    for label, rq, refs in (("cold", reqs, ref_outs),
+                            ("warm", reqs[::-1], ref_outs[::-1])):
+        n = count(lambda: runs.__setitem__(label, registry_run(
+            eng, rq, f"(a) paged fp registry K=4 {label}",
+            profiled=label == "warm")))
+        if not n["paged_decode_attention"] > 0:
+            raise AssertionError(f"(a) {label}: #8 never launched: {n}")
+        if n["tt_linear_batched_a"] or n["tt_linear"]:
+            # the paged (B, 32) block runs the batched einsum (phase 4)
+            raise AssertionError(f"(a): K1 / K2 on the paged path: {n}")
+        print(f"[phase9] (a) {label} launches "
+              f"{json.dumps({k: v for k, v in n.items() if v})}")
+        tokens_checked(cfg, spec, rt, base, rq, runs[label][0], refs,
+                       f"(a) {label}", dev)
+    check_registry_counters([runs[k][1] for k in runs], "(a)")
+    if not runs["warm"][1].prefix_hit_rate > 0:
+        raise AssertionError("(a) warm: no prefix hit after eviction")
+    fault_in_ms(eng, "live C column")
+    del eng
+    torch.cuda.empty_cache()
+    secs["a"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+
+    # (b) dense, lora runtime, fp and w8: K2 / #10 on the pooled A
+    lora = AdapterRuntime.build("lora", base, spec, adapter, {})
+    rng = np.random.RandomState(SEED)
+    dreqs = [Request(rng.randint(0, cfg.vocab_size, size=int(n)), REG_NEW,
+                     task=i)
+             for i, n in enumerate(rng.randint(16, 97, size=8))]
+    dense = dict(cache_mode="dense", max_batch=4, cache_len=256,
+                 out_cap=32)
+    reg3 = RegistryConfig(max_resident_tasks=3)
+    for label, quant, name in (
+            ("fp", QuantConfig(), "tt_linear_batched_a"),
+            ("w8", QuantConfig(weights="int8"), "tt_linear_batched_a_w8")):
+        ref = Engine(cfg, lora, serve=ServeConfig(quant=quant, **dense),
+                     device=dev)
+        ref_outs = registry_run(ref, dreqs, f"(b) dense lora {label}, all "
+                                "tasks resident (reference)")[0]
+        del ref
+        eng = Engine(cfg, lora, serve=ServeConfig(quant=quant, registry=reg3,
+                                                  **dense), device=dev)
+        sts = []
+        # cold in order, then reversed: the last tasks of the first pass
+        # are still resident, so the second pass starts with hits
+        for order, rq in (("cold", dreqs), ("reversed", dreqs[::-1])):
+            got = {}
+            n = count(lambda: got.setdefault("r", registry_run(
+                eng, rq, f"(b) dense lora {label} registry K=3 {order}",
+                profiled=order == "reversed")))
+            outs, st, _ = got["r"]
+            sts.append(st)
+            want = (2 * cfg.num_layers * st.decode_steps
+                    if st.decode_steps else 0)
+            if not (n[name] > 0 and n[name] == want
+                    and n["decode_attention"] > 0):
+                raise AssertionError(f"(b) {label} {order}: {name} "
+                                     f"launched {n[name]}, want {want}: {n}")
+            print(f"[phase9] (b) {label} {order} launches "
+                  f"{json.dumps({k: v for k, v in n.items() if v})}")
+            refs = ref_outs if order == "cold" else ref_outs[::-1]
+            tokens_checked(cfg, spec, lora, eng.base_weights, rq, outs, refs,
+                           f"(b) {label} {order}", dev)
+        check_registry_counters(sts, f"(b) {label}")
+        if label == "fp":
+            fault_in_ms(eng, "lora-form A slice")
+        del eng
+        torch.cuda.empty_cache()
+    del lora
+    secs["b"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+
+    # (c) chaos on the paged fp cell with the registry on
+    creqs = reqs[:16]
+    sv = ServeConfig(registry=RegistryConfig(max_resident_tasks=4), **PAGED)
+    clean = registry_run(Engine(cfg, rt, serve=sv, device=dev), creqs,
+                         "(c) clean run")[0]
+    chaos = ChaosInjector(seed=7, alloc_fail_steps=(0, 1, 2),
+                          alloc_fail_rate=0.2, scatter_failures=2,
+                          cancel_at={3: ["q13"]}, nan_after={"q6": 5})
+    eng = Engine(cfg, rt, serve=sv, device=dev)
+    got = {}
+    n = count(lambda: got.setdefault("r", registry_run(
+        eng, creqs, "(c) chaos run", chaos=chaos, finished=False,
+        profiled=True)))
+    outs, st, _ = got["r"]
+    status = [r.status for r in eng.last_results]
+    print(f"[phase9] (c) statuses {status}; alloc faults "
+          f"{chaos.alloc_faults}, scatter faults {chaos.scatter_faults}, "
+          f"numerics faults {st.numerics_faults}; launches "
+          f"{json.dumps({k: v for k, v in n.items() if v})}", flush=True)
+    if not (status[13] == "CANCELLED" and status[6] == "FAILED"
+            and len(outs[6]) == 5 and status.count("FINISHED") == 14):
+        raise AssertionError(f"(c) statuses {status}, q6 emitted "
+                             f"{len(outs[6])}")
+    if not (st.numerics_faults == 1 and chaos.alloc_faults > 0
+            and chaos.scatter_faults == 2):
+        raise AssertionError("(c) the injected faults did not all fire")
+    keep = [i for i, s in enumerate(status) if s == "FINISHED"]
+    tokens_checked(cfg, spec, rt, base, [creqs[i] for i in keep],
+                   [outs[i] for i in keep], [clean[i] for i in keep],
+                   "(c) survivors against the clean run", dev)
+    del eng
+    torch.cuda.empty_cache()
+    secs["c"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+
+    # (d) recompute preemption: a 10-block pool of 16-cell pages where the
+    # long running request (5 pages) and the blocked head (8) cannot both
+    # fit once the short one (2) has finished
+    prng = np.random.RandomState(SEED + 23)
+    preqs = [Request(prng.randint(0, cfg.vocab_size, size=n), m, task=i,
+                     request_id=f"p{i}")
+             for i, (n, m) in enumerate(((20, 12), (60, 20), (100, 28)))]
+    psv = dict(max_batch=2, cache_len=128, page_size=16, prefill_chunk=32,
+               out_cap=32, num_blocks=10,
+               registry=RegistryConfig(max_resident_tasks=4))
+    base_outs = registry_run(Engine(cfg, rt, serve=ServeConfig(**psv),
+                                    device=dev), preqs,
+                             "(d) without preemption")[0]
+    eng = Engine(cfg, rt, serve=ServeConfig(preempt_after=1, **psv),
+                 device=dev)
+    got = {}
+    count(lambda: got.setdefault("r", registry_run(
+        eng, preqs, "(d) preempt_after=1", profiled=True)))
+    outs, st, _ = got["r"]
+    pre = [r.preemptions for r in eng.last_results]
+    print(f"[phase9] (d) preemptions {st.preemptions}, per request {pre}",
+          flush=True)
+    if not (st.preemptions >= 1 and pre[1] >= 1):
+        raise AssertionError(f"(d) no preemption of the running request: "
+                             f"{pre}")
+    tokens_checked(cfg, spec, rt, base, preqs, outs, base_outs,
+                   "(d) preempted run against the run without", dev)
+    del eng
+    secs["d"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+
+    # (e) speculative decode with the registry (dense), 3 pool slots
+    spec_outs = {}
+    for leg, reg in (("without the registry", RegistryConfig()),
+                     ("registry K=3", reg3)):
+        eng = Engine(cfg, rt, serve=ServeConfig(
+            spec=SpecConfig(**SPEC), registry=reg, **dense), device=dev)
+        got = {}
+        n = count(lambda: got.setdefault("r", registry_run(
+            eng, dreqs, f"(e) spec dense {leg}",
+            profiled=leg != "without the registry")))
+        outs, st, _ = got["r"]
+        spec_outs[leg] = outs
+        print(f"[phase9] (e) {leg}: acceptance {st.acceptance_rate:.3f}, "
+              f"tokens/step {st.tokens_per_step:.3f}; launches "
+              f"{json.dumps({k: v for k, v in n.items() if v})}", flush=True)
+        if not (n["tt_linear_batched_a"] > 0 and n["decode_attention"] > 0):
+            raise AssertionError(f"(e) {leg}: K2 / K4 not launched: {n}")
+        del eng
+    a, b = spec_outs.values()
+    same = sum(int(x == y) for o, r in zip(a, b) for x, y in zip(o, r))
+    print(f"[phase9] (e) tokens with the registry equal to those without "
+          f"{same}/{sum(len(o) for o in a)}", flush=True)
+    if a != b:
+        raise AssertionError("(e) spec tokens with the registry differ from "
+                             "the same engine's without it")
+    torch.cuda.empty_cache()
+    secs["e"] = round(time.perf_counter() - t, 1)
+    print(f"[phase9] seconds per part {json.dumps(secs)}", flush=True)
+    del base, rt, adapter
+    torch.cuda.empty_cache()
+
+
+def phase_nine(dev):
+    """Phase 9, launches counted around each driven run and summed."""
+    import torch
+    from repro_torch import kernels as K
+    total = {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+    phase_registry(dev, count)
+    print(f"[phase9] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}",
+          flush=True)
+    return total
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -2848,7 +3261,10 @@ def main(argv) -> int:
                                        train_cores)
     t8 = time.perf_counter()
     paths["phase8"] = phase_rest(dev, dense_run, paged_run, train_cores)
-    print(f"[time] phase 8 {time.perf_counter() - t8:.1f} s; the script "
+    t9 = time.perf_counter()
+    paths["phase9"] = phase_nine(dev)
+    print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 "
+          f"{time.perf_counter() - t9:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []

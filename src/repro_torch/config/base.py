@@ -236,14 +236,49 @@ class SpecConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RegistryConfig:
-    """Paged adapter registry (not ported yet: max_resident_tasks > 0
-    raises)."""
+    """Paged adapter registry (``serving/adapter_registry.py``). MetaTT's
+    task mode makes each task's marginal footprint one core column, so the
+    engine can serve an open-ended task population from a fixed device
+    pool of ``max_resident_tasks`` slots, writing task columns from a
+    host copy of the factors into a slot on demand (one in-place copy, the
+    pool's shape never changes) and evicting idle residents —
+    S-LoRA-style paging, with a TT core column as the unit instead of a
+    whole adapter stack.
+
+    max_resident_tasks: device task-slot pool size K. 0 (default) keeps
+        the whole ``num_tasks`` axis on the device — registry off, the
+        engine as without it. K may be smaller than the in-flight batch's
+        distinct-task count only at the price of admission backpressure:
+        a request whose task cannot get a slot waits until a harvest
+        unpins one.
+    eviction: idle-resident replacement policy — "lru" (default; recency
+        refreshed on every admission hit) or "fifo" (load order only —
+        cheaper bookkeeping, worse under skewed reuse).
+
+    Requires a task-routed runtime (metatt 4+1d, live or lora); the
+    engine rejects the combination otherwise. Works in both cache modes
+    and composes with quantization and speculative decode (the drafter's
+    truncated columns page together with their target columns, at the
+    same slot).
+    """
     max_resident_tasks: int = 0
-    eviction: str = "lru"
+    eviction: str = "lru"          # lru | fifo
 
     @property
     def enabled(self) -> bool:
         return self.max_resident_tasks > 0
+
+    def validate(self) -> "RegistryConfig":
+        if self.max_resident_tasks < 0:
+            raise ValueError(
+                f"RegistryConfig.max_resident_tasks="
+                f"{self.max_resident_tasks} must be >= 0 (0 = all tasks "
+                "device-resident)")
+        if self.eviction not in ("lru", "fifo"):
+            raise ValueError(
+                f"RegistryConfig.eviction={self.eviction!r}; want "
+                "lru | fifo")
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,9 +292,13 @@ class ServeConfig:
     cache_len cells each, power-of-two or ``prompt_buckets`` prefill
     buckets). ``quant`` int8-quantizes the base weights (both modes) and
     the KV cells (paged mode only); ``spec`` turns on speculative decode
-    in both modes. ``Engine`` rejects registry, mesh_shape (and with it
-    the router's replicas), disagg, row_parallel and preempt_after with
-    ``NotImplementedError``.
+    in both modes; ``registry`` pages task columns through a fixed pool of
+    device slots (both modes); ``preempt_after`` > 0 turns on recompute
+    preemption (paged mode: after that many consecutive host-loop
+    iterations with the FIFO head blocked, the youngest running request
+    is re-queued with its generated tokens). ``Engine`` rejects
+    mesh_shape (and with it the router's replicas), disagg and
+    row_parallel with ``NotImplementedError``.
     """
     max_batch: int = 4
     cache_len: int = 64
@@ -295,6 +334,7 @@ class ServeConfig:
                              "want paged | dense")
         self.quant.validate()
         self.spec.validate()
+        self.registry.validate()
         if self.spec.enabled and self.spec.spec_k + 1 > self.cache_len:
             raise ValueError(
                 f"SpecConfig.spec_k={self.spec.spec_k}: the verifier "
@@ -322,19 +362,21 @@ class ServeConfig:
             raise ValueError(
                 f"ServeConfig.preempt_after={self.preempt_after} must be "
                 ">= 0 (0 disables recompute preemption)")
+        if self.preempt_after and self.cache_mode != "paged":
+            raise ValueError(
+                "recompute preemption frees paged KV blocks; it needs "
+                "cache_mode='paged'")
         unported = {
-            "registry": self.registry.enabled,
             "mesh_shape": bool(self.mesh_shape),
             "row_parallel": self.row_parallel,
             "disagg": self.disagg,
-            "preempt_after": bool(self.preempt_after),
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
                 f"ServeConfig {bad}: the port serves the paged and dense "
-                "cache modes on one device without the registry or "
-                "preemption yet")
+                "cache modes on one device; meshes, replicas, the router "
+                "and disaggregated prefill are not ported yet")
         return self
 
 

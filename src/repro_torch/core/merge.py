@@ -69,6 +69,15 @@ def lora_task_slice(a: torch.Tensor, task) -> torch.Tensor:
     return a[:, task]
 
 
+def lora_task_put(pool: torch.Tensor, slot, col: torch.Tensor
+                  ) -> torch.Tensor:
+    """Write one lora-form task slice into slot ``slot`` of a pooled A
+    (L, K, M, d_in_max, r), in place — the inverse of
+    ``lora_task_slice``. Returns ``pool``."""
+    pool[:, slot].copy_(col, non_blocking=True)
+    return pool
+
+
 def fold_into_dense(params: Params, cfg: MetaTTConfig, weights: dict, *,
                     task: Optional[int] = None, layers=None) -> dict:
     """A copy of ``weights`` (matrix type -> stacked (L', d_in, d_out))

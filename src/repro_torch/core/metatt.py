@@ -214,6 +214,24 @@ def delta_out(f: StepFactors, cfg: MetaTTConfig, p: torch.Tensor,
     return cfg.alpha * (q @ g4.to(p.dtype))
 
 
+def take_task_slice(c: torch.Tensor, task) -> torch.Tensor:
+    """One task's column of the live factor ``StepFactors.c`` (L, T, M, r,
+    r): the task mode is axis 1, and this (L, M, r, r) slice is all that
+    one task adds to the shared TT (paper Eq. (4)/(6)). The serving
+    adapter registry (serving/adapter_registry.py) pages these columns
+    between the host and a fixed device slot pool."""
+    return c[:, task]
+
+
+def put_task_slice(pool: torch.Tensor, slot, col: torch.Tensor
+                   ) -> torch.Tensor:
+    """Write one task column into slot ``slot`` of a pooled factor (L, K,
+    M, r, r), in place — the inverse of ``take_task_slice``. The pool's
+    shape and storage never change. Returns ``pool``."""
+    pool[:, slot].copy_(col, non_blocking=True)
+    return pool
+
+
 def apply(params: Params, cfg: MetaTTConfig, x: torch.Tensor, layer: int,
           m: str, *, task: Union[torch.Tensor, int, None] = None
           ) -> torch.Tensor:

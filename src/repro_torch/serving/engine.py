@@ -39,6 +39,16 @@
   * TASK ROUTING: with a 4+1d adapter the (B,) slot task vector gathers
     per-row C[l, t_b, m] slices from the one shared tensor train, so one
     batch mixes tasks.
+  * ADAPTER PAGING (``ServeConfig(registry=RegistryConfig(
+    max_resident_tasks=K))``, both cache modes): the task axis on the
+    device shrinks to a fixed K-slot pool; the full factors stay in
+    pinned host memory and a host ``AdapterRegistry`` (task → slot, pins,
+    LRU / FIFO eviction) faults a task's column into its slot with one
+    in-place copy at admission. The slot task vector then carries
+    POOL-SLOT indices (the per-row A that K2 / #10 read is gathered from
+    the pool on the device), admission gates on a free or idle slot as it
+    gates on blocks, and prefix-cache namespaces stay keyed on the TASK
+    ID, so an evicted and re-admitted task still warm-hits its prompts.
   * NaN GUARD: a step whose logits row is non-finite stops that slot,
     keeps the tokens emitted before and ends the request FAILED (paged:
     its KV is not indexed for reuse).
@@ -46,6 +56,17 @@
     request CANCELLED / TIMEOUT between steps, with what it emitted
     (paged: the prefix whose KV is computed is indexed, then the blocks
     return to the pool).
+  * RECOMPUTE PREEMPTION (``ServeConfig.preempt_after``, paged): when the
+    FIFO head has been blocked that many consecutive host-loop iterations,
+    the youngest running request is stopped, its computed KV indexed as a
+    prefix and its blocks returned, and it re-enters the queue right
+    behind the head with prompt + generated tokens as its prompt; its
+    output continues where it stopped (``RequestResult.preemptions``).
+  * CHAOS (``generate(..., chaos=ChaosInjector(...))``,
+    ``serving/chaos.py``): scripted cancels, forced allocation failures,
+    failed adapter fault-ins (the admission unwinds) and NaN logits per
+    request, with ``chaos.audit`` of the block, prefix and pin invariants
+    after every host-loop iteration.
   * QUANTIZATION: ``KernelConfig.quant`` and ``ServeConfig.quant`` merge
     (int8 wins). weights=int8 packs the base's matmul leaves ONCE at
     construction (``kernels/quant.py``): adapted projections run the
@@ -75,9 +96,10 @@
     k+1, through #8 / #8q), and the accept rule. Greedy tokens are the
     non-speculative engine's.
 
-The adapter registry, meshes (and with them replicas, the router and
-disaggregated prefill) and preemption are not ported yet: ``Engine``
-raises ``NotImplementedError`` for them.
+Meshes (and with them replicas, the router, disaggregated prefill and
+``row_parallel``) are not ported yet: ``Engine`` raises
+``NotImplementedError`` for them, and ``ChaosInjector(kill_replica_at=)``
+raises too.
 """
 from __future__ import annotations
 
@@ -96,8 +118,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import quant as quant_lib
 from repro_torch.models import transformer
+from repro_torch.serving import adapter_registry
+from repro_torch.serving import chaos as chaos_lib
 from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving import speculative as spec_lib
+from repro_torch.serving.adapter_registry import AdapterRegistry
 from repro_torch.serving.adapter_runtime import AdapterRuntime
 from repro_torch.serving.block_manager import BlockManager, PrefixCache
 from repro_torch.serving.scheduler import Scheduler
@@ -146,7 +171,7 @@ class DecodeState:
     active: torch.Tensor     # (B,)   slot is mid-generation
     widx: torch.Tensor       # (B,)   next column of the output buffer
     out: torch.Tensor        # (B, out_cap + 1) generated tokens
-    task: torch.Tensor       # (B,)   per-slot task id
+    task: torch.Tensor       # (B,)   per-slot task id (registry: pool slot)
     failed: torch.Tensor     # (B,)   NaN guard tripped
     caches: list             # dense KV caches, batch axis = slots
     dcaches: Any = None      # the speculative drafter's caches
@@ -168,7 +193,7 @@ class PagedState:
     active: torch.Tensor     # (B,)   slot is mid-request
     widx: torch.Tensor       # (B,)   next column of the output buffer
     out: torch.Tensor        # (B, out_cap + 1) generated tokens
-    task: torch.Tensor       # (B,)   per-slot task id
+    task: torch.Tensor       # (B,)   per-slot task id (registry: pool slot)
     failed: torch.Tensor     # (B,)   NaN guard tripped
     caches: list             # paged pools, leaves (nb, N, page, KV, hd)
     dcaches: Any = None      # the speculative drafter's parallel pools
@@ -232,11 +257,36 @@ class Engine:
         if self.quant.weights == "int8":
             base = quant_lib.quantize_base(
                 base, group_size=self.quant.group_size)
-        self._weights = (base, runtime.broadcast, runtime.per_layer)
+        # adapter paging: with registry.max_resident_tasks = K the device
+        # holds a zeroed K-slot pool instead of the whole task axis; the
+        # full factors stay in (pinned) host memory and admission writes
+        # a task's column into its slot on demand
+        self.reg_cfg = self.sv.registry
+        self._reg_on = self.reg_cfg.enabled
+        if self._reg_on and not runtime.tasked:
+            raise ValueError(
+                f"RegistryConfig.max_resident_tasks="
+                f"{self.reg_cfg.max_resident_tasks} needs a task-routed "
+                "runtime (metatt 4+1d live / lora); untasked and merged "
+                "runtimes have no per-task columns to page")
+        per_layer = runtime.per_layer
+        self._host_per_layer = None
+        if self._reg_on:
+            self._host_per_layer = adapter_registry.host_factors(per_layer)
+            per_layer = adapter_registry.pool_factors(
+                per_layer, self.reg_cfg.max_resident_tasks)
+        self.registry = (AdapterRegistry(self.reg_cfg.max_resident_tasks,
+                                         policy=self.reg_cfg.eviction)
+                         if self._reg_on else None)
+        self._weights = (base, runtime.broadcast, per_layer)
         self.spec = self.sv.spec
         self._spec_on = self.spec.enabled
+        self._draft_weights = None
+        self._host_draft_pl = None
         self._build_drafter()
         self._cancel_ids: set = set()
+        self._chaos = None
+        self._live = None       # the loop's bookkeeping, for chaos.audit
         self.last_stats = self._new_stats()
         self.last_results: List[RequestResult] = []
         if self.paged:
@@ -244,13 +294,28 @@ class Engine:
 
     def _build_drafter(self) -> None:
         """The drafter's weights (``spec_lib.build_drafter``: views of the
-        engine's weights) and super-block count."""
+        engine's weights) and super-block count. Under the registry the
+        drafter's truncated columns page with their target columns: a
+        host copy of the drafter's full factors and a K-slot pool of its
+        own, written at the same slot by every fault-in (a new base keeps
+        the pool, whose slots the registry holds loaded)."""
+        old = self._draft_weights
         self._draft_weights = None
         self._nb_draft = self.cfg.num_super_blocks
         if self._spec_on:
+            base, bc, pl = self._weights
+            if self._reg_on:
+                pl = self.rt.per_layer      # the full task axis
             dbase, dbc, dpl, self._nb_draft = spec_lib.build_drafter(
-                self.spec, self.rt.spec.kind, *self._weights,
+                self.spec, self.rt.spec.kind, base, bc, pl,
                 len(self.cfg.block_pattern))
+            if self._reg_on:
+                if old is None:
+                    self._host_draft_pl = adapter_registry.host_factors(dpl)
+                    dpl = adapter_registry.pool_factors(
+                        dpl, self.reg_cfg.max_resident_tasks)
+                else:
+                    dpl = old[2]
             self._draft_weights = (dbase, dbc, dpl)
 
     # ------------------------------------------------------------------
@@ -297,7 +362,8 @@ class Engine:
         prefix cache and scheduler."""
         self.bm = BlockManager(self._num_blocks, self._page)
         self.prefix = PrefixCache(self.bm) if self.sv.prefix_cache else None
-        self.sched = Scheduler(self.bm, self.prefix, self.last_stats)
+        self.sched = Scheduler(self.bm, self.prefix, self.last_stats,
+                               registry=self.registry)
 
     def _fresh_pools(self, num_super_blocks: Optional[int] = None) -> list:
         """Zero pools; ``num_super_blocks`` sizes the drafter's region."""
@@ -330,7 +396,8 @@ class Engine:
         return EngineStats(
             cache_mode=self.sv.cache_mode, requests=requests,
             weights_dtype="int8" if self.quant.weights == "int8" else "fp",
-            kv_dtype="int8" if self._kv_quant else "fp")
+            kv_dtype="int8" if self._kv_quant else "fp",
+            max_resident_tasks=self.reg_cfg.max_resident_tasks)
 
     def _kv_bytes(self, tokens: int,
                   num_super_blocks: Optional[int] = None) -> int:
@@ -347,12 +414,32 @@ class Engine:
 
     def _reset_paged_pool(self) -> None:
         """Drop every block (and the prefix index) — used when a failed
-        generate leaves slot refcounts or the pools inconsistent."""
+        generate leaves slot refcounts or the pools inconsistent. The
+        registry forgets every mapping and pin too: its slots fault in
+        again when next used."""
+        if self.registry is not None:
+            self.registry.clear()
         self._build_host_pools()
         self._tables[:] = self._num_blocks
         self._paged_caches = self._fresh_pools()
         if self._spec_on:
             self._draft_pools = self._fresh_pools(self._nb_draft)
+
+    def _adapter_fault_in(self, slot: int, task: int) -> None:
+        """Write ``task``'s column from the host factors into pool slot
+        ``slot`` — the device half of an adapter fault: one in-place copy
+        a leaf (the live C column or the lora-form A slice, and under
+        speculation the drafter's truncated column at the same slot),
+        then the registry's confirmation. The copies queue on the current
+        stream, before the steps that read the slot."""
+        adapter_registry.scatter_slot(
+            self._weights[2], slot,
+            adapter_registry.task_slice(self._host_per_layer, task))
+        if self._spec_on:
+            adapter_registry.scatter_slot(
+                self._draft_weights[2], slot,
+                adapter_registry.task_slice(self._host_draft_pl, task))
+        self.registry.mark_loaded(task)
 
     def leaked_blocks(self) -> int:
         """Paged mode, between ``generate`` calls: blocks neither free nor
@@ -436,7 +523,19 @@ class Engine:
         sampled from (the engine's own bucketed prefill)."""
         prompt = _prompt_array(prompt)
         self.rt.check_task(task)
-        return self._prefill(prompt, task if self.rt.tasked else None)[0]
+        if self.registry is None:
+            return self._prefill(prompt, task if self.rt.tasked else None)[0]
+        # a registry engine reads the pool: pin the task's slot for the
+        # call (faulting its column in), then drop the pin
+        acq = self.registry.acquire(task)
+        if acq is None:
+            raise RuntimeError("every adapter slot is pinned")
+        try:
+            if acq.fault:
+                self._adapter_fault_in(acq.slot, task)
+            return self._prefill(prompt, acq.slot)[0]
+        finally:
+            self.registry.release(task)
 
     def init_state(self) -> DecodeState:
         b = self.max_batch
@@ -458,11 +557,13 @@ class Engine:
             if self._spec_on else None)
 
     def _admit(self, s: DecodeState, slot: int, req: Request,
-               gen: torch.Generator) -> None:
+               gen: torch.Generator, task_ref: int) -> None:
         """Prefill ``req`` into ``slot`` and sample its first token (it
-        counts toward the output)."""
+        counts toward the output). ``task_ref``: the index the adapter is
+        gathered with — the request's pool slot under the registry, its
+        task id otherwise."""
         prompt, plen = self._validate_request(req)
-        task = int(req.task) if self.rt.tasked else None
+        task = task_ref if self.rt.tasked else None
         last, caches1 = self._prefill(prompt, task)
         t0 = sampling_lib.sample(last[None], gen, self.sampling)[0]
         transformer.insert_cache_slot(s.caches, caches1, slot)
@@ -477,7 +578,7 @@ class Engine:
         s.widx[slot] = 1
         s.out[slot] = 0
         s.out[slot, 0] = t0
-        s.task[slot] = int(req.task)
+        s.task[slot] = task_ref
         s.failed[slot] = False
 
     def _step(self, s: DecodeState, nan_at: torch.Tensor,
@@ -647,15 +748,18 @@ class Engine:
     @torch.inference_mode()
     def generate(self, requests: Sequence[Request], *,
                  generator: Optional[torch.Generator] = None,
-                 nan_at: Optional[Sequence[int]] = None
+                 chaos: Optional[chaos_lib.ChaosInjector] = None
                  ) -> List[np.ndarray]:
         """Serve ``requests`` through the slots; returns per request the
         generated token ids (length max_new_tokens unless the request was
         cancelled, timed out or failed). Fills ``last_stats`` and
-        ``last_results``. Sampling draws from ``generator`` (default: the
-        engine's own, seeded at construction). ``nan_at`` is fault
-        injection for resilience tests: per request, the output column
-        from which its logits are replaced by NaN (-1: never)."""
+        ``last_results`` (tokens, terminal status, preemption count).
+        Sampling draws from ``generator`` (default: the engine's own,
+        seeded at construction). ``chaos``: an optional
+        ``serving/chaos.py::ChaosInjector`` driving seeded fault injection
+        (scripted cancels, forced allocation and fault-in failures, NaN
+        logits per request) with an invariant audit after every host-loop
+        iteration."""
         for req in requests:
             self._validate_request(req)     # fail fast, before any work
         gen = generator if generator is not None else self.generator
@@ -666,17 +770,19 @@ class Engine:
         self._abs_deadline = [None if req.deadline_s is None
                               else t0 + req.deadline_s for req in requests]
         self._status = {}
-        nan_req = (list(nan_at) if nan_at is not None
-                   else [-1] * len(requests))
+        self._req_preempts = {}
+        self._chaos = chaos
         # drafted, accepted: device counters, read once at the end
         self._spec_counts = torch.zeros(2, dtype=torch.long,
                                         device=self.device)
         try:
             if self.paged:
-                results = self._generate_paged(requests, gen, nan_req)
+                results = self._generate_paged(requests, gen)
             else:
-                results = self._generate_dense(requests, gen, nan_req)
+                results = self._generate_dense(requests, gen)
         finally:
+            self._chaos = None
+            self._live = None
             self._cancel_ids.clear()
         st.wall_s = time.perf_counter() - t0
         st.tokens_generated = sum(len(r) for r in results)
@@ -687,7 +793,8 @@ class Engine:
                 int(v) for v in self._spec_counts.tolist())
         self.last_results = [
             RequestResult(tokens=r, status=self._status.get(i, FINISHED),
-                          n_generated=len(r))
+                          n_generated=len(r),
+                          preemptions=self._req_preempts.get(i, 0))
             for i, r in enumerate(results)]
         return results
 
@@ -706,7 +813,23 @@ class Engine:
         else:
             self.last_stats.timeouts += 1
 
-    def _generate_dense(self, requests, gen, nan_req) -> List[np.ndarray]:
+    def _chaos_tick(self, step: int) -> None:
+        """The chaos schedule's events for host-loop iteration ``step``:
+        scripted cancels join the cancel set."""
+        if self._chaos is not None:
+            self._cancel_ids.update(self._chaos.tick(step)["cancels"])
+
+    def _nan_threshold(self, idx: int) -> int:
+        """The NaN-injection threshold of request ``idx`` (-1: never)."""
+        return (self._chaos.nan_for(self._rids[idx])
+                if self._chaos is not None else -1)
+
+    def _audit(self) -> None:
+        if self._chaos is not None and self._chaos.audit_every_step:
+            chaos_lib.audit(self)
+            self._chaos.audits += 1
+
+    def _generate_dense(self, requests, gen) -> List[np.ndarray]:
         st = self.last_stats
         st.page_size = self.cache_len
         st.num_blocks = self.max_batch
@@ -716,17 +839,44 @@ class Engine:
                 self.cache_len, num_super_blocks=self._nb_draft)
         st.kv_blocks_peak = self.max_batch  # dense reserves every slot
         s = self.init_state()
+        try:
+            return self._dense_loop(s, requests, gen)
+        except BaseException:
+            if self.registry is not None:
+                self.registry.clear()   # the slots' pins are gone
+            raise
+
+    def _dense_loop(self, s: DecodeState, requests, gen) -> List[np.ndarray]:
+        """Host half of dense serving: each iteration runs the chaos
+        events, the cancel / deadline sweep, admission into free slots
+        (with the registry: gated on an adapter slot, faulting the task's
+        column in), one loop call until some slot's flag changes, and the
+        harvest of finished slots."""
+        st = self.last_stats
+        reg = self.registry
         pending = collections.deque(enumerate(requests))
         results: List[Optional[np.ndarray]] = [None] * len(requests)
-        meta: List[Optional[int]] = [None] * self.max_batch
+        # one dict a busy slot: the request index and its task id
+        meta: List[Optional[dict]] = [None] * self.max_batch
         nan_at = torch.full((self.max_batch,), -1, dtype=torch.long,
                             device=self.device)
+        self._live = dict(meta=meta)
 
         def harvest(slot: int) -> np.ndarray:
             w = int(s.widx[slot])
             return s.out[slot, :w].cpu().numpy().astype(np.int32)
 
+        def free_slot(slot: int) -> None:
+            if reg is not None:
+                reg.release(meta[slot]["task"])
+            meta[slot] = None
+            nan_at[slot] = -1
+            st.evicted += 1
+
+        hstep = 0
         while pending or any(m is not None for m in meta):
+            self._chaos_tick(hstep)
+            hstep += 1
             # cancels and deadlines, queued and in flight
             keep = collections.deque()
             for idx, req in pending:
@@ -737,29 +887,54 @@ class Engine:
                     results[idx] = np.zeros((0,), np.int32)
                     self._end(idx, stt)
             pending = keep
-            for slot, idx in enumerate(meta):
-                if idx is None:
+            for slot, m in enumerate(meta):
+                if m is None:
                     continue
-                stt = self._abort_status(idx)
+                stt = self._abort_status(m["idx"])
                 if stt is None:
                     continue
-                results[idx] = harvest(slot)
-                self._end(idx, stt)
+                results[m["idx"]] = harvest(slot)
+                self._end(m["idx"], stt)
                 s.active[slot] = False
                 s.remaining[slot] = 0
-                nan_at[slot] = -1
-                meta[slot] = None
-                st.evicted += 1
-            # admit pending requests into free slots
+                free_slot(slot)
+            # admit pending requests into free slots; with the registry a
+            # head whose task gets no pool slot waits for a harvest to
+            # unpin one (in-flight slots guarantee progress)
             t_adm = time.perf_counter()
             admitted = 0
             for slot in range(self.max_batch):
-                if meta[slot] is None and pending:
-                    idx, req = pending.popleft()
-                    self._admit(s, slot, req, gen)
-                    meta[slot] = idx
-                    nan_at[slot] = int(nan_req[idx])
-                    admitted += 1
+                if meta[slot] is not None or not pending:
+                    continue
+                idx, req = pending[0]
+                task_ref = int(req.task)
+                if reg is not None:
+                    acq = reg.acquire(int(req.task))
+                    if acq is None:
+                        st.adapter_waits += 1
+                        st.backpressure_waits += 1
+                        break
+                    if (acq.fault and self._chaos is not None
+                            and self._chaos.fail_scatter()):
+                        # injected fault-in failure: roll the pin back;
+                        # the slot stays mapped-but-UNLOADED and the
+                        # retry faults again
+                        reg.release(int(req.task))
+                        st.backpressure_waits += 1
+                        break
+                    if acq.fault:
+                        st.adapter_faults += 1
+                        if acq.evicted is not None:
+                            st.adapter_evictions += 1
+                        self._adapter_fault_in(acq.slot, int(req.task))
+                    else:
+                        st.adapter_hits += 1
+                    task_ref = acq.slot
+                pending.popleft()
+                self._admit(s, slot, req, gen, task_ref)
+                meta[slot] = dict(idx=idx, task=int(req.task))
+                nan_at[slot] = self._nan_threshold(idx)
+                admitted += 1
             if admitted:
                 self._sync()
                 st.admitted += admitted
@@ -774,16 +949,15 @@ class Engine:
             # evict finished slots (also catches max_new_tokens == 1)
             active = s.active.cpu().numpy()
             failed = s.failed.cpu().numpy()
-            for slot, idx in enumerate(meta):
-                if idx is not None and not active[slot]:
-                    results[idx] = harvest(slot)
+            for slot, m in enumerate(meta):
+                if m is not None and not active[slot]:
+                    results[m["idx"]] = harvest(slot)
                     if failed[slot]:
-                        self._status[idx] = FAILED
+                        self._status[m["idx"]] = FAILED
                         st.failed_requests += 1
                         st.numerics_faults += 1
-                    meta[slot] = None
-                    nan_at[slot] = -1
-                    st.evicted += 1
+                    free_slot(slot)
+            self._audit()
         return results  # type: ignore[return-value]
 
     # ------------------------------------------------------------------
@@ -978,7 +1152,7 @@ class Engine:
     # paged mode: host loop
     # ------------------------------------------------------------------
 
-    def _generate_paged(self, requests, gen, nan_req) -> List[np.ndarray]:
+    def _generate_paged(self, requests, gen) -> List[np.ndarray]:
         st = self.last_stats
         st.page_size = self._page
         st.num_blocks = self._num_blocks
@@ -993,55 +1167,110 @@ class Engine:
         results: List[Optional[np.ndarray]] = [None] * len(requests)
         s = self.init_paged_state()
         self._tables[:] = self._num_blocks
+        sched = self.sched
+        sched.fault_hook = (self._chaos.fail_alloc
+                            if self._chaos is not None else None)
         try:
-            self._paged_loop(s, pending, results, nan_req, gen)
+            self._paged_loop(s, pending, results, gen)
         except BaseException:
             self._reset_paged_pool()    # slot refs / pool contents are gone
             raise
+        finally:
+            sched.fault_hook = None
         return results  # type: ignore[return-value]
 
-    def _paged_loop(self, s: PagedState, pending, results, nan_req,
-                    gen) -> None:
+    def _paged_loop(self, s: PagedState, pending, results, gen) -> None:
         """Host half of paged serving, one replica: each iteration runs the
-        cancel / deadline sweep (harvest -> register the prefix whose KV
-        is computed -> deref blocks -> kill), FIFO admission on free
-        blocks (one COW copy before the slot is admitted), one loop call
-        until some slot's flag changes, and the harvest of finished
-        slots."""
+        chaos events, the cancel / deadline sweep (harvest -> register the
+        prefix whose KV is computed -> deref blocks -> drop the adapter pin
+        -> kill), FIFO admission on free blocks (and adapter slots; one
+        COW copy and, on a fault, the task's column written before the
+        slot is admitted), recompute preemption when the head has been
+        blocked ``preempt_after`` iterations, one loop call until some
+        slot's flag changes, the harvest of finished slots, and the chaos
+        audit. The loop's bookkeeping is published on ``self._live``."""
         st = self.last_stats
+        chaos = self._chaos
+        reg = self.registry
         nblk = self._num_blocks
         meta: List[Optional[dict]] = [None] * self.max_batch
         nan_at = torch.full((self.max_batch,), -1, dtype=torch.long,
                             device=self.device)
         ttft, tpot = [], []
+        # idx -> tokens harvested before a preemption; the re-admission
+        # carries them in its grown prompt and ``finish`` prepends them
+        prior: dict = {}
+        blocked = 0             # consecutive iterations the head was blocked
+        seq = 0                 # admission order: the victim is the youngest
+        self._live = dict(meta=meta)
 
         def finish(idx, toks, status=None):
-            results[idx] = np.asarray(toks, np.int32).reshape(-1)
+            arr = np.asarray(toks, np.int32).reshape(-1)
+            pr = prior.pop(idx, None)
+            if pr:
+                arr = np.concatenate([np.asarray(pr, np.int32), arr])
+            results[idx] = arr
             if status is not None:
                 self._status[idx] = status
 
-        def free_slot(slot):
+        def release(m, tokens, register=True):
+            self.sched.release(tokens, m["blocks"], namespace=m["ns"],
+                               register=register,
+                               task=m["task"] if reg is not None else None)
+
+        def kill_slot(slot):
+            """Mark the slot dead and sentinel its table row, so stale
+            prefill writes of the row drop."""
+            s.active[slot] = False
+            s.remaining[slot] = 0
+            s.failed[slot] = False
             self._tables[slot] = nblk
             nan_at[slot] = -1
             meta[slot] = None
 
-        def abort_slot(slot, status):
-            """Harvest the slot's output, index the KV already computed
-            (prompt + generated tokens whose cells are written), deref
-            every block, then mark the slot dead and sentinel its table
-            row, so stale prefill writes of the row drop."""
+        def computed(slot):
+            """(generated tokens, prompt + generated tokens, how many of
+            those have their KV in the pools)."""
             m = meta[slot]
             w, done = int(s.widx[slot]), int(s.done[slot])
             toks = s.out[slot, :w].cpu().numpy().astype(np.int32)
             full = np.concatenate([m["prompt"].astype(np.int32), toks])
-            self.sched.release(full[:min(done, len(full))], m["blocks"],
-                               namespace=m["ns"])
-            s.active[slot] = False
-            s.remaining[slot] = 0
-            s.failed[slot] = False
-            free_slot(slot)
+            return toks, full, min(done, len(full))
+
+        def abort_slot(slot, status):
+            """Harvest the slot's output, index the KV already computed,
+            deref every block, drop the pin, then kill the slot."""
+            m = meta[slot]
+            toks, full, known = computed(slot)
+            release(m, full[:known])
+            kill_slot(slot)
             finish(m["idx"], toks)
             self._end(m["idx"], status)
+
+        def preempt_one() -> bool:
+            """Recompute preemption: stop the youngest running request,
+            index its computed KV (so the recompute is a warm prefix hit),
+            free its blocks and pin, and re-queue it right behind the
+            blocked head with prompt + generated tokens and the rest of
+            its token budget."""
+            busy = [sl for sl in range(self.max_batch)
+                    if meta[sl] is not None]
+            if not busy:
+                return False
+            victim = max(busy, key=lambda sl: meta[sl]["seq"])
+            m = meta[victim]
+            toks, full, known = computed(victim)
+            release(m, full[:known])
+            kill_slot(victim)
+            prior.setdefault(m["idx"], []).extend(int(t) for t in toks)
+            self._req_preempts[m["idx"]] = (
+                self._req_preempts.get(m["idx"], 0) + 1)
+            st.preemptions += 1
+            pending.insert(1, dict(idx=m["idx"], prompt=full,
+                                   plen=len(full),
+                                   max_new=m["max_new"] - len(toks),
+                                   task=m["task"]))
+            return True
 
         def sweep() -> bool:
             nonlocal pending
@@ -1065,22 +1294,52 @@ class Engine:
                     swept = True
             return swept
 
+        hstep = 0
         while pending or any(m is not None for m in meta):
+            faults0 = (chaos.alloc_faults + chaos.scatter_faults
+                       if chaos is not None else 0)
+            self._chaos_tick(hstep)
+            hstep += 1
             progressed = sweep()
             # ---- admission: strict FIFO; a blocked head waits for
-            # evictions rather than being overtaken
+            # evictions rather than being overtaken (and, with
+            # preempt_after set, eventually preempts)
             t_adm = time.perf_counter()
+            head_blocked = admitted_any = False
             for slot in range(self.max_batch):
                 if meta[slot] is not None or not pending:
                     continue
                 ent = pending[0]
                 ns = ent["task"] if self._kv_tasked else None
-                plan = self.sched.plan(ent["prompt"].tolist(),
-                                       ent["max_new"], namespace=ns)
-                if plan is None:        # backpressure: out of KV blocks
+                plan = self.sched.plan(
+                    ent["prompt"].tolist(), ent["max_new"], namespace=ns,
+                    task=ent["task"] if reg is not None else None)
+                if plan is None:        # out of KV blocks or adapter slots
+                    head_blocked = True
+                    break
+                if (plan.adapter_fault and chaos is not None
+                        and chaos.fail_scatter()):
+                    # injected fault-in failure before any device work:
+                    # unwind the admission — deref the planned blocks,
+                    # roll the pin back (the slot stays mapped-but-
+                    # UNLOADED; the retry faults again), uncount it
+                    for bid in plan.blocks:
+                        self.bm.deref(bid)
+                    reg.release(ent["task"])
+                    st.admitted -= 1
+                    st.backpressure_waits += 1
+                    head_blocked = True
                     break
                 pending.popleft()
-                progressed = True
+                progressed = admitted_any = True
+                # the slot's task vector carries the POOL SLOT under the
+                # registry (a cold task's column is written first)
+                task_ref = ent["task"]
+                if reg is not None:
+                    if plan.adapter_fault:
+                        self._adapter_fault_in(plan.adapter_slot,
+                                               ent["task"])
+                    task_ref = plan.adapter_slot
                 if plan.cow is not None:
                     transformer.copy_cache_block(s.caches, *plan.cow)
                     if self._spec_on:   # the same tables address both
@@ -1088,12 +1347,21 @@ class Engine:
                 self._tables[slot] = nblk
                 self._tables[slot, :len(plan.blocks)] = plan.blocks
                 self._paged_admit(s, slot, ent["prompt"], plan.n_cached,
-                                  ent["max_new"], ent["task"])
-                nan_at[slot] = int(nan_req[ent["idx"]])
-                meta[slot] = dict(ent, blocks=plan.blocks, ns=ns,
+                                  ent["max_new"], task_ref)
+                nan_at[slot] = self._nan_threshold(ent["idx"])
+                seq += 1
+                meta[slot] = dict(ent, blocks=plan.blocks, ns=ns, seq=seq,
                                   t_admit=time.perf_counter(), t_first=None)
             st.prefill_s += time.perf_counter() - t_adm
             st.kv_blocks_peak = max(st.kv_blocks_peak, self.bm.used_blocks)
+            # ---- recompute preemption: the head has been blocked
+            # preempt_after consecutive iterations — free the youngest
+            # running request, so long requests cannot livelock the pool
+            blocked = blocked + 1 if head_blocked and not admitted_any else 0
+            n = self.sv.preempt_after
+            if n and blocked >= n and pending and preempt_one():
+                blocked = 0
+                progressed = True
             # ---- step until some slot's active flag changes
             stepped = bool(s.active.any())
             if stepped:
@@ -1120,8 +1388,7 @@ class Engine:
                 # prompt pages are fully computed now: index them for
                 # prefix reuse (unless the NaN guard fired — suspect KV
                 # is never indexed), return the rest to the free list
-                self.sched.release(m["prompt"], m["blocks"],
-                                   namespace=m["ns"], register=not bad)
+                release(m, m["prompt"], register=not bad)
                 # the phase split is resolvable only when the first token
                 # was seen at an earlier loop exit than the completion
                 if m["t_first"] is not None and ntok > 1 \
@@ -1130,17 +1397,24 @@ class Engine:
                 if bad:
                     st.failed_requests += 1
                     st.numerics_faults += 1
-                    finish(m["idx"], out[slot, :ntok], FAILED)
-                else:
-                    finish(m["idx"], out[slot, :ntok])
-                free_slot(slot)
+                finish(m["idx"], out[slot, :ntok], FAILED if bad else None)
+                self._tables[slot] = nblk
+                nan_at[slot] = -1
+                meta[slot] = None
             if not (progressed or stepped):
+                if chaos is not None and (chaos.alloc_faults
+                                          + chaos.scatter_faults) > faults0:
+                    # the stall was injected (forced allocation / fault-in
+                    # failures blocked every admission): retry
+                    chaos.stalls += 1
+                    continue
                 # nothing decoded, admitted or harvested: the head can
                 # never fit (a request needing more KV blocks than the
                 # pool can ever free)
                 raise RuntimeError(
                     "paged admission deadlock: a request needs more KV "
-                    "blocks than the pool can ever free")
+                    "blocks (or adapter slots) than the pool can ever free")
+            self._audit()
         if ttft:
             st.ttft_s = sum(ttft) / len(ttft)
         if tpot:

@@ -1,5 +1,5 @@
 """Admission scheduler for the paged serving engine (counterpart of
-``src/repro/serving/scheduler.py`` without the adapter registry).
+``src/repro/serving/scheduler.py``).
 
 Admission is gated on **free KV blocks**, not free slots: a request enters
 a slot only when the block pool (after prefix-cache reuse and, if needed,
@@ -16,14 +16,16 @@ Policy is strict FIFO — the head request either fits or everybody waits
 None under backpressure; the engine decodes on, finishing slots return
 blocks, and the head is retried.
 
-The adapter registry (task-slot paging) is not ported: ``registry`` must
-be None.
+With an ``AdapterRegistry`` admission also gates on adapter-slot
+residency: the request's task is pinned into a pool slot BEFORE its blocks
+are allocated, and a failed block allocation rolls the pin back.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Tuple
 
+from repro_torch.serving.adapter_registry import AdapterRegistry
 from repro_torch.serving.block_manager import BlockManager, PrefixCache
 from repro_torch.serving.stats import EngineStats
 
@@ -40,22 +42,32 @@ class AdmitPlan:
     n_cached: int                # prompt tokens already in cache (done0)
     cow: Optional[Tuple[int, int]] = None   # (src, dst) device block copy
     total_pages: int = 0
+    # adapter registry: the pool slot the request's task is pinned into
+    # (None when the registry is off), and whether the engine must write
+    # the task's column into the pool before this slot decodes
+    adapter_slot: Optional[int] = None
+    adapter_fault: bool = False
 
 
 class Scheduler:
     """FIFO admission over a BlockManager (+ optional PrefixCache)."""
 
     def __init__(self, bm: BlockManager, prefix: Optional[PrefixCache],
-                 stats: Optional[EngineStats] = None, registry=None):
+                 stats: Optional[EngineStats] = None,
+                 registry: Optional[AdapterRegistry] = None):
         """bm: the block pool; prefix: optional prefix cache consulted /
         populated at admit / release; stats: counter sink (the engine
-        swaps in its per-generate EngineStats)."""
-        if registry is not None:
-            raise NotImplementedError(
-                "the adapter registry is not ported yet (registry=None)")
+        swaps in its per-generate EngineStats); registry: optional
+        adapter-slot pool — when set, admission also gates on task
+        residency."""
         self.bm = bm
         self.prefix = prefix
         self.stats = stats if stats is not None else EngineStats()
+        self.registry = registry
+        # chaos seam (serving/chaos.py): when set, consulted at the top of
+        # every plan() — True forces this admission attempt to report
+        # backpressure, exercising the retry path on demand
+        self.fault_hook = None
 
     def _alloc(self, n: int) -> Optional[List[int]]:
         """n fresh blocks, evicting LRU prefix blocks under pressure —
@@ -71,14 +83,36 @@ class Scheduler:
         return [self.bm.alloc() for _ in range(n)]
 
     def plan(self, prompt, max_new: int, *,
-             namespace=None) -> Optional[AdmitPlan]:
-        """Try to admit one request; None means not enough blocks (the
-        caller keeps decoding and retries after the next eviction).
+             namespace=None, task=None) -> Optional[AdmitPlan]:
+        """Try to admit one request; None means not enough blocks — or,
+        with a registry, no adapter slot (the caller keeps decoding and
+        retries after the next eviction / harvest).
 
         prompt: host int sequence; namespace: prefix-cache chain key space
-        (None = shared across tasks; the engine passes the task id when
-        the adapter is task-routed, because any adapted matrix makes
-        deep-layer KV task-dependent)."""
+        (None = shared across tasks; the engine passes the TASK ID — not
+        the pool slot — when the adapter is task-routed, because any
+        adapted matrix makes deep-layer KV task-dependent, and a task
+        evicted from the adapter pool still warm-hits its prefixes later);
+        task: task id to pin into the adapter pool (ignored without a
+        registry).
+
+        Adapter residency is acquired FIRST: slots are the scarcer
+        resource and the acquire is trivially reversible — on block
+        failure the pin is dropped and the slot stays mapped-but-unloaded,
+        so nothing was wasted."""
+        if self.fault_hook is not None and self.fault_hook():
+            # injected allocation failure (ChaosInjector): the same
+            # contract as a dry pool — the caller decodes on and retries
+            self.stats.backpressure_waits += 1
+            return None
+        acq = None
+        if self.registry is not None and task is not None:
+            acq = self.registry.acquire(task)
+            if acq is None:
+                # every pool slot is pinned by an in-flight request
+                self.stats.adapter_waits += 1
+                self.stats.backpressure_waits += 1
+                return None
         page = self.bm.page_size
         plen = len(prompt)
         total_pages = -(-(plen + max_new) // page)
@@ -108,6 +142,10 @@ class Scheduler:
         if fresh is None:
             for bid in shared:
                 self.bm.deref(bid)
+            if acq is not None:
+                # roll the pin back; the slot stays mapped-but-UNLOADED,
+                # so the successful retry writes the column properly
+                self.registry.release(task)
             self.stats.backpressure_waits += 1
             return None
         cow = None
@@ -130,18 +168,31 @@ class Scheduler:
         self.stats.admitted += 1
         self.stats.kv_blocks_peak = max(self.stats.kv_blocks_peak,
                                         self.bm.used_blocks)
+        if acq is not None:
+            if acq.fault:
+                self.stats.adapter_faults += 1
+                if acq.evicted is not None:
+                    self.stats.adapter_evictions += 1
+            else:
+                self.stats.adapter_hits += 1
         return AdmitPlan(blocks=blocks, n_cached=n_cached, cow=cow,
-                         total_pages=total_pages)
+                         total_pages=total_pages,
+                         adapter_slot=None if acq is None else acq.slot,
+                         adapter_fault=acq is not None and acq.fault)
 
     def release(self, prompt, blocks: List[int], *, namespace=None,
-                register: bool = True) -> None:
+                register: bool = True, task=None) -> None:
         """Finished request: index its prompt pages into the prefix cache
         (their KV is now fully computed), then drop the slot's refs —
         pages holding only generated tokens go straight back to the free
         list. ``register=False`` skips the prefix indexing (a request
-        whose KV is suspect: the NaN guard fired)."""
+        whose KV is suspect: the NaN guard fired). ``task``: drop the
+        request's adapter-slot pin (the slot stays resident for future
+        hits)."""
         if register and self.prefix is not None and len(prompt) > 0:
             self.prefix.register(prompt, blocks, namespace=namespace)
         for bid in blocks:
             self.bm.deref(bid)
+        if self.registry is not None and task is not None:
+            self.registry.release(task)
         self.stats.evicted += 1

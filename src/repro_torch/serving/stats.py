@@ -38,8 +38,18 @@ class EngineStats:
     prefix_lookup_tokens: int = 0  # prompt tokens eligible for reuse
     cow_copies: int = 0          # copy-on-write block copies
     cache_evictions: int = 0     # prefix blocks reclaimed under pressure
-    # --- scheduler (paged) ---
+    # --- scheduler ---
     backpressure_waits: int = 0  # admissions deferred for lack of blocks
+    #                              or of an adapter slot
+    # --- adapter registry ---
+    max_resident_tasks: int = 0  # device task-slot pool size (0: the whole
+    #                              task axis resident, registry off — the
+    #                              adapter_* counters stay 0)
+    adapter_hits: int = 0        # admissions whose task was already pooled
+    adapter_faults: int = 0      # host->device task-slice fault-ins
+    adapter_evictions: int = 0   # idle residents displaced by a fault
+    adapter_waits: int = 0       # admissions deferred: all slots pinned
+    #                              (also counted in backpressure_waits)
     # --- speculative decode ---
     spec_k: int = 0              # drafts per engine step (0: spec off)
     spec_steps: int = 0          # engine steps (decode-loop iterations)
@@ -48,6 +58,7 @@ class EngineStats:
     # --- resilience ---
     cancelled: int = 0
     timeouts: int = 0
+    preemptions: int = 0         # recompute preemptions (victim re-queued)
     failed_requests: int = 0
     numerics_faults: int = 0
 
@@ -66,6 +77,13 @@ class EngineStats:
     @property
     def kv_bytes_peak(self) -> int:
         return self.kv_blocks_peak * self.block_bytes
+
+    @property
+    def adapter_hit_rate(self) -> float:
+        """Fraction of admissions whose task slice was already in the
+        device pool (0.0 when the registry is off or nothing admitted)."""
+        n = self.adapter_hits + self.adapter_faults
+        return self.adapter_hits / n if n else 0.0
 
     @property
     def acceptance_rate(self) -> float:
@@ -98,12 +116,20 @@ class EngineStats:
                    f"cow={self.cow_copies} waits={self.backpressure_waits} "
                    if paged else "")
                 + f"admits={self.admitted} evicts={self.evicted}"
+                + (f" adapters={self.max_resident_tasks}slots "
+                   f"hit={self.adapter_hit_rate:.2f} "
+                   f"faults={self.adapter_faults} "
+                   f"aevicts={self.adapter_evictions} "
+                   f"awaits={self.adapter_waits}"
+                   if self.max_resident_tasks else "")
                 + (f" spec_k={self.spec_k} "
                    f"accept={self.acceptance_rate:.2f} "
                    f"tok/step={self.tokens_per_step:.2f}"
                    if self.spec_k else "")
                 + (f" cancelled={self.cancelled} timeouts={self.timeouts} "
+                   f"preempts={self.preemptions} "
                    f"failed={self.failed_requests} "
                    f"nan_faults={self.numerics_faults}"
-                   if (self.cancelled or self.timeouts
-                       or self.failed_requests) else ""))
+                   if (self.cancelled or self.timeouts or self.preemptions
+                       or self.failed_requests or self.numerics_faults)
+                   else ""))

@@ -1154,3 +1154,133 @@ def test_spec_dense_engine_token_identical_under_the_kernels(dev):
             worst = max(worst, float(gap.max()))
     assert worst <= 5e-2
 
+
+
+# ------------------------------------- the adapter registry and chaos
+
+def _registry_setup(dev, num_tasks=6):
+    from repro_torch.config.base import RunConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.models import model as M
+    from repro_torch.serving import AdapterRuntime
+    cfg = _small_cfg()
+    spec = M.build_adapter_spec(RunConfig(
+        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
+        num_tasks=num_tasks, adapter_rank=4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = M.init_params(cfg, spec, generator=gen, device=dev)
+    p["adapter"] = {"cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 4,
+                                             scale=0.3, device=dev)}
+    rt = AdapterRuntime.build("live", p["base"], spec, p["adapter"],
+                              p["frozen"])
+    return cfg, spec, p, rt
+
+
+def _teacher_forced_gap(cfg, spec, rt, base, reqs, outs, dev):
+    """The largest gap, over every generated token, between the plain
+    leg's best teacher-forced logit and the chosen token's, over the
+    largest |logit| (full task axis, task ids)."""
+    from repro_torch.models import transformer as T
+    worst = 0.0
+    with torch.inference_mode():
+        for req, toks in zip(reqs, outs):
+            toks = list(toks)
+            if not toks:
+                continue
+            seq = torch.as_tensor([*req.prompt, *toks], device=dev)[None]
+            lg = T.forward(base, cfg, spec, rt.broadcast, rt.per_layer, seq,
+                           task=req.task, policy=dispatch.REF,
+                           device=dev).logits[0].float()
+            lg = lg[len(req.prompt) - 1:len(req.prompt) - 1 + len(toks)]
+            chosen = lg.gather(-1, torch.as_tensor(toks, device=dev)[:, None])
+            gap = (lg.max(-1).values - chosen[:, 0]) / lg.abs().amax(-1)
+            worst = max(worst, float(gap.max()))
+    return worst
+
+
+@pytest.mark.parametrize("cache_mode", ["dense", "paged"])
+def test_registry_engine_kernel_leg_vs_plain_leg(dev, cache_mode):
+    """A registry engine (2 pool slots, 6 tasks) in bf16 on the card: the
+    kernel leg reads the per-row A gathered from the pool (K2 on dense
+    decode, #8 on the paged step), the plain leg (``backend="ref"``) the
+    same pool; both finish every request with no pin or block left, and
+    the kernel leg's tokens are the plain leg's teacher-forced choices
+    within 5% of the largest logit (the count equal to the plain leg's
+    own greedy run is printed)."""
+    from repro_torch.config.base import (KernelConfig, RegistryConfig,
+                                         ServeConfig)
+    from repro_torch.serving import Engine, Request
+    cfg, spec, p, rt = _registry_setup(dev)
+    serve = ServeConfig(cache_mode=cache_mode, max_batch=4, cache_len=64,
+                        out_cap=8, page_size=16, prefill_chunk=8,
+                        registry=RegistryConfig(max_resident_tasks=2))
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (int(n),),
+                                  generator=rng).numpy(), 8, task=i % 6)
+            for i, n in enumerate(torch.randint(4, 33, (12,),
+                                                generator=rng))]
+    outs = {}
+    for leg in ("auto", "ref"):
+        eng = Engine(cfg, rt, serve=serve,
+                     kernels=KernelConfig(backend=leg), device=dev)
+        kernels.reset_launch_counts()
+        outs[leg] = [o.tolist() for o in eng.generate(reqs)]
+        n = kernels.launch_counts()
+        name = ("tt_linear_batched_a" if cache_mode == "dense"
+                else "paged_decode_attention")
+        assert (n[name] > 0) == (leg == "auto"), n
+        st = eng.last_stats
+        assert all(r.status == "FINISHED" for r in eng.last_results)
+        assert st.adapter_faults + st.adapter_hits == st.admitted
+        assert st.adapter_evictions > 0 and st.adapter_waits > 0
+        assert eng.registry.pinned_slots == 0
+        if eng.paged:
+            assert eng.leaked_blocks() == 0
+    gap = _teacher_forced_gap(cfg, spec, rt, p["base"], reqs, outs["auto"],
+                              dev)
+    same = sum(x == y for o, r in zip(outs["auto"], outs["ref"])
+               for x, y in zip(o, r))
+    print(f"{cache_mode}: {same}/{12 * 8} tokens equal the plain leg's; "
+          f"largest teacher-forced gap {gap:.3e}")
+    assert gap <= 5e-2
+
+
+def test_chaos_run_audit_holds_every_step(dev):
+    """A paged registry engine on the card under a seeded chaos schedule
+    (forced allocation failures, two failed fault-ins, a cancel, a NaN
+    row): the audit runs after every host-loop iteration and holds, the
+    statuses are one CANCELLED, one FAILED with 3 tokens and the rest
+    FINISHED, and the survivors are the plain leg's teacher-forced
+    choices within 5%."""
+    from repro_torch.config.base import RegistryConfig, ServeConfig
+    from repro_torch.serving import ChaosInjector, Engine, Request, audit
+    cfg, spec, p, rt = _registry_setup(dev)
+    serve = ServeConfig(max_batch=4, cache_len=64, out_cap=8, page_size=16,
+                        prefill_chunk=8,
+                        registry=RegistryConfig(max_resident_tasks=2))
+    rng = torch.Generator().manual_seed(2)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (int(n),),
+                                  generator=rng).numpy(), 8, task=i % 6,
+                    request_id=f"r{i}")
+            for i, n in enumerate(torch.randint(4, 33, (10,),
+                                                generator=rng))]
+    eng = Engine(cfg, rt, serve=serve, device=dev)
+    chaos = ChaosInjector(seed=7, alloc_fail_steps=(0, 1),
+                          alloc_fail_rate=0.2, scatter_failures=2,
+                          cancel_at={2: ["r8"]}, nan_after={"r1": 3})
+    outs = [o.tolist() for o in eng.generate(reqs, chaos=chaos)]
+    status = [r.status for r in eng.last_results]
+    assert status.count("CANCELLED") == 1 and status[8] == "CANCELLED"
+    assert status[1] == "FAILED" and len(outs[1]) == 3
+    assert status.count("FINISHED") == len(reqs) - 2
+    st = eng.last_stats
+    assert st.numerics_faults == 1
+    assert chaos.alloc_faults > 0 and chaos.scatter_faults == 2
+    assert chaos.audits > 0 and chaos.audits + chaos.stalls == \
+        chaos.steps
+    audit(eng)
+    survivors = [(r, o) for r, o, s in zip(reqs, outs, status)
+                 if s == "FINISHED"]
+    assert _teacher_forced_gap(cfg, spec, rt, p["base"],
+                               [r for r, _ in survivors],
+                               [o for _, o in survivors], dev) <= 5e-2

@@ -30,7 +30,8 @@ from repro_torch.convert import from_jax_numpy
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.peft import api as tpeft
-from repro_torch.serving import AdapterRuntime, Engine, Request
+from repro_torch.serving import (AdapterRuntime, ChaosInjector, Engine,
+                                 Request)
 
 KEY = jax.random.PRNGKey(0)
 ARCH = "stablelm-1.6b"
@@ -179,7 +180,8 @@ def test_nan_guard_fails_only_the_poisoned_request(method):
                           for k, p in enumerate(prompts)],
                          generator=torch.Generator().manual_seed(1))
     got = eng.generate([Request(p, 6, task=k)
-                        for k, p in enumerate(prompts)], nan_at=[-1, 3],
+                        for k, p in enumerate(prompts)],
+                       chaos=ChaosInjector(nan_after={1: 3}),
                        generator=torch.Generator().manual_seed(1))
     res = eng.last_results
     assert res[0].status == "FINISHED" and got[0].tolist() == clean[0].tolist()
@@ -220,7 +222,7 @@ def test_entry_points_need_a_device_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(preempt_after=2),                       # recompute preemption
+    dict(disagg=True),                           # disaggregated prefill
     dict(cache_mode="dense", mesh_shape=(1, 2)),
 ])
 def test_unported_serving_modes_raise(bad):

@@ -97,3 +97,17 @@ def test_quantized_slice_modules_are_scanned(module):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert path in SOURCES
     assert not [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.serving.adapter_registry", "repro_torch.serving.chaos",
+    "repro_torch.serving.scheduler"])
+def test_registry_and_chaos_modules_are_scanned(module):
+    """The paged adapter registry and the chaos harness are among the
+    modules imported with JAX blocked and scanned above (copies of
+    ``src/repro/serving/adapter_registry.py`` and ``chaos.py`` must not
+    import them)."""
+    assert module in MODULES
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path in SOURCES
+    assert not [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

@@ -32,7 +32,8 @@ from repro_torch import configs as tconfigs
 from repro_torch.config.base import RunConfig, ServeConfig
 from repro_torch.convert import from_jax_numpy
 from repro_torch.models import model as TM
-from repro_torch.serving import AdapterRuntime, Engine, Request
+from repro_torch.serving import (AdapterRuntime, ChaosInjector, Engine,
+                                 Request)
 
 KEY = jax.random.PRNGKey(0)
 ARCH = "stablelm-1.6b"
@@ -290,7 +291,7 @@ def test_nan_guard_fails_only_the_poisoned_request(method):
         clean = engine().generate(
             reqs, generator=torch.Generator().manual_seed(1))
         eng = engine()      # cold pools: the same steps as the clean run
-        got = eng.generate(reqs, nan_at=[-1, 3],
+        got = eng.generate(reqs, chaos=ChaosInjector(nan_after={1: 3}),
                            generator=torch.Generator().manual_seed(1))
         res = eng.last_results
         assert got[1].tolist() == clean[1][:3].tolist()

@@ -190,9 +190,37 @@ def test_lru_clock_orders_by_touch_and_breaks_ties_by_candidate_order():
 
 
 def test_scheduler_takes_no_registry():
+    """Without a registry ``task=`` is ignored (no slot, no fault); with
+    one, admission gates on a free or idle adapter slot, and a plan that
+    fails on a dry block pool rolls its pin back, leaving the slot mapped
+    but unloaded — the JAX Scheduler gives the same answers."""
+    from repro.serving.adapter_registry import AdapterRegistry as JReg
+    from repro_torch.serving.adapter_registry import AdapterRegistry
     bm = BlockManager(4, 8)
-    with pytest.raises(NotImplementedError):
-        Scheduler(bm, PrefixCache(bm), registry=object())
+    plan = Scheduler(bm, PrefixCache(bm)).plan([1, 2, 3], 4, task=5)
+    assert plan.adapter_slot is None and not plan.adapter_fault
+    answers = []
+    for BM, PC, S, R in ((BlockManager, PrefixCache, Scheduler,
+                          AdapterRegistry),
+                         (JBlockManager, JPrefixCache, JScheduler, JReg)):
+        bm = BM(3, 8)
+        reg = R(1)
+        sched = S(bm, PC(bm), registry=reg)
+        p1 = sched.plan([1, 2, 3], 12, task=5)       # 2 of 3 blocks
+        assert (p1.adapter_slot, p1.adapter_fault) == (0, True)
+        assert sched.plan([4], 2, task=6) is None    # the one slot pinned
+        assert sched.stats.adapter_waits == 1
+        reg.mark_loaded(5)
+        assert sched.plan([7] * 9, 8, task=5) is None  # 3 pages: dry
+        assert reg.pin_count(5) == 1                   # pin rolled back
+        sched.release([1, 2, 3], p1.blocks, task=5)
+        p2 = sched.plan([7] * 9, 8, task=6)          # evicts idle task 5
+        assert (p2.adapter_slot, p2.adapter_fault) == (0, True)
+        assert reg.slot_of(5) is None and reg.pin_count(6) == 1
+        answers.append((p1.blocks, p2.blocks, sched.stats.adapter_faults,
+                        sched.stats.adapter_evictions,
+                        sched.stats.backpressure_waits))
+    assert answers[0] == answers[1]
 
 
 STATS = ("admitted", "evicted", "prefix_lookups", "prefix_hit_tokens",
