@@ -28,7 +28,14 @@ Phases, each printed on its own lines:
      rows through ``ops`` (two launches each); at the training shape two
      flash backward calls must agree bit for bit, and
      #5-#7 and K1's forward and dx (on the views the backward passes)
-     print their TFLOP/s and share of bound;
+     print their TFLOP/s and share of bound; then the f32 instances
+     (``[kernel-f32]`` lines) against their plain f32 versions: K1 at
+     M = 4096, K = N = 1024, r = 8 as forward and dx, r = 64, and at
+     K = N = 768, r = 1024 (M = 64 and 4096); K3, #5, #6 and #7 at
+     (B, T, H, KV, d) = (4, 1024, 16, 16, 64) and T = 1000 — within 1e-4
+     of max |plain|, lse within 1e-5, two #6 / #7 calls bit-identical,
+     bound = max(bytes / 3.35 TB/s, flops / 164.9 TFLOP/s) and the share
+     of FFMA's 67 TFLOP/s, library = torch.matmul / SDPA in f32;
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -104,9 +111,23 @@ Phases, each printed on its own lines:
      (the running request preempted, re-queued and finished); (e)
      speculative decode with the registry (dense), tokens equal to the
      same spec engine's without it; tok/s, ms a step and device busy
-     share a run, the ms of one fault-in; the phases' seconds and the
-     script's;
-  10. one JSON line with every kernel's record (launches per path).
+     share a run, the ms of one fault-in;
+  10. RoBERTa, the paper's own targets, in f32 (TF32 off, asserted): (a)
+     full-width roberta-large trained as phase 6 (MetaTT 4d on q/v from
+     rank 10, 6 steps of 4 x 1024 tokens, one DMRG sweep to rank 8) with
+     f32 K1 / #5 / #6 / #7 launches of 6L-2 / 2L / L / L a step and no
+     bf16 launch, the median step, tokens/s, peak memory and busy share,
+     and a gradient check at B=1 against the plain f32 leg (loss 1e-5,
+     gradients 1e-4); (b) full-width roberta-base with Table 1's LoRA
+     r=8, VeRA r=1024, LoTR r=40, MetaTT-4d r=8 and MetaTT-5d r=16, 3
+     steps each on one base, trainable counts equal to the paper's; (c)
+     a no-grad forward of roberta-large over 4 x 1024 tokens (f32 K1 and
+     K3) within 1e-4 of the plain leg's largest logit; (d) the dense
+     engine on roberta-base raises the wrappers' TypeError at its first
+     f32 decode step (no f32 K2 / K4 yet), with no plain fallback; the
+     phases' seconds and the script's;
+  11. one JSON line with every kernel's record (launches per path; the
+     f32 instances under their own names with every phase-2 row).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -126,6 +147,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOP_S = 989e12     # H100 SXM dense bf16 tensor cores
+# f32-accurate work on the tensor cores takes three TF32 products for one
+# f32 product: the dense TF32 rate (494.7 TFLOP/s) over three. FFMA (the
+# CUDA cores, what the f32 kernels run) peaks at 67 TFLOP/s.
+PEAK_F32_FLOP_S = 494.7e12 / 3
+PEAK_FFMA_FLOP_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 SEED = 0
 
@@ -157,6 +183,20 @@ KERNELS = {
     "paged_decode_attention_int8": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:161"),
+    # the f32 instances (RoBERTa's f32 training), in the same sources
+    "tt_linear_f32": ("src/repro_torch/kernels/csrc/tt_linear.cu",
+                      "src/repro/kernels/tt_linear.py:291"),
+    "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:112"),
+    "flash_attention_fwd_f32": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:149"),
+    "flash_attention_bwd_dq_f32": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:295"),
+    "flash_attention_bwd_dkv_f32": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:310"),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. Linears: one
 # bf16 ulp (2^-7 relative) from a different f32 summation order.
@@ -226,9 +266,9 @@ def cuda_time_ms(fn, sets, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops):
-    return 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S), (
-        "bytes" if nbytes / PEAK_BYTES_S >= flops / PEAK_BF16_FLOP_S
+def bound_ms(nbytes, flops, peak=PEAK_BF16_FLOP_S):
+    return 1e3 * max(nbytes / PEAK_BYTES_S, flops / peak), (
+        "bytes" if nbytes / PEAK_BYTES_S >= flops / peak
         else "operations")
 
 
@@ -1212,6 +1252,172 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
     for r_ in rows:
         if r_["ms"] is not None:
             print_row(r_, width=40)
+    return rows
+
+
+F32_KERNELS = ("tt_linear_f32", "flash_attention_f32",
+               "flash_attention_fwd_f32", "flash_attention_bwd_dq_f32",
+               "flash_attention_bwd_dkv_f32")
+# RoBERTa-large's attention at 4 x 1024 tokens (16 heads of 64), ragged T
+F32_ATTN_SHAPES = ((4, 1024, 16, 16, 64), (4, 1000, 16, 16, 64))
+# K1's f32 rows: (M, K = N, r, role); the first is the main path's
+F32_LINEAR_ROWS = ((4096, 1024, 8, "forward"), (4096, 1024, 8, "dx"),
+                   (4096, 1024, 64, "forward"), (64, 768, 1024, "forward"),
+                   (4096, 768, 1024, "forward"))
+
+
+def f32_precision_checked():
+    """f32 matmuls (the unadapted projections, the readout, dA / dB and
+    the plain legs) must stay f32: no TF32 anywhere on this path."""
+    import torch
+    if torch.get_float32_matmul_precision() != "highest" or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(
+            "f32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r}, allow_tf32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}: TF32 would round "
+            "the f32 path")
+
+
+def f32_err(name, got, want, limit=1e-4):
+    """max |kernel - plain| / max |plain| of an f32 kernel, held to
+    ``limit`` (1e-4: f32 sums in another order; one TF32 pass, ~4.9e-4
+    relative an operand, fails it)."""
+    rel = rel_max(got, want)
+    if not rel <= limit:
+        raise AssertionError(f"{name}: {rel:.3e} of max |plain| > {limit}")
+    return float((got.float() - want.float()).abs().max()), rel
+
+
+def f32_row(name, shape, main, err, rel, flops, nbytes, ms, plain_ms,
+            library_ms, **extra):
+    bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOP_S)
+    row = dict(name=name, shape=shape, main=main, max_abs_err=err,
+               rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9, **extra)
+    print(f"[kernel-f32] {name:27s} {shape:38s} err={err:.3e} "
+          f"({rel:.3e} of max |plain|) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={bms:.4f} ({by}) "
+          f"share of bound {bms / ms:.1%}; {row['tflops']:.1f} TFLOP/s = "
+          f"{1e12 * row['tflops'] / PEAK_FFMA_FLOP_S:.1%} of FFMA's 67",
+          flush=True)
+    return row
+
+
+def phase_f32_kernels(dev):
+    """The f32 instances (RoBERTa trains in f32) against their plain f32
+    versions on the card: K1 at roberta-large's q/v projection (M = 4096,
+    K = N = 1024, r = 8 as forward and dx, r = 64) and roberta-base's
+    VeRA (K = N = 768, r = 1024, M = 64 and 4096); K3, #5, #6 and #7 at
+    (B, T, H, KV, d) = (4, 1024, 16, 16, 64) and T = 1000. Outputs within
+    1e-4 of max |plain| elementwise, lse within 1e-5 absolute, two #6 / #7
+    calls bit-identical. Bound = max(bytes / 3.35 TB/s, flops / 164.9
+    TFLOP/s); library = torch.matmul in f32 (TF32 off) and SDPA in f32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import tt_linear as tl
+
+    f32_precision_checked()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    rows = []
+    alpha = 4.0
+    for i, (m, kd, r, role) in enumerate(F32_LINEAR_ROWS):
+        n = kd
+        x, w = rn(m, kd), rn(kd, n, scale=kd ** -0.5)
+        a, b = rn(r, kd, scale=kd ** -0.5).T, rn(r, n, scale=r ** -0.5)
+        ops_ = (x, w, a, b) if role == "forward" else (x, w.T, b.T, a.T)
+        err, rel = f32_err("tt_linear_f32", tl.tt_linear(*ops_, alpha),
+                           tl.tt_linear_plain(*ops_, alpha))
+        nbytes = 4 * (m * kd + kd * n + kd * r + r * n + m * n)
+        flops = 2 * m * kd * n + 2 * m * kd * r + 2 * m * r * n
+        rows.append(f32_row(
+            "tt_linear_f32", f"{role} M={m} K={kd} N={n} r={r}", i == 0,
+            err, rel, flops, nbytes,
+            cuda_time_ms(lambda *t: tl.tt_linear(*t, alpha), [ops_]),
+            event_time_ms(lambda: tl.tt_linear_plain(*ops_, alpha), (),
+                          iters=10),
+            cuda_time_ms(lambda x_, w_, a_, b_: torch.matmul(x_, w_) + alpha
+                         * torch.matmul(torch.matmul(x_, a_), b_), [ops_]),
+            role=role))
+        del x, w, a, b, ops_
+    for b_, t, h, kvh, d in F32_ATTN_SHAPES:
+        main = (b_, t, h, kvh, d) == F32_ATTN_SHAPES[0]
+        shape = f"B={b_} T=S={t} H={h} KV={kvh} d={d} causal"
+        q, k, v, g = (rn(b_, t, n_, d) for n_ in (h, kvh, kvh, h))
+        o3 = fa.flash_attention(q, k, v, True)
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        po, plse = fa.flash_attention_fwd_plain(q, k, v, True)
+        e3 = f32_err("flash_attention_f32", o3, po)
+        e5 = f32_err("flash_attention_fwd_f32", o, po)
+        lse_err = float((lse - plse).abs().max())
+        if not lse_err <= 1e-5:
+            raise AssertionError(f"flash_attention_fwd_f32 lse: {lse_err:.3e}"
+                                 f" > 1e-5 at {shape}")
+        got = fa.flash_attention_bwd(q, k, v, o, lse, g, True)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, True)
+        eb = {nm: f32_err(f"flash_attention_bwd {nm} (f32)", x_, y_)
+              for nm, x_, y_ in zip(("dq", "dk", "dv"), got, want)}
+        again = fa.flash_attention_bwd(q, k, v, o, lse, g, True)
+        torch.cuda.synchronize()
+        for nm, x_, y_ in zip(("dq", "dk", "dv"), got, again):
+            if not torch.equal(x_, y_):
+                raise AssertionError(f"flash_attention_bwd {nm} (f32): two "
+                                     f"calls differ at {shape}")
+        del again
+        pairs = b_ * h * t * (t + 1) // 2
+        bq, bkv, lse_b = 4 * b_ * t * h * d, 4 * b_ * t * kvh * d, \
+            4 * b_ * h * t
+        gg = h // kvh
+        lib = [x_.transpose(1, 2) for x_ in
+               (q, k.repeat_interleave(gg, 2), v.repeat_interleave(gg, 2))]
+        fwd_lib = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(*lib, is_causal=True),
+            [()])
+        fwd_plain = event_time_ms(
+            lambda: fa.flash_attention_fwd_plain(q, k, v, True), ())
+        rows.append(f32_row(
+            "flash_attention_f32", shape, main, *e3, 4 * d * pairs,
+            2 * bq + 2 * bkv,
+            cuda_time_ms(lambda: fa.flash_attention(q, k, v, True), [()]),
+            event_time_ms(lambda: fa.flash_attention_plain(q, k, v, True),
+                          ()), fwd_lib))
+        rows.append(f32_row(
+            "flash_attention_fwd_f32", shape, main, *e5, 4 * d * pairs,
+            2 * bq + 2 * bkv + lse_b,
+            cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
+                         [()]), fwd_plain, fwd_lib, lse_err=lse_err))
+        leaves = [x_.clone().requires_grad_(True) for x_ in lib]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        bwd_lib = profiled_device_ms(
+            lambda: torch.autograd.grad(out, leaves, g.transpose(1, 2),
+                                        retain_graph=True), ())
+        del out, leaves
+        bwd_plain = event_time_ms(
+            lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, g, True),
+            ())
+        dq_ms = event_time_ms(
+            lambda: fa._launch_bwd_dq(q, k, v, o, lse, g, True), ())
+        _, delta = fa._launch_bwd_dq(q, k, v, o, lse, g, True)
+        dkv_ms = event_time_ms(
+            lambda: fa._launch_bwd_dkv(q, k, v, g, lse, delta, True), ())
+        rows.append(f32_row(
+            "flash_attention_bwd_dq_f32", shape, main, *eb["dq"],
+            6 * d * pairs, 4 * bq + 2 * bkv + 2 * lse_b, dq_ms, bwd_plain,
+            bwd_lib, library="SDPA backward (dq, dk, dv), profiled"))
+        rows.append(f32_row(
+            "flash_attention_bwd_dkv_f32", shape, main,
+            max(eb["dk"][0], eb["dv"][0]), max(eb["dk"][1], eb["dv"][1]),
+            8 * d * pairs, 2 * bq + 4 * bkv + 2 * lse_b, dkv_ms, bwd_plain,
+            bwd_lib, library="SDPA backward (dq, dk, dv), profiled"))
+        print(f"[kernel-f32] {shape}: lse err {lse_err:.3e} (limit 1e-5); "
+              "two #6 / #7 calls bit-identical", flush=True)
+        del q, k, v, g, o, o3, lse, po, plse, got, want, lib, delta
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3202,6 +3408,334 @@ def phase_nine(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: RoBERTa-base and -large, the paper's own fine-tuning targets,
+# trained in f32 through the f32 instances of K1, #5, #6 and #7
+# ---------------------------------------------------------------------------
+
+# (kind, variant, rank, the paper's Table 1 column in thousands), the
+# roberta-base rows of benchmarks/bench_table1.py that this phase trains
+ROBERTA_TABLE1 = (("lora", "4d", 8, 295), ("vera", "4d", 1024, 43),
+                  ("lotr", "4d", 40, 100), ("metatt", "4d", 8, 13),
+                  ("metatt", "5d", 16, 20))
+
+
+def f32_train_per_step(cfg):
+    """f32 launches a training step (remat per block): K1 on q and v in
+    the forward, again in the recompute and as dx in the backward — 6 a
+    layer, less layer 0's two dx (its input, the embedding, needs no
+    gradient); #5 in the forward and the recompute; #6 and #7 once."""
+    n = cfg.num_layers
+    return {"tt_linear_f32": 6 * n - 2, "flash_attention_fwd_f32": 2 * n,
+            "flash_attention_bwd_dq_f32": n,
+            "flash_attention_bwd_dkv_f32": n}
+
+
+def no_bf16(launches, label):
+    """No bf16 instance launched: every launch of the run is an f32 one."""
+    bf = {k: v for k, v in launches.items() if v and not k.endswith("_f32")}
+    if bf:
+        raise AssertionError(f"{label}: bf16 kernels launched on the f32 "
+                             f"path: {bf}")
+
+
+def check_per_step(launches, per_step, steps, label):
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f"{label}: {name} {launches[name]} "
+                                 f"launches in {steps} steps, not {n} a step")
+
+
+def grad_check_f32(cfg, spec, base, adapter, frozen, tokens, dev, tag):
+    """Loss and adapter gradients at B = 1 through the f32 kernels against
+    the plain f32 leg (``KernelConfig(backend="ref")``) on the same
+    weights: loss within 1e-5 relative, each gradient within 1e-4 relative
+    Frobenius (f32 sums in another order)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    batch = {"tokens": tokens,
+             "mask": torch.ones_like(tokens, dtype=torch.float32)}
+    legs = {}
+    for name, pol in (("kernel", dispatch.DEFAULT), ("plain", dispatch.REF)):
+        params = tree_map(lambda t: t.clone().requires_grad_(True), adapter)
+        loss, _ = M.loss_fn(params, base, frozen, batch, cfg, spec,
+                            policy=pol, device=dev)
+        legs[name] = (float(loss.detach()),
+                      torch.autograd.grad(loss, M.tensors(params)))
+        del loss
+    (lk, gk), (lp, gp) = legs["kernel"], legs["plain"]
+    rel = abs(lk - lp) / abs(lp)
+    errs = [rel_fro(a, b) for a, b in zip(gk, gp)]
+    print(f"[{tag}] gradient check B=1 T={tokens.shape[1]}: loss kernel "
+          f"{lk:.7f} plain {lp:.7f}, rel {rel:.3e} (limit 1e-5); gradients "
+          f"rel Frobenius {', '.join(f'{e:.3e}' for e in errs)} (limit "
+          "1e-4)", flush=True)
+    if not (rel <= 1e-5 and all(torch.isfinite(g).all() for g in gk)
+            and max(errs) <= 1e-4):
+        raise AssertionError(f"{tag}: f32 gradient check failed: loss "
+                             f"{rel:.3e}, gradients {errs}")
+
+
+def roberta_large_training(dev, count):
+    """Phase 10 (a): phase 6's setting on full-width roberta-large in f32
+    (MetaTT 4d on q/v from rank 10, AdamW lr 1e-3, remat per block, 4 x
+    1024 tokens a step, 6 steps of 3 an epoch, one DMRG sweep to rank 8)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import OptimizerConfig, RunConfig, \
+        TrainConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.core.dmrg import RankSchedule
+    from repro_torch.data import LMStream
+    from repro_torch.models import model as M
+    from repro_torch.train import Trainer
+
+    cfg = configs.get_config("roberta-large")
+    run = RunConfig(model=cfg, adapter_kind="metatt", adapter_variant="4d",
+                    adapter_rank=10, optimizer=OptimizerConfig(lr=1e-3),
+                    train=TrainConfig(remat="block", seed=SEED))
+    batch, seq, steps = 4, 1024, 6
+    data = LMStream(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch,
+                    seed=0, branching=2)
+    t0 = time.perf_counter()
+    tr = Trainer(run=run, data=data, total_steps=steps, steps_per_epoch=3,
+                 rank_schedule=RankSchedule.linear(10, 8, start_epoch=1,
+                                                   every=1, step=2),
+                 device=dev,
+                 on_metrics=lambda s_, m: print(
+                     f"[roberta] step {s_} loss {m['loss']:.6f} grad_norm "
+                     f"{m['grad_norm']:.4e} {1e3 * m['step_time_s']:.1f} ms",
+                     flush=True))
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in M.tensors(tr.base))
+    print(f"[roberta] roberta-large f32 ({nbytes / 1e9:.3f} GB of base "
+          f"weights, {tr.base['embed']['tok'].dtype}) MetaTT "
+          f"4d q/v rank {ttlib.ranks(tr.state.adapter['cores'])}, remat per "
+          f"block, B={batch} T={seq}: init {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    before = [c.clone() for c in tr.state.adapter["cores"]]
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches = count(tr.train)
+    losses = tr.losses()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"roberta-large: non-finite loss {losses}")
+    ranks = ttlib.ranks(tr.state.adapter["cores"])
+    if ranks != (8, 8, 8) or tr._dmrg_applied != [1]:
+        raise AssertionError(f"roberta-large: ranks after the sweep {ranks},"
+                             f" sweeps at epochs {tr._dmrg_applied}")
+    norms = [float(ttlib.tt_norm(c)) for c in (before,
+                                               tr.state.adapter["cores"])]
+    if not (norms[0] == 0.0 and norms[1] > 0.0):
+        raise AssertionError(f"roberta-large: the adapter did not move: "
+                             f"||ΔW|| {norms}")
+    per_step = f32_train_per_step(cfg)
+    check_per_step(launches, per_step, steps, "roberta-large")
+    no_bf16(launches, "roberta-large training")
+    step_ms = [round(1e3 * m["step_time_s"], 1) for _, m in tr.history[1:]]
+    med = float(np.median(step_ms))
+    print(f"[roberta] large: f32 launches a step "
+          + ", ".join(f"{k} {launches[k] // steps}" for k in per_step)
+          + f" (rule 6L-2 / 2L / L / L, L = {cfg.num_layers}); no bf16 "
+          f"launch; losses {[round(float(x), 6) for x in losses]}; median "
+          f"step {med:.1f} ms after step 1 (steps {step_ms}); "
+          f"{batch * seq / (med / 1e3):.1f} tokens/s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; ranks "
+          f"{ranks}; ||ΔW|| {norms[0]:.3e} -> {norms[1]:.3e}", flush=True)
+    device_share("one roberta-large f32 step", lambda: tr.train(steps + 1),
+                 top_n=12, show=("f32",))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    tokens = torch.as_tensor(next(data)["tokens"][:1], device=dev)
+    grad_check_f32(cfg, tr.spec, tr.base, {"cores": ttlib.random_tt(
+        gen, tr.spec.cfg.mode_sizes, 8, scale=0.12, device=dev)}, tr.frozen,
+        tokens, dev, "roberta")
+    return tr, data
+
+
+def roberta_no_grad_forward(dev, tr, data, count):
+    """Phase 10 (c): a no-grad forward of roberta-large over 4 x 1024
+    tokens under (a)'s trained adapter: K1 and K3 in f32, held against the
+    plain f32 leg within 1e-4 of the largest logit."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    from repro_torch.peft import api as peft_api
+    cfg = tr.run.model
+    bc, pl = peft_api.adapter_factors(tr.spec, tr.state.adapter, tr.frozen)
+    tokens = torch.as_tensor(next(data)["tokens"], device=dev)
+    out = []
+    with torch.no_grad():
+        launches = count(lambda: out.append(T.forward(
+            tr.base, cfg, tr.spec, bc, pl, tokens, device=dev).logits))
+        ref = T.forward(tr.base, cfg, tr.spec, bc, pl, tokens,
+                        policy=dispatch.REF, device=dev).logits
+    gap = rel_max(out[0], ref)
+    want = {"tt_linear_f32": 2 * cfg.num_layers,
+            "flash_attention_f32": cfg.num_layers}
+    check_per_step(launches, want, 1, "roberta-large no-grad forward")
+    no_bf16(launches, "roberta-large no-grad forward")
+    print(f"[roberta] large no-grad forward {tuple(tokens.shape)}: logits "
+          f"{tuple(out[0].shape)} {out[0].dtype}, max |kernel - plain| / "
+          f"max |plain| {gap:.3e} (limit 1e-4); launches "
+          f"{json.dumps({k: launches[k] for k in want})}", flush=True)
+    if not gap <= 1e-4:
+        raise AssertionError(f"roberta-large no-grad forward: {gap:.3e}")
+    del out, ref
+    torch.cuda.empty_cache()
+
+
+def roberta_base_adapters(dev, count):
+    """Phase 10 (b): Table 1's adapters on full-width roberta-base, each 3
+    Trainer steps on one shared f32 base (q/v, AdamW lr 1e-3, remat per
+    block, 4 x 1024 tokens a step); trainable counts equal to the paper's
+    closed forms and Table 1's column."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import OptimizerConfig, RunConfig, \
+        TrainConfig
+    from repro_torch.core import metatt
+    from repro_torch.data import LMStream
+    from repro_torch.peft import api as peft_api
+    from repro_torch.peft import lora, lotr, vera
+    from repro_torch.train import Trainer
+
+    cfg = configs.get_config("roberta-base")
+    d, n_l, n_h = cfg.d_model, cfg.num_layers, cfg.num_heads
+    closed = {"lora": lambda r: lora.paper_count(d, n_l, 2, r),
+              "vera": lambda r: vera.paper_count(d, n_l, 2, r),
+              "lotr": lambda r: lotr.paper_count(d, n_l, 2, r),
+              "metatt-4d": lambda r: metatt.paper_count_4d(d, n_l, 2, r),
+              "metatt-5d": lambda r: metatt.paper_count_5d(d, n_h, n_l, 2,
+                                                           r)}
+    batch, seq, steps = 4, 1024, 3
+    per_step = f32_train_per_step(cfg)
+    base = None
+    for kind, variant, rank, paper_k in ROBERTA_TABLE1:
+        label = f"{kind}-{variant}" if kind == "metatt" else kind
+        run = RunConfig(model=cfg, adapter_kind=kind, adapter_variant=variant,
+                        adapter_rank=rank, optimizer=OptimizerConfig(lr=1e-3),
+                        train=TrainConfig(remat="block", seed=SEED))
+        tr = Trainer(run=run, data=LMStream(
+            vocab_size=cfg.vocab_size, seq_len=seq, batch=batch, seed=0,
+            branching=2), total_steps=steps, device=dev)
+        if base is None:
+            base = tr.base
+        tr.base = base
+        n = peft_api.count_trainable(tr.spec, tr.state.adapter)
+        if n != closed[label](rank) or not abs(n / 1000 - paper_k) < 1.0:
+            raise AssertionError(f"roberta-base {label} r={rank}: {n} "
+                                 f"trainable, closed form "
+                                 f"{closed[label](rank)}, Table 1 {paper_k}k")
+        d0 = delta_norm(tr.spec, tr.state.adapter, tr.frozen)
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches = count(tr.train)
+        losses = tr.losses()
+        d1 = delta_norm(tr.spec, tr.state.adapter, tr.frozen)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"roberta-base {label}: losses {losses}")
+        if not d1 > d0:
+            raise AssertionError(f"roberta-base {label}: ΔW did not move: "
+                                 f"{d0} -> {d1}")
+        check_per_step(launches, per_step, steps, f"roberta-base {label}")
+        no_bf16(launches, f"roberta-base {label}")
+        step_ms = [1e3 * m["step_time_s"] for _, m in tr.history]
+        print(f"[roberta] base {label} r={rank}: {n} trainable (Table 1: "
+              f"{paper_k}k); losses {[round(float(x), 6) for x in losses]}; "
+              f"||ΔW|| layer 0 q {d0:.3e} -> {d1:.3e}; median step "
+              f"{float(np.median(step_ms)):.1f} ms (steps "
+              f"{[round(x, 1) for x in step_ms]}); max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; "
+              f"launches {json.dumps({k: launches[k] for k in per_step})}",
+              flush=True)
+        del tr
+    del base
+    torch.cuda.empty_cache()
+
+
+def roberta_no_fallback(dev):
+    """Phase 10 (d): the dense serving engine on roberta-base (f32) with a
+    4+1d adapter: a decode step needs K2 (and K4), which have no f32
+    instance yet, so ``generate`` raises their wrappers' TypeError and
+    never runs a plain version in their place."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.config.base import RunConfig, ServeConfig
+    from repro_torch.models import model as M
+    from repro_torch.serving import AdapterRuntime, Engine, Request
+
+    cfg = configs.get_config("roberta-base")
+    spec = M.build_adapter_spec(RunConfig(
+        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
+        num_tasks=3, adapter_rank=8))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    params = M.init_params(cfg, spec, generator=gen, device=dev)
+    rt = AdapterRuntime.build("live", params["base"], spec,
+                              params["adapter"], params["frozen"])
+    eng = Engine(cfg, rt, serve=ServeConfig(cache_mode="dense", max_batch=2,
+                                            cache_len=64, out_cap=4),
+                 device=dev)
+    rng = np.random.RandomState(SEED)
+    reqs = [Request(rng.randint(0, cfg.vocab_size, size=16), 4, task=i)
+            for i in range(2)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    try:
+        eng.generate(reqs)
+    except TypeError as e:
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        msg = str(e)
+    else:
+        raise AssertionError("roberta-base dense engine: a decode step ran "
+                             "in f32 without an f32 K2 / K4")
+    if not msg.startswith(("tt_linear_batched_a", "decode_attention")) or \
+            launches["tt_linear_batched_a"] or launches["decode_attention"]:
+        raise AssertionError(f"roberta-base dense engine raised {msg!r} "
+                             f"after launches {launches}")
+    print(f"[roberta] base dense engine, f32 decode step: TypeError "
+          f"{msg!r}; launched before it "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    del eng, rt, params
+    torch.cuda.empty_cache()
+
+
+def phase_roberta(dev):
+    """Phase 10, launches counted around each driven run and summed."""
+    import torch
+    from repro_torch import kernels as K
+    total = {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+    f32_precision_checked()
+    t = [time.perf_counter()]
+    tr, data = roberta_large_training(dev, count)
+    t.append(time.perf_counter())
+    roberta_no_grad_forward(dev, tr, data, count)
+    del tr, data
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    roberta_base_adapters(dev, count)
+    t.append(time.perf_counter())
+    roberta_no_fallback(dev)
+    t.append(time.perf_counter())
+    print(f"[phase10] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}; (a) "
+          f"{t[1] - t[0]:.1f} s, (c) {t[2] - t[1]:.1f} s, (b) "
+          f"{t[3] - t[2]:.1f} s, (d) {t[4] - t[3]:.1f} s", flush=True)
+    return total
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -3250,8 +3784,11 @@ def main(argv) -> int:
 
     if only:   # the named kernels' rows alone, then stop: no result
         phase_kernels(dev, only)
+        if set(only) & set(F32_KERNELS):
+            phase_f32_kernels(dev)
         return 0
-    rows = phase_kernels(dev) + phase_train_kernels(dev)
+    rows = (phase_kernels(dev) + phase_train_kernels(dev)
+            + phase_f32_kernels(dev))
     paths = {}
     paths["serve"], dense_run = phase_serving(dev)
     paths["paged"], paged_run = phase_paged(dev)
@@ -3263,15 +3800,17 @@ def main(argv) -> int:
     paths["phase8"] = phase_rest(dev, dense_run, paged_run, train_cores)
     t9 = time.perf_counter()
     paths["phase9"] = phase_nine(dev)
-    print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 "
-          f"{time.perf_counter() - t9:.1f} s; the script "
+    t10 = time.perf_counter()
+    paths["phase10"] = phase_roberta(dev)
+    print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 {t10 - t9:.1f} s; "
+          f"phase 10 {time.perf_counter() - t10:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []
     for name, (src, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
         main_row = next(r for r in mine if r["main"])
-        by_path = {p: n[name] for p, n in paths.items() if n[name]}
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
         rec = dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -3281,6 +3820,11 @@ def main(argv) -> int:
             library_ms=main_row["library_ms"], shape=main_row["shape"])
         if "library" in main_row:
             rec["library"] = main_row["library"]
+        if name in F32_KERNELS:   # every phase-2 row of an f32 instance
+            rec["rows"] = [{k: r[k] for k in (
+                "shape", "max_abs_err", "rel_err", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "tflops")}
+                for r in mine]
         ranks = [{k: r[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "tflops", "variant")}

@@ -1,12 +1,15 @@
 """Architecture registry. ``get_config("<arch-id>")`` returns the full
 config, ``get_smoke_config`` the reduced same-family config the CPU tests
-use. The port carries the architectures of its slices so far."""
+use. The port carries the architectures of its slices so far: stablelm-1.6b
+and the paper's own RoBERTa targets (one module, two ids)."""
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
+    "roberta-base": "roberta",
+    "roberta-large": "roberta",
 }
 
 ALL_IDS = tuple(_MODULES)
@@ -20,7 +23,12 @@ def _mod(name: str):
 
 
 def get_config(name: str):
-    return _mod(name).CONFIG
+    mod = _mod(name)
+    if name == "roberta-large":
+        return mod.CONFIG_LARGE
+    if name == "roberta-base":
+        return mod.CONFIG_BASE
+    return mod.CONFIG
 
 
 def get_smoke_config(name: str):

@@ -1044,6 +1044,171 @@ int k1_pre_pass(const void* x, const void* a, void* pl, int M, int K, int r,
 #undef PRE_ARGS
 }
 
+// ------------------------------------------------- K1 in f32 (FFMA)
+//
+// The f32 instance of K1 (RoBERTa's f32 training: the forward, the remat
+// recompute and dx on the (g, Wᵀ, Bᵀ, Aᵀ) views). It computes in f32, not
+// on f32 inputs rounded down: every product is an FFMA on the CUDA cores
+// (one TF32 tensor-core pass would keep 10 mantissa bits). At the training
+// shape (M = 4096, K = N = 1024, r = 8) that is 8.7 GFLOP against 21 MB:
+// bound by the FFMA rate (67 TFLOP/s), where a register-blocked tile gets
+// a good share of it.
+//
+// Two launches of one tile kernel, C = alpha·(A0·B0 + A1·B1) over two
+// segments of the K loop:
+//   pre-pass  P = alpha·x·A into an (M, r) f32 workspace (segment 1 empty)
+//             — P stays f32 at every rank (VeRA's 1024 too);
+//   main      y = x·W + P·B: the K loop runs over K rows of (x, W), then
+//             r rows of (P, B), into one f32 accumulator.
+// A block owns a BM x BN tile (128 x 128 for the main kernel, 64 x 64 for
+// a pre-pass of rank <= 64), each of 256 threads TM x TN outputs split
+// into 4 x 4 groups spaced BM / (TM / 4) apart, so the float4 reads of a
+// quarter-warp hit distinct banks. Depth tiles of 8 pass through two
+// shared-memory buffers (registers hold the next tile while the current
+// one is consumed; one barrier a tile). The A operand (x, g, P) is
+// K-contiguous; the B operand (W, A, B and their transposed views) is read
+// through its strides, consecutive threads along whichever of its two
+// dimensions is contiguous. Rows and columns past M, N, K are zero-filled
+// and masked; no operand needs any alignment.
+
+struct F32Seg {
+  const float* a;   // (M, k), K-contiguous, row stride lda
+  long long lda;
+  const float* b;   // (k, N), element strides bsk, bsn
+  long long bsk, bsn;
+  int k;
+};
+
+constexpr int F32_BK = 8;
+
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+tt_linear_f32_kernel(const F32Seg s0, const F32Seg s1,
+                     float* __restrict__ c, int M, int N, float alpha) {
+  constexpr int NT = (BM / TM) * (BN / TN), BK = F32_BK;
+  constexpr int LA = BM * BK / NT, LB = BN * BK / NT;
+  constexpr int GM = TM / 4, GN = TN / 4;   // 4 x 4 groups a thread
+  static_assert(LA * NT == BM * BK && LB * NT == BN * BK, "tile split");
+  __shared__ __align__(16) float As[2][BK][BM + 4];
+  __shared__ __align__(16) float Bs[2][BK][BN + 4];
+  const int tid = threadIdx.x;
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int t0 = (s0.k + BK - 1) / BK, nt = t0 + (s1.k + BK - 1) / BK;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  float ra[LA], rb[LB];
+  bool bn_rows = true;   // the B tile's threads run along n (else along k)
+
+  auto load = [&](int t) {
+    const bool first = t < t0;
+    const float* pa = first ? s0.a : s1.a;
+    const float* pb = first ? s0.b : s1.b;
+    const long long lda = first ? s0.lda : s1.lda;
+    const long long bsk = first ? s0.bsk : s1.bsk;
+    const long long bsn = first ? s0.bsn : s1.bsn;
+    const int kd = first ? s0.k : s1.k;
+    const int k0 = (first ? t : t - t0) * BK;
+    bn_rows = bsn == 1 || bsk != 1;
+#pragma unroll
+    for (int i = 0; i < LA; ++i) {
+      const int e = tid + i * NT, mm = e / BK, kk = e % BK;
+      const int gm = m0 + mm, gk = k0 + kk;
+      ra[i] = gm < M && gk < kd ? pa[(long long)gm * lda + gk] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < LB; ++i) {
+      const int e = tid + i * NT;
+      const int kk = bn_rows ? e / BN : e % BK;
+      const int nn = bn_rows ? e % BN : e / BK;
+      const int gk = k0 + kk, gn = n0 + nn;
+      rb[i] = gk < kd && gn < N ? pb[gk * bsk + gn * bsn] : 0.f;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < LA; ++i) {
+      const int e = tid + i * NT;
+      As[buf][e % BK][e / BK] = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < LB; ++i) {
+      const int e = tid + i * NT;
+      if (bn_rows) Bs[buf][e / BN][e % BN] = rb[i];
+      else Bs[buf][e % BK][e / BK] = rb[i];
+    }
+  };
+
+  if (nt > 0) {
+    load(0);
+    store(0);
+  }
+  __syncthreads();
+  for (int t = 0; t < nt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nt) load(t + 1);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &As[buf][kk][g * (BM / GM) + ty * 4]);
+        av[g * 4 + 0] = v.x; av[g * 4 + 1] = v.y;
+        av[g * 4 + 2] = v.z; av[g * 4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int g = 0; g < GN; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &Bs[buf][kk][g * (BN / GN) + tx * 4]);
+        bv[g * 4 + 0] = v.x; bv[g * 4 + 1] = v.y;
+        bv[g * 4 + 2] = v.z; bv[g * 4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (t + 1 < nt) store(buf ^ 1);
+    __syncthreads();
+  }
+
+  const bool vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(c) & 15) == 0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + (i / 4) * (BM / GM) + ty * 4 + i % 4;
+    if (gm >= M) continue;
+    float* row = c + (long long)gm * N;
+#pragma unroll
+    for (int g = 0; g < GN; ++g) {
+      const int gn = n0 + g * (BN / GN) + tx * 4;
+      if (vec && gn + 3 < N) {
+        *reinterpret_cast<float4*>(row + gn) =
+            make_float4(alpha * acc[i][g * 4], alpha * acc[i][g * 4 + 1],
+                        alpha * acc[i][g * 4 + 2], alpha * acc[i][g * 4 + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gn + j < N) row[gn + j] = alpha * acc[i][g * 4 + j];
+      }
+    }
+  }
+}
+
+template <int BM, int BN, int TM, int TN>
+int launch_f32(const F32Seg& s0, const F32Seg& s1, float* c, int M, int N,
+               float alpha, void* stream) {
+  if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  tt_linear_f32_kernel<BM, BN, TM, TN>
+      <<<grid, (BM / TM) * (BN / TN), 0, (cudaStream_t)stream>>>(
+          s0, s1, c, M, N, alpha);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1100,6 +1265,32 @@ int tt_linear_bf16(const void* x, const void* w, const void* a,
             : (all ? launch_wgmma<64, false, true, K1_PLAIN>(K1_ARGS)
                    : launch_wgmma<64, false, false, K1_PLAIN>(K1_ARGS));
 #undef K1_ARGS
+}
+
+// The f32 instance: x (M, K) row-major, contiguous; w (K, N), a (K, r),
+// b (r, N) read through their element strides (as tt_linear_bf16); y
+// (M, N) row-major; all f32, FFMA throughout. ws: an f32 workspace of
+// M · r elements for P = alpha·x·A (the pre-pass), then y = x·W + P·B.
+int tt_linear_f32(const void* x, const void* w, const void* a, const void* b,
+                  void* y, int M, int N, int K, int r, float alpha,
+                  const long long* strides, void* ws, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || r < 1 || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  float* p = static_cast<float*>(ws);
+  const F32Seg none = {nullptr, 0, nullptr, 0, 0, 0};
+  const F32Seg pre = {xf, K, static_cast<const float*>(a), strides[2],
+                      strides[3], K};
+  const int e = r <= 64
+      ? launch_f32<64, 64, 4, 4>(pre, none, p, M, r, alpha, stream)
+      : launch_f32<128, 128, 8, 8>(pre, none, p, M, r, alpha, stream);
+  if (e != cudaSuccess) return e;
+  const F32Seg base = {xf, K, static_cast<const float*>(w), strides[0],
+                       strides[1], K};
+  const F32Seg rank = {p, r, static_cast<const float*>(b), strides[4],
+                       strides[5], r};
+  return launch_f32<128, 128, 8, 8>(base, rank, static_cast<float*>(y), M, N,
+                                    1.f, stream);
 }
 
 // K2, per-row A: x (M, K), w (K, N), a (M, K, r), b (r, N) contiguous,

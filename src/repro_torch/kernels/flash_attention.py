@@ -17,9 +17,15 @@ tensor-core kernel over the dense cache (``csrc/paged_attention.cu``,
 ``paged_attention.decode_path`` / ``launch_dense``).
 
 A CPU tensor runs the plain version (``kernels/ref.py``, through the
-layout shims below). A CUDA tensor launches the kernel (bf16, head_dim
-64 or 128; GQA group size G in {1, 2, 4, 8} for decode and the backward)
-or raises. ``LAUNCHES`` counts the launches, and nothing else adds to it.
+layout shims below). A CUDA tensor launches the kernel or raises: bf16
+operands at head_dim 64 or 128; f32 operands (RoBERTa's f32 training)
+launch the f32 instances of K3 / #5, #6 and #7 at head_dim 64 (FFMA,
+``csrc/attention_f32.cuh``; counted under the kernel's name + ``_f32``),
+while K4 raises ``TypeError`` on f32 (no f32 instance yet); mixed dtypes
+raise. GQA group size G in {1, 2, 4, 8} for decode and the backward.
+Operands need a contiguous last dim, strides of whole 16 bytes (8 bf16
+or 4 f32 elements) and 16-byte aligned data. ``LAUNCHES`` counts the
+launches, and nothing else adds to it.
 These wrappers make plain outputs with no ``grad_fn``: an input that
 requires grad while autograd records raises, so the only way to
 differentiate through them is ``dispatch.py``'s ``autograd.Function``s.
@@ -36,10 +42,17 @@ from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dkv": 0, "flash_attention_f32": 0,
+            "flash_attention_fwd_f32": 0, "flash_attention_bwd_dq_f32": 0,
+            "flash_attention_bwd_dkv_f32": 0}
 
 HEAD_DIMS = (64, 128)
+#: head dims of the f32 instances (RoBERTa's heads of 64)
+HEAD_DIMS_F32 = (64,)
 GROUPS = (1, 2, 4, 8)
+BF16 = (torch.bfloat16,)
+#: the dtypes K3 / #5, #6 and #7 are built for
+TRAIN_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _repeat_kv(q, k, v):
@@ -105,6 +118,10 @@ _ARGTYPES = {
     "flash_attention_bwd_dq_bf16": [_P] * 8 + [_I] * 7 + [_P, _P],
     # q k v g lse delta dk dv, B T S H KV d causal, strides, stream
     "flash_attention_bwd_dkv_bf16": [_P] * 8 + [_I] * 7 + [_P, _P],
+    # q k v o lse, B T S H KV d causal, strides, stream
+    "flash_attention_f32": [_P] * 5 + [_I] * 7 + [_P, _P],
+    "flash_attention_bwd_dq_f32": [_P] * 8 + [_I] * 7 + [_P, _P],
+    "flash_attention_bwd_dkv_f32": [_P] * 8 + [_I] * 7 + [_P, _P],
 }
 
 
@@ -117,23 +134,39 @@ def _fn(name: str):
     return f
 
 
-def _check_cuda(ts, d: int, what: str) -> None:
+def _instance(t) -> str:
+    """The suffix of the instance an operand launches: "_f32" or "" (bf16)
+    — of its C function (after "_bf16") and of its ``LAUNCHES`` key."""
+    return "_f32" if t.dtype == torch.float32 else ""
+
+
+def _check_cuda(ts, d: int, what: str, dtypes=BF16) -> str:
+    """Device, dtype, layout and head_dim of the operands ``ts``; returns
+    the instance's suffix ("" bf16, "_f32" f32). Every operand in one of
+    ``dtypes`` and all in the same one, else ``TypeError``."""
     _build.check_device(ts[0])
+    dt = ts[0].dtype
+    if dt not in dtypes:
+        raise TypeError(f"{what}: the CUDA kernel takes "
+                        f"{' or '.join(map(str, dtypes))}; got {dt}")
     for t in ts:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the CUDA kernel takes bf16; got "
+        if t.dtype != dt:
+            raise TypeError(f"{what}: mixed operand dtypes {dt} and "
                             f"{t.dtype}")
         if t.device != ts[0].device:
             raise ValueError(f"{what}: operands on {t.device} and "
                              f"{ts[0].device}")
-        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+                st * t.element_size() % 16 for st in t.stride()[:-1]):
             raise ValueError(f"{what}: operands need a contiguous last dim, "
-                             "strides in multiples of 8 elements and "
-                             "16-byte aligned data")
-    if d not in HEAD_DIMS:
+                             "strides of whole 16 bytes and 16-byte "
+                             "aligned data")
+    dims = HEAD_DIMS_F32 if dt == torch.float32 else HEAD_DIMS
+    if d not in dims:
         raise NotImplementedError(
-            f"{what}: CUDA kernel built for head_dim in {HEAD_DIMS}; got {d}")
+            f"{what}: CUDA kernel built for head_dim in {dims} ({dt}); "
+            f"got {d}")
+    return _instance(ts[0])
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -171,16 +204,20 @@ def fwd_variant(t: int) -> str:
 
 def _launch_fwd(q, k, v, causal: bool, lse, variant=None) -> torch.Tensor:
     """K3 (lse None) or #5 (lse a (B, H, T) f32 buffer): one kernel, on
-    checked CUDA operands; ``variant`` defaults to ``fwd_variant``'s."""
+    checked CUDA operands; ``variant`` defaults to ``fwd_variant``'s. f32
+    operands run the f32 instance (one variant)."""
     b, t, s, h, kv, d = _dims(q, k)
-    variant = variant or fwd_variant(t)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    st = _strides(q, k, v, o)
-    rc = _fn("flash_attention_bf16")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, t, s, h, kv, d,
-        int(causal), FWD_VARIANTS[variant], ctypes.cast(st, ctypes.c_void_p),
-        _build.stream_ptr(q))
+    st = ctypes.cast(_strides(q, k, v, o), ctypes.c_void_p)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, t, s, h, kv, d,
+            int(causal))
+    if _instance(q):
+        rc = _fn("flash_attention_f32")(*ptrs, st, _build.stream_ptr(q))
+    else:
+        variant = variant or fwd_variant(t)
+        rc = _fn("flash_attention_bf16")(*ptrs, FWD_VARIANTS[variant], st,
+                                         _build.stream_ptr(q))
     _build.check(rc, "flash_attention")
     return o
 
@@ -192,9 +229,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad((q, k, v), "flash_attention")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
-    _check_cuda((q, k, v), q.shape[-1], "flash_attention")
+    sfx = _check_cuda((q, k, v), q.shape[-1], "flash_attention",
+                      TRAIN_DTYPES)
     o = _launch_fwd(q, k, v, causal, None)
-    LAUNCHES["flash_attention"] += 1
+    LAUNCHES["flash_attention" + sfx] += 1
     return o
 
 
@@ -206,10 +244,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad((q, k, v), "flash_attention_fwd")
     if not q.is_cuda:
         return flash_attention_fwd_plain(q, k, v, causal)
-    _check_cuda((q, k, v), d, "flash_attention_fwd")
+    sfx = _check_cuda((q, k, v), d, "flash_attention_fwd", TRAIN_DTYPES)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     o = _launch_fwd(q, k, v, causal, lse)
-    LAUNCHES["flash_attention_fwd"] += 1
+    LAUNCHES["flash_attention_fwd" + sfx] += 1
     return o, lse
 
 
@@ -226,7 +264,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad((q, k, v, o, lse, g), "flash_attention_bwd")
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
-    _check_cuda((q, k, v, o, g), d, "flash_attention_bwd")
+    _check_cuda((q, k, v, o, g), d, "flash_attention_bwd", TRAIN_DTYPES)
     if h // kv not in GROUPS:
         raise NotImplementedError(
             f"flash_attention_bwd: CUDA kernels built for GQA groups "
@@ -247,12 +285,13 @@ def _launch_bwd_dq(q, k, v, o, lse, g, causal: bool):
     delta = torch.empty_like(lse)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     st = _strides(q, k, v, o, g, dq)
-    rc = _fn("flash_attention_bwd_dq_bf16")(
+    sfx = _instance(q)
+    rc = _fn("flash_attention_bwd_dq" + (sfx or "_bf16"))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, s, h, kv, d,
         int(causal), ctypes.cast(st, ctypes.c_void_p), _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd (dq)")
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    LAUNCHES["flash_attention_bwd_dq" + sfx] += 1
     return dq, delta
 
 
@@ -262,13 +301,14 @@ def _launch_bwd_dkv(q, k, v, g, lse, delta, causal: bool):
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     st = _strides(q, k, v, g, dk, dv)
-    rc = _fn("flash_attention_bwd_dkv_bf16")(
+    sfx = _instance(q)
+    rc = _fn("flash_attention_bwd_dkv" + (sfx or "_bf16"))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
         s, h, kv, d, int(causal), ctypes.cast(st, ctypes.c_void_p),
         _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd (dk/dv)")
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    LAUNCHES["flash_attention_bwd_dkv" + sfx] += 1
     return dk, dv
 
 

@@ -15,7 +15,9 @@ f32), the output is bf16.
 
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel (bf16 q, bf16 or int8 pools, head_dim 64 or 128, GQA
-group in {1, 2, 4, 8}, page a multiple of 8 up to 64) or raises. Both
+group in {1, 2, 4, 8}, page a multiple of 8 up to 64; a contiguous last
+dim, strides of whole 16 bytes, 16-byte aligned data) or raises: f32
+operands raise ``TypeError`` (no f32 instance of #8 / #8q yet). Both
 legs run one tensor-core kernel with all C·G rows of a (slot, kv head) in
 one block: #8 ``mma.sync`` below 64 rows, ``wgmma`` from 64; #8q
 ``mma.sync`` in slabs of at most 64 rows, its int8 tiles widened exactly

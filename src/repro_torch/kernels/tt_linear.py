@@ -12,9 +12,13 @@ of K / G rows (a multiple of 128) — replacing ``tt_linear_w8`` and
 JAX package (no backward).
 
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
-launches the kernel (bf16 only) or raises; ``LAUNCHES`` counts the
-launches, and nothing else adds to it. The training backward runs K1
-again on transposed operands (``dispatch._FusedTTLinear``): K1 reads W,
+launches the kernel or raises: bf16 operands launch the kernels below; f32
+operands launch K1's f32 instance (``LAUNCHES["tt_linear_f32"]``: FFMA
+tiles, P = α·x·A kept in f32 — RoBERTa trains in f32), and K2, #9 and #10
+raise ``TypeError`` on f32 (no f32 instance yet); mixed dtypes raise.
+``LAUNCHES`` counts the launches, and nothing else adds to it. The
+training backward runs K1 again on transposed operands
+(``dispatch._FusedTTLinear``): K1 reads W,
 A and B through their strides, so those views are never copied. These
 wrappers make plain outputs with no ``grad_fn``: an input that requires
 grad while autograd records raises.
@@ -47,7 +51,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"tt_linear": 0, "tt_linear_batched_a": 0, "tt_linear_w8": 0,
-            "tt_linear_batched_a_w8": 0}
+            "tt_linear_batched_a_w8": 0, "tt_linear_f32": 0}
 
 tt_linear_plain = _ref.tt_linear_ref
 tt_linear_batched_a_plain = _ref.tt_linear_batched_a_ref
@@ -58,6 +62,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # x w a b y, M N K r, alpha, strides (w, a, b), variant, ws, stream
     "tt_linear_bf16": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _P, _P],
+    # x w a b y, M N K r, alpha, strides (w, a, b), ws, stream
+    "tt_linear_f32": [_P] * 5 + [_I] * 4 + [_F, _P, _P, _P],
     # x w a b y, M N K r, alpha, splits, ws, stream
     "tt_linear_batched_a_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _P, _P],
     # x w scale a b y, M N K r G, alpha, strides (a, b), splits, ws, stream
@@ -126,9 +132,10 @@ def w8_splits(m: int, n: int, k: int, sms: int) -> int:
 
 
 def _padded(k: int, n: int, w_dtype) -> tuple:
-    """(K, N) as the split-K kernel takes them: K a multiple of 8, N of 8
-    (bf16 W) or 16 (int8 W)."""
-    nm = 16 if w_dtype == torch.int8 else 8
+    """(K, N) as the split-K kernel takes them: rows of x (bf16) and of W
+    a multiple of 16 bytes — K a multiple of 8, N of 16 bytes' worth of
+    W's dtype (8 bf16, 16 int8)."""
+    nm = 16 // w_dtype.itemsize
     return -(-k // 8) * 8, -(-n // nm) * nm
 
 
@@ -193,13 +200,18 @@ def _workspace(x, r: int):
                        device=x.device)
 
 
-def _check_cuda(x, w, a, b, what: str, w_dtype=torch.bfloat16) -> None:
+def _check_cuda(x, w, a, b, what: str, w_dtype=None,
+                dtype=torch.bfloat16) -> None:
+    """Device and dtypes: every operand in ``dtype`` (W in ``w_dtype``,
+    default ``dtype``); anything else — f32 where only bf16 is built,
+    mixed dtypes — raises ``TypeError``."""
     _build.check_device(x)
-    for t, n, dt in ((x, "x", torch.bfloat16), (w, "w", w_dtype),
-                     (a, "a", torch.bfloat16), (b, "b", torch.bfloat16)):
+    for t, n, dt in ((x, "x", dtype), (w, "w", w_dtype or dtype),
+                     (a, "a", dtype), (b, "b", dtype)):
         if t.dtype != dt:
             raise TypeError(f"{what}: the CUDA kernel takes {dt} for {n}; "
-                            f"got {t.dtype}")
+                            f"got {t.dtype} (f32 instances exist for K1, K3 "
+                            "/ #5, #6 and #7 only)")
         if t.device != x.device:
             raise ValueError(f"{what}: {n} is on {t.device}, x on {x.device}")
 
@@ -306,6 +318,28 @@ def _launch_k1(x, w, a, b, alpha, variant: str) -> torch.Tensor:
     return y
 
 
+def _launch_k1_f32(x, w, a, b, alpha) -> torch.Tensor:
+    """K1's f32 instance on checked CUDA operands: the pre-pass writes
+    P = α·x·A (M, r) in f32, then y = x·W + P·B; W, A and B are read
+    through their strides."""
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[1]
+    x = x.contiguous()
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    ws = torch.empty(m * r, dtype=torch.float32, device=x.device)
+    st = (ctypes.c_longlong * 6)(*w.stride(), *a.stride(), *b.stride())
+    rc = _fn("tt_linear_f32")(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+        y.data_ptr(), m, n, k, r, float(alpha),
+        ctypes.cast(st, ctypes.c_void_p), ws.data_ptr(),
+        _build.stream_ptr(x))
+    _build.check(rc, "tt_linear (f32)")
+    LAUNCHES["tt_linear_f32"] += 1
+    return y
+
+
 def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     """x (M, K), w (K, N), a (K, r), b (r, N) -> y (M, N). W, A and B may
@@ -319,6 +353,9 @@ def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     _build.check_no_grad((x, w, a, b), "tt_linear")
     if not x.is_cuda:
         return tt_linear_plain(x, w, a, b, alpha)
+    if x.dtype == torch.float32:
+        _check_cuda(x, w, a, b, "tt_linear", dtype=torch.float32)
+        return _launch_k1_f32(x, w, a, b, alpha)
     _check_cuda(x, w, a, b, "tt_linear")
     return _launch_k1(x, w, a, b, alpha, k1_variant(r))
 

@@ -8,6 +8,11 @@ without a CUDA device of compute capability >= 9.0. Run on the card with
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
+The f32 instances (K1, K3 / #5, #6, #7: RoBERTa's f32 training) are held
+to 1e-4 of the largest plain value (f32 sums in another order; a TF32
+pass would miss it), lse to 1e-5 absolute; mixed dtypes and f32 where no
+f32 instance exists (K2, K4, #8) raise ``TypeError``.
+
 This file imports no JAX (``--noconftest`` skips the JAX fixture file),
 so it runs where only PyTorch is installed. Tolerances: bf16 linears, fp
 and w8a16, 1e-2 (one bf16 ulp from another f32 summation order);
@@ -313,9 +318,8 @@ def test_flash_attention_bwd_rejects_what_the_kernels_do_not_take(dev):
     with pytest.raises(NotImplementedError):   # GQA group 3
         a = _bwd_inputs(dev, 1, 64, 64, 6, 2, 64, True)
         tfa.flash_attention_bwd(*a, True)
-    with pytest.raises(TypeError):             # f32 operands
-        tfa.flash_attention_bwd(q.float(), k.float(), v.float(), o.float(),
-                                lse, g.float(), True)
+    with pytest.raises(TypeError):             # mixed bf16 / f32 operands
+        tfa.flash_attention_bwd(q.float(), k, v, o, lse, g, True)
     with pytest.raises(TypeError):             # lse in bf16
         tfa.flash_attention_bwd(q, k, v, o, lse.bfloat16(), g, True)
     wide = _rn(dev, 1, 64, 4, 68)              # rows of 68: stride % 8 != 0
@@ -375,8 +379,11 @@ def test_launch_counts_and_cpu_leg(dev):
     ttl.tt_linear(x, w, a, b)
     ttl.tt_linear(x.cpu(), w.cpu(), a.cpu(), b.cpu())   # plain: not counted
     assert kernels.launch_counts()["tt_linear"] == 1
-    with pytest.raises(TypeError):
-        ttl.tt_linear(x.float(), w.float(), a.float(), b.float())
+    ttl.tt_linear(x.float(), w.float(), a.float(), b.float())   # f32 K1
+    n = kernels.launch_counts()
+    assert n["tt_linear"] == 1 and n["tt_linear_f32"] == 1
+    with pytest.raises(TypeError):                      # mixed dtypes
+        ttl.tt_linear(x.float(), w, a, b)
 
 
 def _paged_case(dev, c, g, d, page, seed=0, edge=False):
@@ -1284,3 +1291,133 @@ def test_chaos_run_audit_holds_every_step(dev):
     assert _teacher_forced_gap(cfg, spec, rt, p["base"],
                                [r for r, _ in survivors],
                                [o for _, o in survivors], dev) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the f32 instances (RoBERTa trains in f32)
+# ---------------------------------------------------------------------------
+
+
+def _rf(dev, *shape, scale=1.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + sum(shape))
+    return torch.randn(*shape, generator=g, device=dev) * scale
+
+
+def _close_f32(got, want, tol=1e-4):
+    """Within ``tol`` of the largest plain value, elementwise."""
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel_max(got, want) <= tol, _rel_max(got, want)
+
+
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("m,k,n,r", [(37, 72, 48, 4), (130, 69, 45, 13),
+                                     (4096, 1024, 1024, 8), (64, 768, 768,
+                                                             1024),
+                                     (257, 768, 768, 1024), (3, 5, 7, 1)])
+def test_tt_linear_f32(dev, m, k, n, r, view):
+    """K1's f32 instance: forward (A K-contiguous, as the model folds it)
+    and dx on the (g, Wᵀ, Bᵀ, Aᵀ) views the backward passes (view)."""
+    x, w = _rf(dev, m, k), _rf(dev, k, n, scale=k ** -0.5)
+    a, b = _rf(dev, r, k, scale=k ** -0.5).T, _rf(dev, r, n, scale=r ** -0.5)
+    if view:
+        ops_ = (_rf(dev, m, n, seed=1), w.T, b.T, a.T)
+    else:
+        ops_ = (x, w, a, b)
+    kernels.reset_launch_counts()
+    _close_f32(ttl.tt_linear(*ops_, 4.0), ttl.tt_linear_plain(*ops_, 4.0))
+    n_ = kernels.launch_counts()
+    assert n_["tt_linear_f32"] == 1 and n_["tt_linear"] == 0
+
+
+F32_ATTN_SHAPES = [(2, 70, 70, 8, 2, 64, True), (3, 5, 5, 4, 1, 64, True),
+                   (1, 33, 100, 4, 4, 64, False), (2, 130, 91, 4, 2, 64,
+                                                   False),
+                   (4, 1000, 1000, 16, 16, 64, True)]
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", F32_ATTN_SHAPES)
+def test_flash_attention_f32(dev, b, t, s, h, kv, d, causal):
+    q, k, v = _rf(dev, b, t, h, d), _rf(dev, b, s, kv, d), _rf(dev, b, s, kv,
+                                                                d, seed=2)
+    kernels.reset_launch_counts()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    po, plse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    _close_f32(o, po)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
+    _close_f32(tfa.flash_attention(q, k, v, causal), po)   # K3
+    n_ = kernels.launch_counts()
+    assert n_["flash_attention_fwd_f32"] == n_["flash_attention_f32"] == 1
+    assert n_["flash_attention_fwd"] == n_["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal",
+                         [x for x in BWD_SHAPES if x[5] == 64]
+                         + [(4, 1000, 1000, 16, 16, 64, True)])
+def test_flash_attention_bwd_f32(dev, b, t, s, h, kv, d, causal):
+    q, k, v = _rf(dev, b, t, h, d), _rf(dev, b, s, kv, d), _rf(dev, b, s, kv,
+                                                                d, seed=2)
+    g = _rf(dev, b, t, h, d, seed=1)
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, g, causal)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
+    for x, y in zip(got, want):
+        _close_f32(x, y)
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, g, causal)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):       # no atomics: the same bits
+        assert torch.equal(x, y)
+
+
+def test_f32_fused_linear_and_flash_backward(dev):
+    """The autograd Functions over the f32 instances against plain
+    autograd in f32: dx, dA, dB and dq, dk, dv within 1e-4."""
+    x, w = _rf(dev, 130, 256), _rf(dev, 256, 96, scale=256 ** -0.5)
+    a, b = _rf(dev, 256, 8, scale=0.0625), _rf(dev, 8, 96, scale=0.3)
+    g = _rf(dev, 130, 96, seed=3)
+    legs = []
+    for fn in (lambda *t: dispatch.tt_linear(*t, alpha=2.0),
+               lambda *t: ttl.tt_linear_plain(*t, 2.0)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, a, b)]
+        y = fn(leaves[0], w, leaves[1], leaves[2])
+        legs.append(torch.autograd.grad(y, leaves, g))
+    for u, v_ in zip(*legs):
+        _close_f32(u, v_)
+    q, k, v = (_rf(dev, 2, 70, 4, 64, seed=i) for i in range(3))
+    go = _rf(dev, 2, 70, 4, 64, seed=4)
+    outs = []
+    for pol in (dispatch.DEFAULT, dispatch.REF):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = dispatch.flash_attention(*leaves, causal=True, policy=pol)
+        outs.append(torch.autograd.grad(out, leaves, go))
+    for u, v_ in zip(*outs):
+        _close_f32(u, v_)
+
+
+def test_f32_mixed_and_missing_instances_raise(dev):
+    """Mixed bf16 / f32 operands raise; so do f32 operands of the kernels
+    that have no f32 instance yet (K2, K4, #8): no plain fallback."""
+    xb, wb = _rn(dev, 4, 64), _rn(dev, 64, 32)
+    ab, bb = _rn(dev, 64, 8), _rn(dev, 8, 32)
+    with pytest.raises(TypeError):
+        ttl.tt_linear(xb.float(), wb, ab, bb)
+    with pytest.raises(TypeError):
+        ttl.tt_linear(xb, wb.float(), ab.float(), bb.float())
+    q = _rf(dev, 1, 8, 4, 64)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_fwd(q, q.bfloat16(), q.bfloat16(), True)
+    kernels.reset_launch_counts()
+    with pytest.raises(TypeError):
+        ttl.tt_linear_batched_a(xb.float(), wb.float(),
+                                _rf(dev, 4, 64, 8), bb.float())
+    cache = _rf(dev, 2, 16, 4, 64)
+    with pytest.raises(TypeError):
+        tfa.decode_attention(_rf(dev, 2, 4, 64), cache, cache,
+                             torch.tensor([3, 7], device=dev))
+    with pytest.raises(TypeError):
+        tpa.paged_decode_attention(
+            _rf(dev, 2, 1, 4, 64), _rf(dev, 8, 16, 4, 64),
+            _rf(dev, 8, 16, 4, 64),
+            torch.zeros((2, 2), dtype=torch.int32, device=dev),
+            torch.tensor([3, 7], dtype=torch.int32, device=dev))
+    assert not any(kernels.launch_counts().values())
