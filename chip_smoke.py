@@ -35,7 +35,11 @@ Phases, each printed on its own lines:
      (B, T, H, KV, d) = (4, 1024, 16, 16, 64) and T = 1000 — within 1e-4
      of max |plain|, lse within 1e-5, two #6 / #7 calls bit-identical,
      bound = max(bytes / 3.35 TB/s, flops / 164.9 TFLOP/s) and the share
-     of FFMA's 67 TFLOP/s, library = torch.matmul / SDPA in f32;
+     of FFMA's 67 TFLOP/s, library = torch.matmul / SDPA in f32; and
+     the f32 serving instances at roberta-large's shapes: K2 at M = 4,
+     8, 64 (K = N = 1024, r = 8) and M = 4 at K = N = 768, K4 over 4
+     slots x 256 cells, #8 and #8q at C = 32 and C = 1 (8 slots,
+     34-page tables), each two calls bit-identical;
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -122,11 +126,23 @@ Phases, each printed on its own lines:
      r=8, VeRA r=1024, LoTR r=40, MetaTT-4d r=8 and MetaTT-5d r=16, 3
      steps each on one base, trainable counts equal to the paper's; (c)
      a no-grad forward of roberta-large over 4 x 1024 tokens (f32 K1 and
-     K3) within 1e-4 of the plain leg's largest logit; (d) the dense
-     engine on roberta-base raises the wrappers' TypeError at its first
-     f32 decode step (no f32 K2 / K4 yet), with no plain fallback; the
-     phases' seconds and the script's;
-  11. one JSON line with every kernel's record (launches per path; the
+     K3) within 1e-4 of the plain leg's largest logit;
+  11. RoBERTa served in f32 (TF32 off): full-width roberta-large with a
+     4+1d MetaTT adapter on q/v (rank 8, 3 tasks) through (a) the dense
+     engine (phase 3's cell: 2L K2f + L K4f a decode step, K1f / K3f at
+     prefill), (b) the paged engine cold then warm (phase 4's cell: L #8f
+     an engine step, prefix hits, COW, no leaked block), (c) the same with
+     int8 KV (#8qf in #8f's place, kv_bytes_peak below (b)'s) and (d)
+     speculative decode (k 3, drafter rank 4, stride 2) dense and paged,
+     tokens equal to (a)'s / (b)'s; no bf16 launch; decode-step and
+     paged-step logits and every generated token within 1e-4 of the plain
+     f32 leg's largest logit (tokens equal to the plain leg's counted);
+     tok/s, step ms, prefill ms, kv_bytes_peak and device busy share; (e)
+     the dense engine on roberta-base over int8 weights raises #9's /
+     #10's TypeError at its first f32 linear (no f32 #9 / #10 yet), with
+     no launch and no plain fallback; the phases' seconds and the
+     script's;
+  12. one JSON line with every kernel's record (launches per path; the
      f32 instances under their own names with every phase-2 row).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
@@ -197,6 +213,18 @@ KERNELS = {
     "flash_attention_bwd_dkv_f32": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:310"),
+    # the f32 instances of the serving kernels (RoBERTa's f32 serving)
+    "tt_linear_batched_a_f32": ("src/repro_torch/kernels/csrc/tt_linear.cu",
+                                "src/repro/kernels/tt_linear.py:156"),
+    "decode_attention_f32": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/flash_attention.py:393"),
+    "paged_decode_attention_f32": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:161"),
+    "paged_decode_attention_int8_f32": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:161"),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. Linears: one
 # bf16 ulp (2^-7 relative) from a different f32 summation order.
@@ -1257,7 +1285,9 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
 
 F32_KERNELS = ("tt_linear_f32", "flash_attention_f32",
                "flash_attention_fwd_f32", "flash_attention_bwd_dq_f32",
-               "flash_attention_bwd_dkv_f32")
+               "flash_attention_bwd_dkv_f32", "tt_linear_batched_a_f32",
+               "decode_attention_f32", "paged_decode_attention_f32",
+               "paged_decode_attention_int8_f32")
 # RoBERTa-large's attention at 4 x 1024 tokens (16 heads of 64), ragged T
 F32_ATTN_SHAPES = ((4, 1024, 16, 16, 64), (4, 1000, 16, 16, 64))
 # K1's f32 rows: (M, K = N, r, role); the first is the main path's
@@ -1418,6 +1448,153 @@ def phase_f32_kernels(dev):
               "two #6 / #7 calls bit-identical", flush=True)
         del q, k, v, g, o, o3, lse, po, plse, got, want, lib, delta
         torch.cuda.empty_cache()
+    return rows + f32_serving_rows(dev, rn)
+
+
+# the f32 serving rows: K2 at roberta-large's decode q/v (M = 4 slots the
+# main row; K = N = 768 is roberta-base's), K4 over phase 11's dense cache,
+# #8 / #8q at phase 11's paged shape (C = 32 the engine's step, C = 1 the
+# drafter's)
+F32_K2_ROWS = ((4, 1024), (8, 1024), (64, 1024), (4, 768))
+F32_PAGED_POS = (0, 37, 100, 161, 230, 299, 407, 479)
+
+
+def f32_serving_rows(dev, rn):
+    """K2, K4, #8 and #8q in f32 against their plain f32 versions at
+    roberta-large's serving shapes (16 heads of 64): within 1e-4 of max
+    |plain| elementwise, two calls bit-identical, ms by CUDA-graph replay
+    over input sets that exceed L2. Library: torch.matmul in f32 (TF32
+    off) for K2, SDPA in f32 on the gathered window with the boolean
+    position mask for K4, #8 and #8q (the gather left out of its time)."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import quant
+    from repro_torch.kernels import tt_linear as tl
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    alpha, r = 4.0, 8
+    for m, kd in F32_K2_ROWS:
+        n = kd
+
+        def make():
+            return (rn(m, kd), rn(kd, n, scale=kd ** -0.5),
+                    rn(m, kd, r, scale=kd ** -0.5), rn(r, n, scale=r ** -0.5))
+        nbytes = 4 * (m * kd + kd * n + m * kd * r + r * n + m * n)
+        sets = copies(make, nbytes)
+        fn = tl.tt_linear_batched_a
+        err, rel = f32_err("tt_linear_batched_a_f32", fn(*sets[0], alpha),
+                           tl.tt_linear_batched_a_plain(*sets[0], alpha))
+        same(lambda *t: fn(*t, alpha), sets[0], "tt_linear_batched_a_f32")
+        rows.append(f32_row(
+            "tt_linear_batched_a_f32", f"M={m} K={kd} N={n} r={r}",
+            (m, kd) == F32_K2_ROWS[0], err, rel,
+            2 * m * kd * n + 2 * m * kd * r + 2 * m * r * n, nbytes,
+            cuda_time_ms(lambda *t: fn(*t, alpha), sets),
+            cuda_time_ms(lambda *t: tl.tt_linear_batched_a_plain(*t, alpha),
+                         sets),
+            cuda_time_ms(lambda x, w, a, b: torch.matmul(x, w) + alpha
+                         * torch.matmul(torch.bmm(x[:, None], a)[:, 0], b),
+                         sets),
+            splits=tl.ba_f32_splits(m, n, kd, r, sms)))
+        del sets
+    # K4: 4 slots at positions 0, 37, 130, 255 of a 256-cell cache
+    b_, h, d, s_len = 4, 16, 64, 256
+    pos = torch.tensor((0, 37, 130, 255), dtype=torch.int32, device=dev)
+
+    def make4():
+        return (rn(b_, h, d), rn(b_, s_len, h, d), rn(b_, s_len, h, d), pos)
+    cells = sum(min(int(p), s_len - 1) + 1 for p in pos)
+    nbytes = 4 * (2 * b_ * h * d + 2 * cells * h * d) + 4 * b_
+    sets = copies(make4, nbytes)
+    err, rel = f32_err("decode_attention_f32", fa.decode_attention(*sets[0]),
+                       fa.decode_attention_plain(*sets[0]))
+    same(fa.decode_attention, sets[0], "decode_attention_f32")
+    mask = (torch.arange(s_len, device=dev)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    lib_sets = [(q[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2))
+                for q, kk, vv, _ in sets]
+    rows.append(f32_row(
+        "decode_attention_f32",
+        f"B={b_} S={s_len} H=KV={h} d={d} "
+        f"pos={','.join(map(str, pos.tolist()))}",
+        True, err, rel, 4 * h * d * cells, nbytes,
+        cuda_time_ms(fa.decode_attention, sets),
+        cuda_time_ms(fa.decode_attention_plain, sets),
+        cuda_time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), lib_sets),
+        split=pa.decode_path(b_, h, h, s_len, sms)[1],
+        library="SDPA f32, boolean position mask"))
+    del sets, lib_sets
+    # #8 / #8q: 8 slots, 256 blocks of 16 cells, 34-page tables
+    b_, page, n_blk = PAGED["max_batch"], PAGED["page_size"], 256
+    p_tab = PAGED["cache_len"] // page + 2
+    pos = torch.tensor(F32_PAGED_POS, dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(SEED + 24)
+    for c in (PAGED["prefill_chunk"], 1):
+        last = [min((int(p) + c - 1) // page, p_tab - 1) for p in pos]
+        tables = torch.full((b_, p_tab), n_blk, dtype=torch.int32)
+        perm, used = torch.randperm(n_blk, generator=gen), 0
+        for row, j in enumerate(last):
+            tables[row, :j + 1] = perm[used:used + j + 1].int()
+            used += j + 1
+        tables = tables.to(dev)
+        cells = sum(min(int(p) + c, p_tab * page) for p in pos)
+        flops = sum(4 * d * h * (int(p) + cc + 1) for p in pos
+                    for cc in range(c))
+        s_len = p_tab * page
+        mask = (torch.arange(s_len, device=dev)[None, None, :]
+                <= (pos[:, None] + torch.arange(c, device=dev)[None])
+                [:, :, None])[:, None]                   # (B, 1, C, S)
+        tbl = tables.long().clamp(max=n_blk - 1)
+        shape = (f"B={b_} C={c} H=KV={h} d={d} page={page} P={p_tab} "
+                 f"N={n_blk}")
+        split = pa.paged_path(b_, c, h, h, p_tab, page, sms, f32=True)[1]
+        for quantized in (False, True):
+            name = ("paged_decode_attention_int8_f32" if quantized
+                    else "paged_decode_attention_f32")
+            cell_b = 1 + 4 / d if quantized else 4
+            nbytes = int(4 * 2 * b_ * c * h * d + 2 * cells * h * d * cell_b
+                         + 4 * b_ * (p_tab + 1))
+
+            def make8():
+                q = rn(b_, c, h, d)
+                k, v = rn(n_blk, page, h, d), rn(n_blk, page, h, d)
+                if not quantized:
+                    return q, k, v, tables, pos
+                k8, ks = quant.quantize_kv(k)
+                v8, vs = quant.quantize_kv(v)
+                return q, k8, v8, ks, vs, tables, pos
+            sets = copies(make8, nbytes)
+            fn = (pa.paged_decode_attention_int8 if quantized
+                  else pa.paged_decode_attention)
+            plain = (pa.paged_decode_attention_int8_plain if quantized
+                     else pa.paged_decode_attention_plain)
+            err, rel = f32_err(name, fn(*sets[0]), plain(*sets[0]))
+            same(fn, sets[0], name)
+
+            def gathered(t):
+                q, k, v = t[0], t[1], t[2]
+                if quantized:
+                    k = k.float() * t[3][..., None]
+                    v = v.float() * t[4][..., None]
+                return (q.transpose(1, 2),
+                        k[tbl].reshape(b_, s_len, h, d).transpose(1, 2),
+                        v[tbl].reshape(b_, s_len, h, d).transpose(1, 2))
+            lib_sets = [gathered(t) for t in sets]
+            rows.append(f32_row(
+                name, shape, c == PAGED["prefill_chunk"], err, rel, flops,
+                nbytes, cuda_time_ms(fn, sets), cuda_time_ms(plain, sets),
+                cuda_time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), lib_sets),
+                split=split, library="SDPA f32 on the gathered (and "
+                "dequantized) window, boolean mask"))
+            del sets, lib_sets
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3653,55 +3830,6 @@ def roberta_base_adapters(dev, count):
     torch.cuda.empty_cache()
 
 
-def roberta_no_fallback(dev):
-    """Phase 10 (d): the dense serving engine on roberta-base (f32) with a
-    4+1d adapter: a decode step needs K2 (and K4), which have no f32
-    instance yet, so ``generate`` raises their wrappers' TypeError and
-    never runs a plain version in their place."""
-    import torch
-    from repro_torch import configs
-    from repro_torch import kernels as K
-    from repro_torch.config.base import RunConfig, ServeConfig
-    from repro_torch.models import model as M
-    from repro_torch.serving import AdapterRuntime, Engine, Request
-
-    cfg = configs.get_config("roberta-base")
-    spec = M.build_adapter_spec(RunConfig(
-        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
-        num_tasks=3, adapter_rank=8))
-    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
-    params = M.init_params(cfg, spec, generator=gen, device=dev)
-    rt = AdapterRuntime.build("live", params["base"], spec,
-                              params["adapter"], params["frozen"])
-    eng = Engine(cfg, rt, serve=ServeConfig(cache_mode="dense", max_batch=2,
-                                            cache_len=64, out_cap=4),
-                 device=dev)
-    rng = np.random.RandomState(SEED)
-    reqs = [Request(rng.randint(0, cfg.vocab_size, size=16), 4, task=i)
-            for i in range(2)]
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    try:
-        eng.generate(reqs)
-    except TypeError as e:
-        torch.cuda.synchronize()
-        launches = K.launch_counts()
-        msg = str(e)
-    else:
-        raise AssertionError("roberta-base dense engine: a decode step ran "
-                             "in f32 without an f32 K2 / K4")
-    if not msg.startswith(("tt_linear_batched_a", "decode_attention")) or \
-            launches["tt_linear_batched_a"] or launches["decode_attention"]:
-        raise AssertionError(f"roberta-base dense engine raised {msg!r} "
-                             f"after launches {launches}")
-    print(f"[roberta] base dense engine, f32 decode step: TypeError "
-          f"{msg!r}; launched before it "
-          f"{json.dumps({k: v for k, v in launches.items() if v})}",
-          flush=True)
-    del eng, rt, params
-    torch.cuda.empty_cache()
-
-
 def phase_roberta(dev):
     """Phase 10, launches counted around each driven run and summed."""
     import torch
@@ -3727,12 +3855,440 @@ def phase_roberta(dev):
     t.append(time.perf_counter())
     roberta_base_adapters(dev, count)
     t.append(time.perf_counter())
-    roberta_no_fallback(dev)
-    t.append(time.perf_counter())
     print(f"[phase10] launches on the path "
           f"{json.dumps({k_: v for k_, v in total.items() if v})}; (a) "
           f"{t[1] - t[0]:.1f} s, (c) {t[2] - t[1]:.1f} s, (b) "
-          f"{t[3] - t[2]:.1f} s, (d) {t[4] - t[3]:.1f} s", flush=True)
+          f"{t[3] - t[2]:.1f} s", flush=True)
+    return total
+
+
+
+# ---------------------------------------------------------------------------
+# phase 11: RoBERTa served in f32 through the f32 instances of K2, K4, #8
+# and #8q (and K1 / K3 at prefill)
+# ---------------------------------------------------------------------------
+
+#: kernel-vs-plain limit of the f32 serving checks, of the largest logit:
+#: f32 sums in another order (≈ 1e-6); one TF32 pass would miss it
+F32_LOGIT_TOL = 1e-4
+#: the same for a whole int8-KV run against a plain replay that quantizes
+#: its own K / V: an f32 difference of ~1e-7 moves a cell across an int8
+#: rounding edge (one step, 1/127 of the cell's largest value), which
+#: moved a logit by 1.5e-4 of the largest over 300-token histories on the
+#: card — a property of the pools, not of the kernels (the paged-step check
+#: over one set of pools holds 1e-4)
+INT8_KV_LOGIT_TOL = 1e-3
+
+
+#: the served adapter's size against the base q projection, as a
+#: fine-tuned update's: ``random_tt(scale=0.5)`` is ~260x at d_model 1024,
+#: and a model that far off its base is so ill-conditioned that f32
+#: summation order alone moves its decode logits by ~0.3 of the largest
+SERVED_RATIO = 0.25
+
+
+def roberta_serving_model(dev):
+    """Full-width roberta-large in f32, random base weights from the
+    seeded generator, and a served 4+1d MetaTT adapter on q/v (rank 8, 3
+    tasks, ``random_tt(scale=0.5)`` with its last core scaled to
+    ``SERVED_RATIO`` of the base q projection). Returns (cfg, spec,
+    params, rt)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.config.base import RunConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.models import model as M
+    from repro_torch.serving import AdapterRuntime
+
+    cfg = configs.get_config("roberta-large")
+    spec = M.build_adapter_spec(RunConfig(
+        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
+        num_tasks=3, adapter_rank=8))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, spec, generator=gen, device=dev)
+    cores = ttlib.random_tt(gen, spec.cfg.mode_sizes, 8, scale=0.5,
+                            device=dev)
+    rt = AdapterRuntime.build("live", params["base"], spec,
+                              {"cores": cores}, params["frozen"])
+    raw = q_ratio(cfg, rt, gen)
+    cores[-1] *= SERVED_RATIO / raw               # ΔW is linear in G4
+    params["adapter"] = {"cores": cores}
+    rt = AdapterRuntime.build("live", params["base"], spec,
+                              params["adapter"], params["frozen"])
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in M.tensors(params["base"]))
+    print(f"[phase11] roberta-large {cfg.compute_dtype}: {nbytes / 1e9:.3f} "
+          f"GB of base weights, 4+1d MetaTT q/v rank 8 over 3 tasks, "
+          f"adapter/base q-projection ratio {q_ratio(cfg, rt, gen):.3e} "
+          f"(random_tt(0.5): {raw:.3e}); init "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return cfg, spec, params, rt
+
+
+def f32_tokens_checked(cfg, spec, rt, reqs, outs, ref_outs, label, dev,
+                       kv_int8=False, ref="the plain f32 leg's run"):
+    """Every generated token within ``F32_LOGIT_TOL`` of the largest logit
+    of the plain f32 leg's teacher-forced maximum (``kv_int8``: through
+    int8 pools the replay writes itself, within ``INT8_KV_LOGIT_TOL``);
+    the count of tokens equal to ``ref_outs`` (``ref``: the plain leg's
+    own run) printed."""
+    gap = (paged_teacher_forced_gap(cfg, spec, rt, reqs, outs, dev)
+           if kv_int8 else
+           teacher_forced_gap(cfg, spec, rt, rt.base, reqs, outs, dev))
+    tol = INT8_KV_LOGIT_TOL if kv_int8 else F32_LOGIT_TOL
+    same = sum(int(x == y) for o, r in zip(outs, ref_outs)
+               for x, y in zip(o.tolist(), r.tolist()))
+    print(f"[phase11] {label}: tokens equal to {ref} "
+          f"{same}/{sum(len(o) for o in outs)}; largest teacher-forced gap "
+          f"{gap:.3e} of the largest logit (limit {tol})", flush=True)
+    if not gap <= tol:
+        raise AssertionError(f"{label}: a token {gap:.3e} below the plain "
+                             "f32 leg's best logit")
+
+
+def paged_teacher_forced_gap(cfg, spec, rt, reqs, outs, dev):
+    """``teacher_forced_gap`` of an int8-KV paged run: the plain leg's
+    ``paged_step``s over int8 pools (each cell quantized as it is written,
+    as the engine does) on [prompt, tokens], one request at a time in
+    chunks of ``prefill_chunk``, every column's logits kept."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    c, page = PAGED["prefill_chunk"], PAGED["page_size"]
+    pages = PAGED["cache_len"] // page
+    tables = torch.arange(pages, dtype=torch.int32, device=dev)[None]
+    worst = 0.0
+    with torch.inference_mode():
+        for req, toks in zip(reqs, outs):
+            toks = [int(t) for t in toks]
+            seq = [int(t) for t in req.prompt] + toks
+            caches = T.init_paged_caches(cfg, pages, page, cfg.compute_dtype,
+                                         kv_quant=True, device=dev)
+            task = torch.tensor([req.task], device=dev)
+            lgs = []
+            for s0 in range(0, len(seq) - 1, c):
+                chunk = seq[s0:s0 + c]
+                t = torch.zeros((1, c), dtype=torch.long, device=dev)
+                t[0, :len(chunk)] = torch.as_tensor(chunk, device=dev)
+                lg, _ = T.paged_step(
+                    rt.base, cfg, spec, rt.broadcast, rt.per_layer, t,
+                    caches, tables, torch.tensor([s0], device=dev),
+                    torch.tensor([len(chunk) - 1], device=dev), task=task,
+                    policy=dispatch.REF, device=dev, all_logits=True)
+                lgs.append(lg[0, :len(chunk)].float())
+            lg = torch.cat(lgs)[len(req.prompt) - 1:len(seq) - 1]
+            chosen = lg.gather(-1, torch.as_tensor(toks, device=dev)[:, None])
+            gap = (lg.max(-1).values - chosen[:, 0]) / lg.abs().amax(-1)
+            worst = max(worst, float(gap.max()))
+    return worst
+
+
+def roberta_dense_serving(dev, model, count):
+    """Phase 11 (a): phase 3's dense cell in f32 — 4 slots x 256 cells, 8
+    mixed-task requests of 16-96 prompt tokens, 32 new tokens each; K1f /
+    K3f at prefill, 2L K2f + L K4f a decode step, no bf16 launch."""
+    import torch
+    from repro_torch.config.base import KernelConfig, ServeConfig
+    from repro_torch.serving import Engine, Request
+    cfg, spec, params, rt = model
+    serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=256,
+                        out_cap=32)
+    eng = Engine(cfg, rt, serve=serve, device=dev)
+    rng = np.random.RandomState(SEED + 41)
+    reqs = [Request(rng.randint(0, cfg.vocab_size, size=int(n)), 32,
+                    task=i % 3)
+            for i, n in enumerate(rng.randint(16, 97, size=8))]
+    eng.generate(reqs[:2])                       # warm-up (cuBLAS, allocator)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = {}
+    n = count(lambda: got.update(r=serve_checked(eng, reqs, "(a) dense",
+                                                 "phase11")))
+    outs, st = got["r"]
+    steps, L = st.decode_steps, cfg.num_layers
+    want = {"tt_linear_batched_a_f32": 2 * L * steps,
+            "decode_attention_f32": L * steps}
+    for name, w in want.items():
+        if n[name] != w:
+            raise AssertionError(f"(a) dense: {name} {n[name]} launches in "
+                                 f"{steps} decode steps, want {w}")
+    if not (n["tt_linear_f32"] > 0 and n["flash_attention_f32"] > 0):
+        raise AssertionError(f"(a) dense: prefill launched {n}")
+    no_bf16(n, "(a) dense roberta-large")
+    print(f"[phase11] (a) dense: launches "
+          f"{json.dumps({k: v for k, v in n.items() if v})} = K2f "
+          f"{n['tt_linear_batched_a_f32'] // steps} and K4f "
+          f"{n['decode_attention_f32'] // steps} a decode step over {steps} "
+          f"(2L / L, L = {L}); no bf16 launch; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+    device_share("(a) roberta-large f32 dense generate of 4 requests",
+                 lambda: eng.generate(reqs[:4]), show=("f32",))
+    eng_ref = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
+        backend="ref"), device=dev)
+    ref_outs = eng_ref.generate(reqs)
+    rel, agree = decode_step_rel_err(cfg, rt, reqs[:4], serve.cache_len, dev)
+    print(f"[phase11] (a) one decode step of 4 slots (tasks "
+          f"{[r.task for r in reqs[:4]]}), kernel leg vs plain f32 leg: max "
+          f"|kernel - plain| / max |plain| per slot {rel:.3e} (limit "
+          f"{F32_LOGIT_TOL}), argmax equal {agree}/4", flush=True)
+    if not rel <= F32_LOGIT_TOL:
+        raise AssertionError(f"(a) decode-step logits: {rel:.3e}")
+    f32_tokens_checked(cfg, spec, rt, reqs, outs, ref_outs, "(a) dense",
+                       dev)
+    del eng, eng_ref
+    torch.cuda.empty_cache()
+    return dict(reqs=reqs, outs=outs, stats=st)
+
+
+def roberta_paged_requests(cfg):
+    """Phase 4's 16 requests on roberta's vocab: 40-300 prompt tokens over
+    3 tasks, half sharing a 100-token prefix per task."""
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(SEED + 3)
+    prefix = {t: rng.randint(0, cfg.vocab_size, size=100) for t in range(3)}
+    reqs = []
+    for i in range(16):
+        if i % 2 == 0:
+            prompt = np.concatenate([prefix[i % 3], rng.randint(
+                0, cfg.vocab_size, size=rng.randint(10, 201))])
+        else:
+            prompt = rng.randint(0, cfg.vocab_size, size=rng.randint(40, 301))
+        reqs.append(Request(prompt, 32, task=i % 3))
+    return reqs
+
+
+def roberta_paged_serving(dev, model, count, kv):
+    """Phase 11 (b) (``kv`` None) and (c) (``kv="int8"``): phase 4's paged
+    cell in f32 — 8 slots, 256 blocks of 16 cells, chunk 32, 16 requests
+    cold then warm; every (B, 32) engine step launches L #8f (#8qf) and
+    runs the adapted q/v as the f32 einsum, as the JAX package does; every
+    request finished, no leaked block, warm prefix hits and copy-on-write.
+    Returns (kv_bytes_peak, the requests, the cold run's tokens and
+    stats)."""
+    import torch
+    from repro_torch.config.base import KernelConfig, QuantConfig, \
+        ServeConfig
+    from repro_torch.serving import Engine
+    cfg, spec, params, rt = model
+    tag = "(c) paged int8 KV" if kv else "(b) paged fp"
+    serve = ServeConfig(cache_mode="paged", quant=QuantConfig(kv=kv)
+                        if kv else QuantConfig(), **PAGED)
+    eng = Engine(cfg, rt, serve=serve, device=dev)
+    reqs = roberta_paged_requests(cfg)
+    name = ("paged_decode_attention_int8_f32" if kv
+            else "paged_decode_attention_f32")
+    total, kv_peak, cold = {}, 0, None
+    for label in ("cold", "warm"):
+        got = {}
+        n = count(lambda: got.update(r=serve_checked(
+            eng, reqs, f"{tag} {label}", "phase11")))
+        outs, st = got["r"]
+        cold = (outs, st) if cold is None else cold
+        kv_peak = max(kv_peak, st.kv_bytes_peak)
+        if n[name] != cfg.num_layers * st.decode_steps:
+            raise AssertionError(f"{tag} {label}: {name} {n[name]} launches "
+                                 f"in {st.decode_steps} engine steps")
+        for k_, v_ in n.items():
+            total[k_] = total.get(k_, 0) + v_
+    if not (st.prefix_hit_tokens > 0 and st.cow_copies >= 1):
+        raise AssertionError(f"{tag} warm: no prefix hit or no COW copy")
+    other = ("paged_decode_attention_f32" if kv
+             else "paged_decode_attention_int8_f32")
+    if total[other] or total["tt_linear_batched_a_f32"]:
+        raise AssertionError(f"{tag}: {other} or K2f launched: {total}")
+    no_bf16(total, tag)
+    print(f"[phase11] {tag}: launches over cold and warm "
+          f"{json.dumps({k: v for k, v in total.items() if v})} ({name} L = "
+          f"{cfg.num_layers} an engine step; the (B, 32) adapted q/v run the "
+          f"f32 einsum, no K2f); no bf16 launch; kv_bytes_peak {kv_peak}",
+          flush=True)
+    device_share(f"{tag} generate of 8 requests (warm)",
+                 lambda: eng.generate(reqs[:8]), show=("f32",))
+    del eng
+    torch.cuda.empty_cache()
+    eng_ref = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
+        backend="ref"), device=dev)
+    ref_outs = eng_ref.generate(reqs)
+    del eng_ref
+    f32_tokens_checked(cfg, spec, rt, reqs, cold[0], ref_outs,
+                       f"{tag} cold", dev, kv_int8=bool(kv))
+    picked = reqs[1:3] + sorted(reqs[3:], key=lambda r: len(r.prompt))[-2:]
+    res = paged_step_rel_err(cfg, rt, [r.prompt for r in picked],
+                             [r.task for r in picked], dev,
+                             kv_quant=bool(kv))
+    for step, (rel, agree) in res.items():
+        print(f"[phase11] {tag}: one {step} paged step of 4 slots, kernel "
+              f"leg vs plain f32 leg: max |kernel - plain| / max |plain| per "
+              f"slot {rel:.3e} (limit {F32_LOGIT_TOL}), argmax equal "
+              f"{agree}/4", flush=True)
+        if not rel <= F32_LOGIT_TOL:
+            raise AssertionError(f"{tag} {step} step logits: {rel:.3e}")
+    torch.cuda.empty_cache()
+    return kv_peak, (reqs, *cold)
+
+
+def roberta_spec_serving(dev, model, count, dense, paged):
+    """Phase 11 (d): speculative decode (k 3, drafter rank 4, layer stride
+    2) on (a)'s dense cell and (b)'s paged cell (cold), tokens equal to
+    the same engine's without speculation; the dense verifier runs K4f
+    once a column, the drafter's (B, 1) steps K2f (and, paged, #8f at
+    C = 1)."""
+    import torch
+    from repro_torch.config.base import ServeConfig, SpecConfig
+    from repro_torch.serving import Engine
+    cfg, spec, params, rt = model
+    k = SPEC["spec_k"]
+    nb_draft = -(-cfg.num_super_blocks // SPEC["draft_layer_stride"])
+    cells = (("dense", dict(cache_mode="dense", max_batch=4, cache_len=256,
+                            out_cap=32), dense),
+             ("paged fp", dict(cache_mode="paged", **PAGED), paged))
+    for label, sv, base_run in cells:
+        reqs, b_outs, b_st = base_run
+        eng = Engine(cfg, rt, serve=ServeConfig(spec=SpecConfig(**SPEC),
+                                                **sv), device=dev)
+        outs = []
+        n = count(lambda: outs.extend(eng.generate(reqs)))
+        st = eng.last_stats
+        for r_ in eng.last_results:
+            if r_.status != "FINISHED" or r_.n_generated != 32:
+                raise AssertionError(f"(d) spec {label}: request ended "
+                                     f"{r_.status}")
+        if eng.paged and eng.leaked_blocks():
+            raise AssertionError(f"(d) spec {label}: "
+                                 f"{eng.leaked_blocks()} blocks leaked")
+        same = sum(int(x == y) for o, r in zip(outs, b_outs)
+                   for x, y in zip(o.tolist(), r.tolist()))
+        total = sum(len(o) for o in outs)
+        no_bf16(n, f"(d) spec {label}")
+        if label == "dense":
+            want = (k + 1) * (nb_draft + cfg.num_super_blocks) \
+                * len(cfg.block_pattern) * st.decode_steps
+            if n["decode_attention_f32"] != want:
+                raise AssertionError(f"(d) spec dense: K4f "
+                                     f"{n['decode_attention_f32']}, want "
+                                     f"{want}")
+        elif not n["paged_decode_attention_f32"] >= \
+                cfg.num_layers * st.decode_steps:
+            raise AssertionError(f"(d) spec paged: #8f "
+                                 f"{n['paged_decode_attention_f32']}")
+        if not (n["tt_linear_batched_a_f32"] > 0 and st.draft_tokens > 0):
+            raise AssertionError(f"(d) spec {label}: no drafter step ran on "
+                                 f"K2f: {n}")
+        dec = 1e3 * st.decode_s / max(st.decode_steps, 1)
+        b_dec = 1e3 * b_st.decode_s / max(b_st.decode_steps, 1)
+        print(f"[phase11] (d) spec {label}: acceptance "
+              f"{st.acceptance_rate:.3f} ({st.accepted_tokens}/"
+              f"{st.draft_tokens}), tokens/step {st.tokens_per_step:.3f} over "
+              f"{st.spec_steps} steps; {st.tokens_per_s:.1f} tok/s against "
+              f"{b_st.tokens_per_s:.1f} without spec "
+              f"({st.tokens_per_s / b_st.tokens_per_s:.3f}x); decode "
+              f"{dec:.2f} ms/step against {b_dec:.2f}; kv_bytes_peak "
+              f"{st.kv_bytes_peak}; tokens equal to the non-spec engine's "
+              f"{same}/{total}; launches "
+              f"{json.dumps({k_: v for k_, v in n.items() if v})}",
+              flush=True)
+        if same != total:
+            raise AssertionError(f"(d) spec {label}: {total - same} tokens "
+                                 "differ from the non-spec engine's")
+        f32_tokens_checked(cfg, spec, rt, reqs, outs, b_outs,
+                           f"(d) spec {label}", dev,
+                           ref="the non-spec engine's")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def roberta_w8_no_fallback(dev):
+    """Phase 11 (e): the dense engine on roberta-base (f32) over int8
+    weights (``QuantConfig(weights="int8")``): #9 / #10 have no f32
+    instance, so ``generate`` raises their wrappers' TypeError at the
+    first adapted f32 linear, with no kernel launched and no plain version
+    run in its place."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.config.base import QuantConfig, RunConfig, ServeConfig
+    from repro_torch.models import model as M
+    from repro_torch.serving import AdapterRuntime, Engine, Request
+
+    cfg = configs.get_config("roberta-base")
+    spec = M.build_adapter_spec(RunConfig(
+        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
+        num_tasks=3, adapter_rank=8))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    params = M.init_params(cfg, spec, generator=gen, device=dev)
+    rt = AdapterRuntime.build("live", params["base"], spec,
+                              params["adapter"], params["frozen"])
+    eng = Engine(cfg, rt, serve=ServeConfig(
+        cache_mode="dense", max_batch=2, cache_len=64, out_cap=4,
+        quant=QuantConfig(weights="int8")), device=dev)
+    rng = np.random.RandomState(SEED)
+    reqs = [Request(rng.randint(0, cfg.vocab_size, size=16), 4, task=i)
+            for i in range(2)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    try:
+        eng.generate(reqs)
+    except TypeError as e:
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        msg = str(e)
+    else:
+        raise AssertionError("roberta-base w8 dense engine: an f32 linear "
+                             "ran over int8 weights without an f32 #9 / #10")
+    if not msg.startswith(("tt_linear_w8", "tt_linear_batched_a_w8")) or \
+            any(launches.values()):
+        raise AssertionError(f"roberta-base w8 dense engine raised {msg!r} "
+                             f"after launches {launches}")
+    print(f"[phase11] (e) roberta-base w8 dense engine: TypeError {msg!r} "
+          "at the first adapted f32 linear; no kernel launched before it",
+          flush=True)
+    del eng, rt, params
+    torch.cuda.empty_cache()
+
+
+def phase_eleven(dev):
+    """Phase 11, launches counted around each driven run and summed."""
+    import torch
+    from repro_torch import kernels as K
+    total = {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+    f32_precision_checked()
+    t = [time.perf_counter()]
+    model = roberta_serving_model(dev)
+    dense = roberta_dense_serving(dev, model, count)
+    t.append(time.perf_counter())
+    fp_peak, paged = roberta_paged_serving(dev, model, count, None)
+    t.append(time.perf_counter())
+    q_peak, _ = roberta_paged_serving(dev, model, count, "int8")
+    print(f"[phase11] (c) kv_bytes_peak int8 {q_peak} against fp {fp_peak} "
+          f"({q_peak / fp_peak:.3f}x)", flush=True)
+    if not q_peak < fp_peak:
+        raise AssertionError(f"(c) int8 kv_bytes_peak {q_peak} not below "
+                             f"(b)'s {fp_peak}")
+    t.append(time.perf_counter())
+    roberta_spec_serving(dev, model, count,
+                         (dense["reqs"], dense["outs"], dense["stats"]),
+                         paged)
+    t.append(time.perf_counter())
+    del model
+    torch.cuda.empty_cache()
+    roberta_w8_no_fallback(dev)
+    t.append(time.perf_counter())
+    print(f"[phase11] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}; (a) "
+          f"{t[1] - t[0]:.1f} s, (b) {t[2] - t[1]:.1f} s, (c) "
+          f"{t[3] - t[2]:.1f} s, (d) {t[4] - t[3]:.1f} s, (e) "
+          f"{t[5] - t[4]:.1f} s", flush=True)
     return total
 
 
@@ -3802,8 +4358,11 @@ def main(argv) -> int:
     paths["phase9"] = phase_nine(dev)
     t10 = time.perf_counter()
     paths["phase10"] = phase_roberta(dev)
+    t11 = time.perf_counter()
+    paths["phase11"] = phase_eleven(dev)
     print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 {t10 - t9:.1f} s; "
-          f"phase 10 {time.perf_counter() - t10:.1f} s; the script "
+          f"phase 10 {t11 - t10:.1f} s; phase 11 "
+          f"{time.perf_counter() - t11:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []

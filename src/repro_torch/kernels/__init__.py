@@ -12,7 +12,9 @@ KERNELS = ("tt_linear", "tt_linear_batched_a", "flash_attention",
            "paged_decode_attention", "tt_linear_w8", "tt_linear_batched_a_w8",
            "paged_decode_attention_int8", "tt_linear_f32",
            "flash_attention_f32", "flash_attention_fwd_f32",
-           "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32")
+           "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32",
+           "tt_linear_batched_a_f32", "decode_attention_f32",
+           "paged_decode_attention_f32", "paged_decode_attention_int8_f32")
 _COUNTERS = (_tl.LAUNCHES, _fa.LAUNCHES, _pa.LAUNCHES)
 
 

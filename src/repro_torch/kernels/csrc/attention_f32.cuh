@@ -1,19 +1,22 @@
-// f32 attention tiles for the f32 instances of K3 / #5 (flash_attention.cu)
-// and #6 / #7 (flash_attention_bwd.cu): RoBERTa trains in f32, and these
-// compute in f32 — every product an FFMA on the CUDA cores, none on f32
-// inputs rounded to TF32 or bf16.
+// f32 attention tiles for the f32 instances of K3 / #5 (flash_attention.cu),
+// #6 / #7 (flash_attention_bwd.cu) and K4 / #8 / #8q (paged_attention.cu):
+// RoBERTa trains and serves in f32, and these compute in f32 — every
+// product an FFMA on the CUDA cores, none on f32 inputs rounded to TF32 or
+// bf16.
 //
 // A block is 256 threads, tx = tid % 16 and ty = tid / 16, over tiles of
-// 64 rows (queries or keys). Each tile sits in shared memory in its natural
-// layout, one row of D f32 padded to D + 4, so that
+// 64 rows (queries or keys). The query side of a product may be 16·RA rows
+// (RA = 4: 64; the decode kernels take RA = 1 or 2 for 16 or 32 query
+// rows), thread (tx, ty) owning rows ty·RA + a. Each tile sits in shared
+// memory in its natural layout, one row of D f32 padded to D + 4, so that
 //  - a row is copied with 16-byte loads and stores, consecutive threads
 //    along the row;
 //  - in a score product S = A·Bᵀ over d (dot_nt), thread (tx, ty) owns
-//    rows ty·4 + a and columns tx + 16·b (a, b < 4), and reads its four
+//    rows ty·RA + a and columns tx + 16·b (b < 4), and reads its four
 //    B rows d4 at a time: the rows of a quarter-warp start 4 banks apart,
 //    so the 16-byte reads hit distinct banks;
 //  - in a value product O += P·V (dot_nn), thread (tx, ty) owns rows
-//    ty·4 + a and columns tx·4 + c of each 64 of D, and reads P rows and
+//    ty·RA + a and columns tx·4 + c of each 64 of D, and reads P rows and
 //    V rows 16 bytes at a time.
 // A score tile (64 x 64) is written to shared memory as [row][col] with a
 // row of 68 for the value product that consumes it. Rows held by one ty
@@ -21,7 +24,8 @@
 //
 // What bounds them on an H100: 4·d (forward) and 14·d (backward) flops a
 // (query, key) pair at FFMA's 67 TFLOP/s — operations, not bytes, at the
-// training shape.
+// training shape; the decode kernels read each cache cell once for a few
+// query rows — bytes.
 
 #pragma once
 
@@ -57,22 +61,22 @@ __device__ __forceinline__ void load_tile(float* t, const float* src,
   }
 }
 
-// acc[a][b] += Σ_d A[ty·4 + a][d] · B[tx + 16·b][d]
-template <int D>
-__device__ __forceinline__ void dot_nt(float (&acc)[4][4], const float* A,
+// acc[a][b] += Σ_d A[ty·RA + a][d] · B[tx + 16·b][d]
+template <int D, int RA>
+__device__ __forceinline__ void dot_nt(float (&acc)[RA][4], const float* A,
                                        const float* B, int tx, int ty) {
   constexpr int L = ld<D>();
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
+    float4 av[RA], bv[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      av[a] = *reinterpret_cast<const float4*>(A + (ty * 4 + a) * L + d);
+    for (int a = 0; a < RA; ++a)
+      av[a] = *reinterpret_cast<const float4*>(A + (ty * RA + a) * L + d);
 #pragma unroll
     for (int b = 0; b < 4; ++b)
       bv[b] = *reinterpret_cast<const float4*>(B + (tx + 16 * b) * L + d);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         float s = acc[a][b];
@@ -84,19 +88,19 @@ __device__ __forceinline__ void dot_nt(float (&acc)[4][4], const float* A,
   }
 }
 
-// acc[a][g·4 + c] += Σ_j P[ty·4 + a][j] · V[j][g·64 + tx·4 + c]; P a
-// (64, 64) score tile, V a (64, D) tile
-template <int D>
-__device__ __forceinline__ void dot_nn(float (&acc)[4][D / 16],
+// acc[a][g·4 + c] += Σ_j P[ty·RA + a][j] · V[j][g·64 + tx·4 + c]; P a
+// (16·RA, 64) score tile, V a (64, D) tile
+template <int D, int RA>
+__device__ __forceinline__ void dot_nn(float (&acc)[RA][D / 16],
                                        const float* P, const float* V,
                                        int tx, int ty) {
   constexpr int L = ld<D>(), G = D / 64;
 #pragma unroll 2
   for (int j = 0; j < ROWS; j += 4) {
-    float4 pv[4];
+    float4 pv[RA];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      pv[a] = *reinterpret_cast<const float4*>(P + (ty * 4 + a) * PLD + j);
+    for (int a = 0; a < RA; ++a)
+      pv[a] = *reinterpret_cast<const float4*>(P + (ty * RA + a) * PLD + j);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
 #pragma unroll
@@ -104,7 +108,7 @@ __device__ __forceinline__ void dot_nn(float (&acc)[4][D / 16],
         const float4 v = *reinterpret_cast<const float4*>(
             V + (j + u) * L + g * 64 + tx * 4);
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
+        for (int a = 0; a < RA; ++a) {
           const float p = u == 0 ? pv[a].x : u == 1 ? pv[a].y
                         : u == 2 ? pv[a].z : pv[a].w;
           acc[a][g * 4 + 0] = fmaf(p, v.x, acc[a][g * 4 + 0]);
@@ -117,13 +121,14 @@ __device__ __forceinline__ void dot_nn(float (&acc)[4][D / 16],
   }
 }
 
-// a 4 x 4 score block into the (64, 64) tile at [ty·4 + a][tx + 16·b]
-__device__ __forceinline__ void store_scores(float* P, const float (&s)[4][4],
+// an RA x 4 score block into the (16·RA, 64) tile at [ty·RA + a][tx + 16·b]
+template <int RA>
+__device__ __forceinline__ void store_scores(float* P, const float (&s)[RA][4],
                                              int tx, int ty) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < RA; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) P[(ty * 4 + a) * PLD + tx + 16 * b] = s[a][b];
+    for (int b = 0; b < 4; ++b) P[(ty * RA + a) * PLD + tx + 16 * b] = s[a][b];
 }
 
 // max / sum over the 16 lanes of a row (lanes with one ty)

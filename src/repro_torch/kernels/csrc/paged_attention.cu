@@ -7,7 +7,9 @@
 //   (quantized=True). Both run paged_tc_kernel. dense_decode_attention_bf16
 //   replaces src/repro/kernels/flash_attention.py::decode_attention
 //   (_decode_kernel): the fp leg at C = 1 over the dense (B, S, KV, d)
-//   cache (K4, the DENSE instantiation, below).
+//   cache (K4, the DENSE instantiation, below). paged_attention_f32,
+//   paged_attention_int8_f32 and dense_decode_attention_f32 are the f32
+//   instances of the three (paged_f32_kernel, at the end).
 // Slot b carries C query tokens; query c sits at absolute position
 // pos[b] + c and attends cache cells [0, pos[b] + c]. Cell i of slot b
 // lives in physical block tables[b, i / page], row i % page, of the
@@ -88,6 +90,7 @@
 //
 // The C functions return cudaGetLastError() of the launch.
 
+#include "attention_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -636,6 +639,390 @@ int run_dense(const void* q, const void* k, const void* v, const void* pos,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------- the f32 instances (FFMA)
+//
+// paged_attention_f32, paged_attention_int8_f32 and
+// dense_decode_attention_f32 are the f32 instances of the same three TPU
+// kernels (RoBERTa serves in f32): q, the fp pools and the output in f32,
+// and every product an FFMA on the CUDA cores — no operand rounded to
+// TF32 or bf16 (one TF32 pass would miss the 1e-4 f32 limit). The design
+// is paged_tc_kernel's, on attention_f32.cuh's FFMA tiles:
+//  - one block (256 threads) owns all C·G query rows of a (slot, kv head),
+//    up to 64 (above that, slabs of 64 take a block each), padded to 16·RA
+//    rows (RA = 1, 2 or 4: 16, 32 or 64), and one chunk of its window;
+//  - K and V tiles of 64 cells come through a two-stage cp.async ring into
+//    shared memory rows padded to d + 4 floats, 16 bytes a copy, through
+//    the block-table row (sentinels clamped) or, DENSE, straight from the
+//    (B, S, KV, d) cache; cells past the window are zero-filled;
+//  - S = Q·Kᵀ (RA x 4 scores a thread), the online softmax on those
+//    registers in f32 (a row's 16 lanes reduce by shfl.xor), p written to
+//    a score tile, O += P·V (RA x d/16 a thread) in registers;
+//  - Q8: the stage's int8 K and V tiles are widened exactly to f32 tiles
+//    (one pass, one barrier a tile), the k scale multiplies the score
+//    columns and the v scale is folded into p as it is written (l sums p
+//    itself) — all in f32, so no hi + lo pair is needed;
+//  - windows split into chunks where the blocks under-fill the card, each
+//    chunk's (m, l, O) merged by the last block of its (slot, kv head,
+//    slab) in chunk order through an f32 workspace and the integer ticket
+//    of the bf16 kernels: a fixed order, so two calls are bit-identical.
+// Numerics as the bf16 kernels' (scores scaled by d^-0.5 in log2 units,
+// masked p at 0, l floored at 1e-30), with exp2f and p never rounded.
+// Bound: bytes, as the bf16 kernels' — a decode step reads each cell once
+// for G rows, a 32-column chunk for 32·G; the padded rows cost FFMA time
+// where C·G is below 16, which the bytes of a tile hide at these sizes.
+
+namespace af = attn_f32;
+
+constexpr int F32_NT = af::THREADS;   // threads a block
+constexpr int F32_STAGES = 2;         // depth of the K/V ring
+constexpr int F32_SLAB = 64;          // most rows a block
+
+template <bool Q8>
+struct F32Cell;
+template <>
+struct F32Cell<false> {
+  typedef float T;
+};
+template <>
+struct F32Cell<true> {
+  typedef int8_t T;
+};
+
+// offsets in floats: the q tile, the score tile, then (fp) the f32 K / V
+// ring, or (Q8) the widened K / V tiles, the int8 ring and its scales;
+// then the table row
+template <int D, int RA, bool Q8>
+struct F32PagedSmem {
+  static constexpr int QR = 16 * RA;
+  static constexpr int TILE = af::ROWS * af::ld<D>();   // a (64, D) tile
+  static constexpr int Q = 0;
+  static constexpr int P = Q + QR * af::ld<D>();
+  static constexpr int K = P + QR * af::PLD;
+  static constexpr int V = K + (Q8 ? 1 : F32_STAGES) * TILE;
+  static constexpr int RING = V + (Q8 ? 1 : F32_STAGES) * TILE;
+  static constexpr int SC = RING + (Q8 ? F32_STAGES * 2 * PT * D / 4 : 0);
+  static constexpr int TBL = SC + (Q8 ? F32_STAGES * 2 * PT : 0);
+};
+
+// grid (KV, B, slabs · chunks); 16·RA query rows a block
+template <int D, int RA, bool Q8, bool DENSE>
+__global__ void __launch_bounds__(F32_NT)
+paged_f32_kernel(const float* __restrict__ q, const void* __restrict__ kv_k,
+                 const void* __restrict__ kv_v,
+                 const float* __restrict__ k_scale,
+                 const float* __restrict__ v_scale,
+                 const int* __restrict__ tables, const int* __restrict__ pos,
+                 float* __restrict__ o, float* __restrict__ ws,
+                 int* __restrict__ cnt, int C, int G, int N, int page, int P,
+                 int split, float sl2, const Strides st) {
+  using L = F32PagedSmem<D, RA, Q8>;
+  typedef typename F32Cell<Q8>::T CT;
+  constexpr int QR = L::QR, LD = af::ld<D>(), C4 = D / 4;
+  constexpr int CC = D * sizeof(CT) / 16;   // 16-byte copies a cell
+  constexpr int NO = D / 16;                // output columns a thread a row
+  static_assert(D % 64 == 0 && PT == af::ROWS, "64-cell tiles, d of 64s");
+  static_assert(!(DENSE && Q8), "the dense leg is fp");
+  extern __shared__ __align__(16) float smf[];
+  int* tbl = reinterpret_cast<int*>(smf + L::TBL);
+  __shared__ int last_flag;
+
+  const int kvh = blockIdx.x, bb = blockIdx.y;
+  const int nch = split ? (P * page + PT * split - 1) / (PT * split) : 1;
+  const int slab = blockIdx.z / nch, ch = blockIdx.z % nch;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int rows = C * G, r0 = slab * QR;
+  const int p0 = pos[bb];
+  const int c_last = (min(r0 + QR, rows) - 1) / G;
+  const int nkeys = min(p0 + c_last + 1, P * page);
+  const int ntiles = (nkeys + PT - 1) / PT;
+  const int t0 = split ? ch * split : 0;
+  const int t1 = split ? min(ntiles, t0 + split) : ntiles;
+  if (t0 >= t1) return;   // a chunk past this slot's window
+
+  if constexpr (!DENSE) {
+    const int npages = (nkeys + page - 1) / page;
+    for (int j = tid; j < npages; j += F32_NT) {   // sentinels clamped
+      const int e = tables[bb * st.v[12] + j];
+      tbl[j] = e < 0 ? 0 : (e >= N ? N - 1 : e);
+    }
+  }
+  const CT* kb = static_cast<const CT*>(kv_k) + kvh * st.v[5];
+  const CT* vb = static_cast<const CT*>(kv_v) + kvh * st.v[8];
+  for (int i = tid; i < QR * C4; i += F32_NT) {   // rows past C·G are zero
+    const int row = i / C4, c = i % C4, rr = r0 + row;
+    const bool ok = rr < rows;
+    const int cc = ok ? rr / G : 0, g = ok ? rr - cc * G : 0;
+    cp_async16(smem_u32(smf + L::Q + row * LD + c * 4),
+               ok ? q + bb * st.v[0] + cc * st.v[1] + (kvh * G + g) * st.v[2] +
+                        c * 4
+                  : q,
+               ok ? 16 : 0);
+  }
+  __syncthreads();   // the table row, for the copies below
+  auto issue = [&](int t) {   // tile t (cells 64 t ..) into its stage
+    const int stg = (t - t0) % F32_STAGES;
+    for (int i = tid; i < 2 * PT * CC; i += F32_NT) {
+      const int isv = i >= PT * CC, rem = isv ? i - PT * CC : i;
+      const int cell = rem / CC, c = rem % CC, ci = t * PT + cell;
+      const bool ok = ci < nkeys;
+      long long off = c * (16 / sizeof(CT));
+      if (ok && DENSE) {   // slot bb's cell ci
+        off += bb * (isv ? st.v[6] : st.v[3]) +
+               static_cast<long long>(ci) * (isv ? st.v[7] : st.v[4]);
+      } else if (ok) {     // row ci % page of the cell's table entry
+        const int pg = ci / page;
+        off += static_cast<long long>(tbl[pg]) * (isv ? st.v[6] : st.v[3]) +
+               static_cast<long long>(ci - pg * page) *
+                   (isv ? st.v[7] : st.v[4]);
+      }
+      const uint32_t dst =
+          Q8 ? smem_u32(smf + L::RING) + ((stg * 2 + isv) * PT + cell) * D +
+                   c * 16
+             : smem_u32(smf + (isv ? L::V : L::K) + stg * L::TILE +
+                        cell * LD + c * 4);
+      cp_async16(dst, (isv ? vb : kb) + off, ok ? 16 : 0);
+    }
+    if constexpr (Q8) {   // the cells' scales, gathered the same way
+      for (int i = tid; i < 2 * PT; i += F32_NT) {
+        const int isv = i >= PT, cell = i % PT, ci = t * PT + cell;
+        const bool ok = ci < nkeys;
+        const int pg = ci / page;
+        const long long off =
+            ok ? static_cast<long long>(tbl[pg]) * st.v[isv ? 16 : 13] +
+                     static_cast<long long>(ci - pg * page) *
+                         st.v[isv ? 17 : 14]
+               : 0;
+        cp_async4(smem_u32(smf + L::SC + (stg * 2 + isv) * PT + cell),
+                  (isv ? v_scale + kvh * st.v[18] : k_scale + kvh * st.v[15]) +
+                      off,
+                  ok ? 4 : 0);
+      }
+    }
+  };
+  issue(t0);
+  cp_async_commit();   // with q's copies
+
+  // the last cell each of this thread's rows attends (-1: padding)
+  int lim[RA];
+  float m[RA], l[RA], oacc[RA][NO];
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {
+    const int rr = r0 + ty * RA + a;
+    lim[a] = rr < rows ? min(p0 + rr / G, nkeys - 1) : -1;
+    m[a] = af::NEG;
+    l[a] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) oacc[a][c] = 0.f;
+  }
+
+  for (int t = t0; t < t1; ++t) {
+    const int stg = (t - t0) % F32_STAGES;
+    // the other stage held tile t - 1, consumed before the loop's last
+    // barrier
+    if (t + 1 < t1) issue(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile t (and at t0, q) has landed
+    __syncthreads();      // ... for every thread
+    const float* kt = smf + L::K + (Q8 ? 0 : stg * L::TILE);
+    const float* vt = smf + L::V + (Q8 ? 0 : stg * L::TILE);
+    const float* ksc = smf + L::SC + stg * 2 * PT;
+    const float* vsc = ksc + PT;
+    if constexpr (Q8) {
+      // widen the stage's int8 K and V exactly into the f32 tiles (4 cell
+      // values a thread at a time); tile t - 1's are consumed
+      const int8_t* ring = reinterpret_cast<const int8_t*>(smf + L::RING) +
+                           stg * 2 * PT * D;
+      for (int i = tid; i < 2 * PT * C4; i += F32_NT) {
+        const int isv = i >= PT * C4, rem = isv ? i - PT * C4 : i;
+        const int cell = rem / C4, c = rem % C4;
+        const char4 u = *reinterpret_cast<const char4*>(
+            ring + (isv * PT + cell) * D + c * 4);
+        *reinterpret_cast<float4*>(smf + (isv ? L::V : L::K) + cell * LD +
+                                   c * 4) =
+            make_float4(u.x, u.y, u.z, u.w);
+      }
+      __syncthreads();
+    }
+    float sc[RA][4];
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) sc[a][b] = 0.f;
+    af::dot_nt<D>(sc, smf + L::Q, kt, tx, ty);   // S = Q·Kᵀ
+    float kscale[4], vscale[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      kscale[b] = Q8 ? ksc[tx + 16 * b] * sl2 : sl2;
+      vscale[b] = Q8 ? vsc[tx + 16 * b] : 1.f;
+    }
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+      float mt = af::NEG;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int ci = t * PT + tx + 16 * b;
+        sc[a][b] = ci <= lim[a] ? sc[a][b] * kscale[b] : af::NEG;
+        mt = fmaxf(mt, sc[a][b]);
+      }
+      const float mn = fmaxf(m[a], af::row_max(mt));
+      const float corr = exp2f(m[a] - mn);
+      float rs = 0.f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float p = sc[a][b] == af::NEG ? 0.f : exp2f(sc[a][b] - mn);
+        rs += p;
+        sc[a][b] = p * vscale[b];   // Q8: p·s_v, the P·V operand
+      }
+      m[a] = mn;
+      l[a] = l[a] * corr + rs;
+#pragma unroll
+      for (int c = 0; c < NO; ++c) oacc[a][c] *= corr;
+    }
+    af::store_scores(smf + L::P, sc, tx, ty);
+    __syncthreads();
+    af::dot_nn<D>(oacc, smf + L::P, vt, tx, ty);   // O += P·V
+    __syncthreads();   // this stage, the score tile (and Q8 the widened
+                       // tiles) are consumed
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int a = 0; a < RA; ++a) l[a] = af::row_sum(l[a]);
+
+  if (split) {   // partials out, the last chunk of the window merges
+    constexpr int W = RA * (NO + 2);   // floats a thread
+    const int live = (ntiles + split - 1) / split;   // this window's chunks
+    const int bk = (bb * gridDim.x + kvh) * (gridDim.z / nch) + slab;
+    float* part = ws + static_cast<long long>(bk) * nch * W * F32_NT;
+    float* mine = part + static_cast<long long>(ch) * W * F32_NT;
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+#pragma unroll
+      for (int c = 0; c < NO; ++c)
+        mine[(a * NO + c) * F32_NT + tid] = oacc[a][c];
+      mine[(RA * NO + a) * F32_NT + tid] = m[a];
+      mine[(RA * NO + RA + a) * F32_NT + tid] = l[a];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      last_flag = atomicAdd(cnt + bk, 1) == live - 1;
+      if (last_flag) cnt[bk] = 0;   // ready for the next launch
+    }
+    __syncthreads();
+    if (!last_flag) return;
+    __threadfence();
+    for (int c = 0; c < live; ++c) {   // chunk order: the same f32 sums
+      const float* src = part + static_cast<long long>(c) * W * F32_NT;
+#pragma unroll
+      for (int a = 0; a < RA; ++a) {
+        const float mc = __ldcg(src + (RA * NO + a) * F32_NT + tid);
+        const float lc = __ldcg(src + (RA * NO + RA + a) * F32_NT + tid);
+        const float mn = c == 0 ? mc : fmaxf(m[a], mc);
+        const float fa = c == 0 ? 0.f : exp2f(m[a] - mn);
+        const float fb = exp2f(mc - mn);
+        l[a] = (c == 0 ? 0.f : l[a] * fa) + lc * fb;
+        m[a] = mn;
+#pragma unroll
+        for (int e = 0; e < NO; ++e)
+          oacc[a][e] = (c == 0 ? 0.f : oacc[a][e] * fa) +
+                       __ldcg(src + (a * NO + e) * F32_NT + tid) * fb;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {   // rows past C·G are padding: not written
+    const int rr = r0 + ty * RA + a;
+    if (rr >= rows) continue;
+    const int cc = rr / G, g = rr - cc * G;
+    float* ob = o + bb * st.v[9] + cc * st.v[10] + (kvh * G + g) * st.v[11];
+    const float inv = 1.f / fmaxf(l[a], 1e-30f);
+#pragma unroll
+    for (int gq = 0; gq < D / 64; ++gq)
+      *reinterpret_cast<float4*>(ob + gq * 64 + tx * 4) =
+          make_float4(oacc[a][gq * 4] * inv, oacc[a][gq * 4 + 1] * inv,
+                      oacc[a][gq * 4 + 2] * inv, oacc[a][gq * 4 + 3] * inv);
+  }
+}
+
+template <int D, int RA, bool Q8, bool DENSE>
+int launch_f32(const TcArgs& a, const Strides& st, void* stream) {
+  using L = F32PagedSmem<D, RA, Q8>;
+  const int smem = 4 * L::TBL + (DENSE ? 0 : (a.P * 4 + 15) & ~15);
+  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;   // per instantiation, grows only
+  if (smem > smem_set) {
+    cudaError_t e = af::allow_smem(paged_f32_kernel<D, RA, Q8, DENSE>, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  dim3 grid(a.KV, a.B, a.nslab * a.nch);
+  paged_f32_kernel<D, RA, Q8, DENSE>
+      <<<grid, F32_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(a.q), a.k, a.v,
+          static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+          static_cast<const int*>(a.tables), static_cast<const int*>(a.pos),
+          static_cast<float*>(a.o), static_cast<float*>(a.ws),
+          static_cast<int*>(a.cnt), a.C, a.G, a.N, a.page, a.P, a.split,
+          LOG2E / sqrtf((float)D), st);
+  return (int)cudaGetLastError();
+}
+
+// rows a block (brows <= 64) -> RA = 1, 2 or 4 (16, 32 or 64 rows)
+template <bool Q8, bool DENSE>
+int launch_f32_rows(int brows, const TcArgs& a, const Strides& st,
+                    void* stream) {
+  if (brows <= 16) return launch_f32<64, 1, Q8, DENSE>(a, st, stream);
+  if (brows <= 32) return launch_f32<64, 2, Q8, DENSE>(a, st, stream);
+  return launch_f32<64, 4, Q8, DENSE>(a, st, stream);
+}
+
+// the f32 legs of run_tc: d = 64 only, slabs of at most 64 rows
+template <bool Q8>
+int run_f32(const void* q, const void* k, const void* v, const void* ks,
+            const void* vs, const void* tables, const void* pos, void* o,
+            int B, int C, int H, int KV, int d, int N, int page, int P,
+            const long long* strides, int split, void* ws, void* cnt,
+            void* stream) {
+  if (B < 1 || C < 1 || KV < 1 || H % KV != 0 || N < 1 || P < 1 ||
+      page < 8 || page > 64 || page % 8 != 0 || B > 65535 || split < 0 ||
+      d != 64 || (split > 0 && (ws == nullptr || cnt == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KV;
+  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
+  const int rows = C * G;
+  const int nslab = (rows + F32_SLAB - 1) / F32_SLAB;
+  const int nch = split ? (P * page + PT * split - 1) / (PT * split) : 1;
+  if (static_cast<long long>(nslab) * nch > 65535)
+    return (int)cudaErrorInvalidValue;
+  Strides st{};
+  for (int i = 0; i < (Q8 ? 19 : 13); ++i) st.v[i] = strides[i];
+  const TcArgs a{q, k, v, ks, vs, tables, pos, o, ws, cnt, B, C, G, KV, N,
+                 page, P, split, nslab, nch};
+  return launch_f32_rows<Q8, false>(nslab > 1 ? F32_SLAB : rows, a, st,
+                                    stream);
+}
+
+// K4 in f32: one query a slot over the dense cache, G rows a block
+int run_dense_f32(const void* q, const void* k, const void* v,
+                  const void* pos, void* o, int B, int S, int H, int KV,
+                  int d, const long long* strides, int split, void* ws,
+                  void* cnt, void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || split < 0 ||
+      d != 64 || (split > 0 && (ws == nullptr || cnt == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KV;
+  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
+  const int nch = split ? (S + PT * split - 1) / (PT * split) : 1;
+  if (nch > 65535) return (int)cudaErrorInvalidValue;
+  const long long* s = strides;
+  const Strides st{{s[0], 0, s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
+                    0, s[9], 0}};
+  const TcArgs a{q, k, v, nullptr, nullptr, nullptr, pos, o, ws, cnt, B, 1,
+                 G, KV, 0, 1, S, split, 1, nch};
+  return launch_f32<64, 1, false, true>(a, st, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -689,6 +1076,40 @@ int dense_decode_attention_bf16(const void* q, const void* k, const void* v,
                                 void* ws, void* cnt, void* stream) {
   return run_dense(q, k, v, pos, o, B, S, H, KV, d, strides, split, ws, cnt,
                    stream);
+}
+
+
+// The f32 instances (FFMA, d = 64): the functions above with q, the fp
+// pools and o in f32 (strides alike, in f32 elements: q / k / v / o ones a
+// multiple of 4). split > 0: ws an f32 workspace of B · KV · slabs ·
+// chunks · 256 · RA · (d / 16 + 2) floats, slabs = ceil(C·G / 64), RA =
+// 1, 2 or 4 for a block of up to 16, 32 or 64 rows (K4: slabs = 1, RA =
+// 1), and cnt as above.
+int paged_attention_f32(const void* q, const void* k, const void* v,
+                        const void* tables, const void* pos, void* o, int B,
+                        int C, int H, int KV, int d, int N, int page, int P,
+                        const long long* strides, int split, void* ws,
+                        void* cnt, void* stream) {
+  return run_f32<false>(q, k, v, nullptr, nullptr, tables, pos, o, B, C, H,
+                        KV, d, N, page, P, strides, split, ws, cnt, stream);
+}
+
+int paged_attention_int8_f32(const void* q, const void* k, const void* v,
+                             const void* k_scale, const void* v_scale,
+                             const void* tables, const void* pos, void* o,
+                             int B, int C, int H, int KV, int d, int N,
+                             int page, int P, const long long* strides,
+                             int split, void* ws, void* cnt, void* stream) {
+  return run_f32<true>(q, k, v, k_scale, v_scale, tables, pos, o, B, C, H,
+                       KV, d, N, page, P, strides, split, ws, cnt, stream);
+}
+
+int dense_decode_attention_f32(const void* q, const void* k, const void* v,
+                               const void* pos, void* o, int B, int S, int H,
+                               int KV, int d, const long long* strides,
+                               int split, void* ws, void* cnt, void* stream) {
+  return run_dense_f32(q, k, v, pos, o, B, S, H, KV, d, strides, split, ws,
+                       cnt, stream);
 }
 
 }  // extern "C"

@@ -5,6 +5,8 @@
 //   tt_linear_batched_a     (_batched_a_kernel)       -> tt_linear_batched_a_bf16
 //   tt_linear_w8            (_kernel, int8 W)         -> tt_linear_w8_bf16
 //   tt_linear_batched_a_w8  (_batched_a_kernel, int8) -> tt_linear_batched_a_w8_bf16
+// and, in f32 (FFMA, below): tt_linear -> tt_linear_f32,
+// tt_linear_batched_a -> tt_linear_batched_a_f32.
 //
 // What bounds it on an H100: at the serving shapes (M = 4..256 rows,
 // K = N = 2048) the work is 2·M·K·N flops against K·N·2 bytes of W, i.e.
@@ -1209,6 +1211,222 @@ int launch_f32(const F32Seg& s0, const F32Seg& s1, float* c, int M, int N,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------- K2 in f32 (FFMA)
+//
+// The f32 instance of K2 (RoBERTa's f32 decode: the (slots, 1) adapted q
+// and v, each slot with its task's A[m]). FFMA throughout, no operand
+// rounded. At roberta-large's decode shape (M = 2..8 slots, K = N = 1024,
+// r = 8) the work is M flops a byte of W: bound by reading W's 4 MB once.
+// Two launches:
+//   pre-pass  partial sums of P[m] = x[m]·A[m] over KC = 256 rows of K,
+//             (M, ceil(K / KC), r) f32 — A read once through its strides;
+//   main      y = [x | α·P]·[W; B] over K + r rows, split into S slices:
+//             a block owns BN = 128 output channels x MT = 8 rows over one
+//             slice, each warp lane 4 consecutive channels (a warp reads
+//             512 contiguous bytes of a W row), the 8 warps every 8th row
+//             of the slice; the slice's x (and α·P, its partials summed in
+//             K order) sit in shared memory, read as broadcasts. The warps'
+//             sums meet in shared memory in warp order; with S > 1 each
+//             slice writes its (MT, BN) partial to a workspace and the
+//             last block of the tile (an integer ticket, as #8's chunks)
+//             sums the slices in slice order — a fixed order, so two calls
+//             are bit-identical, with no float atomics.
+// S is the launcher's (kernels/tt_linear.py::ba_f32_splits): enough slices
+// for about two blocks an SM, each at least 32 rows and at most
+// BA32_MAX_ROWS. W and B are read through their strides (16-byte loads
+// where both allow them), A through its three; x is contiguous; any M, N,
+// K and r.
+
+constexpr int BA32_BN = 128, BA32_MT = 8, BA32_WARPS = 8;
+constexpr int BA32_KC = 256, BA32_MAX_ROWS = 1024;
+
+// raw partials of P: grid (ceil(K / KC), M); lanes over 32 rank columns,
+// warps over every 8th row of the chunk, summed in warp order
+__global__ void __launch_bounds__(256)
+ba_f32_pre_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                  float* __restrict__ pp, int K, int r, long long asm_,
+                  long long ask, long long asj) {
+  __shared__ float red[BA32_WARPS][32];
+  const int kc = blockIdx.x, m = blockIdx.y, nkc = gridDim.x;
+  const int lane = threadIdx.x % 32, wp = threadIdx.x / 32;
+  const int k0 = kc * BA32_KC, k1 = min(K, k0 + BA32_KC);
+  const float* xr = x + static_cast<long long>(m) * K;
+  const float* am = a + m * asm_;
+  for (int j0 = 0; j0 < r; j0 += 32) {
+    const int j = j0 + lane;
+    float s = 0.f;
+    if (j < r)
+      for (int k = k0 + wp; k < k1; k += BA32_WARPS)
+        s = fmaf(xr[k], am[k * ask + j * asj], s);
+    red[wp][lane] = s;
+    __syncthreads();
+    if (wp == 0 && j < r) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < BA32_WARPS; ++w) t += red[w][lane];
+      pp[(static_cast<long long>(m) * nkc + kc) * r + j] = t;
+    }
+    __syncthreads();
+  }
+}
+
+// 4 consecutive elements of a row (element stride sn) from column n; past
+// N zero. VEC: one 16-byte load (sn = 1, N % 4 == 0, aligned rows)
+template <bool VEC>
+__device__ __forceinline__ float4 row4(const float* row, int n, int N,
+                                       long long sn) {
+  if (VEC) {
+    if (n < N) return __ldg(reinterpret_cast<const float4*>(row + n));
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    v[c] = n + c < N ? __ldg(row + (n + c) * sn) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// grid (ceil(N / BN), ceil(M / MT), S); rows [s·ks, (s + 1)·ks) of K + r
+template <bool VEC>
+__global__ void __launch_bounds__(256)
+ba_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ pp, const float* __restrict__ b,
+              float* __restrict__ y, float* __restrict__ part,
+              int* __restrict__ cnt, int M, int N, int K, int r, int nkc,
+              int ks, float alpha, long long wsk, long long wsn,
+              long long bsj, long long bsn) {
+  constexpr int MT = BA32_MT, BN = BA32_BN;
+  extern __shared__ __align__(16) float smb[];
+  float* red = smb;                          // [warp][MT][BN]
+  float* xs = smb + BA32_WARPS * MT * BN;    // [slice row][MT]
+  __shared__ int last_flag;
+  const int tid = threadIdx.x, lane = tid % 32, wp = tid / 32;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * MT, s = blockIdx.z;
+  const int S = gridDim.z;
+  const int kr0 = s * ks, kr1 = min(K + r, kr0 + ks), nr = kr1 - kr0;
+  for (int i = tid; i < nr * MT; i += 256) {   // x, or α·P in K order
+    const int kk = i / MT, mm = i % MT, k = kr0 + kk, m = m0 + mm;
+    float v = 0.f;
+    if (m < M) {
+      if (k < K) {
+        v = x[static_cast<long long>(m) * K + k];
+      } else {
+        float t = 0.f;
+        for (int c = 0; c < nkc; ++c)
+          t += pp[(static_cast<long long>(m) * nkc + c) * r + (k - K)];
+        v = alpha * t;
+      }
+    }
+    xs[i] = v;
+  }
+  __syncthreads();
+  const int n = n0 + lane * 4;
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  for (int kk = wp; kk < nr; kk += BA32_WARPS) {
+    const int k = kr0 + kk;
+    const float4 wv = k < K ? row4<VEC>(w + k * wsk, n, N, wsn)
+                            : row4<VEC>(b + (k - K) * bsj, n, N, bsn);
+    const float4 x0 = *reinterpret_cast<const float4*>(xs + kk * MT);
+    const float4 x1 = *reinterpret_cast<const float4*>(xs + kk * MT + 4);
+    const float xv[MT] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      acc[i][0] = fmaf(xv[i], wv.x, acc[i][0]);
+      acc[i][1] = fmaf(xv[i], wv.y, acc[i][1]);
+      acc[i][2] = fmaf(xv[i], wv.z, acc[i][2]);
+      acc[i][3] = fmaf(xv[i], wv.w, acc[i][3]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    *reinterpret_cast<float4*>(red + (wp * MT + i) * BN + lane * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+  // the slice's (MT, BN) sums, warps in order
+  float out[MT * BN / 256];
+#pragma unroll
+  for (int u = 0; u < MT * BN / 256; ++u) {
+    const int e = tid + u * 256;
+    float t = 0.f;
+#pragma unroll
+    for (int w_ = 0; w_ < BA32_WARPS; ++w_) t += red[w_ * MT * BN + e];
+    out[u] = t;
+  }
+  const int bk = blockIdx.y * gridDim.x + blockIdx.x;
+  if (S > 1) {   // partials out; the last slice of the tile sums them
+    float* mine = part + ((static_cast<long long>(bk) * S + s) * MT * BN);
+#pragma unroll
+    for (int u = 0; u < MT * BN / 256; ++u) mine[tid + u * 256] = out[u];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      last_flag = atomicAdd(cnt + bk, 1) == S - 1;
+      if (last_flag) cnt[bk] = 0;   // ready for the next launch
+    }
+    __syncthreads();
+    if (!last_flag) return;
+    __threadfence();
+    const float* all = part + static_cast<long long>(bk) * S * MT * BN;
+#pragma unroll
+    for (int u = 0; u < MT * BN / 256; ++u) {
+      float t = 0.f;
+      for (int s_ = 0; s_ < S; ++s_)
+        t += __ldcg(all + static_cast<long long>(s_) * MT * BN + tid +
+                    u * 256);
+      out[u] = t;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < MT * BN / 256; ++u) {
+    const int e = tid + u * 256, m = m0 + e / BN, nn = n0 + e % BN;
+    if (m < M && nn < N) y[static_cast<long long>(m) * N + nn] = out[u];
+  }
+}
+
+int run_ba_f32(const float* x, const float* w, const float* a,
+               const float* b, float* y, int M, int N, int K, int r,
+               float alpha, const long long* st, int splits, float* ws,
+               int* cnt, cudaStream_t stream) {
+  const int nkc = (K + BA32_KC - 1) / BA32_KC;
+  const int ks = (K + r + splits - 1) / splits;
+  const int tn = (N + BA32_BN - 1) / BA32_BN, tm = (M + BA32_MT - 1) / BA32_MT;
+  if (ks > BA32_MAX_ROWS || tm > 65535 || M > 65535 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  float* pp = ws;
+  float* part = ws + static_cast<long long>(M) * nkc * r;
+  ba_f32_pre_kernel<<<dim3(nkc, M), 256, 0, stream>>>(x, a, pp, K, r, st[2],
+                                                       st[3], st[4]);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long wsk = st[0], wsn = st[1], bsj = st[5], bsn = st[6];
+  const bool vec = wsn == 1 && bsn == 1 && N % 4 == 0 && wsk % 4 == 0 &&
+                   bsj % 4 == 0 && aligned16(w) && aligned16(b);
+  const int smem = 4 * (BA32_WARPS * BA32_MT * BA32_BN + ks * BA32_MT);
+  static int smem_set[2] = {0, 0};   // per instantiation, grows only
+  if (smem > smem_set[vec]) {
+    e = cudaFuncSetAttribute(vec ? ba_f32_kernel<true> : ba_f32_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set[vec] = smem;
+  }
+  const dim3 grid(tn, tm, splits);
+  if (vec)
+    ba_f32_kernel<true><<<grid, 256, smem, stream>>>(
+        x, w, pp, b, y, part, cnt, M, N, K, r, nkc, ks, alpha, wsk, wsn, bsj,
+        bsn);
+  else
+    ba_f32_kernel<false><<<grid, 256, smem, stream>>>(
+        x, w, pp, b, y, part, cnt, M, N, K, r, nkc, ks, alpha, wsk, wsn, bsj,
+        bsn);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1291,6 +1509,28 @@ int tt_linear_f32(const void* x, const void* w, const void* a, const void* b,
                        strides[5], r};
   return launch_f32<128, 128, 8, 8>(base, rank, static_cast<float*>(y), M, N,
                                     1.f, stream);
+}
+
+// K2's f32 instance: x (M, K) row-major, contiguous; w (K, N), a
+// (M, K, r) and b (r, N) read through their element strides (7: w k, n;
+// a m, k, j; b j, n); y (M, N) row-major; all f32, FFMA throughout; any M,
+// N, K, r. The pre-pass, then the main kernel over `splits` slices of
+// K + r rows (each at most 1024). ws: f32, M · ceil(K / 256) · r +
+// ceil(N / 128) · ceil(M / 8) · 8 · 128 · splits (the slices' partials,
+// splits > 1); cnt: ceil(N / 128) · ceil(M / 8) zeroed int counters (left
+// at zero).
+int tt_linear_batched_a_f32(const void* x, const void* w, const void* a,
+                            const void* b, void* y, int M, int N, int K,
+                            int r, float alpha, const long long* strides,
+                            int splits, void* ws, void* cnt, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || r < 1 || splits < 1 || ws == nullptr ||
+      (splits > 1 && cnt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return run_ba_f32(static_cast<const float*>(x), static_cast<const float*>(w),
+                    static_cast<const float*>(a), static_cast<const float*>(b),
+                    static_cast<float*>(y), M, N, K, r, alpha, strides, splits,
+                    static_cast<float*>(ws), static_cast<int*>(cnt),
+                    static_cast<cudaStream_t>(stream));
 }
 
 // K2, per-row A: x (M, K), w (K, N), a (M, K, r), b (r, N) contiguous,

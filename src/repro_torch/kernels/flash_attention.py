@@ -18,10 +18,10 @@ tensor-core kernel over the dense cache (``csrc/paged_attention.cu``,
 
 A CPU tensor runs the plain version (``kernels/ref.py``, through the
 layout shims below). A CUDA tensor launches the kernel or raises: bf16
-operands at head_dim 64 or 128; f32 operands (RoBERTa's f32 training)
-launch the f32 instances of K3 / #5, #6 and #7 at head_dim 64 (FFMA,
-``csrc/attention_f32.cuh``; counted under the kernel's name + ``_f32``),
-while K4 raises ``TypeError`` on f32 (no f32 instance yet); mixed dtypes
+operands at head_dim 64 or 128; f32 operands (RoBERTa trains and serves
+in f32) launch the f32 instances of K3 / #5, #6, #7 and K4 at head_dim 64
+(FFMA, ``csrc/attention_f32.cuh``; counted under the kernel's name +
+``_f32``; K4's is #8's f32 kernel over the dense cache); mixed dtypes
 raise. GQA group size G in {1, 2, 4, 8} for decode and the backward.
 Operands need a contiguous last dim, strides of whole 16 bytes (8 bf16
 or 4 f32 elements) and 16-byte aligned data. ``LAUNCHES`` counts the
@@ -44,15 +44,14 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "flash_attention_f32": 0,
             "flash_attention_fwd_f32": 0, "flash_attention_bwd_dq_f32": 0,
-            "flash_attention_bwd_dkv_f32": 0}
+            "flash_attention_bwd_dkv_f32": 0, "decode_attention_f32": 0}
 
 HEAD_DIMS = (64, 128)
 #: head dims of the f32 instances (RoBERTa's heads of 64)
 HEAD_DIMS_F32 = (64,)
 GROUPS = (1, 2, 4, 8)
-BF16 = (torch.bfloat16,)
-#: the dtypes K3 / #5, #6 and #7 are built for
-TRAIN_DTYPES = (torch.bfloat16, torch.float32)
+#: the dtypes the attention kernels are built for (f32 at HEAD_DIMS_F32)
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _repeat_kv(q, k, v):
@@ -140,7 +139,7 @@ def _instance(t) -> str:
     return "_f32" if t.dtype == torch.float32 else ""
 
 
-def _check_cuda(ts, d: int, what: str, dtypes=BF16) -> str:
+def _check_cuda(ts, d: int, what: str, dtypes=DTYPES) -> str:
     """Device, dtype, layout and head_dim of the operands ``ts``; returns
     the instance's suffix ("" bf16, "_f32" f32). Every operand in one of
     ``dtypes`` and all in the same one, else ``TypeError``."""
@@ -229,8 +228,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad((q, k, v), "flash_attention")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
-    sfx = _check_cuda((q, k, v), q.shape[-1], "flash_attention",
-                      TRAIN_DTYPES)
+    sfx = _check_cuda((q, k, v), q.shape[-1], "flash_attention")
     o = _launch_fwd(q, k, v, causal, None)
     LAUNCHES["flash_attention" + sfx] += 1
     return o
@@ -244,7 +242,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad((q, k, v), "flash_attention_fwd")
     if not q.is_cuda:
         return flash_attention_fwd_plain(q, k, v, causal)
-    sfx = _check_cuda((q, k, v), d, "flash_attention_fwd", TRAIN_DTYPES)
+    sfx = _check_cuda((q, k, v), d, "flash_attention_fwd")
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     o = _launch_fwd(q, k, v, causal, lse)
     LAUNCHES["flash_attention_fwd" + sfx] += 1
@@ -264,7 +262,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad((q, k, v, o, lse, g), "flash_attention_bwd")
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
-    _check_cuda((q, k, v, o, g), d, "flash_attention_bwd", TRAIN_DTYPES)
+    _check_cuda((q, k, v, o, g), d, "flash_attention_bwd")
     if h // kv not in GROUPS:
         raise NotImplementedError(
             f"flash_attention_bwd: CUDA kernels built for GQA groups "
@@ -324,7 +322,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad((q, k, v), "decode_attention")
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, pos)
-    _check_cuda((q, k, v), d, "decode_attention")
+    sfx = _check_cuda((q, k, v), d, "decode_attention")
     if h // kv not in GROUPS:
         raise NotImplementedError(
             f"decode_attention: CUDA kernel built for GQA groups "
@@ -336,5 +334,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     _, split = _pa.decode_path(b, h, kv, s, sms)
     _build.check(_pa.launch_dense(q, k, v, pos, o, split), "decode_attention")
-    LAUNCHES["decode_attention"] += 1
+    LAUNCHES["decode_attention" + sfx] += 1
     return o

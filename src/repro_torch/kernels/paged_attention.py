@@ -11,24 +11,30 @@ Replaces the fp leg of
 #8q ``paged_decode_attention_int8``: its int8 leg — int8 (N, page, KV, d)
 pools with (N, page, KV) f32 per-cell scale pools; the scales are applied
 in f32 and p is kept above bf16 precision through P·V (the TPU kernel's
-f32), the output is bf16.
+f32), the output is in q's dtype.
 
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
-launches the kernel (bf16 q, bf16 or int8 pools, head_dim 64 or 128, GQA
-group in {1, 2, 4, 8}, page a multiple of 8 up to 64; a contiguous last
-dim, strides of whole 16 bytes, 16-byte aligned data) or raises: f32
-operands raise ``TypeError`` (no f32 instance of #8 / #8q yet). Both
-legs run one tensor-core kernel with all C·G rows of a (slot, kv head) in
-one block: #8 ``mma.sync`` below 64 rows, ``wgmma`` from 64; #8q
+launches the kernel (bf16 q, bf16 or int8 pools, head_dim 64 or 128; f32
+q, f32 or int8 pools, head_dim 64; GQA group in {1, 2, 4, 8}, page a
+multiple of 8 up to 64; a contiguous last dim, strides of whole 16 bytes,
+16-byte aligned data) or raises; mixed fp dtypes raise. f32 operands
+(RoBERTa serves in f32) launch the f32 instances, counted under the
+kernel's name + ``_f32``: FFMA tiles (``csrc/attention_f32.cuh``), all
+C·G rows of a (slot, kv head) up to 64 in a block, a two-stage cp.async
+ring of f32 K / V tiles (#8q: int8 tiles widened exactly to f32, both
+scales applied in f32), the same chunk rule and fixed-order merge. The
+bf16 legs run one tensor-core kernel with all C·G rows of a (slot, kv
+head) in one block: #8 ``mma.sync`` below 64 rows, ``wgmma`` from 64; #8q
 ``mma.sync`` in slabs of at most 64 rows, its int8 tiles widened exactly
 to bf16 in shared memory and p·s_v fed as a bf16 hi + lo pair; where the
 blocks leave the card under-filled each window is split into chunks
 merged in a fixed order (``paged_path``). K4
 (``flash_attention.decode_attention``) runs the fp leg at C = 1 over the
 dense (B, S, KV, d) cache, with no table (``decode_path``,
-``launch_dense``).
-``LAUNCHES`` counts the launches, and nothing else adds to it. The kernel is serving-only: an
-input that requires grad while autograd records raises.
+``launch_dense``), in f32 on the f32 kernel.
+``LAUNCHES`` counts the launches, and nothing else adds to it. The
+kernel is serving-only: an input that requires grad while autograd
+records raises.
 """
 from __future__ import annotations
 
@@ -41,12 +47,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+LAUNCHES = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0,
+            "paged_decode_attention_f32": 0,
+            "paged_decode_attention_int8_f32": 0}
 
 PAGES = tuple(range(8, 65, 8))
 #: cells a streamed tile of #8's kernel, and the most rows a block takes
-#: (#8q: one ``mma.sync`` warpgroup's)
-TILE_CELLS, SLAB_ROWS, SLAB_ROWS_Q8 = 64, 256, 64
+#: (#8q: one ``mma.sync`` warpgroup's; the f32 instances: 64)
+TILE_CELLS, SLAB_ROWS, SLAB_ROWS_Q8, SLAB_ROWS_F32 = 64, 256, 64, 64
+#: threads a block of the f32 instances
+THREADS_F32 = 256
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, tables, pos
@@ -68,11 +78,11 @@ def paged_decode_attention_int8_plain(q, k_cache, v_cache, k_scale, v_scale,
 def _fn(name: str):
     f = getattr(_build.library("paged_attention"), name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    if name == "paged_attention_int8":
+    if name.startswith("paged_attention_int8"):
         # q k v k_scale v_scale tables pos o, B C H KV d N page P, strides,
         # split, ws, cnt, stream
         f.argtypes = [p] * 8 + [i] * 8 + [p, i, p, p, p]
-    elif name == "dense_decode_attention_bf16":
+    elif name.startswith("dense_decode_attention"):
         # q k v pos o, B S H KV d, strides, split, ws, cnt, stream
         f.argtypes = [p] * 5 + [i] * 5 + [p, i, p, p, p]
     else:
@@ -83,25 +93,46 @@ def _fn(name: str):
     return f
 
 
-def slab_rows(c: int, g: int, quantized: bool = False) -> int:
+def slab_rows(c: int, g: int, quantized: bool = False,
+              f32: bool = False) -> int:
     """Rows (column, head pairs) a block of #8 / #8q takes: all C·G of a
     (slot, kv head) up to ``SLAB_ROWS`` (#8q: ``SLAB_ROWS_Q8``, one
-    ``mma.sync`` warpgroup); above that, slabs of that many rows."""
-    return min(c * g, SLAB_ROWS_Q8 if quantized else SLAB_ROWS)
+    ``mma.sync`` warpgroup; the f32 instances ``SLAB_ROWS_F32``); above
+    that, slabs of that many rows."""
+    cap = (SLAB_ROWS_F32 if f32 else SLAB_ROWS_Q8 if quantized
+           else SLAB_ROWS)
+    return min(c * g, cap)
+
+
+def f32_row_tile(brows: int) -> int:
+    """Query rows the f32 kernel pads a block's ``brows`` rows to: 16,
+    32 or 64 (RA = 1, 2 or 4 rows a thread row)."""
+    return 16 if brows <= 16 else 32 if brows <= 32 else 64
+
+
+def f32_workspace_elems(blocks: int, chunks: int, brows: int,
+                        d: int) -> int:
+    """f32 elements of the f32 kernel's split workspace: each chunk of
+    each block keeps (m, l, O) a thread: RA · (d / 16 + 2) floats."""
+    ra = f32_row_tile(brows) // 16
+    return blocks * chunks * THREADS_F32 * ra * (d // 16 + 2)
 
 
 def paged_path(b: int, c: int, h: int, kv: int, p_tab: int, page: int,
-               sms: int, quantized: bool = False) -> tuple:
+               sms: int, quantized: bool = False, f32: bool = False
+               ) -> tuple:
     """How #8's kernel runs: ``("mma", split)`` below 64 rows a block
     (C·G < 64), else ``("wgmma", split)``; #8q (``quantized``) always
     ``"mma"``, in slabs of at most 64 rows. ``split`` is the tiles of 64
     cells a chunk of each window when the blocks (B·KV·slabs) would leave
     the card under-filled (fewer than two on each of ``sms`` SMs), so
     that about four blocks an SM run, and 0 (one block a window)
-    otherwise."""
+    otherwise. ``f32``: the f32 instances' FFMA kernel (``"ffma"``), in
+    slabs of at most 64 rows, by the same chunk rule."""
     rows = c * (h // kv)
-    mode = "mma" if quantized or rows < 64 else "wgmma"
-    blocks = b * kv * -(-rows // slab_rows(c, h // kv, quantized))
+    mode = ("ffma" if f32 else "mma" if quantized or rows < 64
+            else "wgmma")
+    blocks = b * kv * -(-rows // slab_rows(c, h // kv, quantized, f32))
     return mode, _chunk_tiles(blocks, -(-p_tab * page // TILE_CELLS), sms)
 
 
@@ -158,7 +189,7 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _build.check_no_grad((q, k_cache, v_cache), what)
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_cache, v_cache, tables, pos)
-    _fa._check_cuda((q, k_cache, v_cache), d, what)
+    sfx = _fa._check_cuda((q, k_cache, v_cache), d, what)
     _check_kernel_dims(h, kv, page, what)
     tables = tables.to(device=q.device, dtype=torch.int32).contiguous()
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
@@ -166,10 +197,11 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     st = _fa._strides(q, k_cache, v_cache, o)
     st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    _, split = paged_path(b, c, h, kv, tables.shape[1], page, sms)
+    _, split = paged_path(b, c, h, kv, tables.shape[1], page, sms,
+                          f32=bool(sfx))
     rc = _launch_tc(q, k_cache, v_cache, tables, pos, o, n, page, st, split)
     _build.check(rc, what)
-    LAUNCHES[what] += 1
+    LAUNCHES[what + sfx] += 1
     return o
 
 
@@ -182,21 +214,27 @@ def _launch_tc(q, k_cache, v_cache, tables, pos, o, n: int, page: int, st,
     counters (``_build.counters``)."""
     b, c, h, d = q.shape
     kv, p_tab = k_cache.shape[2], tables.shape[1]
+    f32 = q.dtype == torch.float32
     ws = cnt = None
     if split:
         rows = c * (h // kv)
-        brows = slab_rows(c, h // kv, scales is not None)
+        brows = slab_rows(c, h // kv, scales is not None, f32)
         slabs = -(-rows // brows)
-        threads = 128 * (1 if brows <= 64 else 2 if brows <= 128 else 4)
         chunks = -(-p_tab * page // (TILE_CELLS * split))
-        ws = torch.empty(b * kv * slabs * chunks * threads * (d // 2 + 4),
-                         dtype=torch.float32, device=q.device)
+        if f32:
+            elems = f32_workspace_elems(b * kv * slabs, chunks, brows, d)
+        else:
+            threads = 128 * (1 if brows <= 64 else 2 if brows <= 128 else 4)
+            elems = b * kv * slabs * chunks * threads * (d // 2 + 4)
+        ws = torch.empty(elems, dtype=torch.float32, device=q.device)
         cnt = _build.counters(q.device, b * kv * slabs)
     head = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()]
     if scales is not None:
         head += [t.data_ptr() for t in scales]
-    return _fn("paged_attention_bf16" if scales is None
-               else "paged_attention_int8")(
+    return _fn(("paged_attention_bf16" if scales is None
+                else "paged_attention_int8") if not f32 else
+               ("paged_attention_f32" if scales is None
+                else "paged_attention_int8_f32"))(
         *head, tables.data_ptr(), pos.data_ptr(), o.data_ptr(), b, c, h, kv,
         d, n, page, p_tab, ctypes.cast(st, ctypes.c_void_p), split,
         None if ws is None else ws.data_ptr(),
@@ -210,14 +248,17 @@ def launch_dense(q, k, v, pos, o, split: int) -> int:
     run takes the workspace and counters as ``_launch_tc``'s."""
     b, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
+    f32 = q.dtype == torch.float32
     ws = cnt = None
     if split:
         chunks = -(-s // (TILE_CELLS * split))
-        ws = torch.empty(b * kv * chunks * 128 * (d // 2 + 4),
-                         dtype=torch.float32, device=q.device)
+        elems = (f32_workspace_elems(b * kv, chunks, h // kv, d) if f32
+                 else b * kv * chunks * 128 * (d // 2 + 4))
+        ws = torch.empty(elems, dtype=torch.float32, device=q.device)
         cnt = _build.counters(q.device, b * kv)
     st = _fa._strides(q, k, v, o)
-    return _fn("dense_decode_attention_bf16")(
+    return _fn("dense_decode_attention_f32" if f32
+               else "dense_decode_attention_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         o.data_ptr(), b, s, h, kv, d, ctypes.cast(st, ctypes.c_void_p), split,
         None if ws is None else ws.data_ptr(),
@@ -249,7 +290,7 @@ def paged_decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
     if not q.is_cuda:
         return paged_decode_attention_int8_plain(q, k_cache, v_cache, k_scale,
                                                  v_scale, tables, pos)
-    _fa._check_cuda((q,), d, what)
+    sfx = _fa._check_cuda((q,), d, what)
     for t, nm, dt in ((k_cache, "k", torch.int8), (v_cache, "v", torch.int8),
                       (k_scale, "k_scale", torch.float32),
                       (v_scale, "v_scale", torch.float32)):
@@ -268,9 +309,9 @@ def paged_decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
     st = int8_strides(q, k_cache, v_cache, k_scale, v_scale, tables, o)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     _, split = paged_path(b, c, h, kv, tables.shape[1], page, sms,
-                          quantized=True)
+                          quantized=True, f32=bool(sfx))
     rc = _launch_tc(q, k_cache, v_cache, tables, pos, o, n, page, st, split,
                     (k_scale, v_scale))
     _build.check(rc, what)
-    LAUNCHES[what] += 1
+    LAUNCHES[what + sfx] += 1
     return o

@@ -13,9 +13,12 @@ JAX package (no backward).
 
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel or raises: bf16 operands launch the kernels below; f32
-operands launch K1's f32 instance (``LAUNCHES["tt_linear_f32"]``: FFMA
-tiles, P = α·x·A kept in f32 — RoBERTa trains in f32), and K2, #9 and #10
-raise ``TypeError`` on f32 (no f32 instance yet); mixed dtypes raise.
+operands launch the f32 instances of K1 (``LAUNCHES["tt_linear_f32"]``:
+FFMA tiles, P = α·x·A kept in f32 — RoBERTa trains in f32) and K2
+(``LAUNCHES["tt_linear_batched_a_f32"]``: a pre-pass for P[m] = x[m]·A[m],
+then an FFMA pass over [x | α·P]·[W; B] in slices of K merged in a fixed
+order — RoBERTa decodes in f32), and #9 and #10 raise ``TypeError`` on f32
+(no f32 instance yet); mixed dtypes raise.
 ``LAUNCHES`` counts the launches, and nothing else adds to it. The
 training backward runs K1 again on transposed operands
 (``dispatch._FusedTTLinear``): K1 reads W,
@@ -38,7 +41,8 @@ refused: the workspace, not a constant, bounds it. The split-K kernel
 takes only operands that allow 16-byte copies: ``vec_operands`` pads
 ragged K / N with zeros and copies unaligned operands first (the model's
 shapes need no copy). K2 and #10 take at most 64 rows a launch;
-``ops.py`` splits larger M.
+``ops.py`` splits larger M (f32 rows too). K2's f32 instance takes any
+M, N, K and r in one launch, W, A and B through their strides.
 """
 from __future__ import annotations
 
@@ -51,7 +55,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"tt_linear": 0, "tt_linear_batched_a": 0, "tt_linear_w8": 0,
-            "tt_linear_batched_a_w8": 0, "tt_linear_f32": 0}
+            "tt_linear_batched_a_w8": 0, "tt_linear_f32": 0,
+            "tt_linear_batched_a_f32": 0}
 
 tt_linear_plain = _ref.tt_linear_ref
 tt_linear_batched_a_plain = _ref.tt_linear_batched_a_ref
@@ -66,6 +71,9 @@ _ARGTYPES = {
     "tt_linear_f32": [_P] * 5 + [_I] * 4 + [_F, _P, _P, _P],
     # x w a b y, M N K r, alpha, splits, ws, stream
     "tt_linear_batched_a_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _P, _P],
+    # x w a b y, M N K r, alpha, strides (w, a, b), splits, ws, cnt, stream
+    "tt_linear_batched_a_f32": [_P] * 5 + [_I] * 4 + [_F, _P, _I, _P, _P,
+                                                      _P],
     # x w scale a b y, M N K r G, alpha, strides (a, b), splits, ws, stream
     "tt_linear_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _P, _P],
     # x w scale a b y, M N K r G, alpha, splits, ws, stream
@@ -83,8 +91,11 @@ BATCHED_A_ROWS = 64
 #: slices of a tile are one thread-block cluster of at most 8)
 W8_TILE, W8_BK, W8_MAX_SPLITS = 64, 64, 8
 #: K rows a partial sum of K2's and #10's pre-pass (P[m] = x[m]·A[m])
-#: covers, at ranks up to RANK_WGMMA
+#: covers, at ranks up to RANK_WGMMA (and at every rank in f32)
 PRE_K = 256
+#: K2's f32 instance: output channels and rows a block, and most rows of
+#: K + r a slice (``csrc/tt_linear.cu``, ``BA32_*``)
+BA32_TILE_N, BA32_TILE_M, BA32_MAX_ROWS = 128, 8, 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,6 +140,29 @@ def w8_splits(m: int, n: int, k: int, sms: int) -> int:
     while tiles * s < sms and 2 * s * 2 <= nk and s < W8_MAX_SPLITS:
         s *= 2
     return s
+
+
+def ba_f32_splits(m: int, n: int, k: int, r: int, sms: int) -> int:
+    """Slices of the K + r rows for K2's f32 instance: the fewest (a power
+    of two) that put about two blocks on each of ``sms`` SMs with every
+    slice at least 32 rows long, and never a slice above
+    ``BA32_MAX_ROWS``. M = 4, N = K = 1024, r = 8 on 132 SMs: 8 tiles x 16
+    slices of 65 rows."""
+    rows = k + r
+    tiles = -(-n // BA32_TILE_N) * -(-m // BA32_TILE_M)
+    s = 1
+    while tiles * s < 2 * sms and rows >= 2 * s * 32:
+        s *= 2
+    return max(s, -(-rows // BA32_MAX_ROWS))
+
+
+def ba_f32_workspace_elems(m: int, n: int, k: int, r: int,
+                           splits: int) -> int:
+    """f32 elements of K2's f32 workspace: the pre-pass's partials of P
+    (M, ceil(K / 256), r), then the slices' partial tiles."""
+    tiles = -(-n // BA32_TILE_N) * -(-m // BA32_TILE_M)
+    part = tiles * BA32_TILE_M * BA32_TILE_N * splits if splits > 1 else 0
+    return m * -(-k // PRE_K) * r + part
 
 
 def _padded(k: int, n: int, w_dtype) -> tuple:
@@ -210,8 +244,8 @@ def _check_cuda(x, w, a, b, what: str, w_dtype=None,
                      (a, "a", dtype), (b, "b", dtype)):
         if t.dtype != dt:
             raise TypeError(f"{what}: the CUDA kernel takes {dt} for {n}; "
-                            f"got {t.dtype} (f32 instances exist for K1, K3 "
-                            "/ #5, #6 and #7 only)")
+                            f"got {t.dtype} (f32 instances exist for K1, "
+                            "K2, K3 / #5, #6, #7, K4, #8 and #8q only)")
         if t.device != x.device:
             raise ValueError(f"{what}: {n} is on {t.device}, x on {x.device}")
 
@@ -340,6 +374,32 @@ def _launch_k1_f32(x, w, a, b, alpha) -> torch.Tensor:
     return y
 
 
+def _launch_ba_f32(x, w, a, b, alpha, splits: int = 0) -> torch.Tensor:
+    """K2's f32 instance on checked CUDA operands, any M: the pre-pass,
+    then the slices of K + r rows (``splits``, 0: ``ba_f32_splits``'s);
+    W, A and B are read through their strides."""
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[2]
+    x = x.contiguous()
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    splits = splits or ba_f32_splits(m, n, k, r, _sms(x))
+    ws = torch.empty(ba_f32_workspace_elems(m, n, k, r, splits),
+                     dtype=torch.float32, device=x.device)
+    tiles = -(-n // BA32_TILE_N) * -(-m // BA32_TILE_M)
+    cnt = _build.counters(x.device, tiles) if splits > 1 else None
+    st = (ctypes.c_longlong * 7)(*w.stride(), *a.stride(), *b.stride())
+    rc = _fn("tt_linear_batched_a_f32")(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+        y.data_ptr(), m, n, k, r, float(alpha),
+        ctypes.cast(st, ctypes.c_void_p), splits, ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), _build.stream_ptr(x))
+    _build.check(rc, "tt_linear_batched_a (f32)")
+    LAUNCHES["tt_linear_batched_a_f32"] += 1
+    return y
+
+
 def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     """x (M, K), w (K, N), a (K, r), b (r, N) -> y (M, N). W, A and B may
@@ -363,7 +423,8 @@ def tt_linear(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 def tt_linear_batched_a(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                         b: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     """x (M, K), w (K, N), a (M, K, r), b (r, N) -> y (M, N); on the card
-    M <= 64 (one launch; ``ops.tt_linear_batched_a`` splits larger M)."""
+    bf16 takes M <= 64 (one launch; ``ops.tt_linear_batched_a`` splits
+    larger M in either dtype), f32 any M in one launch."""
     m, k = x.shape
     n, r = w.shape[1], a.shape[2]
     if w.shape[0] != k or a.shape[:2] != (m, k) or b.shape != (r, n):
@@ -373,6 +434,9 @@ def tt_linear_batched_a(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     _build.check_no_grad((x, w, a, b), "tt_linear_batched_a")
     if not x.is_cuda:
         return tt_linear_batched_a_plain(x, w, a, b, alpha)
+    if x.dtype == torch.float32:
+        _check_cuda(x, w, a, b, "tt_linear_batched_a", dtype=torch.float32)
+        return _launch_ba_f32(x, w, a, b, alpha)
     _check_cuda(x, w, a, b, "tt_linear_batched_a")
     if not 1 <= m <= BATCHED_A_ROWS:
         raise ValueError(f"tt_linear_batched_a: M={m} outside "

@@ -8,10 +8,12 @@ without a CUDA device of compute capability >= 9.0. Run on the card with
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-The f32 instances (K1, K3 / #5, #6, #7: RoBERTa's f32 training) are held
-to 1e-4 of the largest plain value (f32 sums in another order; a TF32
-pass would miss it), lse to 1e-5 absolute; mixed dtypes and f32 where no
-f32 instance exists (K2, K4, #8) raise ``TypeError``.
+The f32 instances (K1, K3 / #5, #6, #7: RoBERTa's f32 training; K2, K4,
+#8, #8q: its f32 serving) are held to 1e-4 of the largest plain value
+(f32 sums in another order; a TF32 pass would miss it), lse to 1e-5
+absolute, and K2, K4, #8 and #8q in f32 are bit-identical from call to
+call; mixed dtypes and f32 where no f32 instance exists (#9, #10) raise
+``TypeError``.
 
 This file imports no JAX (``--noconftest`` skips the JAX fixture file),
 so it runs where only PyTorch is installed. Tolerances: bf16 linears, fp
@@ -386,19 +388,21 @@ def test_launch_counts_and_cpu_leg(dev):
         ttl.tt_linear(x.float(), w, a, b)
 
 
-def _paged_case(dev, c, g, d, page, seed=0, edge=False):
+def _paged_case(dev, c, g, d, page, seed=0, edge=False, f32=False):
     """4 slots over a 40-block pool, 6-page tables: slot 0 at position 0,
     slot 1 with its last in-window page a sentinel (read clamped, masked
     past its position), slot 2 with its first query on the last cell of
     the table, slot 3 mid-table. Every entry past a slot's window is a
     sentinel (N or larger). ``edge``: a fifth slot whose window ends
-    exactly on a page edge (its last query on a page's last cell)."""
+    exactly on a page edge (its last query on a page's last cell).
+    ``f32``: q and the pools in f32."""
     b, kv, n, p_tab = 4 + int(edge), 2, 40, 6
     h = kv * g
     gen = torch.Generator().manual_seed(seed + c * 131 + g * 17 + page)
-    q = _rn(dev, b, c, h, d, seed=seed)
-    kc, vc = _rn(dev, n, page, kv, d, seed=1), _rn(dev, n, page, kv, d,
-                                                    seed=2)
+    rn = _rf if f32 else _rn
+    q = rn(dev, b, c, h, d, seed=seed)
+    kc, vc = rn(dev, n, page, kv, d, seed=1), rn(dev, n, page, kv, d,
+                                                  seed=2)
     pos = [0, 2 * page + 3, p_tab * page - 1, page + 1]
     if edge:
         pos.append((-(-c // page) + 1) * page - c)
@@ -492,9 +496,18 @@ def test_paged_decode_attention_rejects_what_the_kernel_does_not_take(dev):
         tpa.paged_decode_attention(q[..., :32].contiguous(),
                                    kc[..., :32].contiguous(),
                                    vc[..., :32].contiguous(), tables, pos)
-    with pytest.raises(TypeError):                      # f32
-        tpa.paged_decode_attention(q.float(), kc.float(), vc.float(),
-                                   tables, pos)
+    kernels.reset_launch_counts()                       # f32: its instance
+    got = tpa.paged_decode_attention(q.float(), kc.float(), vc.float(),
+                                     tables, pos)
+    assert got.dtype == torch.float32
+    n_ = kernels.launch_counts()
+    assert n_["paged_decode_attention_f32"] == 1
+    assert n_["paged_decode_attention"] == 0
+    with pytest.raises(TypeError):                      # mixed dtypes
+        tpa.paged_decode_attention(q.float(), kc, vc, tables, pos)
+    with pytest.raises(NotImplementedError):            # f32 head_dim 128
+        tpa.paged_decode_attention(*(_rf(dev, *t.shape[:-1], 128)
+                                     for t in (q, kc, vc)), tables, pos)
     with pytest.raises(RuntimeError, match="requires grad"):
         tpa.paged_decode_attention(q.clone().requires_grad_(True), kc, vc,
                                    tables, pos)
@@ -1395,8 +1408,10 @@ def test_f32_fused_linear_and_flash_backward(dev):
 
 
 def test_f32_mixed_and_missing_instances_raise(dev):
-    """Mixed bf16 / f32 operands raise; so do f32 operands of the kernels
-    that have no f32 instance yet (K2, K4, #8): no plain fallback."""
+    """Mixed bf16 / f32 operands raise, and so do f32 operands of the
+    kernels that have no f32 instance yet (#9, #10): no plain fallback.
+    f32 operands of K2, K4, #8 and #8q launch their f32 instances, counted
+    under the name + ``_f32``, and no bf16 instance."""
     xb, wb = _rn(dev, 4, 64), _rn(dev, 64, 32)
     ab, bb = _rn(dev, 64, 8), _rn(dev, 8, 32)
     with pytest.raises(TypeError):
@@ -1407,17 +1422,212 @@ def test_f32_mixed_and_missing_instances_raise(dev):
     with pytest.raises(TypeError):
         tfa.flash_attention_fwd(q, q.bfloat16(), q.bfloat16(), True)
     kernels.reset_launch_counts()
-    with pytest.raises(TypeError):
-        ttl.tt_linear_batched_a(xb.float(), wb.float(),
-                                _rf(dev, 4, 64, 8), bb.float())
+    with pytest.raises(TypeError):                      # mixed K2
+        ttl.tt_linear_batched_a(xb.float(), wb, _rf(dev, 4, 64, 8),
+                                bb.float())
     cache = _rf(dev, 2, 16, 4, 64)
-    with pytest.raises(TypeError):
-        tfa.decode_attention(_rf(dev, 2, 4, 64), cache, cache,
+    with pytest.raises(TypeError):                      # mixed K4
+        tfa.decode_attention(_rf(dev, 2, 4, 64), cache, cache.bfloat16(),
                              torch.tensor([3, 7], device=dev))
-    with pytest.raises(TypeError):
-        tpa.paged_decode_attention(
-            _rf(dev, 2, 1, 4, 64), _rf(dev, 8, 16, 4, 64),
-            _rf(dev, 8, 16, 4, 64),
-            torch.zeros((2, 2), dtype=torch.int32, device=dev),
-            torch.tensor([3, 7], dtype=torch.int32, device=dev))
+    wq, sc = tquant.quantize_int8(_rf(dev, 64, 32))
+    with pytest.raises(TypeError):                      # #9 in f32
+        ttl.tt_linear_w8(xb.float(), wq, sc, ab.float(), bb.float())
+    with pytest.raises(TypeError):                      # #10 in f32
+        ttl.tt_linear_batched_a_w8(xb.float(), wq, sc, _rf(dev, 4, 64, 8),
+                                   bb.float())
     assert not any(kernels.launch_counts().values())
+    ttl.tt_linear_batched_a(xb.float(), wb.float(), _rf(dev, 4, 64, 8),
+                            bb.float())
+    tfa.decode_attention(_rf(dev, 2, 4, 64), cache, cache,
+                         torch.tensor([3, 7], device=dev))
+    tables = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    pos = torch.tensor([3, 7], dtype=torch.int32, device=dev)
+    pool = _rf(dev, 8, 16, 4, 64)
+    tpa.paged_decode_attention(_rf(dev, 2, 1, 4, 64), pool, pool, tables,
+                               pos)
+    k8, ks = tquant.quantize_kv(pool)
+    tpa.paged_decode_attention_int8(_rf(dev, 2, 1, 4, 64), k8, k8, ks, ks,
+                                    tables, pos)
+    n_ = kernels.launch_counts()
+    assert {k: v for k, v in n_.items() if v} == {
+        "tt_linear_batched_a_f32": 1, "decode_attention_f32": 1,
+        "paged_decode_attention_f32": 1,
+        "paged_decode_attention_int8_f32": 1}
+
+
+# K2, K4, #8 and #8q in f32 (RoBERTa serves in f32)
+
+def _ba_f32_case(dev, m, k, n, r, view):
+    """x (M, K); W, A, B contiguous, or (``view``) W and B as transposed
+    views of (N, K) / (N, r) tensors and A as a (M, r, K) tensor seen as
+    (M, K, r): every one read through its strides, no copy."""
+    x = _rf(dev, m, k)
+    if view:
+        w = _rf(dev, n, k, scale=k ** -0.5).T
+        a = _rf(dev, m, r, k, scale=k ** -0.5).transpose(1, 2)
+        b = _rf(dev, n, r, scale=r ** -0.5).T
+    else:
+        w = _rf(dev, k, n, scale=k ** -0.5)
+        a = _rf(dev, m, k, r, scale=k ** -0.5)
+        b = _rf(dev, r, n, scale=r ** -0.5)
+    return x, w, a, b
+
+
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("r", [1, 8, 64, 1024])
+@pytest.mark.parametrize("k,n", [(768, 768), (1024, 1024), (69, 45)])
+@pytest.mark.parametrize("m", [1, 4, 64, 65, 130])
+def test_tt_linear_batched_a_f32(dev, m, k, n, r, view):
+    """K2's f32 instance at any M (one launch: 65 and 130 rows too), the
+    model's K = N of roberta-base / -large and a ragged pair, ranks 1 to
+    1024, contiguous and strided operands: within 1e-4 of the largest
+    plain value, two calls bit-identical, one f32 launch each."""
+    x, w, a, b = _ba_f32_case(dev, m, k, n, r, view)
+    kernels.reset_launch_counts()
+    got = ttl.tt_linear_batched_a(x, w, a, b, 2.0)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    _close_f32(got, ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0))
+    assert torch.equal(ttl.tt_linear_batched_a(x, w, a, b, 2.0), got)
+    n_ = kernels.launch_counts()
+    assert n_["tt_linear_batched_a_f32"] == 2
+    assert n_["tt_linear_batched_a"] == 0
+
+
+@pytest.mark.parametrize("splits", [0, 2, 3, 16, 64])
+def test_tt_linear_batched_a_f32_slices(dev, splits):
+    """K2 f32 over 2 to 64 slices of K + r at roberta-large's decode shape
+    (0: the launcher's; one slice would exceed the 1024 rows a slice
+    takes): the slices merge in a fixed order."""
+    x, w, a, b = _ba_f32_case(dev, 4, 1024, 1024, 8, False)
+    want = ttl.tt_linear_batched_a_plain(x, w, a, b, 2.0)
+    ys = [ttl._launch_ba_f32(x, w, a, b, 2.0, splits) for _ in range(2)]
+    _close_f32(ys[0], want)
+    assert torch.equal(ys[0], ys[1])
+
+
+def _dense_launch_f32(q, k, v, pos, split):
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    tpa._build.check(tpa.launch_dense(q, k, v, pos, o, split),
+                     "decode_attention (f32)")
+    return o
+
+
+@pytest.mark.parametrize("split", [0, 1, 2, 3])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_decode_attention_f32(dev, g, split):
+    """K4's f32 instance over a 300-cell cache (not a multiple of the
+    64-cell tile): ragged positions 0 (exactly v[0]), 63, S - 1 and past
+    the cache (clamped), windows whole or in chunks of ``split`` tiles;
+    within 1e-4 of the largest plain value, two calls bit-identical."""
+    b, s, kv, d = 5, 300, 2, 64
+    q, k, v = (_rf(dev, b, kv * g, d), _rf(dev, b, s, kv, d, seed=1),
+               _rf(dev, b, s, kv, d, seed=2))
+    pos = torch.tensor([0, 63, s - 1, s, 5 * s], dtype=torch.int32,
+                       device=dev)
+    got = _dense_launch_f32(q, k, v, pos, split)
+    _close_f32(got, tfa.decode_attention_plain(q, k, v, pos))
+    torch.testing.assert_close(got[0], v[0, 0].repeat_interleave(g, 0),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(_dense_launch_f32(q, k, v, pos, split), got)
+
+
+def test_decode_attention_f32_engine_shape_and_views(dev):
+    """K4 f32 at roberta-large's dense decode (4 slots x 256 cells, 16
+    heads) through the launcher, on cache views of a stacked cache and q
+    a view of a wider projection: one f32 launch, no bf16 one."""
+    b, s, h, d = 4, 256, 16, 64
+    wide = _rf(dev, b, h + 4, d, seed=3)
+    q = wide[:, 2:2 + h]
+    stack = _rf(dev, 2, b, s + 40, h, d, seed=4)
+    k, v = stack[0, :, :s], stack[1, :, :s]
+    pos = torch.tensor([17, 100, 200, 255], dtype=torch.int32, device=dev)
+    kernels.reset_launch_counts()
+    got = tfa.decode_attention(q, k, v, pos)
+    _close_f32(got, tfa.decode_attention_plain(q, k, v, pos))
+    assert torch.equal(tfa.decode_attention(q, k, v, pos), got)
+    n_ = kernels.launch_counts()
+    assert n_["decode_attention_f32"] == 2 and n_["decode_attention"] == 0
+
+
+@pytest.mark.parametrize("page", [8, 16, 64])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", [1, 7, 32])
+def test_paged_decode_attention_f32(dev, c, g, page):
+    """#8 and #8q in f32 (d = 64) from 1 to 256 rows a (slot, kv head)
+    (slabs of 64 above 64): sentinels inside and past the window, a window
+    crossing pages and one ending on a page edge; within 1e-4 of the
+    largest plain value, two calls bit-identical."""
+    args = _paged_case(dev, c, g, 64, page, edge=True, f32=True)
+    kernels.reset_launch_counts()
+    got = tpa.paged_decode_attention(*args)
+    assert got.shape == args[0].shape and got.dtype == torch.float32
+    _close_f32(got, tpa.paged_decode_attention_plain(*args))
+    assert torch.equal(tpa.paged_decode_attention(*args), got)
+    q, kc, vc, tables, pos = args
+    k8, ks = tquant.quantize_kv(kc * 3)
+    v8, vs = tquant.quantize_kv(vc * 3)
+    qargs = (q, k8, v8, ks, vs, tables, pos)
+    got8 = tpa.paged_decode_attention_int8(*qargs)
+    assert got8.dtype == torch.float32
+    _close_f32(got8, tpa.paged_decode_attention_int8_plain(*qargs))
+    assert torch.equal(tpa.paged_decode_attention_int8(*qargs), got8)
+    n_ = kernels.launch_counts()
+    assert n_["paged_decode_attention_f32"] == 2
+    assert n_["paged_decode_attention_int8_f32"] == 2
+    assert n_["paged_decode_attention"] == n_["paged_decode_attention_int8"] \
+        == 0
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("split", [0, 1, 3, 5])
+@pytest.mark.parametrize("b,c,g", [(8, 1, 1), (8, 32, 1), (8, 7, 8),
+                                   (1, 1, 1), (1, 32, 2)])
+def test_paged_decode_attention_f32_split_windows(dev, b, c, g, split,
+                                                  quantized):
+    """#8 / #8q f32 with windows in chunks of ``split`` 64-cell tiles at
+    the engine's page and table width, B = 8 and B = 1 (one slot: the
+    launcher splits its window too): within 1e-4 of the largest plain
+    value, two calls bit-identical (a fixed-order merge)."""
+    kv, d, page, n, p_tab = 4, 64, 16, 256, 34
+    h = kv * g
+    pos = [0, 37, 100, 161, 230, 299, 407, 479][-b:]
+    gen = torch.Generator().manual_seed(b + c + g)
+    tables = torch.full((b, p_tab), n, dtype=torch.int32)
+    perm, used = torch.randperm(n, generator=gen), 0
+    for row, p0 in enumerate(pos):
+        last = min((p0 + c - 1) // page, p_tab - 1)
+        tables[row, :last + 1] = perm[used:used + last + 1].int()
+        used += last + 1
+    q = _rf(dev, b, c, h, d, seed=3)
+    kc, vc = _rf(dev, n, page, kv, d, seed=4), _rf(dev, n, page, kv, d,
+                                                    seed=5)
+    tables, pos = tables.to(dev), torch.tensor(pos, dtype=torch.int32,
+                                               device=dev)
+    o = [torch.empty_like(q) for _ in range(2)]
+    if quantized:
+        k8, ks = tquant.quantize_kv(kc)
+        v8, vs = tquant.quantize_kv(vc)
+        st = tpa.int8_strides(q, k8, v8, ks, vs, tables, o[0])
+        for t in o:
+            tpa._build.check(tpa._launch_tc(q, k8, v8, tables, pos, t, n,
+                                            page, st, split, (ks, vs)),
+                             "split")
+        want = tpa.paged_decode_attention_int8_plain(q, k8, v8, ks, vs,
+                                                     tables, pos)
+        got = tpa.paged_decode_attention_int8(q, k8, v8, ks, vs, tables,
+                                              pos)
+    else:
+        st = tfa._strides(q, kc, vc, o[0])
+        st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
+        for t in o:
+            tpa._build.check(tpa._launch_tc(q, kc, vc, tables, pos, t, n,
+                                            page, st, split), "split")
+        want = tpa.paged_decode_attention_plain(q, kc, vc, tables, pos)
+        got = tpa.paged_decode_attention(q, kc, vc, tables, pos)
+    _close_f32(o[0], want)
+    assert torch.equal(o[0], o[1])
+    _close_f32(got, want)       # the launcher's own split
+    if b == 1:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert tpa.paged_path(b, c, h, kv, p_tab, page, sms,
+                              quantized, True)[1] > 0
