@@ -39,7 +39,13 @@ Phases, each printed on its own lines:
      the f32 serving instances at roberta-large's shapes: K2 at M = 4,
      8, 64 (K = N = 1024, r = 8) and M = 4 at K = N = 768, K4 over 4
      slots x 256 cells, #8 and #8q at C = 32 and C = 1 (8 slots,
-     34-page tables), each two calls bit-identical;
+     34-page tables), each two calls bit-identical; then the head_dim
+     256 instances (gemma-7b: 16 heads of 256) within 2e-2 of their plain
+     versions, two calls bit-identical: K3 at T = 16, 64, 96, 256, #5 at
+     T = 64 and 4 x 1024 (lse within 1e-3; off phase 12's path), K4 over
+     4 x 256 and 4 x 4096 cells, #8 and #8q at phase 4's shape; and K1
+     (M = 64), K2 (M = 4), #9 (M = 64) and #10 (M = 4) at gemma-7b's q / v
+     projection, K = 3072 -> N = 4096, r = 8;
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -99,7 +105,10 @@ Phases, each printed on its own lines:
      (acceptance, tokens per step, tok/s; teacher-forced tokens; K4 once
      a verified column; #8 / #8q on the verifier; no leaked block);
   9. the paged adapter registry, chaos and preemption on the same
-     full-width model with a 4+1d adapter over 64 tasks at 0.1 of the
+     full-width model cut to 12 of its 24 layers (the registry, chaos and
+     preemption are host bookkeeping, which depth does not change; the
+     cut keeps the script near half its time limit) with a 4+1d adapter
+     over 64 tasks at 0.1 of the
      base q projection, every run under a ChaosInjector whose audit runs
      after every host-loop iteration (no pin, no leaked block after it):
      (a) the paged fp cell with 4 pool slots, 48 requests over 24 tasks
@@ -107,8 +116,8 @@ Phases, each printed on its own lines:
      hits > 0, warm prefix hits after eviction, #8 launched), every
      token within 5% of the plain leg's teacher-forced maximum, the count
      equal to the all-resident engine's printed; (b) the dense cell under
-     the lora runtime, fp and w8, with 3 pool slots (K2 / #10 48 a decode
-     step on A gathered from the pool); (c) a seeded chaos run (forced
+     the lora runtime, fp and w8, with 3 pool slots (K2 / #10 2L = 24 a
+     decode step on A gathered from the pool); (c) a seeded chaos run (forced
      allocation failures, two failed fault-ins, a cancel, a NaN row):
      one CANCELLED, one FAILED with 5 tokens, the survivors checked
      against the plain leg; (d) recompute preemption in a 10-block pool
@@ -142,8 +151,22 @@ Phases, each printed on its own lines:
      #10's TypeError at its first f32 linear (no f32 #9 / #10 yet), with
      no launch and no plain fallback; the phases' seconds and the
      script's;
-  12. one JSON line with every kernel's record (launches per path; the
-     f32 instances under their own names with every phase-2 row).
+  12. gemma-7b served at full width (28 x 3072, 16 heads of 256 over 16
+     KV heads, GeGLU 24576, vocab 256000, bf16; 8.54 B random weights
+     from the seed) with a 4+1d MetaTT q/v adapter (rank 8, 3 tasks) at
+     0.25 of the base q projection, through the head_dim 256 instances of
+     K3, K4, #8 and #8q: (a) phase 3's dense cell (2L K1 + L K3 a
+     prefill, 2L K2 + L K4 a decode step, nothing else), (b) phase 4's
+     paged cell cold then warm (L #8 an engine step, prefix hits, COW, no
+     leaked block), (c) int8 weights and int8 KV (L #8q a paged step,
+     kv_bytes_peak below (b)'s; then the dense engine over int8 weights:
+     2L #9 a prefill, 2L #10 a decode step) — prefill, decode-step and
+     paged-step logits within 5% of the plain leg's largest; tok/s, step
+     ms, prefill ms / TTFT, kv_bytes_peak, device busy share and peak
+     memory a cell, each cell's model freed before the next;
+  13. one JSON line with every kernel's record (launches per path; the
+     f32 and d = 256 instances under their own names with every phase-2
+     row; K1, K2, #9 and #10 with their rows at gemma-7b's q / v).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -151,6 +174,7 @@ device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -225,6 +249,18 @@ KERNELS = {
     "paged_decode_attention_int8_f32": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:161"),
+    # the head_dim 256 instances (gemma-7b's serving), in the same sources
+    "flash_attention_d256": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:112"),
+    "decode_attention_d256": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/flash_attention.py:393"),
+    "paged_decode_attention_d256": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:161"),
+    "paged_decode_attention_int8_d256": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:161"),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. Linears: one
 # bf16 ulp (2^-7 relative) from a different f32 summation order.
@@ -238,6 +274,9 @@ TOL = {"tt_linear": (1e-2, 1e-2), "tt_linear_batched_a": (1e-2, 1e-2),
        "paged_decode_attention": (2e-2, 2e-2),
        "tt_linear_w8": (1e-2, 1e-2), "tt_linear_batched_a_w8": (1e-2, 1e-2),
        "paged_decode_attention_int8": (2e-2, 2e-2)}
+TOL.update({k + "_d256": (2e-2, 2e-2) for k in (
+    "flash_attention", "flash_attention_fwd", "decode_attention",
+    "paged_decode_attention", "paged_decode_attention_int8")})
 # the paged engine's shape: 8 slots, a pool of 256 blocks of 16 cells,
 # 34-page tables (512 / 16 pages + 2 sentinel columns), 32-token chunks
 PAGED = dict(max_batch=8, cache_len=512, page_size=16, prefill_chunk=32,
@@ -424,22 +463,30 @@ def k1_rank_rows(dev, rn):
     return rows
 
 
-def k3_rows(dev, rn):
-    """K3 at prefill attention, causal, T == S (bucketed prompt); every
-    variant of the forward kernel timed, the launcher's choice printed."""
+K3_CASES = ((16, 32), (64, 32), (256, 32), (256, 8))   # (T = S, KV)
+
+
+def k3_rows(dev, rn, h=32, d=64, cases=K3_CASES, sfx=""):
+    """K3 at prefill attention, causal, T == S (bucketed prompt), B = 1,
+    ``h`` heads of ``d`` (``sfx``: the instance's name suffix, "_d256"
+    for gemma-7b's heads of 256); every variant of the forward kernel
+    timed (one at d = 256), the launcher's choice printed; two calls
+    bit-identical."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rows = []
-    for t, kvh in ((16, 32), (64, 32), (256, 32), (256, 8)):
-        b_, h, d = 1, 32, 64
+    name = "flash_attention" + sfx
+    for t, kvh in cases:
+        b_ = 1
 
         def make3():
             return (rn(b_, t, h, d), rn(b_, t, kvh, d), rn(b_, t, kvh, d))
         nbytes = 2 * (2 * b_ * t * h * d + 2 * b_ * t * kvh * d)
         sets = copies(make3, nbytes)
         q, kk, vv = sets[0]
-        err = compare("flash_attention", fa.flash_attention(q, kk, vv, True),
+        err = compare(name, fa.flash_attention(q, kk, vv, True),
                       fa.flash_attention_plain(q, kk, vv, True))
+        same(lambda *s: fa.flash_attention(*s, True), sets[0], name)
         pairs = t * (t + 1) // 2
         bms, by = bound_ms(nbytes, 4 * b_ * h * d * pairs)
         g = h // kvh
@@ -448,7 +495,7 @@ def k3_rows(dev, rn):
                      vv.repeat_interleave(g, 2).transpose(1, 2))
                     for q, kk, vv in sets]
         rows.append(dict(
-            name="flash_attention",
+            name=name,
             shape=f"B={b_} T=S={t} H={h} KV={kvh} d={d} causal",
             main=t == 64 and kvh == h,
             max_abs_err=err,
@@ -458,10 +505,10 @@ def k3_rows(dev, rn):
             library_ms=cuda_time_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True), lib_sets),
-            bound_ms=bms, bound_by=by, variant=fa.fwd_variant(t),
+            bound_ms=bms, bound_by=by, variant=fa.fwd_variant(t, d),
             variants={v: cuda_time_ms(
                 lambda *s: fa._launch_fwd(*s, True, None, v), sets)
-                for v in fa.FWD_VARIANTS}))
+                for v in fa.FWD_VARIANTS if d != 256 or v == "wg1"}))
     return rows
 
 
@@ -510,11 +557,16 @@ def k2_rows(dev, rn):
     return rows
 
 
-def k4_rows(dev, rn):
+K4_CASES = ((32, 256, (0, 37, 130, 255)), (8, 256, (0, 37, 130, 255)),
+            (32, 4096, (511, 1500, 3000, 4095)))   # (KV, S, positions)
+
+
+def k4_rows(dev, rn, h=32, d=64, cases=K4_CASES, sfx=""):
     """K4 over the dense decode cache: 4 slots at positions 0, 37, 130,
     255 of a 256-cell cache, H = 32, d = 64, with KV = 32 (the engine's,
     the main row) and KV = 8 (G = 4); and a long cache of 4096 cells at
-    positions 511, 1500, 3000, 4095. The bound counts q, o and the K/V
+    positions 511, 1500, 3000, 4095 (``h``, ``d``, ``cases``, ``sfx``:
+    gemma-7b's 16 heads of 256, "_d256"). The bound counts q, o and the K/V
     cells inside each slot's window; the library yardstick is SDPA with
     the boolean position mask (on head-repeated K/V where G > 1). Two
     calls must agree bit for bit; the chunk split the launcher takes
@@ -526,10 +578,9 @@ def k4_rows(dev, rn):
     from repro_torch.kernels import paged_attention as pa
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for kvh, s_len, pos in ((32, 256, (0, 37, 130, 255)),
-                            (8, 256, (0, 37, 130, 255)),
-                            (32, 4096, (511, 1500, 3000, 4095))):
-        b_, h, d = 4, 32, 64
+    name = "decode_attention" + sfx
+    for kvh, s_len, pos in cases:
+        b_ = 4
         pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
 
         def make():
@@ -538,9 +589,9 @@ def k4_rows(dev, rn):
         cells = sum(min(p, s_len - 1) + 1 for p in pos)
         nbytes = 2 * (2 * b_ * h * d + 2 * cells * kvh * d) + 4 * b_
         sets = copies(make, nbytes)
-        err = compare("decode_attention", fa.decode_attention(*sets[0]),
+        err = compare(name, fa.decode_attention(*sets[0]),
                       fa.decode_attention_plain(*sets[0]))
-        same(fa.decode_attention, sets[0], "decode_attention")
+        same(fa.decode_attention, sets[0], name)
         mode, split = pa.decode_path(b_, h, kvh, s_len, sms)
 
         def tc(q, k, v, pos, sp):
@@ -558,7 +609,7 @@ def k4_rows(dev, rn):
                      vv.repeat_interleave(g, 2).transpose(1, 2))
                     for q, kk, vv, _ in sets]
         rows.append(dict(
-            name="decode_attention",
+            name=name,
             shape=(f"B={b_} S={s_len} H={h} KV={kvh} d={d} "
                    f"pos={','.join(map(str, pos))}"),
             main=kvh == h and s_len == 256, max_abs_err=err,
@@ -595,7 +646,16 @@ def phase_kernels(dev, only=None):
                 "tt_linear_batched_a_w8"), splitk_rank_rows),
               (("paged_decode_attention_int8",), paged_int8_kernel_rows),
               (("tt_linear_batched_a", "tt_linear_batched_a_w8"),
-               batched_a_split_rows))
+               batched_a_split_rows),
+              (("flash_attention_d256",), d256_attention_rows),
+              (("decode_attention_d256",), functools.partial(
+                  k4_rows, h=16, d=256, cases=D256_K4_CASES, sfx="_d256")),
+              (("paged_decode_attention_d256",), functools.partial(
+                  paged_kernel_rows, h=16, d=256, sfx="_d256")),
+              (("paged_decode_attention_int8_d256",), functools.partial(
+                  paged_int8_kernel_rows, h=16, d=256, sfx="_d256")),
+              (("tt_linear", "tt_linear_batched_a", "tt_linear_w8",
+                "tt_linear_batched_a_w8"), gemma_linear_rows))
     rows = []
     for names, fn in groups:
         if only is None or set(names) & set(only):
@@ -661,9 +721,10 @@ def batched_a_split_rows(dev, rn):
     return rows
 
 
-def paged_kernel_rows(dev, rn):
+def paged_kernel_rows(dev, rn, h=32, d=64, sfx=""):
     """#8 at the paged engine's shape, C = 1 (pure decode) and C = 32 (the
-    engine's step): 8 slots at ragged positions, H = KV = 32, d = 64, a
+    engine's step): 8 slots at ragged positions, H = KV = 32, d = 64
+    (``h``, ``d``, ``sfx``: gemma-7b's 16 heads of 256, "_d256"), a
     pool of 256 blocks of 16 cells, 34-page tables whose entries past each
     slot's window are sentinels. Its bound counts q, o and the K/V cells
     inside each slot's window; the library yardstick is SDPA on the
@@ -678,7 +739,7 @@ def paged_kernel_rows(dev, rn):
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    b_, h, d = PAGED["max_batch"], 32, 64
+    b_ = PAGED["max_batch"]
     page, n_blk = PAGED["page_size"], 256
     p_tab = PAGED["cache_len"] // page + 2
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -686,6 +747,7 @@ def paged_kernel_rows(dev, rn):
                        dtype=torch.int32, device=dev)
     gen = torch.Generator().manual_seed(SEED)
     rows = []
+    name = "paged_decode_attention" + sfx
     for c in (1, 32):
         last = [min((int(p) + c - 1) // page, p_tab - 1) for p in pos]
         tables = torch.full((b_, p_tab), n_blk, dtype=torch.int32)
@@ -705,18 +767,17 @@ def paged_kernel_rows(dev, rn):
             return (rn(b_, c, h, d), rn(n_blk, page, h, d),
                     rn(n_blk, page, h, d), tables, pos)
         sets = copies(make, nbytes)
-        err = compare("paged_decode_attention",
-                      pa.paged_decode_attention(*sets[0]),
+        err = compare(name, pa.paged_decode_attention(*sets[0]),
                       pa.paged_decode_attention_plain(*sets[0]))
-        same(pa.paged_decode_attention, sets[0], "paged_decode_attention")
-        mode, split = pa.paged_path(b_, c, h, h, p_tab, page, sms)
+        same(pa.paged_decode_attention, sets[0], name)
+        mode, split = pa.paged_path(b_, c, h, h, p_tab, page, sms, d=d)
 
         def tc(q, k, v, tables, pos, sp):
             o = torch.empty_like(q)
             st = fa._strides(q, k, v, o)
             st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
             _build.check(pa._launch_tc(q, k, v, tables, pos, o, n_blk, page,
-                                       st, sp), "paged_decode_attention")
+                                       st, sp), name)
             return o
         variants = {f"split{sp}": cuda_time_ms(
             lambda *t: tc(*t, sp), sets) for sp in sorted({0, 2, 3, split})}
@@ -731,7 +792,7 @@ def paged_kernel_rows(dev, rn):
                     for q, k, v, _, _ in sets]
         bms, by = bound_ms(nbytes, flops)
         rows.append(dict(
-            name="paged_decode_attention",
+            name=name,
             shape=(f"B={b_} C={c} H=KV={h} d={d} page={page} "
                    f"P={p_tab} N={n_blk}"),
             main=c == PAGED["prefill_chunk"], max_abs_err=err,
@@ -888,8 +949,9 @@ def splitk_rank_rows(dev, rn):
     return rows
 
 
-def paged_int8_kernel_rows(dev, rn):
-    """#8q at the int8 paged engine's shape (as #8's rows): int8 pools of
+def paged_int8_kernel_rows(dev, rn, h=32, d=64, sfx=""):
+    """#8q at the int8 paged engine's shape (as #8's rows, ``h``, ``d``,
+    ``sfx`` too): int8 pools of
     256 blocks of 16 cells with f32 per-cell scales. The bound counts q
     and o (bf16), and the int8 K/V cells plus their scales inside each
     slot's window; the library yardstick is SDPA on PRE-GATHERED,
@@ -903,7 +965,7 @@ def paged_int8_kernel_rows(dev, rn):
     from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import quant
-    b_, h, d = PAGED["max_batch"], 32, 64
+    b_ = PAGED["max_batch"]
     page, n_blk = PAGED["page_size"], 256
     p_tab = PAGED["cache_len"] // page + 2
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -931,12 +993,12 @@ def paged_int8_kernel_rows(dev, rn):
             v8, vs = quant.quantize_kv(rn(n_blk, page, h, d))
             return rn(b_, c, h, d), k8, v8, ks, vs, tables, pos
         sets = copies(make, nbytes)
-        name = "paged_decode_attention_int8"
+        name = "paged_decode_attention_int8" + sfx
         err = compare(name, pa.paged_decode_attention_int8(*sets[0]),
                       pa.paged_decode_attention_int8_plain(*sets[0]))
         same(pa.paged_decode_attention_int8, sets[0], name)
         mode, split = pa.paged_path(b_, c, h, h, p_tab, page, sms,
-                                    quantized=True)
+                                    quantized=True, d=d)
 
         def tc(q, k8, v8, ks, vs, tables, pos, sp):
             o = torch.empty_like(q)
@@ -974,7 +1036,7 @@ def paged_int8_kernel_rows(dev, rn):
             library="SDPA on pre-gathered, pre-dequantized K/V, boolean mask",
             bound_ms=bms, bound_by=by, variant=f"{mode} split={split}",
             variants=variants))
-        print(f"[kernel] paged_decode_attention_int8 C={c} vs the plain "
+        print(f"[kernel] {name} C={c} vs the plain "
               f"version in f32: {prec}", flush=True)
         del sets, lib_sets
     torch.cuda.empty_cache()
@@ -1694,10 +1756,15 @@ def device_share(label, run, top_n=8, show=()):
     return out, busy / wall
 
 
-def serving_model(dev, tag):
-    """Full-width stablelm-1.6b, random bf16 base weights from the seeded
-    generator, and the served 4+1d MetaTT adapter on q/v (rank 8, 3 tasks,
-    ``random_tt(scale=0.5)``). Returns (cfg, spec, params, rt, gen)."""
+def serving_model(dev, tag, arch="stablelm-1.6b", ratio=None, layers=None,
+                  seed=SEED):
+    """Full-width ``arch`` (stablelm-1.6b; roberta-large in phase 11,
+    gemma-7b in phase 12; ``layers``: its depth cut to that many layers),
+    random base weights in the config's dtype from a generator seeded
+    with ``seed``, and the served 4+1d MetaTT adapter on q/v (rank 8, 3
+    tasks, ``random_tt(scale=0.5)``; with ``ratio``, its last core scaled
+    so that the adapter is ``ratio`` of the base q projection). Returns
+    (cfg, spec, params, rt, gen)."""
     import torch
     from repro_torch import configs
     from repro_torch.config.base import RunConfig
@@ -1705,23 +1772,45 @@ def serving_model(dev, tag):
     from repro_torch.models import model as M
     from repro_torch.serving import AdapterRuntime
 
-    cfg = configs.get_config("stablelm-1.6b")
+    cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     run = RunConfig(model=cfg, adapter_kind="metatt",
                     adapter_variant="4+1d", num_tasks=3, adapter_rank=8)
     spec = M.build_adapter_spec(run)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     params = M.init_params(cfg, spec, generator=gen, device=dev)
     params["adapter"] = {"cores": ttlib.random_tt(
         gen, spec.cfg.mode_sizes, 8, scale=0.5, device=dev)}
     rt = AdapterRuntime.build("live", params["base"], spec,
                               params["adapter"], params["frozen"])
+    note = ""
+    if ratio is not None:
+        raw = q_ratio(cfg, rt, gen)
+        params["adapter"]["cores"][-1] *= ratio / raw   # ΔW is linear in it
+        rt = AdapterRuntime.build("live", params["base"], spec,
+                                  params["adapter"], params["frozen"])
+        note = (f", adapter/base q-projection ratio "
+                f"{q_ratio(cfg, rt, gen):.3e} (random_tt(0.5): {raw:.3e})")
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size()
                  for t in M.tensors(params["base"]))
-    print(f"[{tag}] stablelm-1.6b bf16: {nbytes / 1e9:.3f} GB of base "
-          f"weights, init {time.perf_counter() - t0:.1f}s", flush=True)
+    dtype = str(cfg.param_dtype).removeprefix("torch.")
+    print(f"[{tag}] {arch} {dtype}, {cfg.num_layers} layers: "
+          f"{nbytes / 1e9:.3f} GB of base "
+          f"weights{note}, init {time.perf_counter() - t0:.1f}s", flush=True)
     return cfg, spec, params, rt, gen
+
+
+def dense_requests(cfg, seed=SEED):
+    """Phase 3's 8 mixed-task requests on ``cfg``'s vocab: 16-96 prompt
+    tokens over 3 tasks, 32 new tokens each."""
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(seed)
+    return [Request(rng.randint(0, cfg.vocab_size, size=int(n)), 32,
+                    task=i % 3)
+            for i, n in enumerate(rng.randint(16, 97, size=8))]
 
 
 def phase_serving(dev):
@@ -1731,17 +1820,14 @@ def phase_serving(dev):
     from repro_torch import kernels as K
     from repro_torch.config.base import KernelConfig, ServeConfig
     from repro_torch.core import tt as ttlib
-    from repro_torch.serving import AdapterRuntime, Engine, Request
+    from repro_torch.serving import AdapterRuntime, Engine
     from repro_torch.tree import tree_map
 
     cfg, spec, params, rt, gen = serving_model(dev, "serve")
     serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=256,
                         out_cap=32)
     eng = Engine(cfg, rt, serve=serve, device=dev)
-    rng = np.random.RandomState(SEED)
-    reqs = [Request(rng.randint(0, cfg.vocab_size, size=int(n)), 32,
-                    task=i % 3)
-            for i, n in enumerate(rng.randint(16, 97, size=8))]
+    reqs = dense_requests(cfg)
     eng.generate(reqs[:2])                       # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1957,7 +2043,7 @@ def phase_paged(dev):
     from repro_torch import kernels as K
     from repro_torch.config.base import ServeConfig
     from repro_torch.core import tt as ttlib
-    from repro_torch.serving import AdapterRuntime, Engine, Request
+    from repro_torch.serving import AdapterRuntime, Engine
 
     cfg, spec, params, rt, gen = serving_model(dev, "paged")
     serve = ServeConfig(cache_mode="paged", **PAGED)
@@ -1967,17 +2053,7 @@ def phase_paged(dev):
     print(f"[paged] {serve.resolved_num_blocks} blocks of "
           f"{serve.page_size} cells, {pool_gb:.3f} GB of K/V pools; "
           f"chunk {serve.prefill_chunk}, {serve.max_batch} slots", flush=True)
-    rng = np.random.RandomState(SEED + 3)
-    prefix = {t: rng.randint(0, cfg.vocab_size, size=100) for t in range(3)}
-    reqs = []
-    for i in range(16):
-        task = i % 3
-        if i % 2 == 0:
-            prompt = np.concatenate([prefix[task], rng.randint(
-                0, cfg.vocab_size, size=rng.randint(10, 201))])
-        else:
-            prompt = rng.randint(0, cfg.vocab_size, size=rng.randint(40, 301))
-        reqs.append(Request(prompt, 32, task=task))
+    reqs = paged_requests(cfg)
     print(f"[paged] prompt lengths {[len(r.prompt) for r in reqs]}, tasks "
           f"{[r.task for r in reqs]}", flush=True)
     torch.cuda.synchronize()
@@ -3200,12 +3276,13 @@ def phase_rest(dev, dense_run, paged_run, train_cores):
 # recompute preemption, through Engine.generate
 REG_TASKS = 64          # the adapter's task axis (64 columns on the host)
 REG_NEW = 16            # tokens a request
+REG_LAYERS = 12         # stablelm-1.6b's depth cut from 24 (widths kept)
 
 
 def registry_model(dev):
-    """Phase 9's model: serving_model's full-width stablelm-1.6b base with
-    a 4+1d MetaTT q/v adapter (rank 8) over REG_TASKS tasks, scaled to 0.1
-    of the base q projection (phase 8's mild strength, where bf16 decoding
+    """Phase 9's model: serving_model's full-width stablelm-1.6b base at
+    REG_LAYERS of its 24 layers with a 4+1d MetaTT q/v adapter (rank 8)
+    over REG_TASKS tasks, scaled to 0.1 of the base q projection (phase 8's mild strength, where bf16 decoding
     is not chaotic). Returns (cfg, spec, base, adapter, live runtime,
     gen)."""
     import torch
@@ -3213,7 +3290,7 @@ def registry_model(dev):
     from repro_torch.core import tt as ttlib
     from repro_torch.models import model as M
     from repro_torch.serving import AdapterRuntime
-    cfg, _, params, _, gen = serving_model(dev, "phase9")
+    cfg, _, params, _, gen = serving_model(dev, "phase9", layers=REG_LAYERS)
     spec = M.build_adapter_spec(RunConfig(
         model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
         num_tasks=REG_TASKS, adapter_rank=8))
@@ -3359,7 +3436,8 @@ def fault_in_ms(eng, label, iters=20):
 
 
 def phase_registry(dev, count):
-    """Phase 9 on full-width stablelm-1.6b with a 64-task 4+1d adapter:
+    """Phase 9 on full-width stablelm-1.6b (12 layers) with a 64-task 4+1d
+    adapter:
     (a) the registry on the paged fp cell (4 pool slots, 48 requests over
     24 tasks, cold then warm) against the all-resident engine; (b) the
     dense cell under the lora runtime, fp and w8, with 3 pool slots (K2 /
@@ -3888,43 +3966,12 @@ SERVED_RATIO = 0.25
 
 
 def roberta_serving_model(dev):
-    """Full-width roberta-large in f32, random base weights from the
-    seeded generator, and a served 4+1d MetaTT adapter on q/v (rank 8, 3
-    tasks, ``random_tt(scale=0.5)`` with its last core scaled to
-    ``SERVED_RATIO`` of the base q projection). Returns (cfg, spec,
-    params, rt)."""
-    import torch
-    from repro_torch import configs
-    from repro_torch.config.base import RunConfig
-    from repro_torch.core import tt as ttlib
-    from repro_torch.models import model as M
-    from repro_torch.serving import AdapterRuntime
-
-    cfg = configs.get_config("roberta-large")
-    spec = M.build_adapter_spec(RunConfig(
-        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
-        num_tasks=3, adapter_rank=8))
-    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, spec, generator=gen, device=dev)
-    cores = ttlib.random_tt(gen, spec.cfg.mode_sizes, 8, scale=0.5,
-                            device=dev)
-    rt = AdapterRuntime.build("live", params["base"], spec,
-                              {"cores": cores}, params["frozen"])
-    raw = q_ratio(cfg, rt, gen)
-    cores[-1] *= SERVED_RATIO / raw               # ΔW is linear in G4
-    params["adapter"] = {"cores": cores}
-    rt = AdapterRuntime.build("live", params["base"], spec,
-                              params["adapter"], params["frozen"])
-    torch.cuda.synchronize()
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in M.tensors(params["base"]))
-    print(f"[phase11] roberta-large {cfg.compute_dtype}: {nbytes / 1e9:.3f} "
-          f"GB of base weights, 4+1d MetaTT q/v rank 8 over 3 tasks, "
-          f"adapter/base q-projection ratio {q_ratio(cfg, rt, gen):.3e} "
-          f"(random_tt(0.5): {raw:.3e}); init "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    return cfg, spec, params, rt
+    """Full-width roberta-large in f32 with a served 4+1d MetaTT adapter
+    on q/v (rank 8, 3 tasks, ``random_tt(scale=0.5)`` with its last core
+    scaled to ``SERVED_RATIO`` of the base q projection). Returns (cfg,
+    spec, params, rt)."""
+    return serving_model(dev, "phase11", "roberta-large", SERVED_RATIO,
+                         seed=SEED + 37)[:4]
 
 
 def f32_tokens_checked(cfg, spec, rt, reqs, outs, ref_outs, label, dev,
@@ -3991,15 +4038,12 @@ def roberta_dense_serving(dev, model, count):
     K3f at prefill, 2L K2f + L K4f a decode step, no bf16 launch."""
     import torch
     from repro_torch.config.base import KernelConfig, ServeConfig
-    from repro_torch.serving import Engine, Request
+    from repro_torch.serving import Engine
     cfg, spec, params, rt = model
     serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=256,
                         out_cap=32)
     eng = Engine(cfg, rt, serve=serve, device=dev)
-    rng = np.random.RandomState(SEED + 41)
-    reqs = [Request(rng.randint(0, cfg.vocab_size, size=int(n)), 32,
-                    task=i % 3)
-            for i, n in enumerate(rng.randint(16, 97, size=8))]
+    reqs = dense_requests(cfg, SEED + 41)
     eng.generate(reqs[:2])                       # warm-up (cuBLAS, allocator)
     torch.cuda.reset_peak_memory_stats(dev)
     got = {}
@@ -4041,8 +4085,8 @@ def roberta_dense_serving(dev, model, count):
     return dict(reqs=reqs, outs=outs, stats=st)
 
 
-def roberta_paged_requests(cfg):
-    """Phase 4's 16 requests on roberta's vocab: 40-300 prompt tokens over
+def paged_requests(cfg):
+    """Phase 4's 16 requests on ``cfg``'s vocab: 40-300 prompt tokens over
     3 tasks, half sharing a 100-token prefix per task."""
     from repro_torch.serving import Request
     rng = np.random.RandomState(SEED + 3)
@@ -4075,7 +4119,7 @@ def roberta_paged_serving(dev, model, count, kv):
     serve = ServeConfig(cache_mode="paged", quant=QuantConfig(kv=kv)
                         if kv else QuantConfig(), **PAGED)
     eng = Engine(cfg, rt, serve=serve, device=dev)
-    reqs = roberta_paged_requests(cfg)
+    reqs = paged_requests(cfg)
     name = ("paged_decode_attention_int8_f32" if kv
             else "paged_decode_attention_f32")
     total, kv_peak, cold = {}, 0, None
@@ -4292,6 +4336,366 @@ def phase_eleven(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: gemma-7b served at full width in bf16 through the head_dim 256
+# instances of K3, K4, #8 and #8q
+# ---------------------------------------------------------------------------
+
+GEMMA = "gemma-7b"
+#: the d = 256 instances: names in ``KERNELS``, and the phase-2 shapes at
+#: gemma-7b's 16 heads of 256 (KV 16): prefill T = S (K3), the dense
+#: cache (K4: 4 slots x 256 cells, and a 4096-cell one)
+D256_KERNELS = ("flash_attention_d256", "decode_attention_d256",
+                "paged_decode_attention_d256",
+                "paged_decode_attention_int8_d256")
+D256_K3_CASES = ((16, 16), (64, 16), (96, 16), (256, 16))
+D256_K4_CASES = ((16, 256, (0, 37, 130, 255)),
+                 (16, 4096, (511, 1500, 3000, 4095)))
+#: #5 at d = 256 (K3's kernel with lse): (B, T = S); off phase 12's path
+D256_FWD_SHAPES = ((1, 64), (4, 1024))
+#: gemma-7b's q / v projection: K = d_model, N = q_dim = kv_dim, r
+GEMMA_QV = (3072, 4096, 8)
+
+
+def d256_attention_rows(dev, rn):
+    """K3 at d = 256 (``k3_rows`` at gemma-7b's heads), then #5 at d = 256
+    against its plain version: output within 2e-2 abs + rel, lse within
+    1e-3 absolute, two calls bit-identical (output and lse), its time, the
+    plain version's and SDPA's in bf16. #5 is built and held here; no
+    training path runs it at d = 256 yet."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = k3_rows(dev, rn, 16, 256, D256_K3_CASES, "_d256")
+    name, h, d = "flash_attention_fwd_d256", 16, 256
+    for b_, t in D256_FWD_SHAPES:
+        q, k, v = rn(b_, t, h, d), rn(b_, t, h, d), rn(b_, t, h, d)
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        po, plse = fa.flash_attention_fwd_plain(q, k, v, True)
+        err = compare(name, o, po)
+        lse_err = float((lse - plse).abs().max())
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"{name} lse: {lse_err:.3e} > 1e-3")
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, True)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{name}: two calls differ")
+        pairs = b_ * h * t * (t + 1) // 2
+        bms, by = bound_ms(2 * 4 * b_ * t * h * d + 4 * b_ * h * t,
+                           4 * d * pairs)
+        lib = [x.transpose(1, 2) for x in (q, k, v)]
+        rows.append(dict(
+            name=name, shape=f"B={b_} T=S={t} H=KV={h} d={d} causal",
+            main=t == 64, max_abs_err=err, lse_err=lse_err,
+            ms=cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
+                            [()]),
+            plain_ms=event_time_ms(
+                lambda: fa.flash_attention_fwd_plain(q, k, v, True), ()),
+            library_ms=cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(*lib, is_causal=True),
+                [()]),
+            bound_ms=bms, bound_by=by))
+        del q, k, v, o, lse, po, plse, o2, lse2, lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gemma_linear_rows(dev, rn):
+    """K1 (M = 64 prompt rows) and #9, K2 (M = 4 slots) and #10 at
+    gemma-7b's q / v projection (K = 3072 -> N = 4096, r = 8; W bf16, or
+    int8 per output channel): each against its plain version at the
+    linears' 1e-2, two calls bit-identical; its time, the plain version's,
+    one library call's (torch.matmul; on a pre-dequantized bf16 W for #9
+    / #10) and its bound."""
+    import torch
+    from repro_torch.kernels import quant
+    from repro_torch.kernels import tt_linear as tl
+    alpha, (k, n, r) = 4.0, GEMMA_QV
+    rows = []
+    for name, m in (("tt_linear", 64), ("tt_linear_batched_a", 4),
+                    ("tt_linear_w8", 64), ("tt_linear_batched_a_w8", 4)):
+        batched, w8 = "batched" in name, name.endswith("w8")
+        fn, plain = getattr(tl, name), getattr(tl, name + "_plain")
+
+        def make():
+            w = rn(k, n, scale=k ** -0.5)
+            a = (rn(m, k, r, scale=k ** -0.5) if batched
+                 else rn(r, k, scale=k ** -0.5).T)
+            return (rn(m, k), *(quant.quantize_int8(w, 0) if w8 else (w,)),
+                    a, rn(r, n, scale=r ** -0.5))
+        nbytes = (2 * m * k + (k * n + 4 * n if w8 else 2 * k * n)
+                  + 2 * (m if batched else 1) * k * r + 2 * r * n + 2 * m * n)
+        sets = copies(make, nbytes)
+        err = compare(name, fn(*sets[0], alpha), plain(*sets[0], alpha))
+        same(lambda *t: fn(*t, alpha), sets[0], name)
+        lib_sets = [(t[0], quant.dequantize({"q8": t[1], "scale": t[2]},
+                                            torch.bfloat16), *t[3:])
+                    if w8 else t for t in sets]
+
+        def lib(x, w, a, b):
+            xa = (torch.bmm(x[:, None], a)[:, 0] if batched
+                  else torch.matmul(x, a))
+            return torch.matmul(x, w) + alpha * torch.matmul(xa, b)
+        bms, by = bound_ms(nbytes, 2 * m * k * n + 2 * m * k * r
+                           + 2 * m * r * n)
+        rows.append(dict(
+            name=name, gemma=True, main=False,
+            shape=f"gemma q/v M={m} K={k} N={n} r={r}", max_abs_err=err,
+            ms=cuda_time_ms(lambda *t: fn(*t, alpha), sets),
+            plain_ms=cuda_time_ms(lambda *t: plain(*t, alpha), sets),
+            library_ms=cuda_time_ms(lib, lib_sets),
+            library=("torch.matmul on a pre-dequantized bf16 W + rank-r"
+                     if w8 else "torch.matmul"),
+            bound_ms=bms, bound_by=by))
+        del sets, lib_sets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_launches(n, want, label):
+    """``n`` (launch counts) equal to ``want`` wherever ``want`` names a
+    kernel, and no kernel outside ``want`` launched."""
+    bad = {k: (n.get(k, 0), w) for k, w in want.items() if n.get(k, 0) != w}
+    extra = {k: v for k, v in n.items() if v and k not in want}
+    if bad or extra:
+        raise AssertionError(f"{label}: launches (got, want) {bad}; "
+                             f"unexpected {extra}")
+
+
+def logits_checked(label, rel, agree=None, n=None):
+    """A kernel-leg vs plain-leg logits check of phase 12: 5% of the
+    largest logit (bf16 drift through 28 layers)."""
+    tail = f", argmax equal {agree}/{n}" if agree is not None else ""
+    print(f"[phase12] {label}: logits vs plain leg max |kernel - plain| / "
+          f"max |plain| {rel:.3e} (limit 5e-2){tail}", flush=True)
+    if not rel <= 5e-2:
+        raise AssertionError(f"{label}: logits differ from the plain leg "
+                             f"by {rel:.3e}")
+
+
+def cell_metrics(label, st, busy):
+    """Phase 12's end-to-end numbers of one run, each on its own line."""
+    steps = max(st.decode_steps, 1)
+    for key, val in (
+            ("tok/s", f"{st.tokens_per_s:.1f}"),
+            ("step ms", f"{1e3 * st.decode_s / steps:.2f} over "
+                        f"{st.decode_steps} steps"),
+            ("prefill ms", f"{1e3 * st.prefill_s / st.prefills:.2f} a "
+                           f"request" if st.prefills else "in-loop"),
+            ("ttft ms", f"{1e3 * st.ttft_s:.1f}" if st.ttft_s
+             else "not recorded by the dense engine (see prefill ms)"),
+            ("kv_bytes_peak", f"{st.kv_bytes_peak}"),
+            ("device busy", "not measured" if busy is None
+             else f"{100 * busy:.1f}% (profiled)")):
+        print(f"[phase12] {label} {key}: {val}", flush=True)
+
+
+def gemma_dense(dev, count, model):
+    """Phase 12 (a): phase 3's dense cell on full-width gemma-7b: 4 slots x
+    256 cells, 8 mixed-task requests of 16-96 prompt tokens, 32 new each;
+    2L K1 + L K3 (d = 256) a prefill, 2L K2 + L K4 (d = 256) a decode
+    step, nothing else; prefill and decode-step logits within 5% of the
+    plain leg's largest logit."""
+    import torch
+    from repro_torch.config.base import KernelConfig, ServeConfig
+    from repro_torch.serving import Engine
+    cfg, spec, params, rt, gen = model
+    serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=256,
+                        out_cap=32)
+    eng = Engine(cfg, rt, serve=serve, device=dev)
+    reqs = dense_requests(cfg)
+    eng.generate(reqs[:2])                       # warm-up (cuBLAS, allocator)
+    got = {}
+    n = count(lambda: got.update(r=serve_checked(eng, reqs, "(a) dense",
+                                                 "phase12")))
+    outs, st = got["r"]
+    L, steps, pre = cfg.num_layers, st.decode_steps, st.prefills
+    check_launches(n, {"tt_linear": 2 * L * pre,
+                       "flash_attention_d256": L * pre,
+                       "tt_linear_batched_a": 2 * L * steps,
+                       "decode_attention_d256": L * steps}, "(a) dense")
+    print(f"[phase12] (a) dense: launches "
+          f"{json.dumps({k: v for k, v in n.items() if v})} = "
+          f"K1 {n['tt_linear'] // pre} + K3(d256) "
+          f"{n['flash_attention_d256'] // pre} a prefill over {pre}, K2 "
+          f"{n['tt_linear_batched_a'] // steps} + K4(d256) "
+          f"{n['decode_attention_d256'] // steps} a decode step over "
+          f"{steps} (L = {L})", flush=True)
+    _, busy = device_share("(a) gemma-7b dense generate of 4 requests",
+                           lambda: eng.generate(reqs[:4]),
+                           show=("paged_tc", "flash_fwd"))
+    cell_metrics("(a) dense", st, busy)
+    eng_ref = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
+        backend="ref"), device=dev)
+    logits_checked("(a) prefill, last position of 2 requests",
+                   max(logits_rel_err(eng, eng_ref, r) for r in reqs[:2]))
+    del eng, eng_ref
+    torch.cuda.empty_cache()
+    rel, agree = decode_step_rel_err(cfg, rt, reqs[:4], serve.cache_len, dev)
+    logits_checked(f"(a) one decode step of 4 slots (tasks "
+                   f"{[r.task for r in reqs[:4]]})", rel, agree, 4)
+    return dict(reqs=reqs, stats=st)
+
+
+def gemma_paged(dev, count, model, quant):
+    """Phase 12 (b) (``quant`` False) and (c) (int8 weights and int8 KV):
+    phase 4's paged cell on full-width gemma-7b — 8 slots, 256 blocks of 16
+    cells, chunk 32, 16 requests of 40-300 prompt tokens, half sharing a
+    100-token prefix per task, cold then warm: L #8 (#8q) at d = 256 an
+    engine step and nothing else (the (B, 32) adapted q/v run the
+    batched einsum, as in JAX); every request finished, no leaked block,
+    warm prefix hits and COW; a pure-decode and a mixed paged step within
+    5% of the plain leg's largest logit. Returns (kv_bytes_peak, the int8
+    base or None)."""
+    import torch
+    from repro_torch.config.base import QuantConfig, ServeConfig
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine
+    cfg, spec, params, rt, gen = model
+    tag = "(c) paged int8" if quant else "(b) paged fp"
+    name = ("paged_decode_attention_int8_d256" if quant
+            else "paged_decode_attention_d256")
+    eng = Engine(cfg, rt, serve=ServeConfig(
+        cache_mode="paged", quant=QuantConfig(weights="int8", kv="int8")
+        if quant else QuantConfig(), **PAGED), device=dev)
+    pool_gb = sum(t.numel() * t.element_size() for c in eng._paged_caches
+                  for t in c["self"].values()) / 1e9
+    base_gb = sum(t.numel() * t.element_size()
+                  for t in M.tensors(eng.base_weights)) / 1e9
+    print(f"[phase12] {tag}: served base {base_gb:.3f} GB, K/V pools "
+          f"{pool_gb:.3f} GB for {eng.sv.resolved_num_blocks} blocks",
+          flush=True)
+    reqs = paged_requests(cfg)
+    kv_peak, total, runs = 0, {}, {}
+    for label in ("cold", "warm"):
+        got = {}
+        n = count(lambda: got.update(r=serve_checked(
+            eng, reqs, f"{tag} {label}", "phase12")))
+        st = runs[label] = got["r"][1]
+        kv_peak = max(kv_peak, st.kv_bytes_peak)
+        check_launches(n, {name: cfg.num_layers * st.decode_steps},
+                       f"{tag} {label}")
+        for k_, v_ in n.items():
+            total[k_] = total.get(k_, 0) + v_
+    if not (st.prefix_hit_tokens > 0 and st.cow_copies >= 1):
+        raise AssertionError(f"{tag} warm: no prefix hit or no COW copy")
+    print(f"[phase12] {tag}: launches over cold and warm "
+          f"{json.dumps({k: v for k, v in total.items() if v})} ({name} "
+          f"L = {cfg.num_layers} an engine step); kv_bytes_peak {kv_peak}",
+          flush=True)
+    _, busy = device_share(f"{tag} generate of 16 requests (warm)",
+                           lambda: eng.generate(reqs), top_n=12,
+                           show=("paged_tc",))
+    cell_metrics(f"{tag} cold", runs["cold"], None)
+    cell_metrics(f"{tag} warm", runs["warm"], busy)
+    qbase = eng.base_weights if quant else None
+    if quant:
+        unadapted_projection_cost(cfg, qbase, dev)
+    del eng
+    torch.cuda.empty_cache()
+    picked = reqs[1:3] + sorted(reqs[3:], key=lambda r: len(r.prompt))[-2:]
+    res = paged_step_rel_err(cfg, rt, [r.prompt for r in picked],
+                             [r.task for r in picked], dev, base=qbase,
+                             kv_quant=quant)
+    for step, (rel, agree) in res.items():
+        logits_checked(f"{tag}: one {step} paged step of 4 slots", rel,
+                       agree, 4)
+    return kv_peak, qbase
+
+
+def gemma_w8_dense(dev, count, model, dense, qbase):
+    """Phase 12 (c), dense part: (a)'s requests through the dense engine
+    over int8 weights (phase 5's): 2L #9 + L K3 (d = 256) a prefill, 2L
+    #10 + L K4 (d = 256) a decode step, no K1 / K2; one decode step over
+    the int8 base within 5% of the plain leg's largest logit."""
+    import torch
+    from repro_torch.config.base import KernelConfig, QuantConfig, \
+        ServeConfig
+    from repro_torch.serving import Engine
+    cfg, spec, params, rt, gen = model
+    eng = Engine(cfg, rt, serve=ServeConfig(
+        cache_mode="dense", max_batch=4, cache_len=256, out_cap=32),
+        kernels=KernelConfig(quant=QuantConfig(weights="int8")), device=dev)
+    reqs = dense["reqs"]
+    eng.generate(reqs[:2])                       # warm-up (allocator)
+    got = {}
+    n = count(lambda: got.update(r=serve_checked(eng, reqs, "(c) dense w8",
+                                                 "phase12")))
+    st = got["r"][1]
+    L, steps, pre = cfg.num_layers, st.decode_steps, st.prefills
+    check_launches(n, {"tt_linear_w8": 2 * L * pre,
+                       "flash_attention_d256": L * pre,
+                       "tt_linear_batched_a_w8": 2 * L * steps,
+                       "decode_attention_d256": L * steps}, "(c) dense w8")
+    print(f"[phase12] (c) dense w8: launches "
+          f"{json.dumps({k: v for k, v in n.items() if v})} (#9 "
+          f"{n['tt_linear_w8'] // pre} a prefill, #10 "
+          f"{n['tt_linear_batched_a_w8'] // steps} a decode step)",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    rel, agree = decode_step_rel_err(cfg, rt, reqs[:4], 256, dev, base=qbase)
+    logits_checked("(c) one w8 dense decode step of 4 slots", rel, agree, 4)
+
+
+def phase_twelve(dev):
+    """Phase 12: full-width gemma-7b (28 x 3072, 16 heads of 256, GeGLU
+    24576, vocab 256000, bf16) with a 4+1d MetaTT q/v adapter (rank 8, 3
+    tasks) at 0.25 of the base q projection, served through (a) the dense
+    engine, (b) the paged engine cold then warm and (c) int8 weights and
+    int8 KV (paged, then the dense engine over int8 weights). Each cell
+    builds the model from the seed and frees it before the next; launches
+    are counted around each driven run and summed."""
+    import torch
+    from repro_torch import kernels as K
+    total = {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+
+    def cell(label, fn):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = serving_model(dev, "phase12", GEMMA, SERVED_RATIO)
+        torch.cuda.reset_peak_memory_stats(dev)   # serving, not the init
+        out = fn(model)
+        del model
+        torch.cuda.synchronize()
+        print(f"[phase12] {label}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB",
+              flush=True)
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    secs = []
+    dense = cell("(a) dense", lambda m: gemma_dense(dev, count, m))
+    fp_peak, _ = cell("(b) paged fp",
+                      lambda m: gemma_paged(dev, count, m, False))
+
+    def int8_cell(m):
+        q_peak, qbase = gemma_paged(dev, count, m, True)
+        gemma_w8_dense(dev, count, m, dense, qbase)
+        return q_peak
+    q_peak = cell("(c) int8", int8_cell)
+    print(f"[phase12] (c) kv_bytes_peak int8 {q_peak} against fp {fp_peak} "
+          f"({q_peak / fp_peak:.3f}x)", flush=True)
+    if not q_peak < fp_peak:
+        raise AssertionError(f"(c) int8 kv_bytes_peak {q_peak} not below "
+                             f"(b)'s {fp_peak}")
+    print(f"[phase12] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}; (a) "
+          f"{secs[0]:.1f} s, (b) {secs[1]:.1f} s, (c) {secs[2]:.1f} s",
+          flush=True)
+    return total
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -4360,9 +4764,11 @@ def main(argv) -> int:
     paths["phase10"] = phase_roberta(dev)
     t11 = time.perf_counter()
     paths["phase11"] = phase_eleven(dev)
+    t12 = time.perf_counter()
+    paths["phase12"] = phase_twelve(dev)
     print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 {t10 - t9:.1f} s; "
-          f"phase 10 {t11 - t10:.1f} s; phase 11 "
-          f"{time.perf_counter() - t11:.1f} s; the script "
+          f"phase 10 {t11 - t10:.1f} s; phase 11 {t12 - t11:.1f} s; phase "
+          f"12 {time.perf_counter() - t12:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []
@@ -4384,6 +4790,18 @@ def main(argv) -> int:
                 "shape", "max_abs_err", "rel_err", "ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by", "tflops")}
                 for r in mine]
+        keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")
+        if name in D256_KERNELS:  # every phase-2 row of a d = 256 instance
+            rec["rows"] = [{k: r[k] for k in keys + ("variant",)
+                            if k in r} for r in mine]
+        if name == "flash_attention_d256":   # #5 at d = 256, held only
+            rec["fwd_lse_rows"] = [
+                {k: r[k] for k in keys + ("lse_err",)} for r in rows
+                if r["name"] == "flash_attention_fwd_d256"]
+        gemma = [{k: r[k] for k in keys} for r in mine if r.get("gemma")]
+        if gemma:        # K1, K2, #9, #10 at gemma-7b's q / v, phase 2
+            rec["gemma_rows"] = gemma
         ranks = [{k: r[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "tflops", "variant")}

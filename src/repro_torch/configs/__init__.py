@@ -1,13 +1,15 @@
 """Architecture registry. ``get_config("<arch-id>")`` returns the full
 config, ``get_smoke_config`` the reduced same-family config the CPU tests
-use. The port carries the architectures of its slices so far: stablelm-1.6b
-and the paper's own RoBERTa targets (one module, two ids)."""
+use. The port carries the architectures of its slices so far: stablelm-1.6b,
+gemma-7b (heads of 256) and the paper's own RoBERTa targets (one module,
+two ids)."""
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
+    "gemma-7b": "gemma_7b",
     "roberta-base": "roberta",
     "roberta-large": "roberta",
 }

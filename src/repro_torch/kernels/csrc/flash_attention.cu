@@ -23,7 +23,8 @@
 //  - one warpgroup owns 64 query rows, its q tile resident in shared
 //    memory in the 128-byte swizzled layout; a block holds one warpgroup
 //    (several blocks an SM) or two (128 rows sharing each K/V tile), the
-//    launcher's choice;
+//    launcher's choice (at d = 256 one: its q tile and three stages of K
+//    and V take 224 KB of the 227 a block may have);
 //  - S = Q·Kᵀ is a `wgmma` m64n64k16 product with both operands in shared
 //    memory, K read K-major from the tile that arrived;
 //  - the online softmax runs on the f32 accumulator registers: a row's
@@ -33,7 +34,9 @@
 //    the A-operand layout of O += P·V, a `wgmma` with V read MN-major
 //    (transposed) from the same tile;
 //  - O stays in f32 registers for the whole KV loop (d/2 a thread), where
-//    the correction factor is applied;
+//    the correction factor is applied; at d = 256 that is 128 registers
+//    a thread beside S's 32 and P's 16 (m64n256k16 for P·V), so the block
+//    is bounded for one resident block an SM (255 registers a thread);
 //  - K/V tiles of 64 keys stream through a three-stage cp.async ring that
 //    zero-fills keys ≥ S; each thread fences (fence.proxy.async) before
 //    the barrier that precedes the products, and a tile's P·V is waited
@@ -81,11 +84,13 @@ struct FwdSmem {
   static constexpr int TOTAL = V + FWD_STAGES * STR;
   static_assert(RES % 1024 == 0 && STR % 1024 == 0,
                 "tiles must keep the 1024-byte alignment of the swizzle");
+  static_assert(TOTAL + 1024 <= 227 * 1024,
+                "q and the ring (+ the alignment slack) fit in a block");
 };
 
 template <int D, int NWG>
 constexpr int fwd_min_blocks() {   // blocks an SM the registers allow
-  return NWG == 1 ? (D == 64 ? 3 : 2) : (D == 64 ? 2 : 1);
+  return D == 256 ? 1 : NWG == 1 ? (D == 64 ? 3 : 2) : (D == 64 ? 2 : 1);
 }
 
 template <int D, int NWG>
@@ -395,19 +400,22 @@ extern "C" {
 // v: b, s, kv; o: b, t, h), each a multiple of 8 with 16-byte aligned
 // bases. Causal masks ki > qi. lse: nullptr (prefill), or (B, H, T) f32
 // contiguous, written with the per-row log-sum-exp (the training
-// forward). variant: 1 one warpgroup a block, 2 two warpgroups a block
-// (the wrapper chooses; kernels/flash_attention.py).
+// forward). d in {64, 128, 256}. variant: 1 one warpgroup a block, 2 two
+// warpgroups a block (the wrapper chooses; kernels/flash_attention.py);
+// d = 256 takes variant 1 only (shared memory).
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, void* lse, int B, int T, int S, int H,
                          int KV, int d, int causal, int variant,
                          const long long* strides, void* stream) {
   if (B < 1 || T < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 ||
-      (T + 63) / 64 > 65535 || (d != 64 && d != 128))
+      (T + 63) / 64 > 65535 || (d != 64 && d != 128 && d != 256))
     return (int)cudaErrorInvalidValue;
   switch (variant * 1000 + d) {
     case 1064: return launch_fwd<64, 1>(q, k, v, o, lse, B, T, S, H, KV,
                                         causal, strides, stream);
     case 1128: return launch_fwd<128, 1>(q, k, v, o, lse, B, T, S, H, KV,
+                                         causal, strides, stream);
+    case 1256: return launch_fwd<256, 1>(q, k, v, o, lse, B, T, S, H, KV,
                                          causal, strides, stream);
     case 2064: return launch_fwd<64, 2>(q, k, v, o, lse, B, T, S, H, KV,
                                         causal, strides, stream);

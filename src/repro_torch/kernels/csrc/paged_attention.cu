@@ -52,6 +52,14 @@
 //    the padding costs no time, and padded rows are never written;
 //  - the online softmax stays in the accumulator registers (a row's
 //    values sit in one quad of lanes); O stays f32;
+//  - head_dim 256 (gemma-7b): a 64-cell tile of K or V is 32 KB, so the
+//    ring has two stages (q 32 KB + 2 x 2 x 32 KB; #8q 2 x 2 x 16 KB of
+//    int8 ring and the two 32 KB widened tiles), and every block runs
+//    `mma.sync` with at most 64 rows (slabs above that): a `wgmma` block
+//    of 128 or 256 rows holds 64 or 128 KB of q and does not fit beside
+//    the ring. The engine's paged step has C·G = 32 rows, decode one.
+//    O is 128 f32 registers a thread, so the q fragments are read from
+//    shared memory at each tile rather than held;
 //  - where the blocks leave the card under-filled (fewer than two an
 //    SM), each window is split into chunks of a few tiles, one block a
 //    chunk (flash-decoding: at C = 1 the 8 slots x 32 heads of ragged
@@ -123,9 +131,15 @@ struct Strides {
 // ------------------------------------------- the fp leg, tensor cores
 
 constexpr int PT = 64;         // cells a streamed tile
-constexpr int PSTAGES = 3;     // depth of the K/V ring
 constexpr int SLAB = 256;      // most rows a block (four warpgroups)
-constexpr int SLAB_Q8 = 64;    // most rows a block of the int8 leg
+constexpr int SLAB_MMA = 64;   // most rows a block of the int8 leg and of
+                               // d = 256 (one `mma.sync` warpgroup)
+
+// depth of the K/V ring: three stages, two at d = 256 (a 64-cell tile is
+// 32 KB there: q's 32 KB and three stages of K and V would take 224 of
+// the 227 KB a block may have, past launch_tc's 200 KB cap)
+template <int D>
+constexpr int paged_stages() { return D == 256 ? 2 : 3; }
 
 // D (16 x 8 f32) += A (16 x 16 bf16, the m16n8k16 A fragment) · B (16 x 8)
 __device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
@@ -162,15 +176,16 @@ struct PagedSmem {
   static constexpr int QR = 64 * NWG;          // query rows, padded
   static constexpr int TB = PT * D * 2;        // a bf16 K or V tile
   static constexpr int TC = Q8 ? PT * D : TB;  // a ring tile (Q8: int8)
+  static constexpr int ST = paged_stages<D>();   // ring stages
   static constexpr int Q = 0;
   static constexpr int K = Q + QR * D * 2;
-  static constexpr int V = K + PSTAGES * TC;
+  static constexpr int V = K + ST * TC;
   // Q8: the stage being read, widened to bf16, and the f32 scales of each
   // stage's cells ([stage][k | v][cell])
-  static constexpr int KW = V + PSTAGES * TC;
+  static constexpr int KW = V + ST * TC;
   static constexpr int VW = KW + (Q8 ? TB : 0);
   static constexpr int SC = VW + (Q8 ? TB : 0);
-  static constexpr int TBL = SC + (Q8 ? PSTAGES * 2 * PT * 4 : 0);
+  static constexpr int TBL = SC + (Q8 ? ST * 2 * PT * 4 : 0);
   static_assert(K % 1024 == 0 && TC % 1024 == 0 && TB % 1024 == 0,
                 "tiles must keep the 1024-byte alignment of the swizzle");
 };
@@ -195,10 +210,13 @@ __device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
 // table (K4; the fp leg on `mma.sync`). grid (KV, B, slabs · chunks);
 // split: tiles a chunk, 0 for one chunk a window. At d = 128 a block's
 // shared memory leaves room for two blocks an SM, so the registers are
-// bounded for two
+// bounded for two; at d = 256 (`mma.sync` only) for one: O alone is 128
+// registers a thread, and the q fragments are read from shared memory at
+// each tile instead of being held (64 more)
 template <int D, int NWG, bool WG, bool Q8, bool DENSE = false>
 __global__ void __launch_bounds__(NWG * 128,
-                                  NWG == 1 ? (D == 128 ? 2 : 3)
+                                  NWG == 1 ? (D == 256 ? 1
+                                              : D == 128 ? 2 : 3)
                                            : (NWG == 2 ? 2 : 1))
 paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
                 const void* __restrict__ kv_v,
@@ -215,6 +233,9 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
   static_assert(WG || NWG == 1, "mma.sync blocks are one warpgroup");
   static_assert(!(WG && Q8), "the int8 leg runs mma.sync");
   static_assert(!DENSE || (!WG && !Q8), "the dense leg runs mma.sync, fp");
+  static_assert(D != 256 || !WG, "d = 256 runs mma.sync");
+  constexpr int ST = L::ST;
+  constexpr bool QREG = D <= 128;   // the q fragments held in registers
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -257,7 +278,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
   }
   __syncthreads();   // the table row, for the copies below
   auto issue = [&](int t) {   // tile t (cells 64 t ..) into its stage
-    const int stg = (t - t0) % PSTAGES;
+    const int stg = (t - t0) % ST;
     const uint32_t kt = base + L::K + stg * L::TC;
     const uint32_t vt = base + L::V + stg * L::TC;
     for (int i = tid; i < 2 * PT * CC; i += NT) {
@@ -297,7 +318,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
     }
   };
 #pragma unroll
-  for (int i = 0; i < PSTAGES - 1; ++i) {
+  for (int i = 0; i < ST - 1; ++i) {
     if (t0 + i < t1) issue(t0 + i);
     cp_async_commit();
   }
@@ -316,14 +337,15 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
   float oacc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
-  uint32_t qa[WG ? 1 : D / 16][4];   // mma.sync: this warp's q fragments
+  // mma.sync: this warp's q fragments (QREG; else read at each tile)
+  uint32_t qa[WG || !QREG ? 1 : D / 16][4];
 
   for (int t = t0; t < t1; ++t) {
-    const int stg = (t - t0) % PSTAGES;
-    cp_async_wait<PSTAGES - 2>();   // tile t (and at t0, q) has landed
+    const int stg = (t - t0) % ST;
+    cp_async_wait<ST - 2>();   // tile t (and at t0, q) has landed
     fence_proxy_async();
     __syncthreads();   // ... for every thread; tile t - 1 is consumed
-    if (t + PSTAGES - 1 < t1) issue(t + PSTAGES - 1);   // tile t - 1's stage
+    if (t + ST - 1 < t1) issue(t + ST - 1);   // tile t - 1's stage
     cp_async_commit();
     uint32_t kt = base + L::K + stg * L::TC;
     uint32_t vt = base + L::V + stg * L::TC;
@@ -363,7 +385,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
       wg_wait<0>();
       reg_fence(s);
       reg_fence(oacc);
-    } else {
+    } else if constexpr (QREG) {
       if (t == t0) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
@@ -381,6 +403,25 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
           mma16816(s + 4 * c, qa[2 * k2], b[0], b[1]);
           mma16816(s + 4 * c, qa[2 * k2 + 1], b[2], b[3]);
         }
+    } else {   // d = 256: 32 dims of q at a time, each score summed over
+               // k2 in the same order as above
+#pragma unroll
+      for (int i = 0; i < PT / 2; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < D / 32; ++k2) {
+        uint32_t q0[4], q1[4];
+        ldsm4(q0, chunk_at<QR>(base + L::Q, 16 * warp + (lane & 15),
+                               4 * k2 + (lane >> 4)));
+        ldsm4(q1, chunk_at<QR>(base + L::Q, 16 * warp + (lane & 15),
+                               4 * k2 + 2 + (lane >> 4)));
+#pragma unroll
+        for (int c = 0; c < PT / 8; ++c) {
+          uint32_t b[4];
+          ldsm4(b, chunk_at<PT>(kt, 8 * c + (lane & 7), 4 * k2 + (lane >> 3)));
+          mma16816(s + 4 * c, q0, b[0], b[1]);
+          mma16816(s + 4 * c, q1, b[2], b[3]);
+        }
+      }
     }
 
     // online softmax on the accumulator: a row's values sit in a quad.
@@ -580,14 +621,18 @@ int launch_tc(const TcArgs& a, const Strides& st, void* stream) {
 
 template <int D, bool Q8>
 int launch_tc_d(int rows, const TcArgs& a, const Strides& st, void* stream) {
-  if constexpr (Q8) return launch_tc<D, 1, false, true>(a, st, stream);
-  if (rows < 64) return launch_tc<D, 1, false, false>(a, st, stream);
-  if (rows <= 64) return launch_tc<D, 1, true, false>(a, st, stream);
-  if (rows <= 128) return launch_tc<D, 2, true, false>(a, st, stream);
-  return launch_tc<D, 4, true, false>(a, st, stream);
+  if constexpr (Q8 || D == 256) {   // `mma.sync`, at most SLAB_MMA rows
+    return launch_tc<D, 1, false, Q8>(a, st, stream);
+  } else {
+    if (rows < 64) return launch_tc<D, 1, false, false>(a, st, stream);
+    if (rows <= 64) return launch_tc<D, 1, true, false>(a, st, stream);
+    if (rows <= 128) return launch_tc<D, 2, true, false>(a, st, stream);
+    return launch_tc<D, 4, true, false>(a, st, stream);
+  }
 }
 
-// Q8: the int8 leg, whose blocks take at most SLAB_Q8 rows (`mma.sync`)
+// Q8: the int8 leg, whose blocks take at most SLAB_MMA rows (`mma.sync`),
+// as every block at d = 256
 template <bool Q8>
 int run_tc(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* tables, const void* pos, void* o,
@@ -600,7 +645,7 @@ int run_tc(const void* q, const void* k, const void* v, const void* ks,
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
-  const int rows = C * G, cap = Q8 ? SLAB_Q8 : SLAB;
+  const int rows = C * G, cap = Q8 || d == 256 ? SLAB_MMA : SLAB;
   const int nslab = (rows + cap - 1) / cap;
   const int nch = split ? (P * page + PT * split - 1) / (PT * split) : 1;
   if (static_cast<long long>(nslab) * nch > 65535)
@@ -613,6 +658,7 @@ int run_tc(const void* q, const void* k, const void* v, const void* ks,
   const int brows = nslab > 1 ? cap : rows;
   if (d == 64) return launch_tc_d<64, Q8>(brows, a, st, stream);
   if (d == 128) return launch_tc_d<128, Q8>(brows, a, st, stream);
+  if (d == 256) return launch_tc_d<256, Q8>(brows, a, st, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -636,6 +682,7 @@ int run_dense(const void* q, const void* k, const void* v, const void* pos,
                  G, KV, 0, 1, S, split, 1, nch};
   if (d == 64) return launch_tc<64, 1, false, false, true>(a, st, stream);
   if (d == 128) return launch_tc<128, 1, false, false, true>(a, st, stream);
+  if (d == 256) return launch_tc<256, 1, false, false, true>(a, st, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1031,13 +1078,13 @@ extern "C" {
 // int32 (entries >= N are sentinels), last dim contiguous; pos (B,) int32;
 // o (B, C, H, d) bf16. strides: 13 element strides (q: b, c, h; k: n, p,
 // kv; v: n, p, kv; o: b, c, h; tables: b), q/k/v/o ones a multiple of 8
-// with 16-byte aligned bases. d in {64, 128}; H / KV in {1, 2, 4, 8};
-// page a multiple of 8 in [8, 64]. split: tiles of 64 cells a chunk of
-// the window (0: one block a window); with split > 0, ws an f32
+// with 16-byte aligned bases. d in {64, 128, 256}; H / KV in {1, 2, 4,
+// 8}; page a multiple of 8 in [8, 64]. split: tiles of 64 cells a chunk
+// of the window (0: one block a window); with split > 0, ws an f32
 // workspace of B · KV · slabs · chunks · threads · (d / 2 + 4) floats
-// (threads = 128 · warpgroups, slabs = ceil(C·G / 256), chunks =
-// ceil(P · page / (64 · split))) and cnt B · KV · slabs zeroed int
-// counters (left at zero).
+// (threads = 128 · warpgroups, slabs = ceil(C·G / 256), at d = 256
+// ceil(C·G / 64) with 128 threads, chunks = ceil(P · page / (64 ·
+// split))) and cnt B · KV · slabs zeroed int counters (left at zero).
 int paged_attention_bf16(const void* q, const void* k, const void* v,
                          const void* tables, const void* pos, void* o, int B,
                          int C, int H, int KV, int d, int N, int page, int P,
@@ -1066,9 +1113,9 @@ int paged_attention_int8(const void* q, const void* k, const void* v,
 // int32; o (B, H, d) bf16. strides: 10 element strides (q: b, h; k: b, s,
 // kv; v: b, s, kv; o: b, h), each a multiple of 8 with 16-byte aligned
 // bases and a contiguous last dim. Slot b attends cells
-// 0 .. min(pos[b], S - 1). d in {64, 128}; H / KV in {1, 2, 4, 8}. split,
-// ws and cnt as paged_attention_bf16's, with 128 threads a block, one
-// slab and chunks = ceil(S / (64 · split)).
+// 0 .. min(pos[b], S - 1). d in {64, 128, 256}; H / KV in {1, 2, 4, 8}.
+// split, ws and cnt as paged_attention_bf16's, with 128 threads a block,
+// one slab and chunks = ceil(S / (64 · split)).
 int dense_decode_attention_bf16(const void* q, const void* k, const void* v,
                                 const void* pos, void* o, int B, int S,
                                 int H, int KV, int d,

@@ -18,11 +18,14 @@ tensor-core kernel over the dense cache (``csrc/paged_attention.cu``,
 
 A CPU tensor runs the plain version (``kernels/ref.py``, through the
 layout shims below). A CUDA tensor launches the kernel or raises: bf16
-operands at head_dim 64 or 128; f32 operands (RoBERTa trains and serves
-in f32) launch the f32 instances of K3 / #5, #6, #7 and K4 at head_dim 64
-(FFMA, ``csrc/attention_f32.cuh``; counted under the kernel's name +
-``_f32``; K4's is #8's f32 kernel over the dense cache); mixed dtypes
-raise. GQA group size G in {1, 2, 4, 8} for decode and the backward.
+operands at head_dim 64 or 128, and at 256 (gemma-7b) for K3 / #5 and K4
+(their d = 256 instances, counted under the kernel's name + ``_d256``;
+the backward #6 / #7 raises there); f32 operands (RoBERTa trains and
+serves in f32) launch the f32 instances of K3 / #5, #6, #7 and K4 at
+head_dim 64 (FFMA, ``csrc/attention_f32.cuh``; counted under the
+kernel's name + ``_f32``; K4's is #8's f32 kernel over the dense cache);
+mixed dtypes raise. GQA group size G in {1, 2, 4, 8} for decode and the
+backward.
 Operands need a contiguous last dim, strides of whole 16 bytes (8 bf16
 or 4 f32 elements) and 16-byte aligned data. ``LAUNCHES`` counts the
 launches, and nothing else adds to it.
@@ -44,9 +47,14 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "flash_attention_f32": 0,
             "flash_attention_fwd_f32": 0, "flash_attention_bwd_dq_f32": 0,
-            "flash_attention_bwd_dkv_f32": 0, "decode_attention_f32": 0}
+            "flash_attention_bwd_dkv_f32": 0, "decode_attention_f32": 0,
+            "flash_attention_d256": 0, "flash_attention_fwd_d256": 0,
+            "decode_attention_d256": 0}
 
-HEAD_DIMS = (64, 128)
+#: head dims of the bf16 forward and decode kernels (K3 / #5, K4, #8, #8q)
+HEAD_DIMS = (64, 128, 256)
+#: head dims of the bf16 backward (#6 / #7; d = 256 not built yet)
+HEAD_DIMS_BWD = (64, 128)
 #: head dims of the f32 instances (RoBERTa's heads of 64)
 HEAD_DIMS_F32 = (64,)
 GROUPS = (1, 2, 4, 8)
@@ -134,15 +142,18 @@ def _fn(name: str):
 
 
 def _instance(t) -> str:
-    """The suffix of the instance an operand launches: "_f32" or "" (bf16)
-    — of its C function (after "_bf16") and of its ``LAUNCHES`` key."""
+    """The suffix of the C function an operand launches: "_f32" or ""
+    (bf16, after "_bf16")."""
     return "_f32" if t.dtype == torch.float32 else ""
 
 
-def _check_cuda(ts, d: int, what: str, dtypes=DTYPES) -> str:
-    """Device, dtype, layout and head_dim of the operands ``ts``; returns
-    the instance's suffix ("" bf16, "_f32" f32). Every operand in one of
-    ``dtypes`` and all in the same one, else ``TypeError``."""
+def _check_cuda(ts, d: int, what: str, dtypes=DTYPES,
+                dims=HEAD_DIMS) -> str:
+    """Device, dtype, layout and head_dim of the operands ``ts`` (bf16 in
+    ``dims``, f32 in ``HEAD_DIMS_F32``); returns the instance's
+    ``LAUNCHES`` suffix: "_f32", "_d256" (bf16 at 256) or "" (bf16 at 64
+    / 128). Every operand in one of ``dtypes`` and all in the same one,
+    else ``TypeError``."""
     _build.check_device(ts[0])
     dt = ts[0].dtype
     if dt not in dtypes:
@@ -160,12 +171,12 @@ def _check_cuda(ts, d: int, what: str, dtypes=DTYPES) -> str:
             raise ValueError(f"{what}: operands need a contiguous last dim, "
                              "strides of whole 16 bytes and 16-byte "
                              "aligned data")
-    dims = HEAD_DIMS_F32 if dt == torch.float32 else HEAD_DIMS
+    dims = HEAD_DIMS_F32 if dt == torch.float32 else dims
     if d not in dims:
         raise NotImplementedError(
             f"{what}: CUDA kernel built for head_dim in {dims} ({dt}); "
             f"got {d}")
-    return _instance(ts[0])
+    return _instance(ts[0]) or ("_d256" if d == 256 else "")
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -196,9 +207,10 @@ FWD_VARIANTS = {"wg1": 1, "wg2": 2}
 WG2_FROM_T = 512
 
 
-def fwd_variant(t: int) -> str:
-    """Which variant K3 / #5 launch for T queries."""
-    return "wg2" if t >= WG2_FROM_T else "wg1"
+def fwd_variant(t: int, d: int = 64) -> str:
+    """Which variant K3 / #5 launch for T queries at head_dim ``d``; at
+    d = 256 one warpgroup always (two would not fit in shared memory)."""
+    return "wg2" if t >= WG2_FROM_T and d != 256 else "wg1"
 
 
 def _launch_fwd(q, k, v, causal: bool, lse, variant=None) -> torch.Tensor:
@@ -214,7 +226,7 @@ def _launch_fwd(q, k, v, causal: bool, lse, variant=None) -> torch.Tensor:
     if _instance(q):
         rc = _fn("flash_attention_f32")(*ptrs, st, _build.stream_ptr(q))
     else:
-        variant = variant or fwd_variant(t)
+        variant = variant or fwd_variant(t, d)
         rc = _fn("flash_attention_bf16")(*ptrs, FWD_VARIANTS[variant], st,
                                          _build.stream_ptr(q))
     _build.check(rc, "flash_attention")
@@ -262,7 +274,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad((q, k, v, o, lse, g), "flash_attention_bwd")
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
-    _check_cuda((q, k, v, o, g), d, "flash_attention_bwd")
+    _check_cuda((q, k, v, o, g), d, "flash_attention_bwd",
+                dims=HEAD_DIMS_BWD)
     if h // kv not in GROUPS:
         raise NotImplementedError(
             f"flash_attention_bwd: CUDA kernels built for GQA groups "

@@ -14,7 +14,9 @@ in f32 and p is kept above bf16 precision through P·V (the TPU kernel's
 f32), the output is in q's dtype.
 
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
-launches the kernel (bf16 q, bf16 or int8 pools, head_dim 64 or 128; f32
+launches the kernel (bf16 q, bf16 or int8 pools, head_dim 64, 128 or 256
+— gemma-7b's, counted under the kernel's name + ``_d256``: ``mma.sync``
+in slabs of at most 64 rows, a two-stage ring of 32 KB tiles; f32
 q, f32 or int8 pools, head_dim 64; GQA group in {1, 2, 4, 8}, page a
 multiple of 8 up to 64; a contiguous last dim, strides of whole 16 bytes,
 16-byte aligned data) or raises; mixed fp dtypes raise. f32 operands
@@ -49,11 +51,14 @@ from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0,
             "paged_decode_attention_f32": 0,
-            "paged_decode_attention_int8_f32": 0}
+            "paged_decode_attention_int8_f32": 0,
+            "paged_decode_attention_d256": 0,
+            "paged_decode_attention_int8_d256": 0}
 
 PAGES = tuple(range(8, 65, 8))
 #: cells a streamed tile of #8's kernel, and the most rows a block takes
-#: (#8q: one ``mma.sync`` warpgroup's; the f32 instances: 64)
+#: (#8q and every bf16 block at head_dim 256: one ``mma.sync``
+#: warpgroup's; the f32 instances: 64)
 TILE_CELLS, SLAB_ROWS, SLAB_ROWS_Q8, SLAB_ROWS_F32 = 64, 256, 64, 64
 #: threads a block of the f32 instances
 THREADS_F32 = 256
@@ -94,12 +99,12 @@ def _fn(name: str):
 
 
 def slab_rows(c: int, g: int, quantized: bool = False,
-              f32: bool = False) -> int:
+              f32: bool = False, d: int = 64) -> int:
     """Rows (column, head pairs) a block of #8 / #8q takes: all C·G of a
-    (slot, kv head) up to ``SLAB_ROWS`` (#8q: ``SLAB_ROWS_Q8``, one
-    ``mma.sync`` warpgroup; the f32 instances ``SLAB_ROWS_F32``); above
-    that, slabs of that many rows."""
-    cap = (SLAB_ROWS_F32 if f32 else SLAB_ROWS_Q8 if quantized
+    (slot, kv head) up to ``SLAB_ROWS`` (#8q and head_dim 256:
+    ``SLAB_ROWS_Q8``, one ``mma.sync`` warpgroup; the f32 instances
+    ``SLAB_ROWS_F32``); above that, slabs of that many rows."""
+    cap = (SLAB_ROWS_F32 if f32 else SLAB_ROWS_Q8 if quantized or d == 256
            else SLAB_ROWS)
     return min(c * g, cap)
 
@@ -119,20 +124,21 @@ def f32_workspace_elems(blocks: int, chunks: int, brows: int,
 
 
 def paged_path(b: int, c: int, h: int, kv: int, p_tab: int, page: int,
-               sms: int, quantized: bool = False, f32: bool = False
-               ) -> tuple:
+               sms: int, quantized: bool = False, f32: bool = False,
+               d: int = 64) -> tuple:
     """How #8's kernel runs: ``("mma", split)`` below 64 rows a block
-    (C·G < 64), else ``("wgmma", split)``; #8q (``quantized``) always
-    ``"mma"``, in slabs of at most 64 rows. ``split`` is the tiles of 64
+    (C·G < 64), else ``("wgmma", split)``; #8q (``quantized``) and every
+    block at head_dim ``d`` = 256 always ``"mma"``, in slabs of at most
+    64 rows. ``split`` is the tiles of 64
     cells a chunk of each window when the blocks (B·KV·slabs) would leave
     the card under-filled (fewer than two on each of ``sms`` SMs), so
     that about four blocks an SM run, and 0 (one block a window)
     otherwise. ``f32``: the f32 instances' FFMA kernel (``"ffma"``), in
     slabs of at most 64 rows, by the same chunk rule."""
     rows = c * (h // kv)
-    mode = ("ffma" if f32 else "mma" if quantized or rows < 64
+    mode = ("ffma" if f32 else "mma" if quantized or rows < 64 or d == 256
             else "wgmma")
-    blocks = b * kv * -(-rows // slab_rows(c, h // kv, quantized, f32))
+    blocks = b * kv * -(-rows // slab_rows(c, h // kv, quantized, f32, d))
     return mode, _chunk_tiles(blocks, -(-p_tab * page // TILE_CELLS), sms)
 
 
@@ -198,7 +204,7 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     _, split = paged_path(b, c, h, kv, tables.shape[1], page, sms,
-                          f32=bool(sfx))
+                          f32=q.dtype == torch.float32, d=d)
     rc = _launch_tc(q, k_cache, v_cache, tables, pos, o, n, page, st, split)
     _build.check(rc, what)
     LAUNCHES[what + sfx] += 1
@@ -218,7 +224,7 @@ def _launch_tc(q, k_cache, v_cache, tables, pos, o, n: int, page: int, st,
     ws = cnt = None
     if split:
         rows = c * (h // kv)
-        brows = slab_rows(c, h // kv, scales is not None, f32)
+        brows = slab_rows(c, h // kv, scales is not None, f32, d)
         slabs = -(-rows // brows)
         chunks = -(-p_tab * page // (TILE_CELLS * split))
         if f32:
@@ -309,7 +315,8 @@ def paged_decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
     st = int8_strides(q, k_cache, v_cache, k_scale, v_scale, tables, o)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     _, split = paged_path(b, c, h, kv, tables.shape[1], page, sms,
-                          quantized=True, f32=bool(sfx))
+                          quantized=True, f32=q.dtype == torch.float32,
+                          d=d)
     rc = _launch_tc(q, k_cache, v_cache, tables, pos, o, n, page, st, split,
                     (k_scale, v_scale))
     _build.check(rc, what)

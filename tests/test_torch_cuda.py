@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions, on the card.
 
 Odd shapes the main paths do not hit — ragged M/N/K, ranks that are
-not multiples of 8 or 16, large ranks, every GQA group size, both head
-dims, non-causal and S != T attention — so each kernel's masking and load
+not multiples of 8 or 16, large ranks, every GQA group size, head dims
+64 and 128 (and 256, gemma-7b's, for the forward and decode kernels),
+non-causal and S != T attention — so each kernel's masking and load
 paths are exercised, forward and backward. Marked ``cuda``: skipped
 without a CUDA device of compute capability >= 9.0. Run on the card with
 
@@ -1631,3 +1632,216 @@ def test_paged_decode_attention_f32_split_windows(dev, b, c, g, split,
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         assert tpa.paged_path(b, c, h, kv, p_tab, page, sms,
                               quantized, True)[1] > 0
+
+
+# ---------------------------------------------------------------------------
+# head_dim 256 (gemma-7b): the d = 256 instances of K3 / #5, K4, #8 and #8q,
+# and the linears at gemma's q / v projection (K = 3072, N = 4096)
+# ---------------------------------------------------------------------------
+
+D256_ATTN = [(1, 64, 64, 16, 16, 256, True), (2, 70, 70, 4, 2, 256, True),
+             (1, 33, 100, 4, 4, 256, False), (1, 300, 300, 2, 2, 256, True),
+             (3, 5, 5, 4, 1, 256, True)]
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", D256_ATTN)
+def test_flash_attention_d256(dev, b, t, s, h, kv, d, causal):
+    """K3 and #5 at d = 256 (one warpgroup a block, whatever T): within
+    2e-2 of the plain version, lse within 1e-3, K3 equal to #5's output,
+    two calls bit-identical, counted under the ``_d256`` keys."""
+    q, k, v = (_rn(dev, b, t, h, d), _rn(dev, b, s, kv, d),
+               _rn(dev, b, s, kv, d))
+    assert tfa.fwd_variant(t, d) == "wg1"
+    kernels.reset_launch_counts()
+    o3 = tfa.flash_attention(q, k, v, causal)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    n_ = kernels.launch_counts()
+    assert n_["flash_attention_d256"] == 1
+    assert n_["flash_attention_fwd_d256"] == 1
+    assert n_["flash_attention"] == n_["flash_attention_fwd"] == 0
+    po, plse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    _close(o3, po, 2e-2)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+    assert torch.equal(o3, o)
+    assert torch.equal(tfa.flash_attention(q, k, v, causal), o3)
+
+
+@pytest.mark.parametrize("split", [0, 1, 3])
+@pytest.mark.parametrize("g", [1, 2, 8])
+def test_decode_attention_d256(dev, g, split):
+    """K4 at d = 256 over a 300-cell cache: windows of one cell, of the
+    whole cache and past it, split into chunks or not; within 2e-2 of the
+    plain version, pos 0 exactly v[0], two calls bit-identical."""
+    b, s, kv, d = 5, 300, 2, 256
+    q, k, v = (_rn(dev, b, kv * g, d), _rn(dev, b, s, kv, d, seed=1),
+               _rn(dev, b, s, kv, d, seed=2))
+    pos = torch.tensor([0, 63, s - 1, s, 5 * s], dtype=torch.int32,
+                       device=dev)
+    want = tfa.decode_attention_plain(q, k, v, pos)
+    got = _dense_launch(q, k, v, pos, split)
+    _close(got, want, 2e-2)
+    assert torch.equal(got[0], v[0, 0].repeat_interleave(g, 0))
+    assert torch.equal(_dense_launch(q, k, v, pos, split), got)
+    kernels.reset_launch_counts()
+    got = tfa.decode_attention(q, k, v, pos)
+    _close(got, want, 2e-2)
+    assert torch.equal(tfa.decode_attention(q, k, v, pos), got)
+    n_ = kernels.launch_counts()
+    assert n_["decode_attention_d256"] == 2 and n_["decode_attention"] == 0
+
+
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("c", [1, 3, 32])
+def test_paged_decode_attention_d256(dev, c, g, page):
+    """#8 at d = 256: ``mma.sync`` in slabs of at most 64 rows (C·G up to
+    256), a window ending on a page edge, sentinels inside and past the
+    window; within 2e-2 of the plain version, two calls bit-identical."""
+    args = _paged_case(dev, c, g, 256, page, edge=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tpa.paged_path(5, c, 2 * g, 2, 6, page, sms, d=256)[0] == "mma"
+    kernels.reset_launch_counts()
+    got = tpa.paged_decode_attention(*args)
+    assert got.shape == args[0].shape and got.dtype == torch.bfloat16
+    _close(got, tpa.paged_decode_attention_plain(*args), 2e-2)
+    assert torch.equal(tpa.paged_decode_attention(*args), got)
+    n_ = kernels.launch_counts()
+    assert n_["paged_decode_attention_d256"] == 2
+    assert n_["paged_decode_attention"] == 0
+
+
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("c", [1, 4, 32])
+def test_paged_decode_attention_int8_d256(dev, c, g, page):
+    """#8q at d = 256 (the two-stage ring of int8 tiles, widened in
+    shared memory); within 2e-2 of the plain version, two calls
+    bit-identical."""
+    args = _paged_case_int8(dev, c, g, 256, page)
+    kernels.reset_launch_counts()
+    got = tpa.paged_decode_attention_int8(*args)
+    assert got.shape == args[0].shape and got.dtype == torch.bfloat16
+    _close(got, tpa.paged_decode_attention_int8_plain(*args), 2e-2)
+    assert torch.equal(tpa.paged_decode_attention_int8(*args), got)
+    n_ = kernels.launch_counts()
+    assert n_["paged_decode_attention_int8_d256"] == 2
+    assert n_["paged_decode_attention_int8"] == 0
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("split", [0, 1, 3])
+@pytest.mark.parametrize("c,g", [(1, 1), (32, 1), (32, 4)])
+def test_paged_d256_split_windows(dev, c, g, split, quantized):
+    """#8 / #8q at d = 256 with every window split into chunks of
+    ``split`` tiles (0: one block a window), merged in chunk order: within
+    2e-2 of the plain version and bit-identical from call to call."""
+    q, kc, vc, tables, pos = _paged_case(dev, c, g, 256, 16, edge=True)
+    n, page = kc.shape[0], kc.shape[1]
+    o = [torch.empty_like(q) for _ in range(2)]
+    if quantized:
+        k8, ks = tquant.quantize_kv(kc.float() * 3)
+        v8, vs = tquant.quantize_kv(vc.float() * 3)
+        st = tpa.int8_strides(q, k8, v8, ks, vs, tables, o[0])
+        for t in o:
+            tpa._build.check(tpa._launch_tc(q, k8, v8, tables, pos, t, n,
+                                            page, st, split, (ks, vs)),
+                             "split")
+        want = tpa.paged_decode_attention_int8_plain(q, k8, v8, ks, vs,
+                                                     tables, pos)
+    else:
+        st = tfa._strides(q, kc, vc, o[0])
+        st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
+        for t in o:
+            tpa._build.check(tpa._launch_tc(q, kc, vc, tables, pos, t, n,
+                                            page, st, split), "split")
+        want = tpa.paged_decode_attention_plain(q, kc, vc, tables, pos)
+    _close(o[0], want, 2e-2)
+    assert torch.equal(o[0], o[1])
+
+
+def test_d256_rejects_what_the_kernels_do_not_take(dev):
+    """Head dims outside {64, 128, 256} still raise, f32 at 256 raises (no
+    f32 instance), the backward at 256 raises (#6 / #7 not built at 256),
+    and the forward refuses two warpgroups at 256; nothing falls back."""
+    q, k, v = (_rn(dev, 1, 64, 4, 256), _rn(dev, 1, 64, 4, 256, seed=1),
+               _rn(dev, 1, 64, 4, 256, seed=2))
+    for d in (96, 192):
+        qd, kd, vd = (t[..., :d].contiguous() for t in (q, k, v))
+        with pytest.raises(NotImplementedError):
+            tfa.flash_attention(qd, kd, vd, True)
+        with pytest.raises(NotImplementedError):
+            tfa.decode_attention(qd[:, 0], kd, vd,
+                                 torch.zeros(1, dtype=torch.int32,
+                                             device=dev))
+    with pytest.raises(NotImplementedError):        # f32 at 256
+        tfa.flash_attention(q.float(), k.float(), v.float(), True)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention_fwd(q.float(), k.float(), v.float(), True)
+    o, lse = tfa.flash_attention_fwd(q, k, v, True)
+    with pytest.raises(NotImplementedError):        # the backward at 256
+        tfa.flash_attention_bwd(q, k, v, o, lse, q, True)
+    with pytest.raises(RuntimeError):               # two warpgroups at 256
+        tfa._launch_fwd(q, k, v, True, None, "wg2")
+    args = _paged_case(dev, 4, 2, 256, 16)
+    with pytest.raises(NotImplementedError):        # f32 paged at 256
+        tpa.paged_decode_attention(args[0].float(), args[1].float(),
+                                   args[2].float(), *args[3:])
+    a8 = _paged_case_int8(dev, 4, 2, 256, 16)
+    with pytest.raises(NotImplementedError):        # f32 q over int8 at 256
+        tpa.paged_decode_attention_int8(a8[0].float(), *a8[1:])
+    a96 = _paged_case(dev, 4, 2, 96, 16)
+    with pytest.raises(NotImplementedError):        # head_dim 96, paged
+        tpa.paged_decode_attention(*a96)
+    with pytest.raises(NotImplementedError):
+        tpa.paged_decode_attention_int8(*_paged_case_int8(dev, 4, 2, 96,
+                                                          16))
+    torch.cuda.synchronize()
+
+
+GEMMA_QV = (3072, 4096, 8)      # K = d_model, N = q_dim, r
+
+
+@pytest.mark.parametrize("m", [64, 96])
+def test_tt_linear_gemma_qv(dev, m):
+    """K1 at gemma-7b's prefill q projection (K 3072 -> N 4096, r 8)."""
+    k, n, r = GEMMA_QV
+    x, w = _rn(dev, m, k), _rn(dev, k, n, scale=k ** -0.5)
+    a = _rn(dev, r, k, scale=k ** -0.5).T
+    b = _rn(dev, r, n, scale=r ** -0.5)
+    got = ttl.tt_linear(x, w, a, b, 4.0)
+    _close(got, ttl.tt_linear_plain(x, w, a, b, 4.0), 1e-2)
+    assert torch.equal(ttl.tt_linear(x, w, a, b, 4.0), got)
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_batched_a_linears_gemma_qv(dev, m, w8):
+    """K2 / #10 at gemma-7b's decode q projection (M slots, K 3072 -> N
+    4096, r 8): within 1e-2 of the plain version, bit-identical."""
+    k, n, r = GEMMA_QV
+    x = _rn(dev, m, k)
+    a, b = _rn(dev, m, k, r, scale=k ** -0.5), _rn(dev, r, n, scale=r ** -0.5)
+    if w8:
+        wq, s = _w8(dev, k, n, 0)
+        fn = lambda: ttl.tt_linear_batched_a_w8(x, wq, s, a, b, 4.0)  # noqa
+        want = ttl.tt_linear_batched_a_w8_plain(x, wq, s, a, b, 4.0)
+    else:
+        w = _rn(dev, k, n, scale=k ** -0.5)
+        fn = lambda: ttl.tt_linear_batched_a(x, w, a, b, 4.0)  # noqa
+        want = ttl.tt_linear_batched_a_plain(x, w, a, b, 4.0)
+    got = fn()
+    _close(got, want, 1e-2)
+    assert torch.equal(fn(), got)
+
+
+@pytest.mark.parametrize("m", [64, 96])
+def test_tt_linear_w8_gemma_qv(dev, m):
+    """#9 at gemma-7b's prefill q projection over int8 W."""
+    k, n, r = GEMMA_QV
+    x = _rn(dev, m, k)
+    wq, s = _w8(dev, k, n, 0)
+    a = _rn(dev, r, k, scale=k ** -0.5).T
+    b = _rn(dev, r, n, scale=r ** -0.5)
+    got = ttl.tt_linear_w8(x, wq, s, a, b, 4.0)
+    _close(got, ttl.tt_linear_w8_plain(x, wq, s, a, b, 4.0), 1e-2)
+    assert torch.equal(ttl.tt_linear_w8(x, wq, s, a, b, 4.0), got)

@@ -38,6 +38,7 @@ def test_source_imports_no_jax_and_no_repro(path):
 
 def test_every_module_imports_with_jax_blocked():
     assert "repro_torch.configs.roberta" in MODULES
+    assert "repro_torch.configs.gemma_7b" in MODULES
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'repro'):\n"

@@ -12,13 +12,15 @@
   under-filled.
 - ``paged_attention.paged_path`` with ``quantized=True``: #8q runs
   ``mma.sync`` in slabs of at most 64 rows, and splits windows into
-  chunks where the blocks leave the card under-filled.
+  chunks where the blocks leave the card under-filled; at head_dim 256
+  #8 does too, and the forward (K3 / #5) takes one warpgroup a block.
 
 The kernels themselves run on the card (``tests/test_torch_cuda.py``).
 """
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import tt_linear as ttl
 
@@ -160,3 +162,30 @@ def test_paged_path_int8_takes_mma_slabs_and_splits(b, c, h, kv, p_tab,
     (1, 1, True, 1), (32, 2, True, 64), (32, 8, True, 64)])
 def test_slab_rows_caps_a_block(c, g, quantized, want):
     assert tpa.slab_rows(c, g, quantized) == want
+
+
+@pytest.mark.parametrize("b,c,h,kv,quantized,want", [
+    (8, 32, 16, 16, False, ("mma", 2)),   # gemma-7b's paged step
+    (8, 1, 16, 16, False, ("mma", 2)),    # gemma-7b's decode column
+    (8, 32, 16, 16, True, ("mma", 2)),    # the int8 leg
+    (8, 32, 16, 2, False, ("mma", 1)),    # G = 8: 256 rows, 4 slabs
+    (8, 8, 16, 2, False, ("mma", 1)),     # G = 8: 64 rows, one slab
+    (64, 32, 16, 16, False, ("mma", 0)),  # 1024 blocks fill the card
+])
+def test_paged_path_at_head_dim_256_is_mma_in_64_row_slabs(
+        b, c, h, kv, quantized, want):
+    """At d = 256 every #8 / #8q block runs ``mma.sync`` with at most 64
+    rows (a `wgmma` block of 128 / 256 rows does not fit beside the
+    ring), with the d = 64 chunk rule; 34-page tables of 16 cells."""
+    assert tpa.paged_path(b, c, h, kv, 34, 16, sms=132, quantized=quantized,
+                          d=256) == want
+    assert tpa.slab_rows(c, h // kv, quantized, d=256) == min(c * h // kv,
+                                                               64)
+
+
+@pytest.mark.parametrize("t,d,want", [
+    (64, 64, "wg1"), (1024, 64, "wg2"), (64, 256, "wg1"), (1024, 256, "wg1")])
+def test_fwd_variant_takes_one_warpgroup_at_head_dim_256(t, d, want):
+    """K3 / #5 at d = 256 run one warpgroup a block at any T: two would
+    need 256 KB of shared memory."""
+    assert tfa.fwd_variant(t, d) == want

@@ -110,6 +110,8 @@ def test_batched_a_plain_matches_pallas_and_ref(s, k, n, r, slot_axis, dt):
     (2, 37, 37, 4, 2, 16, True),      # odd T == S, causal, GQA G = 2
     (2, 20, 45, 4, 2, 32, False),     # S != T, non-causal
     (1, 19, 30, 2, 2, 64, True),      # S != T, causal
+    (1, 21, 21, 2, 2, 256, True),     # head_dim 256 (gemma-7b), causal
+    (1, 9, 40, 2, 1, 256, False),     # head_dim 256, S != T, GQA G = 2
 ])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_attention_plain_matches_pallas_and_ref(b, t, s, h, kv, d,
@@ -129,7 +131,8 @@ def test_flash_attention_plain_matches_pallas_and_ref(b, t, s, h, kv, d,
                        tfa.flash_attention_plain(tq, tk, tv, causal))
 
 
-@pytest.mark.parametrize("b,s,h,kv,d", [(4, 40, 8, 4, 16)])
+@pytest.mark.parametrize("b,s,h,kv,d", [(4, 40, 8, 4, 16),
+                                         (4, 40, 2, 2, 256)])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_decode_attention_plain_matches_pallas_and_ref(b, s, h, kv, d, dt):
     rng = np.random.default_rng(b * 10 + s)

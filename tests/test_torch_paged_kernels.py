@@ -69,9 +69,10 @@ def _engine_tables(n, p_tab):
 @pytest.mark.parametrize("c,heads", [(1, (4, 4)), (4, (4, 2)),
                                      (8, (8, 2))])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_plain_matches_pallas_and_ref_at_engine_test_shapes(c, heads, dt):
+def test_plain_matches_pallas_and_ref_at_engine_test_shapes(c, heads, dt,
+                                                            d=16):
     h, kv = heads
-    b, d, n, page, p_tab = 3, 16, 12, 8, 4
+    b, n, page, p_tab = 3, 12, 8, 4
     j, t = _inputs(c, b, c, h, kv, d, n, page, _engine_tables(n, p_tab),
                    [17, 9, 3], dt)
     got = tops.paged_decode_attention(*t, backend="ref")
@@ -101,6 +102,15 @@ def test_plain_matches_pallas_at_odd_shapes(c, h, kv, d, page, p_tab, pos):
     got = tops.paged_decode_attention(*t, backend="ref")
     want = jops.paged_decode_attention(*j, backend="pallas", interpret=True)
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("c,heads", [(1, (2, 2)), (5, (4, 2))])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_plain_matches_pallas_and_ref_at_head_dim_256(c, heads, dt):
+    """gemma-7b's heads of 256 at the engine tests' tables (decode and a
+    5-column chunk, MHA and GQA)."""
+    test_plain_matches_pallas_and_ref_at_engine_test_shapes(c, heads, dt,
+                                                            d=256)
 
 
 def test_wrapper_runs_the_plain_version_on_the_cpu():

@@ -271,9 +271,10 @@ def _engine_tables(n, p_tab):
 
 @pytest.mark.parametrize("c,heads", [(1, (4, 4)), (4, (4, 2))])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_int8_paged_attention_plain_matches_pallas_and_ref(c, heads, dt):
+def test_int8_paged_attention_plain_matches_pallas_and_ref(c, heads, dt,
+                                                           d=16):
     h, kv = heads
-    b, d, n, page, p_tab = 3, 16, 12, 8, 4
+    b, n, page, p_tab = 3, 12, 8, 4
     rng = np.random.default_rng(c)
     jq, tq = _pair(rng, (b, c, h, d), dt)
     jk, tk = _pair(rng, (n, page, kv, d))
@@ -303,6 +304,14 @@ def test_int8_paged_attention_plain_matches_pallas_and_ref(c, heads, dt):
     # int8 attention tracks fp attention at quantization resolution
     fp = tops.paged_decode_attention(tq.float(), tk, tv, tt_, tp)
     assert float((got.float() - fp).abs().max()) < 0.1
+
+
+@pytest.mark.parametrize("c,heads", [(1, (2, 2)), (5, (4, 2))])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_int8_paged_attention_at_head_dim_256(c, heads, dt):
+    """#8q at gemma-7b's heads of 256: the same checks as above."""
+    test_int8_paged_attention_plain_matches_pallas_and_ref(c, heads, dt,
+                                                           d=256)
 
 
 def test_int8_paged_attention_needs_both_scale_pools():
