@@ -28,7 +28,10 @@ Phases, each printed on its own lines:
      rows through ``ops`` (two launches each); at the training shape two
      flash backward calls must agree bit for bit, and
      #5-#7 and K1's forward and dx (on the views the backward passes)
-     print their TFLOP/s and share of bound; then the f32 instances
+     print their TFLOP/s and share of bound; the same for #5, #6 and #7
+     at head_dim 256 (gemma-7b's (4, 1024, 16, 16, 256), T = 1000 and
+     GQA group 2; ``_d256`` rows, SDPA's bf16 backward as library, its
+     backend named); then the f32 instances
      (``[kernel-f32]`` lines) against their plain f32 versions: K1 at
      M = 4096, K = N = 1024, r = 8 as forward and dx, r = 64, and at
      K = N = 768, r = 1024 (M = 64 and 4096); K3, #5, #6 and #7 at
@@ -37,12 +40,14 @@ Phases, each printed on its own lines:
      bound = max(bytes / 3.35 TB/s, flops / 164.9 TFLOP/s) and the share
      of FFMA's 67 TFLOP/s, library = torch.matmul / SDPA in f32; and
      the f32 serving instances at roberta-large's shapes: K2 at M = 4,
-     8, 64 (K = N = 1024, r = 8) and M = 4 at K = N = 768, K4 over 4
-     slots x 256 cells, #8 and #8q at C = 32 and C = 1 (8 slots,
-     34-page tables), each two calls bit-identical; then the head_dim
+     8, 64 (K = N = 1024, r = 8) and M = 4 at K = N = 768, #9 (M = 64)
+     and #10 (M = 4, 8) over int8 W at K = N = 1024 per channel and in
+     groups of 128 rows and at 768, K4 over 4 slots x 256 cells, #8 and
+     #8q at C = 32 and C = 1 (8 slots, 34-page tables), each two calls
+     bit-identical; then the head_dim
      256 instances (gemma-7b: 16 heads of 256) within 2e-2 of their plain
      versions, two calls bit-identical: K3 at T = 16, 64, 96, 256, #5 at
-     T = 64 and 4 x 1024 (lse within 1e-3; off phase 12's path), K4 over
+     T = 64 (lse within 1e-3), K4 over
      4 x 256 and 4 x 4096 cells, #8 and #8q at phase 4's shape; and K1
      (M = 64), K2 (M = 4), #9 (M = 64) and #10 (M = 4) at gemma-7b's q / v
      projection, K = 3072 -> N = 4096, r = 8;
@@ -147,10 +152,15 @@ Phases, each printed on its own lines:
      paged-step logits and every generated token within 1e-4 of the plain
      f32 leg's largest logit (tokens equal to the plain leg's counted);
      tok/s, step ms, prefill ms, kv_bytes_peak and device busy share; (e)
-     the dense engine on roberta-base over int8 weights raises #9's /
-     #10's TypeError at its first f32 linear (no f32 #9 / #10 yet), with
-     no launch and no plain fallback; the phases' seconds and the
-     script's;
+     roberta-large over int8 weights through the f32 instances of #9 and
+     #10: (e1) (a)'s cell with ``QuantConfig(weights="int8")`` (2L #9f a
+     prefill, 2L #10f + L K4f a decode step, no K1f / K2f), (e2) (b)'s
+     cell with int8 weights and int8 KV cold then warm (L #8qf a step;
+     its (B, 32) steps run the einsum, so no #9f / #10f), (e3) (e1)'s
+     cell over 4 requests with scales per group of 128 rows; decode-step
+     and paged-step logits and every token within 1e-4 of the plain f32
+     leg over the same int8 base (e2's tokens 1e-3, as (c)); no bf16
+     launch; the phases' seconds and the script's;
   12. gemma-7b served at full width (28 x 3072, 16 heads of 256 over 16
      KV heads, GeGLU 24576, vocab 256000, bf16; 8.54 B random weights
      from the seed) with a 4+1d MetaTT q/v adapter (rank 8, 3 tasks) at
@@ -164,7 +174,14 @@ Phases, each printed on its own lines:
      paged-step logits within 5% of the plain leg's largest; tok/s, step
      ms, prefill ms / TTFT, kv_bytes_peak, device busy share and peak
      memory a cell, each cell's model freed before the next;
-  13. one JSON line with every kernel's record (launches per path; the
+  13. gemma-7b trained at full width in phase 6's setting (MetaTT 4d on
+     q/v from rank 10, AdamW, remat per block, 6 steps of 4 x 1024 tokens,
+     one DMRG sweep to rank 8): finite losses, moved cores, ranks 8,
+     exactly 166 K1 / 56 #5d / 28 #6d / 28 #7d launches a step and
+     nothing else; median step, tokens/s, peak memory and busy share;
+     then, the trainer freed, phase 6's B = 1 gradient check (the f32
+     witness's base is 34.2 GB) with its peak memory; ``[phase13]`` lines;
+  14. one JSON line with every kernel's record (launches per path; the
      f32 and d = 256 instances under their own names with every phase-2
      row; K1, K2, #9 and #10 with their rows at gemma-7b's q / v).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
@@ -249,9 +266,25 @@ KERNELS = {
     "paged_decode_attention_int8_f32": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:161"),
-    # the head_dim 256 instances (gemma-7b's serving), in the same sources
+    # the f32 instances over int8 weights (RoBERTa's w8 serving)
+    "tt_linear_w8_f32": ("src/repro_torch/kernels/csrc/tt_linear.cu",
+                         "src/repro/kernels/tt_linear.py:203"),
+    "tt_linear_batched_a_w8_f32": (
+        "src/repro_torch/kernels/csrc/tt_linear.cu",
+        "src/repro/kernels/tt_linear.py:250"),
+    # the head_dim 256 instances (gemma-7b's serving and training), in the
+    # same sources
     "flash_attention_d256": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                              "src/repro/kernels/flash_attention.py:112"),
+    "flash_attention_fwd_d256": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:149"),
+    "flash_attention_bwd_dq_d256": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:295"),
+    "flash_attention_bwd_dkv_d256": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:310"),
     "decode_attention_d256": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/flash_attention.py:393"),
@@ -1094,11 +1127,12 @@ def event_time_ms(fn, args, iters=5):
     return start.elapsed_time(end) / iters
 
 
-def profiled_device_ms(fn, args, iters=10):
+def profiled_device_ms(fn, args, iters=10, names=None):
     """Device ms per call from torch.profiler: the kernel time on the card
     of ``iters`` calls (after two warm-up calls) over ``iters``. For a call
     whose host work may outlast its kernels (an eager autograd backward),
-    where CUDA events around the calls would time the host too."""
+    where CUDA events around the calls would time the host too. ``names``
+    (a set) collects the names of the kernels that ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1109,8 +1143,11 @@ def profiled_device_ms(fn, args, iters=10):
         for _ in range(iters):
             fn(*args)
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in dev_events)
+    if names is not None:
+        names.update(e.name for e in dev_events)
     if us <= 0:
         raise AssertionError("the profiler saw no device time")
     return us / 1e3 / iters
@@ -1126,21 +1163,39 @@ def rel_max(got, want):
     return float((g - w).abs().max() / w.abs().max())
 
 
+# the first row of each head dim is its main path's: stablelm-1.6b's 32
+# heads of 64, gemma-7b's 16 heads of 256 (phase 13); T = 1000 tile edges
+# and GQA groups 4 (d = 64) and 2 (d = 256)
 TRAIN_ATTN_SHAPES = ((4, 1024, 32, 32, 64), (4, 1000, 32, 32, 64),
-                     (4, 1024, 32, 8, 64), (2, 1024, 16, 16, 128))
+                     (4, 1024, 32, 8, 64), (2, 1024, 16, 16, 128),
+                     (4, 1024, 16, 16, 256), (4, 1000, 16, 16, 256),
+                     (4, 1024, 16, 8, 256))
 TRAIN_LINEAR_SHAPE = (4096, 2048, 2048, 8)   # M = B x T, K, N, r
+
+
+def sdpa_backend(names):
+    """Which SDPA backend ran, from the names of its kernels."""
+    text = " ".join(names).lower()
+    for key, backend in (("cudnn", "cuDNN"), ("flash", "flash"),
+                         ("fmha", "memory-efficient"),
+                         ("cutlass", "memory-efficient")):
+        if key in text:
+            return backend
+    return "math"
 
 
 def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                         linear_shape=TRAIN_LINEAR_SHAPE):
     """#5, #6, #7 and K1-as-dx against their plain versions at the
-    training shapes (bf16; the first attention shape is the main path's):
-    out within 2e-2 abs+rel, lse within 1e-3 abs, each of dq, dk, dv within
-    2e-2 of the largest plain gradient (the JAX package's bf16 gradient
-    limit, tests/test_grads.py); at the main shape two backward calls give
-    the same dq, dk and dv bit for bit (the passes use no atomics). Timed
+    training shapes (bf16; the first attention shape of each head dim is
+    its main path's, d = 256 rows under the ``_d256`` names): out within
+    2e-2 abs+rel, lse within 1e-3 abs, each of dq, dk, dv within 2e-2 of
+    the largest plain gradient (the JAX package's bf16 gradient limit,
+    tests/test_grads.py); at each main shape two backward calls give the
+    same dq, dk and dv bit for bit (the passes use no atomics). Timed
     shapes print each attention kernel's TFLOP/s and share of its bound,
-    and (#6 + #7) over SDPA's autograd backward."""
+    and (#6 + #7) over SDPA's autograd backward (the backend it picked
+    named from its kernels)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1154,14 +1209,18 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                 ).to(bf)
 
     rows = []
+    firsts = {}
+    for sh_ in attn_shapes:
+        firsts.setdefault(sh_[4], sh_)
     for b_, t, h, kvh, d in attn_shapes:
-        main = (b_, t, h, kvh, d) == attn_shapes[0]
+        main = (b_, t, h, kvh, d) == firsts[d] and d != 128
+        sfx = "_d256" if d == 256 else ""
         shape = f"B={b_} T=S={t} H={h} KV={kvh} d={d} causal"
         q, k, v = rn(b_, t, h, d), rn(b_, t, kvh, d), rn(b_, t, kvh, d)
         g = rn(b_, t, h, d)
         o, lse = fa.flash_attention_fwd(q, k, v, True)
         po, plse = fa.flash_attention_fwd_plain(q, k, v, True)
-        err = compare("flash_attention_fwd", o, po)
+        err = compare("flash_attention_fwd" + sfx, o, po)
         lse_err = float((lse - plse).abs().max())
         if not lse_err <= 1e-3:
             raise AssertionError(f"flash_attention_fwd lse: max abs err "
@@ -1192,15 +1251,15 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
         lib = [x.detach().transpose(1, 2) for x in
                (q, k.repeat_interleave(g_, 2), v.repeat_interleave(g_, 2))]
         timed = {}
-        if main or t != attn_shapes[0][1]:
+        if main or (t != attn_shapes[0][1] and d == 64):
             # the forward's device time in a CUDA-graph replay (its eager
             # launches would time the host at this speed)
             timed["fwd_ms"] = cuda_time_ms(
                 lambda: fa.flash_attention_fwd(q, k, v, True), [()])
-            timed["fwd_variants"] = {
+            timed["fwd_variants"] = {   # two warpgroups do not fit at 256
                 var: cuda_time_ms(lambda: fa._launch_fwd(
                     q, k, v, True, torch.empty_like(lse), var), [()])
-                for var in fa.FWD_VARIANTS}
+                for var in fa.FWD_VARIANTS if d != 256 or var == "wg1"}
             timed["fwd_plain_ms"] = event_time_ms(
                 lambda: fa.flash_attention_fwd_plain(q, k, v, True), ())
             timed["fwd_lib_ms"] = cuda_time_ms(
@@ -1218,9 +1277,13 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
             leaves = [x.clone().requires_grad_(True) for x in lib]
             out = F.scaled_dot_product_attention(*leaves, is_causal=True)
             gl = g.transpose(1, 2)
+            lib_names = set()
             timed["bwd_lib_ms"] = profiled_device_ms(
                 lambda: torch.autograd.grad(out, leaves, gl,
-                                            retain_graph=True), ())
+                                            retain_graph=True), (),
+                names=lib_names)
+            timed["bwd_lib"] = (f"SDPA bf16 backward ({sdpa_backend(lib_names)}"
+                                " backend), profiled")
             timed["bwd_lib_event_ms"] = event_time_ms(
                 lambda: torch.autograd.grad(out, leaves, gl,
                                             retain_graph=True), ())
@@ -1238,12 +1301,14 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                 ("flash_attention_bwd_dkv", max(abs_err["dk"], abs_err["dv"]),
                  dkv_bound, "dkv_ms", "bwd_plain_ms", "bwd_lib_ms")):
             rows.append(dict(
-                name=name, shape=shape, main=main, max_abs_err=err_,
+                name=name + sfx, shape=shape, main=main, max_abs_err=err_,
                 ms=timed.get(ms), plain_ms=timed.get(plain),
                 library_ms=timed.get(lib_ms), bound_ms=bnd[0],
                 bound_by=bnd[1]))
+            if "bwd" in name and timed:
+                rows[-1]["library"] = timed["bwd_lib"]
             if name == "flash_attention_fwd" and timed:
-                rows[-1].update(variant=fa.fwd_variant(t),
+                rows[-1].update(variant=fa.fwd_variant(t, d),
                                 variants=timed["fwd_variants"])
         print(f"[train-kernel] {shape}: out err {err:.3e}, lse err "
               f"{lse_err:.3e}, dq/dk/dv rel err {errs['dq']:.3e} / "
@@ -1261,15 +1326,20 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
             pair = timed["dq_ms"] + timed["dkv_ms"]
             print(f"[train-kernel] {shape}: {rate}; (#6 + #7) / SDPA "
                   f"backward = {pair:.4f} / {timed['bwd_lib_ms']:.4f} ms = "
-                  f"{pair / timed['bwd_lib_ms']:.3f}x (SDPA's device time, "
-                  f"profiled; CUDA events around its eager calls: "
+                  f"{pair / timed['bwd_lib_ms']:.3f}x ({timed['bwd_lib']}; "
+                  f"CUDA events around its eager calls: "
                   f"{timed['bwd_lib_event_ms']:.4f} ms); #5 / SDPA forward "
                   f"= {timed['fwd_ms'] / timed['fwd_lib_ms']:.3f}x; #5 ran "
-                  f"{fa.fwd_variant(t)}: " + ", ".join(
+                  f"{fa.fwd_variant(t, d)}: " + ", ".join(
                       f"{v_} {ms_:.4f} ms" for v_, ms_ in
                       timed["fwd_variants"].items()), flush=True)
         del q, k, v, g, o, lse, po, plse, got, want, lib
         torch.cuda.empty_cache()
+    if linear_shape is None:   # the attention rows alone
+        for r_ in rows:
+            if r_["ms"] is not None:
+                print_row(r_, width=40)
+        return rows
 
     # K1 at the q/v projection of a B=4 x T=1024 step: the forward (and
     # remat recompute) y = x·W + α·(x·A)·B with A in the layout the model
@@ -1349,7 +1419,8 @@ F32_KERNELS = ("tt_linear_f32", "flash_attention_f32",
                "flash_attention_fwd_f32", "flash_attention_bwd_dq_f32",
                "flash_attention_bwd_dkv_f32", "tt_linear_batched_a_f32",
                "decode_attention_f32", "paged_decode_attention_f32",
-               "paged_decode_attention_int8_f32")
+               "paged_decode_attention_int8_f32", "tt_linear_w8_f32",
+               "tt_linear_batched_a_w8_f32")
 # RoBERTa-large's attention at 4 x 1024 tokens (16 heads of 64), ragged T
 F32_ATTN_SHAPES = ((4, 1024, 16, 16, 64), (4, 1000, 16, 16, 64))
 # K1's f32 rows: (M, K = N, r, role); the first is the main path's
@@ -1518,6 +1589,16 @@ def phase_f32_kernels(dev):
 # #8 / #8q at phase 11's paged shape (C = 32 the engine's step, C = 1 the
 # drafter's)
 F32_K2_ROWS = ((4, 1024), (8, 1024), (64, 1024), (4, 768))
+# #9f / #10f over int8 weights: (name, M, K = N, group size); the first
+# of each is the main row (#9f: a 64-token roberta-large prefill; #10f: 4
+# decode slots), K = N = 768 is roberta-base's
+F32_W8_ROWS = (("tt_linear_w8_f32", 64, 1024, 0),
+               ("tt_linear_w8_f32", 64, 1024, 128),
+               ("tt_linear_w8_f32", 64, 768, 0),
+               ("tt_linear_batched_a_w8_f32", 4, 1024, 0),
+               ("tt_linear_batched_a_w8_f32", 4, 1024, 128),
+               ("tt_linear_batched_a_w8_f32", 8, 1024, 0),
+               ("tt_linear_batched_a_w8_f32", 4, 768, 0))
 F32_PAGED_POS = (0, 37, 100, 161, 230, 299, 407, 479)
 
 
@@ -1564,6 +1645,44 @@ def f32_serving_rows(dev, rn):
                          sets),
             splits=tl.ba_f32_splits(m, n, kd, r, sms)))
         del sets
+    # #9f / #10f: int8 W (per channel, or groups of 128 rows) with f32
+    # scales; library: torch.matmul on a pre-dequantized f32 W + rank term
+    mains = set()
+    for name, m, kd, group in F32_W8_ROWS:
+        n, batched = kd, "batched" in name
+
+        def make8():
+            wq, sc = quant.quantize_int8(rn(kd, n, scale=kd ** -0.5), group)
+            a = (rn(m, kd, r, scale=kd ** -0.5) if batched
+                 else rn(r, kd, scale=kd ** -0.5).T)
+            return rn(m, kd), wq, sc, a, rn(r, n, scale=r ** -0.5)
+        g_ = kd // group if group else 1
+        nbytes = (4 * m * kd + kd * n + 4 * g_ * n
+                  + 4 * (m if batched else 1) * kd * r + 4 * r * n
+                  + 4 * m * n)
+        sets = copies(make8, nbytes)
+        fn = getattr(tl, name[:-4])
+        plain = getattr(tl, name[:-4] + "_plain")
+        err, rel = f32_err(name, fn(*sets[0], alpha), plain(*sets[0], alpha))
+        same(lambda *t: fn(*t, alpha), sets[0], name)
+        lib_sets = [(t[0], quant.dequantize({"q8": t[1], "scale": t[2]}),
+                     *t[3:]) for t in sets]
+
+        def lib(x, w, a, b):
+            xa = (torch.bmm(x[:, None], a)[:, 0] if batched
+                  else torch.matmul(x, a))
+            return torch.matmul(x, w) + alpha * torch.matmul(xa, b)
+        rows.append(f32_row(
+            name, f"M={m} K={kd} N={n} r={r} "
+            + (f"groups of {group}" if group else "per channel"),
+            name not in mains, err, rel,
+            2 * m * kd * n + 2 * m * kd * r + 2 * m * r * n, nbytes,
+            cuda_time_ms(lambda *t: fn(*t, alpha), sets),
+            cuda_time_ms(lambda *t: plain(*t, alpha), sets),
+            cuda_time_ms(lib, lib_sets),
+            library="torch.matmul on a pre-dequantized f32 W + rank-r"))
+        mains.add(name)
+        del sets, lib_sets
     # K4: 4 slots at positions 0, 37, 130, 255 of a 256-cell cache
     b_, h, d, s_len = 4, 16, 64, 256
     pos = torch.tensor((0, 37, 130, 255), dtype=torch.int32, device=dev)
@@ -3975,15 +4094,18 @@ def roberta_serving_model(dev):
 
 
 def f32_tokens_checked(cfg, spec, rt, reqs, outs, ref_outs, label, dev,
-                       kv_int8=False, ref="the plain f32 leg's run"):
+                       kv_int8=False, ref="the plain f32 leg's run",
+                       base=None):
     """Every generated token within ``F32_LOGIT_TOL`` of the largest logit
     of the plain f32 leg's teacher-forced maximum (``kv_int8``: through
-    int8 pools the replay writes itself, within ``INT8_KV_LOGIT_TOL``);
-    the count of tokens equal to ``ref_outs`` (``ref``: the plain leg's
-    own run) printed."""
-    gap = (paged_teacher_forced_gap(cfg, spec, rt, reqs, outs, dev)
+    int8 pools the replay writes itself, within ``INT8_KV_LOGIT_TOL``;
+    ``base``: an int8 engine's packed base, default the runtime's); the
+    count of tokens equal to ``ref_outs`` (``ref``: the plain leg's own
+    run) printed."""
+    base = rt.base if base is None else base
+    gap = (paged_teacher_forced_gap(cfg, spec, rt, reqs, outs, dev, base)
            if kv_int8 else
-           teacher_forced_gap(cfg, spec, rt, rt.base, reqs, outs, dev))
+           teacher_forced_gap(cfg, spec, rt, base, reqs, outs, dev))
     tol = INT8_KV_LOGIT_TOL if kv_int8 else F32_LOGIT_TOL
     same = sum(int(x == y) for o, r in zip(outs, ref_outs)
                for x, y in zip(o.tolist(), r.tolist()))
@@ -3995,11 +4117,13 @@ def f32_tokens_checked(cfg, spec, rt, reqs, outs, ref_outs, label, dev,
                              "f32 leg's best logit")
 
 
-def paged_teacher_forced_gap(cfg, spec, rt, reqs, outs, dev):
+def paged_teacher_forced_gap(cfg, spec, rt, reqs, outs, dev, base=None):
     """``teacher_forced_gap`` of an int8-KV paged run: the plain leg's
     ``paged_step``s over int8 pools (each cell quantized as it is written,
     as the engine does) on [prompt, tokens], one request at a time in
-    chunks of ``prefill_chunk``, every column's logits kept."""
+    chunks of ``prefill_chunk``, every column's logits kept (over
+    ``base``, default the runtime's)."""
+    base = rt.base if base is None else base
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.models import transformer as T
@@ -4020,7 +4144,7 @@ def paged_teacher_forced_gap(cfg, spec, rt, reqs, outs, dev):
                 t = torch.zeros((1, c), dtype=torch.long, device=dev)
                 t[0, :len(chunk)] = torch.as_tensor(chunk, device=dev)
                 lg, _ = T.paged_step(
-                    rt.base, cfg, spec, rt.broadcast, rt.per_layer, t,
+                    base, cfg, spec, rt.broadcast, rt.per_layer, t,
                     caches, tables, torch.tensor([s0], device=dev),
                     torch.tensor([len(chunk) - 1], device=dev), task=task,
                     policy=dispatch.REF, device=dev, all_logits=True)
@@ -4242,52 +4366,139 @@ def roberta_spec_serving(dev, model, count, dense, paged):
         torch.cuda.empty_cache()
 
 
-def roberta_w8_no_fallback(dev):
-    """Phase 11 (e): the dense engine on roberta-base (f32) over int8
-    weights (``QuantConfig(weights="int8")``): #9 / #10 have no f32
-    instance, so ``generate`` raises their wrappers' TypeError at the
-    first adapted f32 linear, with no kernel launched and no plain version
-    run in its place."""
-    import torch
-    from repro_torch import configs
-    from repro_torch import kernels as K
-    from repro_torch.config.base import QuantConfig, RunConfig, ServeConfig
-    from repro_torch.models import model as M
-    from repro_torch.serving import AdapterRuntime, Engine, Request
+def w8_run(eng, reqs, label, count, want, zero):
+    """``serve_checked`` on a w8 engine with its launches counted: each
+    name in ``want`` launched exactly that many times a unit of the stats
+    (``want[name] = (per, stat)``), each in ``zero`` never, and no bf16
+    instance. Returns (tokens, stats, launches)."""
+    got = {}
+    n = count(lambda: got.update(r=serve_checked(eng, reqs, label,
+                                                 "phase11")))
+    outs, st = got["r"]
+    for name, (per, stat) in want.items():
+        units = getattr(st, stat)
+        if not (units > 0 and n[name] == per * units):
+            raise AssertionError(f"{label}: {name} {n[name]} launches over "
+                                 f"{units} {stat}, want {per} each")
+    if any(n[z] for z in zero):
+        raise AssertionError(f"{label}: launched {n}")
+    no_bf16(n, label)
+    return outs, st, n
 
-    cfg = configs.get_config("roberta-base")
-    spec = M.build_adapter_spec(RunConfig(
-        model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
-        num_tasks=3, adapter_rank=8))
-    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
-    params = M.init_params(cfg, spec, generator=gen, device=dev)
-    rt = AdapterRuntime.build("live", params["base"], spec,
-                              params["adapter"], params["frozen"])
-    eng = Engine(cfg, rt, serve=ServeConfig(
-        cache_mode="dense", max_batch=2, cache_len=64, out_cap=4,
-        quant=QuantConfig(weights="int8")), device=dev)
-    rng = np.random.RandomState(SEED)
-    reqs = [Request(rng.randint(0, cfg.vocab_size, size=16), 4, task=i)
-            for i in range(2)]
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    try:
-        eng.generate(reqs)
-    except TypeError as e:
-        torch.cuda.synchronize()
-        launches = K.launch_counts()
-        msg = str(e)
-    else:
-        raise AssertionError("roberta-base w8 dense engine: an f32 linear "
-                             "ran over int8 weights without an f32 #9 / #10")
-    if not msg.startswith(("tt_linear_w8", "tt_linear_batched_a_w8")) or \
-            any(launches.values()):
-        raise AssertionError(f"roberta-base w8 dense engine raised {msg!r} "
-                             f"after launches {launches}")
-    print(f"[phase11] (e) roberta-base w8 dense engine: TypeError {msg!r} "
-          "at the first adapted f32 linear; no kernel launched before it",
-          flush=True)
-    del eng, rt, params
+
+def roberta_w8_serving(dev, model, count, dense):
+    """Phase 11 (e): roberta-large served over int8 weights in f32 through
+    #9f and #10f. (e1) phase 3's dense cell (a's 8 requests) with
+    ``QuantConfig(weights="int8")``: 2L #9f a prefill, 2L #10f + L K4f a
+    decode step, K3f at prefill, no K1f / K2f, no bf16 launch; (e2) phase
+    4's paged cell with int8 weights and int8 KV, cold then warm: L #8qf
+    an engine step, prefix hits, COW, no leaked block — every paged step
+    is (B, 32), whose adapted q / v run the einsum over the dequantized W
+    (no kernel in either package), so #9f / #10f do not launch there;
+    (e3) the dense cell with grouped scales (``group_size=128``) over 4
+    requests. Decode-step (e1, e3) and paged-step (e2) logits within
+    ``F32_LOGIT_TOL`` of the plain f32 leg over the same int8 base, every
+    token within it of the plain leg's teacher-forced maximum (e2:
+    ``INT8_KV_LOGIT_TOL``, as (c)); tok/s, step ms and busy share a run."""
+    import torch
+    from repro_torch.config.base import KernelConfig, QuantConfig, \
+        ServeConfig
+    from repro_torch.serving import Engine
+    cfg, spec, params, rt = model
+    L = cfg.num_layers
+    dense_sv = dict(cache_mode="dense", max_batch=4, cache_len=256,
+                    out_cap=32)
+    zero_dense = ("tt_linear_f32", "tt_linear_batched_a_f32")
+    for label, quant, reqs in (
+            ("(e1) w8 dense", QuantConfig(weights="int8"), dense["reqs"]),
+            ("(e3) w8 dense grouped 128", QuantConfig(
+                weights="int8", group_size=128), dense["reqs"][:4])):
+        serve = ServeConfig(quant=quant, **dense_sv)
+        eng = Engine(cfg, rt, serve=serve, device=dev)
+        eng.generate(reqs[:2])                   # warm-up (allocator)
+        outs, st, n = w8_run(
+            eng, reqs, label, count,
+            {"tt_linear_w8_f32": (2 * L, "prefills"),
+             "tt_linear_batched_a_w8_f32": (2 * L, "decode_steps"),
+             "decode_attention_f32": (L, "decode_steps")}, zero_dense)
+        if not n["flash_attention_f32"] > 0:
+            raise AssertionError(f"{label}: no K3f at prefill: {n}")
+        qbase = eng.base_weights
+        wq_ = qbase["blocks"][0]["mixer"]["wq"]
+        groups = wq_["scale"].shape[-2]      # (nb, G, N) scales of wq
+        if groups != (cfg.d_model // 128 if quant.group_size else 1):
+            raise AssertionError(f"{label}: wq scales {wq_['scale'].shape}")
+        print(f"[phase11] {label}: launches "
+              f"{json.dumps({k: v for k, v in n.items() if v})} = #9f "
+              f"{n['tt_linear_w8_f32'] // st.prefills} a prefill over "
+              f"{st.prefills}, #10f {n['tt_linear_batched_a_w8_f32'] // st.decode_steps}"
+              f" and K4f {n['decode_attention_f32'] // st.decode_steps} a "
+              f"decode step over {st.decode_steps} (2L / 2L / L, L = {L}); "
+              f"no bf16 launch; {groups} scale row(s) a matrix of K = "
+              f"{cfg.d_model}", flush=True)
+        device_share(f"{label} generate of 4 requests",
+                     lambda: eng.generate(reqs[:4]), show=("f32",))
+        del eng
+        torch.cuda.empty_cache()
+        eng_ref = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
+            backend="ref"), device=dev)
+        ref_outs = eng_ref.generate(reqs)
+        del eng_ref
+        rel, agree = decode_step_rel_err(cfg, rt, reqs[:4], 256, dev,
+                                         base=qbase)
+        print(f"[phase11] {label}: one decode step of 4 slots over the int8 "
+              f"base, kernel leg vs plain f32 leg: max |kernel - plain| / "
+              f"max |plain| per slot {rel:.3e} (limit {F32_LOGIT_TOL}), "
+              f"argmax equal {agree}/4", flush=True)
+        if not rel <= F32_LOGIT_TOL:
+            raise AssertionError(f"{label} decode-step logits: {rel:.3e}")
+        f32_tokens_checked(cfg, spec, rt, reqs, outs, ref_outs, label, dev,
+                           base=qbase)
+        del qbase
+        torch.cuda.empty_cache()
+
+    label = "(e2) w8 + int8 KV paged"
+    serve = ServeConfig(cache_mode="paged", quant=QuantConfig(
+        weights="int8", kv="int8"), **PAGED)
+    eng = Engine(cfg, rt, serve=serve, device=dev)
+    reqs = paged_requests(cfg)
+    cold = None
+    for run in ("cold", "warm"):
+        outs, st, n = w8_run(
+            eng, reqs, f"{label} {run}", count,
+            {"paged_decode_attention_int8_f32": (L, "decode_steps")},
+            zero_dense + ("tt_linear_w8_f32", "tt_linear_batched_a_w8_f32",
+                          "paged_decode_attention_f32"))
+        cold = cold or (outs, st)
+    if not (st.prefix_hit_tokens > 0 and st.cow_copies >= 1):
+        raise AssertionError(f"{label} warm: no prefix hit or no COW copy")
+    print(f"[phase11] {label}: #8qf L = {L} an engine step; #9f / #10f "
+          f"none (every paged step is (B, 32): the einsum over the "
+          f"dequantized W); w={st.weights_dtype} kv={st.kv_dtype}, "
+          f"kv_bytes_peak {st.kv_bytes_peak}", flush=True)
+    device_share(f"{label} generate of 8 requests (warm)",
+                 lambda: eng.generate(reqs[:8]), show=("f32",))
+    qbase = eng.base_weights
+    del eng
+    torch.cuda.empty_cache()
+    eng_ref = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
+        backend="ref"), device=dev)
+    ref_outs = eng_ref.generate(reqs)
+    del eng_ref
+    f32_tokens_checked(cfg, spec, rt, reqs, cold[0], ref_outs,
+                       f"{label} cold", dev, kv_int8=True, base=qbase)
+    picked = reqs[1:3] + sorted(reqs[3:], key=lambda r: len(r.prompt))[-2:]
+    res = paged_step_rel_err(cfg, rt, [r.prompt for r in picked],
+                             [r.task for r in picked], dev, base=qbase,
+                             kv_quant=True)
+    for step, (rel, agree) in res.items():
+        print(f"[phase11] {label}: one {step} paged step of 4 slots over "
+              f"the int8 base, kernel leg vs plain f32 leg: max |kernel - "
+              f"plain| / max |plain| per slot {rel:.3e} (limit "
+              f"{F32_LOGIT_TOL}), argmax equal {agree}/4", flush=True)
+        if not rel <= F32_LOGIT_TOL:
+            raise AssertionError(f"{label} {step} step logits: {rel:.3e}")
+    del qbase
     torch.cuda.empty_cache()
 
 
@@ -4324,9 +4535,9 @@ def phase_eleven(dev):
                          (dense["reqs"], dense["outs"], dense["stats"]),
                          paged)
     t.append(time.perf_counter())
+    roberta_w8_serving(dev, model, count, dense)
     del model
     torch.cuda.empty_cache()
-    roberta_w8_no_fallback(dev)
     t.append(time.perf_counter())
     print(f"[phase11] launches on the path "
           f"{json.dumps({k_: v for k_, v in total.items() if v})}; (a) "
@@ -4347,12 +4558,18 @@ GEMMA = "gemma-7b"
 #: cache (K4: 4 slots x 256 cells, and a 4096-cell one)
 D256_KERNELS = ("flash_attention_d256", "decode_attention_d256",
                 "paged_decode_attention_d256",
-                "paged_decode_attention_int8_d256")
+                "paged_decode_attention_int8_d256", "flash_attention_fwd_d256",
+                "flash_attention_bwd_dq_d256", "flash_attention_bwd_dkv_d256")
+#: the training instances at d = 256, whose rows phase 2 makes at
+#: ``TRAIN_ATTN_SHAPES``' head_dim 256 shapes
+D256_TRAIN = ("flash_attention_fwd_d256", "flash_attention_bwd_dq_d256",
+              "flash_attention_bwd_dkv_d256")
 D256_K3_CASES = ((16, 16), (64, 16), (96, 16), (256, 16))
 D256_K4_CASES = ((16, 256, (0, 37, 130, 255)),
                  (16, 4096, (511, 1500, 3000, 4095)))
-#: #5 at d = 256 (K3's kernel with lse): (B, T = S); off phase 12's path
-D256_FWD_SHAPES = ((1, 64), (4, 1024))
+#: #5 at d = 256 (K3's kernel with lse) at a prefill's (B, T = S); its
+#: training shape (4 x 1024, phase 13's) is a ``TRAIN_ATTN_SHAPES`` row
+D256_FWD_SHAPES = ((1, 64),)
 #: gemma-7b's q / v projection: K = d_model, N = q_dim = kv_dim, r
 GEMMA_QV = (3072, 4096, 8)
 
@@ -4361,8 +4578,8 @@ def d256_attention_rows(dev, rn):
     """K3 at d = 256 (``k3_rows`` at gemma-7b's heads), then #5 at d = 256
     against its plain version: output within 2e-2 abs + rel, lse within
     1e-3 absolute, two calls bit-identical (output and lse), its time, the
-    plain version's and SDPA's in bf16. #5 is built and held here; no
-    training path runs it at d = 256 yet."""
+    plain version's and SDPA's in bf16 (its main row is phase 13's
+    training shape, in ``phase_train_kernels``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4386,7 +4603,7 @@ def d256_attention_rows(dev, rn):
         lib = [x.transpose(1, 2) for x in (q, k, v)]
         rows.append(dict(
             name=name, shape=f"B={b_} T=S={t} H=KV={h} d={d} causal",
-            main=t == 64, max_abs_err=err, lse_err=lse_err,
+            main=False, max_abs_err=err, lse_err=lse_err,
             ms=cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
                             [()]),
             plain_ms=event_time_ms(
@@ -4696,6 +4913,110 @@ def phase_twelve(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: gemma-7b trained at full width through the head_dim 256
+# instances of #5, #6 and #7
+# ---------------------------------------------------------------------------
+
+
+def phase_thirteen(dev):
+    """Phase 13: the port's Trainer on full-width gemma-7b in phase 6's
+    setting — MetaTT 4d on q/v from rank 10, AdamW lr 1e-3, remat per
+    block, LMStream batches of 4 x 1024 tokens, 6 steps of 3 per epoch
+    with one DMRG sweep to rank 8 after step 3: finite losses, moved
+    cores, ranks 8 after the sweep, exactly 6L - 2 K1, 2L #5d, L #6d and
+    L #7d launches a step and nothing else; the median step, tokens/s,
+    peak memory and busy share; then, with the trainer freed, the B = 1
+    gradient check against the plain bf16 leg with an f32 plain leg as
+    witness (its base alone is 34.2 GB), with its peak memory."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.config.base import OptimizerConfig, RunConfig, \
+        TrainConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.core.dmrg import RankSchedule
+    from repro_torch.data import LMStream
+    from repro_torch.train import Trainer
+
+    cfg = configs.get_config(GEMMA)
+    L = cfg.num_layers
+    run = RunConfig(model=cfg, adapter_kind="metatt", adapter_variant="4d",
+                    adapter_rank=10, optimizer=OptimizerConfig(lr=1e-3),
+                    train=TrainConfig(remat="block", seed=SEED))
+    batch, seq, steps = 4, 1024, 6
+    data = LMStream(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch,
+                    seed=0, branching=2)
+    t0 = time.perf_counter()
+    tr = Trainer(run=run, data=data, total_steps=steps, steps_per_epoch=3,
+                 rank_schedule=RankSchedule.linear(10, 8, start_epoch=1,
+                                                   every=1, step=2),
+                 device=dev,
+                 on_metrics=lambda s_, m: print(
+                     f"[phase13] step {s_} loss {m['loss']:.6f} grad_norm "
+                     f"{m['grad_norm']:.4e} lr {m['lr']:.3e} "
+                     f"{1e3 * m['step_time_s']:.1f} ms", flush=True))
+    torch.cuda.synchronize()
+    print(f"[phase13] gemma-7b ({L} x {cfg.d_model}, {cfg.num_heads} heads "
+          f"of {cfg.resolved_head_dim}, {cfg.param_dtype}) "
+          f"MetaTT 4d q/v rank {ttlib.ranks(tr.state.adapter['cores'])}, "
+          f"remat per block, B={batch} T={seq}: init "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    before = float(ttlib.tt_norm(tr.state.adapter["cores"]))
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    tr.train()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = tr.losses()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 13: non-finite loss {losses}")
+    ranks = ttlib.ranks(tr.state.adapter["cores"])
+    if ranks != (8, 8, 8) or tr._dmrg_applied != [1]:
+        raise AssertionError(f"phase 13: ranks after the sweep {ranks}, "
+                             f"sweeps at epochs {tr._dmrg_applied}")
+    after = float(ttlib.tt_norm(tr.state.adapter["cores"]))
+    if not (before == 0.0 and after > 0.0):
+        raise AssertionError(f"phase 13: the adapter did not move: ||ΔW|| "
+                             f"{before} -> {after}")
+    per_step = {"tt_linear": 6 * L - 2, "flash_attention_fwd_d256": 2 * L,
+                "flash_attention_bwd_dq_d256": L,
+                "flash_attention_bwd_dkv_d256": L}
+    check_launches(launches, {k_: v * steps for k_, v in per_step.items()},
+                   "phase 13")
+    step_ms = [1e3 * m["step_time_s"] for _, m in tr.history[1:]]
+    med = float(np.median(step_ms))
+    print(f"[phase13] launches during train ({steps} steps): "
+          f"{json.dumps({k_: v for k_, v in launches.items() if v})} = "
+          + ", ".join(f"{k_} {v} a step" for k_, v in per_step.items())
+          + "; nothing else", flush=True)
+    print(f"[phase13] losses {[round(float(x), 6) for x in losses]}; median "
+          f"step {med:.1f} ms after step 1 (steps "
+          f"{[round(x, 1) for x in step_ms]}); "
+          f"{batch * seq / (med / 1e3):.1f} tokens/s; max_memory_allocated "
+          f"{peak:.3f} GB; ranks {ranks}; ||ΔW|| {before:.3e} -> "
+          f"{after:.3e}", flush=True)
+    # one more step (past total_steps: lr 0) under the profiler
+    device_share("phase 13: one gemma-7b training step",
+                 lambda: tr.train(steps + 1), top_n=12,
+                 show=("flash_bwd", "flash_fwd", "tt_linear"))
+    tokens = torch.as_tensor(next(data)["tokens"][:1], device=dev)
+    spec, base = tr.spec, tr.base
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    grad_check(cfg, spec, base, torch.Generator(device=dev).manual_seed(
+        SEED + 2), tokens, dev, tag="phase13")
+    print(f"[phase13] gradient check max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB (the bf16 "
+          f"base, its f32 witness and the three legs)", flush=True)
+    del base
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -4746,6 +5067,9 @@ def main(argv) -> int:
         phase_kernels(dev, only)
         if set(only) & set(F32_KERNELS):
             phase_f32_kernels(dev)
+        if set(only) & set(D256_TRAIN):
+            phase_train_kernels(dev, [s_ for s_ in TRAIN_ATTN_SHAPES
+                                      if s_[4] == 256], None)
         return 0
     rows = (phase_kernels(dev) + phase_train_kernels(dev)
             + phase_f32_kernels(dev))
@@ -4766,10 +5090,12 @@ def main(argv) -> int:
     paths["phase11"] = phase_eleven(dev)
     t12 = time.perf_counter()
     paths["phase12"] = phase_twelve(dev)
+    t13 = time.perf_counter()
+    paths["phase13"] = phase_thirteen(dev)
     print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 {t10 - t9:.1f} s; "
           f"phase 10 {t11 - t10:.1f} s; phase 11 {t12 - t11:.1f} s; phase "
-          f"12 {time.perf_counter() - t12:.1f} s; the script "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+          f"12 {t13 - t12:.1f} s; phase 13 {time.perf_counter() - t13:.1f} "
+          f"s; the script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []
     for name, (src, replaces) in KERNELS.items():
@@ -4793,12 +5119,9 @@ def main(argv) -> int:
         keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by")
         if name in D256_KERNELS:  # every phase-2 row of a d = 256 instance
-            rec["rows"] = [{k: r[k] for k in keys + ("variant",)
+            rec["rows"] = [{k: r[k] for k in keys + ("variant", "lse_err",
+                                                     "library")
                             if k in r} for r in mine]
-        if name == "flash_attention_d256":   # #5 at d = 256, held only
-            rec["fwd_lse_rows"] = [
-                {k: r[k] for k in keys + ("lse_err",)} for r in rows
-                if r["name"] == "flash_attention_fwd_d256"]
         gemma = [{k: r[k] for k in keys} for r in mine if r.get("gemma")]
         if gemma:        # K1, K2, #9, #10 at gemma-7b's q / v, phase 2
             rec["gemma_rows"] = gemma

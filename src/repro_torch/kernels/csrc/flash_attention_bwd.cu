@@ -49,12 +49,14 @@
 //    which also keeps the row copies free of bank conflicts;
 //  - under causal masking the longest blocks are launched first (the
 //    last query tile of the dq pass, the first key tile of the dk/dv pass).
-// The dq pass streams 64-key tiles through a three-stage ring and waits
-// for each tile's dq product only at the next tile; at d = 64 three
-// blocks fit an SM. The dk/dv pass holds dk and dv (d/2 f32 registers
-// each a thread), two blocks an SM; it streams query tiles of 128 (32 at
-// d = 128, to fit the register file) through a two-stage ring and turns
-// Sᵀ and dPᵀ into P and dSᵀ in place.
+// The dq pass streams 64-key tiles (32 at d = 256) through a three-stage
+// ring and waits for each tile's dq product only at the next tile; at
+// d = 64 three blocks fit an SM. The dk/dv pass holds dk and dv (d/2 f32
+// registers each a thread), two blocks an SM; it streams query tiles of
+// 128 (32 at d = 128, to fit the register file) through a two-stage ring
+// and turns Sᵀ and dPᵀ into P and dSᵀ in place. At d = 256 (gemma-7b)
+// dk and dv need 256 registers a thread together: that pass runs two
+// warpgroups a block, one owning each (flash_bwd_dkv_wg2_kernel below).
 //
 // The C functions return cudaGetLastError() of the launch.
 
@@ -67,9 +69,16 @@ using namespace hopper;
 
 constexpr int WG = 128;       // threads in a warpgroup: one a block
 constexpr int BM = 64;        // rows a block owns (the `wgmma` M)
-constexpr int BK = 64;        // keys per streamed tile of the dq pass
 constexpr int DQ_STAGES = 3;  // depth of the dq pass's cp.async ring
 constexpr int DKV_STAGES = 2; // and of the dk/dv pass's
+
+// keys per streamed tile of the dq pass: 64; 32 at d = 256, where dq's
+// accumulator alone takes 128 f32 registers a thread (S and dP then take
+// 16 each) and q, dO and three stages of k and v fit in 161 KB
+template <int D>
+__host__ __device__ constexpr int dq_bk() {
+  return D == 256 ? 32 : 64;
+}
 
 // 18 element strides, passed to the kernel by value (batch, row, head of
 // each of six operands)
@@ -84,8 +93,8 @@ struct Strides {
 
 template <int D>
 struct DqSmem {
-  static constexpr int RES = BM * D * 2;   // resident q, dO
-  static constexpr int STR = BK * D * 2;   // streamed k, v
+  static constexpr int RES = BM * D * 2;           // resident q, dO
+  static constexpr int STR = dq_bk<D>() * D * 2;   // streamed k, v
   static constexpr int Q = 0;
   static constexpr int G = Q + RES;
   static constexpr int K = G + RES;        // DQ_STAGES k tiles
@@ -127,6 +136,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dq, int T, int S, int H, int KV,
                     int causal, float scale, const Strides sd) {
   using L = DqSmem<D>;
+  constexpr int KT = dq_bk<D>();   // keys a streamed tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -148,13 +158,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* gb = g + bb * sd.s[12] + h * sd.s[14];
 
   const int kv_end = causal ? min(S, q0 + BM) : S;
-  const int nkv = (kv_end + BK - 1) / BK;
+  const int nkv = (kv_end + KT - 1) / KT;
   load_tile<BM, D>(base + L::Q, qb, sd.s[1], q0, T, tid);
   load_tile<BM, D>(base + L::G, gb, sd.s[13], q0, T, tid);
   auto issue = [&](int j) {
     const int st = j % DQ_STAGES;
-    load_tile<BK, D>(base + L::K + st * L::STR, kb, sd.s[4], j * BK, S, tid);
-    load_tile<BK, D>(base + L::V + st * L::STR, vb, sd.s[7], j * BK, S, tid);
+    load_tile<KT, D>(base + L::K + st * L::STR, kb, sd.s[4], j * KT, S, tid);
+    load_tile<KT, D>(base + L::V + st * L::STR, vb, sd.s[7], j * KT, S, tid);
   };
   issue(0);
   cp_async_commit();
@@ -209,30 +219,30 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_proxy_async();
     __syncthreads();
 
-    const int k0 = j * BK;
+    const int k0 = j * KT;
     const uint32_t kt = base + L::K + st * L::STR;
     const uint32_t vt = base + L::V + st * L::STR;
-    float s[BK / 2], dp[BK / 2];
+    float s[KT / 2], dp[KT / 2];
     reg_fence(s);
     reg_fence(dp);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)   // S = Q·Kᵀ
-      WgSS<BK>::mma(s, desc_k<BM>(base + L::Q, 0, kk), desc_k<BK>(kt, 0, kk),
+      WgSS<KT>::mma(s, desc_k<BM>(base + L::Q, 0, kk), desc_k<KT>(kt, 0, kk),
                     kk);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)   // dP = dO·Vᵀ
-      WgSS<BK>::mma(dp, desc_k<BM>(base + L::G, 0, kk),
-                    desc_k<BK>(vt, 0, kk), kk);
+      WgSS<KT>::mma(dp, desc_k<BM>(base + L::G, 0, kk),
+                    desc_k<KT>(vt, 0, kk), kk);
     wg_commit();
 
     wg_wait<1>();   // S, and the previous tile's dQ product, are done
     reg_fence(s);
-    const bool edge = k0 + BK > S || q0 + BM > T ||
-                      (causal && k0 + BK - 1 > q0);
+    const bool edge = k0 + KT > S || q0 + BM > T ||
+                      (causal && k0 + KT - 1 > q0);
 #pragma unroll
-    for (int c = 0; c < BK / 8; ++c)
+    for (int c = 0; c < KT / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ki = k0 + 8 * c + ca + (e & 1), qi = e < 2 ? qa : qb8;
@@ -243,16 +253,16 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_wait<0>();
     reg_fence(dp);
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
+    for (int i = 0; i < KT / 2; ++i)
       s[i] = s[i] * (dp[i] - dlt[(i >> 1) & 1]) * scale;   // dS
-    uint32_t da[BK / 16][4];
-    to_a<BK>(da, s);
+    uint32_t da[KT / 16][4];
+    to_a<KT>(da, s);
     reg_fence(da);
     reg_fence(dqa);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)   // dQ += dS·K
-      WgRS<D>::mma(dqa, da[kk], desc_mn<BK>(kt, kk));
+    for (int kk = 0; kk < KT / 16; ++kk)   // dQ += dS·K
+      WgRS<D>::mma(dqa, da[kk], desc_mn<KT>(kt, kk));
     wg_commit();   // waited for at the next tile: the ring's third stage
     __syncthreads();   // keeps tile j until then; stage st - 1 is free
   }
@@ -420,6 +430,180 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// ------------------------------------------------- dk/dv pass at d = 256
+//
+// At d = 256, dk and dv are 64 x 256 f32 each: 128 registers a thread
+// each in one warpgroup, 256 together, more than a thread may hold. So a
+// block has two warpgroups over the same 64 keys, one owning dv and one
+// dk, each with half of the products of a query tile:
+//   warpgroup 1: Sᵀ = K·Qᵀ, P = exp(Sᵀ − lse) masked, dV += Pᵀ·dO;
+//   warpgroup 0: dPᵀ = V·dOᵀ, dSᵀ = P ⊙ (dPᵀ − D)·scale, dK += dSᵀ·Q.
+// P crosses from one to the other through shared memory in f32, each
+// thread's values at its own slots (thread t of both warpgroups holds the
+// same accumulator positions), so dS is formed from the f32 p, as in the
+// one-warpgroup pass. Neither product is done twice (the other way out, a
+// split of d over two blocks, recomputes S and dP in each). A thread
+// holds one 128-register accumulator, one 32-register score tile and its
+// 16-register bf16 A fragments. Query tiles of 64 (q, dO: 32 KB each)
+// stream through a two-stage ring beside the resident k and v (64 KB) and
+// the 16 KB exchange: 209 KB, one block an SM. No atomics; the GQA group
+// is summed in the accumulators in head order.
+
+// the one-warpgroup pass's layout, then the exchange of P, [i][thread]
+template <int D, int BN>
+struct Dkv2Smem : DkvSmem<D, BN> {
+  static constexpr int PX = DkvSmem<D, BN>::TOTAL;
+  static constexpr int TOTAL = PX + (BN / 2) * WG * 4;
+  static_assert(TOTAL + 1024 <= 227 * 1024, "fits in a block");
+};
+
+template <int D, int BN>
+__global__ void __launch_bounds__(2 * WG, 1)
+flash_bwd_dkv_wg2_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ g,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
+                         int S, int H, int KV, int causal, float scale,
+                         const Strides sd) {
+  using L = Dkv2Smem<D, BN>;
+  constexpr int NT = 2 * WG;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  float* px = reinterpret_cast<float*>(smem + L::PX);
+
+  const int tid = threadIdx.x, wg = tid / WG, wt = tid % WG;
+  const int kvh = blockIdx.x, bb = blockIdx.y;
+  const int k0 = blockIdx.z * BM;   // key tile 0, the longest, first
+  const int grp = H / KV;
+  const int nq = (T + BN - 1) / BN;
+  const int i0 = causal ? min(k0 / BN, nq) : 0;
+  const int per_head = nq - i0;
+  const int n_items = grp * per_head;
+
+  // element strides: q, k, v, g, dk, dv — (batch, row, head) each
+  load_tile<BM, D, NT>(base + L::K, k + bb * sd.s[3] + kvh * sd.s[5],
+                       sd.s[4], k0, S, tid);
+  load_tile<BM, D, NT>(base + L::V, v + bb * sd.s[6] + kvh * sd.s[8],
+                       sd.s[7], k0, S, tid);
+  auto issue = [&](int it) {
+    const int st = it % DKV_STAGES;
+    const int h = kvh * grp + it / per_head;
+    const int q0 = (i0 + it % per_head) * BN;
+    load_tile<BN, D, NT>(base + L::Q + st * L::STR,
+                         q + bb * sd.s[0] + h * sd.s[2], sd.s[1], q0, T, tid);
+    load_tile<BN, D, NT>(base + L::G + st * L::STR,
+                         g + bb * sd.s[9] + h * sd.s[11], sd.s[10], q0, T,
+                         tid);
+    for (int x = tid; x < 2 * BN; x += NT) {   // lse and D, zero past T
+      const int c = x % BN, qi = q0 + c;
+      const size_t row = (static_cast<size_t>(bb) * H + h) * T + min(qi, T - 1);
+      cp_async4(base + (x < BN ? L::LSE : L::DLT) + (st * BN + c) * 4,
+                (x < BN ? lse : delta) + row, qi < T ? 4 : 0);
+    }
+  };
+  if (n_items > 0) issue(0);
+  cp_async_commit();
+
+  const int lane = wt & 31, warp = wt >> 5;
+  const int ra = warp * 16 + (lane >> 2), ca = 2 * (lane & 3);
+  const int key[2] = {k0 + ra, k0 + ra + 8};
+  const float sl2 = scale * LOG2E;
+  // warpgroup 1: Sᵀ = K·Qᵀ and dV; warpgroup 0: dPᵀ = V·dOᵀ and dK
+  const uint32_t at = base + (wg ? L::K : L::V);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    const int st = it % DKV_STAGES;
+    if (it + 1 < n_items) issue(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // item it (and, at it = 0, k and v) has landed
+    fence_proxy_async();
+    __syncthreads();
+
+    const int q0 = (i0 + it % per_head) * BN;
+    const uint32_t qt = base + L::Q + st * L::STR;
+    const uint32_t gt = base + L::G + st * L::STR;
+    const float* lse_t = reinterpret_cast<const float*>(smem + L::LSE) +
+                         st * BN;
+    const float* dlt_t = reinterpret_cast<const float*>(smem + L::DLT) +
+                         st * BN;
+    const uint32_t bt = wg ? qt : gt;   // Sᵀ's Qᵀ, dPᵀ's dOᵀ
+    float s[BN / 2];
+    reg_fence(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      WgSS<BN>::mma(s, desc_k<BM>(at, 0, kk), desc_k<BN>(bt, 0, kk), kk);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    if (wg) {   // P in place of Sᵀ, and out to warpgroup 0
+      const bool edge = q0 + BN > T || k0 + BM > S ||
+                        (causal && q0 < k0 + BM - 1);
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * c + ca + (e & 1), qi = q0 + qc, ki = key[e >> 1];
+          const int i = 4 * c + e;
+          float p = ex2(s[i] * sl2 - lse_t[qc] * LOG2E);
+          if (edge && !(qi < T && ki < S && (!causal || qi >= ki))) p = 0.f;
+          s[i] = p;
+          px[i * WG + wt] = p;
+        }
+    }
+    __syncthreads();   // P is in shared memory
+    if (!wg) {         // dSᵀ in place of dPᵀ
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * c + e;
+          s[i] = px[i * WG + wt] * (s[i] - dlt_t[8 * c + ca + (e & 1)]) *
+                 scale;
+        }
+    }
+    uint32_t fa[BN / 16][4];
+    to_a<BN>(fa, s);
+    reg_fence(fa);
+    reg_fence(acc);
+    wg_fence();
+    // dV += Pᵀ·dO (warpgroup 1), dK += dSᵀ·Q (warpgroup 0)
+    const uint32_t mt = wg ? gt : qt;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      WgRS<D>::mma(acc, fa[kk], desc_mn<BN>(mt, kk));
+    wg_commit();
+    wg_wait<0>();
+    __syncthreads();   // stage st and the exchange are free again
+  }
+  cp_async_wait<0>();
+  reg_fence(acc);
+
+  bf16* out = wg ? dv + bb * sd.s[15] + kvh * sd.s[17]
+                 : dk + bb * sd.s[12] + kvh * sd.s[14];
+  const long long rs = wg ? sd.s[16] : sd.s[13];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ki = key[hh];
+      if (ki < S) {
+        const int i = 4 * c + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(out + ki * rs + 8 * c + ca) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+    }
+}
+
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* g, const void* lse, void* delta, void* dq, int B,
@@ -441,10 +625,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
 }
 
 // query tile of the dk/dv pass: 128 at d = 64; 32 at d = 128, where dk
-// and dv take 64 f32 registers each a thread
+// and dv take 64 f32 registers each a thread; 64 at d = 256, where each
+// of two warpgroups holds one of them (flash_bwd_dkv_wg2_kernel)
 template <int D>
 constexpr int dkv_bn() {
-  return D == 64 ? 128 : 32;
+  return D == 64 ? 128 : D == 128 ? 32 : 64;
 }
 
 template <int D>
@@ -453,19 +638,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
                int T, int S, int H, int KV, int causal, const Strides& st,
                void* stream) {
   constexpr int BN = dkv_bn<D>();
-  constexpr int smem = DkvSmem<D, BN>::TOTAL + 1024;
+  const dim3 grid(KV, B, (S + BM - 1) / BM);
+  auto launch = [&](auto kern, int threads, int smem, bool* done) {
+    cudaError_t e = allow_smem(kern, smem, done);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, S, H, KV, causal,
+        1.0f / sqrtf((float)D), st);
+    return (int)cudaGetLastError();
+  };
   static bool done = false;
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D, BN>, smem, &done);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(KV, B, (S + BM - 1) / BM);
-  flash_bwd_dkv_kernel<D, BN>
-      <<<grid, WG, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(g),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, S, H, KV,
-          causal, 1.0f / sqrtf((float)D), st);
-  return (int)cudaGetLastError();
+  if constexpr (D == 256)   // two warpgroups: dk and dv apart
+    return launch(flash_bwd_dkv_wg2_kernel<D, BN>, 2 * WG,
+                  Dkv2Smem<D, BN>::TOTAL + 1024, &done);
+  else
+    return launch(flash_bwd_dkv_kernel<D, BN>, WG,
+                  DkvSmem<D, BN>::TOTAL + 1024, &done);
 }
 
 // ------------------------------------------------ backward in f32 (FFMA)
@@ -772,6 +963,9 @@ int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (d == 128)
     return launch_dq<128>(q, k, v, o, g, lse, delta, dq, B, T, S, H, KV,
                           causal, to_strides(strides), stream);
+  if (d == 256)
+    return launch_dq<256>(q, k, v, o, g, lse, delta, dq, B, T, S, H, KV,
+                          causal, to_strides(strides), stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -789,6 +983,9 @@ int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                           causal, to_strides(strides), stream);
   if (d == 128)
     return launch_dkv<128>(q, k, v, g, lse, delta, dk, dv, B, T, S, H, KV,
+                           causal, to_strides(strides), stream);
+  if (d == 256)
+    return launch_dkv<256>(q, k, v, g, lse, delta, dk, dv, B, T, S, H, KV,
                            causal, to_strides(strides), stream);
   return (int)cudaErrorInvalidValue;
 }

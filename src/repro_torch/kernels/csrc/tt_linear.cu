@@ -6,7 +6,8 @@
 //   tt_linear_w8            (_kernel, int8 W)         -> tt_linear_w8_bf16
 //   tt_linear_batched_a_w8  (_batched_a_kernel, int8) -> tt_linear_batched_a_w8_bf16
 // and, in f32 (FFMA, below): tt_linear -> tt_linear_f32,
-// tt_linear_batched_a -> tt_linear_batched_a_f32.
+// tt_linear_batched_a -> tt_linear_batched_a_f32, tt_linear_w8 ->
+// tt_linear_w8_f32, tt_linear_batched_a_w8 -> tt_linear_batched_a_w8_f32.
 //
 // What bounds it on an H100: at the serving shapes (M = 4..256 rows,
 // K = N = 2048) the work is 2·M·K·N flops against K·N·2 bytes of W, i.e.
@@ -1072,6 +1073,20 @@ int k1_pre_pass(const void* x, const void* a, void* pl, int M, int K, int r,
 // through its strides, consecutive threads along whichever of its two
 // dimensions is contiguous. Rows and columns past M, N, K are zero-filled
 // and masked; no operand needs any alignment.
+//
+// #9's f32 instance (tt_linear_w8_f32: RoBERTa served over int8 weights)
+// is the same two launches with segment 0's B an int8 W (Q != 0): each
+// int8 value is widened to f32 as it is loaded (|q| <= 127 is exact), and
+// the f32 tile in shared memory feeds the same FFMA loop. The scales
+// follow the TPU kernel: per output channel (Q_CHANNEL, G = 1) the
+// accumulator is multiplied by s[n] where the K loop crosses from W's
+// rows to B's, so s touches the base sum only (_epilogue_out's order);
+// per group of K / G rows (Q_GROUP) each widened value is multiplied by
+// its group's s[g, n] on load (_base_dot's q·s per K tile). At
+// roberta-large's prefill (M = 16..96 prompt rows, K = N = 1024, r = 8)
+// it reads 1 MB of int8 W and does 2·M·K·N flops: bound by the bytes
+// below M ≈ 25, by the operations above (the f32 bound of PERF.md §2);
+// its 128 x 128 tiles leave most SMs idle at these M.
 
 struct F32Seg {
   const float* a;   // (M, k), K-contiguous, row stride lda
@@ -1081,11 +1096,20 @@ struct F32Seg {
   int k;
 };
 
-constexpr int F32_BK = 8;
+// segment 0's B as an int8 W (read through the segment's strides) with
+// f32 scales s (G, N) row-major, a scale row every `group` rows of K
+struct F32Q {
+  const int8_t* q;
+  const float* s;
+  int group;
+};
 
-template <int BM, int BN, int TM, int TN>
+constexpr int F32_BK = 8;
+constexpr int Q_NONE = 0, Q_CHANNEL = 1, Q_GROUP = 2;
+
+template <int BM, int BN, int TM, int TN, int Q = Q_NONE>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-tt_linear_f32_kernel(const F32Seg s0, const F32Seg s1,
+tt_linear_f32_kernel(const F32Seg s0, const F32Seg s1, const F32Q wq,
                      float* __restrict__ c, int M, int N, float alpha) {
   constexpr int NT = (BM / TM) * (BN / TN), BK = F32_BK;
   constexpr int LA = BM * BK / NT, LB = BN * BK / NT;
@@ -1127,8 +1151,28 @@ tt_linear_f32_kernel(const F32Seg s0, const F32Seg s1,
       const int kk = bn_rows ? e / BN : e % BK;
       const int nn = bn_rows ? e % BN : e / BK;
       const int gk = k0 + kk, gn = n0 + nn;
-      rb[i] = gk < kd && gn < N ? pb[gk * bsk + gn * bsn] : 0.f;
+      const bool in = gk < kd && gn < N;
+      if (Q != Q_NONE && first) {   // int8 W, widened (and group-scaled)
+        float v = in ? static_cast<float>(wq.q[gk * bsk + gn * bsn]) : 0.f;
+        if (Q == Q_GROUP && in)
+          v *= wq.s[static_cast<long long>(gk / wq.group) * N + gn];
+        rb[i] = v;
+      } else {
+        rb[i] = in ? pb[gk * bsk + gn * bsn] : 0.f;
+      }
     }
+  };
+  // per-channel scales: the base sum (tiles 0 .. t0 - 1) times s[n], once
+  auto scale_base = [&]() {
+#pragma unroll
+    for (int g = 0; g < GN; ++g)
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4) {
+        const int gn = n0 + g * (BN / GN) + tx * 4 + c4;
+        const float sv = gn < N ? wq.s[gn] : 0.f;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) acc[i][g * 4 + c4] *= sv;
+      }
   };
   auto store = [&](int buf) {
 #pragma unroll
@@ -1152,6 +1196,7 @@ tt_linear_f32_kernel(const F32Seg s0, const F32Seg s1,
   for (int t = 0; t < nt; ++t) {
     const int buf = t & 1;
     if (t + 1 < nt) load(t + 1);
+    if (Q == Q_CHANNEL && t == t0) scale_base();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       float av[TM], bv[TN];
@@ -1177,6 +1222,7 @@ tt_linear_f32_kernel(const F32Seg s0, const F32Seg s1,
     if (t + 1 < nt) store(buf ^ 1);
     __syncthreads();
   }
+  if (Q == Q_CHANNEL && t0 == nt) scale_base();
 
   const bool vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(c) & 15) == 0;
 #pragma unroll
@@ -1200,14 +1246,14 @@ tt_linear_f32_kernel(const F32Seg s0, const F32Seg s1,
   }
 }
 
-template <int BM, int BN, int TM, int TN>
+template <int BM, int BN, int TM, int TN, int Q = Q_NONE>
 int launch_f32(const F32Seg& s0, const F32Seg& s1, float* c, int M, int N,
-               float alpha, void* stream) {
+               float alpha, void* stream, const F32Q& wq = F32Q{}) {
   if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  tt_linear_f32_kernel<BM, BN, TM, TN>
+  tt_linear_f32_kernel<BM, BN, TM, TN, Q>
       <<<grid, (BM / TM) * (BN / TN), 0, (cudaStream_t)stream>>>(
-          s0, s1, c, M, N, alpha);
+          s0, s1, wq, c, M, N, alpha);
   return (int)cudaGetLastError();
 }
 
@@ -1237,6 +1283,19 @@ int launch_f32(const F32Seg& s0, const F32Seg& s1, float* c, int M, int N,
 // BA32_MAX_ROWS. W and B are read through their strides (16-byte loads
 // where both allow them), A through its three; x is contiguous; any M, N,
 // K and r.
+//
+// #10's f32 instance (tt_linear_batched_a_w8_f32: RoBERTa's decode over
+// int8 weights) is the same two launches over an int8 W (Q != 0): a lane
+// reads its 4 channels of a W row as one 4-byte word and widens them to
+// f32 (exact), so a warp streams 128 contiguous bytes of W a row — at
+// roberta-large's decode (M = 2..8, K = N = 1024) the kernel is bound by
+// reading W's 1 MB once. Per-channel scales (Q_CHANNEL) multiply each
+// warp's base sum where its rows cross from W's to B's (or after its last
+// row, if it has no B row): each warp's rows ascend, so that is after all
+// its base rows, and s touches the base sum only; a slice that straddles
+// the boundary scales no adapter row. Group scales (Q_GROUP) multiply the
+// widened row by its group's s[g, n], kept in registers while a warp's
+// rows stay in one group. The sums meet in the same fixed order.
 
 constexpr int BA32_BN = 128, BA32_MT = 8, BA32_WARPS = 8;
 constexpr int BA32_KC = 256, BA32_MAX_ROWS = 1024;
@@ -1287,15 +1346,36 @@ __device__ __forceinline__ float4 row4(const float* row, int n, int N,
   return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// grid (ceil(N / BN), ceil(M / MT), S); rows [s·ks, (s + 1)·ks) of K + r
+// 4 consecutive int8 elements of a row (element stride sn) from column
+// n, widened to f32; past N zero. VEC: one 4-byte load (sn = 1,
+// N % 4 == 0, 4-byte aligned rows)
 template <bool VEC>
+__device__ __forceinline__ float4 row4q(const int8_t* row, int n, int N,
+                                        long long sn) {
+  if (VEC) {
+    if (n >= N) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const char4 q = __ldg(reinterpret_cast<const char4*>(row + n));
+    return make_float4(q.x, q.y, q.z, q.w);
+  }
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    v[c] = n + c < N ? static_cast<float>(__ldg(row + (n + c) * sn)) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// grid (ceil(N / BN), ceil(M / MT), S); rows [s·ks, (s + 1)·ks) of K + r.
+// Q != Q_NONE: w is an int8 W and s its f32 scales (G, N), a scale row
+// every `group` rows
+template <bool VEC, int Q = Q_NONE>
 __global__ void __launch_bounds__(256)
-ba_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+ba_f32_kernel(const float* __restrict__ x, const void* __restrict__ wv_,
               const float* __restrict__ pp, const float* __restrict__ b,
               float* __restrict__ y, float* __restrict__ part,
               int* __restrict__ cnt, int M, int N, int K, int r, int nkc,
               int ks, float alpha, long long wsk, long long wsn,
-              long long bsj, long long bsn) {
+              long long bsj, long long bsn, const float* __restrict__ sc,
+              int group) {
   constexpr int MT = BA32_MT, BN = BA32_BN;
   extern __shared__ __align__(16) float smb[];
   float* red = smb;                          // [warp][MT][BN]
@@ -1322,15 +1402,48 @@ ba_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   __syncthreads();
   const int n = n0 + lane * 4;
+  const float* w = static_cast<const float*>(wv_);
+  const int8_t* w8 = static_cast<const int8_t*>(wv_);
   float acc[MT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);
+  int sg = -1;                 // the group whose scales sv holds
+  bool scaled = false;         // Q_CHANNEL: the base sum scaled
+  auto scale_acc = [&]() {
+    const float4 s4 = row4<VEC>(sc, n, N, 1);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      acc[i][0] *= s4.x;
+      acc[i][1] *= s4.y;
+      acc[i][2] *= s4.z;
+      acc[i][3] *= s4.w;
+    }
+    scaled = true;
+  };
   for (int kk = wp; kk < nr; kk += BA32_WARPS) {
     const int k = kr0 + kk;
-    const float4 wv = k < K ? row4<VEC>(w + k * wsk, n, N, wsn)
-                            : row4<VEC>(b + (k - K) * bsj, n, N, bsn);
+    float4 wv;
+    if (k >= K) {
+      if (Q == Q_CHANNEL && !scaled) scale_acc();
+      wv = row4<VEC>(b + (k - K) * bsj, n, N, bsn);
+    } else if (Q == Q_NONE) {
+      wv = row4<VEC>(w + k * wsk, n, N, wsn);
+    } else {
+      wv = row4q<VEC>(w8 + k * wsk, n, N, wsn);
+      if (Q == Q_GROUP) {
+        if (k / group != sg) {
+          sg = k / group;
+          sv = row4<VEC>(sc + static_cast<long long>(sg) * N, n, N, 1);
+        }
+        wv.x *= sv.x;
+        wv.y *= sv.y;
+        wv.z *= sv.z;
+        wv.w *= sv.w;
+      }
+    }
     const float4 x0 = *reinterpret_cast<const float4*>(xs + kk * MT);
     const float4 x1 = *reinterpret_cast<const float4*>(xs + kk * MT + 4);
     const float xv[MT] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
@@ -1342,6 +1455,7 @@ ba_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       acc[i][3] = fmaf(xv[i], wv.w, acc[i][3]);
     }
   }
+  if (Q == Q_CHANNEL && !scaled) scale_acc();
 #pragma unroll
   for (int i = 0; i < MT; ++i)
     *reinterpret_cast<float4*>(red + (wp * MT + i) * BN + lane * 4) =
@@ -1388,10 +1502,13 @@ ba_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-int run_ba_f32(const float* x, const float* w, const float* a,
+// K2f (Q_NONE: w f32) or #10f (w int8 with scales s (G, N), G rows a
+// group of K / G)
+template <int Q>
+int run_ba_f32(const float* x, const void* w, const float* a,
                const float* b, float* y, int M, int N, int K, int r,
                float alpha, const long long* st, int splits, float* ws,
-               int* cnt, cudaStream_t stream) {
+               int* cnt, const float* s, int G, cudaStream_t stream) {
   const int nkc = (K + BA32_KC - 1) / BA32_KC;
   const int ks = (K + r + splits - 1) / splits;
   const int tn = (N + BA32_BN - 1) / BA32_BN, tm = (M + BA32_MT - 1) / BA32_MT;
@@ -1404,26 +1521,34 @@ int run_ba_f32(const float* x, const float* w, const float* a,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long wsk = st[0], wsn = st[1], bsj = st[5], bsn = st[6];
-  const bool vec = wsn == 1 && bsn == 1 && N % 4 == 0 && wsk % 4 == 0 &&
-                   bsj % 4 == 0 && aligned16(w) && aligned16(b);
+  // 16-byte rows of f32 W and B; an int8 W's rows in 4-byte words, its
+  // scale rows in 16 bytes
+  const bool wvec = Q == Q_NONE
+      ? wsk % 4 == 0 && aligned16(w)
+      : wsk % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0 &&
+            aligned16(s);
+  const bool vec = wsn == 1 && bsn == 1 && N % 4 == 0 && bsj % 4 == 0 &&
+                   wvec && aligned16(b);
   const int smem = 4 * (BA32_WARPS * BA32_MT * BA32_BN + ks * BA32_MT);
   static int smem_set[2] = {0, 0};   // per instantiation, grows only
   if (smem > smem_set[vec]) {
-    e = cudaFuncSetAttribute(vec ? ba_f32_kernel<true> : ba_f32_kernel<false>,
+    e = cudaFuncSetAttribute(vec ? ba_f32_kernel<true, Q>
+                                 : ba_f32_kernel<false, Q>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return (int)e;
     smem_set[vec] = smem;
   }
   const dim3 grid(tn, tm, splits);
+  const int group = G > 0 ? K / G : K;
   if (vec)
-    ba_f32_kernel<true><<<grid, 256, smem, stream>>>(
+    ba_f32_kernel<true, Q><<<grid, 256, smem, stream>>>(
         x, w, pp, b, y, part, cnt, M, N, K, r, nkc, ks, alpha, wsk, wsn, bsj,
-        bsn);
+        bsn, s, group);
   else
-    ba_f32_kernel<false><<<grid, 256, smem, stream>>>(
+    ba_f32_kernel<false, Q><<<grid, 256, smem, stream>>>(
         x, w, pp, b, y, part, cnt, M, N, K, r, nkc, ks, alpha, wsk, wsn, bsj,
-        bsn);
+        bsn, s, group);
   return (int)cudaGetLastError();
 }
 
@@ -1526,11 +1651,69 @@ int tt_linear_batched_a_f32(const void* x, const void* w, const void* a,
   if (M < 1 || N < 1 || K < 1 || r < 1 || splits < 1 || ws == nullptr ||
       (splits > 1 && cnt == nullptr))
     return (int)cudaErrorInvalidValue;
-  return run_ba_f32(static_cast<const float*>(x), static_cast<const float*>(w),
-                    static_cast<const float*>(a), static_cast<const float*>(b),
-                    static_cast<float*>(y), M, N, K, r, alpha, strides, splits,
-                    static_cast<float*>(ws), static_cast<int*>(cnt),
-                    static_cast<cudaStream_t>(stream));
+  return run_ba_f32<Q_NONE>(
+      static_cast<const float*>(x), w, static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<float*>(y), M, N, K, r,
+      alpha, strides, splits, static_cast<float*>(ws),
+      static_cast<int*>(cnt), nullptr, 1, static_cast<cudaStream_t>(stream));
+}
+
+// #9's f32 instance: x (M, K) row-major, contiguous; w int8 (K, N), a
+// (K, r), b (r, N) read through their element strides (6: w k, n; a k, j;
+// b j, n); scale f32 (G, N) contiguous, G = 1 per output channel, G > 1
+// per group of K / G rows; y (M, N) row-major f32; FFMA throughout, any
+// M, N, K, r. ws: f32, M · r (P = alpha·x·A, K1f's pre-pass).
+int tt_linear_w8_f32(const void* x, const void* w, const void* scale,
+                     const void* a, const void* b, void* y, int M, int N,
+                     int K, int r, int G, float alpha,
+                     const long long* strides, void* ws, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || r < 1 || G < 1 || K % G != 0 ||
+      ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  float* p = static_cast<float*>(ws);
+  const F32Seg none = {nullptr, 0, nullptr, 0, 0, 0};
+  const F32Seg pre = {xf, K, static_cast<const float*>(a), strides[2],
+                      strides[3], K};
+  const int e = r <= 64
+      ? launch_f32<64, 64, 4, 4>(pre, none, p, M, r, alpha, stream)
+      : launch_f32<128, 128, 8, 8>(pre, none, p, M, r, alpha, stream);
+  if (e != cudaSuccess) return e;
+  // segment 0's b is unused (the int8 W is read through wq); its strides
+  // are W's
+  const F32Seg base = {xf, K, nullptr, strides[0], strides[1], K};
+  const F32Seg rank = {p, r, static_cast<const float*>(b), strides[4],
+                       strides[5], r};
+  const F32Q wq = {static_cast<const int8_t*>(w),
+                   static_cast<const float*>(scale), K / G};
+  float* yf = static_cast<float*>(y);
+  return G > 1
+      ? launch_f32<128, 128, 8, 8, Q_GROUP>(base, rank, yf, M, N, 1.f,
+                                            stream, wq)
+      : launch_f32<128, 128, 8, 8, Q_CHANNEL>(base, rank, yf, M, N, 1.f,
+                                              stream, wq);
+}
+
+// #10's f32 instance: K2f's arguments with w int8 (K, N) read through
+// its strides and scale f32 (G, N) contiguous (G = 1 per output channel,
+// G > 1 per group of K / G rows); any M, N, K, r; ws and cnt as K2f's.
+int tt_linear_batched_a_w8_f32(const void* x, const void* w,
+                               const void* scale, const void* a,
+                               const void* b, void* y, int M, int N, int K,
+                               int r, int G, float alpha,
+                               const long long* strides, int splits,
+                               void* ws, void* cnt, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || r < 1 || G < 1 || K % G != 0 ||
+      splits < 1 || ws == nullptr || (splits > 1 && cnt == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define BA8_ARGS static_cast<const float*>(x), w, \
+    static_cast<const float*>(a), static_cast<const float*>(b), \
+    static_cast<float*>(y), M, N, K, r, alpha, strides, splits, \
+    static_cast<float*>(ws), static_cast<int*>(cnt), \
+    static_cast<const float*>(scale), G, static_cast<cudaStream_t>(stream)
+  return G > 1 ? run_ba_f32<Q_GROUP>(BA8_ARGS)
+               : run_ba_f32<Q_CHANNEL>(BA8_ARGS);
+#undef BA8_ARGS
 }
 
 // K2, per-row A: x (M, K), w (K, N), a (M, K, r), b (r, N) contiguous,

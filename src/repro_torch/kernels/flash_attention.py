@@ -18,9 +18,10 @@ tensor-core kernel over the dense cache (``csrc/paged_attention.cu``,
 
 A CPU tensor runs the plain version (``kernels/ref.py``, through the
 layout shims below). A CUDA tensor launches the kernel or raises: bf16
-operands at head_dim 64 or 128, and at 256 (gemma-7b) for K3 / #5 and K4
-(their d = 256 instances, counted under the kernel's name + ``_d256``;
-the backward #6 / #7 raises there); f32 operands (RoBERTa trains and
+operands at head_dim 64, 128 and 256 (gemma-7b; the d = 256 instances of
+K3 / #5, #6, #7 and K4 are counted under the kernel's name + ``_d256``;
+#7's at d = 256 runs two warpgroups a block, one owning dk and one dv);
+f32 operands (RoBERTa trains and
 serves in f32) launch the f32 instances of K3 / #5, #6, #7 and K4 at
 head_dim 64 (FFMA, ``csrc/attention_f32.cuh``; counted under the
 kernel's name + ``_f32``; K4's is #8's f32 kernel over the dense cache);
@@ -49,12 +50,13 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "flash_attention_fwd_f32": 0, "flash_attention_bwd_dq_f32": 0,
             "flash_attention_bwd_dkv_f32": 0, "decode_attention_f32": 0,
             "flash_attention_d256": 0, "flash_attention_fwd_d256": 0,
-            "decode_attention_d256": 0}
+            "flash_attention_bwd_dq_d256": 0,
+            "flash_attention_bwd_dkv_d256": 0, "decode_attention_d256": 0}
 
 #: head dims of the bf16 forward and decode kernels (K3 / #5, K4, #8, #8q)
 HEAD_DIMS = (64, 128, 256)
-#: head dims of the bf16 backward (#6 / #7; d = 256 not built yet)
-HEAD_DIMS_BWD = (64, 128)
+#: head dims of the bf16 backward (#6 / #7)
+HEAD_DIMS_BWD = (64, 128, 256)
 #: head dims of the f32 instances (RoBERTa's heads of 64)
 HEAD_DIMS_F32 = (64,)
 GROUPS = (1, 2, 4, 8)
@@ -147,6 +149,12 @@ def _instance(t) -> str:
     return "_f32" if t.dtype == torch.float32 else ""
 
 
+def _suffix(t) -> str:
+    """The ``LAUNCHES`` suffix of the instance an operand launches: "_f32",
+    "_d256" (bf16 at head_dim 256) or "" (bf16 at 64 / 128)."""
+    return _instance(t) or ("_d256" if t.shape[-1] == 256 else "")
+
+
 def _check_cuda(ts, d: int, what: str, dtypes=DTYPES,
                 dims=HEAD_DIMS) -> str:
     """Device, dtype, layout and head_dim of the operands ``ts`` (bf16 in
@@ -176,7 +184,7 @@ def _check_cuda(ts, d: int, what: str, dtypes=DTYPES,
         raise NotImplementedError(
             f"{what}: CUDA kernel built for head_dim in {dims} ({dt}); "
             f"got {d}")
-    return _instance(ts[0]) or ("_d256" if d == 256 else "")
+    return _suffix(ts[0])
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -296,13 +304,12 @@ def _launch_bwd_dq(q, k, v, o, lse, g, causal: bool):
     delta = torch.empty_like(lse)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     st = _strides(q, k, v, o, g, dq)
-    sfx = _instance(q)
-    rc = _fn("flash_attention_bwd_dq" + (sfx or "_bf16"))(
+    rc = _fn("flash_attention_bwd_dq" + (_instance(q) or "_bf16"))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, s, h, kv, d,
         int(causal), ctypes.cast(st, ctypes.c_void_p), _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd (dq)")
-    LAUNCHES["flash_attention_bwd_dq" + sfx] += 1
+    LAUNCHES["flash_attention_bwd_dq" + _suffix(q)] += 1
     return dq, delta
 
 
@@ -312,14 +319,13 @@ def _launch_bwd_dkv(q, k, v, g, lse, delta, causal: bool):
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     st = _strides(q, k, v, g, dk, dv)
-    sfx = _instance(q)
-    rc = _fn("flash_attention_bwd_dkv" + (sfx or "_bf16"))(
+    rc = _fn("flash_attention_bwd_dkv" + (_instance(q) or "_bf16"))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
         s, h, kv, d, int(causal), ctypes.cast(st, ctypes.c_void_p),
         _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd (dk/dv)")
-    LAUNCHES["flash_attention_bwd_dkv" + sfx] += 1
+    LAUNCHES["flash_attention_bwd_dkv" + _suffix(q)] += 1
     return dk, dv
 
 

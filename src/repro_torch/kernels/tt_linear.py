@@ -14,11 +14,15 @@ JAX package (no backward).
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel or raises: bf16 operands launch the kernels below; f32
 operands launch the f32 instances of K1 (``LAUNCHES["tt_linear_f32"]``:
-FFMA tiles, P = α·x·A kept in f32 — RoBERTa trains in f32) and K2
+FFMA tiles, P = α·x·A kept in f32 — RoBERTa trains in f32), K2
 (``LAUNCHES["tt_linear_batched_a_f32"]``: a pre-pass for P[m] = x[m]·A[m],
 then an FFMA pass over [x | α·P]·[W; B] in slices of K merged in a fixed
-order — RoBERTa decodes in f32), and #9 and #10 raise ``TypeError`` on f32
-(no f32 instance yet); mixed dtypes raise.
+order — RoBERTa decodes in f32), #9 (``LAUNCHES["tt_linear_w8_f32"]``:
+K1f's two launches with the int8 W widened to f32 as it is loaded) and
+#10 (``LAUNCHES["tt_linear_batched_a_w8_f32"]``: K2f's, the same) —
+RoBERTa served over int8 weights; the scales as the TPU kernels apply
+them, per channel on the base sum before the adapter term is added, per
+group on each widened K tile. Mixed dtypes raise.
 ``LAUNCHES`` counts the launches, and nothing else adds to it. The
 training backward runs K1 again on transposed operands
 (``dispatch._FusedTTLinear``): K1 reads W,
@@ -56,7 +60,8 @@ from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"tt_linear": 0, "tt_linear_batched_a": 0, "tt_linear_w8": 0,
             "tt_linear_batched_a_w8": 0, "tt_linear_f32": 0,
-            "tt_linear_batched_a_f32": 0}
+            "tt_linear_batched_a_f32": 0, "tt_linear_w8_f32": 0,
+            "tt_linear_batched_a_w8_f32": 0}
 
 tt_linear_plain = _ref.tt_linear_ref
 tt_linear_batched_a_plain = _ref.tt_linear_batched_a_ref
@@ -78,6 +83,12 @@ _ARGTYPES = {
     "tt_linear_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _P, _P],
     # x w scale a b y, M N K r G, alpha, splits, ws, stream
     "tt_linear_batched_a_w8_bf16": [_P] * 6 + [_I] * 5 + [_F, _I, _P, _P],
+    # x w scale a b y, M N K r G, alpha, strides (w, a, b), ws, stream
+    "tt_linear_w8_f32": [_P] * 6 + [_I] * 5 + [_F, _P, _P, _P],
+    # x w scale a b y, M N K r G, alpha, strides (w, a, b), splits, ws,
+    # cnt, stream
+    "tt_linear_batched_a_w8_f32": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _P,
+                                                         _P, _P],
 }
 #: K1's variants (``csrc/tt_linear.cu``): the `wgmma` kernel with P in
 #: registers, which takes ranks up to RANK_WGMMA, and the pre-pass for P
@@ -245,7 +256,8 @@ def _check_cuda(x, w, a, b, what: str, w_dtype=None,
         if t.dtype != dt:
             raise TypeError(f"{what}: the CUDA kernel takes {dt} for {n}; "
                             f"got {t.dtype} (f32 instances exist for K1, "
-                            "K2, K3 / #5, #6, #7, K4, #8 and #8q only)")
+                            "K2, #9, #10, K3 / #5, #6, #7, K4, #8 and #8q "
+                            "only)")
         if t.device != x.device:
             raise ValueError(f"{what}: {n} is on {t.device}, x on {x.device}")
 
@@ -309,7 +321,9 @@ def _launch_w8(name, x, wq, scale, a, b, alpha, batched: bool):
         plain = (tt_linear_batched_a_w8_plain if batched
                  else tt_linear_w8_plain)
         return plain(x, wq, scale, a, b, alpha)
-    _check_cuda(x, wq, a, b, name, w_dtype=torch.int8)
+    f32 = x.dtype == torch.float32
+    _check_cuda(x, wq, a, b, name, w_dtype=torch.int8,
+                dtype=torch.float32 if f32 else torch.bfloat16)
     if scale.dtype != torch.float32 or scale.device != x.device:
         raise TypeError(f"{name}: scales must be f32 on {x.device}")
     if g > 1 and (k // g) % 128:
@@ -319,6 +333,9 @@ def _launch_w8(name, x, wq, scale, a, b, alpha, batched: bool):
     if batched and not 1 <= m <= BATCHED_A_ROWS:
         raise ValueError(f"{name}: M={m} outside 1..{BATCHED_A_ROWS} "
                          "(batched A)")
+    if f32:
+        launch = _launch_ba_f32 if batched else _launch_k1_f32
+        return launch(x, wq, a, b, alpha, scale=scale.contiguous())
     return _launch_splitk(name, x, wq, scale, a, b, alpha)
 
 
@@ -352,9 +369,10 @@ def _launch_k1(x, w, a, b, alpha, variant: str) -> torch.Tensor:
     return y
 
 
-def _launch_k1_f32(x, w, a, b, alpha) -> torch.Tensor:
-    """K1's f32 instance on checked CUDA operands: the pre-pass writes
-    P = α·x·A (M, r) in f32, then y = x·W + P·B; W, A and B are read
+def _launch_k1_f32(x, w, a, b, alpha, scale=None) -> torch.Tensor:
+    """K1's f32 instance on checked CUDA operands — or, given the f32
+    ``scale`` (G, N) of an int8 W, #9's: the pre-pass writes P = α·x·A
+    (M, r) in f32, then y = x·W + P·B (W = q·s); W, A and B are read
     through their strides."""
     m, k = x.shape
     n, r = w.shape[1], a.shape[1]
@@ -363,21 +381,30 @@ def _launch_k1_f32(x, w, a, b, alpha) -> torch.Tensor:
     if m == 0:
         return y
     ws = torch.empty(m * r, dtype=torch.float32, device=x.device)
-    st = (ctypes.c_longlong * 6)(*w.stride(), *a.stride(), *b.stride())
-    rc = _fn("tt_linear_f32")(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-        y.data_ptr(), m, n, k, r, float(alpha),
-        ctypes.cast(st, ctypes.c_void_p), ws.data_ptr(),
-        _build.stream_ptr(x))
-    _build.check(rc, "tt_linear (f32)")
-    LAUNCHES["tt_linear_f32"] += 1
+    st = ctypes.cast((ctypes.c_longlong * 6)(*w.stride(), *a.stride(),
+                                             *b.stride()), ctypes.c_void_p)
+    if scale is None:
+        name = "tt_linear_f32"
+        rc = _fn(name)(x.data_ptr(), w.data_ptr(), a.data_ptr(),
+                       b.data_ptr(), y.data_ptr(), m, n, k, r, float(alpha),
+                       st, ws.data_ptr(), _build.stream_ptr(x))
+    else:
+        name = "tt_linear_w8_f32"
+        rc = _fn(name)(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                       a.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k, r,
+                       scale.shape[0], float(alpha), st, ws.data_ptr(),
+                       _build.stream_ptr(x))
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
     return y
 
 
-def _launch_ba_f32(x, w, a, b, alpha, splits: int = 0) -> torch.Tensor:
-    """K2's f32 instance on checked CUDA operands, any M: the pre-pass,
-    then the slices of K + r rows (``splits``, 0: ``ba_f32_splits``'s);
-    W, A and B are read through their strides."""
+def _launch_ba_f32(x, w, a, b, alpha, splits: int = 0,
+                   scale=None) -> torch.Tensor:
+    """K2's f32 instance on checked CUDA operands, any M — or, given the
+    f32 ``scale`` (G, N) of an int8 W, #10's: the pre-pass, then the
+    slices of K + r rows (``splits``, 0: ``ba_f32_splits``'s); W, A and B
+    are read through their strides."""
     m, k = x.shape
     n, r = w.shape[1], a.shape[2]
     x = x.contiguous()
@@ -389,14 +416,22 @@ def _launch_ba_f32(x, w, a, b, alpha, splits: int = 0) -> torch.Tensor:
                      dtype=torch.float32, device=x.device)
     tiles = -(-n // BA32_TILE_N) * -(-m // BA32_TILE_M)
     cnt = _build.counters(x.device, tiles) if splits > 1 else None
-    st = (ctypes.c_longlong * 7)(*w.stride(), *a.stride(), *b.stride())
-    rc = _fn("tt_linear_batched_a_f32")(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-        y.data_ptr(), m, n, k, r, float(alpha),
-        ctypes.cast(st, ctypes.c_void_p), splits, ws.data_ptr(),
-        None if cnt is None else cnt.data_ptr(), _build.stream_ptr(x))
-    _build.check(rc, "tt_linear_batched_a (f32)")
-    LAUNCHES["tt_linear_batched_a_f32"] += 1
+    st = ctypes.cast((ctypes.c_longlong * 7)(*w.stride(), *a.stride(),
+                                             *b.stride()), ctypes.c_void_p)
+    tail = (splits, ws.data_ptr(), None if cnt is None else cnt.data_ptr(),
+            _build.stream_ptr(x))
+    if scale is None:
+        name = "tt_linear_batched_a_f32"
+        rc = _fn(name)(x.data_ptr(), w.data_ptr(), a.data_ptr(),
+                       b.data_ptr(), y.data_ptr(), m, n, k, r, float(alpha),
+                       st, *tail)
+    else:
+        name = "tt_linear_batched_a_w8_f32"
+        rc = _fn(name)(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                       a.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k, r,
+                       scale.shape[0], float(alpha), st, *tail)
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
     return y
 
 

@@ -2,7 +2,7 @@
 
 Odd shapes the main paths do not hit — ragged M/N/K, ranks that are
 not multiples of 8 or 16, large ranks, every GQA group size, head dims
-64 and 128 (and 256, gemma-7b's, for the forward and decode kernels),
+64 and 128 (and 256, gemma-7b's, for every bf16 attention kernel),
 non-causal and S != T attention — so each kernel's masking and load
 paths are exercised, forward and backward. Marked ``cuda``: skipped
 without a CUDA device of compute capability >= 9.0. Run on the card with
@@ -10,11 +10,12 @@ without a CUDA device of compute capability >= 9.0. Run on the card with
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 The f32 instances (K1, K3 / #5, #6, #7: RoBERTa's f32 training; K2, K4,
-#8, #8q: its f32 serving) are held to 1e-4 of the largest plain value
-(f32 sums in another order; a TF32 pass would miss it), lse to 1e-5
-absolute, and K2, K4, #8 and #8q in f32 are bit-identical from call to
-call; mixed dtypes and f32 where no f32 instance exists (#9, #10) raise
-``TypeError``.
+#8, #8q: its f32 serving; #9, #10: its serving over int8 weights) are
+held to 1e-4 of the largest plain value (f32 sums in another order; a
+TF32 pass would miss it), lse to 1e-5 absolute, and K2, K4, #8, #8q, #9
+and #10 in f32 are bit-identical from call to call; mixed dtypes raise
+``TypeError``. The head_dim 256 instances of #6 / #7 (gemma-7b's
+training) are held as the bf16 backward is, bit-identical twice.
 
 This file imports no JAX (``--noconftest`` skips the JAX fixture file),
 so it runs where only PyTorch is installed. Tolerances: bf16 linears, fp
@@ -1409,10 +1410,9 @@ def test_f32_fused_linear_and_flash_backward(dev):
 
 
 def test_f32_mixed_and_missing_instances_raise(dev):
-    """Mixed bf16 / f32 operands raise, and so do f32 operands of the
-    kernels that have no f32 instance yet (#9, #10): no plain fallback.
-    f32 operands of K2, K4, #8 and #8q launch their f32 instances, counted
-    under the name + ``_f32``, and no bf16 instance."""
+    """Mixed bf16 / f32 operands raise: no plain fallback. f32 operands of
+    K2, K4, #8, #8q, #9 and #10 launch their f32 instances, counted under
+    the name + ``_f32``, and no bf16 instance."""
     xb, wb = _rn(dev, 4, 64), _rn(dev, 64, 32)
     ab, bb = _rn(dev, 64, 8), _rn(dev, 8, 32)
     with pytest.raises(TypeError):
@@ -1431,12 +1431,15 @@ def test_f32_mixed_and_missing_instances_raise(dev):
         tfa.decode_attention(_rf(dev, 2, 4, 64), cache, cache.bfloat16(),
                              torch.tensor([3, 7], device=dev))
     wq, sc = tquant.quantize_int8(_rf(dev, 64, 32))
-    with pytest.raises(TypeError):                      # #9 in f32
-        ttl.tt_linear_w8(xb.float(), wq, sc, ab.float(), bb.float())
-    with pytest.raises(TypeError):                      # #10 in f32
-        ttl.tt_linear_batched_a_w8(xb.float(), wq, sc, _rf(dev, 4, 64, 8),
+    with pytest.raises(TypeError):                      # mixed #9
+        ttl.tt_linear_w8(xb.float(), wq, sc, ab, bb.float())
+    with pytest.raises(TypeError):                      # mixed #10
+        ttl.tt_linear_batched_a_w8(xb, wq, sc, _rf(dev, 4, 64, 8),
                                    bb.float())
     assert not any(kernels.launch_counts().values())
+    ttl.tt_linear_w8(xb.float(), wq, sc, ab.float(), bb.float())
+    ttl.tt_linear_batched_a_w8(xb.float(), wq, sc, _rf(dev, 4, 64, 8),
+                               bb.float())
     ttl.tt_linear_batched_a(xb.float(), wb.float(), _rf(dev, 4, 64, 8),
                             bb.float())
     tfa.decode_attention(_rf(dev, 2, 4, 64), cache, cache,
@@ -1451,6 +1454,7 @@ def test_f32_mixed_and_missing_instances_raise(dev):
                                     tables, pos)
     n_ = kernels.launch_counts()
     assert {k: v for k, v in n_.items() if v} == {
+        "tt_linear_w8_f32": 1, "tt_linear_batched_a_w8_f32": 1,
         "tt_linear_batched_a_f32": 1, "decode_attention_f32": 1,
         "paged_decode_attention_f32": 1,
         "paged_decode_attention_int8_f32": 1}
@@ -1761,8 +1765,8 @@ def test_paged_d256_split_windows(dev, c, g, split, quantized):
 
 def test_d256_rejects_what_the_kernels_do_not_take(dev):
     """Head dims outside {64, 128, 256} still raise, f32 at 256 raises (no
-    f32 instance), the backward at 256 raises (#6 / #7 not built at 256),
-    and the forward refuses two warpgroups at 256; nothing falls back."""
+    f32 instance), the backward at 256 in f32 raises, and the forward
+    refuses two warpgroups at 256; nothing falls back."""
     q, k, v = (_rn(dev, 1, 64, 4, 256), _rn(dev, 1, 64, 4, 256, seed=1),
                _rn(dev, 1, 64, 4, 256, seed=2))
     for d in (96, 192):
@@ -1778,8 +1782,9 @@ def test_d256_rejects_what_the_kernels_do_not_take(dev):
     with pytest.raises(NotImplementedError):
         tfa.flash_attention_fwd(q.float(), k.float(), v.float(), True)
     o, lse = tfa.flash_attention_fwd(q, k, v, True)
-    with pytest.raises(NotImplementedError):        # the backward at 256
-        tfa.flash_attention_bwd(q, k, v, o, lse, q, True)
+    with pytest.raises(NotImplementedError):        # f32 backward at 256
+        tfa.flash_attention_bwd(q.float(), k.float(), v.float(), o.float(),
+                                lse, q.float(), True)
     with pytest.raises(RuntimeError):               # two warpgroups at 256
         tfa._launch_fwd(q, k, v, True, None, "wg2")
     args = _paged_case(dev, 4, 2, 256, 16)
@@ -1845,3 +1850,144 @@ def test_tt_linear_w8_gemma_qv(dev, m):
     got = ttl.tt_linear_w8(x, wq, s, a, b, 4.0)
     _close(got, ttl.tt_linear_w8_plain(x, wq, s, a, b, 4.0), 1e-2)
     assert torch.equal(ttl.tt_linear_w8(x, wq, s, a, b, 4.0), got)
+
+
+# ---------------------------------------------------------------------------
+# #9 and #10 in f32 (RoBERTa served over int8 weights), and #6 / #7 at
+# head_dim 256 (gemma-7b trained)
+# ---------------------------------------------------------------------------
+
+
+def _w8_f32_case(dev, m, k, n, r, group, batched, view=False):
+    """x (M, K) f32, an int8 W (K, N) with per-channel (group 0) or
+    grouped scales, A (K, r) — K-contiguous, as the model folds it — or
+    per-row (M, K, r), B (r, N); ``view``: W and B as transposed views."""
+    wq, sc = tquant.quantize_int8(_rf(dev, k, n, scale=k ** -0.5), group)
+    if view:
+        wq = wq.T.contiguous().T
+    a = (_rf(dev, m, k, r, scale=k ** -0.5) if batched
+         else _rf(dev, r, k, scale=k ** -0.5).T)
+    b = _rf(dev, n, r, scale=r ** -0.5).T if view \
+        else _rf(dev, r, n, scale=r ** -0.5)
+    return _rf(dev, m, k, seed=3), wq, sc, a, b
+
+
+@pytest.mark.parametrize("group", [0, 128])
+@pytest.mark.parametrize("r", [1, 8, 64, 100, 1024])
+@pytest.mark.parametrize("m,k,n", [(8, 1024, 1024), (300, 768, 768),
+                                   (37, 256, 130), (1, 384, 45)])
+def test_tt_linear_w8_f32(dev, m, k, n, r, group):
+    """#9's f32 instance: within 1e-4 of the plain version (which
+    dequantizes W first), per channel and per group of 128 rows, at every
+    rank K1f takes; two calls bit-identical; counted under
+    ``tt_linear_w8_f32`` and nothing else."""
+    args = _w8_f32_case(dev, m, k, n, r, group, False, view=m == 37)
+    kernels.reset_launch_counts()
+    got = ttl.tt_linear_w8(*args, 4.0)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    _close_f32(got, ttl.tt_linear_w8_plain(*args, 4.0))
+    assert torch.equal(ttl.tt_linear_w8(*args, 4.0), got)
+    n_ = kernels.launch_counts()
+    assert {k_: v for k_, v in n_.items() if v} == {"tt_linear_w8_f32": 2}
+
+
+@pytest.mark.parametrize("group", [0, 128])
+@pytest.mark.parametrize("r", [1, 8, 64, 1024])
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 33, 64])
+def test_tt_linear_batched_a_w8_f32(dev, m, r, group):
+    """#10's f32 instance at roberta-large's decode q / v (K = N = 1024)
+    for every M in the launch's range: within 1e-4 of the plain version,
+    two calls bit-identical, counted under ``tt_linear_batched_a_w8_f32``;
+    the slices of K + r straddle the W / B boundary."""
+    args = _w8_f32_case(dev, m, 1024, 1024, r, group, True)
+    kernels.reset_launch_counts()
+    got = ttl.tt_linear_batched_a_w8(*args, 2.0)
+    _close_f32(got, ttl.tt_linear_batched_a_w8_plain(*args, 2.0))
+    assert torch.equal(ttl.tt_linear_batched_a_w8(*args, 2.0), got)
+    n_ = kernels.launch_counts()
+    assert {k_: v for k_, v in n_.items() if v} == {
+        "tt_linear_batched_a_w8_f32": 2}
+
+
+@pytest.mark.parametrize("group", [0, 128])
+@pytest.mark.parametrize("splits", [1, 2, 3, 16, 64])
+@pytest.mark.parametrize("m,k,n,r", [(4, 768, 768, 8), (5, 256, 69, 13)])
+def test_tt_linear_batched_a_w8_f32_slices(dev, m, k, n, r, splits, group):
+    """#10f over every split of K + r (a slice ending inside W's rows, on
+    the boundary, inside B's), strided W and B: within 1e-4 of the plain
+    version and bit-identical from call to call."""
+    x, wq, sc, a, b = _w8_f32_case(dev, m, k, n, r, group, True, view=True)
+    want = ttl.tt_linear_batched_a_w8_plain(x, wq, sc, a, b, 2.0)
+    one = ttl._launch_ba_f32(x, wq, a, b, 2.0, splits, scale=sc)
+    two = ttl._launch_ba_f32(x, wq, a, b, 2.0, splits, scale=sc)
+    _close_f32(one, want)
+    assert torch.equal(one, two)
+
+
+D256_BWD = [(1, 64, 64, 16, 16, 256, True), (2, 70, 70, 4, 2, 256, True),
+            (1, 33, 100, 4, 4, 256, False), (1, 300, 300, 2, 2, 256, True),
+            (3, 5, 5, 4, 1, 256, True), (1, 129, 129, 8, 1, 256, True),
+            (1, 200, 70, 8, 2, 256, False), (1, 1000, 1000, 2, 2, 256, True),
+            (1, 97, 97, 4, 4, 256, True)]
+
+
+def _bwd_inputs_d256(dev, b, t, s, h, kv, d, causal):
+    """``_bwd_inputs`` with q, k and v drawn apart. ``_rn`` seeds by shape,
+    so at H = KV the shared helper gives k = q = v; at d = 256 that makes
+    s_ii = |q_i|² / 16 ≈ 16 and p one-hot on the diagonal, and dk a
+    cancellation of dP − D at f32 noise level (the plain f32 version is
+    itself 1e-2 of max |dk| from an f64 one there, 2.6e-3 on distinct
+    inputs)."""
+    q, k, v = (_rn(dev, b, t, h, d), _rn(dev, b, s, kv, d, seed=1),
+               _rn(dev, b, s, kv, d, seed=2))
+    g = _rn(dev, b, t, h, d, seed=3)
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    return q, k, v, o, lse, g
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", D256_BWD)
+def test_flash_attention_bwd_d256(dev, b, t, s, h, kv, d, causal):
+    """#6 / #7 at d = 256 (dq in key tiles of 32; dk / dv on two
+    warpgroups that exchange P): every GQA group, causal and not, S != T,
+    tile edges; each gradient within 2e-2 of the largest plain one, two
+    calls bit-identical, counted under the ``_d256`` keys."""
+    args = _bwd_inputs_d256(dev, b, t, s, h, kv, d, causal)
+    kernels.reset_launch_counts()
+    got = tfa.flash_attention_bwd(*args, causal)
+    _check_bwd(got, tfa.flash_attention_bwd_plain(*args, causal))
+    again = tfa.flash_attention_bwd(*args, causal)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(x, y), name
+    n_ = kernels.launch_counts()
+    assert {k_: v for k_, v in n_.items() if v} == {
+        "flash_attention_bwd_dq_d256": 2, "flash_attention_bwd_dkv_d256": 2}
+
+
+def test_flash_attention_bwd_d256_reads_packed_qkv_views(dev):
+    """q, k, v as views of one packed (B, T, 3·H, 256) tensor: the same
+    bits as on contiguous copies."""
+    b, t, h, d = 1, 129, 2, 256
+    qkv = _rn(dev, b, t, 3 * h, d)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+    g = _rn(dev, b, t, h, d, seed=1)
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, True)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, g, True)
+    _check_bwd(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, g, True))
+    dense = tfa.flash_attention_bwd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), o, lse, g, True)
+    for name, x, y in zip(("dq", "dk", "dv"), got, dense):
+        assert torch.equal(x, y), name
+
+
+def test_flash_d256_training_function(dev):
+    """The autograd Function over #5 / #6 / #7 at d = 256 against plain
+    autograd in bf16: dq, dk, dv within 2e-2 of the largest plain one."""
+    q, k, v = (_rn(dev, 2, 70, 4, 256, seed=i) for i in range(3))
+    go = _rn(dev, 2, 70, 4, 256, seed=4)
+    outs = []
+    for pol in (dispatch.DEFAULT, dispatch.REF):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = dispatch.flash_attention(*leaves, causal=True, policy=pol)
+        outs.append(torch.autograd.grad(out, leaves, go))
+    _check_bwd(outs[0], outs[1])

@@ -9,7 +9,9 @@ versions against the JAX package.
   Pallas kernels in interpret mode and the JAX reference, on the same int8
   numbers, at the shapes of tests/test_quant.py (odd shapes, grouped
   scales, the (S, 1, K) decode layout, a zero adapter). f32, 1e-4 — the
-  JAX package's own w8 tolerance.
+  JAX package's own w8 tolerance; and at 1e-5 of the largest value on
+  RoBERTa-like f32 shapes, per channel and in groups of 128 rows, as the
+  f32 instances of #9 / #10 serve RoBERTa over int8 weights on the card.
 * #8q, the int8 leg of paged attention, against the JAX Pallas kernel in
   interpret mode and the JAX reference at tests/test_quant.py's shapes
   (sentinel tables, GQA, C in {1, 4}): f32 2e-5; bf16 q 2e-2 (one bf16
@@ -220,6 +222,30 @@ def test_w8_batched_a_plain_matches_pallas_and_ref(group):
     got3 = tops.tt_linear_batched_a_q(t[0][:, None], *t[1:], alpha=0.7)
     assert got3.shape == (s, 1, n)
     torch.testing.assert_close(got3[:, 0], got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("group", [0, 128])
+@pytest.mark.parametrize("batched", [False, True],
+                         ids=["w8", "batched_a_w8"])
+def test_w8_f32_plain_matches_pallas_and_ref_at_1e5(batched, group):
+    """#9 / #10 in f32 (RoBERTa served over int8 weights): the plain
+    versions, which the f32 CUDA instances are held to on the card, within
+    1e-5 of the largest value of the Pallas kernels (interpret mode) and
+    of the JAX refs, per channel and per group of 128 rows."""
+    m = 4 if batched else 24
+    j, t, _ = _w8_operands(17 + group + m, m, 256, 384, 8, group,
+                           batched=batched)
+    if batched:
+        fn, jfn = tops.tt_linear_batched_a_q, jops.tt_linear_batched_a_q
+        jr = jref.tt_linear_batched_a_q_ref
+    else:
+        fn, jfn, jr = tops.tt_linear_q, jops.tt_linear_q, jref.tt_linear_q_ref
+    got = fn(*t, alpha=2.0)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, 384)
+    for want in (jfn(*j, alpha=2.0, backend="pallas", interpret=True),
+                 jr(*j, alpha=2.0)):
+        w = _np(want)
+        assert np.abs(_np(got) - w).max() <= 1e-5 * np.abs(w).max()
 
 
 def test_w8_zero_adapter_equals_quantized_base_matmul():

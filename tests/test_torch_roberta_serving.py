@@ -4,16 +4,18 @@ RoBERTa (layernorm with a bias, gelu, f32) is served as the causal LM the
 JAX package builds. On roberta-base's smoke config, with weights made by
 the JAX package (its PRNG) and a 4+1d MetaTT adapter over 3 tasks carried
 across with ``repro_torch.convert.from_jax_numpy``, the port's dense,
-paged (shared prefix, cold then warm), int8-KV paged and speculative dense
-engines give greedy tokens IDENTICAL to the JAX engines' on the CPU, with
-equal counters: admissions and evictions (dense); prefix hits, COW and
-peak blocks (paged); KV dtype and bytes (int8 KV); draft / accept counts
-(speculative). The cases mirror tests/test_torch_engine.py,
-test_torch_paged_engine.py, test_torch_quant_engine.py and
-test_torch_speculative.py on this config. On the card these engines run
-the f32 instances of K1, K2, K3, K4, #8 and #8q (``chip_smoke.py`` phase
-11); here the CPU tensors run their plain versions.
+paged (shared prefix, cold then warm), int8-KV paged, speculative dense,
+int8-weight (w8) dense and w8 + int8-KV paged engines give greedy tokens
+IDENTICAL to the JAX engines' on the CPU, with equal counters: admissions
+and evictions (dense); prefix hits, COW and peak blocks (paged); weight
+and KV dtypes and KV bytes (int8); draft / accept counts (speculative).
+The cases mirror tests/test_torch_engine.py, test_torch_paged_engine.py,
+test_torch_quant_engine.py and test_torch_speculative.py on this config.
+On the card these engines run the f32 instances of K1, K2, K3, K4, #8,
+#8q, #9 and #10 (``chip_smoke.py`` phase 11); here the CPU tensors run
+their plain versions.
 """
+import dataclasses
 import functools
 
 import jax
@@ -51,12 +53,21 @@ PAGED_COUNTERS = ("admitted", "evicted", "prefix_lookups",
                   "tokens_generated")
 
 
+#: the smoke model widened so that its matrices' K (256, 512) hold whole
+#: groups of 128 rows: grouped int8 scales (G = 2, 4) at the smoke width
+#: (K = 64, 128) would be per-channel ones
+WIDE = dict(d_model=256, d_ff=512)
+
+
 @functools.lru_cache(maxsize=None)
-def _setup():
-    """roberta-base's smoke model in f32, 4+1d MetaTT on q/v over 3 tasks
-    at rank 4 (``random_tt(scale=0.5)``), made by the JAX package; the
-    JAX runtime and the port's runtime over the same weights."""
+def _setup(wide=False):
+    """roberta-base's smoke model in f32 (``wide``: at ``WIDE``'s widths),
+    4+1d MetaTT on q/v over 3 tasks at rank 4 (``random_tt(scale=0.5)``),
+    made by the JAX package; the JAX runtime and the port's runtime over
+    the same weights."""
     jcfg = jconfigs.get_smoke_config(ARCH)
+    if wide:
+        jcfg = dataclasses.replace(jcfg, **WIDE)
     jspec = JM.build_adapter_spec(JRunConfig(
         model=jcfg, shape=SHAPES["decode_32k"], adapter_kind="metatt",
         adapter_variant="4+1d", num_tasks=3, adapter_rank=4))
@@ -64,6 +75,8 @@ def _setup():
     jp["adapter"] = {"cores": jtt.random_tt(KEY, jspec.cfg.mode_sizes, 4,
                                             scale=0.5)}
     cfg = tconfigs.get_smoke_config(ARCH)
+    if wide:
+        cfg = dataclasses.replace(cfg, **WIDE)
     spec = TM.build_adapter_spec(RunConfig(
         model=cfg, adapter_kind="metatt", adapter_variant="4+1d",
         num_tasks=3, adapter_rank=4))
@@ -90,10 +103,11 @@ def _work(n=5, prefix=0):
     return work
 
 
-def _engines(**kw):
+def _engines(wide=False, **kw):
     """A fresh JAX engine and a fresh port engine on ``BASE`` + ``kw``
-    (``quant`` / ``spec``: the port's configs, mapped to the JAX ones)."""
-    jcfg, jrt, cfg, trt = _setup()
+    (``quant`` / ``spec``: the port's configs, mapped to the JAX ones;
+    ``wide``: the ``WIDE`` model)."""
+    jcfg, jrt, cfg, trt = _setup(wide)
     quant, spec = kw.pop("quant", {}), kw.pop("spec", {})
     sv = dict(BASE, **kw)
     return (JEngine(jcfg, jrt, serve=JServeConfig(
@@ -187,3 +201,38 @@ def test_spec_dense_engine_token_identical_to_jax_and_non_spec(stride):
     assert (st.draft_tokens, st.accepted_tokens, st.spec_steps) == (
         jst.draft_tokens, jst.accepted_tokens, jst.spec_steps)
     assert st.tokens_per_step == pytest.approx(jst.tokens_per_step)
+
+
+@pytest.mark.parametrize("group", [0, 128])
+def test_w8_dense_engine_token_identical_to_jax(group):
+    """The dense engine over int8 base weights under f32 activations — #9
+    at prefill, #10 at decode on the card — one f32 scale per output
+    channel on the smoke model, or per group of 128 K rows on the ``WIDE``
+    one (wq's K = 256: two groups): tokens identical to the JAX int8
+    engine's, weight dtype and admissions equal."""
+    quant = dict(weights="int8", group_size=group)
+    jeng, teng = _engines(wide=bool(group), cache_mode="dense", quant=quant)
+    _serve(jeng, teng, _work(), ("weights_dtype", "kv_dtype", "admitted",
+                                 "evicted", "tokens_generated"))
+    assert teng.last_stats.weights_dtype == "int8"
+    wq = teng.base_weights["blocks"][0]["mixer"]["wq"]
+    assert wq["q8"].dtype == torch.int8
+    assert wq["scale"].shape[-2] == (WIDE["d_model"] // 128 if group else 1)
+
+
+def test_w8_int8_kv_paged_engine_token_identical_to_jax():
+    """int8 weights and int8 KV on the paged engine with a shared prefix,
+    cold then warm: tokens identical to the JAX engine's, weight / KV
+    dtypes, block and KV bytes, prefix hits and COW equal; warm equals
+    cold; no leaked block."""
+    work = _work(prefix=10)
+    stats = ("weights_dtype", "kv_dtype", "num_blocks", "block_bytes",
+             "kv_blocks_peak", "kv_bytes_peak", "prefix_hit_tokens",
+             "cow_copies", "tokens_generated")
+    jeng, teng = _engines(quant=dict(weights="int8", kv="int8"))
+    cold = _serve(jeng, teng, work, stats)
+    st = teng.last_stats
+    assert (st.weights_dtype, st.kv_dtype) == ("int8", "int8")
+    assert _serve(jeng, teng, work, stats) == cold
+    assert teng.last_stats.prefix_hit_tokens > 0
+    assert teng.leaked_blocks() == 0

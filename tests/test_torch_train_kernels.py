@@ -73,6 +73,11 @@ Q_SHAPE, KV_SHAPE = (2, 70, 4, 32), (2, 91, 2, 32)
 # a tile edge of the CUDA backward: 129 = one row past its 128-row blocks
 # and two past its 64-row tiles; 8 query heads on one KV head (group 8)
 EDGE_Q_SHAPE, EDGE_KV_SHAPE = (1, 129, 8, 64), (1, 129, 1, 64)
+# head_dim 256 (gemma-7b): the d = 256 backward takes keys in tiles of 32
+# (dq) and queries in tiles of 64 (dk / dv); 33 rows is one past a key
+# tile. GQA group 1, and 2 with T != S
+D256_SHAPES = ((1, 33, 2, 256), (1, 33, 2, 256))
+D256_GQA_SHAPES = ((1, 33, 4, 256), (1, 70, 2, 256))
 
 
 def _qkvg(dt, seed=0, shapes=(Q_SHAPE, KV_SHAPE)):
@@ -103,7 +108,9 @@ def test_flash_fwd_plain_matches_jax(dt, causal):
 @pytest.mark.parametrize("dt,causal,shapes", [
     pytest.param(dt, causal, shapes, id=f"{dt}-{causal}{tag}")
     for tag, shapes in (("", (Q_SHAPE, KV_SHAPE)),
-                        ("-tile_edge", (EDGE_Q_SHAPE, EDGE_KV_SHAPE)))
+                        ("-tile_edge", (EDGE_Q_SHAPE, EDGE_KV_SHAPE)),
+                        ("-d256", D256_SHAPES),
+                        ("-d256_gqa2", D256_GQA_SHAPES))
     for dt in ("f32", "bf16") for causal in (True, False)])
 def test_flash_bwd_plain_matches_jax(dt, causal, shapes):
     """The same residuals (JAX's o and lse) into both backwards. The plain
