@@ -50,7 +50,14 @@ Phases, each printed on its own lines:
      T = 64 (lse within 1e-3), K4 over
      4 x 256 and 4 x 4096 cells, #8 and #8q at phase 4's shape; and K1
      (M = 64), K2 (M = 4), #9 (M = 64) and #10 (M = 4) at gemma-7b's q / v
-     projection, K = 3072 -> N = 4096, r = 8;
+     projection, K = 3072 -> N = 4096, r = 8; then the any-group rows
+     (``gqa_rows`` of the record) at granite-34b's H = 48 over KV = 1
+     (G = 48) and mistral-large's H = 96 over KV = 8 (G = 12), d = 128:
+     K4 over 4 slots x 256 cells, #8 and #8q at C = 1 and 32 (8 slots,
+     34-page tables), within 2e-2 of their plain versions, two calls
+     bit-identical, SDPA with ``enable_gqa`` as library; and K1 (M = 64)
+     and K2 (M = 4) at their q / v projections (6144 -> 6144 and -> 128,
+     12288 -> 12288 and -> 1024, r = 8);
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -110,9 +117,10 @@ Phases, each printed on its own lines:
      (acceptance, tokens per step, tok/s; teacher-forced tokens; K4 once
      a verified column; #8 / #8q on the verifier; no leaked block);
   9. the paged adapter registry, chaos and preemption on the same
-     full-width model cut to 12 of its 24 layers (the registry, chaos and
+     full-width model cut to 6 of its 24 layers (the registry, chaos and
      preemption are host bookkeeping, which depth does not change; the
-     cut keeps the script near half its time limit) with a 4+1d adapter
+     cut — 12 layers until phase 14 came — keeps the script under 700 s)
+     with a 4+1d adapter
      over 64 tasks at 0.1 of the
      base q projection, every run under a ChaosInjector whose audit runs
      after every host-loop iteration (no pin, no leaked block after it):
@@ -121,7 +129,7 @@ Phases, each printed on its own lines:
      hits > 0, warm prefix hits after eviction, #8 launched), every
      token within 5% of the plain leg's teacher-forced maximum, the count
      equal to the all-resident engine's printed; (b) the dense cell under
-     the lora runtime, fp and w8, with 3 pool slots (K2 / #10 2L = 24 a
+     the lora runtime, fp and w8, with 3 pool slots (K2 / #10 2L = 12 a
      decode step on A gathered from the pool); (c) a seeded chaos run (forced
      allocation failures, two failed fault-ins, a cancel, a NaN row):
      one CANCELLED, one FAILED with 5 tokens, the survivors checked
@@ -152,8 +160,8 @@ Phases, each printed on its own lines:
      paged-step logits and every generated token within 1e-4 of the plain
      f32 leg's largest logit (tokens equal to the plain leg's counted);
      tok/s, step ms, prefill ms, kv_bytes_peak and device busy share; (e)
-     roberta-large over int8 weights through the f32 instances of #9 and
-     #10: (e1) (a)'s cell with ``QuantConfig(weights="int8")`` (2L #9f a
+     roberta-large at 12 of its 24 layers (widths kept) over int8 weights
+     through the f32 instances of #9 and #10: (e1) (a)'s cell with ``QuantConfig(weights="int8")`` (2L #9f a
      prefill, 2L #10f + L K4f a decode step, no K1f / K2f), (e2) (b)'s
      cell with int8 weights and int8 KV cold then warm (L #8qf a step;
      its (B, 32) steps run the einsum, so no #9f / #10f), (e3) (e1)'s
@@ -181,9 +189,27 @@ Phases, each printed on its own lines:
      nothing else; median step, tokens/s, peak memory and busy share;
      then, the trainer freed, phase 6's B = 1 gradient check (the f32
      witness's base is 34.2 GB) with its peak memory; ``[phase13]`` lines;
-  14. one JSON line with every kernel's record (launches per path; the
+  14. granite-34b (88 x 6144, 48 heads of 128 over ONE KV head: MQA,
+     G = 48; gelu 24576; vocab 49152) and mistral-large-123b (12288, 96
+     heads of 128 over 8: G = 12; SwiGLU 28672; vocab 32768) in bf16, each
+     with a 4+1d MetaTT q/v adapter (rank 8, 3 tasks) at 0.25 of the base
+     q projection (the v adapter 6144 -> 128 / 12288 -> 1024), through
+     the any-group instances of K4, #8 and #8q: granite (a) the dense
+     cell at all 88 layers (33.66 B parameters, 67.3 GB: the engine must
+     allocate no second base), 4 requests of 16-96 tokens, 16 new each
+     (2L K1 + L K3 a prefill, 2L K2 + L K4 a decode step), then (b) phase
+     4's paged cell cold then warm and (c) the same with int8 KV pools
+     over the bf16 base (L #8 / #8q a step, kv_bytes_peak below (b)'s) at
+     16 layers; mistral-large (122.2 B parameters do not fit one card) at
+     full width with 8 of its 88 layers through (a), (b) and (c); prefill,
+     decode-step and paged-step logits within 5% of the plain leg's
+     largest; tok/s, step ms, prefill ms / TTFT, kv_bytes_peak, busy
+     share and peak memory a cell; each model freed before the next;
+     ``[phase14]`` lines and the phase's seconds on the ``[time]`` line;
+  15. one JSON line with every kernel's record (launches per path; the
      f32 and d = 256 instances under their own names with every phase-2
-     row; K1, K2, #9 and #10 with their rows at gemma-7b's q / v).
+     row; K1, K2, #9 and #10 with their rows at gemma-7b's q / v; K1, K2,
+     K4, #8 and #8q with their rows at granite's and mistral's).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -192,6 +218,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -594,16 +621,19 @@ K4_CASES = ((32, 256, (0, 37, 130, 255)), (8, 256, (0, 37, 130, 255)),
             (32, 4096, (511, 1500, 3000, 4095)))   # (KV, S, positions)
 
 
-def k4_rows(dev, rn, h=32, d=64, cases=K4_CASES, sfx=""):
+def k4_rows(dev, rn, h=32, d=64, cases=K4_CASES, sfx="", tag=None):
     """K4 over the dense decode cache: 4 slots at positions 0, 37, 130,
     255 of a 256-cell cache, H = 32, d = 64, with KV = 32 (the engine's,
     the main row) and KV = 8 (G = 4); and a long cache of 4096 cells at
     positions 511, 1500, 3000, 4095 (``h``, ``d``, ``cases``, ``sfx``:
-    gemma-7b's 16 heads of 256, "_d256"). The bound counts q, o and the K/V
-    cells inside each slot's window; the library yardstick is SDPA with
-    the boolean position mask (on head-repeated K/V where G > 1). Two
-    calls must agree bit for bit; the chunk split the launcher takes
-    (``decode_path``) is printed beside the times with and without it."""
+    gemma-7b's 16 heads of 256, "_d256"; ``tag``: the rows of a model
+    whose group lies outside {1, 2, 4, 8}, "granite" or "mistral"). The
+    bound counts q, o and the K/V cells inside each slot's window; the
+    library yardstick is SDPA with the boolean position mask (on
+    head-repeated K/V where G > 1; tagged rows: ``enable_gqa`` on the
+    KV-head cache). Two calls must agree bit for bit; the chunk split the
+    launcher takes (``decode_path``) is printed beside the times with and
+    without it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build
@@ -638,21 +668,29 @@ def k4_rows(dev, rn, h=32, d=64, cases=K4_CASES, sfx=""):
         g = h // kvh
         mask = (torch.arange(s_len, device=dev)[None, :]
                 <= pos_t[:, None])[:, None, None, :]
-        lib_sets = [(q[:, :, None], kk.repeat_interleave(g, 2).transpose(1, 2),
-                     vv.repeat_interleave(g, 2).transpose(1, 2))
-                    for q, kk, vv, _ in sets]
+        if tag:
+            lib_sets = [(q[:, :, None], kk.transpose(1, 2),
+                         vv.transpose(1, 2)) for q, kk, vv, _ in sets]
+        else:
+            lib_sets = [(q[:, :, None],
+                         kk.repeat_interleave(g, 2).transpose(1, 2),
+                         vv.repeat_interleave(g, 2).transpose(1, 2))
+                        for q, kk, vv, _ in sets]
         rows.append(dict(
             name=name,
             shape=(f"B={b_} S={s_len} H={h} KV={kvh} d={d} "
                    f"pos={','.join(map(str, pos))}"),
-            main=kvh == h and s_len == 256, max_abs_err=err,
+            main=kvh == h and s_len == 256 and not tag, max_abs_err=err,
             ms=cuda_time_ms(fa.decode_attention, sets),
             plain_ms=cuda_time_ms(fa.decode_attention_plain, sets),
             library_ms=cuda_time_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask), lib_sets),
+                    q, k, v, attn_mask=mask, **gqa_kw(tag)), lib_sets),
             bound_ms=bms, bound_by=by, variant=f"{mode} split={split}",
             variants=variants))
+        if tag:
+            rows[-1].update(tag=tag, library="SDPA, enable_gqa, position "
+                                             "mask")
         del sets, lib_sets
     torch.cuda.empty_cache()
     return rows
@@ -688,7 +726,10 @@ def phase_kernels(dev, only=None):
               (("paged_decode_attention_int8_d256",), functools.partial(
                   paged_int8_kernel_rows, h=16, d=256, sfx="_d256")),
               (("tt_linear", "tt_linear_batched_a", "tt_linear_w8",
-                "tt_linear_batched_a_w8"), gemma_linear_rows))
+                "tt_linear_batched_a_w8"), gemma_linear_rows),
+              (("decode_attention", "paged_decode_attention",
+                "paged_decode_attention_int8"), gqa_attention_rows),
+              (("tt_linear", "tt_linear_batched_a"), gqa_linear_rows))
     rows = []
     for names, fn in groups:
         if only is None or set(names) & set(only):
@@ -754,11 +795,13 @@ def batched_a_split_rows(dev, rn):
     return rows
 
 
-def paged_kernel_rows(dev, rn, h=32, d=64, sfx=""):
+def paged_kernel_rows(dev, rn, h=32, d=64, sfx="", kv=None, tag=None):
     """#8 at the paged engine's shape, C = 1 (pure decode) and C = 32 (the
     engine's step): 8 slots at ragged positions, H = KV = 32, d = 64
-    (``h``, ``d``, ``sfx``: gemma-7b's 16 heads of 256, "_d256"), a
-    pool of 256 blocks of 16 cells, 34-page tables whose entries past each
+    (``h``, ``d``, ``sfx``: gemma-7b's 16 heads of 256, "_d256"; ``kv``
+    and ``tag``: KV heads below H, the rows of "granite" or "mistral",
+    SDPA with ``enable_gqa`` as library), a pool of 256 blocks of 16
+    cells, 34-page tables whose entries past each
     slot's window are sentinels. Its bound counts q, o and the K/V cells
     inside each slot's window; the library yardstick is SDPA on the
     PRE-GATHERED dense K/V with the boolean position mask (the gather is
@@ -781,6 +824,7 @@ def paged_kernel_rows(dev, rn, h=32, d=64, sfx=""):
     gen = torch.Generator().manual_seed(SEED)
     rows = []
     name = "paged_decode_attention" + sfx
+    kv = h if kv is None else kv
     for c in (1, 32):
         last = [min((int(p) + c - 1) // page, p_tab - 1) for p in pos]
         tables = torch.full((b_, p_tab), n_blk, dtype=torch.int32)
@@ -791,19 +835,19 @@ def paged_kernel_rows(dev, rn, h=32, d=64, sfx=""):
             used += j + 1
         tables = tables.to(dev)
         cells = sum(min(int(p) + c, p_tab * page) for p in pos)
-        nbytes = (2 * 2 * b_ * c * h * d + 2 * 2 * cells * h * d
+        nbytes = (2 * 2 * b_ * c * h * d + 2 * 2 * cells * kv * d
                   + 4 * b_ * (p_tab + 1))
         flops = sum(4 * d * h * (int(p) + cc + 1) for p in pos
                     for cc in range(c))
 
         def make():
-            return (rn(b_, c, h, d), rn(n_blk, page, h, d),
-                    rn(n_blk, page, h, d), tables, pos)
+            return (rn(b_, c, h, d), rn(n_blk, page, kv, d),
+                    rn(n_blk, page, kv, d), tables, pos)
         sets = copies(make, nbytes)
         err = compare(name, pa.paged_decode_attention(*sets[0]),
                       pa.paged_decode_attention_plain(*sets[0]))
         same(pa.paged_decode_attention, sets[0], name)
-        mode, split = pa.paged_path(b_, c, h, h, p_tab, page, sms, d=d)
+        mode, split = pa.paged_path(b_, c, h, kv, p_tab, page, sms, d=d)
 
         def tc(q, k, v, tables, pos, sp):
             o = torch.empty_like(q)
@@ -820,25 +864,29 @@ def paged_kernel_rows(dev, rn, h=32, d=64, sfx=""):
                 [:, :, None])[:, None]                   # (B, 1, C, S)
         tbl = tables.long().clamp(max=n_blk - 1)
         lib_sets = [(q.transpose(1, 2),
-                     k[tbl].reshape(b_, s_len, h, d).transpose(1, 2),
-                     v[tbl].reshape(b_, s_len, h, d).transpose(1, 2))
+                     k[tbl].reshape(b_, s_len, kv, d).transpose(1, 2),
+                     v[tbl].reshape(b_, s_len, kv, d).transpose(1, 2))
                     for q, k, v, _, _ in sets]
         bms, by = bound_ms(nbytes, flops)
+        heads = f"H=KV={h}" if kv == h else f"H={h} KV={kv}"
         rows.append(dict(
             name=name,
-            shape=(f"B={b_} C={c} H=KV={h} d={d} page={page} "
+            shape=(f"B={b_} C={c} {heads} d={d} page={page} "
                    f"P={p_tab} N={n_blk}"),
-            main=c == PAGED["prefill_chunk"], max_abs_err=err,
+            main=c == PAGED["prefill_chunk"] and not tag, max_abs_err=err,
             ms=cuda_time_ms(lambda *t: pa.paged_decode_attention(*t),
                             sets),
             plain_ms=cuda_time_ms(
                 lambda *t: pa.paged_decode_attention_plain(*t), sets),
             library_ms=cuda_time_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask), lib_sets),
-            library="SDPA on pre-gathered K/V, boolean mask",
+                    q, k, v, attn_mask=mask, **gqa_kw(tag)), lib_sets),
+            library="SDPA on pre-gathered K/V, boolean mask"
+                    + (", enable_gqa" if tag else ""),
             bound_ms=bms, bound_by=by, variant=f"{mode} split={split}",
             variants=variants))
+        if tag:
+            rows[-1]["tag"] = tag
         del sets, lib_sets
     torch.cuda.empty_cache()
     return rows
@@ -982,9 +1030,9 @@ def splitk_rank_rows(dev, rn):
     return rows
 
 
-def paged_int8_kernel_rows(dev, rn, h=32, d=64, sfx=""):
+def paged_int8_kernel_rows(dev, rn, h=32, d=64, sfx="", kv=None, tag=None):
     """#8q at the int8 paged engine's shape (as #8's rows, ``h``, ``d``,
-    ``sfx`` too): int8 pools of
+    ``sfx``, ``kv`` and ``tag`` too): int8 pools of
     256 blocks of 16 cells with f32 per-cell scales. The bound counts q
     and o (bf16), and the int8 K/V cells plus their scales inside each
     slot's window; the library yardstick is SDPA on PRE-GATHERED,
@@ -1006,6 +1054,7 @@ def paged_int8_kernel_rows(dev, rn, h=32, d=64, sfx=""):
                        dtype=torch.int32, device=dev)
     gen = torch.Generator().manual_seed(SEED + 5)
     rows = []
+    kv = h if kv is None else kv
     for c in (1, 32):
         last = [min((int(p) + c - 1) // page, p_tab - 1) for p in pos]
         tables = torch.full((b_, p_tab), n_blk, dtype=torch.int32)
@@ -1016,21 +1065,21 @@ def paged_int8_kernel_rows(dev, rn, h=32, d=64, sfx=""):
             used += j + 1
         tables = tables.to(dev)
         cells = sum(min(int(p) + c, p_tab * page) for p in pos)
-        nbytes = (2 * 2 * b_ * c * h * d + 2 * cells * h * (d + 4)
+        nbytes = (2 * 2 * b_ * c * h * d + 2 * cells * kv * (d + 4)
                   + 4 * b_ * (p_tab + 1))
         flops = sum(4 * d * h * (int(p) + cc + 1) for p in pos
                     for cc in range(c))
 
         def make():
-            k8, ks = quant.quantize_kv(rn(n_blk, page, h, d))
-            v8, vs = quant.quantize_kv(rn(n_blk, page, h, d))
+            k8, ks = quant.quantize_kv(rn(n_blk, page, kv, d))
+            v8, vs = quant.quantize_kv(rn(n_blk, page, kv, d))
             return rn(b_, c, h, d), k8, v8, ks, vs, tables, pos
         sets = copies(make, nbytes)
         name = "paged_decode_attention_int8" + sfx
         err = compare(name, pa.paged_decode_attention_int8(*sets[0]),
                       pa.paged_decode_attention_int8_plain(*sets[0]))
         same(pa.paged_decode_attention_int8, sets[0], name)
-        mode, split = pa.paged_path(b_, c, h, h, p_tab, page, sms,
+        mode, split = pa.paged_path(b_, c, h, kv, p_tab, page, sms,
                                     quantized=True, d=d)
 
         def tc(q, k8, v8, ks, vs, tables, pos, sp):
@@ -1050,30 +1099,41 @@ def paged_int8_kernel_rows(dev, rn, h=32, d=64, sfx=""):
 
         def deq(x8, xs):
             return (x8[tbl].float() * xs[tbl][..., None]).to(
-                torch.bfloat16).reshape(b_, s_len, h, d).transpose(1, 2)
+                torch.bfloat16).reshape(b_, s_len, kv, d).transpose(1, 2)
         lib_sets = [(q.transpose(1, 2), deq(k8, ks), deq(v8, vs))
                     for q, k8, v8, ks, vs, _, _ in sets]
         bms, by = bound_ms(nbytes, flops)
+        heads = f"H=KV={h}" if kv == h else f"H={h} KV={kv}"
         rows.append(dict(
             name=name,
-            shape=(f"B={b_} C={c} H=KV={h} d={d} page={page} "
+            shape=(f"B={b_} C={c} {heads} d={d} page={page} "
                    f"P={p_tab} N={n_blk} int8"),
-            main=c == PAGED["prefill_chunk"], max_abs_err=err,
+            main=c == PAGED["prefill_chunk"] and not tag, max_abs_err=err,
             ms=cuda_time_ms(lambda *t: pa.paged_decode_attention_int8(*t),
                             sets),
             plain_ms=cuda_time_ms(
                 lambda *t: pa.paged_decode_attention_int8_plain(*t), sets),
             library_ms=cuda_time_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask), lib_sets),
-            library="SDPA on pre-gathered, pre-dequantized K/V, boolean mask",
+                    q, k, v, attn_mask=mask, **gqa_kw(tag)), lib_sets),
+            library="SDPA on pre-gathered, pre-dequantized K/V, boolean mask"
+                    + (", enable_gqa" if tag else ""),
             bound_ms=bms, bound_by=by, variant=f"{mode} split={split}",
             variants=variants))
+        if tag:
+            rows[-1]["tag"] = tag
         print(f"[kernel] {name} C={c} vs the plain "
               f"version in f32: {prec}", flush=True)
         del sets, lib_sets
     torch.cuda.empty_cache()
     return rows
+
+
+def gqa_kw(tag):
+    """SDPA's keyword for a KV-head cache under a GQA group (tagged rows:
+    the library reads K / V at their own head count, as the kernel
+    does)."""
+    return {"enable_gqa": True} if tag else {}
 
 
 def int8_p_precision(args):
@@ -2116,15 +2176,16 @@ def paged_step_rel_err(cfg, rt, prompts, tasks, dev, base=None,
     return out
 
 
-def serve_checked(eng, reqs, label, tag):
-    """``generate`` with the serving checks: every request FINISHED with 32
-    tokens inside the vocab, no leaked block (paged); prints the stats."""
+def serve_checked(eng, reqs, label, tag, new=32):
+    """``generate`` with the serving checks: every request FINISHED with
+    ``new`` tokens inside the vocab, no leaked block (paged); prints the
+    stats."""
     import torch
     outs = eng.generate(reqs)
     torch.cuda.synchronize()
     st = eng.last_stats
     for res in eng.last_results:
-        if res.status != "FINISHED" or res.n_generated != 32:
+        if res.status != "FINISHED" or res.n_generated != new:
             raise AssertionError(f"{label}: request ended {res.status} "
                                  f"with {res.n_generated} tokens")
     for o in outs:
@@ -3395,7 +3456,7 @@ def phase_rest(dev, dense_run, paged_run, train_cores):
 # recompute preemption, through Engine.generate
 REG_TASKS = 64          # the adapter's task axis (64 columns on the host)
 REG_NEW = 16            # tokens a request
-REG_LAYERS = 12         # stablelm-1.6b's depth cut from 24 (widths kept)
+REG_LAYERS = 6          # stablelm-1.6b's depth cut from 24 (widths kept)
 
 
 def registry_model(dev):
@@ -3555,7 +3616,7 @@ def fault_in_ms(eng, label, iters=20):
 
 
 def phase_registry(dev, count):
-    """Phase 9 on full-width stablelm-1.6b (12 layers) with a 64-task 4+1d
+    """Phase 9 on full-width stablelm-1.6b (6 layers) with a 64-task 4+1d
     adapter:
     (a) the registry on the paged fp cell (4 pool slots, 48 requests over
     24 tasks, cold then warm) against the all-resident engine; (b) the
@@ -4084,13 +4145,18 @@ INT8_KV_LOGIT_TOL = 1e-3
 SERVED_RATIO = 0.25
 
 
-def roberta_serving_model(dev):
+#: (e)'s depth: roberta-large's widths at 12 of its 24 layers (the
+#: int8-weight cells cost 66 s at 24; phase 14 needed the time)
+W8_LAYERS = 12
+
+
+def roberta_serving_model(dev, layers=None):
     """Full-width roberta-large in f32 with a served 4+1d MetaTT adapter
     on q/v (rank 8, 3 tasks, ``random_tt(scale=0.5)`` with its last core
-    scaled to ``SERVED_RATIO`` of the base q projection). Returns (cfg,
-    spec, params, rt)."""
+    scaled to ``SERVED_RATIO`` of the base q projection); ``layers``: its
+    depth cut to that many layers. Returns (cfg, spec, params, rt)."""
     return serving_model(dev, "phase11", "roberta-large", SERVED_RATIO,
-                         seed=SEED + 37)[:4]
+                         layers=layers, seed=SEED + 37)[:4]
 
 
 def f32_tokens_checked(cfg, spec, rt, reqs, outs, ref_outs, label, dev,
@@ -4387,8 +4453,8 @@ def w8_run(eng, reqs, label, count, want, zero):
 
 
 def roberta_w8_serving(dev, model, count, dense):
-    """Phase 11 (e): roberta-large served over int8 weights in f32 through
-    #9f and #10f. (e1) phase 3's dense cell (a's 8 requests) with
+    """Phase 11 (e): roberta-large (at ``W8_LAYERS`` of its 24 layers,
+    full width) served over int8 weights in f32 through #9f and #10f. (e1) phase 3's dense cell (a's 8 requests) with
     ``QuantConfig(weights="int8")``: 2L #9f a prefill, 2L #10f + L K4f a
     decode step, K3f at prefill, no K1f / K2f, no bf16 launch; (e2) phase
     4's paged cell with int8 weights and int8 KV, cold then warm: L #8qf
@@ -4535,9 +4601,10 @@ def phase_eleven(dev):
                          (dense["reqs"], dense["outs"], dense["stats"]),
                          paged)
     t.append(time.perf_counter())
-    roberta_w8_serving(dev, model, count, dense)
     del model
     torch.cuda.empty_cache()
+    roberta_w8_serving(dev, roberta_serving_model(dev, W8_LAYERS), count,
+                       dense)
     t.append(time.perf_counter())
     print(f"[phase11] launches on the path "
           f"{json.dumps({k_: v for k_, v in total.items() if v})}; (a) "
@@ -4620,17 +4687,26 @@ def d256_attention_rows(dev, rn):
 def gemma_linear_rows(dev, rn):
     """K1 (M = 64 prompt rows) and #9, K2 (M = 4 slots) and #10 at
     gemma-7b's q / v projection (K = 3072 -> N = 4096, r = 8; W bf16, or
-    int8 per output channel): each against its plain version at the
-    linears' 1e-2, two calls bit-identical; its time, the plain version's,
-    one library call's (torch.matmul; on a pre-dequantized bf16 W for #9
-    / #10) and its bound."""
+    int8 per output channel): ``qv_linear_rows``."""
+    return qv_linear_rows(dev, rn, "gemma", (GEMMA_QV,), (
+        ("tt_linear", 64), ("tt_linear_batched_a", 4), ("tt_linear_w8", 64),
+        ("tt_linear_batched_a_w8", 4)))
+
+
+def qv_linear_rows(dev, rn, tag, shapes, cases):
+    """``cases`` ((kernel, M), ...) at each of a model's q / v projections
+    ``shapes`` ((K, N, r), ...; W bf16, or int8 per output channel for #9
+    / #10): each against its plain version at the linears' 1e-2, two
+    calls bit-identical; its time, the plain version's, one library
+    call's (torch.matmul; on a pre-dequantized bf16 W for #9 / #10) and
+    its bound. Rows tagged ``tag``."""
     import torch
     from repro_torch.kernels import quant
     from repro_torch.kernels import tt_linear as tl
-    alpha, (k, n, r) = 4.0, GEMMA_QV
+    alpha = 4.0
     rows = []
-    for name, m in (("tt_linear", 64), ("tt_linear_batched_a", 4),
-                    ("tt_linear_w8", 64), ("tt_linear_batched_a_w8", 4)):
+    for (k, n, r), (name, m) in ((sh_, c_) for sh_ in shapes
+                                 for c_ in cases):
         batched, w8 = "batched" in name, name.endswith("w8")
         fn, plain = getattr(tl, name), getattr(tl, name + "_plain")
 
@@ -4656,8 +4732,8 @@ def gemma_linear_rows(dev, rn):
         bms, by = bound_ms(nbytes, 2 * m * k * n + 2 * m * k * r
                            + 2 * m * r * n)
         rows.append(dict(
-            name=name, gemma=True, main=False,
-            shape=f"gemma q/v M={m} K={k} N={n} r={r}", max_abs_err=err,
+            name=name, tag=tag, main=False,
+            shape=f"{tag} q/v M={m} K={k} N={n} r={r}", max_abs_err=err,
             ms=cuda_time_ms(lambda *t: fn(*t, alpha), sets),
             plain_ms=cuda_time_ms(lambda *t: plain(*t, alpha), sets),
             library_ms=cuda_time_ms(lib, lib_sets),
@@ -4667,6 +4743,40 @@ def gemma_linear_rows(dev, rn):
         del sets, lib_sets
     torch.cuda.empty_cache()
     return rows
+
+
+GRANITE, MISTRAL = "granite-34b", "mistral-large-123b"
+#: the two models whose GQA groups lie outside {1, 2, 4, 8}: phase 2's
+#: tag -> (arch, H, KV, d, q / v projections (K, N, r))
+GQA_MODELS = {"granite": (GRANITE, 48, 1, 128, ((6144, 6144, 8),
+                                                (6144, 128, 8))),
+              "mistral": (MISTRAL, 96, 8, 128, ((12288, 12288, 8),
+                                                (12288, 1024, 8)))}
+#: K4's dense cache in those rows: 4 slots x 256 cells at these positions
+GQA_K4_POS = (0, 37, 130, 255)
+
+
+def gqa_attention_rows(dev, rn):
+    """K4 (4 slots x 256 cells), #8 and #8q (8 slots, C = 1 and 32,
+    34-page tables of 16) at granite-34b's H = 48 over KV = 1 (MQA,
+    G = 48) and mistral-large's H = 96 over KV = 8 (G = 12), d = 128:
+    each within 2e-2 of its plain version, two calls bit-identical, its
+    bound and SDPA with ``enable_gqa`` as library."""
+    rows = []
+    for tag, (_, h, kv, d, _) in GQA_MODELS.items():
+        rows += k4_rows(dev, rn, h, d, ((kv, 256, GQA_K4_POS),), tag=tag)
+        rows += paged_kernel_rows(dev, rn, h, d, kv=kv, tag=tag)
+        rows += paged_int8_kernel_rows(dev, rn, h, d, kv=kv, tag=tag)
+    return rows
+
+
+def gqa_linear_rows(dev, rn):
+    """K1 (M = 64) and K2 (M = 4) at granite-34b's and mistral-large's
+    q / v projections (6144 -> 6144 and -> 128; 12288 -> 12288 and ->
+    1024; r = 8): ``qv_linear_rows``."""
+    return [r_ for tag, (_, _, _, _, shapes) in GQA_MODELS.items()
+            for r_ in qv_linear_rows(dev, rn, tag, shapes, (
+                ("tt_linear", 64), ("tt_linear_batched_a", 4)))]
 
 
 def check_launches(n, want, label):
@@ -4679,19 +4789,20 @@ def check_launches(n, want, label):
                              f"unexpected {extra}")
 
 
-def logits_checked(label, rel, agree=None, n=None):
-    """A kernel-leg vs plain-leg logits check of phase 12: 5% of the
-    largest logit (bf16 drift through 28 layers)."""
+def logits_checked(label, rel, agree=None, n=None, tag="phase12"):
+    """A kernel-leg vs plain-leg logits check of phases 12 and 14: 5% of
+    the largest logit (bf16 drift through 8 to 88 layers)."""
     tail = f", argmax equal {agree}/{n}" if agree is not None else ""
-    print(f"[phase12] {label}: logits vs plain leg max |kernel - plain| / "
+    print(f"[{tag}] {label}: logits vs plain leg max |kernel - plain| / "
           f"max |plain| {rel:.3e} (limit 5e-2){tail}", flush=True)
     if not rel <= 5e-2:
         raise AssertionError(f"{label}: logits differ from the plain leg "
                              f"by {rel:.3e}")
 
 
-def cell_metrics(label, st, busy):
-    """Phase 12's end-to-end numbers of one run, each on its own line."""
+def cell_metrics(label, st, busy, tag="phase12"):
+    """Phase 12's (and 14's) end-to-end numbers of one run, each on its
+    own line."""
     steps = max(st.decode_steps, 1)
     for key, val in (
             ("tok/s", f"{st.tokens_per_s:.1f}"),
@@ -4704,82 +4815,113 @@ def cell_metrics(label, st, busy):
             ("kv_bytes_peak", f"{st.kv_bytes_peak}"),
             ("device busy", "not measured" if busy is None
              else f"{100 * busy:.1f}% (profiled)")):
-        print(f"[phase12] {label} {key}: {val}", flush=True)
+        print(f"[{tag}] {label} {key}: {val}", flush=True)
 
 
 def gemma_dense(dev, count, model):
-    """Phase 12 (a): phase 3's dense cell on full-width gemma-7b: 4 slots x
-    256 cells, 8 mixed-task requests of 16-96 prompt tokens, 32 new each;
-    2L K1 + L K3 (d = 256) a prefill, 2L K2 + L K4 (d = 256) a decode
-    step, nothing else; prefill and decode-step logits within 5% of the
-    plain leg's largest logit."""
+    """Phase 12 (a): ``dense_cell`` on full-width gemma-7b with phase 3's
+    8 requests (the d = 256 instances of K3 and K4)."""
+    return dense_cell(dev, count, model, "phase12",
+                      dense_requests(model[0]))
+
+
+def dense_cell(dev, count, model, tag, reqs, new=32, label="(a) dense"):
+    """Phase 3's dense cell on a full-width model (phases 12 and 14): 4
+    slots x 256 cells, ``reqs`` mixed-task requests of ``new`` tokens
+    each; 2L K1 + L K3 a prefill, 2L K2 + L K4 a decode step (their d =
+    256 instances at heads of 256), nothing else; the engine holds no
+    second copy of the base (its allocation beyond the runtime's is at
+    most 5% of the base's bytes); prefill and decode-step logits within
+    5% of the plain leg's largest logit."""
     import torch
     from repro_torch.config.base import KernelConfig, ServeConfig
+    from repro_torch.models import model as M
     from repro_torch.serving import Engine
     cfg, spec, params, rt, gen = model
+    sfx = "_d256" if cfg.resolved_head_dim == 256 else ""
+    k3, k4 = "flash_attention" + sfx, "decode_attention" + sfx
     serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=256,
                         out_cap=32)
+    base_b = sum(t.numel() * t.element_size()
+                 for t in M.tensors(params["base"]))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
     eng = Engine(cfg, rt, serve=serve, device=dev)
-    reqs = dense_requests(cfg)
-    eng.generate(reqs[:2])                       # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - before
+    print(f"[{tag}] {label}: the engine allocates {held / 1e9:.3f} GB "
+          f"beside the runtime's {base_b / 1e9:.3f} GB of base (limit 5%: "
+          "no second copy)", flush=True)
+    if held > 0.05 * base_b:
+        raise AssertionError(f"{label}: the engine holds {held} bytes "
+                             "beside the base: a second copy")
+    eng.generate([dataclasses.replace(reqs[0], max_new_tokens=2)])
     got = {}
-    n = count(lambda: got.update(r=serve_checked(eng, reqs, "(a) dense",
-                                                 "phase12")))
+    n = count(lambda: got.update(r=serve_checked(eng, reqs, label, tag,
+                                                 new)))
     outs, st = got["r"]
     L, steps, pre = cfg.num_layers, st.decode_steps, st.prefills
-    check_launches(n, {"tt_linear": 2 * L * pre,
-                       "flash_attention_d256": L * pre,
+    check_launches(n, {"tt_linear": 2 * L * pre, k3: L * pre,
                        "tt_linear_batched_a": 2 * L * steps,
-                       "decode_attention_d256": L * steps}, "(a) dense")
-    print(f"[phase12] (a) dense: launches "
+                       k4: L * steps}, label)
+    print(f"[{tag}] {label}: launches "
           f"{json.dumps({k: v for k, v in n.items() if v})} = "
-          f"K1 {n['tt_linear'] // pre} + K3(d256) "
-          f"{n['flash_attention_d256'] // pre} a prefill over {pre}, K2 "
-          f"{n['tt_linear_batched_a'] // steps} + K4(d256) "
-          f"{n['decode_attention_d256'] // steps} a decode step over "
-          f"{steps} (L = {L})", flush=True)
-    _, busy = device_share("(a) gemma-7b dense generate of 4 requests",
+          f"K1 {n['tt_linear'] // pre} + {k3} {n[k3] // pre} a prefill over "
+          f"{pre}, K2 {n['tt_linear_batched_a'] // steps} + {k4} "
+          f"{n[k4] // steps} a decode step over {steps} (L = {L})",
+          flush=True)
+    _, busy = device_share(f"{label} {cfg.name} generate of 4 requests",
                            lambda: eng.generate(reqs[:4]),
                            show=("paged_tc", "flash_fwd"))
-    cell_metrics("(a) dense", st, busy)
+    cell_metrics(label, st, busy, tag)
     eng_ref = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
         backend="ref"), device=dev)
-    logits_checked("(a) prefill, last position of 2 requests",
-                   max(logits_rel_err(eng, eng_ref, r) for r in reqs[:2]))
+    logits_checked(f"{label} prefill, last position of 2 requests",
+                   max(logits_rel_err(eng, eng_ref, r) for r in reqs[:2]),
+                   tag=tag)
     del eng, eng_ref
     torch.cuda.empty_cache()
     rel, agree = decode_step_rel_err(cfg, rt, reqs[:4], serve.cache_len, dev)
-    logits_checked(f"(a) one decode step of 4 slots (tasks "
-                   f"{[r.task for r in reqs[:4]]})", rel, agree, 4)
-    return dict(reqs=reqs, stats=st)
+    logits_checked(f"{label} one decode step of 4 slots (tasks "
+                   f"{[r.task for r in reqs[:4]]})", rel, agree, 4, tag)
+    return dict(reqs=reqs, stats=st, launches=n)
 
 
 def gemma_paged(dev, count, model, quant):
     """Phase 12 (b) (``quant`` False) and (c) (int8 weights and int8 KV):
-    phase 4's paged cell on full-width gemma-7b — 8 slots, 256 blocks of 16
-    cells, chunk 32, 16 requests of 40-300 prompt tokens, half sharing a
-    100-token prefix per task, cold then warm: L #8 (#8q) at d = 256 an
-    engine step and nothing else (the (B, 32) adapted q/v run the
-    batched einsum, as in JAX); every request finished, no leaked block,
-    warm prefix hits and COW; a pure-decode and a mixed paged step within
-    5% of the plain leg's largest logit. Returns (kv_bytes_peak, the int8
-    base or None)."""
+    ``paged_cell`` on full-width gemma-7b (#8 / #8q at d = 256)."""
+    from repro_torch.config.base import QuantConfig
+    return paged_cell(dev, count, model, QuantConfig(
+        weights="int8", kv="int8") if quant else None, "phase12",
+        "(c) paged int8" if quant else "(b) paged fp")
+
+
+def paged_cell(dev, count, model, quant, phase, tag):
+    """Phase 4's paged cell on a full-width model (phases 12 and 14) — 8
+    slots, 256 blocks of 16 cells, chunk 32, 16 requests of 40-300 prompt
+    tokens, half sharing a 100-token prefix per task, cold then warm,
+    under ``quant`` (a QuantConfig with int8 KV, or None for bf16 pools):
+    L #8 (#8q; their d = 256 instances at heads of 256) an engine step and
+    nothing else (the (B, 32) adapted q/v run the batched einsum, as in
+    JAX); every request finished, no leaked block, warm prefix hits and
+    COW; a pure-decode and a mixed paged step within 5% of the plain leg's
+    largest logit. Returns (kv_bytes_peak, the int8 base or None)."""
     import torch
     from repro_torch.config.base import QuantConfig, ServeConfig
     from repro_torch.models import model as M
     from repro_torch.serving import Engine
     cfg, spec, params, rt, gen = model
-    tag = "(c) paged int8" if quant else "(b) paged fp"
-    name = ("paged_decode_attention_int8_d256" if quant
-            else "paged_decode_attention_d256")
+    q8 = quant is not None
+    name = ("paged_decode_attention_int8" if q8 else "paged_decode_attention"
+            ) + ("_d256" if cfg.resolved_head_dim == 256 else "")
     eng = Engine(cfg, rt, serve=ServeConfig(
-        cache_mode="paged", quant=QuantConfig(weights="int8", kv="int8")
-        if quant else QuantConfig(), **PAGED), device=dev)
+        cache_mode="paged", quant=quant if q8 else QuantConfig(), **PAGED),
+        device=dev)
     pool_gb = sum(t.numel() * t.element_size() for c in eng._paged_caches
                   for t in c["self"].values()) / 1e9
     base_gb = sum(t.numel() * t.element_size()
                   for t in M.tensors(eng.base_weights)) / 1e9
-    print(f"[phase12] {tag}: served base {base_gb:.3f} GB, K/V pools "
+    print(f"[{phase}] {tag}: served base {base_gb:.3f} GB, K/V pools "
           f"{pool_gb:.3f} GB for {eng.sv.resolved_num_blocks} blocks",
           flush=True)
     reqs = paged_requests(cfg)
@@ -4787,7 +4929,7 @@ def gemma_paged(dev, count, model, quant):
     for label in ("cold", "warm"):
         got = {}
         n = count(lambda: got.update(r=serve_checked(
-            eng, reqs, f"{tag} {label}", "phase12")))
+            eng, reqs, f"{tag} {label}", phase)))
         st = runs[label] = got["r"][1]
         kv_peak = max(kv_peak, st.kv_bytes_peak)
         check_launches(n, {name: cfg.num_layers * st.decode_steps},
@@ -4796,27 +4938,28 @@ def gemma_paged(dev, count, model, quant):
             total[k_] = total.get(k_, 0) + v_
     if not (st.prefix_hit_tokens > 0 and st.cow_copies >= 1):
         raise AssertionError(f"{tag} warm: no prefix hit or no COW copy")
-    print(f"[phase12] {tag}: launches over cold and warm "
+    print(f"[{phase}] {tag}: launches over cold and warm "
           f"{json.dumps({k: v for k, v in total.items() if v})} ({name} "
           f"L = {cfg.num_layers} an engine step); kv_bytes_peak {kv_peak}",
           flush=True)
-    _, busy = device_share(f"{tag} generate of 16 requests (warm)",
-                           lambda: eng.generate(reqs), top_n=12,
+    _, busy = device_share(f"{tag} {cfg.name} generate of 16 requests "
+                           "(warm)", lambda: eng.generate(reqs), top_n=12,
                            show=("paged_tc",))
-    cell_metrics(f"{tag} cold", runs["cold"], None)
-    cell_metrics(f"{tag} warm", runs["warm"], busy)
-    qbase = eng.base_weights if quant else None
-    if quant:
+    cell_metrics(f"{tag} cold", runs["cold"], None, phase)
+    cell_metrics(f"{tag} warm", runs["warm"], busy, phase)
+    w8 = q8 and quant.weights == "int8"
+    qbase = eng.base_weights if w8 else None
+    if w8:
         unadapted_projection_cost(cfg, qbase, dev)
     del eng
     torch.cuda.empty_cache()
     picked = reqs[1:3] + sorted(reqs[3:], key=lambda r: len(r.prompt))[-2:]
     res = paged_step_rel_err(cfg, rt, [r.prompt for r in picked],
                              [r.task for r in picked], dev, base=qbase,
-                             kv_quant=quant)
+                             kv_quant=q8)
     for step, (rel, agree) in res.items():
         logits_checked(f"{tag}: one {step} paged step of 4 slots", rel,
-                       agree, 4)
+                       agree, 4, phase)
     return kv_peak, qbase
 
 
@@ -5017,6 +5160,127 @@ def phase_thirteen(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: granite-34b (MQA, G = 48) and mistral-large-123b (G = 12)
+# served at full width through the any-group instances of K4, #8 and #8q
+# ---------------------------------------------------------------------------
+
+#: phase 14's depths: arch -> (the dense cell's, the paged cells'), of 88.
+#: granite-34b's 33.66 B bf16 parameters (67.3 GB) fit the card whole;
+#: mistral-large's 122.2 B do not, so its cells keep its widths at 8.
+GQA_DEPTHS = {GRANITE: (88, 16), MISTRAL: (8, 8)}
+GQA_NEW = 16                  # new tokens a request of the dense cell
+#: the kernels each phase-14 cell must launch
+GQA_KERNELS = ("decode_attention", "paged_decode_attention",
+               "paged_decode_attention_int8")
+
+
+def gqa_requests(cfg):
+    """The dense cell's 4 mixed-task requests: 16-96 prompt tokens over 3
+    tasks, ``GQA_NEW`` new each."""
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(SEED + 41)
+    return [Request(rng.randint(0, cfg.vocab_size, size=int(n)), GQA_NEW,
+                    task=i % 3)
+            for i, n in enumerate(rng.randint(16, 97, size=4))]
+
+
+def phase_fourteen(dev):
+    """Phase 14: granite-34b (88 x 6144, 48 heads of 128 over one KV head,
+    gelu 24576, vocab 49152) and mistral-large-123b (12288, 96 heads of
+    128 over 8, SwiGLU 28672, vocab 32768) in bf16 with a 4+1d MetaTT q/v
+    adapter (rank 8, 3 tasks) at 0.25 of the base q projection — the v
+    adapter 6144 -> 128 and 12288 -> 1024 — served through K4, #8 and #8q
+    at G = 48 and 12: per model (a) the dense cell (granite at all 88
+    layers, 67.3 GB: the engine must hold no second base), (b) the paged
+    cell cold then warm and (c) the same with int8 KV pools (#8q,
+    kv_bytes_peak below (b)'s), at ``GQA_DEPTHS``; exact launches a step,
+    the paged invariants, logits within 5% of the plain leg's largest;
+    tok/s, step ms, prefill ms, busy share and peak memory a cell. Each
+    model is built from the seed and freed before the next."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.config.base import QuantConfig
+    total, secs = {}, {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+
+    def cell(label, arch, layers, fn):
+        # earlier phases' objects in reference cycles (a Trainer, an
+        # Engine) keep their tensors until a collection: granite's 67.3 GB
+        # needs them gone
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[phase14] {label}: {torch.cuda.memory_allocated(dev) / 1e9:.3f}"
+              " GB allocated before the build", flush=True)
+        t0 = time.perf_counter()
+        model = serving_model(dev, "phase14", arch, SERVED_RATIO,
+                              layers=layers)
+        torch.cuda.reset_peak_memory_stats(dev)   # serving, not the init
+        out = fn(model)
+        del model
+        torch.cuda.synchronize()
+        print(f"[phase14] {label}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB",
+              flush=True)
+        secs[label] = time.perf_counter() - t0
+        return out
+
+    def served(arch, m, dense):
+        """The cells of one model: (a) when ``dense``, then (b) and (c);
+        each cell's launches of ``GQA_KERNELS`` must be above 0."""
+        short = arch.split("-")[0]
+        out = {}
+        if dense:
+            out["a"] = dense_cell(dev, count, m, "phase14", gqa_requests(
+                m[0]), GQA_NEW, f"{short} (a) dense")["launches"]
+        before = dict(total)
+        fp_peak, _ = paged_cell(dev, count, m, None, "phase14",
+                                f"{short} (b) paged fp")
+        out["b"] = {k_: v - before.get(k_, 0) for k_, v in total.items()}
+        before = dict(total)
+        q_peak, _ = paged_cell(dev, count, m, QuantConfig(kv="int8"),
+                               "phase14", f"{short} (c) paged int8 KV")
+        out["c"] = {k_: v - before.get(k_, 0) for k_, v in total.items()}
+        print(f"[phase14] {short} (c) kv_bytes_peak int8 {q_peak} against "
+              f"fp {fp_peak} ({q_peak / fp_peak:.3f}x)", flush=True)
+        if not q_peak < fp_peak:
+            raise AssertionError(f"{short} (c): int8 kv_bytes_peak {q_peak} "
+                                 f"not below (b)'s {fp_peak}")
+        return out
+
+    runs = {}
+    dense_l, paged_l = GQA_DEPTHS[GRANITE]
+    runs["granite (a)"] = cell(
+        "granite (a)", GRANITE, dense_l, lambda m: dense_cell(
+            dev, count, m, "phase14", gqa_requests(m[0]), GQA_NEW,
+            "granite (a) dense")["launches"])
+    runs.update({f"granite ({k_})": v for k_, v in cell(
+        "granite (b)-(c)", GRANITE, paged_l,
+        lambda m: served(GRANITE, m, False)).items()})
+    runs.update({f"mistral ({k_})": v for k_, v in cell(
+        "mistral (a)-(c)", MISTRAL, GQA_DEPTHS[MISTRAL][0],
+        lambda m: served(MISTRAL, m, True)).items()})
+    for label, n in runs.items():
+        want = GQA_KERNELS[0 if "(a)" in label else
+                           1 if "(b)" in label else 2]
+        if not n.get(want):
+            raise AssertionError(f"phase 14 {label}: {want} not launched")
+    print(f"[phase14] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}; "
+          + ", ".join(f"{k_} {v:.1f} s" for k_, v in secs.items()),
+          flush=True)
+    return total
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -5092,10 +5356,13 @@ def main(argv) -> int:
     paths["phase12"] = phase_twelve(dev)
     t13 = time.perf_counter()
     paths["phase13"] = phase_thirteen(dev)
+    t14 = time.perf_counter()
+    paths["phase14"] = phase_fourteen(dev)
     print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 {t10 - t9:.1f} s; "
           f"phase 10 {t11 - t10:.1f} s; phase 11 {t12 - t11:.1f} s; phase "
-          f"12 {t13 - t12:.1f} s; phase 13 {time.perf_counter() - t13:.1f} "
-          f"s; the script {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"12 {t13 - t12:.1f} s; phase 13 {t14 - t13:.1f} s; phase 14 "
+          f"{time.perf_counter() - t14:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []
     for name, (src, replaces) in KERNELS.items():
@@ -5122,9 +5389,14 @@ def main(argv) -> int:
             rec["rows"] = [{k: r[k] for k in keys + ("variant", "lse_err",
                                                      "library")
                             if k in r} for r in mine]
-        gemma = [{k: r[k] for k in keys} for r in mine if r.get("gemma")]
+        gemma = [{k: r[k] for k in keys} for r in mine
+                 if r.get("tag") == "gemma"]
         if gemma:        # K1, K2, #9, #10 at gemma-7b's q / v, phase 2
             rec["gemma_rows"] = gemma
+        gqa = [{k: r[k] for k in keys + ("tag", "variant", "library")
+                if k in r} for r in mine if r.get("tag") in GQA_MODELS]
+        if gqa:          # K1, K2, K4, #8, #8q at granite's / mistral's
+            rec["gqa_rows"] = gqa
         ranks = [{k: r[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "tflops", "variant")}

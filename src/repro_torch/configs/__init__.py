@@ -1,8 +1,9 @@
 """Architecture registry. ``get_config("<arch-id>")`` returns the full
 config, ``get_smoke_config`` the reduced same-family config the CPU tests
 use. The port carries the architectures of its slices so far: stablelm-1.6b,
-gemma-7b (heads of 256) and the paper's own RoBERTa targets (one module,
-two ids)."""
+gemma-7b (heads of 256), the paper's own RoBERTa targets (one module,
+two ids), granite-34b (MQA, a GQA group of 48) and mistral-large-123b
+(a group of 12)."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +13,8 @@ _MODULES = {
     "gemma-7b": "gemma_7b",
     "roberta-base": "roberta",
     "roberta-large": "roberta",
+    "granite-34b": "granite_34b",
+    "mistral-large-123b": "mistral_large_123b",
 }
 
 ALL_IDS = tuple(_MODULES)

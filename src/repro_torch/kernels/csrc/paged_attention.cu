@@ -29,7 +29,10 @@
 //    one (column c, head g) pair of the GQA group, row = c·G + g — so the
 //    window is read once for every row (at most 256 rows a block: four
 //    warpgroups, 64 for the int8 leg; above that, slabs take a block
-//    each);
+//    each, and each slab reads the window again). Any group G: a slab
+//    may start mid-column (granite-34b's G = 48: 256 % 48 = 16), so its
+//    window runs to its last row's column and each row is masked at its
+//    own position;
 //  - the block loads its block-table row into shared memory once (the
 //    sentinels clamped) and walks it itself: K and V tiles of 64 cells
 //    come through a three-stage cp.async ring, 16 bytes a copy (a page of
@@ -47,7 +50,8 @@
 //  - DENSE (K4): cell i of slot b's kv head is read at
 //    k + b·ksb + i·kss + kvh·ksh, with no table, no sentinel and no page;
 //    the window is min(pos[b], S − 1) + 1 cells (the launcher passes
-//    page = 1 and P = S, so P·page is the cache length). At G = 1 each
+//    page = 1 and P = S, so P·page is the cache length); groups above 64
+//    take slabs of 64 rows, a block each. At G = 1 each
 //    `mma.sync` carries 15 padded rows: the kernel is bound by bytes, so
 //    the padding costs no time, and padded rows are never written;
 //  - the online softmax stays in the accumulator registers (a row's
@@ -643,8 +647,7 @@ int run_tc(const void* q, const void* k, const void* v, const void* ks,
       page < 8 || page > 64 || page % 8 != 0 || B > 65535 || split < 0 ||
       (split > 0 && (ws == nullptr || cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
+  const int G = H / KV;   // any group: a slab may start mid-column
   const int rows = C * G, cap = Q8 || d == 256 ? SLAB_MMA : SLAB;
   const int nslab = (rows + cap - 1) / cap;
   const int nch = split ? (P * page + PT * split - 1) / (PT * split) : 1;
@@ -662,7 +665,9 @@ int run_tc(const void* q, const void* k, const void* v, const void* ks,
   return (int)cudaErrorInvalidValue;
 }
 
-// K4: one query a slot (C = 1) over the dense cache, G rows a block
+// K4: one query a slot (C = 1) over the dense cache, the G rows of a
+// (slot, kv head) in slabs of at most SLAB_MMA (one `mma.sync` warpgroup;
+// one slab up to G = 64), a block each
 int run_dense(const void* q, const void* k, const void* v, const void* pos,
               void* o, int B, int S, int H, int KV, int d,
               const long long* strides, int split, void* ws, void* cnt,
@@ -671,15 +676,16 @@ int run_dense(const void* q, const void* k, const void* v, const void* pos,
       (split > 0 && (ws == nullptr || cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
+  const int nslab = (G + SLAB_MMA - 1) / SLAB_MMA;
   const int nch = split ? (S + PT * split - 1) / (PT * split) : 1;
-  if (nch > 65535) return (int)cudaErrorInvalidValue;
+  if (static_cast<long long>(nslab) * nch > 65535)
+    return (int)cudaErrorInvalidValue;
   // q (b, h) and o (b, h) as (b, c = 0, h); k, v (b, s, kv)
   const long long* s = strides;
   const Strides st{{s[0], 0, s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
                     0, s[9], 0}};
   const TcArgs a{q, k, v, nullptr, nullptr, nullptr, pos, o, ws, cnt, B, 1,
-                 G, KV, 0, 1, S, split, 1, nch};
+                 G, KV, 0, 1, S, split, nslab, nch};
   if (d == 64) return launch_tc<64, 1, false, false, true>(a, st, stream);
   if (d == 128) return launch_tc<128, 1, false, false, true>(a, st, stream);
   if (d == 256) return launch_tc<256, 1, false, false, true>(a, st, stream);
@@ -1078,8 +1084,8 @@ extern "C" {
 // int32 (entries >= N are sentinels), last dim contiguous; pos (B,) int32;
 // o (B, C, H, d) bf16. strides: 13 element strides (q: b, c, h; k: n, p,
 // kv; v: n, p, kv; o: b, c, h; tables: b), q/k/v/o ones a multiple of 8
-// with 16-byte aligned bases. d in {64, 128, 256}; H / KV in {1, 2, 4,
-// 8}; page a multiple of 8 in [8, 64]. split: tiles of 64 cells a chunk
+// with 16-byte aligned bases. d in {64, 128, 256}; any H / KV; page a
+// multiple of 8 in [8, 64]. split: tiles of 64 cells a chunk
 // of the window (0: one block a window); with split > 0, ws an f32
 // workspace of B · KV · slabs · chunks · threads · (d / 2 + 4) floats
 // (threads = 128 · warpgroups, slabs = ceil(C·G / 256), at d = 256
@@ -1113,9 +1119,9 @@ int paged_attention_int8(const void* q, const void* k, const void* v,
 // int32; o (B, H, d) bf16. strides: 10 element strides (q: b, h; k: b, s,
 // kv; v: b, s, kv; o: b, h), each a multiple of 8 with 16-byte aligned
 // bases and a contiguous last dim. Slot b attends cells
-// 0 .. min(pos[b], S - 1). d in {64, 128, 256}; H / KV in {1, 2, 4, 8}.
-// split, ws and cnt as paged_attention_bf16's, with 128 threads a block,
-// one slab and chunks = ceil(S / (64 · split)).
+// 0 .. min(pos[b], S - 1). d in {64, 128, 256}; any H / KV. split, ws
+// and cnt as paged_attention_bf16's, with 128 threads a block, slabs =
+// ceil(G / 64) and chunks = ceil(S / (64 · split)).
 int dense_decode_attention_bf16(const void* q, const void* k, const void* v,
                                 const void* pos, void* o, int B, int S,
                                 int H, int KV, int d,
@@ -1131,7 +1137,7 @@ int dense_decode_attention_bf16(const void* q, const void* k, const void* v,
 // multiple of 4). split > 0: ws an f32 workspace of B · KV · slabs ·
 // chunks · 256 · RA · (d / 16 + 2) floats, slabs = ceil(C·G / 64), RA =
 // 1, 2 or 4 for a block of up to 16, 32 or 64 rows (K4: slabs = 1, RA =
-// 1), and cnt as above.
+// 1), and cnt as above; H / KV in {1, 2, 4, 8}.
 int paged_attention_f32(const void* q, const void* k, const void* v,
                         const void* tables, const void* pos, void* o, int B,
                         int C, int H, int KV, int d, int N, int page, int P,

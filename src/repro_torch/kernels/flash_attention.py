@@ -25,8 +25,11 @@ f32 operands (RoBERTa trains and
 serves in f32) launch the f32 instances of K3 / #5, #6, #7 and K4 at
 head_dim 64 (FFMA, ``csrc/attention_f32.cuh``; counted under the
 kernel's name + ``_f32``; K4's is #8's f32 kernel over the dense cache);
-mixed dtypes raise. GQA group size G in {1, 2, 4, 8} for decode and the
-backward.
+mixed dtypes raise. Any GQA group G for the bf16 forward (K3 / #5) and
+decode (K4: groups above 64 in slabs of 64 rows, a block each); G in
+{1, 2, 4, 8} for the backward (#6 / #7, ``GROUPS_BWD``) and for the f32
+instances (``GROUPS_F32``), which raise ``NotImplementedError`` outside
+it.
 Operands need a contiguous last dim, strides of whole 16 bytes (8 bf16
 or 4 f32 elements) and 16-byte aligned data. ``LAUNCHES`` counts the
 launches, and nothing else adds to it.
@@ -59,7 +62,11 @@ HEAD_DIMS = (64, 128, 256)
 HEAD_DIMS_BWD = (64, 128, 256)
 #: head dims of the f32 instances (RoBERTa's heads of 64)
 HEAD_DIMS_F32 = (64,)
-GROUPS = (1, 2, 4, 8)
+#: GQA groups of the backward (#6 / #7, bf16 and f32); the bf16 forward
+#: and decode kernels (K3 / #5, K4, #8, #8q) take any group
+GROUPS_BWD = (1, 2, 4, 8)
+#: GQA groups of the f32 decode instances (K4, #8, #8q: RoBERTa's G = 1)
+GROUPS_F32 = (1, 2, 4, 8)
 #: the dtypes the attention kernels are built for (f32 at HEAD_DIMS_F32)
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -187,6 +194,16 @@ def _check_cuda(ts, d: int, what: str, dtypes=DTYPES,
     return _suffix(ts[0])
 
 
+def check_group_f32(q, g: int, what: str) -> None:
+    """The f32 decode instances (K4, #8, #8q) take G in ``GROUPS_F32``;
+    raise ``NotImplementedError`` before the launch otherwise (the bf16
+    instances take any group)."""
+    if q.dtype == torch.float32 and g not in GROUPS_F32:
+        raise NotImplementedError(
+            f"{what}: f32 CUDA kernel built for GQA groups {GROUPS_F32}; "
+            f"got {g}")
+
+
 def _strides(*ts) -> ctypes.Array:
     vals = [st for t in ts for st in t.stride()[:-1]]
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -284,10 +301,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
     _check_cuda((q, k, v, o, g), d, "flash_attention_bwd",
                 dims=HEAD_DIMS_BWD)
-    if h // kv not in GROUPS:
+    if h // kv not in GROUPS_BWD:
         raise NotImplementedError(
             f"flash_attention_bwd: CUDA kernels built for GQA groups "
-            f"{GROUPS}; got {h // kv}")
+            f"{GROUPS_BWD}; got {h // kv}")
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise TypeError("flash_attention_bwd: lse must be f32 on "
                         f"{q.device}; got {lse.dtype} on {lse.device}")
@@ -342,10 +359,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, pos)
     sfx = _check_cuda((q, k, v), d, "decode_attention")
-    if h // kv not in GROUPS:
-        raise NotImplementedError(
-            f"decode_attention: CUDA kernel built for GQA groups "
-            f"{GROUPS}; got {h // kv}")
+    check_group_f32(q, h // kv, "decode_attention")
     # paged_attention imports this module: import it at call time
     from repro_torch.kernels import paged_attention as _pa
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()

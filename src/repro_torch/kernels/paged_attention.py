@@ -17,9 +17,11 @@ A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel (bf16 q, bf16 or int8 pools, head_dim 64, 128 or 256
 — gemma-7b's, counted under the kernel's name + ``_d256``: ``mma.sync``
 in slabs of at most 64 rows, a two-stage ring of 32 KB tiles; f32
-q, f32 or int8 pools, head_dim 64; GQA group in {1, 2, 4, 8}, page a
-multiple of 8 up to 64; a contiguous last dim, strides of whole 16 bytes,
-16-byte aligned data) or raises; mixed fp dtypes raise. f32 operands
+q, f32 or int8 pools, head_dim 64; any GQA group in bf16 — a slab may
+start mid-column, as granite-34b's G = 48 has it — and G in {1, 2, 4, 8}
+in f32 (``flash_attention.GROUPS_F32``); page a multiple of 8 up to
+64; a contiguous last dim, strides of whole 16 bytes, 16-byte aligned
+data) or raises; mixed fp dtypes raise. f32 operands
 (RoBERTa serves in f32) launch the f32 instances, counted under the
 kernel's name + ``_f32``: FFMA tiles (``csrc/attention_f32.cuh``), all
 C·G rows of a (slot, kv head) up to 64 in a block, a two-stage cp.async
@@ -142,12 +144,20 @@ def paged_path(b: int, c: int, h: int, kv: int, p_tab: int, page: int,
     return mode, _chunk_tiles(blocks, -(-p_tab * page // TILE_CELLS), sms)
 
 
+def dense_slabs(h: int, kv: int) -> int:
+    """Blocks K4 gives a (slot, kv head): its G = H / KV query rows in
+    slabs of at most ``SLAB_ROWS_Q8`` (one ``mma.sync`` warpgroup)."""
+    return -(-(h // kv) // SLAB_ROWS_Q8)
+
+
 def decode_path(b: int, h: int, kv: int, s: int, sms: int) -> tuple:
-    """How K4 runs on #8's kernel: ``("mma", split)`` — one block a (slot,
-    kv head) holds the G = H / KV query rows on ``mma.sync``, and windows
-    of the S-cell dense cache split into chunks of ``split`` 64-cell tiles
-    by ``paged_path``'s rule (0: one block a window)."""
-    return "mma", _chunk_tiles(b * kv, -(-s // TILE_CELLS), sms)
+    """How K4 runs on #8's kernel: ``("mma", split)`` — a block of a (slot,
+    kv head) holds its G = H / KV query rows on ``mma.sync`` (slabs of 64
+    above G = 64: ``dense_slabs``), and windows of the S-cell dense cache
+    split into chunks of ``split`` 64-cell tiles by ``paged_path``'s rule
+    (0: one block a window)."""
+    return "mma", _chunk_tiles(b * kv * dense_slabs(h, kv),
+                               -(-s // TILE_CELLS), sms)
 
 
 def _chunk_tiles(blocks: int, tiles: int, sms: int) -> int:
@@ -173,11 +183,8 @@ def _check_shapes(q, k_cache, v_cache, tables, pos, what: str) -> tuple:
     return b, c, h, d, n, page, kv
 
 
-def _check_kernel_dims(h, kv, page, what: str) -> None:
-    if h // kv not in _fa.GROUPS:
-        raise NotImplementedError(
-            f"{what}: CUDA kernel built for GQA groups {_fa.GROUPS}; got "
-            f"{h // kv}")
+def _check_kernel_dims(q, h, kv, page, what: str) -> None:
+    _fa.check_group_f32(q, h // kv, what)
     if page not in PAGES:
         raise NotImplementedError(
             f"{what}: CUDA kernel built for pages of {PAGES} cells; got "
@@ -196,7 +203,7 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_cache, v_cache, tables, pos)
     sfx = _fa._check_cuda((q, k_cache, v_cache), d, what)
-    _check_kernel_dims(h, kv, page, what)
+    _check_kernel_dims(q, h, kv, page, what)
     tables = tables.to(device=q.device, dtype=torch.int32).contiguous()
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
@@ -251,17 +258,19 @@ def launch_dense(q, k, v, pos, o, split: int) -> int:
     """K4 on checked CUDA operands (q, o (B, H, d); k, v (B, S, KV, d)
     read through their strides; pos (B,) int32) with ``split`` tiles a
     chunk (0: one block a window); returns the launch's cudaError. A split
-    run takes the workspace and counters as ``_launch_tc``'s."""
+    run takes the workspace and counters as ``_launch_tc``'s, for the
+    ``dense_slabs`` blocks of each (slot, kv head) (f32: one)."""
     b, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     f32 = q.dtype == torch.float32
     ws = cnt = None
     if split:
         chunks = -(-s // (TILE_CELLS * split))
-        elems = (f32_workspace_elems(b * kv, chunks, h // kv, d) if f32
-                 else b * kv * chunks * 128 * (d // 2 + 4))
+        blocks = b * kv * (1 if f32 else dense_slabs(h, kv))
+        elems = (f32_workspace_elems(blocks, chunks, h // kv, d) if f32
+                 else blocks * chunks * 128 * (d // 2 + 4))
         ws = torch.empty(elems, dtype=torch.float32, device=q.device)
-        cnt = _build.counters(q.device, b * kv)
+        cnt = _build.counters(q.device, blocks)
     st = _fa._strides(q, k, v, o)
     return _fn("dense_decode_attention_f32" if f32
                else "dense_decode_attention_bf16")(
@@ -308,7 +317,7 @@ def paged_decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
         if any(st % 16 for st in t.stride()[:-1]) or t.data_ptr() % 16:
             raise ValueError(f"{what}: int8 pools need strides in multiples "
                              "of 16 elements and 16-byte aligned data")
-    _check_kernel_dims(h, kv, page, what)
+    _check_kernel_dims(q, h, kv, page, what)
     tables = tables.to(device=q.device, dtype=torch.int32).contiguous()
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)

@@ -1991,3 +1991,152 @@ def test_flash_d256_training_function(dev):
         out = dispatch.flash_attention(*leaves, causal=True, policy=pol)
         outs.append(torch.autograd.grad(out, leaves, go))
     _check_bwd(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
+# any GQA group: K4, #8 and #8q in bf16 at G = 3, 12 (mistral-large), 48
+# (granite-34b's MQA) and 96; #6 / #7 and the f32 instances keep
+# {1, 2, 4, 8}
+# ---------------------------------------------------------------------------
+
+ANY_GROUPS = [3, 12, 48, 96]
+
+
+def _any_heads(g):
+    """(slots, query heads, kv heads) at group ``g``: MQA (one kv head, 8
+    slots) from G = 48, else 4 slots over 4 or 2 kv heads."""
+    kv = 4 if g < 12 else 2 if g < 48 else 1
+    return (8 if kv == 1 else 4), kv * g, kv
+
+
+def _any_paged_case(dev, c, g, d, page=16, p_tab=34, quant=False):
+    """Slots over a pool of ``p_tab`` pages each, 34-page tables of 16 as
+    the engine's: slot 0 at position 0, slot 1 with its window ending on
+    a page edge, slot 2 with its last query on the table's last cell, the
+    rest mid-table; sentinels past each window. ``quant``: int8 pools and
+    their f32 scales."""
+    b, h, kv = _any_heads(g)
+    n = b * p_tab
+    gen = torch.Generator().manual_seed(c * 131 + g * 17 + d)
+    pos = [0, 3 * page - c, p_tab * page - c, 161, 230, 299, 407, 479][:b]
+    tables = torch.full((b, p_tab), n, dtype=torch.int32)
+    perm, used = torch.randperm(n, generator=gen), 0
+    for row, p0 in enumerate(pos):
+        last = min((p0 + c - 1) // page, p_tab - 1)
+        tables[row, :last + 1] = perm[used:used + last + 1].int()
+        tables[row, last + 1:] = n + row
+        used += last + 1
+    q = _rn(dev, b, c, h, d, seed=g)
+    kc = _rn(dev, n, page, kv, d, seed=1)
+    vc = _rn(dev, n, page, kv, d, seed=2)
+    tail = (tables.to(dev), torch.tensor(pos, dtype=torch.int32, device=dev))
+    if not quant:
+        return (q, kc, vc) + tail
+    k8, ks = tquant.quantize_kv(kc.float() * 3)
+    v8, vs = tquant.quantize_kv(vc.float() * 3)
+    return (q, k8, v8, ks, vs) + tail
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", ANY_GROUPS)
+def test_decode_attention_any_group(dev, g, d):
+    """K4 at G outside {1, 2, 4, 8}, MQA with 8 slots from G = 48, G = 96
+    in two slabs of 64 rows: through the wrapper (one launch) and at
+    splits 0, 1 and 3 over a 300-cell cache (windows of one cell, of the
+    whole cache and past it); within 2e-2 of the plain version, two calls
+    bit-identical."""
+    b, h, kv = _any_heads(g)
+    s = 300
+    q, k, v = (_rn(dev, b, h, d), _rn(dev, b, s, kv, d, seed=1),
+               _rn(dev, b, s, kv, d, seed=2))
+    pos = torch.tensor([0, 63, s - 1, s, 5 * s, 100, 200, 250][:b],
+                       dtype=torch.int32, device=dev)
+    want = tfa.decode_attention_plain(q, k, v, pos)
+    kernels.reset_launch_counts()
+    got = tfa.decode_attention(q, k, v, pos)
+    sfx = "_d256" if d == 256 else ""
+    assert kernels.launch_counts()["decode_attention" + sfx] == 1
+    _close(got, want, 2e-2)
+    assert torch.equal(got[0], v[0, 0].repeat_interleave(g, 0))
+    for split in (0, 1, 3):
+        one = _dense_launch(q, k, v, pos, split)
+        _close(one, want, 2e-2)
+        assert torch.equal(_dense_launch(q, k, v, pos, split), one)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("c", [1, 5, 32])
+@pytest.mark.parametrize("g", ANY_GROUPS)
+def test_paged_decode_attention_any_group(dev, g, c, d):
+    """#8 at G outside {1, 2, 4, 8}: C·G from 3 to 3072 rows a (slot, kv
+    head), slabs that start mid-column (256 % 12, 256 % 48, 256 % 96 and
+    64 % 12 ... are not 0), several slabs x several chunks (splits 1 and
+    3 of a 34-page table) and one block a window (split 0); within 2e-2 of
+    the plain version, two calls bit-identical."""
+    args = _any_paged_case(dev, c, g, d)
+    q, kc, vc, tables, pos = args
+    want = tpa.paged_decode_attention_plain(*args)
+    got = tpa.paged_decode_attention(*args)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _close(got, want, 2e-2)
+    assert torch.equal(tpa.paged_decode_attention(*args), got)
+    st = tfa._strides(q, kc, vc, got)
+    st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
+    for split in (0, 1, 3):
+        outs = [torch.empty_like(q) for _ in range(2)]
+        for o in outs:
+            tpa._build.check(tpa._launch_tc(q, kc, vc, tables, pos, o,
+                                            kc.shape[0], 16, st, split),
+                             "split")
+        _close(outs[0], want, 2e-2)
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("c", [1, 5, 32])
+@pytest.mark.parametrize("g", ANY_GROUPS)
+def test_paged_decode_attention_int8_any_group(dev, g, c, d):
+    """#8q at G outside {1, 2, 4, 8}: slabs of 64 rows, most starting
+    mid-column, several slabs x several chunks (splits 1 and 3) and
+    unsplit; within 2e-2 of the plain version, two calls bit-identical."""
+    args = _any_paged_case(dev, c, g, d, quant=True)
+    q, k8, v8, ks, vs, tables, pos = args
+    want = tpa.paged_decode_attention_int8_plain(*args)
+    got = tpa.paged_decode_attention_int8(*args)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _close(got, want, 2e-2)
+    assert torch.equal(tpa.paged_decode_attention_int8(*args), got)
+    st = tpa.int8_strides(q, k8, v8, ks, vs, tables, got)
+    for split in (0, 1, 3):
+        outs = [torch.empty_like(q) for _ in range(2)]
+        for o in outs:
+            tpa._build.check(tpa._launch_tc(q, k8, v8, tables, pos, o,
+                                            k8.shape[0], 16, st, split,
+                                            (ks, vs)), "split")
+        _close(outs[0], want, 2e-2)
+        assert torch.equal(outs[0], outs[1])
+
+
+def test_groups_outside_1248_stay_refused_in_f32_and_the_backward(dev):
+    """The f32 instances of K4, #8 and #8q and the backward (#6 / #7, bf16
+    and f32) keep G in {1, 2, 4, 8}: at G = 12 they raise
+    ``NotImplementedError`` before any launch, and nothing falls back."""
+    q, kc, vc, tables, pos = _any_paged_case(dev, 5, 12, 64)
+    kernels.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="GQA"):
+        tpa.paged_decode_attention(q.float(), kc.float(), vc.float(),
+                                   tables, pos)
+    k8, ks = tquant.quantize_kv(kc.float())
+    v8, vs = tquant.quantize_kv(vc.float())
+    with pytest.raises(NotImplementedError, match="GQA"):
+        tpa.paged_decode_attention_int8(q.float(), k8, v8, ks, vs, tables,
+                                        pos)
+    k, v = _rf(dev, 4, 64, 2, 64, seed=1), _rf(dev, 4, 64, 2, 64, seed=2)
+    with pytest.raises(NotImplementedError, match="GQA"):
+        tfa.decode_attention(_rf(dev, 4, 24, 64), k, v, pos[:4])
+    for dt in (torch.bfloat16, torch.float32):
+        a = [t.to(dt) for t in _bwd_inputs(dev, 1, 64, 64, 24, 2, 64, True)]
+        a[4] = a[4].float()                      # lse stays f32
+        with pytest.raises(NotImplementedError, match="GQA"):
+            tfa.flash_attention_bwd(*a, True)
+    assert not any(kernels.launch_counts().values())

@@ -189,3 +189,39 @@ def test_fwd_variant_takes_one_warpgroup_at_head_dim_256(t, d, want):
     """K3 / #5 at d = 256 run one warpgroup a block at any T: two would
     need 256 KB of shared memory."""
     assert tfa.fwd_variant(t, d) == want
+
+
+@pytest.mark.parametrize("b,c,h,kv,quantized,want,slabs", [
+    (8, 32, 48, 1, False, ("wgmma", 1), 6),   # granite's paged step
+    (8, 1, 48, 1, False, ("mma", 1), 1),      # granite's decode column
+    (8, 32, 48, 1, True, ("mma", 3), 24),     # the int8 leg: slabs of 64
+    (8, 32, 96, 8, False, ("wgmma", 2), 2),   # mistral-large's step
+    (8, 1, 96, 8, False, ("mma", 1), 1),      # G = 12, one row a column
+    (8, 32, 96, 8, True, ("mma", 0), 6),      # 384 blocks fill the card
+    (8, 32, 36, 12, False, ("wgmma", 2), 1),  # G = 3: 96 of 128 rows
+])
+def test_paged_path_at_any_group(b, c, h, kv, quantized, want, slabs):
+    """#8 / #8q at GQA groups outside {1, 2, 4, 8} (granite-34b's 48,
+    mistral-large's 12; 34-page tables of 16 cells, 132 SMs): the C·G rows
+    of a (slot, kv head) in slabs of 256 (fp) or 64 (int8), each slab
+    starting where the last ended — mid-column when 256 or 64 is not a
+    multiple of G — and the chunk rule counts every slab's block."""
+    assert tpa.paged_path(b, c, h, kv, 34, 16, sms=132,
+                          quantized=quantized) == want
+    rows = tpa.slab_rows(c, h // kv, quantized)
+    assert -(-c * (h // kv) // rows) == slabs
+
+
+@pytest.mark.parametrize("b,h,kv,s,want,slabs", [
+    (4, 48, 1, 256, ("mma", 1), 1),      # granite-34b's dense decode
+    (4, 96, 8, 256, ("mma", 1), 1),      # mistral-large's
+    (4, 96, 1, 256, ("mma", 1), 2),      # G = 96: two slabs of 64 rows
+    (4, 200, 1, 4096, ("mma", 2), 4),    # G = 200: four, the last of 8
+    (288, 48, 1, 256, ("mma", 0), 1),    # 288 blocks fill the card
+])
+def test_decode_path_takes_slabs_above_64_rows(b, h, kv, s, want, slabs):
+    """K4 at any group: the G query rows of a (slot, kv head) in slabs of
+    at most 64 (one ``mma.sync`` warpgroup), a block each; the chunk rule
+    counts B·KV·slabs blocks."""
+    assert tpa.dense_slabs(h, kv) == slabs
+    assert tpa.decode_path(b, h, kv, s, sms=132) == want

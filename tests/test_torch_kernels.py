@@ -132,7 +132,9 @@ def test_flash_attention_plain_matches_pallas_and_ref(b, t, s, h, kv, d,
 
 
 @pytest.mark.parametrize("b,s,h,kv,d", [(4, 40, 8, 4, 16),
-                                         (4, 40, 2, 2, 256)])
+                                         (4, 40, 2, 2, 256),
+                                         (4, 40, 24, 2, 16),    # G = 12
+                                         (4, 40, 48, 1, 16)])   # G = 48
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_decode_attention_plain_matches_pallas_and_ref(b, s, h, kv, d, dt):
     rng = np.random.default_rng(b * 10 + s)

@@ -113,6 +113,16 @@ def test_plain_matches_pallas_and_ref_at_head_dim_256(c, heads, dt):
                                                             d=256)
 
 
+@pytest.mark.parametrize("c,heads", [(1, (24, 2)), (5, (24, 2)),
+                                     (1, (48, 1)), (5, (48, 1))])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_plain_matches_pallas_and_ref_at_any_group(c, heads, dt):
+    """GQA groups outside {1, 2, 4, 8}: G = 12 (mistral-large's) and
+    G = 48 (granite-34b's MQA), at the engine tests' tables, a decode
+    column and a 5-column chunk (C·G = 60 and 240 rows a kv head)."""
+    test_plain_matches_pallas_and_ref_at_engine_test_shapes(c, heads, dt)
+
+
 def test_wrapper_runs_the_plain_version_on_the_cpu():
     j, t = _inputs(0, 3, 4, 4, 2, 16, 12, 8, _engine_tables(12, 4),
                    [17, 9, 3], "f32")

@@ -340,6 +340,14 @@ def test_int8_paged_attention_at_head_dim_256(c, heads, dt):
                                                            d=256)
 
 
+@pytest.mark.parametrize("c,heads", [(1, (24, 2)), (5, (48, 1))])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_int8_paged_attention_at_any_group(c, heads, dt):
+    """#8q at GQA groups 12 (mistral-large's) and 48 (granite-34b's
+    MQA): the same checks as above."""
+    test_int8_paged_attention_plain_matches_pallas_and_ref(c, heads, dt)
+
+
 def test_int8_paged_attention_needs_both_scale_pools():
     q = torch.zeros((1, 1, 2, 16))
     pool = torch.zeros((2, 8, 2, 16), dtype=torch.int8)
