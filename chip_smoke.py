@@ -57,7 +57,12 @@ Phases, each printed on its own lines:
      34-page tables), within 2e-2 of their plain versions, two calls
      bit-identical, SDPA with ``enable_gqa`` as library; and K1 (M = 64)
      and K2 (M = 4) at their q / v projections (6144 -> 6144 and -> 128,
-     12288 -> 12288 and -> 1024, r = 8);
+     12288 -> 12288 and -> 1024, r = 8); and #5, #6 and #7 at their
+     training shapes, (B, T, H, KV, d) = (4, 1024, 48, 1, 128), its
+     ragged T = 1000 and (4, 1024, 96, 8, 128): dq / dk / dv within 2e-2
+     of max |plain|, lse 1e-3, two calls bit-identical, #7 timed at
+     several slab sizes of the group (``dkv_slab_heads`` picks one), SDPA's
+     bf16 backward on k / v repeated to H as library;
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -149,7 +154,8 @@ Phases, each printed on its own lines:
      steps each on one base, trainable counts equal to the paper's; (c)
      a no-grad forward of roberta-large over 4 x 1024 tokens (f32 K1 and
      K3) within 1e-4 of the plain leg's largest logit;
-  11. RoBERTa served in f32 (TF32 off): full-width roberta-large with a
+  11. RoBERTa served in f32 (TF32 off): roberta-large at full width and
+     12 of its 24 layers (``F32_SERVE_LAYERS``) with a
      4+1d MetaTT adapter on q/v (rank 8, 3 tasks) through (a) the dense
      engine (phase 3's cell: 2L K2f + L K4f a decode step, K1f / K3f at
      prefill), (b) the paged engine cold then warm (phase 4's cell: L #8f
@@ -206,10 +212,23 @@ Phases, each printed on its own lines:
      largest; tok/s, step ms, prefill ms / TTFT, kv_bytes_peak, busy
      share and peak memory a cell; each model freed before the next;
      ``[phase14]`` lines and the phase's seconds on the ``[time]`` line;
-  15. one JSON line with every kernel's record (launches per path; the
+  15. granite-34b at 16 of its 88 layers (13 GB of bf16 base) and
+     mistral-large-123b at 8 (23.8 GB) trained at full width in phase 6's
+     setting (MetaTT 4d on q/v from rank 10, AdamW, remat per block, 6
+     steps of 4 x 1024 tokens, one DMRG sweep to rank 8) through K1, #5
+     and the any-group #6 / #7 (G = 48: #7 in slabs of 6 heads merged in
+     slab order; G = 12): finite losses, moved cores, ranks 8, exactly
+     6L - 2 K1 / 2L #5 / L #6 / L #7 launches a step and nothing else;
+     median step, tokens/s, peak memory, busy share and the top device
+     operations; then phase 6's B = 1 gradient check with its f32 witness
+     (granite at 16 layers, mistral on its first 4: at 8 the witness does
+     not fit beside the base); each model freed before the next;
+     ``[phase15]`` lines and the phase's seconds on the ``[time]`` line;
+  16. one JSON line with every kernel's record (launches per path; the
      f32 and d = 256 instances under their own names with every phase-2
      row; K1, K2, #9 and #10 with their rows at gemma-7b's q / v; K1, K2,
-     K4, #8 and #8q with their rows at granite's and mistral's).
+     K4, #8, #8q, #5, #6 and #7 with their rows at granite's and
+     mistral's).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -1225,11 +1244,22 @@ def rel_max(got, want):
 
 # the first row of each head dim is its main path's: stablelm-1.6b's 32
 # heads of 64, gemma-7b's 16 heads of 256 (phase 13); T = 1000 tile edges
-# and GQA groups 4 (d = 64) and 2 (d = 256)
+# and GQA groups 4 (d = 64) and 2 (d = 256); then granite-34b's and
+# mistral-large's training shapes (phase 15, ``GQA_TRAIN_TAGS``)
 TRAIN_ATTN_SHAPES = ((4, 1024, 32, 32, 64), (4, 1000, 32, 32, 64),
                      (4, 1024, 32, 8, 64), (2, 1024, 16, 16, 128),
                      (4, 1024, 16, 16, 256), (4, 1000, 16, 16, 256),
-                     (4, 1024, 16, 8, 256))
+                     (4, 1024, 16, 8, 256), (4, 1024, 48, 1, 128),
+                     (4, 1024, 96, 8, 128), (4, 1000, 48, 1, 128))
+#: the any-group training rows of #5, #6 and #7 (``gqa_rows`` of their
+#: records): granite-34b's 48 heads over one KV head (G = 48, and a
+#: ragged T = 1000) and mistral-large's 96 over 8 (G = 12); the T = 1024
+#: rows are phase 15's shapes and are timed
+GQA_TRAIN_TAGS = {(4, 1024, 48, 1, 128): "granite",
+                  (4, 1024, 96, 8, 128): "mistral",
+                  (4, 1000, 48, 1, 128): "granite"}
+GQA_TRAIN = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
 TRAIN_LINEAR_SHAPE = (4096, 2048, 2048, 8)   # M = B x T, K, N, r
 
 
@@ -1251,11 +1281,13 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
     its main path's, d = 256 rows under the ``_d256`` names): out within
     2e-2 abs+rel, lse within 1e-3 abs, each of dq, dk, dv within 2e-2 of
     the largest plain gradient (the JAX package's bf16 gradient limit,
-    tests/test_grads.py); at each main shape two backward calls give the
-    same dq, dk and dv bit for bit (the passes use no atomics). Timed
-    shapes print each attention kernel's TFLOP/s and share of its bound,
-    and (#6 + #7) over SDPA's autograd backward (the backend it picked
-    named from its kernels)."""
+    tests/test_grads.py); at each main shape and each any-group shape
+    (``GQA_TRAIN_TAGS``) two backward calls give the same dq, dk and dv
+    bit for bit (no float atomics; #7's slabs merge in a fixed order).
+    Timed shapes print each attention kernel's TFLOP/s and share of its
+    bound, and (#6 + #7) over SDPA's autograd backward (the backend it
+    picked named from its kernels); the any-group ones also #7 at several
+    slab sizes (``dkv_slab_heads`` picks one)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1274,6 +1306,7 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
         firsts.setdefault(sh_[4], sh_)
     for b_, t, h, kvh, d in attn_shapes:
         main = (b_, t, h, kvh, d) == firsts[d] and d != 128
+        tag = GQA_TRAIN_TAGS.get((b_, t, h, kvh, d))
         sfx = "_d256" if d == 256 else ""
         shape = f"B={b_} T=S={t} H={h} KV={kvh} d={d} causal"
         q, k, v = rn(b_, t, h, d), rn(b_, t, kvh, d), rn(b_, t, kvh, d)
@@ -1296,7 +1329,7 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                                      f"2e-2 at {shape}")
         abs_err = {n: float((x.float() - y.float()).abs().max())
                    for n, x, y in zip(("dq", "dk", "dv"), got, want)}
-        if main:
+        if main or tag:
             again = fa.flash_attention_bwd(q, k, v, o, lse, g, True)
             torch.cuda.synchronize()
             for name, x, y in zip(("dq", "dk", "dv"), got, again):
@@ -1311,7 +1344,8 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
         lib = [x.detach().transpose(1, 2) for x in
                (q, k.repeat_interleave(g_, 2), v.repeat_interleave(g_, 2))]
         timed = {}
-        if main or (t != attn_shapes[0][1] and d == 64):
+        if main or (t != attn_shapes[0][1] and d == 64) or (
+                tag and t == 1024):
             # the forward's device time in a CUDA-graph replay (its eager
             # launches would time the host at this speed)
             timed["fwd_ms"] = cuda_time_ms(
@@ -1331,6 +1365,18 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
             _, delta = fa._launch_bwd_dq(q, k, v, o, lse, g, True)
             timed["dkv_ms"] = event_time_ms(
                 lambda: fa._launch_bwd_dkv(q, k, v, g, lse, delta, True), ())
+            if tag:   # #7 at several slab sizes, the unsplit pass first
+                g_ = h // kvh
+                timed["slab_heads"] = fa.dkv_slab_heads(
+                    b_, t, kvh, g_, d, torch.cuda.get_device_properties(
+                        dev).multi_processor_count)
+                timed["dkv_variants"] = {
+                    f"heads={x}": event_time_ms(
+                        lambda x=x: fa._launch_bwd_dkv(
+                            q, k, v, g, lse, delta, True, x), ())
+                    for x in sorted({g_, timed["slab_heads"]} | {
+                        g_ // n for n in (2, 4, 6, 8, 12)
+                        if g_ % n == 0}, reverse=True)}
             timed["bwd_plain_ms"] = event_time_ms(
                 lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, g,
                                                      True), ())
@@ -1367,14 +1413,19 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                 bound_by=bnd[1]))
             if "bwd" in name and timed:
                 rows[-1]["library"] = timed["bwd_lib"]
+            if tag:
+                rows[-1]["tag"] = tag
+            if name.endswith("dkv") and "dkv_variants" in timed:
+                rows[-1].update(slab_heads=timed["slab_heads"],
+                                variants=timed["dkv_variants"])
             if name == "flash_attention_fwd" and timed:
                 rows[-1].update(variant=fa.fwd_variant(t, d),
                                 variants=timed["fwd_variants"])
         print(f"[train-kernel] {shape}: out err {err:.3e}, lse err "
               f"{lse_err:.3e}, dq/dk/dv rel err {errs['dq']:.3e} / "
               f"{errs['dk']:.3e} / {errs['dv']:.3e} of max |plain|"
-              + ("; two backward calls bit-identical" if main else ""),
-              flush=True)
+              + ("; two backward calls bit-identical" if main or tag
+                 else ""), flush=True)
         if timed:
             rate = ", ".join(
                 f"{label} {ms_:.4f} ms = {flops[key] / ms_ / 1e9:.1f} "
@@ -1393,6 +1444,12 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                   f"{fa.fwd_variant(t, d)}: " + ", ".join(
                       f"{v_} {ms_:.4f} ms" for v_, ms_ in
                       timed["fwd_variants"].items()), flush=True)
+        if "dkv_variants" in timed:
+            print(f"[train-kernel] {shape}: #7 ran "
+                  f"{-(-(h // kvh) // timed['slab_heads'])} slabs of "
+                  f"{timed['slab_heads']} heads: " + ", ".join(
+                      f"{v_} {ms_:.4f} ms" for v_, ms_ in
+                      timed["dkv_variants"].items()), flush=True)
         del q, k, v, g, o, lse, po, plse, got, want, lib
         torch.cuda.empty_cache()
     if linear_shape is None:   # the attention rows alone
@@ -4148,6 +4205,9 @@ SERVED_RATIO = 0.25
 #: (e)'s depth: roberta-large's widths at 12 of its 24 layers (the
 #: int8-weight cells cost 66 s at 24; phase 14 needed the time)
 W8_LAYERS = 12
+#: (a)-(d)'s depth, the same cut: at 24 layers they took 72.0-124.6 s,
+#: the script 555-886 s on H100s whose hosts ran at different speeds
+F32_SERVE_LAYERS = 12
 
 
 def roberta_serving_model(dev, layers=None):
@@ -4585,7 +4645,7 @@ def phase_eleven(dev):
         return n
     f32_precision_checked()
     t = [time.perf_counter()]
-    model = roberta_serving_model(dev)
+    model = roberta_serving_model(dev, F32_SERVE_LAYERS)
     dense = roberta_dense_serving(dev, model, count)
     t.append(time.perf_counter())
     fp_peak, paged = roberta_paged_serving(dev, model, count, None)
@@ -5062,27 +5122,48 @@ def phase_twelve(dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_thirteen(dev):
-    """Phase 13: the port's Trainer on full-width gemma-7b in phase 6's
-    setting — MetaTT 4d on q/v from rank 10, AdamW lr 1e-3, remat per
-    block, LMStream batches of 4 x 1024 tokens, 6 steps of 3 per epoch
-    with one DMRG sweep to rank 8 after step 3: finite losses, moved
-    cores, ranks 8 after the sweep, exactly 6L - 2 K1, 2L #5d, L #6d and
-    L #7d launches a step and nothing else; the median step, tokens/s,
-    peak memory and busy share; then, with the trainer freed, the B = 1
-    gradient check against the plain bf16 leg with an f32 plain leg as
-    witness (its base alone is 34.2 GB), with its peak memory."""
+def bf16_train_per_step(cfg):
+    """bf16 launches a training step (remat per block), as
+    ``f32_train_per_step``: 6L - 2 K1, 2L #5, L #6 and L #7 (the attention
+    kernels under ``_d256`` at head_dim 256)."""
+    n = cfg.num_layers
+    sfx = "_d256" if cfg.resolved_head_dim == 256 else ""
+    return {"tt_linear": 6 * n - 2, "flash_attention_fwd" + sfx: 2 * n,
+            "flash_attention_bwd_dq" + sfx: n,
+            "flash_attention_bwd_dkv" + sfx: n}
+
+
+def first_layers(base, cfg, layers):
+    """``cfg`` cut to its first ``layers`` layers and the base's stacked
+    leaves sliced to them (views: no copy)."""
+    from repro_torch.tree import tree_map
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    nb = cut.num_super_blocks
+    return cut, dict(base, blocks=[tree_map(lambda t: t[:nb], blk)
+                                   for blk in base["blocks"]])
+
+
+def train_full_width(dev, cfg, tag, grad_layers=None):
+    """Phase 6's setting on full-width ``cfg`` at its depth — MetaTT 4d on
+    q/v from rank 10, AdamW lr 1e-3, remat per block, LMStream batches of
+    4 x 1024 tokens, 6 steps of 3 per epoch with one DMRG sweep to rank 8
+    after step 3: finite losses, moved cores, ranks 8 after the sweep,
+    exactly ``bf16_train_per_step`` launches a step and nothing else; the
+    median step, tokens/s, peak memory and busy share, and the top device
+    operations over one more step; then, with the trainer freed, the
+    B = 1 gradient check against the plain bf16 leg with an f32 plain leg
+    as witness, on the first ``grad_layers`` layers of the same base
+    (default all), with its peak memory. Returns the 6 steps' launches."""
     import torch
-    from repro_torch import configs
     from repro_torch import kernels as K
     from repro_torch.config.base import OptimizerConfig, RunConfig, \
         TrainConfig
     from repro_torch.core import tt as ttlib
     from repro_torch.core.dmrg import RankSchedule
     from repro_torch.data import LMStream
+    from repro_torch.models import model as M
     from repro_torch.train import Trainer
 
-    cfg = configs.get_config(GEMMA)
     L = cfg.num_layers
     run = RunConfig(model=cfg, adapter_kind="metatt", adapter_variant="4d",
                     adapter_rank=10, optimizer=OptimizerConfig(lr=1e-3),
@@ -5096,15 +5177,17 @@ def phase_thirteen(dev):
                                                    every=1, step=2),
                  device=dev,
                  on_metrics=lambda s_, m: print(
-                     f"[phase13] step {s_} loss {m['loss']:.6f} grad_norm "
+                     f"[{tag}] step {s_} loss {m['loss']:.6f} grad_norm "
                      f"{m['grad_norm']:.4e} lr {m['lr']:.3e} "
                      f"{1e3 * m['step_time_s']:.1f} ms", flush=True))
     torch.cuda.synchronize()
-    print(f"[phase13] gemma-7b ({L} x {cfg.d_model}, {cfg.num_heads} heads "
-          f"of {cfg.resolved_head_dim}, {cfg.param_dtype}) "
-          f"MetaTT 4d q/v rank {ttlib.ranks(tr.state.adapter['cores'])}, "
-          f"remat per block, B={batch} T={seq}: init "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    nbytes = sum(t.numel() * t.element_size() for t in M.tensors(tr.base))
+    print(f"[{tag}] {cfg.name} ({L} x {cfg.d_model}, {cfg.num_heads} heads "
+          f"of {cfg.resolved_head_dim} over {cfg.num_kv_heads}, "
+          f"{cfg.param_dtype}; {nbytes / 1e9:.3f} GB of base) MetaTT 4d "
+          f"q/v rank {ttlib.ranks(tr.state.adapter['cores'])}, remat per "
+          f"block, B={batch} T={seq}: init {time.perf_counter() - t0:.1f}s",
+          flush=True)
     before = float(ttlib.tt_norm(tr.state.adapter["cores"]))
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
@@ -5115,49 +5198,61 @@ def phase_thirteen(dev):
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     losses = tr.losses()
     if not np.isfinite(losses).all():
-        raise AssertionError(f"phase 13: non-finite loss {losses}")
+        raise AssertionError(f"{tag} {cfg.name}: non-finite loss {losses}")
     ranks = ttlib.ranks(tr.state.adapter["cores"])
     if ranks != (8, 8, 8) or tr._dmrg_applied != [1]:
-        raise AssertionError(f"phase 13: ranks after the sweep {ranks}, "
-                             f"sweeps at epochs {tr._dmrg_applied}")
+        raise AssertionError(f"{tag} {cfg.name}: ranks after the sweep "
+                             f"{ranks}, sweeps at epochs {tr._dmrg_applied}")
     after = float(ttlib.tt_norm(tr.state.adapter["cores"]))
     if not (before == 0.0 and after > 0.0):
-        raise AssertionError(f"phase 13: the adapter did not move: ||ΔW|| "
-                             f"{before} -> {after}")
-    per_step = {"tt_linear": 6 * L - 2, "flash_attention_fwd_d256": 2 * L,
-                "flash_attention_bwd_dq_d256": L,
-                "flash_attention_bwd_dkv_d256": L}
+        raise AssertionError(f"{tag} {cfg.name}: the adapter did not move: "
+                             f"||ΔW|| {before} -> {after}")
+    per_step = bf16_train_per_step(cfg)
     check_launches(launches, {k_: v * steps for k_, v in per_step.items()},
-                   "phase 13")
+                   f"{tag} {cfg.name}")
     step_ms = [1e3 * m["step_time_s"] for _, m in tr.history[1:]]
     med = float(np.median(step_ms))
-    print(f"[phase13] launches during train ({steps} steps): "
+    print(f"[{tag}] {cfg.name} launches during train ({steps} steps): "
           f"{json.dumps({k_: v for k_, v in launches.items() if v})} = "
           + ", ".join(f"{k_} {v} a step" for k_, v in per_step.items())
           + "; nothing else", flush=True)
-    print(f"[phase13] losses {[round(float(x), 6) for x in losses]}; median "
-          f"step {med:.1f} ms after step 1 (steps "
-          f"{[round(x, 1) for x in step_ms]}); "
+    print(f"[{tag}] {cfg.name} losses "
+          f"{[round(float(x), 6) for x in losses]}; median step {med:.1f} ms "
+          f"after step 1 (steps {[round(x, 1) for x in step_ms]}); "
           f"{batch * seq / (med / 1e3):.1f} tokens/s; max_memory_allocated "
           f"{peak:.3f} GB; ranks {ranks}; ||ΔW|| {before:.3e} -> "
           f"{after:.3e}", flush=True)
     # one more step (past total_steps: lr 0) under the profiler
-    device_share("phase 13: one gemma-7b training step",
+    device_share(f"{tag}: one {cfg.name} training step at {L} layers",
                  lambda: tr.train(steps + 1), top_n=12,
                  show=("flash_bwd", "flash_fwd", "tt_linear"))
     tokens = torch.as_tensor(next(data)["tokens"][:1], device=dev)
-    spec, base = tr.spec, tr.base
+    base = tr.base
     del tr
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    grad_check(cfg, spec, base, torch.Generator(device=dev).manual_seed(
-        SEED + 2), tokens, dev, tag="phase13")
-    print(f"[phase13] gradient check max_memory_allocated "
+    gcfg, gbase = cfg, base
+    if grad_layers is not None and grad_layers < L:
+        gcfg, gbase = first_layers(base, cfg, grad_layers)
+    spec = M.build_adapter_spec(dataclasses.replace(run, model=gcfg))
+    grad_check(gcfg, spec, gbase, torch.Generator(device=dev).manual_seed(
+        SEED + 2), tokens, dev, tag=tag)
+    print(f"[{tag}] {cfg.name} gradient check at {gcfg.num_layers} layers: "
+          f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB (the bf16 "
           f"base, its f32 witness and the three legs)", flush=True)
-    del base
+    del base, gbase
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_thirteen(dev):
+    """Phase 13: the port's Trainer on full-width gemma-7b in phase 6's
+    setting (``train_full_width``): exactly 6L - 2 K1, 2L #5d, L #6d and
+    L #7d launches a step and nothing else; the gradient check's f32
+    witness has a base of 34.2 GB alone: the trainer is freed first."""
+    from repro_torch import configs
+    return train_full_width(dev, configs.get_config(GEMMA), "phase13")
 
 
 # ---------------------------------------------------------------------------
@@ -5281,6 +5376,54 @@ def phase_fourteen(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: granite-34b (MQA, G = 48) and mistral-large-123b (G = 12)
+# trained at full width through the any-group #6 and #7
+# ---------------------------------------------------------------------------
+
+#: phase 15's depths of 88: (training, gradient check). granite at 16
+#: layers holds 13 GB of bf16 base, mistral at 8 holds 23.8 GB; mistral's
+#: gradient check runs on the first 4 of its 8: at 8 its f32 witness
+#: (47.6 GB) beside the bf16 base and the three legs does not fit 80 GB
+GQA_TRAIN_DEPTHS = {GRANITE: (16, 16), MISTRAL: (8, 4)}
+
+
+def phase_fifteen(dev):
+    """Phase 15: the port's Trainer on granite-34b (6144, 48 heads of 128
+    over one KV head: MQA, G = 48; gelu 24576) and mistral-large-123b
+    (12288, 96 heads of 128 over 8: G = 12; SwiGLU 28672) at full width,
+    cut in depth to ``GQA_TRAIN_DEPTHS``, in phase 6's setting
+    (``train_full_width``): 6L - 2 K1, 2L #5, L #6 and L #7 launches a step
+    and nothing else, #7 in slabs of the group where the unsplit grid
+    would leave the SMs short (``dkv_slab_heads``: granite); finite,
+    moving losses, ranks 8 after the sweep; step ms, tokens/s, peak
+    memory, busy share, the top device operations; then the B = 1
+    gradient check with its f32 witness. Each model is built from the
+    seed and freed before the next."""
+    import torch
+    from repro_torch import configs
+    total, secs = {}, {}
+    for arch, (layers, grad_layers) in GQA_TRAIN_DEPTHS.items():
+        # earlier phases' objects in reference cycles keep their tensors
+        # until a collection
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[phase15] {arch}: "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated "
+              "before the build", flush=True)
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers)
+        n = train_full_width(dev, cfg, "phase15", grad_layers)
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        secs[arch] = time.perf_counter() - t0
+    print(f"[phase15] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}; "
+          + ", ".join(f"{k_} {v:.1f} s" for k_, v in secs.items()),
+          flush=True)
+    return total
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -5334,6 +5477,8 @@ def main(argv) -> int:
         if set(only) & set(D256_TRAIN):
             phase_train_kernels(dev, [s_ for s_ in TRAIN_ATTN_SHAPES
                                       if s_[4] == 256], None)
+        if set(only) & set(GQA_TRAIN):
+            phase_train_kernels(dev, list(GQA_TRAIN_TAGS), None)
         return 0
     rows = (phase_kernels(dev) + phase_train_kernels(dev)
             + phase_f32_kernels(dev))
@@ -5358,11 +5503,13 @@ def main(argv) -> int:
     paths["phase13"] = phase_thirteen(dev)
     t14 = time.perf_counter()
     paths["phase14"] = phase_fourteen(dev)
+    t15 = time.perf_counter()
+    paths["phase15"] = phase_fifteen(dev)
     print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 {t10 - t9:.1f} s; "
           f"phase 10 {t11 - t10:.1f} s; phase 11 {t12 - t11:.1f} s; phase "
           f"12 {t13 - t12:.1f} s; phase 13 {t14 - t13:.1f} s; phase 14 "
-          f"{time.perf_counter() - t14:.1f} s; the script "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{t15 - t14:.1f} s; phase 15 {time.perf_counter() - t15:.1f} s; "
+          f"the script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []
     for name, (src, replaces) in KERNELS.items():
@@ -5393,9 +5540,10 @@ def main(argv) -> int:
                  if r.get("tag") == "gemma"]
         if gemma:        # K1, K2, #9, #10 at gemma-7b's q / v, phase 2
             rec["gemma_rows"] = gemma
-        gqa = [{k: r[k] for k in keys + ("tag", "variant", "library")
+        gqa = [{k: r[k] for k in keys + ("tag", "variant", "variants",
+                                         "slab_heads", "library")
                 if k in r} for r in mine if r.get("tag") in GQA_MODELS]
-        if gqa:          # K1, K2, K4, #8, #8q at granite's / mistral's
+        if gqa:          # K1, K2, K4, #8, #8q, #5-#7 at granite's / mistral's
             rec["gqa_rows"] = gqa
         ranks = [{k: r[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",

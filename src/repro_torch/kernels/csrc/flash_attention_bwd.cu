@@ -16,8 +16,9 @@
 // so no (T, S) tensor exists in device memory. As in the TPU kernels, p
 // and ds are rounded to bf16 before the products that consume them;
 // keys ≥ S and query rows ≥ T are masked, causal masks ki > qi. There are
-// no atomics: each output element has one owner, and the result is the
-// same bit for bit from call to call.
+// no float atomics: each output element has one owner (the slab merge
+// below adds in a fixed order), and the result is the same bit for bit
+// from call to call.
 //
 // What bounds them on an H100: the two passes do seven products of 2·d
 // flops per (query, key) pair — three in the dq pass (s, dp, dq), four in
@@ -57,6 +58,20 @@
 // and turns Sᵀ and dPᵀ into P and dSᵀ in place. At d = 256 (gemma-7b)
 // dk and dv need 256 registers a thread together: that pass runs two
 // warpgroups a block, one owning each (flash_bwd_dkv_wg2_kernel below).
+//
+// Any GQA group (bf16). The dq pass reads KV head h / G; the dk/dv pass
+// walks its group's G heads in one block. Where the (kv head, batch, key
+// tile) blocks leave the SMs short — MQA: granite-34b's 48 heads over one
+// KV head make 64 blocks at 4 x 1024 tokens, each walking 48 x 32 query
+// tiles — the group is cut into slabs of heads on the grid's x dimension
+// (blockIdx.x = kv head x slabs + slab). Each slab's block writes its f32
+// dk/dv sums to a workspace and takes a ticket from an integer counter of
+// its (batch, kv head, key tile); the last to arrive adds the slabs in
+// slab order — a fixed f32 order, so two calls are bit-identical with no
+// float atomics — resets the counter, and rounds to bf16 once, as #8's
+// chunk merge does (csrc/paged_attention.cu). The wrapper picks the slab
+// size (flash_attention.py::dkv_slab_heads); one slab is the unsplit pass.
+// The f32 instances keep G in {1, 2, 4, 8}.
 //
 // The C functions return cudaGetLastError() of the launch.
 
@@ -283,21 +298,108 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// ------------------------------------------------- slabs of a GQA group
+//
+// A dk/dv block's slab: blockIdx.x = kv head x nslab + slab, where slab s
+// holds heads [s·hs, min((s + 1)·hs, G)) of the group. The unsplit
+// instance (SLABS false) has one slab of all G, blockIdx.x = kv head.
+struct Slab {
+  int kvh, slab, nslab, h0, nh;
+};
+
+template <bool SLABS>
+__device__ __forceinline__ Slab slab_of(int H, int KV, int hs) {
+  const int grp = H / KV;
+  Slab s;
+  if (!SLABS) {
+    s.kvh = blockIdx.x;
+    s.slab = 0;
+    s.nslab = 1;
+    s.h0 = s.kvh * grp;
+    s.nh = grp;
+    return s;
+  }
+  s.nslab = gridDim.x / KV;
+  s.kvh = blockIdx.x / s.nslab;
+  s.slab = blockIdx.x - s.kvh * s.nslab;
+  s.h0 = s.kvh * grp + s.slab * hs;
+  s.nh = min(hs, grp - s.slab * hs);
+  return s;
+}
+
+// N f32 sums a thread, NT threads, out to one slab's slot of the
+// workspace: float4 i of thread t at i·NT + t
+template <int N, int NT>
+__device__ __forceinline__ void ws_put(float4* dst, const float (&a)[N],
+                                       int tid) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i)
+    dst[i * NT + tid] =
+        make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+}
+
+// The last slab's block: one of dk / dv (D columns) from the workspace,
+// the nslab slots (``stride`` float4s apart) added in slab order, rounded
+// to bf16 once. Float4 i of a thread holds its accumulator entries
+// 4i..4i + 3: columns 8i + ca, + 1 of its rows key0 and key1, as the
+// unsplit epilogue stores them. A loop over i, not unrolled: the
+// accumulators are dead here, and the merge keeps few registers.
+template <int D, int NT>
+__device__ __noinline__ void store_merged(const float4* part, int stride,
+                                          int nslab, int tid, int ca,
+                                          int key0, int key1, int S,
+                                          bf16* out, long long rs) {
+#pragma unroll 1
+  for (int i = 0; i < D / 8; ++i) {
+    float4 a = __ldcg(part + i * NT + tid);
+    for (int s = 1; s < nslab; ++s) {
+      const float4 t = __ldcg(part + s * stride + i * NT + tid);
+      a.x += t.x;
+      a.y += t.y;
+      a.z += t.z;
+      a.w += t.w;
+    }
+    if (key0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + key0 * rs + 8 * i + ca) =
+          __floats2bfloat162_rn(a.x, a.y);
+    if (key1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + key1 * rs + 8 * i + ca) =
+          __floats2bfloat162_rn(a.z, a.w);
+  }
+}
+
+// after this block's ws_put: true in every thread of the last of n blocks
+// of counter id to arrive (which resets it for the next launch)
+__device__ __forceinline__ bool last_to_arrive(int* cnt, int id, int n) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(cnt + id, 1) == n - 1;
+    if (last) cnt[id] = 0;
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  return true;
+}
+
 // ----------------------------------------------------------- dk/dv pass
 //
-// One warpgroup a block, per (key tile of 64, kv head, batch); k and v of
-// the tile stay in shared memory. For each of the G query heads of the
-// group, the q, dO, lse and D tiles of BN queries stream through the
-// ring, from the causal diagonal on.
+// One warpgroup a block, per (key tile of 64, kv head or slab of its
+// group, batch); k and v of the tile stay in shared memory. For each of
+// the slab's query heads, the q, dO, lse and D tiles of BN queries stream
+// through the ring, from the causal diagonal on.
 
-template <int D, int BN>
+template <int D, int BN, bool SLABS>
 __global__ void __launch_bounds__(WG, 2)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int T, int S, int H, int KV,
-                     int causal, float scale, const Strides sd) {
+                     int causal, float scale, const Strides sd, int hs,
+                     float* __restrict__ ws, int* __restrict__ cnt) {
   using L = DkvSmem<D, BN>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -305,16 +407,16 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const unsigned char* smem = smem_raw + (base - raw);
 
   const int tid = threadIdx.x;
-  const int kvh = blockIdx.x, bb = blockIdx.y;
+  const Slab sl = slab_of<SLABS>(H, KV, hs);
+  const int kvh = sl.kvh, bb = blockIdx.y;
   const int k0 = blockIdx.z * BM;   // key tile 0, the longest, first
-  const int grp = H / KV;
 
-  // work items (group head, query tile), query tiles from the first one
+  // work items (slab head, query tile), query tiles from the first one
   // that reaches this block's keys
   const int nq = (T + BN - 1) / BN;
   const int i0 = causal ? min(k0 / BN, nq) : 0;
   const int per_head = nq - i0;
-  const int n_items = grp * per_head;
+  const int n_items = sl.nh * per_head;
 
   // element strides: q, k, v, g, dk, dv — (batch, row, head) each
   load_tile<BM, D>(base + L::K, k + bb * sd.s[3] + kvh * sd.s[5], sd.s[4],
@@ -323,7 +425,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    k0, S, tid);
   auto issue = [&](int it) {
     const int st = it % DKV_STAGES;
-    const int h = kvh * grp + it / per_head;
+    const int h = sl.h0 + it / per_head;
     const int q0 = (i0 + it % per_head) * BN;
     load_tile<BN, D>(base + L::Q + st * L::STR,
                      q + bb * sd.s[0] + h * sd.s[2], sd.s[1], q0, T, tid);
@@ -415,6 +517,20 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   bf16* odk = dk + bb * sd.s[12] + kvh * sd.s[14];
   bf16* odv = dv + bb * sd.s[15] + kvh * sd.s[17];
+  if (SLABS) {   // the group's slabs, added in slab order
+    constexpr int PER = D / 8 * WG;   // float4s of one accumulator
+    const int id = (bb * KV + kvh) * gridDim.z + blockIdx.z;
+    float4* part = reinterpret_cast<float4*>(ws) +
+                   static_cast<long long>(id) * sl.nslab * 2 * PER;
+    ws_put<D / 2, WG>(part + sl.slab * 2 * PER, dka, tid);
+    ws_put<D / 2, WG>(part + sl.slab * 2 * PER + PER, dva, tid);
+    if (!last_to_arrive(cnt, id, sl.nslab)) return;
+    store_merged<D, WG>(part, 2 * PER, sl.nslab, tid, ca, key[0], key[1],
+                        S, odk, sd.s[13]);
+    store_merged<D, WG>(part + PER, 2 * PER, sl.nslab, tid, ca, key[0],
+                        key[1], S, odv, sd.s[16]);
+    return;
+  }
 #pragma unroll
   for (int c = 0; c < D / 8; ++c)
 #pragma unroll
@@ -457,7 +573,7 @@ struct Dkv2Smem : DkvSmem<D, BN> {
   static_assert(TOTAL + 1024 <= 227 * 1024, "fits in a block");
 };
 
-template <int D, int BN>
+template <int D, int BN, bool SLABS>
 __global__ void __launch_bounds__(2 * WG, 1)
 flash_bwd_dkv_wg2_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -467,7 +583,8 @@ flash_bwd_dkv_wg2_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
                          int S, int H, int KV, int causal, float scale,
-                         const Strides sd) {
+                         const Strides sd, int hs, float* __restrict__ ws,
+                         int* __restrict__ cnt) {
   using L = Dkv2Smem<D, BN>;
   constexpr int NT = 2 * WG;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -477,13 +594,13 @@ flash_bwd_dkv_wg2_kernel(const bf16* __restrict__ q,
   float* px = reinterpret_cast<float*>(smem + L::PX);
 
   const int tid = threadIdx.x, wg = tid / WG, wt = tid % WG;
-  const int kvh = blockIdx.x, bb = blockIdx.y;
+  const Slab sl = slab_of<SLABS>(H, KV, hs);
+  const int kvh = sl.kvh, bb = blockIdx.y;
   const int k0 = blockIdx.z * BM;   // key tile 0, the longest, first
-  const int grp = H / KV;
   const int nq = (T + BN - 1) / BN;
   const int i0 = causal ? min(k0 / BN, nq) : 0;
   const int per_head = nq - i0;
-  const int n_items = grp * per_head;
+  const int n_items = sl.nh * per_head;
 
   // element strides: q, k, v, g, dk, dv — (batch, row, head) each
   load_tile<BM, D, NT>(base + L::K, k + bb * sd.s[3] + kvh * sd.s[5],
@@ -492,7 +609,7 @@ flash_bwd_dkv_wg2_kernel(const bf16* __restrict__ q,
                        sd.s[7], k0, S, tid);
   auto issue = [&](int it) {
     const int st = it % DKV_STAGES;
-    const int h = kvh * grp + it / per_head;
+    const int h = sl.h0 + it / per_head;
     const int q0 = (i0 + it % per_head) * BN;
     load_tile<BN, D, NT>(base + L::Q + st * L::STR,
                          q + bb * sd.s[0] + h * sd.s[2], sd.s[1], q0, T, tid);
@@ -591,6 +708,17 @@ flash_bwd_dkv_wg2_kernel(const bf16* __restrict__ q,
   bf16* out = wg ? dv + bb * sd.s[15] + kvh * sd.s[17]
                  : dk + bb * sd.s[12] + kvh * sd.s[14];
   const long long rs = wg ? sd.s[16] : sd.s[13];
+  if (SLABS) {   // the group's slabs, added in slab order
+    constexpr int PER = D / 8 * NT;   // float4s of the block's dk and dv
+    const int id = (bb * KV + kvh) * gridDim.z + blockIdx.z;
+    float4* part = reinterpret_cast<float4*>(ws) +
+                   static_cast<long long>(id) * sl.nslab * PER;
+    ws_put<D / 2, NT>(part + sl.slab * PER, acc, tid);
+    if (!last_to_arrive(cnt, id, sl.nslab)) return;
+    store_merged<D, NT>(part, PER, sl.nslab, tid, ca, key[0], key[1], S,
+                        out, rs);
+    return;
+  }
 #pragma unroll
   for (int c = 0; c < D / 8; ++c)
 #pragma unroll
@@ -632,13 +760,21 @@ constexpr int dkv_bn() {
   return D == 64 ? 128 : D == 128 ? 32 : 64;
 }
 
+// hs heads a slab of each GQA group: nslab = ⌈G / hs⌉ blocks a (kv head,
+// batch, key tile); above one slab ws holds B·KV·⌈S/64⌉·nslab·128·D f32
+// and cnt B·KV·⌈S/64⌉ zeroed int counters (left at zero)
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int T, int S, int H, int KV, int causal, const Strides& st,
-               void* stream) {
+               int hs, void* ws, void* cnt, void* stream) {
   constexpr int BN = dkv_bn<D>();
-  const dim3 grid(KV, B, (S + BM - 1) / BM);
+  const int grp = H / KV;
+  if (hs < 1 || hs > grp) hs = grp;
+  const int nslab = (grp + hs - 1) / hs;
+  if (nslab > 1 && (ws == nullptr || cnt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(KV * nslab, B, (S + BM - 1) / BM);
   auto launch = [&](auto kern, int threads, int smem, bool* done) {
     cudaError_t e = allow_smem(kern, smem, done);
     if (e != cudaSuccess) return (int)e;
@@ -647,16 +783,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
         static_cast<const bf16*>(v), static_cast<const bf16*>(g),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, S, H, KV, causal,
-        1.0f / sqrtf((float)D), st);
+        1.0f / sqrtf((float)D), st, hs, static_cast<float*>(ws),
+        static_cast<int*>(cnt));
     return (int)cudaGetLastError();
   };
-  static bool done = false;
-  if constexpr (D == 256)   // two warpgroups: dk and dv apart
-    return launch(flash_bwd_dkv_wg2_kernel<D, BN>, 2 * WG,
-                  Dkv2Smem<D, BN>::TOTAL + 1024, &done);
-  else
-    return launch(flash_bwd_dkv_kernel<D, BN>, WG,
-                  DkvSmem<D, BN>::TOTAL + 1024, &done);
+  static bool done[2] = {false, false};
+  if constexpr (D == 256) {   // two warpgroups: dk and dv apart
+    constexpr int smem = Dkv2Smem<D, BN>::TOTAL + 1024;
+    return nslab > 1
+               ? launch(flash_bwd_dkv_wg2_kernel<D, BN, true>, 2 * WG, smem,
+                        &done[1])
+               : launch(flash_bwd_dkv_wg2_kernel<D, BN, false>, 2 * WG, smem,
+                        &done[0]);
+  } else {
+    constexpr int smem = DkvSmem<D, BN>::TOTAL + 1024;
+    return nslab > 1
+               ? launch(flash_bwd_dkv_kernel<D, BN, true>, WG, smem, &done[1])
+               : launch(flash_bwd_dkv_kernel<D, BN, false>, WG, smem,
+                        &done[0]);
+  }
 }
 
 // ------------------------------------------------ backward in f32 (FFMA)
@@ -928,10 +1073,14 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// any GQA group (bf16); the f32 instances add group_f32
 bool shape_ok(int B, int T, int S, int H, int KV) {
   if (B < 1 || T < 1 || S < 1 || KV < 1 || H % KV != 0) return false;
-  if (B > 65535 || (T + BM - 1) / BM > 65535 || (S + BM - 1) / BM > 65535)
-    return false;
+  return B <= 65535 && (T + BM - 1) / BM <= 65535 &&
+         (S + BM - 1) / BM <= 65535;
+}
+
+bool group_f32(int H, int KV) {
   const int grp = H / KV;
   return grp == 1 || grp == 2 || grp == 4 || grp == 8;
 }
@@ -970,34 +1119,38 @@ int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
 }
 
 // dk, dv (B, S, KV, d) bf16, the GQA group summed in f32. strides: 18
-// element strides (q, k, v, g, dk, dv: batch, row, head each).
+// element strides (q, k, v, g, dk, dv: batch, row, head each). hs: heads
+// a slab of each group (hs >= G: one block sums the whole group); above
+// one slab, ws and cnt as launch_dkv says.
 int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dk, void* dv, int B,
                                  int T, int S, int H, int KV, int d,
-                                 int causal, const long long* strides,
-                                 void* stream) {
+                                 int causal, const long long* strides, int hs,
+                                 void* ws, void* cnt, void* stream) {
   if (!shape_ok(B, T, S, H, KV)) return (int)cudaErrorInvalidValue;
   if (d == 64)
     return launch_dkv<64>(q, k, v, g, lse, delta, dk, dv, B, T, S, H, KV,
-                          causal, to_strides(strides), stream);
+                          causal, to_strides(strides), hs, ws, cnt, stream);
   if (d == 128)
     return launch_dkv<128>(q, k, v, g, lse, delta, dk, dv, B, T, S, H, KV,
-                           causal, to_strides(strides), stream);
+                           causal, to_strides(strides), hs, ws, cnt, stream);
   if (d == 256)
     return launch_dkv<256>(q, k, v, g, lse, delta, dk, dv, B, T, S, H, KV,
-                           causal, to_strides(strides), stream);
+                           causal, to_strides(strides), hs, ws, cnt, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // The f32 instances: the same arguments with q, k, v, o, g, dq, dk, dv in
-// f32 (strides multiples of 4 elements, 16-byte aligned bases); d = 64.
+// f32 (strides multiples of 4 elements, 16-byte aligned bases); d = 64,
+// G in {1, 2, 4, 8}.
 int flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
                                const void* o, const void* g, const void* lse,
                                void* delta, void* dq, int B, int T, int S,
                                int H, int KV, int d, int causal,
                                const long long* strides, void* stream) {
-  if (!shape_ok(B, T, S, H, KV) || d != 64) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, T, S, H, KV) || !group_f32(H, KV) || d != 64)
+    return (int)cudaErrorInvalidValue;
   return launch_dq_f32<64>(q, k, v, o, g, lse, delta, dq, B, T, S, H, KV,
                            causal, to_strides(strides), stream);
 }
@@ -1008,7 +1161,8 @@ int flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                 int T, int S, int H, int KV, int d,
                                 int causal, const long long* strides,
                                 void* stream) {
-  if (!shape_ok(B, T, S, H, KV) || d != 64) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, T, S, H, KV) || !group_f32(H, KV) || d != 64)
+    return (int)cudaErrorInvalidValue;
   return launch_dkv_f32<64>(q, k, v, g, lse, delta, dk, dv, B, T, S, H, KV,
                             causal, to_strides(strides), stream);
 }

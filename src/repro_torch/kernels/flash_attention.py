@@ -25,11 +25,12 @@ f32 operands (RoBERTa trains and
 serves in f32) launch the f32 instances of K3 / #5, #6, #7 and K4 at
 head_dim 64 (FFMA, ``csrc/attention_f32.cuh``; counted under the
 kernel's name + ``_f32``; K4's is #8's f32 kernel over the dense cache);
-mixed dtypes raise. Any GQA group G for the bf16 forward (K3 / #5) and
-decode (K4: groups above 64 in slabs of 64 rows, a block each); G in
-{1, 2, 4, 8} for the backward (#6 / #7, ``GROUPS_BWD``) and for the f32
-instances (``GROUPS_F32``), which raise ``NotImplementedError`` outside
-it.
+mixed dtypes raise. Any GQA group G for the bf16 kernels: the forward
+(K3 / #5), the backward (#6; #7 in slabs of heads of each group where
+the unsplit grid would leave the SMs short, ``dkv_slab_heads``, merged
+in a fixed order) and decode (K4: groups above 64 in slabs of 64 rows, a
+block each); G in {1, 2, 4, 8} for the f32 instances (``GROUPS_F32``),
+which raise ``NotImplementedError`` outside it.
 Operands need a contiguous last dim, strides of whole 16 bytes (8 bf16
 or 4 f32 elements) and 16-byte aligned data. ``LAUNCHES`` counts the
 launches, and nothing else adds to it.
@@ -62,10 +63,8 @@ HEAD_DIMS = (64, 128, 256)
 HEAD_DIMS_BWD = (64, 128, 256)
 #: head dims of the f32 instances (RoBERTa's heads of 64)
 HEAD_DIMS_F32 = (64,)
-#: GQA groups of the backward (#6 / #7, bf16 and f32); the bf16 forward
-#: and decode kernels (K3 / #5, K4, #8, #8q) take any group
-GROUPS_BWD = (1, 2, 4, 8)
-#: GQA groups of the f32 decode instances (K4, #8, #8q: RoBERTa's G = 1)
+#: GQA groups of the f32 instances of K4, #8, #8q, #6 and #7 (RoBERTa's
+#: G = 1); the bf16 kernels take any group
 GROUPS_F32 = (1, 2, 4, 8)
 #: the dtypes the attention kernels are built for (f32 at HEAD_DIMS_F32)
 DTYPES = (torch.bfloat16, torch.float32)
@@ -132,8 +131,9 @@ _ARGTYPES = {
     "flash_attention_bf16": [_P] * 5 + [_I] * 8 + [_P, _P],
     # q k v o g lse delta dq, B T S H KV d causal, strides, stream
     "flash_attention_bwd_dq_bf16": [_P] * 8 + [_I] * 7 + [_P, _P],
-    # q k v g lse delta dk dv, B T S H KV d causal, strides, stream
-    "flash_attention_bwd_dkv_bf16": [_P] * 8 + [_I] * 7 + [_P, _P],
+    # q k v g lse delta dk dv, B T S H KV d causal, strides, heads a
+    # slab, ws, cnt, stream
+    "flash_attention_bwd_dkv_bf16": [_P] * 8 + [_I] * 7 + [_P, _I] + [_P] * 3,
     # q k v o lse, B T S H KV d causal, strides, stream
     "flash_attention_f32": [_P] * 5 + [_I] * 7 + [_P, _P],
     "flash_attention_bwd_dq_f32": [_P] * 8 + [_I] * 7 + [_P, _P],
@@ -195,9 +195,9 @@ def _check_cuda(ts, d: int, what: str, dtypes=DTYPES,
 
 
 def check_group_f32(q, g: int, what: str) -> None:
-    """The f32 decode instances (K4, #8, #8q) take G in ``GROUPS_F32``;
-    raise ``NotImplementedError`` before the launch otherwise (the bf16
-    instances take any group)."""
+    """The f32 instances of K4, #8, #8q, #6 and #7 take G in
+    ``GROUPS_F32``; raise ``NotImplementedError`` before the launch
+    otherwise (the bf16 instances take any group)."""
     if q.dtype == torch.float32 and g not in GROUPS_F32:
         raise NotImplementedError(
             f"{what}: f32 CUDA kernel built for GQA groups {GROUPS_F32}; "
@@ -301,10 +301,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
     _check_cuda((q, k, v, o, g), d, "flash_attention_bwd",
                 dims=HEAD_DIMS_BWD)
-    if h // kv not in GROUPS_BWD:
-        raise NotImplementedError(
-            f"flash_attention_bwd: CUDA kernels built for GQA groups "
-            f"{GROUPS_BWD}; got {h // kv}")
+    check_group_f32(q, h // kv, "flash_attention_bwd")
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise TypeError("flash_attention_bwd: lse must be f32 on "
                         f"{q.device}; got {lse.dtype} on {lse.device}")
@@ -330,17 +327,61 @@ def _launch_bwd_dq(q, k, v, o, lse, g, causal: bool):
     return dq, delta
 
 
-def _launch_bwd_dkv(q, k, v, g, lse, delta, causal: bool):
-    """#7 on checked CUDA operands: (dk, dv) in the KV-head layout."""
+#: rows of a block of #7 (its key tile)
+DKV_ROWS = 64
+
+
+def dkv_slab_heads(b: int, s: int, kv: int, g: int, d: int,
+                   sms: int) -> int:
+    """Query heads a bf16 #7 block sums: the whole group G while the
+    (kv head, batch, key tile) blocks fill every SM's resident slots (two
+    blocks at d = 64 / 128, one at 256, where a block is two warpgroups);
+    else the largest divisor of G that cuts it into at least
+    ⌊2 · slots / blocks⌋ slabs, two waves of blocks for the causal tail
+    to even out. granite-34b at B = 4, S = 1024 has 64 blocks for 264
+    slots: slabs of 6 heads, 512 blocks (measured on an H100 at that
+    shape: 6 heads 0.3124 ms, 8 0.3655, 4 0.3294, unsplit 1.5530). The
+    slabs' f32 sums merge in slab order."""
+    slots = (1 if d == 256 else 2) * sms
+    blocks = b * kv * -(-s // DKV_ROWS)
+    if blocks >= slots:
+        return g
+    want = min(g, 2 * slots // blocks)   # slabs
+    return max(x for x in range(1, g + 1) if g % x == 0 and x * want <= g)
+
+
+def _launch_bwd_dkv(q, k, v, g, lse, delta, causal: bool, heads=None):
+    """#7 on checked CUDA operands: (dk, dv) in the KV-head layout.
+    ``heads``: query heads a block sums (bf16; default
+    ``dkv_slab_heads``'s); below the group, an f32 workspace holds each
+    slab's sums and the shared zeroed counters (``_build.counters``) its
+    tickets."""
     b, t, s, h, kv, d = _dims(q, k)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    st = _strides(q, k, v, g, dk, dv)
-    rc = _fn("flash_attention_bwd_dkv" + (_instance(q) or "_bf16"))(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
-        s, h, kv, d, int(causal), ctypes.cast(st, ctypes.c_void_p),
-        _build.stream_ptr(q))
+    st = ctypes.cast(_strides(q, k, v, g, dk, dv), ctypes.c_void_p)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, s, h, kv, d, int(causal), st)
+    if _instance(q):
+        rc = _fn("flash_attention_bwd_dkv_f32")(*head, _build.stream_ptr(q))
+    else:
+        grp = h // kv
+        if heads is None:
+            sms = torch.cuda.get_device_properties(
+                q.device).multi_processor_count
+            heads = dkv_slab_heads(b, s, kv, grp, d, sms)
+        heads = min(max(heads, 1), grp)
+        slabs = -(-grp // heads)
+        ws = cnt = None
+        if slabs > 1:
+            tiles = b * kv * -(-s // DKV_ROWS)
+            ws = torch.empty(tiles * slabs * 2 * DKV_ROWS * d,
+                             dtype=torch.float32, device=q.device)
+            cnt = _build.counters(q.device, tiles)
+        rc = _fn("flash_attention_bwd_dkv_bf16")(
+            *head, heads, None if ws is None else ws.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd (dk/dv)")
     LAUNCHES["flash_attention_bwd_dkv" + _suffix(q)] += 1
     return dk, dv

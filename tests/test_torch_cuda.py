@@ -319,8 +319,8 @@ def test_flash_attention_bwd_rejects_what_the_kernels_do_not_take(dev):
     with pytest.raises(NotImplementedError):   # head_dim 96
         a = _bwd_inputs(dev, 1, 64, 64, 4, 2, 96, True)
         tfa.flash_attention_bwd(*a, True)
-    with pytest.raises(NotImplementedError):   # GQA group 3
-        a = _bwd_inputs(dev, 1, 64, 64, 6, 2, 64, True)
+    with pytest.raises(NotImplementedError):   # GQA group 3 in f32
+        a = [t.float() for t in _bwd_inputs(dev, 1, 64, 64, 6, 2, 64, True)]
         tfa.flash_attention_bwd(*a, True)
     with pytest.raises(TypeError):             # mixed bf16 / f32 operands
         tfa.flash_attention_bwd(q.float(), k, v, o, lse, g, True)
@@ -2117,10 +2117,11 @@ def test_paged_decode_attention_int8_any_group(dev, g, c, d):
         assert torch.equal(outs[0], outs[1])
 
 
-def test_groups_outside_1248_stay_refused_in_f32_and_the_backward(dev):
-    """The f32 instances of K4, #8 and #8q and the backward (#6 / #7, bf16
-    and f32) keep G in {1, 2, 4, 8}: at G = 12 they raise
-    ``NotImplementedError`` before any launch, and nothing falls back."""
+def test_groups_outside_1248_stay_refused_in_f32(dev):
+    """The f32 instances of K4, #8, #8q and of the backward (#6 / #7) keep
+    G in {1, 2, 4, 8}: at G = 12 they raise ``NotImplementedError`` before
+    any launch, and nothing falls back (the bf16 backward takes any
+    group: ``test_flash_bwd_any_group``)."""
     q, kc, vc, tables, pos = _any_paged_case(dev, 5, 12, 64)
     kernels.reset_launch_counts()
     with pytest.raises(NotImplementedError, match="GQA"):
@@ -2134,9 +2135,50 @@ def test_groups_outside_1248_stay_refused_in_f32_and_the_backward(dev):
     k, v = _rf(dev, 4, 64, 2, 64, seed=1), _rf(dev, 4, 64, 2, 64, seed=2)
     with pytest.raises(NotImplementedError, match="GQA"):
         tfa.decode_attention(_rf(dev, 4, 24, 64), k, v, pos[:4])
-    for dt in (torch.bfloat16, torch.float32):
-        a = [t.to(dt) for t in _bwd_inputs(dev, 1, 64, 64, 24, 2, 64, True)]
-        a[4] = a[4].float()                      # lse stays f32
-        with pytest.raises(NotImplementedError, match="GQA"):
-            tfa.flash_attention_bwd(*a, True)
+    a = [t.float() for t in _bwd_inputs(dev, 1, 64, 64, 24, 2, 64, True)]
+    with pytest.raises(NotImplementedError, match="GQA"):
+        tfa.flash_attention_bwd(*a, True)
     assert not any(kernels.launch_counts().values())
+
+
+def _slab_heads(g):
+    """#7's heads a block for the any-group test: the whole group
+    (unsplit), a quarter of it and one past half (an uneven last slab)."""
+    return sorted({g, max(1, g // 4), g // 2 + 1})
+
+
+@pytest.mark.parametrize("t,s", [(200, 200), (1000, 700)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", ANY_GROUPS)
+def test_flash_bwd_any_group(dev, g, d, causal, t, s):
+    """#6 / #7 in bf16 at G outside {1, 2, 4, 8} (MQA from G = 48), T = S
+    and T = 1000 against S = 700: through the wrapper (one launch each,
+    #7 in the slabs ``dkv_slab_heads`` picks at this small grid), then #7
+    unsplit and in slabs of a quarter and of one past half of the group
+    (its f32 sums merged in slab order through the ticket counters);
+    dq, dk and dv within 2e-2 of the plain version's largest, two calls
+    bit-identical."""
+    _, h, kv = _any_heads(g)
+    args = _bwd_inputs(dev, 2, t, s, h, kv, d, causal)
+    q, k, v, o, lse, gr = args
+    want = tfa.flash_attention_bwd_plain(*args, causal)
+    kernels.reset_launch_counts()
+    got = tfa.flash_attention_bwd(*args, causal)
+    sfx = "_d256" if d == 256 else ""
+    n = kernels.launch_counts()
+    assert n["flash_attention_bwd_dq" + sfx] == 1
+    assert n["flash_attention_bwd_dkv" + sfx] == 1
+    _check_bwd(got, want)
+    again = tfa.flash_attention_bwd(*args, causal)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(x, y), name
+    _, delta = tfa._launch_bwd_dq(q, k, v, o, lse, gr, causal)
+    for heads in _slab_heads(g):
+        one = tfa._launch_bwd_dkv(q, k, v, gr, lse, delta, causal, heads)
+        _check_bwd((got[0],) + one, want)
+        two = tfa._launch_bwd_dkv(q, k, v, gr, lse, delta, causal, heads)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1]), \
+            heads

@@ -78,6 +78,10 @@ EDGE_Q_SHAPE, EDGE_KV_SHAPE = (1, 129, 8, 64), (1, 129, 1, 64)
 # tile. GQA group 1, and 2 with T != S
 D256_SHAPES = ((1, 33, 2, 256), (1, 33, 2, 256))
 D256_GQA_SHAPES = ((1, 33, 4, 256), (1, 70, 2, 256))
+# GQA groups outside {1, 2, 4, 8}: mistral-large's 12 (24 query heads over
+# 2, T = 70 against S = 91) and granite-34b's MQA 48 (over one KV head)
+G12_SHAPES = ((1, 70, 24, 32), (1, 91, 2, 32))
+G48_SHAPES = ((1, 33, 48, 32), (1, 33, 1, 32))
 
 
 def _qkvg(dt, seed=0, shapes=(Q_SHAPE, KV_SHAPE)):
@@ -110,12 +114,15 @@ def test_flash_fwd_plain_matches_jax(dt, causal):
     for tag, shapes in (("", (Q_SHAPE, KV_SHAPE)),
                         ("-tile_edge", (EDGE_Q_SHAPE, EDGE_KV_SHAPE)),
                         ("-d256", D256_SHAPES),
-                        ("-d256_gqa2", D256_GQA_SHAPES))
+                        ("-d256_gqa2", D256_GQA_SHAPES),
+                        ("-g12", G12_SHAPES), ("-g48", G48_SHAPES))
     for dt in ("f32", "bf16") for causal in (True, False)])
 def test_flash_bwd_plain_matches_jax(dt, causal, shapes):
     """The same residuals (JAX's o and lse) into both backwards. The plain
     version is what the card holds the CUDA kernels to, so it is held to
-    the Pallas kernel here at a tile edge of those kernels too."""
+    the Pallas kernel here at a tile edge of those kernels too, and at
+    groups of 12 and 48 (the JAX backward sums each group with
+    ``_group_sum_kv``)."""
     (jq, tq), (jk, tk), (jv, tv), (jg, tg) = _qkvg(dt, seed=1, shapes=shapes)
     jo, jl = jops.flash_attention_fwd(jq, jk, jv, causal=causal,
                                       backend="pallas", interpret=True)
