@@ -1904,12 +1904,86 @@ def logits_rel_err(eng, eng_ref, req):
     return float((lg - lg_ref).abs().max() / lg_ref.abs().max())
 
 
+def routed(cfg):
+    """Whether ``cfg`` has MoE blocks: top-k routing that bf16 drift can
+    flip near a tie, so that its kernel-vs-plain checks take an f32
+    witness (``legs_compared``)."""
+    return any(f == "moe" for _, f in cfg.block_pattern)
+
+
+def f32_cfg(cfg):
+    """``cfg`` with f32 parameters and compute: the f32 plain leg's."""
+    import torch
+    return dataclasses.replace(cfg, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+
+
+def f32_tree(tree):
+    """``tree`` with every floating tensor cast to f32 (a copy); int8
+    weights and pools are kept, since their plain versions dequantize in
+    the compute dtype."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                    tree)
+
+
+def record_routing(run):
+    """``run()`` with every MoE router call's top-k indices recorded, in
+    call order (one (tokens, k) tensor a layer a forward). Returns
+    (the result, the records)."""
+    from repro_torch.models import moe
+    rec, router = [], moe.router
+
+    def recording(*args):
+        out = router(*args)
+        rec.append(out[3].clone())
+        return out
+    moe.router = recording
+    try:
+        return run(), rec
+    finally:
+        moe.router = router
+
+
+def routing_flips(a, b):
+    """Share of (token, layer) rows whose top-k expert SETS differ between
+    two lists of per-layer top-k index tensors."""
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+    return diff / sum(x.shape[0] for x in a)
+
+
+def legs_compared(run, witness):
+    """``run(leg)``: one leg's logits rows for the legs "kernel" and
+    "plain" (``backend="ref"``) in the model's dtype and, with
+    ``witness``, "f32" (the plain leg in f32 on the same weights and
+    inputs). Returns (the largest over rows of max |kernel - plain| /
+    max |plain|, the rows whose argmax agree, the witness): the witness
+    is None, or (kernel vs f32, plain bf16 vs f32, the share of (token,
+    layer) top-k sets that differ between each pair of legs), as
+    ``logits_checked`` takes it."""
+    out, rec = {}, {}
+    for leg in ("kernel", "plain") + (("f32",) if witness else ()):
+        out[leg], rec[leg] = record_routing(lambda: run(leg).float())
+
+    def rel_to(a, b):
+        return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+    k, p = out["kernel"], out["plain"]
+    res = (rel_to(k, p), int((k.argmax(-1) == p.argmax(-1)).sum()))
+    if not witness:
+        return res + (None,)
+    flips = {f"{a}/{b}": routing_flips(rec[a], rec[b]) for a, b in (
+        ("kernel", "plain"), ("plain", "f32"), ("kernel", "f32"))}
+    return res + ((rel_to(k, out["f32"]), rel_to(p, out["f32"]), flips),)
+
+
 def decode_step_rel_err(cfg, rt, reqs, cache_len, dev, base=None):
     """One decode step of ``len(reqs)`` slots, each at its own task and
     position, from the same prefilled caches through the kernel leg and
-    the plain leg (over ``base``, default the runtime's). Returns the
-    largest over slots of max |kernel - plain| / max |plain| of the slot's
-    logits row, and how many slots' argmax agree."""
+    the plain leg (over ``base``, default the runtime's) and, on a MoE
+    model, the f32 plain leg on the same caches and base cast to f32.
+    Returns ``legs_compared``'s (rel, agree, witness) over the slots'
+    logits rows."""
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.models import transformer as T
@@ -1924,18 +1998,23 @@ def decode_step_rel_err(cfg, rt, reqs, cache_len, dev, base=None):
         for slot, r in enumerate(reqs):
             out = T.forward(base, cfg, rt.spec, bc, pl,
                             torch.as_tensor(r.prompt, device=dev)[None],
-                            task=r.task, return_caches=True, device=dev)
+                            task=r.task if rt.tasked else None,
+                            return_caches=True, device=dev)
             T.insert_cache_slot(caches, out.caches, slot)
             tok[slot, 0] = out.logits[0, -1].argmax()
             pos[slot] = len(r.prompt)
-        task = torch.tensor([r.task for r in reqs], device=dev)
-        kern, ref = (T.decode_step(base, cfg, rt.spec, bc, pl, tok,
-                                   tree_map(torch.clone, caches), pos,
-                                   task=task, policy=policy,
-                                   device=dev)[0].float()
-                     for policy in (dispatch.DEFAULT, dispatch.REF))
-    rel = ((kern - ref).abs().amax(-1) / ref.abs().amax(-1)).max()
-    return float(rel), int((kern.argmax(-1) == ref.argmax(-1)).sum())
+        task = (torch.tensor([r.task for r in reqs], device=dev)
+                if rt.tasked else None)
+
+        def step(leg):
+            c, b, kv = cfg, base, tree_map(torch.clone, caches)
+            if leg == "f32":
+                c, b, kv = f32_cfg(cfg), f32_tree(base), f32_tree(kv)
+            return T.decode_step(b, c, rt.spec, bc, pl, tok, kv, pos,
+                                 task=task, policy=dispatch.DEFAULT
+                                 if leg == "kernel" else dispatch.REF,
+                                 device=dev)[0]
+        return legs_compared(step, routed(cfg))
 
 
 def adapter_ratio(rt, spec, gen):
@@ -1993,14 +2072,16 @@ def device_share(label, run, top_n=8, show=()):
 
 
 def serving_model(dev, tag, arch="stablelm-1.6b", ratio=None, layers=None,
-                  seed=SEED):
+                  seed=SEED, variant="4+1d"):
     """Full-width ``arch`` (stablelm-1.6b; roberta-large in phase 11,
     gemma-7b in phase 12; ``layers``: its depth cut to that many layers),
     random base weights in the config's dtype from a generator seeded
     with ``seed``, and the served 4+1d MetaTT adapter on q/v (rank 8, 3
     tasks, ``random_tt(scale=0.5)``; with ``ratio``, its last core scaled
-    so that the adapter is ``ratio`` of the base q projection). Returns
-    (cfg, spec, params, rt, gen)."""
+    so that the adapter is ``ratio`` of the base q projection). With
+    ``variant="4+ed"`` (a MoE model) the adapter is MetaTT-(4+E)D on q, v
+    and the expert down-projections, with no task axis. Returns (cfg,
+    spec, params, rt, gen)."""
     import torch
     from repro_torch import configs
     from repro_torch.config.base import RunConfig
@@ -2012,7 +2093,8 @@ def serving_model(dev, tag, arch="stablelm-1.6b", ratio=None, layers=None,
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     run = RunConfig(model=cfg, adapter_kind="metatt",
-                    adapter_variant="4+1d", num_tasks=3, adapter_rank=8)
+                    adapter_variant=variant,
+                    num_tasks=3 if variant == "4+1d" else 0, adapter_rank=8)
     spec = M.build_adapter_spec(run)
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
@@ -2147,8 +2229,8 @@ def phase_serving(dev):
     if not rel <= 5e-2:
         raise AssertionError(f"prefill logits differ from the plain leg: "
                              f"{rel:.3e}")
-    rel_dec, same = decode_step_rel_err(cfg, mild, reqs[:4], serve.cache_len,
-                                        dev)
+    rel_dec, same, _ = decode_step_rel_err(cfg, mild, reqs[:4],
+                                           serve.cache_len, dev)
     print(f"[serve] mild adapter, one decode step of 4 slots (tasks "
           f"{[r.task for r in reqs[:4]]}, positions "
           f"{[len(r.prompt) for r in reqs[:4]]}): logits vs plain leg max "
@@ -2179,12 +2261,14 @@ def paged_step_rel_err(cfg, rt, prompts, tasks, dev, base=None,
     ``kv_quant``). The pools are filled by chunked prefill of every
     prompt (kernel leg). Decode: every slot one token at position plen.
     Mixed: slots 0-1 decode, slots 2-3 prefill the 32 prompt tokens from
-    position 96 (the cells they overwrite hold the same tokens' KV).
-    Returns {step: (largest over slots of max |kernel - plain| / max
-    |plain| of the slot's logits row, slots whose argmax agree)}."""
+    position 96 (the cells they overwrite hold the same tokens' KV). On a
+    MoE model, also the f32 plain leg on the same pools and base cast to
+    f32. Returns {step: ``legs_compared``'s (rel, agree, witness) over the
+    slots' logits rows}."""
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
     bc, pl = rt.broadcast, rt.per_layer
     base = rt.base if base is None else base
     n, c, page = len(prompts), PAGED["prefill_chunk"], PAGED["page_size"]
@@ -2220,16 +2304,16 @@ def paged_step_rel_err(cfg, rt, prompts, tasks, dev, base=None,
                            [0, 0] + [c - 1] * (n - 2))}
         out = {}
         for name, (toks, pos, sel) in steps.items():
-            kern, ref = (T.paged_step(
-                base, cfg, rt.spec, bc, pl, toks,
-                [{"self": {k_: v_.clone() for k_, v_ in cc["self"].items()}}
-                 for cc in caches], tables, torch.tensor(pos),
-                torch.tensor(sel), task=task, policy=policy,
-                device=dev)[0].float()
-                for policy in (dispatch.DEFAULT, dispatch.REF))
-            rel = ((kern - ref).abs().amax(-1) / ref.abs().amax(-1)).max()
-            out[name] = (float(rel),
-                         int((kern.argmax(-1) == ref.argmax(-1)).sum()))
+            def step(leg):
+                c, b, kv = cfg, base, tree_map(torch.clone, caches)
+                if leg == "f32":
+                    c, b, kv = f32_cfg(cfg), f32_tree(base), f32_tree(kv)
+                return T.paged_step(
+                    b, c, rt.spec, bc, pl, toks, kv, tables,
+                    torch.tensor(pos), torch.tensor(sel), task=task,
+                    policy=dispatch.DEFAULT if leg == "kernel"
+                    else dispatch.REF, device=dev)[0]
+            out[name] = legs_compared(step, routed(cfg))
     return out
 
 
@@ -2328,7 +2412,7 @@ def phase_paged(dev):
     picked = reqs[1:3] + sorted(reqs[3:], key=lambda r: len(r.prompt))[-2:]
     res = paged_step_rel_err(cfg, mild, [r.prompt for r in picked],
                              [r.task for r in picked], dev)
-    for name, (rel, same) in res.items():
+    for name, (rel, same, _) in res.items():
         print(f"[paged] mild adapter, one {name} paged step of 4 slots "
               f"(prompts {[len(r.prompt) for r in picked]}): selected-"
               f"column logits vs plain leg max rel err per slot {rel:.3e} "
@@ -2345,13 +2429,16 @@ def unadapted_projection_cost(cfg, qbase, dev):
     on every call before a plain matmul: each layer-0 matrix at the int8
     paged step's M = 8 x 32 rows and the dense decode's M = 4, timed with
     CUDA events as dequantize + matmul and as the matmul alone on a
-    pre-dequantized bf16 W, summed over the layers."""
+    pre-dequantized bf16 W, summed over the layers. A MoE block's FFN
+    (its expert banks) is not quantized: wk and wo alone."""
     import torch
     from repro_torch.kernels import quant
     blk = qbase["blocks"][0]
-    mats = [blk["mixer"]["wk"], blk["mixer"]["wo"], blk["ffn"]["wu"],
-            blk["ffn"]["wg"], blk["ffn"]["wd"]]
-    mats = [{k: v[0] for k, v in w.items()} for w in mats]
+    names = [(g, n) for g, n in (("mixer", "wk"), ("mixer", "wo"),
+                                 ("ffn", "wu"), ("ffn", "wg"), ("ffn", "wd"))
+             if quant.is_quantized(blk[g].get(n))]
+    mats = [{k: v[0] for k, v in blk[g][n].items()} for g, n in names]
+    label = ", ".join(n for _, n in names)
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     for m in (PAGED["max_batch"] * PAGED["prefill_chunk"], 4):
         deq = mm = 0.0
@@ -2363,7 +2450,7 @@ def unadapted_projection_cost(cfg, qbase, dev):
                 lambda: x @ quant.dequantize(w, torch.bfloat16), (),
                 iters=20)
             mm += event_time_ms(lambda: x @ wb, (), iters=20)
-        print(f"[quant] unadapted projections (wk, wo, wu, wg, wd) at M={m}:"
+        print(f"[quant] unadapted projections ({label}) at M={m}:"
               f" dequantize + matmul {deq:.4f} ms a layer, "
               f"{cfg.num_layers * deq:.3f} ms a step; matmul on a "
               f"pre-dequantized bf16 W {mm:.4f} ms a layer, "
@@ -2481,7 +2568,7 @@ def phase_quant(dev, dense_run, paged_run):
         dev, base=qbase, kv_quant=True).items()}
     res["w8 dense decode"] = decode_step_rel_err(
         cfg, mild, reqs[:4], 256, dev, base=qbase)
-    for name, (rel, n_same) in res.items():
+    for name, (rel, n_same, _) in res.items():
         print(f"[quant] mild adapter, one {name} step of 4 slots: logits vs "
               f"plain leg max rel err per slot {rel:.3e} (limit 5e-2), "
               f"argmax equal {n_same}/4")
@@ -4321,7 +4408,8 @@ def roberta_dense_serving(dev, model, count):
     eng_ref = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
         backend="ref"), device=dev)
     ref_outs = eng_ref.generate(reqs)
-    rel, agree = decode_step_rel_err(cfg, rt, reqs[:4], serve.cache_len, dev)
+    rel, agree, _ = decode_step_rel_err(cfg, rt, reqs[:4], serve.cache_len,
+                                        dev)
     print(f"[phase11] (a) one decode step of 4 slots (tasks "
           f"{[r.task for r in reqs[:4]]}), kernel leg vs plain f32 leg: max "
           f"|kernel - plain| / max |plain| per slot {rel:.3e} (limit "
@@ -4411,7 +4499,7 @@ def roberta_paged_serving(dev, model, count, kv):
     res = paged_step_rel_err(cfg, rt, [r.prompt for r in picked],
                              [r.task for r in picked], dev,
                              kv_quant=bool(kv))
-    for step, (rel, agree) in res.items():
+    for step, (rel, agree, _) in res.items():
         print(f"[phase11] {tag}: one {step} paged step of 4 slots, kernel "
               f"leg vs plain f32 leg: max |kernel - plain| / max |plain| per "
               f"slot {rel:.3e} (limit {F32_LOGIT_TOL}), argmax equal "
@@ -4570,8 +4658,8 @@ def roberta_w8_serving(dev, model, count, dense):
             backend="ref"), device=dev)
         ref_outs = eng_ref.generate(reqs)
         del eng_ref
-        rel, agree = decode_step_rel_err(cfg, rt, reqs[:4], 256, dev,
-                                         base=qbase)
+        rel, agree, _ = decode_step_rel_err(cfg, rt, reqs[:4], 256, dev,
+                                            base=qbase)
         print(f"[phase11] {label}: one decode step of 4 slots over the int8 "
               f"base, kernel leg vs plain f32 leg: max |kernel - plain| / "
               f"max |plain| per slot {rel:.3e} (limit {F32_LOGIT_TOL}), "
@@ -4617,7 +4705,7 @@ def roberta_w8_serving(dev, model, count, dense):
     res = paged_step_rel_err(cfg, rt, [r.prompt for r in picked],
                              [r.task for r in picked], dev, base=qbase,
                              kv_quant=True)
-    for step, (rel, agree) in res.items():
+    for step, (rel, agree, _) in res.items():
         print(f"[phase11] {label}: one {step} paged step of 4 slots over "
               f"the int8 base, kernel leg vs plain f32 leg: max |kernel - "
               f"plain| / max |plain| per slot {rel:.3e} (limit "
@@ -4680,6 +4768,9 @@ def phase_eleven(dev):
 # ---------------------------------------------------------------------------
 
 GEMMA = "gemma-7b"
+#: phase 12's depth: gemma-7b served at 14 of its 28 layers (widths
+#: kept), cut to pay for phase 16 in the script's time
+GEMMA_SERVE_LAYERS = 14
 #: the d = 256 instances: names in ``KERNELS``, and the phase-2 shapes at
 #: gemma-7b's 16 heads of 256 (KV 16): prefill T = S (K3), the dense
 #: cache (K4: 4 slots x 256 cells, and a 4096-cell one)
@@ -4849,15 +4940,40 @@ def check_launches(n, want, label):
                              f"unexpected {extra}")
 
 
-def logits_checked(label, rel, agree=None, n=None, tag="phase12"):
-    """A kernel-leg vs plain-leg logits check of phases 12 and 14: 5% of
-    the largest logit (bf16 drift through 8 to 88 layers)."""
+def logits_checked(label, rel, agree=None, n=None, tag="phase12",
+                   witness=None):
+    """A kernel-leg vs plain-leg logits check of phases 12, 14 and 16: 5%
+    of the largest logit (bf16 drift through 8 to 88 layers), asserted.
+    With ``witness`` (``legs_compared``'s, taken on a MoE model) phase 3's
+    f32-witness rule is asserted as well: the kernel leg no farther from
+    the f32 plain leg than 2 x the bf16 plain leg + 5%. While the witness
+    holds, a miss of the 5% limit is reported with the share of routing
+    flips instead of failing: bf16 drift flips near-tie top-k routing, and
+    one flip moves a token by a whole expert's share, in either bf16
+    leg."""
     tail = f", argmax equal {agree}/{n}" if agree is not None else ""
     print(f"[{tag}] {label}: logits vs plain leg max |kernel - plain| / "
           f"max |plain| {rel:.3e} (limit 5e-2){tail}", flush=True)
+    if witness is None:
+        if not rel <= 5e-2:
+            raise AssertionError(f"{label}: logits differ from the plain "
+                                 f"leg by {rel:.3e}")
+        return
+    k32, p32, flips = witness
+    ok = k32 <= 2 * p32 + 5e-2
+    print(f"[{tag}] {label}: vs the f32 plain leg kernel {k32:.3e}, plain "
+          f"bf16 {p32:.3e} (limit 2 x plain + 5e-2 = {2 * p32 + 5e-2:.3e}): "
+          f"witness {'holds' if ok else 'FAILS'}; top-k sets that differ, "
+          "share of (token, layer) rows: "
+          + ", ".join(f"{k_} {v:.4f}" for k_, v in flips.items()),
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: kernel leg {k32:.3e} from the f32 "
+                             f"leg, plain bf16 {p32:.3e}")
     if not rel <= 5e-2:
-        raise AssertionError(f"{label}: logits differ from the plain leg "
-                             f"by {rel:.3e}")
+        print(f"[{tag}] {label}: the 5e-2 limit is missed ({rel:.3e}) with "
+              f"the witness holding: reported, routing flips kernel/plain "
+              f"{flips['kernel/plain']:.4f}", flush=True)
 
 
 def cell_metrics(label, st, busy, tag="phase12"):
@@ -4886,17 +5002,19 @@ def gemma_dense(dev, count, model):
 
 
 def dense_cell(dev, count, model, tag, reqs, new=32, label="(a) dense"):
-    """Phase 3's dense cell on a full-width model (phases 12 and 14): 4
-    slots x 256 cells, ``reqs`` mixed-task requests of ``new`` tokens
-    each; 2L K1 + L K3 a prefill, 2L K2 + L K4 a decode step (their d =
-    256 instances at heads of 256), nothing else; the engine holds no
-    second copy of the base (its allocation beyond the runtime's is at
-    most 5% of the base's bytes); prefill and decode-step logits within
-    5% of the plain leg's largest logit."""
+    """Phase 3's dense cell on a full-width model (phases 12, 14 and 16):
+    4 slots x 256 cells, ``reqs`` requests of ``new`` tokens each; 2L K1
+    + L K3 a prefill, 2L K2 + L K4 a decode step (their d = 256 instances
+    at heads of 256; K1 in K2's place for an adapter without a task axis:
+    phase 16's 4+ed), nothing else; the engine holds no second copy of
+    the base (its allocation beyond the runtime's is at most 5% of the
+    base's bytes); prefill and decode-step logits within 5% of the plain
+    leg's largest logit (``logits_checked``; on a MoE model with the f32
+    plain leg as witness, through an f32 engine at prefill)."""
     import torch
     from repro_torch.config.base import KernelConfig, ServeConfig
     from repro_torch.models import model as M
-    from repro_torch.serving import Engine
+    from repro_torch.serving import AdapterRuntime, Engine
     cfg, spec, params, rt, gen = model
     sfx = "_d256" if cfg.resolved_head_dim == 256 else ""
     k3, k4 = "flash_attention" + sfx, "decode_attention" + sfx
@@ -4921,29 +5039,41 @@ def dense_cell(dev, count, model, tag, reqs, new=32, label="(a) dense"):
                                                  new)))
     outs, st = got["r"]
     L, steps, pre = cfg.num_layers, st.decode_steps, st.prefills
-    check_launches(n, {"tt_linear": 2 * L * pre, k3: L * pre,
-                       "tt_linear_batched_a": 2 * L * steps,
-                       k4: L * steps}, label)
+    dec = "tt_linear_batched_a" if rt.tasked else "tt_linear"
+    want = {"tt_linear": 2 * L * pre, k3: L * pre, k4: L * steps}
+    want[dec] = want.get(dec, 0) + 2 * L * steps
+    check_launches(n, want, label)
+    k1 = (f"K1 {n['tt_linear'] // pre} + {k3} {n[k3] // pre} a prefill over "
+          f"{pre}, K2 {n[dec] // steps} + {k4} {n[k4] // steps} a decode step"
+          if rt.tasked else
+          f"K1 {n['tt_linear']} over {pre} prefills and {steps} decode steps "
+          f"(2L each, asserted), {k3} {n[k3] // pre} a prefill, {k4} "
+          f"{n[k4] // steps} a decode step")
     print(f"[{tag}] {label}: launches "
-          f"{json.dumps({k: v for k, v in n.items() if v})} = "
-          f"K1 {n['tt_linear'] // pre} + {k3} {n[k3] // pre} a prefill over "
-          f"{pre}, K2 {n['tt_linear_batched_a'] // steps} + {k4} "
-          f"{n[k4] // steps} a decode step over {steps} (L = {L})",
-          flush=True)
+          f"{json.dumps({k: v for k, v in n.items() if v})} = {k1} over "
+          f"{steps} (L = {L})", flush=True)
     _, busy = device_share(f"{label} {cfg.name} generate of 4 requests",
                            lambda: eng.generate(reqs[:4]),
                            show=("paged_tc", "flash_fwd"))
     cell_metrics(label, st, busy, tag)
-    eng_ref = Engine(cfg, rt, serve=serve, kernels=KernelConfig(
-        backend="ref"), device=dev)
-    logits_checked(f"{label} prefill, last position of 2 requests",
-                   max(logits_rel_err(eng, eng_ref, r) for r in reqs[:2]),
-                   tag=tag)
-    del eng, eng_ref
+    ref = KernelConfig(backend="ref")
+    engs = {"kernel": eng, "plain": Engine(cfg, rt, serve=serve, kernels=ref,
+                                           device=dev)}
+    if routed(cfg):
+        engs["f32"] = Engine(f32_cfg(cfg), AdapterRuntime.build(
+            "live", f32_tree(params["base"]), spec, params["adapter"],
+            params["frozen"]), serve=serve, kernels=ref, device=dev)
+    rel, agree, wit = legs_compared(lambda leg: torch.stack([
+        engs[leg].prefill_logits(r.prompt, r.task) for r in reqs[:2]]),
+        routed(cfg))
+    logits_checked(f"{label} prefill, last position of 2 requests", rel,
+                   agree, 2, tag, wit)
+    del eng, engs
     torch.cuda.empty_cache()
-    rel, agree = decode_step_rel_err(cfg, rt, reqs[:4], serve.cache_len, dev)
+    rel, agree, wit = decode_step_rel_err(cfg, rt, reqs[:4], serve.cache_len,
+                                          dev)
     logits_checked(f"{label} one decode step of 4 slots (tasks "
-                   f"{[r.task for r in reqs[:4]]})", rel, agree, 4, tag)
+                   f"{[r.task for r in reqs[:4]]})", rel, agree, 4, tag, wit)
     return dict(reqs=reqs, stats=st, launches=n)
 
 
@@ -4957,7 +5087,7 @@ def gemma_paged(dev, count, model, quant):
 
 
 def paged_cell(dev, count, model, quant, phase, tag):
-    """Phase 4's paged cell on a full-width model (phases 12 and 14) — 8
+    """Phase 4's paged cell on a full-width model (phases 12, 14, 16) — 8
     slots, 256 blocks of 16 cells, chunk 32, 16 requests of 40-300 prompt
     tokens, half sharing a 100-token prefix per task, cold then warm,
     under ``quant`` (a QuantConfig with int8 KV, or None for bf16 pools):
@@ -4965,7 +5095,8 @@ def paged_cell(dev, count, model, quant, phase, tag):
     nothing else (the (B, 32) adapted q/v run the batched einsum, as in
     JAX); every request finished, no leaked block, warm prefix hits and
     COW; a pure-decode and a mixed paged step within 5% of the plain leg's
-    largest logit. Returns (kv_bytes_peak, the int8 base or None)."""
+    largest logit (``logits_checked``, with the f32 witness on a MoE
+    model). Returns (kv_bytes_peak, the int8 base or None)."""
     import torch
     from repro_torch.config.base import QuantConfig, ServeConfig
     from repro_torch.models import model as M
@@ -5017,51 +5148,58 @@ def paged_cell(dev, count, model, quant, phase, tag):
     res = paged_step_rel_err(cfg, rt, [r.prompt for r in picked],
                              [r.task for r in picked], dev, base=qbase,
                              kv_quant=q8)
-    for step, (rel, agree) in res.items():
+    for step, (rel, agree, wit) in res.items():
         logits_checked(f"{tag}: one {step} paged step of 4 slots", rel,
-                       agree, 4, phase)
+                       agree, 4, phase, wit)
     return kv_peak, qbase
 
 
-def gemma_w8_dense(dev, count, model, dense, qbase):
-    """Phase 12 (c), dense part: (a)'s requests through the dense engine
-    over int8 weights (phase 5's): 2L #9 + L K3 (d = 256) a prefill, 2L
-    #10 + L K4 (d = 256) a decode step, no K1 / K2; one decode step over
-    the int8 base within 5% of the plain leg's largest logit."""
+def w8_dense_cell(dev, count, model, dense, qbase, tag="phase12",
+                  label="(c) dense w8"):
+    """Phases 12 (c) and 16 (a), dense part: the dense cell's requests
+    through the dense engine over int8 weights (phase 5's): 2L #9 + L K3
+    a prefill, 2L #10 + L K4 a decode step (their d = 256 instances at
+    heads of 256), no K1 / K2; one decode step over the int8 base within
+    5% of the plain leg's largest logit (``logits_checked``, with the f32
+    witness on a MoE model). Returns the run's stats."""
     import torch
     from repro_torch.config.base import KernelConfig, QuantConfig, \
         ServeConfig
     from repro_torch.serving import Engine
     cfg, spec, params, rt, gen = model
+    sfx = "_d256" if cfg.resolved_head_dim == 256 else ""
     eng = Engine(cfg, rt, serve=ServeConfig(
         cache_mode="dense", max_batch=4, cache_len=256, out_cap=32),
         kernels=KernelConfig(quant=QuantConfig(weights="int8")), device=dev)
     reqs = dense["reqs"]
     eng.generate(reqs[:2])                       # warm-up (allocator)
     got = {}
-    n = count(lambda: got.update(r=serve_checked(eng, reqs, "(c) dense w8",
-                                                 "phase12")))
+    n = count(lambda: got.update(r=serve_checked(eng, reqs, label, tag)))
     st = got["r"][1]
     L, steps, pre = cfg.num_layers, st.decode_steps, st.prefills
     check_launches(n, {"tt_linear_w8": 2 * L * pre,
-                       "flash_attention_d256": L * pre,
+                       "flash_attention" + sfx: L * pre,
                        "tt_linear_batched_a_w8": 2 * L * steps,
-                       "decode_attention_d256": L * steps}, "(c) dense w8")
-    print(f"[phase12] (c) dense w8: launches "
+                       "decode_attention" + sfx: L * steps}, label)
+    print(f"[{tag}] {label}: launches "
           f"{json.dumps({k: v for k, v in n.items() if v})} (#9 "
           f"{n['tt_linear_w8'] // pre} a prefill, #10 "
           f"{n['tt_linear_batched_a_w8'] // steps} a decode step)",
           flush=True)
     del eng
     torch.cuda.empty_cache()
-    rel, agree = decode_step_rel_err(cfg, rt, reqs[:4], 256, dev, base=qbase)
-    logits_checked("(c) one w8 dense decode step of 4 slots", rel, agree, 4)
+    rel, agree, wit = decode_step_rel_err(cfg, rt, reqs[:4], 256, dev,
+                                          base=qbase)
+    logits_checked(f"{label}: one decode step of 4 slots", rel, agree, 4,
+                   tag, wit)
+    return st
 
 
 def phase_twelve(dev):
-    """Phase 12: full-width gemma-7b (28 x 3072, 16 heads of 256, GeGLU
-    24576, vocab 256000, bf16) with a 4+1d MetaTT q/v adapter (rank 8, 3
-    tasks) at 0.25 of the base q projection, served through (a) the dense
+    """Phase 12: full-width gemma-7b (3072, 16 heads of 256, GeGLU
+    24576, vocab 256000, bf16; ``GEMMA_SERVE_LAYERS`` of its 28 layers)
+    with a 4+1d MetaTT q/v adapter (rank 8, 3 tasks) at 0.25 of the base
+    q projection, served through (a) the dense
     engine, (b) the paged engine cold then warm and (c) int8 weights and
     int8 KV (paged, then the dense engine over int8 weights). Each cell
     builds the model from the seed and frees it before the next; launches
@@ -5083,7 +5221,8 @@ def phase_twelve(dev):
     def cell(label, fn):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        model = serving_model(dev, "phase12", GEMMA, SERVED_RATIO)
+        model = serving_model(dev, "phase12", GEMMA, SERVED_RATIO,
+                              layers=GEMMA_SERVE_LAYERS)
         torch.cuda.reset_peak_memory_stats(dev)   # serving, not the init
         out = fn(model)
         del model
@@ -5101,7 +5240,7 @@ def phase_twelve(dev):
 
     def int8_cell(m):
         q_peak, qbase = gemma_paged(dev, count, m, True)
-        gemma_w8_dense(dev, count, m, dense, qbase)
+        w8_dense_cell(dev, count, m, dense, qbase)
         return q_peak
     q_peak = cell("(c) int8", int8_cell)
     print(f"[phase12] (c) kv_bytes_peak int8 {q_peak} against fp {fp_peak} "
@@ -5143,17 +5282,19 @@ def first_layers(base, cfg, layers):
                                    for blk in base["blocks"]])
 
 
-def train_full_width(dev, cfg, tag, grad_layers=None):
+def train_full_width(dev, cfg, tag, grad_layers=None, variant="4d"):
     """Phase 6's setting on full-width ``cfg`` at its depth — MetaTT 4d on
-    q/v from rank 10, AdamW lr 1e-3, remat per block, LMStream batches of
-    4 x 1024 tokens, 6 steps of 3 per epoch with one DMRG sweep to rank 8
-    after step 3: finite losses, moved cores, ranks 8 after the sweep,
-    exactly ``bf16_train_per_step`` launches a step and nothing else; the
-    median step, tokens/s, peak memory and busy share, and the top device
-    operations over one more step; then, with the trainer freed, the
-    B = 1 gradient check against the plain bf16 leg with an f32 plain leg
-    as witness, on the first ``grad_layers`` layers of the same base
-    (default all), with its peak memory. Returns the 6 steps' launches."""
+    q/v (``variant="4+ed"``: MetaTT-(4+E)D on q, v and the MoE expert
+    down-projections) from rank 10, AdamW lr 1e-3, remat per block,
+    LMStream batches of 4 x 1024 tokens, 6 steps of 3 per epoch with one
+    DMRG sweep to rank 8 after step 3: finite losses, moved cores, ranks
+    8 after the sweep, exactly ``bf16_train_per_step`` launches a step and
+    nothing else; the median step, tokens/s, peak memory and busy share,
+    and the top device operations over one more step; then, with the
+    trainer freed, the B = 1 gradient check against the plain bf16 leg
+    with an f32 plain leg as witness, on the first ``grad_layers`` layers
+    of the same base (default all), with its peak memory. Returns the 6
+    steps' launches."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.config.base import OptimizerConfig, RunConfig, \
@@ -5165,7 +5306,7 @@ def train_full_width(dev, cfg, tag, grad_layers=None):
     from repro_torch.train import Trainer
 
     L = cfg.num_layers
-    run = RunConfig(model=cfg, adapter_kind="metatt", adapter_variant="4d",
+    run = RunConfig(model=cfg, adapter_kind="metatt", adapter_variant=variant,
                     adapter_rank=10, optimizer=OptimizerConfig(lr=1e-3),
                     train=TrainConfig(remat="block", seed=SEED))
     batch, seq, steps = 4, 1024, 6
@@ -5184,8 +5325,9 @@ def train_full_width(dev, cfg, tag, grad_layers=None):
     nbytes = sum(t.numel() * t.element_size() for t in M.tensors(tr.base))
     print(f"[{tag}] {cfg.name} ({L} x {cfg.d_model}, {cfg.num_heads} heads "
           f"of {cfg.resolved_head_dim} over {cfg.num_kv_heads}, "
-          f"{cfg.param_dtype}; {nbytes / 1e9:.3f} GB of base) MetaTT 4d "
-          f"q/v rank {ttlib.ranks(tr.state.adapter['cores'])}, remat per "
+          f"{cfg.param_dtype}; {nbytes / 1e9:.3f} GB of base) MetaTT "
+          f"{variant} {'/'.join(tr.spec.cfg.matrix_types)} rank "
+          f"{ttlib.ranks(tr.state.adapter['cores'])}, remat per "
           f"block, B={batch} T={seq}: init {time.perf_counter() - t0:.1f}s",
           flush=True)
     before = float(ttlib.tt_norm(tr.state.adapter["cores"]))
@@ -5200,7 +5342,7 @@ def train_full_width(dev, cfg, tag, grad_layers=None):
     if not np.isfinite(losses).all():
         raise AssertionError(f"{tag} {cfg.name}: non-finite loss {losses}")
     ranks = ttlib.ranks(tr.state.adapter["cores"])
-    if ranks != (8, 8, 8) or tr._dmrg_applied != [1]:
+    if set(ranks) != {8} or tr._dmrg_applied != [1]:
         raise AssertionError(f"{tag} {cfg.name}: ranks after the sweep "
                              f"{ranks}, sweeps at epochs {tr._dmrg_applied}")
     after = float(ttlib.tt_norm(tr.state.adapter["cores"]))
@@ -5424,6 +5566,172 @@ def phase_fifteen(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: granite-moe-1b (32 experts, top-8) served and trained at full
+# width; MetaTT-(4+E)D on its expert down-projections
+# ---------------------------------------------------------------------------
+
+GRANITE_MOE = "granite-moe-1b-a400m"
+
+
+def moe_routing_check(dev, model, reqs, tag="phase16"):
+    """Phase 16 (b): under phase 3's mild adapter (random MetaTT cores at
+    ``random_tt(0.12)`` on the served model's base), the kernel leg
+    against the plain leg (``backend="ref"``) and an f32 plain leg on the
+    same weights: the last-position prefill logits of 2 requests (the
+    model's forward) and one decode step of 4 slots, each held by
+    ``logits_checked`` with its witness. Returns the readings."""
+    import torch
+    from repro_torch.core import tt as ttlib
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import AdapterRuntime
+    cfg, spec, params, _, gen = model
+    rt = AdapterRuntime.build("live", params["base"], spec, {
+        "cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 8, scale=0.12,
+                                 device=dev)}, params["frozen"])
+    print(f"[{tag}] (b) mild adapter: adapter/base q-projection ratio "
+          f"{q_ratio(cfg, rt, gen):.3e}", flush=True)
+    legs = {"kernel": (cfg, rt.base, dispatch.DEFAULT),
+            "plain": (cfg, rt.base, dispatch.REF),
+            "f32": (f32_cfg(cfg), f32_tree(rt.base), dispatch.REF)}
+    out = {}
+    for i, r in enumerate(reqs[:2]):
+        tokens = torch.as_tensor(r.prompt, device=dev)[None]
+
+        def prefill(leg):
+            c, base, policy = legs[leg]
+            with torch.inference_mode():
+                return T.forward(base, c, spec, rt.broadcast, rt.per_layer,
+                                 tokens, task=r.task, policy=policy,
+                                 device=dev).logits[0, -1:]
+        out[f"(b) prefill logits, request {i}"] = (
+            *legs_compared(prefill, True), 1)
+    del legs
+    torch.cuda.empty_cache()
+    out["(b) one decode step of 4 slots"] = (
+        *decode_step_rel_err(cfg, rt, reqs[:4], 256, dev), 4)
+    for label, (rel, agree, wit, n) in out.items():
+        logits_checked(label, rel, agree, n, tag, wit)
+    return out
+
+
+def expert_banks_unquantized(qbase, tag="phase16"):
+    """The int8 base of a MoE model: the attention projections packed,
+    every expert bank, shared expert and router left at full precision
+    (as the JAX package's allowlist does). Prints the packed and the fp
+    bytes."""
+    from repro_torch.models import model as M
+    packed = fp = 0
+    for blk in qbase["blocks"]:
+        for name, w in blk["ffn"].items():
+            if isinstance(w, dict):
+                raise AssertionError(f"(a) int8: MoE leaf {name} quantized")
+        for grp in blk.values():
+            for w in grp.values():
+                ts = M.tensors(w)
+                n_ = sum(t.numel() * t.element_size() for t in ts)
+                if isinstance(w, dict):
+                    packed += n_
+                else:
+                    fp += n_
+    fp += sum(t.numel() * t.element_size() for t in M.tensors(
+        [qbase["embed"], qbase["final_norm"]]))
+    print(f"[{tag}] (a) int8 base: {packed / 1e9:.3f} GB packed (attention "
+          f"q/k/v/o int8 + scales), {fp / 1e9:.3f} GB at full precision "
+          "(expert banks, routers, norms, embedding): no expert bank "
+          "quantized", flush=True)
+
+
+def phase_sixteen(dev):
+    """Phase 16: full-width granite-moe-1b-a400m (24 x 1024, 16 heads of
+    64 over 8, 32 experts of SwiGLU 512, top-8 at capacity factor 2.0,
+    vocab 49155, bf16; f32 routers) through the MoE FFN of
+    ``models/moe.py`` (plain PyTorch around the capacity dispatch, as the
+    JAX package's einsums are) and every attention-side kernel at G = 2.
+    (a) served with a 4+1d MetaTT q/v adapter (rank 8, 3 tasks) at 0.25
+    of the base q projection through the dense cell, the paged cell cold
+    then warm, int8 weights + int8 KV (paged, then the dense engine over
+    int8 weights; no expert bank quantized), then a 4+ed q/v +
+    ``moe_down`` adapter (no task axis) through the dense cell, each
+    cell's kernel-vs-plain logits held by ``logits_checked`` with the f32
+    plain leg as witness (bf16 drift flips MoE routing); (b) the same
+    checks under phase 3's mild adapter (``moe_routing_check``);
+    (c) trained in phase 6's setting with MetaTT 4+ed on q, v and
+    moe_down (142 K1, 48 #5, 24 #6, 24 #7 a step and nothing else: the
+    moe_down delta is plain PyTorch), then the B = 1 gradient check. Each
+    part builds the model from the seed after a collection and frees it."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.config.base import QuantConfig
+    total, secs = {}, {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+
+    def part(label, fn, variant="4+1d"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = serving_model(dev, "phase16", GRANITE_MOE, SERVED_RATIO,
+                              variant=variant)
+        torch.cuda.reset_peak_memory_stats(dev)   # serving, not the init
+        out = fn(model)
+        del model
+        torch.cuda.synchronize()
+        print(f"[phase16] {label}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB",
+              flush=True)
+        secs[label] = time.perf_counter() - t0
+        return out
+
+    def served(m):
+        cfg = m[0]
+        reqs = dense_requests(cfg)
+        routing = moe_routing_check(dev, m, reqs)
+        dense = dense_cell(dev, count, m, "phase16", reqs)
+        fp_peak, _ = paged_cell(dev, count, m, None, "phase16",
+                                "(a) paged fp")
+        q_peak, qbase = paged_cell(dev, count, m, QuantConfig(
+            weights="int8", kv="int8"), "phase16", "(a) paged int8")
+        expert_banks_unquantized(qbase)
+        w8_dense_cell(dev, count, m, dense, qbase, "phase16",
+                      "(a) dense w8")
+        print(f"[phase16] (a) kv_bytes_peak int8 {q_peak} against fp "
+              f"{fp_peak} ({q_peak / fp_peak:.3f}x)", flush=True)
+        if not q_peak < fp_peak:
+            raise AssertionError(f"(a) int8 kv_bytes_peak {q_peak} not "
+                                 f"below fp's {fp_peak}")
+        return routing
+
+    part("(a)-(b) 4+1d served", served)
+    part("(a) 4+ed served", lambda m: dense_cell(
+        dev, count, m, "phase16",
+        [dataclasses.replace(r, task=0) for r in dense_requests(m[0])],
+        label="(a) dense 4+ed"), variant="4+ed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n = train_full_width(dev, configs.get_config(GRANITE_MOE), "phase16",
+                         variant="4+ed")
+    for k_, v in n.items():
+        total[k_] = total.get(k_, 0) + v
+    secs["(c) trained"] = time.perf_counter() - t0
+    print(f"[phase16] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}; "
+          + ", ".join(f"{k_} {v:.1f} s" for k_, v in secs.items()),
+          flush=True)
+    return total
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -5505,11 +5813,14 @@ def main(argv) -> int:
     paths["phase14"] = phase_fourteen(dev)
     t15 = time.perf_counter()
     paths["phase15"] = phase_fifteen(dev)
+    t16 = time.perf_counter()
+    paths["phase16"] = phase_sixteen(dev)
     print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 {t10 - t9:.1f} s; "
           f"phase 10 {t11 - t10:.1f} s; phase 11 {t12 - t11:.1f} s; phase "
           f"12 {t13 - t12:.1f} s; phase 13 {t14 - t13:.1f} s; phase 14 "
-          f"{t15 - t14:.1f} s; phase 15 {time.perf_counter() - t15:.1f} s; "
-          f"the script {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{t15 - t14:.1f} s; phase 15 {t16 - t15:.1f} s; phase 16 "
+          f"{time.perf_counter() - t16:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []
     for name, (src, replaces) in KERNELS.items():

@@ -6,9 +6,10 @@ and ``TrainConfig`` the trainer, ``RunConfig`` the bundle a user builds
 and trains an adapter from. Field names and defaults follow the JAX
 package; dtypes are torch dtypes. The port implements the serving slices
 (paged and dense cache, fp and int8, the live / lora / merged runtimes)
-and adapter training with checkpoints (MetaTT 4d / 5d / 4+1d, LoRA, VeRA,
-LoTR): the engine and the trainer raise ``NotImplementedError`` for any
-field value outside them instead of ignoring it.
+and adapter training with checkpoints (MetaTT 4d / 5d / 4+1d / 4+ed, LoRA,
+VeRA, LoTR) on attention decoders with a dense or a MoE FFN: the engine
+and the trainer raise ``NotImplementedError`` for any field value outside
+them instead of ignoring it.
 """
 from __future__ import annotations
 
@@ -443,7 +444,7 @@ class RunConfig:
     model: ModelConfig
     shape: Optional[ShapeConfig] = None
     adapter_kind: str = "metatt"   # metatt | lora | vera | lotr | none
-    adapter_variant: str = "4d"    # metatt: 4d | 5d | 4+1d
+    adapter_variant: str = "4d"    # metatt: 4d | 5d | 4+1d | 4+ed
     adapter_rank: int = 8
     adapter_alpha: float = 4.0
     adapter_matrices: tuple = ()   # () -> arch default

@@ -46,12 +46,15 @@ def lora_form_delta(a_l: torch.Tensor, b: torch.Tensor, cfg: MetaTTConfig,
                     x: torch.Tensor, m: str, *, task=None) -> torch.Tensor:
     """The delta from one layer's slice of ``to_lora_form`` factors:
     a_l ([T,] M, d_in_max, r), b (r, d_out_max); ``task`` a scalar or a
-    per-request (B,) vector (4+1d routing)."""
+    per-request (B,) vector (4+1d routing; 4+ed reads expert slice 0
+    without one)."""
     mi = cfg.m_index(m)
     if cfg.variant == "4+1d":
         if task is None:
             raise ValueError("variant 4+1d needs a task index")
         a = a_l[task, mi]
+    elif cfg.variant == "4+ed":
+        a = a_l[0 if task is None else task, mi]
     else:
         a = a_l[mi]
     a = a[..., : x.shape[-1], :].to(x.dtype)
@@ -143,8 +146,11 @@ def fold_transformer(params: Params, cfg: MetaTTConfig, base: dict,
                      model_cfg, *, task: Optional[int] = None) -> dict:
     """Fold ΔW into every adapted weight of a transformer base: all
     pattern positions and all super-blocks. Returns a new base tree. A
-    4+1d adapter folds ONE task slice (``task`` must be given); mixed-task
-    serving needs the live or lora runtime."""
+    4+1d (4+ed) adapter folds ONE task (expert) slice: ``task`` must be
+    given; mixed-task serving needs the live or lora runtime. Every
+    refusal raises before any weight is touched: ``moe_down`` (the
+    expert banks) has no fold, nor have ``ffn_*`` adapters on a MoE
+    block with shared experts."""
     unported = [t for t in cfg.matrix_types if t in _UNPORTED_FOLD]
     if unported:
         raise NotImplementedError(
@@ -155,10 +161,19 @@ def fold_transformer(params: Params, cfg: MetaTTConfig, base: dict,
         raise ValueError(
             f"matrix types {unfoldable} cannot be folded into dense weights; "
             "serve them with the live or lora adapter runtime")
-    if cfg.variant == "4+1d" and task is None:
+    if cfg.variant in ("4+1d", "4+ed") and task is None:
         raise ValueError(
-            "variant 4+1d folds a single task slice — pass task=<id> "
-            "(mixed-task batches need the live/lora runtime)")
+            f"variant {cfg.variant} folds a single task/expert slice — pass "
+            "task=<id> (mixed-task batches need the live/lora runtime)")
+    if (any(f == "moe" and model_cfg.num_shared_experts
+            for _, f in model_cfg.block_pattern)
+            and any(t.startswith("ffn_") for t in cfg.matrix_types)):
+        # the live path adapts the shared-expert FFN (models/moe.py runs
+        # dense_ffn on s_wg / s_wu / s_wd): it has no fold, and skipping
+        # it would silently diverge from live serving
+        raise ValueError(
+            "ffn_* adapters on a MoE block with shared experts cannot be "
+            "folded; use the live or lora runtime")
     if model_cfg.is_encdec:
         raise NotImplementedError(
             f"{model_cfg.name}: enc-dec folds come with the enc-dec model "

@@ -6,12 +6,16 @@ adapted linear map:
   MetaTT-4D     ΔW[D_in, L, M, D_out]
   MetaTT-5D     ΔW[D_in, L, M, H, D_out/H]  (head axis)
   MetaTT-(4+1)D ΔW[D_in, L, T, M, D_out]   (task axis)
+  MetaTT-(4+E)D ΔW[D_in, L, E, M, D_out]   (expert axis, the paper's §4
+                "expert partitions"; MoE models)
 
 The hot-path contraction merges the activation-independent middle cores
-once (``step_factors``): C[l, (t,) m] = G2[l]·(G3[t]·)G3/4[m] (5D also
-folds the head core into the right boundary), then per matrix
-Δy = α·((x·G1)·C[l, (t,) m])·G4. MetaTT-(4+E)D, whose expert axis only
-the MoE layers apply, comes with the MoE model family.
+once (``step_factors``): C[l, (t|e,) m] = G2[l]·(G3[t|e]·)G3/4[m] (5D
+also folds the head core into the right boundary), then per matrix
+Δy = α·((x·G1)·C[l, (t|e,) m])·G4. Under 4+ed only the MoE expert
+down-projection indexes the expert axis (by the expert that owns each
+capacity block, ``models/moe.py``); every other matrix type reads expert
+slice 0, or the slice a task index names, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,8 +31,8 @@ Params = dict  # {"cores": [c0, c1, ...]}
 
 @dataclasses.dataclass(frozen=True)
 class MetaTTConfig:
-    """Static configuration of a MetaTT adapter (variants 4d, 5d and
-    4+1d). 5d: ``num_heads`` is the query head count and ``head_dim`` its
+    """Static configuration of a MetaTT adapter (variants 4d, 5d, 4+1d
+    and 4+ed). 5d: ``num_heads`` is the query head count and ``head_dim`` its
     width; matrix types with fewer output columns read the leading ones."""
     num_layers: int
     matrix_types: tuple
@@ -68,10 +72,7 @@ class MetaTTConfig:
         if self.variant == "4+1d":
             return (self.d_in_max, L, self.num_tasks, M, self.d_out_max)
         if self.variant == "4+ed":
-            raise NotImplementedError(
-                "MetaTT variant '4+ed' applies its expert axis inside the "
-                "MoE layers (models/moe.py) and comes with the MoE model "
-                "family (ROADMAP Queue 1 item 5)")
+            return (self.d_in_max, L, self.num_experts, M, self.d_out_max)
         raise ValueError(f"unknown MetaTT variant {self.variant!r}")
 
     @property
@@ -151,7 +152,7 @@ def init_params(cfg: MetaTTConfig, generator: Optional[torch.Generator]
 
 @dataclasses.dataclass
 class StepFactors:
-    """g1 (d_in_max, r), c (L, [T,] M, r, r), g4 (r, d_out_max)."""
+    """g1 (d_in_max, r), c (L, [T|E,] M, r, r), g4 (r, d_out_max)."""
     g1: torch.Tensor
     c: Optional[torch.Tensor]
     g4: torch.Tensor
@@ -169,7 +170,8 @@ def step_factors(params: Params, cfg: MetaTTConfig) -> StepFactors:
         # the head core folds into the right boundary: (r, H, hd) -> (r, H·hd)
         bh = torch.einsum("chr,rd->chd", cores[3], cores[4][..., 0])
         g4 = bh.reshape(bh.shape[0], -1)
-    elif cfg.variant == "4+1d":
+    elif cfg.variant in ("4+1d", "4+ed"):
+        # order (D, L, T|E, M, D): C[l, t, m] = G2[l]·G3[t]·G4[m]
         c = torch.einsum("alb,btc,cmd->ltmad", cores[1], cores[2], cores[3])
         g4 = cores[4][..., 0]
     else:
@@ -178,11 +180,15 @@ def step_factors(params: Params, cfg: MetaTTConfig) -> StepFactors:
 
 
 def _task_slice(c_l: torch.Tensor, cfg: MetaTTConfig, mi: int, task):
-    """C[l, (t,) m]: scalar task -> (r, r); (B,) task vector -> (B, r, r)."""
+    """C[l, (t|e,) m]: scalar task -> (r, r); (B,) task vector -> (B, r,
+    r). 4+ed reads expert slice 0 without a task (its expert axis is
+    indexed by expert only inside the MoE layers)."""
     if cfg.variant == "4+1d":
         if task is None:
             raise ValueError("variant 4+1d needs a task index")
         return c_l[task, mi]
+    if cfg.variant == "4+ed":
+        return c_l[0 if task is None else task, mi]
     return c_l[mi]
 
 
@@ -207,7 +213,7 @@ def delta_out(f: StepFactors, cfg: MetaTTConfig, p: torch.Tensor,
     c_lm = _task_slice(c_l, cfg, mi, task).to(p.dtype)
     d_out = cfg.d_out[mi]
     g4 = f.g4 if d_out == f.g4.shape[1] else f.g4[:, :d_out]
-    if cfg.variant == "4+1d" and is_batched(task):
+    if cfg.variant in ("4+1d", "4+ed") and is_batched(task):
         q = torch.einsum("b...r,brs->b...s", p, c_lm)
     else:
         q = p @ c_lm

@@ -12,8 +12,10 @@ and the KV cache are read-only bytes; int8 halves them against bf16.
     ``{"q8": int8, "scale": f32}`` leaf that replaces a raw weight in the
     base tree. The group size follows from the shapes.
   * ``quantize_base`` — packs the attention wq/wk/wv/wo and dense-FFN
-    wu/wd/wg leaves of a base tree (embeddings and norms stay fp). The
-    engine calls it once at construction.
+    wu/wd/wg leaves of a base tree (embeddings, norms, MoE routers and
+    expert banks ``e_*`` / shared experts ``s_*`` stay at full precision,
+    as in the JAX package: a MoE model's int8 base packs its attention
+    projections only). The engine calls it once at construction.
   * ``quantize_kv`` — per-cell (token × kv-head) int8 of the paged KV
     cache at write time, amax over head_dim. Every write is independent,
     and the scales live in the same block layout as the cells, so prefix
@@ -32,7 +34,8 @@ import torch
 #: container marker key — a dict leaf carrying this key is a packed weight
 QKEY = "q8"
 
-#: weight-dict keys eligible for base quantization (the dense matmul path)
+#: weight-dict keys eligible for base quantization (the dense matmul path;
+#: MoE expert banks, shared experts and routers are not among them)
 _QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "wu", "wd", "wg"})
 
 _EPS = 1e-8

@@ -4,7 +4,7 @@
         --full-config --dmrg-start-rank 10 --rank 8 --steps-per-epoch 5
 
 Trains an adapter (``--adapter`` metatt, lora, vera or lotr; MetaTT's
-``--variant`` 4d, 5d or 4+1d) on the synthetic LM stream through the
+``--variant`` 4d, 5d, 4+1d or, on a MoE model, 4+ed) on the synthetic LM stream through the
 port's ``Trainer``: on the CUDA device by default (``--device cpu`` for
 the plain versions on the CPU), on the reduced smoke config unless
 ``--full-config``. ``--dmrg-start-rank`` above ``--rank`` adds a DMRG
@@ -30,7 +30,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True, choices=list(registry.ALL_IDS))
     ap.add_argument("--shape", default="train_4k", choices=list(SHAPES))
     ap.add_argument("--adapter", default="metatt", choices=("metatt", "lora", "vera", "lotr", "none"))
-    ap.add_argument("--variant", default="4d", choices=("4d", "5d", "4+1d"))
+    ap.add_argument("--variant", default="4d",
+                    choices=("4d", "5d", "4+1d", "4+ed"))
     ap.add_argument("--rank", type=int, default=8)
     ap.add_argument("--alpha", type=float, default=4.0)
     ap.add_argument("--lr", type=float, default=1e-3)

@@ -20,7 +20,9 @@ from repro_torch.tree import leaves
 
 def matrix_dims(cfg: ModelConfig) -> dict:
     """matrix type -> (d_in, d_out) for every adaptable linear map of the
-    attention + dense-FFN decoders the port runs."""
+    attention decoders the port runs (dense FFN or MoE; ``ffn_*`` of a
+    MoE model are its shared experts, ``moe_down`` its expert
+    down-projections)."""
     transformer.check_supported(cfg)
     d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     out = {"attn_q": (d, q), "attn_k": (d, kv), "attn_v": (d, kv),
@@ -28,26 +30,26 @@ def matrix_dims(cfg: ModelConfig) -> dict:
     if ff:
         out.update({"ffn_gate": (d, ff), "ffn_up": (d, ff),
                     "ffn_down": (ff, d)})
+    if any(f == "moe" for _, f in cfg.block_pattern):
+        out["moe_down"] = (ff, d)
     return out
 
 
 def default_matrices(cfg: ModelConfig, variant: str = "4d") -> tuple:
-    """Paper default: attention q/v (App. A.2)."""
+    """Paper default: attention q/v (App. A.2); 4+ed adds the expert
+    down-projection, the matrix its expert axis indexes."""
     transformer.check_supported(cfg)
-    return ("attn_q", "attn_v")
+    return ("attn_q", "attn_v") + (("moe_down",) if variant == "4+ed"
+                                   else ())
 
 
 def build_adapter_spec(run: RunConfig) -> peft_api.AdapterSpec:
-    """The adapter a RunConfig names: MetaTT (4d, 5d, 4+1d), LoRA, VeRA or
-    LoTR over the adapted matrix types, with their per-type dims."""
+    """The adapter a RunConfig names: MetaTT (4d, 5d, 4+1d, 4+ed), LoRA,
+    VeRA or LoTR over the adapted matrix types, with their per-type
+    dims."""
     cfg = run.model
     if run.adapter_kind == "none":
         return peft_api.NONE
-    if run.adapter_kind == "metatt" and run.adapter_variant == "4+ed":
-        raise NotImplementedError(
-            "MetaTT variant '4+ed' applies its expert axis inside the MoE "
-            "layers and comes with the MoE model family (ROADMAP Queue 1 "
-            "item 5)")
     types = run.adapter_matrices or default_matrices(cfg,
                                                      run.adapter_variant)
     dims = matrix_dims(cfg)
@@ -69,6 +71,8 @@ def build_adapter_spec(run: RunConfig) -> peft_api.AdapterSpec:
                          head_dim=cfg.resolved_head_dim)
         elif run.adapter_variant == "4+1d":
             extra = dict(num_tasks=max(run.num_tasks, 1))
+        elif run.adapter_variant == "4+ed":
+            extra = dict(num_experts=cfg.num_experts)
         elif run.adapter_variant != "4d":
             raise ValueError(
                 f"unknown MetaTT variant {run.adapter_variant!r}")
@@ -134,14 +138,22 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
 
 def loss_fn(adapter, base, frozen, batch: dict, cfg: ModelConfig,
             spec: peft_api.AdapterSpec, *, remat: bool = False,
-            policy=None, device=None) -> tuple:
-    """PEFT objective: (loss, {"ce": loss}). Differentiate it with respect
-    to the ``adapter`` tensors only; the base weights carry no grad.
-    ``batch``: tokens (B, T), optional mask (B, T) and task."""
+            aux_weight: Optional[float] = None, policy=None,
+            device=None) -> tuple:
+    """PEFT objective: (CE + aux_weight · Σ MoE aux losses, {"ce", aux
+    terms}). ``aux_weight`` defaults to ``cfg.moe_aux_weight``; the aux
+    terms (load balance, router z, each summed over layers) exist when
+    ``cfg.moe_aux_weight`` > 0. Differentiate it with respect to the
+    ``adapter`` tensors only; the base weights carry no grad. ``batch``:
+    tokens (B, T), optional mask (B, T) and task."""
     bc, per_layer = peft_api.adapter_factors(spec, adapter, frozen)
     out = transformer.forward(base, cfg, spec, bc, per_layer,
                               batch["tokens"], task=batch.get("task"),
                               remat=remat, policy=policy, device=device)
     loss = next_token_loss(out.logits, batch["tokens"], batch.get("mask"),
                            vocab_size=cfg.vocab_size)
-    return loss, {"ce": loss}
+    if not out.aux:
+        return loss, {"ce": loss}
+    aux_weight = cfg.moe_aux_weight if aux_weight is None else aux_weight
+    return (loss + aux_weight * sum(out.aux.values()),
+            {"ce": loss, **out.aux})

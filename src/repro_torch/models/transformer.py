@@ -1,6 +1,7 @@
 """Decoder-LM assembly (counterpart of ``src/repro/models/transformer.py``
-for attention decoders: init, forward, dense caches and the decode step,
-paged block pools and the co-batched paged step).
+for attention decoders with a dense or a MoE FFN: init, forward, dense
+caches and the decode step, paged block pools and the co-batched paged
+step).
 
 Weights keep the JAX package's layout so converted weights drop in: one
 dict per pattern position in ``blocks``, each leaf stacked over the
@@ -11,7 +12,9 @@ Caches mirror the blocks: ``caches[p]["self"]["k"|"v"]`` is
 pools are (nb, N, page, KV, hd), one block table shared by every layer;
 ``paged_step`` writes into them in place too. The training forward builds
 no caches and may checkpoint each super-block (``remat``), recomputing it
-in the backward.
+in the backward. MoE blocks (``models/moe.py``) add their aux losses,
+summed over layers, to ``ModelOutputs.aux`` (empty unless
+``moe_aux_weight`` > 0).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (AdapterCtx, dense_ffn, embed_tokens,
                                        lm_logits, norm)
 
@@ -69,13 +73,40 @@ def _ffn_init(cfg: ModelConfig, gen, nb, dtype, dev):
     return w
 
 
+def _moe_init(cfg: ModelConfig, gen, nb, dtype, dev):
+    """An f32 router, the expert banks (nb, E, d, ff) / (nb, E, ff, d)
+    in ``dtype`` (drawn one expert of one super-block at a time: a whole
+    f32 bank of kimi-k2's would be 22.5 GB a layer) and the shared
+    experts' dense FFN."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+
+    def bank(d_in, d_out):
+        w = torch.empty((nb, e, d_in, d_out), device=dev, dtype=dtype)
+        for i in range(nb):
+            for j in range(e):
+                w[i, j] = torch.randn((d_in, d_out), generator=gen,
+                                      device=dev, dtype=torch.float32
+                                      ).div_(d_in ** 0.5)
+        return w
+
+    w = {"router": _linear_init(gen, d, e, nb, torch.float32, dev),
+         "e_wg": bank(d, ff), "e_wu": bank(d, ff), "e_wd": bank(ff, d)}
+    if cfg.num_shared_experts:
+        sff = ff * cfg.num_shared_experts
+        w["s_wg"] = _linear_init(gen, d, sff, nb, dtype, dev)
+        w["s_wu"] = _linear_init(gen, d, sff, nb, dtype, dev)
+        w["s_wd"] = _linear_init(gen, sff, d, nb, dtype, dev)
+    return w
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port's model slice: attention + dense-FFN decoders."""
+    """The port's model slice: attention decoders with a dense or a MoE
+    FFN."""
     for mixer, ffn in cfg.block_pattern:
-        if mixer != "attn" or ffn not in ("dense", "none"):
+        if mixer != "attn" or ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: block {(mixer, ffn)} is not ported yet "
-                "(attention + dense FFN decoders only)")
+                "(attention decoders with a dense or MoE FFN only)")
     if cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: enc-dec / frontend models are not ported yet")
@@ -100,7 +131,8 @@ def init_base_params(cfg: ModelConfig, generator: Optional[torch.Generator]
                      "mixer": _attn_init(cfg, generator, nb, dtype, dev)}
         if ffn != "none":
             blk["norm2"] = _norm_init(cfg, nb, dev)
-            blk["ffn"] = _ffn_init(cfg, generator, nb, dtype, dev)
+            blk["ffn"] = (_moe_init if ffn == "moe" else _ffn_init)(
+                cfg, generator, nb, dtype, dev)
         blocks.append(blk)
     return {"embed": {"tok": embed}, "blocks": blocks,
             "final_norm": _norm_init(cfg, 1, dev)}
@@ -128,10 +160,15 @@ def _sublayer(h, blk, ffn, ctx: AdapterCtx, cfg: ModelConfig, *, positions,
                               cache_pos=cache_pos, block_tables=block_tables,
                               paged_write=paged_write)
     h = h + y
-    if ffn != "none":
+    aux = {}
+    if ffn == "moe":
+        hn = norm(h, blk["norm2"], cfg.norm_eps)
+        y, aux = moe_lib.moe_ffn(hn, blk["ffn"], ctx, cfg)
+        h = h + y
+    elif ffn != "none":
         hn = norm(h, blk["norm2"], cfg.norm_eps)
         h = h + dense_ffn(hn, blk["ffn"], ctx, cfg.mlp)
-    return h, c
+    return h, c, aux
 
 
 def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
@@ -148,44 +185,55 @@ def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
     when ``return_caches``, else None. ``remat`` checkpoints each
     super-block (``torch.utils.checkpoint``, non-reentrant): its
     activations are dropped after the forward and recomputed in the
-    backward, kernels included."""
+    backward, kernels included. Returns (h, caches, aux): aux holds each
+    MoE aux loss summed over the layers (empty without them)."""
     if remat and (caches is not None or return_caches):
         raise ValueError("remat is a training option: no caches in or out")
     p_len = len(pattern)
     nb = blocks[0]["norm1"]["w"].shape[0]
     new = [[] for _ in range(p_len)]
+    aux_layers = []
 
     def super_block(h, sb):
-        out = []
+        out, aux = [], []
         for i, (_, ffn) in enumerate(pattern):
             layer = layer_offset + sb * p_len + i
             ly = None if per_layer is None else _at(per_layer, layer)
             ctx = AdapterCtx(spec, broadcast, ly, task, policy)
             cache = None if caches is None else _at(caches[i]["self"], sb)
-            h, c = _sublayer(h, _at(blocks[i], sb), ffn, ctx, cfg,
-                             positions=positions, cache=cache,
-                             cache_pos=cache_pos, block_tables=block_tables,
-                             paged_write=paged_write)
+            h, c, a = _sublayer(h, _at(blocks[i], sb), ffn, ctx, cfg,
+                                positions=positions, cache=cache,
+                                cache_pos=cache_pos,
+                                block_tables=block_tables,
+                                paged_write=paged_write)
             out.append(c)
-        return h, out
+            aux.append(a)
+        return h, out, aux
+
+    def remat_block(h, sb):
+        h, _, aux = super_block(h, sb)
+        return h, aux
 
     for sb in range(nb):
         if remat:
-            h = checkpoint(lambda h, sb=sb: super_block(h, sb)[0], h,
-                           use_reentrant=False)
+            h, aux = checkpoint(remat_block, h, sb, use_reentrant=False)
+            aux_layers += aux
             continue
-        h, cs = super_block(h, sb)
+        h, cs, aux = super_block(h, sb)
+        aux_layers += aux
         if return_caches and caches is None:
             for i, c in enumerate(cs):
                 new[i].append(c)
+    aux = {k: torch.stack([a[k] for a in aux_layers if a]).sum()
+           for k in next((a for a in aux_layers if a), {})}
     if caches is not None:
-        return h, caches
+        return h, caches, aux
     if not return_caches:
-        return h, None
+        return h, None, aux
     stacked = [{"self": {"k": torch.stack([c["k"] for c in cs]),
                          "v": torch.stack([c["v"] for c in cs])}}
                for cs in new]
-    return h, stacked
+    return h, stacked, aux
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,12 +264,13 @@ def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
     tokens = _tokens(tokens, base, device)
     h = embed_tokens(tokens, base["embed"]["tok"], cfg.compute_dtype)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, caches = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
-                           broadcast, per_layer, cfg, positions=positions,
-                           task=task, policy=policy, remat=remat,
-                           return_caches=return_caches)
+    h, caches, aux = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
+                                broadcast, per_layer, cfg,
+                                positions=positions, task=task,
+                                policy=policy, remat=remat,
+                                return_caches=return_caches)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
-    return ModelOutputs(logits=lm_logits(h, base["embed"]["tok"]), aux={},
+    return ModelOutputs(logits=lm_logits(h, base["embed"]["tok"]), aux=aux,
                         caches=caches)
 
 
@@ -270,10 +319,10 @@ def decode_step(base, cfg: ModelConfig, spec, broadcast, per_layer, token,
     cp = torch.as_tensor(cache_pos, device=h.device).long()
     positions = (cp.reshape(-1, 1)
                  + torch.arange(t, device=h.device)[None]).expand(b, t)
-    h, caches = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
-                           broadcast, per_layer, cfg, positions=positions,
-                           caches=caches, cache_pos=cp, task=task,
-                           policy=policy)
+    h, caches, _ = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
+                              broadcast, per_layer, cfg, positions=positions,
+                              caches=caches, cache_pos=cp, task=task,
+                              policy=policy)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
     if all_logits:
         return lm_logits(h, base["embed"]["tok"]), caches
@@ -338,11 +387,11 @@ def paged_step(base, cfg: ModelConfig, spec, broadcast, per_layer, toks,
     pool = caches[0]["self"]["k"]
     write = attn_lib.paged_write_plan(tables, positions, pool.shape[1],
                                       pool.shape[2])
-    h, caches = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
-                           broadcast, per_layer, cfg, positions=positions,
-                           caches=caches, cache_pos=pos, task=task,
-                           policy=policy, block_tables=tables,
-                           paged_write=write)
+    h, caches, _ = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
+                              broadcast, per_layer, cfg, positions=positions,
+                              caches=caches, cache_pos=pos, task=task,
+                              policy=policy, block_tables=tables,
+                              paged_write=write)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
     if all_logits:
         return lm_logits(h, base["embed"]["tok"]), caches

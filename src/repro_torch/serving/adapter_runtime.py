@@ -12,6 +12,8 @@ broadcast, per_layer) bundle:
   merged — ``core/merge.fold_transformer`` adds ΔW into the frozen
            weights: no adapter work at serving time. A 4+1d adapter is
            frozen to ONE task (``folded_task``); other tasks are rejected.
+           A MetaTT-(4+E)D adapter serves ``live`` only: its expert axis
+           is contracted inside the MoE layers (``models/moe.py``).
            Under int8 weights the engine quantizes the folded base.
   none   — the base model only.
 """
@@ -50,6 +52,8 @@ class AdapterRuntime:
         if mode == "none" or spec.kind == "none":
             return cls(mode="none", spec=peft_api.NONE, base=base,
                        broadcast={}, per_layer=None)
+        # any 4+1d adapter routes by task; 4+ed's extra axis is expert-,
+        # not request-, indexed, so it is not request-routed
         has_tasks = spec.kind == "metatt" and spec.cfg.variant == "4+1d"
         if mode == "live":
             bc, pl = peft_api.adapter_factors(spec, adapter, frozen)
@@ -60,6 +64,10 @@ class AdapterRuntime:
                 f"runtime mode {mode!r} pre-merges TT cores and only applies "
                 f"to metatt adapters (got {spec.kind!r}); use mode='live'")
         if mode == "lora":
+            if spec.cfg.variant == "4+ed":
+                raise ValueError(
+                    "4+ed expert routing (models/moe.py) contracts g1 / C "
+                    "directly; serve MoE-expert adapters with mode='live'")
             form = merge.to_lora_form(adapter, spec.cfg)
             return cls(mode="lora", spec=spec, base=base,
                        broadcast={"g4": form.b}, per_layer={"a": form.a},
@@ -68,7 +76,7 @@ class AdapterRuntime:
             raise ValueError("mode='merged' needs model_cfg to locate every "
                              "adapted weight in the base tree")
         fold_task = task
-        if spec.cfg.variant == "4+1d" and fold_task is None:
+        if spec.cfg.variant in ("4+1d", "4+ed") and fold_task is None:
             fold_task = 0
         folded = merge.fold_transformer(adapter, spec.cfg, base, model_cfg,
                                         task=fold_task)

@@ -218,6 +218,14 @@ class Engine:
                  serve: Optional[ServeConfig] = None,
                  device=None):
         transformer.check_supported(model_cfg)
+        if runtime.tasked and runtime.spec.adapts("moe_down"):
+            # moe_down deltas apply over expert-sorted (E, C, ff) blocks
+            # (models/moe.py), whose leading axis is experts: a
+            # per-request (B,) task vector cannot index them
+            raise NotImplementedError(
+                "per-request task routing does not reach the expert-sorted "
+                "moe_down path; serve this adapter with a scalar task "
+                "(per-task engines) or drop moe_down from matrix_types")
         self.sv = (serve if serve is not None else ServeConfig()).validate()
         self.cfg = model_cfg
         self.rt = runtime

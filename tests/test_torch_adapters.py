@@ -16,7 +16,10 @@ against the JAX package on smoke stablelm.
   gradient first turns non-zero — LoRA's A at step 2, after its B = 0
   moved — where an entry whose gradient is near Adam's eps takes a step
   of any size up to lr: 3.9e-4 of the largest entry, 3.9e-5 in norm.
-* ``4+ed`` raises ``NotImplementedError`` naming the MoE slice.
+* ``4+ed`` on a dense model raises (its default matrices name the MoE
+  expert down-projection, which a dense model lacks), as in the JAX
+  package; on granite-moe-1b's smoke config it builds, its q / v delta
+  reads expert slice 0, and its parameter count equals the JAX one.
 """
 import functools
 
@@ -146,12 +149,49 @@ def test_metatt_5d_init_is_zero_and_materializes_like_jax():
 
 
 def test_4ed_raises_naming_the_moe_slice():
+    """A dense model has no MoE expert down-projection: 4+ed's default
+    matrices (q, v, moe_down) raise naming it, in both packages."""
     run = RunConfig(model=CFG, adapter_kind="metatt", adapter_variant="4+ed")
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError, match="moe_down"):
         TM.build_adapter_spec(run)
-    cfg = _qv(metatt.MetaTTConfig, 64, 2, 4, variant="4+ed", num_experts=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        metatt.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="moe_down"):
+        JM.build_adapter_spec(JRunConfig(
+            model=JCFG, shape=SHAPES["train_4k"], adapter_kind="metatt",
+            adapter_variant="4+ed"))
+
+
+def test_4ed_builds_reads_expert_slice_0_and_counts_like_jax():
+    """4+ed on granite-moe-1b's smoke config: mode sizes (D, L, E, M, D)
+    and parameter count equal to JAX's, ΔW = 0 at init, and under random
+    cores the q / v delta (no task) is expert slice 0's — the dense
+    ``materialize_delta`` and the lora-form fold equal the JAX delta of
+    task 0 (f32, 1e-5)."""
+    arch = "granite-moe-1b-a400m"
+    jcfg, cfg = jconfigs.get_smoke_config(arch), \
+        tconfigs.get_smoke_config(arch)
+    common = dict(adapter_kind="metatt", adapter_variant="4+ed",
+                  adapter_rank=4)
+    jspec = JM.build_adapter_spec(JRunConfig(
+        model=jcfg, shape=SHAPES["train_4k"], **common))
+    spec = TM.build_adapter_spec(RunConfig(model=cfg, **common))
+    assert spec.cfg.mode_sizes == jspec.cfg.mode_sizes == (64, 2, 4, 3, 64)
+    assert spec.cfg.num_params() == jspec.cfg.num_params()
+    fresh = metatt.init_params(spec.cfg, device="cpu")
+    assert metatt.zero_at_init(fresh, spec.cfg)
+    assert tpeft.count_trainable(spec, fresh) == jspec.cfg.num_params()
+    jad = {"cores": jtt.random_tt(KEY, jspec.cfg.mode_sizes, 4, scale=0.5)}
+    tad = from_jax_numpy(jax.device_get(jad), device="cpu")
+    bc, pl = tpeft.adapter_factors(spec, tad, {})
+    layer = 1
+    for m in ("attn_q", "attn_v"):
+        want = jmetatt.materialize_delta(jad, jspec.cfg, layer, m, task=0)
+        got = metatt.materialize_delta(tad, spec.cfg, layer, m)
+        assert _fro(got, want) <= 1e-5
+        a, b, alpha = tpeft.lora_form_factors(
+            spec, bc, {k: v[layer] for k, v in pl.items()}, m)
+        assert _fro(alpha * a @ b, want) <= 1e-5
+        other = jmetatt.materialize_delta(jad, jspec.cfg, layer, m, task=2)
+        assert _fro(got, other) > 1e-2
 
 
 # ---------------------------------------------------------------------------

@@ -2182,3 +2182,75 @@ def test_flash_bwd_any_group(dev, g, d, causal, t, s):
         torch.cuda.synchronize()
         assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1]), \
             heads
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN (models/moe.py) on the card: plain PyTorch around the
+# expert products, held to the CPU result on the same inputs
+# ---------------------------------------------------------------------------
+
+
+def _moe_case(dtype, tie=False, n=256):
+    """granite-moe-1b's widths (d 1024, 32 experts of d_ff 512, top-8,
+    capacity factor 2.0) on ``n`` tokens, made on the CPU from a seed;
+    with ``tie`` the router's columns repeat in pairs (exact ties between
+    experts 2j and 2j + 1)."""
+    from repro_torch.config.base import ModelConfig
+    cfg = ModelConfig(name="moe-case", family="moe", num_layers=1,
+                      d_model=1024, num_heads=16, num_kv_heads=8, d_ff=512,
+                      vocab_size=128, block_pattern=(("attn", "moe"),),
+                      num_experts=32, experts_per_token=8,
+                      param_dtype=dtype, compute_dtype=dtype).validate()
+    g = torch.Generator().manual_seed(11)
+    e, d, ff = 32, 1024, 512
+    router = torch.randn(d, e, generator=g) / d ** 0.5
+    if tie:
+        router[:, 1::2] = router[:, 0::2]
+    w = {"router": router,
+         "e_wg": (torch.randn(e, d, ff, generator=g) / d ** 0.5).to(dtype),
+         "e_wu": (torch.randn(e, d, ff, generator=g) / d ** 0.5).to(dtype),
+         "e_wd": (torch.randn(e, ff, d, generator=g) / ff ** 0.5).to(dtype)}
+    x = torch.randn(1, n, d, generator=g).to(dtype)
+    return cfg, w, x
+
+
+def _moe(cfg, w, x, device):
+    from repro_torch.models import moe
+    from repro_torch.models.layers import NO_ADAPTER
+    w = {k: v.to(device) for k, v in w.items()}
+    x = x.to(device)
+    xf = x.reshape(-1, x.shape[-1])
+    _, probs, _, top_i = moe.router(xf, w["router"], cfg.experts_per_token)
+    cap = moe.capacity(cfg, top_i.numel())
+    _, _, dest = moe.dispatch_plan(top_i, cfg.num_experts, cap)
+    y, _ = moe.moe_ffn(x, w, NO_ADAPTER, cfg)
+    torch.cuda.synchronize()
+    return y.cpu(), probs.cpu(), top_i.cpu(), dest.cpu()
+
+
+def test_moe_ffn_on_the_card_matches_the_cpu_in_f32(dev):
+    """Exact routing and dispatch (the same top-8 sets, the same slots and
+    dropped pairs), outputs within 1e-4 of the largest CPU value."""
+    cfg, w, x = _moe_case(torch.float32, n=512)
+    y, _, top_i, dest = _moe(cfg, w, x, dev)
+    y0, _, top_i0, dest0 = _moe(cfg, w, x, "cpu")
+    assert torch.equal(top_i, top_i0) and torch.equal(dest, dest0)
+    assert float((y - y0).abs().max() / y0.abs().max()) <= 1e-4
+
+
+def test_moe_ffn_on_the_card_is_deterministic_in_bf16(dev):
+    cfg, w, x = _moe_case(torch.bfloat16)
+    a, b = _moe(cfg, w, x, dev), _moe(cfg, w, x, dev)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_moe_router_ties_on_the_card_keep_the_lower_expert(dev):
+    """bf16 logits with exact ties (duplicated router columns): the
+    card's top-k keeps the lower expert index first, as a stable sort of
+    the same probabilities on the CPU does (and ``jax.lax.top_k``)."""
+    cfg, w, x = _moe_case(torch.bfloat16, tie=True)
+    _, probs, top_i, _ = _moe(cfg, w, x, dev)
+    assert torch.equal(probs[:, 0::2], probs[:, 1::2])
+    want = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    assert torch.equal(top_i, want[:, :cfg.experts_per_token])
+    assert bool((top_i[:, 0] % 2 == 0).all())
