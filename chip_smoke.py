@@ -62,7 +62,14 @@ Phases, each printed on its own lines:
      ragged T = 1000 and (4, 1024, 96, 8, 128): dq / dk / dv within 2e-2
      of max |plain|, lse 1e-3, two calls bit-identical, #7 timed at
      several slab sizes of the group (``dkv_slab_heads`` picks one), SDPA's
-     bf16 backward on k / v repeated to H as library;
+     bf16 backward on k / v repeated to H as library; then the head_dim
+     112 instances at kimi-k2's 64 heads over 8 (G = 8), within 2e-2 of
+     their plain versions, two calls bit-identical, SDPA with
+     ``enable_gqa`` as library: K3 at B = 1, T = S = 64, #5 at 4 x 1024
+     (lse within 1e-3), K4 over 4 slots x 256 cells, #8 and #8q at C = 1
+     and 32 (8 slots, 34-page tables); and K1 (M = 64), K2 (M = 4), #9
+     (M = 64) and #10 (M = 4) at kimi-k2's q / v projections (7168 ->
+     7168 and -> 896, r = 8);
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -201,8 +208,8 @@ Phases, each printed on its own lines:
      with a 4+1d MetaTT q/v adapter (rank 8, 3 tasks) at 0.25 of the base
      q projection (the v adapter 6144 -> 128 / 12288 -> 1024), through
      the any-group instances of K4, #8 and #8q: granite (a) the dense
-     cell at all 88 layers (33.66 B parameters, 67.3 GB: the engine must
-     allocate no second base), 4 requests of 16-96 tokens, 16 new each
+     cell at 44 of its 88 layers (about 17 B parameters, 34 GB: the engine
+     must allocate no second base), 4 requests of 16-96 tokens, 16 new each
      (2L K1 + L K3 a prefill, 2L K2 + L K4 a decode step), then (b) phase
      4's paged cell cold then warm and (c) the same with int8 KV pools
      over the bf16 base (L #8 / #8q a step, kv_bytes_peak below (b)'s) at
@@ -224,11 +231,24 @@ Phases, each printed on its own lines:
      (granite at 16 layers, mistral on its first 4: at 8 the witness does
      not fit beside the base); each model freed before the next;
      ``[phase15]`` lines and the phase's seconds on the ``[time]`` line;
-  16. one JSON line with every kernel's record (launches per path; the
-     f32 and d = 256 instances under their own names with every phase-2
-     row; K1, K2, #9 and #10 with their rows at gemma-7b's q / v; K1, K2,
-     K4, #8, #8q, #5, #6 and #7 with their rows at granite's and
-     mistral's).
+  16. granite-moe-1b-a400m (MoE, 32 experts, top-8) served and trained
+     at full width, and MetaTT-(4+E)D (``phase_sixteen``; ``[phase16]``
+     lines);
+  17. kimi-k2 (7168, 64 heads of 112 over 8, 384 experts of SwiGLU 2048,
+     top-8 at capacity factor 1.25, one shared expert, vocab 163840) at
+     full width and 1 of its 61 layers (36.5 GB of bf16 base), served
+     through the d = 112 instances of K3, K4, #8 and #8q with a 4+1d
+     adapter at 0.25 of the base q projection: (a) the dense cell, (b) the
+     paged cell cold then warm, (c) int8 weights + KV paged then the w8
+     dense cell, (d) a 4+ed adapter through the dense cell; exact
+     launches a step, the paged invariants, every cell's logits under the
+     f32 witness rule with the f32 leg run after the bf16 model is freed
+     (``Deferred``); ``[phase17]`` lines;
+then one JSON line with every kernel's record (launches per path; the
+f32, d = 256 and d = 112 instances under their own names with every
+phase-2 row; K1, K2, #9 and #10 with their rows at gemma-7b's and
+kimi-k2's q / v; K1, K2, K4, #8, #8q, #5, #6 and #7 with their rows at
+granite's and mistral's).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -340,6 +360,21 @@ KERNELS = {
     "paged_decode_attention_int8_d256": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:161"),
+    # the head_dim 112 instances (kimi-k2's serving), in the same sources
+    "flash_attention_d112": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:112"),
+    "flash_attention_fwd_d112": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:149"),
+    "decode_attention_d112": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/flash_attention.py:393"),
+    "paged_decode_attention_d112": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:161"),
+    "paged_decode_attention_int8_d112": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:161"),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. Linears: one
 # bf16 ulp (2^-7 relative) from a different f32 summation order.
@@ -353,9 +388,10 @@ TOL = {"tt_linear": (1e-2, 1e-2), "tt_linear_batched_a": (1e-2, 1e-2),
        "paged_decode_attention": (2e-2, 2e-2),
        "tt_linear_w8": (1e-2, 1e-2), "tt_linear_batched_a_w8": (1e-2, 1e-2),
        "paged_decode_attention_int8": (2e-2, 2e-2)}
-TOL.update({k + "_d256": (2e-2, 2e-2) for k in (
+TOL.update({k + sfx: (2e-2, 2e-2) for k in (
     "flash_attention", "flash_attention_fwd", "decode_attention",
-    "paged_decode_attention", "paged_decode_attention_int8")})
+    "paged_decode_attention", "paged_decode_attention_int8")
+    for sfx in ("_d256", "_d112")})
 # the paged engine's shape: 8 slots, a pool of 256 blocks of 16 cells,
 # 34-page tables (512 / 16 pages + 2 sentinel columns), 32-token chunks
 PAGED = dict(max_batch=8, cache_len=512, page_size=16, prefill_chunk=32,
@@ -545,12 +581,14 @@ def k1_rank_rows(dev, rn):
 K3_CASES = ((16, 32), (64, 32), (256, 32), (256, 8))   # (T = S, KV)
 
 
-def k3_rows(dev, rn, h=32, d=64, cases=K3_CASES, sfx=""):
+def k3_rows(dev, rn, h=32, d=64, cases=K3_CASES, sfx="", tag=None):
     """K3 at prefill attention, causal, T == S (bucketed prompt), B = 1,
     ``h`` heads of ``d`` (``sfx``: the instance's name suffix, "_d256"
-    for gemma-7b's heads of 256); every variant of the forward kernel
-    timed (one at d = 256), the launcher's choice printed; two calls
-    bit-identical."""
+    for gemma-7b's heads of 256, "_d112" for kimi-k2's 112; ``tag``: a
+    model's rows, SDPA with ``enable_gqa`` as library); every variant of
+    the forward kernel timed (one at d = 256), the launcher's choice
+    printed; two calls bit-identical. The main row is T = 64, at H = KV
+    (an instance of its own, ``sfx``: at its ``cases``' KV)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rows = []
@@ -568,7 +606,7 @@ def k3_rows(dev, rn, h=32, d=64, cases=K3_CASES, sfx=""):
         same(lambda *s: fa.flash_attention(*s, True), sets[0], name)
         pairs = t * (t + 1) // 2
         bms, by = bound_ms(nbytes, 4 * b_ * h * d * pairs)
-        g = h // kvh
+        g = 1 if tag else h // kvh
         lib_sets = [(q.transpose(1, 2),
                      kk.repeat_interleave(g, 2).transpose(1, 2),
                      vv.repeat_interleave(g, 2).transpose(1, 2))
@@ -576,18 +614,20 @@ def k3_rows(dev, rn, h=32, d=64, cases=K3_CASES, sfx=""):
         rows.append(dict(
             name=name,
             shape=f"B={b_} T=S={t} H={h} KV={kvh} d={d} causal",
-            main=t == 64 and kvh == h,
+            main=t == 64 and (kvh == h or bool(sfx)),
             max_abs_err=err,
             ms=cuda_time_ms(lambda *s: fa.flash_attention(*s, True), sets),
             plain_ms=cuda_time_ms(
                 lambda *s: fa.flash_attention_plain(*s, True), sets),
             library_ms=cuda_time_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), lib_sets),
+                    q, k, v, is_causal=True, **gqa_kw(tag)), lib_sets),
             bound_ms=bms, bound_by=by, variant=fa.fwd_variant(t, d),
             variants={v: cuda_time_ms(
                 lambda *s: fa._launch_fwd(*s, True, None, v), sets)
                 for v in fa.FWD_VARIANTS if d != 256 or v == "wg1"}))
+        if tag:
+            rows[-1].update(tag=tag, library="SDPA, enable_gqa, causal")
     return rows
 
 
@@ -646,7 +686,8 @@ def k4_rows(dev, rn, h=32, d=64, cases=K4_CASES, sfx="", tag=None):
     the main row) and KV = 8 (G = 4); and a long cache of 4096 cells at
     positions 511, 1500, 3000, 4095 (``h``, ``d``, ``cases``, ``sfx``:
     gemma-7b's 16 heads of 256, "_d256"; ``tag``: the rows of a model
-    whose group lies outside {1, 2, 4, 8}, "granite" or "mistral"). The
+    whose group lies outside {1, 2, 4, 8}, "granite" or "mistral", or
+    kimi-k2's, "kimi", whose instance ``sfx`` "_d112" is its own). The
     bound counts q, o and the K/V cells inside each slot's window; the
     library yardstick is SDPA with the boolean position mask (on
     head-repeated K/V where G > 1; tagged rows: ``enable_gqa`` on the
@@ -699,8 +740,8 @@ def k4_rows(dev, rn, h=32, d=64, cases=K4_CASES, sfx="", tag=None):
             name=name,
             shape=(f"B={b_} S={s_len} H={h} KV={kvh} d={d} "
                    f"pos={','.join(map(str, pos))}"),
-            main=kvh == h and s_len == 256 and not tag, max_abs_err=err,
-            ms=cuda_time_ms(fa.decode_attention, sets),
+            main=s_len == 256 and (bool(sfx) or (kvh == h and not tag)),
+            max_abs_err=err, ms=cuda_time_ms(fa.decode_attention, sets),
             plain_ms=cuda_time_ms(fa.decode_attention_plain, sets),
             library_ms=cuda_time_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
@@ -748,7 +789,20 @@ def phase_kernels(dev, only=None):
                 "tt_linear_batched_a_w8"), gemma_linear_rows),
               (("decode_attention", "paged_decode_attention",
                 "paged_decode_attention_int8"), gqa_attention_rows),
-              (("tt_linear", "tt_linear_batched_a"), gqa_linear_rows))
+              (("tt_linear", "tt_linear_batched_a"), gqa_linear_rows),
+              (("flash_attention_d112", "flash_attention_fwd_d112"),
+               d112_attention_rows),
+              (("decode_attention_d112",), functools.partial(
+                  k4_rows, h=KIMI_H, d=112, cases=KIMI_K4_CASES,
+                  sfx="_d112", tag="kimi")),
+              (("paged_decode_attention_d112",), functools.partial(
+                  paged_kernel_rows, h=KIMI_H, d=112, sfx="_d112",
+                  kv=KIMI_KV, tag="kimi")),
+              (("paged_decode_attention_int8_d112",), functools.partial(
+                  paged_int8_kernel_rows, h=KIMI_H, d=112, sfx="_d112",
+                  kv=KIMI_KV, tag="kimi")),
+              (("tt_linear", "tt_linear_batched_a", "tt_linear_w8",
+                "tt_linear_batched_a_w8"), kimi_linear_rows))
     rows = []
     for names, fn in groups:
         if only is None or set(names) & set(only):
@@ -892,7 +946,8 @@ def paged_kernel_rows(dev, rn, h=32, d=64, sfx="", kv=None, tag=None):
             name=name,
             shape=(f"B={b_} C={c} {heads} d={d} page={page} "
                    f"P={p_tab} N={n_blk}"),
-            main=c == PAGED["prefill_chunk"] and not tag, max_abs_err=err,
+            main=c == PAGED["prefill_chunk"] and (bool(sfx) or not tag),
+            max_abs_err=err,
             ms=cuda_time_ms(lambda *t: pa.paged_decode_attention(*t),
                             sets),
             plain_ms=cuda_time_ms(
@@ -1127,7 +1182,8 @@ def paged_int8_kernel_rows(dev, rn, h=32, d=64, sfx="", kv=None, tag=None):
             name=name,
             shape=(f"B={b_} C={c} {heads} d={d} page={page} "
                    f"P={p_tab} N={n_blk} int8"),
-            main=c == PAGED["prefill_chunk"] and not tag, max_abs_err=err,
+            main=c == PAGED["prefill_chunk"] and (bool(sfx) or not tag),
+            max_abs_err=err,
             ms=cuda_time_ms(lambda *t: pa.paged_decode_attention_int8(*t),
                             sets),
             plain_ms=cuda_time_ms(
@@ -1965,12 +2021,17 @@ def legs_compared(run, witness):
     out, rec = {}, {}
     for leg in ("kernel", "plain") + (("f32",) if witness else ()):
         out[leg], rec[leg] = record_routing(lambda: run(leg).float())
+    return legs_verdict(out, rec)
 
+
+def legs_verdict(out, rec):
+    """``legs_compared``'s result from the legs' logits rows ``out`` and
+    top-k records ``rec`` ("kernel", "plain" and, for a witness, "f32")."""
     def rel_to(a, b):
         return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
     k, p = out["kernel"], out["plain"]
     res = (rel_to(k, p), int((k.argmax(-1) == p.argmax(-1)).sum()))
-    if not witness:
+    if "f32" not in out:
         return res + (None,)
     flips = {f"{a}/{b}": routing_flips(rec[a], rec[b]) for a, b in (
         ("kernel", "plain"), ("plain", "f32"), ("kernel", "f32"))}
@@ -1984,37 +2045,54 @@ def decode_step_rel_err(cfg, rt, reqs, cache_len, dev, base=None):
     model, the f32 plain leg on the same caches and base cast to f32.
     Returns ``legs_compared``'s (rel, agree, witness) over the slots'
     logits rows."""
-    import torch
-    from repro_torch.kernels import dispatch
-    from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_map
-    bc, pl = rt.broadcast, rt.per_layer
     base = rt.base if base is None else base
+    inp = decode_step_inputs(cfg, rt, reqs, cache_len, dev, base)
+    return legs_compared(
+        lambda leg: decode_step_leg(leg, cfg, rt, base, inp, dev),
+        routed(cfg))
+
+
+def decode_step_inputs(cfg, rt, reqs, cache_len, dev, base):
+    """The inputs of ``decode_step_rel_err``'s step: the slots' caches
+    filled by a kernel-leg prefill of each prompt over ``base``, the next
+    token (its argmax), the positions and tasks. Holds no weight."""
+    import torch
+    from repro_torch.models import transformer as T
     n = len(reqs)
     caches = T.init_caches(cfg, n, cache_len, cfg.compute_dtype, device=dev)
     tok = torch.zeros((n, 1), dtype=torch.long, device=dev)
     pos = torch.zeros((n,), dtype=torch.long, device=dev)
     with torch.inference_mode():
         for slot, r in enumerate(reqs):
-            out = T.forward(base, cfg, rt.spec, bc, pl,
+            out = T.forward(base, cfg, rt.spec, rt.broadcast, rt.per_layer,
                             torch.as_tensor(r.prompt, device=dev)[None],
                             task=r.task if rt.tasked else None,
                             return_caches=True, device=dev)
             T.insert_cache_slot(caches, out.caches, slot)
             tok[slot, 0] = out.logits[0, -1].argmax()
             pos[slot] = len(r.prompt)
-        task = (torch.tensor([r.task for r in reqs], device=dev)
-                if rt.tasked else None)
+    task = (torch.tensor([r.task for r in reqs], device=dev)
+            if rt.tasked else None)
+    return dict(caches=caches, tok=tok, pos=pos, task=task)
 
-        def step(leg):
-            c, b, kv = cfg, base, tree_map(torch.clone, caches)
-            if leg == "f32":
-                c, b, kv = f32_cfg(cfg), f32_tree(base), f32_tree(kv)
-            return T.decode_step(b, c, rt.spec, bc, pl, tok, kv, pos,
-                                 task=task, policy=dispatch.DEFAULT
-                                 if leg == "kernel" else dispatch.REF,
-                                 device=dev)[0]
-        return legs_compared(step, routed(cfg))
+
+def decode_step_leg(leg, cfg, rt, base, inp, dev):
+    """One leg of ``decode_step_rel_err``'s step over ``base`` ("f32":
+    the plain leg on ``cfg``, ``base`` and the caches cast to f32 — a
+    base already in f32 is not copied); ``rt`` lends its adapter factors
+    only. Returns the slots' logits rows."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    c, b, kv = cfg, base, tree_map(torch.clone, inp["caches"])
+    if leg == "f32":
+        c, b, kv = f32_cfg(cfg), f32_tree(base), f32_tree(kv)
+    with torch.inference_mode():
+        return T.decode_step(b, c, rt.spec, rt.broadcast, rt.per_layer,
+                             inp["tok"], kv, inp["pos"], task=inp["task"],
+                             policy=dispatch.DEFAULT if leg == "kernel"
+                             else dispatch.REF, device=dev)[0]
 
 
 def adapter_ratio(rt, spec, gen):
@@ -2253,24 +2331,48 @@ def phase_serving(dev):
     return launches, dict(reqs=reqs, tokens=fp_tokens)
 
 
+def prefill_leg(leg, cfg, rt, base, req, dev):
+    """One leg of a prefill check: the last-position logits of ``req``'s
+    prompt through the model's forward over ``base`` ("f32": the plain
+    leg on ``cfg`` and ``base`` cast to f32, a base already in f32 not
+    copied); ``rt`` lends its adapter factors only."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    c, b = (f32_cfg(cfg), f32_tree(base)) if leg == "f32" else (cfg, base)
+    tokens = torch.as_tensor(req.prompt, device=dev)[None]
+    with torch.inference_mode():
+        return T.forward(b, c, rt.spec, rt.broadcast, rt.per_layer, tokens,
+                         task=req.task if rt.tasked else None,
+                         policy=dispatch.DEFAULT if leg == "kernel"
+                         else dispatch.REF, device=dev).logits[0, -1:]
+
+
 def paged_step_rel_err(cfg, rt, prompts, tasks, dev, base=None,
                        kv_quant=False):
     """One pure-decode and one mixed prefill/decode ``paged_step`` (the
     engine's (B, 32) step) from the same pools through the kernel leg and
     the plain leg (over ``base``, default the runtime's; int8 pools with
-    ``kv_quant``). The pools are filled by chunked prefill of every
-    prompt (kernel leg). Decode: every slot one token at position plen.
-    Mixed: slots 0-1 decode, slots 2-3 prefill the 32 prompt tokens from
-    position 96 (the cells they overwrite hold the same tokens' KV). On a
+    ``kv_quant``); ``paged_step_inputs`` makes the pools and steps. On a
     MoE model, also the f32 plain leg on the same pools and base cast to
     f32. Returns {step: ``legs_compared``'s (rel, agree, witness) over the
     slots' logits rows}."""
-    import torch
-    from repro_torch.kernels import dispatch
-    from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_map
-    bc, pl = rt.broadcast, rt.per_layer
     base = rt.base if base is None else base
+    inp = paged_step_inputs(cfg, rt, prompts, tasks, dev, base, kv_quant)
+    return {name: legs_compared(
+        lambda leg: paged_step_leg(leg, cfg, rt, base, inp, name, dev),
+        routed(cfg)) for name in inp["steps"]}
+
+
+def paged_step_inputs(cfg, rt, prompts, tasks, dev, base, kv_quant=False):
+    """The pools of ``paged_step_rel_err``, filled by chunked prefill of
+    every prompt (kernel leg, over ``base``), the tables and tasks, and
+    its two steps: decode, every slot one token at position plen; mixed,
+    slots 0-1 decode, slots 2-3 prefill the 32 prompt tokens from
+    position 96 (the cells they overwrite hold the same tokens' KV).
+    Holds no weight."""
+    import torch
+    from repro_torch.models import transformer as T
     n, c, page = len(prompts), PAGED["prefill_chunk"], PAGED["page_size"]
     pages = PAGED["cache_len"] // page
     caches = T.init_paged_caches(cfg, n * pages, page, cfg.compute_dtype,
@@ -2290,31 +2392,41 @@ def paged_step_rel_err(cfg, rt, prompts, tasks, dev, base=None,
         done = [0] * n
         while any(d < pl_ for d, pl_ in zip(done, plen)):
             width = [min(c, pl_ - d) for d, pl_ in zip(done, plen)]
-            T.paged_step(base, cfg, rt.spec, bc, pl, toks_at(done, width),
-                         caches, tables, torch.tensor(done),
+            T.paged_step(base, cfg, rt.spec, rt.broadcast, rt.per_layer,
+                         toks_at(done, width), caches, tables,
+                         torch.tensor(done),
                          torch.tensor([max(w - 1, 0) for w in width]),
                          task=task, device=dev)
             done = [d + w for d, w in zip(done, width)]
-        nxt = toks_at(plen, [1] * n)
-        nxt[:, 0] = torch.arange(n) + 11         # any next token
-        mixed = nxt.clone()
-        mixed[2:] = toks_at([96] * n, [c] * n)[2:]
-        steps = {"decode": (nxt, plen, [0] * n),
-                 "mixed": (mixed, plen[:2] + [96] * (n - 2),
-                           [0, 0] + [c - 1] * (n - 2))}
-        out = {}
-        for name, (toks, pos, sel) in steps.items():
-            def step(leg):
-                c, b, kv = cfg, base, tree_map(torch.clone, caches)
-                if leg == "f32":
-                    c, b, kv = f32_cfg(cfg), f32_tree(base), f32_tree(kv)
-                return T.paged_step(
-                    b, c, rt.spec, bc, pl, toks, kv, tables,
-                    torch.tensor(pos), torch.tensor(sel), task=task,
-                    policy=dispatch.DEFAULT if leg == "kernel"
-                    else dispatch.REF, device=dev)[0]
-            out[name] = legs_compared(step, routed(cfg))
-    return out
+    nxt = toks_at(plen, [1] * n)
+    nxt[:, 0] = torch.arange(n) + 11         # any next token
+    mixed = nxt.clone()
+    mixed[2:] = toks_at([96] * n, [c] * n)[2:]
+    steps = {"decode": (nxt, plen, [0] * n),
+             "mixed": (mixed, plen[:2] + [96] * (n - 2),
+                       [0, 0] + [c - 1] * (n - 2))}
+    return dict(caches=caches, tables=tables, task=task, steps=steps)
+
+
+def paged_step_leg(leg, cfg, rt, base, inp, name, dev):
+    """One leg of ``paged_step_rel_err``'s step ``name`` over ``base``
+    ("f32": the plain leg on ``cfg``, ``base`` and the pools cast to f32,
+    int8 pools kept; a base already in f32 is not copied). Returns the
+    slots' logits rows."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    toks, pos, sel = inp["steps"][name]
+    c, b, kv = cfg, base, tree_map(torch.clone, inp["caches"])
+    if leg == "f32":
+        c, b, kv = f32_cfg(cfg), f32_tree(base), f32_tree(kv)
+    with torch.inference_mode():
+        return T.paged_step(
+            b, c, rt.spec, rt.broadcast, rt.per_layer, toks, kv,
+            inp["tables"], torch.tensor(pos), torch.tensor(sel),
+            task=inp["task"], policy=dispatch.DEFAULT if leg == "kernel"
+            else dispatch.REF, device=dev)[0]
 
 
 def serve_checked(eng, reqs, label, tag, new=32):
@@ -5001,7 +5113,14 @@ def gemma_dense(dev, count, model):
                       dense_requests(model[0]))
 
 
-def dense_cell(dev, count, model, tag, reqs, new=32, label="(a) dense"):
+def attn_sfx(cfg):
+    """The ``LAUNCHES`` suffix of ``cfg``'s attention instances: "_d256"
+    (gemma-7b), "_d112" (kimi-k2) or ""."""
+    return {256: "_d256", 112: "_d112"}.get(cfg.resolved_head_dim, "")
+
+
+def dense_cell(dev, count, model, tag, reqs, new=32, label="(a) dense",
+               check=True, profiled=True):
     """Phase 3's dense cell on a full-width model (phases 12, 14 and 16):
     4 slots x 256 cells, ``reqs`` requests of ``new`` tokens each; 2L K1
     + L K3 a prefill, 2L K2 + L K4 a decode step (their d = 256 instances
@@ -5010,13 +5129,15 @@ def dense_cell(dev, count, model, tag, reqs, new=32, label="(a) dense"):
     the base (its allocation beyond the runtime's is at most 5% of the
     base's bytes); prefill and decode-step logits within 5% of the plain
     leg's largest logit (``logits_checked``; on a MoE model with the f32
-    plain leg as witness, through an f32 engine at prefill)."""
+    plain leg as witness, through an f32 engine at prefill). ``check``
+    False leaves the logits to the caller (phase 17's deferred witness),
+    ``profiled`` False the busy share unmeasured."""
     import torch
     from repro_torch.config.base import KernelConfig, ServeConfig
     from repro_torch.models import model as M
     from repro_torch.serving import AdapterRuntime, Engine
     cfg, spec, params, rt, gen = model
-    sfx = "_d256" if cfg.resolved_head_dim == 256 else ""
+    sfx = attn_sfx(cfg)
     k3, k4 = "flash_attention" + sfx, "decode_attention" + sfx
     serve = ServeConfig(cache_mode="dense", max_batch=4, cache_len=256,
                         out_cap=32)
@@ -5052,10 +5173,13 @@ def dense_cell(dev, count, model, tag, reqs, new=32, label="(a) dense"):
     print(f"[{tag}] {label}: launches "
           f"{json.dumps({k: v for k, v in n.items() if v})} = {k1} over "
           f"{steps} (L = {L})", flush=True)
-    _, busy = device_share(f"{label} {cfg.name} generate of 4 requests",
-                           lambda: eng.generate(reqs[:4]),
-                           show=("paged_tc", "flash_fwd"))
+    busy = device_share(f"{label} {cfg.name} generate of 4 requests",
+                        lambda: eng.generate(reqs[:4]),
+                        show=("paged_tc", "flash_fwd"))[1] if profiled \
+        else None
     cell_metrics(label, st, busy, tag)
+    if not check:
+        return dict(reqs=reqs, stats=st, launches=n)
     ref = KernelConfig(backend="ref")
     engs = {"kernel": eng, "plain": Engine(cfg, rt, serve=serve, kernels=ref,
                                            device=dev)}
@@ -5086,7 +5210,14 @@ def gemma_paged(dev, count, model, quant):
         "(c) paged int8" if quant else "(b) paged fp")
 
 
-def paged_cell(dev, count, model, quant, phase, tag):
+def paged_picked(reqs):
+    """The 4 of ``paged_requests`` whose prompts a paged-step check
+    prefills: two short, the two longest."""
+    return reqs[1:3] + sorted(reqs[3:], key=lambda r: len(r.prompt))[-2:]
+
+
+def paged_cell(dev, count, model, quant, phase, tag, check=True,
+               profiled=True):
     """Phase 4's paged cell on a full-width model (phases 12, 14, 16) — 8
     slots, 256 blocks of 16 cells, chunk 32, 16 requests of 40-300 prompt
     tokens, half sharing a 100-token prefix per task, cold then warm,
@@ -5096,7 +5227,8 @@ def paged_cell(dev, count, model, quant, phase, tag):
     JAX); every request finished, no leaked block, warm prefix hits and
     COW; a pure-decode and a mixed paged step within 5% of the plain leg's
     largest logit (``logits_checked``, with the f32 witness on a MoE
-    model). Returns (kv_bytes_peak, the int8 base or None)."""
+    model; ``check`` and ``profiled`` as ``dense_cell``'s). Returns
+    (kv_bytes_peak, the int8 base or None)."""
     import torch
     from repro_torch.config.base import QuantConfig, ServeConfig
     from repro_torch.models import model as M
@@ -5104,7 +5236,7 @@ def paged_cell(dev, count, model, quant, phase, tag):
     cfg, spec, params, rt, gen = model
     q8 = quant is not None
     name = ("paged_decode_attention_int8" if q8 else "paged_decode_attention"
-            ) + ("_d256" if cfg.resolved_head_dim == 256 else "")
+            ) + attn_sfx(cfg)
     eng = Engine(cfg, rt, serve=ServeConfig(
         cache_mode="paged", quant=quant if q8 else QuantConfig(), **PAGED),
         device=dev)
@@ -5133,9 +5265,9 @@ def paged_cell(dev, count, model, quant, phase, tag):
           f"{json.dumps({k: v for k, v in total.items() if v})} ({name} "
           f"L = {cfg.num_layers} an engine step); kv_bytes_peak {kv_peak}",
           flush=True)
-    _, busy = device_share(f"{tag} {cfg.name} generate of 16 requests "
-                           "(warm)", lambda: eng.generate(reqs), top_n=12,
-                           show=("paged_tc",))
+    busy = device_share(f"{tag} {cfg.name} generate of 16 requests "
+                        "(warm)", lambda: eng.generate(reqs), top_n=12,
+                        show=("paged_tc",))[1] if profiled else None
     cell_metrics(f"{tag} cold", runs["cold"], None, phase)
     cell_metrics(f"{tag} warm", runs["warm"], busy, phase)
     w8 = q8 and quant.weights == "int8"
@@ -5144,7 +5276,9 @@ def paged_cell(dev, count, model, quant, phase, tag):
         unadapted_projection_cost(cfg, qbase, dev)
     del eng
     torch.cuda.empty_cache()
-    picked = reqs[1:3] + sorted(reqs[3:], key=lambda r: len(r.prompt))[-2:]
+    if not check:
+        return kv_peak, qbase
+    picked = paged_picked(reqs)
     res = paged_step_rel_err(cfg, rt, [r.prompt for r in picked],
                              [r.task for r in picked], dev, base=qbase,
                              kv_quant=q8)
@@ -5155,19 +5289,20 @@ def paged_cell(dev, count, model, quant, phase, tag):
 
 
 def w8_dense_cell(dev, count, model, dense, qbase, tag="phase12",
-                  label="(c) dense w8"):
+                  label="(c) dense w8", check=True):
     """Phases 12 (c) and 16 (a), dense part: the dense cell's requests
     through the dense engine over int8 weights (phase 5's): 2L #9 + L K3
     a prefill, 2L #10 + L K4 a decode step (their d = 256 instances at
     heads of 256), no K1 / K2; one decode step over the int8 base within
     5% of the plain leg's largest logit (``logits_checked``, with the f32
-    witness on a MoE model). Returns the run's stats."""
+    witness on a MoE model; ``check`` as ``dense_cell``'s). Returns the
+    run's stats."""
     import torch
     from repro_torch.config.base import KernelConfig, QuantConfig, \
         ServeConfig
     from repro_torch.serving import Engine
     cfg, spec, params, rt, gen = model
-    sfx = "_d256" if cfg.resolved_head_dim == 256 else ""
+    sfx = attn_sfx(cfg)
     eng = Engine(cfg, rt, serve=ServeConfig(
         cache_mode="dense", max_batch=4, cache_len=256, out_cap=32),
         kernels=KernelConfig(quant=QuantConfig(weights="int8")), device=dev)
@@ -5188,6 +5323,8 @@ def w8_dense_cell(dev, count, model, dense, qbase, tag="phase12",
           flush=True)
     del eng
     torch.cuda.empty_cache()
+    if not check:
+        return st
     rel, agree, wit = decode_step_rel_err(cfg, rt, reqs[:4], 256, dev,
                                           base=qbase)
     logits_checked(f"{label}: one decode step of 4 slots", rel, agree, 4,
@@ -5403,9 +5540,11 @@ def phase_thirteen(dev):
 # ---------------------------------------------------------------------------
 
 #: phase 14's depths: arch -> (the dense cell's, the paged cells'), of 88.
-#: granite-34b's 33.66 B bf16 parameters (67.3 GB) fit the card whole;
-#: mistral-large's 122.2 B do not, so its cells keep its widths at 8.
-GQA_DEPTHS = {GRANITE: (88, 16), MISTRAL: (8, 8)}
+#: granite-34b's 33.66 B bf16 parameters (67.3 GB) fit the card whole, but
+#: its dense cell runs 44 of its layers (about 34 GB), which pays for
+#: phase 17's time; mistral-large's 122.2 B do not fit, so its cells keep
+#: its widths at 8.
+GQA_DEPTHS = {GRANITE: (44, 16), MISTRAL: (8, 8)}
 GQA_NEW = 16                  # new tokens a request of the dense cell
 #: the kernels each phase-14 cell must launch
 GQA_KERNELS = ("decode_attention", "paged_decode_attention",
@@ -5428,8 +5567,8 @@ def phase_fourteen(dev):
     128 over 8, SwiGLU 28672, vocab 32768) in bf16 with a 4+1d MetaTT q/v
     adapter (rank 8, 3 tasks) at 0.25 of the base q projection — the v
     adapter 6144 -> 128 and 12288 -> 1024 — served through K4, #8 and #8q
-    at G = 48 and 12: per model (a) the dense cell (granite at all 88
-    layers, 67.3 GB: the engine must hold no second base), (b) the paged
+    at G = 48 and 12: per model (a) the dense cell (granite at 44 of 88
+    layers, about 34 GB: the engine must hold no second base), (b) the paged
     cell cold then warm and (c) the same with int8 KV pools (#8q,
     kv_bytes_peak below (b)'s), at ``GQA_DEPTHS``; exact launches a step,
     the paged invariants, logits within 5% of the plain leg's largest;
@@ -5452,7 +5591,7 @@ def phase_fourteen(dev):
 
     def cell(label, arch, layers, fn):
         # earlier phases' objects in reference cycles (a Trainer, an
-        # Engine) keep their tensors until a collection: granite's 67.3 GB
+        # Engine) keep their tensors until a collection: granite's 34 GB
         # needs them gone
         gc.collect()
         torch.cuda.empty_cache()
@@ -5583,8 +5722,6 @@ def moe_routing_check(dev, model, reqs, tag="phase16"):
     ``logits_checked`` with its witness. Returns the readings."""
     import torch
     from repro_torch.core import tt as ttlib
-    from repro_torch.kernels import dispatch
-    from repro_torch.models import transformer as T
     from repro_torch.serving import AdapterRuntime
     cfg, spec, params, _, gen = model
     rt = AdapterRuntime.build("live", params["base"], spec, {
@@ -5592,22 +5729,10 @@ def moe_routing_check(dev, model, reqs, tag="phase16"):
                                  device=dev)}, params["frozen"])
     print(f"[{tag}] (b) mild adapter: adapter/base q-projection ratio "
           f"{q_ratio(cfg, rt, gen):.3e}", flush=True)
-    legs = {"kernel": (cfg, rt.base, dispatch.DEFAULT),
-            "plain": (cfg, rt.base, dispatch.REF),
-            "f32": (f32_cfg(cfg), f32_tree(rt.base), dispatch.REF)}
     out = {}
     for i, r in enumerate(reqs[:2]):
-        tokens = torch.as_tensor(r.prompt, device=dev)[None]
-
-        def prefill(leg):
-            c, base, policy = legs[leg]
-            with torch.inference_mode():
-                return T.forward(base, c, spec, rt.broadcast, rt.per_layer,
-                                 tokens, task=r.task, policy=policy,
-                                 device=dev).logits[0, -1:]
-        out[f"(b) prefill logits, request {i}"] = (
-            *legs_compared(prefill, True), 1)
-    del legs
+        out[f"(b) prefill logits, request {i}"] = (*legs_compared(
+            lambda leg: prefill_leg(leg, cfg, rt, rt.base, r, dev), True), 1)
     torch.cuda.empty_cache()
     out["(b) one decode step of 4 slots"] = (
         *decode_step_rel_err(cfg, rt, reqs[:4], 256, dev), 4)
@@ -5732,6 +5857,336 @@ def phase_sixteen(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 17: kimi-k2 (384 experts, heads of 112) served at full width through
+# the d = 112 instances of K3, K4, #8 and #8q
+# ---------------------------------------------------------------------------
+
+KIMI = "kimi-k2-1t-a32b"
+#: phase 17's depth: 1 of kimi-k2's 61 layers, widths kept. One layer is
+#: 36.5 GB of bf16 base (its 384 experts x 3 x 7168 x 2048 alone 33.8 GB,
+#: the tied 163840 x 7168 embedding 2.3 GB); two do not fit beside the
+#: engine, and the f32 witness of one (73 GB) fits the card alone
+KIMI_LAYERS = 1
+KIMI_H, KIMI_KV = 64, 8                 # 64 heads of 112 over 8 KV heads
+#: the d = 112 instances: names in ``KERNELS``
+D112_KERNELS = ("flash_attention_d112", "flash_attention_fwd_d112",
+                "decode_attention_d112", "paged_decode_attention_d112",
+                "paged_decode_attention_int8_d112")
+#: K4's phase-2 row at kimi-k2's heads: 4 slots x 256 cells
+KIMI_K4_CASES = ((KIMI_KV, 256, (0, 37, 130, 255)),)
+#: #5 at d = 112: its training shape (B, T = S), the next slice's
+KIMI_FWD_SHAPES = ((4, 1024),)
+#: kimi-k2's q / v projections: K = d_model -> N = 64 x 112 and 8 x 112
+KIMI_QV = ((7168, 7168, 8), (7168, 896, 8))
+
+
+def d112_attention_rows(dev, rn):
+    """K3 at d = 112, B = 1, T = S = 64, kimi-k2's 64 heads over 8
+    (``k3_rows``), then #5 at d = 112 at its training shape (4 x 1024)
+    against its plain version: output within 2e-2 abs + rel, lse within
+    1e-3 absolute, two calls bit-identical (output and lse), its time, the
+    plain version's and SDPA's with ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = k3_rows(dev, rn, KIMI_H, 112, ((64, KIMI_KV),), "_d112", "kimi")
+    name, h, kv, d = "flash_attention_fwd_d112", KIMI_H, KIMI_KV, 112
+    for b_, t in KIMI_FWD_SHAPES:
+        q, k, v = rn(b_, t, h, d), rn(b_, t, kv, d), rn(b_, t, kv, d)
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        po, plse = fa.flash_attention_fwd_plain(q, k, v, True)
+        err = compare(name, o, po)
+        lse_err = float((lse - plse).abs().max())
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"{name} lse: {lse_err:.3e} > 1e-3")
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, True)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{name}: two calls differ")
+        del po, plse, o2, lse2
+        pairs = b_ * h * t * (t + 1) // 2
+        bms, by = bound_ms(2 * (2 * b_ * t * h * d + 2 * b_ * t * kv * d)
+                           + 4 * b_ * h * t, 4 * d * pairs)
+        lib = [x.transpose(1, 2) for x in (q, k, v)]
+        ms = cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
+                          [()])
+        lse_buf = torch.empty_like(lse)
+        variants = {vn: cuda_time_ms(
+            lambda vn=vn: fa._launch_fwd(q, k, v, True, lse_buf, vn), [()])
+            for vn in fa.FWD_VARIANTS}
+        rows.append(dict(
+            name=name, shape=f"B={b_} T=S={t} H={h} KV={kv} d={d} causal",
+            main=True, max_abs_err=err, lse_err=lse_err, ms=ms,
+            plain_ms=event_time_ms(
+                lambda: fa.flash_attention_fwd_plain(q, k, v, True), ()),
+            library_ms=cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    *lib, is_causal=True, enable_gqa=True), [()]),
+            library="SDPA, enable_gqa, causal", tag="kimi",
+            bound_ms=bms, bound_by=by, variant=fa.fwd_variant(t, d),
+            variants=variants, tflops=4 * d * pairs / ms / 1e9))
+        print(f"[kernel] {name} {rows[-1]['shape']}: err {err:.3e}, lse "
+              f"{lse_err:.3e}; {ms:.4f} ms = {rows[-1]['tflops']:.1f} "
+              f"TFLOP/s, {bms / ms:.1%} of its bound ({by})", flush=True)
+        del q, k, v, o, lse, lib, lse_buf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kimi_linear_rows(dev, rn):
+    """K1 (M = 64 prompt rows) and #9, K2 (M = 4 slots) and #10 at
+    kimi-k2's q / v projections (7168 -> 7168 and -> 896, r = 8; W bf16,
+    or int8 per output channel): ``qv_linear_rows``."""
+    return qv_linear_rows(dev, rn, "kimi", KIMI_QV, (
+        ("tt_linear", 64), ("tt_linear_batched_a", 4), ("tt_linear_w8", 64),
+        ("tt_linear_batched_a_w8", 4)))
+
+
+def packed_leaves(qbase):
+    """The int8 leaves ({"q8", "scale"}) of an int8 base, every other leaf
+    None: what a deferred check over it keeps once the bf16 base is
+    freed."""
+    from repro_torch.kernels import quant
+    if quant.is_quantized(qbase):
+        return qbase
+    if isinstance(qbase, dict):
+        return {k: packed_leaves(v) for k, v in qbase.items()}
+    if isinstance(qbase, (list, tuple)):
+        return type(qbase)(packed_leaves(v) for v in qbase)
+    return None
+
+
+def grafted(packed, base):
+    """``packed``'s int8 leaves over ``base``'s other leaves: the int8
+    base of the f32 witness (its int8 leaves the served ones, as
+    ``f32_tree`` keeps them)."""
+    from repro_torch.kernels import quant
+    if quant.is_quantized(packed):
+        return packed
+    if isinstance(packed, dict):
+        return {k: grafted(v, base[k]) for k, v in packed.items()}
+    if isinstance(packed, (list, tuple)):
+        return type(packed)(grafted(v, b) for v, b in zip(packed, base))
+    return base
+
+
+def witness_base(dev, cfg, spec, dtypes, seed=SEED):
+    """The served base in f32, value for value: ``serving_model``'s
+    generator state drawn through an f32 config (the init draws every
+    leaf in f32 before its cast), each leaf then rounded in place, 2^28
+    values at a time, to ``dtypes`` (the served leaves' dtypes, in
+    ``tensors`` order) and kept in f32."""
+    import torch
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = M.init_params(f32_cfg(cfg), spec, generator=gen,
+                         device=dev)["base"]
+    leaves = M.tensors(base)
+    assert len(leaves) == len(dtypes)
+    for t, dt in zip(leaves, dtypes):
+        if dt != t.dtype:
+            for part in t.view(-1).split(1 << 28):
+                part.copy_(part.to(dt))
+    return base
+
+
+class Deferred:
+    """Logits checks whose f32 witness leg runs after the bf16 model is
+    freed: kimi-k2's base in f32 (73 GB) cannot sit beside the bf16 one
+    (36.5 GB). A check keeps its inputs (caches, pools, tokens: no
+    weight), the kernel and plain legs' logits and top-k records, and the
+    key of the base its legs run over in ``bases`` ("fp"; "int8", the
+    served int8 base, whose packed leaves it keeps). ``replay`` runs each
+    f32 leg over the f32 base (the int8 leaves grafted on for "int8") and
+    holds the check by ``logits_checked`` with that witness."""
+
+    def __init__(self, tag):
+        self.tag, self.items, self.bases, self.packed = tag, [], {}, {}
+
+    def check(self, label, n, run, key):
+        """``run(leg, base)``: one leg's logits rows over ``base``."""
+        if key == "int8":
+            self.packed[key] = packed_leaves(self.bases[key])
+        out, rec = {}, {}
+        for leg in ("kernel", "plain"):
+            out[leg], rec[leg] = record_routing(
+                lambda: run(leg, self.bases[key]).float())
+        rel, agree, _ = legs_verdict(out, rec)
+        print(f"[{self.tag}] {label}: logits vs plain leg max |kernel - "
+              f"plain| / max |plain| {rel:.3e}, argmax equal {agree}/{n} "
+              "(its f32 witness leg runs after the bf16 model is freed)",
+              flush=True)
+        self.items.append((label, n, run, key, out, rec))
+
+    def replay(self, base32):
+        bases = {"fp": base32}
+        bases.update({k: grafted(p, base32) for k, p in self.packed.items()})
+        for label, n, run, key, out, rec in self.items:
+            out["f32"], rec["f32"] = record_routing(
+                lambda: run("f32", bases[key]).float())
+            rel, agree, wit = legs_verdict(out, rec)
+            logits_checked(label, rel, agree, n, self.tag, wit)
+
+
+def kimi_checks(wit, label, cfg, rt, dev, reqs=None, paged=None, key="fp",
+                kv_quant=False):
+    """A served cell's logits checks, deferred (``Deferred``): with
+    ``reqs``, the last-position prefill logits of 2 requests (unless
+    ``key`` is "int8") and one decode step of 4 slots; with ``paged``
+    (requests), a pure-decode and a mixed paged step of 4 slots. The
+    inputs are made over the base ``wit.bases[key]`` with the kernel leg;
+    ``rt`` lends its adapter factors only."""
+    fac = dataclasses.replace(rt, base=None)
+    base = wit.bases[key]
+    if reqs is not None and key == "fp":
+        for i, r in enumerate(reqs[:2]):
+            wit.check(f"{label} prefill, request {i}", 1,
+                      lambda leg, b, r=r: prefill_leg(leg, cfg, fac, b, r,
+                                                      dev), key)
+    if reqs is not None:
+        inp = decode_step_inputs(cfg, fac, reqs[:4], 256, dev, base)
+        wit.check(f"{label} one decode step of 4 slots (tasks "
+                  f"{[r.task for r in reqs[:4]]})", 4,
+                  lambda leg, b: decode_step_leg(leg, cfg, fac, b, inp, dev),
+                  key)
+    if paged is not None:
+        picked = paged_picked(paged)
+        inp = paged_step_inputs(cfg, fac, [r.prompt for r in picked],
+                                [r.task for r in picked], dev, base,
+                                kv_quant)
+        for step in inp["steps"]:
+            wit.check(f"{label}: one {step} paged step of 4 slots", 4,
+                      lambda leg, b, step=step: paged_step_leg(
+                          leg, cfg, fac, b, inp, step, dev), key)
+
+
+def phase_seventeen(dev):
+    """Phase 17: kimi-k2 at full width (7168, 64 heads of 112 over 8, 384
+    experts of SwiGLU 2048, top-8 at capacity factor 1.25, one shared
+    expert, vocab 163840, bf16 with f32 routers) at ``KIMI_LAYERS`` of its
+    61 layers, served with a 4+1d MetaTT q/v adapter (rank 8, 3 tasks) at
+    0.25 of the base q projection through the d = 112 instances of K3,
+    K4, #8 and #8q: (a) the dense cell (2L K1 + L K3 a prefill, 2L K2 + L
+    K4 a decode step; the one profiled window), (b) the paged cell cold
+    then warm (L #8 a step), (c) int8 weights + int8 KV paged (L #8q a
+    step; no expert bank quantized), then the dense engine over int8
+    weights (#9 / #10 in K1's / K2's place), (d) a 4+ed q / v /
+    ``moe_down`` adapter (its expert mode 384 wide) through the dense
+    cell. Each cell's logits are held under phase 16's witness rule, the
+    f32 leg deferred (``Deferred``): the bf16 models are freed, the f32
+    base is rebuilt from the seed and each check's f32 leg runs then.
+    Every request FINISHED, no leaked block, int8 kv_bytes_peak below
+    fp's, no second copy of the base; step ms, tok/s, peak memory a
+    cell."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.config.base import QuantConfig
+    from repro_torch.models import model as M
+    total, secs = {}, {}
+    wit = Deferred("phase17")
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+
+    def cell(label, fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        print(f"[phase17] {label}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB",
+              flush=True)
+        secs[label] = time.perf_counter() - t0
+        return out
+
+    def build(variant):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        m = serving_model(dev, "phase17", KIMI, SERVED_RATIO,
+                          layers=KIMI_LAYERS, variant=variant)
+        secs[f"build {variant}"] = time.perf_counter() - t0
+        wit.bases["fp"] = m[3].base
+        return m
+
+    m = build("4+1d")
+    cfg, spec, rt = m[0], m[1], m[3]
+    dtypes = [t.dtype for t in M.tensors(rt.base)]
+    base_b = sum(t.numel() * t.element_size() for t in M.tensors(rt.base))
+    reqs, preqs = dense_requests(cfg), paged_requests(cfg)
+    dense = cell("(a) dense", lambda: dense_cell(
+        dev, count, m, "phase17", reqs, check=False))
+    kimi_checks(wit, "(a) dense", cfg, rt, dev, reqs=reqs)
+    fp_peak, _ = cell("(b) paged fp", lambda: paged_cell(
+        dev, count, m, None, "phase17", "(b) paged fp", check=False,
+        profiled=False))
+    kimi_checks(wit, "(b) paged fp", cfg, rt, dev, paged=preqs)
+    q_peak, qbase = cell("(c) paged int8", lambda: paged_cell(
+        dev, count, m, QuantConfig(weights="int8", kv="int8"), "phase17",
+        "(c) paged int8", check=False, profiled=False))
+    expert_banks_unquantized(qbase, "phase17")
+    wit.bases["int8"] = qbase
+    kimi_checks(wit, "(c) paged int8", cfg, rt, dev, paged=preqs,
+                key="int8", kv_quant=True)
+    cell("(c) dense w8", lambda: w8_dense_cell(
+        dev, count, m, dense, qbase, "phase17", "(c) dense w8",
+        check=False))
+    kimi_checks(wit, "(c) dense w8", cfg, rt, dev, reqs=reqs, key="int8")
+    print(f"[phase17] (c) kv_bytes_peak int8 {q_peak} against fp {fp_peak} "
+          f"({q_peak / fp_peak:.3f}x)", flush=True)
+    if not q_peak < fp_peak:
+        raise AssertionError(f"(c) int8 kv_bytes_peak {q_peak} not below "
+                             f"fp's {fp_peak}")
+    del m, rt, qbase, dense
+    wit.bases.clear()
+    m = build("4+ed")
+    reqs0 = [dataclasses.replace(r, task=0) for r in reqs]
+    cell("(d) dense 4+ed", lambda: dense_cell(
+        dev, count, m, "phase17", reqs0, label="(d) dense 4+ed",
+        check=False, profiled=False))
+    kimi_checks(wit, "(d) dense 4+ed", cfg, m[3], dev, reqs=reqs0)
+    del m
+    wit.bases.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    print(f"[phase17] the bf16 models freed: {left / 1e9:.3f} GB allocated "
+          "before the f32 witness (the checks' inputs; limit 5% of the "
+          "base)", flush=True)
+    if left > 0.05 * base_b:
+        raise AssertionError(f"{left} bytes held past the bf16 models")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base32 = witness_base(dev, cfg, spec, dtypes)
+    print(f"[phase17] f32 witness base: "
+          f"{sum(t.numel() * 4 for t in M.tensors(base32)) / 1e9:.3f} GB in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    wit.replay(base32)
+    print(f"[phase17] the f32 witness: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+    del base32, wit
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["f32 witness"] = time.perf_counter() - t0
+    for name in D112_KERNELS[:1] + D112_KERNELS[2:]:
+        if not total.get(name):
+            raise AssertionError(f"phase 17: {name} not launched")
+    print(f"[phase17] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}; "
+          + ", ".join(f"{k_} {v:.1f} s" for k_, v in secs.items()),
+          flush=True)
+    return total
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -5815,12 +6270,14 @@ def main(argv) -> int:
     paths["phase15"] = phase_fifteen(dev)
     t16 = time.perf_counter()
     paths["phase16"] = phase_sixteen(dev)
+    t17 = time.perf_counter()
+    paths["phase17"] = phase_seventeen(dev)
     print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 {t10 - t9:.1f} s; "
           f"phase 10 {t11 - t10:.1f} s; phase 11 {t12 - t11:.1f} s; phase "
           f"12 {t13 - t12:.1f} s; phase 13 {t14 - t13:.1f} s; phase 14 "
           f"{t15 - t14:.1f} s; phase 15 {t16 - t15:.1f} s; phase 16 "
-          f"{time.perf_counter() - t16:.1f} s; the script "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{t17 - t16:.1f} s; phase 17 {time.perf_counter() - t17:.1f} s; "
+          f"the script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []
     for name, (src, replaces) in KERNELS.items():
@@ -5843,14 +6300,17 @@ def main(argv) -> int:
                 for r in mine]
         keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by")
-        if name in D256_KERNELS:  # every phase-2 row of a d = 256 instance
+        if name in D256_KERNELS + D112_KERNELS:   # every phase-2 row of a
+            # d = 256 or d = 112 instance
             rec["rows"] = [{k: r[k] for k in keys + ("variant", "lse_err",
                                                      "library")
                             if k in r} for r in mine]
-        gemma = [{k: r[k] for k in keys} for r in mine
-                 if r.get("tag") == "gemma"]
-        if gemma:        # K1, K2, #9, #10 at gemma-7b's q / v, phase 2
-            rec["gemma_rows"] = gemma
+        for model_tag in ("gemma", "kimi"):   # K1, K2, #9, #10 at gemma-7b's
+            # and kimi-k2's q / v, phase 2
+            tagged = [{k: r[k] for k in keys} for r in mine
+                      if r.get("tag") == model_tag and "_d" not in name]
+            if tagged:
+                rec[f"{model_tag}_rows"] = tagged
         gqa = [{k: r[k] for k in keys + ("tag", "variant", "variants",
                                          "slab_heads", "library")
                 if k in r} for r in mine if r.get("tag") in GQA_MODELS]

@@ -19,7 +19,9 @@ KERNELS = ("tt_linear", "tt_linear_batched_a", "flash_attention",
            "decode_attention_d256", "paged_decode_attention_d256",
            "paged_decode_attention_int8_d256", "tt_linear_w8_f32",
            "tt_linear_batched_a_w8_f32", "flash_attention_bwd_dq_d256",
-           "flash_attention_bwd_dkv_d256")
+           "flash_attention_bwd_dkv_d256", "flash_attention_d112",
+           "flash_attention_fwd_d112", "decode_attention_d112",
+           "paged_decode_attention_d112", "paged_decode_attention_int8_d112")
 _COUNTERS = (_tl.LAUNCHES, _fa.LAUNCHES, _pa.LAUNCHES)
 
 

@@ -43,7 +43,16 @@
 //    for only after the next tile's S product is issued;
 //  - under causal masking the tiles above the diagonal are skipped (per
 //    warpgroup), only the diagonal and the S edge are masked, and the
-//    longest query tiles launch first.
+//    longest query tiles launch first;
+//  - head_dim 112 (kimi-k2, 7168 / 64) runs the d = 128 instance padded
+//    in shared memory (template DR = 112): each row is read as 14 chunks
+//    of 16 bytes, chunks 14-15 of the 128-wide swizzled tile are
+//    zero-filled, so Q·Kᵀ and P·V run unchanged on the d = 128 tiles
+//    (the zero columns add exact zeros to S, and O's columns 112-127 are
+//    never stored); the scale is 112^-0.5, the operands in device memory
+//    stay 112 wide. 16/128 of the tensor-core work is padding, which a
+//    prefill bound by latency and a training forward at a fraction of
+//    the peak do not feel first.
 // Numerics follow the TPU kernels: scores in f32 scaled by 1/sqrt(d)
 // (carried in log2 units, so exp is one ex2), masked entries at -1e30 and
 // their p at 0, l summed from the f32 p, p rounded to v's dtype (bf16)
@@ -93,7 +102,10 @@ constexpr int fwd_min_blocks() {   // blocks an SM the registers allow
   return D == 256 ? 1 : NWG == 1 ? (D == 64 ? 3 : 2) : (D == 64 ? 2 : 1);
 }
 
-template <int D, int NWG>
+// DR: the operands' head_dim; D: the tile width, DR padded to the next
+// multiple of 64 (kimi-k2's 112 runs as 128, its columns past 112 zero in
+// shared memory and never stored)
+template <int D, int NWG, int DR = D>
 __global__ void __launch_bounds__(NWG * 128, (fwd_min_blocks<D, NWG>()))
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -120,13 +132,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int nkv_wg =
       causal ? min(nkv, (min(S, qw + 64) + BN - 1) / BN) : nkv;
 
-  load_tile<BM, D, NT>(base + L::Q, qb, sd.s[1], q0, T, tid);
+  load_tile<BM, D, NT, DR>(base + L::Q, qb, sd.s[1], q0, T, tid);
   auto issue = [&](int j) {
     const int st = j % FWD_STAGES;
-    load_tile<BN, D, NT>(base + L::K + st * L::STR, kb, sd.s[4], j * BN, S,
-                         tid);
-    load_tile<BN, D, NT>(base + L::V + st * L::STR, vb, sd.s[7], j * BN, S,
-                         tid);
+    load_tile<BN, D, NT, DR>(base + L::K + st * L::STR, kb, sd.s[4], j * BN,
+                             S, tid);
+    load_tile<BN, D, NT, DR>(base + L::V + st * L::STR, vb, sd.s[7], j * BN,
+                             S, tid);
   };
   issue(0);
   cp_async_commit();
@@ -226,7 +238,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qi < T) {
       const float inv = 1.f / l[r];
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c)
+      for (int c = 0; c < DR / 8; ++c)   // the DR real columns only
         *reinterpret_cast<__nv_bfloat162*>(ob + qi * sd.s[10] + 8 * c +
                                            ca) =
             __floats2bfloat162_rn(oacc[4 * c + 2 * r] * inv,
@@ -238,24 +250,24 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int NWG>
+template <int D, int NWG, int DR = D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int T, int S, int H, int KV, int causal,
                const long long* st, void* stream) {
   using L = FwdSmem<D, NWG>;
   constexpr int smem = L::TOTAL + 1024;   // + the alignment slack
   static bool done = false;
-  cudaError_t e = allow_smem(flash_fwd_kernel<D, NWG>, smem, &done);
+  cudaError_t e = allow_smem(flash_fwd_kernel<D, NWG, DR>, smem, &done);
   if (e != cudaSuccess) return (int)e;
   FwdStrides sd;
   for (int i = 0; i < 12; ++i) sd.s[i] = st[i];
   dim3 grid(H, B, (T + L::BM - 1) / L::BM);
-  flash_fwd_kernel<D, NWG>
+  flash_fwd_kernel<D, NWG, DR>
       <<<grid, NWG * 128, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<bf16*>(o),
           static_cast<float*>(lse), T, S, H, KV, causal,
-          1.0f / sqrtf((float)D), sd);
+          1.0f / sqrtf((float)DR), sd);   // the real head_dim's scale
   return (int)cudaGetLastError();
 }
 
@@ -400,25 +412,31 @@ extern "C" {
 // v: b, s, kv; o: b, t, h), each a multiple of 8 with 16-byte aligned
 // bases. Causal masks ki > qi. lse: nullptr (prefill), or (B, H, T) f32
 // contiguous, written with the per-row log-sum-exp (the training
-// forward). d in {64, 128, 256}. variant: 1 one warpgroup a block, 2 two
-// warpgroups a block (the wrapper chooses; kernels/flash_attention.py);
-// d = 256 takes variant 1 only (shared memory).
+// forward). d in {64, 112, 128, 256} (112 on the d = 128 tiles, padded
+// in shared memory). variant: 1 one warpgroup a block, 2 two warpgroups a
+// block (the wrapper chooses; kernels/flash_attention.py); d = 256 takes
+// variant 1 only (shared memory).
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, void* lse, int B, int T, int S, int H,
                          int KV, int d, int causal, int variant,
                          const long long* strides, void* stream) {
   if (B < 1 || T < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 ||
-      (T + 63) / 64 > 65535 || (d != 64 && d != 128 && d != 256))
+      (T + 63) / 64 > 65535 ||
+      (d != 64 && d != 112 && d != 128 && d != 256))
     return (int)cudaErrorInvalidValue;
   switch (variant * 1000 + d) {
     case 1064: return launch_fwd<64, 1>(q, k, v, o, lse, B, T, S, H, KV,
                                         causal, strides, stream);
+    case 1112: return launch_fwd<128, 1, 112>(q, k, v, o, lse, B, T, S, H,
+                                              KV, causal, strides, stream);
     case 1128: return launch_fwd<128, 1>(q, k, v, o, lse, B, T, S, H, KV,
                                          causal, strides, stream);
     case 1256: return launch_fwd<256, 1>(q, k, v, o, lse, B, T, S, H, KV,
                                          causal, strides, stream);
     case 2064: return launch_fwd<64, 2>(q, k, v, o, lse, B, T, S, H, KV,
                                         causal, strides, stream);
+    case 2112: return launch_fwd<128, 2, 112>(q, k, v, o, lse, B, T, S, H,
+                                              KV, causal, strides, stream);
     case 2128: return launch_fwd<128, 2>(q, k, v, o, lse, B, T, S, H, KV,
                                          causal, strides, stream);
     default: return (int)cudaErrorInvalidValue;

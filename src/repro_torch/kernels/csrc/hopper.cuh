@@ -10,7 +10,11 @@
 // column blocks of R rows of 128 bytes, each block 1024-byte aligned (the
 // swizzle's repeat); 16-byte chunk c of row r sits at chunk c ^ (r % 8).
 // That is the layout the descriptors below read, and it also keeps the
-// 16-byte row copies free of bank conflicts.
+// 16-byte row copies free of bank conflicts. A head_dim that is not a
+// multiple of 64 (kimi-k2's 112) is padded in shared memory only: its rows
+// take the next multiple of 64 columns, the chunks past its own d are
+// zero-filled (load_tile's DR), and the products run as at that width;
+// operands in device memory keep their own d.
 
 #pragma once
 
@@ -368,25 +372,30 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
       a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-// rows [r0, r0 + R) of a (rows, D) bf16 operand into an R-row swizzled
-// tile at shared address `tile`, by NT threads issuing cp.async of 16
-// bytes; rows ≥ n are zero-filled (source size 0, the address clamped to
-// a valid row)
-template <int R, int D, int NT = 128>
+// rows [r0, r0 + R) of a (rows, DR) bf16 operand into an R-row swizzled
+// tile of D columns (D a multiple of 64, DR ≤ D a multiple of 8) at
+// shared address `tile`, by NT threads issuing cp.async of 16 bytes; rows
+// ≥ n and the columns past DR (the padding of a head_dim that is not a
+// multiple of 64) are zero-filled (source size 0, the address clamped to
+// the start of a valid row)
+template <int R, int D, int NT = 128, int DR = D>
 __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* src,
                                           long long row_stride, int r0,
                                           int n, int tid) {
-  constexpr int CPR = D / 8;   // 16-byte chunks a row
+  constexpr int CPR = D / 8;   // 16-byte chunks a tile row
   static_assert(R * CPR % NT == 0, "whole rounds of 16-byte copies");
+  static_assert(D % 64 == 0 && DR % 8 == 0 && DR <= D && D - DR < 64,
+                "D: DR padded to the next multiple of 64");
 #pragma unroll
   for (int i = 0; i < R * CPR / NT; ++i) {
     const int c = tid + i * NT;
     const int row = c / CPR, ch = c % CPR, r = r0 + row;
+    const bool ok = r < n && (DR == D || ch < DR / 8);
     const uint32_t dst = tile + (ch / 8) * R * 128 + row * 128 +
                          (((ch % 8) ^ (row % 8)) << 4);
     cp_async16(dst, src + static_cast<long long>(min(r, n - 1)) * row_stride +
-                        ch * 8,
-               r < n ? 16 : 0);
+                        (ok ? ch * 8 : 0),
+               ok ? 16 : 0);
   }
 }
 

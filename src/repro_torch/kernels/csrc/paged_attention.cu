@@ -56,6 +56,16 @@
 //    the padding costs no time, and padded rows are never written;
 //  - the online softmax stays in the accumulator registers (a row's
 //    values sit in one quad of lanes); O stays f32;
+//  - head_dim 112 (kimi-k2, 7168 / 64): the d = 128 instances padded in
+//    shared memory (template DR = 112). A bf16 row is read as 14 chunks
+//    of 16 bytes and an int8 row (112 bytes) as 7, the rest of the
+//    128-wide swizzled tile zero-filled by the copies themselves (#8q's
+//    zero chunk widens to two zero chunks), so the products, the ring and
+//    the chunk merge run unchanged at 128; the scale is 112^-0.5, only
+//    112 columns a row are stored (o holds 64 heads x 112), and the pools
+//    and q stay 112 wide in device memory. Bound by bytes, the kernel
+//    reads no padding from device memory: the zero columns cost
+//    tensor-core and shared-memory work only;
 //  - head_dim 256 (gemma-7b): a 64-cell tile of K or V is 32 KB, so the
 //    ring has two stages (q 32 KB + 2 x 2 x 32 KB; #8q 2 x 2 x 16 KB of
 //    int8 ring and the two 32 KB widened tiles), and every block runs
@@ -217,7 +227,10 @@ __device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
 // bounded for two; at d = 256 (`mma.sync` only) for one: O alone is 128
 // registers a thread, and the q fragments are read from shared memory at
 // each tile instead of being held (64 more)
-template <int D, int NWG, bool WG, bool Q8, bool DENSE = false>
+// DR: the operands' head_dim (kimi-k2's 112) on tiles of D = DR padded
+// to the next multiple of 64: the chunks past DR are zero-filled in shared
+// memory, the products run at D, and only DR columns are stored
+template <int D, int NWG, bool WG, bool Q8, bool DENSE = false, int DR = D>
 __global__ void __launch_bounds__(NWG * 128,
                                   NWG == 1 ? (D == 256 ? 1
                                               : D == 128 ? 2 : 3)
@@ -233,7 +246,10 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
   using L = PagedSmem<D, NWG, Q8>;
   typedef typename Cell<Q8>::T CT;
   constexpr int NT = NWG * 128, QR = L::QR, CH = D / 8;
-  constexpr int CC = D * sizeof(CT) / 16;   // 16-byte copies a cell
+  constexpr int CC = D * sizeof(CT) / 16;   // 16-byte copies a tile cell
+  constexpr int CCR = DR * sizeof(CT) / 16;  // ... of them holding data
+  static_assert(DR <= D && D - DR < 64 && DR * sizeof(CT) % 16 == 0,
+                "DR padded to D in whole 16-byte chunks");
   static_assert(WG || NWG == 1, "mma.sync blocks are one warpgroup");
   static_assert(!(WG && Q8), "the int8 leg runs mma.sync");
   static_assert(!DENSE || (!WG && !Q8), "the dense leg runs mma.sync, fp");
@@ -272,7 +288,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
   // this block's query rows r0 .. r0 + QR - 1 (rows past C·G are zero)
   for (int i = tid; i < QR * CH; i += NT) {
     const int row = i / CH, c = i % CH, rr = r0 + row;
-    const bool ok = rr < rows;
+    const bool ok = rr < rows && c < DR / 8;   // padding columns zero
     const int cc = rr / G, g = rr - cc * G;
     cp_async16(chunk_at<QR>(base + L::Q, row, c),
                ok ? q + bb * st.v[0] + cc * st.v[1] + (kvh * G + g) * st.v[2] +
@@ -288,7 +304,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
     for (int i = tid; i < 2 * PT * CC; i += NT) {
       const int isv = i >= PT * CC, rem = isv ? i - PT * CC : i;
       const int cell = rem / CC, c = rem % CC, ci = t * PT + cell;
-      const bool ok = ci < nkeys;
+      const bool ok = ci < nkeys && c < CCR;   // padding columns zero
       long long off = 0;
       if (ok && DENSE) {   // slot bb's cell ci
         off = bb * (isv ? st.v[6] : st.v[3]) +
@@ -584,7 +600,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_k,
     bf16* ob = o + bb * st.v[9] + cc * st.v[10] + (kvh * G + g) * st.v[11];
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DR / 8; ++n)   // the DR real columns only
       *reinterpret_cast<__nv_bfloat162*>(ob + 8 * n + ca) =
           __floats2bfloat162_rn(oacc[4 * n + 2 * h] * inv,
                                 oacc[4 * n + 2 * h + 1] * inv);
@@ -597,7 +613,7 @@ struct TcArgs {
   int B, C, G, KV, N, page, P, split, nslab, nch;
 };
 
-template <int D, int NWG, bool WG, bool Q8, bool DENSE = false>
+template <int D, int NWG, bool WG, bool Q8, bool DENSE = false, int DR = D>
 int launch_tc(const TcArgs& a, const Strides& st, void* stream) {
   using L = PagedSmem<D, NWG, Q8>;
   // + the table row (none when DENSE) and the alignment slack
@@ -606,32 +622,35 @@ int launch_tc(const TcArgs& a, const Strides& st, void* stream) {
   static int smem_set = 48 * 1024;   // per instantiation, grows only
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_tc_kernel<D, NWG, WG, Q8, DENSE>,
+        paged_tc_kernel<D, NWG, WG, Q8, DENSE, DR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
   dim3 grid(a.KV, a.B, a.nslab * a.nch);
-  paged_tc_kernel<D, NWG, WG, Q8, DENSE>
+  paged_tc_kernel<D, NWG, WG, Q8, DENSE, DR>
       <<<grid, NWG * 128, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(a.q), a.k, a.v,
           static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
           static_cast<const int*>(a.tables), static_cast<const int*>(a.pos),
           static_cast<bf16*>(a.o), static_cast<float*>(a.ws),
           static_cast<int*>(a.cnt), a.C, a.G, a.N, a.page, a.P, a.split,
-          LOG2E / sqrtf((float)D), st);
+          LOG2E / sqrtf((float)DR), st);   // the real head_dim's scale
   return (int)cudaGetLastError();
 }
 
-template <int D, bool Q8>
+template <int D, bool Q8, int DR = D>
 int launch_tc_d(int rows, const TcArgs& a, const Strides& st, void* stream) {
   if constexpr (Q8 || D == 256) {   // `mma.sync`, at most SLAB_MMA rows
-    return launch_tc<D, 1, false, Q8>(a, st, stream);
+    return launch_tc<D, 1, false, Q8, false, DR>(a, st, stream);
   } else {
-    if (rows < 64) return launch_tc<D, 1, false, false>(a, st, stream);
-    if (rows <= 64) return launch_tc<D, 1, true, false>(a, st, stream);
-    if (rows <= 128) return launch_tc<D, 2, true, false>(a, st, stream);
-    return launch_tc<D, 4, true, false>(a, st, stream);
+    if (rows < 64)
+      return launch_tc<D, 1, false, false, false, DR>(a, st, stream);
+    if (rows <= 64)
+      return launch_tc<D, 1, true, false, false, DR>(a, st, stream);
+    if (rows <= 128)
+      return launch_tc<D, 2, true, false, false, DR>(a, st, stream);
+    return launch_tc<D, 4, true, false, false, DR>(a, st, stream);
   }
 }
 
@@ -660,6 +679,7 @@ int run_tc(const void* q, const void* k, const void* v, const void* ks,
   // rows a block: all C·G (padded to the product's tile), or slabs
   const int brows = nslab > 1 ? cap : rows;
   if (d == 64) return launch_tc_d<64, Q8>(brows, a, st, stream);
+  if (d == 112) return launch_tc_d<128, Q8, 112>(brows, a, st, stream);
   if (d == 128) return launch_tc_d<128, Q8>(brows, a, st, stream);
   if (d == 256) return launch_tc_d<256, Q8>(brows, a, st, stream);
   return (int)cudaErrorInvalidValue;
@@ -687,6 +707,8 @@ int run_dense(const void* q, const void* k, const void* v, const void* pos,
   const TcArgs a{q, k, v, nullptr, nullptr, nullptr, pos, o, ws, cnt, B, 1,
                  G, KV, 0, 1, S, split, nslab, nch};
   if (d == 64) return launch_tc<64, 1, false, false, true>(a, st, stream);
+  if (d == 112)
+    return launch_tc<128, 1, false, false, true, 112>(a, st, stream);
   if (d == 128) return launch_tc<128, 1, false, false, true>(a, st, stream);
   if (d == 256) return launch_tc<256, 1, false, false, true>(a, st, stream);
   return (int)cudaErrorInvalidValue;
@@ -1084,10 +1106,11 @@ extern "C" {
 // int32 (entries >= N are sentinels), last dim contiguous; pos (B,) int32;
 // o (B, C, H, d) bf16. strides: 13 element strides (q: b, c, h; k: n, p,
 // kv; v: n, p, kv; o: b, c, h; tables: b), q/k/v/o ones a multiple of 8
-// with 16-byte aligned bases. d in {64, 128, 256}; any H / KV; page a
+// with 16-byte aligned bases. d in {64, 112, 128, 256} (112 on the
+// d = 128 tiles: dt = 128 below, else dt = d); any H / KV; page a
 // multiple of 8 in [8, 64]. split: tiles of 64 cells a chunk
 // of the window (0: one block a window); with split > 0, ws an f32
-// workspace of B · KV · slabs · chunks · threads · (d / 2 + 4) floats
+// workspace of B · KV · slabs · chunks · threads · (dt / 2 + 4) floats
 // (threads = 128 · warpgroups, slabs = ceil(C·G / 256), at d = 256
 // ceil(C·G / 64) with 128 threads, chunks = ceil(P · page / (64 ·
 // split))) and cnt B · KV · slabs zeroed int counters (left at zero).
@@ -1119,7 +1142,7 @@ int paged_attention_int8(const void* q, const void* k, const void* v,
 // int32; o (B, H, d) bf16. strides: 10 element strides (q: b, h; k: b, s,
 // kv; v: b, s, kv; o: b, h), each a multiple of 8 with 16-byte aligned
 // bases and a contiguous last dim. Slot b attends cells
-// 0 .. min(pos[b], S - 1). d in {64, 128, 256}; any H / KV. split, ws
+// 0 .. min(pos[b], S - 1). d in {64, 112, 128, 256}; any H / KV. split, ws
 // and cnt as paged_attention_bf16's, with 128 threads a block, slabs =
 // ceil(G / 64) and chunks = ceil(S / (64 · split)).
 int dense_decode_attention_bf16(const void* q, const void* k, const void* v,

@@ -20,7 +20,10 @@ A CPU tensor runs the plain version (``kernels/ref.py``, through the
 layout shims below). A CUDA tensor launches the kernel or raises: bf16
 operands at head_dim 64, 128 and 256 (gemma-7b; the d = 256 instances of
 K3 / #5, #6, #7 and K4 are counted under the kernel's name + ``_d256``;
-#7's at d = 256 runs two warpgroups a block, one owning dk and one dv);
+#7's at d = 256 runs two warpgroups a block, one owning dk and one dv),
+and at 112 for K3 / #5 and K4 (kimi-k2: the d = 128 kernels on tiles
+padded in shared memory, ``tile_dim``; counted under + ``_d112``; #6 /
+#7 raise ``NotImplementedError`` there, ``HEAD_DIMS_BWD``);
 f32 operands (RoBERTa trains and
 serves in f32) launch the f32 instances of K3 / #5, #6, #7 and K4 at
 head_dim 64 (FFMA, ``csrc/attention_f32.cuh``; counted under the
@@ -55,10 +58,13 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "flash_attention_bwd_dkv_f32": 0, "decode_attention_f32": 0,
             "flash_attention_d256": 0, "flash_attention_fwd_d256": 0,
             "flash_attention_bwd_dq_d256": 0,
-            "flash_attention_bwd_dkv_d256": 0, "decode_attention_d256": 0}
+            "flash_attention_bwd_dkv_d256": 0, "decode_attention_d256": 0,
+            "flash_attention_d112": 0, "flash_attention_fwd_d112": 0,
+            "decode_attention_d112": 0}
 
-#: head dims of the bf16 forward and decode kernels (K3 / #5, K4, #8, #8q)
-HEAD_DIMS = (64, 128, 256)
+#: head dims of the bf16 forward and decode kernels (K3 / #5, K4, #8, #8q);
+#: 112 runs on tiles of 128 (``tile_dim``)
+HEAD_DIMS = (64, 112, 128, 256)
 #: head dims of the bf16 backward (#6 / #7)
 HEAD_DIMS_BWD = (64, 128, 256)
 #: head dims of the f32 instances (RoBERTa's heads of 64)
@@ -150,6 +156,14 @@ def _fn(name: str):
     return f
 
 
+def tile_dim(d: int) -> int:
+    """The width of the shared-memory tiles a bf16 head_dim ``d`` runs on:
+    ``d`` padded to the next multiple of 64 (kimi-k2's 112 -> 128; the
+    padding columns are zero-filled in shared memory and never stored).
+    The split workspaces of K4 / #8 / #8q are sized by it."""
+    return -(-d // 64) * 64
+
+
 def _instance(t) -> str:
     """The suffix of the C function an operand launches: "_f32" or ""
     (bf16, after "_bf16")."""
@@ -158,17 +172,17 @@ def _instance(t) -> str:
 
 def _suffix(t) -> str:
     """The ``LAUNCHES`` suffix of the instance an operand launches: "_f32",
-    "_d256" (bf16 at head_dim 256) or "" (bf16 at 64 / 128)."""
-    return _instance(t) or ("_d256" if t.shape[-1] == 256 else "")
+    "_d256" / "_d112" (bf16 at head_dim 256 / 112) or "" (bf16 at 64 /
+    128)."""
+    return _instance(t) or {256: "_d256", 112: "_d112"}.get(t.shape[-1], "")
 
 
 def _check_cuda(ts, d: int, what: str, dtypes=DTYPES,
                 dims=HEAD_DIMS) -> str:
     """Device, dtype, layout and head_dim of the operands ``ts`` (bf16 in
     ``dims``, f32 in ``HEAD_DIMS_F32``); returns the instance's
-    ``LAUNCHES`` suffix: "_f32", "_d256" (bf16 at 256) or "" (bf16 at 64
-    / 128). Every operand in one of ``dtypes`` and all in the same one,
-    else ``TypeError``."""
+    ``LAUNCHES`` suffix (``_suffix``). Every operand in one of ``dtypes``
+    and all in the same one, else ``TypeError``."""
     _build.check_device(ts[0])
     dt = ts[0].dtype
     if dt not in dtypes:

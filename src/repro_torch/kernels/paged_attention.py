@@ -16,7 +16,9 @@ f32), the output is in q's dtype.
 A CPU tensor runs the plain version (``kernels/ref.py``). A CUDA tensor
 launches the kernel (bf16 q, bf16 or int8 pools, head_dim 64, 128 or 256
 — gemma-7b's, counted under the kernel's name + ``_d256``: ``mma.sync``
-in slabs of at most 64 rows, a two-stage ring of 32 KB tiles; f32
+in slabs of at most 64 rows, a two-stage ring of 32 KB tiles — or 112,
+kimi-k2's, counted under + ``_d112``: the d = 128 kernels on tiles padded
+in shared memory, the pools 112 wide (an int8 row 112 bytes); f32
 q, f32 or int8 pools, head_dim 64; any GQA group in bf16 — a slab may
 start mid-column, as granite-34b's G = 48 has it — and G in {1, 2, 4, 8}
 in f32 (``flash_attention.GROUPS_F32``); page a multiple of 8 up to
@@ -55,7 +57,9 @@ LAUNCHES = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0,
             "paged_decode_attention_f32": 0,
             "paged_decode_attention_int8_f32": 0,
             "paged_decode_attention_d256": 0,
-            "paged_decode_attention_int8_d256": 0}
+            "paged_decode_attention_int8_d256": 0,
+            "paged_decode_attention_d112": 0,
+            "paged_decode_attention_int8_d112": 0}
 
 PAGES = tuple(range(8, 65, 8))
 #: cells a streamed tile of #8's kernel, and the most rows a block takes
@@ -238,7 +242,8 @@ def _launch_tc(q, k_cache, v_cache, tables, pos, o, n: int, page: int, st,
             elems = f32_workspace_elems(b * kv * slabs, chunks, brows, d)
         else:
             threads = 128 * (1 if brows <= 64 else 2 if brows <= 128 else 4)
-            elems = b * kv * slabs * chunks * threads * (d // 2 + 4)
+            elems = (b * kv * slabs * chunks * threads
+                     * (_fa.tile_dim(d) // 2 + 4))
         ws = torch.empty(elems, dtype=torch.float32, device=q.device)
         cnt = _build.counters(q.device, b * kv * slabs)
     head = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()]
@@ -268,7 +273,7 @@ def launch_dense(q, k, v, pos, o, split: int) -> int:
         chunks = -(-s // (TILE_CELLS * split))
         blocks = b * kv * (1 if f32 else dense_slabs(h, kv))
         elems = (f32_workspace_elems(blocks, chunks, h // kv, d) if f32
-                 else blocks * chunks * 128 * (d // 2 + 4))
+                 else blocks * chunks * 128 * (_fa.tile_dim(d) // 2 + 4))
         ws = torch.empty(elems, dtype=torch.float32, device=q.device)
         cnt = _build.counters(q.device, blocks)
     st = _fa._strides(q, k, v, o)

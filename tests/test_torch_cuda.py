@@ -2,8 +2,8 @@
 
 Odd shapes the main paths do not hit — ragged M/N/K, ranks that are
 not multiples of 8 or 16, large ranks, every GQA group size, head dims
-64 and 128 (and 256, gemma-7b's, for every bf16 attention kernel),
-non-causal and S != T attention — so each kernel's masking and load
+64 and 128 (and 256, gemma-7b's, for every bf16 attention kernel; 112,
+kimi-k2's, for the forward and decode ones), non-causal and S != T attention — so each kernel's masking and load
 paths are exercised, forward and backward. Marked ``cuda``: skipped
 without a CUDA device of compute capability >= 9.0. Run on the card with
 
@@ -2254,3 +2254,224 @@ def test_moe_router_ties_on_the_card_keep_the_lower_expert(dev):
     want = torch.sort(probs, dim=-1, descending=True, stable=True).indices
     assert torch.equal(top_i, want[:, :cfg.experts_per_token])
     assert bool((top_i[:, 0] % 2 == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# head_dim 112 (kimi-k2, 7168 / 64): the d = 128 kernels of K3 / #5, K4, #8
+# and #8q on tiles padded in shared memory; operands stay 112 wide
+# ---------------------------------------------------------------------------
+
+D112_ATTN = [(1, 64, 64, 64, 8, True, 1.0), (2, 70, 70, 8, 1, True, 1.0),
+             (1, 33, 100, 48, 1, False, 1.0), (1, 300, 300, 8, 8, True, 1.0),
+             (2, 600, 600, 16, 2, True, 1.0), (1, 64, 64, 8, 1, True, 4.0)]
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,causal,qscale", D112_ATTN)
+def test_flash_attention_d112(dev, b, t, s, h, kv, causal, qscale):
+    """K3 and #5 at d = 112 (G = 1, 8, 48; T = 600 takes two warpgroups a
+    block): within 2e-2 of the plain version, lse within 1e-3, K3 equal
+    to #5's output, both variants bit-identical from call to call,
+    counted under the ``_d112`` keys. ``qscale`` 4: scores large enough
+    that a softmax scaled by 128^-0.5 instead of 112^-0.5 misses 2e-2."""
+    d = 112
+    q = (_rn(dev, b, t, h, d).float() * qscale).to(torch.bfloat16)
+    k, v = _rn(dev, b, s, kv, d, seed=1), _rn(dev, b, s, kv, d, seed=2)
+    kernels.reset_launch_counts()
+    o3 = tfa.flash_attention(q, k, v, causal)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    n_ = kernels.launch_counts()
+    assert n_["flash_attention_d112"] == 1
+    assert n_["flash_attention_fwd_d112"] == 1
+    assert n_["flash_attention"] == n_["flash_attention_fwd"] == 0
+    assert o.shape == q.shape and o.stride() == q.stride()
+    po, plse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    _close(o3, po, 2e-2)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+    assert torch.equal(o3, o)
+    for variant in tfa.FWD_VARIANTS:
+        got = tfa._launch_fwd(q, k, v, causal, None, variant)
+        _close(got, po, 2e-2)
+        assert torch.equal(tfa._launch_fwd(q, k, v, causal, None, variant),
+                           got)
+
+
+def test_d112_kernels_write_only_their_columns(dev):
+    """K3, K4 and #8 at d = 112 writing into o viewed inside a buffer of
+    128 columns a head, the 16 past each head's 112 holding a sentinel:
+    the sentinels survive (a 128-column store would overwrite them, or
+    the next head's first columns in a packed (B, T, 64, 112) output), and
+    the 112 written columns match the plain version."""
+    b, t, h, kv, d = 1, 64, 64, 8, 112
+
+    def sentinel_o(*shape):
+        buf = torch.full((*shape, 128), 7.0, dtype=torch.bfloat16,
+                         device=dev)
+        return buf, buf[..., :d]
+    q, k, v = (_rn(dev, b, t, h, d), _rn(dev, b, t, kv, d, seed=1),
+               _rn(dev, b, t, kv, d, seed=2))
+    buf, o = sentinel_o(b, t, h)
+    st = ctypes.cast(tfa._strides(q, k, v, o), ctypes.c_void_p)
+    tfa._build.check(tfa._fn("flash_attention_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, b, t,
+        t, h, kv, d, 1, 1, st, tfa._build.stream_ptr(q)), "flash_attention")
+    _close(o, tfa.flash_attention_plain(q, k, v, True), 2e-2)
+    assert bool((buf[..., d:] == 7.0).all())
+    pos = torch.tensor([t - 1], dtype=torch.int32, device=dev)
+    for split in (0, 1):
+        buf, o = sentinel_o(b, h)
+        tpa._build.check(tpa.launch_dense(q[:, -1], k, v, pos, o, split),
+                         "decode_attention")
+        _close(o, tfa.decode_attention_plain(q[:, -1], k, v, pos), 2e-2)
+        assert bool((buf[..., d:] == 7.0).all())
+    args = _paged_case(dev, 32, 8, d, 16, edge=True)
+    qp, kc, vc, tables, ppos = args
+    for split in (0, 1):
+        buf, o = sentinel_o(*qp.shape[:3])
+        st = tfa._strides(qp, kc, vc, o)
+        st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
+        tpa._build.check(tpa._launch_tc(qp, kc, vc, tables, ppos, o,
+                                        kc.shape[0], 16, st, split), "paged")
+        _close(o, tpa.paged_decode_attention_plain(*args), 2e-2)
+        assert bool((buf[..., d:] == 7.0).all())
+
+
+@pytest.mark.parametrize("split", [0, 1, 3])
+@pytest.mark.parametrize("g", [1, 8, 48])
+def test_decode_attention_d112(dev, g, split):
+    """K4 at d = 112 over a 300-cell cache: windows of one cell, of the
+    whole cache and past it, split into chunks or not (the workspace
+    sized by the 128-wide tile); within 2e-2 of the plain version, pos 0
+    exactly v[0], two calls bit-identical."""
+    b, s, kv, d = 5, 300, 1 if g == 48 else 2, 112
+    q, k, v = (_rn(dev, b, kv * g, d), _rn(dev, b, s, kv, d, seed=1),
+               _rn(dev, b, s, kv, d, seed=2))
+    pos = torch.tensor([0, 63, s - 1, s, 5 * s], dtype=torch.int32,
+                       device=dev)
+    want = tfa.decode_attention_plain(q, k, v, pos)
+    got = _dense_launch(q, k, v, pos, split)
+    _close(got, want, 2e-2)
+    assert torch.equal(got[0], v[0, 0].repeat_interleave(g, 0))
+    assert torch.equal(_dense_launch(q, k, v, pos, split), got)
+    kernels.reset_launch_counts()
+    got = tfa.decode_attention(q, k, v, pos)
+    _close(got, want, 2e-2)
+    assert torch.equal(tfa.decode_attention(q, k, v, pos), got)
+    n_ = kernels.launch_counts()
+    assert n_["decode_attention_d112"] == 2 and n_["decode_attention"] == 0
+
+
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("g", [1, 8, 48])
+@pytest.mark.parametrize("c", [1, 3, 32])
+def test_paged_decode_attention_d112(dev, c, g, page):
+    """#8 at d = 112: ``mma.sync`` below 64 rows, ``wgmma`` from 64 (C·G
+    up to 1536 in slabs of 256), a window ending on a page edge,
+    sentinels inside and past the window; within 2e-2 of the plain
+    version, two calls bit-identical, counted under ``_d112``."""
+    args = _paged_case(dev, c, g, 112, page, edge=True)
+    kernels.reset_launch_counts()
+    got = tpa.paged_decode_attention(*args)
+    assert got.shape == args[0].shape and got.dtype == torch.bfloat16
+    _close(got, tpa.paged_decode_attention_plain(*args), 2e-2)
+    assert torch.equal(tpa.paged_decode_attention(*args), got)
+    n_ = kernels.launch_counts()
+    assert n_["paged_decode_attention_d112"] == 2
+    assert n_["paged_decode_attention"] == 0
+
+
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("g", [1, 8, 48])
+@pytest.mark.parametrize("c", [1, 4, 32])
+def test_paged_decode_attention_int8_d112(dev, c, g, page):
+    """#8q at d = 112: int8 rows of 112 bytes (7 chunks of 16, the eighth
+    of the 128-byte tile row zero-filled and widened to zeros); within
+    2e-2 of the plain version, two calls bit-identical."""
+    args = _paged_case_int8(dev, c, g, 112, page)
+    assert args[1].shape[-1] == 112 and args[1].stride(-2) == 112
+    kernels.reset_launch_counts()
+    got = tpa.paged_decode_attention_int8(*args)
+    assert got.shape == args[0].shape and got.dtype == torch.bfloat16
+    _close(got, tpa.paged_decode_attention_int8_plain(*args), 2e-2)
+    assert torch.equal(tpa.paged_decode_attention_int8(*args), got)
+    n_ = kernels.launch_counts()
+    assert n_["paged_decode_attention_int8_d112"] == 2
+    assert n_["paged_decode_attention_int8"] == 0
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("split", [0, 1, 3])
+@pytest.mark.parametrize("c,g", [(1, 1), (1, 8), (32, 8), (32, 48)])
+def test_paged_d112_split_windows(dev, c, g, split, quantized):
+    """#8 / #8q at d = 112 with every window split into chunks of
+    ``split`` tiles (0: one block a window), merged in chunk order through
+    the workspace sized by the 128-wide tile: within 2e-2 of the plain
+    version and bit-identical from call to call."""
+    q, kc, vc, tables, pos = _paged_case(dev, c, g, 112, 16, edge=True)
+    n, page = kc.shape[0], kc.shape[1]
+    o = [torch.empty_like(q) for _ in range(2)]
+    if quantized:
+        k8, ks = tquant.quantize_kv(kc.float() * 3)
+        v8, vs = tquant.quantize_kv(vc.float() * 3)
+        st = tpa.int8_strides(q, k8, v8, ks, vs, tables, o[0])
+        for t in o:
+            tpa._build.check(tpa._launch_tc(q, k8, v8, tables, pos, t, n,
+                                            page, st, split, (ks, vs)),
+                             "split")
+        want = tpa.paged_decode_attention_int8_plain(q, k8, v8, ks, vs,
+                                                     tables, pos)
+    else:
+        st = tfa._strides(q, kc, vc, o[0])
+        st = (ctypes.c_longlong * 13)(*st, tables.stride(0))
+        for t in o:
+            tpa._build.check(tpa._launch_tc(q, kc, vc, tables, pos, t, n,
+                                            page, st, split), "split")
+        want = tpa.paged_decode_attention_plain(q, kc, vc, tables, pos)
+    _close(o[0], want, 2e-2)
+    assert torch.equal(o[0], o[1])
+
+
+def test_int8_pool_of_112_bytes_a_row(dev):
+    """The int8 paged pools of a head_dim 112 model hold 112 bytes a row
+    (no padded copy in device memory), and #8q reads them as they are."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(configs.get_smoke_config("kimi-k2-1t-a32b"),
+                              d_model=896, num_heads=8, num_kv_heads=1,
+                              param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    assert cfg.resolved_head_dim == 112
+    caches = T.init_paged_caches(cfg, 6, 16, torch.bfloat16, kv_quant=True,
+                                 device=dev)
+    pools = [t for c in caches for t in c["self"].values()
+             if t.dtype == torch.int8]
+    assert len(pools) == 2 * len(caches)
+    for t in pools:
+        assert t.shape[-1] == 112 and t.stride(-2) == 112
+        assert t.element_size() == 1
+    args = _paged_case_int8(dev, 1, 8, 112, 16)
+    got = tpa.paged_decode_attention_int8(*args)
+    _close(got, tpa.paged_decode_attention_int8_plain(*args), 2e-2)
+
+
+def test_d112_rejects_what_the_kernels_do_not_take(dev):
+    """The flash backward (#6 / #7) raises ``NotImplementedError`` at
+    d = 112 (its instance is not ported yet), f32 at 112 raises, and
+    head_dim 96 still raises everywhere; nothing falls back."""
+    q, k, v = (_rn(dev, 1, 64, 8, 112), _rn(dev, 1, 64, 1, 112, seed=1),
+               _rn(dev, 1, 64, 1, 112, seed=2))
+    o, lse = tfa.flash_attention_fwd(q, k, v, True)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention_bwd(q, k, v, o, lse, q, True)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention(q.float(), k.float(), v.float(), True)
+    qd, kd, vd = (t[..., :96].contiguous() for t in (q, k, v))
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention(qd, kd, vd, True)
+    with pytest.raises(NotImplementedError):
+        tfa.decode_attention(qd[:, 0], kd, vd,
+                             torch.zeros(1, dtype=torch.int32, device=dev))
+    with pytest.raises(NotImplementedError):
+        tpa.paged_decode_attention(*_paged_case(dev, 4, 2, 96, 16))
+    torch.cuda.synchronize()

@@ -104,18 +104,32 @@ def _configs(arch, **over):
 
 
 @functools.lru_cache(maxsize=None)
+def _base(arch, aux):
+    """The base ``JM.init_params(jcfg, spec, KEY)`` draws for ``arch``'s
+    smoke config (from the first half of KEY's split, whatever the
+    adapter), made once for every variant, and its torch copy."""
+    jcfg, _ = _configs(arch, moe_aux_weight=aux)
+    jb = JT.init_base_params(jcfg, jax.random.split(KEY)[0])
+    return jb, from_jax_numpy(jax.device_get(jb), device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
 def setup(arch, variant, aux=AUX):
     """``arch``'s smoke config (aux weight ``aux``) in both packages with
     a MetaTT adapter of ``variant`` at rank 4 (4+1d: q/v over 3 tasks;
     4+ed: q/v and ``moe_down``), ``random_tt(scale=SCALE)``, made by the
-    JAX package. Returns (jcfg, jspec, jp, cfg, spec, tp)."""
+    JAX package as ``JM.init_params`` makes them (the base shared between
+    variants: ``_base``). Returns (jcfg, jspec, jp, cfg, spec, tp)."""
     jcfg, cfg = _configs(arch, moe_aux_weight=aux)
     jrun, trun = _runs(cfg, jcfg, variant)
     jspec, spec = JM.build_adapter_spec(jrun), TM.build_adapter_spec(trun)
-    jp = JM.init_params(jcfg, jspec, KEY)
-    jp["adapter"] = {"cores": jtt.random_tt(KEY, jspec.cfg.mode_sizes, 4,
-                                            scale=SCALE)}
+    jbase, tbase = _base(arch, aux)
+    _, frozen = jpeft.init_adapter(jspec, jax.random.split(KEY)[1])
+    jp = {"adapter": {"cores": jtt.random_tt(KEY, jspec.cfg.mode_sizes, 4,
+                                             scale=SCALE)},
+          "frozen": frozen}
     tp = from_jax_numpy(jax.device_get(jp), device="cpu")
+    jp["base"], tp["base"] = jbase, tbase
     return jcfg, jspec, jp, cfg, spec, tp
 
 
@@ -179,7 +193,11 @@ def test_full_width_granite_moe_parameter_counts_match_jax():
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def _ffn_case(arch, variant, cf, seed=0, n=24):
+    """``moe_ffn`` of both packages on one numpy input (cached: the 4+ed
+    cases compare against the 4d case's run at the same capacity
+    factor)."""
     jcfg, jspec, jp, cfg, spec, tp = setup(arch, variant)
     jcfg = dataclasses.replace(jcfg, moe_capacity_factor=cf)
     cfg = dataclasses.replace(cfg, moe_capacity_factor=cf)
@@ -304,15 +322,27 @@ def test_stable_descending_sort_keeps_the_lower_index_first():
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_forward(arch, variant, jpolicy):
+    """The JAX forward of 3 prompts of 11 tokens (scalar task under 4d's
+    variants with a task axis) under ``jpolicy``, with its caches:
+    (tokens, output). Shared by the forward test and the decode test,
+    which steps from these caches."""
+    jcfg, jspec, jp, cfg, spec, tp = setup(arch, variant)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 11))
+    task = _task(variant)
+    jbc, jpl = jpeft.adapter_factors(jspec, jp["adapter"], jp["frozen"])
+    return tokens, JT.forward(
+        jp["base"], jcfg, jspec, jbc, jpl, jnp.asarray(tokens),
+        task=None if task is None else jnp.int32(task), return_caches=True,
+        policy=POLICIES[jpolicy])
+
+
 @pytest.mark.parametrize("arch,variant,jpolicy", POLICY_CASES)
 def test_forward_logits_caches_and_aux_match_jax(arch, variant, jpolicy):
     jcfg, jspec, jp, cfg, spec, tp = setup(arch, variant)
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 11))
+    tokens, want = _jax_forward(arch, variant, jpolicy)
     task = _task(variant)
-    jbc, jpl = jpeft.adapter_factors(jspec, jp["adapter"], jp["frozen"])
-    want = JT.forward(jp["base"], jcfg, jspec, jbc, jpl, jnp.asarray(tokens),
-                      task=None if task is None else jnp.int32(task),
-                      return_caches=True, policy=POLICIES[jpolicy])
     bc, pl = tpeft.adapter_factors(spec, tp["adapter"], tp["frozen"])
     got = TT.forward(tp["base"], cfg, spec, bc, pl, tokens, task=task,
                      return_caches=True, device="cpu")
@@ -330,16 +360,12 @@ def test_forward_logits_caches_and_aux_match_jax(arch, variant, jpolicy):
 @pytest.mark.parametrize("arch,variant,jpolicy", POLICY_CASES)
 def test_decode_step_logits_and_caches_match_jax(arch, variant, jpolicy):
     """One decode step of 3 slots at their own positions (and tasks under
-    4+1d) from the same prefilled caches."""
+    4+1d) from the same prefilled caches: the forward test's JAX run."""
     jcfg, jspec, jp, cfg, spec, tp = setup(arch, variant)
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 11))
     jbc, jpl = jpeft.adapter_factors(jspec, jp["adapter"], jp["frozen"])
     bc, pl = tpeft.adapter_factors(spec, tp["adapter"], tp["frozen"])
     s_len = 16
-    t0 = _task(variant)
-    pre = JT.forward(jp["base"], jcfg, jspec, jbc, jpl, jnp.asarray(tokens),
-                     task=None if t0 is None else jnp.int32(0),
-                     return_caches=True)
+    _, pre = _jax_forward(arch, variant, jpolicy)
     jcaches = jax.tree_util.tree_map(
         lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, s_len - c.shape[2]),
                               (0, 0), (0, 0))), pre.caches)
