@@ -69,7 +69,11 @@ Phases, each printed on its own lines:
      (lse within 1e-3), K4 over 4 slots x 256 cells, #8 and #8q at C = 1
      and 32 (8 slots, 34-page tables); and K1 (M = 64), K2 (M = 4), #9
      (M = 64) and #10 (M = 4) at kimi-k2's q / v projections (7168 ->
-     7168 and -> 896, r = 8);
+     7168 and -> 896, r = 8); and #5, #6 and #7 at d = 112 at kimi-k2's
+     training shapes, (B, T, H, KV) = (4, 1024, 64, 8), its ragged
+     T = 1000 and B = 1 (where #7 runs in slabs of heads): dq / dk / dv
+     within 2e-2 of max |plain|, two calls bit-identical, TFLOP/s of the
+     112-wide work, SDPA's bf16 backward with ``enable_gqa`` as library;
   3. the dense-cache serving engine on full-width stablelm-1.6b (random
      weights from a seeded generator, 4+1d MetaTT adapter over 3 tasks):
      8 mixed-task requests, with every kernel's launch count read around
@@ -162,7 +166,7 @@ Phases, each printed on its own lines:
      a no-grad forward of roberta-large over 4 x 1024 tokens (f32 K1 and
      K3) within 1e-4 of the plain leg's largest logit;
   11. RoBERTa served in f32 (TF32 off): roberta-large at full width and
-     12 of its 24 layers (``F32_SERVE_LAYERS``) with a
+     6 of its 24 layers (``F32_SERVE_LAYERS``) with a
      4+1d MetaTT adapter on q/v (rank 8, 3 tasks) through (a) the dense
      engine (phase 3's cell: 2L K2f + L K4f a decode step, K1f / K3f at
      prefill), (b) the paged engine cold then warm (phase 4's cell: L #8f
@@ -173,7 +177,7 @@ Phases, each printed on its own lines:
      paged-step logits and every generated token within 1e-4 of the plain
      f32 leg's largest logit (tokens equal to the plain leg's counted);
      tok/s, step ms, prefill ms, kv_bytes_peak and device busy share; (e)
-     roberta-large at 12 of its 24 layers (widths kept) over int8 weights
+     roberta-large at 6 of its 24 layers (widths kept) over int8 weights
      through the f32 instances of #9 and #10: (e1) (a)'s cell with ``QuantConfig(weights="int8")`` (2L #9f a
      prefill, 2L #10f + L K4f a decode step, no K1f / K2f), (e2) (b)'s
      cell with int8 weights and int8 KV cold then warm (L #8qf a step;
@@ -231,9 +235,9 @@ Phases, each printed on its own lines:
      (granite at 16 layers, mistral on its first 4: at 8 the witness does
      not fit beside the base); each model freed before the next;
      ``[phase15]`` lines and the phase's seconds on the ``[time]`` line;
-  16. granite-moe-1b-a400m (MoE, 32 experts, top-8) served and trained
-     at full width, and MetaTT-(4+E)D (``phase_sixteen``; ``[phase16]``
-     lines);
+  16. granite-moe-1b-a400m (MoE, 32 experts, top-8) served at full width
+     and 12 of its 24 layers and trained at full width and depth, and
+     MetaTT-(4+E)D (``phase_sixteen``; ``[phase16]`` lines);
   17. kimi-k2 (7168, 64 heads of 112 over 8, 384 experts of SwiGLU 2048,
      top-8 at capacity factor 1.25, one shared expert, vocab 163840) at
      full width and 1 of its 61 layers (36.5 GB of bf16 base), served
@@ -244,6 +248,28 @@ Phases, each printed on its own lines:
      launches a step, the paged invariants, every cell's logits under the
      f32 witness rule with the f32 leg run after the bf16 model is freed
      (``Deferred``); ``[phase17]`` lines;
+  18. kimi-k2 at the same width and depth trained in phase 6's setting
+     with MetaTT-(4+E)D on q, v and ``moe_down`` through K1 and the d = 112
+     instances of #5, #6 and #7 (exactly 4 / 2 / 1 / 1 a step), the median
+     step, tokens/s, busy share and top device operations, then the B = 1
+     gradient check with its 73 GB f32 witness run after the trainer and
+     its bf16 base are freed (``deferred_grad_check``); ``[phase18]``
+     lines;
+  19. jamba-v0.1-52b (4096; a super-block of 7 mamba layers — d_inner
+     8192, d_state 16, dt_rank 256, conv 4 — and one attention layer of 32
+     heads of 128 over 8; 16 experts of SwiGLU 14336 top-2 on every second
+     layer; vocab 65536) at full width and 1 of its 4 super-blocks (25.5 GB
+     of bf16 base), MetaTT 4d on attn q / v and mamba in / out: (a) 4
+     prompts of 512 tokens prefilled (the chunked scan) and 32 decode steps
+     from the prefilled mamba states and KV caches, exact launches (16 K1 +
+     1 K3 a prefill, 16 K1 + 1 K4 a step), prefill ms, step ms, tok/s,
+     busy share, the prefill / decode / parallel-forward logits under the
+     f32 witness rule with the f32 leg deferred, and the decode steps
+     against the parallel forward, at capacity factor 2.0 and at 8.0
+     (where no pair is dropped: f32 decode within 2e-2 of the f32
+     parallel forward); (b) phase 6's training (exactly 47 K1, 2 #5, 1 #6,
+     1 #7 a step) and the B = 1 gradient check with its f32 witness
+     deferred; ``[phase19]`` lines;
 then one JSON line with every kernel's record (launches per path; the
 f32, d = 256 and d = 112 instances under their own names with every
 phase-2 row; K1, K2, #9 and #10 with their rows at gemma-7b's and
@@ -375,6 +401,13 @@ KERNELS = {
     "paged_decode_attention_int8_d112": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:161"),
+    # and kimi-k2's training
+    "flash_attention_bwd_dq_d112": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:295"),
+    "flash_attention_bwd_dkv_d112": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:310"),
 }
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. Linears: one
 # bf16 ulp (2^-7 relative) from a different f32 summation order.
@@ -581,11 +614,12 @@ def k1_rank_rows(dev, rn):
 K3_CASES = ((16, 32), (64, 32), (256, 32), (256, 8))   # (T = S, KV)
 
 
-def k3_rows(dev, rn, h=32, d=64, cases=K3_CASES, sfx="", tag=None):
-    """K3 at prefill attention, causal, T == S (bucketed prompt), B = 1,
-    ``h`` heads of ``d`` (``sfx``: the instance's name suffix, "_d256"
-    for gemma-7b's heads of 256, "_d112" for kimi-k2's 112; ``tag``: a
-    model's rows, SDPA with ``enable_gqa`` as library); every variant of
+def k3_rows(dev, rn, h=32, d=64, cases=K3_CASES, sfx="", tag=None, b=1):
+    """K3 at prefill attention, causal, T == S (bucketed prompt), B = ``b``
+    (default 1), ``h`` heads of ``d`` (``sfx``: the instance's name
+    suffix, "_d256" for gemma-7b's heads of 256, "_d112" for kimi-k2's
+    112; ``tag``: a model's rows, SDPA with ``enable_gqa`` as library);
+    every variant of
     the forward kernel timed (one at d = 256), the launcher's choice
     printed; two calls bit-identical. The main row is T = 64, at H = KV
     (an instance of its own, ``sfx``: at its ``cases``' KV)."""
@@ -594,7 +628,7 @@ def k3_rows(dev, rn, h=32, d=64, cases=K3_CASES, sfx="", tag=None):
     rows = []
     name = "flash_attention" + sfx
     for t, kvh in cases:
-        b_ = 1
+        b_ = b
 
         def make3():
             return (rn(b_, t, h, d), rn(b_, t, kvh, d), rn(b_, t, kvh, d))
@@ -802,7 +836,10 @@ def phase_kernels(dev, only=None):
                   paged_int8_kernel_rows, h=KIMI_H, d=112, sfx="_d112",
                   kv=KIMI_KV, tag="kimi")),
               (("tt_linear", "tt_linear_batched_a", "tt_linear_w8",
-                "tt_linear_batched_a_w8"), kimi_linear_rows))
+                "tt_linear_batched_a_w8"), kimi_linear_rows),
+              (("tt_linear",), jamba_linear_rows),
+              (("flash_attention", "decode_attention"),
+               jamba_attention_rows))
     rows = []
     for names, fn in groups:
         if only is None or set(names) & set(only):
@@ -1299,14 +1336,17 @@ def rel_max(got, want):
 
 
 # the first row of each head dim is its main path's: stablelm-1.6b's 32
-# heads of 64, gemma-7b's 16 heads of 256 (phase 13); T = 1000 tile edges
-# and GQA groups 4 (d = 64) and 2 (d = 256); then granite-34b's and
-# mistral-large's training shapes (phase 15, ``GQA_TRAIN_TAGS``)
+# heads of 64, gemma-7b's 16 heads of 256 (phase 13), kimi-k2's 64 heads
+# of 112 over 8 (phase 18); T = 1000 tile edges and GQA groups 4 (d = 64)
+# and 2 (d = 256); then granite-34b's and mistral-large's training shapes
+# (phase 15, ``GQA_TRAIN_TAGS``) and kimi-k2's (``KIMI_TRAIN_TAGS``)
 TRAIN_ATTN_SHAPES = ((4, 1024, 32, 32, 64), (4, 1000, 32, 32, 64),
                      (4, 1024, 32, 8, 64), (2, 1024, 16, 16, 128),
                      (4, 1024, 16, 16, 256), (4, 1000, 16, 16, 256),
                      (4, 1024, 16, 8, 256), (4, 1024, 48, 1, 128),
-                     (4, 1024, 96, 8, 128), (4, 1000, 48, 1, 128))
+                     (4, 1024, 96, 8, 128), (4, 1000, 48, 1, 128),
+                     (4, 1024, 64, 8, 112), (4, 1000, 64, 8, 112),
+                     (1, 1024, 64, 8, 112), (4, 1024, 32, 8, 128))
 #: the any-group training rows of #5, #6 and #7 (``gqa_rows`` of their
 #: records): granite-34b's 48 heads over one KV head (G = 48, and a
 #: ragged T = 1000) and mistral-large's 96 over 8 (G = 12); the T = 1024
@@ -1316,6 +1356,18 @@ GQA_TRAIN_TAGS = {(4, 1024, 48, 1, 128): "granite",
                   (4, 1000, 48, 1, 128): "granite"}
 GQA_TRAIN = ("flash_attention_fwd", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
+#: kimi-k2's training rows of #5, #6 and #7 at d = 112 (phase 18's
+#: 4 x 1024, a ragged T = 1000, and B = 1, the gradient check's, where
+#: #7's 128 blocks run in slabs of heads), every one timed, SDPA with
+#: ``enable_gqa`` as library
+KIMI_TRAIN_TAGS = {(4, 1024, 64, 8, 112): "kimi",
+                   (4, 1000, 64, 8, 112): "kimi",
+                   (1, 1024, 64, 8, 112): "kimi"}
+D112_TRAIN = ("flash_attention_bwd_dq_d112", "flash_attention_bwd_dkv_d112")
+#: jamba-v0.1-52b's training rows of #5, #6 and #7 (phase 19 (b)'s
+#: shape: 32 heads of 128 over 8), timed, SDPA with ``enable_gqa`` as
+#: library
+JAMBA_TRAIN_TAGS = {(4, 1024, 32, 8, 128): "jamba"}
 TRAIN_LINEAR_SHAPE = (4096, 2048, 2048, 8)   # M = B x T, K, N, r
 
 
@@ -1362,8 +1414,10 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
         firsts.setdefault(sh_[4], sh_)
     for b_, t, h, kvh, d in attn_shapes:
         main = (b_, t, h, kvh, d) == firsts[d] and d != 128
-        tag = GQA_TRAIN_TAGS.get((b_, t, h, kvh, d))
-        sfx = "_d256" if d == 256 else ""
+        tag = next((tags[(b_, t, h, kvh, d)] for tags in (
+            GQA_TRAIN_TAGS, KIMI_TRAIN_TAGS, JAMBA_TRAIN_TAGS)
+            if (b_, t, h, kvh, d) in tags), None)
+        sfx = {256: "_d256", 112: "_d112"}.get(d, "")
         shape = f"B={b_} T=S={t} H={h} KV={kvh} d={d} causal"
         q, k, v = rn(b_, t, h, d), rn(b_, t, kvh, d), rn(b_, t, kvh, d)
         g = rn(b_, t, h, d)
@@ -1397,11 +1451,15 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
         bq, bkv = b_ * t * h * d * 2, b_ * t * kvh * d * 2   # bytes
         lse_b = b_ * h * t * 4
         g_ = h // kvh
+        gqa_lib = tag in ("kimi", "jamba")   # SDPA's own GQA, k / v not
+        # repeated
         lib = [x.detach().transpose(1, 2) for x in
-               (q, k.repeat_interleave(g_, 2), v.repeat_interleave(g_, 2))]
+               ((q, k, v) if gqa_lib else
+                (q, k.repeat_interleave(g_, 2), v.repeat_interleave(g_, 2)))]
+        sdpa_kw = dict(is_causal=True, enable_gqa=gqa_lib)
         timed = {}
         if main or (t != attn_shapes[0][1] and d == 64) or (
-                tag and t == 1024):
+                tag and t == 1024) or gqa_lib:
             # the forward's device time in a CUDA-graph replay (its eager
             # launches would time the host at this speed)
             timed["fwd_ms"] = cuda_time_ms(
@@ -1413,7 +1471,7 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
             timed["fwd_plain_ms"] = event_time_ms(
                 lambda: fa.flash_attention_fwd_plain(q, k, v, True), ())
             timed["fwd_lib_ms"] = cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(*lib, is_causal=True),
+                lambda: F.scaled_dot_product_attention(*lib, **sdpa_kw),
                 [()])
             # the two passes apart, through the launchers the wrapper runs
             timed["dq_ms"] = event_time_ms(
@@ -1437,7 +1495,7 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                 lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, g,
                                                      True), ())
             leaves = [x.clone().requires_grad_(True) for x in lib]
-            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
             gl = g.transpose(1, 2)
             lib_names = set()
             timed["bwd_lib_ms"] = profiled_device_ms(
@@ -1445,7 +1503,9 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                                             retain_graph=True), (),
                 names=lib_names)
             timed["bwd_lib"] = (f"SDPA bf16 backward ({sdpa_backend(lib_names)}"
-                                " backend), profiled")
+                                " backend"
+                                + (", enable_gqa" if gqa_lib else "")
+                                + "), profiled")
             timed["bwd_lib_event_ms"] = event_time_ms(
                 lambda: torch.autograd.grad(out, leaves, gl,
                                             retain_graph=True), ())
@@ -1467,6 +1527,9 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
                 ms=timed.get(ms), plain_ms=timed.get(plain),
                 library_ms=timed.get(lib_ms), bound_ms=bnd[0],
                 bound_by=bnd[1]))
+            if timed:   # of the real (d-wide) work
+                rows[-1]["tflops"] = flops[ms.removesuffix("_ms")] / \
+                    timed[ms] / 1e9
             if "bwd" in name and timed:
                 rows[-1]["library"] = timed["bwd_lib"]
             if tag:
@@ -1999,6 +2062,44 @@ def record_routing(run):
         return run(), rec
     finally:
         moe.router = router
+
+
+def replayed_routing(run, rec):
+    """``run()`` with each MoE router call's top-k indices taken from
+    ``rec`` (another leg's ``record_routing`` record, in call order) in
+    place of its own top-k; the weights are this call's own probabilities
+    at those indices, renormalized as ``moe.router`` does. Legs that share
+    a record route every token alike (the same capacity drops too), so
+    they differ by their numerics alone. Returns (the result, the indices
+    used)."""
+    from repro_torch.models import moe
+    router, calls, used = moe.router, iter(rec), []
+
+    def replaying(x, w_router, n_k):
+        logits, probs, _, _ = router(x, w_router, n_k)
+        top_i = next(calls, None)
+        if top_i is None or tuple(top_i.shape) != (x.shape[0], n_k):
+            raise AssertionError("routing replay: this leg's router calls "
+                                 "are not the recorded leg's")
+        top_p = probs.gather(-1, top_i)
+        used.append(top_i)
+        return (logits, probs,
+                top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9), top_i)
+    moe.router = replaying
+    try:
+        out = run()
+    finally:
+        moe.router = router
+    if len(used) != len(rec):
+        raise AssertionError(f"routing replay: {len(used)} router calls, "
+                             f"{len(rec)} recorded")
+    return out, used
+
+
+def routed_leg(run, rec=None):
+    """``run()`` recording its routing (``rec`` None) or replaying ``rec``
+    (``replayed_routing``). Returns (the result, the record)."""
+    return record_routing(run) if rec is None else replayed_routing(run, rec)
 
 
 def routing_flips(a, b):
@@ -2701,44 +2802,74 @@ def cosine(a, b):
     return float(a @ b / (a.norm() * b.norm()))
 
 
+def mild_adapter(spec, gen, dev):
+    """The gradient check's default adapter: random MetaTT cores of rank 8
+    at scale 0.12, as phase 3's mild adapter."""
+    from repro_torch.core import tt as ttlib
+    return {"cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 8,
+                                     scale=0.12, device=dev)}
+
+
+def grad_legs(legs, spec, adapter, frozen, tokens, dev, routing=None):
+    """{leg: (loss, adapter gradients)} for each (leg, cfg, base, policy)
+    of ``legs``: the loss over ``tokens`` (mask all ones). On a MoE model
+    the legs share one routing (``routed_leg``): the first leg's record,
+    kept in ``routing`` ("rec") for a later call's legs, is replayed in
+    the others, forward and backward."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    batch = {"tokens": tokens, "mask": torch.ones_like(tokens,
+                                                      dtype=torch.float32)}
+    routing = {} if routing is None else routing
+    out = {}
+    for name, c, b, pol in legs:
+        params = tree_map(lambda t: t.clone().requires_grad_(True), adapter)
+
+        def run():
+            loss, _ = M.loss_fn(params, b, frozen or {}, batch, c, spec,
+                                policy=pol, device=dev)
+            return (float(loss.detach()),
+                    torch.autograd.grad(loss, M.tensors(params)))
+        out[name], routing["rec"] = routed_leg(run, routing.get("rec"))
+    return out
+
+
 def grad_check(cfg, spec, base, gen, tokens, dev, adapter=None,
                frozen=None, tag="train"):
     """Loss and adapter gradients at B=1, T=1024 under a mild adapter (by
-    default random MetaTT cores, as phase 3's mild adapter), in three legs
-    on the same weights: kernels (bf16), the plain versions (bf16,
-    ``KernelConfig(backend="ref")``) and the plain versions in f32 as the
-    witness. Asserts the loss within 1e-2 of the plain bf16 leg and each
-    leaf's gradient no farther from the f32 leg than twice the plain bf16
-    leg's distance + 5e-2 (relative Frobenius)."""
+    default ``mild_adapter``), in three legs on the same weights: kernels
+    (bf16), the plain versions (bf16, ``KernelConfig(backend="ref")``) and
+    the plain versions in f32 as the witness, held by
+    ``grad_verdict``."""
     import torch
-    from repro_torch.core import tt as ttlib
     from repro_torch.kernels import dispatch
-    from repro_torch.models import model as M
     from repro_torch.tree import tree_map
     if adapter is None:
-        adapter = {"cores": ttlib.random_tt(gen, spec.cfg.mode_sizes, 8,
-                                            scale=0.12, device=dev)}
-    frozen = frozen or {}
+        adapter = mild_adapter(spec, gen, dev)
+    base32 = tree_map(lambda t: t.float(), base)
+    legs = grad_legs((("kernel", cfg, base, dispatch.DEFAULT),
+                      ("plain", cfg, base, dispatch.REF),
+                      ("f32", f32_cfg(cfg), base32, dispatch.REF)),
+                     spec, adapter, frozen, tokens, dev)
+    del base32
+    torch.cuda.empty_cache()
+    grad_verdict(legs, adapter, tokens, tag)
+
+
+def grad_verdict(legs, adapter, tokens, tag):
+    """``grad_check``'s limits on the legs' (loss, gradients): the loss
+    within 1e-2 of the plain bf16 leg and each leaf's gradient no farther
+    from the f32 leg than twice the plain bf16 leg's distance + 5e-2
+    (relative Frobenius), and its cosine with the f32 leg's at least half
+    the plain bf16 leg's. The second limit is what fails a zero, random or
+    sign-flipped gradient where bf16 sets the plain leg far from f32
+    (jamba's mamba layers: a zero gradient is 1.0 away, inside the first
+    limit once the plain leg is 0.475 away)."""
+    import torch
     names = [f"{k}/{i}" if isinstance(v, list) else k
              for k, v in adapter.items()
              for i in (range(len(v)) if isinstance(v, list) else [0])]
-    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
-                                compute_dtype=torch.float32)
-    base32 = tree_map(lambda t: t.float(), base)
-    batch = {"tokens": tokens, "mask": torch.ones_like(tokens,
-                                                      dtype=torch.float32)}
-    legs = {}
-    for name, c, b, pol in (("kernel", cfg, base, dispatch.DEFAULT),
-                            ("plain", cfg, base, dispatch.REF),
-                            ("f32", cfg32, base32, dispatch.REF)):
-        params = tree_map(lambda t: t.clone().requires_grad_(True), adapter)
-        loss, _ = M.loss_fn(params, b, frozen, batch, c, spec, policy=pol,
-                            device=dev)
-        legs[name] = (float(loss.detach()),
-                      torch.autograd.grad(loss, M.tensors(params)))
-        del loss
-    del base32
-    torch.cuda.empty_cache()
     (lk, gk), (lp, gp), (l32, g32) = (legs[n] for n in ("kernel", "plain",
                                                         "f32"))
     rel_loss = abs(lk - lp) / abs(lp)
@@ -2750,13 +2881,16 @@ def grad_check(cfg, spec, base, gen, tokens, dev, adapter=None,
                              f"{rel_loss:.3e}")
     for name, a, b, c in zip(names, gk, gp, g32):
         k32, p32 = rel_fro(a, c), rel_fro(b, c)
+        kc, pc = cosine(a, c), cosine(b, c)
         print(f"[{tag}]   {name} {tuple(a.shape)}: rel err vs f32 kernel "
               f"{k32:.3e} plain {p32:.3e} (limit {2 * p32 + 5e-2:.3e}); "
-              f"cosine vs f32 kernel {cosine(a, c):.6f} plain "
-              f"{cosine(b, c):.6f}; kernel vs plain {cosine(a, b):.6f}")
-        if not (torch.isfinite(a).all() and k32 <= 2 * p32 + 5e-2):
+              f"cosine vs f32 kernel {kc:.6f} plain {pc:.6f} (limit "
+              f"{pc / 2:.6f}); kernel vs plain {cosine(a, b):.6f}")
+        if not (torch.isfinite(a).all() and k32 <= 2 * p32 + 5e-2
+                and kc >= pc / 2):
             raise AssertionError(f"{name} gradient: kernel leg "
-                                 f"{k32:.3e} from f32, plain {p32:.3e}")
+                                 f"{k32:.3e} from f32 at cosine {kc:.6f}, "
+                                 f"plain {p32:.3e} at {pc:.6f}")
 
 
 def phase_training(dev):
@@ -3271,16 +3405,17 @@ def teacher_forced_gap(cfg, spec, rt, base, reqs, outs, dev):
 
 
 def q_ratio(cfg, rt, gen):
-    """||α·(x·A)·B|| / ||x·W|| of layer 0's q projection (task 0) on a
-    unit-normal x, for any adapter kind: how strong it is against the
-    frozen base."""
+    """||α·(x·A)·B|| / ||x·W|| of the first attention layer's q
+    projection (task 0) on a unit-normal x, for any adapter kind: how
+    strong it is against the frozen base."""
     import torch
     from repro_torch.peft import api as peft_api
+    p = [m for m, _ in cfg.block_pattern].index("attn")
     x = torch.randn((16, cfg.d_model), generator=gen, device=gen.device)
     a, b, alpha = peft_api.lora_form_factors(
-        rt.spec, rt.broadcast, {k: v[0] for k, v in rt.per_layer.items()},
+        rt.spec, rt.broadcast, {k: v[p] for k, v in rt.per_layer.items()},
         "attn_q", task=0 if rt.tasked else None)
-    w = x @ rt.base["blocks"][0]["mixer"]["wq"][0].float()
+    w = x @ rt.base["blocks"][p]["mixer"]["wq"][0].float()
     return float((alpha * (x @ a.float()) @ b.float()).norm() / w.norm())
 
 
@@ -4401,12 +4536,13 @@ INT8_KV_LOGIT_TOL = 1e-3
 SERVED_RATIO = 0.25
 
 
-#: (e)'s depth: roberta-large's widths at 12 of its 24 layers (the
-#: int8-weight cells cost 66 s at 24; phase 14 needed the time)
-W8_LAYERS = 12
+#: (e)'s depth: roberta-large's widths at 6 of its 24 layers (the
+#: int8-weight cells cost 66 s at 24; phases 14 and 19 needed the time)
+W8_LAYERS = 6
 #: (a)-(d)'s depth, the same cut: at 24 layers they took 72.0-124.6 s,
-#: the script 555-886 s on H100s whose hosts ran at different speeds
-F32_SERVE_LAYERS = 12
+#: the script 555-886 s on H100s whose hosts ran at different speeds; at
+#: 12 the phase took 59.7-83.7 s and the script 601.0-722.9 s
+F32_SERVE_LAYERS = 6
 
 
 def roberta_serving_model(dev, layers=None):
@@ -5062,7 +5198,8 @@ def logits_checked(label, rel, agree=None, n=None, tag="phase12",
     holds, a miss of the 5% limit is reported with the share of routing
     flips instead of failing: bf16 drift flips near-tie top-k routing, and
     one flip moves a token by a whole expert's share, in either bf16
-    leg."""
+    leg. The witness must be able to fail: its limit below 1, where a
+    kernel leg of zeros sits (else the check fails as vacuous)."""
     tail = f", argmax equal {agree}/{n}" if agree is not None else ""
     print(f"[{tag}] {label}: logits vs plain leg max |kernel - plain| / "
           f"max |plain| {rel:.3e} (limit 5e-2){tail}", flush=True)
@@ -5082,6 +5219,10 @@ def logits_checked(label, rel, agree=None, n=None, tag="phase12",
     if not ok:
         raise AssertionError(f"{label}: kernel leg {k32:.3e} from the f32 "
                              f"leg, plain bf16 {p32:.3e}")
+    if not 2 * p32 + 5e-2 < 1:
+        raise AssertionError(f"{label}: the witness is vacuous: plain bf16 "
+                             f"{p32:.3e} from the f32 leg puts its limit at "
+                             "or above a zero kernel leg's 1")
     if not rel <= 5e-2:
         print(f"[{tag}] {label}: the 5e-2 limit is missed ({rel:.3e}) with "
               f"the witness holding: reported, routing flips kernel/plain "
@@ -5398,13 +5539,31 @@ def phase_twelve(dev):
 # ---------------------------------------------------------------------------
 
 
-def bf16_train_per_step(cfg):
+#: the adapted matrices each mixer runs through K1, and those of them that
+#: read a layer's (normed) input: in layer 0 that input is the embedding,
+#: which needs no gradient, so their dx is never computed
+K1_MATRICES = {"attn": ("attn_q", "attn_k", "attn_v", "attn_o"),
+               "mamba": ("mamba_in", "mamba_out")}
+INPUT_MATRICES = ("attn_q", "attn_k", "attn_v", "mamba_in")
+
+
+def bf16_train_per_step(cfg, types=("attn_q", "attn_v")):
     """bf16 launches a training step (remat per block), as
-    ``f32_train_per_step``: 6L - 2 K1, 2L #5, L #6 and L #7 (the attention
-    kernels under ``_d256`` at head_dim 256)."""
-    n = cfg.num_layers
-    sfx = "_d256" if cfg.resolved_head_dim == 256 else ""
-    return {"tt_linear": 6 * n - 2, "flash_attention_fwd" + sfx: 2 * n,
+    ``f32_train_per_step``: K1 for each adapted linear (``types``) in the
+    forward, again in the recompute and as dx in the backward — 3 a
+    linear, less layer 0's linears that read its input (6L - 2 on an
+    attention model with q / v adapted; 47 on one jamba super-block with
+    q / v and mamba in / out; ``moe_down`` is plain PyTorch); #5 twice
+    and #6 and #7 once an attention layer (under ``_d256`` / ``_d112`` at
+    head_dim 256 / 112)."""
+    layers = [m for m, _ in cfg.block_pattern] * cfg.num_super_blocks
+    linears = [[t for t in types if t in K1_MATRICES.get(m, ())]
+               for m in layers]
+    k1 = 3 * sum(map(len, linears)) - sum(t in INPUT_MATRICES
+                                          for t in linears[0])
+    n = layers.count("attn")
+    sfx = {256: "_d256", 112: "_d112"}.get(cfg.resolved_head_dim, "")
+    return {"tt_linear": k1, "flash_attention_fwd" + sfx: 2 * n,
             "flash_attention_bwd_dq" + sfx: n,
             "flash_attention_bwd_dkv" + sfx: n}
 
@@ -5419,6 +5578,84 @@ def first_layers(base, cfg, layers):
                                    for blk in base["blocks"]])
 
 
+def base_fingerprint(base):
+    """Each leaf's sum in f64, over chunks of 2^26 values in order (no
+    full-size f64 copy): equal for two bases that hold the same values,
+    whatever their dtypes."""
+    from repro_torch.models import model as M
+    return [sum(float(p.double().sum()) for p in t.reshape(-1).split(1 << 26))
+            for t in M.tensors(base)]
+
+
+def rebuilt_f32_base(dev, cfg, spec, dtypes, prints, tag, seed=SEED):
+    """The f32 witness base, built once the bf16 base is freed (a large
+    model's f32 base cannot sit beside its bf16 one): ``witness_base``
+    from ``seed``, its values held to the bf16 base's ``base_fingerprint``
+    ``prints``; prints its size and build time."""
+    import torch
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    base32 = witness_base(dev, cfg, spec, dtypes, seed=seed)
+    torch.cuda.synchronize()
+    if base_fingerprint(base32) != prints:
+        raise AssertionError(f"{tag}: the rebuilt f32 base does not hold "
+                             "the bf16 base's values")
+    print(f"[{tag}] f32 witness base: "
+          f"{sum(t.numel() * 4 for t in M.tensors(base32)) / 1e9:.3f} GB in "
+          f"{time.perf_counter() - t0:.1f}s, value for value the bf16 "
+          "base's (per-leaf f64 sums equal)", flush=True)
+    return base32
+
+
+def deferred_grad_check(dev, cfg, run, holder, tokens, tag, layers=None):
+    """``train_full_width``'s B = 1 gradient check on the first ``layers``
+    layers (default all) of the trained base, ``grad_check``'s legs and
+    limits with the f32 witness leg deferred past the bf16 base's life:
+    the plain and kernel bf16 legs over ``holder["base"]``, their losses
+    and gradients kept; the bf16 base freed (``holder`` holds the last
+    reference); the f32 base rebuilt value for value from the trainer's
+    seed (``rebuilt_f32_base``); then the f32 leg and ``grad_verdict``.
+    The legs share the plain leg's MoE routing (``grad_legs``). Prints
+    the peak memory of each part."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    base = holder.pop("base")
+    gcfg, gbase = cfg, base
+    if layers is not None and layers < cfg.num_layers:
+        gcfg, gbase = first_layers(base, cfg, layers)
+    spec = M.build_adapter_spec(dataclasses.replace(run, model=gcfg))
+    adapter = mild_adapter(spec, torch.Generator(device=dev).manual_seed(
+        SEED + 2), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    routing = {}
+    legs = grad_legs((("plain", gcfg, gbase, dispatch.REF),
+                      ("kernel", gcfg, gbase, dispatch.DEFAULT)),
+                     spec, adapter, None, tokens, dev, routing)
+    print(f"[{tag}] gradient check, the bf16 legs: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+    dtypes = [t.dtype for t in M.tensors(base)]
+    prints = base_fingerprint(base)
+    del base, gbase
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base32 = rebuilt_f32_base(dev, cfg, M.build_adapter_spec(run), dtypes,
+                              prints, tag, seed=run.train.seed)
+    if gcfg is not cfg:
+        base32 = first_layers(base32, cfg, layers)[1]
+    legs.update(grad_legs((("f32", f32_cfg(gcfg), base32, dispatch.REF),),
+                          spec, adapter, None, tokens, dev, routing))
+    del base32
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_verdict(legs, adapter, tokens, tag)
+    print(f"[{tag}] {cfg.name} gradient check (f32 leg deferred) at "
+          f"{gcfg.num_layers} layers: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB (the f32 "
+          f"witness base and its leg)", flush=True)
+
+
 def train_full_width(dev, cfg, tag, grad_layers=None, variant="4d"):
     """Phase 6's setting on full-width ``cfg`` at its depth — MetaTT 4d on
     q/v (``variant="4+ed"``: MetaTT-(4+E)D on q, v and the MoE expert
@@ -5430,7 +5667,8 @@ def train_full_width(dev, cfg, tag, grad_layers=None, variant="4d"):
     and the top device operations over one more step; then, with the
     trainer freed, the B = 1 gradient check against the plain bf16 leg
     with an f32 plain leg as witness, on the first ``grad_layers`` layers
-    of the same base (default all), with its peak memory. Returns the 6
+    of the same base (default all), the f32 leg after the bf16 base is
+    freed (``deferred_grad_check``), with its peak memory. Returns the 6
     steps' launches."""
     import torch
     from repro_torch import kernels as K
@@ -5486,7 +5724,7 @@ def train_full_width(dev, cfg, tag, grad_layers=None, variant="4d"):
     if not (before == 0.0 and after > 0.0):
         raise AssertionError(f"{tag} {cfg.name}: the adapter did not move: "
                              f"||ΔW|| {before} -> {after}")
-    per_step = bf16_train_per_step(cfg)
+    per_step = bf16_train_per_step(cfg, tr.spec.cfg.matrix_types)
     check_launches(launches, {k_: v * steps for k_, v in per_step.items()},
                    f"{tag} {cfg.name}")
     step_ms = [1e3 * m["step_time_s"] for _, m in tr.history[1:]]
@@ -5506,22 +5744,11 @@ def train_full_width(dev, cfg, tag, grad_layers=None, variant="4d"):
                  lambda: tr.train(steps + 1), top_n=12,
                  show=("flash_bwd", "flash_fwd", "tt_linear"))
     tokens = torch.as_tensor(next(data)["tokens"][:1], device=dev)
-    base = tr.base
+    holder = {"base": tr.base}
     del tr
+    gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    gcfg, gbase = cfg, base
-    if grad_layers is not None and grad_layers < L:
-        gcfg, gbase = first_layers(base, cfg, grad_layers)
-    spec = M.build_adapter_spec(dataclasses.replace(run, model=gcfg))
-    grad_check(gcfg, spec, gbase, torch.Generator(device=dev).manual_seed(
-        SEED + 2), tokens, dev, tag=tag)
-    print(f"[{tag}] {cfg.name} gradient check at {gcfg.num_layers} layers: "
-          f"max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB (the bf16 "
-          f"base, its f32 witness and the three legs)", flush=True)
-    del base, gbase
-    torch.cuda.empty_cache()
+    deferred_grad_check(dev, cfg, run, holder, tokens, tag, grad_layers)
     return launches
 
 
@@ -5768,13 +5995,19 @@ def expert_banks_unquantized(qbase, tag="phase16"):
           "quantized", flush=True)
 
 
+#: phase 16's served cells (a)-(b) run 12 of granite-moe-1b's 24 layers
+#: (widths kept) for the script's time; (c) trains all 24
+GRANITE_MOE_SERVE_LAYERS = 12
+
+
 def phase_sixteen(dev):
     """Phase 16: full-width granite-moe-1b-a400m (24 x 1024, 16 heads of
     64 over 8, 32 experts of SwiGLU 512, top-8 at capacity factor 2.0,
     vocab 49155, bf16; f32 routers) through the MoE FFN of
     ``models/moe.py`` (plain PyTorch around the capacity dispatch, as the
     JAX package's einsums are) and every attention-side kernel at G = 2.
-    (a) served with a 4+1d MetaTT q/v adapter (rank 8, 3 tasks) at 0.25
+    (a) served at ``GRANITE_MOE_SERVE_LAYERS`` of its 24 layers with a
+    4+1d MetaTT q/v adapter (rank 8, 3 tasks) at 0.25
     of the base q projection through the dense cell, the paged cell cold
     then warm, int8 weights + int8 KV (paged, then the dense engine over
     int8 weights; no expert bank quantized), then a 4+ed q/v +
@@ -5807,6 +6040,7 @@ def phase_sixteen(dev):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         model = serving_model(dev, "phase16", GRANITE_MOE, SERVED_RATIO,
+                              layers=GRANITE_MOE_SERVE_LAYERS,
                               variant=variant)
         torch.cuda.reset_peak_memory_stats(dev)   # serving, not the init
         out = fn(model)
@@ -5872,7 +6106,7 @@ KIMI_H, KIMI_KV = 64, 8                 # 64 heads of 112 over 8 KV heads
 #: the d = 112 instances: names in ``KERNELS``
 D112_KERNELS = ("flash_attention_d112", "flash_attention_fwd_d112",
                 "decode_attention_d112", "paged_decode_attention_d112",
-                "paged_decode_attention_int8_d112")
+                "paged_decode_attention_int8_d112") + D112_TRAIN
 #: K4's phase-2 row at kimi-k2's heads: 4 slots x 256 cells
 KIMI_K4_CASES = ((KIMI_KV, 256, (0, 37, 130, 255)),)
 #: #5 at d = 112: its training shape (B, T = S), the next slice's
@@ -6075,7 +6309,8 @@ def phase_seventeen(dev):
     ``moe_down`` adapter (its expert mode 384 wide) through the dense
     cell. Each cell's logits are held under phase 16's witness rule, the
     f32 leg deferred (``Deferred``): the bf16 models are freed, the f32
-    base is rebuilt from the seed and each check's f32 leg runs then.
+    base is rebuilt from the seed, held value for value to the bf16
+    builds' (``rebuilt_f32_base``), and each check's f32 leg runs then.
     Every request FINISHED, no leaked block, int8 kv_bytes_peak below
     fp's, no second copy of the base; step ms, tok/s, peak memory a
     cell."""
@@ -6083,7 +6318,7 @@ def phase_seventeen(dev):
     from repro_torch import kernels as K
     from repro_torch.config.base import QuantConfig
     from repro_torch.models import model as M
-    total, secs = {}, {}
+    total, secs, prints = {}, {}, {}
     wit = Deferred("phase17")
 
     def count(fn):
@@ -6116,6 +6351,10 @@ def phase_seventeen(dev):
                           layers=KIMI_LAYERS, variant=variant)
         secs[f"build {variant}"] = time.perf_counter() - t0
         wit.bases["fp"] = m[3].base
+        got = base_fingerprint(m[3].base)
+        if prints.setdefault("fp", got) != got:
+            raise AssertionError(f"phase 17: the {variant} build's base is "
+                                 "not the first build's")
         return m
 
     m = build("4+1d")
@@ -6166,10 +6405,8 @@ def phase_seventeen(dev):
         raise AssertionError(f"{left} bytes held past the bf16 models")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    base32 = witness_base(dev, cfg, spec, dtypes)
-    print(f"[phase17] f32 witness base: "
-          f"{sum(t.numel() * 4 for t in M.tensors(base32)) / 1e9:.3f} GB in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    base32 = rebuilt_f32_base(dev, cfg, spec, dtypes, prints["fp"],
+                              "phase17")
     wit.replay(base32)
     print(f"[phase17] the f32 witness: max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
@@ -6177,10 +6414,423 @@ def phase_seventeen(dev):
     gc.collect()
     torch.cuda.empty_cache()
     secs["f32 witness"] = time.perf_counter() - t0
-    for name in D112_KERNELS[:1] + D112_KERNELS[2:]:
+    for name in D112_KERNELS[:1] + D112_KERNELS[2:5]:   # the served ones
         if not total.get(name):
             raise AssertionError(f"phase 17: {name} not launched")
     print(f"[phase17] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}; "
+          + ", ".join(f"{k_} {v:.1f} s" for k_, v in secs.items()),
+          flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 18: kimi-k2 trained at full width through the d = 112 instances of
+# #5, #6 and #7
+# ---------------------------------------------------------------------------
+
+def phase_eighteen(dev):
+    """Phase 18: kimi-k2 at full width and ``KIMI_LAYERS`` of its 61 layers
+    (36.5 GB of bf16 base) trained in phase 6's setting with MetaTT-(4+E)D
+    on q, v and the expert down-projections (``train_full_width``): 4 x
+    1024 tokens a step, 6 steps, one DMRG sweep; exactly 6L - 2 K1, 2L
+    #5_d112, L #6_d112 and L #7_d112 launches a step and nothing else
+    (the MoE FFN and its ``moe_down`` delta are plain PyTorch); the median
+    step, tokens/s, busy share and top device operations; then the B = 1
+    gradient check with its f32 witness deferred: the f32 base (73 GB)
+    cannot sit beside the bf16 one, so the kernel and plain legs run
+    first, the trainer and its base are freed, and the f32 base is
+    rebuilt from the trainer's seed value for value
+    (``deferred_grad_check``)."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_config(KIMI),
+                              num_layers=KIMI_LAYERS)
+    gc.collect()
+    return train_full_width(dev, cfg, "phase18", variant="4+ed")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: jamba-v0.1-52b (mamba + attention, MoE) prefilled, decoded and
+# trained at full width
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-v0.1-52b"
+#: phase 19's depth: 1 of jamba's 4 super-blocks (8 layers: 7 mamba, 1
+#: attention), widths kept. One super-block is 12.76 B parameters (25.5 GB
+#: of bf16 base); its f32 witness is 51 GB, so two would not fit beside it
+JAMBA_LAYERS = 8
+#: (a): 4 prompts of 512 tokens (two scan chunks of 256: the chunked
+#: path), then 32 teacher-forced decode steps
+JAMBA_PROMPTS, JAMBA_PROMPT_LEN, JAMBA_STEPS = 4, 512, 32
+#: (a)'s check that the decode steps compute the parallel forward runs in
+#: f32 at this capacity factor, E / k: no call drops a pair. At jamba's
+#: own 2.0 a decode step of 4 slots keeps int(2.0 x 8 / 16) = 1 pair an
+#: expert and drops the rest, so its logits are not the parallel
+#: forward's (in the JAX package too)
+JAMBA_NO_DROP_CF = 8.0
+#: K1 at jamba's mamba_in (4096 -> 16384) and mamba_out (8192 -> 4096) at
+#: a training step's M = 4 x 1024 rows, r = 8
+JAMBA_MAMBA = ((4096, 4096, 16384, 8), (4096, 8192, 4096, 8))
+
+
+def jamba_linear_rows(dev, rn):
+    """K1 at jamba's mamba in / out projections, M = 4096 rows, as the
+    training forward and as the backward's dx (on the transposed views the
+    backward passes): within 1e-2 of the plain version, its time, the
+    plain version's, ``torch.matmul``'s and the bound."""
+    import torch
+    from repro_torch.kernels import tt_linear as tl
+    rows, alpha = [], 4.0
+    for m, kd, n, r in JAMBA_MAMBA:
+        x, w = rn(m, kd), rn(kd, n, scale=kd ** -0.5)
+        a, b = rn(r, kd, scale=kd ** -0.5).T, rn(r, n, scale=r ** -0.5)
+        g = rn(m, n)
+        for role, ops_ in (("forward", (x, w, a, b)),
+                           ("dx", (g, w.T, b.T, a.T))):
+            mm, kk = ops_[0].shape
+            nn = ops_[1].shape[1]
+            err = compare("tt_linear", tl.tt_linear(*ops_, alpha),
+                          tl.tt_linear_plain(*ops_, alpha))
+            flops = 2 * mm * kk * nn + 2 * mm * kk * r + 2 * mm * r * nn
+            which = "mamba_in" if n > kd else "mamba_out"
+            row = dict(
+                name="tt_linear", tag="jamba", main=False, max_abs_err=err,
+                shape=f"{which} {role} M={mm} K={kk} N={nn} r={r}",
+                ms=cuda_time_ms(lambda *t: tl.tt_linear(*t, alpha), [ops_]),
+                plain_ms=event_time_ms(
+                    lambda: tl.tt_linear_plain(*ops_, alpha), (), iters=10),
+                library_ms=cuda_time_ms(
+                    lambda x_, w_, a_, b_: torch.matmul(x_, w_) + alpha
+                    * torch.matmul(torch.matmul(x_, a_), b_), [ops_]))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                2 * (mm * kk + kk * nn + kk * r + r * nn + mm * nn), flops)
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows.append(row)
+            print(f"[kernel] K1 jamba {row['shape']}: err {err:.3e}; "
+                  f"{row['ms']:.4f} ms = {row['tflops']:.1f} TFLOP/s, "
+                  f"{row['bound_ms'] / row['ms']:.1%} of its bound; / "
+                  f"torch.matmul {row['ms'] / row['library_ms']:.3f}x",
+                  flush=True)
+        del x, w, a, b, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: K3 at phase 19 (a)'s prefill (4 prompts of 512) and at 4 x 1024; K4 at
+#: its decode: 4 slots of a 544-cell cache at positions 512 .. 543
+JAMBA_K3_CASES = ((512, 8), (1024, 8))
+JAMBA_K4_CASES = ((8, 544, (512, 521, 530, 543)),)
+
+
+def jamba_attention_rows(dev, rn):
+    """K3 (B = 4) and K4 at jamba's 32 heads of 128 over 8 (G = 4): each
+    within its tolerance of the plain version, two calls bit-identical,
+    its bound and SDPA with ``enable_gqa`` as library (``k3_rows``,
+    ``k4_rows``; #5, #6 and #7 at its training shape are
+    ``JAMBA_TRAIN_TAGS``' rows)."""
+    return (k3_rows(dev, rn, h=32, d=128, cases=JAMBA_K3_CASES, tag="jamba",
+                    b=4)
+            + k4_rows(dev, rn, h=32, d=128, cases=JAMBA_K4_CASES,
+                      tag="jamba"))
+
+
+def jamba_legs(leg, cfg, fac, base, toks, p, dev, routing=None):
+    """One leg of phase 19 (a) over ``base`` ("kernel": the CUDA kernels;
+    "plain" / "f32": ``backend="ref"``, on ``cfg`` or its f32 version):
+    the prefill of ``toks[:, :p]`` (its last position's logits, and the
+    residual stream after each layer), then the rest of ``toks``
+    teacher-forced one decode step at a time from the prefill's caches
+    (its mamba states and conv windows, its k / v placed in caches of the
+    whole length), and the parallel forward over all of ``toks``. With
+    ``routing`` (another leg's result) each part replays that leg's MoE
+    routing (``routed_leg``). Returns {"prefill": (B, V), "decode":
+    (B·n, V), "parallel": (B·n, V)} of (f32 logits, the routers' top-k
+    record), decode and parallel over the same positions p .. T - 1, and
+    "layers": the prefill's per-layer residual streams."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    pol = dispatch.DEFAULT if leg == "kernel" else dispatch.REF
+    c = f32_cfg(cfg) if leg == "f32" else cfg
+    kw = dict(policy=pol, device=dev)
+    b, t = toks.shape
+    held, layers, sublayer = {}, [], T._sublayer
+
+    def recorded(*args, **kw_):
+        out = sublayer(*args, **kw_)
+        layers.append(out[0].clone())
+        return out
+
+    def prefill():
+        T._sublayer = recorded
+        try:
+            out = T.forward(base, c, fac.spec, fac.broadcast, fac.per_layer,
+                            toks[:, :p], return_caches=True, **kw)
+        finally:
+            T._sublayer = sublayer
+        held["caches"] = prefilled_caches(c, out.caches, b, t, p, dev)
+        return out.logits[:, -1].float()
+
+    def decode():
+        steps = [T.decode_step(base, c, fac.spec, fac.broadcast,
+                               fac.per_layer, toks[:, i:i + 1],
+                               held["caches"], i, **kw)[0].float()
+                 for i in range(p, t)]
+        return torch.stack(steps, 1).reshape(b * (t - p), -1)
+
+    def parallel():
+        return T.forward(base, c, fac.spec, fac.broadcast, fac.per_layer,
+                         toks, **kw).logits[:, p:].float().reshape(
+                             b * (t - p), -1)
+    with torch.inference_mode():
+        out = {what: routed_leg(fn, routing and routing[what][1])
+               for what, fn in (("prefill", prefill), ("decode", decode),
+                                ("parallel", parallel))}
+    del held
+    out["layers"] = layers
+    return out
+
+
+def layer_drift(a, b):
+    """Per layer, max |a - b| / max |b| of two legs' residual streams."""
+    return [float((x.float() - y.float()).abs().max() / y.float().abs().max())
+            for x, y in zip(a, b)]
+
+
+def prefilled_caches(cfg, got, b, t, p, dev):
+    """Decode caches of ``t`` cells from a prefill's caches ``got``
+    (``forward(return_caches=True)`` over ``p`` tokens): its k / v in the
+    first ``p`` cells, its mamba states and conv windows as they are."""
+    from repro_torch.models import transformer as T
+    caches = T.init_caches(cfg, b, t, cfg.compute_dtype, device=dev)
+    for dst, src in zip(caches, got):
+        for kind, leaves in src.items():
+            for name, v in leaves.items():
+                if kind == "self":
+                    dst[kind][name][:, :, :p] = v
+                else:
+                    dst[kind][name].copy_(v)
+    return caches
+
+
+def jamba_serving(dev, m, count, tag="phase19"):
+    """Phase 19 (a): the kernel leg's prefill of ``JAMBA_PROMPTS`` prompts
+    of ``JAMBA_PROMPT_LEN`` tokens and ``JAMBA_STEPS`` decode steps timed
+    (prefill ms, step ms, tok/s; busy share and top device operations of
+    one profiled prefill + decode), exact launches a prefill and a step;
+    then the legs of the checks (``jamba_legs``) kept for the deferred f32
+    witness: "plain", "kernel" replaying the plain leg's routing, and
+    "kernel, own routing". Returns (toks, the adapter factors, the
+    legs)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg, spec, _, rt, _ = m
+    fac = dataclasses.replace(rt, base=None)
+    rng = np.random.RandomState(SEED + 19)
+    p, n = JAMBA_PROMPT_LEN, JAMBA_STEPS
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                       size=(JAMBA_PROMPTS, p + n)),
+                           device=dev)
+    attn = sum(m_ == "attn" for m_, _ in cfg.block_pattern) * \
+        cfg.num_super_blocks
+    k1 = sum(t in K1_MATRICES.get(m_, ()) for m_, _ in cfg.block_pattern
+             for t in spec.cfg.matrix_types) * cfg.num_super_blocks
+    kw = dict(device=dev)
+
+    def prefill():
+        with torch.inference_mode():
+            return T.forward(rt.base, cfg, spec, rt.broadcast, rt.per_layer,
+                             toks[:, :p], return_caches=True, **kw)
+
+    def decode(caches):
+        with torch.inference_mode():
+            for i in range(p, p + n):
+                T.decode_step(rt.base, cfg, spec, rt.broadcast,
+                              rt.per_layer, toks[:, i:i + 1], caches, i,
+                              **kw)
+
+    def fresh_caches(out):
+        return prefilled_caches(cfg, out.caches, JAMBA_PROMPTS, p + n, p,
+                                dev)
+
+    prefill()                                   # warm-up
+    torch.cuda.synchronize()
+    held = {}
+    t0 = time.perf_counter()
+    launches = count(lambda: held.update(out=prefill()))
+    pre_ms = 1e3 * (time.perf_counter() - t0)
+    check_launches(launches, {"tt_linear": k1, "flash_attention": attn},
+                   f"{tag} (a) prefill")
+    caches = fresh_caches(held.pop("out"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launches = count(lambda: decode(caches))
+    step_ms = 1e3 * (time.perf_counter() - t0) / n
+    check_launches(launches, {"tt_linear": k1 * n,
+                              "decode_attention": attn * n},
+                   f"{tag} (a) {n} decode steps")
+    base_b = sum(t.numel() * t.element_size() for t in M.tensors(rt.base))
+    bms = base_b / PEAK_BYTES_S * 1e3
+    print(f"[{tag}] (a) launches: {k1} K1 + {attn} K3 a prefill, {k1} K1 + "
+          f"{attn} K4 a decode step, nothing else; prefill of "
+          f"{JAMBA_PROMPTS} x {p} tokens {pre_ms:.1f} ms "
+          f"({JAMBA_PROMPTS * p / pre_ms * 1e3:.1f} tokens/s); decode "
+          f"{step_ms:.2f} ms a step = {JAMBA_PROMPTS / step_ms * 1e3:.1f} "
+          f"tok/s against a bound of {bms:.2f} ms (every expert runs: "
+          f"capacity max(int(2.0 x 8 / 16), 1) = 1 a step; the step reads "
+          f"the whole {base_b / 1e9:.3f} GB base)", flush=True)
+    del caches
+
+    def window():
+        out = prefill()
+        cc = fresh_caches(out)
+        del out
+        decode(cc)
+    device_share(f"{tag}: (a) one prefill of {JAMBA_PROMPTS} x {p} tokens "
+                 f"and {n} decode steps", window, top_n=12,
+                 show=("tt_linear", "flash_fwd", "paged"))
+    legs = {"plain": jamba_legs("plain", cfg, fac, rt.base, toks, p, dev)}
+    legs["kernel"] = jamba_legs("kernel", cfg, fac, rt.base, toks, p, dev,
+                                legs["plain"])
+    legs["kernel, own routing"] = jamba_legs("kernel", cfg, fac, rt.base,
+                                             toks, p, dev)
+    return toks, fac, legs
+
+
+def jamba_verdicts(legs, cfg, tag="phase19"):
+    """Phase 19 (a)'s checks once the f32 legs have run. The kernel, plain
+    and f32 legs share the plain leg's routing, so bf16 drift flips no
+    top-k: the prefill's last logits, the decode steps' and the parallel
+    forward's are held by ``logits_checked`` (the witness rule asserted,
+    and with it that its limit sits below a zero kernel leg's; the 5%
+    limit reported: the mamba layers amplify the kernel-vs-plain rounding
+    as they do bf16 against f32). The kernel leg with its own routing is
+    printed beside them, and the residual streams' drift layer by layer:
+    what routing flips add, and where the legs part. Then the decode
+    steps against the parallel forward
+    (``test_decode_matches_parallel_forward``'s case) in f32 at
+    ``JAMBA_NO_DROP_CF``, within that test's 2e-2."""
+    legs_ = ("kernel", "plain", "f32")
+    for what in ("prefill", "decode", "parallel"):
+        out = {leg: legs[leg][what][0] for leg in legs_}
+        rel, agree, wit = legs_verdict(out, {leg: legs[leg][what][1]
+                                             for leg in legs_})
+        logits_checked(f"(a) {what} logits, routing shared", rel, agree,
+                       out["kernel"].shape[0], tag, wit)
+        own = {"kernel": legs["kernel, own routing"][what][0],
+               "plain": out["plain"], "f32": out["f32"]}
+        rel, agree, (k32, _, flips) = legs_verdict(own, {
+            "kernel": legs["kernel, own routing"][what][1],
+            "plain": legs["plain"][what][1], "f32": legs["f32"][what][1]})
+        print(f"[{tag}] (a) {what} logits, the kernel leg with its own "
+              f"routing (reported): vs plain {rel:.3e}, vs f32 {k32:.3e}, "
+              f"argmax equal {agree}/{out['kernel'].shape[0]}, top-k sets "
+              f"that differ from the plain leg's {flips['kernel/plain']:.4f} "
+              "of (token, layer) rows", flush=True)
+    pattern = [f"{m}+{f}" for m, f in cfg.block_pattern] * \
+        cfg.num_super_blocks
+    rows = {"kernel / plain": ("kernel", "plain"),
+            "kernel own routing / plain": ("kernel, own routing", "plain"),
+            "plain / f32": ("plain", "f32")}
+    for label, (x, y) in rows.items():
+        print(f"[{tag}] (a) prefill residual stream after each layer, max "
+              f"|{label.replace(' / ', ' - ')}| / max |{y}|: " + ", ".join(
+                  f"{i} {m} {d:.3e}" for i, (m, d) in enumerate(zip(
+                      pattern, layer_drift(legs[x]["layers"],
+                                           legs[y]["layers"])))),
+              flush=True)
+    d, f = (legs["f32 no drops"][w][0] for w in ("decode", "parallel"))
+    gap = float((d - f).abs().max() / f.abs().max())
+    print(f"[{tag}] (a) cf {JAMBA_NO_DROP_CF}: f32 decode steps against the "
+          f"f32 parallel forward: max |decode - parallel| / max |parallel| "
+          f"{gap:.3e} (limit 2e-2, the JAX test's)", flush=True)
+    if not gap <= 2e-2:
+        raise AssertionError(f"f32 decode differs from the parallel "
+                             f"forward by {gap:.3e} at cf {JAMBA_NO_DROP_CF}")
+
+
+def phase_nineteen(dev):
+    """Phase 19: jamba-v0.1-52b at full width (4096, 32 heads of 128 over
+    8, mamba d_inner 8192 / d_state 16 / dt_rank 256 / conv 4, 16 experts
+    of 14336 top-2 at capacity factor 2.0, vocab 65536, bf16) at
+    ``JAMBA_LAYERS`` of its 32 layers (one super-block: 7 mamba, 1
+    attention), MetaTT 4d on attn q / v and mamba in / out. (a) The
+    adapter at 0.25 of the base q projection: 4 prompts of 512 tokens
+    prefilled (the chunked scan), 32 decode steps from the prefilled mamba
+    states and KV caches (``jamba_serving``), exact launches, the legs of
+    the checks kept; the bf16 model freed, the f32 base rebuilt value for
+    value from the seed (``rebuilt_f32_base``, 52 GB) and the f32 legs
+    run; the prefill, decode and parallel logits held with the routing
+    shared between the legs (the witness rule, which a zero kernel leg
+    fails; the 5% limit reported), and the f32 decode steps against the f32 parallel forward at no capacity drop
+    (``jamba_verdicts``). (b) Phase 6's training (``train_full_width``):
+    exactly 47 K1 (by ``bf16_train_per_step``), 2 #5, 1 #6 and 1 #7 a
+    step, then the B = 1 gradient check with the f32 witness deferred and
+    the routing shared. Peak memory a part."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.models import model as M
+    total, secs = {}, {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)   # by earlier phases
+    t0 = time.perf_counter()
+    m = serving_model(dev, "phase19", JAMBA, SERVED_RATIO,
+                      layers=JAMBA_LAYERS, variant="4d")
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, spec = m[0], m[1]
+    dtypes = [t.dtype for t in M.tensors(m[3].base)]
+    base_b = sum(t.numel() * t.element_size() for t in M.tensors(m[3].base))
+    prints = base_fingerprint(m[3].base)
+    toks, fac, legs = jamba_serving(dev, m, count)
+    print(f"[phase19] (a) the bf16 legs: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) - held
+    print(f"[phase19] the bf16 model freed: {left / 1e9:.3f} GB allocated "
+          "since the phase began (the checks' logits and residual streams; "
+          "limit 5% of the base)", flush=True)
+    if left > 0.05 * base_b:
+        raise AssertionError(f"{left} bytes held past the bf16 model")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base32 = rebuilt_f32_base(dev, cfg, spec, dtypes, prints, "phase19")
+    legs["f32"] = jamba_legs("f32", cfg, fac, base32, toks,
+                             JAMBA_PROMPT_LEN, dev, legs["plain"])
+    legs["f32 no drops"] = jamba_legs(
+        "f32", dataclasses.replace(cfg, moe_capacity_factor=JAMBA_NO_DROP_CF),
+        fac, base32, toks, JAMBA_PROMPT_LEN, dev)
+    print(f"[phase19] (a) the f32 witness: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+    del base32
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba_verdicts(legs, cfg)
+    del legs
+    secs["(a) served"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(JAMBA),
+                              num_layers=JAMBA_LAYERS)
+    gc.collect()
+    train = train_full_width(dev, cfg, "phase19")
+    for k_, v in train.items():
+        total[k_] = total.get(k_, 0) + v
+    secs["(b) trained"] = time.perf_counter() - t0
+    print(f"[phase19] launches on the path "
           f"{json.dumps({k_: v for k_, v in total.items() if v})}; "
           + ", ".join(f"{k_} {v:.1f} s" for k_, v in secs.items()),
           flush=True)
@@ -6220,8 +6870,9 @@ def main(argv) -> int:
           flush=True)
     t0 = t_start = time.perf_counter()
     logs = _build.build_all(force=True)
+    secs = {"build": time.perf_counter() - t0}
     print(f"[build] nvcc sm_90a: {', '.join(sorted(logs))} in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+          f"{secs['build']:.1f}s", flush=True)
     for name, path in sorted(logs.items()):
         kern = spill = ""
         for line in open(path).read().splitlines():
@@ -6241,43 +6892,39 @@ def main(argv) -> int:
             phase_train_kernels(dev, [s_ for s_ in TRAIN_ATTN_SHAPES
                                       if s_[4] == 256], None)
         if set(only) & set(GQA_TRAIN):
-            phase_train_kernels(dev, list(GQA_TRAIN_TAGS), None)
+            phase_train_kernels(dev, list(GQA_TRAIN_TAGS)
+                                + list(JAMBA_TRAIN_TAGS), None)
+        if set(only) & set(D112_TRAIN):
+            phase_train_kernels(dev, list(KIMI_TRAIN_TAGS), None)
         return 0
-    rows = (phase_kernels(dev) + phase_train_kernels(dev)
-            + phase_f32_kernels(dev))
+    secs["phase 1"] = time.perf_counter() - t_start
+
+    def timed(label, fn, *args):
+        t_ = time.perf_counter()
+        out = fn(*args)
+        secs[label] = time.perf_counter() - t_
+        return out
+
+    rows = timed("phase 2", lambda: phase_kernels(dev)
+                 + phase_train_kernels(dev) + phase_f32_kernels(dev))
     paths = {}
-    paths["serve"], dense_run = phase_serving(dev)
-    paths["paged"], paged_run = phase_paged(dev)
-    paths.update(phase_quant(dev, dense_run, paged_run))
-    paths["train"], train_cores = phase_training(dev)
-    paths["adapters"] = phase_adapters(dev, dense_run, paged_run,
-                                       train_cores)
-    t8 = time.perf_counter()
-    paths["phase8"] = phase_rest(dev, dense_run, paged_run, train_cores)
-    t9 = time.perf_counter()
-    paths["phase9"] = phase_nine(dev)
-    t10 = time.perf_counter()
-    paths["phase10"] = phase_roberta(dev)
-    t11 = time.perf_counter()
-    paths["phase11"] = phase_eleven(dev)
-    t12 = time.perf_counter()
-    paths["phase12"] = phase_twelve(dev)
-    t13 = time.perf_counter()
-    paths["phase13"] = phase_thirteen(dev)
-    t14 = time.perf_counter()
-    paths["phase14"] = phase_fourteen(dev)
-    t15 = time.perf_counter()
-    paths["phase15"] = phase_fifteen(dev)
-    t16 = time.perf_counter()
-    paths["phase16"] = phase_sixteen(dev)
-    t17 = time.perf_counter()
-    paths["phase17"] = phase_seventeen(dev)
-    print(f"[time] phase 8 {t9 - t8:.1f} s; phase 9 {t10 - t9:.1f} s; "
-          f"phase 10 {t11 - t10:.1f} s; phase 11 {t12 - t11:.1f} s; phase "
-          f"12 {t13 - t12:.1f} s; phase 13 {t14 - t13:.1f} s; phase 14 "
-          f"{t15 - t14:.1f} s; phase 15 {t16 - t15:.1f} s; phase 16 "
-          f"{t17 - t16:.1f} s; phase 17 {time.perf_counter() - t17:.1f} s; "
-          f"the script {time.perf_counter() - t_start:.1f} s", flush=True)
+    paths["serve"], dense_run = timed("phase 3", phase_serving, dev)
+    paths["paged"], paged_run = timed("phase 4", phase_paged, dev)
+    paths.update(timed("phase 5", phase_quant, dev, dense_run, paged_run))
+    paths["train"], train_cores = timed("phase 6", phase_training, dev)
+    paths["adapters"] = timed("phase 7", phase_adapters, dev, dense_run,
+                              paged_run, train_cores)
+    paths["phase8"] = timed("phase 8", phase_rest, dev, dense_run, paged_run,
+                            train_cores)
+    for n_, fn in ((9, phase_nine), (10, phase_roberta), (11, phase_eleven),
+                   (12, phase_twelve), (13, phase_thirteen),
+                   (14, phase_fourteen), (15, phase_fifteen),
+                   (16, phase_sixteen), (17, phase_seventeen),
+                   (18, phase_eighteen), (19, phase_nineteen)):
+        paths[f"phase{n_}"] = timed(f"phase {n_}", fn, dev)
+    print("[time] " + "; ".join(f"{k_} {v:.1f} s" for k_, v in secs.items())
+          + f"; the script {time.perf_counter() - t_start:.1f} s "
+          "(phase 1: the build and the device query)", flush=True)
 
     records = []
     for name, (src, replaces) in KERNELS.items():
@@ -6302,13 +6949,16 @@ def main(argv) -> int:
                 "bound_ms", "bound_by")
         if name in D256_KERNELS + D112_KERNELS:   # every phase-2 row of a
             # d = 256 or d = 112 instance
-            rec["rows"] = [{k: r[k] for k in keys + ("variant", "lse_err",
-                                                     "library")
-                            if k in r} for r in mine]
-        for model_tag in ("gemma", "kimi"):   # K1, K2, #9, #10 at gemma-7b's
-            # and kimi-k2's q / v, phase 2
+            rec["rows"] = [{k: r[k] for k in keys + (
+                "variant", "variants", "slab_heads", "lse_err", "library",
+                "tag", "tflops") if k in r} for r in mine]
+        for model_tag in ("gemma", "kimi", "jamba"):   # K1, K2, #9, #10 at
+            # gemma-7b's and kimi-k2's q / v; K1 at jamba's mamba in / out,
+            # K3, K4 and #5-#7 at its attention (not the _d256 / _d112
+            # instances, whose rows are above)
             tagged = [{k: r[k] for k in keys} for r in mine
-                      if r.get("tag") == model_tag and "_d" not in name]
+                      if r.get("tag") == model_tag
+                      and not re.search(r"_d\d+$", name)]
             if tagged:
                 rec[f"{model_tag}_rows"] = tagged
         gqa = [{k: r[k] for k in keys + ("tag", "variant", "variants",

@@ -80,6 +80,14 @@ class ModelConfig:
         return self.num_kv_heads * self.resolved_head_dim
 
     @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.mamba_dt_rank or -(-self.d_model // 16)
+
+    @property
     def pattern_len(self) -> int:
         return len(self.block_pattern)
 

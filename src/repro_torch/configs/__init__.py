@@ -3,7 +3,8 @@ config, ``get_smoke_config`` the reduced same-family config the CPU tests
 use. The port carries the architectures of its slices so far: stablelm-1.6b,
 gemma-7b (heads of 256), the paper's own RoBERTa targets (one module,
 two ids), granite-34b (MQA, a GQA group of 48), mistral-large-123b
-(a group of 12) and the MoE models granite-moe-1b-a400m and kimi-k2."""
+(a group of 12), the MoE models granite-moe-1b-a400m and kimi-k2, and
+the hybrid mamba / attention jamba-v0.1-52b."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +18,7 @@ _MODULES = {
     "mistral-large-123b": "mistral_large_123b",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "kimi-k2-1t-a32b": "kimi_k2",
+    "jamba-v0.1-52b": "jamba_52b",
 }
 
 ALL_IDS = tuple(_MODULES)

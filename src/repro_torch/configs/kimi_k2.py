@@ -4,9 +4,8 @@
 MoE 384 experts top-8 + 1 shared expert — ~1T total, ~32B active.
 Capacity factor 1.25 (the JAX package's choice for top-8 of 384). Its
 head_dim is 112: the card serves it through the d = 112 instances of K3,
-K4, #8 and #8q (the d = 128 kernels on tiles padded in shared memory);
-the flash backward (#6 / #7) does not take 112 yet, so it is not trained
-on the card.
+K4, #8 and #8q and trains it through those of #5, #6 and #7 (the d = 128
+kernels on tiles padded in shared memory).
 """
 import dataclasses
 

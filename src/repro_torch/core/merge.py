@@ -109,10 +109,11 @@ _FOLD_PATHS = {
     "attn_v": ("attn", "mixer", "wv"), "attn_o": ("attn", "mixer", "wo"),
     "ffn_gate": (None, "ffn", "wg"), "ffn_up": (None, "ffn", "wu"),
     "ffn_down": (None, "ffn", "wd"),
+    "mamba_in": ("mamba", "mixer", "w_in"),
+    "mamba_out": ("mamba", "mixer", "w_out"),
 }
-_UNPORTED_FOLD = ("xattn_q", "xattn_k", "xattn_v", "xattn_o", "mamba_in",
-                  "mamba_out", "mlstm_q", "mlstm_v", "mlstm_o", "slstm_z",
-                  "slstm_o")
+_UNPORTED_FOLD = ("xattn_q", "xattn_k", "xattn_v", "xattn_o", "mlstm_q",
+                  "mlstm_v", "mlstm_o", "slstm_z", "slstm_o")
 
 
 def _fold_block_list(params, cfg, blocks, pattern, layer_ids, task):
@@ -155,7 +156,7 @@ def fold_transformer(params: Params, cfg: MetaTTConfig, base: dict,
     if unported:
         raise NotImplementedError(
             f"folding {unported} needs mixers the port does not run yet "
-            "(enc-dec, mamba, xLSTM: ROADMAP Queue 1 item 5)")
+            "(enc-dec, xLSTM: ROADMAP Queue 1 item 5)")
     unfoldable = [t for t in cfg.matrix_types if t not in _FOLD_PATHS]
     if unfoldable:
         raise ValueError(

@@ -21,7 +21,8 @@ KERNELS = ("tt_linear", "tt_linear_batched_a", "flash_attention",
            "tt_linear_batched_a_w8_f32", "flash_attention_bwd_dq_d256",
            "flash_attention_bwd_dkv_d256", "flash_attention_d112",
            "flash_attention_fwd_d112", "decode_attention_d112",
-           "paged_decode_attention_d112", "paged_decode_attention_int8_d112")
+           "paged_decode_attention_d112", "paged_decode_attention_int8_d112",
+           "flash_attention_bwd_dq_d112", "flash_attention_bwd_dkv_d112")
 _COUNTERS = (_tl.LAUNCHES, _fa.LAUNCHES, _pa.LAUNCHES)
 
 

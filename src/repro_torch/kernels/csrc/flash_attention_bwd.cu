@@ -73,6 +73,17 @@
 // size (flash_attention.py::dkv_slab_heads); one slab is the unsplit pass.
 // The f32 instances keep G in {1, 2, 4, 8}.
 //
+// Head_dim 112 (kimi-k2, 7168 / 64) runs the d = 128 passes on tiles
+// padded in shared memory (template DR = 112), as the forward does
+// (csrc/flash_attention.cu): each row of q, k, v and dO is read as 14
+// chunks of 16 bytes and chunks 14-15 of the 128-wide swizzled tile are
+// zero-filled, so S, dP and the dq / dk / dv products run unchanged (the
+// zero columns add exact zeros to S and dP, and the padding columns of
+// dq, dk and dv are never stored). The δ prologue sums exactly DR columns
+// of O and dO (two halves of 56), the scale is 112^-0.5, and the slab
+// workspace keeps whole 128-wide accumulators (sized by
+// flash_attention.py::tile_dim).
+//
 // The C functions return cudaGetLastError() of the launch.
 
 #include "attention_f32.cuh"
@@ -142,7 +153,10 @@ struct DkvSmem {
 // the tile stay in shared memory. k and v tiles of 64 keys stream through
 // the ring, up to the causal diagonal. Three blocks fit an SM at d = 64.
 
-template <int D>
+// DR: the operands' head_dim; D: the tile width, DR padded to the next
+// multiple of 64 (112 runs as 128, its columns past 112 zero in shared
+// memory and never stored)
+template <int D, int DR = D>
 __global__ void __launch_bounds__(WG, D == 64 ? 3 : 1)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -174,24 +188,28 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int kv_end = causal ? min(S, q0 + BM) : S;
   const int nkv = (kv_end + KT - 1) / KT;
-  load_tile<BM, D>(base + L::Q, qb, sd.s[1], q0, T, tid);
-  load_tile<BM, D>(base + L::G, gb, sd.s[13], q0, T, tid);
+  load_tile<BM, D, WG, DR>(base + L::Q, qb, sd.s[1], q0, T, tid);
+  load_tile<BM, D, WG, DR>(base + L::G, gb, sd.s[13], q0, T, tid);
   auto issue = [&](int j) {
     const int st = j % DQ_STAGES;
-    load_tile<KT, D>(base + L::K + st * L::STR, kb, sd.s[4], j * KT, S, tid);
-    load_tile<KT, D>(base + L::V + st * L::STR, vb, sd.s[7], j * KT, S, tid);
+    load_tile<KT, D, WG, DR>(base + L::K + st * L::STR, kb, sd.s[4], j * KT,
+                             S, tid);
+    load_tile<KT, D, WG, DR>(base + L::V + st * L::STR, vb, sd.s[7], j * KT,
+                             S, tid);
   };
   issue(0);
   cp_async_commit();
 
-  {  // D = rowsum(dO ⊙ O) in f32: two threads a row, half the columns each
+  {  // D = rowsum(dO ⊙ O) in f32: two threads a row, half of the DR real
+     // columns each (56 at DR = 112: 7 chunks of 16 bytes)
+    static_assert(DR % 16 == 0, "two halves of whole 16-byte chunks");
     const int row = tid >> 1, half = tid & 1, qi = q0 + row;
     float acc = 0.f;
     if (qi < T) {
-      const bf16* orow = ob + qi * sd.s[10] + half * (D / 2);
-      const bf16* grow = gb + qi * sd.s[13] + half * (D / 2);
+      const bf16* orow = ob + qi * sd.s[10] + half * (DR / 2);
+      const bf16* grow = gb + qi * sd.s[13] + half * (DR / 2);
 #pragma unroll
-      for (int c = 0; c < D / 2; c += 8) {
+      for (int c = 0; c < DR / 2; c += 8) {
         const uint4 uo = *reinterpret_cast<const uint4*>(orow + c);
         const uint4 ug = *reinterpret_cast<const uint4*>(grow + c);
         const bf16* eo = reinterpret_cast<const bf16*>(&uo);
@@ -287,7 +305,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   bf16* out = dq + bb * sd.s[15] + h * sd.s[17];
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c)
+  for (int c = 0; c < DR / 8; ++c)   // the DR real columns only
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int qi = hh ? qb8 : qa;
@@ -338,19 +356,20 @@ __device__ __forceinline__ void ws_put(float4* dst, const float (&a)[N],
         make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
 }
 
-// The last slab's block: one of dk / dv (D columns) from the workspace,
-// the nslab slots (``stride`` float4s apart) added in slab order, rounded
-// to bf16 once. Float4 i of a thread holds its accumulator entries
-// 4i..4i + 3: columns 8i + ca, + 1 of its rows key0 and key1, as the
-// unsplit epilogue stores them. A loop over i, not unrolled: the
-// accumulators are dead here, and the merge keeps few registers.
-template <int D, int NT>
+// The last slab's block: one of dk / dv (its DR real columns of the
+// accumulator) from the workspace, the nslab slots (``stride`` float4s
+// apart) added in slab order, rounded to bf16 once. Float4 i of a thread
+// holds its accumulator entries 4i..4i + 3: columns 8i + ca, + 1 of its
+// rows key0 and key1, as the unsplit epilogue stores them. A loop over i,
+// not unrolled: the accumulators are dead here, and the merge keeps few
+// registers.
+template <int DR, int NT>
 __device__ __noinline__ void store_merged(const float4* part, int stride,
                                           int nslab, int tid, int ca,
                                           int key0, int key1, int S,
                                           bf16* out, long long rs) {
 #pragma unroll 1
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < DR / 8; ++i) {
     float4 a = __ldcg(part + i * NT + tid);
     for (int s = 1; s < nslab; ++s) {
       const float4 t = __ldcg(part + s * stride + i * NT + tid);
@@ -391,7 +410,7 @@ __device__ __forceinline__ bool last_to_arrive(int* cnt, int id, int n) {
 // the slab's query heads, the q, dO, lse and D tiles of BN queries stream
 // through the ring, from the causal diagonal on.
 
-template <int D, int BN, bool SLABS>
+template <int D, int BN, bool SLABS, int DR = D>
 __global__ void __launch_bounds__(WG, 2)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -419,18 +438,20 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_items = sl.nh * per_head;
 
   // element strides: q, k, v, g, dk, dv — (batch, row, head) each
-  load_tile<BM, D>(base + L::K, k + bb * sd.s[3] + kvh * sd.s[5], sd.s[4],
-                   k0, S, tid);
-  load_tile<BM, D>(base + L::V, v + bb * sd.s[6] + kvh * sd.s[8], sd.s[7],
-                   k0, S, tid);
+  load_tile<BM, D, WG, DR>(base + L::K, k + bb * sd.s[3] + kvh * sd.s[5],
+                           sd.s[4], k0, S, tid);
+  load_tile<BM, D, WG, DR>(base + L::V, v + bb * sd.s[6] + kvh * sd.s[8],
+                           sd.s[7], k0, S, tid);
   auto issue = [&](int it) {
     const int st = it % DKV_STAGES;
     const int h = sl.h0 + it / per_head;
     const int q0 = (i0 + it % per_head) * BN;
-    load_tile<BN, D>(base + L::Q + st * L::STR,
-                     q + bb * sd.s[0] + h * sd.s[2], sd.s[1], q0, T, tid);
-    load_tile<BN, D>(base + L::G + st * L::STR,
-                     g + bb * sd.s[9] + h * sd.s[11], sd.s[10], q0, T, tid);
+    load_tile<BN, D, WG, DR>(base + L::Q + st * L::STR,
+                             q + bb * sd.s[0] + h * sd.s[2], sd.s[1], q0, T,
+                             tid);
+    load_tile<BN, D, WG, DR>(base + L::G + st * L::STR,
+                             g + bb * sd.s[9] + h * sd.s[11], sd.s[10], q0, T,
+                             tid);
     for (int x = tid; x < 2 * BN; x += WG) {   // lse and D, zero past T
       const int c = x % BN, qi = q0 + c;
       const size_t row = (static_cast<size_t>(bb) * H + h) * T + min(qi, T - 1);
@@ -525,14 +546,14 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     ws_put<D / 2, WG>(part + sl.slab * 2 * PER, dka, tid);
     ws_put<D / 2, WG>(part + sl.slab * 2 * PER + PER, dva, tid);
     if (!last_to_arrive(cnt, id, sl.nslab)) return;
-    store_merged<D, WG>(part, 2 * PER, sl.nslab, tid, ca, key[0], key[1],
-                        S, odk, sd.s[13]);
-    store_merged<D, WG>(part + PER, 2 * PER, sl.nslab, tid, ca, key[0],
-                        key[1], S, odv, sd.s[16]);
+    store_merged<DR, WG>(part, 2 * PER, sl.nslab, tid, ca, key[0], key[1],
+                         S, odk, sd.s[13]);
+    store_merged<DR, WG>(part + PER, 2 * PER, sl.nslab, tid, ca, key[0],
+                         key[1], S, odv, sd.s[16]);
     return;
   }
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c)
+  for (int c = 0; c < DR / 8; ++c)   // the DR real columns only
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int ki = key[hh];
@@ -732,23 +753,23 @@ flash_bwd_dkv_wg2_kernel(const bf16* __restrict__ q,
     }
 }
 
-template <int D>
+template <int D, int DR = D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* g, const void* lse, void* delta, void* dq, int B,
               int T, int S, int H, int KV, int causal, const Strides& st,
               void* stream) {
   constexpr int smem = DqSmem<D>::TOTAL + 1024;   // + the alignment slack
   static bool done = false;
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, smem, &done);
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D, DR>, smem, &done);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, (T + BM - 1) / BM);
-  flash_bwd_dq_kernel<D>
+  flash_bwd_dq_kernel<D, DR>
       <<<grid, WG, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(o),
           static_cast<const bf16*>(g), static_cast<const float*>(lse),
           static_cast<float*>(delta), static_cast<bf16*>(dq), T, S, H, KV,
-          causal, 1.0f / sqrtf((float)D), st);
+          causal, 1.0f / sqrtf((float)DR), st);   // the real head_dim's scale
   return (int)cudaGetLastError();
 }
 
@@ -762,8 +783,9 @@ constexpr int dkv_bn() {
 
 // hs heads a slab of each GQA group: nslab = ⌈G / hs⌉ blocks a (kv head,
 // batch, key tile); above one slab ws holds B·KV·⌈S/64⌉·nslab·128·D f32
-// and cnt B·KV·⌈S/64⌉ zeroed int counters (left at zero)
-template <int D>
+// and cnt B·KV·⌈S/64⌉ zeroed int counters (left at zero); D the tile
+// width, DR the operands' head_dim
+template <int D, int DR = D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int T, int S, int H, int KV, int causal, const Strides& st,
@@ -783,7 +805,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
         static_cast<const bf16*>(v), static_cast<const bf16*>(g),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, S, H, KV, causal,
-        1.0f / sqrtf((float)D), st, hs, static_cast<float*>(ws),
+        1.0f / sqrtf((float)DR), st, hs, static_cast<float*>(ws),
         static_cast<int*>(cnt));
     return (int)cudaGetLastError();
   };
@@ -798,8 +820,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
   } else {
     constexpr int smem = DkvSmem<D, BN>::TOTAL + 1024;
     return nslab > 1
-               ? launch(flash_bwd_dkv_kernel<D, BN, true>, WG, smem, &done[1])
-               : launch(flash_bwd_dkv_kernel<D, BN, false>, WG, smem,
+               ? launch(flash_bwd_dkv_kernel<D, BN, true, DR>, WG, smem,
+                        &done[1])
+               : launch(flash_bwd_dkv_kernel<D, BN, false, DR>, WG, smem,
                         &done[0]);
   }
 }
@@ -1095,7 +1118,9 @@ Strides to_strides(const long long* p) {
 
 extern "C" {
 
-// q, o, g, dq (B, T, H, d); k, v (B, S, KV, d); bf16, last dim contiguous,
+// q, o, g, dq (B, T, H, d); k, v (B, S, KV, d); bf16, d in {64, 112, 128,
+// 256} (112 on the d = 128 tiles, padded in shared memory), last dim
+// contiguous,
 // strides multiples of 8 elements, 16-byte aligned bases. lse, delta
 // (B, H, T) f32 contiguous: lse from the forward; delta is written with
 // D = rowsum(g ⊙ o) for the dk/dv pass. strides: 18 element strides
@@ -1109,6 +1134,9 @@ int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (d == 64)
     return launch_dq<64>(q, k, v, o, g, lse, delta, dq, B, T, S, H, KV,
                          causal, to_strides(strides), stream);
+  if (d == 112)
+    return launch_dq<128, 112>(q, k, v, o, g, lse, delta, dq, B, T, S, H,
+                               KV, causal, to_strides(strides), stream);
   if (d == 128)
     return launch_dq<128>(q, k, v, o, g, lse, delta, dq, B, T, S, H, KV,
                           causal, to_strides(strides), stream);
@@ -1121,7 +1149,8 @@ int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
 // dk, dv (B, S, KV, d) bf16, the GQA group summed in f32. strides: 18
 // element strides (q, k, v, g, dk, dv: batch, row, head each). hs: heads
 // a slab of each group (hs >= G: one block sums the whole group); above
-// one slab, ws and cnt as launch_dkv says.
+// one slab, ws and cnt as launch_dkv says (128-wide accumulators at
+// d = 112).
 int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dk, void* dv, int B,
@@ -1132,6 +1161,10 @@ int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   if (d == 64)
     return launch_dkv<64>(q, k, v, g, lse, delta, dk, dv, B, T, S, H, KV,
                           causal, to_strides(strides), hs, ws, cnt, stream);
+  if (d == 112)
+    return launch_dkv<128, 112>(q, k, v, g, lse, delta, dk, dv, B, T, S, H,
+                                KV, causal, to_strides(strides), hs, ws, cnt,
+                                stream);
   if (d == 128)
     return launch_dkv<128>(q, k, v, g, lse, delta, dk, dv, B, T, S, H, KV,
                            causal, to_strides(strides), hs, ws, cnt, stream);

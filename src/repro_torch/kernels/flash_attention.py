@@ -21,9 +21,8 @@ layout shims below). A CUDA tensor launches the kernel or raises: bf16
 operands at head_dim 64, 128 and 256 (gemma-7b; the d = 256 instances of
 K3 / #5, #6, #7 and K4 are counted under the kernel's name + ``_d256``;
 #7's at d = 256 runs two warpgroups a block, one owning dk and one dv),
-and at 112 for K3 / #5 and K4 (kimi-k2: the d = 128 kernels on tiles
-padded in shared memory, ``tile_dim``; counted under + ``_d112``; #6 /
-#7 raise ``NotImplementedError`` there, ``HEAD_DIMS_BWD``);
+and at 112 for K3 / #5, #6, #7 and K4 (kimi-k2: the d = 128 kernels on
+tiles padded in shared memory, ``tile_dim``; counted under + ``_d112``);
 f32 operands (RoBERTa trains and
 serves in f32) launch the f32 instances of K3 / #5, #6, #7 and K4 at
 head_dim 64 (FFMA, ``csrc/attention_f32.cuh``; counted under the
@@ -60,13 +59,14 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "flash_attention_bwd_dq_d256": 0,
             "flash_attention_bwd_dkv_d256": 0, "decode_attention_d256": 0,
             "flash_attention_d112": 0, "flash_attention_fwd_d112": 0,
-            "decode_attention_d112": 0}
+            "flash_attention_bwd_dq_d112": 0,
+            "flash_attention_bwd_dkv_d112": 0, "decode_attention_d112": 0}
 
 #: head dims of the bf16 forward and decode kernels (K3 / #5, K4, #8, #8q);
 #: 112 runs on tiles of 128 (``tile_dim``)
 HEAD_DIMS = (64, 112, 128, 256)
-#: head dims of the bf16 backward (#6 / #7)
-HEAD_DIMS_BWD = (64, 128, 256)
+#: head dims of the bf16 backward (#6 / #7; 112 on tiles of 128 too)
+HEAD_DIMS_BWD = (64, 112, 128, 256)
 #: head dims of the f32 instances (RoBERTa's heads of 64)
 HEAD_DIMS_F32 = (64,)
 #: GQA groups of the f32 instances of K4, #8, #8q, #6 and #7 (RoBERTa's
@@ -160,7 +160,8 @@ def tile_dim(d: int) -> int:
     """The width of the shared-memory tiles a bf16 head_dim ``d`` runs on:
     ``d`` padded to the next multiple of 64 (kimi-k2's 112 -> 128; the
     padding columns are zero-filled in shared memory and never stored).
-    The split workspaces of K4 / #8 / #8q are sized by it."""
+    The split workspaces of K4 / #8 / #8q and #7's slab workspace are
+    sized by it."""
     return -(-d // 64) * 64
 
 
@@ -390,7 +391,7 @@ def _launch_bwd_dkv(q, k, v, g, lse, delta, causal: bool, heads=None):
         ws = cnt = None
         if slabs > 1:
             tiles = b * kv * -(-s // DKV_ROWS)
-            ws = torch.empty(tiles * slabs * 2 * DKV_ROWS * d,
+            ws = torch.empty(tiles * slabs * 2 * DKV_ROWS * tile_dim(d),
                              dtype=torch.float32, device=q.device)
             cnt = _build.counters(q.device, tiles)
         rc = _fn("flash_attention_bwd_dkv_bf16")(

@@ -20,13 +20,19 @@ from repro_torch.tree import leaves
 
 def matrix_dims(cfg: ModelConfig) -> dict:
     """matrix type -> (d_in, d_out) for every adaptable linear map of the
-    attention decoders the port runs (dense FFN or MoE; ``ffn_*`` of a
-    MoE model are its shared experts, ``moe_down`` its expert
-    down-projections)."""
+    decoders the port runs (attention and mamba mixers, dense FFN or MoE;
+    ``ffn_*`` of a MoE model are its shared experts, ``moe_down`` its
+    expert down-projections)."""
     transformer.check_supported(cfg)
     d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    out = {"attn_q": (d, q), "attn_k": (d, kv), "attn_v": (d, kv),
-           "attn_o": (q, d)}
+    mixers = {m for m, _ in cfg.block_pattern}
+    out = {}
+    if "attn" in mixers:
+        out.update({"attn_q": (d, q), "attn_k": (d, kv), "attn_v": (d, kv),
+                    "attn_o": (q, d)})
+    if "mamba" in mixers:
+        di = cfg.mamba_d_inner
+        out.update({"mamba_in": (d, 2 * di), "mamba_out": (di, d)})
     if ff:
         out.update({"ffn_gate": (d, ff), "ffn_up": (d, ff),
                     "ffn_down": (ff, d)})
@@ -36,11 +42,18 @@ def matrix_dims(cfg: ModelConfig) -> dict:
 
 
 def default_matrices(cfg: ModelConfig, variant: str = "4d") -> tuple:
-    """Paper default: attention q/v (App. A.2); 4+ed adds the expert
-    down-projection, the matrix its expert axis indexes."""
+    """Paper default: attention q/v (App. A.2), and a mamba model's in /
+    out projections (the JAX package's extension for blocks without
+    attention); 4+ed adds the expert down-projection, the matrix its
+    expert axis indexes."""
     transformer.check_supported(cfg)
-    return ("attn_q", "attn_v") + (("moe_down",) if variant == "4+ed"
-                                   else ())
+    mixers = {m for m, _ in cfg.block_pattern}
+    out = ()
+    if "attn" in mixers:
+        out += ("attn_q", "attn_v")
+    if "mamba" in mixers:
+        out += ("mamba_in", "mamba_out")
+    return out + (("moe_down",) if variant == "4+ed" else ())
 
 
 def build_adapter_spec(run: RunConfig) -> peft_api.AdapterSpec:

@@ -1,16 +1,19 @@
 """Decoder-LM assembly (counterpart of ``src/repro/models/transformer.py``
-for attention decoders with a dense or a MoE FFN: init, forward, dense
-caches and the decode step, paged block pools and the co-batched paged
-step).
+for decoders whose mixers are attention or mamba, with a dense or a MoE
+FFN: init, forward, dense caches and the decode step, paged block pools
+and the co-batched paged step).
 
 Weights keep the JAX package's layout so converted weights drop in: one
 dict per pattern position in ``blocks``, each leaf stacked over the
 ``nb`` super-blocks. ``run_blocks`` is a Python loop over super-blocks and
 pattern positions; layer ``l = sb * P + p`` reads adapter slice ``l``.
-Caches mirror the blocks: ``caches[p]["self"]["k"|"v"]`` is
-(nb, B, S, KV, hd); decode writes its new k/v into them in place. Paged
-pools are (nb, N, page, KV, hd), one block table shared by every layer;
-``paged_step`` writes into them in place too. The training forward builds
+Caches mirror the blocks: an attention position's
+``caches[p]["self"]["k"|"v"]`` is (nb, B, S, KV, hd), a mamba position's
+``caches[p]["ssm"]`` holds "h" (nb, B, d_inner, d_state) f32 and "conv"
+(nb, B, K - 1, d_inner) (``models/mamba.py``); decode writes into them in
+place. Paged pools are (nb, N, page, KV, hd), one block table shared by
+every layer, attention models only; ``paged_step`` writes into them in
+place too. The training forward builds
 no caches and may checkpoint each super-block (``remat``), recomputing it
 in the backward. MoE blocks (``models/moe.py``) add their aux losses,
 summed over layers, to ``ModelOutputs.aux`` (empty unless
@@ -27,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (AdapterCtx, dense_ffn, embed_tokens,
                                        lm_logits, norm)
@@ -99,14 +103,43 @@ def _moe_init(cfg: ModelConfig, gen, nb, dtype, dev):
     return w
 
 
+def _mamba_init(cfg: ModelConfig, gen, nb, dtype, dev):
+    """The JAX package's mamba leaves: the linears N(0, 1/d_in), conv_w
+    N(0, 1/K), zero biases, a_log = log(1..d_state) per channel and d = 1
+    (both f32 whatever ``dtype``)."""
+    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+    dtr, k = cfg.resolved_dt_rank, cfg.mamba_conv
+    w_in = _linear_init(gen, cfg.d_model, 2 * di, nb, dtype, dev)
+    conv_w = (torch.randn((nb, k, di), generator=gen, device=dev,
+                          dtype=torch.float32) / k ** 0.5).to(dtype)
+    a = torch.arange(1, ds + 1, dtype=torch.float32, device=dev)
+    return {
+        "w_in": w_in,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((nb, di), dtype=dtype, device=dev),
+        "w_x": _linear_init(gen, di, dtr + 2 * ds, nb, dtype, dev),
+        "w_dt": _linear_init(gen, dtr, di, nb, dtype, dev),
+        "dt_bias": torch.zeros((nb, di), dtype=dtype, device=dev),
+        "a_log": torch.log(a).expand(nb, di, ds).contiguous(),
+        "d": torch.ones((nb, di), dtype=torch.float32, device=dev),
+        "w_out": _linear_init(gen, di, cfg.d_model, nb, dtype, dev),
+    }
+
+
+_MIXER_INIT = {"attn": _attn_init, "mamba": _mamba_init}
+#: each mixer's key in a position's decode cache
+CACHE_KEY = {"attn": "self", "mamba": "ssm"}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port's model slice: attention decoders with a dense or a MoE
-    FFN."""
+    """The port's model slice: decoders whose mixers are attention or
+    mamba, with a dense or a MoE FFN (xLSTM, enc-dec and frontends are
+    not ported yet)."""
     for mixer, ffn in cfg.block_pattern:
-        if mixer != "attn" or ffn not in ("dense", "moe", "none"):
+        if mixer not in _MIXER_INIT or ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: block {(mixer, ffn)} is not ported yet "
-                "(attention decoders with a dense or MoE FFN only)")
+                "(attention or mamba mixers with a dense or MoE FFN only)")
     if cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: enc-dec / frontend models are not ported yet")
@@ -128,7 +161,8 @@ def init_base_params(cfg: ModelConfig, generator: Optional[torch.Generator]
     blocks = []
     for mixer, ffn in cfg.block_pattern:
         blk: dict = {"norm1": _norm_init(cfg, nb, dev),
-                     "mixer": _attn_init(cfg, generator, nb, dtype, dev)}
+                     "mixer": _MIXER_INIT[mixer](cfg, generator, nb, dtype,
+                                                 dev)}
         if ffn != "none":
             blk["norm2"] = _norm_init(cfg, nb, dev)
             blk["ffn"] = (_moe_init if ffn == "moe" else _ffn_init)(
@@ -152,13 +186,18 @@ def _at(tree, i):
     return tree[i]
 
 
-def _sublayer(h, blk, ffn, ctx: AdapterCtx, cfg: ModelConfig, *, positions,
-              cache, cache_pos, block_tables=None, paged_write=None):
+def _sublayer(h, blk, mixer, ffn, ctx: AdapterCtx, cfg: ModelConfig, *,
+              positions, cache, cache_pos, block_tables=None,
+              paged_write=None):
     hn = norm(h, blk["norm1"], cfg.norm_eps)
-    y, c = attn_lib.attention(hn, blk["mixer"], ctx, cfg, causal=True,
-                              positions=positions, cache=cache,
-                              cache_pos=cache_pos, block_tables=block_tables,
-                              paged_write=paged_write)
+    if mixer == "mamba":
+        y, c = mamba_lib.mamba_mixer(hn, blk["mixer"], ctx, cfg, cache=cache)
+    else:
+        y, c = attn_lib.attention(hn, blk["mixer"], ctx, cfg, causal=True,
+                                  positions=positions, cache=cache,
+                                  cache_pos=cache_pos,
+                                  block_tables=block_tables,
+                                  paged_write=paged_write)
     h = h + y
     aux = {}
     if ffn == "moe":
@@ -196,12 +235,13 @@ def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
 
     def super_block(h, sb):
         out, aux = [], []
-        for i, (_, ffn) in enumerate(pattern):
+        for i, (mixer, ffn) in enumerate(pattern):
             layer = layer_offset + sb * p_len + i
             ly = None if per_layer is None else _at(per_layer, layer)
             ctx = AdapterCtx(spec, broadcast, ly, task, policy)
-            cache = None if caches is None else _at(caches[i]["self"], sb)
-            h, c, a = _sublayer(h, _at(blocks[i], sb), ffn, ctx, cfg,
+            cache = (None if caches is None
+                     else _at(caches[i][CACHE_KEY[mixer]], sb))
+            h, c, a = _sublayer(h, _at(blocks[i], sb), mixer, ffn, ctx, cfg,
                                 positions=positions, cache=cache,
                                 cache_pos=cache_pos,
                                 block_tables=block_tables,
@@ -230,9 +270,9 @@ def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
         return h, caches, aux
     if not return_caches:
         return h, None, aux
-    stacked = [{"self": {"k": torch.stack([c["k"] for c in cs]),
-                         "v": torch.stack([c["v"] for c in cs])}}
-               for cs in new]
+    stacked = [{CACHE_KEY[mixer]: {k: torch.stack([c[k] for c in cs])
+                                   for k in cs[0]}}
+               for (mixer, _), cs in zip(pattern, new)]
     return h, stacked, aux
 
 
@@ -256,8 +296,9 @@ def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
             task=None, remat: bool = False, return_caches: bool = False,
             policy=None, device=None) -> ModelOutputs:
     """Train / prefill forward: tokens (B, T) -> ModelOutputs with
-    (B, T, V) logits, and with ``return_caches`` the per-layer k/v caches
-    (nb, B, T, KV, hd) a prefill hands to decode. ``remat`` checkpoints
+    (B, T, V) logits, and with ``return_caches`` the per-position caches a
+    prefill hands to decode (k/v (nb, B, T, KV, hd); a mamba position's
+    last state and conv window). ``remat`` checkpoints
     each super-block (training). ``device`` is where the call runs (None:
     the CUDA device, raising without one)."""
     check_supported(cfg)
@@ -276,17 +317,21 @@ def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
 
 def init_caches(cfg: ModelConfig, batch: int, length: int, dtype, *,
                 device=None, num_super_blocks: Optional[int] = None) -> list:
-    """Zero dense caches, one {"self": {"k", "v"}} per pattern position,
-    leaves (nb, batch, length, KV, hd); ``num_super_blocks`` overrides nb
-    (the speculative drafter's layer-strided region)."""
+    """Zero dense caches, one per pattern position: {"self": {"k", "v"}}
+    with leaves (nb, batch, length, KV, hd) for attention, {"ssm": {"h",
+    "conv"}} with leaves (nb, batch, d_inner, d_state) f32 and (nb, batch,
+    K - 1, d_inner) for mamba; ``num_super_blocks`` overrides nb (the
+    speculative drafter's layer-strided region)."""
     check_supported(cfg)
     nb = num_super_blocks or cfg.num_super_blocks
+    dev = resolve_device(device)
     out = []
-    for _ in cfg.block_pattern:
-        c = attn_lib.init_cache(cfg, nb * batch, length, dtype,
-                                resolve_device(device))
-        out.append({"self": {k: v.view(nb, batch, *v.shape[1:])
-                             for k, v in c.items()}})
+    for mixer, _ in cfg.block_pattern:
+        c = (mamba_lib.init_mamba_cache(cfg, nb * batch, dtype, dev)
+             if mixer == "mamba" else
+             attn_lib.init_cache(cfg, nb * batch, length, dtype, dev))
+        out.append({CACHE_KEY[mixer]: {k: v.view(nb, batch, *v.shape[1:])
+                                       for k, v in c.items()}})
     return out
 
 
@@ -337,8 +382,13 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, page_size: int,
     and adds "k_s" / "v_s" f32 scale pools (nb, num_blocks, page, KV);
     ``num_super_blocks`` overrides nb (the speculative drafter's region).
     Which request owns which block lives on the host
-    (serving/block_manager.py)."""
+    (serving/block_manager.py). Attention models only: a mamba layer's
+    state is not a paged KV pool."""
     check_supported(cfg)
+    if any(m != "attn" for m, _ in cfg.block_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: paged pools need attention KV caches; mixer "
+            "'mamba' carries a recurrent state that cannot be paged")
     nb = num_super_blocks or cfg.num_super_blocks
     out = []
     for _ in cfg.block_pattern:

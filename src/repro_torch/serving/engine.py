@@ -218,6 +218,12 @@ class Engine:
                  serve: Optional[ServeConfig] = None,
                  device=None):
         transformer.check_supported(model_cfg)
+        for mixer, _ in model_cfg.block_pattern:
+            if mixer != "attn":
+                raise NotImplementedError(
+                    f"slot engine needs attention KV caches; mixer {mixer!r} "
+                    "carries stateful caches that cannot be slot-inserted "
+                    "or paged")
         if runtime.tasked and runtime.spec.adapts("moe_down"):
             # moe_down deltas apply over expert-sorted (E, C, ff) blocks
             # (models/moe.py), whose leading axis is experts: a

@@ -2,8 +2,9 @@
 
 Odd shapes the main paths do not hit — ragged M/N/K, ranks that are
 not multiples of 8 or 16, large ranks, every GQA group size, head dims
-64 and 128 (and 256, gemma-7b's, for every bf16 attention kernel; 112,
-kimi-k2's, for the forward and decode ones), non-causal and S != T attention — so each kernel's masking and load
+64 and 128 (and 256, gemma-7b's, and 112, kimi-k2's, for every bf16
+attention kernel), non-causal and S != T attention — so each kernel's
+masking and load
 paths are exercised, forward and backward. Marked ``cuda``: skipped
 without a CUDA device of compute capability >= 9.0. Run on the card with
 
@@ -2456,22 +2457,204 @@ def test_int8_pool_of_112_bytes_a_row(dev):
 
 
 def test_d112_rejects_what_the_kernels_do_not_take(dev):
-    """The flash backward (#6 / #7) raises ``NotImplementedError`` at
-    d = 112 (its instance is not ported yet), f32 at 112 raises, and
-    head_dim 96 still raises everywhere; nothing falls back."""
+    """The flash backward (#6 / #7) takes bf16 at d = 112 (one launch of
+    each, under the ``_d112`` keys); f32 at 112 raises for the forward and
+    the backward, and head_dim 96 still raises everywhere, the backward
+    included; nothing falls back."""
     q, k, v = (_rn(dev, 1, 64, 8, 112), _rn(dev, 1, 64, 1, 112, seed=1),
                _rn(dev, 1, 64, 1, 112, seed=2))
     o, lse = tfa.flash_attention_fwd(q, k, v, True)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_bwd(q, k, v, o, lse, q, True)
+    kernels.reset_launch_counts()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, q, True)
+    n_ = kernels.launch_counts()
+    assert n_["flash_attention_bwd_dq_d112"] == 1
+    assert n_["flash_attention_bwd_dkv_d112"] == 1
+    _check_bwd(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, q, True))
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(q.float(), k.float(), v.float(), True)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention_bwd(q.float(), k.float(), v.float(), o.float(),
+                                lse, q.float(), True)
     qd, kd, vd = (t[..., :96].contiguous() for t in (q, k, v))
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(qd, kd, vd, True)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention_bwd(qd, kd, vd, qd, lse, qd, True)
     with pytest.raises(NotImplementedError):
         tfa.decode_attention(qd[:, 0], kd, vd,
                              torch.zeros(1, dtype=torch.int32, device=dev))
     with pytest.raises(NotImplementedError):
         tpa.paged_decode_attention(*_paged_case(dev, 4, 2, 96, 16))
     torch.cuda.synchronize()
+
+
+# #6 / #7 at d = 112 (kimi-k2's training): the d = 128 passes on tiles
+# padded in shared memory; T = S and T = 1000 != S, causal and not, G = 1,
+# 8 (kimi's), 48, and a q x 4 case that a 128^-0.5 scale misses
+D112_BWD = [(2, 200, 200, 64, 8, True, 1.0), (2, 200, 200, 64, 8, False, 1.0),
+            (1, 1000, 700, 16, 2, True, 1.0),
+            (1, 1000, 700, 16, 2, False, 1.0),
+            (1, 129, 129, 8, 1, True, 1.0), (2, 70, 70, 48, 1, True, 1.0),
+            (1, 64, 64, 8, 8, True, 1.0), (1, 128, 128, 16, 2, True, 4.0)]
+
+
+def _bwd_inputs_d112(dev, b, t, s, h, kv, causal, qscale=1.0):
+    q, k, v, o, lse, g = _bwd_inputs_d256(dev, b, t, s, h, kv, 112, causal)
+    if qscale != 1.0:
+        q = (q.float() * qscale).to(torch.bfloat16)
+        o, lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    return q, k, v, o, lse, g
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,causal,qscale", D112_BWD)
+def test_flash_attention_bwd_d112(dev, b, t, s, h, kv, causal, qscale):
+    """#6 / #7 at d = 112 through the wrapper (one launch each, under the
+    ``_d112`` keys; #7 in the slabs ``dkv_slab_heads`` picks at this
+    grid), then #7 unsplit and in slabs of a quarter and of one past half
+    of the group: each gradient within 2e-2 of the largest plain one, two
+    calls bit-identical."""
+    args = _bwd_inputs_d112(dev, b, t, s, h, kv, causal, qscale)
+    q, k, v, o, lse, gr = args
+    want = tfa.flash_attention_bwd_plain(*args, causal)
+    kernels.reset_launch_counts()
+    got = tfa.flash_attention_bwd(*args, causal)
+    n_ = kernels.launch_counts()
+    assert {k_: x for k_, x in n_.items() if x} == {
+        "flash_attention_bwd_dq_d112": 1, "flash_attention_bwd_dkv_d112": 1}
+    _check_bwd(got, want)
+    again = tfa.flash_attention_bwd(*args, causal)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(x, y), name
+    _, delta = tfa._launch_bwd_dq(q, k, v, o, lse, gr, causal)
+    for heads in _slab_heads(h // kv):
+        one = tfa._launch_bwd_dkv(q, k, v, gr, lse, delta, causal, heads)
+        _check_bwd((got[0],) + one, want)
+        two = tfa._launch_bwd_dkv(q, k, v, gr, lse, delta, causal, heads)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1]), \
+            heads
+
+
+def test_flash_bwd_d112_slab_rule_at_kimi_shapes(dev):
+    """kimi-k2's training shapes: at B = 1, T = 1024 the 128 (kv head,
+    batch, key tile) blocks leave the SMs short, so #7 runs slabs (of 2
+    heads on 132 SMs); at B = 4 its 512 blocks run unsplit. Both against
+    the plain version at B = 1 (the slab instance) and B = 2, T = 512
+    (unsplit: 256 blocks on 132 SMs)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tfa.dkv_slab_heads(1, 1024, 8, 8, 112, sms) < 8
+    assert tfa.dkv_slab_heads(4, 1024, 8, 8, 112, sms) == 8
+    for b, t in ((1, 1024), (2, 512)):
+        args = _bwd_inputs_d112(dev, b, t, t, 64, 8, True)
+        _check_bwd(tfa.flash_attention_bwd(*args, True),
+                   tfa.flash_attention_bwd_plain(*args, True))
+
+
+def _in_wide(x, fill):
+    """x (..., 112) copied into the first 112 columns of a (..., 128)
+    buffer whose last 16 columns hold ``fill``; returns (buffer, view)."""
+    buf = torch.full((*x.shape[:-1], 128), fill, dtype=x.dtype,
+                     device=x.device)
+    buf[..., :112] = x
+    return buf, buf[..., :112]
+
+
+@pytest.mark.parametrize("heads", [8, 2])
+def test_flash_bwd_d112_reads_and_writes_only_112_columns(dev, heads):
+    """#6 / #7 at d = 112 on operands viewed inside buffers of 128 columns
+    a head whose 16 padding columns hold 7.0: δ equals the plain rowsum of
+    dO ⊙ O over the 112 real columns (a 128-column read would add the
+    sentinels' 16 · 49 a row), dq / dk / dv match the plain version, and
+    the sentinels past each head's 112 in dq, dk and dv survive, unsplit
+    (8 heads a block) and in slabs of 2."""
+    b, t, h, kv, causal = 2, 200, 64, 8, True
+    q, k, v, o, lse, g = _bwd_inputs_d112(dev, b, t, t, h, kv, causal)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, g, causal)
+    (_, qw), (_, kw), (_, vw), (_, ow), (_, gw) = (
+        _in_wide(x, 7.0) for x in (q, k, v, o, g))
+    dqb, dq = _in_wide(torch.zeros_like(q), 7.0)
+    dkb, dk = _in_wide(torch.zeros_like(k), 7.0)
+    dvb, dv = _in_wide(torch.zeros_like(v), 7.0)
+    delta = torch.empty_like(lse)
+    st = ctypes.cast(tfa._strides(qw, kw, vw, ow, gw, dq), ctypes.c_void_p)
+    tfa._build.check(tfa._fn("flash_attention_bwd_dq_bf16")(
+        qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), ow.data_ptr(),
+        gw.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t,
+        t, h, kv, 112, int(causal), st, tfa._build.stream_ptr(q)), "dq")
+    plain_delta = (g.float() * o.float()).sum(-1).transpose(1, 2)
+    torch.testing.assert_close(delta, plain_delta, rtol=1e-5, atol=1e-4)
+    slabs = -(-(h // kv) // heads)
+    ws = cnt = None
+    if slabs > 1:
+        tiles = b * kv * -(-t // tfa.DKV_ROWS)
+        ws = torch.empty(tiles * slabs * 2 * tfa.DKV_ROWS * 128,
+                         dtype=torch.float32, device=dev)
+        cnt = tfa._build.counters(dev, tiles)
+    st = ctypes.cast(tfa._strides(qw, kw, vw, gw, dk, dv), ctypes.c_void_p)
+    tfa._build.check(tfa._fn("flash_attention_bwd_dkv_bf16")(
+        qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), gw.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
+        t, h, kv, 112, int(causal), st, heads,
+        None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), tfa._build.stream_ptr(q)),
+        "dkv")
+    _check_bwd((dq, dk, dv), want)
+    for buf in (dqb, dkb, dvb):
+        assert bool((buf[..., 112:] == 7.0).all())
+
+
+# ---------------------------------------------------------------------------
+# the mamba mixer (models/mamba.py, jamba-v0.1-52b): torch ops between two
+# K1 projections, held to the CPU in f32
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t,chunk", [(8, 256), (24, 8)])
+def test_mamba_mixer_on_the_card_matches_the_cpu_in_f32(dev, t, chunk):
+    """jamba's smoke mixer (d_inner 128, d_state 16) with a MetaTT-4d
+    adapter on mamba in / out (the f32 K1 on the card), on the
+    whole-sequence and the chunked scan: the output, the last state and
+    the conv window, the input and adapter gradients and one decode step
+    in place, within 1e-4 of the largest CPU value (f32 sums in another
+    order; TF32 off)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.config.base import RunConfig
+    from repro_torch.core import tt as ttlib
+    from repro_torch.models import mamba as tmamba
+    from repro_torch.models import model as TM
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.layers import AdapterCtx
+    from repro_torch.peft import api as tpeft
+    cfg = configs.get_smoke_config("jamba-v0.1-52b")
+    spec = TM.build_adapter_spec(RunConfig(model=cfg, adapter_rank=4))
+    gen = torch.Generator().manual_seed(19)
+    params = TM.init_params(cfg, spec, gen, device="cpu")
+    cores = ttlib.random_tt(gen, spec.cfg.mode_sizes, 4, scale=0.3,
+                            device="cpu")
+    x = torch.randn((2, t, cfg.d_model), generator=gen)
+    cot = torch.randn((2, t, cfg.d_model), generator=gen)
+
+    def run(device):
+        w = TT._at(params["base"]["blocks"][0]["mixer"], 0)
+        w = {k: v.to(device) for k, v in w.items()}
+        cs = [c.to(device).requires_grad_(True) for c in cores]
+        bc, pl = tpeft.adapter_factors(spec, {"cores": cs}, {})
+        ctx = AdapterCtx(spec, bc, TT._at(pl, 0))
+        xs = x.to(device).requires_grad_(True)
+        y, cache = tmamba.mamba_mixer(xs, w, ctx, cfg, chunk=chunk)
+        grads = torch.autograd.grad(y, [xs] + cs, cot.to(device))
+        with torch.no_grad():
+            cache = {k: v.detach().clone() for k, v in cache.items()}
+            step, _ = tmamba.mamba_mixer(xs[:, -1:].detach(), w, ctx, cfg,
+                                         cache=cache)
+        return [v.detach().cpu() for v in
+                (y, *cache.values(), step, *grads)]
+    kernels.reset_launch_counts()
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["tt_linear_f32"] > 0
+    for g, w in zip(got, run("cpu")):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max() / w.abs().max()) <= 1e-4

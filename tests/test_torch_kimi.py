@@ -16,8 +16,9 @@ Here, with inputs made with numpy from a seed:
   the dense and the paged engine (a shared prefix, cold then warm) give
   greedy tokens identical to the JAX engines' in f32, with equal KV
   bytes — the pools hold 112 values a row;
-* the refusals of the CUDA wrappers: head_dim 96 raises, and the flash
-  backward (#6 / #7) at 112 raises ``NotImplementedError``.
+* the device checks of the CUDA wrappers: bf16 at 112 passes for the
+  forward, decode and backward (#6 / #7) kernels; head_dim 96 and f32 at
+  112 raise ``NotImplementedError``.
 """
 import dataclasses
 import functools
@@ -271,25 +272,28 @@ def test_cuda_wrappers_take_112_for_serving_and_refuse_it_for_training(
         monkeypatch):
     """The device checks of the CUDA wrappers (the card is replaced by a
     no-op device check so they run here): bf16 at 112 passes for K3 / #5,
-    K4, #8 and #8q under the ``_d112`` counters; the backward's head dims
-    leave 112 out (#6 / #7 raise ``NotImplementedError``); 96 raises
-    everywhere, and f32 at 112 raises."""
+    K4, #8 and #8q under the ``_d112`` counters, and for the backward (#6
+    / #7) under theirs; 96 raises everywhere, and f32 at 112 raises for
+    the forward and the backward. (The name is kept from when #6 / #7
+    refused 112.)"""
     monkeypatch.setattr(_build, "check_device", lambda t: None)
     x = torch.zeros((1, 8, 2, D), dtype=torch.bfloat16)
     assert tfa._check_cuda((x, x, x), D, "k3") == "_d112"
     counts = kernels.launch_counts()
     for name in ("flash_attention_d112", "flash_attention_fwd_d112",
                  "decode_attention_d112", "paged_decode_attention_d112",
-                 "paged_decode_attention_int8_d112"):
+                 "paged_decode_attention_int8_d112",
+                 "flash_attention_bwd_dq_d112",
+                 "flash_attention_bwd_dkv_d112"):
         assert name in kernels.KERNELS and name in counts
-    assert "flash_attention_bwd_dq_d112" not in counts
-    with pytest.raises(NotImplementedError):
-        tfa._check_cuda((x, x, x), D, "bwd", dims=tfa.HEAD_DIMS_BWD)
+    assert tfa._check_cuda((x,) * 5, D, "bwd",
+                           dims=tfa.HEAD_DIMS_BWD) == "_d112"
     x96 = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16)
     for dims in (tfa.HEAD_DIMS, tfa.HEAD_DIMS_BWD):
         with pytest.raises(NotImplementedError):
             tfa._check_cuda((x96, x96, x96), 96, "d96", dims=dims)
-    with pytest.raises(NotImplementedError):
-        tfa._check_cuda((x.float(),) * 3, D, "f32")
+    for dims in (tfa.HEAD_DIMS, tfa.HEAD_DIMS_BWD):
+        with pytest.raises(NotImplementedError):
+            tfa._check_cuda((x.float(),) * 3, D, "f32", dims=dims)
     assert tfa.tile_dim(D) == 128 and tfa.tile_dim(128) == 128
     assert tfa.tile_dim(64) == 64 and tfa.tile_dim(256) == 256

@@ -129,9 +129,9 @@ def test_fold_needs_a_task_and_ported_mixers():
     _, _, _, cfg, spec, tp = _setup()
     with pytest.raises(ValueError, match="task"):
         merge.fold_transformer(tp["adapter"], spec.cfg, tp["base"], cfg)
-    mamba = dataclasses.replace(spec.cfg, matrix_types=("mamba_in",))
+    mlstm = dataclasses.replace(spec.cfg, matrix_types=("mlstm_q",))
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        merge.fold_transformer(tp["adapter"], mamba, tp["base"], cfg,
+        merge.fold_transformer(tp["adapter"], mlstm, tp["base"], cfg,
                                task=0)
 
 
