@@ -3,8 +3,9 @@ config, ``get_smoke_config`` the reduced same-family config the CPU tests
 use. The port carries the architectures of its slices so far: stablelm-1.6b,
 gemma-7b (heads of 256), the paper's own RoBERTa targets (one module,
 two ids), granite-34b (MQA, a GQA group of 48), mistral-large-123b
-(a group of 12), the MoE models granite-moe-1b-a400m and kimi-k2, and
-the hybrid mamba / attention jamba-v0.1-52b."""
+(a group of 12), the MoE models granite-moe-1b-a400m and kimi-k2, the
+hybrid mamba / attention jamba-v0.1-52b, xlstm-125m (mLSTM / sLSTM) and
+the encoder-decoder whisper-large-v3."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +20,8 @@ _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b",
     "kimi-k2-1t-a32b": "kimi_k2",
     "jamba-v0.1-52b": "jamba_52b",
+    "xlstm-125m": "xlstm_125m",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ALL_IDS = tuple(_MODULES)

@@ -102,18 +102,21 @@ def fold_into_dense(params: Params, cfg: MetaTTConfig, weights: dict, *,
     return out
 
 
-# adapted matrix type -> (required mixer kind or None, block group, weight);
-# the fold paths of mixers the port does not run yet raise
+# adapted matrix type -> (required mixer kind or None, block group, weight)
 _FOLD_PATHS = {
     "attn_q": ("attn", "mixer", "wq"), "attn_k": ("attn", "mixer", "wk"),
     "attn_v": ("attn", "mixer", "wv"), "attn_o": ("attn", "mixer", "wo"),
+    "xattn_q": (None, "xattn", "wq"), "xattn_k": (None, "xattn", "wk"),
+    "xattn_v": (None, "xattn", "wv"), "xattn_o": (None, "xattn", "wo"),
     "ffn_gate": (None, "ffn", "wg"), "ffn_up": (None, "ffn", "wu"),
     "ffn_down": (None, "ffn", "wd"),
     "mamba_in": ("mamba", "mixer", "w_in"),
     "mamba_out": ("mamba", "mixer", "w_out"),
+    "mlstm_q": ("mlstm", "mixer", "wq"), "mlstm_v": ("mlstm", "mixer", "wv"),
+    "mlstm_o": ("mlstm", "mixer", "w_out"),
+    "slstm_z": ("slstm", "mixer", "w_z"),
+    "slstm_o": ("slstm", "mixer", "w_out"),
 }
-_UNPORTED_FOLD = ("xattn_q", "xattn_k", "xattn_v", "xattn_o", "mlstm_q",
-                  "mlstm_v", "mlstm_o", "slstm_z", "slstm_o")
 
 
 def _fold_block_list(params, cfg, blocks, pattern, layer_ids, task):
@@ -146,17 +149,14 @@ def _fold_block_list(params, cfg, blocks, pattern, layer_ids, task):
 def fold_transformer(params: Params, cfg: MetaTTConfig, base: dict,
                      model_cfg, *, task: Optional[int] = None) -> dict:
     """Fold ΔW into every adapted weight of a transformer base: all
-    pattern positions and all super-blocks. Returns a new base tree. A
+    pattern positions and all super-blocks, and an encoder-decoder's
+    encoder stack (layer ids 0 .. encoder_layers - 1; the decoder's
+    follow them). Returns a new base tree. A
     4+1d (4+ed) adapter folds ONE task (expert) slice: ``task`` must be
     given; mixed-task serving needs the live or lora runtime. Every
     refusal raises before any weight is touched: ``moe_down`` (the
     expert banks) has no fold, nor have ``ffn_*`` adapters on a MoE
     block with shared experts."""
-    unported = [t for t in cfg.matrix_types if t in _UNPORTED_FOLD]
-    if unported:
-        raise NotImplementedError(
-            f"folding {unported} needs mixers the port does not run yet "
-            "(enc-dec, xLSTM: ROADMAP Queue 1 item 5)")
     unfoldable = [t for t in cfg.matrix_types if t not in _FOLD_PATHS]
     if unfoldable:
         raise ValueError(
@@ -175,12 +175,15 @@ def fold_transformer(params: Params, cfg: MetaTTConfig, base: dict,
         raise ValueError(
             "ffn_* adapters on a MoE block with shared experts cannot be "
             "folded; use the live or lora runtime")
-    if model_cfg.is_encdec:
-        raise NotImplementedError(
-            f"{model_cfg.name}: enc-dec folds come with the enc-dec model "
-            "family (ROADMAP Queue 1 item 5)")
     out = dict(base)
-    out["blocks"] = _fold_block_list(params, cfg, base["blocks"],
-                                     model_cfg.block_pattern,
-                                     list(range(model_cfg.num_layers)), task)
+    off = model_cfg.encoder_layers if model_cfg.is_encdec else 0
+    out["blocks"] = _fold_block_list(
+        params, cfg, base["blocks"], model_cfg.block_pattern,
+        list(range(off, off + model_cfg.num_layers)), task)
+    if model_cfg.is_encdec and "enc_blocks" in base:
+        # deferred: models.transformer -> peft.api -> core.merge is a cycle
+        from repro_torch.models.transformer import ENC_PATTERN
+        out["enc_blocks"] = _fold_block_list(
+            params, cfg, base["enc_blocks"], ENC_PATTERN,
+            list(range(model_cfg.encoder_layers)), task)
     return out

@@ -1,10 +1,12 @@
-"""GQA attention with RoPE and a dense or paged KV cache (counterpart of
-``src/repro/models/attention.py``: the train/prefill branch, the dense
-single-token decode branch and the paged branch; cross-attention and TP
-wait).
+"""GQA attention with RoPE and a dense or paged KV cache, and
+cross-attention (counterpart of ``src/repro/models/attention.py``: the
+train / prefill / cross branch, the dense single-token decode branch and
+the paged branch; TP waits).
 
-The flash route sends prefill to kernel K3, dense decode to kernel K4 and
-paged steps to kernel #8 (#8q over an int8 cache) through
+The flash route sends prefill and cross-attention (non-causal, T ≠ S,
+also at a decode step's T = 1) to kernel K3 (#5 / #6 / #7 under
+autograd), dense decode to kernel K4 and paged steps to kernel #8 (#8q
+over an int8 cache) through
 ``kernels/dispatch.py``; without it
 (``KernelConfig(flash=False)``) attention is the plain softmax over the
 full score matrix (for the paged cache, #8's plain version).
@@ -47,11 +49,19 @@ def _causal_mask(t, s, device):
 def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
               *, causal: bool = True,
               positions: Optional[torch.Tensor] = None,
+              prefix: str = "attn",
+              kv_x: Optional[torch.Tensor] = None,
               cache: Optional[dict] = None,
               cache_pos: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
               paged_write=None):
-    """Returns (y, new_cache).
+    """Returns (y, new_cache). The projections are the matrix types
+    ``<prefix>_q`` .. ``<prefix>_o`` ("xattn" for cross-attention).
+
+    Cross-attention (``kv_x``, the encoder output (B, S, d)): k / v are
+    projected from ``kv_x`` without rope (and q too), attention is
+    non-causal over all S, and no cache is taken or returned: a decode
+    step recomputes the cross k / v from ``kv_x``, as the JAX path does.
 
     Prefill (``cache is None``): attends the T new tokens and returns their
     k/v as the new cache. Decode (``cache`` given): writes the T new k/v
@@ -70,9 +80,22 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
     scale = hd ** -0.5
     b, t, _ = x.shape
 
-    q = adapted_linear(x, w["wq"], ctx, "attn_q").reshape(b, t, n_h, hd)
-    k = adapted_linear(x, w["wk"], ctx, "attn_k").reshape(b, t, n_kv, hd)
-    v = adapted_linear(x, w["wv"], ctx, "attn_v").reshape(b, t, n_kv, hd)
+    if kv_x is not None and cache is not None:
+        raise ValueError("cross-attention keeps no cache: a decode step "
+                         "recomputes its k / v from the encoder output")
+    q = adapted_linear(x, w["wq"], ctx, f"{prefix}_q").reshape(
+        b, t, n_h, hd)
+    kv_in = x if kv_x is None else kv_x
+    s_in = kv_in.shape[1]
+    k = adapted_linear(kv_in, w["wk"], ctx, f"{prefix}_k").reshape(
+        b, s_in, n_kv, hd)
+    v = adapted_linear(kv_in, w["wv"], ctx, f"{prefix}_v").reshape(
+        b, s_in, n_kv, hd)
+    if kv_x is not None:
+        out = _prefill_attend(q, k, v, ctx, False, scale)
+        y = adapted_linear(out.reshape(b, t, n_h * hd), w["wo"], ctx,
+                           f"{prefix}_o")
+        return y, None
     if positions is None:
         positions = torch.arange(t, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -85,7 +108,7 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
         out = _paged_attend(q, k, v, ctx, cache, block_tables, positions,
                             paged_write)
         y = adapted_linear(out.reshape(b, t, n_h * hd), w["wo"], ctx,
-                           "attn_o")
+                           f"{prefix}_o")
         return y, cache
     if cache is not None:
         # t > 1 is the speculative verifier's pass: column j of row b
@@ -119,17 +142,27 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
         out = torch.cat([c.reshape(b, 1, n_h * hd) for c in cols], dim=1)
         new_cache = cache
     else:
-        if _flash_ok(ctx) and (not causal or t == k.shape[1]):
-            out = dispatch.flash_attention(q, k, v, causal=causal,
-                                           policy=ctx.policy)
-        else:
-            mask = _causal_mask(t, k.shape[1], x.device) if causal else None
-            out = _softmax_attend(q.reshape(b, t, n_kv, g, hd), k, v, mask,
-                                  scale)
-        out = out.reshape(b, t, n_h * hd)
+        out = _prefill_attend(q, k, v, ctx, causal, scale).reshape(
+            b, t, n_h * hd)
         new_cache = {"k": k, "v": v}
-    y = adapted_linear(out, w["wo"], ctx, "attn_o")
+    y = adapted_linear(out, w["wo"], ctx, f"{prefix}_o")
     return y, new_cache
+
+
+def _prefill_attend(q, k, v, ctx: AdapterCtx, causal: bool, scale: float
+                    ) -> torch.Tensor:
+    """The train / prefill / cross branch: q (B, T, H, hd) against k / v
+    (B, S, KV, hd). The flash route (K3, or #5 / #6 / #7 under autograd)
+    takes it unless it is causal with T != S (as in JAX); else the plain
+    softmax over the full score matrix."""
+    b, t, n_h, hd = q.shape
+    n_kv = k.shape[2]
+    if _flash_ok(ctx) and (not causal or t == k.shape[1]):
+        return dispatch.flash_attention(q, k, v, causal=causal,
+                                        policy=ctx.policy)
+    mask = _causal_mask(t, k.shape[1], q.device) if causal else None
+    return _softmax_attend(q.reshape(b, t, n_kv, n_h // n_kv, hd), k, v,
+                           mask, scale)
 
 
 def paged_write_plan(block_tables, positions, n_blocks: int, page: int):

@@ -20,19 +20,27 @@ from repro_torch.tree import leaves
 
 def matrix_dims(cfg: ModelConfig) -> dict:
     """matrix type -> (d_in, d_out) for every adaptable linear map of the
-    decoders the port runs (attention and mamba mixers, dense FFN or MoE;
+    models the port runs (attention, mamba, mLSTM and sLSTM mixers, an
+    encoder-decoder's cross-attention ``xattn_*``, dense FFN or MoE;
     ``ffn_*`` of a MoE model are its shared experts, ``moe_down`` its
     expert down-projections)."""
     transformer.check_supported(cfg)
     d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     mixers = {m for m, _ in cfg.block_pattern}
     out = {}
-    if "attn" in mixers:
+    if "attn" in mixers or cfg.is_encdec:
         out.update({"attn_q": (d, q), "attn_k": (d, kv), "attn_v": (d, kv),
                     "attn_o": (q, d)})
+    if cfg.is_encdec:
+        out.update({"xattn_q": (d, q), "xattn_k": (d, kv),
+                    "xattn_v": (d, kv), "xattn_o": (q, d)})
     if "mamba" in mixers:
         di = cfg.mamba_d_inner
         out.update({"mamba_in": (d, 2 * di), "mamba_out": (di, d)})
+    if "mlstm" in mixers:
+        out.update({"mlstm_q": (d, d), "mlstm_v": (d, d), "mlstm_o": (d, d)})
+    if "slstm" in mixers:
+        out.update({"slstm_z": (d, d), "slstm_o": (d, d)})
     if ff:
         out.update({"ffn_gate": (d, ff), "ffn_up": (d, ff),
                     "ffn_down": (ff, d)})
@@ -42,17 +50,24 @@ def matrix_dims(cfg: ModelConfig) -> dict:
 
 
 def default_matrices(cfg: ModelConfig, variant: str = "4d") -> tuple:
-    """Paper default: attention q/v (App. A.2), and a mamba model's in /
-    out projections (the JAX package's extension for blocks without
-    attention); 4+ed adds the expert down-projection, the matrix its
-    expert axis indexes."""
+    """Paper default: attention q/v (App. A.2), an encoder-decoder's
+    cross-attention q / v beside them, and the JAX package's extensions
+    for blocks without attention: a mamba model's in / out projections,
+    an xLSTM model's mLSTM q / v and sLSTM z; 4+ed adds the expert
+    down-projection, the matrix its expert axis indexes."""
     transformer.check_supported(cfg)
     mixers = {m for m, _ in cfg.block_pattern}
     out = ()
-    if "attn" in mixers:
+    if "attn" in mixers or cfg.is_encdec:
         out += ("attn_q", "attn_v")
+    if cfg.is_encdec:
+        out += ("xattn_q", "xattn_v")
     if "mamba" in mixers:
         out += ("mamba_in", "mamba_out")
+    if "mlstm" in mixers:
+        out += ("mlstm_q", "mlstm_v")
+    if "slstm" in mixers:
+        out += ("slstm_z",)
     return out + (("moe_down",) if variant == "4+ed" else ())
 
 
@@ -158,11 +173,14 @@ def loss_fn(adapter, base, frozen, batch: dict, cfg: ModelConfig,
     terms (load balance, router z, each summed over layers) exist when
     ``cfg.moe_aux_weight`` > 0. Differentiate it with respect to the
     ``adapter`` tensors only; the base weights carry no grad. ``batch``:
-    tokens (B, T), optional mask (B, T) and task."""
+    tokens (B, T), optional mask (B, T) and task, and an encoder-decoder's
+    enc_embeds (B, S, d)."""
     bc, per_layer = peft_api.adapter_factors(spec, adapter, frozen)
     out = transformer.forward(base, cfg, spec, bc, per_layer,
-                              batch["tokens"], task=batch.get("task"),
-                              remat=remat, policy=policy, device=device)
+                              batch["tokens"],
+                              enc_embeds=batch.get("enc_embeds"),
+                              task=batch.get("task"), remat=remat,
+                              policy=policy, device=device)
     loss = next_token_loss(out.logits, batch["tokens"], batch.get("mask"),
                            vocab_size=cfg.vocab_size)
     if not out.aux:

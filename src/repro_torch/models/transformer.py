@@ -1,7 +1,9 @@
-"""Decoder-LM assembly (counterpart of ``src/repro/models/transformer.py``
-for decoders whose mixers are attention or mamba, with a dense or a MoE
-FFN: init, forward, dense caches and the decode step, paged block pools
-and the co-batched paged step).
+"""Decoder-LM / encoder-decoder assembly (counterpart of
+``src/repro/models/transformer.py`` for decoders whose mixers are
+attention, mamba, mLSTM or sLSTM, with a dense, a MoE or no FFN, and for
+the encoder-decoder with an audio stub frontend: init, the encoder,
+forward, dense caches and the decode step, paged block pools and the
+co-batched paged step).
 
 Weights keep the JAX package's layout so converted weights drop in: one
 dict per pattern position in ``blocks``, each leaf stacked over the
@@ -10,12 +12,17 @@ pattern positions; layer ``l = sb * P + p`` reads adapter slice ``l``.
 Caches mirror the blocks: an attention position's
 ``caches[p]["self"]["k"|"v"]`` is (nb, B, S, KV, hd), a mamba position's
 ``caches[p]["ssm"]`` holds "h" (nb, B, d_inner, d_state) f32 and "conv"
-(nb, B, K - 1, d_inner) (``models/mamba.py``); decode writes into them in
-place. Paged pools are (nb, N, page, KV, hd), one block table shared by
-every layer, attention models only; ``paged_step`` writes into them in
-place too. The training forward builds
-no caches and may checkpoint each super-block (``remat``), recomputing it
-in the backward. MoE blocks (``models/moe.py``) add their aux losses,
+(nb, B, K - 1, d_inner) (``models/mamba.py``), an mLSTM position's
+``caches[p]["mlstm"]`` and an sLSTM position's ``caches[p]["slstm"]``
+their recurrent states (``models/xlstm.py``); decode writes into them in
+place. An encoder-decoder keeps its encoder in ``enc_blocks`` (pattern
+``ENC_PATTERN``, non-causal) and a cross-attention (``xattn``, after
+``norm3``) in every decoder block; its adapter's layer axis holds the
+encoder's layers first, the decoder's after them. Paged pools are (nb,
+N, page, KV, hd), one block table shared by every layer, attention
+models only; ``paged_step`` writes into them in place too. The training
+forward builds no caches and may checkpoint each super-block
+(``remat``), recomputing it in the backward. MoE blocks (``models/moe.py``) add their aux losses,
 summed over layers, to ``ModelOutputs.aux`` (empty unless
 ``moe_aux_weight`` > 0).
 """
@@ -32,6 +39,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (AdapterCtx, dense_ffn, embed_tokens,
                                        lm_logits, norm)
 
@@ -126,23 +134,53 @@ def _mamba_init(cfg: ModelConfig, gen, nb, dtype, dev):
     }
 
 
-_MIXER_INIT = {"attn": _attn_init, "mamba": _mamba_init}
+def _mlstm_init(cfg: ModelConfig, gen, nb, dtype, dev):
+    d, h = cfg.d_model, cfg.num_heads
+    return {"wq": _linear_init(gen, d, d, nb, dtype, dev),
+            "wk": _linear_init(gen, d, d, nb, dtype, dev),
+            "wv": _linear_init(gen, d, d, nb, dtype, dev),
+            "w_i": _linear_init(gen, d, h, nb, dtype, dev),
+            "w_f": _linear_init(gen, d, h, nb, dtype, dev),
+            "w_og": _linear_init(gen, d, d, nb, dtype, dev),
+            "w_out": _linear_init(gen, d, d, nb, dtype, dev)}
+
+
+def _slstm_init(cfg: ModelConfig, gen, nb, dtype, dev):
+    """The JAX package's sLSTM leaves: the linears N(0, 1/d_in), the
+    per-head recurrent matrices r_* (nb, H, hd, hd) N(0, 1/hd)."""
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h
+    out = {n: _linear_init(gen, d, d, nb, dtype, dev)
+           for n in ("w_z", "w_i", "w_f", "w_o", "w_out")}
+    for n in ("r_z", "r_i", "r_f", "r_o"):
+        out[n] = (torch.randn((nb, h, hd, hd), generator=gen, device=dev,
+                              dtype=torch.float32) / hd ** 0.5).to(dtype)
+    return out
+
+
+_MIXER_INIT = {"attn": _attn_init, "mamba": _mamba_init,
+               "mlstm": _mlstm_init, "slstm": _slstm_init}
 #: each mixer's key in a position's decode cache
-CACHE_KEY = {"attn": "self", "mamba": "ssm"}
+CACHE_KEY = {"attn": "self", "mamba": "ssm", "mlstm": "mlstm",
+             "slstm": "slstm"}
+#: the encoder's (fixed) super-block pattern, shared with
+#: ``core/merge.py``'s whole-model fold
+ENC_PATTERN = (("attn", "dense"),)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port's model slice: decoders whose mixers are attention or
-    mamba, with a dense or a MoE FFN (xLSTM, enc-dec and frontends are
-    not ported yet)."""
+    """The port's model slice: attention, mamba, mLSTM or sLSTM mixers
+    with a dense, a MoE or no FFN, decoder-only or encoder-decoder (the
+    audio stub frontend); the ``patch_stub`` prefix is not ported yet."""
     for mixer, ffn in cfg.block_pattern:
         if mixer not in _MIXER_INIT or ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: block {(mixer, ffn)} is not ported yet "
-                "(attention or mamba mixers with a dense or MoE FFN only)")
-    if cfg.is_encdec or cfg.frontend != "none":
+                "(attention, mamba, mLSTM or sLSTM mixers with a dense, "
+                "MoE or no FFN only)")
+    if cfg.frontend not in ("none", "audio_stub"):
         raise NotImplementedError(
-            f"{cfg.name}: enc-dec / frontend models are not ported yet")
+            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet")
 
 
 def init_base_params(cfg: ModelConfig, generator: Optional[torch.Generator]
@@ -155,21 +193,39 @@ def init_base_params(cfg: ModelConfig, generator: Optional[torch.Generator]
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.param_dtype
-    nb = cfg.num_super_blocks
     embed = (torch.randn((cfg.padded_vocab, cfg.d_model), generator=generator,
                          device=dev, dtype=torch.float32) * 0.02).to(dtype)
+    params = {"embed": {"tok": embed},
+              "blocks": _block_init(cfg, cfg.block_pattern, generator,
+                                    cfg.num_super_blocks, dtype, dev,
+                                    decoder_cross=cfg.is_encdec),
+              "final_norm": _norm_init(cfg, 1, dev)}
+    if cfg.is_encdec:
+        params["enc_blocks"] = _block_init(cfg, ENC_PATTERN, generator,
+                                           cfg.encoder_layers, dtype, dev,
+                                           decoder_cross=False)
+        params["enc_final_norm"] = _norm_init(cfg, 1, dev)
+    return params
+
+
+def _block_init(cfg: ModelConfig, pattern, gen, nb, dtype, dev, *,
+                decoder_cross: bool) -> list:
+    """One dict per pattern position, leaves stacked over ``nb``; an
+    encoder-decoder's decoder blocks add the cross-attention ("norm3",
+    "xattn")."""
     blocks = []
-    for mixer, ffn in cfg.block_pattern:
+    for mixer, ffn in pattern:
         blk: dict = {"norm1": _norm_init(cfg, nb, dev),
-                     "mixer": _MIXER_INIT[mixer](cfg, generator, nb, dtype,
-                                                 dev)}
+                     "mixer": _MIXER_INIT[mixer](cfg, gen, nb, dtype, dev)}
+        if decoder_cross:
+            blk["norm3"] = _norm_init(cfg, nb, dev)
+            blk["xattn"] = _attn_init(cfg, gen, nb, dtype, dev)
         if ffn != "none":
             blk["norm2"] = _norm_init(cfg, nb, dev)
             blk["ffn"] = (_moe_init if ffn == "moe" else _ffn_init)(
-                cfg, generator, nb, dtype, dev)
+                cfg, gen, nb, dtype, dev)
         blocks.append(blk)
-    return {"embed": {"tok": embed}, "blocks": blocks,
-            "final_norm": _norm_init(cfg, 1, dev)}
+    return blocks
 
 
 # ---------------------------------------------------------------------------
@@ -188,17 +244,29 @@ def _at(tree, i):
 
 def _sublayer(h, blk, mixer, ffn, ctx: AdapterCtx, cfg: ModelConfig, *,
               positions, cache, cache_pos, block_tables=None,
-              paged_write=None):
+              paged_write=None, causal=True, enc_out=None):
     hn = norm(h, blk["norm1"], cfg.norm_eps)
     if mixer == "mamba":
         y, c = mamba_lib.mamba_mixer(hn, blk["mixer"], ctx, cfg, cache=cache)
+    elif mixer == "mlstm":
+        y, c = xlstm_lib.mlstm_mixer(hn, blk["mixer"], ctx, cfg, cache=cache)
+    elif mixer == "slstm":
+        y, c = xlstm_lib.slstm_mixer(hn, blk["mixer"], ctx, cfg, cache=cache)
     else:
-        y, c = attn_lib.attention(hn, blk["mixer"], ctx, cfg, causal=True,
+        y, c = attn_lib.attention(hn, blk["mixer"], ctx, cfg, causal=causal,
                                   positions=positions, cache=cache,
                                   cache_pos=cache_pos,
                                   block_tables=block_tables,
                                   paged_write=paged_write)
     h = h + y
+    if "xattn" in blk and enc_out is not None:
+        # cross-attention: k / v from the encoder output, no rope, not
+        # causal; with no cross cache (JAX's init_caches has none) a
+        # decode step recomputes them from ``enc_out``
+        hn = norm(h, blk["norm3"], cfg.norm_eps)
+        y, _ = attn_lib.attention(hn, blk["xattn"], ctx, cfg, causal=False,
+                                  prefix="xattn", kv_x=enc_out)
+        h = h + y
     aux = {}
     if ffn == "moe":
         hn = norm(h, blk["norm2"], cfg.norm_eps)
@@ -211,17 +279,23 @@ def _sublayer(h, blk, mixer, ffn, ctx: AdapterCtx, cfg: ModelConfig, *,
 
 
 def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
-               cfg: ModelConfig, *, positions=None, caches=None,
-               cache_pos=None, layer_offset: int = 0, task=None,
-               policy=None, remat: bool = False,
-               return_caches: bool = True, block_tables=None,
-               paged_write=None):
-    """Loop over super-blocks and pattern positions. With ``caches``
+               cfg: ModelConfig, *, causal: bool = True, positions=None,
+               caches=None, cache_pos=None, enc_out=None,
+               layer_offset: int = 0, task=None, policy=None,
+               remat: bool = False, return_caches: bool = True,
+               block_tables=None, paged_write=None):
+    """Loop over super-blocks and pattern positions; layer ``sb · P + p``
+    reads adapter slice ``layer_offset + sb · P + p`` (an enc-dec
+    decoder's start after the encoder's), its cross-attention included.
+    ``causal`` masks self-attention (False: the encoder); ``enc_out``
+    feeds the decoder blocks' cross-attention. With ``caches``
     (decode) they are updated in place and returned; ``block_tables``
     (one (B, P) table shared by every layer) makes them paged pools, and
     ``paged_write`` is the step's precomputed write plan. Without them
-    (prefill / training) the new k/v are returned stacked like the blocks
-    when ``return_caches``, else None. ``remat`` checkpoints each
+    (prefill / training) the new k/v (a mamba position's state) are
+    returned stacked like the blocks when ``return_caches``, else None;
+    a position whose mixer returns no cache (the xLSTM parallel forms)
+    gets ``{}``, as in JAX. ``remat`` checkpoints each
     super-block (``torch.utils.checkpoint``, non-reentrant): its
     activations are dropped after the forward and recomputed in the
     backward, kernels included. Returns (h, caches, aux): aux holds each
@@ -245,7 +319,8 @@ def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
                                 positions=positions, cache=cache,
                                 cache_pos=cache_pos,
                                 block_tables=block_tables,
-                                paged_write=paged_write)
+                                paged_write=paged_write, causal=causal,
+                                enc_out=enc_out)
             out.append(c)
             aux.append(a)
         return h, out, aux
@@ -270,7 +345,8 @@ def run_blocks(h, blocks, pattern, spec, broadcast, per_layer,
         return h, caches, aux
     if not return_caches:
         return h, None, aux
-    stacked = [{CACHE_KEY[mixer]: {k: torch.stack([c[k] for c in cs])
+    stacked = [{} if cs[0] is None else
+               {CACHE_KEY[mixer]: {k: torch.stack([c[k] for c in cs])
                                    for k in cs[0]}}
                for (mixer, _), cs in zip(pattern, new)]
     return h, stacked, aux
@@ -281,6 +357,7 @@ class ModelOutputs:
     logits: torch.Tensor
     aux: dict
     caches: Any = None
+    enc_out: Any = None
 
 
 def _tokens(tokens, base, device) -> torch.Tensor:
@@ -292,27 +369,58 @@ def _tokens(tokens, base, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=emb.device).long()
 
 
+def encode(base, cfg: ModelConfig, enc_embeds, spec, broadcast, per_layer,
+           *, policy=None) -> tuple:
+    """The encoder over the stub frame embeddings ``enc_embeds`` (B, S,
+    d): non-causal self-attention at rope positions 0 .. S - 1, adapter
+    slices 0 .. encoder_layers - 1, no task (as in JAX). Returns
+    (enc_out (B, S, d), aux)."""
+    h = enc_embeds.to(cfg.compute_dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _, aux = run_blocks(h, base["enc_blocks"], ENC_PATTERN, spec,
+                           broadcast, per_layer, cfg, causal=False,
+                           positions=positions, policy=policy,
+                           return_caches=False)
+    return norm(h, _at(base["enc_final_norm"], 0), cfg.norm_eps), aux
+
+
 def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
-            task=None, remat: bool = False, return_caches: bool = False,
-            policy=None, device=None) -> ModelOutputs:
+            enc_embeds=None, task=None, remat: bool = False,
+            return_caches: bool = False, policy=None,
+            device=None) -> ModelOutputs:
     """Train / prefill forward: tokens (B, T) -> ModelOutputs with
     (B, T, V) logits, and with ``return_caches`` the per-position caches a
     prefill hands to decode (k/v (nb, B, T, KV, hd); a mamba position's
-    last state and conv window). ``remat`` checkpoints
-    each super-block (training). ``device`` is where the call runs (None:
-    the CUDA device, raising without one)."""
+    last state and conv window; ``{}`` for an xLSTM position). An
+    encoder-decoder first encodes ``enc_embeds`` (B, S, d) (``encode``;
+    ``ModelOutputs.enc_out``, which its decode steps take) and its decoder
+    reads adapter slices from ``encoder_layers`` on. ``remat`` checkpoints
+    each decoder super-block (training; the encoder is not, as in JAX).
+    ``device`` is where the call runs (None: the CUDA device, raising
+    without one)."""
     check_supported(cfg)
     tokens = _tokens(tokens, base, device)
+    aux, enc_out, offset = {}, None, 0
+    if cfg.is_encdec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
+                             "enc_embeds")
+        enc_out, aux = encode(base, cfg, torch.as_tensor(
+            enc_embeds, device=tokens.device), spec, broadcast, per_layer,
+            policy=policy)
+        offset = cfg.encoder_layers
     h = embed_tokens(tokens, base["embed"]["tok"], cfg.compute_dtype)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, caches, aux = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
-                                broadcast, per_layer, cfg,
-                                positions=positions, task=task,
-                                policy=policy, remat=remat,
-                                return_caches=return_caches)
+    h, caches, aux2 = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
+                                 broadcast, per_layer, cfg,
+                                 positions=positions, enc_out=enc_out,
+                                 layer_offset=offset, task=task,
+                                 policy=policy, remat=remat,
+                                 return_caches=return_caches)
+    aux.update(aux2)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
     return ModelOutputs(logits=lm_logits(h, base["embed"]["tok"]), aux=aux,
-                        caches=caches)
+                        caches=caches, enc_out=enc_out)
 
 
 def init_caches(cfg: ModelConfig, batch: int, length: int, dtype, *,
@@ -320,16 +428,24 @@ def init_caches(cfg: ModelConfig, batch: int, length: int, dtype, *,
     """Zero dense caches, one per pattern position: {"self": {"k", "v"}}
     with leaves (nb, batch, length, KV, hd) for attention, {"ssm": {"h",
     "conv"}} with leaves (nb, batch, d_inner, d_state) f32 and (nb, batch,
-    K - 1, d_inner) for mamba; ``num_super_blocks`` overrides nb (the
-    speculative drafter's layer-strided region)."""
+    K - 1, d_inner) for mamba, {"mlstm": {"c", "n", "m"}} and {"slstm":
+    {"h", "c", "n", "m"}} (f32) for the xLSTM mixers; an enc-dec decoder
+    holds no cross-attention cache (its decode steps recompute the cross
+    k / v from ``enc_out``, as JAX's do); ``num_super_blocks`` overrides
+    nb (the speculative drafter's layer-strided region)."""
     check_supported(cfg)
     nb = num_super_blocks or cfg.num_super_blocks
     dev = resolve_device(device)
     out = []
     for mixer, _ in cfg.block_pattern:
-        c = (mamba_lib.init_mamba_cache(cfg, nb * batch, dtype, dev)
-             if mixer == "mamba" else
-             attn_lib.init_cache(cfg, nb * batch, length, dtype, dev))
+        if mixer == "mamba":
+            c = mamba_lib.init_mamba_cache(cfg, nb * batch, dtype, dev)
+        elif mixer == "mlstm":
+            c = xlstm_lib.init_mlstm_cache(cfg, nb * batch, dev)
+        elif mixer == "slstm":
+            c = xlstm_lib.init_slstm_cache(cfg, nb * batch, dev)
+        else:
+            c = attn_lib.init_cache(cfg, nb * batch, length, dtype, dev)
         out.append({CACHE_KEY[mixer]: {k: v.view(nb, batch, *v.shape[1:])
                                        for k, v in c.items()}})
     return out
@@ -349,14 +465,17 @@ def insert_cache_slot(caches, req_caches, slot: int) -> list:
 
 
 def decode_step(base, cfg: ModelConfig, spec, broadcast, per_layer, token,
-                caches, cache_pos, *, task=None, policy=None, device=None,
-                all_logits: bool = False):
+                caches, cache_pos, *, enc_out=None, task=None, policy=None,
+                device=None, all_logits: bool = False):
     """One decode step: token (B, T) -> (logits (B, V), caches). cache_pos
     is a scalar or a (B,) vector of per-slot positions; token column j
     lands at cache_pos + j (the caches are updated in place; T > 1 only
     in the speculative verifier's pass, each column attending as a T == 1
-    step would). The logits are column 0's, or with ``all_logits`` every
-    column's (B, T, V)."""
+    step would). An encoder-decoder takes the encoder output ``enc_out``
+    (``forward(...).enc_out``): each decoder layer's cross-attention
+    recomputes its k / v from it (as JAX does) and reads adapter slice
+    ``encoder_layers`` + its layer. The logits are column 0's, or with
+    ``all_logits`` every column's (B, T, V)."""
     check_supported(cfg)
     token = _tokens(token, base, device)
     h = embed_tokens(token, base["embed"]["tok"], cfg.compute_dtype)
@@ -364,9 +483,13 @@ def decode_step(base, cfg: ModelConfig, spec, broadcast, per_layer, token,
     cp = torch.as_tensor(cache_pos, device=h.device).long()
     positions = (cp.reshape(-1, 1)
                  + torch.arange(t, device=h.device)[None]).expand(b, t)
+    if cfg.is_encdec and enc_out is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder decode step needs "
+                         "enc_out")
     h, caches, _ = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
                               broadcast, per_layer, cfg, positions=positions,
-                              caches=caches, cache_pos=cp, task=task,
+                              caches=caches, cache_pos=cp, enc_out=enc_out,
+                              layer_offset=cfg.encoder_layers, task=task,
                               policy=policy)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
     if all_logits:
@@ -382,13 +505,14 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, page_size: int,
     and adds "k_s" / "v_s" f32 scale pools (nb, num_blocks, page, KV);
     ``num_super_blocks`` overrides nb (the speculative drafter's region).
     Which request owns which block lives on the host
-    (serving/block_manager.py). Attention models only: a mamba layer's
-    state is not a paged KV pool."""
+    (serving/block_manager.py). Attention models only: a mamba or xLSTM
+    layer's state is not a paged KV pool."""
     check_supported(cfg)
-    if any(m != "attn" for m, _ in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: paged pools need attention KV caches; mixer "
-            "'mamba' carries a recurrent state that cannot be paged")
+    for m, _ in cfg.block_pattern:
+        if m != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: paged pools need attention KV caches; mixer "
+                f"{m!r} carries a recurrent state that cannot be paged")
     nb = num_super_blocks or cfg.num_super_blocks
     out = []
     for _ in cfg.block_pattern:

@@ -224,6 +224,10 @@ class Engine:
                     f"slot engine needs attention KV caches; mixer {mixer!r} "
                     "carries stateful caches that cannot be slot-inserted "
                     "or paged")
+        if model_cfg.is_encdec:
+            # as in JAX: whisper is served through transformer.forward /
+            # decode_step, not the slot engine
+            raise NotImplementedError("enc-dec serving is not slotted yet")
         if runtime.tasked and runtime.spec.adapts("moe_down"):
             # moe_down deltas apply over expert-sorted (E, C, ff) blocks
             # (models/moe.py), whose leading axis is experts: a

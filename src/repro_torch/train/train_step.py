@@ -78,8 +78,9 @@ def make_train_step(cfg: ModelConfig, spec: peft_api.AdapterSpec,
                     device=None) -> Callable:
     """fn(state, base, frozen, batch) -> (state, metrics). ``batch``
     holds tensors on ``device``: tokens (B, T), mask (B, T), optional
-    task. ``kernels``: a KernelConfig / KernelPolicy (None: the kernels
-    for CUDA tensors, both directions)."""
+    task, and an encoder-decoder's enc_embeds (B, S, d). ``kernels``: a
+    KernelConfig / KernelPolicy (None: the kernels for CUDA tensors, both
+    directions)."""
     if train_cfg.remat not in ("none", "block"):
         raise ValueError(f"unknown remat {train_cfg.remat!r}")
     schedule = adamw.make_schedule(opt_cfg, total_steps)

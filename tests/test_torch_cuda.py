@@ -824,6 +824,50 @@ def test_flash_attention_fwd_variants(dev, variant, t, s, d, g, causal):
     torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
 
 
+# ------------------------------- whisper-large-v3's cross-attention
+
+#: whisper's encoder length and heads: 20 heads of 64 over 20 (G = 1)
+WHISPER_S, WHISPER_H = 1536, 20
+
+
+@pytest.mark.parametrize("t", [1, 256], ids=["decode-T1", "prefill-T256"])
+def test_flash_attention_cross_at_whisper_shapes(dev, t):
+    """K3 as whisper-large-v3's cross-attention: T query rows (1: a decode
+    step, 256: a prefill) over S = 1536 encoder keys, not causal, B = 4,
+    20 heads of 64: within 2e-2 of the plain version, two calls
+    bit-identical."""
+    b, d = 4, 64
+    q = _rn(dev, b, t, WHISPER_H, d)
+    k = _rn(dev, b, WHISPER_S, WHISPER_H, d, seed=1)
+    v = _rn(dev, b, WHISPER_S, WHISPER_H, d, seed=2)
+    out = tfa.flash_attention(q, k, v, False)
+    _close(out, tfa.flash_attention_plain(q, k, v, False), 2e-2)
+    assert torch.equal(out, tfa.flash_attention(q, k, v, False))
+
+
+def test_flash_attention_train_cross_at_whisper_shape(dev):
+    """#5, #6 and #7 as whisper's cross-attention in training: T = 256
+    decoder rows over S = 1536 encoder keys, not causal, 20 heads of 64:
+    out within 2e-2 and lse within 1e-3 of the plain forward, dq / dk / dv
+    within 2e-2 of the largest plain gradient, two backward calls
+    bit-identical."""
+    b, t, d = 2, 256, 64
+    q = _rn(dev, b, t, WHISPER_H, d)
+    k = _rn(dev, b, WHISPER_S, WHISPER_H, d, seed=1)
+    v = _rn(dev, b, WHISPER_S, WHISPER_H, d, seed=2)
+    g = _rn(dev, b, t, WHISPER_H, d, seed=3)
+    o, lse = tfa.flash_attention_fwd(q, k, v, False)
+    po, plse = tfa.flash_attention_fwd_plain(q, k, v, False)
+    _close(o, po, 2e-2)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, g, False)
+    _check_bwd(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, g, False))
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, g, False)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
 # ------------------------------- K2 / #10 beyond 64 rows, through ops.py
 
 @pytest.mark.parametrize("m", [72, 130])

@@ -481,11 +481,21 @@ def test_engine_and_paged_pools_refuse_mamba():
 
 
 def test_check_supported_still_refuses_xlstm_and_enc_dec():
-    """The model slice takes mamba now; xLSTM mixers and enc-dec models
-    still raise before any weight is drawn."""
+    """The model slice takes xLSTM mixers and enc-dec models now
+    (``check_supported`` passes them), but the slot engine still refuses
+    both before it touches a weight, as the JAX engine does; the
+    ``patch_stub`` prefix still raises in ``check_supported``."""
     cfg = tconfigs.get_smoke_config(ARCH)
-    for bad in (dataclasses.replace(cfg, block_pattern=(("mlstm", "none"),),
-                                    num_layers=1),
-                dataclasses.replace(cfg, encoder_layers=2)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TT.check_supported(bad)
+    xl = dataclasses.replace(cfg, block_pattern=(("mlstm", "none"),),
+                             num_layers=1)
+    ed = dataclasses.replace(cfg, block_pattern=(("attn", "dense"),),
+                             num_layers=1, encoder_layers=2,
+                             encoder_seq=16, frontend="audio_stub")
+    rt = AdapterRuntime.build("live", None, tpeft.NONE, None, None)
+    for ok, msg in ((xl, "mixer 'mlstm'"), (ed, "enc-dec serving")):
+        TT.check_supported(ok)
+        with pytest.raises(NotImplementedError, match=msg):
+            Engine(ok, rt, device="cpu")
+    bad = dataclasses.replace(cfg, frontend="patch_stub", frontend_seq=4)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        TT.check_supported(bad)

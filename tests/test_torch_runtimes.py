@@ -126,13 +126,20 @@ def test_fold_transformer_folds_all_layers_and_positions(two_pos):
 
 
 def test_fold_needs_a_task_and_ported_mixers():
-    _, _, _, cfg, spec, tp = _setup()
+    """A 4+1d fold needs a task; a matrix type with no fold path
+    (``moe_down``, the expert banks) raises ``ValueError`` in both
+    packages, as JAX ``core/merge.py`` does (every mixer's fold path is
+    ported)."""
+    jcfg, jspec, jp, cfg, spec, tp = _setup()
     with pytest.raises(ValueError, match="task"):
         merge.fold_transformer(tp["adapter"], spec.cfg, tp["base"], cfg)
-    mlstm = dataclasses.replace(spec.cfg, matrix_types=("mlstm_q",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        merge.fold_transformer(tp["adapter"], mlstm, tp["base"], cfg,
-                               task=0)
+    jmoe = dataclasses.replace(jspec.cfg, matrix_types=("moe_down",))
+    moe = dataclasses.replace(spec.cfg, matrix_types=("moe_down",))
+    with pytest.raises(ValueError, match="cannot be folded"):
+        jmerge.fold_transformer(jp["adapter"], jmoe, jp["base"], jcfg,
+                                task=0)
+    with pytest.raises(ValueError, match="cannot be folded"):
+        merge.fold_transformer(tp["adapter"], moe, tp["base"], cfg, task=0)
 
 
 # ---------------------------------------------------------------------------
