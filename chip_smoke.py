@@ -134,9 +134,10 @@ Phases, each printed on its own lines:
      (acceptance, tokens per step, tok/s; teacher-forced tokens; K4 once
      a verified column; #8 / #8q on the verifier; no leaked block);
   9. the paged adapter registry, chaos and preemption on the same
-     full-width model cut to 6 of its 24 layers (the registry, chaos and
+     full-width model cut to 4 of its 24 layers (the registry, chaos and
      preemption are host bookkeeping, which depth does not change; the
-     cut — 12 layers until phase 14 came — keeps the script under 700 s)
+     cut — 12 layers until phase 14 came, 6 until phases 22-23 — keeps
+     the script inside its time)
      with a 4+1d adapter
      over 64 tasks at 0.1 of the
      base q projection, every run under a ChaosInjector whose audit runs
@@ -146,7 +147,7 @@ Phases, each printed on its own lines:
      hits > 0, warm prefix hits after eviction, #8 launched), every
      token within 5% of the plain leg's teacher-forced maximum, the count
      equal to the all-resident engine's printed; (b) the dense cell under
-     the lora runtime, fp and w8, with 3 pool slots (K2 / #10 2L = 12 a
+     the lora runtime, fp and w8, with 3 pool slots (K2 / #10 2L = 8 a
      decode step on A gathered from the pool); (c) a seeded chaos run (forced
      allocation failures, two failed fault-ins, a cancel, a NaN row):
      one CANCELLED, one FAILED with 5 tokens, the survivors checked
@@ -178,7 +179,7 @@ Phases, each printed on its own lines:
      paged-step logits and every generated token within 1e-4 of the plain
      f32 leg's largest logit (tokens equal to the plain leg's counted);
      tok/s, step ms, prefill ms, kv_bytes_peak and device busy share; (e)
-     roberta-large at 6 of its 24 layers (widths kept) over int8 weights
+     roberta-large at 3 of its 24 layers (widths kept) over int8 weights
      through the f32 instances of #9 and #10: (e1) (a)'s cell with ``QuantConfig(weights="int8")`` (2L #9f a
      prefill, 2L #10f + L K4f a decode step, no K1f / K2f), (e2) (b)'s
      cell with int8 weights and int8 KV cold then warm (L #8qf a step;
@@ -272,15 +273,16 @@ Phases, each printed on its own lines:
      1 #7 a step) and the B = 1 gradient check with its f32 witness
      deferred; ``[phase19]`` lines;
   20. xlstm-125m (12 x 768, alternating mLSTM / sLSTM, 4 heads of 192,
-     no FFN) at full width and depth, MetaTT 4d on mLSTM q / v and sLSTM z
-     (``phase_twenty``): (a) a parallel forward of 4 x 512 tokens (18 K1)
-     and decode from zero states over them and 32 greedy steps (18 K1 a
+     no FFN) at full width and 6 of its 12 layers (``XLSTM_LAYERS``),
+     MetaTT 4d on mLSTM q / v and sLSTM z
+     (``phase_twenty``): (a) a parallel forward of 4 x 512 tokens (9 K1)
+     and decode from zero states over them and 32 greedy steps (9 K1 a
      step), every K1 of a forward and 8 steps held to its plain version
      on the path's inputs, the bf16 legs' logits reported (the model is
      chaotic in bf16 at random init, the witness vacuous), the f32
      instances of K1 / K2 against the f32 plain leg and the f32 decode
      against the f32 parallel forward asserted, then a 4+1d decode with a
-     task a row (18 K2 a step); (b) phase 6's training, 3 steps (52 K1 a
+     task a row (9 K2 a step); (b) phase 6's training, 3 steps (25 K1 a
      step), and the B = 1 gradient check; ``[phase20]`` lines;
   21. whisper-large-v3 (32 encoder + 32 decoder layers of 1280, 20 heads
      of 64, gelu 5120, layernorm; 1536 stub frames) at full width and
@@ -293,12 +295,34 @@ Phases, each printed on its own lines:
      forward; (b) phase 6's training over 4 x 1536 frames, 4 steps (508
      K1, 160 #5 of three kinds, 96 #6, 96 #7 a step) and the B = 1
      gradient check; ``[phase21]`` lines;
+  22. paligemma-3b (18 x 2048, 8 heads of 256 over one KV head: MQA,
+     G = 8; GeGLU 16384; vocab 257216; 256 stub patch embeddings before
+     the text) at full width and depth, a 4+1d MetaTT q / v adapter
+     (``phase_twentytwo``): (a) ``make_prefill`` over 4 x (256 patches +
+     256 tokens) (36 K1, 18 K3 at T = S = 512), (b) 32 greedy steps
+     through ``make_serve_step`` from cell 512 with a task a row (36 K2,
+     18 K4 a step), prefill and decode logits within 5% of the plain leg
+     and under the f32 witness rule, the f32 decode against the f32
+     parallel forward; (c) the dense engine (phase 3's cell) and the
+     paged engine fp and int8 KV (phase 4's cell, #8 / #8q) on text-only
+     requests; (d) phase 6's training, 3 steps of 4 x (256 patches + 768
+     tokens) under the prefix loss (106 K1, 36 #5, 18 #6, 18 #7 a step),
+     and the B = 1 gradient check; ``[phase22]`` lines;
+  23. serve-time tensor parallelism (``phase_twentythree``): a one-rank
+     NCCL group over a ``file://`` store, stablelm-1.6b at full width and
+     4 of its 24 layers through ``ServeConfig(mesh_shape=(1, 1))`` with
+     and without ``row_parallel``: the dense engine (K2, K4), the paged
+     engine (#8), the paged engine over int8 weights and KV (#8q) and the
+     dense engine over int8 weights (#9, #10), tokens equal to the
+     unsharded engine's and the step logits bit-identical;
+     ``[phase23]`` lines;
 then one JSON line with every kernel's record (launches per path; the
 f32, d = 256 and d = 112 instances under their own names with every
 phase-2 row; K1, K2, #9 and #10 with their rows at gemma-7b's and
 kimi-k2's q / v; K1, K2, K4, #8, #8q, #5, #6 and #7 with their rows at
-granite's and mistral's; K1 and K2 at xlstm-125m's and K1, K3, K4, #5,
-#6 and #7 at whisper-large-v3's shapes).
+granite's and mistral's; K1 and K2 at xlstm-125m's, K1, K3, K4, #5,
+#6 and #7 at whisper-large-v3's and K3, K4, #8, #8q, #5, #6 and #7 at
+paligemma-3b's shapes).
 The last line is ``{"ok": true, "device": {...}}``. Any failed check,
 build or launch raises, and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -869,7 +893,11 @@ def phase_kernels(dev, only=None):
               (("tt_linear", "tt_linear_batched_a"), xlstm_linear_rows),
               (("tt_linear",), whisper_linear_rows),
               (("flash_attention", "decode_attention"),
-               whisper_attention_rows))
+               whisper_attention_rows),
+              (("flash_attention_d256", "decode_attention_d256",
+                "paged_decode_attention_d256",
+                "paged_decode_attention_int8_d256"),
+               paligemma_attention_rows))
     rows = []
     for names, fn in groups:
         if only is None or set(names) & set(only):
@@ -1369,14 +1397,16 @@ def rel_max(got, want):
 # heads of 64, gemma-7b's 16 heads of 256 (phase 13), kimi-k2's 64 heads
 # of 112 over 8 (phase 18); T = 1000 tile edges and GQA groups 4 (d = 64)
 # and 2 (d = 256); then granite-34b's and mistral-large's training shapes
-# (phase 15, ``GQA_TRAIN_TAGS``) and kimi-k2's (``KIMI_TRAIN_TAGS``)
+# (phase 15, ``GQA_TRAIN_TAGS``), kimi-k2's (``KIMI_TRAIN_TAGS``), jamba's
+# and paligemma-3b's (``PALIGEMMA_TRAIN_TAGS``: 8 heads of 256 over 1)
 TRAIN_ATTN_SHAPES = ((4, 1024, 32, 32, 64), (4, 1000, 32, 32, 64),
                      (4, 1024, 32, 8, 64), (2, 1024, 16, 16, 128),
                      (4, 1024, 16, 16, 256), (4, 1000, 16, 16, 256),
                      (4, 1024, 16, 8, 256), (4, 1024, 48, 1, 128),
                      (4, 1024, 96, 8, 128), (4, 1000, 48, 1, 128),
                      (4, 1024, 64, 8, 112), (4, 1000, 64, 8, 112),
-                     (1, 1024, 64, 8, 112), (4, 1024, 32, 8, 128))
+                     (1, 1024, 64, 8, 112), (4, 1024, 32, 8, 128),
+                     (4, 1024, 8, 1, 256))
 #: the any-group training rows of #5, #6 and #7 (``gqa_rows`` of their
 #: records): granite-34b's 48 heads over one KV head (G = 48, and a
 #: ragged T = 1000) and mistral-large's 96 over 8 (G = 12); the T = 1024
@@ -1445,7 +1475,8 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
     for b_, t, h, kvh, d in attn_shapes:
         main = (b_, t, h, kvh, d) == firsts[d] and d != 128
         tag = next((tags[(b_, t, h, kvh, d)] for tags in (
-            GQA_TRAIN_TAGS, KIMI_TRAIN_TAGS, JAMBA_TRAIN_TAGS)
+            GQA_TRAIN_TAGS, KIMI_TRAIN_TAGS, JAMBA_TRAIN_TAGS,
+            PALIGEMMA_TRAIN_TAGS)
             if (b_, t, h, kvh, d) in tags), None)
         sfx = {256: "_d256", 112: "_d112"}.get(d, "")
         shape = f"B={b_} T=S={t} H={h} KV={kvh} d={d} causal"
@@ -1481,7 +1512,8 @@ def phase_train_kernels(dev, attn_shapes=TRAIN_ATTN_SHAPES,
         bq, bkv = b_ * t * h * d * 2, b_ * t * kvh * d * 2   # bytes
         lse_b = b_ * h * t * 4
         g_ = h // kvh
-        gqa_lib = tag in ("kimi", "jamba")   # SDPA's own GQA, k / v not
+        gqa_lib = tag in ("kimi", "jamba", "paligemma")   # SDPA's own
+        # GQA, k / v not
         # repeated
         lib = [x.detach().transpose(1, 2) for x in
                ((q, k, v) if gqa_lib else
@@ -3899,7 +3931,9 @@ def phase_rest(dev, dense_run, paged_run, train_cores):
 # recompute preemption, through Engine.generate
 REG_TASKS = 64          # the adapter's task axis (64 columns on the host)
 REG_NEW = 16            # tokens a request
-REG_LAYERS = 6          # stablelm-1.6b's depth cut from 24 (widths kept)
+#: stablelm-1.6b's depth cut from 24 (widths kept): 4 since phases 22-23
+#: came (6 until then, 12 before phase 14)
+REG_LAYERS = 4
 
 
 def registry_model(dev):
@@ -4059,7 +4093,7 @@ def fault_in_ms(eng, label, iters=20):
 
 
 def phase_registry(dev, count):
-    """Phase 9 on full-width stablelm-1.6b (6 layers) with a 64-task 4+1d
+    """Phase 9 on full-width stablelm-1.6b (``REG_LAYERS``) with a 64-task 4+1d
     adapter:
     (a) the registry on the paged fp cell (4 pool slots, 48 requests over
     24 tasks, cold then warm) against the all-resident engine; (b) the
@@ -4595,9 +4629,10 @@ INT8_KV_LOGIT_TOL = 1e-3
 SERVED_RATIO = 0.25
 
 
-#: (e)'s depth: roberta-large's widths at 6 of its 24 layers (the
-#: int8-weight cells cost 66 s at 24; phases 14 and 19 needed the time)
-W8_LAYERS = 6
+#: (e)'s depth: roberta-large's widths at 3 of its 24 layers (the
+#: int8-weight cells cost 66 s at 24; phases 14 and 19 needed the time,
+#: 6 layers until phases 22-23 came)
+W8_LAYERS = 3
 #: (a)-(d)'s depth, the same cut: at 24 layers they took 72.0-124.6 s,
 #: the script 555-886 s on H100s whose hosts ran at different speeds; at
 #: 12 the phase took 59.7-83.7 s and the script 601.0-722.9 s
@@ -5792,7 +5827,9 @@ def train_full_width(dev, cfg, tag, grad_layers=None, variant="4d",
     its default matrices (q/v; ``variant="4+ed"``: MetaTT-(4+E)D on q, v
     and the MoE expert down-projections) from rank 10, AdamW lr 1e-3,
     remat per block, LMStream batches of 4 x 1024 tokens (an enc-dec
-    model's with 4 x encoder_seq stub frames, ``FrameStream``), ``steps``
+    model's with 4 x encoder_seq stub frames; a prefix model's of 4 x
+    (frontend_seq patch embeddings + 1024 - frontend_seq tokens), under
+    the prefix loss: ``FrameStream``), ``steps``
     steps of 3 per epoch with one DMRG sweep to rank 8 after step 3:
     finite losses, moved cores, ranks 8 after the sweep, exactly
     ``bf16_train_per_step`` launches (an enc-dec model's #5 calls by kind
@@ -5819,9 +5856,10 @@ def train_full_width(dev, cfg, tag, grad_layers=None, variant="4d",
                     adapter_rank=10, optimizer=OptimizerConfig(lr=1e-3),
                     train=TrainConfig(remat="block", seed=SEED))
     batch, seq = 4, 1024
-    data = LMStream(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch,
-                    seed=0, branching=2)
-    if cfg.is_encdec:
+    prefix = cfg.frontend_seq if cfg.frontend == "patch_stub" else 0
+    data = LMStream(vocab_size=cfg.vocab_size, seq_len=seq - prefix,
+                    batch=batch, seed=0, branching=2)
+    if cfg.is_encdec or prefix:
         data = FrameStream(data, cfg)
     t0 = time.perf_counter()
     tr = Trainer(run=run, data=data, total_steps=steps, steps_per_epoch=3,
@@ -5885,9 +5923,8 @@ def train_full_width(dev, cfg, tag, grad_layers=None, variant="4d",
                      show=("flash_bwd", "flash_fwd", "tt_linear"))
     last = next(data)
     tokens = torch.as_tensor(last["tokens"][:1], device=dev)
-    extra = ({"enc_embeds": torch.as_tensor(last["enc_embeds"][:1],
-                                            device=dev)}
-             if cfg.is_encdec else None)
+    extra = {k_: torch.as_tensor(last[k_][:1], device=dev)
+             for k_ in ("enc_embeds", "embeds") if k_ in last} or None
     holder = {"base": tr.base}
     del tr
     gc.collect()
@@ -5899,8 +5936,10 @@ def train_full_width(dev, cfg, tag, grad_layers=None, variant="4d",
 
 class FrameStream:
     """An LM stream whose batches also carry an enc-dec model's stub frame
-    embeddings ``enc_embeds`` (B, encoder_seq, d_model) f32, unit normal,
-    drawn from the stream's step and ``SEED``."""
+    embeddings ``enc_embeds`` (B, encoder_seq, d_model), or a VLM's stub
+    patch embeddings ``embeds`` (B, frontend_seq, d_model) prepended to
+    the tokens: f32, unit normal, drawn from the stream's step and
+    ``SEED``."""
 
     def __init__(self, stream, cfg):
         self.stream, self.cfg = stream, cfg
@@ -5908,9 +5947,10 @@ class FrameStream:
     def __next__(self):
         rng = np.random.default_rng((SEED, self.stream.state()["step"]))
         out = next(self.stream)
-        out["enc_embeds"] = rng.standard_normal(
-            (out["tokens"].shape[0], self.cfg.encoder_seq,
-             self.cfg.d_model), dtype=np.float32)
+        key, n = (("enc_embeds", self.cfg.encoder_seq) if self.cfg.is_encdec
+                  else ("embeds", self.cfg.frontend_seq))
+        out[key] = rng.standard_normal(
+            (out["tokens"].shape[0], n, self.cfg.d_model), dtype=np.float32)
         return out
 
     def __iter__(self):
@@ -7014,6 +7054,10 @@ XLSTM = "xlstm-125m"
 #: chunks of 256: the chunked path), then decode from zero states over the
 #: same 512 tokens teacher-forced and 32 greedy steps
 XLSTM_PROMPTS, XLSTM_PROMPT_LEN, XLSTM_STEPS = 4, 512, 32
+#: phase 20's depth: 6 of xlstm-125m's 12 layers (3 mLSTM / sLSTM pairs,
+#: widths kept), cut to pay for phases 22-23 in the script's time (its
+#: bf16 legs are host-bound eager ops: the time goes with the depth)
+XLSTM_LAYERS = 6
 #: the 4+1d decode's per-row tasks
 XLSTM_TASKS = (0, 1, 2, 0)
 #: (b)'s steps: the sweep after step 3; the sLSTM loop runs 6 layers x
@@ -7155,7 +7199,8 @@ XLSTM_CHECK_DECODE, XLSTM_TASK_DECODE = 272, 64
 
 
 def xlstm_serving(dev, count, tag="phase20"):
-    """Phase 20 (a): full-width xlstm-125m (bf16, all 12 layers) with
+    """Phase 20 (a): full-width xlstm-125m (bf16, ``XLSTM_LAYERS`` of its
+    12 layers) with
     MetaTT 4d on mLSTM q / v and sLSTM z at ``SERVED_RATIO`` of the base
     mLSTM q projection. The kernel leg: a parallel forward of 4 x 512
     tokens (18 K1, nothing else) and decode from zero states over the same
@@ -7182,6 +7227,7 @@ def xlstm_serving(dev, count, tag="phase20"):
     from repro_torch.serving import AdapterRuntime
     from repro_torch.tree import tree_map
     cfg, spec, params, rt, gen = serving_model(dev, tag, XLSTM, SERVED_RATIO,
+                                               layers=XLSTM_LAYERS,
                                                variant="4d")
     base = params["base"]
     fac = dataclasses.replace(rt, base=None)
@@ -7300,11 +7346,12 @@ def xlstm_serving(dev, count, tag="phase20"):
 
 
 def phase_twenty(dev):
-    """Phase 20: xlstm-125m at full width and full depth (12 layers of
-    768, 4 heads of 192, alternating mLSTM / sLSTM, no FFN, vocab 50304,
-    bf16): (a) served (``xlstm_serving``), (b) trained in phase 6's
-    setting (``train_full_width``, ``XLSTM_TRAIN_STEPS`` steps): exactly
-    52 K1 a step (18 adapted linears, 3 each, less layer 0's q / v) and
+    """Phase 20: xlstm-125m at full width and ``XLSTM_LAYERS`` (6) of its
+    12 layers (768, 4 heads of 192, alternating mLSTM / sLSTM, no FFN,
+    vocab 50304, bf16): (a) served (``xlstm_serving``), (b) trained in
+    phase 6's setting (``train_full_width``, ``XLSTM_TRAIN_STEPS``
+    steps): exactly 25 K1 a step (9 adapted linears, 3 each, less layer
+    0's q / v) and
     nothing else, then the B = 1 gradient check with its f32 witness and
     the f32 instances of K1 held to the f32 plain leg
     (``XLSTM_F32_GRAD_LIMITS``)."""
@@ -7331,7 +7378,8 @@ def phase_twenty(dev):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    train = train_full_width(dev, configs.get_config(XLSTM), "phase20",
+    train = train_full_width(dev, dataclasses.replace(
+        configs.get_config(XLSTM), num_layers=XLSTM_LAYERS), "phase20",
                              steps=XLSTM_TRAIN_STEPS,
                              f32_grad_limits=XLSTM_F32_GRAD_LIMITS,
                              profile=False)
@@ -7716,6 +7764,401 @@ def phase_twentyone(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 22: paligemma-3b (the patch_stub prefix) served and trained at full
+# width and full depth
+# ---------------------------------------------------------------------------
+
+PALIGEMMA = "paligemma-3b"
+#: (a) / (b): 4 x (256 stub patch embeddings + 256 tokens) prefilled
+#: through ``make_prefill`` at task ``PALI_TASK`` (K1), then 32 greedy
+#: steps through ``make_serve_step`` with a task a row (K2), from cell 512
+PALI_BATCH, PALI_PROMPT_LEN, PALI_STEPS, PALI_TASK = 4, 256, 32, 1
+#: the prefill positions whose logits the legs compare (the last ones)
+PALI_CHECKED = 64
+#: phase 2's rows at paligemma's 8 heads of 256 over one KV head (G = 8):
+#: K3 at (a)'s prefill (B = 4, T = S = 512), K4 over (b)'s 544-cell cache
+PALI_K3_CASES = ((512, 1),)
+PALI_K4_CASES = ((1, 544, (512, 520, 530, 543)),)
+#: #5, #6 and #7 at (d)'s training shape: 4 x (256 patches + 768 tokens)
+PALIGEMMA_TRAIN_TAGS = {(4, 1024, 8, 1, 256): "paligemma"}
+
+
+def paligemma_attention_rows(dev, rn):
+    """K3 (B = 4, T = S = 512), K4 (4 slots of a 544-cell cache), #8 and
+    #8q (8 slots, C = 1 and 32, 34-page tables of 16) at paligemma-3b's 8
+    heads of 256 over one KV head (G = 8; the d = 256 instances): each
+    within 2e-2 of its plain version, two calls bit-identical, its bound
+    and SDPA with ``enable_gqa`` as library (``paligemma_rows`` of the
+    records; #5, #6 and #7 at its training shape are
+    ``PALIGEMMA_TRAIN_TAGS``' rows)."""
+    rows = (k3_rows(dev, rn, h=8, d=256, cases=PALI_K3_CASES, sfx="_d256",
+                    tag="paligemma", b=4)
+            + k4_rows(dev, rn, h=8, d=256, cases=PALI_K4_CASES, sfx="_d256",
+                      tag="paligemma")
+            + paged_kernel_rows(dev, rn, h=8, d=256, sfx="_d256", kv=1,
+                                tag="paligemma")
+            + paged_int8_kernel_rows(dev, rn, h=8, d=256, sfx="_d256", kv=1,
+                                     tag="paligemma"))
+    for r_ in rows:     # the main rows stay gemma-7b's
+        r_["main"] = False
+    return rows
+
+
+def paligemma_leg(leg, cfg, spec, params, base, toks, patches, p, dev,
+                  new=0):
+    """One leg of phase 22 (a)-(b) (``LEGS``, over ``base``):
+    ``make_prefill`` over ``patches`` (B, Tp, d) and ``toks[:, :p]`` at
+    task ``PALI_TASK``, then positions p .. T + ``new`` - 1 through
+    ``make_serve_step`` with a (B,) task vector from cell Tp + p of the
+    prefill's caches (``greedy_decode``). Returns {"prefill": the last
+    ``PALI_CHECKED`` positions' f32 logits, "decode", "tokens"}."""
+    import torch
+    from repro_torch.config.base import KernelConfig
+    from repro_torch.serving import engine as E
+    f32, pol = LEGS[leg]
+    c = f32_cfg(cfg) if f32 else cfg
+    kern = None if pol == "DEFAULT" else KernelConfig(backend="ref")
+    b, t = toks.shape
+    tpl = patches.shape[1]
+    prefill = E.make_prefill(c, spec, tpl + t + new, kernels=kern,
+                             device=dev)
+    step = E.make_serve_step(c, spec, kernels=kern, device=dev)
+    w = (base, params["adapter"], params["frozen"])
+    task = torch.full((b,), PALI_TASK, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        logits, caches, _ = prefill(*w, toks[:, :p], embeds=patches,
+                                    task=PALI_TASK)
+        dec, full = greedy_decode(
+            lambda tok, i: step(*w, tok, caches, tpl + i, task=task)[0],
+            toks, p, new, first=logits[:, -1].float())
+    return {"prefill": logits[:, -PALI_CHECKED:].float(), "decode": dec,
+            "tokens": full}
+
+
+def paligemma_serving(dev, count, tag="phase22"):
+    """Phase 22 (a)-(b): full-width paligemma-3b (bf16, all 18 layers)
+    with a 4+1d MetaTT q / v adapter (rank 8, 3 tasks) at
+    ``SERVED_RATIO`` of the base q projection. The kernel leg: 4 x 256
+    stub patch embeddings (unit normal from the seed, as the JAX tests
+    draw them, in bf16) and 4 x 256 tokens prefilled through
+    ``make_prefill`` (2L K1 at 2048 -> 2048 / 256 and L K3 at d = 256,
+    G = 8, T = S = 512), then 32 greedy steps through ``make_serve_step``
+    from cell 512 (2L K2 and L K4 a step), timed, one window profiled;
+    the plain and f32 legs over the kernel leg's tokens (the f32 base a
+    copy of the bf16 one); the prefill and decode logits within 5% of
+    the plain leg and under the f32 witness rule; the f32 decode against
+    the f32 parallel forward over the prefix and all 288 tokens within
+    the JAX test's 2e-2."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.tree import tree_map
+    cfg, spec, params, rt, gen = serving_model(dev, tag, PALIGEMMA,
+                                               SERVED_RATIO)
+    base = params["base"]
+    b, p, n = PALI_BATCH, PALI_PROMPT_LEN, PALI_STEPS
+    tpl, L = cfg.frontend_seq, cfg.num_layers
+    patches = torch.randn((b, tpl, cfg.d_model), generator=gen,
+                          device=dev).to(cfg.compute_dtype)
+    rng = np.random.RandomState(SEED + 22)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(b, p)),
+                           device=dev)
+    paligemma_leg("kernel", cfg, spec, params, base, toks[:, :16],
+                  patches, 16, dev, new=2)                   # warm-up
+    prefill = E.make_prefill(cfg, spec, tpl + p + n, device=dev)
+    step = E.make_serve_step(cfg, spec, device=dev)
+    w = (base, params["adapter"], params["frozen"])
+    task = torch.full((b,), PALI_TASK, dtype=torch.long, device=dev)
+    held = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        launches = count(lambda: held.update(pre=prefill(
+            *w, toks, embeds=patches, task=PALI_TASK)))
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+        check_launches(launches, {"tt_linear": 2 * L,
+                                  "flash_attention_d256": L},
+                       f"{tag} (a) prefill")
+        logits, caches, _ = held.pop("pre")
+        t0 = time.perf_counter()
+        launches = count(lambda: held.update(dec=greedy_decode(
+            lambda tok, i: step(*w, tok, caches, tpl + i, task=task)[0],
+            toks, p, n, first=logits[:, -1].float())))
+        step_ms = 1e3 * (time.perf_counter() - t0) / n
+    check_launches(launches, {"tt_linear_batched_a": 2 * L * n,
+                              "decode_attention_d256": L * n},
+                   f"{tag} (b) {n} decode steps")
+    del logits, caches, held
+    base_b = sum(t_.numel() * t_.element_size() for t_ in M.tensors(base))
+    print(f"[{tag}] (a) launches: {2 * L} K1 + {L} K3 (d = 256, G = 8) a "
+          f"prefill of {b} x ({tpl} patches + {p} tokens) in {pre_ms:.1f} "
+          f"ms; (b) {2 * L} K2 + {L} K4 a decode step, nothing else, "
+          f"{step_ms:.2f} ms a step = {b / step_ms * 1e3:.1f} tok/s against "
+          f"a bound of {base_b / PEAK_BYTES_S * 1e3:.3f} ms (the step reads "
+          f"the whole {base_b / 1e9:.3f} GB base)", flush=True)
+
+    def window():
+        paligemma_leg("kernel", cfg, spec, params, base, toks, patches, p,
+                      dev, new=8)
+    device_share(f"{tag}: (a) one prefill of {b} x ({tpl} + {p}) and 8 "
+                 "decode steps", window, top_n=12,
+                 show=("tt_linear", "flash_fwd", "paged"))
+    legs = {"kernel": paligemma_leg("kernel", cfg, spec, params, base, toks,
+                                    patches, p, dev, new=n)}
+    full = legs["kernel"]["tokens"]
+    base32 = tree_map(lambda t_: t_.float(), base)
+    legs["plain"] = paligemma_leg("plain", cfg, spec, params, base, full,
+                                  patches, p, dev)
+    legs["f32"] = paligemma_leg("f32", cfg, spec, params, base32, full,
+                                patches, p, dev)
+    for what in ("prefill", "decode"):
+        out = {leg: legs[leg][what].reshape(-1, legs[leg][what].shape[-1])
+               for leg in ("kernel", "plain", "f32")}
+        rel, agree, wit = legs_verdict(out)
+        logits_checked(f"(a)-(b) {what} logits", rel, agree,
+                       out["kernel"].shape[0], tag, wit)
+    with torch.inference_mode():
+        par = T.forward(base32, f32_cfg(cfg), spec, rt.broadcast,
+                        rt.per_layer, full, embeds=patches, task=PALI_TASK,
+                        policy=dispatch.REF, device=dev
+                        ).logits[:, tpl + p:tpl + p + n].float()
+    d = legs["f32"]["decode"]
+    gap = float((d - par).abs().max() / par.abs().max())
+    print(f"[{tag}] (a)-(b) f32 prefix prefill + decode steps against the "
+          f"f32 parallel forward over positions {tpl + p} .. "
+          f"{tpl + p + n - 1}: max |decode - parallel| / max |parallel| "
+          f"{gap:.3e} (limit 2e-2, the JAX test's)", flush=True)
+    if not gap <= 2e-2:
+        raise AssertionError(f"{tag}: f32 decode differs from the parallel "
+                             f"forward by {gap:.3e}")
+    del legs, base32, par
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = (cfg, spec, params, rt, gen)
+    dense_cell(dev, count, model, tag, dense_requests(cfg),
+               label="(c) dense, text only")
+    from repro_torch.config.base import QuantConfig
+    for quant, label in ((None, "(c) paged fp, text only"),
+                         (QuantConfig(kv="int8"),
+                          "(c) paged int8 KV, text only")):
+        paged_cell(dev, count, model, quant, tag, label, profiled=False)
+
+
+def phase_twentytwo(dev):
+    """Phase 22: paligemma-3b at full width and full depth (18 layers of
+    2048, 8 heads of 256 over one KV head — MQA, G = 8 — GeGLU 16384,
+    vocab 257216, a prefix of 256 stub patch embeddings; 2.51 B
+    parameters, bf16): (a)-(c) served (``paligemma_serving``), (d)
+    trained in phase 6's setting (``train_full_width``, 3 steps of 4 x
+    (256 patches + 768 tokens) under the prefix loss, ``PatchStream``):
+    exactly 6L - 2 K1, 2L #5, L #6 and L #7 (d = 256) a step and nothing
+    else, then the B = 1 gradient check with its f32 witness."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    total, secs = {}, {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paligemma_serving(dev, count)
+    secs["(a)-(c) served"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = train_full_width(dev, configs.get_config(PALIGEMMA), "phase22",
+                             steps=3)
+    for k_, v in train.items():
+        total[k_] = total.get(k_, 0) + v
+    secs["(d) trained"] = time.perf_counter() - t0
+    print(f"[phase22] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}; "
+          + ", ".join(f"{k_} {v:.1f} s" for k_, v in secs.items()),
+          flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 23: serve-time tensor parallelism on the card (a one-rank group)
+# ---------------------------------------------------------------------------
+
+#: stablelm-1.6b at full width and 4 of its 24 layers (the TP path is
+#: per layer: depth adds nothing it does not already run), 16 new tokens
+#: a request
+TP_LAYERS, TP_NEW = 4, 16
+
+
+def tp_steps_identical(cfg, rt, base, dev, label, row_parallel, kv_quant,
+                       tag="phase23"):
+    """Four dense decode steps from zero caches (4 slots, a task a slot)
+    and two paged steps (a 16-token chunk, then a decode step) over
+    ``base``, each once under the serve-TP context of the one-rank group
+    (``row_parallel`` or not; the pools one rank's stripe, here all of
+    them) and once without: the logits equal bit for bit."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import serve_tp
+    spec, bc, pl = rt.spec, rt.broadcast, rt.per_layer
+    b = 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    toks = torch.randint(0, cfg.vocab_size, (b, 17), generator=gen,
+                         device=dev)
+    task = torch.arange(b, device=dev) % 3
+    pos = torch.zeros(b, dtype=torch.long, device=dev)
+    tables = torch.tensor([[2 * i, 2 * i + 1, 2 * b] for i in range(b)],
+                          dtype=torch.int32, device=dev)
+
+    def run():
+        caches = T.init_caches(cfg, b, 32, cfg.compute_dtype, device=dev)
+        out = [T.decode_step(base, cfg, spec, bc, pl, toks[:, i:i + 1],
+                             caches, i, task=task, device=dev)[0]
+               for i in range(4)]
+        pools = T.init_paged_caches(cfg, 2 * b, 16, cfg.compute_dtype,
+                                    kv_quant=kv_quant, device=dev)
+        out.append(T.paged_step(base, cfg, spec, bc, pl, toks[:, :16], pools,
+                                tables, pos, pos + 15, task=task,
+                                device=dev)[0])
+        out.append(T.paged_step(base, cfg, spec, bc, pl, toks[:, 16:], pools,
+                                tables, pos + 16, pos, task=task,
+                                device=dev)[0])
+        return torch.stack(out)
+
+    with torch.inference_mode():
+        ref = run()
+        with serve_tp(None, 1, row_parallel):
+            got = run()
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{tag} {label}: serve-TP logits differ from "
+                             "the unsharded ones by "
+                             f"{float((got - ref).abs().max()):.3e}")
+    print(f"[{tag}] {label}: 4 dense decode steps and 2 paged steps under "
+          f"the serve-TP context (one rank, row_parallel={row_parallel}) "
+          "bit-identical to the unsharded logits", flush=True)
+
+
+def phase_twentythree(dev):
+    """Phase 23: serve-time tensor parallelism (``ServeConfig(mesh_shape=
+    (1, 1))``) over a one-rank NCCL group (a ``file://`` store in the
+    checkout's ``build/``) on full-width stablelm-1.6b at ``TP_LAYERS``
+    of its 24 layers with the 4+1d adapter: the dense engine (K2, K4 a
+    decode step), the paged engine (#8), the paged engine over int8
+    weights and KV (#8q) and the dense engine over int8 weights (#9 a
+    prefill, #10 a decode step), each with and without ``row_parallel``:
+    every request's tokens equal to the unsharded engine's, ``shards ==
+    1``; the step logits bit-identical (``tp_steps_identical``); K2, K4,
+    #8, #8q, #9 and #10 launched by the TP engines. Multi-rank TP needs
+    more than one card: the CPU tests hold 2 and 4 gloo ranks."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as K
+    from repro_torch.config.base import QuantConfig, ServeConfig
+    from repro_torch.kernels import quant as quant_lib
+    from repro_torch.serving import Engine
+    tag = "phase23"
+    total = {}
+
+    def count(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        for k_, v in n.items():
+            total[k_] = total.get(k_, 0) + v
+        return n
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = os.path.join(ROOT, "build", f"tp_store_{os.getpid()}")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    try:
+        cfg, spec, params, rt, gen = serving_model(
+            dev, tag, layers=TP_LAYERS, ratio=SERVED_RATIO)
+        dense = [dataclasses.replace(r, max_new_tokens=TP_NEW)
+                 for r in dense_requests(cfg)[:4]]
+        paged = [dataclasses.replace(r, max_new_tokens=TP_NEW)
+                 for r in paged_requests(cfg)[:8]]
+        q8 = QuantConfig(weights="int8", kv="int8")
+        w8 = QuantConfig(weights="int8")
+        cells = (("dense", "dense", QuantConfig(), ("tt_linear_batched_a",
+                                                    "decode_attention")),
+                 ("paged", "paged", QuantConfig(),
+                  ("paged_decode_attention",)),
+                 ("paged int8 weights + KV", "paged", q8,
+                  ("paged_decode_attention_int8",)),
+                 ("dense int8 weights", "dense", w8,
+                  ("tt_linear_w8", "tt_linear_batched_a_w8")))
+        for label, mode, quant, want in cells:
+            sv = (dict(PAGED) if mode == "paged"
+                  else dict(max_batch=4, cache_len=256, out_cap=32))
+            sv.update(cache_mode=mode, quant=quant)
+            reqs = paged if mode == "paged" else dense
+            eng = Engine(cfg, rt, serve=ServeConfig(**sv), device=dev)
+            ref = [o.tolist() for o in eng.generate(reqs)]
+            qbase = eng.base_weights
+            del eng
+            for rp in (False, True):
+                eng = Engine(cfg, rt, serve=ServeConfig(
+                    mesh_shape=(1, 1), row_parallel=rp, **sv), device=dev)
+                got = {}
+                n = count(lambda: got.update(o=eng.generate(reqs)))
+                st = eng.last_stats
+                toks = [o.tolist() for o in got["o"]]
+                if toks != ref:
+                    raise AssertionError(f"{tag} {label} rp={rp}: tokens "
+                                         "differ from the unsharded engine")
+                if st.shards != 1 or any(not n.get(k_) for k_ in want):
+                    raise AssertionError(f"{tag} {label} rp={rp}: shards "
+                                         f"{st.shards}, launches {n}")
+                print(f"[{tag}] {label}, mesh (1, 1), row_parallel={rp}: "
+                      f"{len(reqs)} requests, {st.tokens_generated} tokens "
+                      f"equal to the unsharded engine's, {st.tokens_per_s:.1f}"
+                      f" tok/s, shards {st.shards}, kv_bytes_peak "
+                      f"{st.kv_bytes_peak} (per shard "
+                      f"{st.kv_bytes_peak_per_shard}); launches "
+                      f"{json.dumps({k_: v for k_, v in n.items() if v})}",
+                      flush=True)
+                del eng
+                base = qbase if quant.weights == "int8" else params["base"]
+                tp_steps_identical(cfg, rt, base, dev,
+                                   f"{label}, row_parallel={rp}", rp,
+                                   quant.kv == "int8")
+            del qbase
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    for k_ in ("tt_linear_batched_a", "decode_attention",
+               "paged_decode_attention", "paged_decode_attention_int8",
+               "tt_linear_w8", "tt_linear_batched_a_w8"):
+        if not total.get(k_):
+            raise AssertionError(f"{tag}: {k_} never launched")
+    print(f"[{tag}] launches on the path "
+          f"{json.dumps({k_: v for k_, v in total.items() if v})}",
+          flush=True)
+    return total
+
+
 def main(argv) -> int:
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
@@ -7802,7 +8245,8 @@ def main(argv) -> int:
                    (14, phase_fourteen), (15, phase_fifteen),
                    (16, phase_sixteen), (17, phase_seventeen),
                    (18, phase_eighteen), (19, phase_nineteen),
-                   (20, phase_twenty), (21, phase_twentyone)):
+                   (20, phase_twenty), (21, phase_twentyone),
+                   (22, phase_twentytwo), (23, phase_twentythree)):
         paths[f"phase{n_}"] = timed(f"phase {n_}", fn, dev)
     print("[time] " + "; ".join(f"{k_} {v:.1f} s" for k_, v in secs.items())
           + f"; the script {time.perf_counter() - t_start:.1f} s "
@@ -7834,15 +8278,19 @@ def main(argv) -> int:
             rec["rows"] = [{k: r[k] for k in keys + (
                 "variant", "variants", "slab_heads", "lse_err", "library",
                 "tag", "tflops") if k in r} for r in mine]
-        for model_tag in ("gemma", "kimi", "jamba", "xlstm", "whisper"):
+        for model_tag in ("gemma", "kimi", "jamba", "xlstm", "whisper",
+                          "paligemma"):
             # K1, K2, #9, #10 at gemma-7b's and kimi-k2's q / v; K1 at
             # jamba's mamba in / out, K3, K4 and #5-#7 at its attention; K1
             # and K2 at xlstm-125m's projections; K1, K3 (encoder, cross),
             # K4 and #5-#7 (encoder, cross) at whisper-large-v3's (not the
-            # _d256 / _d112 instances, whose rows are above)
+            # _d256 / _d112 instances, whose rows are above); K3, K4, #8,
+            # #8q and #5-#7 at paligemma-3b's heads (d = 256 instances,
+            # also in their "rows")
             tagged = [{k: r[k] for k in keys} for r in mine
                       if r.get("tag") == model_tag
-                      and not re.search(r"_d\d+$", name)]
+                      and (model_tag == "paligemma"
+                           or not re.search(r"_d\d+$", name))]
             if tagged:
                 rec[f"{model_tag}_rows"] = tagged
         gqa = [{k: r[k] for k in keys + ("tag", "variant", "variants",

@@ -305,9 +305,13 @@ class ServeConfig:
     device slots (both modes); ``preempt_after`` > 0 turns on recompute
     preemption (paged mode: after that many consecutive host-loop
     iterations with the FIFO head blocked, the youngest running request
-    is re-queued with its generated tokens). ``Engine`` rejects
-    mesh_shape (and with it the router's replicas), disagg and
-    row_parallel with ``NotImplementedError``.
+    is re-queued with its generated tokens). ``mesh_shape`` (data, model)
+    with a data axis of 1 serves tensor-parallel over the ``tp_axis``:
+    one process a rank over an initialised ``torch.distributed`` group of
+    that size (``serving/engine.py``); ``row_parallel`` row-slices the
+    second matmul of each attention / FFN pair and all-reduces its
+    partial sums. A data axis above 1 (replicas, the router) and
+    ``disagg`` raise ``NotImplementedError``.
     """
     max_batch: int = 4
     cache_len: int = 64
@@ -336,6 +340,22 @@ class ServeConfig:
     @property
     def resolved_num_blocks(self) -> int:
         return self.num_blocks or self.max_batch * self.pages_per_request
+
+    @property
+    def tp_size(self) -> int:
+        """Ranks of the tensor-parallel axis (1 without a mesh)."""
+        if not self.mesh_shape:
+            return 1
+        return int(self.mesh_shape[("data", "model").index(self.tp_axis)])
+
+    @property
+    def dp_size(self) -> int:
+        """Length of the other mesh axis (data replicas; 1 without a
+        mesh)."""
+        if not self.mesh_shape:
+            return 1
+        return int(self.mesh_shape[("data", "model").index(self.tp_axis)
+                                   ^ 1])
 
     def validate(self) -> "ServeConfig":
         if self.cache_mode not in ("paged", "dense"):
@@ -375,17 +395,36 @@ class ServeConfig:
             raise ValueError(
                 "recompute preemption frees paged KV blocks; it needs "
                 "cache_mode='paged'")
-        unported = {
-            "mesh_shape": bool(self.mesh_shape),
-            "row_parallel": self.row_parallel,
-            "disagg": self.disagg,
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
+        if self.mesh_shape:
+            if len(self.mesh_shape) != 2 \
+                    or any(int(n) < 1 for n in self.mesh_shape):
+                raise ValueError(
+                    f"ServeConfig.mesh_shape={self.mesh_shape!r} must be "
+                    "a (data, model) pair of positive ints (empty for "
+                    "single-device serving)")
+            if self.tp_axis not in ("data", "model"):
+                raise ValueError(
+                    f"ServeConfig.tp_axis={self.tp_axis!r} must name a "
+                    "serve-mesh axis (data | model)")
+            if self.dp_size > 1:
+                raise NotImplementedError(
+                    f"ServeConfig.mesh_shape={self.mesh_shape!r}: the "
+                    "port serves tensor-parallel only; data replicas and "
+                    "the router are not ported yet")
+        if self.disagg:
             raise NotImplementedError(
-                f"ServeConfig {bad}: the port serves the paged and dense "
-                "cache modes on one device; meshes, replicas, the router "
-                "and disaggregated prefill are not ported yet")
+                "ServeConfig.disagg: disaggregated prefill is not ported "
+                "yet")
+        if self.row_parallel:
+            if not self.mesh_shape:
+                raise ValueError(
+                    "row_parallel is a serve-TP variant; set mesh_shape")
+            if self.quant.group_size:
+                raise ValueError(
+                    "row_parallel row-slices the K axis of wo/wd, which "
+                    f"grouped quant scales (group_size="
+                    f"{self.quant.group_size}) tile; use per-channel "
+                    "scales (group_size=0)")
         return self
 
 

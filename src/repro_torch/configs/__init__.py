@@ -4,8 +4,9 @@ use. The port carries the architectures of its slices so far: stablelm-1.6b,
 gemma-7b (heads of 256), the paper's own RoBERTa targets (one module,
 two ids), granite-34b (MQA, a GQA group of 48), mistral-large-123b
 (a group of 12), the MoE models granite-moe-1b-a400m and kimi-k2, the
-hybrid mamba / attention jamba-v0.1-52b, xlstm-125m (mLSTM / sLSTM) and
-the encoder-decoder whisper-large-v3."""
+hybrid mamba / attention jamba-v0.1-52b, xlstm-125m (mLSTM / sLSTM), the
+encoder-decoder whisper-large-v3 and paligemma-3b (a prefix of patch
+embeddings before the text)."""
 from __future__ import annotations
 
 import importlib
@@ -22,6 +23,7 @@ _MODULES = {
     "jamba-v0.1-52b": "jamba_52b",
     "xlstm-125m": "xlstm_125m",
     "whisper-large-v3": "whisper_large_v3",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ALL_IDS = tuple(_MODULES)

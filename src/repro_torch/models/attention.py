@@ -1,7 +1,10 @@
 """GQA attention with RoPE and a dense or paged KV cache, and
 cross-attention (counterpart of ``src/repro/models/attention.py``: the
 train / prefill / cross branch, the dense single-token decode branch and
-the paged branch; TP waits).
+the paged branch, each with serve-time tensor parallelism: under a
+``sharding`` context the decode branches attend over this rank's
+kv-head stripe and all-gather the heads, or, row-parallel, hand the
+local heads to a row-sliced ``wo``).
 
 The flash route sends prefill and cross-attention (non-causal, T ≠ S,
 also at a decode step's T = 1) to kernel K3 (#5 / #6 / #7 under
@@ -20,7 +23,10 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import quant as quant_lib
-from repro_torch.models.layers import AdapterCtx, adapted_linear, apply_rope
+from repro_torch.models.layers import (AdapterCtx, adapted_linear,
+                                       apply_rope, serve_rp_linear)
+from repro_torch.sharding import (get_serve_rp, serve_tp_gather,
+                                  serve_tp_slice)
 
 NEG_INF = -1e30
 
@@ -73,6 +79,14 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
     pools and x is a (B, C) chunk of co-batched decode / prefill tokens at
     (B, C) ``positions``, written in place (see ``_paged_attend``;
     ``paged_write`` is the step's precomputed write plan).
+
+    Serve TP (``sharding``): in both decode branches the cache holds this
+    rank's contiguous stripe of KV/tp kv-heads; q / k / v are sliced to
+    this rank's head group after RoPE (q heads stay aligned with their kv
+    head: H/tp = G · KV/tp), attended, and the per-head outputs
+    all-gathered before ``wo``, or under row_parallel kept local for the
+    row-sliced ``wo`` and its all-reduce. Outside a context every slice
+    and gather is the identity.
     """
     hd = cfg.resolved_head_dim
     n_h, n_kv = cfg.num_heads, cfg.num_kv_heads
@@ -105,12 +119,13 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
         if cache is None or positions.ndim != 2:
             raise ValueError("paged attention needs a paged cache and "
                              "(B, C) positions")
-        out = _paged_attend(q, k, v, ctx, cache, block_tables, positions,
-                            paged_write)
-        y = adapted_linear(out.reshape(b, t, n_h * hd), w["wo"], ctx,
-                           f"{prefix}_o")
-        return y, cache
+        out = _paged_attend(serve_tp_slice(q, 2), serve_tp_slice(k, 2),
+                            serve_tp_slice(v, 2), ctx, cache, block_tables,
+                            positions, paged_write)
+        return _tp_out_proj(out, w, ctx, prefix), cache
     if cache is not None:
+        q, k, v = (serve_tp_slice(a, 2) for a in (q, k, v))
+        n_kv = k.shape[2]           # this rank's kv heads
         # t > 1 is the speculative verifier's pass: column j of row b
         # lands at cache_pos[b] + j, and each column attends [0,
         # cache_pos[b] + j] through exactly the t == 1 code (one K4 launch
@@ -139,14 +154,28 @@ def attention(x: torch.Tensor, w: dict, ctx: AdapterCtx, cfg: ModelConfig,
                 mask = (torch.arange(s_len, device=x.device)[None, :]
                         <= (cp + j)[:, None])[:, None, None, None, :]
                 cols.append(_softmax_attend(qh, ck, cv, mask, scale))
-        out = torch.cat([c.reshape(b, 1, n_h * hd) for c in cols], dim=1)
-        new_cache = cache
+        out = torch.cat([c.reshape(b, 1, n_kv * g, hd) for c in cols],
+                        dim=1)
+        return _tp_out_proj(out, w, ctx, prefix), cache
     else:
         out = _prefill_attend(q, k, v, ctx, causal, scale).reshape(
             b, t, n_h * hd)
         new_cache = {"k": k, "v": v}
     y = adapted_linear(out, w["wo"], ctx, f"{prefix}_o")
     return y, new_cache
+
+
+def _tp_out_proj(out, w, ctx: AdapterCtx, prefix: str) -> torch.Tensor:
+    """The output projection of a decode branch over (B, T, H_local, hd)
+    heads: all-gather the heads and run ``wo`` whole, or under
+    row_parallel keep the local heads (contiguous heads meet contiguous
+    ``wo`` rows) for the row-sliced ``wo`` and its all-reduce."""
+    b, t = out.shape[:2]
+    if get_serve_rp():
+        return serve_rp_linear(out.reshape(b, t, -1), w["wo"], ctx,
+                               f"{prefix}_o")
+    out = serve_tp_gather(out, 2).reshape(b, t, -1)
+    return adapted_linear(out, w["wo"], ctx, f"{prefix}_o")
 
 
 def _prefill_attend(q, k, v, ctx: AdapterCtx, causal: bool, scale: float
@@ -222,21 +251,33 @@ def _paged_attend(q, k, v, ctx: AdapterCtx, cache: dict, block_tables,
                                            **scales)
 
 
+def _kv_heads(cfg: ModelConfig, shards: int) -> int:
+    if cfg.num_kv_heads % shards:
+        raise ValueError(f"num_kv_heads={cfg.num_kv_heads} does not split "
+                         f"{shards} ways")
+    return cfg.num_kv_heads // shards
+
+
 def init_cache(cfg: ModelConfig, batch: int, length: int, dtype,
-               device) -> dict:
-    shape = (batch, length, cfg.num_kv_heads, cfg.resolved_head_dim)
+               device, shards: int = 1) -> dict:
+    """Zero dense k / v (batch, length, KV / shards, hd): ``shards`` > 1
+    is one serve-TP rank's kv-head stripe."""
+    shape = (batch, length, _kv_heads(cfg, shards), cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
-                     dtype, device, kv_quant: bool = False) -> dict:
+                     dtype, device, kv_quant: bool = False,
+                     shards: int = 1) -> dict:
     """Flat per-layer KV block pool: (num_blocks, page, KV, hd). Which
     request owns which block lives on the host (serving/block_manager.py).
     ``kv_quant`` stores int8 cells plus f32 per-cell scale pools
     (``k_s`` / ``v_s``, (num_blocks, page, KV)) in the same block layout.
+    ``shards`` > 1 holds one serve-TP rank's stripe of KV / shards heads.
     """
-    shape = (num_blocks, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (num_blocks, page_size, _kv_heads(cfg, shards),
+             cfg.resolved_head_dim)
     if kv_quant:
         z8 = dict(dtype=torch.int8, device=device)
         zs = dict(dtype=torch.float32, device=device)

@@ -140,20 +140,33 @@ def count_params(params: dict) -> dict:
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
+                    prefix_len: int = 0,
                     vocab_size: int = 0) -> torch.Tensor:
-    """Next-token CE. logits (B, T, V), tokens (B, T), mask (B, T) gating
-    the prediction OF token j. Roll-and-mask form, as in the JAX package:
-    position p's target is token p+1 by a roll and the last position is
-    masked out. f32 logsumexp; logit columns past ``vocab_size`` (the
-    padded embedding rows) are masked to -1e30. The f32 copy of the
-    logits is the only full-size temporary autograd keeps (for the
-    logsumexp backward); the bf16 → f32 cast is freed once masked."""
+    """Next-token CE. logits (B, Tp + T, V) (Tp = ``prefix_len``, a VLM
+    prefix of patch embeddings), tokens (B, T), mask (B, T) gating the
+    prediction OF token j. Roll-and-mask form, as in the JAX package:
+    the tokens are padded with Tp zeros in front, position p's target is
+    token p+1 by a roll, and a position counts from max(Tp - 1, 0) to
+    Tp + T - 2 (the last patch position predicts text token 0); the mask
+    is padded with Tp ones and rolled the same way. f32 logsumexp; logit
+    columns past ``vocab_size`` (the padded embedding rows) are masked to
+    -1e30. The f32 copy of the logits is the only full-size temporary
+    autograd keeps (for the logsumexp backward); the bf16 → f32 cast is
+    freed once masked."""
     b, t = tokens.shape
+    t_full = logits.shape[1]
+    if prefix_len:
+        tokens = torch.cat([tokens.new_zeros((b, prefix_len)), tokens], 1)
     targets = torch.roll(tokens, -1, dims=1)
-    valid = (torch.arange(t, device=tokens.device) < t - 1).float()
-    valid = valid[None].expand(b, t)
+    pos = torch.arange(t_full, device=tokens.device)
+    valid = ((pos >= max(prefix_len - 1, 0))
+             & (pos < prefix_len + t - 1)).float()
+    valid = valid[None].expand(b, t_full)
     if mask is not None:
-        valid = valid * torch.roll(mask.float(), -1, dims=1)
+        m = mask.float()
+        if prefix_len:
+            m = torch.cat([m.new_ones((b, prefix_len)), m], 1)
+        valid = valid * torch.roll(m, -1, dims=1)
     lg = logits.float()
     if vocab_size and logits.shape[-1] > vocab_size:
         pad = torch.arange(logits.shape[-1], device=lg.device) >= vocab_size
@@ -173,16 +186,18 @@ def loss_fn(adapter, base, frozen, batch: dict, cfg: ModelConfig,
     terms (load balance, router z, each summed over layers) exist when
     ``cfg.moe_aux_weight`` > 0. Differentiate it with respect to the
     ``adapter`` tensors only; the base weights carry no grad. ``batch``:
-    tokens (B, T), optional mask (B, T) and task, and an encoder-decoder's
-    enc_embeds (B, S, d)."""
+    tokens (B, T), optional mask (B, T) and task, an encoder-decoder's
+    enc_embeds (B, S, d), and a VLM's prefix ``embeds`` (B, Tp, d), whose
+    Tp positions the loss skips (``next_token_loss(prefix_len=Tp)``)."""
     bc, per_layer = peft_api.adapter_factors(spec, adapter, frozen)
     out = transformer.forward(base, cfg, spec, bc, per_layer,
-                              batch["tokens"],
+                              batch["tokens"], embeds=batch.get("embeds"),
                               enc_embeds=batch.get("enc_embeds"),
                               task=batch.get("task"), remat=remat,
                               policy=policy, device=device)
+    prefix = 0 if batch.get("embeds") is None else batch["embeds"].shape[1]
     loss = next_token_loss(out.logits, batch["tokens"], batch.get("mask"),
-                           vocab_size=cfg.vocab_size)
+                           prefix, vocab_size=cfg.vocab_size)
     if not out.aux:
         return loss, {"ce": loss}
     aux_weight = cfg.moe_aux_weight if aux_weight is None else aux_weight

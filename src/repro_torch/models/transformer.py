@@ -42,6 +42,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (AdapterCtx, dense_ffn, embed_tokens,
                                        lm_logits, norm)
+from repro_torch.sharding import get_serve_tp, serve_tp_gather, serve_tp_slice
 
 # ---------------------------------------------------------------------------
 # init
@@ -170,15 +171,16 @@ ENC_PATTERN = (("attn", "dense"),)
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port's model slice: attention, mamba, mLSTM or sLSTM mixers
-    with a dense, a MoE or no FFN, decoder-only or encoder-decoder (the
-    audio stub frontend); the ``patch_stub`` prefix is not ported yet."""
+    with a dense, a MoE or no FFN, decoder-only (with the ``patch_stub``
+    prefix of patch embeddings, or none) or encoder-decoder (the audio
+    stub frontend)."""
     for mixer, ffn in cfg.block_pattern:
         if mixer not in _MIXER_INIT or ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: block {(mixer, ffn)} is not ported yet "
                 "(attention, mamba, mLSTM or sLSTM mixers with a dense, "
                 "MoE or no FFN only)")
-    if cfg.frontend not in ("none", "audio_stub"):
+    if cfg.frontend not in ("none", "audio_stub", "patch_stub"):
         raise NotImplementedError(
             f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet")
 
@@ -385,7 +387,7 @@ def encode(base, cfg: ModelConfig, enc_embeds, spec, broadcast, per_layer,
 
 
 def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
-            enc_embeds=None, task=None, remat: bool = False,
+            embeds=None, enc_embeds=None, task=None, remat: bool = False,
             return_caches: bool = False, policy=None,
             device=None) -> ModelOutputs:
     """Train / prefill forward: tokens (B, T) -> ModelOutputs with
@@ -394,8 +396,12 @@ def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
     last state and conv window; ``{}`` for an xLSTM position). An
     encoder-decoder first encodes ``enc_embeds`` (B, S, d) (``encode``;
     ``ModelOutputs.enc_out``, which its decode steps take) and its decoder
-    reads adapter slices from ``encoder_layers`` on. ``remat`` checkpoints
-    each decoder super-block (training; the encoder is not, as in JAX).
+    reads adapter slices from ``encoder_layers`` on. ``embeds`` (B, Tp, d),
+    a VLM's patch embeddings, is cast to the compute dtype and prepended
+    to the token embeddings: positions, logits and caches then cover the
+    Tp + T rows, the prefix under the causal mask like any token.
+    ``remat`` checkpoints each decoder super-block (training; the encoder
+    is not, as in JAX).
     ``device`` is where the call runs (None: the CUDA device, raising
     without one)."""
     check_supported(cfg)
@@ -410,6 +416,9 @@ def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
             policy=policy)
         offset = cfg.encoder_layers
     h = embed_tokens(tokens, base["embed"]["tok"], cfg.compute_dtype)
+    if embeds is not None:
+        h = torch.cat([torch.as_tensor(embeds, device=h.device).to(h.dtype),
+                       h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)
     h, caches, aux2 = run_blocks(h, base["blocks"], cfg.block_pattern, spec,
                                  broadcast, per_layer, cfg,
@@ -424,7 +433,8 @@ def forward(base, cfg: ModelConfig, spec, broadcast, per_layer, tokens, *,
 
 
 def init_caches(cfg: ModelConfig, batch: int, length: int, dtype, *,
-                device=None, num_super_blocks: Optional[int] = None) -> list:
+                device=None, num_super_blocks: Optional[int] = None,
+                shards: int = 1) -> list:
     """Zero dense caches, one per pattern position: {"self": {"k", "v"}}
     with leaves (nb, batch, length, KV, hd) for attention, {"ssm": {"h",
     "conv"}} with leaves (nb, batch, d_inner, d_state) f32 and (nb, batch,
@@ -432,7 +442,9 @@ def init_caches(cfg: ModelConfig, batch: int, length: int, dtype, *,
     {"h", "c", "n", "m"}} (f32) for the xLSTM mixers; an enc-dec decoder
     holds no cross-attention cache (its decode steps recompute the cross
     k / v from ``enc_out``, as JAX's do); ``num_super_blocks`` overrides
-    nb (the speculative drafter's layer-strided region)."""
+    nb (the speculative drafter's layer-strided region); ``shards`` > 1
+    allocates one serve-TP rank's stripe of KV / shards kv-heads of an
+    attention cache."""
     check_supported(cfg)
     nb = num_super_blocks or cfg.num_super_blocks
     dev = resolve_device(device)
@@ -445,7 +457,8 @@ def init_caches(cfg: ModelConfig, batch: int, length: int, dtype, *,
         elif mixer == "slstm":
             c = xlstm_lib.init_slstm_cache(cfg, nb * batch, dev)
         else:
-            c = attn_lib.init_cache(cfg, nb * batch, length, dtype, dev)
+            c = attn_lib.init_cache(cfg, nb * batch, length, dtype, dev,
+                                    shards=shards)
         out.append({CACHE_KEY[mixer]: {k: v.view(nb, batch, *v.shape[1:])
                                        for k, v in c.items()}})
     return out
@@ -462,6 +475,19 @@ def insert_cache_slot(caches, req_caches, slot: int) -> list:
             dst[:, slot, :t] = src[:, 0].to(dst.dtype)
             dst[:, slot, t:] = 0
     return caches
+
+
+def _serve_logits(h, embed) -> torch.Tensor:
+    """The tied-embedding readout of the serving steps. Under serve TP
+    (``sharding``) each rank computes its contiguous padded-vocab stripe
+    (equal to those columns of the whole readout: splitting a GEMM by
+    columns changes no element's reduction order) and the logits are
+    all-gathered: the one all-gather of the step that is not per layer,
+    (B, V) a token."""
+    if not get_serve_tp():
+        return lm_logits(h, embed)
+    return serve_tp_gather(lm_logits(h, serve_tp_slice(embed, 0)),
+                           h.ndim - 1)
 
 
 def decode_step(base, cfg: ModelConfig, spec, broadcast, per_layer, token,
@@ -493,18 +519,20 @@ def decode_step(base, cfg: ModelConfig, spec, broadcast, per_layer, token,
                               policy=policy)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
     if all_logits:
-        return lm_logits(h, base["embed"]["tok"]), caches
-    return lm_logits(h[:, 0], base["embed"]["tok"]), caches
+        return _serve_logits(h, base["embed"]["tok"]), caches
+    return _serve_logits(h[:, 0], base["embed"]["tok"]), caches
 
 
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, page_size: int,
                       dtype, *, kv_quant: bool = False, device=None,
-                      num_super_blocks: Optional[int] = None) -> list:
+                      num_super_blocks: Optional[int] = None,
+                      shards: int = 1) -> list:
     """Zero paged pools, one {"self": {"k", "v"}} per pattern position,
     leaves (nb, num_blocks, page, KV, hd); ``kv_quant`` makes them int8
     and adds "k_s" / "v_s" f32 scale pools (nb, num_blocks, page, KV);
-    ``num_super_blocks`` overrides nb (the speculative drafter's region).
-    Which request owns which block lives on the host
+    ``num_super_blocks`` overrides nb (the speculative drafter's region);
+    ``shards`` > 1 allocates one serve-TP rank's stripe of KV / shards
+    kv-heads. Which request owns which block lives on the host
     (serving/block_manager.py). Attention models only: a mamba or xLSTM
     layer's state is not a paged KV pool."""
     check_supported(cfg)
@@ -518,7 +546,7 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, page_size: int,
     for _ in cfg.block_pattern:
         c = attn_lib.init_paged_cache(cfg, nb * num_blocks, page_size, dtype,
                                       resolve_device(device),
-                                      kv_quant=kv_quant)
+                                      kv_quant=kv_quant, shards=shards)
         out.append({"self": {k: v.view(nb, num_blocks, *v.shape[1:])
                              for k, v in c.items()}})
     return out
@@ -568,7 +596,7 @@ def paged_step(base, cfg: ModelConfig, spec, broadcast, per_layer, toks,
                               paged_write=write)
     h = norm(h, _at(base["final_norm"], 0), cfg.norm_eps)
     if all_logits:
-        return lm_logits(h, base["embed"]["tok"]), caches
+        return _serve_logits(h, base["embed"]["tok"]), caches
     sel = torch.as_tensor(sel, device=dev).long()
     h_sel = h[torch.arange(h.shape[0], device=dev), sel]           # (B, d)
-    return lm_logits(h_sel, base["embed"]["tok"]), caches
+    return _serve_logits(h_sel, base["embed"]["tok"]), caches

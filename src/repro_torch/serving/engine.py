@@ -96,20 +96,35 @@
     k+1, through #8 / #8q), and the accept rule. Greedy tokens are the
     non-speculative engine's.
 
-Meshes (and with them replicas, the router, disaggregated prefill and
-``row_parallel``) are not ported yet: ``Engine`` raises
+  * TENSOR PARALLELISM (``ServeConfig(mesh_shape=(1, tp))``,
+    ``sharding/rules.py``): one process a rank over an initialised
+    ``torch.distributed`` group of tp ranks (gloo on the CPU, NCCL on the
+    cards). Every rank runs this engine over the whole weights with the
+    same seed, so the host-side scheduler, block manager, prefix cache
+    and sampling agree rank by rank; each rank's pools (and dense caches)
+    hold its contiguous stripe of KV/tp kv-heads. The decode steps run
+    inside the serve-TP context: attention slices the rank's head group
+    and all-gathers the heads, the readout all-gathers vocab stripes of
+    the logits, and ``row_parallel`` row-slices ``wo`` / ``wd`` with an
+    all-reduce. The dense prefill runs whole on every rank and admission
+    writes the rank's stripe. Tokens equal the single-device engine's.
+
+Data replicas (a mesh data axis above 1), the router and disaggregated
+prefill are not ported yet: ``ServeConfig`` raises
 ``NotImplementedError`` for them, and ``ChaosInjector(kill_replica_at=)``
 raises too.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.config.base import (KernelConfig, ModelConfig, QuantConfig,
@@ -118,6 +133,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import quant as quant_lib
 from repro_torch.models import transformer
+from repro_torch.peft import api as peft_api
 from repro_torch.serving import adapter_registry
 from repro_torch.serving import chaos as chaos_lib
 from repro_torch.serving import sampling as sampling_lib
@@ -127,6 +143,7 @@ from repro_torch.serving.adapter_runtime import AdapterRuntime
 from repro_torch.serving.block_manager import BlockManager, PrefixCache
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.stats import EngineStats
+from repro_torch.sharding import serve_cache_stripe, serve_tp
 
 
 @dataclasses.dataclass
@@ -239,6 +256,12 @@ class Engine:
         self.sv = (serve if serve is not None else ServeConfig()).validate()
         self.cfg = model_cfg
         self.rt = runtime
+        # tensor-parallel serving: a mesh needs its process group, and the
+        # sharded dims must split evenly (a rank slices contiguous head /
+        # vocab groups); there is no unsharded fallback
+        self._tp = self.sv.tp_size
+        if self.sv.mesh_shape:
+            _check_tp(model_cfg, self.sv)
         self.device = resolve_device(device)
         emb = runtime.base["embed"]["tok"]
         if emb.device.type != self.device.type:
@@ -263,6 +286,13 @@ class Engine:
                 "kv=int8 quantization needs cache_mode='paged' (the int8 "
                 "cells and their scale pools live in the paged block "
                 "layout)")
+        if self.sv.row_parallel and self.quant.group_size:
+            # ServeConfig checks its own quant; the KernelConfig merge can
+            # bring grouped scales back
+            raise ValueError(
+                "row_parallel is incompatible with grouped int8 scales "
+                "(group_size > 0): scale groups tile the contraction axis "
+                "the row slices cut; use per-channel group_size=0")
         self.max_batch = self.sv.max_batch
         self.paged = self.sv.cache_mode == "paged"
         self.cache_len = self.sv.cache_len
@@ -384,11 +414,19 @@ class Engine:
                                registry=self.registry)
 
     def _fresh_pools(self, num_super_blocks: Optional[int] = None) -> list:
-        """Zero pools; ``num_super_blocks`` sizes the drafter's region."""
+        """Zero pools (this rank's kv-head stripe under TP);
+        ``num_super_blocks`` sizes the drafter's region."""
         return transformer.init_paged_caches(
             self.cfg, self._num_blocks, self._page, self.cfg.compute_dtype,
             kv_quant=self._kv_quant, device=self.device,
-            num_super_blocks=num_super_blocks)
+            num_super_blocks=num_super_blocks, shards=self._tp)
+
+    def _tp_ctx(self):
+        """The serve-TP context the decode steps run in (a no-op without
+        a mesh)."""
+        if not self.sv.mesh_shape:
+            return contextlib.nullcontext()
+        return serve_tp(None, self._tp, self.sv.row_parallel)
 
     @property
     def base_weights(self):
@@ -415,7 +453,8 @@ class Engine:
             cache_mode=self.sv.cache_mode, requests=requests,
             weights_dtype="int8" if self.quant.weights == "int8" else "fp",
             kv_dtype="int8" if self._kv_quant else "fp",
-            max_resident_tasks=self.reg_cfg.max_resident_tasks)
+            max_resident_tasks=self.reg_cfg.max_resident_tasks,
+            shards=self._tp)
 
     def _kv_bytes(self, tokens: int,
                   num_super_blocks: Optional[int] = None) -> int:
@@ -568,10 +607,11 @@ class Engine:
             failed=torch.zeros((b,), dtype=torch.bool, device=self.device),
             caches=transformer.init_caches(
                 self.cfg, b, self.cache_len, self.cfg.compute_dtype,
-                device=self.device),
+                device=self.device, shards=self._tp),
             dcaches=transformer.init_caches(
                 self.cfg, b, self.cache_len, self.cfg.compute_dtype,
-                device=self.device, num_super_blocks=self._nb_draft)
+                device=self.device, num_super_blocks=self._nb_draft,
+                shards=self._tp)
             if self._spec_on else None)
 
     def _admit(self, s: DecodeState, slot: int, req: Request,
@@ -584,10 +624,16 @@ class Engine:
         task = task_ref if self.rt.tasked else None
         last, caches1 = self._prefill(prompt, task)
         t0 = sampling_lib.sample(last[None], gen, self.sampling)[0]
-        transformer.insert_cache_slot(s.caches, caches1, slot)
+        # the prefill is whole on every rank: under TP the slot takes this
+        # rank's kv-head stripe of it
+        with self._tp_ctx():
+            transformer.insert_cache_slot(s.caches,
+                                          serve_cache_stripe(caches1), slot)
         if self._spec_on:   # the drafter prefills the same prompt
             _, dcaches1 = self._prefill(prompt, task, self._draft_weights)
-            transformer.insert_cache_slot(s.dcaches, dcaches1, slot)
+            with self._tp_ctx():
+                transformer.insert_cache_slot(
+                    s.dcaches, serve_cache_stripe(dcaches1), slot)
         n_new = int(req.max_new_tokens)
         s.tok[slot, 0] = t0
         s.pos[slot] = plen
@@ -753,7 +799,8 @@ class Engine:
         step = self._spec_step if self._spec_on else self._step
         steps = 0
         while True:
-            step(s, nan_at, gen)
+            with self._tp_ctx():
+                step(s, nan_at, gen)
             steps += 1
             if not bool((s.active.any()
                          & (s.active == active0).all()).item()):
@@ -1160,7 +1207,8 @@ class Engine:
         step = self._paged_spec_step if self._spec_on else self._paged_step
         steps = 0
         while True:
-            step(s, tables, nan_at, gen)
+            with self._tp_ctx():
+                step(s, tables, nan_at, gen)
             steps += 1
             if not bool((s.active.any()
                          & (s.active == active0).all()).item()):
@@ -1437,3 +1485,103 @@ class Engine:
             st.ttft_s = sum(ttft) / len(ttft)
         if tpot:
             st.tpot_s = sum(tpot) / len(tpot)
+
+
+def _check_tp(cfg: ModelConfig, sv: ServeConfig) -> None:
+    """A tensor-parallel engine needs an initialised process group of
+    ``sv.tp_size`` ranks (the counterpart of the JAX engine's device
+    count check), and heads, kv-heads and the padded vocab (and d_ff under
+    row_parallel) that split evenly over it."""
+    tp = sv.tp_size
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"ServeConfig.mesh_shape={sv.mesh_shape!r} serves one process "
+            f"a rank over a torch.distributed group of {tp} ranks, and no "
+            "process group is initialised "
+            "(torch.distributed.init_process_group)")
+    if dist.get_world_size() != tp:
+        raise ValueError(
+            f"ServeConfig.mesh_shape={sv.mesh_shape!r} shards {tp} ways "
+            f"over the {sv.tp_axis} axis but the process group has "
+            f"{dist.get_world_size()} ranks")
+    for dim, name in ((cfg.num_heads, "num_heads"),
+                      (cfg.num_kv_heads, "num_kv_heads"),
+                      (cfg.padded_vocab, "padded_vocab")):
+        if dim % tp:
+            raise ValueError(
+                f"{name}={dim} is not divisible by the {sv.tp_axis}-axis "
+                f"size {tp}; the sharded engine slices contiguous head / "
+                "vocab groups per rank")
+    if sv.row_parallel and cfg.d_ff % tp:
+        raise ValueError(
+            f"row_parallel serving row-slices the ffn-down weight: "
+            f"d_ff={cfg.d_ff} must be divisible by the {sv.tp_axis}-axis "
+            f"size {tp}")
+
+
+# ---------------------------------------------------------------------------
+# single-shot helpers (one request shape at a time; the Engine above serves
+# real traffic, tests and the chip check keep these as reference decoders)
+# ---------------------------------------------------------------------------
+
+
+def _pad_caches(caches, cfg: ModelConfig, batch: int, cache_len: int, *,
+                device=None) -> list:
+    """Place a prefill's length-T caches into fixed ``cache_len``-wide zero
+    caches (``transformer.init_caches`` in the compute dtype): each leaf
+    fills the leading corner of its template, the rest stays zero. A
+    position whose prefill returned no cache (``{}``, the xLSTM parallel
+    forms) keeps its zero state."""
+    template = transformer.init_caches(cfg, batch, cache_len,
+                                       cfg.compute_dtype, device=device)
+    for c, z in zip(caches, template):
+        for key, leaves in c.items():
+            for name, src in leaves.items():
+                dst = z[key][name]
+                dst[tuple(slice(0, n) for n in src.shape)] = src.to(dst.dtype)
+    return template
+
+
+def make_serve_step(cfg: ModelConfig, spec, *, kernels=None, device=None):
+    """Single-token decode step. fn(base, adapter, frozen, token (B, 1),
+    caches, pos[, enc_out][, task]) -> (logits (B, V), caches), the caches
+    updated in place. ``pos`` is a scalar or a (B,) per-row vector (after
+    a prefill of Tp prefix rows and P tokens, decode starts at Tp + P);
+    ``task`` a scalar or a (B,) task-id vector (4+1d routing);
+    ``kernels`` a KernelConfig (None: the kernels for CUDA tensors);
+    ``device`` where the call runs (None: the CUDA device)."""
+    policy = dispatch.resolve(kernels)
+
+    def step_fn(base, adapter, frozen, token, caches, pos, enc_out=None,
+                task=None):
+        bc, pl = peft_api.adapter_factors(spec, adapter, frozen)
+        return transformer.decode_step(base, cfg, spec, bc, pl, token,
+                                       caches, pos, enc_out=enc_out,
+                                       task=task, policy=policy,
+                                       device=device)
+
+    return step_fn
+
+
+def make_prefill(cfg: ModelConfig, spec, cache_len: int, *, kernels=None,
+                 device=None):
+    """Prefill: fn(base, adapter, frozen, tokens (B, P)[, enc_embeds][,
+    embeds][, task]) -> (logits, caches padded to ``cache_len``, enc_out).
+    The forward's length-T caches (T = Tp + P with a VLM prefix
+    ``embeds`` (B, Tp, d)) are placed into the fixed-size decode caches
+    (``_pad_caches``); an encoder-decoder returns its encoder output for
+    the decode steps, else ``enc_out`` is None."""
+    policy = dispatch.resolve(kernels)
+
+    def prefill_fn(base, adapter, frozen, tokens, enc_embeds=None,
+                   embeds=None, task=None):
+        bc, pl = peft_api.adapter_factors(spec, adapter, frozen)
+        out = transformer.forward(base, cfg, spec, bc, pl, tokens,
+                                  embeds=embeds, enc_embeds=enc_embeds,
+                                  task=task, policy=policy,
+                                  return_caches=True, device=device)
+        caches = _pad_caches(out.caches, cfg, out.logits.shape[0], cache_len,
+                             device=out.logits.device)
+        return out.logits, caches, out.enc_out
+
+    return prefill_fn

@@ -1,7 +1,13 @@
 """Per-``generate`` engine observability (counterpart of
 ``src/repro/serving/stats.py``: the fields that mean something for the
-eager single-device engine, dense and paged; no trace counters — nothing
-is traced)."""
+eager engine, dense and paged; no trace counters — nothing is traced).
+
+Byte accounting is GLOBAL (all ranks): ``block_bytes`` / ``kv_bytes_peak``
+describe the whole logical cache whatever the serve mesh, so paged-vs-
+dense and int8-vs-fp comparisons read alike on one device and under
+tensor parallelism. ``shards`` is how many ways the kv-head axis is split
+(1 without a mesh); the ``*_per_shard`` properties divide the global
+figures down to what one rank holds."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,7 +34,10 @@ class EngineStats:
     page_size: int = 0           # dense: cache_len (one "block" per slot)
     num_blocks: int = 0          # paged: pool budget; dense: max_batch
     kv_blocks_peak: int = 0      # max blocks simultaneously in use
-    block_bytes: int = 0         # device bytes per block (all layers, k+v)
+    block_bytes: int = 0         # global device bytes per block (all
+    #                              layers, k+v; every rank holds 1/shards)
+    shards: int = 1              # kv-head shards (the tensor-parallel
+    #                              ranks; 1 = one device)
     # --- latency phase split (paged; host clock at loop exits) ---
     ttft_s: float = 0.0          # mean time-to-first-token over requests
     tpot_s: float = 0.0          # mean per-token time after the first
@@ -76,7 +85,20 @@ class EngineStats:
 
     @property
     def kv_bytes_peak(self) -> int:
+        """Peak GLOBAL (all-rank) KV bytes in use."""
         return self.kv_blocks_peak * self.block_bytes
+
+    @property
+    def block_bytes_per_shard(self) -> int:
+        """Device bytes one rank holds per block: the kv-head axis splits
+        ``shards`` ways and every other dim stays whole."""
+        return self.block_bytes // max(self.shards, 1)
+
+    @property
+    def kv_bytes_peak_per_shard(self) -> int:
+        """Peak KV bytes resident on ONE rank (the global peak on one
+        device, global / shards under TP)."""
+        return self.kv_blocks_peak * self.block_bytes_per_shard
 
     @property
     def adapter_hit_rate(self) -> float:
@@ -104,7 +126,8 @@ class EngineStats:
     def summary(self) -> str:
         paged = self.cache_mode == "paged"
         return (f"mode={self.cache_mode} w={self.weights_dtype} "
-                f"kv={self.kv_dtype} reqs={self.requests} "
+                f"kv={self.kv_dtype} shards={self.shards} "
+                f"reqs={self.requests} "
                 f"toks={self.tokens_generated} "
                 f"tok/s={self.tokens_per_s:.1f} "
                 + (f"ttft={self.ttft_s * 1e3:.1f}ms "
@@ -112,6 +135,7 @@ class EngineStats:
                 + f"prefills={self.prefills} decode_steps={self.decode_steps} "
                 f"kv_blocks_peak={self.kv_blocks_peak}/{self.num_blocks} "
                 f"kv_bytes_peak={self.kv_bytes_peak} "
+                f"(per_shard={self.kv_bytes_peak_per_shard}) "
                 + (f"prefix_hit_rate={self.prefix_hit_rate:.2f} "
                    f"cow={self.cow_copies} waits={self.backpressure_waits} "
                    if paged else "")

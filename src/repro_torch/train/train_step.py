@@ -78,7 +78,8 @@ def make_train_step(cfg: ModelConfig, spec: peft_api.AdapterSpec,
                     device=None) -> Callable:
     """fn(state, base, frozen, batch) -> (state, metrics). ``batch``
     holds tensors on ``device``: tokens (B, T), mask (B, T), optional
-    task, and an encoder-decoder's enc_embeds (B, S, d). ``kernels``: a
+    task, an encoder-decoder's enc_embeds (B, S, d) and a VLM's prefix
+    embeds (B, Tp, d) (each travels with its microbatch). ``kernels``: a
     KernelConfig / KernelPolicy (None: the kernels for CUDA tensors, both
     directions)."""
     if train_cfg.remat not in ("none", "block"):

@@ -147,7 +147,7 @@ class Trainer:
         else:
             raw = next(self.data)
         batch = {}
-        for k in ("tokens", "mask", "task", "enc_embeds"):
+        for k in ("tokens", "mask", "task", "embeds", "enc_embeds"):
             if k not in raw:
                 continue
             v = np.asarray(raw[k])

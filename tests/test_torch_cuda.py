@@ -723,6 +723,58 @@ def test_paged_decode_attention_int8_reads_pool_views(dev):
                                         ks, vs, tables, pos)
 
 
+@pytest.mark.parametrize("kind", ["dense", "paged", "paged_int8"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_decode_attention_reads_tp_head_stripes(dev, tp, kind):
+    """Serve-time tensor parallelism hands rank r's K4 / #8 / #8q a
+    contiguous stripe of the heads taken with ``narrow``: q heads
+    r·H/tp.. of the projection output, kv heads r·KV/tp.. of the cache or
+    pool (and of the int8 scale pools). Each stripe is read through its
+    strides, within 2e-2 of the plain version on contiguous copies, and
+    the stripes concatenated in rank order are within 2e-2 of the plain
+    version over all heads; one launch a stripe."""
+    b, kv, g, d = 4, 4, 2, 128
+    h = kv * g
+    if kind == "dense":
+        q = _rn(dev, b, h, d, seed=7)
+        pools = (_rn(dev, b, 300, kv, d, seed=8),
+                 _rn(dev, b, 300, kv, d, seed=9))
+        pos = torch.tensor([0, 63, 150, 299], dtype=torch.int32, device=dev)
+        kernel, plain, rest, name = (tfa.decode_attention,
+                                     tfa.decode_attention_plain, (pos,),
+                                     "decode_attention")
+    else:
+        _, _, _, tables, pos = _paged_case(dev, 1, g, d, 16)
+        q = _rn(dev, b, 1, h, d, seed=7)
+        kc, vc = _rn(dev, 40, 16, kv, d, seed=8), _rn(dev, 40, 16, kv, d,
+                                                       seed=9)
+        if kind == "paged":
+            pools = (kc, vc)
+            kernel, plain, name = (tpa.paged_decode_attention,
+                                   tpa.paged_decode_attention_plain,
+                                   "paged_decode_attention")
+        else:
+            k8, ks = tquant.quantize_kv(kc.float() * 3)
+            v8, vs = tquant.quantize_kv(vc.float() * 3)
+            pools = (k8, v8, ks, vs)
+            kernel, plain, name = (tpa.paged_decode_attention_int8,
+                                   tpa.paged_decode_attention_int8_plain,
+                                   "paged_decode_attention_int8")
+        rest = (tables, pos)
+    hq = q.ndim - 2                       # q's head axis; pools' is 2
+    kernels.reset_launch_counts()
+    stripes = []
+    for r in range(tp):
+        qs = q.narrow(hq, r * h // tp, h // tp)
+        ps = [t.narrow(2, r * kv // tp, kv // tp) for t in pools]
+        got = kernel(qs, *ps, *rest)
+        _close(got, plain(qs.contiguous(), *(t.contiguous() for t in ps),
+                          *rest), 2e-2)
+        stripes.append(got)
+    assert kernels.launch_counts()[name] == tp
+    _close(torch.cat(stripes, hq), plain(q, *pools, *rest), 2e-2)
+
+
 # --------------------------------------------------------------- K1 `wgmma`
 
 @pytest.mark.parametrize("view", [False, True])

@@ -223,7 +223,7 @@ def test_entry_points_need_a_device_without_a_gpu(monkeypatch):
 
 @pytest.mark.parametrize("bad", [
     dict(disagg=True),                           # disaggregated prefill
-    dict(cache_mode="dense", mesh_shape=(1, 2)),
+    dict(cache_mode="dense", mesh_shape=(2, 1)),  # data replicas
 ])
 def test_unported_serving_modes_raise(bad):
     j, t = _setup()

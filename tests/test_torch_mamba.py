@@ -483,8 +483,7 @@ def test_engine_and_paged_pools_refuse_mamba():
 def test_check_supported_still_refuses_xlstm_and_enc_dec():
     """The model slice takes xLSTM mixers and enc-dec models now
     (``check_supported`` passes them), but the slot engine still refuses
-    both before it touches a weight, as the JAX engine does; the
-    ``patch_stub`` prefix still raises in ``check_supported``."""
+    both before it touches a weight, as the JAX engine does."""
     cfg = tconfigs.get_smoke_config(ARCH)
     xl = dataclasses.replace(cfg, block_pattern=(("mlstm", "none"),),
                              num_layers=1)
@@ -496,6 +495,3 @@ def test_check_supported_still_refuses_xlstm_and_enc_dec():
         TT.check_supported(ok)
         with pytest.raises(NotImplementedError, match=msg):
             Engine(ok, rt, device="cpu")
-    bad = dataclasses.replace(cfg, frontend="patch_stub", frontend_seq=4)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TT.check_supported(bad)

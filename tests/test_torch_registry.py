@@ -197,10 +197,13 @@ def test_registry_config_validation():
         ServeConfig(cache_mode="dense", preempt_after=2).validate()
 
 
-@pytest.mark.parametrize("bad", [dict(mesh_shape=(1, 2)),
-                                 dict(row_parallel=True),
+@pytest.mark.parametrize("bad", [dict(mesh_shape=(2, 1)),
+                                 dict(mesh_shape=(2, 2), row_parallel=True),
                                  dict(disagg=True)])
 def test_multi_device_serving_still_raises(bad):
+    """Data replicas (a data axis above 1) and disaggregated prefill are
+    not ported; tensor parallelism (``mesh_shape=(1, tp)``) is
+    (``tests/test_torch_sharded_engine.py``)."""
     with pytest.raises(NotImplementedError):
         ServeConfig(registry=RegistryConfig(max_resident_tasks=2),
                     **bad).validate()

@@ -238,12 +238,23 @@ def test_full_width_parameter_counts_match_jax():
 
 
 def test_patch_stub_frontend_is_refused():
-    """The ``patch_stub`` prefix (paligemma) is not ported yet."""
+    """The ``patch_stub`` prefix (paligemma) is ported: ``check_supported``
+    takes it, and the slot engine builds for the smoke paligemma config
+    (it serves text only, as the JAX engine does; the prefix itself is
+    held to JAX in ``tests/test_torch_paligemma.py``)."""
     cfg = tconfigs.get_smoke_config(ARCH)
-    bad = dataclasses.replace(cfg, encoder_layers=0, encoder_seq=0,
-                              frontend="patch_stub", frontend_seq=4)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TT.check_supported(bad)
+    prefix = dataclasses.replace(cfg, encoder_layers=0, encoder_seq=0,
+                                 frontend="patch_stub", frontend_seq=4)
+    TT.check_supported(prefix)
+    pcfg = tconfigs.get_smoke_config("paligemma-3b")
+    TT.check_supported(pcfg)
+    spec = TM.build_adapter_spec(RunConfig(model=pcfg))
+    tp = TM.init_params(pcfg, spec, torch.Generator().manual_seed(0),
+                        device="cpu")
+    rt = AdapterRuntime.build("live", tp["base"], spec, tp["adapter"],
+                              tp["frozen"])
+    eng = Engine(pcfg, rt, device="cpu")
+    assert eng.paged and eng.cfg.frontend == "patch_stub"
 
 
 # ---------------------------------------------------------------------------
